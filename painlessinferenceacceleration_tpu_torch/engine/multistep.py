@@ -1,0 +1,160 @@
+"""Multi-step decode loops (greedy AR and lookahead), as Python loops.
+
+Port of ``multistep_decode`` and ``multistep_spec_decode`` from
+``painlessinferenceacceleration_tpu/engine/multistep.py``. JAX runs each
+loop as one ``lax.scan`` on the device (its host relay made every sync
+expensive) and donates the arena; here each step is an eager call, the KV
+arena and the draft tables are updated in place, and the spec loop reads
+the accepted counts back once per step to bound the table update.
+
+Ported: greedy and teacher-forced targets, ``eos``, per-row ``budget``,
+frozen tables (``update_tables=False``) and the ``wide_mask`` probe, on the
+non-adaptive path. Sampling, repetition penalty, linear-attention state and
+GLM positions are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+from painlessinferenceacceleration_tpu_torch.engine.step import verify_parallel_core
+from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
+    DraftTableConfig,
+    build_tree_inputs,
+    retrieve_drafts,
+    update_tables_seq,
+)
+from painlessinferenceacceleration_tpu_torch.models.base import (
+    logits_from_hidden,
+    transformer_hidden,
+)
+
+_NO_LIMIT = torch.iinfo(torch.int32).max
+
+
+def _defaults(B, dev, eos, budget):
+    if eos is None:
+        eos = torch.full((B,), -2, dtype=torch.int32, device=dev)
+    if budget is None:
+        budget = torch.full((B,), _NO_LIMIT, dtype=torch.int32, device=dev)
+    return eos, budget
+
+
+def multistep_decode(
+    params: dict,
+    kv: dict,
+    cfg: ModelConfig,
+    last_tokens: torch.Tensor,  # [B]
+    ctx_lens: torch.Tensor,  # [B]
+    active: torch.Tensor,  # [B] bool
+    page_tables: torch.Tensor,  # [B, P]
+    n_steps: int,
+    eos: Optional[torch.Tensor] = None,  # [B] per-request eos id (-2 = none)
+    spec: Optional[QuantSpec] = None,
+    teacher: Optional[torch.Tensor] = None,  # [B, W] teacher-forced stream
+    budget: Optional[torch.Tensor] = None,  # [B] max tokens to emit per row
+):
+    """``n_steps`` greedy AR steps. Returns (kv, tokens [B, K], last, ctx,
+    active, budget_left); inactive rows emit -1."""
+    B = last_tokens.shape[0]
+    dev = last_tokens.device
+    eos, budget = _defaults(B, dev, eos, budget)
+    last, ctx, act = last_tokens.to(torch.int32), ctx_lens.to(torch.int32), active
+    cnt = torch.zeros(B, dtype=torch.int32, device=dev)
+    qmask = torch.ones((B, 1, 1), dtype=torch.bool, device=dev)
+    toks = []
+    for _ in range(n_steps):
+        h, kv = transformer_hidden(params, cfg, kv, last[:, None], ctx[:, None],
+                                   page_tables, ctx, qmask, act[:, None], spec)
+        logits = logits_from_hidden(params, cfg, h, spec)[:, 0]
+        if teacher is not None:
+            tgt = (ctx.long() + 1).clamp(0, teacher.shape[1] - 1)
+            nxt = torch.gather(teacher.long(), 1, tgt[:, None])[:, 0].to(torch.int32)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(torch.where(act, nxt, -1))
+        step = act.to(torch.int32)
+        ctx = ctx + step
+        cnt = cnt + step
+        act = act & (nxt != eos) & (cnt < budget)
+        last = torch.where(act, nxt, last)
+    return kv, torch.stack(toks, dim=1), last, ctx, act, budget - cnt
+
+
+def multistep_spec_decode(
+    params: dict,
+    kv: dict,
+    tables: dict,
+    cfg: ModelConfig,
+    tcfg: DraftTableConfig,
+    last_tokens: torch.Tensor,  # [B]
+    ctx_lens: torch.Tensor,  # [B]
+    active: torch.Tensor,  # [B] bool
+    tail: torch.Tensor,  # [B, TAIL] rolling recent-token window (ends with last)
+    page_tables: torch.Tensor,  # [B, P]
+    n_steps: int,
+    eos: Optional[torch.Tensor] = None,
+    spec: Optional[QuantSpec] = None,
+    teacher: Optional[torch.Tensor] = None,
+    update_tables: bool = True,  # False: frozen tables (strict-lossless replay)
+    budget: Optional[torch.Tensor] = None,
+):
+    """``n_steps`` lookahead verify steps with the draft tables on the card.
+
+    Per step and active row: retrieve the top-R branches for the last
+    2-gram, tree-verify (width Q = 1 + R*L) with KV compaction, insert the
+    windows completed by the accepted tokens, roll the tail. Returns (kv,
+    tables, out_tokens [B, K, Q] (-1 padded), n_acc [B, K], last, ctx,
+    active, tail, wide_mask [K])."""
+    B = last_tokens.shape[0]
+    dev = last_tokens.device
+    eos, budget = _defaults(B, dev, eos, budget)
+    L, R, Q = tcfg.branch_length, tcfg.retrieve_count, tcfg.verify_width
+    TAIL = tail.shape[1]
+    last, ctx, act = last_tokens.to(torch.int32), ctx_lens.to(torch.int32), active
+    tail = tail.to(torch.int32)
+    cnt = torch.zeros(B, dtype=torch.int32, device=dev)
+    k = torch.arange(Q, device=dev)[None, :]
+    outs, accs, wides = [], [], []
+    for _ in range(n_steps):
+        branches, freqs = retrieve_drafts(tables, tcfg, tail[:, -2], last)
+        tokens, parents, qmask, depth = build_tree_inputs(last, branches)
+        wides.append(((freqs[:, 0] > tcfg.gate_min_freq) & act).any())
+        kv, out, n_acc = verify_parallel_core(
+            params, kv, cfg, tokens, ctx[:, None] + depth, qmask, parents,
+            page_tables, ctx, act, R, L, spec, teacher)
+        # eos clamp: truncate the emitted run at its first eos
+        is_eos = (out == eos[:, None]) & (k < n_acc[:, None])
+        any_eos = is_eos.any(dim=1)
+        eos_pos = torch.argmax(is_eos.to(torch.int32), dim=1).to(torch.int32)
+        n_acc = torch.where(any_eos, eos_pos + 1, n_acc)
+        # budget clamp; an eos inside the clamped run still ends the row
+        n_acc = torch.minimum(n_acc, (budget - cnt).clamp(min=0))
+        any_eos = any_eos & (eos_pos < n_acc)
+        emitted = torch.where((k < n_acc[:, None]) & act[:, None], out, -1)
+        outs.append(emitted)
+
+        # roll the tail: the TAIL tokens ending at the new stream head
+        n_emit = n_acc * act.to(torch.int32)
+        full = torch.cat([tail, emitted], dim=1)
+        end = TAIL + n_emit
+        tail = torch.gather(full, 1, (end[:, None] - TAIL + torch.arange(TAIL, device=dev)).long())
+
+        if update_tables:
+            for b, n in enumerate(n_emit.tolist()):
+                if n > 0:
+                    update_tables_seq(tables, tcfg, full[b], TAIL + n,
+                                      win_lo=TAIL, win_hi=TAIL + n)
+
+        nxt_last = torch.gather(out, 1, (n_acc.long() - 1).clamp(0, Q - 1)[:, None])[:, 0]
+        ctx = ctx + n_emit
+        cnt = cnt + n_emit
+        accs.append(n_emit)
+        act = act & ~any_eos & (cnt < budget)
+        last = torch.where(act, nxt_last, last)
+    return (kv, tables, torch.stack(outs, dim=1), torch.stack(accs, dim=1),
+            last, ctx, act, tail, torch.stack(wides))

@@ -1,0 +1,68 @@
+"""Paged attention with prefix + in-step tree masks: the plain torch path.
+
+Port of ``painlessinferenceacceleration_tpu/ops/attention.py``. One
+visibility rule covers prefill, decode and lookahead verify::
+
+    key j is visible to query (b, t)  iff
+        j < start_lens[b]                                  (committed prefix)
+     or s = j - start_lens[b] in [0, Q) and qmask[b, t, s]  (in-step)
+
+The in-step tokens are written into the arena before attention. These
+functions are the plain versions that the kernels in ``ops/paged_attention.py``
+are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # large-negative instead of -inf: all-masked rows stay finite
+
+
+def attention_mask(start_lens: torch.Tensor, qmask: torch.Tensor,
+                   kv_len_total: int) -> torch.Tensor:
+    """[B, Q, L] bool visibility mask (L = padded arena view length)."""
+    B, Q, _ = qmask.shape
+    j = torch.arange(kv_len_total, dtype=torch.int64, device=qmask.device)[None, None, :]
+    start = start_lens.to(torch.int64)[:, None, None]
+    s = j - start
+    s_clip = s.clamp(0, Q - 1).expand(B, Q, kv_len_total)
+    instep = torch.gather(qmask, 2, s_clip)
+    return (j < start) | ((s >= 0) & (s < Q) & instep)
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """Masked GQA attention with fp32 softmax and accumulation.
+
+    q [B, Q, Hq, D]; k, v [B, Hkv, L, D]; mask [B, Q, L]. Returns [B, Q, Hq, D]."""
+    B, Qn, Hq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    qg = q.permute(0, 2, 1, 3).reshape(B, Hkv, G * Qn, D).to(torch.float32)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qg, k.to(torch.float32)) * scale
+    scores = scores.reshape(B, Hkv, G, Qn, -1)
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Qn, Hq, v.shape[-1])
+    return out.to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
+                        scale: float) -> torch.Tensor:
+    """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D]."""
+    from painlessinferenceacceleration_tpu_torch.engine.cache import gather_kv_pages
+
+    D = q.shape[-1]
+    kc = gather_kv_pages(k_pages, page_tables, D).to(q.dtype)
+    vc = gather_kv_pages(v_pages, page_tables, D).to(q.dtype)
+    mask = attention_mask(start_lens, qmask, kc.shape[2])
+    return mha_reference(q, kc, vc, mask, scale)
+
+
+def causal_qmask(q_len: int, device=None) -> torch.Tensor:
+    """Lower-triangular in-step mask (prefill chunks)."""
+    i = torch.arange(q_len, device=device)
+    return i[:, None] >= i[None, :]
