@@ -6,17 +6,29 @@
 Phases, one line each (any failure exits non-zero and prints no result):
 
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time;
-2. every CUDA kernel of the main path against its plain torch version at the
-   main path's shapes (bf16), with its time, the plain version's time, the
-   bound the card could reach and a PyTorch library call as a yardstick;
-3. the main path at full width: Llama-2-7B, int4 group-128 weights (random,
-   from a fixed torch.Generator seed), a bf16 paged arena (page 64, 4096
-   tokens), a 512-token prefill, 128 greedy AR tokens, lookahead decode
-   (branch 16, one branch, Q = 17) for ~256 tokens, and the strict lossless
-   check: the lookahead stream must equal, token for token, the same program
-   run from a fresh prefill with empty frozen tables;
-4. the launch count of every kernel during phase 3 (all must be > 0), and
-   the ``kernels`` JSON line.
+2. every CUDA kernel and arena mode against its plain torch version at the
+   7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
+   write-back), with its time, the plain version's time, the bound the card
+   could reach and a PyTorch library call as a yardstick; then the batch
+   invariance the lossless check rests on (K1, the norm and attention rows
+   bit-identical at every width);
+3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
+   (random, from a fixed torch.Generator seed), a bf16 paged arena (page 64,
+   4096 tokens), a 512-token prefill, 128 greedy AR tokens, lookahead
+   decode (branch 16, one branch, Q = 17) for ~256 tokens, and the strict
+   lossless check: the lookahead stream must equal, token for token, the
+   same program run from a fresh prefill with empty frozen tables;
+   serving: the ``LLM`` engine on the same weights serves 16 requests
+   (prompts of 64-384 tokens, half behind one shared 128-token prefix,
+   48 new tokens each) with AR and with lookahead, over each KV arena
+   (bf16, static fp8 after calibration, per-token fp8); every request's
+   lookahead output must equal its AR output; then every kernel and arena
+   mode against its plain version again, on the inputs of real serving
+   calls kept during those runs (decode and verify at B = 8 with ragged
+   contexts, batched prefill with prefix-resumed rows, K1 at M = 8 x 512,
+   the compactions' page ids);
+4. the launch count of every kernel and mode during phase 3 and serving
+   (all must be > 0), the script's wall time, and the ``kernels`` JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
 them) and ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -32,6 +44,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
@@ -122,86 +135,188 @@ def _errs(got, ref):
     return d, d / (ref.float().abs().max().item() + 1e-12)
 
 
-def check_int4_gemm(pkg, g, M, K, N, out_dtype, replaces):
+def gemm_row(pkg, x, q, s, out_dtype, case):
+    """K1 on these inputs against int4_matmul_plain, timed."""
     import torch
 
     qm = pkg["quant_matmul"]
-    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
-    q = torch.randint(0, 256, (K // 2, N), generator=g, device="cuda", dtype=torch.uint8)
-    s = (torch.rand(K // 128, N, generator=g, device="cuda") * 0.004 + 0.001).to(torch.bfloat16)
+    (M, K), N = x.shape, q.shape[1]
     got = qm.int4_matmul(x, q, s, out_dtype)
     ref = qm.int4_matmul_plain(x, q, s, out_dtype)
     err, rel = _errs(got, ref)
     tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-4
     if not rel <= tol:
-        fail(f"int4_gemm M={M} K={K} N={N}: rel err {rel} > {tol}")
+        fail(f"int4_gemm {case}: rel err {rel} > {tol}")
     w = pkg["linear"].dequantize({"q": q, "s": s}, dtype=torch.bfloat16)
     ms = time_ms(lambda: qm.int4_matmul(x, q, s, out_dtype))
     plain_ms = time_ms(lambda: qm.int4_matmul_plain(x, q, s, out_dtype), reps=5)
     lib_ms = time_ms(lambda: torch.matmul(x, w))
     osz = 2 if out_dtype == torch.bfloat16 else 4
-    nbytes = M * K * 2 + K * N // 2 + (K // 128) * N * 2 + M * N * osz
+    nbytes = M * K * 2 + K * N // 2 + s.numel() * 2 + M * N * osz
+    replaces = (f"{QMM}:142 _qmm4_kernel_v3" if out_dtype == torch.float32
+                else f"{QMM}:147 _qmm4_stacked_kernel_v3")
     return _case("int4_gemm", "int4_gemm.cu", replaces, err, rel, ms, plain_ms,
                  bound_ms(nbytes, 2.0 * M * K * N), lib_ms,
-                 f"M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+                 f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
 
 
-def _arena(g, B, ctx_max, Q, Hkv, D, ps):
+def check_int4_gemm(pkg, g, M, K, N, out_dtype):
+    import torch
+
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randint(0, 256, (K // 2, N), generator=g, device="cuda", dtype=torch.uint8)
+    s = (torch.rand(K // 128, N, generator=g, device="cuda") * 0.004 + 0.001).to(torch.bfloat16)
+    return gemm_row(pkg, x, q, s, out_dtype, "")
+
+
+def quantize_e4m3(x, Hkv: int, per_token: bool):
+    """x [n_pages, ps, Hkv*D] quantized as the arena's writes do: scale =
+    amax/448 per kv head over the whole arena (static), or per (token, kv
+    head); clip to +-448, then cast. The dequantized rows keep x's spread,
+    so the softmax over them is not flat."""
+    import torch
+
+    xh = x.reshape(*x.shape[:2], Hkv, -1)
+    amax = xh.abs().amax(-1) if per_token else xh.abs().amax(dim=(0, 1, 3))
+    s = (amax / 448.0).clamp(min=1e-8).contiguous()
+    q = (xh / (s[..., None] if per_token else s[:, None])).clamp(-448.0, 448.0)
+    return q.to(torch.float8_e4m3fn).reshape(x.shape), s
+
+
+def _arena(g, B, ctx_max, Q, Hkv, D, ps, arena="bf16"):
+    """Unit-normal K/V pages for B requests (permuted page tables) of the
+    arena kind: bf16, or e4m3 with static [Hkv] or per-token
+    [n_pages, ps, Hkv] scales."""
     import torch
 
     P = -(-(ctx_max + Q) // ps) + 1
     n_pages = B * P + 1
-    k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda")
+    v = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda")
     perm = torch.randperm(n_pages - 1, generator=g, device="cuda")[: B * P] + 1
-    return k, v, perm.reshape(B, P).to(torch.int32)
+    pt = perm.reshape(B, P).to(torch.int32)
+    if arena == "bf16":
+        return k.to(torch.bfloat16), v.to(torch.bfloat16), pt, None, None
+    (k8, ks), (v8, vs) = (quantize_e4m3(t, Hkv, arena == "fp8_tok") for t in (k, v))
+    return k8, v8, pt, ks, vs
 
 
-def check_attention(pkg, g, kind, B, Q, Hq, Hkv, ctx, qmask, replaces):
-    """kind: 'decode' / 'verify' (paged_attention) or 'prefill' (causal)."""
+def _attn_name(kind: str, arena: str) -> str:
+    if arena == "fp8_tok":
+        return f"paged_attention_tok[{kind}]"
+    fp8 = arena == "fp8"
+    if kind == "prefill":
+        return "paged_attention_prefill" + ("[fp8]" if fp8 else "")
+    return f"paged_attention[{kind}" + (",fp8]" if fp8 else "]")
+
+
+def _attn_replaces(kind: str, arena: str) -> str:
+    if arena == "fp8_tok":
+        return f"{PAT}:380 _attn_decode_tok_kernel"
+    return {"decode": f"{PAT}:236 _attn_decode_kernel",
+            "verify": f"{PAT}:54 _attn_verify_kernel",
+            "prefill": f"{PAT}:851 _attn_prefill_kernel"}[kind]
+
+
+def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, case):
+    """One attention call (kind: 'decode' / 'verify' under the mask rule,
+    'prefill' causal; arena: 'bf16', 'fp8' static scales, 'fp8_tok'
+    per-token scales) against paged_attention_ref on the same inputs,
+    timed."""
     import torch
     import torch.nn.functional as F
 
-    D, ps = 128, 64
     pa, ref_mod = pkg["paged_attention"], pkg["attention"]
-    k, v, pt = _arena(g, B, ctx, Q, Hkv, D, ps)
-    ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
-    q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
-    scale = D ** -0.5
+    B, Q, Hq, D = q.shape
+    ps, Hkv = k.shape[1], k.shape[2] // D
+    scales = None if arena == "bf16" else (ks, vs)
     if kind == "prefill":
         qmask = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q)
+    if arena == "fp8_tok":
+        mask_arg = None if kind == "prefill" else qmask
 
         def run():
-            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale)
+            return pa.paged_attention_tok(q, k, v, ks, vs, pt, ctx_t, scale, mask_arg)
+    elif kind == "prefill":
+        def run():
+            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale, scales)
     else:
         def run():
-            return pa.paged_attention(q, k, v, pt, ctx_t, qmask, scale)
+            return pa.paged_attention(q, k, v, pt, ctx_t, qmask, scale, scales)
+
+    def plain():
+        return ref_mod.paged_attention_ref(q, k, v, pt, ctx_t, qmask, scale, ks, vs)
     got = run()
-    ref = ref_mod.paged_attention_ref(q, k, v, pt, ctx_t, qmask, scale)
-    err, rel = _errs(got, ref)
+    err, rel = _errs(got, plain())
     if not rel <= 2e-2:
-        fail(f"paged attention {kind} B={B} Q={Q} Hq={Hq} Hkv={Hkv}: rel err {rel}")
+        fail(f"paged attention {kind} {arena} {case}: rel err {rel}")
     ms = time_ms(run)
-    plain_ms = time_ms(lambda: ref_mod.paged_attention_ref(q, k, v, pt, ctx_t, qmask, scale), reps=5)
-    # yardstick: SDPA over the K/V gathered (outside the timing) with the mask
+    plain_ms = time_ms(plain, reps=5)
+    # yardstick: SDPA over the K/V gathered and dequantized (outside the
+    # timing) with the same mask
     G = Hq // Hkv
-    gk = pkg["cache"].gather_kv_pages(k, pt, D).repeat_interleave(G, dim=1)
-    gv = pkg["cache"].gather_kv_pages(v, pt, D).repeat_interleave(G, dim=1)
+    cache = pkg["cache"]
+    gk = cache.gather_kv_pages(k, pt, D, ks, torch.bfloat16).repeat_interleave(G, dim=1)
+    gv = cache.gather_kv_pages(v, pt, D, vs, torch.bfloat16).repeat_interleave(G, dim=1)
     mask = ref_mod.attention_mask(ctx_t, qmask, gk.shape[2])[:, None]
     qt = q.transpose(1, 2)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, gk, gv, attn_mask=mask, scale=scale))
     vis = int(mask[:, 0].sum().item()) * Hq  # visible (row, key) pairs
-    nbytes = 2 * B * (ctx + Q) * Hkv * D * 2 + 2 * q.numel() * 2
-    name = "paged_attention_prefill" if kind == "prefill" else f"paged_attention[{kind}]"
-    return _case(name, "paged_attention.cu", replaces, err, rel, ms, plain_ms,
-                 bound_ms(nbytes, 4.0 * vis * D), lib_ms,
-                 f"B={B} Q={Q} Hq={Hq} Hkv={Hkv} ctx={ctx} ps={ps}")
+    # keys each request reads: its context and the step's own Q rows
+    kv_rows = int((ctx_t.long() + Q).clamp(max=pt.shape[1] * ps).sum().item())
+    kv_elem = 2 if arena == "bf16" else 1
+    nbytes = 2 * kv_rows * Hkv * D * kv_elem + 2 * q.numel() * 2
+    if arena == "fp8":
+        nbytes += 2 * Hkv * 4
+    elif arena == "fp8_tok":
+        nbytes += 2 * kv_rows * Hkv * 4
+    return _case(_attn_name(kind, arena), "paged_attention.cu", _attn_replaces(kind, arena),
+                 err, rel, ms, plain_ms, bound_ms(nbytes, 4.0 * vis * D), lib_ms,
+                 f"{case}B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} arena={arena}")
+
+
+def check_attention(pkg, g, kind, B, Q, Hq, Hkv, ctx, qmask, arena="bf16"):
+    import torch
+
+    D, ps = 128, 64
+    k, v, pt, ks, vs = _arena(g, B, ctx, Q, Hkv, D, ps, arena)
+    ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+    return attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs,
+                         D ** -0.5, f"ctx={ctx} ")
+
+
+def kv_permute_row(pkg, pages, ids, src, case):
+    """K4 on these pages and index tables against its plain version (bit
+    for bit), timed; the device time from torch.profiler beside it."""
+    import torch
+
+    ku = pkg["kv_update"]
+    L, _, ps, HD = pages.shape
+    B, TPP = ids.shape
+    W = TPP * ps
+    got = ku.kv_permute_pages(pages.clone(), ids, src)
+    ref = ku.kv_permute_pages_plain(pages.clone(), ids, src)
+    if not torch.equal(got, ref):
+        fail(f"kv_permute_pages differs from its plain version ({case})")
+    err, rel = _errs(got, ref)
+    work = pages.clone()
+    ms = time_ms(lambda: ku.kv_permute_pages(work, ids, src))
+    plain_ms = time_ms(lambda: ku.kv_permute_pages_plain(work, ids, src), reps=5)
+    moved = int((src != torch.arange(W, device="cuda")[None]).sum().item())
+    # each moved row: its source read once, its destination written once
+    nbytes = L * 2 * moved * HD * pages.element_size() + (ids.numel() + src.numel()) * 4
+    row = _case("kv_permute_pages", "kv_permute.cu", f"{KVU}:144 _permute_kernel",
+                err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), None,
+                f"{case}L={L} B={B} TPP={TPP} ps={ps} HD={HD} moved_rows={moved}")
+    row["device_ms"] = device_ms_per_call(lambda: ku.kv_permute_pages(work, ids, src),
+                                          "kv_permute")
+    return row
 
 
 def check_kv_permute(pkg, g, L, n_pages, ps, HD, B, TPP, moves: bool):
     import torch
 
-    ku = pkg["kv_update"]
     W = TPP * ps
     pages = torch.randn(L, n_pages, ps, HD, generator=g, device="cuda").to(torch.bfloat16)
     ids = (torch.randperm(n_pages - 1, generator=g, device="cuda")[: B * TPP] + 1)
@@ -210,21 +325,71 @@ def check_kv_permute(pkg, g, L, n_pages, ps, HD, B, TPP, moves: bool):
         src = torch.stack([torch.randperm(W, generator=g, device="cuda") for _ in range(B)])
     else:
         src = torch.arange(W, device="cuda")[None].expand(B, W)
-    src = src.to(torch.int32).contiguous()
-    got = ku.kv_permute_pages(pages.clone(), ids, src)
-    ref = ku.kv_permute_pages_plain(pages.clone(), ids, src)
-    if not torch.equal(got, ref):
-        fail("kv_permute_pages differs from its plain version")
-    err, rel = _errs(got, ref)
+    return kv_permute_row(pkg, pages, ids, src.to(torch.int32).contiguous(), "")
+
+
+def device_ms_per_call(fn, kernel_substr: str, calls: int = 20) -> float:
+    """The kernel's own device time per call, from torch.profiler (apart
+    from the wrapper's host rate, which the CUDA events of back-to-back
+    calls measure when the kernel is short)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if kernel_substr in e.key:
+            dev = getattr(e, "self_device_time_total", None)
+            total += dev if dev is not None else getattr(e, "self_cuda_time_total", 0.0)
+    return total / 1e3 / calls if total > 0 else None  # None: not measured
+
+
+def kv_write_row(pkg, pages, windows, ids, case):
+    """K6 on these pages, windows and page ids against its plain version
+    (bit for bit), timed; the device time from torch.profiler beside it."""
+    import torch
+
+    ku = pkg["kv_update"]
+    L, _, ps = pages.shape[:3]
+    W = windows.shape[1]
+    got = ku.kv_write_pages(pages.clone(), windows, ids)
+    ref = ku.kv_write_pages_plain(pages.clone(), windows, ids)
+    if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+        fail(f"kv_write_pages ({pages.dtype}, {case}) differs from its plain version")
+    err, rel = _errs(got.view(torch.uint8), ref.view(torch.uint8))
     work = pages.clone()
-    ms = time_ms(lambda: ku.kv_permute_pages(work, ids, src))
-    plain_ms = time_ms(lambda: ku.kv_permute_pages_plain(work, ids, src), reps=5)
-    moved = int((src != torch.arange(W, device="cuda")[None]).sum().item())
-    # each moved row: its source read once, its destination written once
-    nbytes = L * 2 * moved * HD * pages.element_size() + (ids.numel() + src.numel()) * 4
-    return _case("kv_permute_pages", "kv_permute.cu", f"{KVU}:144 _permute_kernel",
-                 err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), None,
-                 f"L={L} B={B} TPP={TPP} ps={ps} HD={HD} moved_rows={moved}")
+    ms = time_ms(lambda: ku.kv_write_pages(work, windows, ids))
+    plain_ms = time_ms(lambda: ku.kv_write_pages_plain(work, windows, ids), reps=5)
+    raw, wraw = work.view(torch.uint8), windows.view(torch.uint8)
+    lib_ms = time_ms(lambda: raw.index_copy_(1, ids.long(), wraw))
+    row_bytes = pages[0, 0, 0].numel() * pages.element_size()
+    n_unique = int(torch.unique(ids).numel())
+    nbytes = 2 * L * n_unique * ps * row_bytes + W * 4
+    row = _case("kv_write_pages", "kv_page_write.cu", f"{KVU}:261 _page_write_kernel",
+                err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), lib_ms,
+                f"{case}L={L} W={W} ps={ps} row_bytes={row_bytes} "
+                f"{str(pages.dtype).split('.')[-1]} aliased={W - n_unique}")
+    row["device_ms"] = device_ms_per_call(lambda: ku.kv_write_pages(work, windows, ids),
+                                          "kv_page_write")
+    return row
+
+
+def check_kv_write_pages(pkg, g, L, n_pages, ps, HD, B, TPP, dtype):
+    """K6 over W = B*TPP window pages (the compaction's write-back), one
+    destination named twice (the page-table clip)."""
+    import torch
+
+    W = B * TPP
+    pages = torch.randn(L, n_pages, ps, HD, generator=g, device="cuda").to(dtype)
+    windows = torch.randn(L, W, ps, HD, generator=g, device="cuda").to(dtype)
+    ids = torch.randperm(n_pages - 1, generator=g, device="cuda")[:W] + 1
+    ids[-1] = ids[0]  # aliased: the later window page must win
+    return kv_write_row(pkg, pages, windows, ids.to(torch.int32), f"B={B} ")
 
 
 def phase_kernels(pkg, cfg) -> list:
@@ -237,11 +402,9 @@ def phase_kernels(pkg, cfg) -> list:
     rows = []
     for M in (1, 17, 512):
         for K, N in layer_shapes:
-            rows.append(check_int4_gemm(pkg, g, M, K, N, torch.bfloat16,
-                                        f"{QMM}:147 _qmm4_stacked_kernel_v3"))
+            rows.append(check_int4_gemm(pkg, g, M, K, N, torch.bfloat16))
     for M in (1, 17):
-        rows.append(check_int4_gemm(pkg, g, M, E, V, torch.float32,
-                                    f"{QMM}:142 _qmm4_kernel_v3"))
+        rows.append(check_int4_gemm(pkg, g, M, E, V, torch.float32))
     dt = pkg["device_tables"]
     branches = torch.randint(3, V, (2, 8), generator=g, device="cuda")
     _, _, tree, _ = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
@@ -249,20 +412,72 @@ def phase_kernels(pkg, cfg) -> list:
     one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
     H = cfg.num_attention_heads
     for Hkv in (H, 8):  # the model's MHA, and one GQA geometry
-        rows.append(check_attention(pkg, g, "decode", 1, 1, H, Hkv, 640, one,
-                                    f"{PAT}:236 _attn_decode_kernel"))
-        rows.append(check_attention(pkg, g, "verify", 1, 17, H, Hkv, 768, tree,
-                                    f"{PAT}:54 _attn_verify_kernel"))
+        rows.append(check_attention(pkg, g, "decode", 1, 1, H, Hkv, 640, one))
+        rows.append(check_attention(pkg, g, "verify", 1, 17, H, Hkv, 768, tree))
     for ctx in (0, 512):
-        rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None,
-                                    f"{PAT}:851 _attn_prefill_kernel"))
+        rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None))
+    # the e4m3 arenas at the model's shapes (static scales, per-token scales)
+    for arena in ("fp8", "fp8_tok"):
+        rows.append(check_attention(pkg, g, "decode", 1, 1, H, H, 640, one, arena))
+        rows.append(check_attention(pkg, g, "verify", 1, 17, H, H, 768, tree, arena))
+        for ctx in (0, 512):
+            rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None, arena))
     L = cfg.num_hidden_layers
     for moves in (True, False):
         rows.append(check_kv_permute(pkg, g, L, 65, 64, HD, 1, 2, moves))
+    Hkv = cfg.num_key_value_heads
+    for B in (1, 8):
+        rows.append(check_kv_write_pages(pkg, g, L, 2 * 8 * B + 1, 64, HD, B, 2,
+                                         torch.float8_e4m3fn))
+        rows.append(check_kv_write_pages(pkg, g, L, 2 * 8 * B + 1, 64, Hkv, B, 2,
+                                         torch.float32))
+    rows.extend(check_batch_invariance(pkg, g, cfg))
     torch.cuda.synchronize()
     for r in rows:
         print("phase 2 kernel: " + json.dumps(r))
     return rows
+
+
+def check_batch_invariance(pkg, g, cfg) -> list:
+    """Lossless serving needs every row's result to be the same at every
+    batch width: K1 rows at M = 1..512, the norm at every row count, and an
+    attention row at Q = 1 and inside a 17-wide verify, bit for bit. Fails
+    the run otherwise; returns no kernel rows."""
+    import torch
+
+    E = cfg.hidden_size
+    x = torch.randn(512, E, generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randint(0, 256, (E // 2, E), generator=g, device="cuda", dtype=torch.uint8)
+    s = (torch.rand(E // 128, E, generator=g, device="cuda") * 0.004).to(torch.bfloat16)
+    qm_mod, norm_mod = pkg["quant_matmul"], pkg["rmsnorm"]
+    full = qm_mod.int4_matmul(x, q, s)
+    w = torch.ones(E, dtype=torch.bfloat16, device="cuda")
+    nfull = norm_mod.rms_norm(x, w)
+    for m in (1, 2, 4, 8, 17, 136):
+        if not torch.equal(qm_mod.int4_matmul(x[:m], q, s), full[:m]):
+            fail(f"int4_gemm rows change with the batch width (M={m})")
+        if not torch.equal(norm_mod.rms_norm(x[:m], w), nfull[:m]):
+            fail(f"rms_norm rows change with the batch width (M={m})")
+    pa, H, D = pkg["paged_attention"], cfg.num_attention_heads, cfg.head_dim
+    for arena in ("bf16", "fp8", "fp8_tok"):
+        k, v, pt, ks, vs = _arena(g, 2, 700, 17, H, D, 64, arena)
+        ctx = torch.tensor([700, 333], dtype=torch.int32, device="cuda")
+        qq = torch.randn(2, 17, H, D, generator=g, device="cuda").to(torch.bfloat16)
+        tree = torch.rand(2, 17, 17, generator=g, device="cuda") < 0.5
+        tree[:, 0] = False
+        tree[:, :, 0] = True
+        one = torch.ones(2, 1, 1, dtype=torch.bool, device="cuda")
+
+        def att(qx, m):
+            if arena == "fp8_tok":
+                return pa.paged_attention_tok(qx, k, v, ks, vs, pt, ctx, D ** -0.5, m)
+            return pa.paged_attention(qx, k, v, pt, ctx, m, D ** -0.5,
+                                      None if ks is None else (ks, vs))
+        if not torch.equal(att(qq, tree)[:, :1], att(qq[:, :1].contiguous(), one)):
+            fail(f"paged_attention ({arena}) row 0 changes with the verify width")
+    print("phase 2 batch invariance: int4_gemm, rms_norm and attention rows "
+          "bit-identical at every width")
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -270,27 +485,46 @@ def phase_kernels(pkg, cfg) -> list:
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path(pkg, cfg, spec) -> dict:
+class Launches:
+    """The kernels' launch counters: each wrapper's ``launches`` and, for
+    the attention wrappers, its ``modes`` (width kind, arena)."""
+
+    def __init__(self, pkg):
+        pa, ku = pkg["paged_attention"], pkg["kv_update"]
+        self.attn = (pa.paged_attention, pa.paged_attention_prefill, pa.paged_attention_tok)
+        self.plain = {"int4_gemm": pkg["quant_matmul"].int4_matmul,
+                      "kv_permute_pages": ku.kv_permute_pages,
+                      "kv_write_pages": ku.kv_write_pages}
+
+    def reset(self):
+        for f in (*self.attn, *self.plain.values()):
+            f.launches = 0
+        for f in self.attn:
+            f.modes.clear()
+
+    def read(self) -> dict:
+        """Counts by kernels-line row name."""
+        out = {name: f.launches for name, f in self.plain.items()}
+        pa, pre, tok = self.attn
+        for kind in ("decode", "verify"):
+            out[f"paged_attention[{kind}]"] = pa.modes[f"{kind},bf16"]
+            out[f"paged_attention[{kind},fp8]"] = pa.modes[f"{kind},fp8"]
+        out["paged_attention_prefill"] = pre.modes["prefill,bf16"]
+        out["paged_attention_prefill[fp8]"] = pre.modes["prefill,fp8"]
+        for kind in ("decode", "verify", "prefill"):
+            out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
+        return out
+
+
+def phase_main_path(pkg, cfg, spec, params) -> dict:
     import numpy as np
     import torch
 
-    counted = (pkg["quant_matmul"].int4_matmul, pkg["paged_attention"].paged_attention,
-               pkg["paged_attention"].paged_attention_prefill,
-               pkg["kv_update"].kv_permute_pages)
-
-    def reset():
-        for f in counted:
-            f.launches = 0
-
-    def counts():
-        return [f.launches for f in counted]
-
+    launches = Launches(pkg)
     step, ms_mod, dt = pkg["step"], pkg["multistep"], pkg["device_tables"]
     ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=4096, max_concurrency=1)
     tcfg = dt.DraftTableConfig(buckets=16384, ways=8, branch_length=16, retrieve_count=1)
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = pkg["base"].init_params_quantized(cfg, spec, gen)
     prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10, PROMPT_LEN)
     prompt_t = torch.tensor(prompt[None], dtype=torch.int32, device="cuda")
     pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
@@ -327,13 +561,12 @@ def phase_main_path(pkg, cfg, spec) -> dict:
         torch.cuda.synchronize()
         return stream, n_steps, time.perf_counter() - t0, tables
 
-    reset()
+    launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     kv, nxt, logits = prefill()
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    c_prefill = counts()
     if not (torch.isfinite(logits).all() and logits.shape == (1, cfg.vocab_size)):
         fail("prefill logits are not finite or have the wrong shape")
     t0 = time.perf_counter()
@@ -342,16 +575,11 @@ def phase_main_path(pkg, cfg, spec) -> dict:
     ar_stream = [int(nxt[0])] + toks[0].tolist()
     torch.cuda.synchronize()
     ar_s = time.perf_counter() - t0
-    c_ar = counts()
     if int(ctx[0]) != PROMPT_LEN + AR_TOKENS - 1 or min(ar_stream) < 0:
         fail("AR decode did not advance one token per step")
     del kv
     spec_stream, spec_steps, spec_s, tables = spec_run(False, True, SPEC_TOKENS)
-    c_spec = counts()
-    launches = dict(zip(("int4_gemm", "paged_attention", "paged_attention_prefill",
-                         "kv_permute_pages"), c_spec))
-    launches["paged_attention[decode]"] = c_ar[1] - c_prefill[1]
-    launches["paged_attention[verify]"] = c_spec[1] - c_ar[1]
+    counts = launches.read()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     replay, replay_steps, _, _ = spec_run(True, False, 4 * SPEC_TOKENS)
     n = min(len(spec_stream), len(replay))
@@ -367,7 +595,7 @@ def phase_main_path(pkg, cfg, spec) -> dict:
         spec_tokens=len(spec_stream), spec_steps=spec_steps,
         lossless_strict=div == n, lossless_compared=n, first_divergence=div,
         spec_vs_ar_first_divergence=ar_div, spec_vs_ar_compared=n_ar,
-        peak_mem_gb=peak_gb, launches=launches,
+        peak_mem_gb=peak_gb, launches=counts,
     )
     print("phase 3 main path: " + json.dumps(res))
     if div != n or n < SPEC_TOKENS // 2:
@@ -459,6 +687,294 @@ def profile_steps(pkg, cfg, spec, params, ecfg, tcfg, prompt_t, pt, ctx0) -> dic
     return res
 
 
+# ---------------------------------------------------------------------------
+# the serving phase: LLM over the three KV arenas, AR and lookahead
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 16
+SERVE_NEW_TOKENS = 48
+SERVE_PREFIX = 128  # two 64-token pages shared by half of the requests
+
+
+def serving_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(10, vocab - 10, SERVE_PREFIX).tolist()
+    out = []
+    for i in range(SERVE_REQUESTS):
+        n = int(rng.integers(64, 385))
+        if i % 2 == 0:
+            out.append(prefix + rng.integers(10, vocab - 10, n - SERVE_PREFIX).tolist()
+                       if n > SERVE_PREFIX else prefix[:n])
+        else:
+            out.append(rng.integers(10, vocab - 10, n).tolist())
+    return out
+
+
+def serve_once(pkg, cfg, params, prompts, kv_quant, lookahead) -> tuple:
+    import torch
+
+    config, llm_mod = pkg["config"], pkg["llm"]
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=8, prefill_chunk=512,
+              quant="int4", eos_token_id=-2, prefix_cache=True, decode_burst=8,
+              decode_burst_idle=32, kv_quant=kv_quant)
+    if lookahead:
+        kw.update(use_lookahead=True, decoding_length=16, branch_length=16,
+                  use_spec_min_batch_size=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    llm = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
+    cal_s = 0.0
+    if kv_quant == "fp8":
+        t0 = time.perf_counter()
+        llm.calibrate_kv_scales(prompts[:4])
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reqs = llm.generate(prompts, pkg["request"].SamplingParams(
+        max_new_tokens=SERVE_NEW_TOKENS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = llm.metrics
+    outs = [r.output_ids for r in reqs]
+    if any(len(o) != SERVE_NEW_TOKENS for o in outs):
+        fail(f"serving {kv_quant} lookahead={lookahead}: a request stopped early")
+    res = dict(
+        kv_quant=kv_quant, lookahead=lookahead, wall_s=wall,
+        tok_s=m.generated_tokens / wall, generated_tokens=m.generated_tokens,
+        p50_ttft_s=m.p50_ttft, prefix_hit_tokens=m.prefix_hit_tokens,
+        chained_bursts=m.chained_bursts, decode_steps=m.decode_steps,
+        spec_steps=m.spec_steps, spec_accepted=m.spec_accepted,
+        prefill_s=m.prefill_time, decode_s=m.decode_time, drain_s=m.drain_time,
+        table_updates=m.table_updates,
+        table_update_ms_per_drain=(1e3 * m.table_update_time / m.table_updates
+                                   if m.table_updates else None),
+        preempted=m.preempted, calibrate_s=cal_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    tables = llm.tables
+    del llm, reqs
+    return res, outs, tables
+
+
+def drain_table_cost(pkg, tables, tcfg, prompts) -> dict:
+    """Host-clock cost of one drain's table update at the serving batch:
+    8 rows of 18 tail tokens plus K newly decoded tokens each (K = 8, 32),
+    on the populated tables of a lookahead run."""
+    import numpy as np
+    import torch
+
+    dt = pkg["device_tables"]
+    out = {}
+    TAIL = tcfg.branch_length + 2
+    for K in (8, 32):
+        bufs = np.full((8, TAIL + 32), -1, np.int32)
+        for b in range(8):
+            seq = prompts[b][-(TAIL + K):]
+            bufs[b, : len(seq)] = seq
+        n = np.full(8, TAIL + K)
+        lo, hi = np.full(8, TAIL), np.full(8, TAIL + K)
+        buf_t = torch.tensor(bufs, device="cuda")
+        out[f"update_batch_8rows_{K}_new"] = _host_ms(
+            lambda: dt.update_tables_batch(tables, tcfg, buf_t, n, lo, hi), reps=3)
+    return out
+
+
+class ServingCapture:
+    """The inputs of real serving calls into the kernels, for holding each
+    kernel against its plain version at the shapes serving gives it.
+
+    While installed it wraps the ops modules' launch functions and keeps,
+    cloned in stream order at the call (the arena moves on afterwards):
+    attention at layer 0, the widest decode and verify batch of each arena
+    and every prefill batch of B >= 2 (``trim`` keeps the one with the most
+    rows resumed from the prefix cache, then the widest); K1 at layer 0, the
+    largest M of each weight shape; K4 and K6, the page ids (and K6's
+    windows) of the widest compaction of each row width (K4: of its widest
+    compactions, the one that moves the most rows). Choosing reads
+    shapes and pointers only, so the runs are not synchronised. The wrapped
+    launches are the runs' own; ``rows`` launches afresh on the kept inputs
+    after the run's counts are read."""
+
+    def __init__(self, pkg):
+        self.pkg = pkg
+        self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
+        self._saved = []
+
+    def install(self):
+        pa, qm, ku = (self.pkg[m] for m in ("paged_attention", "quant_matmul", "kv_update"))
+        for mod, name, make in ((pa, "_launch", self._attn_hook),
+                                (qm, "_int4_matmul_cuda", self._gemm_hook),
+                                (ku, "_kv_permute_cuda", self._permute_hook),
+                                (ku, "_kv_write_pages_cuda", self._write_hook)):
+            orig = getattr(mod, name)
+            self._saved.append((mod, name, orig))
+            setattr(mod, name, make(orig))
+
+    def remove(self):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+        self._saved.clear()
+
+    @staticmethod
+    def _first_layer(t) -> bool:
+        return t.data_ptr() == t.untyped_storage().data_ptr()
+
+    def _attn_hook(self, orig):
+        def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None):
+            if self._first_layer(k):
+                B, Q = q.shape[:2]
+                kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
+                old = self.attn.get((kind, arena))
+                keep = (B >= 2 and len(self.prefill.setdefault(arena, [])) < 8
+                        if kind == "prefill" else old is None or B > old["q"].shape[0])
+                if keep:
+                    c = dict(q=q.clone(), k=k.clone(), v=v.clone(), pt=pt.clone(),
+                             ctx=ctx.clone(), scale=scale,
+                             qmask=None if qmask is None else qmask.clone(),
+                             ks=None if ks is None else ks.clone(),
+                             vs=None if vs is None else vs.clone())
+                    if kind == "prefill":
+                        self.prefill[arena].append(c)
+                    else:
+                        self.attn[(kind, arena)] = c
+            return orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs)
+        return hook
+
+    def _gemm_hook(self, orig):
+        def hook(x, q, s, out_dtype):
+            if self._first_layer(q):
+                key = (x.shape[1], q.shape[1], str(out_dtype))
+                old = self.gemm.get(key)
+                if old is None or x.shape[0] > old["x"].shape[0]:
+                    # the weights are not written during serving: no copy
+                    self.gemm[key] = dict(x=x.clone(), q=q, s=s, out_dtype=out_dtype)
+            return orig(x, q, s, out_dtype)
+        return hook
+
+    def _permute_hook(self, orig):
+        def hook(pages, page_ids, src_rel):
+            B = page_ids.shape[0]
+            c = self.compact.get("permute")
+            if c is None or B > c["B"]:
+                c = self.compact["permute"] = dict(B=B, shape=tuple(pages.shape),
+                                                   dtype=pages.dtype, calls=[])
+            if B == c["B"] and len(c["calls"]) < 256:  # a few KB each
+                c["calls"].append((page_ids.clone(), src_rel.clone()))
+            return orig(pages, page_ids, src_rel)
+        return hook
+
+    def _write_hook(self, orig):
+        def hook(pages, windows, page_ids):
+            key = ("write", pages.shape[-1] * pages.element_size())
+            old = self.compact.get(key)
+            if old is None or windows.shape[1] > old["windows"].shape[1]:
+                self.compact[key] = dict(shape=tuple(pages.shape), dtype=pages.dtype,
+                                         windows=windows.clone(), ids=page_ids.clone())
+            return orig(pages, windows, page_ids)
+        return hook
+
+    def trim(self):
+        """Keep, of each arena's prefill batches, the one with the most rows
+        resumed from the prefix cache (start > 0), then the widest."""
+        for arena, cands in self.prefill.items():
+            if cands:
+                best = max(cands, key=lambda c: (int((c["ctx"] > 0).sum().item()),
+                                                 c["q"].shape[0]))
+                self.prefill[arena] = [best]
+
+    def rows(self, arenas) -> list:
+        import torch
+
+        self.trim()
+        pkg, out = self.pkg, []
+        want = [(kind, a) for a in arenas for kind in ("decode", "verify", "prefill")]
+        for kind, arena in want:
+            c = (self.prefill.get(arena) or [None])[0] if kind == "prefill" \
+                else self.attn.get((kind, arena))
+            if c is None:
+                fail(f"serving made no {kind} attention call of B >= 2 ({arena})")
+            ctx = c["ctx"]
+            case = f"serving ctx={int(ctx.min())}-{int(ctx.max())} "
+            if kind == "prefill":
+                case += f"resumed_rows={int((ctx > 0).sum())} "
+            out.append(attention_row(pkg, kind, arena, c["q"], c["k"], c["v"], c["pt"],
+                                     ctx, c["qmask"], c["ks"], c["vs"], c["scale"], case))
+        if not self.gemm:
+            fail("serving made no int4_gemm call")
+        for c in self.gemm.values():
+            out.append(gemm_row(pkg, c["x"], c["q"], c["s"], c["out_dtype"], "serving "))
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        for key, c in self.compact.items():
+            # the serving page ids over arenas of the serving shape; the
+            # contents do not steer either kernel
+            if c["dtype"] == torch.uint8:  # K6 sees byte views of the arenas
+                pages = torch.randint(0, 256, c["shape"], generator=g, device="cuda",
+                                      dtype=torch.uint8)
+            else:
+                pages = torch.randn(c["shape"], generator=g, device="cuda").to(c["dtype"])
+            if key == "permute":
+                ident = torch.arange(c["calls"][0][1].shape[1], device="cuda")
+                ids, src = max(c["calls"], key=lambda a: int((a[1] != ident).sum()))
+                out.append(kv_permute_row(pkg, pages, ids, src, "serving "))
+            else:
+                out.append(kv_write_row(pkg, pages, c["windows"], c["ids"], "serving "))
+            del pages
+        names = {r["name"] for r in out}
+        for need in ("kv_permute_pages", "kv_write_pages"):
+            if need not in names:
+                fail(f"serving made no {need} call")
+        self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
+        return out
+
+
+def phase_serving(pkg, cfg, params) -> dict:
+    import torch
+
+    launches = Launches(pkg)
+    prompts = serving_prompts(cfg.vocab_size)
+    capture = ServingCapture(pkg)
+    capture.install()
+    launches.reset()
+    runs, tables, tcfg = [], None, None
+    arenas = ("none", "fp8", "fp8_tok")
+    for kv_quant in arenas:
+        res_ar, ar_out, _ = serve_once(pkg, cfg, params, prompts, kv_quant, False)
+        res_la, la_out, tables = serve_once(pkg, cfg, params, prompts, kv_quant, True)
+        diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
+        res_la["identical_to_ar"] = not diff
+        for r in (res_ar, res_la):
+            print("phase serving run: " + json.dumps(r))
+            runs.append(r)
+        if diff:
+            i = diff[0]
+            j = next(k for k, (a, b) in enumerate(zip(ar_out[i], la_out[i])) if a != b)
+            fail(f"serving {kv_quant}: lookahead differs from AR on requests {diff} "
+                 f"(request {i} from token {j})")
+        if res_la["spec_steps"] <= 0:
+            fail(f"serving {kv_quant}: the lookahead run made no spec step")
+        if res_ar["prefix_hit_tokens"] <= 0:
+            fail(f"serving {kv_quant}: no prefix-cache hit")
+        capture.trim()
+    counts = launches.read()
+    capture.remove()
+    tcfg = pkg["device_tables"].DraftTableConfig(buckets=16384, ways=8, branch_length=16,
+                                                 retrieve_count=1)
+    res = dict(runs=runs, launches=counts,
+               drain_table_ms=drain_table_cost(pkg, tables, tcfg, prompts))
+    print("phase serving: " + json.dumps(dict(launches=counts,
+                                              drain_table_ms=res["drain_table_ms"])))
+    # every kernel and arena mode against its plain version on the inputs
+    # of real serving calls (B up to 8, ragged ctx, prefix-resumed prefill)
+    res["kernels"] = capture.rows(["bf16" if a == "none" else a for a in arenas])
+    for r in res["kernels"]:
+        print("phase serving kernel: " + json.dumps(r))
+    torch.cuda.empty_cache()
+    return res
+
+
 def load_port():
     if not (HERE / "painlessinferenceacceleration_tpu_torch" / "__init__.py").exists():
         fail("the port package is not beside chip_smoke.py")
@@ -469,8 +985,10 @@ def load_port():
     names = dict(_build="_build", config="config", linear="layers.linear",
                  quant_matmul="ops.quant_matmul", paged_attention="ops.paged_attention",
                  attention="ops.attention", kv_update="ops.kv_update",
-                 cache="engine.cache", step="engine.step", multistep="engine.multistep",
-                 device_tables="lookahead.device_tables", base="models.base")
+                 rmsnorm="ops.rmsnorm", cache="engine.cache", step="engine.step",
+                 multistep="engine.multistep", llm="engine.llm",
+                 request="engine.request", device_tables="lookahead.device_tables",
+                 base="models.base")
     return {k: importlib.import_module(base + v) for k, v in names.items()}
 
 
@@ -487,18 +1005,26 @@ def main() -> None:
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
     rows = phase_kernels(pkg, cfg)
-    main_res = phase_main_path(pkg, cfg, spec)
-    launches = main_res["launches"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pkg["base"].init_params_quantized(cfg, spec, gen)
+    main_res = phase_main_path(pkg, cfg, spec, params)
+    serve_res = phase_serving(pkg, cfg, params)
+    rows += serve_res["kernels"]
+    launches = {k: main_res["launches"][k] + serve_res["launches"][k]
+                for k in main_res["launches"]}
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]
         if r["launches"] <= 0:
-            fail(f"{r['name']} was not launched on the main path")
-    print("phase 4 launches: " + json.dumps(launches))
+            fail(f"{r['name']} was not launched on the main path or in serving")
+    print("phase 4 launches (main path + serving): " + json.dumps(launches))
+    wall_s = time.perf_counter() - T_START
+    print(f"wall time of the whole script: {wall_s:.1f} s")
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
-                                             main_path=main_res), indent=1))
+                                             main_path=main_res, serving=serve_res,
+                                             wall_s=wall_s), indent=1))
     print(json.dumps({"kernels": rows}))
     print(env["card"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

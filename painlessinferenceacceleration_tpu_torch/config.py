@@ -9,7 +9,7 @@ builds the same model in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,16 +63,96 @@ class ModelConfig:
         return cls()
 
 
+# Decode-batch buckets: batch widths snap to this ladder (as in the JAX
+# package, where each width is one compiled program; here it bounds the
+# number of distinct shapes the kernels see).
+DEFAULT_DECODE_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+# Fields whose features are not ported yet: a non-default value raises,
+# naming the ROADMAP item that ports it.
+_NOT_PORTED = {
+    "schedule_policy": ("pingpong", "the mix/timely schedulers (ROADMAP A.4)"),
+    "quant_embed": (False, "the fp8 embedding table (ROADMAP A.9)"),
+    "context_parallel": (False, "context parallelism (ROADMAP A.10)"),
+    "mesh_shape": (None, "device meshes (ROADMAP A.10)"),
+    "mesh_axes": (("data", "model"), "device meshes (ROADMAP A.10)"),
+    "temperature": (0.0, "sampling (ROADMAP A.3)"),
+    "top_k": (0, "sampling (ROADMAP A.3)"),
+    "top_p": (1.0, "sampling (ROADMAP A.3)"),
+    # read only by the host-trie LookaheadGenerator; LLM requests take
+    # SamplingParams.max_new_tokens
+    "max_new_tokens": (256, "lookahead/generate.py (ROADMAP A.4)"),
+}
+KV_QUANT_MODES = ("none", "fp8", "fp8_tok")
+
+
 @dataclasses.dataclass
 class EngineConfig:
-    """KV-arena sizing (the part of the JAX ``EngineConfig`` this path reads)."""
+    """Serving-engine configuration: the serving fields of the JAX
+    ``EngineConfig``, with the same names and defaults."""
 
+    # --- KV arena ---
     page_size: int = 64  # tokens per KV page
+    num_pages: int = 0  # 0 -> sized from max_concurrency * max_seq_len
+    # > 0: size num_pages from this fraction of the card's free memory at
+    # engine construction (after the parameters are resident)
+    cache_memory_fraction: float = 0.0
     max_seq_len: int = 2048  # max context per request
     max_concurrency: int = 64  # max resident requests
-    num_pages: int = 0  # 0 -> sized from max_concurrency * max_seq_len
+
+    # --- batching ---
+    prefill_chunk: int = 512  # chunked-prefill tokens per request and step
+    decode_buckets: Tuple[int, ...] = DEFAULT_DECODE_BUCKETS
+    # decode steps per scheduler burst; the idle length applies when no
+    # admission can happen during the burst
+    decode_burst: int = 8
+    decode_burst_idle: int = 32
+    schedule_policy: str = "pingpong"
+    # admit queued requests only once this many slots are free
+    admit_min_free: int = 1
+
+    # --- lookahead ---
+    use_lookahead: bool = False
+    decoding_length: int = 63  # draft tokens per verify step
+    branch_length: int = 12  # tokens per draft branch
+    use_spec_min_batch_size: int = 4  # spec only when the batch is this small
+    # after a spec burst whose drafts were retrievable on fewer than
+    # spec_gate_threshold of its steps, run this many AR bursts (0: never)
+    spec_cooldown_bursts: int = 4
+    spec_gate_threshold: float = 0.25
+
+    # --- prefix caching ---
+    prefix_cache: bool = True  # page-granular shared-prefix KV reuse
+
+    # --- quantization ---
+    quant: str = "none"  # none | int4 (weight-only)
+    kv_quant: str = "none"  # none | fp8 (static per-head) | fp8_tok (per token)
+    quant_group: int = 128
+    quant_embed: bool = False
+    kv_scale_init: float = 1.0  # initial static fp8 scale (before calibration)
+
+    # --- parallelism ---
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axes: Tuple[str, ...] = ("data", "model")
+    context_parallel: bool = False
+
+    # --- sampling defaults ---
+    temperature: float = 0.0  # 0 -> greedy
+    top_k: int = 0
+    top_p: float = 1.0
+
+    # --- misc ---
+    eos_token_id: int = 2
+    max_new_tokens: int = 256
 
     def __post_init__(self):
+        for name, (default, item) in _NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={getattr(self, name)!r}: {item} is not "
+                    "ported yet")
+        if self.kv_quant not in KV_QUANT_MODES:
+            raise ValueError(f"kv_quant {self.kv_quant!r} not in {KV_QUANT_MODES}")
         if self.num_pages == 0:
             # +1: page 0 is the reserved null page (padding page-table entries)
             self.num_pages = self.max_concurrency * self.pages_per_req + 1

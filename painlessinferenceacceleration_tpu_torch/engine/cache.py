@@ -1,13 +1,23 @@
-"""Paged KV arena (bf16 or fp32), updated in place.
+"""Paged KV arena (bf16/fp32, or e4m3 with scales), updated in place.
 
-Port of ``painlessinferenceacceleration_tpu/engine/cache.py`` for the
-unquantized arena. The layout is the JAX package's data contract:
-``[n_layers, n_pages, page_size, n_kv_heads * head_dim]``, token-major with
-the heads folded into the last axis, and page 0 reserved as the null page
-that padded page-table entries and invalid tokens point at.
+Port of ``painlessinferenceacceleration_tpu/engine/cache.py``. The layout is
+the JAX package's data contract: ``[n_layers, n_pages, page_size,
+n_kv_heads * head_dim]``, token-major with the heads folded into the last
+axis, and page 0 reserved as the null page that padded page-table entries
+and invalid tokens point at. Three arena kinds (``EngineConfig.kv_quant``):
 
-JAX donates the arena and gets an updated copy back; here every writer
-updates the tensor in place and also returns it.
+- ``"none"``: K/V in the model's dtype;
+- ``"fp8"``: e4m3 K/V with static per-(layer, kv head) f32 scales
+  ``k_scale``/``v_scale`` [L, Hkv]; a write divides by the scale and clips
+  to +-448 before the cast (torch's cast does not saturate);
+- ``"fp8_tok"``: e4m3 K/V with per-(token, kv head) f32 scales
+  ``k_tok_scale``/``v_tok_scale`` [L, n_pages, ps, Hkv], amax/448 of each
+  written row. The JAX package pads the head axis to 128 lanes for its DMA
+  tiles; the port does not (``models/convert.py`` drops the padding).
+
+e4m3 rows are scattered and gathered through ``uint8`` views. JAX donates
+the arena and gets an updated copy back; here every writer updates the
+tensors in place and also returns them.
 """
 
 from __future__ import annotations
@@ -18,7 +28,13 @@ import torch
 
 from painlessinferenceacceleration_tpu_torch._build import resolve_device
 from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
-from painlessinferenceacceleration_tpu_torch.ops.kv_update import kv_permute_pages
+from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+    kv_permute_pages,
+    kv_write_pages,
+)
+
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0  # largest finite e4m3 value
 
 
 def kv_cache_shape(mcfg: ModelConfig, ecfg: EngineConfig) -> Tuple[int, ...]:
@@ -30,13 +46,52 @@ def kv_cache_shape(mcfg: ModelConfig, ecfg: EngineConfig) -> Tuple[int, ...]:
     )
 
 
+def kv_bytes_per_page(mcfg: ModelConfig, ecfg: EngineConfig,
+                      dtype=torch.bfloat16) -> int:
+    """Bytes one KV page costs across all layers, K and V (and scales)."""
+    fp8 = ecfg.kv_quant.startswith("fp8")
+    itemsize = 1 if fp8 else torch.empty((), dtype=dtype).element_size()
+    L, ps, Hk = mcfg.num_hidden_layers, ecfg.page_size, mcfg.num_key_value_heads
+    base = L * ps * Hk * mcfg.head_dim * itemsize * 2
+    if ecfg.kv_quant == "fp8_tok":
+        base += L * ps * Hk * 4 * 2  # f32 per-token scale rows (k + v)
+    return base
+
+
+def auto_size_pages(mcfg: ModelConfig, ecfg: EngineConfig, dtype=torch.bfloat16,
+                    device=None) -> int:
+    """Pages that fit ``ecfg.cache_memory_fraction`` of the card's free
+    memory (queried after the parameters are resident), capped by what
+    max_concurrency can ever address. Off the card: the default sizing."""
+    default = ecfg.max_concurrency * ecfg.pages_per_req + 1
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return default
+    free, _ = torch.cuda.mem_get_info(dev)
+    n = int(free * ecfg.cache_memory_fraction) // kv_bytes_per_page(mcfg, ecfg, dtype)
+    return max(2, min(int(n), default))
+
+
 def init_kv_cache(mcfg: ModelConfig, ecfg: EngineConfig,
                   dtype=torch.bfloat16, device=None) -> dict:
-    """Allocate the zeroed K and V arenas on ``device`` (default cuda)."""
+    """Allocate the zeroed arena of ``ecfg.kv_quant``'s kind on ``device``
+    (default cuda)."""
     dev = resolve_device(device)
     shape = kv_cache_shape(mcfg, ecfg)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if ecfg.kv_quant == "none":
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    kv = {"k": torch.zeros(shape, dtype=FP8, device=dev),
+          "v": torch.zeros(shape, dtype=FP8, device=dev)}
+    Hk = mcfg.num_key_value_heads
+    if ecfg.kv_quant == "fp8_tok":
+        for name in ("k_tok_scale", "v_tok_scale"):
+            kv[name] = torch.zeros(shape[:3] + (Hk,), dtype=torch.float32, device=dev)
+    else:  # "fp8"
+        for name in ("k_scale", "v_scale"):
+            kv[name] = torch.full((shape[0], Hk), ecfg.kv_scale_init,
+                                  dtype=torch.float32, device=dev)
+    return kv
 
 
 def write_kv_pages(
@@ -48,10 +103,15 @@ def write_kv_pages(
     start_lens: torch.Tensor,  # [B]
     valid: Optional[torch.Tensor] = None,  # [B, Q]; invalid -> null page
     layer: int = 0,
+    k_scale: Optional[torch.Tensor] = None,  # [H] static e4m3 scales (this layer)
+    v_scale: Optional[torch.Tensor] = None,
+    k_tok_scale: Optional[torch.Tensor] = None,  # [L, n_pages, ps, H] (fp8_tok)
+    v_tok_scale: Optional[torch.Tensor] = None,
 ):
-    """Scatter the step's K/V rows of layer ``layer`` into the arena, in place.
-
-    Token q of request b lands at slot ``start_lens[b] + q``."""
+    """Scatter the step's K/V rows of layer ``layer`` into the arena, in
+    place (quantizing them for an e4m3 arena). Token q of request b lands at
+    slot ``start_lens[b] + q``. Returns the arenas written (with the scale
+    arenas in fp8_tok mode)."""
     B, Q, H, D = new_k.shape
     ps = k_pages.shape[2]
     P = page_tables.shape[1]
@@ -60,33 +120,74 @@ def write_kv_pages(
     if valid is not None:
         page_of = torch.where(valid, page_of, torch.zeros_like(page_of))
     fp, fr = page_of.reshape(-1), (slots % ps).reshape(-1)
-    k_pages[layer, fp, fr] = new_k.reshape(B * Q, H * D).to(k_pages.dtype)
-    v_pages[layer, fp, fr] = new_v.reshape(B * Q, H * D).to(v_pages.dtype)
+    nk = new_k.reshape(B * Q, H, D)
+    nv = new_v.reshape(B * Q, H, D)
+    if k_tok_scale is not None:
+        kf, vf = nk.to(torch.float32), nv.to(torch.float32)
+        sk = kf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX  # [BQ, H]
+        sv = vf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX
+        nk, nv = (kf / sk[..., None]).to(FP8), (vf / sv[..., None]).to(FP8)
+        k_tok_scale[layer, fp, fr] = sk
+        v_tok_scale[layer, fp, fr] = sv
+    elif k_pages.dtype == FP8:
+        nk = (nk.to(torch.float32) / k_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
+        nv = (nv.to(torch.float32) / v_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
+    else:
+        nk, nv = nk.to(k_pages.dtype), nv.to(v_pages.dtype)
+    nk, nv = nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * D)
+    if k_pages.dtype == FP8:
+        k_pages.view(torch.uint8)[layer, fp, fr] = nk.view(torch.uint8)
+        v_pages.view(torch.uint8)[layer, fp, fr] = nv.view(torch.uint8)
+    else:
+        k_pages[layer, fp, fr] = nk
+        v_pages[layer, fp, fr] = nv
+    if k_tok_scale is not None:
+        return k_pages, v_pages, k_tok_scale, v_tok_scale
     return k_pages, v_pages
 
 
 def gather_kv_pages(pages: torch.Tensor, page_tables: torch.Tensor,
-                    head_dim: int) -> torch.Tensor:
-    """One layer's pages [n_pages, ps, H*D] -> dense [B, H, P*ps, D]."""
-    g = pages[page_tables.long()]  # [B, P, ps, H*D]
+                    head_dim: int, scale: Optional[torch.Tensor] = None,
+                    out_dtype=None) -> torch.Tensor:
+    """One layer's pages [n_pages, ps, H*D] -> dense [B, H, P*ps, D].
+
+    An e4m3 arena is dequantized in fp32 with ``scale``: static per-head
+    [H] or the layer's per-token arena [n_pages, ps, H]. ``out_dtype``
+    defaults to the arena's type (fp32 for e4m3)."""
+    pt = page_tables.long()
+    fp8 = pages.dtype == FP8
+    g = pages.view(torch.uint8)[pt].view(FP8) if fp8 else pages[pt]  # [B, P, ps, H*D]
     B, P, S, HD = g.shape
     H = HD // head_dim
     g = g.reshape(B, P, S, H, head_dim).permute(0, 3, 1, 2, 4)
-    return g.reshape(B, H, P * S, head_dim)
+    g = g.reshape(B, H, P * S, head_dim)
+    if fp8:
+        if scale.dim() == 3:  # per-token [n_pages, ps, H]
+            sc = scale[pt].permute(0, 3, 1, 2).reshape(B, H, P * S, 1)
+        else:  # static per-head [H]
+            sc = scale[None, :, None, None]
+        g = g.to(torch.float32) * sc
+    return g if out_dtype is None else g.to(out_dtype)
 
 
 def compact_kv_tail(
-    pages: torch.Tensor,  # [L, n_pages, ps, H*D]
+    pages: torch.Tensor,  # [L, n_pages, ps, row]
     page_tables: torch.Tensor,  # [B, P]
     ctx_lens: torch.Tensor,  # [B]
     path: torch.Tensor,  # [B, M] accepted in-step node offsets
     n_edges: torch.Tensor,  # [B] accepted edges (moves)
     q_width: int,  # verify width Q (tail window = [ctx, ctx+Q))
     active: Optional[torch.Tensor] = None,  # [B]; inactive rows -> null page
+    whole_pages: bool = False,  # scale arenas: always the page write-back
 ) -> torch.Tensor:
-    """Lookahead KV compaction as a permute of each request's tail window:
-    node (ctx + path[i]) moves to slot (ctx + 1 + i) for i < n_edges, in
-    place over all layers (``kv_permute_pages``)."""
+    """Lookahead KV compaction of each request's tail window, in place over
+    all layers: node (ctx + path[i]) moves to slot (ctx + 1 + i) for
+    i < n_edges.
+
+    A bf16/fp32 arena is permuted in place (``kv_permute_pages``). An e4m3
+    arena, and with ``whole_pages`` a per-token scale arena, takes the JAX
+    package's route for them: the window rows are gathered from their
+    sources and the window's pages written back whole (``kv_write_pages``)."""
     B, M = path.shape
     ps = pages.shape[2]
     P = page_tables.shape[1]
@@ -109,5 +210,13 @@ def compact_kv_tail(
     w_idx = torch.where(mv, ctx[:, None] + 1 + i - win_base[:, None],
                         torch.full_like(i, W).expand(B, M))
     src_of.scatter_(1, w_idx, torch.where(mv, ctx[:, None] + path.long(), 0))
-    src_rel = (src_of[:, :W] - win_base[:, None]).clamp(0, W - 1)
-    return kv_permute_pages(pages, page_ids, src_rel)
+    src_of = src_of[:, :W]
+    if pages.dtype != FP8 and not whole_pages:
+        src_rel = (src_of - win_base[:, None]).clamp(0, W - 1)
+        return kv_permute_pages(pages, page_ids, src_rel)
+    g_page = torch.gather(page_tables.long(), 1, (src_of // ps).clamp(0, P - 1))
+    raw = pages.view(torch.uint8)
+    rows = raw[:, g_page.reshape(-1), (src_of % ps).reshape(-1)]  # [L, B*W, row]
+    windows = rows.reshape(raw.shape[0], B * TPP, ps, raw.shape[-1])
+    kv_write_pages(raw, windows, page_ids.reshape(-1))
+    return pages

@@ -1,0 +1,784 @@
+"""LLM facade: the continuous-batching serving engine.
+
+Port of ``painlessinferenceacceleration_tpu/engine/llm.py`` (``LLM``) for the
+pingpong scheduler and greedy requests:
+
+- one scheduler (inline in ``generate``, or a thread after ``launch``)
+  alternates a prefill phase (admission with the prefix cache, chunked
+  prefill of several requests at once) and a decode phase (AR bursts, or
+  lookahead bursts while the batch is at most ``use_spec_min_batch_size``,
+  with the spec gate and cooldown);
+- paged admission, page growth, parking and preemption on the host page
+  allocator, LRU eviction of prefix-cache entries under pressure;
+- pipelined AR bursts: burst N+1 is dispatched from burst N's device
+  tensors before N's tokens are read back, so the host's readback overlaps
+  the card's work (CUDA's stream order stands in for JAX's dispatch order);
+- static fp8 KV calibration (``calibrate_kv_scales``).
+
+Not ported yet, each raising when asked: the scoring phase (``target_ids``),
+the mix/timely schedulers, sampling and repetition penalty, multimodal
+embeddings, GLM positions, loading from ``model_path``, text without a
+tokenizer, and ``async_stream_generate``.
+
+Host arrays are numpy mirrors of the per-slot state, as in the JAX engine;
+they go to the card through pinned buffers (``non_blocking``), so that an
+upload does not wait for the burst in flight.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+import time
+from collections import deque
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from painlessinferenceacceleration_tpu_torch import _build
+from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+from painlessinferenceacceleration_tpu_torch.engine.cache import (
+    auto_size_pages,
+    init_kv_cache,
+)
+from painlessinferenceacceleration_tpu_torch.engine.multistep import (
+    multistep_decode,
+    multistep_spec_decode,
+)
+from painlessinferenceacceleration_tpu_torch.engine.pages import PageAllocator
+from painlessinferenceacceleration_tpu_torch.engine.prefix_cache import PrefixCache
+from painlessinferenceacceleration_tpu_torch.engine.request import (
+    Request,
+    SamplingParams,
+)
+from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
+from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
+    DraftTableConfig,
+    init_draft_tables,
+    update_tables_batch,
+    update_tables_seq,
+)
+from painlessinferenceacceleration_tpu_torch.utils.metrics import EngineMetrics
+
+
+def _first_tensor(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+        return None
+    return tree if isinstance(tree, torch.Tensor) else None
+
+
+class LLM:
+    """Serving engine over one model instance (greedy decoding)."""
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        cfg: Optional[ModelConfig] = None,
+        params: Optional[dict] = None,
+        ecfg: Optional[EngineConfig] = None,
+        tokenizer=None,
+        dtype=torch.bfloat16,
+        device=None,
+    ):
+        if model_path is not None:
+            raise NotImplementedError(
+                "loading from model_path comes with models/hf_loader.py (ROADMAP A.5)")
+        if cfg is None or params is None:
+            raise ValueError("LLM needs cfg and params")
+        self.device = _build.resolve_device(device)
+        leaf = _first_tensor(params)
+        if leaf is None or leaf.device.type != self.device.type:
+            raise ValueError(f"params live on {None if leaf is None else leaf.device}, "
+                             f"the engine runs on {self.device}")
+        if self.device.type == "cuda":
+            _build.build_all()  # never on the scheduler thread
+            for name in _build.SOURCES:
+                _build.library(name)
+        self.ecfg = ecfg or EngineConfig()
+        self.dtype = dtype
+        self.quant = QuantSpec.from_mode(self.ecfg.quant, self.ecfg.quant_group)
+        self.cfg = cfg
+        self.params = params
+        self.tokenizer = tokenizer
+
+        if self.ecfg.cache_memory_fraction > 0:
+            self.ecfg = dataclasses.replace(
+                self.ecfg,
+                num_pages=auto_size_pages(cfg, self.ecfg, dtype, self.device),
+                cache_memory_fraction=0.0,
+            )
+        self.kv = init_kv_cache(cfg, self.ecfg, dtype=dtype, device=self.device)
+        self.allocator = PageAllocator(self.ecfg.num_pages, self.ecfg.page_size)
+        self.prefix_cache = (PrefixCache(self.allocator, self.ecfg.page_size)
+                             if self.ecfg.prefix_cache else None)
+
+        # decode-slot state (numpy mirrors of the device tensors)
+        B = self.ecfg.max_concurrency
+        P = self.ecfg.pages_per_req
+        self._page_np = np.zeros((B, P), np.int32)
+        self._last_np = np.zeros((B,), np.int32)
+        self._ctx_np = np.zeros((B,), np.int32)
+        self._slots: List[Optional[Request]] = [None] * B
+
+        # lookahead draft tables on the card, shared across requests
+        self.tcfg = DraftTableConfig(
+            buckets=16384,
+            ways=8,
+            branch_length=self.ecfg.branch_length,
+            retrieve_count=max(1, self.ecfg.decoding_length // self.ecfg.branch_length),
+        )
+        self.tables = (init_draft_tables(self.tcfg, self.device)
+                       if self.ecfg.use_lookahead else None)
+        self._tails = np.full((B, self.tcfg.branch_length + 2), -1, np.int32)
+
+        self._queue: deque = deque()
+        self._rid = itertools.count()
+        self._lock = threading.Lock()
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        self.metrics = EngineMetrics()
+        self._decode_burst = self.ecfg.decode_burst
+        self._spec_cooldown = 0
+        # the last dispatched-but-undrained AR burst (device tensors)
+        self._pending = None
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> tensor on the engine's device (a copy)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def add_request(
+        self,
+        input_ids: Sequence[int],
+        sampling: Optional[SamplingParams] = None,
+        stream: bool = False,
+        target_ids: Optional[Sequence[int]] = None,
+    ) -> Request:
+        sp = sampling or SamplingParams()
+        if sp.temperature > 0 or sp.repetition_penalty != 1.0:
+            raise NotImplementedError(
+                "sampling and repetition penalty come with the sampling slice "
+                "(ROADMAP A.3)")
+        if target_ids:
+            raise NotImplementedError("PPL scoring (target_ids) is not ported yet "
+                                      "(ROADMAP A.4)")
+        req = Request(next(self._rid), list(input_ids), sp, stream)
+        req.arrival_t = time.perf_counter()
+        # an oversized prompt would overflow the per-request page table
+        limit = self.ecfg.max_seq_len - 1
+        if req.prompt_len > limit:
+            req.finish(f"error: prompt length {req.prompt_len} exceeds "
+                       f"max_seq_len-1 ({limit})")
+            return req
+        with self._lock:
+            self._queue.append(req)
+        return req
+
+    def generate(self, prompts, sampling: Optional[SamplingParams] = None
+                 ) -> List[Request]:
+        """Blocking batch generation; drives the scheduler inline unless the
+        background loop runs (``launch``)."""
+        reqs = []
+        for p in prompts:
+            ids = self.encode(p) if isinstance(p, str) else p
+            reqs.append(self.add_request(ids, sampling))
+        if self._running:
+            while any(r.state != "finished" for r in reqs):
+                time.sleep(0.001)
+        else:
+            while any(r.state != "finished" for r in reqs):
+                self.step()
+        return reqs
+
+    def stream_generate(self, prompt, sampling: Optional[SamplingParams] = None):
+        """Yield one request's tokens as they are produced."""
+        ids = self.encode(prompt) if isinstance(prompt, str) else prompt
+        req = self.add_request(ids, sampling, stream=True)
+        if not self._running:
+            while req.state != "finished" or not req.stream_queue.empty():
+                self.step()
+                while not req.stream_queue.empty():
+                    t = req.stream_queue.get_nowait()
+                    if t is None:
+                        return
+                    yield t
+            return
+        while True:
+            t = req.stream_queue.get()
+            if t is None:
+                return
+            yield t
+
+    def async_stream_generate(self, prompt, sampling=None):
+        raise NotImplementedError("async_stream_generate comes with the server "
+                                  "(ROADMAP A.4)")
+
+    def launch(self) -> None:
+        """Start the background scheduler thread."""
+        if self._running:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def shutdown(self) -> None:
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    def encode(self, text: str) -> List[int]:
+        if self.tokenizer is None:
+            raise NotImplementedError("text prompts need a tokenizer (ROADMAP A.5)")
+        return self.tokenizer.encode(text)
+
+    def decode_text(self, ids: Sequence[int]) -> str:
+        if self.tokenizer is None:
+            raise NotImplementedError("decoding text needs a tokenizer (ROADMAP A.5)")
+        return self.tokenizer.decode(ids)
+
+    # ------------------------------------------------------------------
+    # scheduler
+    # ------------------------------------------------------------------
+
+    def _loop(self):
+        while self._running:
+            if not self.step():
+                time.sleep(0.0005)
+
+    def step(self) -> bool:
+        """One pingpong iteration: a prefill phase, then a decode phase.
+        Returns True if any work was done."""
+        worked = self._prefill_phase()
+        worked = self._decode_phase() or worked
+        return worked
+
+    # ---- prefill ----
+
+    def _admit(self) -> Optional[Request]:
+        with self._lock:
+            if not self._queue:
+                return None
+            req = self._queue.popleft()
+        slot = next((i for i, r in enumerate(self._slots) if r is None), None)
+        source = req.prefill_source
+        shared: List[int] = []
+        matched = 0
+        if self.prefix_cache is not None:
+            shared, matched = self.prefix_cache.match(source)
+            # retain before any eviction or allocation: _reserve could evict
+            # the matched entries and allocate() hand their pages back out
+            self.prefix_cache.retain_matched(shared)
+        need = self.allocator.pages_for_tokens(len(source) + 1) - len(shared)
+        if slot is None or not self._reserve(need + 1):
+            if shared:
+                self.allocator.free(shared)  # release the early retain
+            with self._lock:
+                self._queue.appendleft(req)  # backpressure: retry later
+            return None
+        fresh = self.allocator.allocate(need)
+        if shared:
+            self.metrics.prefix_hit_tokens += matched
+        req.pages = shared + fresh
+        req.done = matched  # prefill resumes after the shared prefix
+        req.slot = slot
+        req.state = "prefill"
+        self._slots[slot] = req
+        self._page_np[slot] = 0
+        self._page_np[slot, : len(req.pages)] = req.pages
+        self._ctx_np[slot] = 0
+        return req
+
+    def page_stats(self) -> dict:
+        """KV-arena state histogram plus the prefix-cache entry count."""
+        st = self.allocator.page_stats()
+        st["prefix_entries"] = len(self.prefix_cache) if self.prefix_cache is not None else 0
+        return st
+
+    def _reserve(self, n_pages: int) -> bool:
+        """True once ``n_pages`` are free, evicting LRU prefix-cache entries
+        as needed (an evicted page frees only when no request holds it)."""
+        while (
+            self.allocator.free_pages < n_pages
+            and self.prefix_cache is not None
+            and len(self.prefix_cache)
+        ):
+            self.prefix_cache.evict(n_pages - self.allocator.free_pages)
+        return self.allocator.free_pages >= n_pages
+
+    def _ensure_capacity(self, pages: List[int], n_tokens: int) -> bool:
+        """allocator.ensure_capacity with prefix-cache eviction on pressure."""
+        need = self.allocator.pages_for_tokens(n_tokens) - len(pages)
+        if need > 0:
+            self._reserve(need)
+        return self.allocator.ensure_capacity(pages, n_tokens)
+
+    def _prefill_phase(self) -> bool:
+        # only drain the pipelined burst when there is prefill work: a full
+        # batch cannot admit, and draining every iteration would stop chaining
+        with self._lock:
+            queued = len(self._queue)
+        has_mid = any(r is not None and r.state == "prefill" for r in self._slots)
+        free_slots = sum(r is None for r in self._slots)
+        want = min(max(1, self.ecfg.admit_min_free), max(queued, 1), len(self._slots))
+        can_admit = queued > 0 and free_slots >= want
+        if not (can_admit or has_mid):
+            return False
+        self._drain_pending()
+        C = self.ecfg.prefill_chunk
+        did = False
+        while self._admit() is not None:
+            pass
+        while True:
+            cand = [r for r in self._slots if r is not None and r.state == "prefill"]
+            if not cand:
+                return did
+            cand = cand[: self._bucket(len(cand))]
+            t0 = time.perf_counter()
+            B = self._bucket(len(cand))
+            buf = np.zeros((B, C), np.int32)
+            starts = np.zeros((B,), np.int32)
+            lens = np.zeros((B,), np.int32)
+            idx = np.zeros((B,), np.int32)  # padding rows borrow slot 0's table
+            for k, req in enumerate(cand):
+                chunk = req.prefill_source[req.done: req.done + C]
+                buf[k, : len(chunk)] = chunk
+                starts[k] = req.done
+                lens[k] = len(chunk)
+                idx[k] = req.slot
+            self.kv, nxt, _ = prefill_step(
+                self.params, self.kv, self.cfg, self._dev(buf), self._dev(starts),
+                self._dev(lens), self._dev(self._page_np[idx]), self.quant,
+            )
+            nxt_np = nxt.cpu().numpy()
+            did = True
+            for k, req in enumerate(cand):
+                req.done += int(lens[k])
+                if req.done >= len(req.prefill_source):
+                    self._finish_prefill(req, int(nxt_np[k]))
+            self.metrics.prefill_time += time.perf_counter() - t0
+
+    def _finish_prefill(self, req: Request, first: int) -> None:
+        resumed = bool(req.output_ids)  # a preempted request replaying its KV
+        if resumed:
+            first = req.output_ids[-1]  # already committed; re-seed decode
+        else:
+            req.last_token = first
+            req.first_token_t = time.perf_counter()
+            req.emit([first])
+            self.metrics.ttft.append(req.first_token_t - req.arrival_t)
+        req.state = "decode"
+        self._last_np[req.slot] = first
+        self._ctx_np[req.slot] = len(req.prefill_source)
+        if self.prefix_cache is not None:
+            # publish this prompt's full pages for later shared-prefix hits
+            self.prefix_cache.register(req.prefill_source, req.pages)
+        if self.tables is not None:
+            seed = req.prefill_source + [first]
+            if not resumed:  # a resume replays tokens the tables already saw
+                # the exact seed: the JAX package pads it to a power of two
+                # only to reuse compiled programs (same windows either way)
+                n = min(len(seed), self.ecfg.max_seq_len + 1)
+                update_tables_seq(self.tables, self.tcfg,
+                                  self._dev(np.asarray(seed[:n], np.int32)), n)
+            TAIL = self._tails.shape[1]
+            self._tails[req.slot] = -1
+            tail = seed[-TAIL:]
+            self._tails[req.slot, -len(tail):] = tail
+        self._maybe_finish(req)
+
+    # ---- decode ----
+
+    def _bucket(self, n: int) -> int:
+        for b in self.ecfg.decode_buckets:
+            if b >= n:
+                return min(b, self.ecfg.max_concurrency)
+        return self.ecfg.max_concurrency
+
+    def calibrate_kv_scales(self, prompts: Sequence[Sequence[int]]) -> None:
+        """Amax-calibrate the static fp8 KV scales (kv_quant='fp8').
+
+        Prefill the calibration prompts into a throwaway bf16 arena, take
+        the per-(layer, kv head) K/V amax over the written pages, and
+        rebuild the e4m3 arena with scale = 1.25 * amax / 448 (headroom:
+        later activations may exceed the calibration amax; anything past it
+        saturates at the write)."""
+        if self.ecfg.kv_quant != "fp8":
+            raise ValueError("calibration is for the static fp8 arena (kv_quant='fp8')")
+        cal_ecfg = dataclasses.replace(self.ecfg, kv_quant="none")
+        kv = init_kv_cache(self.cfg, cal_ecfg, dtype=torch.bfloat16, device=self.device)
+        P = self.ecfg.pages_per_req
+        ps = self.ecfg.page_size
+        C = min(self.ecfg.prefill_chunk, self.ecfg.max_seq_len)
+        used = 1  # page 0 is the null page
+        for p in prompts:
+            p = list(p)[: self.ecfg.max_seq_len - 1]
+            need = -(-len(p) // ps)
+            if used + need > self.ecfg.num_pages:
+                break  # arena full: calibrate on what fits (no page reuse)
+            pt_np = np.zeros((1, P), np.int32)
+            pt_np[0, :need] = np.arange(used, used + need, dtype=np.int32)
+            used += need
+            done = 0
+            while done < len(p):
+                chunk = p[done: done + C]
+                buf = np.zeros((1, C), np.int32)
+                buf[0, : len(chunk)] = chunk
+                kv, _, _ = prefill_step(
+                    self.params, kv, self.cfg, self._dev(buf),
+                    self._dev(np.array([done], np.int32)),
+                    self._dev(np.array([len(chunk)], np.int32)),
+                    self._dev(pt_np), self.quant,
+                )
+                done += len(chunk)
+        Hk, D = self.cfg.num_key_value_heads, self.cfg.head_dim
+
+        def amax(pages):  # [L, np, ps, Hk*D] -> [L, Hk] f32, one layer at a time
+            # only the prompts' pages: the null page holds whatever padding
+            # rows wrote last, which on the card is not even deterministic
+            return np.stack([
+                pages[li, 1:used].abs().reshape(-1, Hk, D).amax(dim=(0, 2))
+                .float().cpu().numpy() for li in range(pages.shape[0])])
+
+        k_amax, v_amax = amax(kv["k"]), amax(kv["v"])
+        del kv
+        self.kv = init_kv_cache(self.cfg, self.ecfg, dtype=self.dtype, device=self.device)
+        self.kv["k_scale"] = self._dev(np.maximum(k_amax * 1.25 / 448.0, 1e-8)
+                                       .astype(np.float32))
+        self.kv["v_scale"] = self._dev(np.maximum(v_amax * 1.25 / 448.0, 1e-8)
+                                       .astype(np.float32))
+
+    def _drain_pending(self) -> None:
+        """Read back and commit the in-flight AR burst (if any)."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return
+        t0 = time.perf_counter()
+        toks_np = p["toks"].cpu().numpy()  # waits for the burst
+        last_np = p["last"].cpu().numpy()
+        ctx_np = p["ctx"].cpu().numpy()
+        feeds = []
+        for k, (i, req) in enumerate(zip(p["rows"], p["reqs"])):
+            if req.state == "finished" or req.slot != i:
+                continue  # finished (or slot reused) while in flight
+            emitted = [int(t) for t in toks_np[k] if t >= 0]
+            self._commit_tokens(req, emitted, last_np[k], ctx_np[k])
+            if self.tables is not None and emitted:
+                feeds.append((i, emitted))
+        if feeds:
+            t1 = time.perf_counter()
+            self._feed_tables_batch(feeds)
+            self.metrics.table_update_time += time.perf_counter() - t1
+            self.metrics.table_updates += 1
+        self.metrics.decode_steps += p["K"]
+        dt = time.perf_counter() - t0
+        self.metrics.decode_time += dt
+        self.metrics.drain_time += dt
+
+    def _feed_tables_batch(self, feeds) -> None:
+        """AR bursts feed the draft tables too: one streamed update over
+        every row of the drained burst."""
+        TAIL = self._tails.shape[1]
+        W = TAIL + max(self.ecfg.decode_burst, self.ecfg.decode_burst_idle)
+        B = self.ecfg.max_concurrency
+        bufs = np.full((B, W), -1, np.int32)
+        n_valid = np.zeros((B,), np.int32)
+        lo = np.zeros((B,), np.int32)
+        hi = np.zeros((B,), np.int32)
+        for k, (i, emitted) in enumerate(feeds):
+            prev = [t for t in self._tails[i] if t >= 0]
+            seq = prev + emitted
+            n = min(len(seq), W)
+            bufs[k, :n] = seq[:W]
+            n_valid[k] = n
+            lo[k] = len(prev)
+            hi[k] = n
+            tail = seq[-TAIL:]
+            self._tails[i] = -1
+            self._tails[i, -len(tail):] = tail
+        update_tables_batch(self.tables, self.tcfg, self._dev(bufs), n_valid, lo, hi)
+
+    def _try_chain(self) -> bool:
+        """Dispatch the next AR burst straight from the pending burst's
+        device tensors, then drain the pending one. False (nothing drained)
+        when the batch changed and the normal rebuild path must run."""
+        p = self._pending
+        if p is None:
+            return False
+        rows = [i for i, r in enumerate(self._slots)
+                if r is not None and r.state == "decode"]
+        Kp = p["K"]  # the pending burst's length (its ctx advance bound)
+        K = Kp
+        with self._lock:
+            idle = not self._queue
+        if idle or all(r is not None for r in self._slots):
+            K = max(K, self.ecfg.decode_burst_idle)
+            K = 1 << (max(K, 1).bit_length() - 1)
+        msl = self.ecfg.max_seq_len
+        # subset chaining: rows that finished since the pending burst was
+        # built stay in the batch as deactivated lanes; rebuild once half of
+        # the lanes are dead
+        live = set(rows)
+        prev_rows = list(p["rows"])
+        idx_of = {r: k for k, r in enumerate(prev_rows)}
+        subset_ok = (
+            len(rows) > 0
+            and live <= set(prev_rows)
+            # identity, not just the slot: a freed slot may hold a new request
+            and all(self._slots[i] is p["reqs"][idx_of[i]] for i in rows)
+        )
+        ok = (
+            subset_ok
+            and 2 * len(rows) >= len(prev_rows)
+            and (self.tables is None or len(rows) > self.ecfg.use_spec_min_batch_size)
+            # conservative: the pending burst advances <= Kp, the new one <= K
+            and all(int(self._ctx_np[i]) + Kp + K + 2 <= msl for i in rows)
+        )
+        if not ok:
+            return False
+        act_in = p["act"]
+        if len(rows) != len(prev_rows):
+            keep = np.ones((int(act_in.shape[0]),), bool)
+            for k, r in enumerate(prev_rows):
+                keep[k] = r in live
+            act_in = act_in & self._dev(keep)
+        # page headroom with the stale committed ctx (covers both bursts)
+        pts_dirty = False
+        for i in rows:
+            req = self._slots[i]
+            held = len(req.pages)
+            if not self._ensure_capacity(req.pages, int(self._ctx_np[i]) + Kp + K + 2):
+                return False
+            if len(req.pages) != held:
+                self._page_np[i, : len(req.pages)] = req.pages
+                pts_dirty = True
+        t0 = time.perf_counter()
+        pts = self._dev(self._page_np[list(p["idx"])]) if pts_dirty else p["pts"]
+        # the budget left rides on the card from the pending burst
+        self.kv, toks, last2, ctx2, act2, bleft2 = multistep_decode(
+            self.params, self.kv, self.cfg, p["last"], p["ctx"], act_in, pts,
+            n_steps=K, eos=p["eos"], spec=self.quant,
+            budget=p["bleft"],
+        )
+        newp = dict(p, K=K, toks=toks, last=last2, ctx=ctx2, act=act2, pts=pts,
+                    bleft=bleft2)
+        self.metrics.chained_bursts += 1
+        self.metrics.decode_time += time.perf_counter() - t0
+        self._drain_pending()
+        self._pending = newp
+        return True
+
+    def _decode_phase(self) -> bool:
+        if self._try_chain():
+            return True
+        self._drain_pending()
+        rows = [i for i, r in enumerate(self._slots)
+                if r is not None and r.state == "decode"]
+        if not rows:
+            return False
+        t0 = time.perf_counter()
+        K = self._decode_burst
+        use_spec = (
+            self.tables is not None
+            and len(rows) <= self.ecfg.use_spec_min_batch_size
+            # chunk-level gate: after a burst whose drafts ran dry, decode
+            # stays on AR bursts for spec_cooldown_bursts before retrying
+            and self._spec_cooldown == 0
+        )
+        if self._spec_cooldown and self.tables is not None:
+            self._spec_cooldown -= 1
+        Q = self.tcfg.verify_width if use_spec else 1
+        # rows that cannot fit one AR step (ctx + 2) have reached
+        # max_seq_len; for the rest a spec width that would overrun it falls
+        # back to AR instead of finishing the request as "length"
+        msl = self.ecfg.max_seq_len
+        for i in list(rows):
+            if int(self._ctx_np[i]) + 2 > msl:
+                self._finish(self._slots[i], "length")
+                rows.remove(i)
+        if not rows:
+            return True
+        if use_spec and any(int(self._ctx_np[i]) + 2 * Q > msl for i in rows):
+            use_spec = False
+            Q = 1
+        # a longer burst delays no admission when the queue is empty or the
+        # batch is full
+        with self._lock:
+            idle = not self._queue
+        slots_full = all(r is not None for r in self._slots)
+        if idle or slots_full:
+            K = max(K, self.ecfg.decode_burst_idle)
+        ps = self.ecfg.page_size
+        # shrink the burst so every row's ctx + K*Q + Q fits max_seq_len
+        K = min(K, min((msl - int(self._ctx_np[i]) - Q) // Q for i in rows))
+        K = 1 << (max(K, 1).bit_length() - 1)
+        # page headroom (+Q: drafts are written before verify). A row whose
+        # pages cannot cover the burst is not dispatched: shrink the burst
+        # to what fits, else park the row for this step
+        kept, parked = [], []
+        for i in rows:
+            req = self._slots[i]
+            ctx = int(self._ctx_np[i])
+            if self._ensure_capacity(req.pages, ctx + K * Q + Q):
+                kept.append(i)
+                self._page_np[i, : len(req.pages)] = req.pages
+                continue
+            cap = len(req.pages) * ps + self.allocator.free_pages * ps
+            k_fit = min(K, (cap - ctx - Q) // Q)
+            if k_fit >= 1:
+                k_fit = 1 << (int(k_fit).bit_length() - 1)
+            if k_fit >= 1 and self._ensure_capacity(req.pages, ctx + k_fit * Q + Q):
+                K = k_fit  # the burst shrinks for the whole batch
+                kept.append(i)
+                self._page_np[i, : len(req.pages)] = req.pages
+            else:
+                parked.append(i)
+        rows = kept
+        if not rows:
+            if parked:
+                # nothing can run and pages are exhausted: preempt the
+                # youngest starved request (recomputed later); a lone
+                # request that still cannot fit has outgrown the arena
+                victim = self._slots[max(parked, key=lambda i: self._slots[i].arrival_t)]
+                if sum(1 for r in self._slots if r is not None) > 1:
+                    self._preempt(victim)
+                else:
+                    self._finish(victim, "length")
+            return True
+
+        B = self._bucket(len(rows))
+        rows = rows[:B]
+        idx = np.zeros((B,), np.int32)
+        idx[: len(rows)] = rows
+        last = self._dev(self._last_np[idx])
+        ctx = self._dev(self._ctx_np[idx])
+        active = self._dev(np.arange(B) < len(rows))
+        pts = self._dev(self._page_np[idx])
+        eos_np = np.full((B,), -2, np.int32)
+        # per-row emission budget: rows stop on the card at max_new_tokens
+        rem_np = np.ones((B,), np.int32)
+        for k, i in enumerate(rows):
+            r = self._slots[i]
+            e = r.sampling.eos_token_id
+            eos_np[k] = self.ecfg.eos_token_id if e is None else e
+            rem_np[k] = max(1, r.sampling.max_new_tokens - len(r.output_ids))
+        eos = self._dev(eos_np)
+        budget = self._dev(rem_np)
+
+        if use_spec:
+            tails = self._dev(self._tails[idx])
+            (self.kv, self.tables, out_toks, n_acc, last2, ctx2, _, tails2,
+             wides) = multistep_spec_decode(
+                self.params, self.kv, self.tables, self.cfg, self.tcfg, last, ctx,
+                active, tails, pts, n_steps=K, eos=eos, spec=self.quant,
+                budget=budget,
+            )
+            out_np = out_toks.cpu().numpy()
+            acc_np = n_acc.cpu().numpy()
+            last_np, ctx_np = last2.cpu().numpy(), ctx2.cpu().numpy()
+            self._tails[idx] = tails2.cpu().numpy()
+            for k, i in enumerate(rows):
+                req = self._slots[i]
+                toks: List[int] = []
+                for s in range(out_np.shape[1]):
+                    toks.extend(int(x) for x in out_np[k, s, : int(acc_np[k, s])])
+                self._commit_tokens(req, toks, last_np[k], ctx_np[k])
+                self.metrics.spec_steps += out_np.shape[1]
+                self.metrics.spec_accepted += len(toks)
+            wides_np = wides.cpu().numpy()
+            self.metrics.spec_wide_steps += int(wides_np.sum())
+            if (self.ecfg.spec_cooldown_bursts
+                    and wides_np.mean() < self.ecfg.spec_gate_threshold):
+                self._spec_cooldown = self.ecfg.spec_cooldown_bursts
+        else:
+            self.kv, toks, last2, ctx2, act2, bleft = multistep_decode(
+                self.params, self.kv, self.cfg, last, ctx, active, pts,
+                n_steps=K, eos=eos, spec=self.quant, budget=budget,
+            )
+            # no readback here: the next decode phase chains off this
+            # burst's tensors while the readback of this one waits
+            self._pending = dict(
+                rows=tuple(rows), reqs=[self._slots[i] for i in rows], K=K,
+                toks=toks, last=last2, ctx=ctx2, act=act2, pts=pts, eos=eos,
+                idx=tuple(int(x) for x in idx), bleft=bleft,
+            )  # decode_steps are counted at drain time
+        self.metrics.decode_time += time.perf_counter() - t0
+        return True
+
+    def _preempt(self, req: Request) -> None:
+        """Reclaim a starved request's pages and requeue it for recompute
+        (prompt + outputs replay through chunked prefill)."""
+        self.allocator.free(req.pages)
+        req.pages = []
+        self._slots[req.slot] = None
+        req.slot = None
+        req.state = "queued"
+        req.done = 0
+        self.metrics.preempted += 1
+        with self._lock:
+            self._queue.appendleft(req)
+
+    def _commit_tokens(self, req: Request, toks: List[int], last, ctx):
+        i = req.slot
+        self._last_np[i] = last
+        self._ctx_np[i] = ctx
+        eos = req.sampling.eos_token_id
+        if eos is None:
+            eos = self.ecfg.eos_token_id
+        # the budget cut first: an eos or stop past max_new_tokens must not
+        # set a finish reason whose tokens are then dropped
+        room = req.sampling.max_new_tokens - len(req.output_ids)
+        toks = toks[:room]
+        if eos in toks:
+            toks = toks[: toks.index(eos) + 1]
+        if req.sampling.stop_sequences and toks:
+            # truncate at the first completed stop sequence; only a bounded
+            # tail of the history can take part
+            max_stop = max(len(s) for s in req.sampling.stop_sequences)
+            tail = list(req.output_ids[-(max_stop - 1):]) if max_stop > 1 else []
+            for j, t in enumerate(toks):
+                tail.append(t)
+                for seq in req.sampling.stop_sequences:
+                    if len(seq) <= len(tail) and tail[-len(seq):] == list(seq):
+                        toks = toks[: j + 1]
+                        req.finish_reason = "stop_sequence"
+                        break
+                if req.finish_reason == "stop_sequence":
+                    break
+        if toks:
+            req.emit(toks)
+            req.last_token = toks[-1]
+        self._maybe_finish(req)
+
+    def _maybe_finish(self, req: Request):
+        eos = req.sampling.eos_token_id
+        if eos is None:
+            eos = self.ecfg.eos_token_id
+        if req.finish_reason == "stop_sequence":
+            self._finish(req, "stop_sequence")
+        elif req.output_ids and req.output_ids[-1] == eos:
+            self._finish(req, "stop")
+        elif len(req.output_ids) >= req.sampling.max_new_tokens:
+            self._finish(req, "length")
+
+    def _finish(self, req: Request, reason: str):
+        req.finish_t = time.perf_counter()
+        self.metrics.finished += 1
+        self.metrics.generated_tokens += len(req.output_ids)
+        self.allocator.free(req.pages)
+        req.pages = []
+        self._slots[req.slot] = None
+        req.finish(reason)

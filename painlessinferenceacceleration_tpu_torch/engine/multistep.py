@@ -9,8 +9,9 @@ the accepted counts back once per step to bound the table update.
 
 Ported: greedy and teacher-forced targets, ``eos``, per-row ``budget``,
 frozen tables (``update_tables=False``) and the ``wide_mask`` probe, on the
-non-adaptive path. Sampling, repetition penalty, linear-attention state and
-GLM positions are not ported yet.
+non-adaptive path, over every arena kind (an e4m3 arena's scales ride in
+``kv``). Sampling, repetition penalty, linear-attention state (and the
+``slot_ids`` that only it reads) and GLM positions are not ported yet.
 """
 
 from __future__ import annotations

@@ -1,0 +1,95 @@
+"""Request objects.
+
+Port (a copy) of ``painlessinferenceacceleration_tpu/engine/request.py``
+without the multimodal fields. One class is both the scheduling record
+(the chunked-prefill cursor ``done``) and the user-facing handle (output
+tokens, finish reason, stream queue). Sampling parameters other than
+greedy are carried but rejected by ``LLM`` until sampling is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+from typing import List, Optional
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    temperature: float = 0.0  # 0 => greedy
+    top_k: int = 0
+    top_p: float = 1.0
+    min_p: float = 0.0
+    repetition_penalty: float = 1.0
+    max_new_tokens: int = 256
+    eos_token_id: Optional[int] = None  # None: the engine's eos_token_id
+    seed: int = 0
+    # generation finishes when the output ends with any of these
+    stop_sequences: Optional[List[List[int]]] = None
+
+
+class Request:
+    """One generation request moving through the engine.
+
+    States: queued -> prefill (chunk cursor ``done`` advances) -> decode ->
+    finished. ``target_ids`` (PPL scoring) is carried for the API's shape;
+    ``LLM`` rejects it until scoring is ported.
+    """
+
+    __slots__ = (
+        "rid", "input_ids", "sampling", "output_ids", "state", "done",
+        "pages", "slot", "last_token", "stream_queue", "target_ids",
+        "finish_reason", "arrival_t", "first_token_t", "finish_t",
+    )
+
+    def __init__(
+        self,
+        rid: int,
+        input_ids: List[int],
+        sampling: Optional[SamplingParams] = None,
+        stream: bool = False,
+        target_ids: Optional[List[int]] = None,
+    ):
+        self.rid = rid
+        self.input_ids = list(input_ids)
+        self.sampling = sampling or SamplingParams()
+        self.output_ids: List[int] = []
+        self.state = "queued"
+        self.done = 0  # prefill chunk cursor
+        self.pages: List[int] = []
+        self.slot: Optional[int] = None  # decode-batch slot index
+        self.last_token: Optional[int] = None
+        self.stream_queue: Optional[queue.Queue] = queue.Queue() if stream else None
+        self.target_ids = target_ids
+        self.finish_reason: Optional[str] = None
+        self.arrival_t: float = 0.0
+        self.first_token_t: float = 0.0
+        self.finish_t: float = 0.0
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.input_ids)
+
+    @property
+    def prefill_source(self) -> List[int]:
+        """Tokens to (re)prefill. A preempted request replays prompt +
+        committed outputs except the last, which seeds decode again."""
+        if self.output_ids:
+            return self.input_ids + self.output_ids[:-1]
+        return self.input_ids
+
+    @property
+    def ctx_len(self) -> int:
+        return self.done + len(self.output_ids)
+
+    def emit(self, tokens: List[int]) -> None:
+        self.output_ids.extend(tokens)
+        if self.stream_queue is not None:
+            for t in tokens:
+                self.stream_queue.put(t)
+
+    def finish(self, reason: str) -> None:
+        self.state = "finished"
+        self.finish_reason = reason
+        if self.stream_queue is not None:
+            self.stream_queue.put(None)  # sentinel

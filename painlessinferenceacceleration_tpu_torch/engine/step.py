@@ -101,6 +101,10 @@ def verify_parallel_core(
     eff_edges = torch.where(active & (best > 0), n_edges, torch.zeros_like(n_edges))
     for name in ("k", "v"):
         compact_kv_tail(kv[name], page_tables, ctx_lens, node_ids, eff_edges, Q, active)
+    for name in ("k_tok_scale", "v_tok_scale"):  # per-token scales move too
+        if name in kv:
+            compact_kv_tail(kv[name], page_tables, ctx_lens, node_ids, eff_edges, Q,
+                            active, whole_pages=True)
     n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
     return kv, out_tokens, n_acc
 

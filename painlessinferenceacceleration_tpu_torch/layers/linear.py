@@ -35,6 +35,22 @@ class QuantSpec:
     bits: int = 4
     group: int = 128
 
+    @classmethod
+    def from_mode(cls, mode: Optional[str], group: int = 128) -> Optional["QuantSpec"]:
+        """``EngineConfig.quant`` -> spec (None for native weights)."""
+        if mode in ("none", "", None):
+            return None
+        if mode == "int4":
+            return cls(bits=4, group=group)
+        if mode == "int8":
+            raise NotImplementedError(
+                "int8 weight-only linears come with the int8 slice (ROADMAP B.1)")
+        if mode.startswith("w8a8") or mode == "fp8":
+            raise NotImplementedError(
+                f"quant={mode!r}: W8A8 / fp8 linears come with the W8A8 slice "
+                "(ROADMAP B.2)")
+        raise ValueError(f"unknown quant mode {mode!r}")
+
 
 def effective_group(din: int, group: int) -> int:
     g = min(group, din)

@@ -125,6 +125,20 @@ def update_tables_seq(
     return tables
 
 
+def update_tables_batch(tables: dict, tcfg: DraftTableConfig, bufs: torch.Tensor,
+                        n_valid, win_lo, win_hi) -> dict:
+    """Streamed update from B row buffers [B, W] (-1 padded), one row after
+    another as the JAX package's fori over rows does. ``n_valid``/``win_lo``/
+    ``win_hi`` are host integers per row; a row with fewer than 3 valid
+    tokens holds no window and is skipped."""
+    for b in range(bufs.shape[0]):
+        n = int(n_valid[b])
+        if n >= 3:
+            update_tables_seq(tables, tcfg, bufs[b], n, win_lo=int(win_lo[b]),
+                              win_hi=int(win_hi[b]))
+    return tables
+
+
 def retrieve_drafts(tables: dict, tcfg: DraftTableConfig, p0: torch.Tensor,
                     p1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top retrieve_count branches for 2-grams (p0, p1) [...].

@@ -6,10 +6,13 @@ weight stacked ``[L, ...]`` and a layer is a view ``w[li]``; qkv and
 gate/up are merged GEMMs. A Python loop over layers takes the place of
 ``lax.scan``, and the KV arena is written in place.
 
-Attention dispatch follows the JAX ``_attn_block_at``: Q <= 128 goes to
-``paged_attention`` (decode/verify kernel), Q > 128 with a causal window to
-``paged_attention_prefill``; any other case runs the plain gather path on
-the CPU and raises on CUDA.
+Attention dispatch follows the JAX ``_attn_block_at`` over the three arena
+kinds: Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
+window to the prefill rule, ``paged_attention_tok`` for a per-token-scale
+e4m3 arena; any other case runs the plain gather path on the CPU and raises
+on CUDA. Where JAX serves the e4m3 prefill and per-token verify widths with
+jnp, the port uses the kernel's e4m3 modes, so no arena/width pair reaches a
+plain version on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attentio
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_prefill,
+    paged_attention_tok,
 )
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 from painlessinferenceacceleration_tpu_torch.ops.rope import (
@@ -127,6 +131,35 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
     return params
 
 
+def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale):
+    """Dispatch on the arena (bf16 / static e4m3 / per-token e4m3) and the
+    width: Q <= 128 to the decode/verify rule, Q > 128 with a causal window
+    to the prefill rule. On CUDA every case is a kernel; any other case
+    raises there and runs the plain gather path on the CPU."""
+    kk, vv = kv["k"][li], kv["v"][li]
+    Q = xq.shape[1]
+    tok = "k_tok_scale" in kv
+    k_s = v_s = None
+    if tok:
+        k_s, v_s = kv["k_tok_scale"][li], kv["v_tok_scale"][li]
+    elif "k_scale" in kv:
+        k_s, v_s = kv["k_scale"][li], kv["v_scale"][li]
+    if Q > 128 and not causal_window:
+        if xq.is_cuda:
+            raise NotImplementedError("non-causal attention with Q > 128 has no kernel")
+        return paged_attention_ref(xq, kk, vv, page_tables, start_lens, qmask,
+                                   scale, k_s, v_s)
+    if tok:
+        return paged_attention_tok(xq, kk, vv, k_s, v_s, page_tables, start_lens,
+                                   scale, None if Q > 128 else qmask)
+    kv_scales = None if k_s is None else (k_s, v_s)
+    if Q <= 128:
+        return paged_attention(xq, kk, vv, page_tables, start_lens, qmask, scale,
+                               kv_scales)
+    return paged_attention_prefill(xq, kk, vv, page_tables, start_lens, scale,
+                                   kv_scales)
+
+
 def _attn_block_at(layers, li, cfg, spec, h, cos, sin, kv, page_tables,
                    start_lens, qmask, valid, causal_window):
     B, Q, _ = h.shape
@@ -136,17 +169,12 @@ def _attn_block_at(layers, li, cfg, spec, h, cos, sin, kv, page_tables,
     xk = qkv[..., H * D: (H + Hk) * D].reshape(B, Q, Hk, D)
     xv = qkv[..., (H + Hk) * D:].reshape(B, Q, Hk, D)
     xq, xk = apply_rope(xq, cos, sin), apply_rope(xk, cos, sin)
-    write_kv_pages(kv["k"], kv["v"], xk, xv, page_tables, start_lens, valid, li)
-    kk, vv = kv["k"][li], kv["v"][li]
-    scale = D ** -0.5
-    if Q <= 128:
-        out = paged_attention(xq, kk, vv, page_tables, start_lens, qmask, scale)
-    elif causal_window:
-        out = paged_attention_prefill(xq, kk, vv, page_tables, start_lens, scale)
-    elif h.is_cuda:
-        raise NotImplementedError("non-causal attention with Q > 128 has no kernel")
-    else:
-        out = paged_attention_ref(xq, kk, vv, page_tables, start_lens, qmask, scale)
+    write_kv_pages(kv["k"], kv["v"], xk, xv, page_tables, start_lens, valid, li,
+                   kv["k_scale"][li] if "k_scale" in kv else None,
+                   kv["v_scale"][li] if "v_scale" in kv else None,
+                   kv.get("k_tok_scale"), kv.get("v_tok_scale"))
+    out = _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window,
+                     D ** -0.5)
     return linear_at(layers["wo"], li, out.reshape(B, Q, H * D), spec)
 
 

@@ -1,11 +1,12 @@
-"""Parameters from the JAX package into the port.
+"""Parameters and KV arenas from the JAX package into the port.
 
-``params_from_jax`` takes the JAX parameter pytree with its leaves already
-turned into numpy arrays (``jax.tree.map(np.asarray, params)``), so this
-module needs no JAX. The tree shape is the same in both packages; int4
+``params_from_jax`` and ``kv_from_jax`` take JAX pytrees with their leaves
+already turned into numpy arrays (``jax.tree.map(np.asarray, tree)``), so
+this module needs no JAX. The tree shape is the same in both packages; int4
 ``{"q", "s"}`` leaves keep their packed bytes unchanged. bf16 crosses over
-through a ``uint16`` view, since ``torch.from_numpy`` does not take the
-ml_dtypes bf16 type.
+through a ``uint16`` view and e4m3 through a ``uint8`` view, since
+``torch.from_numpy`` does not take the ml_dtypes types, so arenas compare
+byte for byte.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ def _tensor(a: np.ndarray, device=None) -> torch.Tensor:
     a = np.require(a, requirements=["C", "W"])  # torch wants writable
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(resolve_device(device))
@@ -30,3 +33,18 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _tensor(np.asarray(tree), device)
+
+
+def kv_from_jax(tree: dict, n_kv_heads: int, device=None) -> dict:
+    """A JAX KV arena dict (``init_kv_cache``'s keys) as the port's arena.
+
+    The JAX per-token scale arenas ``[L, n_pages, ps, 128]`` are padded to
+    128 lanes for the TPU's DMA tiles; the port keeps the real
+    ``n_kv_heads`` lanes."""
+    out = {}
+    for name, a in tree.items():
+        a = np.asarray(a)
+        if name in ("k_tok_scale", "v_tok_scale"):
+            a = a[..., :n_kv_heads]
+        out[name] = _tensor(a, device)
+    return out

@@ -51,13 +51,17 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
-                        scale: float) -> torch.Tensor:
-    """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D]."""
+                        scale: float, k_scale=None, v_scale=None) -> torch.Tensor:
+    """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D].
+
+    An e4m3 arena is dequantized as it is gathered: ``k_scale``/``v_scale``
+    are the layer's static per-head scales [H] or its per-token scale
+    arenas [n_pages, ps, H]."""
     from painlessinferenceacceleration_tpu_torch.engine.cache import gather_kv_pages
 
     D = q.shape[-1]
-    kc = gather_kv_pages(k_pages, page_tables, D).to(q.dtype)
-    vc = gather_kv_pages(v_pages, page_tables, D).to(q.dtype)
+    kc = gather_kv_pages(k_pages, page_tables, D, k_scale, q.dtype)
+    vc = gather_kv_pages(v_pages, page_tables, D, v_scale, q.dtype)
     mask = attention_mask(start_lens, qmask, kc.shape[2])
     return mha_reference(q, kc, vc, mask, scale)
 

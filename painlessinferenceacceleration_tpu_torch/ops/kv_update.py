@@ -1,7 +1,8 @@
-"""In-place tail-window KV permute: the CUDA kernel's wrapper and plain version.
+"""KV compaction kernels: their wrappers and plain versions.
 
-Replaces the Pallas ``_permute_kernel`` / ``kv_permute_pages_pallas``
-(``painlessinferenceacceleration_tpu/ops/kv_update.py``)::
+``kv_permute_pages`` replaces the Pallas ``_permute_kernel`` /
+``kv_permute_pages_pallas`` (``painlessinferenceacceleration_tpu/ops/
+kv_update.py``), an in-place tail-window row permute::
 
     pages[l, page_ids[b, w // ps], w % ps] = win[b, l][src_rel[b, w]]
 
@@ -9,8 +10,15 @@ for every layer l, where ``win`` is the window before the call. The arena
 is updated in place (JAX donates it instead). When two window slots name the
 same page (the page-table clip near the end of a table), the later slot's
 rows are the ones kept. A CPU tensor takes the plain version; a CUDA tensor
-launches ``csrc/kv_permute.cu`` or raises. ``kv_permute_pages.launches``
-counts kernel launches.
+launches ``csrc/kv_permute.cu`` or raises.
+
+``kv_write_pages`` replaces the Pallas ``_page_write_kernel`` /
+``kv_write_pages_pallas``, the whole-page write-back
+``pages[:, page_ids[w]] = windows[:, w]`` over all layers, for any element
+type (e4m3 K/V pages and f32 scale pages); an aliased destination keeps the
+later window page. It launches ``csrc/kv_page_write.cu`` on a CUDA tensor.
+
+Each wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -74,3 +82,60 @@ def kv_permute_pages(pages: torch.Tensor, page_ids: torch.Tensor,
 
 
 kv_permute_pages.launches = 0
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A uint8 view, the element bytes along the last axis (e4m3 and f32
+    pages alike; index_put_ need not take an fp8 type)."""
+    return t.view(torch.uint8)
+
+
+def kv_write_pages_plain(pages: torch.Tensor, windows: torch.Tensor,
+                         page_ids: torch.Tensor) -> torch.Tensor:
+    ids = page_ids.long()
+    W = ids.shape[0]
+    w = torch.arange(W, device=ids.device)
+    later_same = (ids[None, :] == ids[:, None]) & (w[None, :] > w[:, None])
+    keep = ~later_same.any(dim=1)  # the last window page of each destination
+    _bytes(pages)[:, ids[keep]] = _bytes(windows)[:, keep]
+    return pages
+
+
+def _kv_write_pages_cuda(pages, windows, page_ids):
+    L, n_pages = pages.shape[:2]
+    W = windows.shape[1]
+    if windows.dtype != pages.dtype or windows.shape[0] != L \
+            or windows.shape[2:] != pages.shape[2:]:
+        raise ValueError(f"windows {tuple(windows.shape)} {windows.dtype} do not "
+                         f"match pages {tuple(pages.shape)} {pages.dtype}")
+    if not pages.is_contiguous():
+        raise ValueError("kv_write_pages needs a contiguous arena")
+    ids = page_ids.to(torch.int32).contiguous()
+    if ids.shape != (W,) or not (ids.device == windows.device == pages.device):
+        raise ValueError("kv_write_pages: page_ids must be [W] on the arena's device")
+    windows = windows.contiguous()
+    page_bytes = pages[0, 0].numel() * pages.element_size()
+    lib = _build.library("kv_page_write")
+    fn = lib.kv_page_write
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong,
+                                                                ctypes.c_void_p]
+    err = fn(pages.data_ptr(), windows.data_ptr(), ids.data_ptr(), L, W, n_pages,
+             page_bytes, _build.stream_of(pages))
+    _build.check(lib, err, "kv_write_pages")
+    kv_write_pages.launches += 1
+    return pages
+
+
+def kv_write_pages(pages: torch.Tensor, windows: torch.Tensor,
+                   page_ids: torch.Tensor) -> torch.Tensor:
+    """Write whole pages in place: pages [L, n_pages, ps, ...] gets
+    windows [L, W, ps, ...] at page_ids [W] (0 = null page). Returns
+    ``pages``."""
+    if pages.is_cuda:
+        return _kv_write_pages_cuda(pages, windows, page_ids)
+    if pages.device.type != "cpu":
+        raise NotImplementedError(f"kv_write_pages on {pages.device}")
+    return kv_write_pages_plain(pages, windows, page_ids)
+
+
+kv_write_pages.launches = 0

@@ -1,22 +1,30 @@
-"""Paged attention over the bf16 KV arena: kernel wrappers and plain versions.
+"""Paged attention over the KV arena: kernel wrappers and plain versions.
 
 ``paged_attention`` (decode and tree verify, 1 <= Q <= 128) replaces the
 Pallas ``_attn_decode_kernel`` and ``_attn_verify_kernel``;
 ``paged_attention_prefill`` (causal, Q > 128) replaces
-``_attn_prefill_kernel`` (``painlessinferenceacceleration_tpu/ops/
-paged_attention.py``). Both launch the one kernel of
-``csrc/paged_attention.cu``, the second with its causal rule, and only for a
-bf16 arena: the static-fp8 arena mode is not ported yet.
+``_attn_prefill_kernel``; ``paged_attention_tok`` (the per-token-scale e4m3
+arena, every width) replaces ``_attn_decode_tok_kernel``
+(``painlessinferenceacceleration_tpu/ops/paged_attention.py``). All three
+launch the one kernel of ``csrc/paged_attention.cu`` in one of its arena
+modes: bf16; e4m3 with static per-(layer, kv head) scales (``kv_scales``,
+the K scale folded into the scores and the V scale into the output, as the
+Pallas wrappers fold them into q and the output); e4m3 with per-token
+scales.
 
-The arena argument is one layer's view ``[n_pages, ps, Hkv*D]`` of the
-stacked arena (``kv["k"][li]``, no copy). A CPU tensor takes the plain
-version (``ops/attention.py``); a CUDA tensor launches the kernel or raises.
-Each wrapper's ``launches`` counts its kernel launches.
+The arena arguments are one layer's views ``[n_pages, ps, Hkv*D]`` (and
+``[n_pages, ps, Hkv]`` for per-token scales) of the stacked arenas, no
+copy. A CPU tensor takes the plain version (``ops/attention.py``, which
+dequantizes as it gathers); a CUDA tensor launches the kernel or raises.
+Each wrapper's ``launches`` counts its kernel launches and ``modes`` counts
+them by width kind (decode / verify / prefill) and arena.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,16 +35,33 @@ from painlessinferenceacceleration_tpu_torch.ops.attention import (
 )
 
 _ROWS_PER_BLOCK = 64  # csrc/paged_attention.cu kRows
+_MODES = {"bf16": 0, "fp8": 1, "fp8_tok": 2}  # csrc/paged_attention.cu MODE
+FP8 = torch.float8_e4m3fn
 
 
-def _launch(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale, causal):
+def _check_scales(arena: str, k_pages, k_scale, v_scale, Hkv: int) -> None:
+    if arena == "bf16":
+        return
+    n_pages, ps = k_pages.shape[:2]
+    want = (Hkv,) if arena == "fp8" else (n_pages, ps, Hkv)
+    for s in (k_scale, v_scale):
+        if s is None or s.dtype != torch.float32 or tuple(s.shape) != want:
+            raise ValueError(f"{arena} arena needs f32 scales of shape {want}")
+        if not s.is_contiguous() or s.device != k_pages.device:
+            raise ValueError("the scales must be contiguous, on the arena's device")
+
+
+def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
+            causal: bool, arena: str, k_scale=None, v_scale=None):
     B, Q, Hq, D = q.shape
     n_pages, ps, HD = k_pages.shape
     Hkv = HD // D
     P = page_tables.shape[1]
-    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16 \
-            or v_pages.dtype != torch.bfloat16:
-        raise TypeError("paged_attention kernels take bf16 q and a bf16 arena")
+    kv_dtype = torch.bfloat16 if arena == "bf16" else FP8
+    if q.dtype != torch.bfloat16 or k_pages.dtype != kv_dtype \
+            or v_pages.dtype != kv_dtype:
+        raise TypeError(f"paged_attention ({arena}) takes bf16 q and a "
+                        f"{kv_dtype} arena, not {q.dtype}/{k_pages.dtype}")
     if D not in (64, 128) or ps % 8 or ps > 128 or Hq % Hkv \
             or _ROWS_PER_BLOCK % (Hq // Hkv):
         raise ValueError(f"unsupported geometry Hq={Hq} Hkv={Hkv} D={D} ps={ps}")
@@ -46,6 +71,7 @@ def _launch(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale, causal):
     for t in (k_pages, v_pages, page_tables, ctx_lens):
         if t.device != dev:
             raise ValueError("paged_attention operands must be on one device")
+    _check_scales(arena, k_pages, k_scale, v_scale, Hkv)
     q = q.contiguous()
     pt = page_tables.to(torch.int32).contiguous()
     cl = ctx_lens.to(torch.int32).contiguous()
@@ -53,55 +79,92 @@ def _launch(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale, causal):
     out = torch.empty_like(q)
     lib = _build.library("paged_attention")
     fn = lib.paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             pt.data_ptr(), cl.data_ptr(), _build.ptr(qm), out.data_ptr(),
-             B, Q, Hq, Hkv, D, ps, P, float(scale), int(causal),
-             _build.stream_of(q))
+             pt.data_ptr(), cl.data_ptr(), _build.ptr(qm), _build.ptr(k_scale),
+             _build.ptr(v_scale), out.data_ptr(), B, Q, Hq, Hkv, D, ps, P,
+             float(scale), int(causal), _MODES[arena], _build.stream_of(q))
     _build.check(lib, err, "paged_attention")
+    wrapper.launches += 1
+    kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
+    wrapper.modes[f"{kind},{arena}"] += 1
     return out
+
+
+def _arena_of(k_pages, kv_scales) -> Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    if k_pages.dtype != FP8:
+        return "bf16", None, None
+    if kv_scales is None:
+        raise ValueError("an e4m3 arena needs kv_scales=(k_scale, v_scale)")
+    return "fp8", kv_scales[0], kv_scales[1]
+
+
+def _plain_only(q, what):
+    if q.device.type != "cpu":
+        raise NotImplementedError(f"{what} on {q.device}")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_tables: torch.Tensor,
                     ctx_lens: torch.Tensor, qmask: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, kv_scales=None) -> torch.Tensor:
     """Decode / tree-verify attention, q [B, Q, Hq, D] with Q <= 128.
 
-    K/V of the Q in-step tokens must already be written at ctx..ctx+Q-1."""
+    K/V of the Q in-step tokens must already be written at ctx..ctx+Q-1.
+    ``kv_scales`` = (k_scale [Hkv], v_scale [Hkv]) for a static e4m3 arena."""
     if q.is_cuda:
         if q.shape[1] > 128:
             raise ValueError("paged_attention serves Q <= 128; use the prefill kernel")
-        out = _launch(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
-                      causal=False)
-        paged_attention.launches += 1
-        return out
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"paged_attention on {q.device}")
+        arena, ks, vs = _arena_of(k_pages, kv_scales)
+        return _launch(paged_attention, q, k_pages, v_pages, page_tables,
+                       ctx_lens, qmask, scale, False, arena, ks, vs)
+    _plain_only(q, "paged_attention")
+    ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale)
+                               qmask, scale, ks, vs)
 
 
 def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, page_tables: torch.Tensor,
-                            ctx_lens: torch.Tensor, scale: float) -> torch.Tensor:
+                            ctx_lens: torch.Tensor, scale: float,
+                            kv_scales=None) -> torch.Tensor:
     """Causal chunk attention over K/V already written at ctx..ctx+Q-1.
 
     Rows past a request's valid tokens give finite values that callers
     discard, as in the JAX package."""
     if q.is_cuda:
-        out = _launch(q, k_pages, v_pages, page_tables, ctx_lens, None, scale,
-                      causal=True)
-        paged_attention_prefill.launches += 1
-        return out
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"paged_attention_prefill on {q.device}")
+        arena, ks, vs = _arena_of(k_pages, kv_scales)
+        return _launch(paged_attention_prefill, q, k_pages, v_pages,
+                       page_tables, ctx_lens, None, scale, True, arena, ks, vs)
+    _plain_only(q, "paged_attention_prefill")
     B, Q = q.shape[:2]
     qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
+    ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale)
+                               qmask, scale, ks, vs)
 
 
-paged_attention.launches = 0
-paged_attention_prefill.launches = 0
+def paged_attention_tok(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, ks_pages: torch.Tensor,
+                        vs_pages: torch.Tensor, page_tables: torch.Tensor,
+                        ctx_lens: torch.Tensor, scale: float,
+                        qmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over a per-token-scale e4m3 arena (``kv_quant='fp8_tok'``)
+    at any width: ``qmask`` [B, Q, Q] for decode / verify, None for the
+    causal rule (prefill). ks_pages/vs_pages [n_pages, ps, Hkv] f32."""
+    if q.is_cuda:
+        return _launch(paged_attention_tok, q, k_pages, v_pages, page_tables,
+                       ctx_lens, qmask, scale, qmask is None, "fp8_tok", ks_pages,
+                       vs_pages)
+    _plain_only(q, "paged_attention_tok")
+    if qmask is None:
+        B, Q = q.shape[:2]
+        qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
+    return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
+                               qmask, scale, ks_pages, vs_pages)
+
+
+for _w in (paged_attention, paged_attention_prefill, paged_attention_tok):
+    _w.launches = 0
+    _w.modes = collections.Counter()

@@ -9,7 +9,11 @@ where there is none (the CPU test run). Run them on a machine with a card:
 machine for the port need not have.)
 
 Tolerances: bf16 outputs within 2e-2 relative to the plain fp32-accumulated
-version; fp32 outputs within 1e-4; the KV permute bit for bit.
+version (the e4m3 arena modes too: their plain version rounds the
+dequantized rows to bf16, the kernel does not); fp32 outputs within 1e-4;
+the KV permute and the page write bit for bit. The batch-invariance tests
+ask for bit equality: a row's result must not depend on the batch width,
+or lookahead serving would not reproduce AR serving.
 """
 
 import pytest
@@ -22,11 +26,15 @@ from painlessinferenceacceleration_tpu_torch.ops.attention import (
 from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
     kv_permute_pages,
     kv_permute_pages_plain,
+    kv_write_pages,
+    kv_write_pages_plain,
 )
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_prefill,
+    paged_attention_tok,
 )
+from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     int4_matmul,
     int4_matmul_plain,
@@ -46,7 +54,8 @@ def _rel(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384)])
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384),
+                                   (4096, 4096, 1024)])  # 8 x 512 prefill rows
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_int4_gemm(cuda, M, K, N, out):
     x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
@@ -99,3 +108,137 @@ def test_kv_permute_pages(cuda, moving):
         src = ident.clone()
     got = kv_permute_pages(pages.clone(), ids, src.to(torch.int32))
     assert torch.equal(got, kv_permute_pages_plain(pages.clone(), ids, src))
+
+
+def _fp8(g, shape, Hkv, tok):
+    """Unit-normal rows quantized as the arena writes them: scale = amax/448
+    per (layer, kv head), or per (token, kv head) with ``tok``, so the
+    dequantized keys are ~N(0, 1) and the softmax is not flat."""
+    x = torch.randn(*shape, generator=g, device="cuda")
+    xh = x.reshape(*shape[:2], Hkv, -1)
+    amax = xh.abs().amax(-1) if tok else xh.abs().amax(dim=(0, 1, 3))
+    s = (amax / 448.0).clamp(min=1e-8).contiguous()
+    q = (xh / (s[..., None] if tok else s[:, None])).clamp(-448.0, 448.0)
+    return q.to(torch.float8_e4m3fn).reshape(shape), s
+
+
+def _fp8_arena(g, B, ctx, Q, Hkv, tok, D=128, ps=64):
+    k, _, pt, ctx_t = _arena(g, B, ctx, Q, Hkv, D, ps)
+    n = k.shape[0]
+    k8, ks = _fp8(g, (n, ps, Hkv * D), Hkv, tok)
+    v8, vs = _fp8(g, (n, ps, Hkv * D), Hkv, tok)
+    return k8, v8, ks, vs, pt, ctx_t
+
+
+def _mask(g, B, Q):
+    return (torch.rand(B, Q, Q, generator=g, device="cuda") < 0.5) | torch.eye(
+        Q, dtype=torch.bool, device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+@pytest.mark.parametrize("tok", [False, True], ids=["static", "per_token"])
+def test_paged_attention_e4m3(cuda, kind, tok):
+    Q = {"decode": 1, "verify": 17, "prefill": 200}[kind]
+    Hq, Hkv = 8, 4
+    k8, v8, ks, vs, pt, ctx = _fp8_arena(cuda, 2, [130, 7], Q, Hkv, tok)
+    q = torch.randn(2, Q, Hq, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = causal_qmask(Q, "cuda")[None].expand(2, Q, Q) if kind == "prefill" \
+        else _mask(cuda, 2, Q)
+    sc = 128 ** -0.5
+    if tok:
+        wrapper = paged_attention_tok
+        got = paged_attention_tok(q, k8, v8, ks, vs, pt, ctx, sc,
+                                  None if kind == "prefill" else qm)
+    elif kind == "prefill":
+        wrapper = paged_attention_prefill
+        got = paged_attention_prefill(q, k8, v8, pt, ctx, sc, (ks, vs))
+    else:
+        wrapper = paged_attention
+        got = paged_attention(q, k8, v8, pt, ctx, qm, sc, (ks, vs))
+    arena = "fp8_tok" if tok else "fp8"
+    assert wrapper.modes[f"{kind},{arena}"] > 0
+    ref = paged_attention_ref(q, k8, v8, pt, ctx, qm, sc, ks, vs)
+    assert _rel(got, ref) < 2e-2
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_attention_at_serving_shapes(cuda, kind, arena):
+    """B = 8 with ragged contexts and distinct page tables, as the serving
+    engine batches requests; a prefill batch with rows resumed past a
+    cached prefix (start > 0) beside fresh ones. A fault in one request's
+    indexing shows against the plain version."""
+    Q = {"decode": 1, "verify": 17, "prefill": 512}[kind]
+    ctx = ([128, 0, 256, 0, 64, 192, 0, 320] if kind == "prefill"
+           else [64, 432, 97, 128, 250, 301, 320, 77])
+    Hq = Hkv = 8
+    if arena == "bf16":
+        k, v, pt, ctx_t = _arena(cuda, 8, ctx, Q, Hkv)
+        ks = vs = None
+    else:
+        k, v, ks, vs, pt, ctx_t = _fp8_arena(cuda, 8, ctx, Q, Hkv, arena == "fp8_tok")
+    q = torch.randn(8, Q, Hq, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = causal_qmask(Q, "cuda")[None].expand(8, Q, Q) if kind == "prefill" \
+        else _mask(cuda, 8, Q)
+    sc = 128 ** -0.5
+    scales = None if ks is None else (ks, vs)
+    if arena == "fp8_tok":
+        got = paged_attention_tok(q, k, v, ks, vs, pt, ctx_t, sc,
+                                  None if kind == "prefill" else qm)
+    elif kind == "prefill":
+        got = paged_attention_prefill(q, k, v, pt, ctx_t, sc, scales)
+    else:
+        got = paged_attention(q, k, v, pt, ctx_t, qm, sc, scales)
+    ref = paged_attention_ref(q, k, v, pt, ctx_t, qm, sc, ks, vs)
+    assert _rel(got, ref) < 2e-2
+
+
+@pytest.mark.parametrize("dtype,row", [(torch.float8_e4m3fn, 1024), (torch.float32, 8),
+                                       (torch.float32, 3)])
+def test_kv_write_pages(cuda, dtype, row):
+    ps = 64 if row != 3 else 5  # 5 * 3 * 4 bytes: not a 16-byte multiple
+    pages = torch.randn(3, 12, ps, row, generator=cuda, device="cuda").to(dtype)
+    windows = torch.randn(3, 5, ps, row, generator=cuda, device="cuda").to(dtype)
+    ids = torch.tensor([4, 0, 4, 9, 0], dtype=torch.int32, device="cuda")  # aliases
+    before = kv_write_pages.launches
+    got = kv_write_pages(pages.clone(), windows, ids)
+    assert kv_write_pages.launches == before + 1
+    ref = kv_write_pages_plain(pages.clone(), windows, ids)
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    assert torch.equal(got[:, 4].view(torch.uint8), windows[:, 2].view(torch.uint8))
+
+
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_attention_rows_do_not_depend_on_the_width(cuda, arena):
+    """Row 0 of a 17-wide tree verify (it sees only the committed keys and
+    itself) equals a Q = 1 decode of the same token, bit for bit."""
+    Hq = Hkv = 8
+    if arena == "bf16":
+        k, v, pt, ctx = _arena(cuda, 2, [200, 61], 17, Hkv)
+        ks = vs = None
+    else:
+        k, v, ks, vs, pt, ctx = _fp8_arena(cuda, 2, [200, 61], 17, Hkv, arena == "fp8_tok")
+    q = torch.randn(2, 17, Hq, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = _mask(cuda, 2, 17)
+    qm[:, 0] = False
+    qm[:, 0, 0] = True
+    one = torch.ones(2, 1, 1, dtype=torch.bool, device="cuda")
+
+    def run(qq, m):
+        if arena == "fp8_tok":
+            return paged_attention_tok(qq, k, v, ks, vs, pt, ctx, 0.088, m)
+        return paged_attention(qq, k, v, pt, ctx, m, 0.088,
+                               None if ks is None else (ks, vs))
+    assert torch.equal(run(q, qm)[:, :1], run(q[:, :1].contiguous(), one))
+
+
+def test_gemm_and_norm_rows_do_not_depend_on_the_batch(cuda):
+    x = torch.randn(512, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    q = torch.randint(0, 256, (2048, 4096), generator=cuda, device="cuda", dtype=torch.uint8)
+    s = (torch.rand(32, 4096, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
+    full = int4_matmul(x, q, s)
+    w = torch.ones(4096, dtype=torch.bfloat16, device="cuda")
+    norm = rms_norm(x, w)
+    for m in (1, 2, 8, 17, 136):
+        assert torch.equal(int4_matmul(x[:m], q, s), full[:m])
+        assert torch.equal(rms_norm(x[:m], w), norm[:m])

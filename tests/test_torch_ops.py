@@ -2,10 +2,12 @@
 
 Inputs are made with numpy from a seed and fed to both packages. The JAX
 Pallas functions run in interpret mode, as the JAX package's own tests run
-them. Tolerances: int4 packing and KV compaction must match exactly; fp32
-plain paths within 1e-5 (same arithmetic, other summation order); bf16
-against the Pallas kernels within 2e-2 relative (bf16 rounding of the
-kernel's operands and output).
+them. Tolerances: int4 packing, e4m3 arena writes and KV compaction must
+match exactly; fp32 plain paths within 1e-5 (same arithmetic, other
+summation order); bf16 against the Pallas kernels within 2e-2 relative
+(bf16 rounding of the kernel's operands and output), and the e4m3-arena
+Pallas kernels within 3e-2 (they compute in bf16 throughout, with q folded
+by the K scale and rounded to bf16 first).
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ from painlessinferenceacceleration_tpu.ops.kv_update import kv_permute_pages_pal
 from painlessinferenceacceleration_tpu.ops.paged_attention import (
     paged_attention as j_paged_attention,
     paged_attention_prefill as j_paged_attention_prefill,
+    paged_attention_tok as j_paged_attention_tok,
 )
 from painlessinferenceacceleration_tpu import config as jconfig
 
@@ -37,10 +40,17 @@ from painlessinferenceacceleration_tpu_torch.engine import cache as tcache
 from painlessinferenceacceleration_tpu_torch.layers import linear as tlin
 from painlessinferenceacceleration_tpu_torch.ops import rmsnorm as trms
 from painlessinferenceacceleration_tpu_torch.ops import rope as trope
-from painlessinferenceacceleration_tpu_torch.ops.kv_update import kv_permute_pages
+from painlessinferenceacceleration_tpu_torch.models.convert import kv_from_jax
+from painlessinferenceacceleration_tpu_torch.ops import attention as tatt
+from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+    kv_permute_pages,
+    kv_write_pages,
+    kv_write_pages_plain,
+)
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_prefill,
+    paged_attention_tok,
 )
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     int4_matmul,
@@ -312,12 +322,244 @@ def test_kv_permute_aliased_window_pages_keep_the_later_slot():
     assert out[:, 3, :, 0].tolist() == [[7.0, 6.0], [15.0, 14.0]]
 
 
+# ---------------------------------------------------------------------------
+# the e4m3 arenas: writes, attention and compaction
+# ---------------------------------------------------------------------------
+
+
+def _bytes_of(t_tensor):
+    return t_tensor.view(torch.uint8).numpy()
+
+
+def _jax_bytes(a):
+    return np.asarray(a).view(np.uint8)
+
+
+@pytest.mark.parametrize("mode", ["fp8", "fp8_tok"])
+def test_fp8_write_kv_pages_bytes_match_jax(mode):
+    """Static clip-then-cast and per-token amax/448 writes: identical e4m3
+    bytes and scales (through kv_from_jax, which drops the JAX lane pad)."""
+    jc = jconfig.ModelConfig.tiny()
+    je = jconfig.EngineConfig(page_size=16, max_seq_len=96, max_concurrency=2, kv_quant=mode)
+    jkv = jcache.init_kv_cache(jc, je)
+    rng = np.random.default_rng(12)
+    H, D, li = jc.num_key_value_heads, jc.head_dim, 1
+    if mode == "fp8":  # small scales: some values clip at +-448
+        for name in ("k_scale", "v_scale"):
+            jkv[name] = jnp.asarray(rng.uniform(0.004, 0.02, jkv[name].shape), jnp.float32)
+    tkv = kv_from_jax(jax.tree.map(np.asarray, jkv), H, "cpu")
+    B, Q = 2, 7
+    nk = (rng.normal(size=(B, Q, H, D)) * 3).astype(np.float32)
+    nv = (rng.normal(size=(B, Q, H, D)) * 3).astype(np.float32)
+    nk[0, 0, 0, :4] = 0.0  # a partly zero row
+    nv[1, 2, 1] = 0.0  # an all-zero (token, head): scale floor 1e-8/448
+    pt = np.array([[1, 2, 3, 0, 0, 0], [4, 5, 6, 0, 0, 0]], np.int32)
+    start = np.array([13, 2], np.int32)
+    valid = np.ones((B, Q), bool)
+    valid[1, 5:] = False
+    args = (jnp.asarray(pt), jnp.asarray(start), jnp.asarray(valid))
+    if mode == "fp8":
+        jk, jv = jcache.write_kv_pages(
+            jkv["k"], jkv["v"], jnp.asarray(nk), jnp.asarray(nv), *args,
+            k_scale=jkv["k_scale"][li], v_scale=jkv["v_scale"][li], layer=jnp.int32(li))
+        tcache.write_kv_pages(tkv["k"], tkv["v"], t(nk), t(nv), t(pt), t(start), t(valid),
+                              li, tkv["k_scale"][li], tkv["v_scale"][li])
+        assert np.abs(nk / np.asarray(jkv["k_scale"][li])[None, None, :, None]).max() > 448
+    else:
+        jk, jv, jks, jvs = jcache.write_kv_pages(
+            jkv["k"], jkv["v"], jnp.asarray(nk), jnp.asarray(nv), *args,
+            layer=jnp.int32(li), k_tok_scale=jkv["k_tok_scale"],
+            v_tok_scale=jkv["v_tok_scale"])
+        tcache.write_kv_pages(tkv["k"], tkv["v"], t(nk), t(nv), t(pt), t(start), t(valid),
+                              li, k_tok_scale=tkv["k_tok_scale"],
+                              v_tok_scale=tkv["v_tok_scale"])
+        for got, ref in ((tkv["k_tok_scale"], jks), (tkv["v_tok_scale"], jvs)):
+            assert (got.numpy()[:, 1:] == np.asarray(ref)[:, 1:, :, :H]).all()
+    # page 0 takes the invalid rows; its contents are unspecified
+    assert (_bytes_of(tkv["k"])[:, 1:] == _jax_bytes(jk)[:, 1:]).all()
+    assert (_bytes_of(tkv["v"])[:, 1:] == _jax_bytes(jv)[:, 1:]).all()
+    assert _jax_bytes(jk)[li, 1:].any()
+
+
+def _fp8_arena(B, ctx, Q, Hkv, D, seed, tok: bool):
+    """An e4m3 arena (numpy e4m3) with static [L, Hkv] or per-token
+    [L, n_pages, PS, 128] (JAX lane-padded) f32 scales."""
+    k, v, pt = _arena(B, ctx, Q, Hkv, D, seed)
+    rng = np.random.default_rng(seed + 100)
+    k8 = np.asarray(jnp.asarray(k * 4).astype(jnp.float8_e4m3fn))
+    v8 = np.asarray(jnp.asarray(v * 4).astype(jnp.float8_e4m3fn))
+    if tok:
+        ks = np.zeros(k.shape[:3] + (128,), np.float32)
+        vs = np.zeros_like(ks)
+        ks[..., :Hkv] = rng.uniform(0.01, 0.1, ks[..., :Hkv].shape)
+        vs[..., :Hkv] = rng.uniform(0.01, 0.1, vs[..., :Hkv].shape)
+    else:
+        ks = rng.uniform(0.01, 0.1, (LAYERS, Hkv)).astype(np.float32)
+        vs = rng.uniform(0.01, 0.1, (LAYERS, Hkv)).astype(np.float32)
+    return k8, v8, ks, vs, pt
+
+
+def _t8(a):
+    return torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+def test_fp8_static_attention_plain_matches_jax(G, kind):
+    B, Hkv, D, li = 2, 2, 16, 1
+    ctx = [21, 37]
+    if kind == "prefill":
+        Q = 40
+        qmask = np.broadcast_to(np.tril(np.ones((Q, Q), bool)), (B, Q, Q)).copy()
+    else:
+        qmask = np.ones((B, 1, 1), bool) if kind == "decode" else _tree_qmask(B, 2, 4)
+        Q = qmask.shape[1]
+    k8, v8, ks, vs, pt = _fp8_arena(B, ctx, Q, Hkv, D, seed=20 + G, tok=False)
+    q = np.random.default_rng(9).normal(size=(B, Q, G * Hkv, D)).astype(np.float32)
+    ctx_np, scale = np.array(ctx, np.int32), D ** -0.5
+    scales = (t(ks)[li], t(vs)[li])
+    if kind == "prefill":
+        got = paged_attention_prefill(t(q), _t8(k8)[li], _t8(v8)[li], t(pt), t(ctx_np),
+                                      scale, scales).numpy()
+    else:
+        got = paged_attention(t(q), _t8(k8)[li], _t8(v8)[li], t(pt), t(ctx_np), t(qmask),
+                              scale, scales).numpy()
+    ref = jatt.paged_attention_ref(jnp.asarray(q), jnp.asarray(k8[li]), jnp.asarray(v8[li]),
+                                   jnp.asarray(pt), jnp.asarray(ctx_np), jnp.asarray(qmask),
+                                   scale, jnp.asarray(ks[li]), jnp.asarray(vs[li]))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5, rtol=0)
+    if kind != "prefill":  # the Pallas prefill kernel has no e4m3 mode
+        pallas = j_paged_attention(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+                                   jnp.asarray(pt), jnp.asarray(ctx_np), jnp.asarray(qmask),
+                                   scale, interpret=True, layer=jnp.int32(li),
+                                   kv_scales=(jnp.asarray(ks[li]), jnp.asarray(vs[li])))
+        assert rel_err(got, np.asarray(pallas.astype(jnp.float32))) < 3e-2
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+def test_fp8_tok_attention_plain_matches_jax(G, kind):
+    B, Hkv, D, li = 2, 2, 16, 0
+    ctx = [21, 37]
+    qmask = None
+    if kind == "prefill":
+        Q = 40
+        jmask = np.broadcast_to(np.tril(np.ones((Q, Q), bool)), (B, Q, Q)).copy()
+    else:
+        qmask = np.ones((B, 1, 1), bool) if kind == "decode" else _tree_qmask(B, 2, 4)
+        jmask, Q = qmask, qmask.shape[1]
+    k8, v8, ks, vs, pt = _fp8_arena(B, ctx, Q, Hkv, D, seed=30 + G, tok=True)
+    q = np.random.default_rng(10).normal(size=(B, Q, G * Hkv, D)).astype(np.float32)
+    ctx_np, scale = np.array(ctx, np.int32), D ** -0.5
+    got = paged_attention_tok(t(q), _t8(k8)[li], _t8(v8)[li],
+                              t(ks[li, ..., :Hkv]), t(vs[li, ..., :Hkv]), t(pt),
+                              t(ctx_np), scale, None if qmask is None else t(qmask)).numpy()
+    ref = jatt.paged_attention_ref(jnp.asarray(q), jnp.asarray(k8[li]), jnp.asarray(v8[li]),
+                                   jnp.asarray(pt), jnp.asarray(ctx_np), jnp.asarray(jmask),
+                                   scale, jnp.asarray(ks[li]), jnp.asarray(vs[li]))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5, rtol=0)
+    if kind == "decode":  # the Pallas kernel serves Q = 1 only
+        pallas = j_paged_attention_tok(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+                                       jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(pt),
+                                       jnp.asarray(ctx_np), scale, interpret=True,
+                                       layer=jnp.int32(li))
+        assert rel_err(got, np.asarray(pallas.astype(jnp.float32))) < 3e-2
+
+
+@pytest.mark.parametrize("arena", ["e4m3", "tok_scale"])
+def test_compact_kv_tail_fp8_matches_jax_byte_for_byte(arena):
+    """The whole-page route of the e4m3 arena and of the per-token scale
+    arenas (window gather, then kv_write_pages) against the JAX jnp path,
+    with real moves."""
+    B, R, Lb = 3, 2, 8
+    Q = 1 + R * Lb
+    ctx = np.array([5, 30, 47], np.int32)
+    k8, _, ks, _, pt = _fp8_arena(B, list(ctx), Q, 2, 8, seed=40, tok=True)
+    best = np.array([1, 1, 0])
+    n_edges = np.array([3, 8, 2], np.int32)
+    path = (1 + best[:, None] * Lb + np.arange(Lb)[None]).astype(np.int32)
+    args = (jnp.asarray(pt), jnp.asarray(ctx), jnp.asarray(path), jnp.asarray(n_edges), Q,
+            jnp.ones(B, bool))
+    targs = (t(pt), t(ctx), t(path), t(n_edges), Q, torch.ones(B, dtype=torch.bool))
+    if arena == "e4m3":
+        ref = _jax_bytes(jcache.compact_kv_tail(jnp.asarray(k8), *args))
+        got = _bytes_of(tcache.compact_kv_tail(_t8(k8), *targs))
+        before = k8.view(np.uint8)
+    else:
+        ref = np.asarray(jcache.compact_kv_tail(jnp.asarray(ks), *args, force_jnp=True))[..., :2]
+        got = tcache.compact_kv_tail(t(ks[..., :2]), *targs, whole_pages=True).numpy()
+        before = ks[..., :2]
+    assert (got == ref).all()
+    assert not (ref == before).all()  # something moved
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "fp8", "fp8_tok"])
+def test_kv_bytes_per_page_and_auto_sizing_match_jax(kv_quant):
+    """Same page cost as the JAX package, less its 128-lane scale padding;
+    off the card both size the arena by max_concurrency."""
+    jc, tc = jconfig.ModelConfig.tiny(), tconfig.ModelConfig.tiny()
+    kw = dict(page_size=16, max_seq_len=128, max_concurrency=4, kv_quant=kv_quant,
+              cache_memory_fraction=0.5)
+    je, te = jconfig.EngineConfig(**kw), tconfig.EngineConfig(**kw)
+    pad = 0
+    if kv_quant == "fp8_tok":
+        pad = jc.num_hidden_layers * 16 * (128 - jc.num_key_value_heads) * 4 * 2
+    assert (tcache.kv_bytes_per_page(tc, te, torch.float32)
+            == jcache.kv_bytes_per_page(jc, je, jnp.float32) - pad)
+    assert (tcache.auto_size_pages(tc, te, torch.float32, "cpu")
+            == jcache.auto_size_pages(jc, je, jnp.float32)
+            == te.max_concurrency * te.pages_per_req + 1)
+
+
+def test_kv_write_pages_aliased_destination_keeps_the_later_window():
+    pages = torch.zeros(2, 6, 2, 3, dtype=torch.float32)
+    windows = torch.arange(2 * 4 * 2 * 3, dtype=torch.float32).reshape(2, 4, 2, 3)
+    ids = torch.tensor([3, 0, 3, 0])  # 3 twice, and the null page twice
+    before = kv_write_pages.launches
+    out = kv_write_pages(pages.clone(), windows, ids)
+    assert kv_write_pages.launches == before  # CPU: the plain version
+    assert torch.equal(out[:, 3], windows[:, 2]) and torch.equal(out[:, 0], windows[:, 3])
+    assert torch.equal(out, kv_write_pages_plain(pages.clone(), windows, ids))
+    assert not out[:, [1, 2, 4, 5]].any()
+
+
 def test_cuda_entry_points_never_fall_back():
     if torch.cuda.is_available():
         assert _build.resolve_device(None).type == "cuda"
     else:
         with pytest.raises(RuntimeError):
             _build.resolve_device(None)
-        with pytest.raises(RuntimeError):
-            tcache.init_kv_cache(tconfig.ModelConfig.tiny(), tconfig.EngineConfig())
+        for kv_quant in ("none", "fp8", "fp8_tok"):
+            with pytest.raises(RuntimeError):
+                tcache.init_kv_cache(tconfig.ModelConfig.tiny(),
+                                     tconfig.EngineConfig(kv_quant=kv_quant))
     assert _build.resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_off_the_cpu_raise_instead_of_running_plain():
+    """A tensor that is not on the CPU never reaches a plain version: on
+    CUDA it launches the kernel, anywhere else (here: meta) it raises."""
+    q = torch.empty(1, 1, 2, 16, device="meta")
+    arena = torch.empty(3, 16, 32, device="meta")
+    arena8 = torch.empty(3, 16, 32, device="meta", dtype=torch.float8_e4m3fn)
+    s_tok = torch.empty(3, 16, 2, device="meta")
+    pt = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    ctx = torch.zeros(1, dtype=torch.int32, device="meta")
+    qm = torch.ones(1, 1, 1, dtype=torch.bool, device="meta")
+    calls = [
+        lambda: paged_attention(q, arena, arena, pt, ctx, qm, 0.25),
+        lambda: paged_attention_prefill(q, arena, arena, pt, ctx, 0.25),
+        lambda: paged_attention_tok(q, arena8, arena8, s_tok, s_tok, pt, ctx, 0.25, qm),
+        lambda: kv_write_pages(torch.empty(2, 4, 16, 32, device="meta"),
+                               torch.empty(2, 1, 16, 32, device="meta"),
+                               torch.zeros(1, dtype=torch.int32, device="meta")),
+        lambda: kv_permute_pages(torch.empty(2, 4, 16, 32, device="meta"),
+                                 torch.zeros(1, 1, dtype=torch.int32, device="meta"),
+                                 torch.zeros(1, 16, dtype=torch.int32, device="meta")),
+        lambda: int4_matmul(torch.empty(1, 256, device="meta"),
+                            torch.empty(128, 64, dtype=torch.uint8, device="meta"),
+                            torch.empty(2, 64, dtype=torch.bfloat16, device="meta")),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError):
+            call()
