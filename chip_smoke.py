@@ -9,9 +9,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
-   could reach and a PyTorch library call as a yardstick; then the batch
-   invariance the lossless check rests on (K1, the norm and attention rows
-   bit-identical at every width);
+   could reach and a PyTorch library call as a yardstick: the int4 GEMM,
+   the three 8-bit GEMMs (int8 weight-only, W8A8 per channel with int8 and
+   e4m3 operands, 128x128-block fp8) at M = 1, 17, 512 and on ragged
+   shapes, attention, the KV kernels; then the batch invariance the
+   lossless check rests on (every GEMM, the norm and attention rows
+   bit-identical at every width, the 8-bit GEMMs up to M = 4096);
 3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
    (random, from a fixed torch.Generator seed), a bf16 paged arena (page 64,
    4096 tokens), a 512-token prefill, 128 greedy AR tokens, lookahead
@@ -27,8 +30,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    calls kept during those runs (decode and verify at B = 8 with ragged
    contexts, batched prefill with prefix-resumed rows, K1 at M = 8 x 512,
    the compactions' page ids);
-4. the launch count of every kernel and mode during phase 3 and serving
-   (all must be > 0), the script's wall time, and the ``kernels`` JSON line.
+   quant modes: the same B = 1 path (512-token prefill, 32 greedy tokens,
+   lookahead over 64 tokens with the strict lossless check) with the
+   linears as int8, w8a8_int8, w8a8_fp8 and fp8_block at full depth, and as
+   w8a8_int8_static, w8a8_fp8_static, fp8_tb and w8a8_fp8 with the fp8
+   embedding at 8 layers; int8, w8a8_fp8 and fp8_block also serve the 16
+   requests (bf16 arena, AR and lookahead, outputs must be identical), and
+   the 8-bit GEMMs are held against their plain versions on inputs kept
+   from those runs;
+4. the launch count of every kernel and mode during phase 3, serving and
+   the quant modes, each counted from 0 (all must be > 0), the script's wall time, and the ``kernels`` JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
 them) and ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -48,6 +59,7 @@ T_START = time.perf_counter()
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+INT8_FP8_OPS = 1979e12  # H100 SXM data sheet, dense int8 / fp8 tensor cores
 SEED = 0
 PROMPT_LEN = 512
 AR_TOKENS = 128
@@ -84,9 +96,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -118,6 +130,7 @@ def phase_environment(pkg) -> dict:
 # ---------------------------------------------------------------------------
 
 QMM = "painlessinferenceacceleration_tpu/ops/quant_matmul.py"
+W8A8 = "painlessinferenceacceleration_tpu/ops/w8a8.py"
 PAT = "painlessinferenceacceleration_tpu/ops/paged_attention.py"
 KVU = "painlessinferenceacceleration_tpu/ops/kv_update.py"
 SRC = "painlessinferenceacceleration_tpu_torch/csrc/"
@@ -147,7 +160,8 @@ def gemm_row(pkg, x, q, s, out_dtype, case):
     tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-4
     if not rel <= tol:
         fail(f"int4_gemm {case}: rel err {rel} > {tol}")
-    w = pkg["linear"].dequantize({"q": q, "s": s}, dtype=torch.bfloat16)
+    w = pkg["linear"].dequantize({"q": q, "s": s}, pkg["linear"].QuantSpec(bits=4),
+                                 torch.bfloat16)
     ms = time_ms(lambda: qm.int4_matmul(x, q, s, out_dtype))
     plain_ms = time_ms(lambda: qm.int4_matmul_plain(x, q, s, out_dtype), reps=5)
     lib_ms = time_ms(lambda: torch.matmul(x, w))
@@ -167,6 +181,138 @@ def check_int4_gemm(pkg, g, M, K, N, out_dtype):
     q = torch.randint(0, 256, (K // 2, N), generator=g, device="cuda", dtype=torch.uint8)
     s = (torch.rand(K // 128, N, generator=g, device="cuda") * 0.004 + 0.001).to(torch.bfloat16)
     return gemm_row(pkg, x, q, s, out_dtype, "")
+
+
+# the 8-bit GEMMs: row name -> (source, Pallas body it replaces for a stacked
+# layer weight, and for an unstacked weight such as the LM head)
+GEMM8 = {
+    "int8_gemm": ("int8_gemm.cu", f"{QMM}:184 _qmm8_stacked_kernel", f"{QMM}:81 _qmm_kernel"),
+    "w8a8_gemm[int8]": ("w8a8_gemm.cu", f"{W8A8}:189 _w8a8_stacked_kernel",
+                        f"{W8A8}:170 _w8a8_kernel"),
+    "w8a8_gemm[fp8]": ("w8a8_gemm.cu", f"{W8A8}:189 _w8a8_stacked_kernel",
+                       f"{W8A8}:170 _w8a8_kernel"),
+    "block_fp8_gemm": ("block_fp8_gemm.cu", f"{W8A8}:224 _block_fp8_stacked_kernel",
+                       f"{W8A8}:206 _block_fp8_kernel"),
+}
+# quant mode -> the 8-bit GEMM row its linears launch
+MODE_KERNEL = {"int8": "int8_gemm", "w8a8_int8": "w8a8_gemm[int8]",
+               "w8a8_int8_static": "w8a8_gemm[int8]", "w8a8_fp8": "w8a8_gemm[fp8]",
+               "w8a8_fp8_static": "w8a8_gemm[fp8]", "fp8_block": "block_fp8_gemm",
+               "fp8_tb": "block_fp8_gemm"}
+
+
+def library_ms(fn):
+    """Time of a PyTorch library call kept as a yardstick only; None where
+    the installed torch does not take this call at this shape."""
+    try:
+        fn()
+    except (RuntimeError, AttributeError, TypeError):
+        return None
+    return time_ms(fn)
+
+
+def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
+    """One 8-bit GEMM (``name`` of GEMM8) on these operands against its plain
+    version, timed. ``args`` is (x, q, s) for the weight-only int8 kernel
+    and (xq, xs, q, s) for the activation-quantized ones. Tolerance: the
+    int8 W8A8 kernel sums in s32 and must equal its plain version bit for
+    bit; the others sum fp32 in another order (2e-2 of the largest value in
+    bf16, 1e-4 in fp32)."""
+    import torch
+
+    qm, w8 = pkg["quant_matmul"], pkg["w8a8"]
+    fn, plain = {"int8_gemm": (qm.int8_matmul, qm.int8_matmul_plain),
+                 "block_fp8_gemm": (w8.block_fp8_gemm, w8.block_fp8_gemm_plain)
+                 }.get(name, (w8.w8a8_gemm, w8.w8a8_gemm_plain))
+    x, q = args[0], args[-2]
+    (M, K), N = x.shape, q.shape[1]
+    got, ref = fn(*args, out_dtype), plain(*args, out_dtype)
+    err, rel = _errs(got, ref)
+    if name == "w8a8_gemm[int8]":
+        if not torch.equal(got, ref):
+            fail(f"{name} {case}M={M} K={K} N={N}: differs from the exact integer product")
+    elif not rel <= (2e-2 if out_dtype == torch.bfloat16 else 1e-4):
+        fail(f"{name} {case}M={M} K={K} N={N}: rel err {rel}")
+    ms = time_ms(lambda: fn(*args, out_dtype))
+    plain_ms = time_ms(lambda: plain(*args, out_dtype), reps=5)
+    if name == "int8_gemm":
+        w = pkg["linear"].dequantize({"q": q, "s": args[2]}, pkg["linear"].QuantSpec(bits=8),
+                                     torch.bfloat16)
+        lib_ms = library_ms(lambda: torch.matmul(x, w))
+        del w
+    elif name == "w8a8_gemm[int8]":
+        lib_ms = library_ms(lambda: torch._int_mm(x, q))
+    elif name == "w8a8_gemm[fp8]":
+        qt = q.t().contiguous().t()  # _scaled_mm takes the weight column-major
+        xs2, s2 = args[1][:, None].contiguous(), args[3][None, :].contiguous()
+        lib_ms = library_ms(lambda: torch._scaled_mm(x, qt, scale_a=xs2, scale_b=s2,
+                                                     out_dtype=torch.bfloat16))
+        del qt
+    else:
+        lib_ms = None
+    nbytes = sum(t.numel() * t.element_size() for t in args) + M * N * got.element_size()
+    peak = BF16_FLOPS if name == "int8_gemm" else INT8_FP8_OPS
+    source, stacked_body, plain_body = GEMM8[name]
+    return _case(name, source, plain_body if unstacked else stacked_body, err, rel, ms,
+                 plain_ms, bound_ms(nbytes, 2.0 * M * K * N, peak), lib_ms,
+                 f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+
+
+def gemm8_operands(pkg, g, name, M, K, N, group=128):
+    """Random operands of one 8-bit GEMM: unit-normal bf16 activations
+    (quantized by quant_act for the W8A8 kinds), weights as
+    init_params_quantized draws them, scales around 0.02 / qmax."""
+    import torch
+
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    if name == "int8_gemm":
+        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = (torch.rand(K // group, N, generator=g, device="cuda") * 2e-4 + 5e-5)
+        return x, q, s.to(torch.bfloat16)
+    mode = {"w8a8_gemm[int8]": "w8a8_int8", "w8a8_gemm[fp8]": "w8a8_fp8",
+            "block_fp8_gemm": "fp8_block"}[name]
+    spec = pkg["linear"].QuantSpec.from_mode(mode)
+    xq, xs = pkg["w8a8"].quant_act(x, spec)
+    if spec.wfmt == "fp8":
+        q = torch.randn(K, N, generator=g, device="cuda").to(torch.float8_e4m3fn)
+    else:
+        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    shape = (-(-K // 128), -(-N // 128)) if spec.block else (N,)
+    s = torch.rand(shape, generator=g, device="cuda") * 1e-4 + 2e-5
+    return xq, xs, q, s
+
+
+def check_gemm8(pkg, g, name, M, K, N, out_dtype, case="", group=128, unstacked=False):
+    args = gemm8_operands(pkg, g, name, M, K, N, group)
+    return gemm8_row(pkg, name, args, out_dtype, case, unstacked)
+
+
+def quant_act_costs(pkg) -> dict:
+    """What the activation quantization (plain torch, outside the kernels)
+    costs before one GEMM: CUDA kernels launched and ms per call under CUDA
+    events over back-to-back calls, per quant mode, at the decode and the
+    verify height."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for mode in ("w8a8_int8", "w8a8_int8_static", "w8a8_fp8", "fp8_block", "fp8_tb"):
+        spec = pkg["linear"].QuantSpec.from_mode(mode)
+        xs_static = torch.ones((), device="cuda") if spec.act == "static" else None
+        for M in (1, 17):
+            x = torch.randn(M, 4096, device="cuda").to(torch.bfloat16)
+
+            def run():
+                return pkg["w8a8"].quant_act(x, spec, xs_static)
+            ms = time_ms(run, reps=50)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    run()
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if (getattr(e, "self_device_time_total", 0) or 0) > 0)
+            out[f"{mode} M={M}"] = dict(ms=ms, kernels=kernels / 10)
+    return out
 
 
 def quantize_e4m3(x, Hkv: int, per_token: bool):
@@ -405,6 +551,18 @@ def phase_kernels(pkg, cfg) -> list:
             rows.append(check_int4_gemm(pkg, g, M, K, N, torch.bfloat16))
     for M in (1, 17):
         rows.append(check_int4_gemm(pkg, g, M, E, V, torch.float32))
+    for name in GEMM8:
+        for M in (1, 17, 512):
+            for K, N in layer_shapes:
+                rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
+            rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
+        # ragged: K and N off the 128 grid (K odd), both output types
+        rows.append(check_gemm8(pkg, g, name, 17, 333, 260, torch.bfloat16, "ragged ",
+                                group=333))
+        rows.append(check_gemm8(pkg, g, name, 9, 200, 132, torch.float32, "ragged ",
+                                group=200))
+    rows.append(check_gemm8(pkg, g, "int8_gemm", 17, E, E, torch.bfloat16, "group=64 ",
+                            group=64))
     dt = pkg["device_tables"]
     branches = torch.randint(3, V, (2, 8), generator=g, device="cuda")
     _, _, tree, _ = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
@@ -440,7 +598,8 @@ def phase_kernels(pkg, cfg) -> list:
 
 def check_batch_invariance(pkg, g, cfg) -> list:
     """Lossless serving needs every row's result to be the same at every
-    batch width: K1 rows at M = 1..512, the norm at every row count, and an
+    batch width: K1 rows at M = 1..512, the 8-bit GEMMs' rows at M = 1..4096,
+    the activation quantization and the norm at every row count, and an
     attention row at Q = 1 and inside a 17-wide verify, bit for bit. Fails
     the run otherwise; returns no kernel rows."""
     import torch
@@ -458,6 +617,28 @@ def check_batch_invariance(pkg, g, cfg) -> list:
             fail(f"int4_gemm rows change with the batch width (M={m})")
         if not torch.equal(norm_mod.rms_norm(x[:m], w), nfull[:m]):
             fail(f"rms_norm rows change with the batch width (M={m})")
+    I = cfg.intermediate_size
+    for name in GEMM8:
+        for K in (E, I):
+            args = gemm8_operands(pkg, g, name, 4096, K, E)
+            fn = {"int8_gemm": qm_mod.int8_matmul,
+                  "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm}.get(name, pkg["w8a8"].w8a8_gemm)
+            rest = args[-2:]  # the weight and its scales; the rest is per row
+            full = fn(*args, torch.bfloat16)
+            for m in (1, 8, 17, 136):
+                part = fn(*(a[:m] for a in args[:-2]), *rest, torch.bfloat16)
+                if not torch.equal(part, full[:m]):
+                    fail(f"{name} rows change with the batch width (M={m}, K={K})")
+            del args, full
+    xa = torch.randn(136, E, generator=g, device="cuda").to(torch.bfloat16)
+    for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block", "fp8_tb"):
+        qspec = pkg["linear"].QuantSpec.from_mode(mode)
+        xq, xs = pkg["w8a8"].quant_act(xa, qspec)
+        for m in (1, 8, 17):
+            xq_m, xs_m = pkg["w8a8"].quant_act(xa[:m], qspec)
+            if not (torch.equal(xq_m.view(torch.uint8), xq[:m].view(torch.uint8))
+                    and torch.equal(xs_m, xs[:m])):
+                fail(f"quant_act ({mode}) rows change with the batch width (M={m})")
     pa, H, D = pkg["paged_attention"], cfg.num_attention_heads, cfg.head_dim
     for arena in ("bf16", "fp8", "fp8_tok"):
         k, v, pt, ks, vs = _arena(g, 2, 700, 17, H, D, 64, arena)
@@ -475,8 +656,9 @@ def check_batch_invariance(pkg, g, cfg) -> list:
                                       None if ks is None else (ks, vs))
         if not torch.equal(att(qq, tree)[:, :1], att(qq[:, :1].contiguous(), one)):
             fail(f"paged_attention ({arena}) row 0 changes with the verify width")
-    print("phase 2 batch invariance: int4_gemm, rms_norm and attention rows "
-          "bit-identical at every width")
+    print("phase 2 batch invariance: int4_gemm, int8_gemm, w8a8_gemm (int8, fp8), "
+          "block_fp8_gemm, quant_act, rms_norm and attention rows bit-identical at "
+          "every width")
     return []
 
 
@@ -492,19 +674,24 @@ class Launches:
     def __init__(self, pkg):
         pa, ku = pkg["paged_attention"], pkg["kv_update"]
         self.attn = (pa.paged_attention, pa.paged_attention_prefill, pa.paged_attention_tok)
+        self.w8a8 = pkg["w8a8"].w8a8_gemm
         self.plain = {"int4_gemm": pkg["quant_matmul"].int4_matmul,
+                      "int8_gemm": pkg["quant_matmul"].int8_matmul,
+                      "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm,
                       "kv_permute_pages": ku.kv_permute_pages,
                       "kv_write_pages": ku.kv_write_pages}
 
     def reset(self):
-        for f in (*self.attn, *self.plain.values()):
+        for f in (*self.attn, self.w8a8, *self.plain.values()):
             f.launches = 0
-        for f in self.attn:
+        for f in (*self.attn, self.w8a8):
             f.modes.clear()
 
     def read(self) -> dict:
         """Counts by kernels-line row name."""
         out = {name: f.launches for name, f in self.plain.items()}
+        for fmt in ("int8", "fp8"):
+            out[f"w8a8_gemm[{fmt}]"] = self.w8a8.modes[fmt]
         pa, pre, tok = self.attn
         for kind in ("decode", "verify"):
             out[f"paged_attention[{kind}]"] = pa.modes[f"{kind},bf16"]
@@ -516,7 +703,12 @@ class Launches:
         return out
 
 
-def phase_main_path(pkg, cfg, spec, params) -> dict:
+def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
+                    spec_tokens=SPEC_TOKENS, label="phase 3 main path",
+                    extras=True) -> dict:
+    """Prefill, greedy AR decode and lookahead decode at B = 1 with the
+    strict lossless check, the kernels' launches counted from 0. ``extras``
+    adds the draft-table costs and the profiled steps."""
     import numpy as np
     import torch
 
@@ -550,7 +742,7 @@ def phase_main_path(pkg, cfg, spec, params) -> dict:
         stream, n_steps, last, ctx, act = [int(nxt[0])], 0, nxt, ctx0, one
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        while len(stream) < SPEC_TOKENS and n_steps < max_steps:
+        while len(stream) < spec_tokens and n_steps < max_steps:
             kv, tables, out, acc, last, ctx, act, tail, _ = ms_mod.multistep_spec_decode(
                 params, kv, tables, cfg, tcfg, last, ctx, act, tail, pt,
                 n_steps=SPEC_CHUNK, spec=spec, update_tables=update)
@@ -568,28 +760,31 @@ def phase_main_path(pkg, cfg, spec, params) -> dict:
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     if not (torch.isfinite(logits).all() and logits.shape == (1, cfg.vocab_size)):
-        fail("prefill logits are not finite or have the wrong shape")
+        fail(f"{label}: prefill logits are not finite or have the wrong shape")
     t0 = time.perf_counter()
     kv, toks, _, ctx, _, _ = ms_mod.multistep_decode(
-        params, kv, cfg, nxt, ctx0, one, pt, n_steps=AR_TOKENS - 1, spec=spec)
+        params, kv, cfg, nxt, ctx0, one, pt, n_steps=ar_tokens - 1, spec=spec)
     ar_stream = [int(nxt[0])] + toks[0].tolist()
     torch.cuda.synchronize()
     ar_s = time.perf_counter() - t0
-    if int(ctx[0]) != PROMPT_LEN + AR_TOKENS - 1 or min(ar_stream) < 0:
-        fail("AR decode did not advance one token per step")
+    if int(ctx[0]) != PROMPT_LEN + ar_tokens - 1 or min(ar_stream) < 0:
+        fail(f"{label}: AR decode did not advance one token per step")
     del kv
-    spec_stream, spec_steps, spec_s, tables = spec_run(False, True, SPEC_TOKENS)
+    spec_stream, spec_steps, spec_s, tables = spec_run(False, True, spec_tokens)
     counts = launches.read()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    replay, replay_steps, _, _ = spec_run(True, False, 4 * SPEC_TOKENS)
+    replay, replay_steps, _, _ = spec_run(True, False, 4 * spec_tokens)
     n = min(len(spec_stream), len(replay))
     div = next((i for i in range(n) if spec_stream[i] != replay[i]), n)
     n_ar = min(len(spec_stream), len(ar_stream))
     ar_div = next((i for i in range(n_ar) if spec_stream[i] != ar_stream[i]), n_ar)
-    res = dict(
-        table_ms=table_costs(pkg, tcfg, tables, spec_stream, TAIL),
-        profile=profile_steps(pkg, cfg, spec, params, ecfg, tcfg, prompt_t, pt, ctx0),
-        prefill_ms=prefill_ms, ar_tok_s=(AR_TOKENS - 1) / ar_s,
+    res = {}
+    if extras:
+        res.update(
+            table_ms=table_costs(pkg, tcfg, tables, spec_stream, TAIL),
+            profile=profile_steps(pkg, cfg, spec, params, ecfg, tcfg, prompt_t, pt, ctx0))
+    res.update(
+        prefill_ms=prefill_ms, ar_tok_s=(ar_tokens - 1) / ar_s,
         spec_tok_s=(len(spec_stream) - 1) / spec_s,
         accepted_per_step=(len(spec_stream) - 1) / spec_steps,
         spec_tokens=len(spec_stream), spec_steps=spec_steps,
@@ -597,9 +792,9 @@ def phase_main_path(pkg, cfg, spec, params) -> dict:
         spec_vs_ar_first_divergence=ar_div, spec_vs_ar_compared=n_ar,
         peak_mem_gb=peak_gb, launches=counts,
     )
-    print("phase 3 main path: " + json.dumps(res))
-    if div != n or n < SPEC_TOKENS // 2:
-        fail(f"lossless check failed: first divergence {div} of {n}")
+    print(f"{label}: " + json.dumps(res))
+    if div != n or n < spec_tokens // 2:
+        fail(f"{label}: lossless check failed: first divergence {div} of {n}")
     return res
 
 
@@ -712,12 +907,12 @@ def serving_prompts(vocab: int) -> list:
     return out
 
 
-def serve_once(pkg, cfg, params, prompts, kv_quant, lookahead) -> tuple:
+def serve_once(pkg, cfg, params, prompts, kv_quant, lookahead, quant="int4") -> tuple:
     import torch
 
     config, llm_mod = pkg["config"], pkg["llm"]
     kw = dict(page_size=64, max_seq_len=1024, max_concurrency=8, prefill_chunk=512,
-              quant="int4", eos_token_id=-2, prefix_cache=True, decode_burst=8,
+              quant=quant, eos_token_id=-2, prefix_cache=True, decode_burst=8,
               decode_burst_idle=32, kv_quant=kv_quant)
     if lookahead:
         kw.update(use_lookahead=True, decoding_length=16, branch_length=16,
@@ -740,9 +935,9 @@ def serve_once(pkg, cfg, params, prompts, kv_quant, lookahead) -> tuple:
     m = llm.metrics
     outs = [r.output_ids for r in reqs]
     if any(len(o) != SERVE_NEW_TOKENS for o in outs):
-        fail(f"serving {kv_quant} lookahead={lookahead}: a request stopped early")
+        fail(f"serving {quant} {kv_quant} lookahead={lookahead}: a request stopped early")
     res = dict(
-        kv_quant=kv_quant, lookahead=lookahead, wall_s=wall,
+        quant=quant, kv_quant=kv_quant, lookahead=lookahead, wall_s=wall,
         tok_s=m.generated_tokens / wall, generated_tokens=m.generated_tokens,
         p50_ttft_s=m.p50_ttft, prefix_hit_tokens=m.prefix_hit_tokens,
         chained_bursts=m.chained_bursts, decode_steps=m.decode_steps,
@@ -790,8 +985,8 @@ class ServingCapture:
     cloned in stream order at the call (the arena moves on afterwards):
     attention at layer 0, the widest decode and verify batch of each arena
     and every prefill batch of B >= 2 (``trim`` keeps the one with the most
-    rows resumed from the prefix cache, then the widest); K1 at layer 0, the
-    largest M of each weight shape; K4 and K6, the page ids (and K6's
+    rows resumed from the prefix cache, then the widest); K1 and the 8-bit
+    GEMMs at layer 0 (and the LM head), the largest M of each weight shape; K4 and K6, the page ids (and K6's
     windows) of the widest compaction of each row width (K4: of its widest
     compactions, the one that moves the most rows). Choosing reads
     shapes and pointers only, so the runs are not synchronised. The wrapped
@@ -801,14 +996,24 @@ class ServingCapture:
     def __init__(self, pkg):
         self.pkg = pkg
         self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
+        self.gemm8 = {}
         self._saved = []
 
-    def install(self):
-        pa, qm, ku = (self.pkg[m] for m in ("paged_attention", "quant_matmul", "kv_update"))
-        for mod, name, make in ((pa, "_launch", self._attn_hook),
-                                (qm, "_int4_matmul_cuda", self._gemm_hook),
-                                (ku, "_kv_permute_cuda", self._permute_hook),
-                                (ku, "_kv_write_pages_cuda", self._write_hook)):
+    def install(self, gemm8_only: bool = False):
+        """Wrap the launch functions; ``gemm8_only`` leaves attention, K1 and
+        the KV kernels alone (the quant modes hold only the 8-bit GEMMs
+        again, and kept attention inputs would count in their peak memory)."""
+        pa, qm, ku, w8 = (self.pkg[m] for m in ("paged_attention", "quant_matmul",
+                                                "kv_update", "w8a8"))
+        hooks = [(qm, "_int8_matmul_cuda", self._gemm8_hook),
+                 (w8, "_w8a8_gemm_cuda", self._gemm8_hook),
+                 (w8, "_block_fp8_gemm_cuda", self._gemm8_hook)]
+        if not gemm8_only:
+            hooks += [(pa, "_launch", self._attn_hook),
+                      (qm, "_int4_matmul_cuda", self._gemm_hook),
+                      (ku, "_kv_permute_cuda", self._permute_hook),
+                      (ku, "_kv_write_pages_cuda", self._write_hook)]
+        for mod, name, make in hooks:
             orig = getattr(mod, name)
             self._saved.append((mod, name, orig))
             setattr(mod, name, make(orig))
@@ -853,6 +1058,37 @@ class ServingCapture:
                     self.gemm[key] = dict(x=x.clone(), q=q, s=s, out_dtype=out_dtype)
             return orig(x, q, s, out_dtype)
         return hook
+
+    def _gemm8_hook(self, orig):
+        """For the three 8-bit launch functions alike: the operands are
+        (activations..., weight, weight scales, out_dtype)."""
+        def hook(*args):
+            *acts, q, s, out_dtype = args
+            if self._first_layer(q):
+                if len(acts) == 1:
+                    name = "int8_gemm"
+                elif s.dim() == 2:
+                    name = "block_fp8_gemm"
+                else:
+                    name = "w8a8_gemm[int8]" if str(q.dtype) == "torch.int8" \
+                        else "w8a8_gemm[fp8]"
+                key = (name, q.shape[0], q.shape[1], str(out_dtype))
+                old = self.gemm8.get(key)
+                if old is None or acts[0].shape[0] > old["args"][0].shape[0]:
+                    # the weights are not written during the runs: no copy
+                    self.gemm8[key] = dict(args=(*(a.clone() for a in acts), q, s),
+                                           out_dtype=out_dtype, unstacked=q.dim() == 2
+                                           and q.untyped_storage().nbytes() == q.numel())
+            return orig(*args)
+        return hook
+
+    def gemm8_rows(self, case: str) -> list:
+        """The kept 8-bit GEMM calls against their plain versions; forgets
+        them afterwards (their weights are about to be freed)."""
+        out = [gemm8_row(self.pkg, key[0], c["args"], c["out_dtype"], case, c["unstacked"])
+               for key, c in self.gemm8.items()]
+        self.gemm8 = {}
+        return out
 
     def _permute_hook(self, orig):
         def hook(pages, page_ids, src_rel):
@@ -975,6 +1211,95 @@ def phase_serving(pkg, cfg, params) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the quant modes: every 8-bit linear format on the main path and in serving
+# ---------------------------------------------------------------------------
+
+QUANT_AR_TOKENS = 32
+QUANT_SPEC_TOKENS = 64
+QUANT_REDUCED_LAYERS = 8
+# (quant mode, fp8 embedding, full depth, also served through LLM)
+QUANT_RUNS = (("int8", False, True, True), ("w8a8_int8", False, True, False),
+              ("w8a8_fp8", False, True, True), ("fp8_block", False, True, True),
+              ("w8a8_int8_static", False, False, False),
+              ("w8a8_fp8_static", False, False, False), ("fp8_tb", False, False, False),
+              ("w8a8_fp8", True, False, False))
+
+
+def phase_quant_modes(pkg, cfg) -> dict:
+    """Each 8-bit linear format through prefill, AR decode and lookahead
+    decode at B = 1 (strictly lossless or the run fails); three of them
+    through the serving engine, AR and lookahead; the launches of each run
+    counted from 0; the 8-bit GEMMs held against their plain versions on
+    the inputs of those runs. One mode's parameters are freed before the
+    next are drawn."""
+    import dataclasses
+
+    import torch
+
+    linear, base = pkg["linear"], pkg["base"]
+    prompts = serving_prompts(cfg.vocab_size)
+    capture = ServingCapture(pkg)
+    capture.install(gemm8_only=True)
+    runs, rows, totals = [], [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    for mode, quant_embed, full, served in QUANT_RUNS:
+        mcfg = cfg if full else dataclasses.replace(
+            cfg, num_hidden_layers=QUANT_REDUCED_LAYERS)
+        spec = linear.QuantSpec.from_mode(mode)
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = base.init_params_quantized(mcfg, spec, gen)
+        if quant_embed:  # as LLM does for EngineConfig.quant_embed
+            params["embed"] = pkg["embedding"].make_embedding(
+                params["embed"], linear.QuantSpec.from_mode("w8a8_fp8"))
+        label = (f"phase quant {mode}" + (" +fp8 embedding" if quant_embed else "")
+                 + f" ({mcfg.num_hidden_layers} layers)")
+        res = phase_main_path(pkg, mcfg, spec, params, QUANT_AR_TOKENS, QUANT_SPEC_TOKENS,
+                              label, extras=False)
+        res.update(mode=mode, quant_embed=quant_embed, layers=mcfg.num_hidden_layers)
+        add(res["launches"])
+        kernel = MODE_KERNEL[mode]
+        others = [k for k in GEMM8 if k != kernel and res["launches"][k]]
+        if res["launches"][kernel] <= 0 or res["launches"]["int4_gemm"] or others:
+            fail(f"{label}: the linears did not all go through {kernel}: {res['launches']}")
+        if served:
+            launches = Launches(pkg)
+            launches.reset()
+            res_ar, ar_out, _ = serve_once(pkg, mcfg, params, prompts, "none", False, mode)
+            res_la, la_out, _ = serve_once(pkg, mcfg, params, prompts, "none", True, mode)
+            res_la["launches"] = launches.read()
+            add(res_la["launches"])
+            diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
+            res_la["identical_to_ar"] = not diff
+            for r in (res_ar, res_la):
+                print("phase quant serving run: " + json.dumps(r))
+            if diff:
+                fail(f"serving quant={mode}: lookahead differs from AR on requests {diff}")
+            if res_la["spec_steps"] <= 0 or res_ar["prefix_hit_tokens"] <= 0:
+                fail(f"serving quant={mode}: no spec step or no prefix-cache hit")
+            res["serving"] = [res_ar, res_la]
+        if full:  # the kept calls of this mode, before its weights go
+            rows += capture.gemm8_rows(f"captured {mode} ")
+        else:
+            capture.gemm8 = {}
+        runs.append(res)
+        del params
+    capture.remove()
+    for name in GEMM8:
+        if not any(r["name"] == name and r["case"].startswith("captured") for r in rows):
+            fail(f"no captured call of {name}")
+    for r in rows:
+        print("phase quant kernel: " + json.dumps(r))
+    torch.cuda.empty_cache()
+    return dict(runs=runs, kernels=rows, launches=totals,
+                quant_act=quant_act_costs(pkg))
+
+
 def load_port():
     if not (HERE / "painlessinferenceacceleration_tpu_torch" / "__init__.py").exists():
         fail("the port package is not beside chip_smoke.py")
@@ -983,6 +1308,7 @@ def load_port():
 
     base = "painlessinferenceacceleration_tpu_torch."
     names = dict(_build="_build", config="config", linear="layers.linear",
+                 embedding="layers.embedding", w8a8="ops.w8a8",
                  quant_matmul="ops.quant_matmul", paged_attention="ops.paged_attention",
                  attention="ops.attention", kv_update="ops.kv_update",
                  rmsnorm="ops.rmsnorm", cache="engine.cache", step="engine.step",
@@ -1010,20 +1336,28 @@ def main() -> None:
     main_res = phase_main_path(pkg, cfg, spec, params)
     serve_res = phase_serving(pkg, cfg, params)
     rows += serve_res["kernels"]
-    launches = {k: main_res["launches"][k] + serve_res["launches"][k]
-                for k in main_res["launches"]}
+    del params
+    quant_res = phase_quant_modes(pkg, cfg)
+    rows += quant_res["kernels"]
+    print("phase quant act: " + json.dumps(quant_res["quant_act"]))
+    by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
+                    quant_modes=quant_res["launches"])
+    launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]
         if r["launches"] <= 0:
-            fail(f"{r['name']} was not launched on the main path or in serving")
-    print("phase 4 launches (main path + serving): " + json.dumps(launches))
+            fail(f"{r['name']} was not launched on the main path, in serving or in "
+                 "the quant modes")
+    print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
+    print("phase 4 launches (sum): " + json.dumps(launches))
     wall_s = time.perf_counter() - T_START
     print(f"wall time of the whole script: {wall_s:.1f} s")
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
+                                             quant_modes=quant_res, launches=by_phase,
                                              wall_s=wall_s), indent=1))
     print(json.dumps({"kernels": rows}))
     print(env["card"])

@@ -72,7 +72,6 @@ DEFAULT_DECODE_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 # naming the ROADMAP item that ports it.
 _NOT_PORTED = {
     "schedule_policy": ("pingpong", "the mix/timely schedulers (ROADMAP A.4)"),
-    "quant_embed": (False, "the fp8 embedding table (ROADMAP A.9)"),
     "context_parallel": (False, "context parallelism (ROADMAP A.10)"),
     "mesh_shape": (None, "device meshes (ROADMAP A.10)"),
     "mesh_axes": (("data", "model"), "device meshes (ROADMAP A.10)"),
@@ -84,6 +83,9 @@ _NOT_PORTED = {
     "max_new_tokens": (256, "lookahead/generate.py (ROADMAP A.4)"),
 }
 KV_QUANT_MODES = ("none", "fp8", "fp8_tok")
+# the modes layers.linear.QuantSpec.from_mode takes
+QUANT_MODES = ("none", "int8", "int4", "w8a8_int8", "w8a8_int8_static",
+               "w8a8_fp8", "w8a8_fp8_static", "fp8_block", "fp8_tb")
 
 
 @dataclasses.dataclass
@@ -125,10 +127,12 @@ class EngineConfig:
     prefix_cache: bool = True  # page-granular shared-prefix KV reuse
 
     # --- quantization ---
-    quant: str = "none"  # none | int4 (weight-only)
+    # none | int8 | int4 (weight-only) | w8a8_int8[_static] | w8a8_fp8[_static]
+    # | fp8_block | fp8_tb
+    quant: str = "none"
     kv_quant: str = "none"  # none | fp8 (static per-head) | fp8_tok (per token)
     quant_group: int = 128
-    quant_embed: bool = False
+    quant_embed: bool = False  # retype the embedding table to per-row e4m3
     kv_scale_init: float = 1.0  # initial static fp8 scale (before calibration)
 
     # --- parallelism ---
@@ -153,6 +157,8 @@ class EngineConfig:
                     "ported yet")
         if self.kv_quant not in KV_QUANT_MODES:
             raise ValueError(f"kv_quant {self.kv_quant!r} not in {KV_QUANT_MODES}")
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"quant {self.quant!r} not in {QUANT_MODES}")
         if self.num_pages == 0:
             # +1: page 0 is the reserved null page (padding page-table entries)
             self.num_pages = self.max_concurrency * self.pages_per_req + 1

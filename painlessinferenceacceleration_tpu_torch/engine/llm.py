@@ -54,6 +54,7 @@ from painlessinferenceacceleration_tpu_torch.engine.request import (
     SamplingParams,
 )
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
+from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
 from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
     DraftTableConfig,
@@ -104,6 +105,10 @@ class LLM:
         self.ecfg = ecfg or EngineConfig()
         self.dtype = dtype
         self.quant = QuantSpec.from_mode(self.ecfg.quant, self.ecfg.quant_group)
+        if self.ecfg.quant_embed and "embed" in params:
+            params = dict(params)
+            params["embed"] = make_embedding(params["embed"],
+                                             QuantSpec.from_mode("w8a8_fp8"))
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer

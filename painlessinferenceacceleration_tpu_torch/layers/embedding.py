@@ -1,25 +1,52 @@
-"""Embedding lookup and tied LM head (bf16/fp32 tables).
+"""Embedding lookup and tied LM head, over bf16/fp32 tables and the fp8
+table with dequant-on-gather.
 
-Port of ``painlessinferenceacceleration_tpu/layers/embedding.py`` without the
-fp8 table, which is not ported yet.
+Port of ``painlessinferenceacceleration_tpu/layers/embedding.py``. The fp8
+table ``{"q": e4m3 [V, E], "s": f32 [V]}`` is quantized per vocab row; a
+lookup reads one e4m3 row and one scale per token and dequantizes only the
+gathered rows (a gather and a multiply: plain torch here, as it is plain
+jnp there). In the tied LM head the row scales become per-vocab-column
+factors applied after the matmul. The tied head on CUDA is not ported yet
+(native GEMMs on the card, ROADMAP A.12); Llama-2-7B's head is untied.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
+from painlessinferenceacceleration_tpu_torch.layers.linear import FP8_MAX, QuantSpec
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    """Gather token rows [..., E]."""
+Embedding = Union[torch.Tensor, dict]
+
+
+def make_embedding(w: Embedding, quant: Optional[QuantSpec] = None) -> Embedding:
+    """Quantize a table [V, E] to e4m3 with per-row scales. Only fp8-class
+    specs retype the table; anything else passes it through unchanged."""
+    if quant is None or quant.wfmt != "fp8" or isinstance(w, dict):
+        return w
+    wf = w.to(torch.float32)
+    s = torch.clamp(wf.abs().amax(dim=1) / FP8_MAX, min=1e-8)
+    return {"q": (wf / s[:, None]).to(torch.float8_e4m3fn), "s": s}
+
+
+def embed_lookup(emb: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Gather token rows [..., E]; an fp8 table dequantizes only those."""
+    idx = tokens.long()
     if isinstance(emb, dict):
-        raise NotImplementedError("fp8 embedding tables are not ported yet")
-    return emb[tokens.long()].to(dtype)
+        # e4m3 is gathered through its bytes (index kernels do not take it)
+        rows = emb["q"].view(torch.uint8)[idx].view(torch.float8_e4m3fn)
+        return (rows.to(torch.float32) * emb["s"][idx][..., None]).to(dtype)
+    return emb[idx].to(dtype)
 
 
-def embed_logits(emb: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def embed_logits(emb: Embedding, h: torch.Tensor) -> torch.Tensor:
     """Tied LM head: ``h @ table^T`` with fp32 logits."""
-    if isinstance(emb, dict):
-        raise NotImplementedError("fp8 embedding tables are not ported yet")
     if h.is_cuda:
-        raise NotImplementedError("a tied LM head on CUDA needs a GEMM kernel")
+        raise NotImplementedError(
+            "a tied LM head on CUDA is not ported yet (ROADMAP A.12)")
+    if isinstance(emb, dict):
+        out = torch.matmul(h.to(torch.float32), emb["q"].to(torch.float32).T)
+        return out * emb["s"]
     return torch.matmul(h.to(torch.float32), emb.to(torch.float32).T)

@@ -1,21 +1,29 @@
-"""Weight-only int4 linear layers (and native bf16/fp32 ones, CPU only).
+"""Quantized linear layers (and native bf16/fp32 ones, CPU only).
 
-Port of ``painlessinferenceacceleration_tpu/layers/linear.py`` for the int4
-path. Weights are stored pre-transposed as ``[in, out]``. A linear leaf is
-either a plain tensor (native) or a dict of tensors::
+Port of ``painlessinferenceacceleration_tpu/layers/linear.py``. Weights are
+stored pre-transposed as ``[in, out]``. A linear leaf is either a plain
+tensor (native) or a dict of tensors; the static description lives in
+``QuantSpec``::
 
-    int4: {"q": uint8[in/2, out] packed nibbles, "s": bf16[in/group, out]}
+    int4:      {"q": uint8[in/2, out] packed nibbles, "s": bf16[in/group, out]}
+    int8:      {"q": int8[in, out],                   "s": bf16[in/group, out]}
+    W8A8:      {"q": int8 | e4m3 [in, out], "s": f32[out]} (+ "xs": f32 scalar,
+               the calibrated activation scale of the static variants)
+    block fp8: {"q": e4m3[in, out], "s": f32[ceil(in/128), ceil(out/128)]}
 
-Two parts are data contracts with the JAX package and are ported exactly,
-so that JAX-packed weights load byte for byte:
+These are data contracts with the JAX package and are ported exactly, so
+that JAX-quantized weights load byte for byte:
 
-- the bf16 scales are rounded UP from the fp32 amax/7 scale;
-- the nibbles are biased (+8) and plane-baked: byte ``j`` of a group holds
-  row ``losrc[j]`` in its low nibble and row ``losrc[j] + g/2`` in its high
-  nibble, with ``losrc = j//2 + (j%2)*(g/4)``.
+- the bf16 group scales are rounded UP from the fp32 amax/qmax scale;
+- the int4 nibbles are biased (+8) and plane-baked: byte ``j`` of a group
+  holds row ``losrc[j]`` in its low nibble and row ``losrc[j] + g/2`` in its
+  high nibble, with ``losrc = j//2 + (j%2)*(g/4)``;
+- W8A8 weights carry one fp32 scale per output channel, block-fp8 weights
+  one per 128x128 block (edge blocks are partial, zero-padded for the amax).
 
-Stacked per-layer leaves ``[L, ...]`` are indexed per layer (a view, no copy).
-int8, W8A8 and fp8 weights are not ported yet.
+Stacked per-layer leaves ``[L, ...]`` are indexed per layer (a view, no
+copy) for every key of the leaf. The GEMMs live in ``ops/quant_matmul.py``
+and ``ops/w8a8.py``.
 """
 
 from __future__ import annotations
@@ -28,27 +36,50 @@ import torch
 LinearParams = Union[torch.Tensor, dict]
 
 
+FP8_MAX = 448.0  # float8_e4m3fn
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
-    """Static quantization descriptor (weight-only int4 in this port)."""
+    """Static quantization descriptor shared by all quantized linears.
 
-    bits: int = 4
-    group: int = 128
+    Weight-only (``act is None``): int8 / int4 with per-(group, out-channel)
+    bf16 scales. Activation-quantized (W8A8): ``act`` says where the
+    activation scale comes from ("dyn": per-token amax; "static": the
+    calibrated scalar stored in the leaf), ``wfmt`` the 8-bit format ("int"
+    or "fp8" = float8_e4m3fn); weights carry per-out-channel scales.
+    ``block=128`` is the 128x128-block fp8 format with per-(token, K-block)
+    activation scales; ``act_pow2`` snaps those to powers of two (the
+    token-block variant)."""
+
+    bits: int = 8  # 8 | 4
+    group: int = 128  # input-dim group size of weight-only scales
+    wfmt: str = "int"  # "int" | "fp8"
+    act: Optional[str] = None  # None | "dyn" | "static"
+    block: int = 0  # 0 | 128
+    act_pow2: bool = False
 
     @classmethod
     def from_mode(cls, mode: Optional[str], group: int = 128) -> Optional["QuantSpec"]:
         """``EngineConfig.quant`` -> spec (None for native weights)."""
         if mode in ("none", "", None):
             return None
+        if mode == "int8":
+            return cls(bits=8, group=group)
         if mode == "int4":
             return cls(bits=4, group=group)
-        if mode == "int8":
-            raise NotImplementedError(
-                "int8 weight-only linears come with the int8 slice (ROADMAP B.1)")
-        if mode.startswith("w8a8") or mode == "fp8":
-            raise NotImplementedError(
-                f"quant={mode!r}: W8A8 / fp8 linears come with the W8A8 slice "
-                "(ROADMAP B.2)")
+        if mode == "w8a8_int8":
+            return cls(bits=8, act="dyn")
+        if mode == "w8a8_int8_static":
+            return cls(bits=8, act="static")
+        if mode == "w8a8_fp8":
+            return cls(bits=8, wfmt="fp8", act="dyn")
+        if mode == "w8a8_fp8_static":
+            return cls(bits=8, wfmt="fp8", act="static")
+        if mode == "fp8_block":
+            return cls(bits=8, wfmt="fp8", act="dyn", block=128)
+        if mode == "fp8_tb":
+            return cls(bits=8, wfmt="fp8", act="dyn", block=128, act_pow2=True)
         raise ValueError(f"unknown quant mode {mode!r}")
 
 
@@ -76,19 +107,58 @@ def _group_scales(w: torch.Tensor, group: int, qmax: float):
     return wg, scale_bf, g
 
 
-def quantize(w: torch.Tensor, spec: QuantSpec) -> dict:
-    """Symmetric int4 quantization of w [in, out] into the packed layout."""
-    if spec.bits != 4:
-        raise NotImplementedError(f"{spec.bits}-bit weights are not ported yet")
-    wg, scale, g = _group_scales(w, spec.group, 7.0)
-    if g % 8:
-        raise ValueError("int4 packing needs group % 8 == 0")
-    q = torch.clamp(torch.round(wg / scale[:, None, :]), -8, 7).to(torch.int32) + 8
-    losrc = _losrc(g).to(w.device)
-    lo = q[:, losrc] & 0xF
-    hi = (q[:, losrc + g // 2] & 0xF) << 4
+def _pad_blocks(w: torch.Tensor, B: int):
+    """w [K, N] in fp32, zero-padded to whole BxB blocks: [kb, B, nb, B]."""
     din, dout = w.shape
-    return {"q": (lo | hi).to(torch.uint8).reshape(din // 2, dout), "s": scale}
+    kb, nb = -(-din // B), -(-dout // B)
+    wp = torch.zeros((kb * B, nb * B), dtype=torch.float32, device=w.device)
+    wp[:din, :dout] = w.to(torch.float32)
+    return wp.reshape(kb, B, nb, B)
+
+
+def quantize(w: torch.Tensor, spec: QuantSpec,
+             act_scale: Optional[float] = None) -> dict:
+    """Symmetric quantization of w [in, out] per ``spec``.
+
+    ``act_scale`` seeds the stored activation scale of a static-act spec
+    (default 1.0; see ``ops.w8a8.calibrate_act_scale``). The e4m3 casts
+    need no clip: the scale puts every value within +-448."""
+    din, dout = w.shape
+    if spec.block:
+        B = spec.block
+        wb = _pad_blocks(w, B)
+        scale = torch.clamp(wb.abs().amax(dim=(1, 3)) / FP8_MAX, min=1e-8)
+        q = (wb / scale[:, None, :, None]).to(torch.float8_e4m3fn)
+        q = q.reshape(wb.shape[0] * B, wb.shape[2] * B)[:din, :dout]
+        return {"q": q.contiguous(), "s": scale}
+    if spec.act is not None:
+        wf = w.to(torch.float32)
+        amax = wf.abs().amax(dim=0)
+        if spec.wfmt == "fp8":
+            scale = torch.clamp(amax / FP8_MAX, min=1e-8)
+            q = (wf / scale[None, :]).to(torch.float8_e4m3fn)
+        else:
+            scale = torch.clamp(amax / 127.0, min=1e-8)
+            q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127).to(torch.int8)
+        p = {"q": q, "s": scale}
+        if spec.act == "static":
+            p["xs"] = torch.tensor(1.0 if act_scale is None else float(act_scale),
+                                   dtype=torch.float32, device=w.device)
+        return p
+    if spec.bits == 8:
+        wg, scale, g = _group_scales(w, spec.group, 127.0)
+        q = torch.clamp(torch.round(wg / scale[:, None, :]), -127, 127).to(torch.int8)
+        return {"q": q.reshape(din, dout), "s": scale}
+    if spec.bits == 4:
+        wg, scale, g = _group_scales(w, spec.group, 7.0)
+        if g % 8:
+            raise ValueError("int4 packing needs group % 8 == 0")
+        q = torch.clamp(torch.round(wg / scale[:, None, :]), -8, 7).to(torch.int32) + 8
+        losrc = _losrc(g).to(w.device)
+        lo = q[:, losrc] & 0xF
+        hi = (q[:, losrc + g // 2] & 0xF) << 4
+        return {"q": (lo | hi).to(torch.uint8).reshape(din // 2, dout), "s": scale}
+    raise ValueError(spec)
 
 
 def unpack_int4(packed: torch.Tensor, group: int) -> torch.Tensor:
@@ -106,19 +176,37 @@ def unpack_int4(packed: torch.Tensor, group: int) -> torch.Tensor:
 
 def dequantize(p: dict, spec: Optional[QuantSpec] = None,
                dtype=torch.bfloat16) -> torch.Tensor:
-    """Dense weight [in, out] from an int4 leaf (plain reference path)."""
+    """Dense weight [in, out] from a quantized leaf (plain reference path).
+    Without a spec the leaf is weight-only: int8, or int4 for packed uint8."""
     q, s = p["q"], p["s"]
-    din = q.shape[0] * 2
+    if spec is None:
+        spec = QuantSpec(bits=4 if q.dtype == torch.uint8 else 8)
+    if spec.block:
+        B = spec.block
+        din, dout = q.shape
+        w = _pad_blocks(q, B) * s[:, None, :, None]
+        return w.reshape(s.shape[0] * B, s.shape[1] * B)[:din, :dout].to(dtype)
+    if spec.act is not None:
+        return (q.to(torch.float32) * s[None, :]).to(dtype)
+    if spec.bits == 8:
+        w = q.to(torch.float32)
+    else:
+        din = q.shape[0] * 2
+        w = unpack_int4(q, din // s.shape[0]).to(torch.float32)
+    din, dout = w.shape
     g = din // s.shape[0]
-    w = unpack_int4(q, g).to(torch.float32)
-    w = w.reshape(din // g, g, -1) * s.to(torch.float32)[:, None, :]
-    return w.reshape(din, -1).to(dtype)
+    w = w.reshape(din // g, g, dout) * s.to(torch.float32)[:, None, :]
+    return w.reshape(din, dout).to(dtype)
+
+
+def make_linear(w: torch.Tensor, spec: Optional[QuantSpec]) -> LinearParams:
+    return w if spec is None else quantize(w, spec)
 
 
 def _native(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
     if x.is_cuda:
         raise NotImplementedError(
-            "native linears on CUDA need a GEMM kernel; this path is int4"
+            "native linears on CUDA are not ported yet (ROADMAP A.12)"
         )
     out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     return out.to(out_dtype or x.dtype)
@@ -130,16 +218,16 @@ def linear(
     spec: Optional[QuantSpec] = None,
     out_dtype=None,
 ) -> torch.Tensor:
-    """``x @ W``; int4 leaves go to the int4 GEMM wrapper.
+    """``x @ W``; quantized leaves go to ``ops.quant_matmul.quant_matmul``.
 
     ``out_dtype`` keeps the fp32 accumulator un-rounded at the output (the
     LM head passes fp32, as in the JAX package)."""
     if isinstance(p, dict):
         from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
-            int4_matmul,
+            quant_matmul,
         )
 
-        return int4_matmul(x, p["q"], p["s"], out_dtype=out_dtype or x.dtype)
+        return quant_matmul(x, p, spec, out_dtype=out_dtype)
     return _native(x, p, out_dtype)
 
 
@@ -151,7 +239,7 @@ def linear_at(
 ) -> torch.Tensor:
     """``x @ W[li]`` over stacked leaves [L, ...] (a per-layer view)."""
     if isinstance(p_stacked, dict):
-        p = {"q": p_stacked["q"][li], "s": p_stacked["s"][li]}
+        p = {k: v[li] for k, v in p_stacked.items()}
     else:
         p = p_stacked[li]
     return linear(p, x, spec)

@@ -4,7 +4,9 @@ Port of the llama path of ``painlessinferenceacceleration_tpu/models/base.py``.
 Parameters are a dict shaped like the JAX pytree: ``layers`` holds each
 weight stacked ``[L, ...]`` and a layer is a view ``w[li]``; qkv and
 gate/up are merged GEMMs. A Python loop over layers takes the place of
-``lax.scan``, and the KV arena is written in place.
+``lax.scan``, and the KV arena is written in place. The linears take any
+``QuantSpec`` (``layers/linear.py``); the embedding table may be the fp8
+``{"q", "s"}`` form (``layers/embedding.py``).
 
 Attention dispatch follows the JAX ``_attn_block_at`` over the three arena
 kinds: Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
@@ -31,8 +33,10 @@ from painlessinferenceacceleration_tpu_torch.layers.embedding import (
 )
 from painlessinferenceacceleration_tpu_torch.layers.linear import (
     QuantSpec,
+    effective_group,
     linear,
     linear_at,
+    make_linear,
 )
 from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attention_ref
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
@@ -56,8 +60,11 @@ def _check_llama(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.float32, device=None) -> dict:
-    """Random (std 0.02) native parameters with stacked layers, for tests."""
+                dtype=torch.float32, device=None,
+                quant: Optional[QuantSpec] = None) -> dict:
+    """Random (std 0.02) parameters with stacked layers, for tests; with
+    ``quant`` every linear is quantized from its dense weight
+    (``make_linear``), layer by layer."""
     _check_llama(cfg)
     dev = resolve_device(device)
     E, H, Hk, D, I = (cfg.hidden_size, cfg.num_attention_heads,
@@ -69,7 +76,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 * 0.02).to(device=dev, dtype=dtype)
 
     def stacked(din, dout):
-        return torch.stack([w(din, dout) for _ in range(n)])
+        leaves = [make_linear(w(din, dout), quant) for _ in range(n)]
+        if quant is None:
+            return torch.stack(leaves)
+        return {k: torch.stack([p[k] for p in leaves]) for k in leaves[0]}
 
     params = {
         "embed": w(cfg.vocab_size, E),
@@ -84,27 +94,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         },
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w(E, cfg.vocab_size)
+        params["lm_head"] = make_linear(w(E, cfg.vocab_size), quant)
     return params
 
 
-def _rand_int4_leaf(gen: torch.Generator, n: int, din: int, dout: int,
-                    spec: QuantSpec, dev, std: float = 0.02) -> dict:
-    """Random stacked int4 leaf [n, din/2, dout] built on the device: any
-    byte is a valid pair of biased nibbles."""
-    groups = din // min(spec.group, din)
-    shape = (n, din // 2, dout) if n else (din // 2, dout)
-    q = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
-    s_shape = (n, groups, dout) if n else (groups, dout)
-    return {"q": q, "s": torch.full(s_shape, std / 7.0, dtype=torch.bfloat16, device=dev)}
+def _rand_e4m3(gen: torch.Generator, shape, dev) -> torch.Tensor:
+    """Unit-normal values cast to e4m3, drawn a layer at a time (the fp32
+    draw of a whole stacked 7B weight would not fit beside the model)."""
+    if len(shape) == 2:
+        return torch.randn(shape, generator=gen, device=dev).to(torch.float8_e4m3fn)
+    out = torch.empty(shape, dtype=torch.float8_e4m3fn, device=dev)
+    for li in range(shape[0]):
+        out[li] = torch.randn(shape[1:], generator=gen, device=dev).to(torch.float8_e4m3fn)
+    return out
+
+
+def _rand_quant_leaf(gen: torch.Generator, n: int, din: int, dout: int,
+                     spec: QuantSpec, dev, std: float = 0.02) -> dict:
+    """Random quantized leaf of ``spec``'s format, stacked [n, ...] (n = 0:
+    unstacked), built on the device: int8 values uniform in [-127, 127],
+    e4m3 values from a unit normal, any byte for int4's biased nibbles, and
+    constant scales that give the weights a spread of about ``std``."""
+    lead = (n,) if n else ()
+
+    def full(shape, value, dtype):
+        return torch.full(lead + shape, value, dtype=dtype, device=dev)
+
+    if spec.block:
+        B = spec.block
+        return {"q": _rand_e4m3(gen, lead + (din, dout), dev),
+                "s": full((-(-din // B), -(-dout // B)), std / 448.0, torch.float32)}
+    if spec.act is not None:
+        if spec.wfmt == "fp8":
+            p = {"q": _rand_e4m3(gen, lead + (din, dout), dev),
+                 "s": full((dout,), std / 448.0, torch.float32)}
+        else:
+            p = {"q": torch.randint(-127, 128, lead + (din, dout), generator=gen,
+                                    device=dev, dtype=torch.int8),
+                 "s": full((dout,), std / 127.0, torch.float32)}
+        if spec.act == "static":
+            p["xs"] = full((), 1.0, torch.float32)
+        return p
+    groups = din // effective_group(din, spec.group)
+    if spec.bits == 8:
+        q = torch.randint(-127, 128, lead + (din, dout), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return {"q": q, "s": full((groups, dout), std / 127.0, torch.bfloat16)}
+    q = torch.randint(0, 256, lead + (din // 2, dout), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    return {"q": q, "s": full((groups, dout), std / 7.0, torch.bfloat16)}
 
 
 def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
                           generator: torch.Generator, device=None) -> dict:
-    """Random parameters with every big GEMM weight directly in int4 form,
-    drawn on ``device`` (``cuda`` unless asked otherwise): a random fp32 7B
-    model would not fit the card just to be quantized and thrown away. The
-    generator must live on that device."""
+    """Random parameters with every big GEMM weight directly in ``spec``'s
+    quantized form, drawn on ``device`` (``cuda`` unless asked otherwise): a
+    random fp32 7B model would not fit the card just to be quantized and
+    thrown away. The generator must live on that device."""
     _check_llama(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
@@ -115,10 +161,10 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
     layers = {
         "input_ln": torch.ones(n, E, dtype=torch.bfloat16, device=dev),
         "post_ln": torch.ones(n, E, dtype=torch.bfloat16, device=dev),
-        "wqkv": _rand_int4_leaf(generator, n, E, (H + 2 * Hk) * D, spec, dev),
-        "wo": _rand_int4_leaf(generator, n, H * D, E, spec, dev),
-        "wgu": _rand_int4_leaf(generator, n, E, 2 * I, spec, dev),
-        "wdown": _rand_int4_leaf(generator, n, I, E, spec, dev),
+        "wqkv": _rand_quant_leaf(generator, n, E, (H + 2 * Hk) * D, spec, dev),
+        "wo": _rand_quant_leaf(generator, n, H * D, E, spec, dev),
+        "wgu": _rand_quant_leaf(generator, n, E, 2 * I, spec, dev),
+        "wdown": _rand_quant_leaf(generator, n, I, E, spec, dev),
     }
     embed = torch.randn(cfg.vocab_size, E, generator=generator, device=dev)
     params = {
@@ -127,7 +173,7 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
         "final_ln": torch.ones(E, dtype=torch.bfloat16, device=dev),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = _rand_int4_leaf(generator, 0, E, cfg.vocab_size, spec, dev)
+        params["lm_head"] = _rand_quant_leaf(generator, 0, E, cfg.vocab_size, spec, dev)
     return params
 
 

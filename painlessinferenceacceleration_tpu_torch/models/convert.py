@@ -2,11 +2,12 @@
 
 ``params_from_jax`` and ``kv_from_jax`` take JAX pytrees with their leaves
 already turned into numpy arrays (``jax.tree.map(np.asarray, tree)``), so
-this module needs no JAX. The tree shape is the same in both packages; int4
-``{"q", "s"}`` leaves keep their packed bytes unchanged. bf16 crosses over
-through a ``uint16`` view and e4m3 through a ``uint8`` view, since
-``torch.from_numpy`` does not take the ml_dtypes types, so arenas compare
-byte for byte.
+this module needs no JAX. The tree shape is the same in both packages;
+quantized ``{"q", "s"[, "xs"]}`` leaves keep their bytes unchanged (packed
+int4, int8, e4m3, bf16 and f32 scales, the 0-d or ``[L]`` static activation
+scale). bf16 crosses over through a ``uint16`` view and e4m3 through a
+``uint8`` view, since ``torch.from_numpy`` does not take the ml_dtypes
+types, so weights and arenas compare byte for byte.
 """
 
 from __future__ import annotations

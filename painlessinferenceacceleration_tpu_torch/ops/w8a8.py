@@ -1,0 +1,246 @@
+"""W8A8 activation-quantized GEMMs: int8 and e4m3 with per-channel weight
+scales, and the 128x128-block e4m3 format.
+
+Port of ``painlessinferenceacceleration_tpu/ops/w8a8.py``. ``quant_act``
+quantizes the activations in plain torch on every device, as the JAX
+package does it outside its kernels. ``w8a8_gemm`` replaces the Pallas
+``_w8a8_kernel`` and ``_w8a8_stacked_kernel`` (``csrc/w8a8_gemm.cu``),
+``block_fp8_gemm`` replaces ``_block_fp8_kernel`` and
+``_block_fp8_stacked_kernel`` (``csrc/block_fp8_gemm.cu``); a stacked
+weight's layer is a view, so one kernel serves both forms. Both take the
+operands already quantized and apply every scale in the kernel, in fp32 and
+in the order of the plain version, with one rounding at the end. (The Pallas
+per-channel kernel rounds to bf16 before its wrapper multiplies by the
+activation scale; the port follows the oracle ``w8a8_matmul_ref``, not that
+double rounding.)
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. ``w8a8_gemm.launches`` / ``block_fp8_gemm.launches`` count kernel
+launches, ``w8a8_gemm.modes`` by operand format.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from painlessinferenceacceleration_tpu_torch import _build
+from painlessinferenceacceleration_tpu_torch.layers.linear import FP8_MAX, QuantSpec
+from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
+    CHUNK,
+    check_gemm_out,
+    chunk_ksplit,
+)
+
+INT8_MAX = 127.0
+FP8 = torch.float8_e4m3fn
+BLOCK = CHUNK  # the block-fp8 format's edge: one kernel chunk, one column block
+
+
+def _qmax(spec: QuantSpec) -> float:
+    return FP8_MAX if spec.wfmt == "fp8" else INT8_MAX
+
+
+def pow2_snap(s: torch.Tensor) -> torch.Tensor:
+    """``exp2(floor(log2 s + .5))`` for positive fp32 scales, with the power
+    of two built from its exponent bits so that it is exact on every
+    device."""
+    e = torch.floor(torch.log2(s) + 0.5).to(torch.int32)
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def quant_act(x2: torch.Tensor, spec: QuantSpec,
+              xs_static: Optional[torch.Tensor] = None):
+    """Quantize activations x2 [M, K] per spec: (xq, xs) with xs [M] per
+    token, or [M, ceil(K/block)] for the block format (the last K block is
+    zero-padded for its amax). Static specs use the calibrated scalar
+    ``xs_static``. e4m3 values are clipped to +-448 before the cast: torch's
+    cast does not saturate, and a static or pow2-snapped scale can put values
+    past it. int8 rounds half to even and clips to +-127."""
+    qmax = _qmax(spec)
+    xf = x2.to(torch.float32)
+    M, K = x2.shape
+    if spec.block:
+        B = spec.block
+        kb = -(-K // B)
+        xg = F.pad(xf, (0, kb * B - K)).reshape(M, kb, B)
+        xs = torch.clamp(xg.abs().amax(dim=-1) / qmax, min=1e-8)
+        if spec.act_pow2:
+            xs = pow2_snap(xs)
+        xq = xg / xs[:, :, None]
+    elif spec.act == "static":
+        if xs_static is None:
+            raise ValueError("a static-act leaf needs its 'xs' scale")
+        xs = xs_static.to(torch.float32).reshape(()).expand(M).contiguous()
+        xq = xf / xs[:, None]
+    else:
+        xs = torch.clamp(xf.abs().amax(dim=-1) / qmax, min=1e-8)
+        xq = xf / xs[:, None]
+    if spec.wfmt == "fp8":
+        xq = torch.clamp(xq, -FP8_MAX, FP8_MAX).to(FP8)
+    else:
+        xq = torch.clamp(torch.round(xq), -127, 127).to(torch.int8)
+    if spec.block:
+        xq = xq.reshape(M, -1)[:, :K].contiguous()
+    return xq, xs
+
+
+def calibrate_act_scale(samples: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Static activation scale from calibration activations [.., K]."""
+    amax = samples.to(torch.float32).abs().max()
+    return torch.clamp(amax / _qmax(spec), min=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+
+def w8a8_gemm_plain(xq: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
+                    s: torch.Tensor, out_dtype) -> torch.Tensor:
+    """((xq @ q) * xs[m]) * s[n]: int8 operands through an exact integer
+    product (fp64 holds every sum), e4m3 operands through fp32."""
+    if q.dtype == torch.int8:
+        acc = torch.matmul(xq.to(torch.float64), q.to(torch.float64)).to(torch.float32)
+    else:
+        acc = torch.matmul(xq.to(torch.float32), q.to(torch.float32))
+    return (acc * xs[:, None] * s[None, :]).to(out_dtype)
+
+
+def block_fp8_gemm_plain(xq: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
+                         s: torch.Tensor, out_dtype) -> torch.Tensor:
+    """sum_kb ((xq[:, kb] @ q[kb]) * xs[m, kb]) * s[kb, n/128], the partials
+    added in ascending kb, all in fp32."""
+    M, N = xq.shape[0], q.shape[1]
+    acc = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    for kb in range(s.shape[0]):
+        rows = slice(kb * BLOCK, (kb + 1) * BLOCK)
+        part = torch.matmul(xq[:, rows].to(torch.float32), q[rows].to(torch.float32))
+        sn = s[kb].repeat_interleave(BLOCK)[:N]
+        acc = acc + part * xs[:, kb:kb + 1] * sn[None, :]
+    return acc.to(out_dtype)
+
+
+def w8a8_matmul_ref(x2: torch.Tensor, p: dict, spec: QuantSpec,
+                    out_dtype=None) -> torch.Tensor:
+    """x2 [M, K] @ W8A8 weights -> [M, N]: ``quant_act`` and the plain GEMM."""
+    od = out_dtype or x2.dtype
+    xq, xs = quant_act(x2, spec, p.get("xs"))
+    if spec.block:
+        return block_fp8_gemm_plain(xq, xs, p["q"], p["s"], od)
+    return w8a8_gemm_plain(xq, xs, p["q"], p["s"], od)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _w8a8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
+    M, K = xq.shape
+    N = q.shape[1]
+    if q.dtype not in (torch.int8, FP8) or xq.dtype != q.dtype:
+        raise TypeError(f"w8a8_gemm takes int8 or e4m3 operands of one type, "
+                        f"not {xq.dtype}/{q.dtype}")
+    if q.shape[0] != K or tuple(s.shape) != (N,) or tuple(xs.shape) != (M,):
+        raise ValueError(f"w8a8_gemm shapes: xq {tuple(xq.shape)}, xs {tuple(xs.shape)}, "
+                         f"q {tuple(q.shape)}, s {tuple(s.shape)}")
+    if s.dtype != torch.float32 or xs.dtype != torch.float32:
+        raise TypeError("w8a8_gemm takes fp32 scales")
+    xq, xs, q, s = xq.contiguous(), xs.contiguous(), q.contiguous(), s.contiguous()
+    check_gemm_out("w8a8_gemm", xq, N, out_dtype, xs, q, s)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    ks = chunk_ksplit(-(-K // CHUNK), N)
+    # int32 partial sums for int8 operands, fp32 for e4m3: 4 bytes either way
+    work = (torch.empty((ks, M, N), dtype=torch.float32, device=xq.device)
+            if ks > 1 else None)
+    fp8 = q.dtype == FP8
+    lib = _build.library("w8a8_gemm")
+    fn = lib.w8a8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    err = fn(xq.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(),
+             out.data_ptr(), _build.ptr(work), M, K, N, int(fp8),
+             int(out_dtype == torch.float32), ks, _build.stream_of(xq))
+    _build.check(lib, err, "w8a8_gemm")
+    w8a8_gemm.launches += 1
+    w8a8_gemm.modes["fp8" if fp8 else "int8"] += 1
+    return out
+
+
+def w8a8_gemm(xq: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
+              s: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """((xq [M, K] @ q [K, N]) * xs [M]) * s [N] -> [M, N]; xq and q both
+    int8 (exact int32 accumulation) or both e4m3 (fp32 accumulation)."""
+    if xq.is_cuda:
+        return _w8a8_gemm_cuda(xq, xs, q, s, out_dtype)
+    if xq.device.type != "cpu":
+        raise NotImplementedError(f"w8a8_gemm on {xq.device}")
+    return w8a8_gemm_plain(xq, xs, q, s, out_dtype)
+
+
+w8a8_gemm.launches = 0
+w8a8_gemm.modes = collections.Counter()
+
+
+def _block_fp8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
+    M, K = xq.shape
+    N = q.shape[1]
+    nkb, nnb = -(-K // BLOCK), -(-N // BLOCK)
+    if q.dtype != FP8 or xq.dtype != FP8:
+        raise TypeError(f"block_fp8_gemm takes e4m3 operands, not {xq.dtype}/{q.dtype}")
+    if q.shape[0] != K or tuple(s.shape) != (nkb, nnb) or tuple(xs.shape) != (M, nkb):
+        raise ValueError(f"block_fp8_gemm shapes: xq {tuple(xq.shape)}, xs {tuple(xs.shape)}, "
+                         f"q {tuple(q.shape)}, s {tuple(s.shape)} (block {BLOCK})")
+    if s.dtype != torch.float32 or xs.dtype != torch.float32:
+        raise TypeError("block_fp8_gemm takes fp32 scales")
+    xq, xs, q, s = xq.contiguous(), xs.contiguous(), q.contiguous(), s.contiguous()
+    check_gemm_out("block_fp8_gemm", xq, N, out_dtype, xs, q, s)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    ks = chunk_ksplit(nkb, N)
+    work = (torch.empty((ks, M, N), dtype=torch.float32, device=xq.device)
+            if ks > 1 else None)
+    lib = _build.library("block_fp8_gemm")
+    fn = lib.block_fp8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    err = fn(xq.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(),
+             out.data_ptr(), _build.ptr(work), M, K, N,
+             int(out_dtype == torch.float32), ks, _build.stream_of(xq))
+    _build.check(lib, err, "block_fp8_gemm")
+    block_fp8_gemm.launches += 1
+    return out
+
+
+def block_fp8_gemm(xq: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
+                   s: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """sum_kb ((xq[:, kb] @ q[kb]) * xs[m, kb]) * s[kb, n/128] -> [M, N] for
+    e4m3 operands, xs [M, ceil(K/128)], s [ceil(K/128), ceil(N/128)]; edge
+    blocks may be partial."""
+    if xq.is_cuda:
+        return _block_fp8_gemm_cuda(xq, xs, q, s, out_dtype)
+    if xq.device.type != "cpu":
+        raise NotImplementedError(f"block_fp8_gemm on {xq.device}")
+    return block_fp8_gemm_plain(xq, xs, q, s, out_dtype)
+
+
+block_fp8_gemm.launches = 0
+
+
+def w8a8_matmul(x: torch.Tensor, p: dict, spec: QuantSpec,
+                out_dtype=None) -> torch.Tensor:
+    """x [..., K] @ W8A8 leaf -> [..., N] in ``out_dtype`` (default x.dtype):
+    activation quantization, then the GEMM of the leaf's format. A stacked
+    leaf is served through its layer's views (``layers.linear.linear_at``)."""
+    if spec.block not in (0, BLOCK):
+        raise ValueError(f"block fp8 weights come in {BLOCK}x{BLOCK} blocks, not {spec.block}")
+    od = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    xq, xs = quant_act(x.reshape(-1, x.shape[-1]), spec, p.get("xs"))
+    if spec.block:
+        out = block_fp8_gemm(xq, xs, p["q"], p["s"], od)
+    else:
+        out = w8a8_gemm(xq, xs, p["q"], p["s"], od)
+    return out.reshape(*lead, p["q"].shape[-1])

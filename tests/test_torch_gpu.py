@@ -10,8 +10,9 @@ machine for the port need not have.)
 
 Tolerances: bf16 outputs within 2e-2 relative to the plain fp32-accumulated
 version (the e4m3 arena modes too: their plain version rounds the
-dequantized rows to bf16, the kernel does not); fp32 outputs within 1e-4;
-the KV permute and the page write bit for bit. The batch-invariance tests
+dequantized rows to bf16, the kernel does not); fp32 outputs within 1e-4
+(sums in another order); the int8 W8A8 GEMM (exact integer sums), the KV
+permute and the page write bit for bit. The batch-invariance tests
 ask for bit equality: a row's result must not depend on the batch width,
 or lookahead serving would not reproduce AR serving.
 """
@@ -35,9 +36,19 @@ from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention_tok,
 )
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
+from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     int4_matmul,
     int4_matmul_plain,
+    int8_matmul,
+    int8_matmul_plain,
+)
+from painlessinferenceacceleration_tpu_torch.ops.w8a8 import (
+    block_fp8_gemm,
+    block_fp8_gemm_plain,
+    quant_act,
+    w8a8_gemm,
+    w8a8_gemm_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -242,3 +253,109 @@ def test_gemm_and_norm_rows_do_not_depend_on_the_batch(cuda):
     for m in (1, 2, 8, 17, 136):
         assert torch.equal(int4_matmul(x[:m], q, s), full[:m])
         assert torch.equal(rms_norm(x[:m], w), norm[:m])
+
+
+# ---------------------------------------------------------------------------
+# the 8-bit GEMMs: int8 weight-only, W8A8 per channel (int8 / e4m3), block fp8
+# ---------------------------------------------------------------------------
+
+# 7B layer widths, the serving prefill height, and ragged edges: K and N off
+# the 128 grid, K odd (int8 activations then load byte by byte), group 64,
+# and a group that is all of K (longer than one 128-row chunk)
+GEMM_SHAPES = [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384), (4096, 4096, 1024),
+               (9, 200, 132), (17, 333, 260)]
+
+
+def _tol(out):
+    return 2e-2 if out == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_int8_gemm(cuda, M, K, N, out):
+    group = 64 if K % 128 == 0 and M == 70 else (128 if K % 128 == 0 else K)
+    x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    q = torch.randint(-127, 128, (K, N), generator=cuda, device="cuda", dtype=torch.int8)
+    s = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, s, out)
+    assert int8_matmul.launches == before + 1
+    assert _rel(got, int8_matmul_plain(x, q, s, out)) < _tol(out)
+
+
+def _w8a8_operands(g, M, K, N, mode):
+    """Activations quantized by quant_act from unit-normal rows, and a
+    random weight of the mode's format with scales around 0.02/qmax."""
+    spec = QuantSpec.from_mode(mode)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    xq, xs = quant_act(x, spec)
+    if spec.wfmt == "fp8":
+        q = torch.randn(K, N, generator=g, device="cuda").to(torch.float8_e4m3fn)
+    else:
+        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    shape = (-(-K // 128), -(-N // 128)) if spec.block else (N,)
+    s = torch.rand(shape, generator=g, device="cuda") * 1e-4 + 1e-5
+    return xq, xs, q, s
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_w8a8_gemm_int8_is_exact(cuda, M, K, N, out):
+    xq, xs, q, s = _w8a8_operands(cuda, M, K, N, "w8a8_int8")
+    before = w8a8_gemm.modes["int8"]
+    got = w8a8_gemm(xq, xs, q, s, out)
+    assert w8a8_gemm.modes["int8"] == before + 1
+    assert torch.equal(got, w8a8_gemm_plain(xq, xs, q, s, out))
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_w8a8_gemm_fp8(cuda, M, K, N, out):
+    xq, xs, q, s = _w8a8_operands(cuda, M, K, N, "w8a8_fp8")
+    before = w8a8_gemm.modes["fp8"]
+    got = w8a8_gemm(xq, xs, q, s, out)
+    assert w8a8_gemm.modes["fp8"] == before + 1
+    assert _rel(got, w8a8_gemm_plain(xq, xs, q, s, out)) < _tol(out)
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("mode", ["fp8_block", "fp8_tb"])
+def test_block_fp8_gemm(cuda, M, K, N, mode):
+    xq, xs, q, s = _w8a8_operands(cuda, M, K, N, mode)
+    for out in (torch.bfloat16, torch.float32):
+        before = block_fp8_gemm.launches
+        got = block_fp8_gemm(xq, xs, q, s, out)
+        assert block_fp8_gemm.launches == before + 1
+        assert _rel(got, block_fp8_gemm_plain(xq, xs, q, s, out)) < _tol(out)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 512), (333, 260)])
+def test_8bit_gemm_rows_do_not_depend_on_the_batch(cuda, K, N):
+    """A row of every 8-bit GEMM is the same at M = 1, 8, 17, 136 and 4096,
+    bit for bit: AR decode batches B rows, lookahead 17 B, prefill 512 B."""
+    M = 4096
+    x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    group = 128 if K % 128 == 0 else K
+    q8 = torch.randint(-127, 128, (K, N), generator=cuda, device="cuda", dtype=torch.int8)
+    s8 = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
+    runs = {"int8_gemm": lambda m: int8_matmul(x[:m], q8, s8)}
+    for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block"):
+        xq, xs, q, s = _w8a8_operands(cuda, M, K, N, mode)
+        fn = block_fp8_gemm if mode == "fp8_block" else w8a8_gemm
+        runs[mode] = (lambda m, fn=fn, xq=xq, xs=xs, q=q, s=s:
+                      fn(xq[:m], xs[:m], q, s, torch.bfloat16))
+    for name, run in runs.items():
+        full = run(M)
+        for m in (1, 8, 17, 136):
+            assert torch.equal(run(m), full[:m]), (name, m)
+
+
+def test_quant_act_rows_do_not_depend_on_the_batch(cuda):
+    x = torch.randn(136, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block", "fp8_tb"):
+        spec = QuantSpec.from_mode(mode)
+        xq, xs = quant_act(x, spec)
+        for m in (1, 8, 17):
+            xq_m, xs_m = quant_act(x[:m], spec)
+            assert torch.equal(xq_m.view(torch.uint8), xq[:m].view(torch.uint8)), mode
+            assert torch.equal(xs_m, xs[:m]), mode
