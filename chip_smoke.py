@@ -38,6 +38,18 @@ Phases, one line each (any failure exits non-zero and prints no result):
    requests (bf16 arena, AR and lookahead, outputs must be identical), and
    the 8-bit GEMMs are held against their plain versions on inputs kept
    from those runs;
+   Mixture-of-Experts: the grouped (per-expert) GEMMs for bf16, int4 and
+   int8 experts and the dense bf16 GEMM against their plain versions at
+   Mixtral-8x7B and Qwen3-30B-A3B expert shapes over seeded random routings
+   (2 to 8192 routed rows, some pairs dropped), rows past ``n_used`` exactly
+   zero, every routed row bit-equal to the dense kernel on its expert's
+   weights and to itself at every batch width; Mixtral-8x7B at full width
+   in bf16 (16 of 32 layers: 46.5 GB of weights) through a 2048-token
+   prefill (grouped route), 32 AR and 64 lookahead tokens (scan route),
+   strictly lossless, one layer's grouped output bit-equal to its scan
+   output; the same model with int4 experts in 2 expert shards (all 32
+   layers) and with int8 experts (8 layers); and the bf16 model (4 layers)
+   serving the 16 requests, lookahead equal to AR;
 4. the launch count of every kernel and mode during phase 3, serving and
    the quant modes, each counted from 0 (all must be > 0), the script's wall time, and the ``kernels`` JSON line.
 
@@ -549,7 +561,7 @@ def phase_kernels(pkg, cfg) -> list:
     for M in (1, 17, 512):
         for K, N in layer_shapes:
             rows.append(check_int4_gemm(pkg, g, M, K, N, torch.bfloat16))
-    for M in (1, 17):
+    for M in (1, 17, 512):
         rows.append(check_int4_gemm(pkg, g, M, E, V, torch.float32))
     for name in GEMM8:
         for M in (1, 17, 512):
@@ -675,23 +687,30 @@ class Launches:
         pa, ku = pkg["paged_attention"], pkg["kv_update"]
         self.attn = (pa.paged_attention, pa.paged_attention_prefill, pa.paged_attention_tok)
         self.w8a8 = pkg["w8a8"].w8a8_gemm
-        self.plain = {"int4_gemm": pkg["quant_matmul"].int4_matmul,
+        self.gquant = pkg["moe_matmul"].grouped_quant_matmul
+        self.plain = {"grouped_gemm": pkg["moe_matmul"].grouped_matmul,
+                      "dense_bf16_gemm": pkg["moe_matmul"].dense_matmul,
+                      "int4_gemm": pkg["quant_matmul"].int4_matmul,
                       "int8_gemm": pkg["quant_matmul"].int8_matmul,
                       "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm,
                       "kv_permute_pages": ku.kv_permute_pages,
                       "kv_write_pages": ku.kv_write_pages}
 
     def reset(self):
-        for f in (*self.attn, self.w8a8, *self.plain.values()):
+        for f in (*self.attn, self.w8a8, self.gquant, *self.plain.values()):
             f.launches = 0
         for f in (*self.attn, self.w8a8):
             f.modes.clear()
+        for fmt in self.gquant.modes:
+            self.gquant.modes[fmt] = 0
 
     def read(self) -> dict:
         """Counts by kernels-line row name."""
         out = {name: f.launches for name, f in self.plain.items()}
         for fmt in ("int8", "fp8"):
             out[f"w8a8_gemm[{fmt}]"] = self.w8a8.modes[fmt]
+        for fmt in ("int4", "int8"):
+            out[f"grouped_{fmt}_gemm"] = self.gquant.modes[fmt]
         pa, pre, tok = self.attn
         for kind in ("decode", "verify"):
             out[f"paged_attention[{kind}]"] = pa.modes[f"{kind},bf16"]
@@ -705,7 +724,7 @@ class Launches:
 
 def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
                     spec_tokens=SPEC_TOKENS, label="phase 3 main path",
-                    extras=True) -> dict:
+                    extras=True, prompt_len=PROMPT_LEN) -> dict:
     """Prefill, greedy AR decode and lookahead decode at B = 1 with the
     strict lossless check, the kernels' launches counted from 0. ``extras``
     adds the draft-table costs and the profiled steps."""
@@ -717,10 +736,10 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
     ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=4096, max_concurrency=1)
     tcfg = dt.DraftTableConfig(buckets=16384, ways=8, branch_length=16, retrieve_count=1)
     torch.cuda.reset_peak_memory_stats()
-    prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10, PROMPT_LEN)
+    prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10, prompt_len)
     prompt_t = torch.tensor(prompt[None], dtype=torch.int32, device="cuda")
     pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
-    ctx0 = torch.tensor([PROMPT_LEN], dtype=torch.int32, device="cuda")
+    ctx0 = torch.tensor([prompt_len], dtype=torch.int32, device="cuda")
     one = torch.ones(1, dtype=torch.bool, device="cuda")
     TAIL = tcfg.branch_length + 2
 
@@ -767,7 +786,7 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
     ar_stream = [int(nxt[0])] + toks[0].tolist()
     torch.cuda.synchronize()
     ar_s = time.perf_counter() - t0
-    if int(ctx[0]) != PROMPT_LEN + ar_tokens - 1 or min(ar_stream) < 0:
+    if int(ctx[0]) != prompt_len + ar_tokens - 1 or min(ar_stream) < 0:
         fail(f"{label}: AR decode did not advance one token per step")
     del kv
     spec_stream, spec_steps, spec_s, tables = spec_run(False, True, spec_tokens)
@@ -908,6 +927,8 @@ def serving_prompts(vocab: int) -> list:
 
 
 def serve_once(pkg, cfg, params, prompts, kv_quant, lookahead, quant="int4") -> tuple:
+    """One ``LLM.generate`` over the 16 requests; ``quant`` is the linears'
+    format ("none": native bf16 weights)."""
     import torch
 
     config, llm_mod = pkg["config"], pkg["llm"]
@@ -1300,6 +1321,367 @@ def phase_quant_modes(pkg, cfg) -> dict:
                 quant_act=quant_act_costs(pkg))
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: the grouped GEMMs, the three routes, serving
+# ---------------------------------------------------------------------------
+
+MOE = "painlessinferenceacceleration_tpu/ops/moe_matmul.py"
+MOE_PROMPT_LEN = 2048  # 2048 * 2 >= 2 * 128 * 8: prefill takes the grouped route
+MOE_AR_TOKENS = 32
+MOE_SPEC_TOKENS = 64
+MOE_BF16_LAYERS = 16  # 46.5 GB of the 93 GB a bf16 Mixtral-8x7B weighs
+MOE_INT8_LAYERS = 8
+MOE_SERVE_LAYERS = 4
+MOE_SHARDS = 2
+# (family, experts, top-k, expert GEMM shapes (K, N): gate/up then down, token counts)
+MOE_FAMILIES = (("mixtral-8x7b", 8, 2, ((4096, 28672), (14336, 4096)), (1, 17, 512, 4096)),
+                ("qwen3-30b-a3b", 128, 8, ((2048, 1536), (768, 2048)), (1, 17, 128, 1024)))
+GROUPED = {"grouped_gemm": ("grouped_gemm.cu", f"{MOE}:77 _gmm_kernel"),
+           "grouped_int4_gemm": ("grouped_int4_gemm.cu", f"{MOE}:130 _gqmm4_kernel"),
+           "grouped_int8_gemm": ("grouped_int8_gemm.cu", f"{MOE}:148 _gqmm8_kernel")}
+
+
+def seeded_routing(g, T, k, X, drop):
+    """k distinct experts per token from the generator, a share ``drop`` of
+    the pairs carrying the dropped-expert sentinel X, and their weights."""
+    import torch
+
+    topi = torch.rand(T, X, generator=g, device="cuda").argsort(dim=1)[:, :k]
+    topi = torch.where(torch.rand(T, k, generator=g, device="cuda") < drop,
+                       torch.full_like(topi, X), topi)
+    return topi.to(torch.int32), torch.rand(T, k, generator=g, device="cuda")
+
+
+def expert_weights(g, name, X, K, N):
+    """Random experts of the kernel's format: bf16 values of spread 0.02,
+    or weight-only leaves as init_params_quantized draws them."""
+    import torch
+
+    if name == "grouped_gemm":
+        w = torch.empty(X, K, N, dtype=torch.bfloat16, device="cuda")
+        for e in range(X):
+            w[e] = torch.randn(K, N, generator=g, device="cuda") * 0.02
+        return w
+    if name == "grouped_int4_gemm":
+        q = torch.randint(0, 256, (X, K // 2, N), generator=g, device="cuda",
+                          dtype=torch.uint8)
+        s = torch.rand(X, K // 128, N, generator=g, device="cuda") * 0.004 + 0.001
+    else:
+        q = torch.randint(-127, 128, (X, K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = torch.rand(X, K // 128, N, generator=g, device="cuda") * 2e-4 + 5e-5
+    return {"q": q, "s": s.to(torch.bfloat16)}
+
+
+def grouped_call(pkg, name, xg, be, nu, w, rows=None):
+    mm = pkg["moe_matmul"]
+    if name == "grouped_gemm":
+        return mm.grouped_matmul(xg, be, nu, w, rows)
+    return mm.grouped_quant_matmul(xg, be, nu, w, 4 if "int4" in name else 8, rows)
+
+
+def dense_expert(pkg, name, x, w, e):
+    """The dense kernel of the same format on expert e's weights."""
+    if name == "grouped_gemm":
+        return pkg["moe_matmul"].dense_matmul(x, w[e])
+    fn = pkg["quant_matmul"].int4_matmul if "int4" in name else pkg["quant_matmul"].int8_matmul
+    return fn(x, w["q"][e], w["s"][e])
+
+
+def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
+    """One grouped GEMM over a seeded routing of T tokens (a fifth of the
+    pairs dropped) against its plain version, timed; the rows past n_used
+    must be exactly zero. Tolerance 2e-2 of the largest value (bf16 out,
+    fp32 sums in another order). The bound counts what this routing needs:
+    the routed rows in, the weights of the experts they touch, all of the
+    output out."""
+    import torch
+
+    mm = pkg["moe_matmul"]
+    topi, topv = seeded_routing(g, T, k, X, 0.2)
+    dest_tok, _, be, nu, _ = mm._align(topi, topv, X, T)
+    rows = mm._block_rows(dest_tok, T)
+    x = torch.randn(T, K, generator=g, device="cuda").to(torch.bfloat16)
+    xg = torch.cat([x, torch.zeros(1, K, dtype=x.dtype, device="cuda")])[dest_tok.long()]
+    plain = mm.grouped_matmul_plain if name == "grouped_gemm" else (
+        lambda a, b, c, p: mm.grouped_quant_matmul_plain(a, b, c, p, 4 if "int4" in name else 8))
+    got, ref = grouped_call(pkg, name, xg, be, nu, w, rows), plain(xg, be, nu, w)
+    err, rel = _errs(got, ref)
+    case = f"{family} routed_rows={T * k} X={X} K={K} N={N}"
+    if not rel <= 2e-2:
+        fail(f"{name} {case}: rel err {rel}")
+    n_used = int(nu[0])
+    if got[n_used * 128:].any():
+        fail(f"{name} {case}: rows past n_used are not zero")
+    if not torch.equal(got, grouped_call(pkg, name, xg, be, nu, w)):
+        fail(f"{name} {case}: the row counts change the result")
+    big = T * k >= 1024
+    ms = time_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, rows), reps=5 if big else 20)
+    plain_ms = time_ms(lambda: plain(xg, be, nu, w), reps=2 if big else 5, warmup=1)
+    # yardstick: torch._grouped_mm over the padded expert runs of bf16 experts
+    offs = (torch.searchsorted(be[:n_used].contiguous(),
+                               torch.arange(X, device="cuda", dtype=torch.int32),
+                               right=True) * 128).to(torch.int32)
+    used = xg[: n_used * 128]
+    lib_ms = library_ms(lambda: torch._grouped_mm(used, w_bf16, offs=offs)) \
+        if n_used else None
+    real = int((rows[:n_used]).sum().item())
+    touched = int(torch.unique(be[:n_used]).numel())
+    wbytes = {"grouped_gemm": 2.0, "grouped_int4_gemm": 0.5 + 2 / 128,
+              "grouped_int8_gemm": 1.0 + 2 / 128}[name] * K * N
+    nbytes = real * K * 2 + touched * wbytes + got.numel() * 2 + be.numel() * 8 + 4
+    source, replaces = GROUPED[name]
+    row = _case(name, source, replaces, err, rel, ms, plain_ms,
+                bound_ms(nbytes, 2.0 * real * K * N), lib_ms,
+                f"{case} real_rows={real} experts_touched={touched} blocks_used={n_used}")
+    return row
+
+
+def dense_row(pkg, g, M, K, N, out_dtype, what):
+    """The dense entry of the bf16 GEMM source against its plain version
+    (2e-2 in bf16, 1e-4 in fp32), timed; torch.matmul as the yardstick."""
+    import torch
+
+    mm = pkg["moe_matmul"]
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    got, ref = mm.dense_matmul(x, w, out_dtype), mm.dense_matmul_plain(x, w, out_dtype)
+    err, rel = _errs(got, ref)
+    if not rel <= (2e-2 if out_dtype == torch.bfloat16 else 1e-4):
+        fail(f"bf16_gemm {what} M={M} K={K} N={N}: rel err {rel}")
+    ms = time_ms(lambda: mm.dense_matmul(x, w, out_dtype))
+    plain_ms = time_ms(lambda: mm.dense_matmul_plain(x, w, out_dtype), reps=5)
+    lib_ms = time_ms(lambda: torch.matmul(x, w))
+    nbytes = (M * K + K * N) * 2 + M * N * got.element_size()
+    return _case("dense_bf16_gemm", "grouped_gemm.cu",
+                 f"{MOE}:77 _gmm_kernel (one expert: the native linears)", err, rel, ms,
+                 plain_ms, bound_ms(nbytes, 2.0 * M * K * N), lib_ms,
+                 f"{what} M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+
+
+def check_moe_invariance(pkg, g, name, X, k, K, N, w) -> None:
+    """A routed row's bits: the same at T = 1, 8, 17, 136 as among 4096
+    tokens, and equal to the dense kernel of that format on the expert's
+    weights. Fails the run otherwise."""
+    import torch
+
+    mm = pkg["moe_matmul"]
+    T = 4096
+    topi, topv = seeded_routing(g, T, k, X, 0.2)
+    x = torch.randn(T, K, generator=g, device="cuda").to(torch.bfloat16)
+    zero = torch.zeros(1, K, dtype=x.dtype, device="cuda")
+
+    def run(m):
+        dest_tok, _, be, nu, tok_rows = mm._align(topi[:m], topv[:m], X, m)
+        xg = torch.cat([x[:m], zero])[dest_tok.long()]
+        out = grouped_call(pkg, name, xg, be, nu, w, mm._block_rows(dest_tok, m))
+        return out[tok_rows]  # [m, k, N]: each token's rows by ascending expert
+
+    full = run(T)
+    for m in (1, 8, 17, 136):
+        if not torch.equal(run(m), full[:m]):
+            fail(f"{name} K={K} N={N}: a routed row changes with the token count (T={m})")
+    m = 136
+    ex = torch.sort(topi[:m].long(), dim=1).values  # ascending, dropped (= X) last
+    for e in range(X):
+        dense = dense_expert(pkg, name, x[:m], w, e)  # [m, N]
+        t, j = (ex == e).nonzero(as_tuple=True)
+        if not torch.equal(full[t, j], dense[t]):
+            fail(f"{name} K={K} N={N}: routed rows differ from the dense kernel on "
+                 f"expert {e}'s weights")
+    if full[:m][ex == X].any():
+        fail(f"{name} K={K} N={N}: dropped pairs are not zero")
+
+
+def phase_moe_kernels(pkg, mcfg) -> list:
+    import torch
+
+    mm, lin = pkg["moe_matmul"], pkg["linear"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for family, X, k, shapes, tokens in MOE_FAMILIES:
+        for K, N in shapes:
+            for name in GROUPED:
+                w = expert_weights(g, name, X, K, N)
+                if name == "grouped_gemm":
+                    w_bf16 = w
+                else:
+                    w_bf16 = torch.stack([lin.dequantize(
+                        {"q": w["q"][e], "s": w["s"][e]}, None, torch.bfloat16)
+                        for e in range(X)])
+                for T in tokens:
+                    rows.append(grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16))
+                del w_bf16
+                check_moe_invariance(pkg, g, name, X, k, K, N, w)
+                del w
+                torch.cuda.empty_cache()
+    E, V = mcfg.hidden_size, mcfg.vocab_size
+    qkv = (mcfg.num_attention_heads + 2 * mcfg.num_key_value_heads) * mcfg.head_dim
+    for M in (1, 17, 512):
+        rows.append(dense_row(pkg, g, M, E, qkv, torch.bfloat16, "wqkv"))
+        rows.append(dense_row(pkg, g, M, E, E, torch.bfloat16, "wo"))
+        rows.append(dense_row(pkg, g, M, E, mcfg.num_experts, torch.float32, "router"))
+        rows.append(dense_row(pkg, g, M, E, V, torch.float32, "lm_head"))
+    # the router logits and a native linear: bit-identical at every width
+    x = torch.randn(4096, E, generator=g, device="cuda").to(torch.bfloat16)
+    for N, out in ((mcfg.num_experts, torch.float32), (qkv, torch.bfloat16)):
+        w = (torch.randn(E, N, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+        full = mm.dense_matmul(x, w, out)
+        for m in (1, 8, 17, 136):
+            if not torch.equal(mm.dense_matmul(x[:m], w, out), full[:m]):
+                fail(f"bf16_gemm N={N}: rows change with the batch width (M={m})")
+    torch.cuda.synchronize()
+    for r in rows:
+        print("phase moe kernel: " + json.dumps(r))
+    print("phase moe invariance: grouped_gemm, grouped_int4_gemm and grouped_int8_gemm "
+          "rows bit-identical at T = 1, 8, 17, 136 and 4096 and bit-equal to bf16_gemm / "
+          "int4_gemm / int8_gemm on the expert's weights; the router logits and a native "
+          "bf16 linear bit-identical at M = 1, 8, 17, 136 and 4096")
+    return rows
+
+
+class MoeInputCapture:
+    """Keeps the input of the first MoE layer's block on the widest call
+    (the prefill), for holding the grouped route against the scan route."""
+
+    def __init__(self, pkg):
+        self.base, self.h, self.lp = pkg["base"], None, None
+        self.orig = self.base.moe_block
+
+    def __enter__(self):
+        def hook(lp, cfg, spec, h):
+            if self.h is None or h.shape[1] > self.h.shape[1]:
+                self.h, self.lp = h.clone(), lp
+            return self.orig(lp, cfg, spec, h)
+        self.base.moe_block = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.base.moe_block = self.orig
+
+
+def moe_routes(pkg, cfg, lp, h) -> dict:
+    """One bf16 MoE layer on its captured prefill input: the grouped route
+    must equal the scan route bit for bit; then both routes' times at
+    T = 1, 17, 512, 4096 (rows of the captured input, tiled up to 4096)."""
+    import torch
+
+    moe = pkg["moe"]
+    rule = moe.use_grouped_moe
+
+    def run(x, grouped):
+        moe.use_grouped_moe = lambda *a: grouped
+        try:
+            return moe.moe_block(lp, cfg, None, x)
+        finally:
+            moe.use_grouped_moe = rule
+
+    got, ref = run(h, True), run(h, False)
+    if not torch.equal(got, ref):
+        d = (got.float() - ref.float()).abs().max().item()
+        fail(f"moe_block: the grouped route differs from the scan route (max {d})")
+    res = dict(grouped_equals_scan=True, tokens=h.shape[1], times_ms={})
+    for T in (1, 17, 512, 4096):
+        x = h.repeat(1, -(-T // h.shape[1]), 1)[:, :T].contiguous()
+        reps = 2 if T >= 512 else 10
+        res["times_ms"][f"T={T}"] = dict(
+            grouped=time_ms(lambda: run(x, True), reps=reps, warmup=1),
+            scan=time_ms(lambda: run(x, False), reps=reps, warmup=1))
+    return res
+
+
+def phase_moe(pkg) -> dict:
+    """Mixtral-8x7B at full width by the three routes, each strictly
+    lossless at B = 1 with its kernels' launches counted from 0, and the
+    bf16 model through the serving engine. One model is freed before the
+    next is drawn."""
+    import dataclasses
+
+    import torch
+
+    base, lin, moe = pkg["base"], pkg["linear"], pkg["moe"]
+    full = pkg["config"].ModelConfig.mixtral_8x7b()
+    runs, totals = [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def main_path(cfg, spec, params, label, need, forbid=()):
+        res = phase_main_path(pkg, cfg, spec, params, MOE_AR_TOKENS, MOE_SPEC_TOKENS,
+                              label, extras=False, prompt_len=MOE_PROMPT_LEN)
+        res.update(layers=cfg.num_hidden_layers, prompt_len=MOE_PROMPT_LEN)
+        add(res["launches"])
+        if any(res["launches"][k] <= 0 for k in need) or any(
+                res["launches"][k] for k in forbid):
+            fail(f"{label}: launches {res['launches']} (needed {need}, none of {forbid})")
+        runs.append(res)
+        return res
+
+    # bf16 experts: grouped route at prefill, scan route at decode and verify
+    cfg = dataclasses.replace(full, num_hidden_layers=MOE_BF16_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = base.init_params(cfg, gen, dtype=torch.bfloat16)
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    label = f"phase moe bf16 ({cfg.num_hidden_layers} of 32 layers, {weights_gb:.1f} GB of weights)"
+    with MoeInputCapture(pkg) as cap:
+        main_path(cfg, None, params, label, ("grouped_gemm", "dense_bf16_gemm"),
+                  ("grouped_int4_gemm", "grouped_int8_gemm", "int4_gemm"))
+    routes = moe_routes(pkg, cfg, cap.lp, cap.h)
+    print("phase moe routes: " + json.dumps(routes))
+    del params, cap
+    torch.cuda.empty_cache()
+
+    # the bf16 model through the serving engine
+    scfg = dataclasses.replace(full, num_hidden_layers=MOE_SERVE_LAYERS)
+    params = base.init_params(scfg, torch.Generator(device="cuda").manual_seed(SEED),
+                              dtype=torch.bfloat16)
+    prompts = serving_prompts(scfg.vocab_size)
+    launches = Launches(pkg)
+    launches.reset()
+    res_ar, ar_out, _ = serve_once(pkg, scfg, params, prompts, "none", False, "none")
+    res_la, la_out, _ = serve_once(pkg, scfg, params, prompts, "none", True, "none")
+    serve_counts = launches.read()
+    add(serve_counts)
+    diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
+    res_la["identical_to_ar"] = not diff
+    for r in (res_ar, res_la):
+        r["layers"] = MOE_SERVE_LAYERS
+        print("phase moe serving run: " + json.dumps(r))
+    print("phase moe serving launches: " + json.dumps(serve_counts))
+    if diff:
+        fail(f"moe serving: lookahead differs from AR on requests {diff}")
+    if res_la["spec_steps"] <= 0 or res_ar["prefix_hit_tokens"] <= 0:
+        fail("moe serving: no spec step or no prefix-cache hit")
+    if serve_counts["grouped_gemm"] <= 0 or serve_counts["dense_bf16_gemm"] <= 0:
+        fail(f"moe serving: the grouped and the scan route did not both run: {serve_counts}")
+    del params
+    torch.cuda.empty_cache()
+
+    # weight-only experts in expert shards: int4 at full depth, int8 at a cut depth
+    for bits, layers, kernel in ((4, full.num_hidden_layers, "grouped_int4_gemm"),
+                                 (8, MOE_INT8_LAYERS, "grouped_int8_gemm")):
+        cfg = dataclasses.replace(full, num_hidden_layers=layers, expert_parallel=True)
+        spec = lin.QuantSpec(bits=bits, group=128)
+        params = base.init_params_quantized(
+            cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
+        label = f"phase moe int{bits} experts, {MOE_SHARDS} expert shards ({layers} layers)"
+        other = "grouped_int8_gemm" if bits == 4 else "grouped_int4_gemm"
+        with moe.expert_shards(MOE_SHARDS):
+            res = main_path(cfg, spec, params, label, (kernel,), (other, "grouped_gemm"))
+        res.update(expert_shards=MOE_SHARDS, expert_bits=bits)
+        del params
+        torch.cuda.empty_cache()
+    return dict(runs=runs, routes=routes, serving=[res_ar, res_la], launches=totals)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def load_port():
     if not (HERE / "painlessinferenceacceleration_tpu_torch" / "__init__.py").exists():
         fail("the port package is not beside chip_smoke.py")
@@ -1309,7 +1691,8 @@ def load_port():
     base = "painlessinferenceacceleration_tpu_torch."
     names = dict(_build="_build", config="config", linear="layers.linear",
                  embedding="layers.embedding", w8a8="ops.w8a8",
-                 quant_matmul="ops.quant_matmul", paged_attention="ops.paged_attention",
+                 quant_matmul="ops.quant_matmul", moe_matmul="ops.moe_matmul",
+                 moe="models.moe", paged_attention="ops.paged_attention",
                  attention="ops.attention", kv_update="ops.kv_update",
                  rmsnorm="ops.rmsnorm", cache="engine.cache", step="engine.step",
                  multistep="engine.multistep", llm="engine.llm",
@@ -1321,6 +1704,9 @@ def load_port():
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None, help="also write all numbers here")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="run only the Mixture-of-Experts phases (a partial run: "
+                         "prints no kernels line and no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1328,6 +1714,16 @@ def main() -> None:
         fail("torch.cuda is not available")
     pkg = load_port()
     env = phase_environment(pkg)
+    if args.moe_only:
+        rows = phase_moe_kernels(pkg, pkg["config"].ModelConfig.mixtral_8x7b())
+        moe_res = phase_moe(pkg)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (MoE phases only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows, moe=moe_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
     rows = phase_kernels(pkg, cfg)
@@ -1340,15 +1736,17 @@ def main() -> None:
     quant_res = phase_quant_modes(pkg, cfg)
     rows += quant_res["kernels"]
     print("phase quant act: " + json.dumps(quant_res["quant_act"]))
+    rows += phase_moe_kernels(pkg, pkg["config"].ModelConfig.mixtral_8x7b())
+    moe_res = phase_moe(pkg)
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
-                    quant_modes=quant_res["launches"])
+                    quant_modes=quant_res["launches"], moe=moe_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]
         if r["launches"] <= 0:
-            fail(f"{r['name']} was not launched on the main path, in serving or in "
-                 "the quant modes")
+            fail(f"{r['name']} was not launched on the main path, in serving, in "
+                 "the quant modes or in the MoE phases")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
     print("phase 4 launches (sum): " + json.dumps(launches))
     wall_s = time.perf_counter() - T_START
@@ -1357,7 +1755,8 @@ def main() -> None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
-                                             quant_modes=quant_res, launches=by_phase,
+                                             quant_modes=quant_res, moe=moe_res,
+                                             launches=by_phase,
                                              wall_s=wall_s), indent=1))
     print(json.dumps({"kernels": rows}))
     print(env["card"])

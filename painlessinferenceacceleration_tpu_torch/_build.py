@@ -4,7 +4,8 @@ The kernels live in ``csrc/*.cu`` with a plain C interface. On first use each
 source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/torch_kernels/`` beside the package, all sources in parallel,
 and loaded with ``ctypes``. A library's file name carries a hash of its
-source and flags, so an edited source is never served by a stale build.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is never served by a stale build.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` turns a non-zero code into an exception.
@@ -26,6 +27,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("int4_gemm", "int8_gemm", "w8a8_gemm", "block_fp8_gemm",
+           "grouped_gemm", "grouped_int4_gemm", "grouped_int8_gemm",
            "paged_attention", "kv_permute", "kv_page_write")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +60,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared device code
+        src += header.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

@@ -1,9 +1,11 @@
 """Model / engine configuration for the PyTorch port.
 
-A copy of the llama-family part of ``painlessinferenceacceleration_tpu.config``
-(the port imports nothing from the JAX package). Field names follow HF
-``config.json`` keys, as in the JAX package, so one set of keyword arguments
-builds the same model in both packages.
+A copy of the ported part of ``painlessinferenceacceleration_tpu.config``: the
+llama family (with qwen3's per-head QK norm) and the Mixture-of-Experts
+fields of the mixtral / qwen3_moe class (the port imports nothing from the
+JAX package). Field names follow HF ``config.json`` keys, as in the JAX
+package, with the same defaults, so one set of keyword arguments builds the
+same model in both packages.
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture of a llama-family decoder-only transformer."""
+    """Architecture of a decoder-only transformer: the dense llama family
+    (llama, qwen3) or its Mixture-of-Experts form (mixtral, qwen3_moe), where
+    the layers from ``moe_layer_start`` on replace the MLP by routed experts
+    (and optional always-on shared experts)."""
 
     model_type: str = "llama"
     vocab_size: int = 32000
@@ -28,8 +33,24 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     hidden_act: str = "silu"
+    qk_norm: bool = False  # qwen3: per-head RMSNorm on q and k before rope
     # HF rope_scaling dict; only the default rope type is ported so far
     rope_scaling: Optional[tuple] = None
+    # MoE (mixtral / qwen3_moe / deepseek class)
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0  # 0 -> intermediate_size
+    num_shared_experts: int = 0
+    moe_layer_start: int = 0  # dense layers before the MoE layers
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # deepseek-v3 routing: sigmoid scoring + group-limited top-k
+    scoring_func: str = "softmax"  # softmax | sigmoid
+    n_group: int = 0
+    topk_group: int = 0
+    # expert parallelism: the expert axis of the stacked expert weights is
+    # split into shards (models/moe.py expert_shards)
+    expert_parallel: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -43,6 +64,10 @@ class ModelConfig:
 
     def rope_scaling_dict(self) -> Optional[dict]:
         return dict(self.rope_scaling) if self.rope_scaling else None
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @classmethod
     def tiny(cls, **over) -> "ModelConfig":
@@ -61,6 +86,15 @@ class ModelConfig:
     @classmethod
     def llama2_7b(cls) -> "ModelConfig":
         return cls()
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "ModelConfig":
+        """The widths of mistralai/Mixtral-8x7B-v0.1's ``config.json``."""
+        return cls(model_type="mixtral", vocab_size=32000, hidden_size=4096,
+                   intermediate_size=14336, num_hidden_layers=32,
+                   num_attention_heads=32, num_key_value_heads=8,
+                   rms_norm_eps=1e-5, rope_theta=1e6, num_experts=8,
+                   num_experts_per_tok=2)
 
 
 # Decode-batch buckets: batch widths snap to this ladder (as in the JAX

@@ -21,18 +21,14 @@
 // (x for M = 17, K = 11008 does not fit whole); a fixed-order reduction over
 // warps, then over K splits (a second kernel), keeps every row's sum
 // independent of M and of the other rows, so results are deterministic and
-// the same at every batch width.
+// the same at every batch width. The body is int4_tile in gemm_tiles.cuh,
+// which the grouped (per-expert) kernel shares.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockN = 32 * 4;  // 4 columns per thread
-constexpr int kMaxGroup = 128;
+using namespace pia;
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads) int4_gemm_kernel(
@@ -40,108 +36,9 @@ __global__ void __launch_bounds__(kThreads) int4_gemm_kernel(
     const __nv_bfloat16* __restrict__ s, float* __restrict__ part,
     void* __restrict__ out, int out_f32, int M, int K, int N, int group,
     int groups_per_split) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kBlockN + lane * 4;
-  const int m0 = blockIdx.y * MT;
-  const int ks = blockIdx.z;
-  const int n_groups = K / group;
-  const int g_begin = ks * groups_per_split;
-  const int g_end = min(n_groups, g_begin + groups_per_split);
-  const int half = group / 2;
-  const int quarter = group / 4;
-  const bool col_ok = n0 < N;  // N % 4 == 0: a thread's 4 columns agree
-
-  float acc[MT][4];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  float* xs = smem + warp * MT * kMaxGroup;  // this warp's x slice [MT][g]
-  for (int g = g_begin + warp; g < g_end; g += kWarps) {
-    for (int r = 0; r < MT; ++r) {
-      const int m = m0 + r;
-      for (int c = lane; c < group; c += 32)
-        xs[r * kMaxGroup + c] =
-            m < M ? __bfloat162float(x[(size_t)m * K + (size_t)g * group + c])
-                  : 0.f;
-    }
-    __syncwarp();
-    if (col_ok) {
-      float p[MT][4];
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) p[r][c] = 0.f;
-      const uint8_t* qg = q + (size_t)g * half * N + n0;
-      for (int j = 0; j < half; ++j) {
-        const uint32_t word =
-            *reinterpret_cast<const uint32_t*>(qg + (size_t)j * N);
-        const int lo_row = (j >> 1) + (j & 1) * quarter;
-        const int hi_row = lo_row + half;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t byte = (word >> (8 * c)) & 0xFFu;
-          const float wl = (float)((int)(byte & 0xFu) - 8);
-          const float wh = (float)((int)(byte >> 4) - 8);
-#pragma unroll
-          for (int r = 0; r < MT; ++r) {
-            p[r][c] = fmaf(xs[r * kMaxGroup + lo_row], wl, p[r][c]);
-            p[r][c] = fmaf(xs[r * kMaxGroup + hi_row], wh, p[r][c]);
-          }
-        }
-      }
-      const __nv_bfloat16* sg = s + (size_t)g * N + n0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float sc = __bfloat162float(sg[c]);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) acc[r][c] = fmaf(p[r][c], sc, acc[r][c]);
-      }
-    }
-    __syncwarp();
-  }
-
-  // fixed-order reduction over the warps of the block
-  __syncthreads();
-  float* red = smem;  // [kWarps][MT][kBlockN]
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      red[(warp * MT + r) * kBlockN + lane * 4 + c] = acc[r][c];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MT * kBlockN; e += kThreads) {
-    const int r = e / kBlockN;
-    const int col = e % kBlockN;
-    const int m = m0 + r;
-    const int n = blockIdx.x * kBlockN + col;
-    if (m >= M || n >= N) continue;
-    float v = 0.f;
-    for (int w = 0; w < kWarps; ++w) v += red[(w * MT + r) * kBlockN + col];
-    if (part != nullptr)
-      part[((size_t)ks * M + m) * N + n] = v;
-    else if (out_f32)
-      static_cast<float*>(out)[(size_t)m * N + n] = v;
-    else
-      static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16(v);
-  }
-}
-
-__global__ void splitk_reduce_kernel(const float* __restrict__ part,
-                                     void* __restrict__ out, int out_f32,
-                                     size_t mn, int ksplit) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int k = 0; k < ksplit; ++k) v += part[(size_t)k * mn + i];
-    if (out_f32)
-      static_cast<float*>(out)[i] = v;
-    else
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-  }
+  extern __shared__ __align__(16) float smem[];
+  int4_tile<MT>(x, q, s, part, out, out_f32, M, K, N, group, groups_per_split,
+                blockIdx.y * MT, blockIdx.z, smem);
 }
 
 }  // namespace
@@ -165,18 +62,14 @@ extern "C" int int4_gemm(const void* x, const void* q, const void* s,
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   if (M == 1) {
     dim3 grid((N + kBlockN - 1) / kBlockN, 1, ksplit);
-    int4_gemm_kernel<1><<<grid, kThreads, kWarps * 1 * kMaxGroup * 4, st>>>(
+    int4_gemm_kernel<1><<<grid, kThreads, tile_smem_bytes(1), st>>>(
         xb, qb, sb, part, out, out_f32, M, K, N, group, gps);
   } else {
     dim3 grid((N + kBlockN - 1) / kBlockN, (M + 7) / 8, ksplit);
-    int4_gemm_kernel<8><<<grid, kThreads, kWarps * 8 * kMaxGroup * 4, st>>>(
+    int4_gemm_kernel<8><<<grid, kThreads, tile_smem_bytes(8), st>>>(
         xb, qb, sb, part, out, out_f32, M, K, N, group, gps);
   }
-  if (ksplit > 1) {
-    const size_t mn = (size_t)M * N;
-    const int blocks = (int)((mn + 255) / 256 < 8192 ? (mn + 255) / 256 : 8192);
-    splitk_reduce_kernel<<<blocks, 256, 0, st>>>(part, out, out_f32, mn,
-                                                ksplit);
-  }
+  if (ksplit > 1)
+    launch_splitk_reduce(part, out, out_f32, (size_t)M * N, ksplit, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,24 +22,14 @@
 // memory as fp32 and reading it back four k at a time; a fixed-order
 // reduction over warps, then over K splits (a second kernel), keeps every
 // row's sum independent of M and of the other rows, so results are
-// deterministic and the same at every batch width.
+// deterministic and the same at every batch width. The body is int8_tile in
+// gemm_tiles.cuh, which the grouped (per-expert) kernel shares.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockN = 32 * 4;  // 4 columns per thread
-constexpr int kChunk = 128;      // K rows a warp takes at a time
-
-__device__ __forceinline__ void unpack4(uint32_t word, float* w) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    w[c] = (float)(int)(int8_t)((word >> (8 * c)) & 0xFFu);
-}
+using namespace pia;
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(
@@ -48,121 +38,8 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(
     void* __restrict__ out, int out_f32, int M, int K, int N, int group,
     int chunks_per_group, int n_chunks, int chunks_per_split) {
   extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kBlockN + lane * 4;
-  const int m0 = blockIdx.y * MT;
-  const int ks = blockIdx.z;
-  const int c_begin = ks * chunks_per_split;
-  const int c_end = min(n_chunks, c_begin + chunks_per_split);
-  const bool col_ok = n0 < N;  // N % 4 == 0: a thread's 4 columns agree
-
-  float acc[MT][4];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  float* xs = smem + warp * MT * kChunk;  // this warp's x slice [MT][kChunk]
-  for (int ch = c_begin + warp; ch < c_end; ch += kWarps) {
-    const int g = ch / chunks_per_group;
-    const int k0 = g * group + (ch - g * chunks_per_group) * kChunk;
-    const int len = min(kChunk, (g + 1) * group - k0);
-    for (int r = 0; r < MT; ++r) {
-      const int m = m0 + r;
-      for (int i = lane; i < kChunk; i += 32)
-        xs[r * kChunk + i] =
-            (m < M && i < len)
-                ? __bfloat162float(x[(size_t)m * K + (size_t)k0 + i])
-                : 0.f;
-    }
-    __syncwarp();
-    if (col_ok) {
-      float p[MT][4];
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) p[r][c] = 0.f;
-      const int8_t* qg = q + (size_t)k0 * N + n0;
-      int j = 0;
-      for (; j + 4 <= len; j += 4) {
-        float w[4][4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          unpack4(*reinterpret_cast<const uint32_t*>(qg + (size_t)(j + jj) * N),
-                  w[jj]);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(xs + r * kChunk + j);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            p[r][c] = fmaf(xv.x, w[0][c], p[r][c]);
-            p[r][c] = fmaf(xv.y, w[1][c], p[r][c]);
-            p[r][c] = fmaf(xv.z, w[2][c], p[r][c]);
-            p[r][c] = fmaf(xv.w, w[3][c], p[r][c]);
-          }
-        }
-      }
-      for (; j < len; ++j) {
-        float w[4];
-        unpack4(*reinterpret_cast<const uint32_t*>(qg + (size_t)j * N), w);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float xv = xs[r * kChunk + j];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) p[r][c] = fmaf(xv, w[c], p[r][c]);
-        }
-      }
-      const __nv_bfloat16* sg = s + (size_t)g * N + n0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float sc = __bfloat162float(sg[c]);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) acc[r][c] = fmaf(p[r][c], sc, acc[r][c]);
-      }
-    }
-    __syncwarp();
-  }
-
-  // fixed-order reduction over the warps of the block
-  __syncthreads();
-  float* red = smem;  // [kWarps][MT][kBlockN]
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      red[(warp * MT + r) * kBlockN + lane * 4 + c] = acc[r][c];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MT * kBlockN; e += kThreads) {
-    const int r = e / kBlockN;
-    const int col = e % kBlockN;
-    const int m = m0 + r;
-    const int n = blockIdx.x * kBlockN + col;
-    if (m >= M || n >= N) continue;
-    float v = 0.f;
-    for (int w = 0; w < kWarps; ++w) v += red[(w * MT + r) * kBlockN + col];
-    if (part != nullptr)
-      part[((size_t)ks * M + m) * N + n] = v;
-    else if (out_f32)
-      static_cast<float*>(out)[(size_t)m * N + n] = v;
-    else
-      static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16(v);
-  }
-}
-
-__global__ void splitk_reduce_kernel(const float* __restrict__ part,
-                                     void* __restrict__ out, int out_f32,
-                                     size_t mn, int ksplit) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int k = 0; k < ksplit; ++k) v += part[(size_t)k * mn + i];
-    if (out_f32)
-      static_cast<float*>(out)[i] = v;
-    else
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-  }
+  int8_tile<MT>(x, q, s, part, out, out_f32, M, K, N, group, chunks_per_group,
+                n_chunks, chunks_per_split, blockIdx.y * MT, blockIdx.z, smem);
 }
 
 }  // namespace
@@ -187,18 +64,14 @@ extern "C" int int8_gemm(const void* x, const void* q, const void* s,
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   if (M == 1) {
     dim3 grid((N + kBlockN - 1) / kBlockN, 1, ksplit);
-    int8_gemm_kernel<1><<<grid, kThreads, kWarps * 1 * kBlockN * 4, st>>>(
+    int8_gemm_kernel<1><<<grid, kThreads, tile_smem_bytes(1), st>>>(
         xb, qb, sb, part, out, out_f32, M, K, N, group, cpg, n_chunks, cps);
   } else {
     dim3 grid((N + kBlockN - 1) / kBlockN, (M + 7) / 8, ksplit);
-    int8_gemm_kernel<8><<<grid, kThreads, kWarps * 8 * kBlockN * 4, st>>>(
+    int8_gemm_kernel<8><<<grid, kThreads, tile_smem_bytes(8), st>>>(
         xb, qb, sb, part, out, out_f32, M, K, N, group, cpg, n_chunks, cps);
   }
-  if (ksplit > 1) {
-    const size_t mn = (size_t)M * N;
-    const int blocks = (int)((mn + 255) / 256 < 8192 ? (mn + 255) / 256 : 8192);
-    splitk_reduce_kernel<<<blocks, 256, 0, st>>>(part, out, out_f32, mn,
-                                                ksplit);
-  }
+  if (ksplit > 1)
+    launch_splitk_reduce(part, out, out_f32, (size_t)M * N, ksplit, st);
   return static_cast<int>(cudaGetLastError());
 }

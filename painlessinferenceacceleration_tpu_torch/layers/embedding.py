@@ -6,8 +6,9 @@ table ``{"q": e4m3 [V, E], "s": f32 [V]}`` is quantized per vocab row; a
 lookup reads one e4m3 row and one scale per token and dequantizes only the
 gathered rows (a gather and a multiply: plain torch here, as it is plain
 jnp there). In the tied LM head the row scales become per-vocab-column
-factors applied after the matmul. The tied head on CUDA is not ported yet
-(native GEMMs on the card, ROADMAP A.12); Llama-2-7B's head is untied.
+factors applied after the matmul. On the card the tied head of a bf16 table
+is the bf16 GEMM kernel over the transposed weight (``ops/moe_matmul.py``
+``dense_matmul``); an fp8 table's tied head has no kernel and raises there.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ def embed_lookup(emb: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def embed_logits(emb: Embedding, h: torch.Tensor) -> torch.Tensor:
     """Tied LM head: ``h @ table^T`` with fp32 logits."""
-    if h.is_cuda:
-        raise NotImplementedError(
-            "a tied LM head on CUDA is not ported yet (ROADMAP A.12)")
     if isinstance(emb, dict):
+        if h.is_cuda:
+            raise NotImplementedError("a tied LM head over an fp8 table has no kernel")
         out = torch.matmul(h.to(torch.float32), emb["q"].to(torch.float32).T)
         return out * emb["s"]
-    return torch.matmul(h.to(torch.float32), emb.to(torch.float32).T)
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul
+
+    return dense_matmul(h, emb.to(h.dtype) if h.is_cuda else emb, torch.float32,
+                        transposed=True)

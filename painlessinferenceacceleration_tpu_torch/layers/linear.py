@@ -1,4 +1,4 @@
-"""Quantized linear layers (and native bf16/fp32 ones, CPU only).
+"""Quantized linear layers, and native ones (bf16 on the card).
 
 Port of ``painlessinferenceacceleration_tpu/layers/linear.py``. Weights are
 stored pre-transposed as ``[in, out]``. A linear leaf is either a plain
@@ -23,7 +23,9 @@ that JAX-quantized weights load byte for byte:
 
 Stacked per-layer leaves ``[L, ...]`` are indexed per layer (a view, no
 copy) for every key of the leaf. The GEMMs live in ``ops/quant_matmul.py``
-and ``ops/w8a8.py``.
+and ``ops/w8a8.py``; a native weight on the card goes to the bf16 GEMM kernel
+in ``ops/moe_matmul.py`` (``dense_matmul``), whose sums do not depend on the
+row count.
 """
 
 from __future__ import annotations
@@ -204,12 +206,9 @@ def make_linear(w: torch.Tensor, spec: Optional[QuantSpec]) -> LinearParams:
 
 
 def _native(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
-    if x.is_cuda:
-        raise NotImplementedError(
-            "native linears on CUDA are not ported yet (ROADMAP A.12)"
-        )
-    out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-    return out.to(out_dtype or x.dtype)
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul
+
+    return dense_matmul(x, w.to(x.dtype) if x.is_cuda else w, out_dtype)
 
 
 def linear(

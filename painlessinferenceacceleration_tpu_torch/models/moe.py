@@ -1,0 +1,249 @@
+"""Mixture-of-Experts decoder layers (mixtral / qwen3-moe / deepseek-lite
+class): the router, and the expert MLP by three routes.
+
+Port of ``painlessinferenceacceleration_tpu/models/moe.py``. Experts are
+stacked tensors ``[n_exp, in, out]`` (or weight-only quantized dicts with
+that lead axis). The default route *scans over experts*: every expert's
+weights are read once and the router-weighted contribution of every token
+is accumulated,
+
+    out = sum_x route_w[:, x] * mlp_x(tokens)
+
+which suits decode, where a batch touches about every expert anyway.
+Prefill-size batches of native experts on the card take the grouped route
+(``ops/moe_matmul.py``): tokens sorted by expert, block-padded, two grouped
+GEMMs, exact (no capacity dropping), top_k / n_exp of the scan's
+multiply-adds. With ``cfg.expert_parallel`` and more than one expert shard
+(``expert_shards``) each shard runs the grouped route over its own experts
+and the shards' contributions are added.
+
+On the card a token's expert output has the same bits by every route and at
+every batch width (one GEMM arithmetic, a fixed order of the k terms), so
+lookahead decoding reproduces greedy decoding.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+from painlessinferenceacceleration_tpu_torch.layers.linear import (
+    QuantSpec,
+    linear,
+    make_linear,
+    quantize,
+)
+from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
+    moe_block_grouped,
+    routed_expert_mlp,
+    stable_topk,
+    use_grouped_moe,
+)
+
+_EXPERT_SHARDS = 1
+
+
+@contextlib.contextmanager
+def expert_shards(n: int):
+    """Ambient number of expert shards for ``cfg.expert_parallel`` models
+    (default 1): the port's counterpart of the JAX package's ambient mesh,
+    whose ``model`` axis shards the expert axis of the stacked weights."""
+    global _EXPERT_SHARDS
+    if n < 1:
+        raise ValueError(f"expert_shards({n})")
+    old, _EXPERT_SHARDS = _EXPERT_SHARDS, int(n)
+    try:
+        yield
+    finally:
+        _EXPERT_SHARDS = old
+
+
+def _make_expert(w3: torch.Tensor, spec: Optional[QuantSpec]):
+    """Quantize a stacked [X, in, out] expert tensor, expert by expert."""
+    if spec is None:
+        return w3
+    leaves = [quantize(w, spec) for w in w3]
+    return {k: torch.stack([p[k] for p in leaves]) for k in leaves[0]}
+
+
+def init_moe_layer(cfg: ModelConfig, generator: torch.Generator, dtype,
+                   spec: Optional[QuantSpec], device=None) -> dict:
+    """Extra params for one MoE layer (added to the attention params)."""
+    E = cfg.hidden_size
+    I = cfg.moe_intermediate_size or cfg.intermediate_size
+    X = cfg.num_experts
+    dev = generator.device if device is None else device
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=generator, device=generator.device)
+                * 0.02).to(device=dev, dtype=dtype)
+
+    p = {
+        "router": w(E, X),  # kept native: tiny, precision-critical
+        "moe_wgu": _make_expert(w(X, E, 2 * I), spec),
+        "moe_wdown": _make_expert(w(X, I, E), spec),
+    }
+    if cfg.scoring_func == "sigmoid":
+        p["router_bias"] = torch.zeros(X, dtype=torch.float32, device=dev)
+    if cfg.num_shared_experts:
+        Ish = I * cfg.num_shared_experts
+        p["shared_wgu"] = make_linear(w(E, 2 * Ish), spec)
+        p["shared_wdown"] = make_linear(w(Ish, E), spec)
+    return p
+
+
+def route_topk(cfg: ModelConfig, router_logits: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[T, X] logits -> [T, X] fp32 routing weights (zeros off the top-k).
+
+    Softmax-then-top-k with renormalization (mixtral, qwen3-moe), and the
+    deepseek-v3 routing: sigmoid scores, a correction bias for the selection
+    only, group-limited top-k. Every top-k breaks ties towards the lowest
+    index, so a token picks the same experts at every batch width."""
+    k = cfg.num_experts_per_tok
+    T, X = router_logits.shape
+    lf = router_logits.to(torch.float32)
+    if cfg.scoring_func == "sigmoid":
+        scores = torch.sigmoid(lf)
+        choice = scores + bias if bias is not None else scores
+    else:
+        scores = torch.softmax(lf, dim=-1)
+        choice = scores
+    if cfg.n_group > 1 and cfg.topk_group > 0:
+        G = cfg.n_group
+        cg = choice.reshape(T, G, X // G)
+        if cfg.scoring_func == "sigmoid":
+            # v3 rule: a group's score is the sum of its top-2 expert scores
+            gscore = stable_topk(cg, min(2, X // G))[0].sum(dim=-1)  # [T, G]
+        else:
+            # v2 grouped top-k scores a group by its best expert
+            gscore = cg.amax(dim=-1)
+        _, gi = stable_topk(gscore, cfg.topk_group)
+        gmask = torch.zeros((T, G), dtype=torch.bool, device=lf.device)
+        gmask.scatter_(1, gi, True)
+        choice = torch.where(gmask.repeat_interleave(X // G, dim=1), choice,
+                             torch.full_like(choice, float("-inf")))
+    _, topi = stable_topk(choice, k)
+    topv = torch.gather(scores, 1, topi)  # the weights carry no bias
+    if cfg.norm_topk_prob:
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
+    topv = topv * cfg.routed_scaling_factor
+    w = torch.zeros((T, X), dtype=torch.float32, device=lf.device)
+    return w.scatter_(1, topi, topv)
+
+
+def _expert_mlp(wgu, wdown, x: torch.Tensor, spec) -> torch.Tensor:
+    """One gated MLP over every row of x: gate and up halves of one GEMM."""
+    gu = linear(wgu, x, spec)
+    I = gu.shape[-1] // 2
+    act = F.silu(gu[..., :I].to(torch.float32)).to(x.dtype) * gu[..., I:]
+    return linear(wdown, act, spec)
+
+
+def _experts(w, idx):
+    """Expert ``idx`` (an int or a slice) of a stacked leaf: views, no copy."""
+    if isinstance(w, dict):
+        return {k: v[idx] for k, v in w.items()}
+    return w[idx]
+
+
+def expert_shard_mlp(x: torch.Tensor, route_w: torch.Tensor, wgu_l, wdown_l,
+                     base: int, n_local: int, k: int, inter_size: int,
+                     spec: Optional[QuantSpec]) -> torch.Tensor:
+    """One shard's routed contribution [T, E] in fp32: the top-k of the
+    (replicated) routing weights, the pairs owned by other shards marked with
+    the dropped-expert sentinel ``n_local``, and the grouped two-GEMM expert
+    MLP over the local experts ``[base, base + n_local)`` only."""
+    topv, topi = stable_topk(route_w, k)
+    valid = (topi >= base) & (topi < base + n_local) & (topv > 0.0)
+    ex = torch.where(valid, topi - base, torch.full_like(topi, n_local))
+    tw = torch.where(valid, topv, torch.zeros_like(topv))
+    return routed_expert_mlp(x, ex, tw, wgu_l, wdown_l, n_local, inter_size, spec)
+
+
+def _moe_expert_parallel(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
+                         x: torch.Tensor, route_w: torch.Tensor):
+    """Expert parallelism: the expert axis of the stacked weights is split
+    into ``expert_shards`` shards.
+
+    Routed path: each shard computes only the (token, choice) pairs its own
+    experts own (``expert_shard_mlp``) and the shards' fp32 contributions are
+    added; every pair is computed by exactly one shard, so the sum is exact.
+    Native and weight-only int8 / int4 experts take it. This is the JAX
+    package's arithmetic under a mesh whose ``model`` axis has that many
+    devices, not a new feature: there each device holds one shard and a
+    ``psum`` adds them. Until the parallel slice (ROADMAP A.10) gives each
+    rank its shard and turns the sum into an ``all_reduce``, one process
+    that holds all experts runs the shards in rank order on its one device,
+    over views of the stacked weights, and adds their contributions in rank
+    order.
+
+    With one shard, a shard count that does not divide the experts, or
+    activation-quantized experts: native experts fall back to the dense
+    all-experts product and quantized experts return None (the caller's scan
+    path), as in the JAX package."""
+    X, k = cfg.num_experts, cfg.num_experts_per_tok
+    I = cfg.moe_intermediate_size or cfg.intermediate_size
+    quant = isinstance(lp["moe_wgu"], dict)
+    tp = _EXPERT_SHARDS
+    routed_ok = (
+        tp > 1
+        and X % tp == 0
+        and (not quant or (spec is not None and spec.act is None and not spec.block))
+    )
+    if routed_ok:
+        Xl = X // tp
+        out = None
+        for rank in range(tp):
+            local = slice(rank * Xl, (rank + 1) * Xl)
+            part = expert_shard_mlp(
+                x, route_w, _experts(lp["moe_wgu"], local),
+                _experts(lp["moe_wdown"], local), rank * Xl, Xl, k, I, spec)
+            out = part if out is None else out + part
+        return out
+    if quant:
+        return None
+    # dense all-experts fallback: exact, X / k times the routed multiply-adds;
+    # the gate stays in fp32 up to the activation, as in the JAX einsum
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(X):
+        gu = linear(lp["moe_wgu"][e].to(x.dtype), x, None, out_dtype=torch.float32)
+        act = (F.silu(gu[..., :I]) * gu[..., I:]).to(x.dtype)
+        out = linear(lp["moe_wdown"][e].to(x.dtype), act, None, out_dtype=torch.float32)
+        acc = acc + out * route_w[:, e].to(x.dtype).to(torch.float32)[:, None]
+    return acc
+
+
+def router_logits(lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits [T, X] from x [T, E] and the native router weight."""
+    return linear(lp["router"].to(x.dtype), x, None, out_dtype=torch.float32)
+
+
+def moe_block(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
+              h: torch.Tensor) -> torch.Tensor:
+    """MoE MLP over h [B, Q, E]."""
+    B, Q, E = h.shape
+    x = h.reshape(B * Q, E)
+    route_w = route_topk(cfg, router_logits(lp, x), lp.get("router_bias"))  # [T, X]
+
+    ep_out = (_moe_expert_parallel(lp, cfg, spec, x, route_w)
+              if cfg.expert_parallel else None)
+    if ep_out is not None:
+        out = ep_out.to(h.dtype)
+    elif use_grouped_moe(cfg, spec, lp, B * Q):
+        out = moe_block_grouped(lp, cfg, h, route_w).reshape(B * Q, E).to(h.dtype)
+    else:
+        acc = torch.zeros((B * Q, E), dtype=torch.float32, device=h.device)
+        for e in range(cfg.num_experts):
+            out = _expert_mlp(_experts(lp["moe_wgu"], e),
+                              _experts(lp["moe_wdown"], e), x, spec)
+            acc = acc + out.to(torch.float32) * route_w[:, e][:, None]
+        out = acc.to(h.dtype)
+
+    if "shared_wgu" in lp:  # deepseek / bailing shared experts (always on)
+        out = out + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x, spec)
+    return out.reshape(B, Q, E)

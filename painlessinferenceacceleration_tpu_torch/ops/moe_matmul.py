@@ -1,0 +1,410 @@
+"""Grouped (per-expert) GEMMs for routed Mixture-of-Experts rows, the dense
+bf16 GEMM, and the routed expert MLP built on them.
+
+Port of ``painlessinferenceacceleration_tpu/ops/moe_matmul.py``.
+``grouped_matmul`` replaces the Pallas ``_gmm_kernel``, and
+``grouped_quant_matmul`` ``_gqmm4_kernel`` (int4 experts) and
+``_gqmm8_kernel`` (int8 experts): (token, expert) pairs are sorted by expert,
+each expert's run padded to ``BLOCK_M`` rows (``moe_align``), and row block
+``b`` is multiplied by the weights of expert ``block_expert[b]``. The kernels
+(``csrc/grouped_gemm.cu``, ``csrc/grouped_int4_gemm.cu``,
+``csrc/grouped_int8_gemm.cu``) read the block tables from device memory, so
+no call waits for the routing; each source note says what bounds it.
+``dense_matmul`` is the bf16 kernel's body with one weight; the native bf16
+linears, the router product and the LM head use it, so every bf16 GEMM of a
+model sums in one order and a token's expert output has the same bits on the
+grouped path and on the scan path (``models/moe.py``).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Each wrapper's ``launches`` counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from painlessinferenceacceleration_tpu_torch import _build
+from painlessinferenceacceleration_tpu_torch.layers.linear import (
+    QuantSpec,
+    dequantize,
+)
+from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
+    CHUNK,
+    check_gemm_out,
+    chunk_ksplit,
+    ksplit_for,
+)
+
+BLOCK_M = 128
+
+
+def stable_topk(x: torch.Tensor, k: int):
+    """The k largest of the last axis, the lowest index first among equals
+    (``jax.lax.top_k``'s rule; ``torch.topk`` promises no order on a tie, and
+    the experts chosen must not change with the row count)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _align(topi: torch.Tensor, topv: torch.Tensor, n_experts: int, n_tokens: int):
+    """``moe_align`` and, with it, each token's k padded-row positions in
+    ascending expert order ([T, k] int64)."""
+    T, k = topi.shape
+    M = T * k
+    NB = -(-M // BLOCK_M) + n_experts + 1
+    R = NB * BLOCK_M
+    dev = topi.device
+
+    ex = topi.reshape(M).to(torch.int64)
+    wt = topv.reshape(M).to(torch.float32)
+    tok = torch.arange(T, dtype=torch.int32, device=dev).repeat_interleave(k)
+
+    ex_s, order = torch.sort(ex, stable=True)
+    tok_s, wt_s = tok[order], wt[order]
+    wt_s = torch.where(ex_s < n_experts, wt_s, torch.zeros_like(wt_s))
+
+    # pairs per expert, [X+1] incl. dropped, from the sorted ids (a bincount
+    # on the card would wait for the host)
+    edges = torch.searchsorted(ex_s, torch.arange(n_experts + 2, device=dev))
+    counts = edges[1:] - edges[:-1]
+    nb_x = -(-counts // BLOCK_M)  # blocks per expert (+ overflow bin)
+    boff = torch.cumsum(nb_x, 0) - nb_x  # exclusive block offsets
+    ccum = torch.cumsum(counts, 0) - counts  # exclusive pair offsets
+    pos = torch.arange(M, device=dev) - ccum[ex_s]
+    dest = boff[ex_s] * BLOCK_M + pos  # unique rows: the scatters are exact
+
+    dest_tok = torch.full((R,), n_tokens, dtype=torch.int32, device=dev)
+    dest_tok[dest] = tok_s
+    row_w = torch.zeros((R,), dtype=torch.float32, device=dev)
+    row_w[dest] = wt_s
+    real_cum = torch.cumsum(nb_x[:n_experts], 0)
+    block_expert = torch.searchsorted(
+        real_cum, torch.arange(NB, device=dev), right=True
+    ).clamp(0, n_experts - 1).to(torch.int32)
+    n_used = real_cum[-1].to(torch.int32).reshape(1)
+
+    pair_row = torch.empty(M, dtype=torch.int64, device=dev)
+    pair_row[order] = dest
+    # rows ascend with the expert id (dropped pairs last)
+    tok_rows = pair_row.reshape(T, k).sort(dim=1).values
+    return dest_tok, row_w, block_expert, n_used, tok_rows
+
+
+def moe_align(topi: torch.Tensor, topv: torch.Tensor, n_experts: int, n_tokens: int):
+    """Sort (token, expert) pairs by expert and pad each expert's run to
+    ``BLOCK_M`` rows.
+
+    topi / topv: [T, k] expert ids / routing weights. Pairs with expert id
+    == n_experts are DROPPED: they sort past every real expert into overflow
+    blocks at indices >= n_used, which the grouped kernels fill with zeros
+    (the expert-shard path marks the pairs of other shards so).
+
+    Returns (dest_tok [R] int32: source token of each padded row, pad rows =
+    T; row_w [R] f32; block_expert [NB] int32; n_used [1] int32) with
+    R = NB * BLOCK_M and NB = ceil(T*k / BLOCK_M) + n_experts + 1, the static
+    worst case including the overflow bin. Everything stays on ``topi``'s
+    device; nothing is read back."""
+    return _align(topi, topv, n_experts, n_tokens)[:4]
+
+
+def _block_rows(dest_tok: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """Routed rows at the head of each block ([NB] int32): an expert's run
+    fills its blocks from the front, the rest of a block is padding."""
+    return (dest_tok.reshape(-1, BLOCK_M) < n_tokens).sum(dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the dense bf16 GEMM
+# ---------------------------------------------------------------------------
+
+
+def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
+                       transposed: bool = False) -> torch.Tensor:
+    """x [M, K] @ w [K, N] (or w [N, K] transposed) in fp32, cast to
+    ``out_dtype``."""
+    wf = w.to(torch.float32)
+    out = torch.matmul(x.to(torch.float32), wf.T if transposed else wf)
+    return out.to(out_dtype or x.dtype)
+
+
+def _check_bf16(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"{what} takes bf16 activations and bf16 weights, "
+                        f"not {x.dtype} and {w.dtype}")
+    if w.data_ptr() % 8:
+        raise ValueError(f"{what} needs the weight on an 8-byte boundary")
+
+
+def _dense_matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype,
+                       transposed: bool) -> torch.Tensor:
+    M, K = x.shape
+    N = w.shape[0] if transposed else w.shape[1]
+    if w.dim() != 2 or (w.shape[1] if transposed else w.shape[0]) != K:
+        raise ValueError(f"weight {tuple(w.shape)} does not match K={K}")
+    if transposed and K % 4:
+        raise ValueError(f"bf16_gemm over a transposed weight needs K % 4 == 0 (K={K})")
+    x, w = x.contiguous(), w.contiguous()
+    _check_bf16("bf16_gemm", x, w)
+    check_gemm_out("bf16_gemm", x, N, out_dtype, w)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ks = chunk_ksplit(-(-K // CHUNK), N)
+    work = (torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
+            if ks > 1 else None)
+    lib = _build.library("grouped_gemm")
+    fn = lib.bf16_gemm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), _build.ptr(work), M, K, N,
+             int(transposed), int(out_dtype == torch.float32), ks,
+             _build.stream_of(x))
+    _build.check(lib, err, "bf16_gemm")
+    dense_matmul.launches += 1
+    return out
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
+                 transposed: bool = False) -> torch.Tensor:
+    """x [..., K] @ w [K, N] -> [..., N] in ``out_dtype`` (default x.dtype),
+    fp32 accumulation; ``transposed``: w is [N, K] (an embedding table as the
+    tied LM head). On CUDA bf16 operands only."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        out = _dense_matmul_cuda(x2, w, out_dtype, transposed)
+    elif x.device.type == "cpu":
+        out = dense_matmul_plain(x2, w, out_dtype, transposed)
+    else:
+        raise NotImplementedError(f"dense_matmul on {x.device}")
+    return out.reshape(*lead, out.shape[-1])
+
+
+dense_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the grouped GEMMs
+# ---------------------------------------------------------------------------
+
+
+def _grouped_plain(x: torch.Tensor, block_expert: torch.Tensor,
+                   n_used: torch.Tensor, w_of, N: int, out_dtype) -> torch.Tensor:
+    """Block b of x times ``w_of(e)`` (fp32 [K, N]) for e = block_expert[b],
+    fp32 sums; zeros in blocks b >= n_used."""
+    R, K = x.shape
+    xb = x.to(torch.float32).reshape(R // BLOCK_M, BLOCK_M, K)
+    out = torch.zeros((R // BLOCK_M, BLOCK_M, N), dtype=torch.float32, device=x.device)
+    be = block_expert.tolist()
+    weights = {}  # each expert's fp32 weight, made once
+    for b in range(min(int(n_used[0]), len(be))):
+        if be[b] not in weights:
+            weights[be[b]] = w_of(be[b])
+        out[b] = xb[b] @ weights[be[b]]
+    return out.reshape(R, N).to(out_dtype)
+
+
+def grouped_matmul_plain(x: torch.Tensor, block_expert: torch.Tensor,
+                         n_used: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[b] = x[b] @ w[block_expert[b]] per row block in fp32, cast to
+    x.dtype; zeros past n_used."""
+    return _grouped_plain(x, block_expert, n_used,
+                          lambda e: w[e].to(torch.float32), w.shape[2], x.dtype)
+
+
+def _grouped_call(name: str, x, weights, block_expert, n_used, block_rows,
+                  N: int, ks: int, ints):
+    """Launch one of the three grouped kernels: ``weights`` are its weight
+    operands, ``ints`` the integers between (R, K, N) and (out_f32, ksplit)."""
+    R, K = x.shape
+    if R % BLOCK_M or block_expert.numel() != R // BLOCK_M:
+        raise ValueError(f"{name}: {R} rows are not {block_expert.numel()} "
+                         f"blocks of {BLOCK_M}")
+    if block_rows is None:  # every row of a used block counts
+        block_rows = torch.full_like(block_expert, BLOCK_M)
+    tables = [t.contiguous() for t in (block_expert, n_used, block_rows)]
+    if any(t.dtype != torch.int32 for t in tables) or tables[2].numel() != R // BLOCK_M:
+        raise TypeError(f"{name}: the block tables must be int32 [NB], [1], [NB]")
+    check_gemm_out(name, x, N, x.dtype, *weights, *tables)
+    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    work = (torch.empty((ks, R, N), dtype=torch.float32, device=x.device)
+            if ks > 1 else None)
+    lib = _build.library(name)
+    fn = getattr(lib, name)
+    n_ptr = 1 + len(weights) + 3 + 2
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (3 + len(ints) + 2)
+                   + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), *(t.data_ptr() for t in weights),
+             *(t.data_ptr() for t in tables), out.data_ptr(), _build.ptr(work),
+             R, K, N, *ints, 0, ks, _build.stream_of(x))
+    _build.check(lib, err, name)
+    return out
+
+
+def _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows):
+    X, K, N = w.shape
+    if x.shape[1] != K:
+        raise ValueError(f"expert weights {tuple(w.shape)} do not match K={x.shape[1]}")
+    x, w = x.contiguous(), w.contiguous()
+    _check_bf16("grouped_gemm", x, w)
+    out = _grouped_call("grouped_gemm", x, (w,), block_expert, n_used, block_rows,
+                        N, chunk_ksplit(-(-K // CHUNK), N), ())
+    grouped_matmul.launches += 1
+    return out
+
+
+def grouped_matmul(x: torch.Tensor, block_expert: torch.Tensor,
+                   n_used: torch.Tensor, w: torch.Tensor,
+                   block_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-block expert GEMM: block b of x [R, K] (R = NB * BLOCK_M, rows
+    grouped by expert) times w[block_expert[b]] of w [X, K, N], in x's dtype
+    with fp32 sums; blocks b >= n_used give zeros.
+
+    ``block_rows`` [NB] int32 (optional) says how many rows at the head of
+    each block are routed rows; the kernel then writes zeros for the row
+    tiles past them instead of multiplying their zero inputs."""
+    if x.is_cuda:
+        return _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows)
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, block_expert, n_used, w)
+    raise NotImplementedError(f"grouped_matmul on {x.device}")
+
+
+grouped_matmul.launches = 0
+
+
+def grouped_quant_matmul_plain(x: torch.Tensor, block_expert: torch.Tensor,
+                               n_used: torch.Tensor, p: dict, bits: int) -> torch.Tensor:
+    """The grouped GEMM over dequantized weight-only experts, fp32 sums,
+    cast to x.dtype."""
+    spec = QuantSpec(bits=bits)
+    return _grouped_plain(
+        x, block_expert, n_used,
+        lambda e: dequantize({"q": p["q"][e], "s": p["s"][e]}, spec, torch.float32),
+        p["q"].shape[2], x.dtype)
+
+
+def _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows):
+    q, s = p["q"].contiguous(), p["s"].contiguous()
+    K, N = x.shape[1], q.shape[2]
+    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
+        raise TypeError("the grouped quantized GEMMs take bf16 activations and scales")
+    if s.shape[0] != q.shape[0] or s.shape[1] == 0 or K % s.shape[1] or s.shape[2] != N:
+        raise ValueError(f"scales {tuple(s.shape)} do not group K={K}, N={N}")
+    group = K // s.shape[1]
+    x = x.contiguous()
+    if bits == 4:
+        if q.dtype != torch.uint8 or q.shape[1] * 2 != K:
+            raise ValueError(f"packed experts {tuple(q.shape)} do not match K={K}")
+        if group % 8 or group > 128:
+            raise ValueError(f"grouped_int4_gemm needs group % 8 == 0, group <= 128 "
+                             f"(group={group})")
+        out = _grouped_call("grouped_int4_gemm", x, (q, s), block_expert, n_used,
+                            block_rows, N, ksplit_for(K, N, group), (group,))
+        grouped_quant_matmul.modes["int4"] += 1
+    elif bits == 8:
+        if q.dtype != torch.int8 or q.shape[1] != K:
+            raise ValueError(f"int8 experts {tuple(q.shape)} do not match K={K}")
+        ks = chunk_ksplit(s.shape[1] * -(-group // CHUNK), N)
+        out = _grouped_call("grouped_int8_gemm", x, (q, s), block_expert, n_used,
+                            block_rows, N, ks, (group,))
+        grouped_quant_matmul.modes["int8"] += 1
+    else:
+        raise ValueError(f"weight-only experts are int4 or int8, not {bits} bits")
+    grouped_quant_matmul.launches += 1
+    return out
+
+
+def grouped_quant_matmul(x: torch.Tensor, block_expert: torch.Tensor,
+                         n_used: torch.Tensor, p: dict, bits: int,
+                         block_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``grouped_matmul`` over weight-only int8 / int4 experts
+    ``{"q": [X, Kq, N], "s": [X, K/group, N]}``: the grouped twin of the
+    stacked-layer quantized GEMMs, the scale on each group's fp32 partial
+    sum, out in x's dtype."""
+    if x.is_cuda:
+        return _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows)
+    if x.device.type == "cpu":
+        return grouped_quant_matmul_plain(x, block_expert, n_used, p, bits)
+    raise NotImplementedError(f"grouped_quant_matmul on {x.device}")
+
+
+grouped_quant_matmul.launches = 0
+grouped_quant_matmul.modes = {"int4": 0, "int8": 0}  # launches by expert format
+
+
+# ---------------------------------------------------------------------------
+# the routed expert MLP
+# ---------------------------------------------------------------------------
+
+
+def routed_expert_mlp(
+    x: torch.Tensor,  # [T, E]
+    topi: torch.Tensor,  # [T, k] expert ids; id == n_experts -> dropped
+    topv: torch.Tensor,  # [T, k] routing weights
+    wgu,  # [X, E, 2I] or weight-only quant dict (X = local experts)
+    wdown,  # [X, I, E] likewise
+    n_experts: int,
+    inter_size: int,
+    spec: Optional[QuantSpec] = None,
+) -> torch.Tensor:
+    """Exact routed two-GEMM expert MLP (align -> gather -> gate -> combine),
+    the shared core of the grouped prefill path and of the expert-shard path.
+    Returns the routed contribution [T, E] in fp32.
+
+    The combine is a gather, not a scatter-add: each token's k rows are read
+    back and summed from an fp32 zero in ascending expert order. That is the
+    scan path's order (``acc + out * rw`` over the experts, zeros for those
+    not chosen), and it is the same on every run, where an atomic scatter-add
+    on the card is not."""
+    T, E = x.shape
+    I = inter_size
+    dest_tok, row_w, block_expert, n_used, tok_rows = _align(topi, topv, n_experts, T)
+    block_rows = _block_rows(dest_tok, T)
+    x_pad = torch.cat([x, torch.zeros((1, E), dtype=x.dtype, device=x.device)], dim=0)
+    xg = x_pad[dest_tok.long()]  # [R, E]; pad and dropped rows read the zero row
+
+    def gmm(inp, w):
+        if isinstance(w, dict):
+            return grouped_quant_matmul(inp, block_expert, n_used, w, spec.bits,
+                                        block_rows)
+        return grouped_matmul(inp, block_expert, n_used, w.to(inp.dtype), block_rows)
+
+    gu = gmm(xg, wgu)  # [R, 2I]
+    act = F.silu(gu[..., :I].to(torch.float32)).to(x.dtype) * gu[..., I:]
+    outr = gmm(act, wdown)  # [R, E]
+    out = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    for j in range(tok_rows.shape[1]):
+        rows = tok_rows[:, j]
+        out = out + outr[rows].to(torch.float32) * row_w[rows][:, None]
+    return out
+
+
+def moe_block_grouped(lp: dict, cfg, h: torch.Tensor,
+                      route_w: torch.Tensor) -> torch.Tensor:
+    """Routed-experts contribution [B, Q, E] (fp32) via the grouped GEMMs,
+    from the dense routing weights ``route_w`` [T, X] (zeros off the top-k).
+    Shared experts are the caller's (``models/moe.py`` ``moe_block``)."""
+    B, Q, E = h.shape
+    I = cfg.moe_intermediate_size or cfg.intermediate_size
+    topv, topi = stable_topk(route_w, cfg.num_experts_per_tok)  # the sparse routing
+    out = routed_expert_mlp(h.reshape(B * Q, E), topi, topv, lp["moe_wgu"],
+                            lp["moe_wdown"], cfg.num_experts, I)
+    return out.reshape(B, Q, E)
+
+
+def use_grouped_moe(cfg, spec, lp: dict, n_tokens: int) -> bool:
+    """The grouped path serves prefill-size batches of native (unquantized)
+    experts on the card; decode batches touch about every expert, so the
+    scan over experts already moves the fewest bytes. The threshold (the
+    average expert gets at least two row blocks) is the JAX package's,
+    measured there on a TPU; PERF.md holds both paths' times on the H100."""
+    wgu = lp["moe_wgu"]
+    return (
+        not isinstance(wgu, dict)
+        and wgu.is_cuda
+        and spec is None
+        and n_tokens * cfg.num_experts_per_tok >= 2 * BLOCK_M * cfg.num_experts
+    )

@@ -14,7 +14,10 @@ dequantized rows to bf16, the kernel does not); fp32 outputs within 1e-4
 (sums in another order); the int8 W8A8 GEMM (exact integer sums), the KV
 permute and the page write bit for bit. The batch-invariance tests
 ask for bit equality: a row's result must not depend on the batch width,
-or lookahead serving would not reproduce AR serving.
+or lookahead serving would not reproduce AR serving. The grouped
+(per-expert) GEMMs are held to the same tolerances, their rows past
+``n_used`` to exact zeros, and a routed row to the bits of the dense kernel
+on that expert's weights.
 """
 
 import pytest
@@ -37,6 +40,18 @@ from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
 )
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
+    BLOCK_M,
+    dense_matmul,
+    dense_matmul_plain,
+    grouped_matmul,
+    grouped_matmul_plain,
+    grouped_quant_matmul,
+    grouped_quant_matmul_plain,
+    moe_align,
+    routed_expert_mlp,
+    _block_rows,
+)
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     int4_matmul,
     int4_matmul_plain,
@@ -359,3 +374,172 @@ def test_quant_act_rows_do_not_depend_on_the_batch(cuda):
             xq_m, xs_m = quant_act(x[:m], spec)
             assert torch.equal(xq_m.view(torch.uint8), xq[:m].view(torch.uint8)), mode
             assert torch.equal(xs_m, xs[:m]), mode
+
+
+# ---------------------------------------------------------------------------
+# the grouped (per-expert) GEMMs and the dense bf16 GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (17, 4096, 8), (70, 333, 260),
+                                   (512, 1024, 128)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dense_bf16_gemm(cuda, M, K, N, out, transposed):
+    if transposed and K % 4:
+        K += 4 - K % 4
+    x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+    wk = w.t().contiguous() if transposed else w
+    before = dense_matmul.launches
+    got = dense_matmul(x, wk, out, transposed)
+    assert dense_matmul.launches == before + 1
+    tol = 2e-2 if out == torch.bfloat16 else 1e-4
+    assert _rel(got, dense_matmul_plain(x, wk, out, transposed)) < tol
+    # the transposed read sums in the same order
+    assert torch.equal(got, dense_matmul(x, w, out))
+
+
+def _routed(g, T, k, X, drop=0.0):
+    """A seeded random routing: k distinct experts per token, a share of
+    the pairs carrying the dropped-expert sentinel X."""
+    topi = torch.rand(T, X, generator=g, device="cuda").argsort(dim=1)[:, :k]
+    if drop:
+        topi = torch.where(torch.rand(T, k, generator=g, device="cuda") < drop,
+                           torch.full_like(topi, X), topi)
+    topv = torch.rand(T, k, generator=g, device="cuda")
+    return topi.to(torch.int32), topv
+
+
+def _grouped_x(g, T, k, X, K, drop):
+    topi, topv = _routed(g, T, k, X, drop)
+    dest_tok, row_w, be, nu = moe_align(topi, topv, X, T)
+    x = torch.randn(T, K, generator=g, device="cuda").to(torch.bfloat16)
+    xg = torch.cat([x, torch.zeros(1, K, dtype=x.dtype, device="cuda")])[dest_tok.long()]
+    return x, topi, xg, dest_tok, be, nu
+
+
+def _quant_experts(g, X, K, N, bits, group):
+    if bits == 4:
+        q = torch.randint(0, 256, (X, K // 2, N), generator=g, device="cuda", dtype=torch.uint8)
+        s = torch.rand(X, K // group, N, generator=g, device="cuda") * 0.004 + 0.001
+    else:
+        q = torch.randint(-127, 128, (X, K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = torch.rand(X, K // group, N, generator=g, device="cuda") * 2e-4 + 5e-5
+    return {"q": q, "s": s.to(torch.bfloat16)}
+
+
+GROUPED_SHAPES = [(1, 2, 8, 512, 1024), (17, 2, 8, 4096, 512), (300, 8, 128, 768, 256),
+                  (600, 2, 8, 333, 260)]  # (T, k, X, K, N); the last is ragged
+
+
+@pytest.mark.parametrize("T,k,X,K,N", GROUPED_SHAPES)
+@pytest.mark.parametrize("use_rows", [False, True])
+def test_grouped_gemm(cuda, T, k, X, K, N, use_rows):
+    x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, T, k, X, K, 0.25)
+    w = (torch.randn(X, K, N, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+    rows = _block_rows(dest_tok, T) if use_rows else None
+    before = grouped_matmul.launches
+    got = grouped_matmul(xg, be, nu, w, rows)
+    assert grouped_matmul.launches == before + 1
+    ref = grouped_matmul_plain(xg, be, nu, w)
+    assert _rel(got, ref) < 2e-2
+    assert not got[int(nu[0]) * BLOCK_M:].any()  # exact zeros past n_used
+    # every routed row equals the dense kernel on its expert's weights
+    full = torch.stack([dense_matmul(x, w[e]) for e in range(X)])  # [X, T, N]
+    real = (dest_tok < T) & (torch.arange(dest_tok.numel(), device="cuda")
+                             < nu[0] * BLOCK_M)
+    r = real.nonzero()[:, 0]
+    e = be[r // BLOCK_M].long()
+    assert torch.equal(got[r], full[e, dest_tok[r].long()])
+
+
+@pytest.mark.parametrize("T,k,X,K,N", [s for s in GROUPED_SHAPES if s[3] % 128 == 0])
+@pytest.mark.parametrize("bits,group", [(4, 128), (4, 64), (8, 128), (8, 64)])
+def test_grouped_quant_gemm(cuda, T, k, X, K, N, bits, group):
+    x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, T, k, X, K, 0.25)
+    p = _quant_experts(cuda, X, K, N, bits, group)
+    before = grouped_quant_matmul.modes[f"int{bits}"]
+    got = grouped_quant_matmul(xg, be, nu, p, bits, _block_rows(dest_tok, T))
+    assert grouped_quant_matmul.modes[f"int{bits}"] == before + 1
+    assert _rel(got, grouped_quant_matmul_plain(xg, be, nu, p, bits)) < 2e-2
+    assert not got[int(nu[0]) * BLOCK_M:].any()
+    assert torch.equal(got, grouped_quant_matmul(xg, be, nu, p, bits))  # without the row counts
+    dense = int4_matmul if bits == 4 else int8_matmul
+    full = torch.stack([dense(x, p["q"][e], p["s"][e]) for e in range(X)])
+    real = (dest_tok < T) & (torch.arange(dest_tok.numel(), device="cuda")
+                             < nu[0] * BLOCK_M)
+    r = real.nonzero()[:, 0]
+    e = be[r // BLOCK_M].long()
+    assert torch.equal(got[r], full[e, dest_tok[r].long()])
+
+
+@pytest.mark.parametrize("quant", [None, 4, 8])
+def test_routed_mlp_rows_do_not_depend_on_the_batch(cuda, quant):
+    """The routed expert MLP of one token, alone and among 599 others."""
+    T, k, X, E, I = 600, 2, 8, 512, 256
+    x = torch.randn(T, E, generator=cuda, device="cuda").to(torch.bfloat16)
+    topi, topv = _routed(cuda, T, k, X, 0.2)
+    if quant:
+        wgu = _quant_experts(cuda, X, E, 2 * I, quant, 128)
+        wdn = _quant_experts(cuda, X, I, E, quant, 128)
+    else:
+        wgu = (torch.randn(X, E, 2 * I, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+        wdn = (torch.randn(X, I, E, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+    spec = QuantSpec(bits=quant) if quant else None
+    full = routed_expert_mlp(x, topi, topv, wgu, wdn, X, I, spec)
+    for m in (1, 8, 17, 136):
+        part = routed_expert_mlp(x[:m], topi[:m], topv[:m], wgu, wdn, X, I, spec)
+        assert torch.equal(part, full[:m]), m
+    again = routed_expert_mlp(x, topi, topv, wgu, wdn, X, I, spec)
+    assert torch.equal(again, full)  # the combine has one order on every run
+
+
+def test_moe_block_routes_agree_bit_for_bit(cuda):
+    """Scan, grouped and expert-shard routes of one bf16 MoE layer."""
+    import dataclasses
+
+    from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+    from painlessinferenceacceleration_tpu_torch.models import moe
+
+    cfg = ModelConfig(model_type="mixtral", hidden_size=512, intermediate_size=256,
+                      num_attention_heads=4, num_key_value_heads=4, num_experts=8,
+                      num_experts_per_tok=2)
+    lp = moe.init_moe_layer(cfg, cuda, torch.bfloat16, None)
+    h = torch.randn(1, 1100, 512, generator=cuda, device="cuda").to(torch.bfloat16)
+    x = h.reshape(-1, 512)
+    rw = moe.route_topk(cfg, moe.router_logits(lp, x))
+    for m in (1, 17):  # the router's bits do not depend on the row count
+        assert torch.equal(moe.route_topk(cfg, moe.router_logits(lp, x[:m])), rw[:m])
+    scan = torch.zeros(x.shape, dtype=torch.float32, device="cuda")
+    for e in range(8):
+        out = moe._expert_mlp(lp["moe_wgu"][e], lp["moe_wdown"][e], x, None)
+        scan = scan + out.float() * rw[:, e][:, None]
+    before = grouped_matmul.launches
+    got = moe.moe_block(lp, cfg, None, h)  # 1100 * 2 >= 2 * 128 * 8: the grouped route
+    assert grouped_matmul.launches == before + 2
+    assert torch.equal(got[0], scan.to(torch.bfloat16))
+    assert torch.equal(moe.moe_block(lp, cfg, None, h[:, :17]), got[:, :17])  # the scan route
+    with moe.expert_shards(2):
+        ep = moe.moe_block(lp, dataclasses.replace(cfg, expert_parallel=True), None, h)
+    assert torch.equal(ep, got)
+
+
+def test_native_linears_and_the_tied_head_run_on_the_card(cuda):
+    from painlessinferenceacceleration_tpu_torch.layers.embedding import embed_logits
+    from painlessinferenceacceleration_tpu_torch.layers.linear import linear, linear_at
+
+    x = torch.randn(2, 17, 256, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(3, 256, 384, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+    emb = (torch.randn(1000, 256, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+    before = dense_matmul.launches
+    got = linear_at(w, 1, x)
+    assert got.shape == (2, 17, 384) and got.dtype == torch.bfloat16
+    assert _rel(got, dense_matmul_plain(x, w[1])) < 2e-2
+    assert torch.equal(linear(w[1], x[:, :1].contiguous()), got[:, :1])
+    logits = embed_logits(emb, x)
+    assert logits.dtype == torch.float32 and logits.shape == (2, 17, 1000)
+    assert _rel(logits, dense_matmul_plain(x, emb, torch.float32, True)) < 1e-4
+    assert dense_matmul.launches == before + 3
+    with pytest.raises(TypeError):
+        linear(w[1].float(), x.float())  # the card's native linears are bf16
