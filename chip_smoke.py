@@ -461,11 +461,19 @@ def kv_permute_row(pkg, pages, ids, src, case):
     work = pages.clone()
     ms = time_ms(lambda: ku.kv_permute_pages(work, ids, src))
     plain_ms = time_ms(lambda: ku.kv_permute_pages_plain(work, ids, src), reps=5)
-    moved = int((src != torch.arange(W, device="cuda")[None]).sum().item())
+    # yardstick: one index_copy_ of the moving rows, gathered beforehand
+    flat = work.view(L, -1, HD)
+    w = torch.arange(W, device="cuda")
+    row_of = ids.long()[:, w // ps] * ps + w % ps  # [B, W] arena row of each slot
+    mv = src != w[None]
+    dst = row_of[mv]
+    srcs = flat[:, row_of.gather(1, src.long())[mv]]
+    lib_ms = time_ms(lambda: flat.index_copy_(1, dst, srcs))
+    moved = int(mv.sum().item())
     # each moved row: its source read once, its destination written once
     nbytes = L * 2 * moved * HD * pages.element_size() + (ids.numel() + src.numel()) * 4
     row = _case("kv_permute_pages", "kv_permute.cu", f"{KVU}:144 _permute_kernel",
-                err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), None,
+                err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), lib_ms,
                 f"{case}L={L} B={B} TPP={TPP} ps={ps} HD={HD} moved_rows={moved}")
     row["device_ms"] = device_ms_per_call(lambda: ku.kv_permute_pages(work, ids, src),
                                           "kv_permute")
@@ -688,8 +696,10 @@ class Launches:
         self.attn = (pa.paged_attention, pa.paged_attention_prefill, pa.paged_attention_tok)
         self.w8a8 = pkg["w8a8"].w8a8_gemm
         self.gquant = pkg["moe_matmul"].grouped_quant_matmul
+        self.mla = pkg["mla_attention"].mla_paged_attention
         self.plain = {"grouped_gemm": pkg["moe_matmul"].grouped_matmul,
                       "dense_bf16_gemm": pkg["moe_matmul"].dense_matmul,
+                      "batched_bf16_gemm": pkg["moe_matmul"].dense_matmul_batched,
                       "int4_gemm": pkg["quant_matmul"].int4_matmul,
                       "int8_gemm": pkg["quant_matmul"].int8_matmul,
                       "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm,
@@ -697,9 +707,9 @@ class Launches:
                       "kv_write_pages": ku.kv_write_pages}
 
     def reset(self):
-        for f in (*self.attn, self.w8a8, self.gquant, *self.plain.values()):
+        for f in (*self.attn, self.w8a8, self.gquant, self.mla, *self.plain.values()):
             f.launches = 0
-        for f in (*self.attn, self.w8a8):
+        for f in (*self.attn, self.w8a8, self.mla):
             f.modes.clear()
         for fmt in self.gquant.modes:
             self.gquant.modes[fmt] = 0
@@ -719,12 +729,13 @@ class Launches:
         out["paged_attention_prefill[fp8]"] = pre.modes["prefill,fp8"]
         for kind in ("decode", "verify", "prefill"):
             out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
+            out[f"mla_attention[{kind}]"] = self.mla.modes[kind]
         return out
 
 
 def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
                     spec_tokens=SPEC_TOKENS, label="phase 3 main path",
-                    extras=True, prompt_len=PROMPT_LEN) -> dict:
+                    extras=True, prompt_len=PROMPT_LEN, max_seq_len=4096) -> dict:
     """Prefill, greedy AR decode and lookahead decode at B = 1 with the
     strict lossless check, the kernels' launches counted from 0. ``extras``
     adds the draft-table costs and the profiled steps."""
@@ -733,7 +744,8 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
 
     launches = Launches(pkg)
     step, ms_mod, dt = pkg["step"], pkg["multistep"], pkg["device_tables"]
-    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=4096, max_concurrency=1)
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=max_seq_len,
+                                      max_concurrency=1)
     tcfg = dt.DraftTableConfig(buckets=16384, ways=8, branch_length=16, retrieve_count=1)
     torch.cuda.reset_peak_memory_stats()
     prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10, prompt_len)
@@ -908,6 +920,19 @@ def profile_steps(pkg, cfg, spec, params, ecfg, tcfg, prompt_t, pt, ctx0) -> dic
 SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = 48
 SERVE_PREFIX = 128  # two 64-token pages shared by half of the requests
+SERVE_LAYERS = 8  # the dense models serve at a cut depth (host-bound: ~linear in layers)
+
+
+def first_layers(cfg, params, n: int):
+    """A dense model cut to its first n layers: views of the stacked
+    weights, no copy."""
+    import dataclasses
+
+    def cut(leaf):
+        return {k: v[:n] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[:n]
+
+    out = dict(params, layers={k: cut(v) for k, v in params["layers"].items()})
+    return dataclasses.replace(cfg, num_hidden_layers=n), out
 
 
 def serving_prompts(vocab: int) -> list:
@@ -958,7 +983,8 @@ def serve_once(pkg, cfg, params, prompts, kv_quant, lookahead, quant="int4") -> 
     if any(len(o) != SERVE_NEW_TOKENS for o in outs):
         fail(f"serving {quant} {kv_quant} lookahead={lookahead}: a request stopped early")
     res = dict(
-        quant=quant, kv_quant=kv_quant, lookahead=lookahead, wall_s=wall,
+        quant=quant, kv_quant=kv_quant, lookahead=lookahead,
+        layers=cfg.num_hidden_layers, wall_s=wall,
         tok_s=m.generated_tokens / wall, generated_tokens=m.generated_tokens,
         p50_ttft_s=m.p50_ttft, prefix_hit_tokens=m.prefix_hit_tokens,
         chained_bursts=m.chained_bursts, decode_steps=m.decode_steps,
@@ -1190,6 +1216,7 @@ class ServingCapture:
 def phase_serving(pkg, cfg, params) -> dict:
     import torch
 
+    cfg, params = first_layers(cfg, params, SERVE_LAYERS)
     launches = Launches(pkg)
     prompts = serving_prompts(cfg.vocab_size)
     capture = ServingCapture(pkg)
@@ -1291,8 +1318,10 @@ def phase_quant_modes(pkg, cfg) -> dict:
         if served:
             launches = Launches(pkg)
             launches.reset()
-            res_ar, ar_out, _ = serve_once(pkg, mcfg, params, prompts, "none", False, mode)
-            res_la, la_out, _ = serve_once(pkg, mcfg, params, prompts, "none", True, mode)
+            scfg, sparams = first_layers(mcfg, params, SERVE_LAYERS)
+            res_ar, ar_out, _ = serve_once(pkg, scfg, sparams, prompts, "none", False, mode)
+            res_la, la_out, _ = serve_once(pkg, scfg, sparams, prompts, "none", True, mode)
+            del sparams
             res_la["launches"] = launches.read()
             add(res_la["launches"])
             diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
@@ -1637,15 +1666,19 @@ def phase_moe(pkg) -> dict:
                               dtype=torch.bfloat16)
     prompts = serving_prompts(scfg.vocab_size)
     launches = Launches(pkg)
+    capture = MlaCapture(pkg, widest=True)
+    capture.install()
     launches.reset()
-    res_ar, ar_out, _ = serve_once(pkg, scfg, params, prompts, "none", False, "none")
-    res_la, la_out, _ = serve_once(pkg, scfg, params, prompts, "none", True, "none")
+    try:
+        res_ar, ar_out, _ = serve_once(pkg, scfg, params, prompts, "none", False, "none")
+        res_la, la_out, _ = serve_once(pkg, scfg, params, prompts, "none", True, "none")
+    finally:
+        capture.remove()
     serve_counts = launches.read()
     add(serve_counts)
     diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
     res_la["identical_to_ar"] = not diff
     for r in (res_ar, res_la):
-        r["layers"] = MOE_SERVE_LAYERS
         print("phase moe serving run: " + json.dumps(r))
     print("phase moe serving launches: " + json.dumps(serve_counts))
     if diff:
@@ -1674,6 +1707,336 @@ def phase_moe(pkg) -> dict:
     return dict(runs=runs, routes=routes, serving=[res_ar, res_la], launches=totals)
 
 
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention: K13, the absorption products, DeepSeek-V2-Lite
+# ---------------------------------------------------------------------------
+
+MLA_SRC = "painlessinferenceacceleration_tpu/ops/mla_attention.py"
+MLA_MODEL = "painlessinferenceacceleration_tpu/models/mla.py"
+MLA_PROMPT_LEN = 4096  # 4096 * 6 >= 2 * 128 * 64: prefill takes the grouped route
+MLA_AR_TOKENS = 32
+MLA_SPEC_TOKENS = 64
+MLA_SERVE_LAYERS = 4  # 1 dense + 3 MoE layers
+MLA_DK, MLA_DV = 576, 512  # kv_lora_rank + qk_rope_head_dim, kv_lora_rank
+
+
+def mla_arena(g, B, ctx_max, Q, ps=64):
+    """Unit-normal latent pages [n_pages, ps, 576] for B requests (permuted
+    page tables)."""
+    import torch
+
+    P = -(-(ctx_max + Q) // ps) + 1
+    n_pages = B * P + 1
+    k = torch.randn(n_pages, ps, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=g, device="cuda")[: B * P] + 1
+    return k, perm.reshape(B, P).to(torch.int32)
+
+
+def mla_row(pkg, kind, q, k, pt, ctx_t, qmask, scale, case):
+    """K13 on these inputs ('decode' / 'verify' under the mask rule,
+    'prefill' under the causal flag) against mla_paged_attention_plain,
+    timed. Tolerance 2e-2 of the largest value (bf16 out, fp32 sums in
+    another order). The bound counts the K rows each request reads (its
+    window), q and the output; the multiply-adds of the visible (row, key)
+    pairs, Dk for the score and Dv for P @ V. Yardstick: SDPA over the
+    pre-gathered latent K and V = its first 512 lanes (the math backend
+    takes Dk != Dv; None where no backend takes the call)."""
+    import torch
+    import torch.nn.functional as F
+
+    ma, ref_mod = pkg["mla_attention"], pkg["attention"]
+    B, Q, H, Dk = q.shape
+    ps = k.shape[1]
+    causal = kind == "prefill"
+    if causal:
+        qmask = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q)
+
+    def run():
+        return ma.mla_paged_attention(q, k, pt, ctx_t, qmask, scale, MLA_DV, causal=causal)
+
+    def plain():
+        return ma.mla_paged_attention_plain(q, k, pt, ctx_t, qmask, scale, MLA_DV)
+    got = run()
+    err, rel = _errs(got, plain())
+    if not rel <= 2e-2:
+        fail(f"mla_attention {kind} {case}: rel err {rel}")
+    big = B * Q * H >= 4096
+    ms = time_ms(run, reps=5 if big else 20)
+    plain_ms = time_ms(plain, reps=2 if big else 5, warmup=1)
+    gk = pkg["cache"].gather_kv_pages(k, pt, Dk, None, torch.bfloat16)  # [B, 1, L, Dk]
+    mask = ref_mod.attention_mask(ctx_t, qmask, gk.shape[2])
+    qt = q.transpose(1, 2)
+    kx, vx = gk.expand(B, H, -1, Dk), gk[..., :MLA_DV].expand(B, H, -1, MLA_DV)
+    lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+        qt, kx, vx, attn_mask=mask[:, None], scale=scale))
+    del gk, kx, vx
+    vis = int(mask.sum().item()) * H  # visible (row, key) pairs
+    keys = int((ctx_t.long() + Q).clamp(max=pt.shape[1] * ps).sum().item())
+    nbytes = keys * Dk * 2 + q.numel() * 2 + got.numel() * 2 + pt.numel() * 4
+    return _case(f"mla_attention[{kind}]", "mla_attention.cu", f"{MLA_SRC}:33 _mla_kernel",
+                 err, rel, ms, plain_ms, bound_ms(nbytes, 2.0 * vis * (Dk + MLA_DV)),
+                 lib_ms, f"{case}B={B} Q={Q} H={H} ps={ps} ctx={ctx_t.tolist()}")
+
+
+def check_mla(pkg, g, kind, H, ctx, Q, qmask=None):
+    import torch
+
+    B = len(ctx)
+    k, pt = mla_arena(g, B, max(ctx), Q)
+    q = torch.randn(B, Q, H, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    if qmask is None:
+        qmask = torch.ones(B, Q, Q, dtype=torch.bool, device="cuda")
+    scale = (128 + 64) ** -0.5  # (nope + rope)^-0.5; the yarn factor does not steer the kernel
+    return mla_row(pkg, kind, q, k, pt, ctx_t, qmask.expand(B, Q, Q), scale, "")
+
+
+class MlaCapture:
+    """K13's inputs at layer 0 in real runs of the MLA model, for holding K13
+    against its plain version at the shapes the model gives it. With
+    ``widest`` (serving) it keeps the widest decode and verify batch and
+    every prefill batch of B >= 2 (``rows`` takes the one with the most rows
+    resumed from the prefix cache, then the widest); without (the B = 1
+    main path) the first call of each kind. Kept inputs are cloned at the
+    call, in stream order (the arena moves on afterwards); choosing reads
+    shapes and pointers only. The wrapped launches are the runs' own;
+    ``rows`` launches afresh on the kept inputs."""
+
+    def __init__(self, pkg, widest: bool):
+        self.pkg, self.widest = pkg, widest
+        self.kept, self.prefill = {}, []
+        self._orig = None
+
+    def install(self):
+        ma = self.pkg["mla_attention"]
+        orig = self._orig = ma._launch
+
+        def hook(q, k_pages, pt, ctx, qmask, scale, v_dim, causal):
+            if ServingCapture._first_layer(k_pages):
+                B, Q = q.shape[:2]
+                kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
+                old = self.kept.get(kind)
+                if self.widest and kind == "prefill":
+                    keep = B >= 2 and len(self.prefill) < 8
+                else:
+                    keep = old is None or (self.widest and B > old["q"].shape[0])
+                if keep:
+                    c = dict(q=q.clone(), k=k_pages.clone(), pt=pt.clone(), ctx=ctx.clone(),
+                             scale=scale, qmask=None if qmask is None else qmask.clone())
+                    if self.widest and kind == "prefill":
+                        self.prefill.append(c)
+                    else:
+                        self.kept[kind] = c
+            return orig(q, k_pages, pt, ctx, qmask, scale, v_dim, causal)
+        ma._launch = hook
+
+    def remove(self):
+        self.pkg["mla_attention"]._launch = self._orig
+
+    def rows(self, case: str) -> list:
+        """The kept calls against mla_paged_attention_plain (mla_row); forgets
+        them afterwards."""
+        import torch
+
+        if self.prefill:
+            self.kept["prefill"] = max(self.prefill, key=lambda c: (
+                int((c["ctx"] > 0).sum().item()), c["q"].shape[0]))
+        out = []
+        for kind in ("decode", "verify", "prefill"):
+            c = self.kept.get(kind)
+            if c is None:
+                fail(f"{case}: K13 made no {kind} call"
+                     + (" of B >= 2" if self.widest and kind == "prefill" else ""))
+            B, Q = c["q"].shape[:2]
+            qmask = c["qmask"]
+            if qmask is None:
+                qmask = torch.ones(B, Q, Q, dtype=torch.bool, device="cuda")
+            ctx = c["ctx"]
+            label = f"{case} ctx={int(ctx.min())}-{int(ctx.max())} "
+            if kind == "prefill":
+                label += f"resumed_rows={int((ctx > 0).sum())} "
+            out.append(mla_row(self.pkg, kind, c["q"], c["k"], c["pt"], ctx, qmask,
+                               c["scale"], label))
+        self.kept, self.prefill = {}, []
+        return out
+
+
+def absorption_row(pkg, g, M, K, N, what):
+    """The head-batched bf16 GEMM (16 heads) against its plain version, timed;
+    torch.bmm as the yardstick."""
+    import torch
+
+    mm = pkg["moe_matmul"]
+    x = torch.randn(16, M, K, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(16, K, N, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+    got, ref = mm.dense_matmul_batched(x, w), mm.dense_matmul_batched_plain(x, w)
+    err, rel = _errs(got, ref)
+    if not rel <= 2e-2:
+        fail(f"bf16_gemm_batched {what} M={M}: rel err {rel}")
+    ms = time_ms(lambda: mm.dense_matmul_batched(x, w))
+    plain_ms = time_ms(lambda: mm.dense_matmul_batched_plain(x, w), reps=5)
+    lib_ms = time_ms(lambda: torch.bmm(x, w))
+    nbytes = (x.numel() + w.numel() + got.numel()) * 2
+    return _case("batched_bf16_gemm", "grouped_gemm.cu",
+                 f"{MOE}:77 _gmm_kernel (one weight per head: the MLA absorption, "
+                 f"XLA in {MLA_MODEL}:142, :187)", err, rel, ms, plain_ms,
+                 bound_ms(nbytes, 2.0 * 16 * M * K * N), lib_ms,
+                 f"{what} heads=16 M={M} K={K} N={N}")
+
+
+def check_mla_invariance(pkg, g) -> None:
+    """A K13 row at Q = 1 equals the same row inside a 17-wide verify (the
+    causal mask), a 17-wide prefill (the causal flag) and a 4096-row prefill
+    (65 536 rows at 16 heads), for DeepSeek-V2-Lite's 16 heads and V3's 128;
+    an absorption product's rows are the same at M = 1, 17 and 4096. Fails
+    the run otherwise."""
+    import torch
+
+    ma, mm = pkg["mla_attention"], pkg["moe_matmul"]
+    mpa = ma.mla_paged_attention
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    k, pt = mla_arena(g, 1, 4096, 17)
+    for H in (16, 128):
+        ctx0 = torch.tensor([4000], dtype=torch.int32, device="cuda")
+        q = torch.randn(1, 17, H, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+        causal = torch.ones(17, 17, dtype=torch.bool, device="cuda").tril()[None]
+        wide = mpa(q, k, pt, ctx0, causal, 0.07, MLA_DV)
+        if not torch.equal(wide, mpa(q, k, pt, ctx0, None, 0.07, MLA_DV, causal=True)):
+            fail(f"mla_attention H={H}: the causal flag differs from the causal mask")
+        for t in (0, 7, 16):
+            row = mpa(q[:, t:t + 1].contiguous(), k, pt, ctx0 + t, one, 0.07, MLA_DV)
+            if not torch.equal(row, wide[:, t:t + 1]):
+                fail(f"mla_attention H={H}: row {t} changes with the verify width")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    qp = torch.randn(1, 4096, 16, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+    full = mpa(qp, k, pt, zero, None, 0.07, MLA_DV, causal=True)
+    for t in (0, 63, 64, 2047, 4095):
+        row = mpa(qp[:, t:t + 1].contiguous(), k, pt, zero + t, one, 0.07, MLA_DV)
+        if not torch.equal(row, full[:, t:t + 1]):
+            fail(f"mla_attention: row {t} of a 4096-token prefill differs from decode")
+    for K, N in ((128, 512), (512, 128)):
+        x = torch.randn(16, 4096, K, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(16, K, N, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+        whole = mm.dense_matmul_batched(x, w)
+        for m in (1, 17):
+            if not torch.equal(mm.dense_matmul_batched(x[:, :m].contiguous(), w),
+                               whole[:, :m]):
+                fail(f"bf16_gemm_batched K={K} N={N}: rows change with M (M={m})")
+    print("phase mla invariance: mla_attention rows bit-identical at Q = 1, inside a "
+          "17-wide verify and prefill (H = 16, 128) and inside a 4096-token prefill; "
+          "the absorption products' rows bit-identical at M = 1, 17 and 4096")
+
+
+def phase_mla_kernels(pkg) -> list:
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dt = pkg["device_tables"]
+    branches = torch.randint(3, 1000, (2, 8), generator=g, device="cuda")
+    _, _, tree, _ = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
+    tree = tree[None]  # [1, 17, 17], R=2 L=8 tree mask
+    rows = []
+    for H in (16, 128):  # DeepSeek-V2-Lite, DeepSeek-V3
+        for ctx in ((640, 4096) if H == 16 else (4096,)):
+            rows.append(check_mla(pkg, g, "decode", H, [ctx], 1))
+        rows.append(check_mla(pkg, g, "verify", H, [4096], 17, tree))
+    rows.append(check_mla(pkg, g, "decode", 16, [63, 64, 65, 4095], 1))  # ragged B = 4
+    for ctx in (0, 512):
+        rows.append(check_mla(pkg, g, "prefill", 16, [ctx], 512))
+    rows.append(check_mla(pkg, g, "prefill", 16, [0], MLA_PROMPT_LEN))  # the main path's
+    for M in (1, 17, 4096):
+        rows.append(absorption_row(pkg, g, M, 128, 512, "q_nope.W_uk^T"))
+        rows.append(absorption_row(pkg, g, M, 512, 128, "out.W_uv"))
+    check_mla_invariance(pkg, g)
+    torch.cuda.synchronize()
+    for r in rows:
+        print("phase mla kernel: " + json.dumps(r))
+    return rows
+
+
+def phase_mla(pkg) -> dict:
+    """DeepSeek-V2-Lite at full width and depth in bf16 (random weights): a
+    4096-token prefill (grouped MoE route, K13's prefill mode), greedy AR
+    and lookahead decode strictly lossless; then the 4-layer model serving
+    the 16 requests, lookahead equal to AR. K13 is held against its plain
+    version on the layer-0 inputs of both (MlaCapture); those rows are in
+    ``kernels``."""
+    import dataclasses
+
+    import torch
+
+    base = pkg["base"]
+    full = pkg["config"].ModelConfig.deepseek_v2_lite()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    torch.cuda.empty_cache()
+    params = base.init_params(full, torch.Generator(device="cuda").manual_seed(SEED),
+                              dtype=torch.bfloat16)
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    label = (f"phase mla main path (DeepSeek-V2-Lite bf16, all {full.num_hidden_layers} "
+             f"layers, {weights_gb:.1f} GB of weights)")
+    capture = MlaCapture(pkg, widest=False)
+    capture.install()
+    try:
+        res = phase_main_path(pkg, full, None, params, MLA_AR_TOKENS, MLA_SPEC_TOKENS,
+                              label, extras=False, prompt_len=MLA_PROMPT_LEN,
+                              max_seq_len=MLA_PROMPT_LEN + 512)
+    finally:
+        capture.remove()
+    res.update(layers=full.num_hidden_layers, prompt_len=MLA_PROMPT_LEN,
+               weights_gb=weights_gb)
+    add(res["launches"])
+    need = ("mla_attention[decode]", "mla_attention[verify]", "mla_attention[prefill]",
+            "batched_bf16_gemm", "grouped_gemm", "dense_bf16_gemm", "kv_permute_pages")
+    if any(res["launches"][k] <= 0 for k in need) or any(
+            v for k, v in res["launches"].items() if k.startswith("paged_attention")):
+        fail(f"{label}: launches {res['launches']} (needed {need}, no paged_attention)")
+    del params
+    torch.cuda.empty_cache()
+    # K13 against its plain version on the main path's own inputs (layer 0)
+    kernels = capture.rows("main path")
+
+    scfg = dataclasses.replace(full, num_hidden_layers=MLA_SERVE_LAYERS)
+    params = base.init_params(scfg, torch.Generator(device="cuda").manual_seed(SEED),
+                              dtype=torch.bfloat16)
+    prompts = serving_prompts(scfg.vocab_size)
+    launches = Launches(pkg)
+    capture = MlaCapture(pkg, widest=True)
+    capture.install()
+    launches.reset()
+    try:
+        res_ar, ar_out, _ = serve_once(pkg, scfg, params, prompts, "none", False, "none")
+        res_la, la_out, _ = serve_once(pkg, scfg, params, prompts, "none", True, "none")
+    finally:
+        capture.remove()
+    serve_counts = launches.read()
+    add(serve_counts)
+    diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
+    res_la["identical_to_ar"] = not diff
+    for r in (res_ar, res_la):
+        print("phase mla serving run: " + json.dumps(r))
+    print("phase mla serving launches: " + json.dumps(serve_counts))
+    if diff:
+        fail(f"mla serving: lookahead differs from AR on requests {diff}")
+    if res_la["spec_steps"] <= 0 or res_ar["prefix_hit_tokens"] <= 0:
+        fail("mla serving: no spec step or no prefix-cache hit")
+    if any(serve_counts[f"mla_attention[{k}]"] <= 0 for k in ("decode", "verify", "prefill")):
+        fail(f"mla serving: K13 did not run in every mode: {serve_counts}")
+    del params
+    torch.cuda.empty_cache()
+    # K13 against its plain version on serving's inputs: B up to 8, ragged
+    # ctx, tree verify, prefill resumed from the prefix cache
+    kernels += capture.rows("serving")
+    for r in kernels:
+        print("phase mla kernel: " + json.dumps(r))
+    torch.cuda.empty_cache()
+    return dict(main_path=res, serving=[res_ar, res_la], launches=totals, kernels=kernels)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1693,6 +2056,7 @@ def load_port():
                  embedding="layers.embedding", w8a8="ops.w8a8",
                  quant_matmul="ops.quant_matmul", moe_matmul="ops.moe_matmul",
                  moe="models.moe", paged_attention="ops.paged_attention",
+                 mla_attention="ops.mla_attention",
                  attention="ops.attention", kv_update="ops.kv_update",
                  rmsnorm="ops.rmsnorm", cache="engine.cache", step="engine.step",
                  multistep="engine.multistep", llm="engine.llm",
@@ -1707,6 +2071,9 @@ def main() -> None:
     ap.add_argument("--moe-only", action="store_true",
                     help="run only the Mixture-of-Experts phases (a partial run: "
                          "prints no kernels line and no result line)")
+    ap.add_argument("--mla-only", action="store_true",
+                    help="run only the Multi-head Latent Attention phases (a partial "
+                         "run: prints no kernels line and no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1724,6 +2091,17 @@ def main() -> None:
             args.json.write_text(json.dumps(dict(environment=env, kernels=rows, moe=moe_res,
                                                  wall_s=wall_s), indent=1))
         return
+    if args.mla_only:
+        rows = phase_mla_kernels(pkg)
+        mla_res = phase_mla(pkg)
+        rows += mla_res["kernels"]
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (MLA phases only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows, mla=mla_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
     rows = phase_kernels(pkg, cfg)
@@ -1738,15 +2116,19 @@ def main() -> None:
     print("phase quant act: " + json.dumps(quant_res["quant_act"]))
     rows += phase_moe_kernels(pkg, pkg["config"].ModelConfig.mixtral_8x7b())
     moe_res = phase_moe(pkg)
+    rows += phase_mla_kernels(pkg)
+    mla_res = phase_mla(pkg)
+    rows += mla_res["kernels"]
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
-                    quant_modes=quant_res["launches"], moe=moe_res["launches"])
+                    quant_modes=quant_res["launches"], moe=moe_res["launches"],
+                    mla=mla_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving, in "
-                 "the quant modes or in the MoE phases")
+                 "the quant modes, in the MoE phases or in the MLA phases")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
     print("phase 4 launches (sum): " + json.dumps(launches))
     wall_s = time.perf_counter() - T_START
@@ -1756,7 +2138,7 @@ def main() -> None:
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
                                              quant_modes=quant_res, moe=moe_res,
-                                             launches=by_phase,
+                                             mla=mla_res, launches=by_phase,
                                              wall_s=wall_s), indent=1))
     print(json.dumps({"kernels": rows}))
     print(env["card"])

@@ -1,9 +1,10 @@
 """Model / engine configuration for the PyTorch port.
 
 A copy of the ported part of ``painlessinferenceacceleration_tpu.config``: the
-llama family (with qwen3's per-head QK norm) and the Mixture-of-Experts
-fields of the mixtral / qwen3_moe class (the port imports nothing from the
-JAX package). Field names follow HF ``config.json`` keys, as in the JAX
+llama family (with qwen3's per-head QK norm), the Mixture-of-Experts fields
+of the mixtral / qwen3_moe / deepseek class and the Multi-head Latent
+Attention fields of deepseek v2 / v3 (the port imports nothing from the JAX
+package). Field names follow HF ``config.json`` keys, as in the JAX
 package, with the same defaults, so one set of keyword arguments builds the
 same model in both packages.
 """
@@ -17,9 +18,11 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture of a decoder-only transformer: the dense llama family
-    (llama, qwen3) or its Mixture-of-Experts form (mixtral, qwen3_moe), where
-    the layers from ``moe_layer_start`` on replace the MLP by routed experts
-    (and optional always-on shared experts)."""
+    (llama, qwen3) or its Mixture-of-Experts form (mixtral, qwen3_moe,
+    deepseek_v2 / v3), where the layers from ``moe_layer_start`` on replace
+    the MLP by routed experts (and optional always-on shared experts); with
+    ``kv_lora_rank`` > 0 the attention is Multi-head Latent Attention
+    (``models/mla.py``)."""
 
     model_type: str = "llama"
     vocab_size: int = 32000
@@ -34,7 +37,8 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     hidden_act: str = "silu"
     qk_norm: bool = False  # qwen3: per-head RMSNorm on q and k before rope
-    # HF rope_scaling dict; only the default rope type is ported so far
+    # HF rope_scaling dict ("rope_type" / "type": default, linear, llama3,
+    # yarn), kept as a sorted item tuple
     rope_scaling: Optional[tuple] = None
     # MoE (mixtral / qwen3_moe / deepseek class)
     num_experts: int = 0
@@ -51,6 +55,15 @@ class ModelConfig:
     # expert parallelism: the expert axis of the stacked expert weights is
     # split into shards (models/moe.py expert_shards)
     expert_parallel: bool = False
+    # MLA (deepseek v2 / v3); kv_lora_rank 0 disables it
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # cache the rms-normed latent and the roped k_pe once per token and run
+    # weight-absorbed MQA over them (K13), instead of per-head K / V rows
+    mla_latent_cache: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -68,6 +81,10 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
     @classmethod
     def tiny(cls, **over) -> "ModelConfig":
@@ -95,6 +112,36 @@ class ModelConfig:
                    num_attention_heads=32, num_key_value_heads=8,
                    rms_norm_eps=1e-5, rope_theta=1e6, num_experts=8,
                    num_experts_per_tok=2)
+
+    @classmethod
+    def mla_3b(cls) -> "ModelConfig":
+        """The JAX package's DeepSeek-V2-Lite-shaped MLA model with a dense
+        MLP (its ``rope_interleaved`` and ``max_position_embeddings`` are
+        fields the port has no use for: MLA always pairs rope dims
+        interleaved)."""
+        return cls(model_type="deepseek_v2", hidden_size=2048, intermediate_size=8192,
+                   num_hidden_layers=24, num_attention_heads=16,
+                   num_key_value_heads=16, q_lora_rank=0, kv_lora_rank=512,
+                   qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                   mla_latent_cache=True)
+
+    @classmethod
+    def deepseek_v2_lite(cls) -> "ModelConfig":
+        """The widths of deepseek-ai/DeepSeek-V2-Lite's ``config.json``
+        (``q_lora_rank`` null there), served from the latent cache."""
+        return cls(model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
+                   intermediate_size=10944, moe_intermediate_size=1408,
+                   num_hidden_layers=27, num_attention_heads=16,
+                   num_key_value_heads=16, rms_norm_eps=1e-6, rope_theta=10000.0,
+                   rope_scaling={"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                                 "mscale": 0.707, "mscale_all_dim": 0.707,
+                                 "original_max_position_embeddings": 4096,
+                                 "type": "yarn"},
+                   num_experts=64, num_experts_per_tok=6, num_shared_experts=2,
+                   moe_layer_start=1, scoring_func="softmax", norm_topk_prob=False,
+                   routed_scaling_factor=1.0, n_group=1, topk_group=1,
+                   q_lora_rank=0, kv_lora_rank=512, qk_nope_head_dim=128,
+                   qk_rope_head_dim=64, v_head_dim=128, mla_latent_cache=True)
 
 
 # Decode-batch buckets: batch widths snap to this ladder (as in the JAX

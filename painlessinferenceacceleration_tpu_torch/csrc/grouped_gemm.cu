@@ -16,7 +16,10 @@
 // The dense entry is the same body with the one weight: the native bf16
 // linears, the router product and the LM head go through it, so a bf16
 // model has one GEMM arithmetic, and a token's expert output is the same
-// bits whether it was routed (grouped path) or swept (scan path).
+// bits whether it was routed (grouped path) or swept (scan path). The
+// batched entry runs that body once per head on a head's own weight: MLA's
+// weight absorption (q_nope . W_uk^T and out . W_uv, computed by XLA
+// outside Pallas in the JAX package), so their rows too do not depend on M.
 //
 // What bounds it on the H100: at decode the weight bytes (2*K*N per expert
 // touched); at prefill the multiply-adds, on CUDA cores here (the
@@ -41,6 +44,21 @@ __global__ void __launch_bounds__(kThreads) bf16_gemm_kernel(
   extern __shared__ __align__(16) float smem[];
   bf16_tile<MT, WT>(x, w, part, out, out_f32, M, K, N, n_chunks,
                     chunks_per_split, blockIdx.y * MT, blockIdx.z, smem);
+}
+
+// One weight per blockIdx.z (a head of MLA's absorption products): x, w
+// and out advance by one [M, K], [K, N], [M, N] plane per batch entry. No K
+// split: the products it serves have K <= 512, under the 8 chunks a split
+// needs (chunk_ksplit).
+template <int MT>
+__global__ void __launch_bounds__(kThreads) bf16_gemm_batched_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    void* __restrict__ out, int out_f32, int M, int K, int N, int n_chunks) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t g = blockIdx.z;
+  char* o = static_cast<char*>(out) + g * M * N * (out_f32 ? 4 : 2);
+  bf16_tile<MT, false>(x + g * M * K, w + g * K * N, nullptr, o, out_f32, M, K, N,
+                       n_chunks, n_chunks, blockIdx.y * MT, 0, smem);
 }
 
 __global__ void __launch_bounds__(kThreads) grouped_gemm_kernel(
@@ -97,6 +115,28 @@ extern "C" int bf16_gemm(const void* x, const void* w, void* out, void* work,
   }
   if (ksplit > 1)
     launch_splitk_reduce(part, out, out_f32, (size_t)M * N, ksplit, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x bf16 [G, M, K]; w bf16 [G, K, N]; out bf16 or fp32 [G, M, N]:
+// out[g] = x[g] @ w[g], each plane by the dense entry's body without a K
+// split. Requires N % 4 == 0, w on an 8-byte boundary, G <= 65535.
+extern "C" int bf16_gemm_batched(const void* x, const void* w, void* out, int G,
+                                 int M, int K, int N, int out_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_chunks = (K + kChunk - 1) / kChunk;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  const int col_blocks = (N + kBlockN - 1) / kBlockN;
+  if (M == 1) {
+    dim3 grid(col_blocks, 1, G);
+    bf16_gemm_batched_kernel<1><<<grid, kThreads, tile_smem_bytes(1), st>>>(
+        xb, wb, out, out_f32, M, K, N, n_chunks);
+  } else {
+    dim3 grid(col_blocks, (M + 7) / 8, G);
+    bf16_gemm_batched_kernel<8><<<grid, kThreads, tile_smem_bytes(8), st>>>(
+        xb, wb, out, out_f32, M, K, N, n_chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,14 @@ and invalid tokens point at. Three arena kinds (``EngineConfig.kv_quant``):
   written row. The JAX package pads the head axis to 128 lanes for its DMA
   tiles; the port does not (``models/convert.py`` drops the padding).
 
+An MLA model (``ModelConfig.is_mla``) has an arena of its own shape, in the
+model's dtype whatever ``kv_quant`` says (as the JAX package allocates it):
+per-head K rows of nope + rope lanes and V rows of v_head_dim lanes
+(expanded mode), or one shared row per token (latent mode): K =
+``[latent | roped k_pe]``, ``kv_lora_rank + qk_rope_head_dim`` lanes, and V =
+the latent again, ``kv_lora_rank`` lanes. The JAX package pads the latent K
+row to a multiple of 128 lanes for its page DMA; the port does not.
+
 e4m3 rows are scattered and gathered through ``uint8`` views. JAX donates
 the arena and gets an updated copy back; here every writer updates the
 tensors in place and also returns them.
@@ -46,12 +54,29 @@ def kv_cache_shape(mcfg: ModelConfig, ecfg: EngineConfig) -> Tuple[int, ...]:
     )
 
 
+def _mla_rows(mcfg: ModelConfig) -> Tuple[int, int]:
+    """(K row, V row) lanes of an MLA arena."""
+    from painlessinferenceacceleration_tpu_torch.models.mla import (
+        mla_cache_heads,
+        mla_head_dims,
+    )
+
+    dk, dv = mla_head_dims(mcfg)
+    H = mla_cache_heads(mcfg)
+    return H * dk, H * dv
+
+
 def kv_bytes_per_page(mcfg: ModelConfig, ecfg: EngineConfig,
                       dtype=torch.bfloat16) -> int:
-    """Bytes one KV page costs across all layers, K and V (and scales)."""
+    """Bytes one KV page costs across all layers, K and V (and scales). An
+    MLA arena is counted at ``dtype``'s size, the type it is allocated in
+    (the JAX package counts 1 byte under ``kv_quant="fp8"``)."""
     fp8 = ecfg.kv_quant.startswith("fp8")
-    itemsize = 1 if fp8 else torch.empty((), dtype=dtype).element_size()
+    dtype_size = torch.empty((), dtype=dtype).element_size()
     L, ps, Hk = mcfg.num_hidden_layers, ecfg.page_size, mcfg.num_key_value_heads
+    if mcfg.is_mla:
+        return L * ps * sum(_mla_rows(mcfg)) * dtype_size
+    itemsize = 1 if fp8 else dtype_size
     base = L * ps * Hk * mcfg.head_dim * itemsize * 2
     if ecfg.kv_quant == "fp8_tok":
         base += L * ps * Hk * 4 * 2  # f32 per-token scale rows (k + v)
@@ -75,8 +100,16 @@ def auto_size_pages(mcfg: ModelConfig, ecfg: EngineConfig, dtype=torch.bfloat16,
 def init_kv_cache(mcfg: ModelConfig, ecfg: EngineConfig,
                   dtype=torch.bfloat16, device=None) -> dict:
     """Allocate the zeroed arena of ``ecfg.kv_quant``'s kind on ``device``
-    (default cuda)."""
+    (default cuda); an MLA model's arena is always in ``dtype``."""
     dev = resolve_device(device)
+    if mcfg.is_mla:
+        if ecfg.kv_quant == "fp8_tok":
+            raise ValueError("kv_quant='fp8_tok' supports the dense stacked-layer "
+                             "family only")
+        k_row, v_row = _mla_rows(mcfg)
+        base = (mcfg.num_hidden_layers, ecfg.num_pages, ecfg.page_size)
+        return {"k": torch.zeros(base + (k_row,), dtype=dtype, device=dev),
+                "v": torch.zeros(base + (v_row,), dtype=dtype, device=dev)}
     shape = kv_cache_shape(mcfg, ecfg)
     if ecfg.kv_quant == "none":
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -98,7 +131,7 @@ def write_kv_pages(
     k_pages: torch.Tensor,  # [L, n_pages, ps, H*D]
     v_pages: torch.Tensor,
     new_k: torch.Tensor,  # [B, Q, H, D]
-    new_v: torch.Tensor,
+    new_v: torch.Tensor,  # [B, Q, H, Dv]
     page_tables: torch.Tensor,  # [B, P]
     start_lens: torch.Tensor,  # [B]
     valid: Optional[torch.Tensor] = None,  # [B, Q]; invalid -> null page
@@ -120,8 +153,9 @@ def write_kv_pages(
     if valid is not None:
         page_of = torch.where(valid, page_of, torch.zeros_like(page_of))
     fp, fr = page_of.reshape(-1), (slots % ps).reshape(-1)
+    Dv = new_v.shape[-1]  # may differ from D (MLA)
     nk = new_k.reshape(B * Q, H, D)
-    nv = new_v.reshape(B * Q, H, D)
+    nv = new_v.reshape(B * Q, H, Dv)
     if k_tok_scale is not None:
         kf, vf = nk.to(torch.float32), nv.to(torch.float32)
         sk = kf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX  # [BQ, H]
@@ -134,7 +168,7 @@ def write_kv_pages(
         nv = (nv.to(torch.float32) / v_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
     else:
         nk, nv = nk.to(k_pages.dtype), nv.to(v_pages.dtype)
-    nk, nv = nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * D)
+    nk, nv = nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * Dv)
     if k_pages.dtype == FP8:
         k_pages.view(torch.uint8)[layer, fp, fr] = nk.view(torch.uint8)
         v_pages.view(torch.uint8)[layer, fp, fr] = nv.view(torch.uint8)

@@ -421,8 +421,9 @@ class LLM:
         rebuild the e4m3 arena with scale = 1.25 * amax / 448 (headroom:
         later activations may exceed the calibration amax; anything past it
         saturates at the write)."""
-        if self.ecfg.kv_quant != "fp8":
-            raise ValueError("calibration is for the static fp8 arena (kv_quant='fp8')")
+        if self.ecfg.kv_quant != "fp8" or self.cfg.is_mla:
+            raise ValueError("calibration is for the static fp8 arena (kv_quant='fp8'; "
+                             "an MLA model's arena has no fp8 form)")
         cal_ecfg = dataclasses.replace(self.ecfg, kv_quant="none")
         kv = init_kv_cache(self.cfg, cal_ecfg, dtype=torch.bfloat16, device=self.device)
         P = self.ecfg.pages_per_req

@@ -1,8 +1,8 @@
-"""Llama-family decoder, dense or Mixture-of-Experts, functional, over
-stacked per-layer weights.
+"""Llama-family decoder, dense or Mixture-of-Experts, with grouped-query or
+Multi-head Latent Attention, functional, over stacked per-layer weights.
 
-Port of the llama / qwen3 / mixtral / qwen3_moe path of
-``painlessinferenceacceleration_tpu/models/base.py``. Parameters are a dict
+Port of the llama / qwen3 / mixtral / qwen3_moe / deepseek_v2 / deepseek_v3
+path of ``painlessinferenceacceleration_tpu/models/base.py``. Parameters are a dict
 shaped like the JAX pytree: ``layers`` holds each weight of the dense stack
 stacked ``[L, ...]`` and a layer is a view ``w[li]``; qkv and gate/up are
 merged GEMMs. An MoE model's layers from ``cfg.moe_layer_start`` on form a
@@ -11,7 +11,9 @@ second stack, ``moe_layers``, whose MLP is the routed-expert block of
 the dense ones. A Python loop over layers takes the place of ``lax.scan``,
 and the KV arena is written in place. The linears take any
 ``QuantSpec`` (``layers/linear.py``); the embedding table may be the fp8
-``{"q", "s"}`` form (``layers/embedding.py``).
+``{"q", "s"}`` form (``layers/embedding.py``). An MLA model
+(``cfg.is_mla``) replaces ``wqkv`` by the low-rank weights of
+``models/mla.py`` in both stacks, and its attention is ``mla_attn_block``.
 
 Attention dispatch follows the JAX ``_attn_block_at`` over the three arena
 kinds: Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
@@ -43,6 +45,11 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     linear_at,
     make_linear,
 )
+from painlessinferenceacceleration_tpu_torch.models.mla import (
+    init_mla_attn,
+    mla_attn_block,
+    mla_rope_cos_sin,
+)
 from painlessinferenceacceleration_tpu_torch.models.moe import (
     init_moe_layer,
     moe_block,
@@ -54,14 +61,11 @@ from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention_tok,
 )
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
-from painlessinferenceacceleration_tpu_torch.ops.rope import (
-    apply_rope,
-    rope_cos_sin,
-    rope_inv_freq,
-)
+from painlessinferenceacceleration_tpu_torch.ops.rope import apply_rope, dense_cos_sin
 
 
-PORTED_MODEL_TYPES = ("llama", "mixtral", "qwen3", "qwen3_moe")
+PORTED_MODEL_TYPES = ("llama", "mixtral", "qwen3", "qwen3_moe", "deepseek_v2",
+                      "deepseek_v3")
 
 
 def _check_model(cfg: ModelConfig) -> None:
@@ -129,9 +133,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         stack = {
             "input_ln": torch.ones(n, E, dtype=dtype, device=dev),
             "post_ln": torch.ones(n, E, dtype=dtype, device=dev),
-            "wqkv": _stack_leaves(lambda: make_linear(w(E, (H + 2 * Hk) * D), quant), n),
-            "wo": _stack_leaves(lambda: make_linear(w(H * D, E), quant), n),
         }
+        if cfg.is_mla:
+            stack.update(init_mla_attn(
+                cfg, lambda din, dout: _stack_leaves(
+                    lambda: make_linear(w(din, dout), quant), n),
+                lambda width: torch.ones(n, width, dtype=dtype, device=dev)))
+            return stack
+        stack["wqkv"] = _stack_leaves(lambda: make_linear(w(E, (H + 2 * Hk) * D), quant), n)
+        stack["wo"] = _stack_leaves(lambda: make_linear(w(H * D, E), quant), n)
         if cfg.qk_norm:
             stack["q_norm"] = torch.ones(n, D, dtype=dtype, device=dev)
             stack["k_norm"] = torch.ones(n, D, dtype=dtype, device=dev)
@@ -228,9 +238,14 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
         stack = {
             "input_ln": torch.ones(n, E, dtype=bf16, device=dev),
             "post_ln": torch.ones(n, E, dtype=bf16, device=dev),
-            "wqkv": leaf(n, E, (H + 2 * Hk) * D),
-            "wo": leaf(n, H * D, E),
         }
+        if cfg.is_mla:
+            stack.update(init_mla_attn(
+                cfg, lambda din, dout: leaf(n, din, dout),
+                lambda width: torch.ones(n, width, dtype=bf16, device=dev)))
+            return stack
+        stack["wqkv"] = leaf(n, E, (H + 2 * Hk) * D)
+        stack["wo"] = leaf(n, H * D, E)
         if cfg.qk_norm:
             stack["q_norm"] = torch.ones(n, D, dtype=bf16, device=dev)
             stack["k_norm"] = torch.ones(n, D, dtype=bf16, device=dev)
@@ -340,11 +355,14 @@ def transformer_hidden(
     One function serves prefill (causal qmask), decode (Q = 1) and lookahead
     verify (tree qmask). The dense stack runs first, then the MoE stack,
     whose layer i uses KV layer ``n_dense + i``."""
-    if "k_tok_scale" in kv and "moe_layers" in params:
+    if "k_tok_scale" in kv and ("moe_layers" in params or cfg.is_mla):
         raise ValueError("kv_quant='fp8_tok' supports the dense stacked-layer "
                          "family only")
     h = embed_lookup(params["embed"], tokens, params["final_ln"].dtype)
-    cos, sin = rope_cos_sin(rope_inv_freq(cfg, h.device), positions)
+    # the YaRN factor rides on cos/sin for grouped-query attention; MLA takes
+    # it squared in its softmax scale instead
+    cos, sin = (mla_rope_cos_sin if cfg.is_mla else dense_cos_sin)(cfg, positions)
+    attn_block = mla_attn_block if cfg.is_mla else _attn_block_at
     n_dense = 0
     for name in ("layers", "moe_layers"):
         stack = params.get(name)
@@ -353,9 +371,8 @@ def transformer_hidden(
         n_layers = stack["input_ln"].shape[0]
         for li in range(n_layers):
             hn = rms_norm(h, stack["input_ln"][li], cfg.rms_norm_eps)
-            h = h + _attn_block_at(stack, li, n_dense + li, cfg, spec, hn, cos, sin,
-                                   kv, page_tables, start_lens, qmask, valid,
-                                   causal_window)
+            h = h + attn_block(stack, li, n_dense + li, cfg, spec, hn, cos, sin, kv,
+                               page_tables, start_lens, qmask, valid, causal_window)
             hn = rms_norm(h, stack["post_ln"][li], cfg.rms_norm_eps)
             if name == "moe_layers":
                 h = h + moe_block(_layer_of(stack, li), cfg, spec, hn)

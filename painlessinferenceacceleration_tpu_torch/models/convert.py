@@ -36,16 +36,21 @@ def params_from_jax(tree, device=None):
     return _tensor(np.asarray(tree), device)
 
 
-def kv_from_jax(tree: dict, n_kv_heads: int, device=None) -> dict:
+def kv_from_jax(tree: dict, n_kv_heads: int, device=None, k_row: int = 0) -> dict:
     """A JAX KV arena dict (``init_kv_cache``'s keys) as the port's arena.
 
     The JAX per-token scale arenas ``[L, n_pages, ps, 128]`` are padded to
     128 lanes for the TPU's DMA tiles; the port keeps the real
-    ``n_kv_heads`` lanes."""
+    ``n_kv_heads`` lanes. So is the K row of an MLA latent arena (576 lanes
+    padded to 640 at DeepSeek's widths): with ``k_row`` (the port's K row
+    width, ``models/mla.py`` ``mla_head_dims``) its pad lanes are dropped;
+    the V arena crosses as it is."""
     out = {}
     for name, a in tree.items():
         a = np.asarray(a)
         if name in ("k_tok_scale", "v_tok_scale"):
             a = a[..., :n_kv_heads]
+        elif name == "k" and k_row:
+            a = a[..., :k_row]
         out[name] = _tensor(a, device)
     return out

@@ -14,6 +14,8 @@ are held against.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30  # large-negative instead of -inf: all-masked rows stay finite
@@ -35,7 +37,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor, scale: float) -> torch.Tensor:
     """Masked GQA attention with fp32 softmax and accumulation.
 
-    q [B, Q, Hq, D]; k, v [B, Hkv, L, D]; mask [B, Q, L]. Returns [B, Q, Hq, D]."""
+    q [B, Q, Hq, D]; k [B, Hkv, L, D]; v [B, Hkv, L, Dv]; mask [B, Q, L].
+    Returns [B, Q, Hq, Dv]."""
     B, Qn, Hq, D = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
@@ -51,8 +54,11 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
-                        scale: float, k_scale=None, v_scale=None) -> torch.Tensor:
-    """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D].
+                        scale: float, k_scale=None, v_scale=None,
+                        v_dim: Optional[int] = None) -> torch.Tensor:
+    """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D]
+    (V pages [n_pages, ps, H*v_dim] where the V head dim differs, as in
+    MLA).
 
     An e4m3 arena is dequantized as it is gathered: ``k_scale``/``v_scale``
     are the layer's static per-head scales [H] or its per-token scale
@@ -61,7 +67,7 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
 
     D = q.shape[-1]
     kc = gather_kv_pages(k_pages, page_tables, D, k_scale, q.dtype)
-    vc = gather_kv_pages(v_pages, page_tables, D, v_scale, q.dtype)
+    vc = gather_kv_pages(v_pages, page_tables, v_dim or D, v_scale, q.dtype)
     mask = attention_mask(start_lens, qmask, kc.shape[2])
     return mha_reference(q, kc, vc, mask, scale)
 

@@ -13,7 +13,9 @@ no call waits for the routing; each source note says what bounds it.
 ``dense_matmul`` is the bf16 kernel's body with one weight; the native bf16
 linears, the router product and the LM head use it, so every bf16 GEMM of a
 model sums in one order and a token's expert output has the same bits on the
-grouped path and on the scan path (``models/moe.py``).
+grouped path and on the scan path (``models/moe.py``). ``dense_matmul_batched``
+runs that body over a batch of weights in one launch (MLA's per-head weight
+absorption, ``models/mla.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper's ``launches`` counts its kernel launches.
@@ -183,6 +185,54 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
 
 
 dense_matmul.launches = 0
+
+
+def dense_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor,
+                               out_dtype=None) -> torch.Tensor:
+    """x [G, M, K] @ w [G, K, N] per batch entry in fp32, cast to
+    ``out_dtype``."""
+    out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return out.to(out_dtype or x.dtype)
+
+
+def _dense_matmul_batched_cuda(x: torch.Tensor, w: torch.Tensor,
+                               out_dtype) -> torch.Tensor:
+    G, M, K = x.shape
+    if w.dim() != 3 or w.shape[0] != G or w.shape[1] != K:
+        raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
+    N = w.shape[2]
+    if K > 8 * CHUNK or G > 65535:
+        raise ValueError(f"bf16_gemm_batched takes K <= {8 * CHUNK} (no K split) "
+                         f"and G <= 65535, not K={K} G={G}")
+    x, w = x.contiguous(), w.contiguous()
+    _check_bf16("bf16_gemm_batched", x, w)
+    check_gemm_out("bf16_gemm_batched", x, N, out_dtype, w)
+    out = torch.empty((G, M, N), dtype=out_dtype, device=x.device)
+    lib = _build.library("grouped_gemm")
+    fn = lib.bf16_gemm_batched
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, K, N,
+             int(out_dtype == torch.float32), _build.stream_of(x))
+    _build.check(lib, err, "bf16_gemm_batched")
+    dense_matmul_batched.launches += 1
+    return out
+
+
+def dense_matmul_batched(x: torch.Tensor, w: torch.Tensor,
+                         out_dtype=None) -> torch.Tensor:
+    """x [G, M, K] @ w [G, K, N] -> [G, M, N] (one weight per batch entry,
+    as MLA's per-head absorption products), fp32 accumulation, in
+    ``out_dtype`` (default x.dtype). On CUDA bf16 operands only, one launch
+    of the dense GEMM's body per call: a row's bits do not depend on M."""
+    out_dtype = out_dtype or x.dtype
+    if x.is_cuda:
+        return _dense_matmul_batched_cuda(x, w, out_dtype)
+    if x.device.type == "cpu":
+        return dense_matmul_batched_plain(x, w, out_dtype)
+    raise NotImplementedError(f"dense_matmul_batched on {x.device}")
+
+
+dense_matmul_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------

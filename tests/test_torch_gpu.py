@@ -543,3 +543,144 @@ def test_native_linears_and_the_tied_head_run_on_the_card(cuda):
     assert dense_matmul.launches == before + 3
     with pytest.raises(TypeError):
         linear(w[1].float(), x.float())  # the card's native linears are bf16
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention: K13 and the absorption products
+# ---------------------------------------------------------------------------
+
+MLA_DK, MLA_DV = 576, 512  # DeepSeek's latent row: kv_lora_rank + rope, kv_lora_rank
+
+
+def _mla_arena(g, B, ctx, Q, ps=64):
+    P = -(-(max(ctx) + Q) // ps) + 1
+    n = B * P + 1
+    k = torch.randn(n, ps, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+    pt = (torch.randperm(n - 1, generator=g, device="cuda")[: B * P] + 1).reshape(B, P)
+    return k, pt.to(torch.int32), torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+
+def _mla_q(g, B, Q, H):
+    return torch.randn(B, Q, H, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("H", [16, 128], ids=["v2_lite", "v3"])
+@pytest.mark.parametrize("kind,Q,ctx", [("decode", 1, [640, 4096]),
+                                        ("decode", 1, [63, 64, 65, 1]),
+                                        ("verify", 17, [4096, 70]),
+                                        ("prefill", 300, [0, 512])])
+def test_mla_attention(cuda, H, kind, Q, ctx):
+    from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
+        mla_paged_attention,
+        mla_paged_attention_plain,
+    )
+
+    B = len(ctx)
+    k, pt, ctx_t = _mla_arena(cuda, B, ctx, Q)
+    q = _mla_q(cuda, B, Q, H)
+    if kind == "verify":
+        qm = _mask(cuda, B, Q)
+    else:
+        qm = causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous()
+    scale = 0.0417
+    before = mla_paged_attention.launches
+    got = mla_paged_attention(q, k, pt, ctx_t, qm, scale, MLA_DV, causal=kind == "prefill")
+    assert mla_paged_attention.launches == before + 1
+    assert got.shape == (B, Q, H, MLA_DV) and torch.isfinite(got.float()).all()
+    ref = mla_paged_attention_plain(q, k, pt, ctx_t, qm, scale, MLA_DV)
+    assert _rel(got, ref) < 2e-2
+
+
+@pytest.mark.parametrize("H", [16, 128], ids=["v2_lite", "v3"])
+def test_mla_attention_rows_do_not_depend_on_the_width(cuda, H):
+    """A row at Q = 1 equals the same row inside a 17-wide causal verify, a
+    17-wide prefill (the causal flag) and a 4096-row prefill, bit for bit."""
+    from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
+        mla_paged_attention,
+    )
+
+    k, pt, _ = _mla_arena(cuda, 1, [4096], 17)
+    ctx0 = torch.tensor([4000], dtype=torch.int32, device="cuda")
+    q = _mla_q(cuda, 1, 17, H)
+    qm = causal_qmask(17, "cuda")[None].contiguous()
+    wide = mla_paged_attention(q, k, pt, ctx0, qm, 0.05, MLA_DV)
+    pre = mla_paged_attention(q, k, pt, ctx0, None, 0.05, MLA_DV, causal=True)
+    assert torch.equal(wide, pre)
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    for t in (0, 5, 16):
+        row = mla_paged_attention(q[:, t:t + 1].contiguous(), k, pt, ctx0 + t, one, 0.05,
+                                  MLA_DV)
+        assert torch.equal(row, wide[:, t:t + 1])
+    if H == 16:  # 65 536 rows
+        zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+        qp = _mla_q(cuda, 1, 4096, H)
+        full = mla_paged_attention(qp, k, pt, zero, None, 0.05, MLA_DV, causal=True)
+        for t in (0, 63, 64, 1000, 4095):
+            row = mla_paged_attention(qp[:, t:t + 1].contiguous(), k, pt, zero + t, one, 0.05,
+                                      MLA_DV)
+            assert torch.equal(row, full[:, t:t + 1])
+
+
+def test_mla_absorption_rows_do_not_depend_on_m(cuda):
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
+        dense_matmul_batched,
+        dense_matmul_batched_plain,
+    )
+
+    for K, N in ((128, 512), (512, 128)):  # q_nope . W_uk^T, then out . W_uv
+        x = torch.randn(16, 4096, K, generator=cuda, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(16, K, N, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
+        before = dense_matmul_batched.launches
+        full = dense_matmul_batched(x, w)
+        assert dense_matmul_batched.launches == before + 1
+        assert _rel(full, dense_matmul_batched_plain(x, w)) < 2e-2
+        for m in (1, 17):
+            assert torch.equal(dense_matmul_batched(x[:, :m].contiguous(), w), full[:, :m])
+        # one head of the batch is the dense kernel on that head's weight
+        assert torch.equal(dense_matmul(x[3, :17].contiguous(), w[3]), full[3, :17])
+
+
+def test_mla_expanded_mode_raises_on_the_card(cuda):
+    from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+    from painlessinferenceacceleration_tpu_torch.models.mla import mla_attn_block
+
+    cfg = ModelConfig(model_type="deepseek_v2", hidden_size=64, num_attention_heads=4,
+                      num_key_value_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16, mla_latent_cache=False)
+    h = torch.zeros(1, 1, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(NotImplementedError, match="A.7"):
+        mla_attn_block({}, 0, 0, cfg, None, h, None, None, {}, None, None, None, None, False)
+
+
+def test_mla_model_serves_on_the_card(cuda):
+    """A small bf16 DeepSeek-V2-shaped model through LLM: every layer goes
+    through K13 and the absorption products, lookahead equals AR."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+    from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
+        mla_paged_attention,
+    )
+
+    cfg = ModelConfig(model_type="deepseek_v2", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, moe_intermediate_size=128,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+                      kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128, moe_layer_start=1, num_experts=8,
+                      num_experts_per_tok=2, num_shared_experts=2, norm_topk_prob=False,
+                      mla_latent_cache=True)
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    prompts = [[5, 6, 7, 8] * 20, [9, 10, 11], list(range(40, 140))]
+    outs = []
+    for la in (False, True):
+        ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=4,
+                            eos_token_id=-2, use_lookahead=la, decoding_length=16,
+                            branch_length=16, use_spec_min_batch_size=4)
+        before = dict(mla_paged_attention.modes)
+        llm = LLM(cfg=cfg, params=params, ecfg=ecfg)
+        outs.append([r.output_ids for r in llm.generate(prompts,
+                                                         SamplingParams(max_new_tokens=24))])
+        ran = {k for k, v in mla_paged_attention.modes.items() if v > before.get(k, 0)}
+        assert ran >= ({"prefill", "verify"} if la else {"prefill", "decode"})
+    assert outs[0] == outs[1]

@@ -174,9 +174,15 @@ def test_rms_norm_and_rope_match_jax():
     np.testing.assert_allclose(
         trope.apply_rope(t(x), tcos, tsin).numpy(),
         np.asarray(jrope.apply_rope(jnp.asarray(x), jcos, jsin)), atol=1e-5, rtol=0)
-    scaled = tconfig.ModelConfig.tiny(rope_scaling={"rope_type": "yarn", "factor": 2.0})
-    with pytest.raises(NotImplementedError):
-        trope.rope_inv_freq(scaled)
+    # the scaled rope types are ported too (tests/test_torch_mla.py holds
+    # each against the JAX package); an unknown type raises in both
+    scaled = dict(rope_scaling={"rope_type": "yarn", "factor": 2.0})
+    np.testing.assert_allclose(
+        trope.rope_inv_freq(tconfig.ModelConfig.tiny(**scaled)).numpy(),
+        np.asarray(jrope.rope_inv_freq(jconfig.ModelConfig.tiny(**scaled))),
+        atol=1e-6, rtol=0)
+    with pytest.raises(ValueError):
+        trope.rope_inv_freq(tconfig.ModelConfig.tiny(rope_scaling={"rope_type": "dynamic"}))
 
 
 # ---------------------------------------------------------------------------
