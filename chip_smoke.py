@@ -47,11 +47,30 @@ Phases, one line each (any failure exits non-zero and prints no result):
    in bf16 (16 of 32 layers: 46.5 GB of weights) through a 2048-token
    prefill (grouped route), 32 AR and 64 lookahead tokens (scan route),
    strictly lossless, one layer's grouped output bit-equal to its scan
-   output; the same model with int4 experts in 2 expert shards (all 32
-   layers) and with int8 experts (8 layers); and the bf16 model (4 layers)
-   serving the 16 requests, lookahead equal to AR;
-4. the launch count of every kernel and mode during phase 3, serving and
-   the quant modes, each counted from 0 (all must be > 0), the script's wall time, and the ``kernels`` JSON line.
+   output; the same model with int4 experts in 2 expert shards and with
+   int8 experts (8 layers each); and the bf16 model (4 layers) serving the
+   16 requests, lookahead equal to AR;
+   Multi-head Latent Attention: the MLA attention kernel and the
+   head-batched absorption GEMM against their plain versions with their
+   bit identities, DeepSeek-V2-Lite bf16 at all 27 layers (4096-token
+   prefill, AR and lookahead strictly lossless) and its 4 layers serving;
+   linear-attention hybrids: the linear-attention kernel (chunk, decode,
+   tree and commit modes) and the RMSNorm kernel (hidden, per-head and
+   gated group norms) against their plain versions at Ring-mini-linear-2.0
+   shapes, with the bit identities lookahead rests on (a verify row equals
+   the AR row, a commit of n nodes equals n AR steps, norm rows at every
+   batch width); Ring-mini-linear-2.0 in bf16 at all 20 layers (~33 GB of
+   random weights, experts in 2 expert shards): a 4096-token prefill, 32
+   AR and 64 lookahead tokens strictly lossless and equal to AR, a
+   teacher-forced lookahead / AR pair whose states and KV rows must be
+   bit-equal, one MoE layer's scan and sharded times; its first 5 layers
+   serving the 16 requests (lookahead equal to AR, no prefix hits, two
+   requests equal served alone), and both kernels against their plain
+   versions on serving's inputs;
+4. the launch count of every kernel and mode during phase 3, serving, the
+   quant modes and the MoE, MLA and linear-attention phases, each counted
+   from 0 (all must be > 0), the script's wall time, and the ``kernels``
+   JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
 them) and ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -705,6 +724,12 @@ class Launches:
                       "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm,
                       "kv_permute_pages": ku.kv_permute_pages,
                       "kv_write_pages": ku.kv_write_pages}
+        la, rn = pkg["linear_attention"], pkg["rmsnorm"]
+        for mode in ("chunk", "decode", "tree", "commit"):
+            self.plain[f"linear_attention[{mode}]"] = getattr(la, f"linear_attention_{mode}")
+        for kind, fn in (("plain", rn.rms_norm), ("grouped", rn.rms_group_norm),
+                         ("gated", rn.rms_group_norm_sigmoid)):
+            self.plain[f"rms_norm[{kind}]"] = fn
 
     def reset(self):
         for f in (*self.attn, self.w8a8, self.gquant, self.mla, *self.plain.values()):
@@ -1024,7 +1049,39 @@ def drain_table_cost(pkg, tables, tcfg, prompts) -> dict:
     return out
 
 
-class ServingCapture:
+class LaunchHooks:
+    """The capture classes' common part: ``_wrap`` replaces launch functions
+    of the port's ops modules by hooks made from the originals, ``remove``
+    puts the originals back."""
+
+    def __init__(self, pkg):
+        self.pkg = pkg
+        self._saved = []
+
+    def _wrap(self, hooks):
+        """hooks: (module, function name, make), make(original) -> hook."""
+        for mod, name, make in hooks:
+            orig = getattr(mod, name)
+            self._saved.append((mod, name, orig))
+            setattr(mod, name, make(orig))
+
+    def remove(self):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+        self._saved.clear()
+
+    @staticmethod
+    def _first_layer(t) -> bool:
+        """True for a view at the start of its storage: a stacked arena's or
+        weight's layer 0."""
+        return t.data_ptr() == t.untyped_storage().data_ptr()
+
+    @staticmethod
+    def _clone(t):
+        return None if t is None else t.clone()
+
+
+class ServingCapture(LaunchHooks):
     """The inputs of real serving calls into the kernels, for holding each
     kernel against its plain version at the shapes serving gives it.
 
@@ -1041,10 +1098,9 @@ class ServingCapture:
     after the run's counts are read."""
 
     def __init__(self, pkg):
-        self.pkg = pkg
+        super().__init__(pkg)
         self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
         self.gemm8 = {}
-        self._saved = []
 
     def install(self, gemm8_only: bool = False):
         """Wrap the launch functions; ``gemm8_only`` leaves attention, K1 and
@@ -1060,19 +1116,7 @@ class ServingCapture:
                       (qm, "_int4_matmul_cuda", self._gemm_hook),
                       (ku, "_kv_permute_cuda", self._permute_hook),
                       (ku, "_kv_write_pages_cuda", self._write_hook)]
-        for mod, name, make in hooks:
-            orig = getattr(mod, name)
-            self._saved.append((mod, name, orig))
-            setattr(mod, name, make(orig))
-
-    def remove(self):
-        for mod, name, orig in self._saved:
-            setattr(mod, name, orig)
-        self._saved.clear()
-
-    @staticmethod
-    def _first_layer(t) -> bool:
-        return t.data_ptr() == t.untyped_storage().data_ptr()
+        self._wrap(hooks)
 
     def _attn_hook(self, orig):
         def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None):
@@ -1360,6 +1404,9 @@ MOE_AR_TOKENS = 32
 MOE_SPEC_TOKENS = 64
 MOE_BF16_LAYERS = 16  # 46.5 GB of the 93 GB a bf16 Mixtral-8x7B weighs
 MOE_INT8_LAYERS = 8
+# the int4 experts' run in shards was at all 32 layers until the hybrid phases
+# came; 8 layers keep the shards' route and its kernel at a quarter of the time
+MOE_INT4_LAYERS = 8
 MOE_SERVE_LAYERS = 4
 MOE_SHARDS = 2
 # (family, experts, top-k, expert GEMM shapes (K, N): gate/up then down, token counts)
@@ -1691,7 +1738,7 @@ def phase_moe(pkg) -> dict:
     torch.cuda.empty_cache()
 
     # weight-only experts in expert shards: int4 at full depth, int8 at a cut depth
-    for bits, layers, kernel in ((4, full.num_hidden_layers, "grouped_int4_gemm"),
+    for bits, layers, kernel in ((4, MOE_INT4_LAYERS, "grouped_int4_gemm"),
                                  (8, MOE_INT8_LAYERS, "grouped_int8_gemm")):
         cfg = dataclasses.replace(full, num_hidden_layers=layers, expert_parallel=True)
         spec = lin.QuantSpec(bits=bits, group=128)
@@ -1791,7 +1838,7 @@ def check_mla(pkg, g, kind, H, ctx, Q, qmask=None):
     return mla_row(pkg, kind, q, k, pt, ctx_t, qmask.expand(B, Q, Q), scale, "")
 
 
-class MlaCapture:
+class MlaCapture(LaunchHooks):
     """K13's inputs at layer 0 in real runs of the MLA model, for holding K13
     against its plain version at the shapes the model gives it. With
     ``widest`` (serving) it keeps the widest decode and verify batch and
@@ -1803,16 +1850,16 @@ class MlaCapture:
     ``rows`` launches afresh on the kept inputs."""
 
     def __init__(self, pkg, widest: bool):
-        self.pkg, self.widest = pkg, widest
+        super().__init__(pkg)
+        self.widest = widest
         self.kept, self.prefill = {}, []
-        self._orig = None
 
     def install(self):
-        ma = self.pkg["mla_attention"]
-        orig = self._orig = ma._launch
+        self._wrap([(self.pkg["mla_attention"], "_launch", self._hook)])
 
+    def _hook(self, orig):
         def hook(q, k_pages, pt, ctx, qmask, scale, v_dim, causal):
-            if ServingCapture._first_layer(k_pages):
+            if self._first_layer(k_pages):
                 B, Q = q.shape[:2]
                 kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
                 old = self.kept.get(kind)
@@ -1822,16 +1869,13 @@ class MlaCapture:
                     keep = old is None or (self.widest and B > old["q"].shape[0])
                 if keep:
                     c = dict(q=q.clone(), k=k_pages.clone(), pt=pt.clone(), ctx=ctx.clone(),
-                             scale=scale, qmask=None if qmask is None else qmask.clone())
+                             scale=scale, qmask=self._clone(qmask))
                     if self.widest and kind == "prefill":
                         self.prefill.append(c)
                     else:
                         self.kept[kind] = c
             return orig(q, k_pages, pt, ctx, qmask, scale, v_dim, causal)
-        ma._launch = hook
-
-    def remove(self):
-        self.pkg["mla_attention"]._launch = self._orig
+        return hook
 
     def rows(self, case: str) -> list:
         """The kept calls against mla_paged_attention_plain (mla_row); forgets
@@ -2037,9 +2081,604 @@ def phase_mla(pkg) -> dict:
     return dict(main_path=res, serving=[res_ar, res_la], launches=totals, kernels=kernels)
 
 
+# ---------------------------------------------------------------------------
+# linear-attention hybrids: K14, K15, Ring-mini-linear-2.0
+# ---------------------------------------------------------------------------
+
+LA_SRC = "painlessinferenceacceleration_tpu/ops/linear_attention.py"
+LA_MODEL = "painlessinferenceacceleration_tpu/models/linear_attn.py"
+NORM_SRC = "painlessinferenceacceleration_tpu/ops/rmsnorm.py"
+FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+LIN_PROMPT_LEN = 4096
+LIN_AR_TOKENS = 32
+LIN_SPEC_TOKENS = 64
+LIN_SHARDS = 2  # expert shards: the routed grouped route (the scan sweeps 256 experts)
+LIN_SERVE_LAYERS = 5  # one layer group: linear 0-3 (0 with the dense MLP), full 4
+LIN_TEACHER_PROMPT = 512
+LIN_H, LIN_D = 16, 128
+LA_REPLACES = {
+    "chunk": f"{LA_SRC}:29 _la_kernel",
+    "tree": f"{LA_SRC}:105 _la_tree_kernel",
+    "decode": f"{LA_SRC}:29 _la_kernel at C = 1 (the JAX package decodes C = 1 in jnp, "
+              f"{LA_MODEL}:148)",
+    "commit": f"{LA_MODEL}:370 commit_linear_states (jnp in the JAX package: no Pallas "
+              f"body)",
+}
+
+
+def la_features(g, B, H, C, D):
+    """silu'd q, k and raw v [B, H, C, D] fp32, as the block feeds K14."""
+    import torch
+
+    f = torch.nn.functional.silu
+    q, k, v = (torch.randn(B, H, C, D, generator=g, device="cuda") * 0.5 for _ in range(3))
+    return f(q), f(k), v
+
+
+def la_loglam(pkg, H):
+    la_model = pkg["linear_attn"]
+    return la_model.loglam_of(la_model.default_decays(H, "cuda"))
+
+
+def la_row(pkg, mode, args, case):
+    """K14 in ``mode`` on these inputs against its plain version, timed.
+    Chunk mode: 1e-5 of the largest value (the same sub-tiles, dot products
+    summed in another order); decode, tree and commit repeat the plain
+    version's operations one for one: equal bits. The bound counts q, k, v
+    of the live tokens, the output, and the states each live row reads
+    (and writes); the operations of the chunk form (scores, their products
+    with v, q S and the state update per token) or of the per-token step
+    (3 D^2) and readout (2 D^2), against the card's fp32 rate. No single
+    PyTorch call computes any of the four: library_ms is null."""
+    import torch
+
+    la = pkg["linear_attention"]
+    if mode != "commit":
+        B, H, Q, D = args[0].shape
+    if mode == "chunk":
+        q, k, v, arena, lens, ll, sid = args
+
+        def run(st):
+            return la.linear_attention_chunk(q, k, v, st, lens, ll, sid)[0]
+
+        def plain(st):
+            return la.linear_attention_chunk_plain(q, k, v, st, lens, ll, sid)[0]
+        n = lens.tolist()
+        live = sum(n)
+        flops = 0.0
+        for t in n:
+            for t0 in range(0, t, 64):
+                m = min(64, t - t0)
+                flops += H * (m * 4.0 * D * D + 2.0 * D * m * (m + 1))
+        nbytes = (3 * live * H * D + B * H * Q * D + 2 * sum(1 for t in n if t) * H * D * D) * 4
+    elif mode in ("decode", "tree"):
+        q, k, v, arena, parents, valid, ll, sid = args
+        if mode == "decode":
+            def run(st):
+                return la.linear_attention_decode(q, k, v, st, valid, ll, sid)[0]
+
+            def plain(st):
+                return la.linear_attention_decode_plain(q, k, v, st, valid, ll, sid)[0]
+        else:
+            def run(st):
+                return la.linear_attention_tree(q, k, v, st, parents, valid, ll, sid)
+
+            def plain(st):
+                return la.linear_attention_tree_plain(q, k, v, st, parents, valid, ll, sid)
+        rows = int(valid[:, 0].sum().item())
+        live = int((valid & valid[:, :1]).sum().item())
+        flops = 5.0 * live * H * D * D
+        nbytes = (3 * live * H * D + B * H * Q * D
+                  + (2 if mode == "decode" else 1) * rows * H * D * D) * 4
+    else:  # commit
+        arena, wk, wv, chain, ncommit, ll, sid = args
+        n_lin = arena.shape[0]
+        _, B, H, Q, D = wk.shape
+
+        def run(st):
+            return la.linear_attention_commit(st, wk, wv, chain, ncommit, ll, sid)
+
+        def plain(st):
+            return la.linear_attention_commit_plain(st, wk, wv, chain, ncommit, ll, sid)
+        nodes = int(ncommit.clamp(max=chain.shape[1]).sum().item())
+        rows = int((ncommit > 0).sum().item())
+        flops = 3.0 * n_lin * nodes * H * D * D
+        nbytes = (2 * n_lin * nodes * H * D + 2 * n_lin * rows * H * D * D) * 4
+    st_k, st_p = arena.clone(), arena.clone()
+    got, ref = run(st_k), plain(st_p)
+    torch.cuda.synchronize()
+    err, rel = _errs(got, ref)
+    serr, srel = _errs(st_k, st_p)
+    if mode == "chunk":
+        if not (rel <= 1e-5 and srel <= 1e-5):
+            fail(f"linear_attention[chunk] {case}: rel err {rel} (state {srel}) > 1e-5")
+    elif not (torch.equal(got, ref) and torch.equal(st_k, st_p)):
+        fail(f"linear_attention[{mode}] {case}: differs from its plain version "
+             f"(max {err}, state {serr})")
+    big = mode == "chunk" and Q >= 512
+    st_t = arena.clone()
+    ms = time_ms(lambda: run(st_t), reps=5 if big else 20)
+    plain_ms = time_ms(lambda: plain(st_t), reps=2 if big else 3, warmup=1)
+    del st_k, st_p, st_t
+    shape = (f"B={B} H={H} D={D} " + (f"C={Q} chunk_lens={lens.tolist()}" if mode == "chunk"
+                                        else f"n_lin={arena.shape[0]} Q={Q} "
+                                             f"n={ncommit.tolist()}" if mode == "commit"
+                                        else f"Q={Q}"))
+    return dict(_case(f"linear_attention[{mode}]", "linear_attention.cu", LA_REPLACES[mode],
+                      max(err, serr), max(rel, srel), ms, plain_ms,
+                      bound_ms(nbytes, flops, FP32_FLOPS), None, case + shape))
+
+
+def check_la(pkg, g, mode, B, Q, R=1, L=16, n=None):
+    """K14 on seeded inputs at the model's heads (16) and head dim (128)."""
+    import torch
+
+    H, D = LIN_H, LIN_D
+    ll = la_loglam(pkg, H)
+    if mode == "commit":
+        n_lin = 16  # Ring-mini-linear-2.0's linear layers
+        arena = torch.randn(n_lin, B, H, D, D, generator=g, device="cuda") * 0.1
+        _, wk, wv = la_features(g, n_lin * B, H, Q, D)
+        wk, wv = (t.reshape(n_lin, B, H, Q, D) for t in (wk, wv))
+        chain = torch.cat([torch.zeros(B, 1, dtype=torch.int32, device="cuda"),
+                           1 + torch.arange(Q - 1, device="cuda", dtype=torch.int32)
+                           .repeat(B, 1)], dim=1)
+        ncommit = torch.tensor(n, dtype=torch.int32, device="cuda")
+        sid = torch.arange(B, dtype=torch.int32, device="cuda")
+        return la_row(pkg, mode, (arena, wk, wv, chain, ncommit, ll.repeat(n_lin, 1), sid),
+                      "")
+    q, k, v = la_features(g, B, H, Q, D)
+    arena = torch.randn(B, H, D, D, generator=g, device="cuda") * 0.1  # a carried state
+    sid = torch.arange(B, dtype=torch.int32, device="cuda")
+    if mode == "chunk":
+        lens = torch.tensor([Q] + [max(Q // 2, 0 if Q == 1 else 1)] * (B - 1),
+                            dtype=torch.int32, device="cuda")
+        return la_row(pkg, mode, (q, k, v, arena, lens, ll, sid), "")
+    if mode == "decode":
+        valid = torch.ones(B, 1, dtype=torch.bool, device="cuda")
+        return la_row(pkg, mode, (q, k, v, arena, None, valid, ll, sid), "")
+    branches = torch.randint(3, 1000, (B, R, L), generator=g, device="cuda")
+    _, parents, _, _ = pkg["device_tables"].build_tree_inputs(
+        torch.ones(B, dtype=torch.int32, device="cuda"), branches)
+    return la_row(pkg, mode, (q, k, v, arena, parents, parents > -2, ll, sid),
+                  f"R={R} L={L} ")
+
+
+def norm_row(pkg, kind, x, w, gate, groups, case):
+    """K15 on these rows against its fp64-summed plain version, timed: bf16
+    within one bf16 ulp of the largest value (2^-7 relative; a value next
+    to a rounding boundary may round the other way after the fp32 sum in
+    another order), fp32 within 5e-7. Yardstick: torch's rms_norm for the
+    plain kind where the installed torch has it, none for the grouped and
+    gated kinds (no one call computes them)."""
+    import torch
+    import torch.nn.functional as F
+
+    rn = pkg["rmsnorm"]
+    eps = 1e-6
+    width = x.shape[-1]
+    if kind == "plain":
+        def run():
+            return rn.rms_norm(x, w, eps)
+
+        def plain():
+            return rn.rms_norm_plain(x, w, eps)
+        lib = (library_ms(lambda: F.rms_norm(x, (width,), w, eps))
+               if hasattr(F, "rms_norm") else None)
+    elif kind == "grouped":
+        def run():
+            return rn.rms_group_norm(x, w, eps, groups)
+
+        def plain():
+            return rn.rms_group_norm_plain(x, w, eps, groups)
+        lib = None
+    else:
+        def run():
+            return rn.rms_group_norm_sigmoid(x, gate, w, eps, groups)
+
+        def plain():
+            return rn.rms_group_norm_sigmoid_plain(x, gate, w, eps, groups)
+        lib = None
+    got = run()
+    err, rel = _errs(got, plain())
+    tol = 2 ** -7 if x.dtype == torch.bfloat16 else 5e-7
+    if not rel <= tol:
+        fail(f"rms_norm[{kind}] {case}: rel err {rel} > {tol}")
+    ms = time_ms(run)
+    plain_ms = time_ms(plain, reps=5)
+    n = x.numel()
+    nbytes = (2 + (gate is not None)) * n * x.element_size() + w.numel() * w.element_size()
+    rows = n // width
+    return _case(f"rms_norm[{kind}]", "rmsnorm.cu", f"{NORM_SRC}:85 _rmsnorm_kernel", err,
+                 rel, ms, plain_ms, bound_ms(nbytes, 4.0 * n, FP32_FLOPS), lib,
+                 f"{case}rows={rows} width={width} groups={groups} "
+                 f"dtype={str(x.dtype).split('.')[-1]}")
+
+
+def check_norm(pkg, g, kind, rows, width, groups, case="", stride=None):
+    """K15 on seeded bf16 rows; with ``stride``, the first ``width`` of each
+    ``stride``-wide row (a view, as MLA's kv_a norm reads its latent)."""
+    import torch
+
+    x = (torch.randn(rows, stride or width, generator=g, device="cuda") * 2).to(torch.bfloat16)
+    x = x[:, :width]
+    w = (1 + 0.2 * torch.randn(width, generator=g, device="cuda")).to(torch.bfloat16)
+    gate = torch.randn(rows, width, generator=g, device="cuda").to(torch.bfloat16)
+    if stride:
+        case += f"row stride={stride} "
+    return norm_row(pkg, kind, x, w, gate if kind == "gated" else None, groups, case)
+
+
+def check_linear_identities(pkg, g) -> None:
+    """On the card: a node's verify row equals the AR decode row at its
+    position; the state after committing n accepted nodes equals n AR
+    steps (n = 1, 5, 17); K15 rows are identical at B.Q = 1, 17, 512 and
+    4096 (hidden width, a per-head width and the gated group norm). Fails
+    the run otherwise."""
+    import torch
+
+    la, rn = pkg["linear_attention"], pkg["rmsnorm"]
+    H, D, R, L = LIN_H, LIN_D, 1, 16
+    q, k, v = la_features(g, 1, H, 1 + R * L, D)
+    s0 = torch.randn(1, H, D, D, generator=g, device="cuda") * 0.1
+    ll = la_loglam(pkg, H)
+    branches = torch.randint(3, 1000, (1, R, L), generator=g, device="cuda")
+    _, parents, _, _ = pkg["device_tables"].build_tree_inputs(
+        torch.ones(1, dtype=torch.int32, device="cuda"), branches)
+    valid = parents > -2
+    tree = la.linear_attention_tree(q, k, v, s0, parents, valid, ll)
+    s_ar, states = s0.clone(), []
+    for c in range(1 + R * L):
+        o, _ = la.linear_attention_decode(*(t[:, :, c:c + 1].contiguous() for t in (q, k, v)),
+                                          s_ar, valid[:, :1], ll)
+        if not torch.equal(o[:, :, 0], tree[:, :, c]):
+            fail(f"linear_attention: verify row {c} differs from the AR row")
+        states.append(s_ar.clone())
+    for n in (1, 5, 17):
+        arena = s0[None].clone()
+        la.linear_attention_commit(arena, k[None], v[None],
+                                   torch.arange(17, device="cuda")[None],
+                                   torch.tensor([n], device="cuda"), ll[None],
+                                   torch.zeros(1, dtype=torch.int32, device="cuda"))
+        if not torch.equal(arena[0], states[n - 1]):
+            fail(f"linear_attention: the commit of {n} nodes differs from {n} AR steps")
+    for width, groups, gated in ((2048, 1, False), (128, 1, False), (2048, 16, True)):
+        x = torch.randn(4096, width, generator=g, device="cuda").to(torch.bfloat16)
+        gate = torch.randn(4096, width, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.ones(width, dtype=torch.bfloat16, device="cuda")
+
+        def norm(m):
+            if gated:
+                return rn.rms_group_norm_sigmoid(x[:m], gate[:m], w, 1e-6, groups)
+            return rn.rms_group_norm(x[:m], w, 1e-6, groups)
+        full = norm(4096)
+        for m in (1, 17, 512):
+            if not torch.equal(norm(m), full[:m]):
+                fail(f"rms_norm width={width} groups={groups}: rows change with the "
+                     f"batch (M={m})")
+    print("phase linear identities: verify rows equal AR rows, the commit of 1 / 5 / 17 "
+          "nodes equals as many AR steps, K15 rows bit-identical at 1, 17, 512 and 4096 "
+          "rows (widths 2048 and 128, the gated group norm)")
+
+
+def phase_linear_kernels(pkg) -> list:
+    """K14's four modes and K15 against their plain versions at
+    Ring-mini-linear-2.0's shapes, K15 also at the earlier models' (every
+    model's norms launch it), and the bit identities. Returns the
+    kernels-line rows; the ungated group norm, which the model never runs,
+    is checked and printed but kept out of the line."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for C in (1, 17, 512, LIN_PROMPT_LEN):
+        rows.append(check_la(pkg, g, "chunk", 2, C))
+    for B in (1, 8):
+        rows.append(check_la(pkg, g, "decode", B, 1))
+    for R, L in ((1, 16), (2, 8)):
+        rows.append(check_la(pkg, g, "tree", 1, 1 + R * L, R=R, L=L))
+    for n in (1, 5, 17):
+        rows.append(check_la(pkg, g, "commit", 1, 17, n=[n]))
+    for r in (1, 17, 4096):
+        rows.append(check_norm(pkg, g, "plain", r, 2048, 1))  # the hidden norms
+        rows.append(check_norm(pkg, g, "plain", 16 * r, 128, 1, "per-head q/k "))
+        rows.append(check_norm(pkg, g, "gated", r, 2048, 16, "output gate "))
+    for r in (1, 512, 2048):  # Llama-2-7B's and Mixtral's hidden norms
+        rows.append(check_norm(pkg, g, "plain", r, 4096, 1, "hidden 4096 "))
+    for r in (1, 4096):  # DeepSeek-V2-Lite's kv_a norm: 512 of the 576-wide latent rows
+        rows.append(check_norm(pkg, g, "plain", r, 512, 1, "MLA kv_a ", stride=576))
+    extra = [check_norm(pkg, g, "grouped", r, 2048, 16) for r in (1, 4096)]
+    check_linear_identities(pkg, g)
+    torch.cuda.synchronize()
+    for r in rows:
+        print("phase linear kernel: " + json.dumps(r))
+    for r in extra:
+        print("phase linear kernel (not on the model's path): " + json.dumps(r))
+    return rows
+
+
+class LinearCapture(LaunchHooks):
+    """K14's and K15's inputs in real serving calls, for holding them against
+    their plain versions at the shapes serving gives them: K14 at the first
+    linear layer (its state is the arena's first layer), the widest decode,
+    tree and commit calls and up to 8 chunk calls of B >= 2 (``rows`` takes
+    the one with the most live rows); K15 the call with the most rows of
+    each kind and width. Inputs are cloned at the call, in stream order;
+    choosing reads shapes and pointers only."""
+
+    def __init__(self, pkg):
+        super().__init__(pkg)
+        self.kept, self.chunks, self.norms = {}, [], {}
+
+    def install(self):
+        la, rn = self.pkg["linear_attention"], self.pkg["rmsnorm"]
+        self._wrap([(la, "_recurrent_cuda", self._recurrent),
+                    (la, "_chunk_cuda", self._chunk),
+                    (la, "_commit_cuda", self._commit),
+                    (rn, "_launch", self._norm)])
+
+    def _recurrent(self, orig):
+        def hook(xq, xk, xv, state, parents, valid, loglam, slot_ids, write):
+            mode = "decode" if write else "tree"
+            old = self.kept.get(mode)
+            if self._first_layer(state) and (
+                    old is None or xq.shape[0] > old[0].shape[0]):
+                self.kept[mode] = tuple(self._clone(t) for t in (
+                    xq, xk, xv, state, parents, valid, loglam, slot_ids))
+            return orig(xq, xk, xv, state, parents, valid, loglam, slot_ids, write)
+        return hook
+
+    def _chunk(self, orig):
+        def hook(xq, xk, xv, state, lens, loglam, slot_ids):
+            if (self._first_layer(state) and xq.shape[0] >= 2
+                    and len(self.chunks) < 8):
+                self.chunks.append(tuple(self._clone(t) for t in (
+                    xq, xk, xv, state, lens, loglam, slot_ids)))
+            return orig(xq, xk, xv, state, lens, loglam, slot_ids)
+        return hook
+
+    def _commit(self, orig):
+        def hook(state, wk, wv, chain, n, loglam, slot_ids):
+            old = self.kept.get("commit")
+            if old is None or wk.shape[1] > old[1].shape[1]:
+                self.kept["commit"] = tuple(self._clone(t) for t in (
+                    state, wk, wv, chain, n, loglam, slot_ids))
+            return orig(state, wk, wv, chain, n, loglam, slot_ids)
+        return hook
+
+    def _norm(self, orig):
+        def hook(x, weight, gate, eps, groups, wrapper):
+            kind = {"rms_norm": "plain", "rms_group_norm": "grouped",
+                    "rms_group_norm_sigmoid": "gated"}[wrapper.__name__]
+            key = (kind, x.shape[-1])
+            old = self.norms.get(key)
+            if old is None or x.numel() > old[0].numel():
+                self.norms[key] = (x.clone(), weight, self._clone(gate), groups)
+            return orig(x, weight, gate, eps, groups, wrapper)
+        return hook
+
+    def rows(self, case: str) -> list:
+        out = []
+        if self.chunks:
+            self.kept["chunk"] = max(self.chunks, key=lambda c: int((c[4] > 0).sum().item()))
+        for mode in ("chunk", "decode", "tree", "commit"):
+            c = self.kept.get(mode)
+            if c is None:
+                fail(f"{case}: K14 made no {mode} call")
+            out.append(la_row(self.pkg, mode, c, f"{case} "))
+        for (kind, width), (x, w, gate, groups) in sorted(self.norms.items()):
+            x2 = x.reshape(-1, width)
+            out.append(norm_row(self.pkg, kind, x2, w, None if gate is None
+                                else gate.reshape(-1, width), groups, f"{case} "))
+        self.kept, self.chunks, self.norms = {}, [], {}
+        return out
+
+
+def first_hybrid_layers(cfg, params, n: int):
+    """A hybrid cut to its first n layers: the same per-layer weights."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, num_hidden_layers=n),
+            dict(params, hybrid_layers=params["hybrid_layers"][:n]))
+
+
+def teacher_forced_pair(pkg, cfg, params) -> dict:
+    """Teacher-forced lookahead and teacher-forced AR over one stream (a
+    64-token cycle, which the tables learn from the prompt, so drafts land
+    and chains of up to 17 nodes are committed), from the same 512-token
+    prefill: after the same tokens, every linear layer's state and the full
+    layers' KV rows must be bit-equal."""
+    import numpy as np
+    import torch
+
+    step, ms_mod, dt = pkg["step"], pkg["multistep"], pkg["device_tables"]
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=1)
+    cycle = np.random.default_rng(SEED + 1).integers(10, cfg.vocab_size - 10, 64)
+    teacher = torch.tensor(np.tile(cycle, 16)[None], dtype=torch.int32, device="cuda")
+    P0 = LIN_TEACHER_PROMPT
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    ctx0 = torch.tensor([P0], dtype=torch.int32, device="cuda")
+
+    def prefill():
+        kv = pkg["cache"].init_kv_cache(cfg, ecfg)
+        kv, _, _ = step.prefill_step(params, kv, cfg, teacher[:, :P0],
+                                     torch.zeros(1, dtype=torch.int32, device="cuda"),
+                                     ctx0, pt)
+        return kv
+
+    tcfg = dt.DraftTableConfig(buckets=16384, ways=8, branch_length=16, retrieve_count=1)
+    tables = dt.init_draft_tables(tcfg)
+    dt.update_tables_seq(tables, tcfg, teacher[0, :P0], P0)
+    kv_la = prefill()
+    t0 = time.perf_counter()
+    out = ms_mod.multistep_spec_decode(params, kv_la, tables, cfg, tcfg, teacher[:, P0], ctx0,
+                                       one, teacher[:, P0 - 17: P0 + 1], pt, n_steps=8,
+                                       teacher=teacher, update_tables=False)
+    n_tok = int(out[5][0]) - P0
+    spec_s = time.perf_counter() - t0
+    del tables
+    kv_ar = prefill()
+    t0 = time.perf_counter()
+    ms_mod.multistep_decode(params, kv_ar, cfg, teacher[:, P0], ctx0, one, pt,
+                            n_steps=n_tok, teacher=teacher)
+    torch.cuda.synchronize()
+    ar_s = time.perf_counter() - t0
+    ctx = P0 + n_tok
+    pages = pt[0, : -(-ctx // 64)].long()
+    same_kv = all(torch.equal(
+        kv_la[n][:, pages].reshape(kv_la[n].shape[0], -1, kv_la[n].shape[-1])[:, :ctx],
+        kv_ar[n][:, pages].reshape(kv_ar[n].shape[0], -1, kv_ar[n].shape[-1])[:, :ctx])
+        for n in ("k", "v"))
+    res = dict(tokens=n_tok, verify_steps=8, accepted_per_step=n_tok / 8,
+               states_bit_equal=bool(torch.equal(kv_la["s"], kv_ar["s"])),
+               kv_rows_bit_equal=bool(same_kv), spec_tok_s=n_tok / spec_s,
+               ar_tok_s=n_tok / ar_s)
+    print("phase linear teacher-forced pair: " + json.dumps(res))
+    if n_tok <= 8 * 4:
+        fail(f"teacher-forced pair: {n_tok} tokens in 8 verify steps (drafts never landed)")
+    if not (res["states_bit_equal"] and res["kv_rows_bit_equal"]):
+        fail("teacher-forced pair: lookahead and AR left different states or KV rows")
+    del kv_la, kv_ar
+    return res
+
+
+def moe_route_costs(pkg, cfg, params) -> dict:
+    """One MoE layer at T = 1 by the scan route (every one of the 256
+    experts swept, ~10 eager launches each) and by the routed route in
+    LIN_SHARDS expert shards, on one random bf16 input: why the phase runs
+    the experts in shards."""
+    import dataclasses
+
+    import torch
+
+    moe = pkg["moe"]
+    lp = params["hybrid_layers"][1]
+    x = (torch.randn(1, 1, cfg.hidden_size, generator=torch.Generator(device="cuda")
+                     .manual_seed(SEED), device="cuda") * 0.5).to(torch.bfloat16)
+    scan_cfg = dataclasses.replace(cfg, expert_parallel=False)
+    scan = time_ms(lambda: moe.moe_block(lp, scan_cfg, None, x), reps=3, warmup=1)
+    with moe.expert_shards(LIN_SHARDS):
+        routed = time_ms(lambda: moe.moe_block(lp, cfg, None, x), reps=10, warmup=2)
+    res = dict(T=1, scan_ms=scan, routed_shards_ms=routed, shards=LIN_SHARDS)
+    print("phase linear moe routes: " + json.dumps(res))
+    return res
+
+
+def phase_linear(pkg) -> dict:
+    """Ring-mini-linear-2.0 at full width and all 20 layers in bf16 (random
+    weights from seed 0), its experts in LIN_SHARDS expert shards: a
+    4096-token prefill, greedy AR and lookahead decode strictly lossless,
+    the lookahead stream equal to the AR stream, and the teacher-forced
+    pair; then its first 5 layers serving the 16 requests, lookahead equal
+    to AR, no prefix hits, two requests equal when served alone. K14 and
+    K15 are held against their plain versions on serving's inputs
+    (LinearCapture); those rows are in ``kernels``."""
+    import dataclasses
+
+    import torch
+
+    base, moe = pkg["base"], pkg["moe"]
+    full = dataclasses.replace(pkg["config"].ModelConfig.ring_mini_linear_2(),
+                               expert_parallel=True)
+    totals = {}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    torch.cuda.empty_cache()
+    params = base.init_params(full, torch.Generator(device="cuda").manual_seed(SEED),
+                              dtype=torch.bfloat16)
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    label = (f"phase linear main path (Ring-mini-linear-2.0 bf16, all "
+             f"{full.num_hidden_layers} layers, {weights_gb:.1f} GB of weights, "
+             f"{LIN_SHARDS} expert shards)")
+    with moe.expert_shards(LIN_SHARDS):
+        res = phase_main_path(pkg, full, None, params, LIN_AR_TOKENS, LIN_SPEC_TOKENS,
+                              label, extras=False, prompt_len=LIN_PROMPT_LEN,
+                              max_seq_len=LIN_PROMPT_LEN + 512)
+    res.update(layers=full.num_hidden_layers, prompt_len=LIN_PROMPT_LEN,
+               weights_gb=weights_gb, expert_shards=LIN_SHARDS)
+    add(res["launches"])
+    lc = res["launches"]
+    steps = dict(prefills=2, ar_steps=LIN_AR_TOKENS - 1, verify_steps=res["spec_steps"])
+    res["k14_k15_launches"] = dict(steps, **{k: v for k, v in lc.items()
+                                             if k.startswith(("linear_attention", "rms_norm"))})
+    print("phase linear launches per run: " + json.dumps(res["k14_k15_launches"]))
+    need = ("linear_attention[chunk]", "linear_attention[decode]", "linear_attention[tree]",
+            "linear_attention[commit]", "rms_norm[plain]", "rms_norm[gated]",
+            "paged_attention[decode]", "paged_attention[verify]", "paged_attention_prefill",
+            "grouped_gemm", "kv_permute_pages")
+    if any(lc[k] <= 0 for k in need):
+        fail(f"{label}: launches {lc} (needed {need})")
+    if res["spec_vs_ar_first_divergence"] != res["spec_vs_ar_compared"]:
+        fail(f"{label}: the lookahead stream differs from the AR stream at token "
+             f"{res['spec_vs_ar_first_divergence']}")
+    with moe.expert_shards(LIN_SHARDS):
+        res["teacher_forced"] = teacher_forced_pair(pkg, full, params)
+    res["moe_routes"] = moe_route_costs(pkg, full, params)
+    res["main_wall_s"] = time.perf_counter() - t_phase
+
+    # serving: the first layer group (4 linear + 1 full layer)
+    t_serve = time.perf_counter()
+    scfg, sparams = first_hybrid_layers(full, params, LIN_SERVE_LAYERS)
+    prompts = serving_prompts(scfg.vocab_size)
+    launches = Launches(pkg)
+    capture = LinearCapture(pkg)
+    capture.install()
+    launches.reset()
+    try:
+        with moe.expert_shards(LIN_SHARDS):
+            res_ar, ar_out, _ = serve_once(pkg, scfg, sparams, prompts, "none", False, "none")
+            res_la, la_out, _ = serve_once(pkg, scfg, sparams, prompts, "none", True, "none")
+    finally:
+        capture.remove()
+    serve_counts = launches.read()
+    add(serve_counts)
+    diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
+    res_la["identical_to_ar"] = not diff
+    solo = {}
+    with moe.expert_shards(LIN_SHARDS):
+        for i in (1, 2):
+            one, one_out, _ = serve_once(pkg, scfg, sparams, [prompts[i]], "none", False,
+                                         "none")
+            solo[i] = one_out[0] == ar_out[i]
+    res_ar["solo_equals_batch"] = solo
+    for r in (res_ar, res_la):
+        print("phase linear serving run: " + json.dumps(r))
+    print("phase linear serving launches: " + json.dumps(serve_counts))
+    if diff:
+        fail(f"linear serving: lookahead differs from AR on requests {diff}")
+    if res_la["spec_steps"] <= 0:
+        fail("linear serving: no spec step")
+    if res_ar["prefix_hit_tokens"] or res_la["prefix_hit_tokens"]:
+        fail("linear serving: a hybrid matched a shared prefix")
+    if not all(solo.values()):
+        fail(f"linear serving: a request served alone differs from its batched self {solo}")
+    modes = ("chunk", "decode", "tree", "commit")
+    if any(serve_counts[f"linear_attention[{m}]"] <= 0 for m in modes):
+        fail(f"linear serving: K14 did not run in every mode: {serve_counts}")
+    del params, sparams
+    torch.cuda.empty_cache()
+    # K14 and K15 against their plain versions on serving's inputs
+    kernels = capture.rows("serving")
+    for r in kernels:
+        print("phase linear kernel: " + json.dumps(r))
+    res["serve_wall_s"] = time.perf_counter() - t_serve
+    print(f"phase linear walls: main path {res['main_wall_s']:.1f} s, serving "
+          f"{res['serve_wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return dict(main_path=res, serving=[res_ar, res_la], launches=totals, kernels=kernels)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -2057,6 +2696,7 @@ def load_port():
                  quant_matmul="ops.quant_matmul", moe_matmul="ops.moe_matmul",
                  moe="models.moe", paged_attention="ops.paged_attention",
                  mla_attention="ops.mla_attention",
+                 linear_attention="ops.linear_attention", linear_attn="models.linear_attn",
                  attention="ops.attention", kv_update="ops.kv_update",
                  rmsnorm="ops.rmsnorm", cache="engine.cache", step="engine.step",
                  multistep="engine.multistep", llm="engine.llm",
@@ -2074,6 +2714,9 @@ def main() -> None:
     ap.add_argument("--mla-only", action="store_true",
                     help="run only the Multi-head Latent Attention phases (a partial "
                          "run: prints no kernels line and no result line)")
+    ap.add_argument("--linear-only", action="store_true",
+                    help="run only the linear-attention hybrid phases (a partial run: "
+                         "prints no kernels line and no result line)")
     args = ap.parse_args()
     import torch
 
@@ -2102,6 +2745,18 @@ def main() -> None:
             args.json.write_text(json.dumps(dict(environment=env, kernels=rows, mla=mla_res,
                                                  wall_s=wall_s), indent=1))
         return
+    if args.linear_only:
+        rows = phase_linear_kernels(pkg)
+        lin_res = phase_linear(pkg)
+        rows += lin_res["kernels"]
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (linear-attention phases only), wall {wall_s:.1f} s on "
+              f"{env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
+                                                 linear=lin_res, wall_s=wall_s), indent=1))
+        return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
     rows = phase_kernels(pkg, cfg)
@@ -2119,16 +2774,22 @@ def main() -> None:
     rows += phase_mla_kernels(pkg)
     mla_res = phase_mla(pkg)
     rows += mla_res["kernels"]
+    t_lin = time.perf_counter()
+    rows += phase_linear_kernels(pkg)
+    lin_res = phase_linear(pkg)
+    rows += lin_res["kernels"]
+    print(f"linear-attention phases' wall: {time.perf_counter() - t_lin:.1f} s")
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
-                    mla=mla_res["launches"])
+                    mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving, in "
-                 "the quant modes, in the MoE phases or in the MLA phases")
+                 "the quant modes, in the MoE phases, in the MLA phases or in the "
+                 "linear-attention phases")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
     print("phase 4 launches (sum): " + json.dumps(launches))
     wall_s = time.perf_counter() - T_START
@@ -2138,7 +2799,8 @@ def main() -> None:
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
                                              quant_modes=quant_res, moe=moe_res,
-                                             mla=mla_res, launches=by_phase,
+                                             mla=mla_res, linear=lin_res,
+                                             launches=by_phase,
                                              wall_s=wall_s), indent=1))
     print(json.dumps({"kernels": rows}))
     print(env["card"])

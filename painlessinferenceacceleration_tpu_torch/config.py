@@ -2,8 +2,9 @@
 
 A copy of the ported part of ``painlessinferenceacceleration_tpu.config``: the
 llama family (with qwen3's per-head QK norm), the Mixture-of-Experts fields
-of the mixtral / qwen3_moe / deepseek class and the Multi-head Latent
-Attention fields of deepseek v2 / v3 (the port imports nothing from the JAX
+of the mixtral / qwen3_moe / deepseek class, the Multi-head Latent
+Attention fields of deepseek v2 / v3 and the linear-attention hybrid fields
+of the Ring / Bailing-linear class (the port imports nothing from the JAX
 package). Field names follow HF ``config.json`` keys, as in the JAX
 package, with the same defaults, so one set of keyword arguments builds the
 same model in both packages.
@@ -22,7 +23,9 @@ class ModelConfig:
     deepseek_v2 / v3), where the layers from ``moe_layer_start`` on replace
     the MLP by routed experts (and optional always-on shared experts); with
     ``kv_lora_rank`` > 0 the attention is Multi-head Latent Attention
-    (``models/mla.py``)."""
+    (``models/mla.py``); with ``linear_attention`` the model is a hybrid of
+    linear-attention layers and, every ``layer_group_size``-th layer, full
+    attention (``models/linear_attn.py``)."""
 
     model_type: str = "llama"
     vocab_size: int = 32000
@@ -64,6 +67,15 @@ class ModelConfig:
     # cache the rms-normed latent and the roped k_pe once per token and run
     # weight-absorbed MQA over them (K13), instead of per-head K / V rows
     mla_latent_cache: bool = False
+    # linear-attention hybrids (Ring / Bailing-linear): every
+    # layer_group_size-th layer is full attention, the others linear with a
+    # recurrent state (0 = all linear)
+    linear_attention: bool = False
+    layer_group_size: int = 0
+    # bailing-linear-v2 linear layers apply per-head q/k RMSNorm and rope
+    # before the feature map
+    linear_qk_norm: bool = False
+    linear_rope: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -142,6 +154,31 @@ class ModelConfig:
                    routed_scaling_factor=1.0, n_group=1, topk_group=1,
                    q_lora_rank=0, kv_lora_rank=512, qk_nope_head_dim=128,
                    qk_rope_head_dim=64, v_head_dim=128, mla_latent_cache=True)
+
+    @classmethod
+    def ring_mini_linear_2(cls) -> "ModelConfig":
+        """inclusionAI/Ring-mini-linear-2.0 (``config.json`` model type
+        ``bailing_moe_linear_v2``) as the JAX package's ``ModelConfig.from_hf``
+        maps it: 20 layers of which every 5th (4, 9, 14, 19) is full attention
+        (16 heads, 4 KV heads, per-head q/k norm) and the other 16 linear
+        attention over the 16 heads with per-head q/k norm and rope; a dense
+        first layer (``first_k_dense_replace`` 1), then 256 sigmoid-scored
+        experts of 512 in 8 groups (top 4 groups, top 8 experts, scaling
+        2.5, expert bias) and one shared expert. The values are the published
+        ones as the porting notes read them; no copy of the file is in this
+        repository. The two that matter most to re-check against one are
+        ``layer_group_size`` (the layer pattern) and ``num_key_value_heads``
+        (the full layers' grouped-query attention)."""
+        return cls(model_type="bailing_moe_linear_v2", vocab_size=157184,
+                   hidden_size=2048, intermediate_size=5120,
+                   moe_intermediate_size=512, num_hidden_layers=20,
+                   num_attention_heads=16, num_key_value_heads=4, head_dim=128,
+                   rms_norm_eps=1e-6, rope_theta=600000.0, tie_word_embeddings=False,
+                   qk_norm=True, num_experts=256, num_experts_per_tok=8,
+                   num_shared_experts=1, moe_layer_start=1, norm_topk_prob=True,
+                   routed_scaling_factor=2.5, scoring_func="sigmoid", n_group=8,
+                   topk_group=4, linear_attention=True, layer_group_size=5,
+                   linear_qk_norm=True, linear_rope=True)
 
 
 # Decode-batch buckets: batch widths snap to this ladder (as in the JAX

@@ -23,6 +23,13 @@ per-head K rows of nope + rope lanes and V rows of v_head_dim lanes
 the latent again, ``kv_lora_rank`` lanes. The JAX package pads the latent K
 row to a multiple of 128 lanes for its page DMA; the port does not.
 
+A linear-attention hybrid (``ModelConfig.linear_attention``) has K/V arenas
+for its full-attention layers only (at least one), in the model's dtype,
+and the recurrent-state arena ``s`` [n_linear_layers, max_concurrency, H, D,
+D] in fp32, one state per engine slot. The JAX package allocates no scale
+arrays for a hybrid, so it never holds e4m3 pages; here ``kv_quant`` other
+than ``"none"`` raises for one.
+
 e4m3 rows are scattered and gathered through ``uint8`` views. JAX donates
 the arena and gets an updated copy back; here every writer updates the
 tensors in place and also returns them.
@@ -74,6 +81,8 @@ def kv_bytes_per_page(mcfg: ModelConfig, ecfg: EngineConfig,
     fp8 = ecfg.kv_quant.startswith("fp8")
     dtype_size = torch.empty((), dtype=dtype).element_size()
     L, ps, Hk = mcfg.num_hidden_layers, ecfg.page_size, mcfg.num_key_value_heads
+    if mcfg.linear_attention:  # the full layers' pages only
+        return _n_full(mcfg) * ps * Hk * mcfg.head_dim * dtype_size * 2
     if mcfg.is_mla:
         return L * ps * sum(_mla_rows(mcfg)) * dtype_size
     itemsize = 1 if fp8 else dtype_size
@@ -81,6 +90,13 @@ def kv_bytes_per_page(mcfg: ModelConfig, ecfg: EngineConfig,
     if ecfg.kv_quant == "fp8_tok":
         base += L * ps * Hk * 4 * 2  # f32 per-token scale rows (k + v)
     return base
+
+
+def _n_full(mcfg: ModelConfig) -> int:
+    """KV layers of a hybrid: its full-attention layers (at least one)."""
+    from painlessinferenceacceleration_tpu_torch.models.linear_attn import n_linear_layers
+
+    return max(mcfg.num_hidden_layers - n_linear_layers(mcfg), 1)
 
 
 def auto_size_pages(mcfg: ModelConfig, ecfg: EngineConfig, dtype=torch.bfloat16,
@@ -102,6 +118,21 @@ def init_kv_cache(mcfg: ModelConfig, ecfg: EngineConfig,
     """Allocate the zeroed arena of ``ecfg.kv_quant``'s kind on ``device``
     (default cuda); an MLA model's arena is always in ``dtype``."""
     dev = resolve_device(device)
+    if mcfg.linear_attention:
+        if ecfg.kv_quant != "none":
+            raise ValueError(f"kv_quant={ecfg.kv_quant!r}: a linear-attention hybrid's "
+                             "arena holds no e4m3 pages")
+        from painlessinferenceacceleration_tpu_torch.models.linear_attn import (
+            n_linear_layers,
+        )
+
+        shape = (_n_full(mcfg), ecfg.num_pages, ecfg.page_size,
+                 mcfg.num_key_value_heads * mcfg.head_dim)
+        H, D = mcfg.num_attention_heads, mcfg.head_dim
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "s": torch.zeros((n_linear_layers(mcfg), ecfg.max_concurrency, H, D, D),
+                                 dtype=torch.float32, device=dev)}
     if mcfg.is_mla:
         if ecfg.kv_quant == "fp8_tok":
             raise ValueError("kv_quant='fp8_tok' supports the dense stacked-layer "
@@ -124,6 +155,16 @@ def init_kv_cache(mcfg: ModelConfig, ecfg: EngineConfig,
         for name in ("k_scale", "v_scale"):
             kv[name] = torch.full((shape[0], Hk), ecfg.kv_scale_init,
                                   dtype=torch.float32, device=dev)
+    return kv
+
+
+def reset_linear_states(kv: dict, slots) -> dict:
+    """Zero the recurrent states of the engine slots ``slots`` (a new
+    request taking a slot starts from an empty state); a no-op for an
+    arena without states."""
+    if "s" in kv and len(slots):
+        idx = torch.as_tensor(list(slots), dtype=torch.long).to(kv["s"].device)
+        kv["s"].index_fill_(1, idx, 0.0)
     return kv
 
 

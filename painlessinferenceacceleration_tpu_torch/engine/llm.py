@@ -13,7 +13,20 @@ pingpong scheduler and greedy requests:
 - pipelined AR bursts: burst N+1 is dispatched from burst N's device
   tensors before N's tokens are read back, so the host's readback overlaps
   the card's work (CUDA's stream order stands in for JAX's dispatch order);
-- static fp8 KV calibration (``calibrate_kv_scales``).
+- static fp8 KV calibration (``calibrate_kv_scales``);
+- the linear-attention hybrids' recurrent states: each batch row carries
+  its engine slot (``slot_ids``; padding rows borrow slot 0 and write no
+  state), and a request that takes a slot starts from a zeroed state, both
+  when it is admitted and when a preempted request re-prefills. The JAX
+  engine does neither reset, so a reused slot there adds the new prompt
+  onto the last request's state. For the same reason a hybrid serves
+  without the prefix cache: a matched prefix would leave its tokens out of
+  the states, which live outside the pages. A preempted hybrid request
+  re-prefills its prompt only and regenerates its committed outputs by
+  decode (``Request.replay``): the chunk form sums in another order than
+  the per-token step that decode and the commit use, so replaying the
+  outputs through prefill would leave other bits in the states than the
+  unpreempted stream's.
 
 Not ported yet, each raising when asked: the scoring phase (``target_ids``),
 the mix/timely schedulers, sampling and repetition penalty, multimodal
@@ -42,6 +55,7 @@ from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelCo
 from painlessinferenceacceleration_tpu_torch.engine.cache import (
     auto_size_pages,
     init_kv_cache,
+    reset_linear_states,
 )
 from painlessinferenceacceleration_tpu_torch.engine.multistep import (
     multistep_decode,
@@ -121,8 +135,10 @@ class LLM:
             )
         self.kv = init_kv_cache(cfg, self.ecfg, dtype=dtype, device=self.device)
         self.allocator = PageAllocator(self.ecfg.num_pages, self.ecfg.page_size)
+        # a hybrid's states live outside the pages: no shared prefixes
         self.prefix_cache = (PrefixCache(self.allocator, self.ecfg.page_size)
-                             if self.ecfg.prefix_cache else None)
+                             if self.ecfg.prefix_cache and not cfg.linear_attention
+                             else None)
 
         # decode-slot state (numpy mirrors of the device tensors)
         B = self.ecfg.max_concurrency
@@ -287,7 +303,9 @@ class LLM:
             # retain before any eviction or allocation: _reserve could evict
             # the matched entries and allocate() hand their pages back out
             self.prefix_cache.retain_matched(shared)
-        need = self.allocator.pages_for_tokens(len(source) + 1) - len(shared)
+        # a replaying request takes the pages of its regenerated outputs now,
+        # as a prefill of them would
+        need = self.allocator.pages_for_tokens(len(source) + 1 + req.replay) - len(shared)
         if slot is None or not self._reserve(need + 1):
             if shared:
                 self.allocator.free(shared)  # release the early retain
@@ -302,6 +320,8 @@ class LLM:
         req.slot = slot
         req.state = "prefill"
         self._slots[slot] = req
+        # the slot's recurrent state (a hybrid's) still holds its last request's
+        reset_linear_states(self.kv, [slot])
         self._page_np[slot] = 0
         self._page_np[slot, : len(req.pages)] = req.pages
         self._ctx_np[slot] = 0
@@ -367,6 +387,7 @@ class LLM:
             self.kv, nxt, _ = prefill_step(
                 self.params, self.kv, self.cfg, self._dev(buf), self._dev(starts),
                 self._dev(lens), self._dev(self._page_np[idx]), self.quant,
+                slot_ids=self._dev(idx),
             )
             nxt_np = nxt.cpu().numpy()
             did = True
@@ -379,7 +400,8 @@ class LLM:
     def _finish_prefill(self, req: Request, first: int) -> None:
         resumed = bool(req.output_ids)  # a preempted request replaying its KV
         if resumed:
-            first = req.output_ids[-1]  # already committed; re-seed decode
+            # already committed; re-seed decode
+            first = req.output_ids[len(req.output_ids) - 1 - req.replay]
         else:
             req.last_token = first
             req.first_token_t = time.perf_counter()
@@ -577,7 +599,7 @@ class LLM:
         self.kv, toks, last2, ctx2, act2, bleft2 = multistep_decode(
             self.params, self.kv, self.cfg, p["last"], p["ctx"], act_in, pts,
             n_steps=K, eos=p["eos"], spec=self.quant,
-            budget=p["bleft"],
+            budget=p["bleft"], slot_ids=p["sid"],
         )
         newp = dict(p, K=K, toks=toks, last=last2, ctx=ctx2, act=act2, pts=pts,
                     bleft=bleft2)
@@ -680,9 +702,10 @@ class LLM:
             r = self._slots[i]
             e = r.sampling.eos_token_id
             eos_np[k] = self.ecfg.eos_token_id if e is None else e
-            rem_np[k] = max(1, r.sampling.max_new_tokens - len(r.output_ids))
+            rem_np[k] = max(1, r.sampling.max_new_tokens - len(r.output_ids) + r.replay)
         eos = self._dev(eos_np)
         budget = self._dev(rem_np)
+        sid = self._dev(idx)  # padding rows borrow slot 0 (inactive: no state)
 
         if use_spec:
             tails = self._dev(self._tails[idx])
@@ -690,7 +713,7 @@ class LLM:
              wides) = multistep_spec_decode(
                 self.params, self.kv, self.tables, self.cfg, self.tcfg, last, ctx,
                 active, tails, pts, n_steps=K, eos=eos, spec=self.quant,
-                budget=budget,
+                budget=budget, slot_ids=sid,
             )
             out_np = out_toks.cpu().numpy()
             acc_np = n_acc.cpu().numpy()
@@ -712,21 +735,24 @@ class LLM:
         else:
             self.kv, toks, last2, ctx2, act2, bleft = multistep_decode(
                 self.params, self.kv, self.cfg, last, ctx, active, pts,
-                n_steps=K, eos=eos, spec=self.quant, budget=budget,
+                n_steps=K, eos=eos, spec=self.quant, budget=budget, slot_ids=sid,
             )
             # no readback here: the next decode phase chains off this
             # burst's tensors while the readback of this one waits
             self._pending = dict(
                 rows=tuple(rows), reqs=[self._slots[i] for i in rows], K=K,
                 toks=toks, last=last2, ctx=ctx2, act=act2, pts=pts, eos=eos,
-                idx=tuple(int(x) for x in idx), bleft=bleft,
+                idx=tuple(int(x) for x in idx), bleft=bleft, sid=sid,
             )  # decode_steps are counted at drain time
         self.metrics.decode_time += time.perf_counter() - t0
         return True
 
     def _preempt(self, req: Request) -> None:
-        """Reclaim a starved request's pages and requeue it for recompute
-        (prompt + outputs replay through chunked prefill)."""
+        """Reclaim a starved request's pages and requeue it for recompute:
+        prompt + outputs replay through chunked prefill, or for a hybrid the
+        prompt alone, decode regenerating the outputs."""
+        if self.cfg.linear_attention and req.output_ids:
+            req.replay = len(req.output_ids) - 1
         self.allocator.free(req.pages)
         req.pages = []
         self._slots[req.slot] = None
@@ -741,6 +767,16 @@ class LLM:
         i = req.slot
         self._last_np[i] = last
         self._ctx_np[i] = ctx
+        if req.replay and toks:
+            # regenerated outputs of a resumed request: the same bits give
+            # the same tokens, so a difference is a broken invariant
+            n = min(req.replay, len(toks))
+            start = len(req.output_ids) - req.replay
+            if toks[:n] != req.output_ids[start: start + n]:
+                raise RuntimeError(f"request {req.rid}: the replay after preemption "
+                                   f"regenerated other tokens than it committed")
+            req.replay -= n
+            toks = toks[n:]
         eos = req.sampling.eos_token_id
         if eos is None:
             eos = self.ecfg.eos_token_id

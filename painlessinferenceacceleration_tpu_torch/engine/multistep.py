@@ -10,8 +10,9 @@ the accepted counts back once per step to bound the table update.
 Ported: greedy and teacher-forced targets, ``eos``, per-row ``budget``,
 frozen tables (``update_tables=False``) and the ``wide_mask`` probe, on the
 non-adaptive path, over every arena kind (an e4m3 arena's scales ride in
-``kv``). Sampling, repetition penalty, linear-attention state (and the
-``slot_ids`` that only it reads) and GLM positions are not ported yet.
+``kv``), and the linear-attention hybrids' recurrent states, one per
+engine slot (``slot_ids``). Sampling, repetition penalty and GLM positions
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ def multistep_decode(
     spec: Optional[QuantSpec] = None,
     teacher: Optional[torch.Tensor] = None,  # [B, W] teacher-forced stream
     budget: Optional[torch.Tensor] = None,  # [B] max tokens to emit per row
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
 ):
     """``n_steps`` greedy AR steps. Returns (kv, tokens [B, K], last, ctx,
     active, budget_left); inactive rows emit -1."""
@@ -70,7 +72,8 @@ def multistep_decode(
     toks = []
     for _ in range(n_steps):
         h, kv = transformer_hidden(params, cfg, kv, last[:, None], ctx[:, None],
-                                   page_tables, ctx, qmask, act[:, None], spec)
+                                   page_tables, ctx, qmask, act[:, None], spec,
+                                   slot_ids=slot_ids)
         logits = logits_from_hidden(params, cfg, h, spec)[:, 0]
         if teacher is not None:
             tgt = (ctx.long() + 1).clamp(0, teacher.shape[1] - 1)
@@ -103,6 +106,7 @@ def multistep_spec_decode(
     teacher: Optional[torch.Tensor] = None,
     update_tables: bool = True,  # False: frozen tables (strict-lossless replay)
     budget: Optional[torch.Tensor] = None,
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
 ):
     """``n_steps`` lookahead verify steps with the draft tables on the card.
 
@@ -127,7 +131,7 @@ def multistep_spec_decode(
         wides.append(((freqs[:, 0] > tcfg.gate_min_freq) & act).any())
         kv, out, n_acc = verify_parallel_core(
             params, kv, cfg, tokens, ctx[:, None] + depth, qmask, parents,
-            page_tables, ctx, act, R, L, spec, teacher)
+            page_tables, ctx, act, R, L, spec, teacher, slot_ids)
         # eos clamp: truncate the emitted run at its first eos
         is_eos = (out == eos[:, None]) & (k < n_acc[:, None])
         any_eos = is_eos.any(dim=1)

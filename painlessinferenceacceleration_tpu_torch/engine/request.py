@@ -39,7 +39,7 @@ class Request:
     __slots__ = (
         "rid", "input_ids", "sampling", "output_ids", "state", "done",
         "pages", "slot", "last_token", "stream_queue", "target_ids",
-        "finish_reason", "arrival_t", "first_token_t", "finish_t",
+        "finish_reason", "arrival_t", "first_token_t", "finish_t", "replay",
     )
 
     def __init__(
@@ -56,6 +56,9 @@ class Request:
         self.output_ids: List[int] = []
         self.state = "queued"
         self.done = 0  # prefill chunk cursor
+        # committed outputs that decode regenerates after a resume (a
+        # hybrid's), checked against output_ids instead of emitted again
+        self.replay = 0
         self.pages: List[int] = []
         self.slot: Optional[int] = None  # decode-batch slot index
         self.last_token: Optional[int] = None
@@ -73,9 +76,10 @@ class Request:
     @property
     def prefill_source(self) -> List[int]:
         """Tokens to (re)prefill. A preempted request replays prompt +
-        committed outputs except the last, which seeds decode again."""
+        committed outputs except the last ``replay + 1``, the first of which
+        seeds decode again."""
         if self.output_ids:
-            return self.input_ids + self.output_ids[:-1]
+            return self.input_ids + self.output_ids[: len(self.output_ids) - 1 - self.replay]
         return self.input_ids
 
     @property

@@ -19,6 +19,7 @@ from painlessinferenceacceleration_tpu_torch.models.base import (
     logits_from_hidden,
     transformer_hidden,
 )
+from painlessinferenceacceleration_tpu_torch.models.linear_attn import commit_linear_states
 
 
 def prefill_step(
@@ -30,6 +31,7 @@ def prefill_step(
     chunk_lens: torch.Tensor,  # [B] valid tokens in this chunk
     page_tables: torch.Tensor,  # [B, P]
     spec: Optional[QuantSpec] = None,
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
 ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
     """One prompt chunk per request; returns (kv, next_tokens [B],
     last_logits [B, V]). next_tokens is meaningful on the final chunk."""
@@ -40,7 +42,8 @@ def prefill_step(
     qmask = (i[:, None] >= i[None, :])[None].expand(B, C, C)
     valid = i[None, :] < chunk_lens[:, None]
     h, kv = transformer_hidden(params, cfg, kv, tokens, pos, page_tables,
-                               start_lens, qmask, valid, spec, causal_window=True)
+                               start_lens, qmask, valid, spec, causal_window=True,
+                               slot_ids=slot_ids)
     last = (chunk_lens.long() - 1).clamp(0, C - 1)
     h_last = h[torch.arange(B, device=dev), last][:, None]  # [B, 1, E]
     logits = logits_from_hidden(params, cfg, h_last, spec)[:, 0]
@@ -62,17 +65,21 @@ def verify_parallel_core(
     L: int,
     spec: Optional[QuantSpec] = None,
     teacher: Optional[torch.Tensor] = None,  # [B, W] teacher-forced stream
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
 ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
     """Tree-verify forward, greedy (or teacher-forced) acceptance along the
     best branch, and KV compaction of the accepted rows. Returns (kv,
-    out_tokens [B, Q], n_accepted [B])."""
+    out_tokens [B, Q], n_accepted [B]). A linear-attention hybrid verifies
+    without writing its states and then commits the accepted chain (root
+    first) into the states of ``slot_ids``; inactive rows commit nothing."""
     B, Q = tokens.shape
     assert Q == 1 + R * L, (Q, R, L)
     dev = tokens.device
     node_valid = parents > -2
     valid = node_valid & active[:, None]
     h, kv = transformer_hidden(params, cfg, kv, tokens, positions, page_tables,
-                               ctx_lens, qmask, valid, spec)
+                               ctx_lens, qmask, valid, spec, slot_ids=slot_ids,
+                               defer_state=cfg.linear_attention)
     logits = logits_from_hidden(params, cfg, h, spec)
     if teacher is not None:
         # the target of the node at stream position p is the teacher's p+1
@@ -93,6 +100,13 @@ def verify_parallel_core(
 
     ar = torch.arange(L, device=dev)[None, :]
     node_ids = 1 + best[:, None] * L + ar  # [B, L]
+    if cfg.linear_attention:
+        # the committed chain's window columns: the root, then the branch
+        chain = torch.cat([torch.zeros_like(node_ids[:, :1]), node_ids], dim=1)
+        n_eff = torch.where(active, n_acc, torch.zeros_like(n_acc))
+        if slot_ids is None:
+            slot_ids = torch.arange(B, dtype=torch.int32, device=dev)
+        kv = commit_linear_states(kv, chain, n_eff, slot_ids)
     out_tokens = torch.cat([greedy[:, :1], torch.gather(greedy, 1, node_ids)], dim=1)
     if out_tokens.shape[1] < Q:
         out_tokens = torch.nn.functional.pad(out_tokens, (0, Q - out_tokens.shape[1]))

@@ -2,7 +2,8 @@
 Multi-head Latent Attention, functional, over stacked per-layer weights.
 
 Port of the llama / qwen3 / mixtral / qwen3_moe / deepseek_v2 / deepseek_v3
-path of ``painlessinferenceacceleration_tpu/models/base.py``. Parameters are a dict
+path of ``painlessinferenceacceleration_tpu/models/base.py`` (the linear-attention
+hybrids dispatch to ``models/linear_attn.py``). Parameters are a dict
 shaped like the JAX pytree: ``layers`` holds each weight of the dense stack
 stacked ``[L, ...]`` and a layer is a view ``w[li]``; qkv and gate/up are
 merged GEMMs. An MoE model's layers from ``cfg.moe_layer_start`` on form a
@@ -64,8 +65,11 @@ from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 from painlessinferenceacceleration_tpu_torch.ops.rope import apply_rope, dense_cos_sin
 
 
+# the linear-attention hybrids (models/linear_attn.py); "ring_linear" is the
+# JAX package's tests' name for a hybrid without the bailing extras
+HYBRID_MODEL_TYPES = ("bailing_moe_linear", "bailing_moe_linear_v2", "ring_linear")
 PORTED_MODEL_TYPES = ("llama", "mixtral", "qwen3", "qwen3_moe", "deepseek_v2",
-                      "deepseek_v3")
+                      "deepseek_v3") + HYBRID_MODEL_TYPES
 
 
 def _check_model(cfg: ModelConfig) -> None:
@@ -74,6 +78,11 @@ def _check_model(cfg: ModelConfig) -> None:
             f"ported model types are {PORTED_MODEL_TYPES} with a silu MLP "
             f"({cfg.model_type}, {cfg.hidden_act})"
         )
+    if (cfg.model_type in HYBRID_MODEL_TYPES) != cfg.linear_attention or (
+            cfg.linear_attention and cfg.is_mla):
+        raise ValueError(f"model type {cfg.model_type} with linear_attention="
+                         f"{cfg.linear_attention} (hybrids are {HYBRID_MODEL_TYPES}, "
+                         "without MLA)")
     if cfg.is_moe and not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
         raise ValueError(f"top-{cfg.num_experts_per_tok} of {cfg.num_experts} experts")
 
@@ -118,7 +127,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     linear is quantized from its dense weight (``make_linear``), layer by
     layer. An MoE config splits the layers into the dense stack ``layers``
     (those below ``moe_layer_start``) and the stack ``moe_layers``, whose
-    layers carry the router and the experts instead of ``wgu`` / ``wdown``."""
+    layers carry the router and the experts instead of ``wgu`` / ``wdown``.
+    A linear-attention hybrid's come from ``init_hybrid_params``."""
+    if cfg.linear_attention:
+        from painlessinferenceacceleration_tpu_torch.models.linear_attn import (
+            init_hybrid_params,
+        )
+
+        return init_hybrid_params(cfg, generator, dtype, device, quant)
     _check_model(cfg)
     dev = resolve_device(device)
     E, H, Hk, D, I = (cfg.hidden_size, cfg.num_attention_heads,
@@ -349,12 +365,26 @@ def transformer_hidden(
     valid: Optional[torch.Tensor] = None,  # [B, Q] bool
     spec: Optional[QuantSpec] = None,
     causal_window: bool = False,  # prefill: qmask is purely lower-triangular
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
+    defer_state: bool = False,  # linear-attn verify: stash the window's k, v
 ):
     """Run all decoder layers; returns (hidden [B, Q, E], kv updated in place).
 
     One function serves prefill (causal qmask), decode (Q = 1) and lookahead
     verify (tree qmask). The dense stack runs first, then the MoE stack,
-    whose layer i uses KV layer ``n_dense + i``."""
+    whose layer i uses KV layer ``n_dense + i``. A linear-attention hybrid
+    (``cfg.linear_attention``) runs ``hybrid_forward`` instead, over the
+    states of the slots ``slot_ids`` (default: row b is slot b)."""
+    if cfg.linear_attention:
+        from painlessinferenceacceleration_tpu_torch.models.linear_attn import (
+            hybrid_forward,
+        )
+
+        return hybrid_forward(params, cfg, kv, tokens, positions, page_tables, start_lens,
+                              qmask, valid, spec, slot_ids, defer_state, causal_window)
+    # misconfiguration guard: hybrid params with cfg.linear_attention unset
+    if "hybrid_layers" in params:
+        raise ValueError("params contain hybrid_layers but cfg.linear_attention is False")
     if "k_tok_scale" in kv and ("moe_layers" in params or cfg.is_mla):
         raise ValueError("kv_quant='fp8_tok' supports the dense stacked-layer "
                          "family only")

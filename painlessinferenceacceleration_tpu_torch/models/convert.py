@@ -30,9 +30,13 @@ def _tensor(a: np.ndarray, device=None) -> torch.Tensor:
 
 
 def params_from_jax(tree, device=None):
-    """Nested dicts of numpy arrays -> the same nesting of torch tensors."""
+    """Nested dicts (and lists or tuples, as a hybrid's per-layer
+    ``hybrid_layers``) of numpy arrays -> the same nesting of torch tensors,
+    sequences as lists."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
     return _tensor(np.asarray(tree), device)
 
 

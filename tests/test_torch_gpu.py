@@ -684,3 +684,281 @@ def test_mla_model_serves_on_the_card(cuda):
         ran = {k for k, v in mla_paged_attention.modes.items() if v > before.get(k, 0)}
         assert ran >= ({"prefill", "verify"} if la else {"prefill", "decode"})
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# K15 (RMSNorm) and K14 (linear attention)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,shape,groups", [
+    ("plain", (17, 2048), 1), ("plain", (3, 5, 16, 128), 1), ("group", (9, 2048), 16),
+    ("gated", (9, 2048), 16), ("plain", (4096, 2048), 1)])
+def test_rms_norm_kernel(cuda, kind, shape, groups, dtype):
+    """K15 against the fp64-summed plain version: fp32 outputs within 4 ulp
+    of the row's scale (the fp32 sum of squares in another order), bf16
+    within one bf16 ulp (2^-7 relative: a value near a rounding boundary
+    may round the other way)."""
+    from painlessinferenceacceleration_tpu_torch.ops import rmsnorm as rn
+
+    x = (torch.randn(*shape, generator=cuda, device="cuda") * 3).to(dtype)
+    w = (1 + 0.3 * torch.randn(shape[-1], generator=cuda, device="cuda")).to(dtype)
+    gate = torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
+    wrapper = {"plain": rn.rms_norm, "group": rn.rms_group_norm,
+               "gated": rn.rms_group_norm_sigmoid}[kind]
+    before = wrapper.launches
+    if kind == "plain":
+        got, ref = rn.rms_norm(x, w, 1e-6), rn.rms_norm_plain(x, w, 1e-6)
+    elif kind == "group":
+        got, ref = (rn.rms_group_norm(x, w, 1e-6, groups),
+                    rn.rms_group_norm_plain(x, w, 1e-6, groups))
+    else:
+        got = rn.rms_group_norm_sigmoid(x, gate, w, 1e-6, groups)
+        ref = rn.rms_group_norm_sigmoid_plain(x, gate, w, 1e-6, groups)
+    assert wrapper.launches == before + 1 and got.dtype == dtype
+    assert _rel(got, ref) <= (2 ** -7 if dtype == torch.bfloat16 else 5e-7)
+
+
+def test_rms_norm_kernel_takes_strided_rows(cuda):
+    """MLA normalises a slice of the kv_a product: rows with a stride."""
+    from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm_plain
+
+    kva = torch.randn(2, 7, 576, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = torch.ones(512, dtype=torch.bfloat16, device="cuda")
+    assert _rel(rms_norm(kva[..., :512], w), rms_norm_plain(kva[..., :512], w)) <= 2 ** -7
+
+
+@pytest.mark.parametrize("width,groups", [(2048, 1), (128, 1), (2048, 16)])
+def test_rms_norm_rows_do_not_depend_on_the_batch(cuda, width, groups):
+    from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_group_norm
+
+    x = torch.randn(4096, width, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = torch.ones(width, dtype=torch.bfloat16, device="cuda")
+    full = rms_group_norm(x, w, 1e-6, groups)
+    for m in (1, 17, 512):
+        assert torch.equal(rms_group_norm(x[:m], w, 1e-6, groups), full[:m])
+
+
+def _la_inputs(g, B, H, C, D, scale=0.5):
+    q, k, v = (torch.randn(B, H, C, D, generator=g, device="cuda") * scale for _ in range(3))
+    return torch.nn.functional.silu(q), torch.nn.functional.silu(k), v
+
+
+def _loglam(H):
+    from painlessinferenceacceleration_tpu_torch.models.linear_attn import (
+        default_decays,
+        loglam_of,
+    )
+
+    return loglam_of(default_decays(H, "cuda"))
+
+
+@pytest.mark.parametrize("C,lens", [(1, [1, 0]), (17, [17, 9]), (100, [100, 64]),
+                                    (512, [512, 300])])
+def test_linear_attention_chunk_kernel(cuda, C, lens):
+    """K14 chunk mode against its plain version (the same sub-tiles; dot
+    products summed in another order: 1e-5 of the largest value), over
+    slot rows of an arena with a carried state; a row with chunk_lens 0
+    aliasing another row's slot leaves it alone."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    B, H, D = 3, 4, 128
+    q, k, v = _la_inputs(cuda, B, H, C, D)
+    arena = torch.randn(4, H, D, D, generator=cuda, device="cuda") * 0.1
+    slots = torch.tensor([2, 0, 2], dtype=torch.int32, device="cuda")
+    n = torch.tensor(lens + [0], dtype=torch.int32, device="cuda")
+    ref_arena = arena.clone()
+    before = la.linear_attention_chunk.launches
+    out, _ = la.linear_attention_chunk(q, k, v, arena, n, _loglam(H), slots)
+    ref, _ = la.linear_attention_chunk_plain(q, k, v, ref_arena, n, _loglam(H), slots)
+    assert la.linear_attention_chunk.launches == before + 1
+    assert _rel(out, ref) <= 1e-5 and _rel(arena, ref_arena) <= 1e-5
+    assert torch.equal(arena[[1, 3]], ref_arena[[1, 3]])  # untouched slots
+    assert not out[2].any() and not out[1, :, lens[1]:].any()
+
+
+def _tree(B, R, L, dead=()):
+    """Parallel-branch parents and liveness (lookahead/device_tables.py)."""
+    from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
+        build_tree_inputs,
+    )
+
+    br = torch.arange(10, 10 + R * L, device="cuda").reshape(R, L).repeat(B, 1, 1)
+    for b, n in enumerate(dead):
+        if n:
+            br[b, -1, L - n:] = -1
+    _, parents, qmask, _ = build_tree_inputs(torch.ones(B, dtype=torch.int32,
+                                                        device="cuda"), br)
+    return parents, parents > -2, qmask
+
+
+@pytest.mark.parametrize("R,L", [(1, 16), (2, 8)])
+def test_linear_attention_recurrent_modes_equal_plain_bit_for_bit(cuda, R, L):
+    """Decode, tree and commit repeat their plain versions' arithmetic
+    operation for operation: equal bits; an inactive row writes nothing."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    B, H, D = 3, 16, 128
+    Q = 1 + R * L
+    q, k, v = _la_inputs(cuda, B, H, Q, D)
+    s = torch.randn(B, H, D, D, generator=cuda, device="cuda") * 0.1
+    ll = _loglam(H)
+    parents, valid, _ = _tree(B, R, L, dead=(0, 3, 0))
+    valid[2] = False  # an inactive row
+    out = la.linear_attention_tree(q, k, v, s, parents, valid, ll)
+    assert torch.equal(out, la.linear_attention_tree_plain(q, k, v, s, parents, valid, ll))
+    one = valid[:, :1]
+    s1, s2 = s.clone(), s.clone()
+    o1, _ = la.linear_attention_decode(q[:, :, :1], k[:, :, :1], v[:, :, :1], s1, one, ll)
+    o2, _ = la.linear_attention_decode_plain(q[:, :, :1], k[:, :, :1], v[:, :, :1], s2,
+                                             one, ll)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2) and torch.equal(s1[2], s[2])
+    chain = torch.cat([torch.zeros(B, 1, dtype=torch.long, device="cuda"),
+                       1 + torch.arange(L, device="cuda").repeat(B, 1)], dim=1)
+    n = torch.tensor([L + 1, 4, 0], device="cuda")
+    arena = torch.randn(2, 4, H, D, D, generator=cuda, device="cuda") * 0.1
+    ref = arena.clone()
+    slots = torch.tensor([3, 1, 3], device="cuda")
+    wk, wv = torch.stack([k, k * 0.5]), torch.stack([v, v * 2])
+    lls = torch.stack([ll, ll * 0.5])
+    la.linear_attention_commit(arena, wk, wv, chain, n, lls, slots)
+    la.linear_attention_commit_plain(ref, wk, wv, chain, n, lls, slots)
+    assert torch.equal(arena, ref)
+
+
+def test_verify_rows_and_commit_equal_ar_on_the_card(cuda):
+    """A verified node's row equals the AR decode row at its position, and
+    the state after committing n accepted nodes equals n AR steps."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    B, H, D, R, L = 1, 16, 128, 2, 8
+    q, k, v = _la_inputs(cuda, B, H, 1 + R * L, D)
+    s0 = torch.randn(B, H, D, D, generator=cuda, device="cuda") * 0.1
+    ll = _loglam(H)
+    parents, valid, _ = _tree(B, R, L)
+    tree = la.linear_attention_tree(q, k, v, s0, parents, valid, ll)
+    chain = [0] + list(range(1 + L, 1 + 2 * L))  # the root, then branch 1
+    s_ar, rows = s0.clone(), []
+    for c in chain:
+        o, _ = la.linear_attention_decode(q[:, :, c:c + 1].contiguous(),
+                                          k[:, :, c:c + 1].contiguous(),
+                                          v[:, :, c:c + 1].contiguous(), s_ar,
+                                          valid[:, :1], ll)
+        rows.append(o)
+    assert torch.equal(torch.cat(rows, dim=2), tree[:, :, chain])
+    for n in (1, 5, len(chain)):
+        arena = s0[None].clone()
+        la.linear_attention_commit(arena, k[None], v[None],
+                                   torch.tensor([chain], device="cuda"),
+                                   torch.tensor([n], device="cuda"), ll[None],
+                                   torch.zeros(1, dtype=torch.int32, device="cuda"))
+        s_n = s0.clone()
+        for c in chain[:n]:
+            la.linear_attention_decode(q[:, :, c:c + 1].contiguous(),
+                                       k[:, :, c:c + 1].contiguous(),
+                                       v[:, :, c:c + 1].contiguous(), s_n, valid[:, :1], ll)
+        assert torch.equal(arena[0], s_n), n
+
+
+def _tiny_hybrid():
+    from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+
+    return ModelConfig(model_type="bailing_moe_linear_v2", vocab_size=512, hidden_size=256,
+                       intermediate_size=512, moe_intermediate_size=128,
+                       num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+                       head_dim=64, rms_norm_eps=1e-6, rope_theta=600000.0, qk_norm=True,
+                       linear_attention=True, layer_group_size=2, linear_qk_norm=True,
+                       linear_rope=True, num_experts=8, num_experts_per_tok=2,
+                       num_shared_experts=1, moe_layer_start=1, scoring_func="sigmoid",
+                       n_group=4, topk_group=2, routed_scaling_factor=2.5)
+
+
+def test_hybrid_teacher_forced_lookahead_equals_ar_bit_for_bit(cuda):
+    """A bf16 hybrid on the card: teacher-forced lookahead (multi-token
+    commits) and teacher-forced AR over the same stream leave every linear
+    layer's state and the full layers' KV rows with the same bits."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig
+    from painlessinferenceacceleration_tpu_torch.engine.cache import init_kv_cache
+    from painlessinferenceacceleration_tpu_torch.engine.multistep import (
+        multistep_decode,
+        multistep_spec_decode,
+    )
+    from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
+    from painlessinferenceacceleration_tpu_torch.lookahead import device_tables as dt
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    cfg = _tiny_hybrid()
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=2)
+    teacher = torch.arange(100, 164, device="cuda").repeat(6)[None].to(torch.int32)
+    P0 = 96
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    slot = torch.ones(1, dtype=torch.int32, device="cuda")
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    ctx0 = torch.tensor([P0], dtype=torch.int32, device="cuda")
+
+    def prefill():
+        kv = init_kv_cache(cfg, ecfg)
+        kv, _, _ = prefill_step(params, kv, cfg, teacher[:, :P0],
+                                torch.zeros(1, dtype=torch.int32, device="cuda"), ctx0, pt,
+                                slot_ids=slot)
+        return kv
+
+    tcfg = dt.DraftTableConfig(buckets=1024, ways=4, branch_length=16, retrieve_count=1)
+    tables = dt.init_draft_tables(tcfg)
+    dt.update_tables_seq(tables, tcfg, teacher[0, :P0], P0)
+    kv_la = prefill()
+    out = multistep_spec_decode(params, kv_la, tables, cfg, tcfg, teacher[:, P0], ctx0, one,
+                                teacher[:, P0 - 17: P0 + 1], pt, n_steps=8, teacher=teacher,
+                                update_tables=False, slot_ids=slot)
+    n_tok = int(out[5][0]) - P0
+    assert n_tok > 16, "drafts never landed"
+    kv_ar = prefill()
+    multistep_decode(params, kv_ar, cfg, teacher[:, P0], ctx0, one, pt, n_steps=n_tok,
+                     teacher=teacher, slot_ids=slot)
+    assert torch.equal(kv_la["s"], kv_ar["s"]) and kv_ar["s"][:, 1].any()
+    ctx = P0 + n_tok
+    pages = pt[0, : -(-ctx // 64)].long()
+    for name in ("k", "v"):
+        a = kv_la[name][:, pages].reshape(kv_la[name].shape[0], -1, kv_la[name].shape[-1])
+        b = kv_ar[name][:, pages].reshape(a.shape)
+        assert torch.equal(a[:, :ctx], b[:, :ctx]), name
+
+
+def test_hybrid_model_serves_on_the_card(cuda):
+    """The bf16 hybrid through LLM: lookahead equals AR, a request served
+    again alone equals its batched self (slots are reused: 6 requests over
+    2 slots), and every K14 mode and K15's plain and gated kinds ran."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+    from painlessinferenceacceleration_tpu_torch.ops import rmsnorm as rn
+
+    cfg = _tiny_hybrid()
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    prompts = [[5, 6, 7, 8] * 20, [9, 10, 11], list(range(40, 140)), [7] * 30,
+               list(range(200, 290)), [11, 12] * 9]
+    outs = []
+    wrappers = [getattr(la, f"linear_attention_{m}") for m in ("chunk", "decode", "tree",
+                                                                "commit")]
+    wrappers += [rn.rms_norm, rn.rms_group_norm_sigmoid]
+    before = [f.launches for f in wrappers]
+
+    def serve(ps, lookahead, conc=2):
+        ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=conc,
+                            eos_token_id=-2, use_lookahead=lookahead, decoding_length=16,
+                            branch_length=16, use_spec_min_batch_size=4)
+        llm = LLM(cfg=cfg, params=params, ecfg=ecfg)
+        res = [r.output_ids for r in llm.generate(ps, SamplingParams(max_new_tokens=24))]
+        assert llm.metrics.prefix_hit_tokens == 0
+        return res
+
+    for lookahead in (False, True):
+        outs.append(serve(prompts, lookahead))
+    assert outs[0] == outs[1]
+    for i in (2, 5):
+        assert serve([prompts[i]], False, 1)[0] == outs[0][i]
+    assert all(f.launches > b for f, b in zip(wrappers, before))

@@ -61,6 +61,17 @@ from painlessinferenceacceleration_tpu_torch.models.convert import params_from_j
 from painlessinferenceacceleration_tpu_torch.ops import quant_matmul as tqm
 from painlessinferenceacceleration_tpu_torch.ops import w8a8 as tw8
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs. Its engine runs are
+    thousands of tiny ops; beside a parallel run's other workers, a pool of
+    threads per op spends most of their time waiting for one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 W8A8_MODES = ["w8a8_int8", "w8a8_int8_static", "w8a8_fp8", "w8a8_fp8_static",
               "fp8_block", "fp8_tb"]
 MODES_8BIT = ["int8"] + W8A8_MODES
