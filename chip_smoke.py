@@ -12,7 +12,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    could reach and a PyTorch library call as a yardstick: the int4 GEMM,
    the three 8-bit GEMMs (int8 weight-only, W8A8 per channel with int8 and
    e4m3 operands, 128x128-block fp8) at M = 1, 17, 512 and on ragged
-   shapes, attention, the KV kernels; then the batch invariance the
+   shapes, attention, the KV kernels (the tail-window permute, the page
+   write-back, the row write K16 at every row kind the arenas hold, up to
+   an 8 x 512 prefill, and the row move K17 over chained compaction paths);
+   then the batch invariance the
    lossless check rests on (every GEMM, the norm and attention rows
    bit-identical at every width, the 8-bit GEMMs up to M = 4096);
 3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
@@ -29,7 +32,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    mode against its plain version again, on the inputs of real serving
    calls kept during those runs (decode and verify at B = 8 with ragged
    contexts, batched prefill with prefix-resumed rows, K1 at M = 8 x 512,
-   the compactions' page ids);
+   the compactions' page ids, K16 on the widest and narrowest writes of
+   each arena kind, as on phase 3's writes);
+   the host-trie generator: LookaheadGenerator on the same weights and
+   prompt (native trie), hier lookahead at decoding length 63 (Q = 64) and
+   the same call without lookahead over 256 tokens, equal to each other and
+   over 128 tokens to phase 3's AR stream; stream_generate equal to
+   generate, with K17 (move_kv_rows) on a clone of the arena held bit for
+   bit against K4 (compact_kv_tail) at every verify step; par and one modes
+   equal to AR; batch_generate over 4 prompts, every row equal to its solo
+   stream;
    quant modes: the same B = 1 path (512-token prefill, 32 greedy tokens,
    lookahead over 64 tokens with the strict lossless check) with the
    linears as int8, w8a8_int8, w8a8_fp8 and fp8_block at full depth, and as
@@ -53,7 +65,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    Multi-head Latent Attention: the MLA attention kernel and the
    head-batched absorption GEMM against their plain versions with their
    bit identities, DeepSeek-V2-Lite bf16 at all 27 layers (4096-token
-   prefill, AR and lookahead strictly lossless) and its 4 layers serving;
+   prefill, AR and lookahead strictly lossless) and its 4 layers serving,
+   K16 on both runs' latent writes;
    linear-attention hybrids: the linear-attention kernel (chunk, decode,
    tree and commit modes) and the RMSNorm kernel (hidden, per-head and
    gated group norms) against their plain versions at Ring-mini-linear-2.0
@@ -63,14 +76,17 @@ Phases, one line each (any failure exits non-zero and prints no result):
    random weights, experts in 2 expert shards): a 4096-token prefill, 32
    AR and 64 lookahead tokens strictly lossless and equal to AR, a
    teacher-forced lookahead / AR pair whose states and KV rows must be
-   bit-equal, one MoE layer's scan and sharded times; its first 5 layers
+   bit-equal, the host-trie generator's 64 lookahead tokens (trie trees
+   through K14's tree mode) equal to AR, one MoE layer's scan and sharded
+   times; its first 5 layers
    serving the 16 requests (lookahead equal to AR, no prefix hits, two
    requests equal served alone), and both kernels against their plain
    versions on serving's inputs;
 4. the launch count of every kernel and mode during phase 3, serving, the
-   quant modes and the MoE, MLA and linear-attention phases, each counted
-   from 0 (all must be > 0), the script's wall time, and the ``kernels``
-   JSON line.
+   generator phase (and apart from it, its K17 check: K17 has no caller on
+   any path), the quant modes and the MoE, MLA and linear-attention phases,
+   each counted from 0 (all must be > 0), the script's wall time, and the
+   ``kernels`` JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
 them) and ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes
@@ -577,6 +593,154 @@ def check_kv_write_pages(pkg, g, L, n_pages, ps, HD, B, TPP, dtype):
     return kv_write_row(pkg, pages, windows, ids.to(torch.int32), f"B={B} ")
 
 
+def _random_like(shape, dtype, g):
+    """Random bytes of ``shape`` and ``dtype`` (row kernels copy bytes)."""
+    import torch
+
+    n = torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(0, 256, (*shape[:-1], shape[-1] * n), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    return raw.view(dtype)
+
+
+def _n_kept(pages_idx, rows_idx, ps):
+    """Destinations written: distinct (page, row) pairs."""
+    import torch
+
+    return int(torch.unique(pages_idx.long() * ps + rows_idx.long()).numel())
+
+
+def kv_rows_write_row(pkg, pages, rows, pi, ri, layer, case):
+    """K16 on these arenas, rows and indices against its plain version (byte
+    for byte), timed. The bound: each written row read once and written
+    once, plus the two int32 indices a row; the yardstick is index_put_ of
+    the same rows, one call per arena."""
+    import torch
+
+    ku = pkg["kv_update"]
+    pages, rows = tuple(pages), tuple(rows)
+    got = ku.kv_write_rows(tuple(p.clone() for p in pages), rows, pi, ri, layer)
+    ref = ku.kv_write_rows_plain(tuple(p.clone() for p in pages), rows, pi, ri, layer)
+    for a, b in zip(got, ref):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            fail(f"kv_write_rows differs from its plain version ({case})")
+    err = max(_errs(a.view(torch.uint8), b.view(torch.uint8))[0] for a, b in zip(got, ref))
+    del got, ref
+    work = tuple(p.clone() for p in pages)
+    ms = time_ms(lambda: ku.kv_write_rows(work, rows, pi, ri, layer))
+    plain_ms = time_ms(lambda: ku.kv_write_rows_plain(work, rows, pi, ri, layer), reps=5)
+    raws = [(w.view(torch.uint8)[layer], r.view(torch.uint8)) for w, r in zip(work, rows)]
+    idx = (pi.long(), ri.long())
+    lib_ms = time_ms(lambda: [a.index_put_(idx, r) for a, r in raws])
+    N, ps = pi.shape[0], pages[0].shape[2]
+    row_bytes = sum(r.shape[1] * r.element_size() for r in rows)
+    nbytes = 2 * _n_kept(pi, ri, ps) * row_bytes + N * 8
+    kinds = "+".join(f"{str(r.dtype).split('.')[-1]}x{r.shape[1]}" for r in rows)
+    del work
+    return _case("kv_write_rows", "kv_rows.cu", f"{KVU}:27 _write_kernel", err, err, ms,
+                 plain_ms, bound_ms(nbytes, 0.0), lib_ms,
+                 f"{case}N={N} rows {kinds} L={pages[0].shape[0]} "
+                 f"null_page_rows={int((pi == 0).sum())}")
+
+
+def check_kv_write_rows(pkg, g, L, widths, dtypes, N, n_pages, ps=64, layer=1):
+    """K16 over arenas of these row widths and types, N rows (every fourth
+    aimed at the null page 0, as padded tokens are)."""
+    import torch
+
+    pages = [_random_like((L, n_pages, ps, w), dt, g) for w, dt in zip(widths, dtypes)]
+    rows = [_random_like((N, w), dt, g) for w, dt in zip(widths, dtypes)]
+    slot = torch.randperm((n_pages - 1) * ps, generator=g, device="cuda")[:N]
+    pi, ri = (slot // ps + 1).to(torch.int32), (slot % ps).to(torch.int32)
+    pi[::4] = 0
+    return kv_rows_write_row(pkg, pages, rows, pi, ri, layer, "")
+
+
+def kv_move_row(pkg, pages, sp, sr, dp, dr, case):
+    """K17 on these pages and moves against its plain version (byte for
+    byte), timed. The bound: each kept move's row read once and written
+    once over all layers, plus the four int32 indices a move; the yardstick
+    is index_put_ of the rows gathered beforehand."""
+    import torch
+
+    ku = pkg["kv_update"]
+    got = ku.kv_move_rows(pages.clone(), sp, sr, dp, dr)
+    ref = ku.kv_move_rows_plain(pages.clone(), sp, sr, dp, dr)
+    if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+        fail(f"kv_move_rows differs from its plain version ({case})")
+    err = _errs(got.view(torch.uint8), ref.view(torch.uint8))[0]
+    del got, ref
+    work = pages.clone()
+    ms = time_ms(lambda: ku.kv_move_rows(work, sp, sr, dp, dr))
+    plain_ms = time_ms(lambda: ku.kv_move_rows_plain(work, sp, sr, dp, dr), reps=5)
+    L, n_pages, ps = pages.shape[:3]
+    flat = work.view(torch.uint8).view(L, n_pages * ps, -1)
+    moved = flat[:, sp.long() * ps + sr.long()].clone()
+    N = sp.shape[0]
+    lidx = torch.arange(L, device="cuda")[:, None].expand(L, N)
+    didx = (dp.long() * ps + dr.long())[None].expand(L, N)
+    lib_ms = time_ms(lambda: flat.index_put_((lidx, didx), moved))
+    row_bytes = flat.shape[-1]
+    nbytes = 2 * L * _n_kept(dp, dr, ps) * row_bytes + N * 16
+    del work, moved
+    return _case("kv_move_rows", "kv_rows.cu", f"{KVU}:86 _move_kernel", err, err, ms,
+                 plain_ms, bound_ms(nbytes, 0.0), lib_ms,
+                 f"{case}L={L} N={N} row_bytes={row_bytes} "
+                 f"{str(pages.dtype).split('.')[-1]}")
+
+
+def check_kv_move_rows(pkg, g, L, n_pages, ps, row, B, M):
+    """K17 over B requests' accepted paths of M moves each (node ctx +
+    path[i] to ctx + 1 + i, path increasing): rows shift down, so an earlier
+    move's source is often a later move's destination (chains), and the last
+    move of each request is masked to the null page 0, so page 0 is named B
+    times."""
+    import torch
+
+    pages = torch.randn(L, n_pages, ps, row, generator=g, device="cuda").to(torch.bfloat16)
+    P = (n_pages - 1) // B
+    sp, sr, dp, dr = [], [], [], []
+    for b in range(B):
+        pt = torch.arange(1 + b * P, 1 + (b + 1) * P, device="cuda")
+        ctx = int(torch.randint(0, (P - 2) * ps, (1,), generator=g, device="cuda"))
+        path = torch.sort(torch.randperm(2 * M, generator=g, device="cuda")[:M] + 1)[0]
+        src, dst = ctx + path, ctx + 1 + torch.arange(M, device="cuda")
+        dpage = pt[dst // ps].clone()
+        dpage[-1] = 0
+        sp.append(pt[src // ps])
+        sr.append(src % ps)
+        dp.append(dpage)
+        dr.append(dst % ps)
+    sp, sr, dp, dr = (torch.cat(x).to(torch.int32) for x in (sp, sr, dp, dr))
+    return kv_move_row(pkg, pages, sp, sr, dp, dr, f"B={B} M={M} chained ")
+
+
+def row_kernel_rows(pkg, g, cfg) -> list:
+    """K16 and K17 against their plain versions. K16: bf16 K and V rows at
+    every width the main paths write (decode to an 8 x 512 prefill), e4m3
+    rows, fp8_tok's e4m3 rows with their f32 scale rows of 32 heads, scale
+    rows of 4 heads, MLA's 576 + 512 lanes. K17: the generator's
+    compactions (one request, 12 and 63 moves) and a batch of four."""
+    import torch
+
+    L, HD, Hkv = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim, \
+        cfg.num_key_value_heads
+    bf, e4, f32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
+    rows = [check_kv_write_rows(pkg, g, L, (HD, HD), (bf, bf), N, 66)
+            for N in (1, 64, 256, 512, 4096)]
+    for N in (64, 512):
+        rows.append(check_kv_write_rows(pkg, g, L, (HD, HD), (e4, e4), N, 66))
+        rows.append(check_kv_write_rows(pkg, g, L, (HD, HD, Hkv, Hkv), (e4, e4, f32, f32),
+                                        N, 66))
+    rows.append(check_kv_write_rows(pkg, g, L, (4, 4), (f32, f32), 64, 66))
+    for N in (1, 64, 4096):
+        rows.append(check_kv_write_rows(pkg, g, 27, (576, 512), (bf, bf), N, 66))
+    for B, M in ((1, 12), (1, 63), (4, 63)):
+        rows.append(check_kv_move_rows(pkg, g, L, 1 + 4 * 17, 64, HD, B, M))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(pkg, cfg) -> list:
     import torch
 
@@ -628,6 +792,7 @@ def phase_kernels(pkg, cfg) -> list:
                                          torch.float8_e4m3fn))
         rows.append(check_kv_write_pages(pkg, g, L, 2 * 8 * B + 1, 64, Hkv, B, 2,
                                          torch.float32))
+    rows += row_kernel_rows(pkg, g, cfg)
     rows.extend(check_batch_invariance(pkg, g, cfg))
     torch.cuda.synchronize()
     for r in rows:
@@ -723,7 +888,9 @@ class Launches:
                       "int8_gemm": pkg["quant_matmul"].int8_matmul,
                       "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm,
                       "kv_permute_pages": ku.kv_permute_pages,
-                      "kv_write_pages": ku.kv_write_pages}
+                      "kv_write_pages": ku.kv_write_pages,
+                      "kv_write_rows": ku.kv_write_rows,
+                      "kv_move_rows": ku.kv_move_rows}
         la, rn = pkg["linear_attention"], pkg["rmsnorm"]
         for mode in ("chunk", "decode", "tree", "commit"):
             self.plain[f"linear_attention[{mode}]"] = getattr(la, f"linear_attention_{mode}")
@@ -851,6 +1018,7 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
     print(f"{label}: " + json.dumps(res))
     if div != n or n < spec_tokens // 2:
         fail(f"{label}: lossless check failed: first divergence {div} of {n}")
+    res["ar_stream"] = ar_stream
     return res
 
 
@@ -1081,6 +1249,66 @@ class LaunchHooks:
         return None if t is None else t.clone()
 
 
+class RowWriteCapture(LaunchHooks):
+    """K16's inputs in real runs, for holding K16 against its plain version
+    on the writes the model makes. For each arena signature (the arenas'
+    types and row widths) it keeps the call with the most rows and the one
+    with the fewest: the rows (cloned at the call, strides kept), indices,
+    layer and arena shapes. The arenas' contents do not steer K16, so
+    ``rows`` replays each kept call on random arenas of its shapes, after the
+    run's counts are read."""
+
+    def __init__(self, pkg):
+        super().__init__(pkg)
+        self.kept = {}
+
+    def install(self):
+        self._wrap([(self.pkg["kv_update"], "_kv_write_rows_cuda", self._hook)])
+
+    @staticmethod
+    def _clone_rows(r):
+        import torch
+
+        if r.stride(0) == r.shape[1]:
+            return r.clone()
+        buf = torch.empty(r.shape[0], r.stride(0), dtype=r.dtype, device=r.device)
+        buf[:, : r.shape[1]] = r
+        return buf[:, : r.shape[1]]
+
+    def _hook(self, orig):
+        def hook(pages, rows, page_idx, row_idx, layer):
+            arenas, news = tuple(pages), tuple(rows)
+            sig = tuple((str(p.dtype).split(".")[-1], p.shape[-1]) for p in arenas)
+            N = page_idx.shape[0]
+            for which in ("most", "fewest"):
+                old = self.kept.get((sig, which))
+                if old is None or (N > old["N"] if which == "most" else N < old["N"]):
+                    self.kept[(sig, which)] = dict(
+                        N=N, layer=layer, pi=page_idx.clone(), ri=row_idx.clone(),
+                        shapes=[(tuple(p.shape), p.dtype) for p in arenas],
+                        rows=[self._clone_rows(r) for r in news])
+            return orig(pages, rows, page_idx, row_idx, layer)
+        return hook
+
+    def rows(self, case: str) -> list:
+        import torch
+
+        if not self.kept:
+            fail(f"{case}: K16 made no call")
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        out = []
+        for (sig, which), c in sorted(self.kept.items(), key=lambda kv: str(kv[0])):
+            if which == "fewest" and self.kept[(sig, "most")]["N"] == c["N"]:
+                continue  # one call size only
+            pages = [_random_like(shape, dt, g) for shape, dt in c["shapes"]]
+            out.append(kv_rows_write_row(self.pkg, pages, c["rows"], c["pi"], c["ri"],
+                                         c["layer"], f"{case} "))
+            del pages
+        self.kept = {}
+        torch.cuda.empty_cache()
+        return out
+
+
 class ServingCapture(LaunchHooks):
     """The inputs of real serving calls into the kernels, for holding each
     kernel against its plain version at the shapes serving gives it.
@@ -1265,6 +1493,8 @@ def phase_serving(pkg, cfg, params) -> dict:
     prompts = serving_prompts(cfg.vocab_size)
     capture = ServingCapture(pkg)
     capture.install()
+    row_writes = RowWriteCapture(pkg)
+    row_writes.install()
     launches.reset()
     runs, tables, tcfg = [], None, None
     arenas = ("none", "fp8", "fp8_tok")
@@ -1288,6 +1518,7 @@ def phase_serving(pkg, cfg, params) -> dict:
         capture.trim()
     counts = launches.read()
     capture.remove()
+    row_writes.remove()
     tcfg = pkg["device_tables"].DraftTableConfig(buckets=16384, ways=8, branch_length=16,
                                                  retrieve_count=1)
     res = dict(runs=runs, launches=counts,
@@ -1297,9 +1528,198 @@ def phase_serving(pkg, cfg, params) -> dict:
     # every kernel and arena mode against its plain version on the inputs
     # of real serving calls (B up to 8, ragged ctx, prefix-resumed prefill)
     res["kernels"] = capture.rows(["bf16" if a == "none" else a for a in arenas])
+    res["kernels"] += row_writes.rows("serving")
     for r in res["kernels"]:
         print("phase serving kernel: " + json.dumps(r))
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the host-trie generator: LookaheadGenerator at Llama-2-7B int4
+# ---------------------------------------------------------------------------
+
+GEN_TOKENS = 256
+GEN_MODE_TOKENS = 64  # par and one modes, batch_generate
+GEN_DECODING_LENGTH = 63  # verify width Q = 64
+GEN_BRANCH_LENGTH = 12
+GEN_BATCH = 4
+
+
+class CompactionCheck(LaunchHooks):
+    """K17 held against K4 on a generator run's real compactions: at every
+    ``compact_kv_tail`` call on a bf16 K or V arena (one per arena and
+    verify step), a clone of the arena taken before the call gets the
+    step's accepted path by ``move_kv_rows`` (K17); then each active
+    request's live slots [0, ctx + 1 + n_edges) must hold, over all layers,
+    the bits that ``compact_kv_tail`` (K4) left."""
+
+    def __init__(self, pkg):
+        super().__init__(pkg)
+        self.calls = self.moves = 0
+
+    def install(self):
+        self._wrap([(self.pkg["step"], "compact_kv_tail", self._hook)])
+
+    def _hook(self, orig):
+        import torch
+
+        move_kv_rows = self.pkg["cache"].move_kv_rows
+
+        def hook(pages, page_tables, ctx_lens, path, n_edges, q_width, active=None,
+                 whole_pages=False):
+            if whole_pages or pages.dtype == torch.float8_e4m3fn:
+                return orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active,
+                            whole_pages)
+            before = pages.clone()
+            out = orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active,
+                       whole_pages)
+            B, M = path.shape
+            i = torch.arange(M, device=path.device)[None]
+            ctx = ctx_lens.long()[:, None]
+            valid = i < n_edges.long()[:, None]
+            if active is not None:
+                valid &= active[:, None]
+            move_kv_rows(before, page_tables, ctx + path.long(), ctx + 1 + i, valid)
+            L, row = pages.shape[0], pages.shape[-1]
+            for b in range(B):
+                if active is not None and not bool(active[b]):
+                    continue
+                n = int(ctx_lens[b]) + 1 + int(n_edges[b])
+                pt = page_tables[b].long()
+                a = pages[:, pt].reshape(L, -1, row)[:, :n]
+                m = before[:, pt].reshape(L, -1, row)[:, :n]
+                if not torch.equal(a.view(torch.uint8), m.view(torch.uint8)):
+                    fail(f"move_kv_rows (K17) differs from compact_kv_tail (K4) on a "
+                         f"generator step (ctx {n - 1 - int(n_edges[b])}, "
+                         f"{int(n_edges[b])} moves)")
+            self.calls += 1
+            self.moves += int(n_edges.sum())
+            del before
+            return out
+        return hook
+
+
+def _median_ms(xs) -> float:
+    import numpy as np
+
+    return float(np.median(xs)) * 1e3 if len(xs) else None
+
+
+def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
+    """The host-trie ``LookaheadGenerator`` on phase 3's Llama-2-7B int4
+    weights and 512-token prompt, native trie: hier lookahead (decoding
+    length 63, branch 12, 256 tokens) and the same call without lookahead,
+    strictly equal to each other and, over 128 tokens, to phase 3's AR
+    stream; stream_generate (a fresh trie: the hier run's drafts again)
+    yields the same tokens with K17 held against K4 on every verify step;
+    par and one modes equal to AR over 64 tokens; batch_generate over 4
+    prompts, every row equal to its solo AR stream. K17's launches are
+    this check's, counted apart from the path's."""
+    import numpy as np
+    import torch
+
+    gen_mod, config = pkg["generate"], pkg["config"]
+    launches = Launches(pkg)
+    prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10,
+                                                  PROMPT_LEN).tolist()
+
+    def generator(conc=1):
+        ecfg = config.EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=conc,
+                                   prefill_chunk=512, eos_token_id=-2,
+                                   decoding_length=GEN_DECODING_LENGTH,
+                                   branch_length=GEN_BRANCH_LENGTH, decoding_mode="hier")
+        gen = gen_mod.LookaheadGenerator(params, cfg, ecfg, quant=spec)
+        if not isinstance(gen.trie, pkg["native"].NativeDraftCache):
+            fail(f"the generator drafts from {type(gen.trie).__name__}, not the native trie")
+        return gen
+
+    def timed(gen, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(prompt, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    la, la_s = timed(generator(), max_new_tokens=GEN_TOKENS, use_lookahead=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ar, ar_s = timed(generator(), max_new_tokens=GEN_TOKENS, use_lookahead=False)
+    path_counts = launches.read()
+
+    def stats(out, wall):
+        return dict(tokens=len(out.sequences), wall_s=wall, tok_s=len(out.sequences) / wall,
+                    steps=len(out.edls) - 1, mean_edls=float(np.mean(out.edls[1:])),
+                    mean_dls=float(np.mean(out.dls[1:])), max_edls=max(out.edls),
+                    prefill_ms=out.fts[0] * 1e3, median_fts_ms=_median_ms(out.fts[1:]),
+                    median_qts_ms=_median_ms(out.qts[1:]))
+
+    res = dict(hier=stats(la, la_s), ar=stats(ar, ar_s), peak_mem_gb=peak_gb,
+               decoding_length=GEN_DECODING_LENGTH, branch_length=GEN_BRANCH_LENGTH)
+    n_ar = min(len(ar_stream), 128)
+    res["lookahead_equals_ar"] = la.sequences == ar.sequences
+    res["equals_phase3_ar_128"] = (la.sequences[:n_ar] == ar_stream[:n_ar]
+                                   and ar.sequences[:n_ar] == ar_stream[:n_ar])
+
+    # stream_generate on a fresh trie, K17 held against K4 at every verify step
+    check = CompactionCheck(pkg)
+    check.install()
+    launches.reset()
+    try:
+        pieces = list(generator().stream_generate(prompt, max_new_tokens=GEN_TOKENS,
+                                                  use_lookahead=True))
+    finally:
+        check.remove()
+    check_counts = launches.read()
+    res["stream_equals_generate"] = pieces == la.sequences
+    res["k17_check"] = dict(compactions=check.calls, moves=check.moves)
+
+    # par and one modes, and the batch
+    gen = generator(GEN_BATCH)
+    launches.reset()
+    for mode in ("par", "one"):
+        out, wall = timed(gen, max_new_tokens=GEN_MODE_TOKENS, use_lookahead=True,
+                          decoding_mode=mode)
+        res[mode] = dict(stats(out, wall),
+                         equals_ar=out.sequences == ar.sequences[:GEN_MODE_TOKENS])
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [prompt] + [rng.integers(10, cfg.vocab_size - 10, n).tolist()
+                          for n in (384, 256, 128)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = gen.batch_generate(prompts, max_new_tokens=GEN_MODE_TOKENS)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    more = launches.read()
+    path_counts = {k: v + more[k] for k, v in path_counts.items()}
+    solo = [gen.generate(p, max_new_tokens=GEN_MODE_TOKENS, use_lookahead=False).sequences
+            for p in prompts]
+    res["batch"] = dict(rows=GEN_BATCH, wall_s=batch_s,
+                        tok_s=sum(len(o.sequences) for o in batch) / batch_s,
+                        mean_edls=float(np.mean([e for o in batch for e in o.edls[1:]])),
+                        rows_equal_solo=[o.sequences == s_ for o, s_ in zip(batch, solo)])
+    # the stream run's launches are the path's, but for K17's (the check's)
+    k17 = check_counts.pop("kv_move_rows")
+    res["launches"] = {k: v + check_counts.get(k, 0) for k, v in path_counts.items()}
+    res["launches"]["kv_move_rows"] = 0
+    res["k17_check_launches"] = dict({k: 0 for k in path_counts}, kv_move_rows=k17)
+    print("phase generator: " + json.dumps(res))
+    if not (res["lookahead_equals_ar"] and res["equals_phase3_ar_128"]):
+        fail("generator: hier lookahead, the generator's AR and phase 3's AR stream differ")
+    if not res["stream_equals_generate"]:
+        fail("generator: stream_generate yielded other tokens than generate")
+    if not (res["par"]["equals_ar"] and res["one"]["equals_ar"]):
+        fail("generator: par or one mode differs from AR")
+    if not all(res["batch"]["rows_equal_solo"]):
+        fail(f"generator: batch rows differ from their solo streams "
+             f"{res['batch']['rows_equal_solo']}")
+    if check.calls <= 0 or check.moves <= 0:
+        fail("generator: the K17 check saw no compaction that moved a row")
+    need = ("kv_write_rows", "kv_permute_pages", "int4_gemm", "paged_attention[verify]",
+            "paged_attention[decode]", "paged_attention_prefill")
+    if any(res["launches"][k] <= 0 for k in need):
+        fail(f"generator: launches {res['launches']} (needed {need})")
     return res
 
 
@@ -2023,6 +2443,8 @@ def phase_mla(pkg) -> dict:
     weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     label = (f"phase mla main path (DeepSeek-V2-Lite bf16, all {full.num_hidden_layers} "
              f"layers, {weights_gb:.1f} GB of weights)")
+    row_writes = RowWriteCapture(pkg)
+    row_writes.install()
     capture = MlaCapture(pkg, widest=False)
     capture.install()
     try:
@@ -2057,6 +2479,7 @@ def phase_mla(pkg) -> dict:
         res_la, la_out, _ = serve_once(pkg, scfg, params, prompts, "none", True, "none")
     finally:
         capture.remove()
+        row_writes.remove()
     serve_counts = launches.read()
     add(serve_counts)
     diff = [i for i, (a, b) in enumerate(zip(ar_out, la_out)) if a != b]
@@ -2075,6 +2498,8 @@ def phase_mla(pkg) -> dict:
     # K13 against its plain version on serving's inputs: B up to 8, ragged
     # ctx, tree verify, prefill resumed from the prefix cache
     kernels += capture.rows("serving")
+    # K16 on the MLA writes (576-lane latent K and 512-lane V rows) of both
+    kernels += row_writes.rows("mla main path and serving")
     for r in kernels:
         print("phase mla kernel: " + json.dumps(r))
     torch.cuda.empty_cache()
@@ -2543,6 +2968,43 @@ def teacher_forced_pair(pkg, cfg, params) -> dict:
     return res
 
 
+def hybrid_generator_check(pkg, cfg, params) -> tuple:
+    """The host-trie generator on the hybrid: 64 tokens of hier lookahead
+    (decoding length 63: trie-shaped trees, whose parents K14's tree mode
+    derives from the mask) equal the AR stream from the same 512-token
+    prompt. Returns the result and the launches of both runs."""
+    import numpy as np
+
+    prompt = np.random.default_rng(SEED + 3).integers(10, cfg.vocab_size - 10,
+                                                      LIN_TEACHER_PROMPT).tolist()
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=1,
+                                      prefill_chunk=512, eos_token_id=-2,
+                                      decoding_length=GEN_DECODING_LENGTH,
+                                      branch_length=GEN_BRANCH_LENGTH)
+    gen = pkg["generate"].LookaheadGenerator(params, cfg, ecfg)
+    if not isinstance(gen.trie, pkg["native"].NativeDraftCache):
+        fail(f"the hybrid's generator drafts from {type(gen.trie).__name__}")
+    launches = Launches(pkg)
+    launches.reset()
+    out = {}
+    for la in (True, False):
+        t0 = time.perf_counter()
+        out[la] = gen.generate(prompt, max_new_tokens=LIN_SPEC_TOKENS, use_lookahead=la)
+        out[la] = (out[la], time.perf_counter() - t0)
+    counts = launches.read()
+    (la_out, la_s), (ar_out, ar_s) = out[True], out[False]
+    res = dict(tokens=len(la_out.sequences), lookahead_tok_s=len(la_out.sequences) / la_s,
+               ar_tok_s=len(ar_out.sequences) / ar_s, mean_edls=float(np.mean(la_out.edls[1:])),
+               mean_dls=float(np.mean(la_out.dls[1:])),
+               lookahead_equals_ar=la_out.sequences == ar_out.sequences)
+    print("phase linear generator: " + json.dumps(res))
+    if not res["lookahead_equals_ar"]:
+        fail("hybrid generator: lookahead differs from AR")
+    if counts["linear_attention[tree]"] <= 0 or res["mean_dls"] <= 1:
+        fail(f"hybrid generator: no trie tree was verified ({counts})")
+    return res, counts
+
+
 def moe_route_costs(pkg, cfg, params) -> dict:
     """One MoE layer at T = 1 by the scan route (every one of the 256
     experts swept, ~10 eager launches each) and by the routed route in
@@ -2618,6 +3080,8 @@ def phase_linear(pkg) -> dict:
              f"{res['spec_vs_ar_first_divergence']}")
     with moe.expert_shards(LIN_SHARDS):
         res["teacher_forced"] = teacher_forced_pair(pkg, full, params)
+        res["generator"], gen_counts = hybrid_generator_check(pkg, full, params)
+    add(gen_counts)
     res["moe_routes"] = moe_route_costs(pkg, full, params)
     res["main_wall_s"] = time.perf_counter() - t_phase
 
@@ -2692,6 +3156,7 @@ def load_port():
 
     base = "painlessinferenceacceleration_tpu_torch."
     names = dict(_build="_build", config="config", linear="layers.linear",
+                 generate="lookahead.generate", native="lookahead.native",
                  embedding="layers.embedding", w8a8="ops.w8a8",
                  quant_matmul="ops.quant_matmul", moe_matmul="ops.moe_matmul",
                  moe="models.moe", paged_attention="ops.paged_attention",
@@ -2714,6 +3179,10 @@ def main() -> None:
     ap.add_argument("--mla-only", action="store_true",
                     help="run only the Multi-head Latent Attention phases (a partial "
                          "run: prints no kernels line and no result line)")
+    ap.add_argument("--generator-only", action="store_true",
+                    help="run only K16 / K17 against their plain versions, phase 3 and "
+                         "the host-trie generator phase (a partial run: prints no "
+                         "kernels line and no result line)")
     ap.add_argument("--linear-only", action="store_true",
                     help="run only the linear-attention hybrid phases (a partial run: "
                          "prints no kernels line and no result line)")
@@ -2759,12 +3228,33 @@ def main() -> None:
         return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    if args.generator_only:
+        rows = row_kernel_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED), cfg)
+        for r in rows:
+            print("phase 2 kernel: " + json.dumps(r))
+        params = pkg["base"].init_params_quantized(
+            cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
+        main_res = phase_main_path(pkg, cfg, spec, params, extras=False)
+        gen_res = phase_generator(pkg, cfg, spec, params, main_res["ar_stream"])
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (generator phases only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
+                                                 main_path=main_res, generator=gen_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     rows = phase_kernels(pkg, cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = pkg["base"].init_params_quantized(cfg, spec, gen)
+    row_writes = RowWriteCapture(pkg)
+    row_writes.install()
     main_res = phase_main_path(pkg, cfg, spec, params)
+    row_writes.remove()
+    rows += row_writes.rows("main path")
     serve_res = phase_serving(pkg, cfg, params)
     rows += serve_res["kernels"]
+    gen_res = phase_generator(pkg, cfg, spec, params, main_res["ar_stream"])
     del params
     quant_res = phase_quant_modes(pkg, cfg)
     rows += quant_res["kernels"]
@@ -2780,6 +3270,8 @@ def main() -> None:
     rows += lin_res["kernels"]
     print(f"linear-attention phases' wall: {time.perf_counter() - t_lin:.1f} s")
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
+                    generator=gen_res["launches"],
+                    generator_k17_check=gen_res["k17_check_launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
@@ -2788,8 +3280,10 @@ def main() -> None:
         r["launches"] = launches[key]
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving, in "
-                 "the quant modes, in the MoE phases, in the MLA phases or in the "
-                 "linear-attention phases")
+                 "the generator phase or its K17 check against K4, in the quant "
+                 "modes, in the MoE phases, in the MLA phases or in the "
+                 "linear-attention phases (launches by phase: "
+                 f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
     print("phase 4 launches (sum): " + json.dumps(launches))
     wall_s = time.perf_counter() - T_START
@@ -2798,6 +3292,7 @@ def main() -> None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
+                                             generator=gen_res,
                                              quant_modes=quant_res, moe=moe_res,
                                              mla=mla_res, linear=lin_res,
                                              launches=by_phase,

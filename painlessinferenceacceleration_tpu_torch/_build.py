@@ -29,7 +29,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("int4_gemm", "int8_gemm", "w8a8_gemm", "block_fp8_gemm",
            "grouped_gemm", "grouped_int4_gemm", "grouped_int8_gemm",
            "paged_attention", "kv_permute", "kv_page_write", "mla_attention",
-           "linear_attention", "rmsnorm")
+           "linear_attention", "rmsnorm", "kv_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -196,9 +196,6 @@ _NOT_PORTED = {
     "temperature": (0.0, "sampling (ROADMAP A.3)"),
     "top_k": (0, "sampling (ROADMAP A.3)"),
     "top_p": (1.0, "sampling (ROADMAP A.3)"),
-    # read only by the host-trie LookaheadGenerator; LLM requests take
-    # SamplingParams.max_new_tokens
-    "max_new_tokens": (256, "lookahead/generate.py (ROADMAP A.4)"),
 }
 KV_QUANT_MODES = ("none", "fp8", "fp8_tok")
 # the modes layers.linear.QuantSpec.from_mode takes
@@ -235,6 +232,7 @@ class EngineConfig:
     use_lookahead: bool = False
     decoding_length: int = 63  # draft tokens per verify step
     branch_length: int = 12  # tokens per draft branch
+    decoding_mode: str = "hier"  # LookaheadGenerator's trie drafts: hier | par | one
     use_spec_min_batch_size: int = 4  # spec only when the batch is this small
     # after a spec burst whose drafts were retrievable on fewer than
     # spec_gate_threshold of its steps, run this many AR bursts (0: never)
@@ -265,6 +263,7 @@ class EngineConfig:
 
     # --- misc ---
     eos_token_id: int = 2
+    # LookaheadGenerator's default; LLM requests take SamplingParams.max_new_tokens
     max_new_tokens: int = 256
 
     def __post_init__(self):

@@ -44,8 +44,10 @@ import torch
 from painlessinferenceacceleration_tpu_torch._build import resolve_device
 from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
 from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+    kv_move_rows,
     kv_permute_pages,
     kv_write_pages,
+    kv_write_rows,
 )
 
 FP8 = torch.float8_e4m3fn
@@ -184,8 +186,10 @@ def write_kv_pages(
 ):
     """Scatter the step's K/V rows of layer ``layer`` into the arena, in
     place (quantizing them for an e4m3 arena). Token q of request b lands at
-    slot ``start_lens[b] + q``. Returns the arenas written (with the scale
-    arenas in fp8_tok mode)."""
+    slot ``start_lens[b] + q``; invalid tokens go to the null page 0, where
+    the last one written is kept. The K and V rows (and in fp8_tok mode
+    their scales) go in one ``kv_write_rows`` call. Returns the arenas
+    written (with the scale arenas in fp8_tok mode)."""
     B, Q, H, D = new_k.shape
     ps = k_pages.shape[2]
     P = page_tables.shape[1]
@@ -197,28 +201,23 @@ def write_kv_pages(
     Dv = new_v.shape[-1]  # may differ from D (MLA)
     nk = new_k.reshape(B * Q, H, D)
     nv = new_v.reshape(B * Q, H, Dv)
+    arenas = [k_pages, v_pages]
     if k_tok_scale is not None:
         kf, vf = nk.to(torch.float32), nv.to(torch.float32)
         sk = kf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX  # [BQ, H]
         sv = vf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX
         nk, nv = (kf / sk[..., None]).to(FP8), (vf / sv[..., None]).to(FP8)
-        k_tok_scale[layer, fp, fr] = sk
-        v_tok_scale[layer, fp, fr] = sv
+        arenas += [k_tok_scale, v_tok_scale]
     elif k_pages.dtype == FP8:
         nk = (nk.to(torch.float32) / k_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
         nv = (nv.to(torch.float32) / v_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
     else:
         nk, nv = nk.to(k_pages.dtype), nv.to(v_pages.dtype)
-    nk, nv = nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * Dv)
-    if k_pages.dtype == FP8:
-        k_pages.view(torch.uint8)[layer, fp, fr] = nk.view(torch.uint8)
-        v_pages.view(torch.uint8)[layer, fp, fr] = nv.view(torch.uint8)
-    else:
-        k_pages[layer, fp, fr] = nk
-        v_pages[layer, fp, fr] = nv
+    rows = [nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * Dv)]
     if k_tok_scale is not None:
-        return k_pages, v_pages, k_tok_scale, v_tok_scale
-    return k_pages, v_pages
+        rows += [sk, sv]
+    kv_write_rows(tuple(arenas), tuple(rows), fp, fr, layer)
+    return tuple(arenas)
 
 
 def gather_kv_pages(pages: torch.Tensor, page_tables: torch.Tensor,
@@ -295,3 +294,22 @@ def compact_kv_tail(
     windows = rows.reshape(raw.shape[0], B * TPP, ps, raw.shape[-1])
     kv_write_pages(raw, windows, page_ids.reshape(-1))
     return pages
+
+
+def move_kv_rows(pages: torch.Tensor, page_tables: torch.Tensor, src_slots: torch.Tensor,
+                 dst_slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Move each request's rows at ``src_slots`` to ``dst_slots`` [B, M]
+    over all layers, in place (``kv_move_rows``); moves with ``valid`` False
+    write into the null page. Every source is read before any destination
+    is written, so a chain of moves reads the rows as they were. Port of the
+    JAX package's ``move_kv_rows``, which nothing in that package calls: a
+    per-row alternative to ``compact_kv_tail``."""
+    ps = pages.shape[2]
+    P = page_tables.shape[1]
+    pt = page_tables.long()
+    src, dst = src_slots.long(), dst_slots.long()
+    sp = torch.gather(pt, 1, (src // ps).clamp(0, P - 1))
+    dp = torch.gather(pt, 1, (dst // ps).clamp(0, P - 1))
+    dp = torch.where(valid, dp, torch.zeros_like(dp))
+    return kv_move_rows(pages, sp.reshape(-1), (src % ps).reshape(-1), dp.reshape(-1),
+                        (dst % ps).reshape(-1))

@@ -649,32 +649,14 @@ class LLM:
         slots_full = all(r is not None for r in self._slots)
         if idle or slots_full:
             K = max(K, self.ecfg.decode_burst_idle)
-        ps = self.ecfg.page_size
-        # shrink the burst so every row's ctx + K*Q + Q fits max_seq_len
-        K = min(K, min((msl - int(self._ctx_np[i]) - Q) // Q for i in rows))
-        K = 1 << (max(K, 1).bit_length() - 1)
-        # page headroom (+Q: drafts are written before verify). A row whose
-        # pages cannot cover the burst is not dispatched: shrink the burst
-        # to what fits, else park the row for this step
-        kept, parked = [], []
-        for i in rows:
-            req = self._slots[i]
-            ctx = int(self._ctx_np[i])
-            if self._ensure_capacity(req.pages, ctx + K * Q + Q):
-                kept.append(i)
-                self._page_np[i, : len(req.pages)] = req.pages
-                continue
-            cap = len(req.pages) * ps + self.allocator.free_pages * ps
-            k_fit = min(K, (cap - ctx - Q) // Q)
-            if k_fit >= 1:
-                k_fit = 1 << (int(k_fit).bit_length() - 1)
-            if k_fit >= 1 and self._ensure_capacity(req.pages, ctx + k_fit * Q + Q):
-                K = k_fit  # the burst shrinks for the whole batch
-                kept.append(i)
-                self._page_np[i, : len(req.pages)] = req.pages
-            else:
-                parked.append(i)
-        rows = kept
+        kept, parked, K_fit = self._fit_burst(rows, K, Q)
+        if not kept and use_spec:
+            # the verify window outgrows the free pages for every row: this
+            # burst decodes by AR, which gives the same tokens (preempting
+            # instead re-admits the victim into the same state without end)
+            use_spec, Q = False, 1
+            kept, parked, K_fit = self._fit_burst(rows, K, Q)
+        rows, K = kept, K_fit
         if not rows:
             if parked:
                 # nothing can run and pages are exhausted: preempt the
@@ -746,6 +728,35 @@ class LLM:
             )  # decode_steps are counted at drain time
         self.metrics.decode_time += time.perf_counter() - t0
         return True
+
+    def _fit_burst(self, rows: List[int], K: int, Q: int):
+        """Shrink a burst of K steps of width Q so that every row's ctx + K*Q
+        + Q fits max_seq_len, then give each row the pages it needs (+Q:
+        drafts are written before verify). A row whose pages cannot cover
+        the burst shrinks it to what fits, else is parked for this step.
+        Returns (rows kept, rows parked, K)."""
+        msl, ps = self.ecfg.max_seq_len, self.ecfg.page_size
+        K = min(K, min((msl - int(self._ctx_np[i]) - Q) // Q for i in rows))
+        K = 1 << (max(K, 1).bit_length() - 1)
+        kept, parked = [], []
+        for i in rows:
+            req = self._slots[i]
+            ctx = int(self._ctx_np[i])
+            if self._ensure_capacity(req.pages, ctx + K * Q + Q):
+                kept.append(i)
+                self._page_np[i, : len(req.pages)] = req.pages
+                continue
+            cap = len(req.pages) * ps + self.allocator.free_pages * ps
+            k_fit = min(K, (cap - ctx - Q) // Q)
+            if k_fit >= 1:
+                k_fit = 1 << (int(k_fit).bit_length() - 1)
+            if k_fit >= 1 and self._ensure_capacity(req.pages, ctx + k_fit * Q + Q):
+                K = k_fit  # the burst shrinks for the whole batch
+                kept.append(i)
+                self._page_np[i, : len(req.pages)] = req.pages
+            else:
+                parked.append(i)
+        return kept, parked, K
 
     def _preempt(self, req: Request) -> None:
         """Reclaim a starved request's pages and requeue it for recompute:

@@ -1,9 +1,11 @@
-"""Engine steps: chunked prefill and the parallel-branch verify.
+"""Engine steps: chunked prefill, the general tree verify and the
+parallel-branch verify.
 
-Port of ``prefill_step``, ``verify_parallel_core`` and ``decode_inputs``
-from ``painlessinferenceacceleration_tpu/engine/step.py``. Where JAX jits
-the step and donates the KV arena, these run eagerly and update the arena
-in place (the returned ``kv`` is the same dict).
+Port of ``prefill_step``, ``_accept_walk``, ``verify_core``,
+``verify_step``, ``verify_parallel_core`` and ``decode_inputs`` from
+``painlessinferenceacceleration_tpu/engine/step.py``. Where JAX jits the
+step and donates the KV arena, these run eagerly and update the arena in
+place (the returned ``kv`` is the same dict).
 """
 
 from __future__ import annotations
@@ -50,6 +52,115 @@ def prefill_step(
     return kv, torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
+def _accept_walk(greedy: torch.Tensor, tokens: torch.Tensor, parents: torch.Tensor):
+    """Greedy acceptance walk along each request's draft tree, batched.
+
+    greedy/tokens/parents: [B, Q]. Node 0 is the root (last committed
+    token); node s > 0 is a draft token whose parent is ``parents[:, s]``
+    (pad nodes have -2 and never match). From the root, the walk moves to
+    the first child whose token equals the greedy continuation of the
+    current node, until none does. Returns (out [B, Q] emitted tokens, zero
+    past n_out; n_out [B]; path [B, Q] accepted node indices, zero past
+    n_out - 1). A matched child's index exceeds its parent's (DFS order),
+    so Q - 1 steps end every walk: the loop runs them all on the device,
+    with no host synchronisation.
+    """
+    B, Q = greedy.shape
+    dev = greedy.device
+    ar = torch.arange(Q, device=dev)
+    # child[b, p, s]: node s continues node p greedily
+    child = (parents.long()[:, None, :] == ar[None, :, None]) & (
+        tokens[:, None, :] == greedy[:, :, None])
+    nxt = torch.where(child.any(-1), child.to(torch.int8).argmax(-1),
+                      torch.full((B, Q), -1, dtype=torch.long, device=dev))
+    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    nodes = []
+    for _ in range(Q - 1):
+        cur = torch.where(cur >= 0, torch.gather(nxt, 1, cur.clamp(min=0)[:, None])[:, 0], cur)
+        nodes.append(cur)
+    steps = torch.stack(nodes, 1) if nodes else torch.zeros(B, 0, dtype=torch.long,
+                                                            device=dev)
+    on = steps >= 0
+    n_edges = on.sum(1)
+    path = torch.zeros(B, Q, dtype=torch.int32, device=dev)
+    path[:, : Q - 1] = torch.where(on, steps, 0).to(torch.int32)
+    out = torch.zeros(B, Q, dtype=torch.int32, device=dev)
+    out[:, 0] = greedy[:, 0]
+    out[:, 1:] = torch.where(on, torch.gather(greedy, 1, steps.clamp(min=0)), 0)
+    return out, (n_edges + 1).to(torch.int32), path
+
+
+def _verify_forward(params, kv, cfg, tokens, positions, qmask, parents, page_tables,
+                    ctx_lens, active, spec, slot_ids):
+    """The verify forward over the draft window; a hybrid stashes the
+    window's k, v for the commit. Returns (kv, logits [B, Q, V], node_valid)."""
+    node_valid = parents > -2
+    valid = node_valid & active[:, None]
+    h, kv = transformer_hidden(params, cfg, kv, tokens, positions, page_tables,
+                               ctx_lens, qmask, valid, spec, slot_ids=slot_ids,
+                               defer_state=cfg.linear_attention)
+    return kv, logits_from_hidden(params, cfg, h, spec), node_valid
+
+
+def _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain, n_acc,
+                        path, n_edges, Q):
+    """After acceptance: a hybrid commits the accepted chain (window columns
+    ``chain[:, :n_acc]``, root first; inactive rows nothing) into its slots'
+    states; then, unless ``path`` is None (Q = 1), the accepted rows move,
+    node ``path[:, i]`` to slot ctx + 1 + i for i < n_edges, in K, V and the
+    fp8_tok scale arenas."""
+    if cfg.linear_attention:
+        n_eff = torch.where(active, n_acc, torch.zeros_like(n_acc))
+        if slot_ids is None:
+            slot_ids = torch.arange(chain.shape[0], dtype=torch.int32, device=chain.device)
+        kv = commit_linear_states(kv, chain, n_eff, slot_ids)
+    if path is None:
+        return kv
+    for name in ("k", "v"):
+        compact_kv_tail(kv[name], page_tables, ctx_lens, path, n_edges, Q, active)
+    for name in ("k_tok_scale", "v_tok_scale"):  # per-token scales move too
+        if name in kv:
+            compact_kv_tail(kv[name], page_tables, ctx_lens, path, n_edges, Q, active,
+                            whole_pages=True)
+    return kv
+
+
+def verify_core(
+    params: dict,
+    kv: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, Q]: col 0 = last committed token, cols 1.. = draft
+    positions: torch.Tensor,  # [B, Q]: ctx + node depth
+    qmask: torch.Tensor,  # [B, Q, Q] bool ancestor matrix (row t = visible nodes)
+    parents: torch.Tensor,  # [B, Q] int32 (-1 root, -2 pad), DFS order
+    page_tables: torch.Tensor,  # [B, P]
+    ctx_lens: torch.Tensor,  # [B] committed length (the root is written here)
+    active: torch.Tensor,  # [B] bool
+    spec: Optional[QuantSpec] = None,
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
+) -> Tuple[dict, torch.Tensor, torch.Tensor]:
+    """Forward over a general draft tree, greedy acceptance walk, the
+    hybrid commit of the accepted chain and KV compaction of the accepted
+    rows. Returns (kv, out_tokens [B, Q], n_accepted [B], 0 for inactive
+    rows). Plain decode is Q = 1 with a trivial mask."""
+    B, Q = tokens.shape
+    kv, logits, _ = _verify_forward(params, kv, cfg, tokens, positions, qmask, parents,
+                                    page_tables, ctx_lens, active, spec, slot_ids)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    out_tokens, n_acc, path = _accept_walk(greedy, tokens.to(torch.int32), parents)
+    # the committed chain's window columns: the root, then the accepted path
+    chain = torch.cat([torch.zeros_like(path[:, :1]), path[:, : Q - 1]], dim=1)
+    n_edges = torch.where(active, n_acc - 1, torch.zeros_like(n_acc))
+    kv = _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain, n_acc,
+                             path[:, : Q - 1] if Q > 1 else None, n_edges, Q)
+    n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
+    return kv, out_tokens, n_acc
+
+
+# One verify step. JAX jits ``verify_core`` under this name; here it runs eagerly.
+verify_step = verify_core
+
+
 def verify_parallel_core(
     params: dict,
     kv: dict,
@@ -75,12 +186,9 @@ def verify_parallel_core(
     B, Q = tokens.shape
     assert Q == 1 + R * L, (Q, R, L)
     dev = tokens.device
-    node_valid = parents > -2
-    valid = node_valid & active[:, None]
-    h, kv = transformer_hidden(params, cfg, kv, tokens, positions, page_tables,
-                               ctx_lens, qmask, valid, spec, slot_ids=slot_ids,
-                               defer_state=cfg.linear_attention)
-    logits = logits_from_hidden(params, cfg, h, spec)
+    kv, logits, node_valid = _verify_forward(params, kv, cfg, tokens, positions, qmask,
+                                             parents, page_tables, ctx_lens, active, spec,
+                                             slot_ids)
     if teacher is not None:
         # the target of the node at stream position p is the teacher's p+1
         W = teacher.shape[1]
@@ -100,25 +208,15 @@ def verify_parallel_core(
 
     ar = torch.arange(L, device=dev)[None, :]
     node_ids = 1 + best[:, None] * L + ar  # [B, L]
-    if cfg.linear_attention:
-        # the committed chain's window columns: the root, then the branch
-        chain = torch.cat([torch.zeros_like(node_ids[:, :1]), node_ids], dim=1)
-        n_eff = torch.where(active, n_acc, torch.zeros_like(n_acc))
-        if slot_ids is None:
-            slot_ids = torch.arange(B, dtype=torch.int32, device=dev)
-        kv = commit_linear_states(kv, chain, n_eff, slot_ids)
     out_tokens = torch.cat([greedy[:, :1], torch.gather(greedy, 1, node_ids)], dim=1)
     if out_tokens.shape[1] < Q:
         out_tokens = torch.nn.functional.pad(out_tokens, (0, Q - out_tokens.shape[1]))
-
+    # the committed chain's window columns: the root, then the branch; the
     # accepted node(best, i) at slot ctx+1+best*L+i moves to ctx+1+i
+    chain = torch.cat([torch.zeros_like(node_ids[:, :1]), node_ids], dim=1)
     eff_edges = torch.where(active & (best > 0), n_edges, torch.zeros_like(n_edges))
-    for name in ("k", "v"):
-        compact_kv_tail(kv[name], page_tables, ctx_lens, node_ids, eff_edges, Q, active)
-    for name in ("k_tok_scale", "v_tok_scale"):  # per-token scales move too
-        if name in kv:
-            compact_kv_tail(kv[name], page_tables, ctx_lens, node_ids, eff_edges, Q,
-                            active, whole_pages=True)
+    kv = _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain, n_acc,
+                             node_ids, eff_edges, Q)
     n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
     return kv, out_tokens, n_acc
 

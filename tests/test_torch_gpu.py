@@ -12,7 +12,7 @@ Tolerances: bf16 outputs within 2e-2 relative to the plain fp32-accumulated
 version (the e4m3 arena modes too: their plain version rounds the
 dequantized rows to bf16, the kernel does not); fp32 outputs within 1e-4
 (sums in another order); the int8 W8A8 GEMM (exact integer sums), the KV
-permute and the page write bit for bit. The batch-invariance tests
+permute, the page write, the row write and the row move bit for bit. The batch-invariance tests
 ask for bit equality: a row's result must not depend on the batch width,
 or lookahead serving would not reproduce AR serving. The grouped
 (per-expert) GEMMs are held to the same tolerances, their rows past
@@ -962,3 +962,185 @@ def test_hybrid_model_serves_on_the_card(cuda):
     for i in (2, 5):
         assert serve([prompts[i]], False, 1)[0] == outs[0][i]
     assert all(f.launches > b for f, b in zip(wrappers, before))
+
+
+# ---------------------------------------------------------------------------
+# K16 (kv_write_rows) and K17 (kv_move_rows)
+# ---------------------------------------------------------------------------
+
+# (arena kind, the arenas' element type and row widths)
+ROW_KINDS = {
+    "bf16": (torch.bfloat16, (4096, 4096)),
+    "e4m3": (torch.float8_e4m3fn, (4096, 4096)),
+    "fp8_tok": (torch.float8_e4m3fn, (4096, 4096), torch.float32, (32, 32)),
+    "scales_4_heads": (torch.float32, (4, 4)),
+    "mla": (torch.bfloat16, (576, 512)),
+    "tiny_fp32": (torch.float32, (6, 3)),  # 24 / 12 bytes: 4-byte copies
+}
+
+
+def _row_case(g, kind, N, L=3, n_pages=9, ps=64, dup=True):
+    """Arenas and rows of ``kind`` for N rows, with duplicates on the null
+    page (every fourth row) and one non-null destination named twice."""
+    spec = ROW_KINDS[kind]
+    pairs = [(spec[0], w) for w in spec[1]]
+    if len(spec) > 2:
+        pairs += [(spec[2], w) for w in spec[3]]
+    pages, rows = [], []
+    for dtype, w in pairs:
+        pages.append(torch.randn(L, n_pages, ps, w, generator=g, device="cuda").to(dtype))
+        rows.append(torch.randn(N, w, generator=g, device="cuda").to(dtype))
+    slot = torch.randperm((n_pages - 1) * ps, generator=g, device="cuda")[:N]
+    pi, ri = (slot // ps + 1).to(torch.int32), (slot % ps).to(torch.int32)
+    if dup and N > 1:
+        pi[::4] = 0
+        pi[-1], ri[-1] = pi[N // 2], ri[N // 2]
+    return pages, rows, pi, ri
+
+
+@pytest.mark.parametrize("kind", list(ROW_KINDS))
+@pytest.mark.parametrize("N", [1, 64, 513, 4096])
+def test_kv_write_rows(cuda, kind, N):
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_write_rows,
+        kv_write_rows_plain,
+    )
+
+    n_pages = 4096 // 64 + 2
+    pages, rows, pi, ri = _row_case(cuda, kind, N, n_pages=n_pages)
+    ref = kv_write_rows_plain(tuple(p.clone() for p in pages), tuple(rows), pi, ri, 1)
+    before = kv_write_rows.launches
+    got = kv_write_rows(tuple(p.clone() for p in pages), tuple(rows), pi, ri, 1)
+    assert kv_write_rows.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_kv_write_rows_takes_strided_rows(cuda):
+    """V rows as a view of the fused qkv output (a row stride of 3 rows)."""
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_write_rows,
+        kv_write_rows_plain,
+    )
+
+    qkv = torch.randn(70, 3 * 1024, generator=cuda, device="cuda").to(torch.bfloat16)
+    rows = qkv[:, 2048:]
+    pages = torch.randn(2, 4, 64, 1024, generator=cuda, device="cuda").to(torch.bfloat16)
+    pi = torch.randint(0, 4, (70,), generator=cuda, device="cuda", dtype=torch.int32)
+    ri = torch.randint(0, 64, (70,), generator=cuda, device="cuda", dtype=torch.int32)
+    got = kv_write_rows(pages.clone(), rows, pi, ri, 1)
+    assert torch.equal(got, kv_write_rows_plain(pages.clone(), rows, pi, ri, 1))
+
+
+def _move_case(g, L, n_pages, ps, row, dtype, N, chains=True):
+    pages = torch.randn(L, n_pages, ps, row, generator=g, device="cuda").to(dtype)
+    slots = torch.randperm(n_pages * ps, generator=g, device="cuda")
+    src, dst = slots[:N].clone(), slots[N: 2 * N].clone()
+    if chains and N > 2:
+        dst[1: N // 2] = src[: N // 2 - 1]  # a move's destination is an earlier source
+        src[N // 2 + 1:] = dst[N // 2: N - 1]  # a move reads an earlier destination
+        dst[-1] = dst[0]  # one destination twice: the later move is kept
+    idx = [(t // ps).to(torch.int32) for t in (src, dst)]
+    rows = [(t % ps).to(torch.int32) for t in (src, dst)]
+    return pages, idx[0], rows[0], idx[1], rows[1]
+
+
+@pytest.mark.parametrize("dtype,row", [(torch.bfloat16, 4096), (torch.float8_e4m3fn, 4096),
+                                       (torch.float32, 4), (torch.bfloat16, 576),
+                                       (torch.float32, 3)])
+@pytest.mark.parametrize("N", [1, 12, 63, 252])
+def test_kv_move_rows(cuda, dtype, row, N):
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_move_rows,
+        kv_move_rows_plain,
+    )
+
+    pages, sp, sr, dp, dr = _move_case(cuda, 32 if row == 4096 else 4, 20, 64, row, dtype, N)
+    before = kv_move_rows.launches
+    got = kv_move_rows(pages.clone(), sp, sr, dp, dr)
+    assert kv_move_rows.launches == before + 1
+    ref = kv_move_rows_plain(pages.clone(), sp, sr, dp, dr)
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+def test_kv_move_rows_refuses_past_shared_memory(cuda):
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        MAX_MOVES,
+        kv_move_rows,
+    )
+
+    pages, sp, sr, dp, dr = _move_case(cuda, 2, 40, 64, 8, torch.float32, MAX_MOVES + 1,
+                                       chains=False)
+    with pytest.raises(ValueError, match="kv_move_rows"):
+        kv_move_rows(pages, sp, sr, dp, dr)
+    # 1024 moves of 4-byte rows with a 4-byte unit fit (4 KB of slices)
+    pages, sp, sr, dp, dr = _move_case(cuda, 2, 40, 64, 1, torch.float32, MAX_MOVES,
+                                       chains=False)
+    kv_move_rows(pages, sp, sr, dp, dr)
+    torch.cuda.synchronize()
+
+
+def test_write_kv_pages_and_move_kv_rows_launch_the_kernels(cuda):
+    from painlessinferenceacceleration_tpu_torch.engine.cache import (
+        compact_kv_tail,
+        move_kv_rows,
+        write_kv_pages,
+    )
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_move_rows,
+        kv_write_rows,
+    )
+
+    L, n_pages, ps, H, D = 2, 9, 64, 2, 64
+    B, Q = 2, 17
+    k = torch.randn(L, n_pages, ps, H * D, generator=cuda, device="cuda").to(torch.bfloat16)
+    v = k.clone()
+    pt = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(B, 4)
+    start = torch.tensor([70, 5], dtype=torch.int32, device="cuda")
+    nk = torch.randn(B, Q, H, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    valid = torch.ones(B, Q, dtype=torch.bool, device="cuda")
+    valid[1, 9:] = False
+    before = kv_write_rows.launches
+    write_kv_pages(k, v, nk, nk, pt, start, valid, 1)
+    assert kv_write_rows.launches == before + 1  # K and V in one launch
+    flat = k[1][pt[0].long()].reshape(-1, H * D)
+    assert torch.equal(flat[70: 70 + Q], nk[0].reshape(Q, -1))
+    # the accepted path's moves equal compact_kv_tail on the live slots
+    path = torch.tensor([[3, 7, 8, 12], [2, 5, 0, 0]], dtype=torch.int32, device="cuda")
+    n_edges = torch.tensor([4, 2], dtype=torch.int32, device="cuda")
+    a = compact_kv_tail(k.clone(), pt, start, path, n_edges, Q)
+    i = torch.arange(4, device="cuda")[None]
+    before = kv_move_rows.launches
+    b = move_kv_rows(k.clone(), pt, start[:, None] + path, start[:, None] + 1 + i,
+                     i < n_edges[:, None])
+    assert kv_move_rows.launches == before + 1
+    for r in range(B):
+        n = int(start[r]) + 1 + int(n_edges[r])
+        rows = lambda x: x[:, pt[r].long()].reshape(L, -1, H * D)[:, :n]  # noqa: E731
+        assert torch.equal(rows(a), rows(b))
+
+
+def test_generator_lookahead_equals_ar_on_the_card(cuda):
+    """A small bf16 llama through LookaheadGenerator: hier, par and one
+    lookahead and batch_generate give the AR stream; the native trie is
+    the one in use."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+    from painlessinferenceacceleration_tpu_torch.lookahead.generate import LookaheadGenerator
+    from painlessinferenceacceleration_tpu_torch.lookahead.native import NativeDraftCache
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=4, eos_token_id=-2,
+                        decoding_length=63, branch_length=12)
+    gen = LookaheadGenerator(params, cfg, ecfg)
+    assert isinstance(gen.trie, NativeDraftCache)
+    prompts = [[5, 6, 7, 8] * 20, [9, 10, 11] * 7, list(range(40, 140)), [7, 8] * 15]
+    ar = [gen.generate(p, max_new_tokens=64, use_lookahead=False).sequences for p in prompts]
+    for mode in ("hier", "par", "one"):
+        la = gen.generate(prompts[0], max_new_tokens=64, use_lookahead=True,
+                          decoding_mode=mode)
+        assert la.sequences == ar[0], mode
+    assert max(la.edls) > 1
+    assert [o.sequences for o in gen.batch_generate(prompts, max_new_tokens=64)] == ar

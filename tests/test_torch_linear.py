@@ -635,14 +635,17 @@ def test_preempted_request_replays_by_decode(pair, lookahead):
     chunk form's order instead of the per-token step's, and the states
     differ. Every batch is padded to 4 rows, so that no CPU matmul changes
     its blocking between the runs. (Lookahead commits past a request's last
-    token, so its final states are not compared.)"""
+    token, so its final states are not compared. Its verify width is 5: a
+    width whose windows fit no row's pages decodes by AR instead of
+    preempting, test_tiny_arena_lookahead_finishes; at 5 the run has verify
+    steps and a preemption.)"""
     _, tc, _, tp = pair
     prompts = [[7, 8, 9, 10, 11], [100, 200, 250], [42, 43, 44, 45]]
-    spec = dict(use_lookahead=True, decoding_length=12, branch_length=6,
+    spec = dict(use_lookahead=True, decoding_length=4, branch_length=6,
                 use_spec_min_batch_size=4) if lookahead else {}
     runs = []
     for pages in (64, 5):
-        ecfg = tconfig.EngineConfig(page_size=16 if lookahead else 8, max_seq_len=256,
+        ecfg = tconfig.EngineConfig(page_size=8, max_seq_len=256,
                                     max_concurrency=4, decode_buckets=(4,), num_pages=pages,
                                     prefill_chunk=8, eos_token_id=-2, **spec)
         llm = TLLM(cfg=tc, params=tp, ecfg=ecfg, dtype=torch.float32, device="cpu")
@@ -654,11 +657,36 @@ def test_preempted_request_replays_by_decode(pair, lookahead):
         llm._finish = keep
         outs = [r.output_ids for r in llm.generate(prompts, TSamplingParams(max_new_tokens=16))]
         runs.append((outs, states, llm.metrics.preempted))
+        assert llm.metrics.spec_steps > 0 or not lookahead
     (ref, ref_s, n0), (outs, got_s, n1) = runs
     assert n0 == 0 and n1 > 0
     assert outs == ref
     if not lookahead:
         assert all(torch.equal(got_s[r], ref_s[r]) for r in ref_s)
+
+
+def test_tiny_arena_lookahead_finishes(pair):
+    """Lookahead on 4 usable pages of 8 rows for three requests (verify
+    width 13) preempted forever, as the JAX engine does (ROADMAP §C); the
+    port now decodes a burst whose verify windows fit no row by AR. Tokens
+    equal the run with room, within a bound on scheduler iterations."""
+    _, tc, _, tp = pair
+    prompts = [[7, 8, 9, 10, 11], [100, 200, 250], [42, 43, 44, 45]]
+    outs = []
+    for pages in (64, 5):
+        ecfg = tconfig.EngineConfig(page_size=8, max_seq_len=256, max_concurrency=4,
+                                    decode_buckets=(4,), num_pages=pages, prefill_chunk=8,
+                                    eos_token_id=-2, use_lookahead=True, decoding_length=12,
+                                    branch_length=6, use_spec_min_batch_size=4)
+        llm = TLLM(cfg=tc, params=tp, ecfg=ecfg, dtype=torch.float32, device="cpu")
+        reqs = [llm.add_request(p, TSamplingParams(max_new_tokens=16)) for p in prompts]
+        for _ in range(200):
+            if all(r.finish_reason for r in reqs):
+                break
+            llm.step()
+        assert all(r.finish_reason for r in reqs), "unfinished after 200 scheduler steps"
+        outs.append([r.output_ids for r in reqs])
+    assert outs[1] == outs[0]
 
 
 def test_reset_linear_states_and_arena_layout(pair):

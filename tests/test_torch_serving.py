@@ -125,6 +125,46 @@ def test_llm_oversubscribed_arena_preempts_like_jax(model):
     assert t.allocator.free_pages == t.ecfg.num_pages - 1
 
 
+def _serve_bounded(llm, prompts, max_new, max_steps=200):
+    """Step the engine by hand, at most ``max_steps`` scheduler iterations,
+    so that an engine that never finishes fails instead of hanging."""
+    reqs = [llm.add_request(p, TSP(max_new_tokens=max_new)) for p in prompts]
+    for _ in range(max_steps):
+        if all(r.finish_reason for r in reqs):
+            break
+        llm.step()
+    assert all(r.finish_reason for r in reqs), f"unfinished after {max_steps} steps"
+    return [r.output_ids for r in reqs]
+
+
+@pytest.mark.parametrize("lookahead", [False, True], ids=["ar", "lookahead"])
+def test_tiny_arena_finishes(model, lookahead):
+    """4 usable pages of 8 rows for three requests, verify width 13: no
+    request's verify window fits the free pages. The JAX engine (and the
+    port before the repair) preempts the youngest request, re-admits it into
+    the same state and preempts it again without end; the port decodes such
+    a burst by AR, which gives the same tokens. Every request gets the
+    tokens it gets with room, within a bound on scheduler iterations."""
+    _, _, tc, tp = model
+    spec = dict(use_lookahead=True, decoding_length=12, branch_length=6,
+                use_spec_min_batch_size=4) if lookahead else {}
+    prompts = [[7, 8, 9, 10, 11], [100, 200, 250], [42, 43, 44, 45]]
+    outs = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny ops: a thread pool beside other workers only waits
+    try:
+        for pages in (64, 5):
+            ecfg = TEngineConfig(page_size=8, max_seq_len=256, max_concurrency=4,
+                                 decode_buckets=(4,), num_pages=pages, prefill_chunk=8,
+                                 eos_token_id=-2, **spec)
+            llm = TLLM(cfg=tc, params=tp, ecfg=ecfg, dtype=torch.float32, device="cpu")
+            outs.append(_serve_bounded(llm, prompts, 16))
+    finally:
+        torch.set_num_threads(threads)
+    assert outs[1] == outs[0]
+    assert all(len(o) == 16 for o in outs[1])
+
+
 def test_llm_eos_and_stop_sequences_match_jax(model):
     j, t = engines(model)
     probe = t.generate(PROMPTS[:2], TSP(max_new_tokens=12))
@@ -200,8 +240,8 @@ def test_llm_rejects_what_is_not_ported(model):
         TEngineConfig(schedule_policy="mix")
     with pytest.raises(NotImplementedError):
         TEngineConfig(temperature=0.5)
-    with pytest.raises(NotImplementedError):  # read only by LookaheadGenerator
-        TEngineConfig(max_new_tokens=64)
+    # read by the ported LookaheadGenerator, so no longer refused
+    assert TEngineConfig(max_new_tokens=64).max_new_tokens == 64
     with pytest.raises(ValueError):  # no such mode in either package
         TQuantSpec.from_mode("fp8")
     assert TQuantSpec.from_mode("none") is None
