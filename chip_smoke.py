@@ -5,19 +5,24 @@
 
 Phases, one line each (any failure exits non-zero and prints no result):
 
-1. environment: the card, CUDA, nvcc, triton, and the kernels' build time;
+1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
+   (the int4 sources' own); ptxas's registers and spills of the int4
+   tensor-core kernels and their shared memory (a spill or a serialized
+   wgmma fails the run);
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
-   could reach and a PyTorch library call as a yardstick: the int4 GEMM,
-   the three 8-bit GEMMs (int8 weight-only, W8A8 per channel with int8 and
+   could reach and a PyTorch library call as a yardstick: the int4 GEMM
+   (every layer shape and the LM head at M = 1, 17, 64, 512 and 4096, with
+   its device time), the three 8-bit GEMMs (int8 weight-only, W8A8 per channel with int8 and
    e4m3 operands, 128x128-block fp8) at M = 1, 17, 512 and on ragged
    shapes, attention, the KV kernels (the tail-window permute, the page
    write-back, the row write K16 at every row kind the arenas hold, up to
    an 8 x 512 prefill, and the row move K17 over chained compaction paths);
    then the batch invariance the
    lossless check rests on (every GEMM, the norm and attention rows
-   bit-identical at every width, the 8-bit GEMMs up to M = 4096);
+   bit-identical at every width, the GEMMs up to M = 4096, an int4 row
+   alone equal to itself at every place of a 4096-row call);
 3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
    (random, from a fixed torch.Generator seed), a bf16 paged arena (page 64,
    4096 tokens), a 512-token prefill, 128 greedy AR tokens, lookahead
@@ -53,7 +58,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    Mixture-of-Experts: the grouped (per-expert) GEMMs for bf16, int4 and
    int8 experts and the dense bf16 GEMM against their plain versions at
    Mixtral-8x7B and Qwen3-30B-A3B expert shapes over seeded random routings
-   (2 to 8192 routed rows, some pairs dropped), rows past ``n_used`` exactly
+   (2 to 8192 routed rows, decode included, some pairs dropped; the int4
+   kernel's grid bounded by the pair count), rows past ``n_used`` exactly
    zero, every routed row bit-equal to the dense kernel on its expert's
    weights and to itself at every batch width; Mixtral-8x7B at full width
    in bf16 (16 of 32 layers: 46.5 GB of weights) through a 2048-token
@@ -143,6 +149,37 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    replayed ``replays`` times between CUDA events, so that the wrapper's
+    host time (which ``time_ms`` of back-to-back calls includes when a
+    kernel is short) drops out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -166,10 +203,61 @@ def phase_environment(pkg) -> dict:
     for name in pkg["_build"].SOURCES:
         pkg["_build"].library(name)
     build_s = time.perf_counter() - t0
+    b = pkg["_build"]
+    int4_build = {n: round(b.BUILD_SECONDS[n], 3) for n in b.VERBOSE_SOURCES
+                  if n in b.BUILD_SECONDS}
     env = dict(card=smi_line(), torch=torch.__version__, cuda=torch.version.cuda,
-               nvcc=ver, triton=has_triton, build_s=round(build_s, 3))
+               nvcc=ver, triton=has_triton, build_s=round(build_s, 3),
+               int4_build_s=int4_build)
     print("phase 1 environment: " + json.dumps(env))
+    print("phase 1 ptxas (int4 tensor-core kernels): " + json.dumps(ptxas_summary(pkg)))
     return env
+
+
+def ptxas_summary(pkg) -> dict:
+    """Registers, spills and the ptxas notes of the int4 kernels (built with
+    -Xptxas -v), and each configuration's dynamic shared memory. Fails the
+    run on a spill, on a wgmma that ptxas serialized, and where a source's
+    report is missing or names no int4 kernel with its registers."""
+    import re
+
+    b = pkg["_build"]
+    out = {}
+    for name in b.VERBOSE_SOURCES:
+        kernels, cur, notes = [], None, []
+        for line in b.ptxas_report(name).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                # <group[, warpgroups]>, "seq" where a block runs every split
+                t = re.search(r"((?:grouped_)?int4_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?"
+                              r"(?:Lb([01])E)?", m.group(1))
+                label = (f"{t.group(1)}<{','.join(v for v in t.groups()[1:3] if v)}>"
+                         + (" seq" if t.group(4) == "1" else "")
+                         if t else m.group(1)[-48:])
+                cur = dict(kernel=label)
+                kernels.append(cur)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+            if "Performance Loss" in line or "injected" in line:
+                notes.append(line.split("ptxas info    : ")[-1][:120])
+        out[name] = dict(kernels=[k for k in kernels if "reduce" not in k["kernel"]],
+                         notes=notes)
+        int4 = [k for k in kernels if "int4_gemm_kernel" in k["kernel"]]
+        if not int4 or any("registers" not in k for k in int4):
+            fail(f"{name}: no ptxas report of its int4 kernels and their registers: "
+                 f"{kernels}")
+        if any(k.get("spill_stores", 0) or k.get("spill_loads", 0) for k in kernels):
+            fail(f"{name}: ptxas reports spills: {kernels}")
+        if any("serialized" in n for n in notes):
+            fail(f"{name}: ptxas serialized the wgmma instructions: {notes}")
+    lib = b.library("int4_gemm")
+    out["smem_bytes"] = {f"group={g} warpgroups={w}": lib.int4_gemm_smem_bytes(g, w)
+                         for g in (32, 64, 128) for w in (1, 2)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -209,25 +297,29 @@ def gemm_row(pkg, x, q, s, out_dtype, case):
         fail(f"int4_gemm {case}: rel err {rel} > {tol}")
     w = pkg["linear"].dequantize({"q": q, "s": s}, pkg["linear"].QuantSpec(bits=4),
                                  torch.bfloat16)
-    ms = time_ms(lambda: qm.int4_matmul(x, q, s, out_dtype))
-    plain_ms = time_ms(lambda: qm.int4_matmul_plain(x, q, s, out_dtype), reps=5)
-    lib_ms = time_ms(lambda: torch.matmul(x, w))
+    ms = time_ms(lambda: qm.int4_matmul(x, q, s, out_dtype), reps=10 if M >= 4096 else 20)
+    dev_ms = graph_ms(lambda: qm.int4_matmul(x, q, s, out_dtype), reps=5 if M >= 4096 else 10)
+    plain_ms = time_ms(lambda: qm.int4_matmul_plain(x, q, s, out_dtype),
+                       reps=2 if M >= 4096 else 5, warmup=1)
+    lib_ms = time_ms(lambda: torch.matmul(x, w), reps=10 if M >= 4096 else 20)
     osz = 2 if out_dtype == torch.bfloat16 else 4
     nbytes = M * K * 2 + K * N // 2 + s.numel() * 2 + M * N * osz
     replaces = (f"{QMM}:142 _qmm4_kernel_v3" if out_dtype == torch.float32
                 else f"{QMM}:147 _qmm4_stacked_kernel_v3")
-    return _case("int4_gemm", "int4_gemm.cu", replaces, err, rel, ms, plain_ms,
-                 bound_ms(nbytes, 2.0 * M * K * N), lib_ms,
-                 f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+    row = _case("int4_gemm", "int4_gemm.cu", replaces, err, rel, ms, plain_ms,
+                bound_ms(nbytes, 2.0 * M * K * N), lib_ms,
+                f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+    row["device_ms"] = dev_ms  # the kernels alone (a CUDA graph): ms is the wrapper's rate
+    return row
 
 
-def check_int4_gemm(pkg, g, M, K, N, out_dtype):
+def check_int4_gemm(pkg, g, M, K, N, out_dtype, group=128):
     import torch
 
     x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
     q = torch.randint(0, 256, (K // 2, N), generator=g, device="cuda", dtype=torch.uint8)
-    s = (torch.rand(K // 128, N, generator=g, device="cuda") * 0.004 + 0.001).to(torch.bfloat16)
-    return gemm_row(pkg, x, q, s, out_dtype, "")
+    s = (torch.rand(K // group, N, generator=g, device="cuda") * 0.004 + 0.001).to(torch.bfloat16)
+    return gemm_row(pkg, x, q, s, out_dtype, "" if group == 128 else f"group={group} ")
 
 
 # the 8-bit GEMMs: row name -> (source, Pallas body it replaces for a stacked
@@ -749,11 +841,16 @@ def phase_kernels(pkg, cfg) -> list:
     HD = cfg.num_key_value_heads * cfg.head_dim
     layer_shapes = [(E, E + 2 * HD), (E, E), (E, 2 * I), (I, E)]
     rows = []
-    for M in (1, 17, 512):
+    # K1 at decode (1), lookahead (17), the generator's Q = 64, prefill (512)
+    # and serving's 8 x 512 prefill (4096)
+    for M in (1, 17, 64, 512, 4096):
         for K, N in layer_shapes:
             rows.append(check_int4_gemm(pkg, g, M, K, N, torch.bfloat16))
-    for M in (1, 17, 512):
         rows.append(check_int4_gemm(pkg, g, M, E, V, torch.float32))
+    for group in (64, 32):  # the other groups the kernel takes, on gate/up
+        for M in (17, 512):
+            rows.append(check_int4_gemm(pkg, g, M, E, 2 * I, torch.bfloat16, group))
+    torch.cuda.empty_cache()
     for name in GEMM8:
         for M in (1, 17, 512):
             for K, N in layer_shapes:
@@ -802,23 +899,33 @@ def phase_kernels(pkg, cfg) -> list:
 
 def check_batch_invariance(pkg, g, cfg) -> list:
     """Lossless serving needs every row's result to be the same at every
-    batch width: K1 rows at M = 1..512, the 8-bit GEMMs' rows at M = 1..4096,
-    the activation quantization and the norm at every row count, and an
-    attention row at Q = 1 and inside a 17-wide verify, bit for bit. Fails
-    the run otherwise; returns no kernel rows."""
+    batch width: K1 rows at M = 1..4096 and at every place in a tile (a row
+    alone equals itself at rows 63, 64, 127, 128, 511 and 4095 of a
+    4096-row call, bf16 and fp32 out, groups of 128, 64 and 32), the 8-bit
+    GEMMs' rows at M = 1..4096, the activation quantization and the norm at
+    every row count, and an attention row at Q = 1 and inside a 17-wide
+    verify, bit for bit. Fails the run otherwise; returns no kernel rows."""
     import torch
 
     E = cfg.hidden_size
-    x = torch.randn(512, E, generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn(4096, E, generator=g, device="cuda").to(torch.bfloat16)
     q = torch.randint(0, 256, (E // 2, E), generator=g, device="cuda", dtype=torch.uint8)
-    s = (torch.rand(E // 128, E, generator=g, device="cuda") * 0.004).to(torch.bfloat16)
     qm_mod, norm_mod = pkg["quant_matmul"], pkg["rmsnorm"]
-    full = qm_mod.int4_matmul(x, q, s)
+    for group in (128, 64, 32):
+        s = (torch.rand(E // group, E, generator=g, device="cuda") * 0.004).to(torch.bfloat16)
+        for out in (torch.bfloat16, torch.float32):
+            full = qm_mod.int4_matmul(x, q, s, out)
+            for m in (1, 2, 4, 8, 17, 64, 65, 136, 512):
+                if not torch.equal(qm_mod.int4_matmul(x[:m], q, s, out), full[:m]):
+                    fail(f"int4_gemm rows change with the batch width (M={m}, "
+                         f"group={group}, out={out})")
+            for r in (63, 64, 127, 128, 511, 4095):
+                if not torch.equal(qm_mod.int4_matmul(x[r:r + 1], q, s, out), full[r:r + 1]):
+                    fail(f"int4_gemm row {r} of 4096 differs from the row alone "
+                         f"(group={group}, out={out})")
     w = torch.ones(E, dtype=torch.bfloat16, device="cuda")
-    nfull = norm_mod.rms_norm(x, w)
+    nfull = norm_mod.rms_norm(x[:512], w)
     for m in (1, 2, 4, 8, 17, 136):
-        if not torch.equal(qm_mod.int4_matmul(x[:m], q, s), full[:m]):
-            fail(f"int4_gemm rows change with the batch width (M={m})")
         if not torch.equal(norm_mod.rms_norm(x[:m], w), nfull[:m]):
             fail(f"rms_norm rows change with the batch width (M={m})")
     I = cfg.intermediate_size
@@ -860,9 +967,10 @@ def check_batch_invariance(pkg, g, cfg) -> list:
                                       None if ks is None else (ks, vs))
         if not torch.equal(att(qq, tree)[:, :1], att(qq[:, :1].contiguous(), one)):
             fail(f"paged_attention ({arena}) row 0 changes with the verify width")
-    print("phase 2 batch invariance: int4_gemm, int8_gemm, w8a8_gemm (int8, fp8), "
-          "block_fp8_gemm, quant_act, rms_norm and attention rows bit-identical at "
-          "every width")
+    print("phase 2 batch invariance: int4_gemm (M = 1..4096 and rows 63, 64, 127, 128, "
+          "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm, w8a8_gemm "
+          "(int8, fp8), block_fp8_gemm, quant_act, rms_norm and attention rows "
+          "bit-identical at every width")
     return []
 
 
@@ -1868,11 +1976,14 @@ def expert_weights(g, name, X, K, N):
     return {"q": q, "s": s.to(torch.bfloat16)}
 
 
-def grouped_call(pkg, name, xg, be, nu, w, rows=None):
+def grouped_call(pkg, name, xg, be, nu, w, n_pairs, rows=None):
+    """One grouped GEMM; ``n_pairs`` (the routing's pair count) bounds the
+    int4 kernel's grid as routed_expert_mlp does."""
     mm = pkg["moe_matmul"]
     if name == "grouped_gemm":
         return mm.grouped_matmul(xg, be, nu, w, rows)
-    return mm.grouped_quant_matmul(xg, be, nu, w, 4 if "int4" in name else 8, rows)
+    return mm.grouped_quant_matmul(xg, be, nu, w, 4 if "int4" in name else 8, rows,
+                                   n_pairs=n_pairs)
 
 
 def dense_expert(pkg, name, x, w, e):
@@ -1900,18 +2011,25 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
     xg = torch.cat([x, torch.zeros(1, K, dtype=x.dtype, device="cuda")])[dest_tok.long()]
     plain = mm.grouped_matmul_plain if name == "grouped_gemm" else (
         lambda a, b, c, p: mm.grouped_quant_matmul_plain(a, b, c, p, 4 if "int4" in name else 8))
-    got, ref = grouped_call(pkg, name, xg, be, nu, w, rows), plain(xg, be, nu, w)
+    got, ref = grouped_call(pkg, name, xg, be, nu, w, T * k, rows), plain(xg, be, nu, w)
     err, rel = _errs(got, ref)
     case = f"{family} routed_rows={T * k} X={X} K={K} N={N}"
+    if name == "grouped_int4_gemm":
+        plan = mm.grouped_int4_plan(xg.shape[0], K, N, 128, X, T * k)
+        case += f" row_blocks_launched={plan.grid[1]} of {be.numel()}"
     if not rel <= 2e-2:
         fail(f"{name} {case}: rel err {rel}")
     n_used = int(nu[0])
     if got[n_used * 128:].any():
         fail(f"{name} {case}: rows past n_used are not zero")
-    if not torch.equal(got, grouped_call(pkg, name, xg, be, nu, w)):
+    if not torch.equal(got, grouped_call(pkg, name, xg, be, nu, w, T * k)):
         fail(f"{name} {case}: the row counts change the result")
     big = T * k >= 1024
-    ms = time_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, rows), reps=5 if big else 20)
+    ms = time_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, T * k, rows),
+                 reps=5 if big else 20)
+    dev_ms = (graph_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, T * k, rows),
+                       reps=3 if big else 10)
+              if name == "grouped_int4_gemm" else None)
     plain_ms = time_ms(lambda: plain(xg, be, nu, w), reps=2 if big else 5, warmup=1)
     # yardstick: torch._grouped_mm over the padded expert runs of bf16 experts
     offs = (torch.searchsorted(be[:n_used].contiguous(),
@@ -1929,6 +2047,8 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
     row = _case(name, source, replaces, err, rel, ms, plain_ms,
                 bound_ms(nbytes, 2.0 * real * K * N), lib_ms,
                 f"{case} real_rows={real} experts_touched={touched} blocks_used={n_used}")
+    if dev_ms is not None:
+        row["device_ms"] = dev_ms  # the kernels alone (a CUDA graph)
     return row
 
 
@@ -1969,7 +2089,7 @@ def check_moe_invariance(pkg, g, name, X, k, K, N, w) -> None:
     def run(m):
         dest_tok, _, be, nu, tok_rows = mm._align(topi[:m], topv[:m], X, m)
         xg = torch.cat([x[:m], zero])[dest_tok.long()]
-        out = grouped_call(pkg, name, xg, be, nu, w, mm._block_rows(dest_tok, m))
+        out = grouped_call(pkg, name, xg, be, nu, w, m * k, mm._block_rows(dest_tok, m))
         return out[tok_rows]  # [m, k, N]: each token's rows by ascending expert
 
     full = run(T)

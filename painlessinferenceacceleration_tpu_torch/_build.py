@@ -7,6 +7,11 @@ and loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is never served by a stale build.
 
+The int4 GEMM sources are compiled with ``-Xptxas -v``: the register,
+shared-memory and spill report of each kernel is kept beside its library
+(``ptxas_report``). ``BUILD_SECONDS`` holds each source's compile time in
+the last ``build_all``.
+
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` turns a non-zero code into an exception.
 """
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -35,7 +41,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# sources whose build keeps ptxas's resource report (registers, shared
+# memory, spills): the tensor-core kernels, whose accumulators must stay in
+# registers
+VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, tuple] = {}
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,8 +76,18 @@ def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared device code
         src += header.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + (("-Xptxas", "-v") if name in VERBOSE_SOURCES else ())
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's resource lines for ``name``'s kernels ("" if not kept)."""
+    path = _lib_path(name).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
 
 
 def build_all() -> None:
@@ -75,20 +98,31 @@ def build_all() -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        ), tmp, out)
+        log = out.with_suffix(f".{os.getpid()}.log")
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT),
+                           tmp, out, log)
     errors = []
-    for name, (proc, tmp, out) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{err}")
-            continue
-        os.replace(tmp, out)
+    while procs:
+        for name, (proc, tmp, out, log) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            text = log.read_text()
+            log.unlink()
+            del procs[name]
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{text}")
+                continue
+            if name in VERBOSE_SOURCES:
+                out.with_suffix(".ptxas.txt").write_text(text)
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -105,6 +139,20 @@ def library(name: str) -> ctypes.CDLL:
         lib.pia_error_string.argtypes = [ctypes.c_int]
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: tuple):
+    """(library, entry point) of ``symbol`` in library ``name`` with its
+    ``argtypes`` set once: a wrapper called hundreds of times a step skips
+    ctypes' per-call setup."""
+    key = (name, symbol)
+    hit = _FNS.get(key)
+    if hit is None or hit[0] is not _LIBS.get(name):
+        lib = library(name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        hit = _FNS[key] = (lib, fn)
+    return hit
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,18 +1,18 @@
 // Row-tile GEMM bodies shared by the dense and the grouped (per-expert)
-// kernels: int4 and int8 weight-only, and bf16, all on CUDA cores with fp32
-// accumulation.
+// kernels: int8 weight-only and bf16, on CUDA cores with fp32 accumulation.
+// (The int4 kernels run on the tensor cores: their body is int4_wgmma.cuh.)
 //
 // One thread block computes MT rows x 128 columns over one K split. Each
 // thread owns 4 adjacent columns; the 8 warps take the chunks of the split's
-// K range in turn (a chunk is one scale group for int4, at most 128 K rows
-// for int8 and bf16), each staging its chunk's x slice in shared memory as
-// fp32; then a fixed-order sum over the warps, and over the K splits in a
-// second kernel. A row's sum therefore depends on (K, N, the split) only:
-// not on MT, not on the row's place in its tile, not on the other rows, not
-// on which weight pointer (layer, expert) the block was given. The dense
-// kernels (int4_gemm.cu, int8_gemm.cu, grouped_gemm.cu's dense entry) and
-// the grouped ones (grouped_*.cu) call the same bodies, so a routed row's
-// bits equal the dense kernel's on the same expert's weights.
+// K range in turn (at most 128 K rows of one scale group for int8, 128 K rows
+// for bf16), each staging its chunk's x slice in shared memory as fp32; then
+// a fixed-order sum over the warps, and over the K splits in a second
+// kernel. A row's sum therefore depends on (K, N, the split) only: not on MT,
+// not on the row's place in its tile, not on the other rows, not on which
+// weight pointer (layer, expert) the block was given. The dense kernels
+// (int8_gemm.cu, grouped_gemm.cu's dense entry) and the grouped ones
+// (grouped_gemm.cu, grouped_int8_gemm.cu) call the same bodies, so a routed
+// row's bits equal the dense kernel's on the same expert's weights.
 
 #pragma once
 
@@ -26,7 +26,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockN = 32 * 4;  // 4 columns per thread
 constexpr int kChunk = 128;      // K rows a warp takes at a time (int8, bf16)
-constexpr int kMaxGroup = 128;   // largest int4 scale group
 constexpr int kGroupedMT = 8;    // row-tile height of the grouped kernels
 constexpr int kBlockM = 128;     // rows of one expert block (moe_align)
 
@@ -82,79 +81,6 @@ __device__ __forceinline__ void zero_tile(void* __restrict__ out, int out_f32,
     else
       static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16(0.f);
   }
-}
-
-// int4: q uint8 [K/2, N] (biased nibbles, plane-baked: byte j of a group
-// holds row losrc[j] in its low nibble and row losrc[j] + g/2 in its high
-// nibble, losrc = j/2 + (j%2)*(g/4)), s bf16 [K/g, N]. The scale multiplies
-// the fp32 partial sum of each group.
-template <int MT>
-__device__ __forceinline__ void int4_tile(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-    const __nv_bfloat16* __restrict__ s, float* __restrict__ part,
-    void* __restrict__ out, int out_f32, int M, int K, int N, int group,
-    int groups_per_split, int m0, int ks, float* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kBlockN + lane * 4;
-  const int n_groups = K / group;
-  const int g_begin = ks * groups_per_split;
-  const int g_end = min(n_groups, g_begin + groups_per_split);
-  const int half = group / 2;
-  const int quarter = group / 4;
-  const bool col_ok = n0 < N;  // N % 4 == 0: a thread's 4 columns agree
-
-  float acc[MT][4];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  float* xs = smem + warp * MT * kMaxGroup;  // this warp's x slice [MT][g]
-  for (int g = g_begin + warp; g < g_end; g += kWarps) {
-    for (int r = 0; r < MT; ++r) {
-      const int m = m0 + r;
-      for (int c = lane; c < group; c += 32)
-        xs[r * kMaxGroup + c] =
-            m < M ? __bfloat162float(x[(size_t)m * K + (size_t)g * group + c])
-                  : 0.f;
-    }
-    __syncwarp();
-    if (col_ok) {
-      float p[MT][4];
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) p[r][c] = 0.f;
-      const uint8_t* qg = q + (size_t)g * half * N + n0;
-      for (int j = 0; j < half; ++j) {
-        const uint32_t word =
-            *reinterpret_cast<const uint32_t*>(qg + (size_t)j * N);
-        const int lo_row = (j >> 1) + (j & 1) * quarter;
-        const int hi_row = lo_row + half;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t byte = (word >> (8 * c)) & 0xFFu;
-          const float wl = (float)((int)(byte & 0xFu) - 8);
-          const float wh = (float)((int)(byte >> 4) - 8);
-#pragma unroll
-          for (int r = 0; r < MT; ++r) {
-            p[r][c] = fmaf(xs[r * kMaxGroup + lo_row], wl, p[r][c]);
-            p[r][c] = fmaf(xs[r * kMaxGroup + hi_row], wh, p[r][c]);
-          }
-        }
-      }
-      const __nv_bfloat16* sg = s + (size_t)g * N + n0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float sc = __bfloat162float(sg[c]);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) acc[r][c] = fmaf(p[r][c], sc, acc[r][c]);
-      }
-    }
-    __syncwarp();
-  }
-  reduce_store<MT>(acc, smem, part, out, out_f32, M, N, m0, ks);
 }
 
 __device__ __forceinline__ void unpack_s8x4(uint32_t word, float* w) {
@@ -379,8 +305,9 @@ inline void launch_splitk_reduce(const float* part, void* out, int out_f32,
 // belongs to expert block_expert[b]; blocks b >= n_used[0] hold no routed row
 // and give zeros, as do the rows of a used block past block_rows[b] (the
 // expert run's padding, whose x rows are zero). All three tables are read on
-// the device, so the grid is the static worst case and nothing waits for the
-// host.
+// the device, so nothing waits for the host: the grid is the static worst
+// case (the int4 kernel bounds it by the routing's pair count and reduces its
+// splits here over the blocks it launched).
 // ---------------------------------------------------------------------------
 
 struct GroupedRows {

@@ -1,0 +1,494 @@
+// The int4 weight-only GEMM body on Hopper's tensor cores (wgmma), shared by
+// the dense kernel (int4_gemm.cu) and the grouped per-expert one
+// (grouped_int4_gemm.cu):
+//
+//   out[m, n] = sum_g s[g, n] * ( sum_{k in g} x[m, k] * (nibble[k, n] - 8) )
+//
+// the bracketed group partial in fp32, the scale on the partial (the Pallas
+// bodies' _qmm4_v3_acc). q is uint8 [K/2, N] in the JAX layout, N
+// contiguous: byte j of a group holds row losrc[j] = j/2 + (j%2)*(g/4) in its
+// low nibble and row losrc[j] + g/2 in its high nibble, biased by +8; s is
+// bf16 [K/g, N].
+//
+// One block: 128 weight columns x a token tile of 64 rows per multiplying
+// warpgroup (W = 1 or 2), over the scale groups of its K split. One stage of
+// a ring in shared memory holds one group: its g/2 packed rows x 128 columns,
+// its 128 scales and the x tile [64 W, g], brought by the tensor memory
+// accelerator (TMA: one thread issues a stage's copies against tensor maps
+// made on the host, an mbarrier counts their bytes; x lands in the
+// swizzle the tensor cores read, rows past the matrix as zeros). Both
+// warpgroups dequantize the stage's nibbles into a bf16 operand
+// [128 columns][g] (K-major, swizzled, each nibble at its logical k row, so
+// x is copied as it lies): (nibble | 0x4300) read as bf16 is
+// 128 + nibble, and 128 + nibble - 136 = nibble - 8 exactly. Then each
+// multiplying warpgroup runs g/16 wgmma m64n128k16 (fp32 += bf16 x bf16, both
+// operands in shared memory) into a fresh fp32 group accumulator and folds it
+// into the running sum on CUDA cores: acc = fma(part, s[g, n], acc). The
+// operand is double-buffered: the next stage is dequantized while the tensor
+// cores multiply this one. Groups of 64 and 128 use the 128-byte swizzle (64
+// k a row of an atom); a group of 32 fills 64-byte rows and uses the 64-byte
+// swizzle.
+//
+// A row's bits do not depend on the batch: every row of every tile, in either
+// kernel, runs the same groups in the same order, the same k16 steps of the
+// same instruction, and (over K splits) the same fixed-order sum, whether the
+// splits run in one block or in separate blocks and a reduction; the split
+// count is a function of (K, N, g) alone, chosen by the wrapper
+// (ops/quant_matmul.py int4_split), which launches the splits as blocks only
+// where the row tiles alone would not fill the card. The tensor cores' products of row m
+// depend on row m of the operand only; rows of a tile past its valid rows
+// are written as zeros or not at all.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (no driver library is linked)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pia4 {
+
+constexpr int kCols = 128;            // weight columns of a block: the wgmma's N
+constexpr int kThreads = 256;         // two warpgroups: both dequantize
+constexpr int kSmemLimit = 232448;    // shared memory a block may use (227 KB)
+constexpr int kMaxStages = 6;
+
+template <int G, int W>
+struct Tile {
+  static_assert(G == 32 || G == 64 || G == 128,
+                "the int4 kernels take groups of 32, 64 or 128");
+  static_assert(W == 1 || W == 2, "one or two multiplying warpgroups");
+  static constexpr int kSpan = G < 64 ? G : 64;  // k of a swizzle atom's row
+  static constexpr int kRowBytes = 2 * kSpan;    // 128 or 64: the swizzle's width
+  static constexpr int kRows = 64 * W;          // token rows of a block
+  static constexpr int kXBytes = kRows * G * 2;  // the x tile of a stage
+  static constexpr int kQBytes = G / 2 * kCols;  // the packed rows of a stage
+  static constexpr int kSBytes = kCols * 2;      // the group's scales
+  static constexpr int kBBytes = kCols * G * 2;  // one dequantized operand
+  static constexpr int kStageBytes = kXBytes + kQBytes + kSBytes;
+  static constexpr int kFit =
+      (kSmemLimit - 1024 - 8 * kMaxStages - 2 * kBBytes) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kBytesPerStage = kStageBytes;  // an mbarrier's count
+  static constexpr int kSmem = 1024 + 2 * kBBytes + kStages * kStageBytes + 8 * kMaxStages;
+  static_assert(kStages >= 2, "a ring needs two stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also announces the bytes the stage's copies will bring
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of `bar` with this parity to complete. A copy that
+// never lands (a fault) traps after 4 seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint32_t spins = 0;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((++spins & 1023u) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0)
+        t0 = now;
+      else if (now - t0 > 4000000000ull)
+        __trap();
+    }
+  }
+}
+
+// a 2-d box of a tensor map into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// this thread's shared-memory writes made visible to the tensor cores' reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma operand descriptor: K-major rows of RB = 128 (or 64) bytes in the
+// RB-byte swizzle, 8-row groups 8 RB bytes apart (the leading offset is
+// unused in these modes)
+template <int RB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * RB >> 4) << 32) | ((uint64_t)(RB == 128 ? 1 : 2) << 62);
+}
+
+// keeps the compiler from moving accesses of the accumulator across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both K-major in shared memory;
+// accumulate = 0 starts a fresh sum. Thread t of the warpgroup holds rows
+// 16 (t/32) + (t%32)/4 (+8) and columns 8 j + 2 (t%4) (+1): d[4 j + 2 h + c]
+// is row +8h, column +c.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// two biased nibbles at bits 0-3 and 16-19 -> bf16x2 of (nibble - 8), exact
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
+  const uint32_t biased = (v & 0x000F000Fu) | 0x43004300u;  // 128 + nibble
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // * 1 - 136
+  return r;
+}
+
+// Byte offset of the 16-byte chunk u (k rows 8u .. 8u + 7) of operand row
+// `row` in a K-major tile of `rows` rows in the RB-byte swizzle: atoms of
+// rows x RB bytes, each RB / 16 chunks wide; the chunk's slot is XORed with
+// address bits 7-9 (128-byte swizzle: row % 8) or 7-8 (64-byte: row / 2 % 4).
+template <int RB>
+__device__ __forceinline__ int sw_offset(int u, int row, int rows) {
+  constexpr int kChunks = RB / 16;
+  const int slot = RB == 128 ? (row & 7) : ((row >> 1) & 3);
+  return (u / kChunks) * (rows * RB) + row * RB + (((u % kChunks) ^ slot) << 4);
+}
+
+// The stage's packed rows [G/2][128] -> the bf16 operand [128 columns][G].
+// Warp w < G/16 takes the packed rows 16 v + 2 e + p (e = 0..7) of band
+// v = w/2, parity p = w%2; lane l takes columns 4 l .. 4 l + 3. Byte
+// 16 v + 2 e + p holds k = 8 v + e + p G/4 (low nibble) and that + G/2
+// (high): chunks u = v + p G/32 and u + G/16 of the band, element e.
+template <int G, int RB>
+__device__ __forceinline__ void dequant_stage(const uint8_t* __restrict__ qs,
+                                              uint8_t* __restrict__ bs) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= G / 16) return;
+  const int v = warp >> 1;
+  const int p = warp & 1;
+  uint32_t w[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    w[e] = *reinterpret_cast<const uint32_t*>(qs + (16 * v + 2 * e + p) * kCols +
+                                              4 * lane);
+  const int u_lo = v + p * (G / 32);
+  const int u_hi = u_lo + G / 16;
+#pragma unroll
+  for (int step = 0; step < 4; ++step) {
+    // the column of this step, rotated so that 8 neighbouring lanes store to
+    // 8 different 16-byte bank groups (in either swizzle)
+    const int c = (step + (lane >> 1)) & 3;
+    const int n = 4 * lane + c;
+    const uint32_t sel = (uint32_t)c | ((uint32_t)(c + 4) << 8);
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      // byte c of rows e = 2h and 2h + 1 at bits 0-7 and 16-23
+      const uint32_t d = __byte_perm(w[2 * h], w[2 * h + 1], sel);
+      lo[h] = nibbles_to_bf16x2(d);
+      hi[h] = nibbles_to_bf16x2(d >> 4);
+    }
+    *reinterpret_cast<uint4*>(bs + sw_offset<RB>(u_lo, n, kCols)) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(bs + sw_offset<RB>(u_hi, n, kCols)) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  }
+}
+
+// The tensor maps of one call (made on the host, passed as __grid_constant__
+// kernel parameters): x bf16 [rows, K] in boxes of min(G, 64) k x 64 W rows
+// in the operand's swizzle; the packed rows uint8 [rows, N] in boxes of 128
+// columns x G/2 rows; the scales bf16 [rows, N] in boxes of 128 x 1. A grouped call's
+// maps span all experts; q_row0 / s_row0 are this block's expert's first
+// rows.
+struct Maps {
+  const CUtensorMap* x;
+  const CUtensorMap* q;
+  const CUtensorMap* s;
+  int q_row0;
+  int s_row0;
+};
+
+// Thread 0 issues the copies of group g into ring slot `slot`.
+template <int G, int W>
+__device__ __forceinline__ void load_stage(uint8_t* xs, uint8_t* qs, uint8_t* ss,
+                                           uint32_t bar, const Maps& maps,
+                                           int m0, int n0, int g) {
+  using T = Tile<G, W>;
+  mbar_expect(bar, T::kBytesPerStage);
+#pragma unroll
+  for (int a = 0; a < G / T::kSpan; ++a)
+    tma_load(smem_u32(xs + a * T::kRows * T::kRowBytes), maps.x,
+             g * G + a * T::kSpan, m0, bar);
+  tma_load(smem_u32(qs), maps.q, n0, maps.q_row0 + g * (G / 2), bar);
+  tma_load(smem_u32(ss), maps.s, n0, maps.s_row0 + g, bar);
+}
+
+// One block's tile. rows_total: the rows of x and out; the tile covers rows
+// [m0, m0 + 64 W), of which the first `valid` carry data (valid >= 1); rows
+// past them inside rows_total get zeros in out. Groups [g_begin, g_end)
+// (at least one), in K splits of gps groups from g_begin: each split's sum
+// starts from zero and the splits are added in order, total = 0 + p0 + p1 +
+// ..., the order in which splitk_reduce_kernel adds the planes of splits run
+// by separate blocks. So a block that runs every split (kSeq: a third
+// accumulator, 64 registers more) gives the bits of one split a block and
+// the reduction, without the planes. Otherwise the block runs one split
+// (the only one, or split ks with part != nullptr: its sums go to
+// part[ks][m][n], planes of part_rows rows, zeros included).
+template <int G, int W, bool kSeq>
+__device__ __forceinline__ void int4_wgmma_tile(
+    const Maps& maps, float* __restrict__ part, int part_rows,
+    void* __restrict__ out, int out_f32, int rows_total, int N, int m0,
+    int valid, int g_begin, int g_end, int gps, int ks, uint8_t* smem_raw) {
+  using T = Tile<G, W>;
+  constexpr int S = T::kStages;
+  const int n0 = blockIdx.x * kCols;
+  const int n_g = g_end - g_begin;
+  // warpgroup-uniform values, broadcast so that the compiler sees them so:
+  // wgmma and its accumulator in a path it takes for divergent would be
+  // serialized
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  const bool mma = __shfl_sync(0xffffffffu, (int)(wg < W && 64 * wg < valid), 0);
+
+  constexpr int RB = T::kRowBytes;
+  constexpr int kSteps = T::kSpan / 16;  // k16 steps in an atom's row
+  // the ring, from a 1024-byte boundary (the swizzle reads address bits 7-9)
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + ((1024u - (raw & 1023u)) & 1023u);
+  uint8_t* bop = base;                              // [2][kBBytes]
+  uint8_t* xs = base + 2 * T::kBBytes;              // [S][kXBytes]
+  uint8_t* qs = xs + S * T::kXBytes;                // [S][kQBytes]
+  uint8_t* ss = qs + S * T::kQBytes;                // [S][kSBytes]
+  const uint32_t bars = smem_u32(ss + S * T::kSBytes);  // [S] mbarriers
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < S - 1 && st < n_g; ++st)
+      load_stage<G, W>(xs + st * T::kXBytes, qs + st * T::kQBytes,
+                       ss + st * T::kSBytes, bars + 8 * st, maps, m0, n0,
+                       g_begin + st);
+  }
+  __syncthreads();
+  mbar_wait(bars, 0);
+  dequant_stage<G, RB>(qs, bop);
+  fence_async_smem();
+  __syncthreads();
+
+  float acc[64];  // this split's sum
+  float pa[64];   // this group's partial
+  float tot[64];  // the splits' sum (kSeq)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0.f;
+    pa[i] = 0.f;
+    tot[i] = 0.f;
+  }
+  const int lane = threadIdx.x & 31;
+
+#pragma unroll 1
+  for (int it = 0; it < n_g; ++it) {
+    const int slot = it % S;
+    // refill the slot that stage it - 1 left (its reads ended before the
+    // barrier closing the previous iteration)
+    const int nx = it + S - 1;
+    if (threadIdx.x == 0 && nx < n_g) {
+      const int ns = nx % S;
+      load_stage<G, W>(xs + ns * T::kXBytes, qs + ns * T::kQBytes,
+                       ss + ns * T::kSBytes, bars + 8 * ns, maps, m0, n0,
+                       g_begin + nx);
+    }
+    if (mma) {
+      const uint32_t xa = smem_u32(xs + slot * T::kXBytes) + wg * 64 * RB;
+      const uint32_t ba = smem_u32(bop + (it & 1) * T::kBBytes);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < G / 16; ++t)
+        wgmma_m64n128k16(
+            pa,
+            sw_desc<RB>(xa + (t / kSteps) * (T::kRows * RB) + (t % kSteps) * 32),
+            sw_desc<RB>(ba + (t / kSteps) * (kCols * RB) + (t % kSteps) * 32), t > 0);
+      wgmma_commit();
+    }
+    if (it + 1 < n_g) {  // the next stage's operand, while this one multiplies
+      mbar_wait(bars + 8 * ((it + 1) % S), ((it + 1) / S) & 1);
+      dequant_stage<G, RB>(qs + ((it + 1) % S) * T::kQBytes,
+                       bop + ((it + 1) & 1) * T::kBBytes);
+      fence_async_smem();
+    }
+    if (mma) {
+      wgmma_wait0();
+      fence_regs(pa);
+      const __nv_bfloat16* sc =
+          reinterpret_cast<const __nv_bfloat16*>(ss + slot * T::kSBytes);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 sv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sc + 8 * j + 2 * (lane & 3)));
+        acc[4 * j + 0] = fmaf(pa[4 * j + 0], sv.x, acc[4 * j + 0]);
+        acc[4 * j + 1] = fmaf(pa[4 * j + 1], sv.y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(pa[4 * j + 2], sv.x, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(pa[4 * j + 3], sv.y, acc[4 * j + 3]);
+      }
+      if (kSeq && ((it + 1) % gps == 0 || it + 1 == n_g)) {  // a split ends
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          tot[i] += acc[i];
+          acc[i] = 0.f;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (wg >= W) return;
+  const int wi = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * wg + 16 * wi + (lane >> 2) + 8 * h;
+    const int m = m0 + r;
+    const bool ok = r < valid;
+    if (m >= rows_total) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n >= N) continue;
+      const float v0 = ok ? (kSeq ? tot : acc)[4 * j + 2 * h] : 0.f;
+      const float v1 = ok ? (kSeq ? tot : acc)[4 * j + 2 * h + 1] : 0.f;
+      if (part != nullptr)
+        *reinterpret_cast<float2*>(part + ((size_t)ks * part_rows + m) * N + n) =
+            make_float2(v0, v1);
+      else if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + (size_t)m * N + n) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                           (size_t)m * N + n) =
+            __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-d map of a row-major matrix [rows, cols] of `elt`-byte elements, read
+// in boxes of box_cols x box_rows; out-of-range elements read as zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                     int elt, uint64_t rows, uint64_t cols, uint32_t box_cols,
+                     uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * (uint64_t)elt};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The three maps of a call: x [x_rows, K], q [q_rows, N], s [s_rows, N].
+template <int G, int W>
+inline bool make_maps(CUtensorMap* xm, CUtensorMap* qm, CUtensorMap* sm,
+                      const void* x, const void* q, const void* s, int x_rows,
+                      int K, int q_rows, int s_rows, int N) {
+  using T = Tile<G, W>;
+  return make_map(xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x_rows, K, T::kSpan,
+                  T::kRows,
+                  T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B) &&
+         make_map(qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q_rows, N, kCols, G / 2,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         make_map(sm, s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s_rows, N, kCols, 1,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// Sets a kernel's dynamic shared memory limit once per device.
+template <typename F>
+inline cudaError_t allow_smem(F* kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+}  // namespace pia4

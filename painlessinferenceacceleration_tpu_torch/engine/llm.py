@@ -70,6 +70,7 @@ from painlessinferenceacceleration_tpu_torch.engine.request import (
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
 from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import check_int4_params
 from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
     DraftTableConfig,
     init_draft_tables,
@@ -119,6 +120,8 @@ class LLM:
         self.ecfg = ecfg or EngineConfig()
         self.dtype = dtype
         self.quant = QuantSpec.from_mode(self.ecfg.quant, self.ecfg.quant_group)
+        if self.device.type == "cuda":
+            check_int4_params(params)
         if self.ecfg.quant_embed and "embed" in params:
             params = dict(params)
             params["embed"] = make_embedding(params["embed"],

@@ -29,6 +29,7 @@ from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelCo
 from painlessinferenceacceleration_tpu_torch.engine.cache import init_kv_cache
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step, verify_step
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import check_int4_params
 from painlessinferenceacceleration_tpu_torch.lookahead.trie import DraftCache
 
 
@@ -96,6 +97,8 @@ class LookaheadGenerator:
         self.quant = quant
         self.dtype = dtype
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_int4_params(params)
         self.trie = make_draft_cache(eos_ids=(self.ecfg.eos_token_id,))
 
     def _fresh_kv(self):

@@ -9,7 +9,9 @@ each expert's run padded to ``BLOCK_M`` rows (``moe_align``), and row block
 ``b`` is multiplied by the weights of expert ``block_expert[b]``. The kernels
 (``csrc/grouped_gemm.cu``, ``csrc/grouped_int4_gemm.cu``,
 ``csrc/grouped_int8_gemm.cu``) read the block tables from device memory, so
-no call waits for the routing; each source note says what bounds it.
+no call waits for the routing; the int4 kernel's grid is bounded by the row
+blocks the routing's pair count allows (``grouped_int4_plan``). Each source
+note says what bounds it.
 ``dense_matmul`` is the bf16 kernel's body with one weight; the native bf16
 linears, the router product and the LM head use it, so every bf16 GEMM of a
 model sums in one order and a token's expert output has the same bits on the
@@ -36,9 +38,14 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
 )
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     CHUNK,
+    INT4_COLS,
+    Int4Plan,
+    aligned16,
     check_gemm_out,
+    check_int4_operands,
     chunk_ksplit,
-    ksplit_for,
+    int4_split,
+    split_blocks,
 )
 
 BLOCK_M = 128
@@ -117,6 +124,28 @@ def _block_rows(dest_tok: torch.Tensor, n_tokens: int) -> torch.Tensor:
     """Routed rows at the head of each block ([NB] int32): an expert's run
     fills its blocks from the front, the rest of a block is padding."""
     return (dest_tok.reshape(-1, BLOCK_M) < n_tokens).sum(dim=1).to(torch.int32)
+
+
+def grouped_row_bound(n_blocks: int, n_experts: int, n_pairs: int) -> int:
+    """Row blocks a routing of ``n_pairs`` (token, expert) pairs over
+    ``n_experts`` experts can use: each expert touched adds at most one
+    partly filled block, so n_used <= min(X, n_pairs) + ceil(n_pairs / 128),
+    and never more than the ``n_blocks`` of the padded layout. Known from
+    shapes, so no launch waits for the routing."""
+    return min(n_blocks, min(n_experts, n_pairs) + -(-n_pairs // BLOCK_M))
+
+
+def grouped_int4_plan(R: int, K: int, N: int, group: int, n_experts: int,
+                      n_pairs: int) -> Int4Plan:
+    """The grouped int4 kernel's launch: the dense kernel's split
+    (``int4_split``, launched as ``split_blocks`` says), two multiplying
+    warpgroups (an expert block of ``BLOCK_M`` rows), and a grid bounded to
+    ``grouped_row_bound`` row blocks."""
+    if R <= 0 or R % BLOCK_M:
+        raise ValueError(f"grouped_int4_gemm: {R} rows are not whole blocks of {BLOCK_M}")
+    ks, gps = int4_split(K, N, group)
+    cols, rows = -(-N // INT4_COLS), grouped_row_bound(R // BLOCK_M, n_experts, n_pairs)
+    return Int4Plan(ks, gps, 2, (cols, rows, split_blocks(ks, cols, rows)))
 
 
 # ---------------------------------------------------------------------------
@@ -336,25 +365,53 @@ def grouped_quant_matmul_plain(x: torch.Tensor, block_expert: torch.Tensor,
         p["q"].shape[2], x.dtype)
 
 
-def _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows):
+def _grouped_int4_cuda(x, block_expert, n_used, q, s, block_rows, n_pairs):
+    R, K = x.shape
+    X, N = q.shape[0], q.shape[2]
+    group = check_int4_operands("grouped_int4_gemm", x, q, s, K, N, x.dtype)
+    if q.dim() != 3 or s.dim() != 3 or s.shape[0] != X:
+        raise ValueError(f"grouped_int4_gemm: experts {tuple(q.shape)} and scales "
+                         f"{tuple(s.shape)} do not match")
+    if block_expert.numel() * BLOCK_M != R:
+        raise ValueError(f"grouped_int4_gemm: {R} rows are not {block_expert.numel()} "
+                         f"blocks of {BLOCK_M}")
+    if block_rows is None:  # every row of a used block counts
+        block_rows = torch.full_like(block_expert, BLOCK_M)
+    tables = [t.contiguous() for t in (block_expert, n_used, block_rows)]
+    if any(t.dtype != torch.int32 or t.device != x.device for t in tables) \
+            or tables[2].numel() != R // BLOCK_M:
+        raise TypeError("grouped_int4_gemm: the block tables must be int32 [NB], [1], "
+                        "[NB] on x's device")
+    plan = grouped_int4_plan(R, K, N, group, X, n_pairs)
+    x = aligned16(x)
+    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    bounded = plan.grid[1] * BLOCK_M
+    work = (torch.empty((plan.grid[2], bounded, N), dtype=torch.float32, device=x.device)
+            if plan.grid[2] > 1 and bounded else None)
+    lib, fn = _build.function("grouped_int4_gemm", "grouped_int4_gemm",
+                              (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9
+                              + (ctypes.c_void_p,))
+    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+             *(t.data_ptr() for t in tables), out.data_ptr(), _build.ptr(work),
+             R, K, N, X, group, 0, plan.grid[2], plan.groups_per_split, plan.grid[1],
+             _build.stream_of(x))
+    _build.check(lib, err, "grouped_int4_gemm")
+    return out
+
+
+def _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows, n_pairs):
     q, s = p["q"].contiguous(), p["s"].contiguous()
-    K, N = x.shape[1], q.shape[2]
-    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
-        raise TypeError("the grouped quantized GEMMs take bf16 activations and scales")
-    if s.shape[0] != q.shape[0] or s.shape[1] == 0 or K % s.shape[1] or s.shape[2] != N:
-        raise ValueError(f"scales {tuple(s.shape)} do not group K={K}, N={N}")
-    group = K // s.shape[1]
-    x = x.contiguous()
     if bits == 4:
-        if q.dtype != torch.uint8 or q.shape[1] * 2 != K:
-            raise ValueError(f"packed experts {tuple(q.shape)} do not match K={K}")
-        if group % 8 or group > 128:
-            raise ValueError(f"grouped_int4_gemm needs group % 8 == 0, group <= 128 "
-                             f"(group={group})")
-        out = _grouped_call("grouped_int4_gemm", x, (q, s), block_expert, n_used,
-                            block_rows, N, ksplit_for(K, N, group), (group,))
+        out = _grouped_int4_cuda(x, block_expert, n_used, q, s, block_rows, n_pairs)
         grouped_quant_matmul.modes["int4"] += 1
     elif bits == 8:
+        K, N = x.shape[1], q.shape[2]
+        if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
+            raise TypeError("the grouped quantized GEMMs take bf16 activations and scales")
+        if s.shape[0] != q.shape[0] or s.shape[1] == 0 or K % s.shape[1] or s.shape[2] != N:
+            raise ValueError(f"scales {tuple(s.shape)} do not group K={K}, N={N}")
+        group = K // s.shape[1]
+        x = x.contiguous()
         if q.dtype != torch.int8 or q.shape[1] != K:
             raise ValueError(f"int8 experts {tuple(q.shape)} do not match K={K}")
         ks = chunk_ksplit(s.shape[1] * -(-group // CHUNK), N)
@@ -369,13 +426,17 @@ def _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows):
 
 def grouped_quant_matmul(x: torch.Tensor, block_expert: torch.Tensor,
                          n_used: torch.Tensor, p: dict, bits: int,
-                         block_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         block_rows: Optional[torch.Tensor] = None, *,
+                         n_pairs: int) -> torch.Tensor:
     """``grouped_matmul`` over weight-only int8 / int4 experts
     ``{"q": [X, Kq, N], "s": [X, K/group, N]}``: the grouped twin of the
     stacked-layer quantized GEMMs, the scale on each group's fp32 partial
-    sum, out in x's dtype."""
+    sum, out in x's dtype. ``n_pairs``: the (token, expert) pairs the rows
+    were aligned from; the int4 kernel launches only the row blocks such a
+    routing can use (``grouped_row_bound``) and zeroes the rest."""
     if x.is_cuda:
-        return _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows)
+        return _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows,
+                                          n_pairs)
     if x.device.type == "cpu":
         return grouped_quant_matmul_plain(x, block_expert, n_used, p, bits)
     raise NotImplementedError(f"grouped_quant_matmul on {x.device}")
@@ -419,7 +480,7 @@ def routed_expert_mlp(
     def gmm(inp, w):
         if isinstance(w, dict):
             return grouped_quant_matmul(inp, block_expert, n_used, w, spec.bits,
-                                        block_rows)
+                                        block_rows, n_pairs=T * topi.shape[1])
         return grouped_matmul(inp, block_expert, n_used, w.to(inp.dtype), block_rows)
 
     gu = gmm(xg, wgu)  # [R, 2I]

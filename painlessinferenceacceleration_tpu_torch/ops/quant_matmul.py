@@ -1,13 +1,16 @@
 """Weight-only int4 / int8 GEMMs: the CUDA kernels' wrappers, their plain
-versions, and the dispatcher over every quantized linear leaf.
+versions, the int4 kernels' launch plan, and the dispatcher over every
+quantized linear leaf.
 
 ``int4_matmul`` replaces the Pallas ``_qmm4_kernel_v3`` and
 ``_qmm4_stacked_kernel_v3``, ``int8_matmul`` replaces ``_qmm_kernel`` and
 ``_qmm8_stacked_kernel`` (``painlessinferenceacceleration_tpu/ops/
 quant_matmul.py``). A stacked weight's layer is a view ``q[li]``, so one
 kernel serves the plain and the stacked form. The kernels
-(``csrc/int4_gemm.cu``, ``csrc/int8_gemm.cu``) read the JAX layouts directly;
-each source note says what bounds it and how its design answers that.
+(``csrc/int4_gemm.cu`` on the tensor cores, ``csrc/int8_gemm.cu``) read the
+JAX layouts directly; each source note says what bounds it and how its
+design answers that. ``int4_plan`` is the int4 kernels' launch plan (split
+count, warpgroups, grid), the grouped kernel's too (``ops/moe_matmul.py``).
 ``quant_matmul`` sends activation-quantized and block-fp8 leaves on to
 ``ops/w8a8.py``.
 
@@ -18,6 +21,8 @@ raises. Each wrapper's ``launches`` counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +32,7 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     dequantize,
 )
 
-_COLS_PER_BLOCK = 128  # kBlockN of every GEMM source under csrc/
+_COLS_PER_BLOCK = 128  # kBlockN of the CUDA-core GEMM sources (gemm_tiles.cuh)
 CHUNK = 128  # K rows a warp takes at a time in the 8-bit GEMM sources
 _TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 
@@ -42,9 +47,104 @@ def chunk_ksplit(n_chunks: int, N: int) -> int:
     return max(1, min(want, n_chunks // 8))
 
 
-def ksplit_for(K: int, N: int, group: int) -> int:
-    """K splits of the int4 kernel, whose chunks are the scale groups."""
-    return chunk_ksplit(K // group, N)
+# ---------------------------------------------------------------------------
+# the int4 kernels' launch plan (csrc/int4_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+INT4_GROUPS = (32, 64, 128)  # scale groups the int4 kernels take: one ring stage each
+INT4_COLS = 128  # weight columns of a block: the wgmma's N
+INT4_WG_ROWS = 64  # token rows of one multiplying warpgroup: the wgmma's M
+_SMS = 132  # the H100's SMs; one int4 block fits an SM's shared memory
+_MIN_FILL = 0.8  # the share of the last wave of blocks a split count must fill
+_MIN_SPLIT_K = 512  # K rows of a split at the least
+
+
+class Int4Plan(NamedTuple):
+    ksplit: int
+    groups_per_split: int  # every split gets at least one group
+    warpgroups: int  # multiplying warpgroups: the token tile is 64 x this
+    grid: tuple  # (column blocks, row blocks, splits launched as blocks)
+
+
+def _fill(units: int) -> float:
+    """The share of its last wave that ``units`` blocks fill on 132 SMs."""
+    return units / (-(-units // _SMS) * _SMS)
+
+
+def split_blocks(ksplit: int, cols: int, row_tiles: int) -> int:
+    """The K splits launched as blocks: ``ksplit``, where the tiles alone
+    would leave the card idle (decode), or 1, where column blocks times row
+    tiles fill at least ``_MIN_FILL`` of their last wave (prefill). Then a
+    block runs its tile's splits in order and adds them as the reduction
+    would: the same bits, and no partial planes, whose traffic (8 bytes a row
+    and column a split, 2.4 ps at 3.35 TB/s) is 2.3 times the products of a
+    512-row split (1024 at 989 TFLOP/s, 1.0 ps)."""
+    return 1 if ksplit == 1 or _fill(cols * row_tiles) >= _MIN_FILL else ksplit
+
+
+def int4_check(K: int, N: int, group: int) -> None:
+    """Raise on a shape the int4 kernels do not take: a group of 32, 64 or
+    128 (one ring stage), K a whole number of groups, N % 16 == 0 (the
+    packed rows are copied 16 bytes at a time)."""
+    if group not in INT4_GROUPS:
+        raise ValueError(f"the int4 kernels take groups of {INT4_GROUPS}, not {group}")
+    if K <= 0 or K % group:
+        raise ValueError(f"the int4 kernels need K % group == 0 (K={K}, group={group})")
+    if N <= 0 or N % 16:
+        raise ValueError(f"the int4 kernels need N % 16 == 0 (N={N})")
+
+
+def check_int4_params(params) -> None:
+    """Raise, before the first launch, on a packed int4 weight (uint8 ``q``)
+    of ``params`` whose shape the int4 kernels do not take: a model
+    quantized with a group other than 32, 64 or 128 does not run on the
+    card."""
+    if isinstance(params, dict):
+        q, s = params.get("q"), params.get("s")
+        if isinstance(q, torch.Tensor) and q.dtype == torch.uint8 and s is not None:
+            K = q.shape[-2] * 2
+            int4_check(K, q.shape[-1], K // max(1, s.shape[-2]))
+            return
+        params = list(params.values())
+    if isinstance(params, (list, tuple)):
+        for v in params:
+            check_int4_params(v)
+
+
+@functools.lru_cache(maxsize=None)
+def int4_split(K: int, N: int, group: int) -> tuple:
+    """(K splits, groups per split) of the int4 kernels, from (K, N, group)
+    alone, so that a row's sum is taken in the same order at every M and in
+    the grouped kernel. The fewest splits (none empty, each at least
+    ``_MIN_SPLIT_K`` rows of K) whose column blocks times splits fill at
+    least ``_MIN_FILL`` of their last wave on 132 SMs, where a lone row tile
+    (decode) would leave the card idle; else the best fill found."""
+    int4_check(K, N, group)
+    n_groups = K // group
+    cols = -(-N // INT4_COLS)
+    best = (0.0, 1, n_groups)
+    for want in range(1, max(1, K // _MIN_SPLIT_K) + 1):
+        gps = -(-n_groups // want)
+        ks = -(-n_groups // gps)
+        fill = _fill(cols * ks)
+        if fill >= _MIN_FILL:
+            return ks, gps
+        if fill > best[0] + 1e-9:
+            best = (fill, ks, gps)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def int4_plan(M: int, K: int, N: int, group: int) -> Int4Plan:
+    """The dense int4 kernel's launch: one multiplying warpgroup (64 token
+    rows a block) up to M = 64, two above; the split of ``int4_split``,
+    launched as ``split_blocks`` says."""
+    ks, gps = int4_split(K, N, group)
+    if M <= 0:
+        raise ValueError(f"int4_gemm needs M >= 1 (M={M})")
+    wg = 1 if M <= INT4_WG_ROWS else 2
+    cols, tiles = -(-N // INT4_COLS), -(-M // (INT4_WG_ROWS * wg))
+    return Int4Plan(ks, gps, wg, (cols, tiles, split_blocks(ks, cols, tiles)))
 
 
 def check_gemm_out(what: str, x: torch.Tensor, N: int, out_dtype, *others) -> None:
@@ -68,33 +168,55 @@ def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return torch.matmul(x.to(torch.float32), w).to(out_dtype or x.dtype)
 
 
+def check_int4_operands(what: str, x: torch.Tensor, q: torch.Tensor,
+                        s: torch.Tensor, K: int, N: int, out_dtype) -> int:
+    """What the int4 kernels ask of their operands: bf16 x and scales, uint8
+    q of K/2 packed rows, one CUDA device, q and s on 16-byte boundaries,
+    bf16 or fp32 out, and a shape ``int4_check`` takes. Returns the group."""
+    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
+        raise TypeError(f"{what} takes bf16 activations and bf16 scales, "
+                        f"not {x.dtype} and {s.dtype}")
+    if q.dtype != torch.uint8 or q.shape[-2] * 2 != K or q.shape[-1] != N:
+        raise ValueError(f"{what}: packed weight {tuple(q.shape)} does not match "
+                         f"K={K}, N={N}")
+    if s.shape[-2] == 0 or K % s.shape[-2] or s.shape[-1] != N:
+        raise ValueError(f"{what}: scales {tuple(s.shape)} do not group K={K}, N={N}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} writes bf16 or fp32, not {out_dtype}")
+    group = K // s.shape[-2]
+    int4_check(K, N, group)
+    if not (q.is_cuda and s.is_cuda and q.device == x.device == s.device):
+        raise ValueError(f"{what} operands must be on one CUDA device")
+    if q.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError(f"{what} needs the weight and its scales on 16-byte boundaries")
+    return group
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and on a 16-byte boundary (the kernels copy 16-byte
+    chunks of its rows); a misaligned view is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+_INT4_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+
+
 def _int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                       out_dtype) -> torch.Tensor:
     M, K = x.shape
+    q, s = q.contiguous(), s.contiguous()
     N = q.shape[1]
-    group = K // s.shape[0]
-    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
-        raise TypeError("int4_gemm takes bf16 activations and bf16 scales")
-    if q.dtype != torch.uint8 or q.shape[0] * 2 != K:
-        raise ValueError(f"packed weight {tuple(q.shape)} does not match K={K}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"int4_gemm writes bf16 or fp32, not {out_dtype}")
-    if group * s.shape[0] != K or group % 8 or group > 128 or N % 4:
-        raise ValueError(f"int4_gemm needs group%8==0, group<=128, N%4==0 "
-                         f"(K={K}, N={N}, group={group})")
-    if not (q.is_cuda and s.is_cuda and q.device == x.device == s.device):
-        raise ValueError("int4_gemm operands must be on one CUDA device")
-    x, q, s = x.contiguous(), q.contiguous(), s.contiguous()
+    group = check_int4_operands("int4_gemm", x, q, s, K, N, out_dtype)
+    x = aligned16(x)
+    plan = int4_plan(M, K, N, group)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ks = ksplit_for(K, N, group)
-    work = (torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
-            if ks > 1 else None)
-    lib = _build.library("int4_gemm")
-    fn = lib.int4_gemm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    work = (torch.empty((plan.grid[2], M, N), dtype=torch.float32, device=x.device)
+            if plan.grid[2] > 1 else None)
+    lib, fn = _build.function("int4_gemm", "int4_gemm", _INT4_ARGS)
     err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-             _build.ptr(work), M, K, N, group,
-             int(out_dtype == torch.float32), ks, _build.stream_of(x))
+             _build.ptr(work), M, K, N, group, int(out_dtype == torch.float32),
+             plan.grid[2], plan.groups_per_split, plan.warpgroups, _build.stream_of(x))
     _build.check(lib, err, "int4_gemm")
     int4_matmul.launches += 1
     return out

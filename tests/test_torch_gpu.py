@@ -81,17 +81,53 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384),
-                                   (4096, 4096, 1024)])  # 8 x 512 prefill rows
+                                   (64, 4096, 22016),  # the generator's Q = 64
+                                   (4096, 4096, 1024),  # 8 x 512 prefill rows
+                                   (34, 4096, 28672), (300, 14336, 4096),  # Mixtral experts
+                                   (8, 2048, 1536), (136, 768, 2048)])  # Qwen3-30B-A3B's
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
-def test_int4_gemm(cuda, M, K, N, out):
+@pytest.mark.parametrize("group", [128, 64, 32])
+def test_int4_gemm(cuda, M, K, N, out, group):
     x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
     q = torch.randint(0, 256, (K // 2, N), generator=cuda, device="cuda", dtype=torch.uint8)
-    s = (torch.rand(K // 128, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
+    s = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
     before = int4_matmul.launches
     got = int4_matmul(x, q, s, out)
     assert int4_matmul.launches == before + 1
     tol = 2e-2 if out == torch.bfloat16 else 1e-4
     assert _rel(got, int4_matmul_plain(x, q, s, out)) < tol
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [128, 64, 32])
+def test_int4_rows_do_not_depend_on_their_place_in_the_tile(cuda, out, group):
+    """A row alone equals itself at the edges of the 64-row warpgroup tiles
+    and the 128-row blocks of a 4096-row call (the prefix test cannot see a
+    dependence on the row's place in its tile)."""
+    K = N = 4096
+    x = torch.randn(4096, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    q = torch.randint(0, 256, (K // 2, N), generator=cuda, device="cuda", dtype=torch.uint8)
+    s = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
+    full = int4_matmul(x, q, s, out)
+    for r in (0, 63, 64, 127, 128, 511, 4095):
+        assert torch.equal(int4_matmul(x[r:r + 1], q, s, out), full[r:r + 1]), r
+    for m in (64, 65, 512):
+        assert torch.equal(int4_matmul(x[:m], q, s, out), full[:m]), m
+
+
+def test_int4_gemm_raises_on_shapes_it_does_not_take(cuda):
+    x = torch.randn(4, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    q = torch.randint(0, 256, (2048, 4104), generator=cuda, device="cuda", dtype=torch.uint8)
+    s = torch.ones(32, 4104, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):  # N % 16 != 0
+        int4_matmul(x, q, s)
+    q = torch.randint(0, 256, (2048, 512), generator=cuda, device="cuda", dtype=torch.uint8)
+    with pytest.raises(ValueError):  # a group of 256
+        int4_matmul(x, q, torch.ones(16, 512, dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(ValueError):  # a group of 16
+        int4_matmul(x, q, torch.ones(256, 512, dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(TypeError):  # fp32 activations
+        int4_matmul(x.float(), q, torch.ones(32, 512, dtype=torch.bfloat16, device="cuda"))
 
 
 def _arena(g, B, ctx, Q, Hkv, D=128, ps=64):
@@ -455,21 +491,50 @@ def test_grouped_gemm(cuda, T, k, X, K, N, use_rows):
 
 
 @pytest.mark.parametrize("T,k,X,K,N", [s for s in GROUPED_SHAPES if s[3] % 128 == 0])
-@pytest.mark.parametrize("bits,group", [(4, 128), (4, 64), (8, 128), (8, 64)])
+@pytest.mark.parametrize("bits,group", [(4, 128), (4, 64), (4, 32), (8, 128), (8, 64)])
 def test_grouped_quant_gemm(cuda, T, k, X, K, N, bits, group):
     x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, T, k, X, K, 0.25)
     p = _quant_experts(cuda, X, K, N, bits, group)
     before = grouped_quant_matmul.modes[f"int{bits}"]
-    got = grouped_quant_matmul(xg, be, nu, p, bits, _block_rows(dest_tok, T))
+    got = grouped_quant_matmul(xg, be, nu, p, bits, _block_rows(dest_tok, T), n_pairs=T * k)
     assert grouped_quant_matmul.modes[f"int{bits}"] == before + 1
     assert _rel(got, grouped_quant_matmul_plain(xg, be, nu, p, bits)) < 2e-2
     assert not got[int(nu[0]) * BLOCK_M:].any()
-    assert torch.equal(got, grouped_quant_matmul(xg, be, nu, p, bits))  # without the row counts
+    # without the row counts
+    assert torch.equal(got, grouped_quant_matmul(xg, be, nu, p, bits, n_pairs=T * k))
     dense = int4_matmul if bits == 4 else int8_matmul
     full = torch.stack([dense(x, p["q"][e], p["s"][e]) for e in range(X)])
     real = (dest_tok < T) & (torch.arange(dest_tok.numel(), device="cuda")
                              < nu[0] * BLOCK_M)
     r = real.nonzero()[:, 0]
+    e = be[r // BLOCK_M].long()
+    assert torch.equal(got[r], full[e, dest_tok[r].long()])
+
+
+@pytest.mark.parametrize("T,k,X,K,N", [(1, 2, 8, 4096, 28672),  # Mixtral decode
+                                       (1, 8, 128, 2048, 1536)])  # Qwen3-30B-A3B decode
+def test_grouped_int4_gemm_at_decode_launches_the_bounded_grid(cuda, T, k, X, K, N):
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import grouped_int4_plan
+
+    x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, T, k, X, K, 0.0)
+    p = _quant_experts(cuda, X, K, N, 4, 128)
+    rows = _block_rows(dest_tok, T)
+    plan = grouped_int4_plan(xg.shape[0], K, N, 128, X, T * k)
+    bound = min(X, T * k) + 1
+    assert plan.grid[1] == bound < be.numel()
+    assert int(nu[0]) <= bound
+    before = grouped_quant_matmul.modes["int4"]
+    xg_dirty = xg.clone()
+    xg_dirty[int(nu[0]) * BLOCK_M:] = 1.0  # rows past n_used and the bound are never read
+    got = grouped_quant_matmul(xg_dirty, be, nu, p, 4, rows, n_pairs=T * k)
+    assert grouped_quant_matmul.modes["int4"] == before + 1
+    assert not got[int(nu[0]) * BLOCK_M:].any()  # exact zeros past n_used and the bound
+    assert _rel(got, grouped_quant_matmul_plain(xg, be, nu, p, 4)) < 2e-2
+    full = torch.stack([int4_matmul(x, p["q"][e], p["s"][e]) for e in range(X)])
+    real = (dest_tok < T) & (torch.arange(dest_tok.numel(), device="cuda")
+                             < nu[0] * BLOCK_M)
+    r = real.nonzero()[:, 0]
+    assert r.numel() == T * k
     e = be[r // BLOCK_M].long()
     assert torch.equal(got[r], full[e, dest_tok[r].long()])
 

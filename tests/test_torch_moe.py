@@ -225,7 +225,7 @@ def test_grouped_quant_matmul_plain_matches_pallas(bits, group, tol):
     ref = jmm.grouped_quant_matmul(jnp.asarray(x), jnp.asarray(be), jnp.asarray(nu),
                                    jp, bits, interpret=True)
     got = tmm.grouped_quant_matmul(torch.from_numpy(x), torch.from_numpy(be),
-                                   torch.from_numpy(nu), tp, bits)
+                                   torch.from_numpy(nu), tp, bits, n_pairs=40 * 2)
     scale = float(np.abs(np.asarray(ref, dtype=np.float32)).max())
     close(got / scale, np.asarray(ref, dtype=np.float32) / scale, tol)
     # the port's expert quantization gives the JAX bytes

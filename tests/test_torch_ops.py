@@ -55,7 +55,7 @@ from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     int4_matmul,
     int4_matmul_plain,
-    ksplit_for,
+    int4_split,
 )
 
 
@@ -148,10 +148,10 @@ def test_int4_wrapper_on_cpu_uses_plain_version_and_counts_nothing():
     assert torch.equal(got, ref) and int4_matmul.launches == before
 
 
-@pytest.mark.parametrize("K,N,want", [(4096, 4096, 4), (11008, 4096, 9), (4096, 32000, 2),
+@pytest.mark.parametrize("K,N,want", [(4096, 4096, 4), (11008, 4096, 4), (4096, 32000, 1),
                                       (4096, 22016, 2), (256, 384, 1)])
 def test_int4_ksplit_depends_on_shape_only(K, N, want):
-    assert ksplit_for(K, N, 128) == want
+    assert int4_split(K, N, 128)[0] == want
 
 
 # ---------------------------------------------------------------------------
