@@ -6,23 +6,25 @@
 Phases, one line each (any failure exits non-zero and prints no result):
 
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
-   (the int4 sources' own); ptxas's registers and spills of the int4
-   tensor-core kernels and their shared memory (a spill or a serialized
-   wgmma fails the run);
+   (the tensor-core sources' own); ptxas's registers and spills of the
+   tensor-core GEMM kernels (int4 K1 / K11, W8A8 K8) and their shared
+   memory (a spill or a serialized wgmma fails the run);
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
    could reach and a PyTorch library call as a yardstick: the int4 GEMM
    (every layer shape and the LM head at M = 1, 17, 64, 512 and 4096, with
-   its device time), the three 8-bit GEMMs (int8 weight-only, W8A8 per channel with int8 and
-   e4m3 operands, 128x128-block fp8) at M = 1, 17, 512 and on ragged
-   shapes, attention, the KV kernels (the tail-window permute, the page
+   its device time), the three 8-bit GEMMs (int8 weight-only and
+   128x128-block fp8 at M = 1, 17, 512 and on ragged shapes; W8A8 per
+   channel with int8 and e4m3 operands at M = 1, 17, 64, 512 and 4096 with
+   its device time, on off-grid shapes, and its refusal of K or N off the
+   16 grid), attention, the KV kernels (the tail-window permute, the page
    write-back, the row write K16 at every row kind the arenas hold, up to
    an 8 x 512 prefill, and the row move K17 over chained compaction paths);
    then the batch invariance the
    lossless check rests on (every GEMM, the norm and attention rows
-   bit-identical at every width, the GEMMs up to M = 4096, an int4 row
-   alone equal to itself at every place of a 4096-row call);
+   bit-identical at every width, the GEMMs up to M = 4096, an int4 and a
+   W8A8 row alone equal to itself at every place of a 4096-row call);
 3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
    (random, from a fixed torch.Generator seed), a bf16 paged arena (page 64,
    4096 tokens), a 512-token prefill, 128 greedy AR tokens, lookahead
@@ -204,21 +206,40 @@ def phase_environment(pkg) -> dict:
         pkg["_build"].library(name)
     build_s = time.perf_counter() - t0
     b = pkg["_build"]
-    int4_build = {n: round(b.BUILD_SECONDS[n], 3) for n in b.VERBOSE_SOURCES
-                  if n in b.BUILD_SECONDS}
+    tc_build = {n: round(b.BUILD_SECONDS[n], 3) for n in b.VERBOSE_SOURCES
+                if n in b.BUILD_SECONDS}
     env = dict(card=smi_line(), torch=torch.__version__, cuda=torch.version.cuda,
                nvcc=ver, triton=has_triton, build_s=round(build_s, 3),
-               int4_build_s=int4_build)
+               tensor_core_build_s=tc_build)
     print("phase 1 environment: " + json.dumps(env))
-    print("phase 1 ptxas (int4 tensor-core kernels): " + json.dumps(ptxas_summary(pkg)))
+    print("phase 1 ptxas (tensor-core GEMM kernels): " + json.dumps(ptxas_summary(pkg)))
     return env
 
 
+def _ptxas_label(entry: str) -> str:
+    """A tensor-core kernel's template arguments from its mangled name:
+    int4 <group[, warpgroups]>, W8A8 <int8|e4m3, warpgroups>; "seq" where a
+    block runs every split."""
+    import re
+
+    t = re.search(r"((?:grouped_)?int4_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
+                  entry)
+    if t:
+        return (f"{t.group(1)}<{','.join(v for v in t.groups()[1:3] if v)}>"
+                + (" seq" if t.group(4) == "1" else ""))
+    t = re.search(r"(w8a8_gemm_kernel)ILb([01])ELi(\d)ELb([01])E", entry)
+    if t:
+        return (f"{t.group(1)}<{'e4m3' if t.group(2) == '1' else 'int8'},{t.group(3)}>"
+                + (" seq" if t.group(4) == "1" else ""))
+    return entry[-48:]
+
+
 def ptxas_summary(pkg) -> dict:
-    """Registers, spills and the ptxas notes of the int4 kernels (built with
-    -Xptxas -v), and each configuration's dynamic shared memory. Fails the
-    run on a spill, on a wgmma that ptxas serialized, and where a source's
-    report is missing or names no int4 kernel with its registers."""
+    """Registers, spills and the ptxas notes of the tensor-core GEMM kernels
+    (int4 K1 / K11, W8A8 K8; built with -Xptxas -v), and each
+    configuration's dynamic shared memory. Fails the run on a spill, on a
+    wgmma that ptxas serialized, and where a source's report is missing or
+    names no GEMM kernel with its registers."""
     import re
 
     b = pkg["_build"]
@@ -228,13 +249,7 @@ def ptxas_summary(pkg) -> dict:
         for line in b.ptxas_report(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                # <group[, warpgroups]>, "seq" where a block runs every split
-                t = re.search(r"((?:grouped_)?int4_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?"
-                              r"(?:Lb([01])E)?", m.group(1))
-                label = (f"{t.group(1)}<{','.join(v for v in t.groups()[1:3] if v)}>"
-                         + (" seq" if t.group(4) == "1" else "")
-                         if t else m.group(1)[-48:])
-                cur = dict(kernel=label)
+                cur = dict(kernel=_ptxas_label(m.group(1)))
                 kernels.append(cur)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and cur is not None:
@@ -246,17 +261,20 @@ def ptxas_summary(pkg) -> dict:
                 notes.append(line.split("ptxas info    : ")[-1][:120])
         out[name] = dict(kernels=[k for k in kernels if "reduce" not in k["kernel"]],
                          notes=notes)
-        int4 = [k for k in kernels if "int4_gemm_kernel" in k["kernel"]]
-        if not int4 or any("registers" not in k for k in int4):
-            fail(f"{name}: no ptxas report of its int4 kernels and their registers: "
+        gemm = [k for k in kernels if "gemm_kernel" in k["kernel"]]
+        if not gemm or any("registers" not in k for k in gemm):
+            fail(f"{name}: no ptxas report of its GEMM kernels and their registers: "
                  f"{kernels}")
         if any(k.get("spill_stores", 0) or k.get("spill_loads", 0) for k in kernels):
             fail(f"{name}: ptxas reports spills: {kernels}")
         if any("serialized" in n for n in notes):
             fail(f"{name}: ptxas serialized the wgmma instructions: {notes}")
     lib = b.library("int4_gemm")
-    out["smem_bytes"] = {f"group={g} warpgroups={w}": lib.int4_gemm_smem_bytes(g, w)
+    out["smem_bytes"] = {f"int4 group={g} warpgroups={w}": lib.int4_gemm_smem_bytes(g, w)
                          for g in (32, 64, 128) for w in (1, 2)}
+    lib = b.library("w8a8_gemm")
+    out["smem_bytes"].update({f"w8a8 warpgroups={w}": lib.w8a8_gemm_smem_bytes(w)
+                              for w in (1, 2)})
     return out
 
 
@@ -356,7 +374,8 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
     and (xq, xs, q, s) for the activation-quantized ones. Tolerance: the
     int8 W8A8 kernel sums in s32 and must equal its plain version bit for
     bit; the others sum fp32 in another order (2e-2 of the largest value in
-    bf16, 1e-4 in fp32)."""
+    bf16, 1e-4 in fp32). K8's rows also carry ``device_ms`` (a CUDA graph of
+    the calls: the kernels without the wrapper's host time)."""
     import torch
 
     qm, w8 = pkg["quant_matmul"], pkg["w8a8"]
@@ -372,8 +391,12 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
             fail(f"{name} {case}M={M} K={K} N={N}: differs from the exact integer product")
     elif not rel <= (2e-2 if out_dtype == torch.bfloat16 else 1e-4):
         fail(f"{name} {case}M={M} K={K} N={N}: rel err {rel}")
-    ms = time_ms(lambda: fn(*args, out_dtype))
-    plain_ms = time_ms(lambda: plain(*args, out_dtype), reps=5)
+    big = M >= 4096
+    ms = time_ms(lambda: fn(*args, out_dtype), reps=10 if big else 20)
+    dev_ms = (graph_ms(lambda: fn(*args, out_dtype), reps=5 if big else 10)
+              if name.startswith("w8a8_gemm") else None)
+    plain_ms = time_ms(lambda: plain(*args, out_dtype), reps=2 if big else 5,
+                       warmup=1 if big else 3)
     if name == "int8_gemm":
         w = pkg["linear"].dequantize({"q": q, "s": args[2]}, pkg["linear"].QuantSpec(bits=8),
                                      torch.bfloat16)
@@ -392,9 +415,12 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
     nbytes = sum(t.numel() * t.element_size() for t in args) + M * N * got.element_size()
     peak = BF16_FLOPS if name == "int8_gemm" else INT8_FP8_OPS
     source, stacked_body, plain_body = GEMM8[name]
-    return _case(name, source, plain_body if unstacked else stacked_body, err, rel, ms,
-                 plain_ms, bound_ms(nbytes, 2.0 * M * K * N, peak), lib_ms,
-                 f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+    row = _case(name, source, plain_body if unstacked else stacked_body, err, rel, ms,
+                plain_ms, bound_ms(nbytes, 2.0 * M * K * N, peak), lib_ms,
+                f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+    if dev_ms is not None:
+        row["device_ms"] = dev_ms
+    return row
 
 
 def gemm8_operands(pkg, g, name, M, K, N, group=128):
@@ -852,6 +878,8 @@ def phase_kernels(pkg, cfg) -> list:
             rows.append(check_int4_gemm(pkg, g, M, E, 2 * I, torch.bfloat16, group))
     torch.cuda.empty_cache()
     for name in GEMM8:
+        if name.startswith("w8a8_gemm"):
+            continue
         for M in (1, 17, 512):
             for K, N in layer_shapes:
                 rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
@@ -863,6 +891,7 @@ def phase_kernels(pkg, cfg) -> list:
                                 group=200))
     rows.append(check_gemm8(pkg, g, "int8_gemm", 17, E, E, torch.bfloat16, "group=64 ",
                             group=64))
+    rows += w8a8_rows(pkg, g, cfg)
     dt = pkg["device_tables"]
     branches = torch.randint(3, V, (2, 8), generator=g, device="cuda")
     _, _, tree, _ = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
@@ -897,12 +926,61 @@ def phase_kernels(pkg, cfg) -> list:
     return rows
 
 
+def w8a8_rows(pkg, g, cfg) -> list:
+    """K8 in both formats at decode (1), lookahead (17), the generator's Q =
+    64, prefill (512) and serving's 8 x 512 prefill (4096) over the 7B layer
+    shapes and the fp32 LM head; on off-grid shapes it takes (K, N multiples
+    of 16, not of 128); and its refusal of K or N off the 16 grid."""
+    import torch
+
+    E, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    HD = cfg.num_key_value_heads * cfg.head_dim
+    rows = []
+    for name in ("w8a8_gemm[int8]", "w8a8_gemm[fp8]"):
+        for M in (1, 17, 64, 512, 4096):
+            for K, N in [(E, E + 2 * HD), (E, E), (E, 2 * I), (I, E)]:
+                rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
+            rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
+            torch.cuda.empty_cache()
+        rows.append(check_gemm8(pkg, g, name, 17, 336, 272, torch.bfloat16, "off-grid "))
+        rows.append(check_gemm8(pkg, g, name, 9, 208, 144, torch.float32, "off-grid "))
+        xq, xs, q, s = gemm8_operands(pkg, g, name, 17, 333, 260)
+        try:
+            pkg["w8a8"].w8a8_gemm(xq, xs, q, s)
+        except ValueError:
+            pass
+        else:
+            fail(f"{name} took K = 333, N = 260 (K and N must be multiples of 16)")
+    return rows
+
+
+def check_w8a8_tile_edges(pkg, g, E) -> None:
+    """K8 in both formats and both output types: a row alone equals itself
+    at rows 0, 63, 64, 127, 128, 511 and 4095 of a 4096-row call (the
+    edges of the 64-row warpgroup tiles and 128-row blocks), and the first
+    m rows equal the 4096-row call's at m = 1 .. 512, bit for bit."""
+    import torch
+
+    fn = pkg["w8a8"].w8a8_gemm
+    for name in ("w8a8_gemm[int8]", "w8a8_gemm[fp8]"):
+        xq, xs, q, s = gemm8_operands(pkg, g, name, 4096, E, E)
+        for out in (torch.bfloat16, torch.float32):
+            full = fn(xq, xs, q, s, out)
+            for r in (0, 63, 64, 127, 128, 511, 4095):
+                if not torch.equal(fn(xq[r:r + 1], xs[r:r + 1], q, s, out), full[r:r + 1]):
+                    fail(f"{name} row {r} of 4096 differs from the row alone (out={out})")
+            for m in (1, 2, 8, 17, 64, 65, 136, 512):
+                if not torch.equal(fn(xq[:m], xs[:m], q, s, out), full[:m]):
+                    fail(f"{name} rows change with the batch width (M={m}, out={out})")
+
+
 def check_batch_invariance(pkg, g, cfg) -> list:
     """Lossless serving needs every row's result to be the same at every
     batch width: K1 rows at M = 1..4096 and at every place in a tile (a row
     alone equals itself at rows 63, 64, 127, 128, 511 and 4095 of a
     4096-row call, bf16 and fp32 out, groups of 128, 64 and 32), the 8-bit
-    GEMMs' rows at M = 1..4096, the activation quantization and the norm at
+    GEMMs' rows at M = 1..4096 (K8's also at every place in a tile, both
+    formats and output types), the activation quantization and the norm at
     every row count, and an attention row at Q = 1 and inside a 17-wide
     verify, bit for bit. Fails the run otherwise; returns no kernel rows."""
     import torch
@@ -941,6 +1019,7 @@ def check_batch_invariance(pkg, g, cfg) -> list:
                 if not torch.equal(part, full[:m]):
                     fail(f"{name} rows change with the batch width (M={m}, K={K})")
             del args, full
+    check_w8a8_tile_edges(pkg, g, E)
     xa = torch.randn(136, E, generator=g, device="cuda").to(torch.bfloat16)
     for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block", "fp8_tb"):
         qspec = pkg["linear"].QuantSpec.from_mode(mode)
@@ -969,8 +1048,9 @@ def check_batch_invariance(pkg, g, cfg) -> list:
             fail(f"paged_attention ({arena}) row 0 changes with the verify width")
     print("phase 2 batch invariance: int4_gemm (M = 1..4096 and rows 63, 64, 127, 128, "
           "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm, w8a8_gemm "
-          "(int8, fp8), block_fp8_gemm, quant_act, rms_norm and attention rows "
-          "bit-identical at every width")
+          "(int8, fp8; also rows 0, 63, 64, 127, 128, 511, 4095 alone, bf16 / fp32 out), "
+          "block_fp8_gemm, quant_act, rms_norm and attention rows bit-identical at every "
+          "width")
     return []
 
 
@@ -1846,7 +1926,7 @@ QUANT_RUNS = (("int8", False, True, True), ("w8a8_int8", False, True, False),
               ("w8a8_fp8", True, False, False))
 
 
-def phase_quant_modes(pkg, cfg) -> dict:
+def phase_quant_modes(pkg, cfg, quant_runs=QUANT_RUNS) -> dict:
     """Each 8-bit linear format through prefill, AR decode and lookahead
     decode at B = 1 (strictly lossless or the run fails); three of them
     through the serving engine, AR and lookahead; the launches of each run
@@ -1867,7 +1947,7 @@ def phase_quant_modes(pkg, cfg) -> dict:
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
 
-    for mode, quant_embed, full, served in QUANT_RUNS:
+    for mode, quant_embed, full, served in quant_runs:
         mcfg = cfg if full else dataclasses.replace(
             cfg, num_hidden_layers=QUANT_REDUCED_LAYERS)
         spec = linear.QuantSpec.from_mode(mode)
@@ -1912,7 +1992,7 @@ def phase_quant_modes(pkg, cfg) -> dict:
         runs.append(res)
         del params
     capture.remove()
-    for name in GEMM8:
+    for name in {MODE_KERNEL[run[0]] for run in quant_runs if run[2]}:
         if not any(r["name"] == name and r["case"].startswith("captured") for r in rows):
             fail(f"no captured call of {name}")
     for r in rows:
@@ -3303,6 +3383,10 @@ def main() -> None:
                     help="run only K16 / K17 against their plain versions, phase 3 and "
                          "the host-trie generator phase (a partial run: prints no "
                          "kernels line and no result line)")
+    ap.add_argument("--w8a8-only", action="store_true",
+                    help="run only K8 (the W8A8 GEMM) against its plain version, its "
+                         "tile-edge checks and the quant modes that run it (a partial "
+                         "run: prints no kernels line and no result line)")
     ap.add_argument("--linear-only", action="store_true",
                     help="run only the linear-attention hybrid phases (a partial run: "
                          "prints no kernels line and no result line)")
@@ -3348,6 +3432,24 @@ def main() -> None:
         return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    if args.w8a8_only:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = w8a8_rows(pkg, g, cfg)
+        for r in rows:
+            print("phase 2 kernel: " + json.dumps(r))
+        check_w8a8_tile_edges(pkg, g, cfg.hidden_size)
+        print("phase 2 w8a8 tile edges: rows alone equal to themselves in a 4096-row call")
+        quant_res = phase_quant_modes(pkg, cfg, tuple(
+            r for r in QUANT_RUNS if MODE_KERNEL[r[0]].startswith("w8a8_gemm")))
+        rows += quant_res["kernels"]
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (W8A8 only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
+                                                 quant_modes=quant_res, wall_s=wall_s),
+                                            indent=1))
+        return
     if args.generator_only:
         rows = row_kernel_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED), cfg)
         for r in rows:

@@ -38,7 +38,7 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
 )
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     CHUNK,
-    INT4_COLS,
+    TC_COLS,
     Int4Plan,
     aligned16,
     check_gemm_out,
@@ -144,7 +144,7 @@ def grouped_int4_plan(R: int, K: int, N: int, group: int, n_experts: int,
     if R <= 0 or R % BLOCK_M:
         raise ValueError(f"grouped_int4_gemm: {R} rows are not whole blocks of {BLOCK_M}")
     ks, gps = int4_split(K, N, group)
-    cols, rows = -(-N // INT4_COLS), grouped_row_bound(R // BLOCK_M, n_experts, n_pairs)
+    cols, rows = -(-N // TC_COLS), grouped_row_bound(R // BLOCK_M, n_experts, n_pairs)
     return Int4Plan(ks, gps, 2, (cols, rows, split_blocks(ks, cols, rows)))
 
 

@@ -48,13 +48,14 @@ def chunk_ksplit(n_chunks: int, N: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the int4 kernels' launch plan (csrc/int4_wgmma.cuh)
+# the tensor-core GEMMs' launch plan: the int4 kernels (csrc/int4_wgmma.cuh)
+# here, the W8A8 kernel (csrc/w8a8_wgmma.cuh) in ops/w8a8.py
 # ---------------------------------------------------------------------------
 
 INT4_GROUPS = (32, 64, 128)  # scale groups the int4 kernels take: one ring stage each
-INT4_COLS = 128  # weight columns of a block: the wgmma's N
-INT4_WG_ROWS = 64  # token rows of one multiplying warpgroup: the wgmma's M
-_SMS = 132  # the H100's SMs; one int4 block fits an SM's shared memory
+TC_COLS = 128  # weight columns of a block: the wgmma's N
+TC_WG_ROWS = 64  # token rows of one multiplying warpgroup: the wgmma's M
+_SMS = 132  # the H100's SMs; one tensor-core block fills an SM's shared memory
 _MIN_FILL = 0.8  # the share of the last wave of blocks a split count must fill
 _MIN_SPLIT_K = 512  # K rows of a split at the least
 
@@ -94,57 +95,79 @@ def int4_check(K: int, N: int, group: int) -> None:
         raise ValueError(f"the int4 kernels need N % 16 == 0 (N={N})")
 
 
+def quant_leaves(params):
+    """Every quantized linear leaf (a dict with a tensor ``q`` and its
+    ``s``) in a parameter tree of dicts, lists and tuples."""
+    if isinstance(params, dict):
+        if isinstance(params.get("q"), torch.Tensor) and params.get("s") is not None:
+            yield params
+            return
+        params = list(params.values())
+    if isinstance(params, (list, tuple)):
+        for v in params:
+            yield from quant_leaves(v)
+
+
 def check_int4_params(params) -> None:
     """Raise, before the first launch, on a packed int4 weight (uint8 ``q``)
     of ``params`` whose shape the int4 kernels do not take: a model
     quantized with a group other than 32, 64 or 128 does not run on the
     card."""
-    if isinstance(params, dict):
-        q, s = params.get("q"), params.get("s")
-        if isinstance(q, torch.Tensor) and q.dtype == torch.uint8 and s is not None:
+    for p in quant_leaves(params):
+        q, s = p["q"], p["s"]
+        if q.dtype == torch.uint8:
             K = q.shape[-2] * 2
             int4_check(K, q.shape[-1], K // max(1, s.shape[-2]))
-            return
-        params = list(params.values())
-    if isinstance(params, (list, tuple)):
-        for v in params:
-            check_int4_params(v)
+
+
+def stage_split(K: int, N: int, stage: int) -> tuple:
+    """(K splits, stages per split) of a tensor-core GEMM whose blocks walk
+    K in ring stages of ``stage`` rows (an int4 scale group; 128 for W8A8),
+    from (K, N, stage) alone, so that a row's sum is taken in the same order
+    at every M and in the grouped kernels. The fewest splits (none empty,
+    each at least ``_MIN_SPLIT_K`` rows of K) whose column blocks times
+    splits fill at least ``_MIN_FILL`` of their last wave on 132 SMs, where
+    a lone row tile (decode) would leave the card idle; else the best fill
+    found."""
+    n_stages = -(-K // stage)
+    cols = -(-N // TC_COLS)
+    best = (0.0, 1, n_stages)
+    for want in range(1, max(1, K // _MIN_SPLIT_K) + 1):
+        per = -(-n_stages // want)
+        ks = -(-n_stages // per)
+        fill = _fill(cols * ks)
+        if fill >= _MIN_FILL:
+            return ks, per
+        if fill > best[0] + 1e-9:
+            best = (fill, ks, per)
+    return best[1], best[2]
+
+
+def tile_grid(M: int, N: int, ksplit: int) -> tuple:
+    """(multiplying warpgroups, grid) of a dense tensor-core GEMM: one
+    warpgroup (64 token rows a block) up to M = 64, two above; the grid
+    (column blocks, row tiles, splits launched as ``split_blocks`` says)."""
+    if M <= 0:
+        raise ValueError(f"a GEMM needs M >= 1 (M={M})")
+    wg = 1 if M <= TC_WG_ROWS else 2
+    cols, tiles = -(-N // TC_COLS), -(-M // (TC_WG_ROWS * wg))
+    return wg, (cols, tiles, split_blocks(ksplit, cols, tiles))
 
 
 @functools.lru_cache(maxsize=None)
 def int4_split(K: int, N: int, group: int) -> tuple:
-    """(K splits, groups per split) of the int4 kernels, from (K, N, group)
-    alone, so that a row's sum is taken in the same order at every M and in
-    the grouped kernel. The fewest splits (none empty, each at least
-    ``_MIN_SPLIT_K`` rows of K) whose column blocks times splits fill at
-    least ``_MIN_FILL`` of their last wave on 132 SMs, where a lone row tile
-    (decode) would leave the card idle; else the best fill found."""
+    """(K splits, groups per split) of the int4 kernels: ``stage_split``
+    with a stage of one scale group."""
     int4_check(K, N, group)
-    n_groups = K // group
-    cols = -(-N // INT4_COLS)
-    best = (0.0, 1, n_groups)
-    for want in range(1, max(1, K // _MIN_SPLIT_K) + 1):
-        gps = -(-n_groups // want)
-        ks = -(-n_groups // gps)
-        fill = _fill(cols * ks)
-        if fill >= _MIN_FILL:
-            return ks, gps
-        if fill > best[0] + 1e-9:
-            best = (fill, ks, gps)
-    return best[1], best[2]
+    return stage_split(K, N, group)
 
 
 @functools.lru_cache(maxsize=None)
 def int4_plan(M: int, K: int, N: int, group: int) -> Int4Plan:
-    """The dense int4 kernel's launch: one multiplying warpgroup (64 token
-    rows a block) up to M = 64, two above; the split of ``int4_split``,
-    launched as ``split_blocks`` says."""
+    """The dense int4 kernel's launch: the split of ``int4_split`` on the
+    grid of ``tile_grid``."""
     ks, gps = int4_split(K, N, group)
-    if M <= 0:
-        raise ValueError(f"int4_gemm needs M >= 1 (M={M})")
-    wg = 1 if M <= INT4_WG_ROWS else 2
-    cols, tiles = -(-N // INT4_COLS), -(-M // (INT4_WG_ROWS * wg))
-    return Int4Plan(ks, gps, wg, (cols, tiles, split_blocks(ks, cols, tiles)))
+    return Int4Plan(ks, gps, *tile_grid(M, N, ks))
 
 
 def check_gemm_out(what: str, x: torch.Tensor, N: int, out_dtype, *others) -> None:

@@ -7,12 +7,15 @@ package does it outside its kernels. ``w8a8_gemm`` replaces the Pallas
 ``_w8a8_kernel`` and ``_w8a8_stacked_kernel`` (``csrc/w8a8_gemm.cu``),
 ``block_fp8_gemm`` replaces ``_block_fp8_kernel`` and
 ``_block_fp8_stacked_kernel`` (``csrc/block_fp8_gemm.cu``); a stacked
-weight's layer is a view, so one kernel serves both forms. Both take the
-operands already quantized and apply every scale in the kernel, in fp32 and
-in the order of the plain version, with one rounding at the end. (The Pallas
-per-channel kernel rounds to bf16 before its wrapper multiplies by the
-activation scale; the port follows the oracle ``w8a8_matmul_ref``, not that
-double rounding.)
+weight's layer is a view, so one kernel serves both forms. ``w8a8_gemm``
+runs on the 8-bit tensor cores (``csrc/w8a8_wgmma.cuh``) and takes K % 16
+== 0 and N % 16 == 0 only (``w8a8_check``; ``check_w8a8_params`` refuses a
+model with another shape before its first launch); ``w8a8_plan`` is its
+launch plan. Both take the operands already quantized and apply every
+scale in the kernel, in fp32 and in the order of the plain version, with
+one rounding at the end. (The Pallas per-channel kernel rounds to bf16
+before its wrapper multiplies by the activation scale; the port follows the
+oracle ``w8a8_matmul_ref``, not that double rounding.)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``w8a8_gemm.launches`` / ``block_fp8_gemm.launches`` count kernel
@@ -23,7 +26,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +36,12 @@ from painlessinferenceacceleration_tpu_torch import _build
 from painlessinferenceacceleration_tpu_torch.layers.linear import FP8_MAX, QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     CHUNK,
+    aligned16,
     check_gemm_out,
     chunk_ksplit,
+    quant_leaves,
+    stage_split,
+    tile_grid,
 )
 
 INT8_MAX = 127.0
@@ -136,8 +144,57 @@ def w8a8_matmul_ref(x2: torch.Tensor, p: dict, spec: QuantSpec,
 
 
 # ---------------------------------------------------------------------------
+# the W8A8 kernel's launch plan (csrc/w8a8_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+W8A8_STAGE = 128  # k rows of one ring stage: a 128-byte swizzle row of 8-bit values
+
+
+class W8A8Plan(NamedTuple):
+    ksplit: int
+    stages_per_split: int  # every split gets at least one stage
+    warpgroups: int  # multiplying warpgroups: the token tile is 64 x this
+    grid: tuple  # (column blocks, row blocks, splits launched as blocks)
+
+
+def w8a8_check(K: int, N: int) -> None:
+    """Raise on a shape the W8A8 kernel does not take: TMA copies rows
+    whose strides are whole multiples of 16 bytes, so K % 16 == 0 (the
+    activations' rows) and N % 16 == 0 (the weight's)."""
+    if K <= 0 or K % 16 or N <= 0 or N % 16:
+        raise ValueError(f"the W8A8 kernel needs K % 16 == 0 and N % 16 == 0 "
+                         f"(K={K}, N={N})")
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(M: int, K: int, N: int) -> W8A8Plan:
+    """The W8A8 kernel's launch: a K split of 128-k stages from (K, N)
+    alone (``stage_split``), so that a row's sum is taken in the same order
+    at every M, on the grid of ``tile_grid``."""
+    w8a8_check(K, N)
+    ks, sps = stage_split(K, N, W8A8_STAGE)
+    return W8A8Plan(ks, sps, *tile_grid(M, N, ks))
+
+
+def check_w8a8_params(params) -> None:
+    """Raise, before the first launch, on a per-channel W8A8 weight of
+    ``params`` (int8 or e4m3 ``q`` [.., K, N] with fp32 scales ``s`` [..,
+    N]; the block format's ``s`` has ``q``'s rank) whose shape the W8A8
+    kernel does not take (``w8a8_check``): such a model does not run on the
+    card."""
+    for p in quant_leaves(params):
+        q, s = p["q"], p["s"]
+        if (q.dtype in (torch.int8, FP8) and isinstance(s, torch.Tensor)
+                and s.dtype == torch.float32 and s.dim() == q.dim() - 1
+                and s.shape[-1] == q.shape[-1]):
+            w8a8_check(q.shape[-2], q.shape[-1])
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+_W8A8_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
 def _w8a8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
@@ -151,20 +208,21 @@ def _w8a8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
                          f"q {tuple(q.shape)}, s {tuple(s.shape)}")
     if s.dtype != torch.float32 or xs.dtype != torch.float32:
         raise TypeError("w8a8_gemm takes fp32 scales")
-    xq, xs, q, s = xq.contiguous(), xs.contiguous(), q.contiguous(), s.contiguous()
+    plan = w8a8_plan(M, K, N)
+    xq, xs, q, s = aligned16(xq), xs.contiguous(), q.contiguous(), s.contiguous()
     check_gemm_out("w8a8_gemm", xq, N, out_dtype, xs, q, s)
+    if q.data_ptr() % 16:
+        raise ValueError("w8a8_gemm needs the weight on a 16-byte boundary")
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    ks = chunk_ksplit(-(-K // CHUNK), N)
-    # int32 partial sums for int8 operands, fp32 for e4m3: 4 bytes either way
-    work = (torch.empty((ks, M, N), dtype=torch.float32, device=xq.device)
-            if ks > 1 else None)
+    # s32 partial sums for int8 operands, fp32 for e4m3: 4 bytes either way
+    work = (torch.empty((plan.grid[2], M, N), dtype=torch.float32, device=xq.device)
+            if plan.grid[2] > 1 else None)
     fp8 = q.dtype == FP8
-    lib = _build.library("w8a8_gemm")
-    fn = lib.w8a8_gemm
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib, fn = _build.function("w8a8_gemm", "w8a8_gemm", _W8A8_ARGS)
     err = fn(xq.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(),
              out.data_ptr(), _build.ptr(work), M, K, N, int(fp8),
-             int(out_dtype == torch.float32), ks, _build.stream_of(xq))
+             int(out_dtype == torch.float32), plan.grid[2], plan.stages_per_split,
+             plan.warpgroups, _build.stream_of(xq))
     _build.check(lib, err, "w8a8_gemm")
     w8a8_gemm.launches += 1
     w8a8_gemm.modes["fp8" if fp8 else "int8"] += 1
@@ -174,7 +232,8 @@ def _w8a8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
 def w8a8_gemm(xq: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
               s: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """((xq [M, K] @ q [K, N]) * xs [M]) * s [N] -> [M, N]; xq and q both
-    int8 (exact int32 accumulation) or both e4m3 (fp32 accumulation)."""
+    int8 (exact int32 accumulation) or both e4m3 (fp32 accumulation). On the
+    card K % 16 == 0 and N % 16 == 0 (``w8a8_check``)."""
     if xq.is_cuda:
         return _w8a8_gemm_cuda(xq, xs, q, s, out_dtype)
     if xq.device.type != "cpu":

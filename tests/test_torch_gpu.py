@@ -315,6 +315,11 @@ def test_gemm_and_norm_rows_do_not_depend_on_the_batch(cuda):
 # and a group that is all of K (longer than one 128-row chunk)
 GEMM_SHAPES = [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384), (4096, 4096, 1024),
                (9, 200, 132), (17, 333, 260)]
+# the W8A8 kernel takes K and N in multiples of 16 (TMA's row strides): its
+# off-grid cases are off the 128 grid only, and it adds the generator's Q =
+# 64 on gate/up and a Mixtral expert's down projection at 300 rows
+W8A8_SHAPES = [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384), (4096, 4096, 1024),
+               (9, 208, 144), (17, 336, 272), (64, 4096, 22016), (300, 14336, 4096)]
 
 
 def _tol(out):
@@ -349,7 +354,7 @@ def _w8a8_operands(g, M, K, N, mode):
     return xq, xs, q, s
 
 
-@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("M,K,N", W8A8_SHAPES)
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_w8a8_gemm_int8_is_exact(cuda, M, K, N, out):
     xq, xs, q, s = _w8a8_operands(cuda, M, K, N, "w8a8_int8")
@@ -359,7 +364,7 @@ def test_w8a8_gemm_int8_is_exact(cuda, M, K, N, out):
     assert torch.equal(got, w8a8_gemm_plain(xq, xs, q, s, out))
 
 
-@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("M,K,N", W8A8_SHAPES)
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_w8a8_gemm_fp8(cuda, M, K, N, out):
     xq, xs, q, s = _w8a8_operands(cuda, M, K, N, "w8a8_fp8")
@@ -367,6 +372,31 @@ def test_w8a8_gemm_fp8(cuda, M, K, N, out):
     got = w8a8_gemm(xq, xs, q, s, out)
     assert w8a8_gemm.modes["fp8"] == before + 1
     assert _rel(got, w8a8_gemm_plain(xq, xs, q, s, out)) < _tol(out)
+
+
+@pytest.mark.parametrize("mode", ["w8a8_int8", "w8a8_fp8"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_w8a8_rows_do_not_depend_on_their_place_in_the_tile(cuda, mode, out):
+    """A row alone equals itself at the edges of the 64-row warpgroup tiles
+    and the 128-row blocks of a 4096-row call, and the first m rows equal
+    the call's (the splits launched as blocks at M <= 64, run in one block
+    at M = 4096: the same bits)."""
+    xq, xs, q, s = _w8a8_operands(cuda, 4096, 4096, 4096, mode)
+    full = w8a8_gemm(xq, xs, q, s, out)
+    for r in (0, 63, 64, 127, 128, 511, 4095):
+        assert torch.equal(w8a8_gemm(xq[r:r + 1], xs[r:r + 1], q, s, out), full[r:r + 1]), r
+    for m in (64, 65, 512):
+        assert torch.equal(w8a8_gemm(xq[:m], xs[:m], q, s, out), full[:m]), m
+
+
+@pytest.mark.parametrize("mode", ["w8a8_int8", "w8a8_fp8"])
+def test_w8a8_gemm_raises_off_the_16_grid(cuda, mode):
+    for K, N in ((333, 256), (336, 260), (200, 132)):
+        xq, xs, q, s = _w8a8_operands(cuda, 17, K, N, mode)
+        before = w8a8_gemm.launches
+        with pytest.raises(ValueError, match="16"):
+            w8a8_gemm(xq, xs, q, s)
+        assert w8a8_gemm.launches == before
 
 
 @pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
@@ -380,10 +410,13 @@ def test_block_fp8_gemm(cuda, M, K, N, mode):
         assert _rel(got, block_fp8_gemm_plain(xq, xs, q, s, out)) < _tol(out)
 
 
-@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 512), (333, 260)])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 512), (333, 260),
+                                 (336, 272)])
 def test_8bit_gemm_rows_do_not_depend_on_the_batch(cuda, K, N):
     """A row of every 8-bit GEMM is the same at M = 1, 8, 17, 136 and 4096,
-    bit for bit: AR decode batches B rows, lookahead 17 B, prefill 512 B."""
+    bit for bit: AR decode batches B rows, lookahead 17 B, prefill 512 B.
+    The W8A8 kernel joins where K and N are multiples of 16 (the shapes it
+    takes)."""
     M = 4096
     x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
     group = 128 if K % 128 == 0 else K
@@ -391,6 +424,8 @@ def test_8bit_gemm_rows_do_not_depend_on_the_batch(cuda, K, N):
     s8 = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
     runs = {"int8_gemm": lambda m: int8_matmul(x[:m], q8, s8)}
     for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block"):
+        if mode != "fp8_block" and (K % 16 or N % 16):
+            continue
         xq, xs, q, s = _w8a8_operands(cuda, M, K, N, mode)
         fn = block_fp8_gemm if mode == "fp8_block" else w8a8_gemm
         runs[mode] = (lambda m, fn=fn, xq=xq, xs=xs, q=q, s=s:
