@@ -218,11 +218,11 @@ def phase_environment(pkg) -> dict:
 
 def _ptxas_label(entry: str) -> str:
     """A tensor-core kernel's template arguments from its mangled name:
-    int4 <group[, warpgroups]>, W8A8 <int8|e4m3, warpgroups>; "seq" where a
-    block runs every split."""
+    int4 <group[, warpgroups]>, int8 <stage[, warpgroups]>, W8A8 <int8|e4m3,
+    warpgroups>; "seq" where a block runs every split."""
     import re
 
-    t = re.search(r"((?:grouped_)?int4_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
+    t = re.search(r"((?:grouped_)?int[48]_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
                   entry)
     if t:
         return (f"{t.group(1)}<{','.join(v for v in t.groups()[1:3] if v)}>"
@@ -236,7 +236,7 @@ def _ptxas_label(entry: str) -> str:
 
 def ptxas_summary(pkg) -> dict:
     """Registers, spills and the ptxas notes of the tensor-core GEMM kernels
-    (int4 K1 / K11, W8A8 K8; built with -Xptxas -v), and each
+    (int4 K1 / K11, int8 K7 / K12, W8A8 K8; built with -Xptxas -v), and each
     configuration's dynamic shared memory. Fails the run on a spill, on a
     wgmma that ptxas serialized, and where a source's report is missing or
     names no GEMM kernel with its registers."""
@@ -272,6 +272,9 @@ def ptxas_summary(pkg) -> dict:
     lib = b.library("int4_gemm")
     out["smem_bytes"] = {f"int4 group={g} warpgroups={w}": lib.int4_gemm_smem_bytes(g, w)
                          for g in (32, 64, 128) for w in (1, 2)}
+    lib = b.library("int8_gemm")
+    out["smem_bytes"].update({f"int8 stage={c} warpgroups={w}": lib.int8_gemm_smem_bytes(c, w)
+                              for c in (128, 64, 32) for w in (1, 2)})
     lib = b.library("w8a8_gemm")
     out["smem_bytes"].update({f"w8a8 warpgroups={w}": lib.w8a8_gemm_smem_bytes(w)
                               for w in (1, 2)})
@@ -374,8 +377,9 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
     and (xq, xs, q, s) for the activation-quantized ones. Tolerance: the
     int8 W8A8 kernel sums in s32 and must equal its plain version bit for
     bit; the others sum fp32 in another order (2e-2 of the largest value in
-    bf16, 1e-4 in fp32). K8's rows also carry ``device_ms`` (a CUDA graph of
-    the calls: the kernels without the wrapper's host time)."""
+    bf16, 1e-4 in fp32). The tensor-core kernels' rows (K7, K8) also carry
+    ``device_ms`` (a CUDA graph of the calls: the kernels without the
+    wrapper's host time)."""
     import torch
 
     qm, w8 = pkg["quant_matmul"], pkg["w8a8"]
@@ -394,7 +398,7 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
     big = M >= 4096
     ms = time_ms(lambda: fn(*args, out_dtype), reps=10 if big else 20)
     dev_ms = (graph_ms(lambda: fn(*args, out_dtype), reps=5 if big else 10)
-              if name.startswith("w8a8_gemm") else None)
+              if name != "block_fp8_gemm" else None)
     plain_ms = time_ms(lambda: plain(*args, out_dtype), reps=2 if big else 5,
                        warmup=1 if big else 3)
     if name == "int8_gemm":
@@ -877,20 +881,15 @@ def phase_kernels(pkg, cfg) -> list:
         for M in (17, 512):
             rows.append(check_int4_gemm(pkg, g, M, E, 2 * I, torch.bfloat16, group))
     torch.cuda.empty_cache()
-    for name in GEMM8:
-        if name.startswith("w8a8_gemm"):
-            continue
-        for M in (1, 17, 512):
-            for K, N in layer_shapes:
-                rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
-            rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
-        # ragged: K and N off the 128 grid (K odd), both output types
-        rows.append(check_gemm8(pkg, g, name, 17, 333, 260, torch.bfloat16, "ragged ",
-                                group=333))
-        rows.append(check_gemm8(pkg, g, name, 9, 200, 132, torch.float32, "ragged ",
-                                group=200))
-    rows.append(check_gemm8(pkg, g, "int8_gemm", 17, E, E, torch.bfloat16, "group=64 ",
-                            group=64))
+    name = "block_fp8_gemm"
+    for M in (1, 17, 512):
+        for K, N in layer_shapes:
+            rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
+        rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
+    # ragged: K and N off the 128 grid (K odd), both output types
+    rows.append(check_gemm8(pkg, g, name, 17, 333, 260, torch.bfloat16, "ragged "))
+    rows.append(check_gemm8(pkg, g, name, 9, 200, 132, torch.float32, "ragged "))
+    rows += int8_rows(pkg, g, cfg)
     rows += w8a8_rows(pkg, g, cfg)
     dt = pkg["device_tables"]
     branches = torch.randint(3, V, (2, 8), generator=g, device="cuda")
@@ -924,6 +923,67 @@ def phase_kernels(pkg, cfg) -> list:
     for r in rows:
         print("phase 2 kernel: " + json.dumps(r))
     return rows
+
+
+def int8_rows(pkg, g, cfg) -> list:
+    """K7 (the int8 weight-only GEMM) at decode (1), lookahead (17), the
+    generator's Q = 64, prefill (512) and serving's 8 x 512 prefill (4096)
+    over the 7B layer shapes and the fp32 LM head; at group 64 (gate/up);
+    at DeepSeek-V2-Lite's dense down projection (one group of all 10944
+    rows, stages of 64); on off-grid shapes it takes (a whole-K group that
+    is a multiple of 32, N a multiple of 16); and its refusal of a group
+    that is not a multiple of 32 and of N off the 16 grid."""
+    import torch
+
+    E, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    HD = cfg.num_key_value_heads * cfg.head_dim
+    name, rows = "int8_gemm", []
+    for M in (1, 17, 64, 512, 4096):
+        for K, N in [(E, E + 2 * HD), (E, E), (E, 2 * I), (I, E)]:
+            rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
+        rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
+        torch.cuda.empty_cache()
+    for M in (17, 512):
+        rows.append(check_gemm8(pkg, g, name, M, E, 2 * I, torch.bfloat16, "group=64 ",
+                                group=64))
+        rows.append(check_gemm8(pkg, g, name, M, 10944, 2048, torch.bfloat16,
+                                "group=10944 ", group=10944))
+    rows.append(check_gemm8(pkg, g, name, 17, 352, 272, torch.bfloat16, "off-grid ",
+                            group=352))
+    rows.append(check_gemm8(pkg, g, name, 9, 192, 144, torch.float32, "off-grid ",
+                            group=192))
+    for K, N, group in ((333, 256, 333), (4096, 260, 128)):
+        x, q, s = gemm8_operands(pkg, g, name, 17, K, N, group)
+        try:
+            pkg["quant_matmul"].int8_matmul(x, q, s)
+        except ValueError:
+            pass
+        else:
+            fail(f"{name} took K = {K}, N = {N}, group = {group} (groups must be "
+                 "multiples of 32, N of 16)")
+    return rows
+
+
+def check_int8_tile_edges(pkg, g, E) -> None:
+    """K7 at groups 128 and 64, both output types: a row alone equals
+    itself at rows 0, 63, 64, 127, 128, 511 and 4095 of a 4096-row call
+    (the edges of the 64-row warpgroup tiles and 128-row blocks), and the
+    first m rows equal the 4096-row call's at m = 1 .. 512, bit for bit."""
+    import torch
+
+    fn = pkg["quant_matmul"].int8_matmul
+    for group in (128, 64):
+        x, q, s = gemm8_operands(pkg, g, "int8_gemm", 4096, E, E, group)
+        for out in (torch.bfloat16, torch.float32):
+            full = fn(x, q, s, out)
+            for r in (0, 63, 64, 127, 128, 511, 4095):
+                if not torch.equal(fn(x[r:r + 1], q, s, out), full[r:r + 1]):
+                    fail(f"int8_gemm row {r} of 4096 differs from the row alone "
+                         f"(group={group}, out={out})")
+            for m in (1, 2, 8, 17, 64, 65, 136, 512):
+                if not torch.equal(fn(x[:m], q, s, out), full[:m]):
+                    fail(f"int8_gemm rows change with the batch width (M={m}, "
+                         f"group={group}, out={out})")
 
 
 def w8a8_rows(pkg, g, cfg) -> list:
@@ -979,8 +1039,9 @@ def check_batch_invariance(pkg, g, cfg) -> list:
     batch width: K1 rows at M = 1..4096 and at every place in a tile (a row
     alone equals itself at rows 63, 64, 127, 128, 511 and 4095 of a
     4096-row call, bf16 and fp32 out, groups of 128, 64 and 32), the 8-bit
-    GEMMs' rows at M = 1..4096 (K8's also at every place in a tile, both
-    formats and output types), the activation quantization and the norm at
+    GEMMs' rows at M = 1..4096 (K7's and K8's also at every place in a
+    tile, both output types, K7 at groups 128 and 64, K8 in both formats),
+    the activation quantization and the norm at
     every row count, and an attention row at Q = 1 and inside a 17-wide
     verify, bit for bit. Fails the run otherwise; returns no kernel rows."""
     import torch
@@ -1019,6 +1080,7 @@ def check_batch_invariance(pkg, g, cfg) -> list:
                 if not torch.equal(part, full[:m]):
                     fail(f"{name} rows change with the batch width (M={m}, K={K})")
             del args, full
+    check_int8_tile_edges(pkg, g, E)
     check_w8a8_tile_edges(pkg, g, E)
     xa = torch.randn(136, E, generator=g, device="cuda").to(torch.bfloat16)
     for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block", "fp8_tb"):
@@ -1047,10 +1109,11 @@ def check_batch_invariance(pkg, g, cfg) -> list:
         if not torch.equal(att(qq, tree)[:, :1], att(qq[:, :1].contiguous(), one)):
             fail(f"paged_attention ({arena}) row 0 changes with the verify width")
     print("phase 2 batch invariance: int4_gemm (M = 1..4096 and rows 63, 64, 127, 128, "
-          "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm, w8a8_gemm "
-          "(int8, fp8; also rows 0, 63, 64, 127, 128, 511, 4095 alone, bf16 / fp32 out), "
-          "block_fp8_gemm, quant_act, rms_norm and attention rows bit-identical at every "
-          "width")
+          "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm (also rows "
+          "0, 63, 64, 127, 128, 511, 4095 alone, bf16 / fp32 out, groups 128 / 64), "
+          "w8a8_gemm (int8, fp8; also rows 0, 63, 64, 127, 128, 511, 4095 alone, bf16 / "
+          "fp32 out), block_fp8_gemm, quant_act, rms_norm and attention rows "
+          "bit-identical at every width")
     return []
 
 
@@ -2058,7 +2121,7 @@ def expert_weights(g, name, X, K, N):
 
 def grouped_call(pkg, name, xg, be, nu, w, n_pairs, rows=None):
     """One grouped GEMM; ``n_pairs`` (the routing's pair count) bounds the
-    int4 kernel's grid as routed_expert_mlp does."""
+    int4 and int8 kernels' grids as routed_expert_mlp does."""
     mm = pkg["moe_matmul"]
     if name == "grouped_gemm":
         return mm.grouped_matmul(xg, be, nu, w, rows)
@@ -2094,8 +2157,9 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
     got, ref = grouped_call(pkg, name, xg, be, nu, w, T * k, rows), plain(xg, be, nu, w)
     err, rel = _errs(got, ref)
     case = f"{family} routed_rows={T * k} X={X} K={K} N={N}"
-    if name == "grouped_int4_gemm":
-        plan = mm.grouped_int4_plan(xg.shape[0], K, N, 128, X, T * k)
+    if name != "grouped_gemm":
+        plan_of = mm.grouped_int4_plan if "int4" in name else mm.grouped_int8_plan
+        plan = plan_of(xg.shape[0], K, N, 128, X, T * k)
         case += f" row_blocks_launched={plan.grid[1]} of {be.numel()}"
     if not rel <= 2e-2:
         fail(f"{name} {case}: rel err {rel}")
@@ -2109,7 +2173,7 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
                  reps=5 if big else 20)
     dev_ms = (graph_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, T * k, rows),
                        reps=3 if big else 10)
-              if name == "grouped_int4_gemm" else None)
+              if name != "grouped_gemm" else None)
     plain_ms = time_ms(lambda: plain(xg, be, nu, w), reps=2 if big else 5, warmup=1)
     # yardstick: torch._grouped_mm over the padded expert runs of bf16 experts
     offs = (torch.searchsorted(be[:n_used].contiguous(),
@@ -2188,7 +2252,10 @@ def check_moe_invariance(pkg, g, name, X, k, K, N, w) -> None:
         fail(f"{name} K={K} N={N}: dropped pairs are not zero")
 
 
-def phase_moe_kernels(pkg, mcfg) -> list:
+def phase_moe_kernels(pkg, mcfg, names=tuple(GROUPED)) -> list:
+    """The grouped GEMMs ``names`` at Mixtral-8x7B / Qwen3-30B-A3B shapes
+    against their plain versions, with their bit identities; with all three,
+    also the dense bf16 GEMM's rows and its identities."""
     import torch
 
     mm, lin = pkg["moe_matmul"], pkg["linear"]
@@ -2196,7 +2263,7 @@ def phase_moe_kernels(pkg, mcfg) -> list:
     rows = []
     for family, X, k, shapes, tokens in MOE_FAMILIES:
         for K, N in shapes:
-            for name in GROUPED:
+            for name in names:
                 w = expert_weights(g, name, X, K, N)
                 if name == "grouped_gemm":
                     w_bf16 = w
@@ -2210,6 +2277,12 @@ def phase_moe_kernels(pkg, mcfg) -> list:
                 check_moe_invariance(pkg, g, name, X, k, K, N, w)
                 del w
                 torch.cuda.empty_cache()
+    if tuple(names) != tuple(GROUPED):
+        for r in rows:
+            print("phase moe kernel: " + json.dumps(r))
+        print(f"phase moe invariance: {', '.join(names)} rows bit-identical at T = 1, 8, "
+              "17, 136 and 4096 and bit-equal to the dense kernel on the expert's weights")
+        return rows
     E, V = mcfg.hidden_size, mcfg.vocab_size
     qkv = (mcfg.num_attention_heads + 2 * mcfg.num_key_value_heads) * mcfg.head_dim
     for M in (1, 17, 512):
@@ -2294,7 +2367,7 @@ def phase_moe(pkg) -> dict:
 
     import torch
 
-    base, lin, moe = pkg["base"], pkg["linear"], pkg["moe"]
+    base = pkg["base"]
     full = pkg["config"].ModelConfig.mixtral_8x7b()
     runs, totals = [], {}
 
@@ -2357,21 +2430,44 @@ def phase_moe(pkg) -> dict:
     del params
     torch.cuda.empty_cache()
 
-    # weight-only experts in expert shards: int4 at full depth, int8 at a cut depth
-    for bits, layers, kernel in ((4, MOE_INT4_LAYERS, "grouped_int4_gemm"),
-                                 (8, MOE_INT8_LAYERS, "grouped_int8_gemm")):
-        cfg = dataclasses.replace(full, num_hidden_layers=layers, expert_parallel=True)
-        spec = lin.QuantSpec(bits=bits, group=128)
-        params = base.init_params_quantized(
-            cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
-        label = f"phase moe int{bits} experts, {MOE_SHARDS} expert shards ({layers} layers)"
-        other = "grouped_int8_gemm" if bits == 4 else "grouped_int4_gemm"
-        with moe.expert_shards(MOE_SHARDS):
-            res = main_path(cfg, spec, params, label, (kernel,), (other, "grouped_gemm"))
-        res.update(expert_shards=MOE_SHARDS, expert_bits=bits)
-        del params
-        torch.cuda.empty_cache()
+    for bits in (4, 8):
+        res = moe_weight_only_run(pkg, bits)
+        add(res["launches"])
+        runs.append(res)
     return dict(runs=runs, routes=routes, serving=[res_ar, res_la], launches=totals)
+
+
+def moe_weight_only_run(pkg, bits: int) -> dict:
+    """Mixtral-8x7B with weight-only int4 or int8 experts in expert shards
+    (the grouped kernels carry the experts), int4 at MOE_INT4_LAYERS and
+    int8 at MOE_INT8_LAYERS layers, strictly lossless at B = 1, its kernels'
+    launches counted from 0."""
+    import dataclasses
+
+    import torch
+
+    base, lin, moe = pkg["base"], pkg["linear"], pkg["moe"]
+    layers = MOE_INT4_LAYERS if bits == 4 else MOE_INT8_LAYERS
+    cfg = dataclasses.replace(pkg["config"].ModelConfig.mixtral_8x7b(),
+                              num_hidden_layers=layers, expert_parallel=True)
+    spec = lin.QuantSpec(bits=bits, group=128)
+    params = base.init_params_quantized(cfg, spec,
+                                        torch.Generator(device="cuda").manual_seed(SEED))
+    label = f"phase moe int{bits} experts, {MOE_SHARDS} expert shards ({layers} layers)"
+    kernel, other = (("grouped_int4_gemm", "grouped_int8_gemm") if bits == 4
+                     else ("grouped_int8_gemm", "grouped_int4_gemm"))
+    with moe.expert_shards(MOE_SHARDS):
+        res = phase_main_path(pkg, cfg, spec, params, MOE_AR_TOKENS, MOE_SPEC_TOKENS,
+                              label, extras=False, prompt_len=MOE_PROMPT_LEN)
+    res.update(layers=layers, prompt_len=MOE_PROMPT_LEN, expert_shards=MOE_SHARDS,
+               expert_bits=bits)
+    if res["launches"][kernel] <= 0 or res["launches"][other] \
+            or res["launches"]["grouped_gemm"]:
+        fail(f"{label}: launches {res['launches']} (needed {kernel}, none of {other}, "
+             "grouped_gemm)")
+    del params
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3387,6 +3483,11 @@ def main() -> None:
                     help="run only K8 (the W8A8 GEMM) against its plain version, its "
                          "tile-edge checks and the quant modes that run it (a partial "
                          "run: prints no kernels line and no result line)")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="run only K7 and K12 (the int8 weight-only GEMMs) against their "
+                         "plain versions, K7's tile-edge checks, K12's bit identities, "
+                         "the int8 quant mode and Mixtral-8x7B with int8 experts (a "
+                         "partial run: prints no kernels line and no result line)")
     ap.add_argument("--linear-only", action="store_true",
                     help="run only the linear-attention hybrid phases (a partial run: "
                          "prints no kernels line and no result line)")
@@ -3449,6 +3550,26 @@ def main() -> None:
             args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                                  quant_modes=quant_res, wall_s=wall_s),
                                             indent=1))
+        return
+    if args.int8_only:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = int8_rows(pkg, g, cfg)
+        for r in rows:
+            print("phase 2 kernel: " + json.dumps(r))
+        check_int8_tile_edges(pkg, g, cfg.hidden_size)
+        print("phase 2 int8 tile edges: rows alone equal to themselves in a 4096-row call")
+        rows += phase_moe_kernels(pkg, None, ("grouped_int8_gemm",))
+        quant_res = phase_quant_modes(pkg, cfg, tuple(
+            r for r in QUANT_RUNS if MODE_KERNEL[r[0]] == "int8_gemm"))
+        rows += quant_res["kernels"]
+        moe_res = moe_weight_only_run(pkg, 8)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (int8 only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
+                                                 quant_modes=quant_res, moe=moe_res,
+                                                 wall_s=wall_s), indent=1))
         return
     if args.generator_only:
         rows = row_kernel_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED), cfg)

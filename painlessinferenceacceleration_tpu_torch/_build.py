@@ -7,9 +7,9 @@ and loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is never served by a stale build.
 
-The tensor-core GEMM sources (int4, W8A8) are compiled with ``-Xptxas
--v``: the register, shared-memory and spill report of each kernel is kept
-beside its library (``ptxas_report``). ``BUILD_SECONDS`` holds each
+The tensor-core GEMM sources (int4, int8, W8A8) are compiled with
+``-Xptxas -v``: the register, shared-memory and spill report of each
+kernel is kept beside its library (``ptxas_report``). ``BUILD_SECONDS`` holds each
 source's compile time in the last ``build_all``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -44,7 +44,8 @@ NVCC_FLAGS = (
 # sources whose build keeps ptxas's resource report (registers, shared
 # memory, spills): the tensor-core kernels, whose accumulators must stay in
 # registers
-VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm", "w8a8_gemm")
+VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm", "int8_gemm", "grouped_int8_gemm",
+                   "w8a8_gemm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, tuple] = {}

@@ -1,18 +1,17 @@
-// Row-tile GEMM bodies shared by the dense and the grouped (per-expert)
-// kernels: int8 weight-only and bf16, on CUDA cores with fp32 accumulation.
-// (The int4 kernels run on the tensor cores: their body is int4_wgmma.cuh.)
+// The row-tile GEMM body of the bf16 kernels (grouped_gemm.cu: the dense,
+// head-batched and grouped entries), on CUDA cores with fp32 accumulation,
+// and the split-k reductions and grouped-row tables that the tensor-core
+// weight-only kernels (weight_only_wgmma.cuh: int4 and int8) use too.
 //
 // One thread block computes MT rows x 128 columns over one K split. Each
-// thread owns 4 adjacent columns; the 8 warps take the chunks of the split's
-// K range in turn (at most 128 K rows of one scale group for int8, 128 K rows
-// for bf16), each staging its chunk's x slice in shared memory as fp32; then
-// a fixed-order sum over the warps, and over the K splits in a second
-// kernel. A row's sum therefore depends on (K, N, the split) only: not on MT,
-// not on the row's place in its tile, not on the other rows, not on which
-// weight pointer (layer, expert) the block was given. The dense kernels
-// (int8_gemm.cu, grouped_gemm.cu's dense entry) and the grouped ones
-// (grouped_gemm.cu, grouped_int8_gemm.cu) call the same bodies, so a routed
-// row's bits equal the dense kernel's on the same expert's weights.
+// thread owns 4 adjacent columns; the 8 warps take the 128-row chunks of
+// the split's K range in turn, each staging its chunk's x slice in shared
+// memory as fp32; then a fixed-order sum over the warps, and over the K
+// splits in a second kernel. A row's sum therefore depends on (K, N, the
+// split) only: not on MT, not on the row's place in its tile, not on the
+// other rows, not on which weight pointer (expert) the block was given. The
+// dense and the grouped entries call the same body, so a routed row's bits
+// equal the dense entry's on the same expert's weights.
 
 #pragma once
 
@@ -25,8 +24,8 @@ namespace pia {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockN = 32 * 4;  // 4 columns per thread
-constexpr int kChunk = 128;      // K rows a warp takes at a time (int8, bf16)
-constexpr int kGroupedMT = 8;    // row-tile height of the grouped kernels
+constexpr int kChunk = 128;      // K rows a warp takes at a time
+constexpr int kGroupedMT = 8;    // row-tile height of the grouped bf16 kernel
 constexpr int kBlockM = 128;     // rows of one expert block (moe_align)
 
 // Bytes of dynamic shared memory a tile of MT rows needs: the x slices
@@ -81,100 +80,6 @@ __device__ __forceinline__ void zero_tile(void* __restrict__ out, int out_f32,
     else
       static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16(0.f);
   }
-}
-
-__device__ __forceinline__ void unpack_s8x4(uint32_t word, float* w) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    w[c] = (float)(int)(int8_t)((word >> (8 * c)) & 0xFFu);
-}
-
-// int8: q int8 [K, N], s bf16 [K/g, N]; a group longer than 128 rows is
-// walked in chunks of at most 128 rows, each chunk's partial sum scaled by
-// its group's scale.
-template <int MT>
-__device__ __forceinline__ void int8_tile(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const __nv_bfloat16* __restrict__ s, float* __restrict__ part,
-    void* __restrict__ out, int out_f32, int M, int K, int N, int group,
-    int chunks_per_group, int n_chunks, int chunks_per_split, int m0, int ks,
-    float* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kBlockN + lane * 4;
-  const int c_begin = ks * chunks_per_split;
-  const int c_end = min(n_chunks, c_begin + chunks_per_split);
-  const bool col_ok = n0 < N;  // N % 4 == 0: a thread's 4 columns agree
-
-  float acc[MT][4];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  float* xs = smem + warp * MT * kChunk;  // this warp's x slice [MT][kChunk]
-  for (int ch = c_begin + warp; ch < c_end; ch += kWarps) {
-    const int g = ch / chunks_per_group;
-    const int k0 = g * group + (ch - g * chunks_per_group) * kChunk;
-    const int len = min(kChunk, (g + 1) * group - k0);
-    for (int r = 0; r < MT; ++r) {
-      const int m = m0 + r;
-      for (int i = lane; i < kChunk; i += 32)
-        xs[r * kChunk + i] =
-            (m < M && i < len)
-                ? __bfloat162float(x[(size_t)m * K + (size_t)k0 + i])
-                : 0.f;
-    }
-    __syncwarp();
-    if (col_ok) {
-      float p[MT][4];
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) p[r][c] = 0.f;
-      const int8_t* qg = q + (size_t)k0 * N + n0;
-      int j = 0;
-      for (; j + 4 <= len; j += 4) {
-        float w[4][4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          unpack_s8x4(
-              *reinterpret_cast<const uint32_t*>(qg + (size_t)(j + jj) * N),
-              w[jj]);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(xs + r * kChunk + j);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            p[r][c] = fmaf(xv.x, w[0][c], p[r][c]);
-            p[r][c] = fmaf(xv.y, w[1][c], p[r][c]);
-            p[r][c] = fmaf(xv.z, w[2][c], p[r][c]);
-            p[r][c] = fmaf(xv.w, w[3][c], p[r][c]);
-          }
-        }
-      }
-      for (; j < len; ++j) {
-        float w[4];
-        unpack_s8x4(*reinterpret_cast<const uint32_t*>(qg + (size_t)j * N), w);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float xv = xs[r * kChunk + j];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) p[r][c] = fmaf(xv, w[c], p[r][c]);
-        }
-      }
-      const __nv_bfloat16* sg = s + (size_t)g * N + n0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float sc = __bfloat162float(sg[c]);
-#pragma unroll
-        for (int r = 0; r < MT; ++r) acc[r][c] = fmaf(p[r][c], sc, acc[r][c]);
-      }
-    }
-    __syncwarp();
-  }
-  reduce_store<MT>(acc, smem, part, out, out_f32, M, N, m0, ks);
 }
 
 __device__ __forceinline__ void unpack_bf16x4(uint2 v, float* w) {
@@ -305,9 +210,9 @@ inline void launch_splitk_reduce(const float* part, void* out, int out_f32,
 // belongs to expert block_expert[b]; blocks b >= n_used[0] hold no routed row
 // and give zeros, as do the rows of a used block past block_rows[b] (the
 // expert run's padding, whose x rows are zero). All three tables are read on
-// the device, so nothing waits for the host: the grid is the static worst
-// case (the int4 kernel bounds it by the routing's pair count and reduces its
-// splits here over the blocks it launched).
+// the device, so nothing waits for the host: the bf16 kernel's grid is the
+// static worst case (the int4 and int8 kernels bound theirs by the routing's
+// pair count and reduce their splits here over the blocks they launched).
 // ---------------------------------------------------------------------------
 
 struct GroupedRows {

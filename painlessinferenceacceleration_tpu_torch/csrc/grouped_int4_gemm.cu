@@ -8,16 +8,17 @@
 // (painlessinferenceacceleration_tpu/ops/moe_matmul.py), which the
 // expert-parallel per-shard path reaches. The expert's packed weight
 // [K/2, N] and scales [K/g, N] are read in the JAX layout (see
-// int4_wgmma.cuh); a thread block reads block_expert[b], n_used[0] and
-// block_rows[b] from device memory and offsets the pointers itself.
+// weight_only_wgmma.cuh); a thread block reads block_expert[b], n_used[0]
+// and block_rows[b] from device memory and offsets the pointers itself.
 //
 // What bounds it on the H100: at decode the weight bytes of the experts
 // touched, at prefill the products (2 x routed rows x K x N at 989 TFLOP/s).
-// The design: one expert block (128 rows) is the token tile of int4_wgmma.cuh,
-// the dense kernel's body with two multiplying warpgroups: the same groups,
-// k16 steps, instruction and K split (run in one block or across blocks, as
-// the dense kernel's plan decides from the grid), so a routed row's bits equal
-// int4_gemm's on that expert's weights at any row count. The grid's row
+// The design: one expert block (128 rows) is the token tile of
+// weight_only_wgmma.cuh, the dense kernel's body with two multiplying
+// warpgroups: the same groups, k16 steps, instruction and K split (run in
+// one block or across blocks, as the dense kernel's plan decides from the
+// grid), so a routed row's bits equal int4_gemm's on that expert's weights
+// at any row count. The grid's row
 // extent is bounded by the blocks a routing of n_pairs (token, expert) pairs
 // can use, min(NB, min(X, n_pairs) + ceil(n_pairs / 128)), which the host
 // knows from shapes; the rows past the bound are zeroed by a memset. Blocks
@@ -25,15 +26,15 @@
 // exact zeros.
 
 #include "gemm_tiles.cuh"
-#include "int4_wgmma.cuh"
+#include "weight_only_wgmma.cuh"
 
 namespace {
 
 using pia::GroupedRows;
 using pia::kBlockM;
-using pia4::kCols;
-using pia4::kThreads;
-using pia4::Tile;
+using piawo::kCols;
+using piawo::kThreads;
+using piawo::Tile;
 
 template <int G, bool kSeq>
 __global__ void __launch_bounds__(kThreads, 1) grouped_int4_gemm_kernel(
@@ -66,10 +67,10 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_int4_gemm_kernel(
   // one split a block, or every split in this block
   const int g_begin = kSeq ? 0 : blockIdx.z * groups_per_split;
   const int g_end = kSeq ? K / G : min(K / G, g_begin + groups_per_split);
-  const pia4::Maps maps{&xm, &qm, &sm, expert * (K / 2), expert * (K / G)};
-  pia4::int4_wgmma_tile<G, 2, kSeq>(maps, part, part_rows, out, out_f32, R, N,
-                                    m0, valid, g_begin, g_end, groups_per_split,
-                                    blockIdx.z, smem);
+  const piawo::Maps maps{&xm, &qm, &sm, expert * (K / 2), expert * (K / G)};
+  piawo::wgmma_tile<false, G, 2, kSeq>(maps, part, part_rows, out, out_f32, R, N,
+                                       m0, blockIdx.x * kCols, valid, g_begin, g_end,
+                                       groups_per_split, blockIdx.z, smem);
 }
 
 template <int G, bool kSeq>
@@ -77,13 +78,13 @@ cudaError_t launch(const void* x, const void* q, const void* s, float* part,
                    void* out, int out_f32, int R, int K, int N, int X,
                    int split_blocks, int gps, int row_blocks, GroupedRows rows,
                    cudaStream_t st) {
-  using T = Tile<G, 2>;
+  using T = Tile<false, G, 2>;
   static bool done[64] = {};
   cudaError_t err =
-      pia4::allow_smem(grouped_int4_gemm_kernel<G, kSeq>, T::kSmem, done);
+      piawo::allow_smem(grouped_int4_gemm_kernel<G, kSeq>, T::kSmem, done);
   if (err != cudaSuccess) return err;
   CUtensorMap xm, qm, sm;
-  if (!pia4::make_maps<G, 2>(&xm, &qm, &sm, x, q, s, R, K, X * (K / 2),
+  if (!piawo::make_maps<false, G, 2>(&xm, &qm, &sm, x, q, s, R, K, X * (K / 2),
                              X * (K / G), N))
     return cudaErrorInvalidValue;
   dim3 grid((N + kCols - 1) / kCols, row_blocks, split_blocks);

@@ -6,8 +6,8 @@
 // (painlessinferenceacceleration_tpu/ops/quant_matmul.py). A stacked weight
 // [L, K/2, N] is passed as the pointer of layer l, so one kernel serves both.
 // The weight is read in the JAX layout (layers/linear.py quantize); see
-// int4_wgmma.cuh for the layout and the body, which the grouped (per-expert)
-// kernel shares.
+// weight_only_wgmma.cuh for the layout and the body, which the grouped
+// (per-expert) kernel and the int8 kernels share.
 //
 // What bounds it on the H100: at decode (M = 1 .. 64) the weight bytes
 // (K N / 2 + K N / g * 2: 14 us for a 7B gate/up weight at 3.35 TB/s); at
@@ -25,11 +25,11 @@
 // tile in the same order and writes no plane: the same bits.
 
 #include "gemm_tiles.cuh"
-#include "int4_wgmma.cuh"
+#include "weight_only_wgmma.cuh"
 
 namespace {
 
-using namespace pia4;
+using namespace piawo;
 
 template <int G, int W, bool kSeq>
 __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(
@@ -38,26 +38,26 @@ __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(
     void* __restrict__ out, int out_f32, int M, int K, int N,
     int groups_per_split) {
   extern __shared__ __align__(1024) uint8_t smem[];
-  const int m0 = blockIdx.y * Tile<G, W>::kRows;
+  const int m0 = blockIdx.y * Tile<false, G, W>::kRows;
   // one split a block, or every split in this block
   const int g_begin = kSeq ? 0 : blockIdx.z * groups_per_split;
   const int g_end = kSeq ? K / G : min(K / G, g_begin + groups_per_split);
   const Maps maps{&xm, &qm, &sm, 0, 0};
-  int4_wgmma_tile<G, W, kSeq>(maps, part, M, out, out_f32, M, N, m0,
-                              min(M - m0, Tile<G, W>::kRows), g_begin, g_end,
-                              groups_per_split, blockIdx.z, smem);
+  wgmma_tile<false, G, W, kSeq>(maps, part, M, out, out_f32, M, N, m0,
+                                blockIdx.x * kCols, min(M - m0, Tile<false, G, W>::kRows),
+                                g_begin, g_end, groups_per_split, blockIdx.z, smem);
 }
 
 template <int G, int W, bool kSeq>
 cudaError_t launch(const void* x, const void* q, const void* s, float* part,
                    void* out, int out_f32, int M, int K, int N, int split_blocks,
                    int gps, cudaStream_t st) {
-  using T = Tile<G, W>;
+  using T = Tile<false, G, W>;
   static bool done[64] = {};
-  cudaError_t err = pia4::allow_smem(int4_gemm_kernel<G, W, kSeq>, T::kSmem, done);
+  cudaError_t err = piawo::allow_smem(int4_gemm_kernel<G, W, kSeq>, T::kSmem, done);
   if (err != cudaSuccess) return err;
   CUtensorMap xm, qm, sm;
-  if (!make_maps<G, W>(&xm, &qm, &sm, x, q, s, M, K, K / 2, K / G, N))
+  if (!make_maps<false, G, W>(&xm, &qm, &sm, x, q, s, M, K, K / 2, K / G, N))
     return cudaErrorInvalidValue;
   dim3 grid((N + kCols - 1) / kCols, (M + T::kRows - 1) / T::kRows, split_blocks);
   int4_gemm_kernel<G, W, kSeq><<<grid, kThreads, T::kSmem, st>>>(
@@ -88,9 +88,10 @@ extern "C" const char* pia_error_string(int err) {
 // barriers), for the build report; -1 for a configuration that does not
 // exist.
 extern "C" int int4_gemm_smem_bytes(int group, int warpgroups) {
-  if (group == 128) return warpgroups == 1 ? Tile<128, 1>::kSmem : Tile<128, 2>::kSmem;
-  if (group == 64) return warpgroups == 1 ? Tile<64, 1>::kSmem : Tile<64, 2>::kSmem;
-  if (group == 32) return warpgroups == 1 ? Tile<32, 1>::kSmem : Tile<32, 2>::kSmem;
+  const bool one = warpgroups == 1;
+  if (group == 128) return one ? Tile<false, 128, 1>::kSmem : Tile<false, 128, 2>::kSmem;
+  if (group == 64) return one ? Tile<false, 64, 1>::kSmem : Tile<false, 64, 2>::kSmem;
+  if (group == 32) return one ? Tile<false, 32, 1>::kSmem : Tile<false, 32, 2>::kSmem;
   return -1;
 }
 

@@ -1,43 +1,60 @@
-// The int4 weight-only GEMM body on Hopper's tensor cores (wgmma), shared by
-// the dense kernel (int4_gemm.cu) and the grouped per-expert one
-// (grouped_int4_gemm.cu):
+// The weight-only GEMM body on Hopper's tensor cores (wgmma), shared by the
+// int4 kernels (int4_gemm.cu, grouped_int4_gemm.cu) and the int8 kernels
+// (int8_gemm.cu, grouped_int8_gemm.cu):
 //
-//   out[m, n] = sum_g s[g, n] * ( sum_{k in g} x[m, k] * (nibble[k, n] - 8) )
+//   out[m, n] = sum_g s[g, n] * ( sum_{k in g} x[m, k] * w[k, n] )
 //
-// the bracketed group partial in fp32, the scale on the partial (the Pallas
-// bodies' _qmm4_v3_acc). q is uint8 [K/2, N] in the JAX layout, N
-// contiguous: byte j of a group holds row losrc[j] = j/2 + (j%2)*(g/4) in its
-// low nibble and row losrc[j] + g/2 in its high nibble, biased by +8; s is
-// bf16 [K/g, N].
+// the bracketed partial in fp32, the scale on the partial (the Pallas
+// bodies' _qmm4_v3_acc; the int8 bodies scale the bf16 weight instead, see
+// ROADMAP's reference caveats). x is bf16 [M, K], s bf16 [K/g, N], and the
+// weight is read in the JAX layout, N contiguous:
+// - int4 (kInt8 = false): q uint8 [K/2, N]; byte j of a group holds row
+//   losrc[j] = j/2 + (j%2)*(g/4) in its low nibble and row losrc[j] + g/2 in
+//   its high nibble, biased by +8. A ring stage is one group (g = C = 32, 64
+//   or 128).
+// - int8 (kInt8 = true): q int8 [K, N]. A ring stage is C k rows of one
+//   group, C the largest of 128, 64 and 32 that divides g (any g % 32 == 0:
+//   a model's whole-K group of 10944 rows runs in stages of 64); a group
+//   folds g / C times.
 //
 // One block: 128 weight columns x a token tile of 64 rows per multiplying
-// warpgroup (W = 1 or 2), over the scale groups of its K split. One stage of
-// a ring in shared memory holds one group: its g/2 packed rows x 128 columns,
-// its 128 scales and the x tile [64 W, g], brought by the tensor memory
+// warpgroup (W = 1 or 2), over the stages of its K split. One stage of a
+// ring in shared memory holds the stage's weight rows x 128 columns, their
+// 128 scales and the x tile [64 W, C], brought by the tensor memory
 // accelerator (TMA: one thread issues a stage's copies against tensor maps
-// made on the host, an mbarrier counts their bytes; x lands in the
-// swizzle the tensor cores read, rows past the matrix as zeros). Both
-// warpgroups dequantize the stage's nibbles into a bf16 operand
-// [128 columns][g] (K-major, swizzled, each nibble at its logical k row, so
-// x is copied as it lies): (nibble | 0x4300) read as bf16 is
-// 128 + nibble, and 128 + nibble - 136 = nibble - 8 exactly. Then each
-// multiplying warpgroup runs g/16 wgmma m64n128k16 (fp32 += bf16 x bf16, both
-// operands in shared memory) into a fresh fp32 group accumulator and folds it
-// into the running sum on CUDA cores: acc = fma(part, s[g, n], acc). The
-// operand is double-buffered: the next stage is dequantized while the tensor
-// cores multiply this one. Groups of 64 and 128 use the 128-byte swizzle (64
-// k a row of an atom); a group of 32 fills 64-byte rows and uses the 64-byte
-// swizzle.
+// made on the host, an mbarrier counts their bytes; x lands in the swizzle
+// the tensor cores read, rows past the matrix as zeros). Both warpgroups
+// turn the stage's weight into a bf16 operand [128 columns][C] (K-major,
+// swizzled, each value at its logical k row, so x is copied as it lies),
+// exactly:
+// - int4: (nibble | 0x4300) read as bf16 is 128 + nibble, and 128 + nibble
+//   - 136 = nibble - 8.
+// - int8: (b & 0x7F) | 0x4300 is 128 + (b & 0x7F), (b & 0x80) | 0xC300 is
+//   -128 or (sign bit set) -256, and their sum is the byte's value; a byte
+//   pair takes one prmt, two lop3 and one bf16x2 fma. (bf16 holds 8
+//   significant bits, so no single bias covers 256 values as the int4 trick
+//   does; the fp16 bias 0x6400 does, but fp16 -> bf16 then costs a
+//   conversion through fp32 for every value.) The operand is K-major, as
+//   int4's, rather than N-major with the instruction's transpose flag: the
+//   same descriptors, and the rotated 16-byte stores of int4's unpacking
+//   hit 8 bank groups per phase in either (tests/test_torch_int8_plan.py).
+// Then each multiplying warpgroup runs C/16 wgmma m64n128k16 (fp32 += bf16 x
+// bf16, both operands in shared memory) into a fresh fp32 stage accumulator
+// and folds it into the running sum on CUDA cores: acc = fma(part, s[g, n],
+// acc). The operand is double-buffered: the next stage is unpacked while the
+// tensor cores multiply this one. Stages of 64 and 128 k use the 128-byte
+// swizzle (64 k a row of an atom); a stage of 32 fills 64-byte rows and uses
+// the 64-byte swizzle.
 //
-// A row's bits do not depend on the batch: every row of every tile, in either
-// kernel, runs the same groups in the same order, the same k16 steps of the
-// same instruction, and (over K splits) the same fixed-order sum, whether the
-// splits run in one block or in separate blocks and a reduction; the split
-// count is a function of (K, N, g) alone, chosen by the wrapper
-// (ops/quant_matmul.py int4_split), which launches the splits as blocks only
-// where the row tiles alone would not fill the card. The tensor cores' products of row m
-// depend on row m of the operand only; rows of a tile past its valid rows
-// are written as zeros or not at all.
+// A row's bits do not depend on the batch: every row of every tile, in the
+// dense or the grouped kernel, runs the same stages in the same order, the
+// same k16 steps of the same instruction, and (over K splits) the same
+// fixed-order sum, whether the splits run in one block or in separate blocks
+// and a reduction; the split count is a function of (K, N, C) alone, chosen
+// by the wrapper (ops/quant_matmul.py stage_split), which launches the splits
+// as blocks only where the row tiles alone would not fill the card. The
+// tensor cores' products of row m depend on row m of the operand only; rows
+// of a tile past its valid rows are written as zeros or not at all.
 
 #pragma once
 
@@ -45,26 +62,26 @@
 
 #include "wgmma_common.cuh"
 
-namespace pia4 {
+namespace piawo {
 
 using namespace piawg;
 
 constexpr int kCols = 128;            // weight columns of a block: the wgmma's N
-constexpr int kThreads = 256;         // two warpgroups: both dequantize
+constexpr int kThreads = 256;         // two warpgroups: both unpack
 constexpr int kMaxStages = 6;
 
-template <int G, int W>
+template <bool kInt8, int C, int W>
 struct Tile {
-  static_assert(G == 32 || G == 64 || G == 128,
-                "the int4 kernels take groups of 32, 64 or 128");
+  static_assert(C == 32 || C == 64 || C == 128, "stages of 32, 64 or 128 k rows");
   static_assert(W == 1 || W == 2, "one or two multiplying warpgroups");
-  static constexpr int kSpan = G < 64 ? G : 64;  // k of a swizzle atom's row
+  static constexpr int kSpan = C < 64 ? C : 64;  // k of a swizzle atom's row
   static constexpr int kRowBytes = 2 * kSpan;    // 128 or 64: the swizzle's width
   static constexpr int kRows = 64 * W;          // token rows of a block
-  static constexpr int kXBytes = kRows * G * 2;  // the x tile of a stage
-  static constexpr int kQBytes = G / 2 * kCols;  // the packed rows of a stage
-  static constexpr int kSBytes = kCols * 2;      // the group's scales
-  static constexpr int kBBytes = kCols * G * 2;  // one dequantized operand
+  static constexpr int kXBytes = kRows * C * 2;  // the x tile of a stage
+  static constexpr int kQRows = kInt8 ? C : C / 2;  // weight rows of a stage
+  static constexpr int kQBytes = kQRows * kCols;
+  static constexpr int kSBytes = kCols * 2;      // the stage's scales
+  static constexpr int kBBytes = kCols * C * 2;  // one bf16 operand
   static constexpr int kStageBytes = kXBytes + kQBytes + kSBytes;
   static constexpr int kFit =
       (kSmemLimit - 1024 - 8 * kMaxStages - 2 * kBBytes) / kStageBytes;
@@ -114,11 +131,21 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
   return r;
 }
 
-// The stage's packed rows [G/2][128] -> the bf16 operand [128 columns][G].
-// Warp w < G/16 takes the packed rows 16 v + 2 e + p (e = 0..7) of band
-// v = w/2, parity p = w%2; lane l takes columns 4 l .. 4 l + 3. Byte
-// 16 v + 2 e + p holds k = 8 v + e + p G/4 (low nibble) and that + G/2
-// (high): chunks u = v + p G/32 and u + G/16 of the band, element e.
+// two int8 at bits 0-7 and 16-23 -> bf16x2 of their values, exact:
+// (128 + (b & 0x7F)) * 1 + (-128 or, with the sign bit, -256)
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t v) {
+  const uint32_t low7 = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t bias = (v & 0x00800080u) | 0xC300C300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(low7), "r"(0x3F803F80u), "r"(bias));
+  return r;
+}
+
+// int4: the stage's packed rows [C/2][128] -> the bf16 operand [128
+// columns][C]. Warp w < C/16 takes the packed rows 16 v + 2 e + p (e =
+// 0..7) of band v = w/2, parity p = w%2; lane l takes columns 4 l .. 4 l +
+// 3. Byte 16 v + 2 e + p holds k = 8 v + e + p C/4 (low nibble) and that +
+// C/2 (high): chunks u = v + p C/32 and u + C/16 of the band, element e.
 template <int G, int RB>
 __device__ __forceinline__ void dequant_stage(const uint8_t* __restrict__ qs,
                                               uint8_t* __restrict__ bs) {
@@ -156,39 +183,86 @@ __device__ __forceinline__ void dequant_stage(const uint8_t* __restrict__ qs,
   }
 }
 
+// int8: the stage's rows [C][128] -> the bf16 operand [128 columns][C].
+// Item i (thread t, then t + 256) takes band u = i / 32 (k rows 8 u .. 8 u
+// + 7, one 16-byte operand chunk) and lane l = i % 32's columns 4 l .. 4 l
+// + 3: one word of each of the 8 rows, then for each column the chunk of
+// operand row 4 l + c, k ascending. C = 32 has 128 items: half the threads.
+template <int C, int RB>
+__device__ __forceinline__ void widen_stage(const uint8_t* __restrict__ qs,
+                                            uint8_t* __restrict__ bs) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i0 = 0; i0 < 4 * C; i0 += kThreads) {
+    const int i = i0 + (int)threadIdx.x;
+    if (4 * C < kThreads && i >= 4 * C) return;
+    const int u = i >> 5;
+    uint32_t w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e] = *reinterpret_cast<const uint32_t*>(qs + (8 * u + e) * kCols + 4 * lane);
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      const int c = (step + (lane >> 1)) & 3;  // rotated as in dequant_stage
+      const int n = 4 * lane + c;
+      const uint32_t sel = (uint32_t)c | ((uint32_t)(c + 4) << 8);
+      uint32_t h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // byte c of rows 2j and 2j + 1: k and k + 1
+        h[j] = s8x2_to_bf16x2(__byte_perm(w[2 * j], w[2 * j + 1], sel));
+      *reinterpret_cast<uint4*>(bs + sw_offset<RB>(u, n, kCols)) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+    }
+  }
+}
+
+template <bool kInt8, int C, int RB>
+__device__ __forceinline__ void unpack_stage(const uint8_t* __restrict__ qs,
+                                             uint8_t* __restrict__ bs) {
+  if constexpr (kInt8)
+    widen_stage<C, RB>(qs, bs);
+  else
+    dequant_stage<C, RB>(qs, bs);
+}
+
 // The tensor maps of one call (made on the host, passed as __grid_constant__
-// kernel parameters): x bf16 [rows, K] in boxes of min(G, 64) k x 64 W rows
-// in the operand's swizzle; the packed rows uint8 [rows, N] in boxes of 128
-// columns x G/2 rows; the scales bf16 [rows, N] in boxes of 128 x 1. A grouped call's
-// maps span all experts; q_row0 / s_row0 are this block's expert's first
-// rows.
+// kernel parameters): x bf16 [rows, K] in boxes of min(C, 64) k x 64 W rows
+// in the operand's swizzle; the weight rows uint8 [rows, N] in boxes of 128
+// columns x a stage's rows; the scales bf16 [rows, N] in boxes of 128 x 1.
+// A grouped call's maps span all experts; q_row0 / s_row0 are this block's
+// expert's first rows. int8: stage st reads scale row st / stages_per_group.
 struct Maps {
   const CUtensorMap* x;
   const CUtensorMap* q;
   const CUtensorMap* s;
   int q_row0;
   int s_row0;
+  int stages_per_group;
 };
 
-// Thread 0 issues the copies of group g into ring slot `slot`.
-template <int G, int W>
+// Thread 0 issues the copies of stage g into ring slot `slot`.
+template <bool kInt8, int C, int W>
 __device__ __forceinline__ void load_stage(uint8_t* xs, uint8_t* qs, uint8_t* ss,
                                            uint32_t bar, const Maps& maps,
                                            int m0, int n0, int g) {
-  using T = Tile<G, W>;
+  using T = Tile<kInt8, C, W>;
   mbar_expect(bar, T::kBytesPerStage);
 #pragma unroll
-  for (int a = 0; a < G / T::kSpan; ++a)
+  for (int a = 0; a < C / T::kSpan; ++a)
     tma_load(smem_u32(xs + a * T::kRows * T::kRowBytes), maps.x,
-             g * G + a * T::kSpan, m0, bar);
-  tma_load(smem_u32(qs), maps.q, n0, maps.q_row0 + g * (G / 2), bar);
-  tma_load(smem_u32(ss), maps.s, n0, maps.s_row0 + g, bar);
+             g * C + a * T::kSpan, m0, bar);
+  tma_load(smem_u32(qs), maps.q, n0, maps.q_row0 + g * T::kQRows, bar);
+  if constexpr (kInt8)
+    tma_load(smem_u32(ss), maps.s, n0, maps.s_row0 + g / maps.stages_per_group, bar);
+  else
+    tma_load(smem_u32(ss), maps.s, n0, maps.s_row0 + g, bar);
 }
 
 // One block's tile. rows_total: the rows of x and out; the tile covers rows
-// [m0, m0 + 64 W), of which the first `valid` carry data (valid >= 1); rows
-// past them inside rows_total get zeros in out. Groups [g_begin, g_end)
-// (at least one), in K splits of gps groups from g_begin: each split's sum
+// [m0, m0 + 64 W) and columns [n0, n0 + 128), of which the first `valid`
+// rows carry data (valid >= 1); rows
+// past them inside rows_total get zeros in out. Stages [g_begin, g_end)
+// (at least one), in K splits of gps stages from g_begin: each split's sum
 // starts from zero and the splits are added in order, total = 0 + p0 + p1 +
 // ..., the order in which splitk_reduce_kernel adds the planes of splits run
 // by separate blocks. So a block that runs every split (kSeq: a third
@@ -196,14 +270,13 @@ __device__ __forceinline__ void load_stage(uint8_t* xs, uint8_t* qs, uint8_t* ss
 // the reduction, without the planes. Otherwise the block runs one split
 // (the only one, or split ks with part != nullptr: its sums go to
 // part[ks][m][n], planes of part_rows rows, zeros included).
-template <int G, int W, bool kSeq>
-__device__ __forceinline__ void int4_wgmma_tile(
+template <bool kInt8, int C, int W, bool kSeq>
+__device__ __forceinline__ void wgmma_tile(
     const Maps& maps, float* __restrict__ part, int part_rows,
-    void* __restrict__ out, int out_f32, int rows_total, int N, int m0,
+    void* __restrict__ out, int out_f32, int rows_total, int N, int m0, int n0,
     int valid, int g_begin, int g_end, int gps, int ks, uint8_t* smem_raw) {
-  using T = Tile<G, W>;
+  using T = Tile<kInt8, C, W>;
   constexpr int S = T::kStages;
-  const int n0 = blockIdx.x * kCols;
   const int n_g = g_end - g_begin;
   // warpgroup-uniform values, broadcast so that the compiler sees them so:
   // wgmma and its accumulator in a path it takes for divergent would be
@@ -226,18 +299,18 @@ __device__ __forceinline__ void int4_wgmma_tile(
     for (int i = 0; i < S; ++i) mbar_init(bars + 8 * i);
     fence_mbar_init();
     for (int st = 0; st < S - 1 && st < n_g; ++st)
-      load_stage<G, W>(xs + st * T::kXBytes, qs + st * T::kQBytes,
-                       ss + st * T::kSBytes, bars + 8 * st, maps, m0, n0,
-                       g_begin + st);
+      load_stage<kInt8, C, W>(xs + st * T::kXBytes, qs + st * T::kQBytes,
+                              ss + st * T::kSBytes, bars + 8 * st, maps, m0, n0,
+                              g_begin + st);
   }
   __syncthreads();
   mbar_wait(bars, 0);
-  dequant_stage<G, RB>(qs, bop);
+  unpack_stage<kInt8, C, RB>(qs, bop);
   fence_async_smem();
   __syncthreads();
 
   float acc[64];  // this split's sum
-  float pa[64];   // this group's partial
+  float pa[64];   // this stage's partial
   float tot[64];  // the splits' sum (kSeq)
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -255,9 +328,9 @@ __device__ __forceinline__ void int4_wgmma_tile(
     const int nx = it + S - 1;
     if (threadIdx.x == 0 && nx < n_g) {
       const int ns = nx % S;
-      load_stage<G, W>(xs + ns * T::kXBytes, qs + ns * T::kQBytes,
-                       ss + ns * T::kSBytes, bars + 8 * ns, maps, m0, n0,
-                       g_begin + nx);
+      load_stage<kInt8, C, W>(xs + ns * T::kXBytes, qs + ns * T::kQBytes,
+                              ss + ns * T::kSBytes, bars + 8 * ns, maps, m0, n0,
+                              g_begin + nx);
     }
     if (mma) {
       const uint32_t xa = smem_u32(xs + slot * T::kXBytes) + wg * 64 * RB;
@@ -265,7 +338,7 @@ __device__ __forceinline__ void int4_wgmma_tile(
       fence_regs(pa);
       wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < G / 16; ++t)
+      for (int t = 0; t < C / 16; ++t)
         wgmma_m64n128k16(
             pa,
             sw_desc<RB>(xa + (t / kSteps) * (T::kRows * RB) + (t % kSteps) * 32),
@@ -274,8 +347,8 @@ __device__ __forceinline__ void int4_wgmma_tile(
     }
     if (it + 1 < n_g) {  // the next stage's operand, while this one multiplies
       mbar_wait(bars + 8 * ((it + 1) % S), ((it + 1) / S) & 1);
-      dequant_stage<G, RB>(qs + ((it + 1) % S) * T::kQBytes,
-                       bop + ((it + 1) & 1) * T::kBBytes);
+      unpack_stage<kInt8, C, RB>(qs + ((it + 1) % S) * T::kQBytes,
+                                 bop + ((it + 1) & 1) * T::kBBytes);
       fence_async_smem();
     }
     if (mma) {
@@ -332,19 +405,25 @@ __device__ __forceinline__ void int4_wgmma_tile(
 }
 
 // The three maps of a call: x [x_rows, K], q [q_rows, N], s [s_rows, N].
-template <int G, int W>
+template <bool kInt8, int C, int W>
 inline bool make_maps(CUtensorMap* xm, CUtensorMap* qm, CUtensorMap* sm,
                       const void* x, const void* q, const void* s, int x_rows,
                       int K, int q_rows, int s_rows, int N) {
-  using T = Tile<G, W>;
+  using T = Tile<kInt8, C, W>;
   return make_map(xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x_rows, K, T::kSpan,
                   T::kRows,
                   T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                       : CU_TENSOR_MAP_SWIZZLE_64B) &&
-         make_map(qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q_rows, N, kCols, G / 2,
+         make_map(qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q_rows, N, kCols, T::kQRows,
                   CU_TENSOR_MAP_SWIZZLE_NONE) &&
          make_map(sm, s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s_rows, N, kCols, 1,
                   CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-}  // namespace pia4
+// The int8 stage of a scale group (> 0): the largest of 128, 64 and 32
+// that divides it (0: none, a group the kernels do not take).
+inline int int8_stage(int group) {
+  return group % 128 == 0 ? 128 : group % 64 == 0 ? 64 : group % 32 == 0 ? 32 : 0;
+}
+
+}  // namespace piawo

@@ -3,8 +3,9 @@
 // the fences between the generic and the async proxy, wgmma's shared-memory
 // operand descriptors and group fences, the swizzled K-major operand layout,
 // and the host side (the driver's tensor-map encoder reached through the
-// runtime, the dynamic shared-memory limit). Included by the int4 body
-// (int4_wgmma.cuh) and the W8A8 body (w8a8_wgmma.cuh).
+// runtime, the dynamic shared-memory limit). Included by the weight-only
+// body (weight_only_wgmma.cuh: int4, int8) and the W8A8 body
+// (w8a8_wgmma.cuh).
 
 #pragma once
 

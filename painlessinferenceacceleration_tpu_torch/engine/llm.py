@@ -70,7 +70,10 @@ from painlessinferenceacceleration_tpu_torch.engine.request import (
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
 from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
-from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import check_int4_params
+from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
+    check_int4_params,
+    check_int8_params,
+)
 from painlessinferenceacceleration_tpu_torch.ops.w8a8 import check_w8a8_params
 from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
     DraftTableConfig,
@@ -123,6 +126,7 @@ class LLM:
         self.quant = QuantSpec.from_mode(self.ecfg.quant, self.ecfg.quant_group)
         if self.device.type == "cuda":
             check_int4_params(params)
+            check_int8_params(params)
             check_w8a8_params(params)
         if self.ecfg.quant_embed and "embed" in params:
             params = dict(params)

@@ -29,7 +29,10 @@ from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelCo
 from painlessinferenceacceleration_tpu_torch.engine.cache import init_kv_cache
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step, verify_step
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
-from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import check_int4_params
+from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
+    check_int4_params,
+    check_int8_params,
+)
 from painlessinferenceacceleration_tpu_torch.ops.w8a8 import check_w8a8_params
 from painlessinferenceacceleration_tpu_torch.lookahead.trie import DraftCache
 
@@ -100,6 +103,7 @@ class LookaheadGenerator:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_int4_params(params)
+            check_int8_params(params)
             check_w8a8_params(params)
         self.trie = make_draft_cache(eos_ids=(self.ecfg.eos_token_id,))
 

@@ -9,9 +9,9 @@ each expert's run padded to ``BLOCK_M`` rows (``moe_align``), and row block
 ``b`` is multiplied by the weights of expert ``block_expert[b]``. The kernels
 (``csrc/grouped_gemm.cu``, ``csrc/grouped_int4_gemm.cu``,
 ``csrc/grouped_int8_gemm.cu``) read the block tables from device memory, so
-no call waits for the routing; the int4 kernel's grid is bounded by the row
-blocks the routing's pair count allows (``grouped_int4_plan``). Each source
-note says what bounds it.
+no call waits for the routing; the int4 and int8 kernels' grids are bounded
+by the row blocks the routing's pair count allows (``grouped_plan``). Each
+source note says what bounds it.
 ``dense_matmul`` is the bf16 kernel's body with one weight; the native bf16
 linears, the router product and the LM head use it, so every bf16 GEMM of a
 model sums in one order and a token's expert output has the same bits on the
@@ -39,12 +39,13 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     CHUNK,
     TC_COLS,
-    Int4Plan,
+    GemmPlan,
     aligned16,
     check_gemm_out,
-    check_int4_operands,
+    check_weight_only_operands,
     chunk_ksplit,
     int4_split,
+    int8_split,
     split_blocks,
 )
 
@@ -135,17 +136,29 @@ def grouped_row_bound(n_blocks: int, n_experts: int, n_pairs: int) -> int:
     return min(n_blocks, min(n_experts, n_pairs) + -(-n_pairs // BLOCK_M))
 
 
-def grouped_int4_plan(R: int, K: int, N: int, group: int, n_experts: int,
-                      n_pairs: int) -> Int4Plan:
-    """The grouped int4 kernel's launch: the dense kernel's split
-    (``int4_split``, launched as ``split_blocks`` says), two multiplying
-    warpgroups (an expert block of ``BLOCK_M`` rows), and a grid bounded to
-    ``grouped_row_bound`` row blocks."""
+def grouped_plan(R: int, N: int, split: tuple, n_experts: int,
+                 n_pairs: int) -> GemmPlan:
+    """A grouped weight-only kernel's launch: the dense kernel's split
+    ``split`` (K splits, stages per split; launched as ``split_blocks``
+    says), two multiplying warpgroups (an expert block of ``BLOCK_M`` rows),
+    and a grid bounded to ``grouped_row_bound`` row blocks."""
     if R <= 0 or R % BLOCK_M:
-        raise ValueError(f"grouped_int4_gemm: {R} rows are not whole blocks of {BLOCK_M}")
-    ks, gps = int4_split(K, N, group)
+        raise ValueError(f"grouped GEMM: {R} rows are not whole blocks of {BLOCK_M}")
+    ks, sps = split
     cols, rows = -(-N // TC_COLS), grouped_row_bound(R // BLOCK_M, n_experts, n_pairs)
-    return Int4Plan(ks, gps, 2, (cols, rows, split_blocks(ks, cols, rows)))
+    return GemmPlan(ks, sps, 2, (cols, rows, split_blocks(ks, cols, rows)))
+
+
+def grouped_int4_plan(R: int, K: int, N: int, group: int, n_experts: int,
+                      n_pairs: int) -> GemmPlan:
+    """The grouped int4 kernel's launch: ``grouped_plan`` over ``int4_split``."""
+    return grouped_plan(R, N, int4_split(K, N, group), n_experts, n_pairs)
+
+
+def grouped_int8_plan(R: int, K: int, N: int, group: int, n_experts: int,
+                      n_pairs: int) -> GemmPlan:
+    """The grouped int8 kernel's launch: ``grouped_plan`` over ``int8_split``."""
+    return grouped_plan(R, N, int8_split(K, N, group), n_experts, n_pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -293,43 +306,44 @@ def grouped_matmul_plain(x: torch.Tensor, block_expert: torch.Tensor,
                           lambda e: w[e].to(torch.float32), w.shape[2], x.dtype)
 
 
-def _grouped_call(name: str, x, weights, block_expert, n_used, block_rows,
-                  N: int, ks: int, ints):
-    """Launch one of the three grouped kernels: ``weights`` are its weight
-    operands, ``ints`` the integers between (R, K, N) and (out_f32, ksplit)."""
-    R, K = x.shape
+def _block_tables(name: str, x, block_expert, n_used, block_rows) -> list:
+    """The grouped kernels' block tables, checked: int32 [NB], [1], [NB] on
+    x's device for R = NB * BLOCK_M rows of x; no ``block_rows`` means every
+    row of a used block counts."""
+    R = x.shape[0]
     if R % BLOCK_M or block_expert.numel() != R // BLOCK_M:
         raise ValueError(f"{name}: {R} rows are not {block_expert.numel()} "
                          f"blocks of {BLOCK_M}")
-    if block_rows is None:  # every row of a used block counts
+    if block_rows is None:
         block_rows = torch.full_like(block_expert, BLOCK_M)
     tables = [t.contiguous() for t in (block_expert, n_used, block_rows)]
-    if any(t.dtype != torch.int32 for t in tables) or tables[2].numel() != R // BLOCK_M:
-        raise TypeError(f"{name}: the block tables must be int32 [NB], [1], [NB]")
-    check_gemm_out(name, x, N, x.dtype, *weights, *tables)
-    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
-    work = (torch.empty((ks, R, N), dtype=torch.float32, device=x.device)
-            if ks > 1 else None)
-    lib = _build.library(name)
-    fn = getattr(lib, name)
-    n_ptr = 1 + len(weights) + 3 + 2
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (3 + len(ints) + 2)
-                   + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), *(t.data_ptr() for t in weights),
-             *(t.data_ptr() for t in tables), out.data_ptr(), _build.ptr(work),
-             R, K, N, *ints, 0, ks, _build.stream_of(x))
-    _build.check(lib, err, name)
-    return out
+    if any(t.dtype != torch.int32 or t.device != x.device for t in tables) \
+            or tables[2].numel() != R // BLOCK_M:
+        raise TypeError(f"{name}: the block tables must be int32 [NB], [1], [NB] "
+                        "on x's device")
+    return tables
+
+
+_GROUPED_BF16_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
 def _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows):
-    X, K, N = w.shape
+    _, K, N = w.shape
+    R = x.shape[0]
     if x.shape[1] != K:
         raise ValueError(f"expert weights {tuple(w.shape)} do not match K={x.shape[1]}")
     x, w = x.contiguous(), w.contiguous()
     _check_bf16("grouped_gemm", x, w)
-    out = _grouped_call("grouped_gemm", x, (w,), block_expert, n_used, block_rows,
-                        N, chunk_ksplit(-(-K // CHUNK), N), ())
+    tables = _block_tables("grouped_gemm", x, block_expert, n_used, block_rows)
+    check_gemm_out("grouped_gemm", x, N, x.dtype, w, *tables)
+    ks = chunk_ksplit(-(-K // CHUNK), N)
+    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    work = (torch.empty((ks, R, N), dtype=torch.float32, device=x.device)
+            if ks > 1 else None)
+    lib, fn = _build.function("grouped_gemm", "grouped_gemm", _GROUPED_BF16_ARGS)
+    err = fn(x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in tables),
+             out.data_ptr(), _build.ptr(work), R, K, N, 0, ks, _build.stream_of(x))
+    _build.check(lib, err, "grouped_gemm")
     grouped_matmul.launches += 1
     return out
 
@@ -365,61 +379,37 @@ def grouped_quant_matmul_plain(x: torch.Tensor, block_expert: torch.Tensor,
         p["q"].shape[2], x.dtype)
 
 
-def _grouped_int4_cuda(x, block_expert, n_used, q, s, block_rows, n_pairs):
+_GROUPED_WEIGHT_ONLY_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+
+
+def _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows, n_pairs):
+    """One launch of the grouped int4 or int8 kernel (both take the same
+    arguments) on its bounded plan."""
+    if bits not in (4, 8):
+        raise ValueError(f"weight-only experts are int4 or int8, not {bits} bits")
+    name = f"grouped_int{bits}_gemm"
+    q, s = p["q"].contiguous(), p["s"].contiguous()
     R, K = x.shape
-    X, N = q.shape[0], q.shape[2]
-    group = check_int4_operands("grouped_int4_gemm", x, q, s, K, N, x.dtype)
+    X, N = q.shape[0], q.shape[-1]
+    group = check_weight_only_operands(name, bits, x, q, s, K, N, x.dtype)
     if q.dim() != 3 or s.dim() != 3 or s.shape[0] != X:
-        raise ValueError(f"grouped_int4_gemm: experts {tuple(q.shape)} and scales "
+        raise ValueError(f"{name}: experts {tuple(q.shape)} and scales "
                          f"{tuple(s.shape)} do not match")
-    if block_expert.numel() * BLOCK_M != R:
-        raise ValueError(f"grouped_int4_gemm: {R} rows are not {block_expert.numel()} "
-                         f"blocks of {BLOCK_M}")
-    if block_rows is None:  # every row of a used block counts
-        block_rows = torch.full_like(block_expert, BLOCK_M)
-    tables = [t.contiguous() for t in (block_expert, n_used, block_rows)]
-    if any(t.dtype != torch.int32 or t.device != x.device for t in tables) \
-            or tables[2].numel() != R // BLOCK_M:
-        raise TypeError("grouped_int4_gemm: the block tables must be int32 [NB], [1], "
-                        "[NB] on x's device")
-    plan = grouped_int4_plan(R, K, N, group, X, n_pairs)
+    tables = _block_tables(name, x, block_expert, n_used, block_rows)
+    plan = (grouped_int4_plan if bits == 4 else grouped_int8_plan)(
+        R, K, N, group, X, n_pairs)
     x = aligned16(x)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     bounded = plan.grid[1] * BLOCK_M
     work = (torch.empty((plan.grid[2], bounded, N), dtype=torch.float32, device=x.device)
             if plan.grid[2] > 1 and bounded else None)
-    lib, fn = _build.function("grouped_int4_gemm", "grouped_int4_gemm",
-                              (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9
-                              + (ctypes.c_void_p,))
+    lib, fn = _build.function(name, name, _GROUPED_WEIGHT_ONLY_ARGS)
     err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(),
              *(t.data_ptr() for t in tables), out.data_ptr(), _build.ptr(work),
-             R, K, N, X, group, 0, plan.grid[2], plan.groups_per_split, plan.grid[1],
+             R, K, N, X, group, 0, plan.grid[2], plan.stages_per_split, plan.grid[1],
              _build.stream_of(x))
-    _build.check(lib, err, "grouped_int4_gemm")
-    return out
-
-
-def _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows, n_pairs):
-    q, s = p["q"].contiguous(), p["s"].contiguous()
-    if bits == 4:
-        out = _grouped_int4_cuda(x, block_expert, n_used, q, s, block_rows, n_pairs)
-        grouped_quant_matmul.modes["int4"] += 1
-    elif bits == 8:
-        K, N = x.shape[1], q.shape[2]
-        if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
-            raise TypeError("the grouped quantized GEMMs take bf16 activations and scales")
-        if s.shape[0] != q.shape[0] or s.shape[1] == 0 or K % s.shape[1] or s.shape[2] != N:
-            raise ValueError(f"scales {tuple(s.shape)} do not group K={K}, N={N}")
-        group = K // s.shape[1]
-        x = x.contiguous()
-        if q.dtype != torch.int8 or q.shape[1] != K:
-            raise ValueError(f"int8 experts {tuple(q.shape)} do not match K={K}")
-        ks = chunk_ksplit(s.shape[1] * -(-group // CHUNK), N)
-        out = _grouped_call("grouped_int8_gemm", x, (q, s), block_expert, n_used,
-                            block_rows, N, ks, (group,))
-        grouped_quant_matmul.modes["int8"] += 1
-    else:
-        raise ValueError(f"weight-only experts are int4 or int8, not {bits} bits")
+    _build.check(lib, err, name)
+    grouped_quant_matmul.modes[f"int{bits}"] += 1
     grouped_quant_matmul.launches += 1
     return out
 
@@ -432,8 +422,8 @@ def grouped_quant_matmul(x: torch.Tensor, block_expert: torch.Tensor,
     ``{"q": [X, Kq, N], "s": [X, K/group, N]}``: the grouped twin of the
     stacked-layer quantized GEMMs, the scale on each group's fp32 partial
     sum, out in x's dtype. ``n_pairs``: the (token, expert) pairs the rows
-    were aligned from; the int4 kernel launches only the row blocks such a
-    routing can use (``grouped_row_bound``) and zeroes the rest."""
+    were aligned from; the kernels launch only the row blocks such a routing
+    can use (``grouped_row_bound``) and zero the rest."""
     if x.is_cuda:
         return _grouped_quant_matmul_cuda(x, block_expert, n_used, p, bits, block_rows,
                                           n_pairs)

@@ -1,5 +1,5 @@
 """Weight-only int4 / int8 GEMMs: the CUDA kernels' wrappers, their plain
-versions, the int4 kernels' launch plan, and the dispatcher over every
+versions, the tensor-core GEMMs' launch plan, and the dispatcher over every
 quantized linear leaf.
 
 ``int4_matmul`` replaces the Pallas ``_qmm4_kernel_v3`` and
@@ -7,10 +7,12 @@ quantized linear leaf.
 ``_qmm8_stacked_kernel`` (``painlessinferenceacceleration_tpu/ops/
 quant_matmul.py``). A stacked weight's layer is a view ``q[li]``, so one
 kernel serves the plain and the stacked form. The kernels
-(``csrc/int4_gemm.cu`` on the tensor cores, ``csrc/int8_gemm.cu``) read the
-JAX layouts directly; each source note says what bounds it and how its
-design answers that. ``int4_plan`` is the int4 kernels' launch plan (split
-count, warpgroups, grid), the grouped kernel's too (``ops/moe_matmul.py``).
+(``csrc/int4_gemm.cu`` and ``csrc/int8_gemm.cu``, one tensor-core body in
+``csrc/weight_only_wgmma.cuh``) read the JAX layouts directly; each source
+note says what bounds it and how its design answers that. ``int4_plan`` and
+``int8_plan`` are their launch plans (split count, warpgroups, grid), the
+grouped kernels' too (``ops/moe_matmul.py``); ``stage_split`` and
+``tile_grid`` serve the W8A8 kernel as well (``ops/w8a8.py``).
 ``quant_matmul`` sends activation-quantized and block-fp8 leaves on to
 ``ops/w8a8.py``.
 
@@ -32,13 +34,15 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     dequantize,
 )
 
+# the CUDA-core GEMMs, the block-fp8 kernel (csrc/block_fp8_gemm.cu) and the
+# bf16 one (csrc/grouped_gemm.cu), are the last users of these three
 _COLS_PER_BLOCK = 128  # kBlockN of the CUDA-core GEMM sources (gemm_tiles.cuh)
-CHUNK = 128  # K rows a warp takes at a time in the 8-bit GEMM sources
+CHUNK = 128  # K rows a warp takes at a time in the CUDA-core GEMM sources
 _TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 
 
 def chunk_ksplit(n_chunks: int, N: int) -> int:
-    """K splits of a GEMM kernel whose warps walk K in ``n_chunks`` chunks:
+    """K splits of a CUDA-core GEMM whose warps walk K in ``n_chunks`` chunks:
     enough blocks to fill the card, at least 8 chunks (one per warp) in each
     split. A function of (K, N) only, so a row's sum is taken in the same
     order at every M."""
@@ -48,11 +52,13 @@ def chunk_ksplit(n_chunks: int, N: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core GEMMs' launch plan: the int4 kernels (csrc/int4_wgmma.cuh)
-# here, the W8A8 kernel (csrc/w8a8_wgmma.cuh) in ops/w8a8.py
+# the tensor-core GEMMs' launch plan: the weight-only kernels
+# (csrc/weight_only_wgmma.cuh) here, the W8A8 kernel (csrc/w8a8_wgmma.cuh) in
+# ops/w8a8.py
 # ---------------------------------------------------------------------------
 
 INT4_GROUPS = (32, 64, 128)  # scale groups the int4 kernels take: one ring stage each
+INT8_STAGES = (128, 64, 32)  # k rows of an int8 ring stage, the largest dividing the group
 TC_COLS = 128  # weight columns of a block: the wgmma's N
 TC_WG_ROWS = 64  # token rows of one multiplying warpgroup: the wgmma's M
 _SMS = 132  # the H100's SMs; one tensor-core block fills an SM's shared memory
@@ -60,9 +66,9 @@ _MIN_FILL = 0.8  # the share of the last wave of blocks a split count must fill
 _MIN_SPLIT_K = 512  # K rows of a split at the least
 
 
-class Int4Plan(NamedTuple):
+class GemmPlan(NamedTuple):
     ksplit: int
-    groups_per_split: int  # every split gets at least one group
+    stages_per_split: int  # every split gets at least one ring stage
     warpgroups: int  # multiplying warpgroups: the token tile is 64 x this
     grid: tuple  # (column blocks, row blocks, splits launched as blocks)
 
@@ -95,6 +101,26 @@ def int4_check(K: int, N: int, group: int) -> None:
         raise ValueError(f"the int4 kernels need N % 16 == 0 (N={N})")
 
 
+def int8_stage(group: int) -> int:
+    """k rows of one ring stage of the int8 kernels: the largest of
+    ``INT8_STAGES`` that divides ``group`` (a group then folds group / stage
+    times), 0 where none does."""
+    return next((c for c in INT8_STAGES if group > 0 and group % c == 0), 0)
+
+
+def int8_check(K: int, N: int, group: int) -> None:
+    """Raise on a shape the int8 kernels do not take: a group that is a
+    multiple of 32 (whole ring stages), K a whole number of groups, N % 16
+    == 0 (the weight's rows are copied 16 bytes at a time)."""
+    if group <= 0 or group % 32:
+        raise ValueError(f"the int8 kernels take groups that are multiples of 32, "
+                         f"not {group}")
+    if K <= 0 or K % group:
+        raise ValueError(f"the int8 kernels need K % group == 0 (K={K}, group={group})")
+    if N <= 0 or N % 16:
+        raise ValueError(f"the int8 kernels need N % 16 == 0 (N={N})")
+
+
 def quant_leaves(params):
     """Every quantized linear leaf (a dict with a tensor ``q`` and its
     ``s``) in a parameter tree of dicts, lists and tuples."""
@@ -120,9 +146,22 @@ def check_int4_params(params) -> None:
             int4_check(K, q.shape[-1], K // max(1, s.shape[-2]))
 
 
+def check_int8_params(params) -> None:
+    """Raise, before the first launch, on a weight-only int8 weight (int8
+    ``q`` with bf16 group scales; a W8A8 leaf's scales are fp32) of
+    ``params`` whose shape the int8 kernels do not take: such a model does
+    not run on the card."""
+    for p in quant_leaves(params):
+        q, s = p["q"], p["s"]
+        if q.dtype == torch.int8 and s.dtype == torch.bfloat16:
+            K = q.shape[-2]
+            int8_check(K, q.shape[-1], K // max(1, s.shape[-2]))
+
+
 def stage_split(K: int, N: int, stage: int) -> tuple:
     """(K splits, stages per split) of a tensor-core GEMM whose blocks walk
-    K in ring stages of ``stage`` rows (an int4 scale group; 128 for W8A8),
+    K in ring stages of ``stage`` rows (an int4 scale group, an int8
+    ``int8_stage``, 128 for W8A8),
     from (K, N, stage) alone, so that a row's sum is taken in the same order
     at every M and in the grouped kernels. The fewest splits (none empty,
     each at least ``_MIN_SPLIT_K`` rows of K) whose column blocks times
@@ -163,16 +202,33 @@ def int4_split(K: int, N: int, group: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def int4_plan(M: int, K: int, N: int, group: int) -> Int4Plan:
+def int4_plan(M: int, K: int, N: int, group: int) -> GemmPlan:
     """The dense int4 kernel's launch: the split of ``int4_split`` on the
     grid of ``tile_grid``."""
     ks, gps = int4_split(K, N, group)
-    return Int4Plan(ks, gps, *tile_grid(M, N, ks))
+    return GemmPlan(ks, gps, *tile_grid(M, N, ks))
+
+
+@functools.lru_cache(maxsize=None)
+def int8_split(K: int, N: int, group: int) -> tuple:
+    """(K splits, stages per split) of the int8 kernels: ``stage_split``
+    with a stage of ``int8_stage(group)`` rows."""
+    int8_check(K, N, group)
+    return stage_split(K, N, int8_stage(group))
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(M: int, K: int, N: int, group: int) -> GemmPlan:
+    """The dense int8 kernel's launch: the split of ``int8_split`` on the
+    grid of ``tile_grid``."""
+    ks, sps = int8_split(K, N, group)
+    return GemmPlan(ks, sps, *tile_grid(M, N, ks))
 
 
 def check_gemm_out(what: str, x: torch.Tensor, N: int, out_dtype, *others) -> None:
-    """What every 8-bit GEMM kernel asks of its call: N % 4 == 0 (a thread
-    loads four adjacent weight bytes as one word), bf16 or fp32 out, the
+    """What the CUDA-core GEMMs and the W8A8 kernel ask of their call: N %
+    4 == 0 (a thread loads four adjacent weight bytes as one word), bf16 or
+    fp32 out, the
     other operands on x's CUDA device and starting on a 4-byte boundary."""
     if N % 4:
         raise ValueError(f"{what} needs N % 4 == 0 (N={N})")
@@ -191,23 +247,26 @@ def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return torch.matmul(x.to(torch.float32), w).to(out_dtype or x.dtype)
 
 
-def check_int4_operands(what: str, x: torch.Tensor, q: torch.Tensor,
-                        s: torch.Tensor, K: int, N: int, out_dtype) -> int:
-    """What the int4 kernels ask of their operands: bf16 x and scales, uint8
-    q of K/2 packed rows, one CUDA device, q and s on 16-byte boundaries,
-    bf16 or fp32 out, and a shape ``int4_check`` takes. Returns the group."""
+def check_weight_only_operands(what: str, bits: int, x: torch.Tensor, q: torch.Tensor,
+                               s: torch.Tensor, K: int, N: int, out_dtype) -> int:
+    """What the int4 and int8 kernels ask of their operands: bf16 x and
+    scales, q of K/2 packed uint8 rows (int4) or K int8 rows, one CUDA
+    device, q and s on 16-byte boundaries, bf16 or fp32 out, and a shape
+    ``int4_check`` / ``int8_check`` takes. Returns the group."""
     if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
         raise TypeError(f"{what} takes bf16 activations and bf16 scales, "
                         f"not {x.dtype} and {s.dtype}")
-    if q.dtype != torch.uint8 or q.shape[-2] * 2 != K or q.shape[-1] != N:
-        raise ValueError(f"{what}: packed weight {tuple(q.shape)} does not match "
+    dtype, per_row, check = ((torch.uint8, 2, int4_check) if bits == 4
+                             else (torch.int8, 1, int8_check))
+    if q.dtype != dtype or q.shape[-2] * per_row != K or q.shape[-1] != N:
+        raise ValueError(f"{what}: weight {tuple(q.shape)} {q.dtype} does not match "
                          f"K={K}, N={N}")
     if s.shape[-2] == 0 or K % s.shape[-2] or s.shape[-1] != N:
         raise ValueError(f"{what}: scales {tuple(s.shape)} do not group K={K}, N={N}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what} writes bf16 or fp32, not {out_dtype}")
     group = K // s.shape[-2]
-    int4_check(K, N, group)
+    check(K, N, group)
     if not (q.is_cuda and s.is_cuda and q.device == x.device == s.device):
         raise ValueError(f"{what} operands must be on one CUDA device")
     if q.data_ptr() % 16 or s.data_ptr() % 16:
@@ -222,25 +281,34 @@ def aligned16(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-_INT4_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+_WEIGHT_ONLY_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+
+
+def _weight_only_cuda(bits: int, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      out_dtype) -> torch.Tensor:
+    """One launch of the int4 or int8 kernel (both take the same arguments)
+    on its plan."""
+    M, K = x.shape
+    q, s = q.contiguous(), s.contiguous()
+    N = q.shape[1]
+    name = f"int{bits}_gemm"
+    group = check_weight_only_operands(name, bits, x, q, s, K, N, out_dtype)
+    x = aligned16(x)
+    plan = (int4_plan if bits == 4 else int8_plan)(M, K, N, group)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    work = (torch.empty((plan.grid[2], M, N), dtype=torch.float32, device=x.device)
+            if plan.grid[2] > 1 else None)
+    lib, fn = _build.function(name, name, _WEIGHT_ONLY_ARGS)
+    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+             _build.ptr(work), M, K, N, group, int(out_dtype == torch.float32),
+             plan.grid[2], plan.stages_per_split, plan.warpgroups, _build.stream_of(x))
+    _build.check(lib, err, name)
+    return out
 
 
 def _int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                       out_dtype) -> torch.Tensor:
-    M, K = x.shape
-    q, s = q.contiguous(), s.contiguous()
-    N = q.shape[1]
-    group = check_int4_operands("int4_gemm", x, q, s, K, N, out_dtype)
-    x = aligned16(x)
-    plan = int4_plan(M, K, N, group)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    work = (torch.empty((plan.grid[2], M, N), dtype=torch.float32, device=x.device)
-            if plan.grid[2] > 1 else None)
-    lib, fn = _build.function("int4_gemm", "int4_gemm", _INT4_ARGS)
-    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-             _build.ptr(work), M, K, N, group, int(out_dtype == torch.float32),
-             plan.grid[2], plan.groups_per_split, plan.warpgroups, _build.stream_of(x))
-    _build.check(lib, err, "int4_gemm")
+    out = _weight_only_cuda(4, x, q, s, out_dtype)
     int4_matmul.launches += 1
     return out
 
@@ -274,29 +342,7 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 def _int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                       out_dtype) -> torch.Tensor:
-    M, K = x.shape
-    N = q.shape[1]
-    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
-        raise TypeError("int8_gemm takes bf16 activations and bf16 scales")
-    if q.dtype != torch.int8 or q.shape[0] != K:
-        raise ValueError(f"int8 weight {tuple(q.shape)} does not match K={K}")
-    if s.shape[0] == 0 or K % s.shape[0] or s.shape[1] != N:
-        raise ValueError(f"scales {tuple(s.shape)} do not group K={K}, N={N}")
-    group = K // s.shape[0]
-    x, q, s = x.contiguous(), q.contiguous(), s.contiguous()
-    check_gemm_out("int8_gemm", x, N, out_dtype, q, s)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    # a chunk is at most CHUNK rows of one group
-    ks = chunk_ksplit(s.shape[0] * -(-group // CHUNK), N)
-    work = (torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
-            if ks > 1 else None)
-    lib = _build.library("int8_gemm")
-    fn = lib.int8_gemm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-             _build.ptr(work), M, K, N, group,
-             int(out_dtype == torch.float32), ks, _build.stream_of(x))
-    _build.check(lib, err, "int8_gemm")
+    out = _weight_only_cuda(8, x, q, s, out_dtype)
     int8_matmul.launches += 1
     return out
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +36,7 @@ from painlessinferenceacceleration_tpu_torch import _build
 from painlessinferenceacceleration_tpu_torch.layers.linear import FP8_MAX, QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     CHUNK,
+    GemmPlan,
     aligned16,
     check_gemm_out,
     chunk_ksplit,
@@ -150,13 +151,6 @@ def w8a8_matmul_ref(x2: torch.Tensor, p: dict, spec: QuantSpec,
 W8A8_STAGE = 128  # k rows of one ring stage: a 128-byte swizzle row of 8-bit values
 
 
-class W8A8Plan(NamedTuple):
-    ksplit: int
-    stages_per_split: int  # every split gets at least one stage
-    warpgroups: int  # multiplying warpgroups: the token tile is 64 x this
-    grid: tuple  # (column blocks, row blocks, splits launched as blocks)
-
-
 def w8a8_check(K: int, N: int) -> None:
     """Raise on a shape the W8A8 kernel does not take: TMA copies rows
     whose strides are whole multiples of 16 bytes, so K % 16 == 0 (the
@@ -167,13 +161,13 @@ def w8a8_check(K: int, N: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def w8a8_plan(M: int, K: int, N: int) -> W8A8Plan:
+def w8a8_plan(M: int, K: int, N: int) -> GemmPlan:
     """The W8A8 kernel's launch: a K split of 128-k stages from (K, N)
     alone (``stage_split``), so that a row's sum is taken in the same order
     at every M, on the grid of ``tile_grid``."""
     w8a8_check(K, N)
     ks, sps = stage_split(K, N, W8A8_STAGE)
-    return W8A8Plan(ks, sps, *tile_grid(M, N, ks))
+    return GemmPlan(ks, sps, *tile_grid(M, N, ks))
 
 
 def check_w8a8_params(params) -> None:

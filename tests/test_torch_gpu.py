@@ -311,10 +311,18 @@ def test_gemm_and_norm_rows_do_not_depend_on_the_batch(cuda):
 # ---------------------------------------------------------------------------
 
 # 7B layer widths, the serving prefill height, and ragged edges: K and N off
-# the 128 grid, K odd (int8 activations then load byte by byte), group 64,
-# and a group that is all of K (longer than one 128-row chunk)
+# the 128 grid, K odd. The block-fp8 kernel (CUDA cores) takes them all.
 GEMM_SHAPES = [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384), (4096, 4096, 1024),
                (9, 200, 132), (17, 333, 260)]
+# the int8 weight-only kernel takes groups that are multiples of 32 and N in
+# multiples of 16 (TMA's row strides): (M, K, N, group) over the 7B widths,
+# the generator's Q = 64 on gate/up, a Mixtral expert's down projection at
+# 300 rows, group 64, a whole-K group (DeepSeek-V2-Lite's dense down
+# projection: 10944 rows, stages of 64) at verify width, and off-grid
+# shapes whose group is all of K (stages of 32 and 64)
+INT8_SHAPES = [(1, 4096, 4096, 128), (17, 11008, 512, 128), (70, 256, 384, 64),
+               (4096, 4096, 1024, 128), (64, 4096, 22016, 128), (300, 14336, 4096, 128),
+               (17, 10944, 2048, 10944), (9, 352, 272, 352), (17, 192, 144, 192)]
 # the W8A8 kernel takes K and N in multiples of 16 (TMA's row strides): its
 # off-grid cases are off the 128 grid only, and it adds the generator's Q =
 # 64 on gate/up and a Mixtral expert's down projection at 300 rows
@@ -326,17 +334,48 @@ def _tol(out):
     return 2e-2 if out == torch.bfloat16 else 1e-4
 
 
-@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+def _int8_operands(g, M, K, N, group):
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    s = (torch.rand(K // group, N, generator=g, device="cuda") * 0.01).to(torch.bfloat16)
+    return x, q, s
+
+
+@pytest.mark.parametrize("M,K,N,group", INT8_SHAPES)
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
-def test_int8_gemm(cuda, M, K, N, out):
-    group = 64 if K % 128 == 0 and M == 70 else (128 if K % 128 == 0 else K)
-    x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
-    q = torch.randint(-127, 128, (K, N), generator=cuda, device="cuda", dtype=torch.int8)
-    s = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
+def test_int8_gemm(cuda, M, K, N, group, out):
+    x, q, s = _int8_operands(cuda, M, K, N, group)
     before = int8_matmul.launches
     got = int8_matmul(x, q, s, out)
     assert int8_matmul.launches == before + 1
     assert _rel(got, int8_matmul_plain(x, q, s, out)) < _tol(out)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [128, 64])
+def test_int8_rows_do_not_depend_on_their_place_in_the_tile(cuda, out, group):
+    """A row alone equals itself at the edges of the 64-row warpgroup tiles
+    and the 128-row blocks of a 4096-row call, and the first m rows equal
+    the call's (the splits launched as blocks at M <= 64, run in one block
+    at M = 4096: the same bits)."""
+    x, q, s = _int8_operands(cuda, 4096, 4096, 4096, group)
+    full = int8_matmul(x, q, s, out)
+    for r in (0, 63, 64, 127, 128, 511, 4095):
+        assert torch.equal(int8_matmul(x[r:r + 1], q, s, out), full[r:r + 1]), r
+    for m in (1, 17, 64, 65, 136, 512):
+        assert torch.equal(int8_matmul(x[:m], q, s, out), full[:m]), m
+
+
+def test_int8_gemm_raises_on_shapes_it_does_not_take(cuda):
+    for K, N, group in ((333, 256, 333), (4096, 260, 128), (4096, 4096, 48), (4096, 4096, 16)):
+        x, q, s = _int8_operands(cuda, 4, K, N, group)
+        before = int8_matmul.launches
+        with pytest.raises(ValueError):
+            int8_matmul(x, q, s)
+        assert int8_matmul.launches == before
+    x, q, s = _int8_operands(cuda, 4, 256, 256, 128)
+    with pytest.raises(TypeError):  # fp32 activations
+        int8_matmul(x.float(), q, s)
 
 
 def _w8a8_operands(g, M, K, N, mode):
@@ -411,18 +450,20 @@ def test_block_fp8_gemm(cuda, M, K, N, mode):
 
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 512), (333, 260),
-                                 (336, 272)])
+                                 (336, 272), (352, 272)])
 def test_8bit_gemm_rows_do_not_depend_on_the_batch(cuda, K, N):
     """A row of every 8-bit GEMM is the same at M = 1, 8, 17, 136 and 4096,
     bit for bit: AR decode batches B rows, lookahead 17 B, prefill 512 B.
-    The W8A8 kernel joins where K and N are multiples of 16 (the shapes it
-    takes)."""
+    The int8 weight-only kernel joins where the group (128, or all of K) is
+    a multiple of 32 and N of 16, the W8A8 kernel where K and N are
+    multiples of 16 (the shapes each takes)."""
     M = 4096
     x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
     group = 128 if K % 128 == 0 else K
-    q8 = torch.randint(-127, 128, (K, N), generator=cuda, device="cuda", dtype=torch.int8)
-    s8 = (torch.rand(K // group, N, generator=cuda, device="cuda") * 0.01).to(torch.bfloat16)
-    runs = {"int8_gemm": lambda m: int8_matmul(x[:m], q8, s8)}
+    runs = {}
+    if group % 32 == 0 and N % 16 == 0:
+        _, q8, s8 = _int8_operands(cuda, 1, K, N, group)
+        runs["int8_gemm"] = lambda m: int8_matmul(x[:m], q8, s8)
     for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block"):
         if mode != "fp8_block" and (K % 16 or N % 16):
             continue
@@ -546,32 +587,53 @@ def test_grouped_quant_gemm(cuda, T, k, X, K, N, bits, group):
     assert torch.equal(got[r], full[e, dest_tok[r].long()])
 
 
-@pytest.mark.parametrize("T,k,X,K,N", [(1, 2, 8, 4096, 28672),  # Mixtral decode
-                                       (1, 8, 128, 2048, 1536)])  # Qwen3-30B-A3B decode
-def test_grouped_int4_gemm_at_decode_launches_the_bounded_grid(cuda, T, k, X, K, N):
-    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import grouped_int4_plan
+def _check_bounded_grid(g, T, k, X, K, N, bits):
+    """The grouped int4 / int8 kernel at decode: the grid bounded to the
+    row blocks the routing can use, exact zeros past them (rows there are
+    never read), the plain version's values and the dense kernel's bits on
+    each routed row."""
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
+        grouped_int4_plan,
+        grouped_int8_plan,
+    )
 
-    x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, T, k, X, K, 0.0)
-    p = _quant_experts(cuda, X, K, N, 4, 128)
+    x, topi, xg, dest_tok, be, nu = _grouped_x(g, T, k, X, K, 0.0)
+    p = _quant_experts(g, X, K, N, bits, 128)
     rows = _block_rows(dest_tok, T)
-    plan = grouped_int4_plan(xg.shape[0], K, N, 128, X, T * k)
+    plan_of = grouped_int4_plan if bits == 4 else grouped_int8_plan
+    plan = plan_of(xg.shape[0], K, N, 128, X, T * k)
     bound = min(X, T * k) + 1
     assert plan.grid[1] == bound < be.numel()
     assert int(nu[0]) <= bound
-    before = grouped_quant_matmul.modes["int4"]
+    before = grouped_quant_matmul.modes[f"int{bits}"]
     xg_dirty = xg.clone()
     xg_dirty[int(nu[0]) * BLOCK_M:] = 1.0  # rows past n_used and the bound are never read
-    got = grouped_quant_matmul(xg_dirty, be, nu, p, 4, rows, n_pairs=T * k)
-    assert grouped_quant_matmul.modes["int4"] == before + 1
+    got = grouped_quant_matmul(xg_dirty, be, nu, p, bits, rows, n_pairs=T * k)
+    assert grouped_quant_matmul.modes[f"int{bits}"] == before + 1
     assert not got[int(nu[0]) * BLOCK_M:].any()  # exact zeros past n_used and the bound
-    assert _rel(got, grouped_quant_matmul_plain(xg, be, nu, p, 4)) < 2e-2
-    full = torch.stack([int4_matmul(x, p["q"][e], p["s"][e]) for e in range(X)])
+    assert _rel(got, grouped_quant_matmul_plain(xg, be, nu, p, bits)) < 2e-2
+    dense = int4_matmul if bits == 4 else int8_matmul
+    full = torch.stack([dense(x, p["q"][e], p["s"][e]) for e in range(X)])
     real = (dest_tok < T) & (torch.arange(dest_tok.numel(), device="cuda")
                              < nu[0] * BLOCK_M)
     r = real.nonzero()[:, 0]
     assert r.numel() == T * k
     e = be[r // BLOCK_M].long()
     assert torch.equal(got[r], full[e, dest_tok[r].long()])
+
+
+DECODE_ROUTINGS = [(1, 2, 8, 4096, 28672),  # Mixtral decode
+                   (1, 8, 128, 2048, 1536)]  # Qwen3-30B-A3B decode
+
+
+@pytest.mark.parametrize("T,k,X,K,N", DECODE_ROUTINGS)
+def test_grouped_int4_gemm_at_decode_launches_the_bounded_grid(cuda, T, k, X, K, N):
+    _check_bounded_grid(cuda, T, k, X, K, N, 4)
+
+
+@pytest.mark.parametrize("T,k,X,K,N", DECODE_ROUTINGS)
+def test_grouped_int8_gemm_at_decode_launches_the_bounded_grid(cuda, T, k, X, K, N):
+    _check_bounded_grid(cuda, T, k, X, K, N, 8)
 
 
 @pytest.mark.parametrize("quant", [None, 4, 8])

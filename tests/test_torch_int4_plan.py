@@ -1,6 +1,6 @@
 """The int4 GEMM kernels' launch plan and operand arithmetic, on the CPU.
 
-The kernels (``csrc/int4_wgmma.cuh``) run only on the card; what they are
+The kernels (``csrc/weight_only_wgmma.cuh``) run only on the card; what they are
 given is decided here, in Python that the wrappers call: the K split (a
 function of K, N and the group alone, so that a row's bits do not depend on
 the batch), the grid, the grouped kernel's bounded row extent, and the
@@ -49,13 +49,13 @@ def test_plan_takes_every_card_shape_and_its_split_ignores_m(K, N, group):
     assert 1 <= ks and (ks - 1) * gps < n_groups <= ks * gps  # no split is empty
     for M in ROWS:
         plan = int4_plan(M, K, N, group)
-        assert (plan.ksplit, plan.groups_per_split) == (ks, gps)
+        assert (plan.ksplit, plan.stages_per_split) == (ks, gps)
         assert plan.warpgroups == (1 if M <= 64 else 2)
         tiles = -(-M // (64 * plan.warpgroups))
         assert plan.grid == (N // 128, tiles, split_blocks(ks, N // 128, tiles))
     for R, pairs in ((BLOCK_M * 10, 2), (BLOCK_M * 73, 8192)):
         gplan = grouped_int4_plan(R, K, N, group, 8, pairs)
-        assert (gplan.ksplit, gplan.groups_per_split, gplan.warpgroups) == (ks, gps, 2)
+        assert (gplan.ksplit, gplan.stages_per_split, gplan.warpgroups) == (ks, gps, 2)
 
 
 @pytest.mark.parametrize("group", INT4_GROUPS)
@@ -152,7 +152,7 @@ def test_bf16_magic_number_is_exact_for_every_nibble():
 
 
 def _operand_row(group: int, j: int, hi: bool) -> int:
-    """The k row of its group at which ``dequant_stage`` (csrc/int4_wgmma.cuh)
+    """The k row of its group at which ``dequant_stage`` (csrc/weight_only_wgmma.cuh)
     writes packed byte j's low (or high) nibble: warp (v, p) takes bytes
     j = 16 v + 2 e + p and stores them to chunk u = v + (p + 2 hi) g / 32 of
     the operand, element e, so k = 8 u + e."""
