@@ -7,8 +7,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
 
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
    (the tensor-core sources' own); ptxas's registers and spills of the
-   tensor-core GEMM kernels (int4 K1 / K11, W8A8 K8) and their shared
-   memory (a spill or a serialized wgmma fails the run);
+   tensor-core GEMM kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16
+   K10) and their shared memory (a spill or a serialized wgmma fails the
+   run), and of the paged attention kernels (reported);
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
@@ -60,7 +61,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    Mixture-of-Experts: the grouped (per-expert) GEMMs for bf16, int4 and
    int8 experts and the dense bf16 GEMM against their plain versions at
    Mixtral-8x7B and Qwen3-30B-A3B expert shapes over seeded random routings
-   (2 to 8192 routed rows, decode included, some pairs dropped; the int4
+   (2 to 8192 routed rows, decode included, some pairs dropped; each
    kernel's grid bounded by the pair count), rows past ``n_used`` exactly
    zero, every routed row bit-equal to the dense kernel on its expert's
    weights and to itself at every batch width; Mixtral-8x7B at full width
@@ -69,7 +70,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    strictly lossless, one layer's grouped output bit-equal to its scan
    output; the same model with int4 experts in 2 expert shards and with
    int8 experts (8 layers each); and the bf16 model (4 layers) serving the
-   16 requests, lookahead equal to AR;
+   16 requests, lookahead equal to AR; the bf16 GEMM's (K10) launches by
+   entry on one prefill, one decode and one verify step of Mixtral,
+   DeepSeek-V2-Lite and Ring-mini-linear-2.0 in bf16;
    Multi-head Latent Attention: the MLA attention kernel and the
    head-batched absorption GEMM against their plain versions with their
    bit identities, DeepSeek-V2-Lite bf16 at all 27 layers (4096-token
@@ -219,7 +222,8 @@ def phase_environment(pkg) -> dict:
 def _ptxas_label(entry: str) -> str:
     """A tensor-core kernel's template arguments from its mangled name:
     int4 <group[, warpgroups]>, int8 <stage[, warpgroups]>, W8A8 <int8|e4m3,
-    warpgroups>; "seq" where a block runs every split."""
+    warpgroups>, bf16 <warpgroups[, the weight's major]>; "seq" where a
+    block runs every split."""
     import re
 
     t = re.search(r"((?:grouped_)?int[48]_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
@@ -227,6 +231,16 @@ def _ptxas_label(entry: str) -> str:
     if t:
         return (f"{t.group(1)}<{','.join(v for v in t.groups()[1:3] if v)}>"
                 + (" seq" if t.group(4) == "1" else ""))
+    t = re.search(r"(bf16_gemm_kernel)ILi(\d)ELb([01])ELb([01])E", entry)
+    if t:
+        return (f"{t.group(1)}<{t.group(2)},{'K' if t.group(3) == '1' else 'N'}-major>"
+                + (" seq" if t.group(4) == "1" else ""))
+    t = re.search(r"(bf16_gemm_batched_kernel)ILi(\d)ELb([01])E", entry)
+    if t:
+        return f"{t.group(1)}<{t.group(2)}>" + (" seq" if t.group(3) == "1" else "")
+    t = re.search(r"(grouped_gemm_kernel)ILb([01])E", entry)
+    if t:
+        return f"{t.group(1)}<2>" + (" seq" if t.group(2) == "1" else "")
     t = re.search(r"(w8a8_gemm_kernel)ILb([01])ELi(\d)ELb([01])E", entry)
     if t:
         return (f"{t.group(1)}<{'e4m3' if t.group(2) == '1' else 'int8'},{t.group(3)}>"
@@ -236,10 +250,12 @@ def _ptxas_label(entry: str) -> str:
 
 def ptxas_summary(pkg) -> dict:
     """Registers, spills and the ptxas notes of the tensor-core GEMM kernels
-    (int4 K1 / K11, int8 K7 / K12, W8A8 K8; built with -Xptxas -v), and each
-    configuration's dynamic shared memory. Fails the run on a spill, on a
-    wgmma that ptxas serialized, and where a source's report is missing or
-    names no GEMM kernel with its registers."""
+    (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10; built with -Xptxas
+    -v) and of the paged attention kernels (K2 / K3 / K5, reported only),
+    and each GEMM configuration's dynamic shared memory. Fails the run on a
+    GEMM's spill, on a wgmma that ptxas serialized, and where a GEMM
+    source's report is missing or names no GEMM kernel with its
+    registers."""
     import re
 
     b = pkg["_build"]
@@ -261,6 +277,8 @@ def ptxas_summary(pkg) -> dict:
                 notes.append(line.split("ptxas info    : ")[-1][:120])
         out[name] = dict(kernels=[k for k in kernels if "reduce" not in k["kernel"]],
                          notes=notes)
+        if "gemm" not in name:
+            continue
         gemm = [k for k in kernels if "gemm_kernel" in k["kernel"]]
         if not gemm or any("registers" not in k for k in gemm):
             fail(f"{name}: no ptxas report of its GEMM kernels and their registers: "
@@ -277,6 +295,9 @@ def ptxas_summary(pkg) -> dict:
                               for c in (128, 64, 32) for w in (1, 2)})
     lib = b.library("w8a8_gemm")
     out["smem_bytes"].update({f"w8a8 warpgroups={w}": lib.w8a8_gemm_smem_bytes(w)
+                              for w in (1, 2)})
+    lib = b.library("grouped_gemm")
+    out["smem_bytes"].update({f"bf16 warpgroups={w}": lib.bf16_gemm_smem_bytes(w)
                               for w in (1, 2)})
     return out
 
@@ -1176,12 +1197,32 @@ class Launches:
         return out
 
 
+K10_ENTRIES = ("dense_bf16_gemm", "batched_bf16_gemm", "grouped_gemm")
+
+
+def k10_per_step(at_prefill: dict, at_ar: dict, at_spec: dict, ar_steps: int,
+                 spec_steps: int) -> dict:
+    """Each entry of the bf16 GEMM (K10) launched a step of the main path's
+    own run, from its counts read after the prefill, after the AR decode and
+    after the lookahead run (which starts with a prefill of its own): the
+    prefill's, and the AR and verify steps' counts over the steps taken."""
+    def per(n, steps):
+        return n // steps if n % steps == 0 else n / steps
+
+    return {k: {"prefill": at_prefill[k],
+                "decode": per(at_ar[k] - at_prefill[k], ar_steps),
+                "verify": per(at_spec[k] - at_ar[k] - at_prefill[k], spec_steps)}
+            for k in K10_ENTRIES}
+
+
 def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
                     spec_tokens=SPEC_TOKENS, label="phase 3 main path",
-                    extras=True, prompt_len=PROMPT_LEN, max_seq_len=4096) -> dict:
+                    extras=True, prompt_len=PROMPT_LEN, max_seq_len=4096,
+                    k10_steps=False) -> dict:
     """Prefill, greedy AR decode and lookahead decode at B = 1 with the
     strict lossless check, the kernels' launches counted from 0. ``extras``
-    adds the draft-table costs and the profiled steps."""
+    adds the draft-table costs and the profiled steps; ``k10_steps`` prints
+    the bf16 GEMM's launches a step of each kind on a line of its own."""
     import numpy as np
     import torch
 
@@ -1233,6 +1274,7 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
     kv, nxt, logits = prefill()
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = launches.read()
     if not (torch.isfinite(logits).all() and logits.shape == (1, cfg.vocab_size)):
         fail(f"{label}: prefill logits are not finite or have the wrong shape")
     t0 = time.perf_counter()
@@ -1243,6 +1285,7 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
     ar_s = time.perf_counter() - t0
     if int(ctx[0]) != prompt_len + ar_tokens - 1 or min(ar_stream) < 0:
         fail(f"{label}: AR decode did not advance one token per step")
+    at_ar = launches.read()
     del kv
     spec_stream, spec_steps, spec_s, tables = spec_run(False, True, spec_tokens)
     counts = launches.read()
@@ -1258,6 +1301,8 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
             table_ms=table_costs(pkg, tcfg, tables, spec_stream, TAIL),
             profile=profile_steps(pkg, cfg, spec, params, ecfg, tcfg, prompt_t, pt, ctx0))
     res.update(
+        k10_launches_per_step=k10_per_step(at_prefill, at_ar, counts, ar_tokens - 1,
+                                           spec_steps),
         prefill_ms=prefill_ms, ar_tok_s=(ar_tokens - 1) / ar_s,
         spec_tok_s=(len(spec_stream) - 1) / spec_s,
         accepted_per_step=(len(spec_stream) - 1) / spec_steps,
@@ -1267,6 +1312,8 @@ def phase_main_path(pkg, cfg, spec, params, ar_tokens=AR_TOKENS,
         peak_mem_gb=peak_gb, launches=counts,
     )
     print(f"{label}: " + json.dumps(res))
+    if k10_steps:
+        print(f"{label}: K10 launches per step: " + json.dumps(res["k10_launches_per_step"]))
     if div != n or n < spec_tokens // 2:
         fail(f"{label}: lossless check failed: first divergence {div} of {n}")
     res["ar_stream"] = ar_stream
@@ -2121,10 +2168,10 @@ def expert_weights(g, name, X, K, N):
 
 def grouped_call(pkg, name, xg, be, nu, w, n_pairs, rows=None):
     """One grouped GEMM; ``n_pairs`` (the routing's pair count) bounds the
-    int4 and int8 kernels' grids as routed_expert_mlp does."""
+    kernel's grid as routed_expert_mlp does."""
     mm = pkg["moe_matmul"]
     if name == "grouped_gemm":
-        return mm.grouped_matmul(xg, be, nu, w, rows)
+        return mm.grouped_matmul(xg, be, nu, w, rows, n_pairs=n_pairs)
     return mm.grouped_quant_matmul(xg, be, nu, w, 4 if "int4" in name else 8, rows,
                                    n_pairs=n_pairs)
 
@@ -2157,10 +2204,12 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
     got, ref = grouped_call(pkg, name, xg, be, nu, w, T * k, rows), plain(xg, be, nu, w)
     err, rel = _errs(got, ref)
     case = f"{family} routed_rows={T * k} X={X} K={K} N={N}"
-    if name != "grouped_gemm":
+    if name == "grouped_gemm":
+        plan = mm.grouped_bf16_plan(xg.shape[0], K, N, X, T * k)
+    else:
         plan_of = mm.grouped_int4_plan if "int4" in name else mm.grouped_int8_plan
         plan = plan_of(xg.shape[0], K, N, 128, X, T * k)
-        case += f" row_blocks_launched={plan.grid[1]} of {be.numel()}"
+    case += f" row_blocks_launched={plan.grid[1]} of {be.numel()}"
     if not rel <= 2e-2:
         fail(f"{name} {case}: rel err {rel}")
     n_used = int(nu[0])
@@ -2171,9 +2220,8 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
     big = T * k >= 1024
     ms = time_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, T * k, rows),
                  reps=5 if big else 20)
-    dev_ms = (graph_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, T * k, rows),
-                       reps=3 if big else 10)
-              if name != "grouped_gemm" else None)
+    dev_ms = graph_ms(lambda: grouped_call(pkg, name, xg, be, nu, w, T * k, rows),
+                      reps=3 if big else 10)
     plain_ms = time_ms(lambda: plain(xg, be, nu, w), reps=2 if big else 5, warmup=1)
     # yardstick: torch._grouped_mm over the padded expert runs of bf16 experts
     offs = (torch.searchsorted(be[:n_used].contiguous(),
@@ -2191,8 +2239,7 @@ def grouped_row(pkg, g, name, family, X, k, K, N, T, w, w_bf16):
     row = _case(name, source, replaces, err, rel, ms, plain_ms,
                 bound_ms(nbytes, 2.0 * real * K * N), lib_ms,
                 f"{case} real_rows={real} experts_touched={touched} blocks_used={n_used}")
-    if dev_ms is not None:
-        row["device_ms"] = dev_ms  # the kernels alone (a CUDA graph)
+    row["device_ms"] = dev_ms  # the kernels alone (a CUDA graph)
     return row
 
 
@@ -2209,13 +2256,16 @@ def dense_row(pkg, g, M, K, N, out_dtype, what):
     if not rel <= (2e-2 if out_dtype == torch.bfloat16 else 1e-4):
         fail(f"bf16_gemm {what} M={M} K={K} N={N}: rel err {rel}")
     ms = time_ms(lambda: mm.dense_matmul(x, w, out_dtype))
+    dev_ms = graph_ms(lambda: mm.dense_matmul(x, w, out_dtype))
     plain_ms = time_ms(lambda: mm.dense_matmul_plain(x, w, out_dtype), reps=5)
     lib_ms = time_ms(lambda: torch.matmul(x, w))
     nbytes = (M * K + K * N) * 2 + M * N * got.element_size()
-    return _case("dense_bf16_gemm", "grouped_gemm.cu",
-                 f"{MOE}:77 _gmm_kernel (one expert: the native linears)", err, rel, ms,
-                 plain_ms, bound_ms(nbytes, 2.0 * M * K * N), lib_ms,
-                 f"{what} M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+    row = _case("dense_bf16_gemm", "grouped_gemm.cu",
+                f"{MOE}:77 _gmm_kernel (one expert: the native linears)", err, rel, ms,
+                plain_ms, bound_ms(nbytes, 2.0 * M * K * N), lib_ms,
+                f"{what} M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
+    row["device_ms"] = dev_ms  # the kernel alone (a CUDA graph)
+    return row
 
 
 def check_moe_invariance(pkg, g, name, X, k, K, N, w) -> None:
@@ -2375,9 +2425,10 @@ def phase_moe(pkg) -> dict:
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
 
-    def main_path(cfg, spec, params, label, need, forbid=()):
+    def main_path(cfg, spec, params, label, need, forbid=(), k10_steps=False):
         res = phase_main_path(pkg, cfg, spec, params, MOE_AR_TOKENS, MOE_SPEC_TOKENS,
-                              label, extras=False, prompt_len=MOE_PROMPT_LEN)
+                              label, extras=False, prompt_len=MOE_PROMPT_LEN,
+                              k10_steps=k10_steps)
         res.update(layers=cfg.num_hidden_layers, prompt_len=MOE_PROMPT_LEN)
         add(res["launches"])
         if any(res["launches"][k] <= 0 for k in need) or any(
@@ -2394,7 +2445,7 @@ def phase_moe(pkg) -> dict:
     label = f"phase moe bf16 ({cfg.num_hidden_layers} of 32 layers, {weights_gb:.1f} GB of weights)"
     with MoeInputCapture(pkg) as cap:
         main_path(cfg, None, params, label, ("grouped_gemm", "dense_bf16_gemm"),
-                  ("grouped_int4_gemm", "grouped_int8_gemm", "int4_gemm"))
+                  ("grouped_int4_gemm", "grouped_int8_gemm", "int4_gemm"), k10_steps=True)
     routes = moe_routes(pkg, cfg, cap.lp, cap.h)
     print("phase moe routes: " + json.dumps(routes))
     del params, cap
@@ -2634,14 +2685,17 @@ def absorption_row(pkg, g, M, K, N, what):
     if not rel <= 2e-2:
         fail(f"bf16_gemm_batched {what} M={M}: rel err {rel}")
     ms = time_ms(lambda: mm.dense_matmul_batched(x, w))
+    dev_ms = graph_ms(lambda: mm.dense_matmul_batched(x, w))
     plain_ms = time_ms(lambda: mm.dense_matmul_batched_plain(x, w), reps=5)
     lib_ms = time_ms(lambda: torch.bmm(x, w))
     nbytes = (x.numel() + w.numel() + got.numel()) * 2
-    return _case("batched_bf16_gemm", "grouped_gemm.cu",
-                 f"{MOE}:77 _gmm_kernel (one weight per head: the MLA absorption, "
-                 f"XLA in {MLA_MODEL}:142, :187)", err, rel, ms, plain_ms,
-                 bound_ms(nbytes, 2.0 * 16 * M * K * N), lib_ms,
-                 f"{what} heads=16 M={M} K={K} N={N}")
+    row = _case("batched_bf16_gemm", "grouped_gemm.cu",
+                f"{MOE}:77 _gmm_kernel (one weight per head: the MLA absorption, "
+                f"XLA in {MLA_MODEL}:142, :187)", err, rel, ms, plain_ms,
+                bound_ms(nbytes, 2.0 * 16 * M * K * N), lib_ms,
+                f"{what} heads=16 M={M} K={K} N={N}")
+    row["device_ms"] = dev_ms  # the kernel alone (a CUDA graph)
+    return row
 
 
 def check_mla_invariance(pkg, g) -> None:
@@ -2746,7 +2800,7 @@ def phase_mla(pkg) -> dict:
     try:
         res = phase_main_path(pkg, full, None, params, MLA_AR_TOKENS, MLA_SPEC_TOKENS,
                               label, extras=False, prompt_len=MLA_PROMPT_LEN,
-                              max_seq_len=MLA_PROMPT_LEN + 512)
+                              max_seq_len=MLA_PROMPT_LEN + 512, k10_steps=True)
     finally:
         capture.remove()
     res.update(layers=full.num_hidden_layers, prompt_len=MLA_PROMPT_LEN,
@@ -3356,7 +3410,7 @@ def phase_linear(pkg) -> dict:
     with moe.expert_shards(LIN_SHARDS):
         res = phase_main_path(pkg, full, None, params, LIN_AR_TOKENS, LIN_SPEC_TOKENS,
                               label, extras=False, prompt_len=LIN_PROMPT_LEN,
-                              max_seq_len=LIN_PROMPT_LEN + 512)
+                              max_seq_len=LIN_PROMPT_LEN + 512, k10_steps=True)
     res.update(layers=full.num_hidden_layers, prompt_len=LIN_PROMPT_LEN,
                weights_gb=weights_gb, expert_shards=LIN_SHARDS)
     add(res["launches"])

@@ -7,9 +7,10 @@ and loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is never served by a stale build.
 
-The tensor-core GEMM sources (int4, int8, W8A8) are compiled with
-``-Xptxas -v``: the register, shared-memory and spill report of each
-kernel is kept beside its library (``ptxas_report``). ``BUILD_SECONDS`` holds each
+The tensor-core GEMM sources (int4, int8, W8A8, bf16) and the paged
+attention source are compiled with ``-Xptxas -v``: the register,
+shared-memory and spill report of each kernel is kept beside its library
+(``ptxas_report``). ``BUILD_SECONDS`` holds each
 source's compile time in the last ``build_all``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -42,10 +43,10 @@ NVCC_FLAGS = (
 )
 
 # sources whose build keeps ptxas's resource report (registers, shared
-# memory, spills): the tensor-core kernels, whose accumulators must stay in
-# registers
+# memory, spills): the tensor-core GEMMs, whose accumulators must stay in
+# registers, and the paged attention kernels
 VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm", "int8_gemm", "grouped_int8_gemm",
-                   "w8a8_gemm")
+                   "w8a8_gemm", "grouped_gemm", "paged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, tuple] = {}
@@ -167,4 +168,45 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s device (the call
+    that builds a ``torch.cuda.Stream`` object costs a decode-size GEMM's
+    worth of host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _grow(table: dict, what: str, device: torch.device, n: int, make) -> torch.Tensor:
+    buf = table.get(device)
+    if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what}: {n} elements needed while a CUDA graph is "
+                               "captured; make one call of this size before the capture")
+        buf = table[device] = make(n)
+    return buf
+
+
+def scratch(device: torch.device, numel: int) -> torch.Tensor:
+    """fp32 scratch of at least ``numel`` elements on ``device`` (a GEMM's K
+    split planes), kept between calls and grown when a call needs more:
+    each call would otherwise pay an allocation.
+
+    One buffer a device, shared by every call: correct only while those
+    calls run in order on one stream (a buffer it replaces is freed in that
+    stream's order). A CUDA graph that captured a call keeps the buffer's
+    address, so it may be replayed only while no later call has grown the
+    buffer; growing it during a capture raises."""
+    return _grow(_SCRATCH, "scratch", device, numel,
+                 lambda n: torch.empty(n, dtype=torch.float32, device=device))
+
+
+def tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 zeros on ``device``, kept between calls: the counters of
+    a GEMM whose K splits run as blocks (the last block of a tile to finish
+    adds the splits and sets its counter back to zero). Like ``scratch``,
+    one buffer a device: calls that use it run in order on one stream, and
+    a captured graph is replayed only while it has not grown."""
+    return _grow(_COUNTERS, "tile_counters", device, n,
+                 lambda n: torch.zeros(n, dtype=torch.int32, device=device))

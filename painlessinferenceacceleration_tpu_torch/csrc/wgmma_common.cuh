@@ -4,8 +4,9 @@
 // operand descriptors and group fences, the swizzled K-major operand layout,
 // and the host side (the driver's tensor-map encoder reached through the
 // runtime, the dynamic shared-memory limit). Included by the weight-only
-// body (weight_only_wgmma.cuh: int4, int8) and the W8A8 body
-// (w8a8_wgmma.cuh).
+// body (weight_only_wgmma.cuh: int4, int8), the W8A8 body (w8a8_wgmma.cuh)
+// and the bf16 body (bf16_wgmma.cuh), which also takes the 3-d maps and
+// copies, the counted mbarriers and the one-group wait below.
 
 #pragma once
 
@@ -63,6 +64,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// an mbarrier whose phase completes after `count` arrivals
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// one arrival without bytes (a consumer releasing a ring slot)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// a 3-d box of a tensor map into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
 // a 2-d box of a tensor map into shared memory, counted on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int c0, int c1, uint32_t bar) {
@@ -109,6 +130,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// every committed group but the newest has completed
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
 // Byte offset of the 16-byte chunk u of operand row `row` in a K-major tile
 // of `rows` rows in the RB-byte swizzle: atoms of rows x RB bytes, each
@@ -154,6 +179,23 @@ inline bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-d map of a row-major array [d2, d1, d0] of `elt`-byte elements, read
+// in boxes of b0 x b1 x 1; out-of-range elements read as zeros.
+inline bool make_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                        int elt, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
+                        uint32_t b1, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * (uint64_t)elt, d0 * d1 * (uint64_t)elt};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -7,17 +7,18 @@ Port of ``painlessinferenceacceleration_tpu/ops/moe_matmul.py``.
 ``_gqmm8_kernel`` (int8 experts): (token, expert) pairs are sorted by expert,
 each expert's run padded to ``BLOCK_M`` rows (``moe_align``), and row block
 ``b`` is multiplied by the weights of expert ``block_expert[b]``. The kernels
-(``csrc/grouped_gemm.cu``, ``csrc/grouped_int4_gemm.cu``,
-``csrc/grouped_int8_gemm.cu``) read the block tables from device memory, so
-no call waits for the routing; the int4 and int8 kernels' grids are bounded
-by the row blocks the routing's pair count allows (``grouped_plan``). Each
-source note says what bounds it.
+(``csrc/grouped_gemm.cu`` over the tensor-core body ``csrc/bf16_wgmma.cuh``,
+``csrc/grouped_int4_gemm.cu``, ``csrc/grouped_int8_gemm.cu``) read the block
+tables from device memory, so no call waits for the routing; their grids are
+bounded by the row blocks the routing's pair count allows (``grouped_plan``).
+Each source note says what bounds it.
 ``dense_matmul`` is the bf16 kernel's body with one weight; the native bf16
 linears, the router product and the LM head use it, so every bf16 GEMM of a
 model sums in one order and a token's expert output has the same bits on the
 grouped path and on the scan path (``models/moe.py``). ``dense_matmul_batched``
 runs that body over a batch of weights in one launch (MLA's per-head weight
-absorption, ``models/mla.py``).
+absorption, ``models/mla.py``). ``bf16_plan`` and its kin are the three
+entries' launch plans: one K split, a function of (K, N) alone.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper's ``launches`` counts its kernel launches.
@@ -26,6 +27,7 @@ raises. Each wrapper's ``launches`` counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -37,16 +39,16 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     dequantize,
 )
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
-    CHUNK,
+    SMS,
     TC_COLS,
     GemmPlan,
     aligned16,
-    check_gemm_out,
     check_weight_only_operands,
-    chunk_ksplit,
     int4_split,
     int8_split,
     split_blocks,
+    stage_split,
+    tile_grid,
 )
 
 BLOCK_M = 128
@@ -136,17 +138,26 @@ def grouped_row_bound(n_blocks: int, n_experts: int, n_pairs: int) -> int:
     return min(n_blocks, min(n_experts, n_pairs) + -(-n_pairs // BLOCK_M))
 
 
-def grouped_plan(R: int, N: int, split: tuple, n_experts: int,
-                 n_pairs: int) -> GemmPlan:
-    """A grouped weight-only kernel's launch: the dense kernel's split
-    ``split`` (K splits, stages per split; launched as ``split_blocks``
-    says), two multiplying warpgroups (an expert block of ``BLOCK_M`` rows),
-    and a grid bounded to ``grouped_row_bound`` row blocks."""
+def grouped_plan(R: int, N: int, split: tuple, n_experts: int, n_pairs: int,
+                 launch=split_blocks) -> GemmPlan:
+    """A grouped tensor-core kernel's launch: the dense kernel's split
+    ``split`` (K splits, stages per split; launched as ``launch(K splits,
+    column blocks, row blocks)`` says), two multiplying warpgroups (an
+    expert block of ``BLOCK_M`` rows), and a grid bounded to
+    ``grouped_row_bound`` row blocks."""
     if R <= 0 or R % BLOCK_M:
         raise ValueError(f"grouped GEMM: {R} rows are not whole blocks of {BLOCK_M}")
     ks, sps = split
     cols, rows = -(-N // TC_COLS), grouped_row_bound(R // BLOCK_M, n_experts, n_pairs)
-    return GemmPlan(ks, sps, 2, (cols, rows, split_blocks(ks, cols, rows)))
+    return GemmPlan(ks, sps, 2, (cols, rows, launch(ks, cols, rows)))
+
+
+def grouped_bf16_plan(R: int, K: int, N: int, n_experts: int, n_pairs: int) -> GemmPlan:
+    """The grouped bf16 kernel's launch: ``grouped_plan`` over ``bf16_split``,
+    the splits launched as ``bf16_split_blocks`` says for the routed rows
+    (the planes hold no padding row)."""
+    return grouped_plan(R, N, bf16_split(K, N), n_experts, n_pairs, lambda ks, cols, rows:
+                        bf16_split_blocks(min(rows * BLOCK_M, n_pairs), K, N, 2, cols, rows))
 
 
 def grouped_int4_plan(R: int, K: int, N: int, group: int, n_experts: int,
@@ -159,6 +170,87 @@ def grouped_int8_plan(R: int, K: int, N: int, group: int, n_experts: int,
                       n_pairs: int) -> GemmPlan:
     """The grouped int8 kernel's launch: ``grouped_plan`` over ``int8_split``."""
     return grouped_plan(R, N, int8_split(K, N, group), n_experts, n_pairs)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GEMM's launch plan (csrc/grouped_gemm.cu, csrc/bf16_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+BF16_STAGE = 64  # k rows of a ring stage of the bf16 kernels (kStage)
+
+
+def bf16_check(K: int, N: int) -> None:
+    """Raise on a shape the bf16 kernels do not take: K and N multiples of
+    8, as the tensor memory accelerator copies rows of x, of the weight and
+    of a transposed table in whole 16-byte units (the rest of a stage past
+    K or N lands as zeros)."""
+    if K <= 0 or K % 8:
+        raise ValueError(f"the bf16 GEMMs need K % 8 == 0 (K={K})")
+    if N <= 0 or N % 8:
+        raise ValueError(f"the bf16 GEMMs need N % 8 == 0 (N={N})")
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_split(K: int, N: int) -> tuple:
+    """(K splits, stages per split) of the bf16 kernels: ``stage_split``
+    with a stage of ``BF16_STAGE`` rows. A function of (K, N) alone: the
+    dense, head-batched and grouped entries sum a row in the same order."""
+    bf16_check(K, N)
+    return stage_split(K, N, BF16_STAGE)
+
+
+# the costs of the estimate below on an H100: a 128-row tile's ring stage
+# (fitted to tools/k10_variants.py's split-launch times), the planes
+# written and read at HBM's peak rate (3.35 TB/s), the last block's sum of
+# its tile's planes at 50 GB/s (assumed: one SM's share of L2) and that
+# sum's fixed cost (fitted)
+_STAGE_US = 0.52
+_PLANE_US_PER_BYTE = 1e6 / 3.35e12
+_SUM_US_PER_BYTE = 1e6 / 50e9
+_SUM_US = 2.0
+
+
+def bf16_split_blocks(rows: int, K: int, N: int, wg: int, cols: int, tiles: int) -> int:
+    """The bf16 kernels' K splits launched as blocks (``bf16_split``'s
+    count) or 1 (each block runs every split of its tile in order): the same
+    bits either way. ``rows``: the rows whose fp32 planes the splits would
+    write. At one warpgroup the shared rule (``split_blocks``). At two, the
+    estimate of each on ``SMS`` SMs: waves of blocks times their ring
+    stages; for the splits as blocks also their planes, written and read,
+    and the sum of a tile's planes by its last block. For the dense entry
+    it picks the faster launch at every shape of tools/k10_variants.py's
+    split-launch table, where ``split_blocks`` often picks the slower; for
+    the grouped entry's sparsely filled blocks neither rule does
+    (PERF.md)."""
+    ks, sps = bf16_split(K, N)
+    if ks == 1 or wg == 1:
+        return split_blocks(ks, cols, tiles)
+    seq = -(-cols * tiles // SMS) * -(-K // BF16_STAGE) * _STAGE_US
+    split = (-(-cols * tiles * ks // SMS) * sps * _STAGE_US
+             + 8 * rows * N * ks * _PLANE_US_PER_BYTE
+             + min(rows, 64 * wg) * 128 * ks * 8 * _SUM_US_PER_BYTE + _SUM_US)
+    return ks if split < seq else 1
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(M: int, K: int, N: int) -> GemmPlan:
+    """The dense bf16 kernel's launch: the split of ``bf16_split`` on the
+    grid of ``tile_grid``, the splits launched as ``bf16_split_blocks``
+    says."""
+    ks, sps = bf16_split(K, N)
+    wg, (cols, tiles, _) = tile_grid(M, N, ks)
+    return GemmPlan(ks, sps, wg, (cols, tiles, bf16_split_blocks(M, K, N, wg, cols, tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_batched_plan(G: int, M: int, K: int, N: int) -> GemmPlan:
+    """The head-batched bf16 kernel's launch: the dense plan's split and
+    warpgroups for one head, every split of a head in one block (the heads
+    fill the card), and the grid (column blocks, row tiles, heads)."""
+    if G <= 0 or G > 65535:
+        raise ValueError(f"bf16_gemm_batched takes 1 to 65535 heads, not {G}")
+    ks, sps, wg, (cols, tiles, _) = bf16_plan(M, K, N)
+    return GemmPlan(ks, sps, wg, (cols, tiles, G))
 
 
 # ---------------------------------------------------------------------------
@@ -175,12 +267,32 @@ def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
     return out.to(out_dtype or x.dtype)
 
 
-def _check_bf16(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
+def _check_bf16(what: str, x: torch.Tensor, w: torch.Tensor, out_dtype, *tables) -> None:
+    """What the bf16 kernels ask of their call: bf16 x and weights, bf16 or
+    fp32 out, every operand on x's CUDA device, the weight on a 16-byte
+    boundary (TMA copies it; x is copied there by ``aligned16``)."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"{what} takes bf16 activations and bf16 weights, "
                         f"not {x.dtype} and {w.dtype}")
-    if w.data_ptr() % 8:
-        raise ValueError(f"{what} needs the weight on an 8-byte boundary")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} writes bf16 or fp32, not {out_dtype}")
+    if not all(t.is_cuda and t.device == x.device for t in (w, *tables)):
+        raise ValueError(f"{what} operands must be on one CUDA device")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{what} needs the weight on a 16-byte boundary")
+
+
+_DENSE_BF16_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+
+
+def _split_buffers(device, plan: GemmPlan, rows: int, N: int) -> tuple:
+    """(planes, counters) of a launch whose K splits run as blocks; (None,
+    None) otherwise."""
+    cols, tiles, blocks = plan.grid
+    if blocks == 1:
+        return None, None
+    return (_build.scratch(device, blocks * rows * N),
+            _build.tile_counters(device, cols * tiles))
 
 
 def _dense_matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype,
@@ -189,21 +301,15 @@ def _dense_matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype,
     N = w.shape[0] if transposed else w.shape[1]
     if w.dim() != 2 or (w.shape[1] if transposed else w.shape[0]) != K:
         raise ValueError(f"weight {tuple(w.shape)} does not match K={K}")
-    if transposed and K % 4:
-        raise ValueError(f"bf16_gemm over a transposed weight needs K % 4 == 0 (K={K})")
-    x, w = x.contiguous(), w.contiguous()
-    _check_bf16("bf16_gemm", x, w)
-    check_gemm_out("bf16_gemm", x, N, out_dtype, w)
+    plan = bf16_plan(M, K, N)
+    x, w = aligned16(x), w.contiguous()
+    _check_bf16("bf16_gemm", x, w, out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ks = chunk_ksplit(-(-K // CHUNK), N)
-    work = (torch.empty((ks, M, N), dtype=torch.float32, device=x.device)
-            if ks > 1 else None)
-    lib = _build.library("grouped_gemm")
-    fn = lib.bf16_gemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), _build.ptr(work), M, K, N,
-             int(transposed), int(out_dtype == torch.float32), ks,
-             _build.stream_of(x))
+    work, count = _split_buffers(x.device, plan, M, N)
+    lib, fn = _build.function("grouped_gemm", "bf16_gemm", _DENSE_BF16_ARGS)
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), _build.ptr(work), _build.ptr(count),
+             M, K, N, int(transposed), int(out_dtype == torch.float32), plan.grid[2],
+             plan.stages_per_split, plan.warpgroups, _build.stream_of(x))
     _build.check(lib, err, "bf16_gemm")
     dense_matmul.launches += 1
     return out
@@ -237,24 +343,23 @@ def dense_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor,
     return out.to(out_dtype or x.dtype)
 
 
+_BATCHED_BF16_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+
+
 def _dense_matmul_batched_cuda(x: torch.Tensor, w: torch.Tensor,
                                out_dtype) -> torch.Tensor:
     G, M, K = x.shape
     if w.dim() != 3 or w.shape[0] != G or w.shape[1] != K:
         raise ValueError(f"weights {tuple(w.shape)} do not match x {tuple(x.shape)}")
     N = w.shape[2]
-    if K > 8 * CHUNK or G > 65535:
-        raise ValueError(f"bf16_gemm_batched takes K <= {8 * CHUNK} (no K split) "
-                         f"and G <= 65535, not K={K} G={G}")
-    x, w = x.contiguous(), w.contiguous()
-    _check_bf16("bf16_gemm_batched", x, w)
-    check_gemm_out("bf16_gemm_batched", x, N, out_dtype, w)
+    plan = bf16_batched_plan(G, M, K, N)
+    x, w = aligned16(x), w.contiguous()
+    _check_bf16("bf16_gemm_batched", x, w, out_dtype)
     out = torch.empty((G, M, N), dtype=out_dtype, device=x.device)
-    lib = _build.library("grouped_gemm")
-    fn = lib.bf16_gemm_batched
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib, fn = _build.function("grouped_gemm", "bf16_gemm_batched", _BATCHED_BF16_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, K, N,
-             int(out_dtype == torch.float32), _build.stream_of(x))
+             int(out_dtype == torch.float32), plan.stages_per_split, plan.warpgroups,
+             _build.stream_of(x))
     _build.check(lib, err, "bf16_gemm_batched")
     dense_matmul_batched.launches += 1
     return out
@@ -324,25 +429,25 @@ def _block_tables(name: str, x, block_expert, n_used, block_rows) -> list:
     return tables
 
 
-_GROUPED_BF16_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_GROUPED_BF16_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
-def _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows):
-    _, K, N = w.shape
+def _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows, n_pairs):
+    """One launch of the grouped bf16 kernel on its bounded plan."""
+    X, K, N = w.shape
     R = x.shape[0]
     if x.shape[1] != K:
         raise ValueError(f"expert weights {tuple(w.shape)} do not match K={x.shape[1]}")
-    x, w = x.contiguous(), w.contiguous()
-    _check_bf16("grouped_gemm", x, w)
     tables = _block_tables("grouped_gemm", x, block_expert, n_used, block_rows)
-    check_gemm_out("grouped_gemm", x, N, x.dtype, w, *tables)
-    ks = chunk_ksplit(-(-K // CHUNK), N)
+    plan = grouped_bf16_plan(R, K, N, X, n_pairs)
+    x, w = aligned16(x), w.contiguous()
+    _check_bf16("grouped_gemm", x, w, x.dtype, *tables)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
-    work = (torch.empty((ks, R, N), dtype=torch.float32, device=x.device)
-            if ks > 1 else None)
+    work, count = _split_buffers(x.device, plan, plan.grid[1] * BLOCK_M, N)
     lib, fn = _build.function("grouped_gemm", "grouped_gemm", _GROUPED_BF16_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in tables),
-             out.data_ptr(), _build.ptr(work), R, K, N, 0, ks, _build.stream_of(x))
+             out.data_ptr(), _build.ptr(work), _build.ptr(count), R, K, N, X, 0, plan.grid[2],
+             plan.stages_per_split, plan.grid[1], _build.stream_of(x))
     _build.check(lib, err, "grouped_gemm")
     grouped_matmul.launches += 1
     return out
@@ -350,16 +455,20 @@ def _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows):
 
 def grouped_matmul(x: torch.Tensor, block_expert: torch.Tensor,
                    n_used: torch.Tensor, w: torch.Tensor,
-                   block_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   block_rows: Optional[torch.Tensor] = None, *,
+                   n_pairs: int) -> torch.Tensor:
     """Per-block expert GEMM: block b of x [R, K] (R = NB * BLOCK_M, rows
     grouped by expert) times w[block_expert[b]] of w [X, K, N], in x's dtype
     with fp32 sums; blocks b >= n_used give zeros.
 
     ``block_rows`` [NB] int32 (optional) says how many rows at the head of
-    each block are routed rows; the kernel then writes zeros for the row
-    tiles past them instead of multiplying their zero inputs."""
+    each block are routed rows; the kernel then writes zeros for the rows
+    past them instead of multiplying their zero inputs. ``n_pairs``: the
+    (token, expert) pairs the rows were aligned from; the kernel launches
+    only the row blocks such a routing can use (``grouped_row_bound``) and
+    zeroes the rest."""
     if x.is_cuda:
-        return _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows)
+        return _grouped_matmul_cuda(x, block_expert, n_used, w, block_rows, n_pairs)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, block_expert, n_used, w)
     raise NotImplementedError(f"grouped_matmul on {x.device}")
@@ -471,7 +580,8 @@ def routed_expert_mlp(
         if isinstance(w, dict):
             return grouped_quant_matmul(inp, block_expert, n_used, w, spec.bits,
                                         block_rows, n_pairs=T * topi.shape[1])
-        return grouped_matmul(inp, block_expert, n_used, w.to(inp.dtype), block_rows)
+        return grouped_matmul(inp, block_expert, n_used, w.to(inp.dtype), block_rows,
+                              n_pairs=T * topi.shape[1])
 
     gu = gmm(xg, wgu)  # [R, 2I]
     act = F.silu(gu[..., :I].to(torch.float32)).to(x.dtype) * gu[..., I:]

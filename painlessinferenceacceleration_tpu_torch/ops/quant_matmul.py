@@ -34,15 +34,17 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     dequantize,
 )
 
-# the CUDA-core GEMMs, the block-fp8 kernel (csrc/block_fp8_gemm.cu) and the
-# bf16 one (csrc/grouped_gemm.cu), are the last users of these three
-_COLS_PER_BLOCK = 128  # kBlockN of the CUDA-core GEMM sources (gemm_tiles.cuh)
-CHUNK = 128  # K rows a warp takes at a time in the CUDA-core GEMM sources
-_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+SMS = 132  # the H100's SMs; one tensor-core block fills an SM's shared memory
+
+# the block-fp8 kernel (K9, csrc/block_fp8_gemm.cu), the last GEMM on CUDA
+# cores, is the last user of these three
+_COLS_PER_BLOCK = 128  # kBlockN of csrc/block_fp8_gemm.cu
+CHUNK = 128  # K rows a warp takes at a time in csrc/block_fp8_gemm.cu
+_TARGET_BLOCKS = 2 * SMS  # two blocks an SM
 
 
 def chunk_ksplit(n_chunks: int, N: int) -> int:
-    """K splits of a CUDA-core GEMM whose warps walk K in ``n_chunks`` chunks:
+    """K splits of the CUDA-core GEMM whose warps walk K in ``n_chunks`` chunks:
     enough blocks to fill the card, at least 8 chunks (one per warp) in each
     split. A function of (K, N) only, so a row's sum is taken in the same
     order at every M."""
@@ -61,7 +63,6 @@ INT4_GROUPS = (32, 64, 128)  # scale groups the int4 kernels take: one ring stag
 INT8_STAGES = (128, 64, 32)  # k rows of an int8 ring stage, the largest dividing the group
 TC_COLS = 128  # weight columns of a block: the wgmma's N
 TC_WG_ROWS = 64  # token rows of one multiplying warpgroup: the wgmma's M
-_SMS = 132  # the H100's SMs; one tensor-core block fills an SM's shared memory
 _MIN_FILL = 0.8  # the share of the last wave of blocks a split count must fill
 _MIN_SPLIT_K = 512  # K rows of a split at the least
 
@@ -75,7 +76,7 @@ class GemmPlan(NamedTuple):
 
 def _fill(units: int) -> float:
     """The share of its last wave that ``units`` blocks fill on 132 SMs."""
-    return units / (-(-units // _SMS) * _SMS)
+    return units / (-(-units // SMS) * SMS)
 
 
 def split_blocks(ksplit: int, cols: int, row_tiles: int) -> int:
@@ -226,10 +227,10 @@ def int8_plan(M: int, K: int, N: int, group: int) -> GemmPlan:
 
 
 def check_gemm_out(what: str, x: torch.Tensor, N: int, out_dtype, *others) -> None:
-    """What the CUDA-core GEMMs and the W8A8 kernel ask of their call: N %
-    4 == 0 (a thread loads four adjacent weight bytes as one word), bf16 or
-    fp32 out, the
-    other operands on x's CUDA device and starting on a 4-byte boundary."""
+    """What the block-fp8 (CUDA-core) and the W8A8 kernels ask of their call:
+    N % 4 == 0 (a thread loads four adjacent weight bytes as one word), bf16
+    or fp32 out, the other operands on x's CUDA device and starting on a
+    4-byte boundary."""
     if N % 4:
         raise ValueError(f"{what} needs N % 4 == 0 (N={N})")
     if out_dtype not in (torch.bfloat16, torch.float32):

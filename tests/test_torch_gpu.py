@@ -493,13 +493,13 @@ def test_quant_act_rows_do_not_depend_on_the_batch(cuda):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (17, 4096, 8), (70, 333, 260),
+# the bf16 kernels take K and N in multiples of 8 (TMA's 16-byte rows): the
+# ragged case is off the 64 / 128 grids only
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (17, 4096, 8), (70, 328, 264),
                                    (512, 1024, 128)])
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_dense_bf16_gemm(cuda, M, K, N, out, transposed):
-    if transposed and K % 4:
-        K += 4 - K % 4
     x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
     w = (torch.randn(K, N, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
     wk = w.t().contiguous() if transposed else w
@@ -510,6 +510,91 @@ def test_dense_bf16_gemm(cuda, M, K, N, out, transposed):
     assert _rel(got, dense_matmul_plain(x, wk, out, transposed)) < tol
     # the transposed read sums in the same order
     assert torch.equal(got, dense_matmul(x, w, out))
+
+
+# (K, N, out) of the card's bf16 products: a 7B-width wqkv, Mixtral's
+# router, DeepSeek-V2-Lite's kv_a and router, the LM head in fp32
+BF16_MODEL_SHAPES = [(4096, 6144, torch.bfloat16), (4096, 8, torch.float32),
+                     (2048, 576, torch.bfloat16), (2048, 64, torch.float32),
+                     (4096, 32000, torch.float32)]
+
+
+@pytest.mark.parametrize("K,N,out", BF16_MODEL_SHAPES)
+def test_bf16_gemm_at_model_widths(cuda, K, N, out):
+    """Decode, verify and prefill widths against the plain version; the
+    transposed read (a tied head) gives the plain read's bits."""
+    x = torch.randn(512, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=cuda, device="cuda") * 0.02).to(torch.bfloat16)
+    wt = w.t().contiguous()
+    for M in (1, 17, 512):
+        got = dense_matmul(x[:M], w, out)
+        assert _rel(got, dense_matmul_plain(x[:M], w, out)) < _tol(out)
+        assert torch.equal(dense_matmul(x[:M], wt, out, transposed=True), got)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_bf16_rows_do_not_depend_on_their_place_in_the_tile(cuda, out, transposed):
+    """A row alone equals itself at the edges of the 64-row warpgroup tiles
+    and the 128-row blocks of a 4096-row call, and every prefix of that
+    call equals its rows (K = 4096 runs in 5 K splits at M = 1, launched as
+    blocks, and in one block per tile at M = 4096: the same bits)."""
+    K, N = 4096, 6144
+    x = torch.randn(4096, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=cuda, device="cuda") * 0.02).to(torch.bfloat16)
+    if transposed:
+        w = w.t().contiguous()
+    full = dense_matmul(x, w, out, transposed)
+    for r in (0, 63, 64, 127, 128, 511, 4095):
+        assert torch.equal(dense_matmul(x[r:r + 1], w, out, transposed), full[r:r + 1]), r
+    for m in (1, 8, 17, 64, 65, 136, 512):
+        assert torch.equal(dense_matmul(x[:m], w, out, transposed), full[:m]), m
+
+
+def test_bf16_gemm_raises_on_shapes_it_does_not_take(cuda):
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul_batched
+
+    def raises(exc, fn, *args, **kw):
+        counts = (dense_matmul.launches, dense_matmul_batched.launches,
+                  grouped_matmul.launches)
+        with pytest.raises(exc):
+            fn(*args, **kw)
+        assert counts == (dense_matmul.launches, dense_matmul_batched.launches,
+                          grouped_matmul.launches)
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=cuda, device="cuda").to(torch.bfloat16)
+
+    raises(ValueError, dense_matmul, bf16(4, 4100), bf16(4100, 256))  # K % 8
+    raises(ValueError, dense_matmul, bf16(4, 4096), bf16(4096, 260))  # N % 8
+    raises(ValueError, dense_matmul, bf16(4, 4100), bf16(256, 4100), transposed=True)
+    raises(ValueError, dense_matmul, bf16(4, 4096), bf16(4097 * 256)[1:4096 * 256 + 1].view(4096, 256))
+    raises(TypeError, dense_matmul, bf16(4, 256).float(), bf16(256, 256).float())
+    raises(TypeError, dense_matmul, bf16(4, 256), bf16(256, 256), torch.float16)
+    raises(ValueError, dense_matmul_batched, bf16(16, 4, 132), bf16(16, 132, 512))
+    raises(ValueError, dense_matmul_batched, bf16(16, 4, 128), bf16(16, 128, 500))
+    x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, 17, 2, 8, 512, 0.0)
+    raises(ValueError, grouped_matmul, xg, be, nu, bf16(8, 512, 1020), n_pairs=17 * 2)
+
+
+def test_batched_bf16_gemm_splits_long_k_in_one_block(cuda):
+    """Past K = 512 a head's K splits run in order in its block: the bits of
+    the dense entry, which launches them as blocks at small M."""
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
+        bf16_batched_plan,
+        dense_matmul_batched,
+        dense_matmul_batched_plain,
+    )
+
+    K, N = 2048, 128
+    assert bf16_batched_plan(4, 17, K, N).ksplit > 1
+    x = torch.randn(4, 300, K, generator=cuda, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(4, K, N, generator=cuda, device="cuda") * 0.02).to(torch.bfloat16)
+    full = dense_matmul_batched(x, w)
+    assert _rel(full, dense_matmul_batched_plain(x, w)) < 2e-2
+    for m in (1, 17):
+        assert torch.equal(dense_matmul_batched(x[:, :m].contiguous(), w), full[:, :m])
+        assert torch.equal(dense_matmul(x[2, :m].contiguous(), w[2]), full[2, :m])
 
 
 def _routed(g, T, k, X, drop=0.0):
@@ -542,7 +627,7 @@ def _quant_experts(g, X, K, N, bits, group):
 
 
 GROUPED_SHAPES = [(1, 2, 8, 512, 1024), (17, 2, 8, 4096, 512), (300, 8, 128, 768, 256),
-                  (600, 2, 8, 333, 260)]  # (T, k, X, K, N); the last is ragged
+                  (600, 2, 8, 328, 264)]  # (T, k, X, K, N); the last is ragged
 
 
 @pytest.mark.parametrize("T,k,X,K,N", GROUPED_SHAPES)
@@ -552,7 +637,7 @@ def test_grouped_gemm(cuda, T, k, X, K, N, use_rows):
     w = (torch.randn(X, K, N, generator=cuda, device="cuda") * 0.05).to(torch.bfloat16)
     rows = _block_rows(dest_tok, T) if use_rows else None
     before = grouped_matmul.launches
-    got = grouped_matmul(xg, be, nu, w, rows)
+    got = grouped_matmul(xg, be, nu, w, rows, n_pairs=T * k)
     assert grouped_matmul.launches == before + 1
     ref = grouped_matmul_plain(xg, be, nu, w)
     assert _rel(got, ref) < 2e-2
@@ -624,6 +709,39 @@ def _check_bounded_grid(g, T, k, X, K, N, bits):
 
 DECODE_ROUTINGS = [(1, 2, 8, 4096, 28672),  # Mixtral decode
                    (1, 8, 128, 2048, 1536)]  # Qwen3-30B-A3B decode
+
+
+@pytest.mark.parametrize("T,k,X,K,N", DECODE_ROUTINGS)
+def test_grouped_gemm_at_decode_launches_the_bounded_grid(cuda, T, k, X, K, N):
+    """The grouped bf16 kernel at decode: the grid bounded to the row blocks
+    the routing can use, exact zeros past them (rows there are never read),
+    the plain version's values and the dense entry's bits on each routed
+    row."""
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import grouped_bf16_plan
+
+    x, topi, xg, dest_tok, be, nu = _grouped_x(cuda, T, k, X, K, 0.0)
+    w = (torch.randn(X, K, N, generator=cuda, device="cuda") * 0.02).to(torch.bfloat16)
+    plan = grouped_bf16_plan(xg.shape[0], K, N, X, T * k)
+    bound = min(X, T * k) + 1
+    assert plan.grid[1] == bound < be.numel()
+    assert int(nu[0]) <= bound
+    before = grouped_matmul.launches
+    xg_dirty = xg.clone()
+    xg_dirty[int(nu[0]) * BLOCK_M:] = 1.0  # rows past n_used and the bound are never read
+    got = grouped_matmul(xg_dirty, be, nu, w, _block_rows(dest_tok, T), n_pairs=T * k)
+    assert grouped_matmul.launches == before + 1
+    assert not got[int(nu[0]) * BLOCK_M:].any()  # exact zeros past n_used and the bound
+    assert _rel(got, grouped_matmul_plain(xg, be, nu, w)) < 2e-2
+    # the bits of a launch over every block (a pair count that bounds nothing)
+    assert torch.equal(got, grouped_matmul(xg, be, nu, w, n_pairs=xg.shape[0]))
+    real = (dest_tok < T) & (torch.arange(dest_tok.numel(), device="cuda")
+                             < nu[0] * BLOCK_M)
+    r = real.nonzero()[:, 0]
+    assert r.numel() == T * k
+    e = be[r // BLOCK_M].long()
+    for i in range(r.numel()):
+        dense = dense_matmul(x[dest_tok[r[i]].long()][None], w[e[i]])
+        assert torch.equal(got[r[i]][None], dense)
 
 
 @pytest.mark.parametrize("T,k,X,K,N", DECODE_ROUTINGS)

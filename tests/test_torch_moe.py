@@ -209,7 +209,7 @@ def test_grouped_matmul_plain_matches_pallas():
     ref = jmm.grouped_matmul(jnp.asarray(x), jnp.asarray(be), jnp.asarray(nu),
                              jnp.asarray(w), interpret=True)
     got = tmm.grouped_matmul(torch.from_numpy(x), torch.from_numpy(be),
-                             torch.from_numpy(nu), torch.from_numpy(w))
+                             torch.from_numpy(nu), torch.from_numpy(w), n_pairs=70 * 2)
     close(got, ref, 1e-5)
     assert (t2n(got)[int(nu[0]) * tmm.BLOCK_M:] == 0).all()
     assert tmm.grouped_matmul.launches == 0  # the CPU takes the plain version
