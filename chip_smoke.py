@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py [--json PATH]
 
+(``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
+``--w8a8-only``, ``--int8-only`` and ``--attention-only`` run parts of it:
+partial runs that print no kernels line and no result line.)
+
 Phases, one line each (any failure exits non-zero and prints no result):
 
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
    (the tensor-core sources' own); ptxas's registers and spills of the
-   tensor-core GEMM kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16
-   K10) and their shared memory (a spill or a serialized wgmma fails the
-   run), and of the paged attention kernels (reported);
+   tensor-core kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10,
+   paged attention K2 / K3 / K5) and their shared memory (a spill or a
+   serialized wgmma fails the run);
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
@@ -19,13 +23,17 @@ Phases, one line each (any failure exits non-zero and prints no result):
    128x128-block fp8 at M = 1, 17, 512 and on ragged shapes; W8A8 per
    channel with int8 and e4m3 operands at M = 1, 17, 64, 512 and 4096 with
    its device time, on off-grid shapes, and its refusal of K or N off the
-   16 grid), attention, the KV kernels (the tail-window permute, the page
+   16 grid), attention (every arena and route at the 7B shapes, and
+   prefill at Mixtral-8x7B's and Ring-mini-linear-2.0's prefill shapes,
+   with its device time), the KV kernels (the tail-window permute, the page
    write-back, the row write K16 at every row kind the arenas hold, up to
    an 8 x 512 prefill, and the row move K17 over chained compaction paths);
    then the batch invariance the
    lossless check rests on (every GEMM, the norm and attention rows
    bit-identical at every width, the GEMMs up to M = 4096, an int4 and a
-   W8A8 row alone equal to itself at every place of a 4096-row call);
+   W8A8 row alone equal to itself at every place of a 4096-row call; every
+   row of a causal prefill chunk equal to the decode of its token, in the
+   three arenas; attention against its plain version at its tile edges);
 3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
    (random, from a fixed torch.Generator seed), a bf16 paged arena (page 64,
    4096 tokens), a 512-token prefill, 128 greedy AR tokens, lookahead
@@ -215,7 +223,7 @@ def phase_environment(pkg) -> dict:
                nvcc=ver, triton=has_triton, build_s=round(build_s, 3),
                tensor_core_build_s=tc_build)
     print("phase 1 environment: " + json.dumps(env))
-    print("phase 1 ptxas (tensor-core GEMM kernels): " + json.dumps(ptxas_summary(pkg)))
+    print("phase 1 ptxas (tensor-core kernels): " + json.dumps(ptxas_summary(pkg)))
     return env
 
 
@@ -241,6 +249,9 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(grouped_gemm_kernel)ILb([01])E", entry)
     if t:
         return f"{t.group(1)}<2>" + (" seq" if t.group(2) == "1" else "")
+    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E", entry)
+    if t:
+        return f"{t.group(1)}<D={t.group(2)},{('bf16', 'fp8', 'fp8_tok')[int(t.group(3))]}>"
     t = re.search(r"(w8a8_gemm_kernel)ILb([01])ELi(\d)ELb([01])E", entry)
     if t:
         return (f"{t.group(1)}<{'e4m3' if t.group(2) == '1' else 'int8'},{t.group(3)}>"
@@ -249,13 +260,12 @@ def _ptxas_label(entry: str) -> str:
 
 
 def ptxas_summary(pkg) -> dict:
-    """Registers, spills and the ptxas notes of the tensor-core GEMM kernels
-    (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10; built with -Xptxas
-    -v) and of the paged attention kernels (K2 / K3 / K5, reported only),
-    and each GEMM configuration's dynamic shared memory. Fails the run on a
-    GEMM's spill, on a wgmma that ptxas serialized, and where a GEMM
-    source's report is missing or names no GEMM kernel with its
-    registers."""
+    """Registers, spills and the ptxas notes of the tensor-core kernels
+    (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10, paged attention K2 /
+    K3 / K5; built with -Xptxas -v), and each configuration's dynamic shared
+    memory. Fails the run on a spill, on a wgmma that ptxas serialized, and
+    where a source's report is missing or names none of its kernels with
+    their registers."""
     import re
 
     b = pkg["_build"]
@@ -277,12 +287,11 @@ def ptxas_summary(pkg) -> dict:
                 notes.append(line.split("ptxas info    : ")[-1][:120])
         out[name] = dict(kernels=[k for k in kernels if "reduce" not in k["kernel"]],
                          notes=notes)
-        if "gemm" not in name:
-            continue
-        gemm = [k for k in kernels if "gemm_kernel" in k["kernel"]]
-        if not gemm or any("registers" not in k for k in gemm):
-            fail(f"{name}: no ptxas report of its GEMM kernels and their registers: "
-                 f"{kernels}")
+        main = [k for k in kernels
+                if ("attention_wgmma_kernel" if name == "paged_attention" else "gemm_kernel")
+                in k["kernel"]]
+        if not main or any("registers" not in k for k in main):
+            fail(f"{name}: no ptxas report of its kernels and their registers: {kernels}")
         if any(k.get("spill_stores", 0) or k.get("spill_loads", 0) for k in kernels):
             fail(f"{name}: ptxas reports spills: {kernels}")
         if any("serialized" in n for n in notes):
@@ -299,6 +308,10 @@ def ptxas_summary(pkg) -> dict:
     lib = b.library("grouped_gemm")
     out["smem_bytes"].update({f"bf16 warpgroups={w}": lib.bf16_gemm_smem_bytes(w)
                               for w in (1, 2)})
+    lib = b.library("paged_attention")
+    out["smem_bytes"].update({f"attention D={d} {a}": lib.paged_attention_smem_bytes(d, m)
+                              for d in (64, 128)
+                              for m, a in enumerate(("bf16", "fp8", "fp8_tok"))})
     return out
 
 
@@ -586,8 +599,10 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
     err, rel = _errs(got, plain())
     if not rel <= 2e-2:
         fail(f"paged attention {kind} {arena} {case}: rel err {rel}")
-    ms = time_ms(run)
-    plain_ms = time_ms(plain, reps=5)
+    big = Q >= 2048
+    ms = time_ms(run, reps=5 if big else 20)
+    dev_ms = graph_ms(run, reps=5 if big else 10)
+    plain_ms = time_ms(plain, reps=2 if big else 5, warmup=1)
     # yardstick: SDPA over the K/V gathered and dequantized (outside the
     # timing) with the same mask
     G = Hq // Hkv
@@ -596,7 +611,8 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
     gv = cache.gather_kv_pages(v, pt, D, vs, torch.bfloat16).repeat_interleave(G, dim=1)
     mask = ref_mod.attention_mask(ctx_t, qmask, gk.shape[2])[:, None]
     qt = q.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, gk, gv, attn_mask=mask, scale=scale))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, gk, gv, attn_mask=mask,
+                                                            scale=scale), reps=5 if big else 20)
     vis = int(mask[:, 0].sum().item()) * Hq  # visible (row, key) pairs
     # keys each request reads: its context and the step's own Q rows
     kv_rows = int((ctx_t.long() + Q).clamp(max=pt.shape[1] * ps).sum().item())
@@ -606,9 +622,11 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
         nbytes += 2 * Hkv * 4
     elif arena == "fp8_tok":
         nbytes += 2 * kv_rows * Hkv * 4
-    return _case(_attn_name(kind, arena), "paged_attention.cu", _attn_replaces(kind, arena),
-                 err, rel, ms, plain_ms, bound_ms(nbytes, 4.0 * vis * D), lib_ms,
-                 f"{case}B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} arena={arena}")
+    row = _case(_attn_name(kind, arena), "paged_attention.cu", _attn_replaces(kind, arena),
+                err, rel, ms, plain_ms, bound_ms(nbytes, 4.0 * vis * D), lib_ms,
+                f"{case}B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} arena={arena}")
+    row["device_ms"] = dev_ms  # the kernel alone (a CUDA graph)
+    return row
 
 
 def check_attention(pkg, g, kind, B, Q, Hq, Hkv, ctx, qmask, arena="bf16"):
@@ -620,6 +638,118 @@ def check_attention(pkg, g, kind, B, Q, Hq, Hkv, ctx, qmask, arena="bf16"):
     q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
     return attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs,
                          D ** -0.5, f"ctx={ctx} ")
+
+
+def attention_rows(pkg, g, cfg) -> list:
+    """Paged attention against its plain version at the 7B shapes (decode,
+    verify and prefill in each arena), with one GQA geometry, and at the
+    prefill shapes of Mixtral-8x7B (Q = 2048, 32 heads over 8) and
+    Ring-mini-linear-2.0 (Q = 4096, 16 heads over 4)."""
+    import torch
+
+    dt = pkg["device_tables"]
+    branches = torch.randint(3, cfg.vocab_size, (2, 8), generator=g, device="cuda")
+    _, _, tree, _ = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
+    tree = tree[None]  # [1, 17, 17], R=2 L=8 tree mask
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    H = cfg.num_attention_heads
+    rows = []
+    for Hkv in (H, 8):  # the model's MHA, and one GQA geometry
+        rows.append(check_attention(pkg, g, "decode", 1, 1, H, Hkv, 640, one))
+        rows.append(check_attention(pkg, g, "verify", 1, 17, H, Hkv, 768, tree))
+    for ctx in (0, 512):
+        rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None))
+    # the e4m3 arenas at the model's shapes (static scales, per-token scales)
+    for arena in ("fp8", "fp8_tok"):
+        rows.append(check_attention(pkg, g, "decode", 1, 1, H, H, 640, one, arena))
+        rows.append(check_attention(pkg, g, "verify", 1, 17, H, H, 768, tree, arena))
+        for ctx in (0, 512):
+            rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None, arena))
+    rows.append(check_attention(pkg, g, "prefill", 1, 2048, 32, 8, 0, None))  # Mixtral
+    rows.append(check_attention(pkg, g, "prefill", 1, 4096, 16, 4, 0, None))  # Ring
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _attend(pkg, arena, k, v, pt, ks, vs):
+    """attend(q, qmask or None for the causal rule, ctx) by the wrapper
+    that serves the arena, and plain(q, qmask, ctx)."""
+    pa, paged_attention_ref = pkg["paged_attention"], pkg["attention"].paged_attention_ref
+    scales = None if arena == "bf16" else (ks, vs)
+
+    def attend(q, qm, ctx):
+        D = q.shape[-1]
+        if arena == "fp8_tok":
+            return pa.paged_attention_tok(q, k, v, ks, vs, pt, ctx, D ** -0.5, qm)
+        if qm is None:
+            return pa.paged_attention_prefill(q, k, v, pt, ctx, D ** -0.5, scales)
+        return pa.paged_attention(q, k, v, pt, ctx, qm, D ** -0.5, scales)
+
+    def plain(q, qm, ctx):
+        return paged_attention_ref(q, k, v, pt, ctx, qm, q.shape[-1] ** -0.5, ks, vs)
+    return attend, plain
+
+
+def check_attention_routes(pkg, g) -> None:
+    """A token's attention is the same in every route: every row t of a
+    causal prefill chunk (Q = 129 and 512, over 0 and 333 cached keys)
+    equals, bit for bit, a Q = 1 decode of that token over ctx + t keys, in
+    the three arenas at G = 1 and 4 (8 kv heads). Fails the run otherwise."""
+    import torch
+
+    Hkv, D = 8, 128
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    n = 0
+    for arena in ("bf16", "fp8", "fp8_tok"):
+        for G in (1, 4):
+            for Q in (129, 512):
+                for ctx in (0, 333):
+                    k, v, pt, ks, vs = _arena(g, 1, ctx, Q, Hkv, D, 64, arena)
+                    attend, _ = _attend(pkg, arena, k, v, pt, ks, vs)
+                    q = torch.randn(1, Q, G * Hkv, D, generator=g,
+                                    device="cuda").to(torch.bfloat16)
+                    ctx_t = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+                    pre = attend(q, None, ctx_t)
+                    for t in range(Q):
+                        row = attend(q[:, t:t + 1].contiguous(), one, ctx_t + t)
+                        if not torch.equal(row[:, 0], pre[:, t]):
+                            fail(f"paged attention ({arena}, G={G}): row {t} of a causal "
+                                 f"prefill (Q={Q}, ctx={ctx}) differs from its decode")
+                        n += 1
+    print(f"phase 2 attention routes: {n} prefill rows (three arenas, G = 1 and 4, Q = "
+          "129 / 512, ctx 0 / 333) bit-identical to their Q = 1 decodes")
+
+
+def check_attention_tile_edges(pkg, g) -> None:
+    """The kernel against its plain version (rel <= 2e-2) where Q * G sits at
+    a tile edge (63, 64, 65: one warpgroup's rows and a second all padding;
+    127, 128, 129: one tile full or a second tile), at contexts off the page
+    grid (70 and 333 in one batch), by the mask rule and the causal rule, in
+    the three arenas. Fails the run otherwise."""
+    import torch
+
+    Hkv, D = 4, 128
+    n = 0
+    for arena in ("bf16", "fp8", "fp8_tok"):
+        for Q, G in ((63, 1), (64, 1), (65, 1), (127, 1), (128, 1), (129, 1), (16, 4),
+                     (17, 4), (32, 4), (33, 4), (16, 8), (17, 8)):
+            k, v, pt, ks, vs = _arena(g, 2, 333, Q, Hkv, D, 64, arena)
+            attend, plain = _attend(pkg, arena, k, v, pt, ks, vs)
+            ctx = torch.tensor([70, 333], dtype=torch.int32, device="cuda")
+            q = torch.randn(2, Q, G * Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
+            masks = [None]
+            if Q <= 128:
+                qm = torch.rand(2, Q, Q, generator=g, device="cuda") < 0.5
+                masks.append(qm | torch.eye(Q, dtype=torch.bool, device="cuda"))
+            for qm in masks:
+                ref_qm = qm if qm is not None else \
+                    pkg["attention"].causal_qmask(Q, "cuda")[None].expand(2, Q, Q)
+                _, rel = _errs(attend(q, qm, ctx), plain(q, ref_qm, ctx))
+                if not rel <= 2e-2:
+                    fail(f"paged attention ({arena}) at Q={Q} G={G} "
+                         f"({'causal' if qm is None else 'mask'}): rel err {rel}")
+                n += 1
+    print(f"phase 2 attention tile edges: {n} cases within rel 2e-2 of the plain version")
 
 
 def kv_permute_row(pkg, pages, ids, src, case):
@@ -912,23 +1042,7 @@ def phase_kernels(pkg, cfg) -> list:
     rows.append(check_gemm8(pkg, g, name, 9, 200, 132, torch.float32, "ragged "))
     rows += int8_rows(pkg, g, cfg)
     rows += w8a8_rows(pkg, g, cfg)
-    dt = pkg["device_tables"]
-    branches = torch.randint(3, V, (2, 8), generator=g, device="cuda")
-    _, _, tree, _ = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
-    tree = tree[None]  # [1, 17, 17], R=2 L=8 tree mask
-    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
-    H = cfg.num_attention_heads
-    for Hkv in (H, 8):  # the model's MHA, and one GQA geometry
-        rows.append(check_attention(pkg, g, "decode", 1, 1, H, Hkv, 640, one))
-        rows.append(check_attention(pkg, g, "verify", 1, 17, H, Hkv, 768, tree))
-    for ctx in (0, 512):
-        rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None))
-    # the e4m3 arenas at the model's shapes (static scales, per-token scales)
-    for arena in ("fp8", "fp8_tok"):
-        rows.append(check_attention(pkg, g, "decode", 1, 1, H, H, 640, one, arena))
-        rows.append(check_attention(pkg, g, "verify", 1, 17, H, H, 768, tree, arena))
-        for ctx in (0, 512):
-            rows.append(check_attention(pkg, g, "prefill", 1, 512, H, H, ctx, None, arena))
+    rows += attention_rows(pkg, g, cfg)
     L = cfg.num_hidden_layers
     for moves in (True, False):
         rows.append(check_kv_permute(pkg, g, L, 65, 64, HD, 1, 2, moves))
@@ -940,6 +1054,8 @@ def phase_kernels(pkg, cfg) -> list:
                                          torch.float32))
     rows += row_kernel_rows(pkg, g, cfg)
     rows.extend(check_batch_invariance(pkg, g, cfg))
+    check_attention_routes(pkg, g)
+    check_attention_tile_edges(pkg, g)
     torch.cuda.synchronize()
     for r in rows:
         print("phase 2 kernel: " + json.dumps(r))
@@ -1112,6 +1228,21 @@ def check_batch_invariance(pkg, g, cfg) -> list:
             if not (torch.equal(xq_m.view(torch.uint8), xq[:m].view(torch.uint8))
                     and torch.equal(xs_m, xs[:m])):
                 fail(f"quant_act ({mode}) rows change with the batch width (M={m})")
+    check_attention_width(pkg, g, cfg)
+    print("phase 2 batch invariance: int4_gemm (M = 1..4096 and rows 63, 64, 127, 128, "
+          "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm (also rows "
+          "0, 63, 64, 127, 128, 511, 4095 alone, bf16 / fp32 out, groups 128 / 64), "
+          "w8a8_gemm (int8, fp8; also rows 0, 63, 64, 127, 128, 511, 4095 alone, bf16 / "
+          "fp32 out), block_fp8_gemm, quant_act, rms_norm and attention rows "
+          "bit-identical at every width")
+    return []
+
+
+def check_attention_width(pkg, g, cfg) -> None:
+    """Row 0 of a 17-wide tree verify equals a Q = 1 decode of that token,
+    bit for bit, in every arena. Fails the run otherwise."""
+    import torch
+
     pa, H, D = pkg["paged_attention"], cfg.num_attention_heads, cfg.head_dim
     for arena in ("bf16", "fp8", "fp8_tok"):
         k, v, pt, ks, vs = _arena(g, 2, 700, 17, H, D, 64, arena)
@@ -1129,13 +1260,6 @@ def check_batch_invariance(pkg, g, cfg) -> list:
                                       None if ks is None else (ks, vs))
         if not torch.equal(att(qq, tree)[:, :1], att(qq[:, :1].contiguous(), one)):
             fail(f"paged_attention ({arena}) row 0 changes with the verify width")
-    print("phase 2 batch invariance: int4_gemm (M = 1..4096 and rows 63, 64, 127, 128, "
-          "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm (also rows "
-          "0, 63, 64, 127, 128, 511, 4095 alone, bf16 / fp32 out, groups 128 / 64), "
-          "w8a8_gemm (int8, fp8; also rows 0, 63, 64, 127, 128, 511, 4095 alone, bf16 / "
-          "fp32 out), block_fp8_gemm, quant_act, rms_norm and attention rows "
-          "bit-identical at every width")
-    return []
 
 
 # ---------------------------------------------------------------------------
@@ -3542,6 +3666,11 @@ def main() -> None:
                          "plain versions, K7's tile-edge checks, K12's bit identities, "
                          "the int8 quant mode and Mixtral-8x7B with int8 experts (a "
                          "partial run: prints no kernels line and no result line)")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="run only the paged attention kernel's rows against its plain "
+                         "version, its width, route and tile-edge checks, and the "
+                         "Llama-2-7B main path (a partial run: prints no kernels line "
+                         "and no result line)")
     ap.add_argument("--linear-only", action="store_true",
                     help="run only the linear-attention hybrid phases (a partial run: "
                          "prints no kernels line and no result line)")
@@ -3624,6 +3753,27 @@ def main() -> None:
             args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                                  quant_modes=quant_res, moe=moe_res,
                                                  wall_s=wall_s), indent=1))
+        return
+    if args.attention_only:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = attention_rows(pkg, g, cfg)
+        for r in rows:
+            print("phase 2 kernel: " + json.dumps(r))
+        check_attention_width(pkg, g, cfg)
+        print("phase 2 attention width: row 0 of a verify equals its decode in every arena")
+        check_attention_routes(pkg, g)
+        check_attention_tile_edges(pkg, g)
+        params = pkg["base"].init_params_quantized(
+            cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
+        main_res = phase_main_path(pkg, cfg, spec, params, extras=False)
+        main_res.pop("ar_stream")
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (attention only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
+                                                 main_path=main_res, wall_s=wall_s),
+                                            indent=1))
         return
     if args.generator_only:
         rows = row_kernel_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED), cfg)

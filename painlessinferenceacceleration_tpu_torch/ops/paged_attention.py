@@ -6,18 +6,24 @@ Pallas ``_attn_decode_kernel`` and ``_attn_verify_kernel``;
 ``_attn_prefill_kernel``; ``paged_attention_tok`` (the per-token-scale e4m3
 arena, every width) replaces ``_attn_decode_tok_kernel``
 (``painlessinferenceacceleration_tpu/ops/paged_attention.py``). All three
-launch the one kernel of ``csrc/paged_attention.cu`` in one of its arena
-modes: bf16; e4m3 with static per-(layer, kv head) scales (``kv_scales``,
-the K scale folded into the scores and the V scale into the output, as the
-Pallas wrappers fold them into q and the output); e4m3 with per-token
-scales.
+launch the one tensor-core kernel of ``csrc/paged_attention.cu`` in one of
+its arena modes: bf16; e4m3 with static per-(layer, kv head) scales
+(``kv_scales``, the K scale folded into the scores and the V scale into the
+output, as the Pallas wrappers fold them into q and the output); e4m3 with
+per-token scales. One body for every width and route: a row's bits depend
+only on the keys it sees, so a token's attention is the same in a prefill
+chunk, a decode step or a verify window.
 
 The arena arguments are one layer's views ``[n_pages, ps, Hkv*D]`` (and
 ``[n_pages, ps, Hkv]`` for per-token scales) of the stacked arenas, no
 copy. A CPU tensor takes the plain version (``ops/attention.py``, which
-dequantizes as it gathers); a CUDA tensor launches the kernel or raises.
-Each wrapper's ``launches`` counts its kernel launches and ``modes`` counts
-them by width kind (decode / verify / prefill) and arena.
+dequantizes as it gathers); a CUDA tensor launches the kernel or raises:
+the kernel takes head dims 64 and 128, pages of 64 keys (its key block)
+and G = Hq / Hkv dividing 128 (``attention_check``). Each wrapper's
+``launches`` counts its kernel launches and ``modes`` counts them by width
+kind (decode / verify / prefill) and arena. ``attention_plan`` and
+``key_blocks`` are the launch plan the kernel follows (its tiles, grid,
+heaviest-first order and key walk), kept here so the CPU tests see it.
 """
 
 from __future__ import annotations
@@ -34,9 +40,55 @@ from painlessinferenceacceleration_tpu_torch.ops.attention import (
     paged_attention_ref,
 )
 
-_ROWS_PER_BLOCK = 64  # csrc/paged_attention.cu kRows
+TILE_ROWS = 128  # csrc/paged_attention.cu kRows: query rows of a tile
+KEY_BLOCK = 64  # kKeys: keys of a block, one page
 _MODES = {"bf16": 0, "fp8": 1, "fp8_tok": 2}  # csrc/paged_attention.cu MODE
 FP8 = torch.float8_e4m3fn
+_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+AttentionPlan = collections.namedtuple("AttentionPlan", "positions n_tiles grid")
+
+
+def attention_check(Hq: int, Hkv: int, D: int, ps: int) -> None:
+    """Raise ValueError unless the kernel takes this geometry: head dim 64
+    or 128 (the wgmma operand rows), pages of KEY_BLOCK keys (a key block is
+    one page, so its TMA boxes are whole pages) and a whole number of query
+    heads per kv head dividing TILE_ROWS (a tile holds whole heads)."""
+    if D not in (64, 128):
+        raise ValueError(f"paged attention takes head dims 64 and 128, not {D}")
+    if ps != KEY_BLOCK:
+        raise ValueError(f"paged attention on the card takes pages of {KEY_BLOCK} keys, "
+                         f"not {ps}")
+    if Hkv <= 0 or Hq % Hkv or TILE_ROWS % (Hq // Hkv):
+        raise ValueError(f"paged attention needs Hq / Hkv dividing {TILE_ROWS} "
+                         f"(Hq={Hq}, Hkv={Hkv})")
+
+
+def attention_plan(B: int, Q: int, Hq: int, Hkv: int) -> AttentionPlan:
+    """The launch: tiles of TILE_ROWS rows, ``positions`` = TILE_ROWS / G
+    query positions a tile (row r -> head h * G + r / nt, position t0 +
+    r % nt, nt = min(positions, Q - t0)), grid (Hkv, B, n_tiles)."""
+    if B < 1 or Q < 1:
+        raise ValueError(f"paged attention needs B, Q >= 1 (B={B}, Q={Q})")
+    if B > 65535:
+        raise ValueError(f"paged attention takes at most 65535 requests, not {B}")
+    positions = TILE_ROWS // (Hq // Hkv)
+    n_tiles = -(-Q // positions)
+    return AttentionPlan(positions, n_tiles, (Hkv, B, n_tiles))
+
+
+def tile_of(z: int, n_tiles: int, causal: bool) -> int:
+    """The query tile block z of the grid takes: under the causal rule the
+    heaviest (last) first, so that the longest key walks start first."""
+    return n_tiles - 1 - z if causal else z
+
+
+def key_blocks(ctx: int, Q: int, t0: int, nt: int, causal: bool, P: int) -> int:
+    """Key blocks a tile of positions [t0, t0 + nt) walks, from key 0 up
+    to its last visible key (bounded by the P pages of its page table)."""
+    last = ctx + t0 + nt - 1 if causal else ctx + Q - 1
+    return min(last // KEY_BLOCK + 1, P)
 
 
 def _check_scales(arena: str, k_pages, k_scale, v_scale, Hkv: int) -> None:
@@ -62,9 +114,8 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
             or v_pages.dtype != kv_dtype:
         raise TypeError(f"paged_attention ({arena}) takes bf16 q and a "
                         f"{kv_dtype} arena, not {q.dtype}/{k_pages.dtype}")
-    if D not in (64, 128) or ps % 8 or ps > 128 or Hq % Hkv \
-            or _ROWS_PER_BLOCK % (Hq // Hkv):
-        raise ValueError(f"unsupported geometry Hq={Hq} Hkv={Hkv} D={D} ps={ps}")
+    attention_check(Hq, Hkv, D, ps)
+    plan = attention_plan(B, Q, Hq, Hkv)
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("the arena views must be contiguous")
     dev = q.device
@@ -77,14 +128,11 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
     cl = ctx_lens.to(torch.int32).contiguous()
     qm = None if causal else qmask.to(torch.uint8).contiguous()
     out = torch.empty_like(q)
-    lib = _build.library("paged_attention")
-    fn = lib.paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib, fn = _build.function("paged_attention", "paged_attention", _ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              pt.data_ptr(), cl.data_ptr(), _build.ptr(qm), _build.ptr(k_scale),
-             _build.ptr(v_scale), out.data_ptr(), B, Q, Hq, Hkv, D, ps, P,
-             float(scale), int(causal), _MODES[arena], _build.stream_of(q))
+             _build.ptr(v_scale), out.data_ptr(), B, Q, Hq, Hkv, D, n_pages, P,
+             plan.positions, float(scale), int(causal), _MODES[arena], _build.stream_of(q))
     _build.check(lib, err, "paged_attention")
     wrapper.launches += 1
     kind = "decode" if Q == 1 else ("prefill" if causal else "verify")

@@ -294,6 +294,88 @@ def test_attention_rows_do_not_depend_on_the_width(cuda, arena):
     assert torch.equal(run(q, qm)[:, :1], run(q[:, :1].contiguous(), one))
 
 
+def _any_arena(g, B, ctx, Q, Hkv, arena):
+    """(k, v, pt, ctx_t, attend) over an arena of the kind: attend(q,
+    qmask or None for the causal rule) runs the wrapper that serves it."""
+    if arena == "bf16":
+        k, v, pt, ctx_t = _arena(g, B, ctx, Q, Hkv)
+        ks = vs = None
+    else:
+        k, v, ks, vs, pt, ctx_t = _fp8_arena(g, B, ctx, Q, Hkv, arena == "fp8_tok")
+
+    def attend(q, qm, c=None):
+        c = ctx_t if c is None else c
+        sc = 128 ** -0.5
+        if arena == "fp8_tok":
+            return paged_attention_tok(q, k, v, ks, vs, pt, c, sc, qm)
+        scales = None if ks is None else (ks, vs)
+        if qm is None:
+            return paged_attention_prefill(q, k, v, pt, c, sc, scales)
+        return paged_attention(q, k, v, pt, c, qm, sc, scales)
+
+    def plain(q, qm, c=None):
+        c = ctx_t if c is None else c
+        return paged_attention_ref(q, k, v, pt, c, qm, 128 ** -0.5, ks, vs)
+    return ctx_t, attend, plain
+
+
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_attention_rows_are_the_same_in_every_route(cuda, arena, G):
+    """Row t of a causal prefill chunk (Q = 129 and 512, over 0 and 333
+    cached keys) equals, bit for bit, a Q = 1 decode of that token over
+    ctx + t keys: a token's attention does not depend on the route."""
+    Hkv = 8
+    Hq = G * Hkv
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    for Q in (129, 512):
+        for ctx in (0, 333):
+            ctx_t, attend, plain = _any_arena(cuda, 1, [ctx], Q, Hkv, arena)
+            q = torch.randn(1, Q, Hq, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+            pre = attend(q, None)
+            qm = causal_qmask(Q, "cuda")[None]
+            assert _rel(pre, plain(q, qm)) < 2e-2
+            for t in sorted({0, 1, 31, 32, 63, 64, 127, 128, Q // 2 + 5, Q - 1}):
+                row = attend(q[:, t:t + 1].contiguous(), one, ctx_t + t)
+                assert torch.equal(row[:, 0], pre[:, t]), (Q, ctx, t)
+
+
+@pytest.mark.parametrize("arena", ["bf16", "fp8_tok"])
+@pytest.mark.parametrize("Q,G", [(63, 1), (64, 1), (65, 1), (127, 1), (128, 1), (129, 1),
+                                 (16, 4), (17, 4), (32, 4), (33, 4), (16, 8), (17, 8)])
+def test_attention_at_tile_edges(cuda, arena, Q, G):
+    """The kernel against its plain version where Q * G sits at a tile edge
+    (63 / 64 / 65 rows: one warpgroup's rows, the second all padding;
+    127 / 128 / 129: one tile full, or a second tile of one position), at
+    contexts off the page grid, by the mask rule (Q <= 128) and the causal
+    rule."""
+    Hkv = 4
+    Hq = G * Hkv
+    ctx_t, attend, plain = _any_arena(cuda, 2, [70, 333], Q, Hkv, arena)
+    q = torch.randn(2, Q, Hq, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    if Q <= 128:
+        qm = _mask(cuda, 2, Q)
+        assert _rel(attend(q, qm), plain(q, qm)) < 2e-2
+    qm = causal_qmask(Q, "cuda")[None].expand(2, Q, Q)
+    assert _rel(attend(q, None), plain(q, qm)) < 2e-2
+
+
+def test_attention_refuses_what_the_kernel_does_not_take(cuda):
+    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 4, ps=16)  # pages of 16 keys
+    q = torch.randn(1, 1, 4, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="pages of 64"):
+        paged_attention(q, k, v, pt, ctx, one, 0.1)
+    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 4, D=96)
+    q = torch.randn(1, 1, 4, 96, generator=cuda, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_attention(q, k, v, pt, ctx, one, 0.1)
+    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 4)
+    q = torch.randn(1, 1, 12, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dividing 128"):  # G = 3
+        paged_attention(q, k, v, pt, ctx, one, 0.1)
+
+
 def test_gemm_and_norm_rows_do_not_depend_on_the_batch(cuda):
     x = torch.randn(512, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
     q = torch.randint(0, 256, (2048, 4096), generator=cuda, device="cuda", dtype=torch.uint8)
