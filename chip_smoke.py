@@ -83,7 +83,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    DeepSeek-V2-Lite and Ring-mini-linear-2.0 in bf16;
    Multi-head Latent Attention: the MLA attention kernel and the
    head-batched absorption GEMM against their plain versions with their
-   bit identities, DeepSeek-V2-Lite bf16 at all 27 layers (4096-token
+   bit identities (an MLA row the same at every width and in every route,
+   at the edges of its context chunks too), DeepSeek-V2-Lite bf16 at all 27 layers (4096-token
    prefill, AR and lookahead strictly lossless) and its 4 layers serving,
    K16 on both runs' latent writes;
    linear-attention hybrids: the linear-attention kernel (chunk, decode,
@@ -252,6 +253,9 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E", entry)
     if t:
         return f"{t.group(1)}<D={t.group(2)},{('bf16', 'fp8', 'fp8_tok')[int(t.group(3))]}>"
+    t = re.search(r"(mla_attention_kernel|mla_combine_kernel)", entry)
+    if t:
+        return t.group(1)
     t = re.search(r"(w8a8_gemm_kernel)ILb([01])ELi(\d)ELb([01])E", entry)
     if t:
         return (f"{t.group(1)}<{'e4m3' if t.group(2) == '1' else 'int8'},{t.group(3)}>"
@@ -262,7 +266,7 @@ def _ptxas_label(entry: str) -> str:
 def ptxas_summary(pkg) -> dict:
     """Registers, spills and the ptxas notes of the tensor-core kernels
     (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10, paged attention K2 /
-    K3 / K5; built with -Xptxas -v), and each configuration's dynamic shared
+    K3 / K5, MLA attention K13; built with -Xptxas -v), and each configuration's dynamic shared
     memory. Fails the run on a spill, on a wgmma that ptxas serialized, and
     where a source's report is missing or names none of its kernels with
     their registers."""
@@ -287,9 +291,9 @@ def ptxas_summary(pkg) -> dict:
                 notes.append(line.split("ptxas info    : ")[-1][:120])
         out[name] = dict(kernels=[k for k in kernels if "reduce" not in k["kernel"]],
                          notes=notes)
-        main = [k for k in kernels
-                if ("attention_wgmma_kernel" if name == "paged_attention" else "gemm_kernel")
-                in k["kernel"]]
+        entry = {"paged_attention": "attention_wgmma_kernel",
+                 "mla_attention": "mla_attention_kernel"}.get(name, "gemm_kernel")
+        main = [k for k in kernels if entry in k["kernel"]]
         if not main or any("registers" not in k for k in main):
             fail(f"{name}: no ptxas report of its kernels and their registers: {kernels}")
         if any(k.get("spill_stores", 0) or k.get("spill_loads", 0) for k in kernels):
@@ -312,6 +316,7 @@ def ptxas_summary(pkg) -> dict:
     out["smem_bytes"].update({f"attention D={d} {a}": lib.paged_attention_smem_bytes(d, m)
                               for d in (64, 128)
                               for m, a in enumerate(("bf16", "fp8", "fp8_tok"))})
+    out["smem_bytes"]["mla attention"] = b.library("mla_attention").mla_attention_smem_bytes()
     return out
 
 
@@ -2678,7 +2683,10 @@ def mla_row(pkg, kind, q, k, pt, ctx_t, qmask, scale, case):
     window), q and the output; the multiply-adds of the visible (row, key)
     pairs, Dk for the score and Dv for P @ V. Yardstick: SDPA over the
     pre-gathered latent K and V = its first 512 lanes (the math backend
-    takes Dk != Dv; None where no backend takes the call)."""
+    takes Dk != Dv; None where no backend takes the call). ``device_ms`` is
+    a CUDA graph of the calls (the kernel and its combine without the
+    wrapper's host time); ``workspace_bytes`` the fp32 partials or scratch
+    the call allocates (``mla_plan``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2711,9 +2719,13 @@ def mla_row(pkg, kind, q, k, pt, ctx_t, qmask, scale, case):
     vis = int(mask.sum().item()) * H  # visible (row, key) pairs
     keys = int((ctx_t.long() + Q).clamp(max=pt.shape[1] * ps).sum().item())
     nbytes = keys * Dk * 2 + q.numel() * 2 + got.numel() * 2 + pt.numel() * 4
-    return _case(f"mla_attention[{kind}]", "mla_attention.cu", f"{MLA_SRC}:33 _mla_kernel",
-                 err, rel, ms, plain_ms, bound_ms(nbytes, 2.0 * vis * (Dk + MLA_DV)),
-                 lib_ms, f"{case}B={B} Q={Q} H={H} ps={ps} ctx={ctx_t.tolist()}")
+    row = _case(f"mla_attention[{kind}]", "mla_attention.cu", f"{MLA_SRC}:33 _mla_kernel",
+                err, rel, ms, plain_ms, bound_ms(nbytes, 2.0 * vis * (Dk + MLA_DV)),
+                lib_ms, f"{case}B={B} Q={Q} H={H} ps={ps} ctx={ctx_t.tolist()}")
+    row["device_ms"] = graph_ms(run, reps=5 if big else 10)
+    plan = ma.mla_plan(B, Q, H, pt.shape[1], causal)
+    row["workspace_bytes"] = 4 * (plan.workspace_floats + plan.scratch_floats)
+    return row
 
 
 def check_mla(pkg, g, kind, H, ctx, Q, qmask=None):
@@ -2824,34 +2836,44 @@ def absorption_row(pkg, g, M, K, N, what):
 
 def check_mla_invariance(pkg, g) -> None:
     """A K13 row at Q = 1 equals the same row inside a 17-wide verify (the
-    causal mask), a 17-wide prefill (the causal flag) and a 4096-row prefill
-    (65 536 rows at 16 heads), for DeepSeek-V2-Lite's 16 heads and V3's 128;
-    an absorption product's rows are the same at M = 1, 17 and 4096. Fails
-    the run otherwise."""
+    causal mask; windows ending inside a chunk and on both sides of a chunk
+    edge), a 17-wide prefill (the causal flag), a 4096-row prefill (65 536
+    rows at 16 heads; rows on both sides of the chunk edges C and 2C) and a
+    prefill resumed at a ctx that crosses an edge, for DeepSeek-V2-Lite's 16
+    heads and V3's 128; an absorption product's rows are the same at M = 1,
+    17 and 4096. Fails the run otherwise."""
     import torch
 
     ma, mm = pkg["mla_attention"], pkg["moe_matmul"]
     mpa = ma.mla_paged_attention
+    C = ma.CHUNK_KEYS
     one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
     k, pt = mla_arena(g, 1, 4096, 17)
+    causal = torch.ones(17, 17, dtype=torch.bool, device="cuda").tril()[None]
     for H in (16, 128):
-        ctx0 = torch.tensor([4000], dtype=torch.int32, device="cuda")
-        q = torch.randn(1, 17, H, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
-        causal = torch.ones(17, 17, dtype=torch.bool, device="cuda").tril()[None]
-        wide = mpa(q, k, pt, ctx0, causal, 0.07, MLA_DV)
-        if not torch.equal(wide, mpa(q, k, pt, ctx0, None, 0.07, MLA_DV, causal=True)):
-            fail(f"mla_attention H={H}: the causal flag differs from the causal mask")
-        for t in (0, 7, 16):
-            row = mpa(q[:, t:t + 1].contiguous(), k, pt, ctx0 + t, one, 0.07, MLA_DV)
-            if not torch.equal(row, wide[:, t:t + 1]):
-                fail(f"mla_attention H={H}: row {t} changes with the verify width")
+        for c0 in (4000, 2 * C - 17, 2 * C - 16):  # last key 4016, 2C - 1, 2C
+            ctx0 = torch.tensor([c0], dtype=torch.int32, device="cuda")
+            q = torch.randn(1, 17, H, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+            wide = mpa(q, k, pt, ctx0, causal, 0.07, MLA_DV)
+            if not torch.equal(wide, mpa(q, k, pt, ctx0, None, 0.07, MLA_DV, causal=True)):
+                fail(f"mla_attention H={H} ctx={c0}: the causal flag differs from the mask")
+            for t in (0, 7, 15, 16):
+                row = mpa(q[:, t:t + 1].contiguous(), k, pt, ctx0 + t, one, 0.07, MLA_DV)
+                if not torch.equal(row, wide[:, t:t + 1]):
+                    fail(f"mla_attention H={H} ctx={c0}: row {t} changes with the verify "
+                         "width")
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     qp = torch.randn(1, 4096, 16, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
     full = mpa(qp, k, pt, zero, None, 0.07, MLA_DV, causal=True)
-    for t in (0, 63, 64, 2047, 4095):
+    for t in (0, 63, 64, C - 1, C, C + 1, 2 * C, 2047, 4095):
         row = mpa(qp[:, t:t + 1].contiguous(), k, pt, zero + t, one, 0.07, MLA_DV)
         if not torch.equal(row, full[:, t:t + 1]):
             fail(f"mla_attention: row {t} of a 4096-token prefill differs from decode")
+    c0 = C - 100  # a prefill chunk resumed across the edge at C
+    part = mpa(qp[:, c0:c0 + 300].contiguous(), k, pt, zero + c0, None, 0.07, MLA_DV,
+               causal=True)
+    if not torch.equal(part, full[:, c0:c0 + 300]):
+        fail(f"mla_attention: a prefill resumed at ctx {c0} differs from the whole prefill")
     for K, N in ((128, 512), (512, 128)):
         x = torch.randn(16, 4096, K, generator=g, device="cuda").to(torch.bfloat16)
         w = (torch.randn(16, K, N, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
@@ -2861,8 +2883,9 @@ def check_mla_invariance(pkg, g) -> None:
                                whole[:, :m]):
                 fail(f"bf16_gemm_batched K={K} N={N}: rows change with M (M={m})")
     print("phase mla invariance: mla_attention rows bit-identical at Q = 1, inside a "
-          "17-wide verify and prefill (H = 16, 128) and inside a 4096-token prefill; "
-          "the absorption products' rows bit-identical at M = 1, 17 and 4096")
+          "17-wide verify and prefill (H = 16, 128; windows ending on a chunk edge), inside "
+          "a 4096-token prefill (rows at the chunk edges) and a prefill resumed across an "
+          "edge; the absorption products' rows bit-identical at M = 1, 17 and 4096")
 
 
 def phase_mla_kernels(pkg) -> list:

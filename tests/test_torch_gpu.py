@@ -38,6 +38,7 @@ from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention_prefill,
     paged_attention_tok,
 )
+from painlessinferenceacceleration_tpu_torch.ops.mla_attention import CHUNK_KEYS
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
@@ -912,6 +913,7 @@ def test_native_linears_and_the_tied_head_run_on_the_card(cuda):
 # ---------------------------------------------------------------------------
 
 MLA_DK, MLA_DV = 576, 512  # DeepSeek's latent row: kv_lora_rank + rope, kv_lora_rank
+C = CHUNK_KEYS  # K13's context chunk: every route folds the same absolute chunks
 
 
 def _mla_arena(g, B, ctx, Q, ps=64):
@@ -929,8 +931,12 @@ def _mla_q(g, B, Q, H):
 @pytest.mark.parametrize("H", [16, 128], ids=["v2_lite", "v3"])
 @pytest.mark.parametrize("kind,Q,ctx", [("decode", 1, [640, 4096]),
                                         ("decode", 1, [63, 64, 65, 1]),
+                                        ("decode", 1, [C - 1, C, C + 1]),
+                                        ("decode", 1, [C - 40, 2 * C - 1, 2 * C, 3 * C + 1]),
                                         ("verify", 17, [4096, 70]),
-                                        ("prefill", 300, [0, 512])])
+                                        ("verify", 17, [C - 17, C - 16, C - 15]),
+                                        ("prefill", 300, [0, 512]),
+                                        ("prefill", 300, [C - 100, 2 * C - 1])])
 def test_mla_attention(cuda, H, kind, Q, ctx):
     from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
         mla_paged_attention,
@@ -955,32 +961,39 @@ def test_mla_attention(cuda, H, kind, Q, ctx):
 
 @pytest.mark.parametrize("H", [16, 128], ids=["v2_lite", "v3"])
 def test_mla_attention_rows_do_not_depend_on_the_width(cuda, H):
-    """A row at Q = 1 equals the same row inside a 17-wide causal verify, a
-    17-wide prefill (the causal flag) and a 4096-row prefill, bit for bit."""
+    """A row at Q = 1 equals the same row inside a 17-wide causal verify (a
+    window inside a chunk and windows ending on both sides of a chunk
+    edge), a 17-wide prefill (the causal flag), a 4096-row prefill (rows at
+    the chunk edges) and a prefill resumed across an edge, bit for bit."""
     from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
         mla_paged_attention,
     )
 
     k, pt, _ = _mla_arena(cuda, 1, [4096], 17)
-    ctx0 = torch.tensor([4000], dtype=torch.int32, device="cuda")
-    q = _mla_q(cuda, 1, 17, H)
-    qm = causal_qmask(17, "cuda")[None].contiguous()
-    wide = mla_paged_attention(q, k, pt, ctx0, qm, 0.05, MLA_DV)
-    pre = mla_paged_attention(q, k, pt, ctx0, None, 0.05, MLA_DV, causal=True)
-    assert torch.equal(wide, pre)
     one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
-    for t in (0, 5, 16):
-        row = mla_paged_attention(q[:, t:t + 1].contiguous(), k, pt, ctx0 + t, one, 0.05,
-                                  MLA_DV)
-        assert torch.equal(row, wide[:, t:t + 1])
+    qm = causal_qmask(17, "cuda")[None].contiguous()
+    for c0 in (4000, C - 17, C - 16, 2 * C - 17):
+        ctx0 = torch.tensor([c0], dtype=torch.int32, device="cuda")
+        q = _mla_q(cuda, 1, 17, H)
+        wide = mla_paged_attention(q, k, pt, ctx0, qm, 0.05, MLA_DV)
+        pre = mla_paged_attention(q, k, pt, ctx0, None, 0.05, MLA_DV, causal=True)
+        assert torch.equal(wide, pre)
+        for t in (0, 5, 15, 16):
+            row = mla_paged_attention(q[:, t:t + 1].contiguous(), k, pt, ctx0 + t, one, 0.05,
+                                      MLA_DV)
+            assert torch.equal(row, wide[:, t:t + 1]), (c0, t)
     if H == 16:  # 65 536 rows
         zero = torch.zeros(1, dtype=torch.int32, device="cuda")
         qp = _mla_q(cuda, 1, 4096, H)
         full = mla_paged_attention(qp, k, pt, zero, None, 0.05, MLA_DV, causal=True)
-        for t in (0, 63, 64, 1000, 4095):
+        for t in (0, 63, 64, C - 1, C, C + 1, 2 * C, 1000, 4095):
             row = mla_paged_attention(qp[:, t:t + 1].contiguous(), k, pt, zero + t, one, 0.05,
                                       MLA_DV)
-            assert torch.equal(row, full[:, t:t + 1])
+            assert torch.equal(row, full[:, t:t + 1]), t
+        c0 = 2 * C - 50  # a prefill chunk resumed across the edge at 2C
+        part = mla_paged_attention(qp[:, c0:c0 + 200].contiguous(), k, pt, zero + c0, None,
+                                   0.05, MLA_DV, causal=True)
+        assert torch.equal(part, full[:, c0:c0 + 200])
 
 
 def test_mla_absorption_rows_do_not_depend_on_m(cuda):
