@@ -25,9 +25,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
    its device time, on off-grid shapes, and its refusal of K or N off the
    16 grid), attention (every arena and route at the 7B shapes, and
    prefill at Mixtral-8x7B's and Ring-mini-linear-2.0's prefill shapes,
-   with its device time), the KV kernels (the tail-window permute, the page
-   write-back, the row write K16 at every row kind the arenas hold, up to
-   an 8 x 512 prefill, and the row move K17 over chained compaction paths);
+   with its device time), the KV kernels (the tail-window compaction, K4:
+   its general entry with 127 rows moving and none, its compaction entry,
+   K and V in one launch, at the main paths' compactions, Q = 17 one
+   branch and R = 2, the generator's Q = 64 and MLA's latent rows, with
+   the CUDA kernels a compaction launches; the page write-back, the row
+   write K16 at every row kind the arenas hold, up to an 8 x 512 prefill,
+   and the row move K17 over chained compaction paths);
    then the batch invariance the
    lossless check rests on (every GEMM, the norm and attention rows
    bit-identical at every width, the GEMMs up to M = 4096, an int4 and a
@@ -48,14 +52,15 @@ Phases, one line each (any failure exits non-zero and prints no result):
    mode against its plain version again, on the inputs of real serving
    calls kept during those runs (decode and verify at B = 8 with ragged
    contexts, batched prefill with prefix-resumed rows, K1 at M = 8 x 512,
-   the compactions' page ids, K16 on the widest and narrowest writes of
+   K4's compaction at B = 8, K16 on the widest and narrowest writes of
    each arena kind, as on phase 3's writes);
    the host-trie generator: LookaheadGenerator on the same weights and
    prompt (native trie), hier lookahead at decoding length 63 (Q = 64) and
    the same call without lookahead over 256 tokens, equal to each other and
    over 128 tokens to phase 3's AR stream; stream_generate equal to
-   generate, with K17 (move_kv_rows) on a clone of the arena held bit for
-   bit against K4 (compact_kv_tail) at every verify step; par and one modes
+   generate, with K4's compaction entry held bit for bit against K17
+   (move_kv_rows) and K4's general entry (kv_permute_pages) on clones of
+   the arenas at every verify step; par and one modes
    equal to AR; batch_generate over 4 prompts, every row equal to its solo
    stream;
    quant modes: the same B = 1 path (512-token prefill, 32 greedy tokens,
@@ -103,9 +108,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    requests equal served alone), and both kernels against their plain
    versions on serving's inputs;
 4. the launch count of every kernel and mode during phase 3, serving, the
-   generator phase (and apart from it, its K17 check: K17 has no caller on
-   any path), the quant modes and the MoE, MLA and linear-attention phases,
-   each counted from 0 (all must be > 0), the script's wall time, and the
+   generator phase (and apart from it, its compaction check: K17 and K4's
+   general entry have no caller on any path), the quant modes and the MoE,
+   MLA and linear-attention phases, each counted from 0 (all must be > 0), the script's wall time, and the
    ``kernels`` JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
@@ -163,25 +168,42 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
-    """Device time of one call: ``reps`` calls captured in a CUDA graph,
-    replayed ``replays`` times between CUDA events, so that the wrapper's
-    host time (which ``time_ms`` of back-to-back calls includes when a
-    kernel is short) drops out."""
+def paired_ms(*fns, windows: int = 5, reps: int = 40) -> list:
+    """Wall ms of a call of each of ``fns`` (CUDA events over ``reps``
+    back-to-back calls), the median of ``windows`` windows taken in turns:
+    a short kernel's wall is its wrapper's host time, which moves from
+    window to window on a shared host."""
+    import statistics
+
+    runs = [[] for _ in fns]
+    for _ in range(windows):
+        for fn, r in zip(fns, runs):
+            r.append(time_ms(fn, reps=reps))
+    return [statistics.median(r) for r in runs]
+
+
+def _capture(body):
+    """A CUDA graph of ``body()``, run once outside it first."""
     import torch
 
-    fn()
+    body()
     torch.cuda.synchronize()
     graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        fn()
+        body()
         stream.synchronize()
         with torch.cuda.graph(graph, stream=stream):
-            for _ in range(reps):
-                fn()
+            body()
+    torch.cuda.current_stream().wait_stream(stream)
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph, replays: int = 1) -> float:
+    import torch
+
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -189,9 +211,46 @@ def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (replays * reps)
+    return start.elapsed_time(end)
+
+
+def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    replayed ``replays`` times between CUDA events, so that the wrapper's
+    host time (which ``time_ms`` of back-to-back calls includes when a
+    kernel is short) drops out. The calls read the same inputs: what fits
+    the 50 MB L2 is read from it."""
+    graph = _capture(lambda: [fn() for _ in range(reps)])
+    ms = _replay_ms(graph, replays) / (replays * reps)
     del graph
     return ms
+
+
+FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+_FLUSH = []
+
+
+def cold_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one call with the L2 cold: a CUDA graph of ``reps``
+    (flush, call) pairs less a graph of ``reps`` flushes, the median of
+    ``rounds`` replays each, in turns. A flush sums a 256 MB buffer, so
+    each call reads its inputs from HBM, and the rows it wrote drain to
+    HBM in the next flush (the first graph's, not the second's)."""
+    import statistics
+
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.ones(FLUSH_BYTES // 4, device="cuda"))
+    buf = _FLUSH[0]
+    both = _capture(lambda: [(buf.sum(), fn()) for _ in range(reps)])
+    alone = _capture(lambda: [buf.sum() for _ in range(reps)])
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(_replay_ms(both))
+        b.append(_replay_ms(alone))
+    del both, alone
+    return (statistics.median(a) - statistics.median(b)) / reps
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple:
@@ -256,6 +315,9 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(mla_attention_kernel|mla_combine_kernel)", entry)
     if t:
         return t.group(1)
+    t = re.search(r"(rms_norm_kernel|kv_permute_kernel)I(\w+?)EEvN", entry)
+    if t:  # the template arguments as mangled
+        return f"{t.group(1)}<{t.group(2)}>"
     t = re.search(r"(w8a8_gemm_kernel)ILb([01])ELi(\d)ELb([01])E", entry)
     if t:
         return (f"{t.group(1)}<{'e4m3' if t.group(2) == '1' else 'int8'},{t.group(3)}>"
@@ -292,7 +354,8 @@ def ptxas_summary(pkg) -> dict:
         out[name] = dict(kernels=[k for k in kernels if "reduce" not in k["kernel"]],
                          notes=notes)
         entry = {"paged_attention": "attention_wgmma_kernel",
-                 "mla_attention": "mla_attention_kernel"}.get(name, "gemm_kernel")
+                 "mla_attention": "mla_attention_kernel", "rmsnorm": "rms_norm_kernel",
+                 "kv_permute": "kv_permute_kernel"}.get(name, "gemm_kernel")
         main = [k for k in kernels if entry in k["kernel"]]
         if not main or any("registers" not in k for k in main):
             fail(f"{name}: no ptxas report of its kernels and their registers: {kernels}")
@@ -759,7 +822,8 @@ def check_attention_tile_edges(pkg, g) -> None:
 
 def kv_permute_row(pkg, pages, ids, src, case):
     """K4 on these pages and index tables against its plain version (bit
-    for bit), timed; the device time from torch.profiler beside it."""
+    for bit), timed; the device time with the L2 cold (``cold_ms``) beside
+    it."""
     import torch
 
     ku = pkg["kv_update"]
@@ -772,7 +836,6 @@ def kv_permute_row(pkg, pages, ids, src, case):
         fail(f"kv_permute_pages differs from its plain version ({case})")
     err, rel = _errs(got, ref)
     work = pages.clone()
-    ms = time_ms(lambda: ku.kv_permute_pages(work, ids, src))
     plain_ms = time_ms(lambda: ku.kv_permute_pages_plain(work, ids, src), reps=5)
     # yardstick: one index_copy_ of the moving rows, gathered beforehand
     flat = work.view(L, -1, HD)
@@ -781,15 +844,15 @@ def kv_permute_row(pkg, pages, ids, src, case):
     mv = src != w[None]
     dst = row_of[mv]
     srcs = flat[:, row_of.gather(1, src.long())[mv]]
-    lib_ms = time_ms(lambda: flat.index_copy_(1, dst, srcs))
+    ms, lib_ms = paired_ms(lambda: ku.kv_permute_pages(work, ids, src),
+                           lambda: flat.index_copy_(1, dst, srcs))
     moved = int(mv.sum().item())
     # each moved row: its source read once, its destination written once
     nbytes = L * 2 * moved * HD * pages.element_size() + (ids.numel() + src.numel()) * 4
     row = _case("kv_permute_pages", "kv_permute.cu", f"{KVU}:144 _permute_kernel",
                 err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), lib_ms,
                 f"{case}L={L} B={B} TPP={TPP} ps={ps} HD={HD} moved_rows={moved}")
-    row["device_ms"] = device_ms_per_call(lambda: ku.kv_permute_pages(work, ids, src),
-                                          "kv_permute")
+    row["device_ms"] = cold_ms(lambda: ku.kv_permute_pages(work, ids, src))
     return row
 
 
@@ -805,6 +868,120 @@ def check_kv_permute(pkg, g, L, n_pages, ps, HD, B, TPP, moves: bool):
     else:
         src = torch.arange(W, device="cuda")[None].expand(B, W)
     return kv_permute_row(pkg, pages, ids, src.to(torch.int32).contiguous(), "")
+
+
+def kernels_per_call(fn, calls: int = 20) -> float:
+    """The CUDA kernels one call launches, eager torch ops' included, from
+    torch.profiler (kernel rows only: an operator's row is not a kernel);
+    the most of two profiled windows (a window's trace may lose events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = 0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0)) > 0)
+        best = max(best, n)
+    return best / calls
+
+
+def kv_compact_row(pkg, arenas, pt, ctx, path, ne, Q, active, case):
+    """K4's compaction entry (K and V in one launch) on these arenas and
+    the verify step's tensors against its plain version (the composed
+    route: tail_window and kv_permute_pages_plain), byte for byte over the
+    whole arenas, page 0 included; timed: wall (``paired_ms``, in turns with
+    the yardstick), device ms with the L2 cold (``cold_ms``), the CUDA kernels
+    a compaction launches (torch.profiler), the bound of the rows it moves
+    (``compaction_moves``: each read once and written once, in every arena
+    and layer, plus the indices) and, as the yardstick, index_copy_ of the
+    moving rows gathered beforehand, one call an arena."""
+    import torch
+
+    ku = pkg["kv_update"]
+    arenas = tuple(arenas)
+    got = ku.kv_compact_tail(tuple(a.clone() for a in arenas), pt, ctx, path, ne, Q, active)
+    ref = ku.kv_compact_tail_plain(tuple(a.clone() for a in arenas), pt, ctx, path, ne, Q,
+                                   active)
+    err = 0.0
+    for a, b in zip(got, ref):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            fail(f"kv_compact_tail differs from its plain version ({case})")
+        err = max(err, _errs(a.view(torch.uint8), b.view(torch.uint8))[0])
+    del got, ref
+    work = tuple(a.clone() for a in arenas)
+
+    def run():
+        return ku.kv_compact_tail(work, pt, ctx, path, ne, Q, active)
+    plain_ms = time_ms(lambda: ku.kv_compact_tail_plain(work, pt, ctx, path, ne, Q, active),
+                       reps=5)
+    kernels = kernels_per_call(run)
+    L, _, ps = arenas[0].shape[:3]
+    moves = [m for r in ku.compaction_moves(pt.cpu(), ctx.cpu(), path.cpu(), ne.cpu(), Q, ps,
+                                            None if active is None else active.cpu())
+             for m in r]
+    rbs = [a.shape[-1] * a.element_size() for a in arenas]
+    nbytes = 2 * L * len(moves) * sum(rbs) + sum(t.numel() * t.element_size()
+                                                 for t in (pt, ctx, path, ne))
+    lib_ms = None
+    if moves:
+        dst = torch.tensor([d for _, d in moves], device="cuda")
+        flat = [w.view(torch.uint8).view(L, -1, rb) for w, rb in zip(work, rbs)]
+        srcs = [f[:, [s_ for s_, _ in moves]].clone() for f in flat]
+        ms, lib_ms = paired_ms(run, lambda: [f.index_copy_(1, dst, s_)
+                                             for f, s_ in zip(flat, srcs)])
+        del srcs
+    else:
+        ms, = paired_ms(run)
+    B = path.shape[0]
+    row = _case("kv_compact_tail", "kv_permute.cu", f"{KVU}:144 _permute_kernel", err, err,
+                ms, plain_ms, bound_ms(nbytes, 0.0), lib_ms,
+                f"{case}L={L} B={B} Q={Q} row_bytes={'+'.join(map(str, rbs))} "
+                f"{str(arenas[0].dtype).split('.')[-1]} moved_rows={len(moves)}")
+    row.update(device_ms=cold_ms(run), kernels_per_call=kernels)
+    del work
+    return row
+
+
+# K4's compaction cases: (case, B, Q, rows of the batch on a one-branch path,
+# accepted edges of the others)
+COMPACTIONS = (("main path one branch ", 1, 17, 1, 0), ("R=2 L=8 ", 1, 17, 0, 8),
+               ("generator Q=64 ", 1, 64, 0, 12), ("generator Q=64 all moving ", 1, 64, 0, 62))
+
+
+def check_kv_compact(pkg, g, L, lanes, B, Q, n_identity, n_moves, case):
+    """K4's compaction entry on bf16 arenas of these row lanes (K, V) and a
+    verify step's tensors: B requests with contexts of 540-599 tokens (their
+    windows across a page edge), the first n_identity accepting 14 nodes of
+    one branch (the identity), the others n_moves nodes of a random
+    increasing path."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + Q + n_moves)
+    P = (600 + Q) // 64 + 2
+    pt = (rng.permutation(B * P) + 1).reshape(B, P).astype(np.int32)
+    ctx = rng.integers(540, 600, B).astype(np.int32)
+    path = np.zeros((B, Q - 1), np.int32)
+    ne = np.zeros(B, np.int32)
+    for b in range(B):
+        ne[b] = min(14, Q - 1) if b < n_identity else n_moves
+        path[b, : ne[b]] = (np.arange(1, ne[b] + 1) if b < n_identity else
+                            np.sort(rng.choice(np.arange(1, Q), n_moves, replace=False)))
+    arenas = [torch.randn(L, B * P + 1, 64, w, generator=g, device="cuda").to(torch.bfloat16)
+              for w in lanes]
+    dev = [torch.from_numpy(a).to("cuda") for a in (pt, ctx, path, ne)]
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    row = kv_compact_row(pkg, arenas, *dev, Q, active, case)
+    del arenas
+    return row
 
 
 def device_ms_per_call(fn, kernel_substr: str, calls: int = 20) -> float:
@@ -1019,6 +1196,23 @@ def row_kernel_rows(pkg, g, cfg) -> list:
     return rows
 
 
+def k4_rows(pkg, g, cfg) -> list:
+    """K4 against its plain versions: the general entry with 127 rows
+    moving and none; the compaction entry (K and V in one launch) at the
+    main paths' compactions (Q = 17 one branch and R = 2 L = 8, the
+    generator's Q = 64) and at DeepSeek-V2-Lite's latent rows."""
+    import torch
+
+    L, HD = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim
+    rows = [check_kv_permute(pkg, g, L, 65, 64, HD, 1, 2, moves) for moves in (True, False)]
+    for case, B, Q, n_identity, n_moves in COMPACTIONS:
+        rows.append(check_kv_compact(pkg, g, L, (HD, HD), B, Q, n_identity, n_moves, case))
+    # DeepSeek-V2-Lite's latent rows: 576-lane K, 512-lane V, 27 layers
+    rows.append(check_kv_compact(pkg, g, 27, (576, 512), 1, 17, 0, 8, "MLA R=2 L=8 "))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(pkg, cfg) -> list:
     import torch
 
@@ -1049,8 +1243,7 @@ def phase_kernels(pkg, cfg) -> list:
     rows += w8a8_rows(pkg, g, cfg)
     rows += attention_rows(pkg, g, cfg)
     L = cfg.num_hidden_layers
-    for moves in (True, False):
-        rows.append(check_kv_permute(pkg, g, L, 65, 64, HD, 1, 2, moves))
+    rows += k4_rows(pkg, g, cfg)
     Hkv = cfg.num_key_value_heads
     for B in (1, 8):
         rows.append(check_kv_write_pages(pkg, g, L, 2 * 8 * B + 1, 64, HD, B, 2,
@@ -1289,6 +1482,7 @@ class Launches:
                       "int8_gemm": pkg["quant_matmul"].int8_matmul,
                       "block_fp8_gemm": pkg["w8a8"].block_fp8_gemm,
                       "kv_permute_pages": ku.kv_permute_pages,
+                      "kv_compact_tail": ku.kv_compact_tail,
                       "kv_write_pages": ku.kv_write_pages,
                       "kv_write_rows": ku.kv_write_rows,
                       "kv_move_rows": ku.kv_move_rows}
@@ -1745,9 +1939,10 @@ class ServingCapture(LaunchHooks):
     attention at layer 0, the widest decode and verify batch of each arena
     and every prefill batch of B >= 2 (``trim`` keeps the one with the most
     rows resumed from the prefix cache, then the widest); K1 and the 8-bit
-    GEMMs at layer 0 (and the LM head), the largest M of each weight shape; K4 and K6, the page ids (and K6's
-    windows) of the widest compaction of each row width (K4: of its widest
-    compactions, the one that moves the most rows). Choosing reads
+    GEMMs at layer 0 (and the LM head), the largest M of each weight shape; K4's
+    compaction entry, the verify step's tables of its widest compactions
+    (``rows`` takes the one that moves the most rows); K6, the page ids and
+    windows of the widest compaction of each row width. Choosing reads
     shapes and pointers only, so the runs are not synchronised. The wrapped
     launches are the runs' own; ``rows`` launches afresh on the kept inputs
     after the run's counts are read."""
@@ -1769,7 +1964,7 @@ class ServingCapture(LaunchHooks):
         if not gemm8_only:
             hooks += [(pa, "_launch", self._attn_hook),
                       (qm, "_int4_matmul_cuda", self._gemm_hook),
-                      (ku, "_kv_permute_cuda", self._permute_hook),
+                      (ku, "_kv_compact_cuda", self._compact_hook),
                       (ku, "_kv_write_pages_cuda", self._write_hook)]
         self._wrap(hooks)
 
@@ -1836,16 +2031,17 @@ class ServingCapture(LaunchHooks):
         self.gemm8 = {}
         return out
 
-    def _permute_hook(self, orig):
-        def hook(pages, page_ids, src_rel):
-            B = page_ids.shape[0]
-            c = self.compact.get("permute")
+    def _compact_hook(self, orig):
+        def hook(arenas, page_tables, ctx_lens, path, n_edges, q_width, active, **kw):
+            B = path.shape[0]
+            c = self.compact.get("compact")
             if c is None or B > c["B"]:
-                c = self.compact["permute"] = dict(B=B, shape=tuple(pages.shape),
-                                                   dtype=pages.dtype, calls=[])
+                c = self.compact["compact"] = dict(
+                    B=B, shapes=[(tuple(a.shape), a.dtype) for a in arenas], calls=[])
             if B == c["B"] and len(c["calls"]) < 256:  # a few KB each
-                c["calls"].append((page_ids.clone(), src_rel.clone()))
-            return orig(pages, page_ids, src_rel)
+                c["calls"].append(tuple(self._clone(t) for t in (
+                    page_tables, ctx_lens, path, n_edges, active)) + (q_width,))
+            return orig(arenas, page_tables, ctx_lens, path, n_edges, q_width, active, **kw)
         return hook
 
     def _write_hook(self, orig):
@@ -1889,23 +2085,33 @@ class ServingCapture(LaunchHooks):
         for c in self.gemm.values():
             out.append(gemm_row(pkg, c["x"], c["q"], c["s"], c["out_dtype"], "serving "))
         g = torch.Generator(device="cuda").manual_seed(SEED)
+        ku = pkg["kv_update"]
         for key, c in self.compact.items():
-            # the serving page ids over arenas of the serving shape; the
+            # the serving tables over arenas of the serving shape; the
             # contents do not steer either kernel
+            if key == "compact":  # the call that moves the most rows
+                ps = c["shapes"][0][0][2]
+
+                def moved(call):
+                    pt, ctx, path, ne, act, q = call
+                    return sum(map(len, ku.compaction_moves(
+                        pt.cpu(), ctx.cpu(), path.cpu(), ne.cpu(), q, ps,
+                        None if act is None else act.cpu())))
+                pt, ctx, path, ne, act, q = max(c["calls"], key=moved)
+                arenas = [torch.randn(shape, generator=g, device="cuda").to(dt)
+                          for shape, dt in c["shapes"]]
+                out.append(kv_compact_row(pkg, arenas, pt, ctx, path, ne, q, act, "serving "))
+                del arenas
+                continue
             if c["dtype"] == torch.uint8:  # K6 sees byte views of the arenas
                 pages = torch.randint(0, 256, c["shape"], generator=g, device="cuda",
                                       dtype=torch.uint8)
             else:
                 pages = torch.randn(c["shape"], generator=g, device="cuda").to(c["dtype"])
-            if key == "permute":
-                ident = torch.arange(c["calls"][0][1].shape[1], device="cuda")
-                ids, src = max(c["calls"], key=lambda a: int((a[1] != ident).sum()))
-                out.append(kv_permute_row(pkg, pages, ids, src, "serving "))
-            else:
-                out.append(kv_write_row(pkg, pages, c["windows"], c["ids"], "serving "))
+            out.append(kv_write_row(pkg, pages, c["windows"], c["ids"], "serving "))
             del pages
         names = {r["name"] for r in out}
-        for need in ("kv_permute_pages", "kv_write_pages"):
+        for need in ("kv_compact_tail", "kv_write_pages"):
             if need not in names:
                 fail(f"serving made no {need} call")
         self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
@@ -1971,15 +2177,23 @@ GEN_MODE_TOKENS = 64  # par and one modes, batch_generate
 GEN_DECODING_LENGTH = 63  # verify width Q = 64
 GEN_BRANCH_LENGTH = 12
 GEN_BATCH = 4
+# kernels with no caller on any path, launched by the generator's compaction
+# check: K17 and K4's general entry
+CHECK_ONLY = ("kv_move_rows", "kv_permute_pages")
 
 
 class CompactionCheck(LaunchHooks):
-    """K17 held against K4 on a generator run's real compactions: at every
-    ``compact_kv_tail`` call on a bf16 K or V arena (one per arena and
-    verify step), a clone of the arena taken before the call gets the
-    step's accepted path by ``move_kv_rows`` (K17); then each active
-    request's live slots [0, ctx + 1 + n_edges) must hold, over all layers,
-    the bits that ``compact_kv_tail`` (K4) left."""
+    """K4's compaction entry held against K17 and against K4's general entry
+    on a generator run's real compactions: at every ``compact_kv_tail`` call
+    on the bf16 K and V arenas (one per verify step, both arenas in one
+    launch), clones of the arenas taken before the call get the step's
+    accepted path by ``move_kv_rows`` (K17), and the step's window by the
+    composed route (``tail_window``, then ``kv_permute_pages``, K4's general
+    entry, the JAX package's contract); each active request's live slots
+    [0, ctx + 1 + n_edges) must then hold, over all layers, the bits that
+    the compaction entry left (K17), and the whole arenas must equal them
+    (K4's general entry). Neither K17 nor the general entry has a caller on
+    any path: their launches here are the check's."""
 
     def __init__(self, pkg):
         super().__init__(pkg)
@@ -1992,13 +2206,15 @@ class CompactionCheck(LaunchHooks):
         import torch
 
         move_kv_rows = self.pkg["cache"].move_kv_rows
+        ku = self.pkg["kv_update"]
 
         def hook(pages, page_tables, ctx_lens, path, n_edges, q_width, active=None,
                  whole_pages=False):
-            if whole_pages or pages.dtype == torch.float8_e4m3fn:
+            arenas = pages if isinstance(pages, tuple) else (pages,)
+            if whole_pages or arenas[0].dtype == torch.float8_e4m3fn:
                 return orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active,
                             whole_pages)
-            before = pages.clone()
+            before = [a.clone() for a in arenas]
             out = orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active,
                        whole_pages)
             B, M = path.shape
@@ -2007,19 +2223,29 @@ class CompactionCheck(LaunchHooks):
             valid = i < n_edges.long()[:, None]
             if active is not None:
                 valid &= active[:, None]
-            move_kv_rows(before, page_tables, ctx + path.long(), ctx + 1 + i, valid)
-            L, row = pages.shape[0], pages.shape[-1]
-            for b in range(B):
-                if active is not None and not bool(active[b]):
-                    continue
-                n = int(ctx_lens[b]) + 1 + int(n_edges[b])
-                pt = page_tables[b].long()
-                a = pages[:, pt].reshape(L, -1, row)[:, :n]
-                m = before[:, pt].reshape(L, -1, row)[:, :n]
-                if not torch.equal(a.view(torch.uint8), m.view(torch.uint8)):
-                    fail(f"move_kv_rows (K17) differs from compact_kv_tail (K4) on a "
-                         f"generator step (ctx {n - 1 - int(n_edges[b])}, "
-                         f"{int(n_edges[b])} moves)")
+            ps = arenas[0].shape[2]
+            page_ids, src_of, base = ku.tail_window(page_tables, ctx_lens, path, n_edges,
+                                                    q_width, ps, active)
+            src_rel = (src_of - base[:, None]).clamp(0, src_of.shape[1] - 1)
+            for a, b4 in zip(arenas, before):
+                general = ku.kv_permute_pages(b4.clone(), page_ids, src_rel)
+                if not torch.equal(general.view(torch.uint8), a.view(torch.uint8)):
+                    fail("kv_permute_pages (K4's general entry) differs from kv_compact_tail "
+                         "on a generator step")
+                del general
+                move_kv_rows(b4, page_tables, ctx + path.long(), ctx + 1 + i, valid)
+                L, row = a.shape[0], a.shape[-1]
+                for b in range(B):
+                    if active is not None and not bool(active[b]):
+                        continue
+                    n = int(ctx_lens[b]) + 1 + int(n_edges[b])
+                    pt = page_tables[b].long()
+                    got = a[:, pt].reshape(L, -1, row)[:, :n]
+                    k17 = b4[:, pt].reshape(L, -1, row)[:, :n]
+                    if not torch.equal(got.view(torch.uint8), k17.view(torch.uint8)):
+                        fail(f"move_kv_rows (K17) differs from kv_compact_tail (K4) on a "
+                             f"generator step (ctx {n - 1 - int(n_edges[b])}, "
+                             f"{int(n_edges[b])} moves)")
             self.calls += 1
             self.moves += int(n_edges.sum())
             del before
@@ -2039,10 +2265,11 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
     length 63, branch 12, 256 tokens) and the same call without lookahead,
     strictly equal to each other and, over 128 tokens, to phase 3's AR
     stream; stream_generate (a fresh trie: the hier run's drafts again)
-    yields the same tokens with K17 held against K4 on every verify step;
-    par and one modes equal to AR over 64 tokens; batch_generate over 4
-    prompts, every row equal to its solo AR stream. K17's launches are
-    this check's, counted apart from the path's."""
+    yields the same tokens with K4's compaction entry held against K17 and
+    K4's general entry on every verify step; par and one modes equal to AR
+    over 64 tokens; batch_generate over 4 prompts, every row equal to its
+    solo AR stream. K17's and the general entry's launches are this check's,
+    counted apart from the path's."""
     import numpy as np
     import torch
 
@@ -2089,7 +2316,8 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
     res["equals_phase3_ar_128"] = (la.sequences[:n_ar] == ar_stream[:n_ar]
                                    and ar.sequences[:n_ar] == ar_stream[:n_ar])
 
-    # stream_generate on a fresh trie, K17 held against K4 at every verify step
+    # stream_generate on a fresh trie, K4's compaction entry held against K17
+    # and K4's general entry at every verify step
     check = CompactionCheck(pkg)
     check.install()
     launches.reset()
@@ -2100,7 +2328,7 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
         check.remove()
     check_counts = launches.read()
     res["stream_equals_generate"] = pieces == la.sequences
-    res["k17_check"] = dict(compactions=check.calls, moves=check.moves)
+    res["compaction_check"] = dict(compactions=check.calls, moves=check.moves)
 
     # par and one modes, and the batch
     gen = generator(GEN_BATCH)
@@ -2126,11 +2354,12 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
                         tok_s=sum(len(o.sequences) for o in batch) / batch_s,
                         mean_edls=float(np.mean([e for o in batch for e in o.edls[1:]])),
                         rows_equal_solo=[o.sequences == s_ for o, s_ in zip(batch, solo)])
-    # the stream run's launches are the path's, but for K17's (the check's)
-    k17 = check_counts.pop("kv_move_rows")
+    # the stream run's launches are the path's, but for K17's and K4's general
+    # entry's (the check's)
+    checked = {k: check_counts.pop(k) for k in CHECK_ONLY}
     res["launches"] = {k: v + check_counts.get(k, 0) for k, v in path_counts.items()}
-    res["launches"]["kv_move_rows"] = 0
-    res["k17_check_launches"] = dict({k: 0 for k in path_counts}, kv_move_rows=k17)
+    res["launches"].update({k: 0 for k in CHECK_ONLY})
+    res["check_launches"] = dict({k: 0 for k in path_counts}, **checked)
     print("phase generator: " + json.dumps(res))
     if not (res["lookahead_equals_ar"] and res["equals_phase3_ar_128"]):
         fail("generator: hier lookahead, the generator's AR and phase 3's AR stream differ")
@@ -2142,8 +2371,8 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
         fail(f"generator: batch rows differ from their solo streams "
              f"{res['batch']['rows_equal_solo']}")
     if check.calls <= 0 or check.moves <= 0:
-        fail("generator: the K17 check saw no compaction that moved a row")
-    need = ("kv_write_rows", "kv_permute_pages", "int4_gemm", "paged_attention[verify]",
+        fail("generator: the compaction check saw no compaction that moved a row")
+    need = ("kv_write_rows", "kv_compact_tail", "int4_gemm", "paged_attention[verify]",
             "paged_attention[decode]", "paged_attention_prefill")
     if any(res["launches"][k] <= 0 for k in need):
         fail(f"generator: launches {res['launches']} (needed {need})")
@@ -2954,7 +3183,7 @@ def phase_mla(pkg) -> dict:
                weights_gb=weights_gb)
     add(res["launches"])
     need = ("mla_attention[decode]", "mla_attention[verify]", "mla_attention[prefill]",
-            "batched_bf16_gemm", "grouped_gemm", "dense_bf16_gemm", "kv_permute_pages")
+            "batched_bf16_gemm", "grouped_gemm", "dense_bf16_gemm", "kv_compact_tail")
     if any(res["launches"][k] <= 0 for k in need) or any(
             v for k, v in res["launches"].items() if k.startswith("paged_attention")):
         fail(f"{label}: launches {res['launches']} (needed {need}, no paged_attention)")
@@ -3170,51 +3399,55 @@ def norm_row(pkg, kind, x, w, gate, groups, case):
     """K15 on these rows against its fp64-summed plain version, timed: bf16
     within one bf16 ulp of the largest value (2^-7 relative; a value next
     to a rounding boundary may round the other way after the fp32 sum in
-    another order), fp32 within 5e-7. Yardstick: torch's rms_norm for the
-    plain kind where the installed torch has it, none for the grouped and
-    gated kinds (no one call computes them)."""
+    another order), fp32 within 5e-7. Wall ms by ``paired_ms``, in turns
+    with the yardstick, torch's rms_norm, for the plain kind where the
+    installed torch has it (none for the grouped and gated kinds: no one
+    call computes them); device ms with the L2 cold (``cold_ms``)."""
     import torch
     import torch.nn.functional as F
 
     rn = pkg["rmsnorm"]
     eps = 1e-6
     width = x.shape[-1]
+    library = None
     if kind == "plain":
         def run():
             return rn.rms_norm(x, w, eps)
 
         def plain():
             return rn.rms_norm_plain(x, w, eps)
-        lib = (library_ms(lambda: F.rms_norm(x, (width,), w, eps))
-               if hasattr(F, "rms_norm") else None)
+        if hasattr(F, "rms_norm"):
+            def library():
+                return F.rms_norm(x, (width,), w, eps)
     elif kind == "grouped":
         def run():
             return rn.rms_group_norm(x, w, eps, groups)
 
         def plain():
             return rn.rms_group_norm_plain(x, w, eps, groups)
-        lib = None
     else:
         def run():
             return rn.rms_group_norm_sigmoid(x, gate, w, eps, groups)
 
         def plain():
             return rn.rms_group_norm_sigmoid_plain(x, gate, w, eps, groups)
-        lib = None
     got = run()
     err, rel = _errs(got, plain())
     tol = 2 ** -7 if x.dtype == torch.bfloat16 else 5e-7
     if not rel <= tol:
         fail(f"rms_norm[{kind}] {case}: rel err {rel} > {tol}")
-    ms = time_ms(run)
+    # the wall in turns with the yardstick (both are the host's at small rows)
+    ms, lib = paired_ms(run, library) if library else (paired_ms(run)[0], None)
     plain_ms = time_ms(plain, reps=5)
     n = x.numel()
     nbytes = (2 + (gate is not None)) * n * x.element_size() + w.numel() * w.element_size()
     rows = n // width
-    return _case(f"rms_norm[{kind}]", "rmsnorm.cu", f"{NORM_SRC}:85 _rmsnorm_kernel", err,
-                 rel, ms, plain_ms, bound_ms(nbytes, 4.0 * n, FP32_FLOPS), lib,
-                 f"{case}rows={rows} width={width} groups={groups} "
-                 f"dtype={str(x.dtype).split('.')[-1]}")
+    row = _case(f"rms_norm[{kind}]", "rmsnorm.cu", f"{NORM_SRC}:85 _rmsnorm_kernel", err,
+                rel, ms, plain_ms, bound_ms(nbytes, 4.0 * n, FP32_FLOPS), lib,
+                f"{case}rows={rows} width={width} groups={groups} "
+                f"dtype={str(x.dtype).split('.')[-1]}")
+    row["device_ms"] = cold_ms(run)  # the kernel without the wrapper's host time
+    return row
 
 
 def check_norm(pkg, g, kind, rows, width, groups, case="", stride=None):
@@ -3569,7 +3802,7 @@ def phase_linear(pkg) -> dict:
     need = ("linear_attention[chunk]", "linear_attention[decode]", "linear_attention[tree]",
             "linear_attention[commit]", "rms_norm[plain]", "rms_norm[gated]",
             "paged_attention[decode]", "paged_attention[verify]", "paged_attention_prefill",
-            "grouped_gemm", "kv_permute_pages")
+            "grouped_gemm", "kv_compact_tail")
     if any(lc[k] <= 0 for k in need):
         fail(f"{label}: launches {lc} (needed {need})")
     if res["spec_vs_ar_first_divergence"] != res["spec_vs_ar_compared"]:
@@ -3677,9 +3910,9 @@ def main() -> None:
                     help="run only the Multi-head Latent Attention phases (a partial "
                          "run: prints no kernels line and no result line)")
     ap.add_argument("--generator-only", action="store_true",
-                    help="run only K16 / K17 against their plain versions, phase 3 and "
-                         "the host-trie generator phase (a partial run: prints no "
-                         "kernels line and no result line)")
+                    help="run only the KV row kernels (K4, K16, K17) against their plain "
+                         "versions, phase 3 and the host-trie generator phase (a partial "
+                         "run: prints no kernels line and no result line)")
     ap.add_argument("--w8a8-only", action="store_true",
                     help="run only K8 (the W8A8 GEMM) against its plain version, its "
                          "tile-edge checks and the quant modes that run it (a partial "
@@ -3799,7 +4032,8 @@ def main() -> None:
                                             indent=1))
         return
     if args.generator_only:
-        rows = row_kernel_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED), cfg)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = k4_rows(pkg, g, cfg) + row_kernel_rows(pkg, g, cfg)
         for r in rows:
             print("phase 2 kernel: " + json.dumps(r))
         params = pkg["base"].init_params_quantized(
@@ -3841,7 +4075,7 @@ def main() -> None:
     print(f"linear-attention phases' wall: {time.perf_counter() - t_lin:.1f} s")
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
                     generator=gen_res["launches"],
-                    generator_k17_check=gen_res["k17_check_launches"],
+                    generator_compaction_check=gen_res["check_launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
@@ -3850,7 +4084,7 @@ def main() -> None:
         r["launches"] = launches[key]
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving, in "
-                 "the generator phase or its K17 check against K4, in the quant "
+                 "the generator phase or its compaction check, in the quant "
                  "modes, in the MoE phases, in the MLA phases or in the "
                  "linear-attention phases (launches by phase: "
                  f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")

@@ -1,74 +1,285 @@
-// In-place tail-window KV compaction for Hopper (sm_90a), over all layers.
+// Tail-window KV compaction for Hopper (sm_90a), in place over all layers
+// (K4). One device body, two entries:
+//
+// kv_permute_pages, the JAX contract (kv_permute_pages_pallas):
 //
 //   pages[l, page_ids[b, w / ps], w % ps] = win[b, l][src_rel[b, w]]
 //
-// where win[b, l] is the window as it was before the call. Replaces the
-// Pallas body _permute_kernel of
-// painlessinferenceacceleration_tpu/ops/kv_update.py; it is called once for
-// K and once for V after every verify step.
+// where win[b, l] is request b's window as it was before the call;
+//
+// kv_compact_tail, the verify step's compaction of the K and V arenas (each
+// with its own row width) in one launch: each block derives its request's
+// window from the step's own tensors, as compact_kv_tail
+// (engine/cache.py) composes it on the CPU,
+//
+//   p0 = ctx // ps,  page_ids[t] = active ? page_tables[clamp(p0 + t, 0, P-1)] : 0,
+//   node ctx + path[i] moves to slot ctx + 1 + i for i < n_edges,
+//
+// the source slot clamped to the window as src_rel is. The index tensors are
+// read as they come (int32 or int64, path and page_tables with a row
+// stride), so nothing runs on the card before the launch. Replaces the
+// Pallas body _permute_kernel of painlessinferenceacceleration_tpu/ops/
+// kv_update.py, which compact_kv_tail (JAX engine/cache.py) calls after
+// every verify step.
 //
 // What bounds it on the H100: the bytes of the rows that move, each source
-// read once and each destination written once (2 * L * moved rows of
-// Hkv*D elements), plus the indices. Rows whose source is themselves cost
-// nothing, so the identity permute of a one-branch verify step moves no row
-// bytes. One layer's window (~1 MB at 7B) does not fit shared memory, so
-// each block owns one (request, layer, 256-byte column chunk): it stages the
-// source of every moving row of its chunk with 16-byte loads, synchronises,
-// then writes those rows. When the page-table clip makes two window slots
-// name the same page, only the later slot writes it (the order in which the
-// Pallas kernel's DMAs land), so the result is defined.
+// read once and each destination written once over all layers, plus the
+// indices. A slot whose source is itself costs nothing, so the compaction of
+// a one-branch verify step (the accepted path is a prefix of the draft: the
+// identity) moves no row bytes; there the launch and one read of the
+// indices are the whole cost.
+//
+// Design. The work is sized by the moves, not the window. A block takes one
+// request (blockIdx.y) and walks units of (arena, layer, column chunk of cb
+// bytes), blockIdx.x, blockIdx.x + gridDim.x, ... First, in one round of
+// loads, it reads the request's moves and its window's page ids (for the
+// compaction, the whole page-table row into shared memory, before the
+// context length that picks the window has arrived): a request none of whose
+// moves moves a row exits there, before it touches the arena. Otherwise it
+// marks each window page that a later slot of the window also names (the
+// page-table clip near the end of a table: only the later slot writes, the
+// order in which the Pallas kernel's DMAs land), once, in shared memory, and
+// lists its moving rows (source and destination arena rows). For each unit it
+// stages the chunk of every listed source row in shared memory, one
+// cp.async.bulk copy a row completed on an mbarrier (against 16-byte loads
+// by every thread: tools/row_kernel_variants.py --variants), then writes the
+// listed destinations, so a move whose destination is a later move's source
+// reads the row as it was. At most
+// max_moves rows are staged (the path's width, Q - 1, for the compaction;
+// the window for the JAX contract); the wrapper's plan (ops/kv_update.py
+// permute_plan) picks cb so that they fit the staging budget.
+//
+// Two requests share no page but the null page 0. Where two requests' moves
+// name one row of page 0, or one reads a row of page 0 that another writes,
+// that row's contents are not defined (as in the plain version's scatter).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_common.cuh"
+
+// What a wrapper fixes for a shape of its operands (ops/kv_update.py
+// _Static mirrors it field for field); the pointers come with each call.
+struct KvPermuteStatic {
+  long long row_bytes[2];  // the arenas' rows (the second 0: one arena)
+  long long idx_stride;    // page_ids' / page_tables' row stride, elements
+  long long src_stride;    // src_rel's / path's row stride, elements
+  int idx_wide, src_wide, ctx_wide, ne_wide;  // int64 (1) or int32 (0) indices
+  int L, B, n_pages, ps, TPP;
+  int P;  // page_tables' columns (kv_compact_tail)
+  int M;  // path's columns (kv_compact_tail); the moving rows staged at most
+  int cb, grid_x;  // column chunk bytes, blocks a request
+};
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 256;  // bytes of a row per block
-constexpr int kVecs = kChunk / 16;
+using Static = KvPermuteStatic;
 
-// Window slot w is written iff its row moves and no later slot names the
-// same page. An unmoved row's bytes are already in place; an aliased page
-// keeps the later slot's rows.
-__device__ __forceinline__ bool writes_row(const int* ids, const int* srcs,
-                                           int w, int ps, int TPP) {
-  if (srcs[w] == w) return false;
-  const int t = w / ps;
-  for (int t2 = t + 1; t2 < TPP; ++t2)
-    if (ids[t2] == ids[t]) return false;
-  return true;
+constexpr int kThreads = 256;
+constexpr int kMaxTPP = 32;  // window pages
+
+struct Args {
+  Static s;
+  unsigned char* arena[2];
+  int chunks[2];  // column chunks of cb bytes a row (the last may be narrower)
+  int units0, units;  // arena 0's units (L * chunks), every arena's
+  int max_moves;
+  const void* ids;  // page_ids / page_tables
+  const void* src;  // src_rel / path
+  const void* ctx_lens;
+  const void* n_edges;
+  const unsigned char* active;  // bool [B], or null
+};
+
+// element i of an int32 (wide = 0) or int64 (wide = 1) index tensor
+__device__ __forceinline__ long long ld_index(const void* p, int wide, long long i) {
+  return wide ? __ldg(static_cast<const long long*>(p) + i)
+              : static_cast<long long>(__ldg(static_cast<const int*>(p) + i));
 }
 
-__global__ void __launch_bounds__(kThreads) kv_permute_kernel(
-    unsigned char* __restrict__ pages, const int* __restrict__ page_ids,
-    const int* __restrict__ src_rel, int n_pages, int ps, int row_bytes,
-    int TPP) {
-  extern __shared__ uint4 stage[];  // [W][kVecs], slot w holds w's source
-  const int W = TPP * ps;
-  const int b = blockIdx.z;
-  const int l = blockIdx.y;
-  const int c0 = blockIdx.x * kChunk;
-  const int nv = min(kChunk, row_bytes - c0) / 16;
-  const size_t layer_off = (size_t)l * n_pages * ps * row_bytes;
-  const int* ids = page_ids + (size_t)b * TPP;
-  const int* srcs = src_rel + (size_t)b * W;
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
-  for (int e = threadIdx.x; e < W * kVecs; e += kThreads) {
-    const int w = e / kVecs, v = e % kVecs;
-    if (v >= nv || !writes_row(ids, srcs, w, ps, TPP)) continue;
-    const int src = srcs[w];
-    const size_t row = (size_t)ids[src / ps] * ps + src % ps;
-    stage[e] = reinterpret_cast<const uint4*>(pages + layer_off +
-                                              row * row_bytes + c0)[v];
+__host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+template <bool kDerive>
+__global__ void __launch_bounds__(kThreads) kv_permute_kernel(const Args a) {
+  // dynamic: [src rows][dst rows], the request's page-table row
+  // (kv_compact_tail), then the stage
+  extern __shared__ uint4 smem[];
+  __shared__ int s_ids[kMaxTPP];
+  __shared__ int s_keep[kMaxTPP];
+  __shared__ int s_n;
+  __shared__ long long s_ctx;
+  __shared__ int s_ne, s_act;
+  __shared__ uint64_t s_bar;
+  const Static& st = a.s;
+  int* lst_src = reinterpret_cast<int*>(smem);
+  int* lst_dst = lst_src + a.max_moves;
+  int* s_pt = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) +
+                                     round16(2 * a.max_moves * 4));
+  unsigned char* stage =
+      reinterpret_cast<unsigned char*>(s_pt) + round16(kDerive ? st.P * 4 : 0);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int ps = st.ps, W = st.TPP * ps;
+
+  // 1. one round of loads: the moves and the window's pages; does a row
+  // move? (nothing of the arena is touched otherwise)
+  long long ctx = 0, base = 0, my_src = 0;
+  int any = 0;
+  if (kDerive) {
+    if (tid == 0) {
+      s_ctx = ld_index(a.ctx_lens, st.ctx_wide, b);
+      const long long ne = ld_index(a.n_edges, st.ne_wide, b);
+      s_ne = static_cast<int>(ne < 0 ? 0 : (ne > st.M ? st.M : ne));
+      s_act = a.active == nullptr ? 1 : a.active[b] != 0;
+      s_n = 0;
+    }
+    if (tid < st.M) my_src = ld_index(a.src, st.src_wide, b * st.src_stride + tid);
+    for (int j = tid; j < st.P; j += kThreads)
+      s_pt[j] = static_cast<int>(ld_index(a.ids, st.idx_wide, b * st.idx_stride + j));
+    __syncthreads();
+    ctx = s_ctx;
+    base = ctx / ps * ps;
+    for (int i = tid; i < s_ne; i += kThreads) {
+      const long long p =
+          i == tid ? my_src : ld_index(a.src, st.src_wide, b * st.src_stride + i);
+      any |= p != i + 1;
+    }
+    if (tid < st.TPP) {
+      long long pos = ctx / ps + tid;
+      pos = pos < 0 ? 0 : (pos > st.P - 1 ? st.P - 1 : pos);
+      s_ids[tid] = s_act ? s_pt[pos] : 0;
+    }
+  } else {
+    if (tid == 0) s_n = 0;
+    if (tid < st.TPP)
+      s_ids[tid] = static_cast<int>(ld_index(a.ids, st.idx_wide, b * st.idx_stride + tid));
+    for (int w = tid; w < W; w += kThreads) {
+      const long long p = ld_index(a.src, st.src_wide, b * st.src_stride + w);
+      if (w == tid) my_src = p;
+      any |= p != w;
+    }
+  }
+  if (tid == 0) {
+    piawg::mbar_init(piawg::smem_u32(&s_bar));
+    piawg::fence_mbar_init();
+  }
+  if (!__syncthreads_or(any)) return;
+
+  // 2. a window page that a later slot also names is not written
+  if (tid < st.TPP) {
+    int keep = 1;
+    for (int t2 = tid + 1; t2 < st.TPP; ++t2) keep &= s_ids[t2] != s_ids[tid];
+    s_keep[tid] = keep;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < W * kVecs; e += kThreads) {
-    const int w = e / kVecs, v = e % kVecs;
-    if (v >= nv || !writes_row(ids, srcs, w, ps, TPP)) continue;
-    const size_t row = (size_t)ids[w / ps] * ps + w % ps;
-    reinterpret_cast<uint4*>(pages + layer_off + row * row_bytes + c0)[v] =
-        stage[e];
+
+  // 3. the moving rows: (source, destination) arena rows, in any order
+  const int n_cand = kDerive ? s_ne : W;
+  for (int i = tid; i < n_cand; i += kThreads) {
+    long long wd, src;
+    const long long p =
+        i == tid ? my_src : ld_index(a.src, st.src_wide, b * st.src_stride + i);
+    if (kDerive) {
+      wd = ctx + 1 + i - base;
+      if (wd >= W) continue;  // past the window: dropped, as JAX drops it
+      src = ctx + p - base;
+    } else {
+      wd = i;
+      src = p;
+    }
+    src = src < 0 ? 0 : (src > W - 1 ? W - 1 : src);
+    if (src == wd || !s_keep[wd / ps]) continue;
+    const int k = atomicAdd(&s_n, 1);
+    lst_src[k] = s_ids[src / ps] * ps + static_cast<int>(src % ps);
+    lst_dst[k] = s_ids[wd / ps] * ps + static_cast<int>(wd % ps);
   }
+  __syncthreads();
+  const int n = s_n;
+  if (n == 0) return;
+
+  // 4. each unit: stage the chunks of the source rows, then write them
+  const uint32_t bar = piawg::smem_u32(&s_bar);
+  uint32_t phase = 0;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cv = st.cb / 16;  // 16-byte vectors a staged row
+  uint4* stv = reinterpret_cast<uint4*>(stage);
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const int ai = u >= a.units0;
+    const long long row_bytes = ai ? st.row_bytes[1] : st.row_bytes[0];
+    const int chunks = ai ? a.chunks[1] : a.chunks[0];
+    const int uu = ai ? u - a.units0 : u;
+    const int l = uu / chunks;
+    const long long c0 = static_cast<long long>(uu % chunks) * st.cb;
+    const int nb = static_cast<int>(row_bytes - c0 < st.cb ? row_bytes - c0 : st.cb);
+    const int nv = nb / 16;
+    unsigned char* layer = (ai ? a.arena[1] : a.arena[0]) +
+                           static_cast<size_t>(l) * st.n_pages * ps * row_bytes + c0;
+    const int total = n * nv;
+    if (warp == 0) {
+      piawg::fence_async_smem();
+      if (lane == 0) piawg::mbar_expect(bar, static_cast<uint32_t>(total * 16));
+      __syncwarp();
+      for (int k = lane; k < n; k += 32)
+        bulk_load(piawg::smem_u32(stage + static_cast<size_t>(k) * st.cb),
+                  layer + static_cast<size_t>(lst_src[k]) * row_bytes, nb, bar);
+    }
+    piawg::mbar_wait(bar, phase);
+    phase ^= 1;
+    for (int e = tid; e < total; e += kThreads)
+      reinterpret_cast<uint4*>(layer + static_cast<size_t>(lst_dst[e / nv]) * row_bytes)[e % nv] =
+          stv[(e / nv) * cv + e % nv];
+    __syncthreads();  // the stage is free for the next unit
+  }
+}
+
+// dynamic shared memory: the move lists, the page-table row, the stage
+size_t smem_bytes(int max_moves, int P, int cb) {
+  return static_cast<size_t>(round16(2 * max_moves * 4)) + round16(P * 4) +
+         static_cast<size_t>(max_moves) * cb;
+}
+
+template <bool kDerive>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.max_moves, kDerive ? a.s.P : 0, a.s.cb);
+  auto kernel = kv_permute_kernel<kDerive>;
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(a.s.grid_x, a.s.B), kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDerive>
+int dispatch(const Static* s, void* arena0, void* arena1, const void* ids, const void* src,
+             const void* ctx_lens, const void* n_edges, const void* active, void* stream) {
+  Args a = {};
+  a.s = *s;
+  a.arena[0] = static_cast<unsigned char*>(arena0);
+  a.arena[1] = static_cast<unsigned char*>(arena1);
+  for (int i = 0; i < 2; ++i)
+    a.chunks[i] = static_cast<int>((s->row_bytes[i] + s->cb - 1) / s->cb);
+  a.units0 = s->L * a.chunks[0];
+  a.units = a.units0 + (arena1 != nullptr ? s->L * a.chunks[1] : 0);
+  a.max_moves = kDerive ? s->M : s->TPP * s->ps;
+  a.ids = ids, a.src = src, a.ctx_lens = ctx_lens, a.n_edges = n_edges;
+  a.active = static_cast<const unsigned char*>(active);
+  if (s->TPP > kMaxTPP || s->cb <= 0 || s->cb % 16 || a.units <= 0 || s->grid_x <= 0 ||
+      (arena1 != nullptr && s->row_bytes[1] <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kDerive>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -77,24 +288,24 @@ extern "C" const char* pia_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// pages [L, n_pages, ps, row_bytes] (any element type, row_bytes % 16 == 0);
-// page_ids int32 [B, TPP]; src_rel int32 [B, TPP*ps] with values in
-// [0, TPP*ps).
-extern "C" int kv_permute_pages(void* pages, const void* page_ids,
-                                const void* src_rel, int L, int B,
-                                int n_pages, int ps, int row_bytes, int TPP,
-                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)TPP * ps * kChunk;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kv_permute_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  dim3 grid((row_bytes + kChunk - 1) / kChunk, L, B);
-  kv_permute_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<unsigned char*>(pages), static_cast<const int*>(page_ids),
-      static_cast<const int*>(src_rel), n_pages, ps, row_bytes, TPP);
-  return static_cast<int>(cudaGetLastError());
+// pages [L, n_pages, ps, row_bytes[0]] (any element type, rows of a
+// multiple of 16 bytes, 16-byte aligned); page_ids [B, TPP] and src_rel
+// [B, TPP*ps] (values in [0, TPP*ps)), int32 or int64 as s says, rows
+// idx_stride / src_stride elements apart.
+extern "C" int kv_permute_pages(const KvPermuteStatic* s, void* pages, const void* page_ids,
+                                const void* src_rel, void* stream) {
+  return dispatch<false>(s, pages, nullptr, page_ids, src_rel, nullptr, nullptr, nullptr,
+                         stream);
+}
+
+// k_pages [L, n_pages, ps, row_bytes[0]] and v_pages (may be null) [L,
+// n_pages, ps, row_bytes[1]]; page_tables [B, P], ctx_lens [B], path [B, M],
+// n_edges [B], int32 or int64 as s says, page_tables' and path's rows
+// idx_stride / src_stride elements apart; active bool [B] or null.
+extern "C" int kv_compact_tail(const KvPermuteStatic* s, void* k_pages, void* v_pages,
+                               const void* page_tables, const void* ctx_lens,
+                               const void* path, const void* n_edges, const void* active,
+                               void* stream) {
+  return dispatch<true>(s, k_pages, v_pages, page_tables, path, ctx_lens, n_edges, active,
+                        stream);
 }

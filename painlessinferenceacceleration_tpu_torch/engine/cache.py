@@ -44,10 +44,11 @@ import torch
 from painlessinferenceacceleration_tpu_torch._build import resolve_device
 from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
 from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+    kv_compact_tail,
     kv_move_rows,
-    kv_permute_pages,
     kv_write_pages,
     kv_write_rows,
+    tail_window,
 )
 
 FP8 = torch.float8_e4m3fn
@@ -245,7 +246,7 @@ def gather_kv_pages(pages: torch.Tensor, page_tables: torch.Tensor,
 
 
 def compact_kv_tail(
-    pages: torch.Tensor,  # [L, n_pages, ps, row]
+    pages,  # [L, n_pages, ps, row], or a tuple of such arenas (K, V)
     page_tables: torch.Tensor,  # [B, P]
     ctx_lens: torch.Tensor,  # [B]
     path: torch.Tensor,  # [B, M] accepted in-step node offsets
@@ -253,46 +254,32 @@ def compact_kv_tail(
     q_width: int,  # verify width Q (tail window = [ctx, ctx+Q))
     active: Optional[torch.Tensor] = None,  # [B]; inactive rows -> null page
     whole_pages: bool = False,  # scale arenas: always the page write-back
-) -> torch.Tensor:
+):
     """Lookahead KV compaction of each request's tail window, in place over
     all layers: node (ctx + path[i]) moves to slot (ctx + 1 + i) for
-    i < n_edges.
+    i < n_edges. ``pages`` is one arena or a tuple of arenas (K and V) that
+    share the tables; returns it.
 
-    A bf16/fp32 arena is permuted in place (``kv_permute_pages``). An e4m3
-    arena, and with ``whole_pages`` a per-token scale arena, takes the JAX
-    package's route for them: the window rows are gathered from their
+    bf16/fp32 arenas are permuted in place, all of them in one launch that
+    derives the windows from these tensors itself (``kv_compact_tail``). An
+    e4m3 arena, and with ``whole_pages`` a per-token scale arena, takes the
+    JAX package's route for them: the window rows are gathered from their
     sources and the window's pages written back whole (``kv_write_pages``)."""
-    B, M = path.shape
-    ps = pages.shape[2]
+    arenas = pages if isinstance(pages, tuple) else (pages,)
+    if arenas[0].dtype != FP8 and not whole_pages:
+        kv_compact_tail(arenas, page_tables, ctx_lens, path, n_edges, q_width, active)
+        return pages
+    ps = arenas[0].shape[2]
     P = page_tables.shape[1]
-    dev = pages.device
-    TPP = (q_width + ps - 1) // ps + 1  # pages overlapping the tail window
-    ctx = ctx_lens.long()
-    p0 = ctx // ps
-    page_pos = (p0[:, None] + torch.arange(TPP, device=dev)[None, :]).clamp(0, P - 1)
-    page_ids = torch.gather(page_tables.long(), 1, page_pos)
-    if active is not None:
-        page_ids = torch.where(active[:, None], page_ids, torch.zeros_like(page_ids))
-
-    # slot-source table over the window, with a sink column W for the moves
-    # that do not happen (JAX drops them with mode="drop")
-    W = TPP * ps
-    win_base = p0 * ps
-    src_of = win_base[:, None] + torch.arange(W + 1, device=dev)[None, :]
-    i = torch.arange(M, device=dev)[None, :]
-    mv = i < n_edges.long()[:, None]
-    w_idx = torch.where(mv, ctx[:, None] + 1 + i - win_base[:, None],
-                        torch.full_like(i, W).expand(B, M))
-    src_of.scatter_(1, w_idx, torch.where(mv, ctx[:, None] + path.long(), 0))
-    src_of = src_of[:, :W]
-    if pages.dtype != FP8 and not whole_pages:
-        src_rel = (src_of - win_base[:, None]).clamp(0, W - 1)
-        return kv_permute_pages(pages, page_ids, src_rel)
+    page_ids, src_of, _ = tail_window(page_tables, ctx_lens, path, n_edges, q_width, ps,
+                                      active)
     g_page = torch.gather(page_tables.long(), 1, (src_of // ps).clamp(0, P - 1))
-    raw = pages.view(torch.uint8)
-    rows = raw[:, g_page.reshape(-1), (src_of % ps).reshape(-1)]  # [L, B*W, row]
-    windows = rows.reshape(raw.shape[0], B * TPP, ps, raw.shape[-1])
-    kv_write_pages(raw, windows, page_ids.reshape(-1))
+    B, W = src_of.shape
+    for arena in arenas:
+        raw = arena.view(torch.uint8)
+        rows = raw[:, g_page.reshape(-1), (src_of % ps).reshape(-1)]  # [L, B*W, row]
+        windows = rows.reshape(raw.shape[0], B * (W // ps), ps, raw.shape[-1])
+        kv_write_pages(raw, windows, page_ids.reshape(-1))
     return pages
 
 

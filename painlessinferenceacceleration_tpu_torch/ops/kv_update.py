@@ -1,5 +1,6 @@
 """KV arena kernels: their wrappers and plain versions.
 
+K4 (``csrc/kv_permute.cu``) has two entries over one device body.
 ``kv_permute_pages`` replaces the Pallas ``_permute_kernel`` /
 ``kv_permute_pages_pallas`` (``painlessinferenceacceleration_tpu/ops/
 kv_update.py``), an in-place tail-window row permute::
@@ -9,8 +10,17 @@ kv_update.py``), an in-place tail-window row permute::
 for every layer l, where ``win`` is the window before the call. The arena
 is updated in place (JAX donates it instead). When two window slots name the
 same page (the page-table clip near the end of a table), the later slot's
-rows are the ones kept. A CPU tensor takes the plain version; a CUDA tensor
-launches ``csrc/kv_permute.cu`` or raises.
+rows are the ones kept. ``kv_compact_tail`` is the verify step's
+compaction, the route by which ``compact_kv_tail`` (``engine/cache.py``)
+reaches that body: it takes the K and V arenas together, with the step's
+page tables, context lengths, accepted path and edge counts as they come,
+and each block derives its request's window and moves from them, so the
+compaction is one launch and no other kernel (its plain version,
+``kv_compact_tail_plain``, builds the window with eager torch ops,
+``tail_window``, and permutes each arena with ``kv_permute_pages_plain``).
+``permute_plan`` is the launch's column chunk, grid and shared memory.
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
+raises.
 
 ``kv_write_pages`` replaces the Pallas ``_page_write_kernel`` /
 ``kv_write_pages_pallas``, the whole-page write-back
@@ -34,16 +44,95 @@ Both take any element type through byte views, and when two rows or two
 moves name one destination the later one is kept (inactive rows and masked
 moves all go to the null page 0).
 
-Each wrapper's ``launches`` counts its kernel launches.
+Each wrapper's ``launches`` counts its kernel launches. Every wrapper reaches
+its C entry through ``_build.function``, which sets its argument types once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from painlessinferenceacceleration_tpu_torch import _build
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_WIDE = {torch.int32: 0, torch.int64: 1}  # index tensors K4 reads as they come
+
+# K4's staging: the moving rows' chunks of one unit a block holds in shared
+# memory, and the blocks launched over all requests (a block walks several
+# units when a request has more). tools/row_kernel_variants.py --variants
+# times the alternatives.
+STAGE_BYTES = 32 * 1024
+GRID_BLOCKS = 528
+
+
+class PermutePlan(NamedTuple):
+    cb: int  # column chunk of a unit, bytes (a multiple of 16)
+    units: int  # (arena, layer, chunk) units a request
+    grid: tuple  # (blocks a request, requests)
+    smem: int  # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def permute_plan(row_bytes: tuple, L: int, max_moves: int, B: int, P: int = 0) -> PermutePlan:
+    """K4's launch for arenas of these row widths (bytes), L layers, at
+    most ``max_moves`` moving rows a request and page tables of P columns
+    (0 for ``kv_permute_pages``, which takes the window's pages): the widest
+    power-of-two chunk (16 bytes at least, no wider than the widest row
+    needs) whose ``max_moves`` staged rows fit ``STAGE_BYTES``; one unit
+    per (arena, layer, chunk); ``GRID_BLOCKS`` blocks in all, shared by the
+    B requests, no more than a request has units; shared memory for the
+    two move lists, the page-table row and the stage. Raises where 16-byte
+    chunks of ``max_moves`` rows do not fit."""
+    n = max(max_moves, 1)
+    if 16 * n > STAGE_BYTES:
+        raise ValueError(f"kv_permute: {max_moves} moving rows do not fit the "
+                         f"{STAGE_BYTES}-byte stage")
+    cb = 16
+    while cb < max(row_bytes) and 2 * cb * n <= STAGE_BYTES:
+        cb *= 2
+    units = sum(L * -(-rb // cb) for rb in row_bytes)
+    blocks = max(1, min(units, -(-GRID_BLOCKS // B)))
+    smem = (2 * max_moves * 4 + 15) // 16 * 16 + (P * 4 + 15) // 16 * 16 + max_moves * cb
+    return PermutePlan(cb, units, (blocks, B), smem)
+
+
+def compaction_moves(page_tables, ctx_lens, path, n_edges, q_width: int, ps: int,
+                     active=None) -> list:
+    """The rows ``kv_compact_tail``'s kernel moves, in plain Python (steps
+    1-3 of ``csrc/kv_permute.cu``; host lists or CPU tensors in): for each
+    request, its (source, destination) arena rows (page * ps + row), empty
+    where no move moves a row. The window's pages from ctx // ps, clipped
+    to the table (the null page for an inactive row); a slot whose page a
+    later window slot also names is not written; each source is clamped to
+    the window. The test oracle of the kernel's move lists, and the count
+    of moved bytes in its bound."""
+    pt, ctx, path, ne = (t.tolist() if hasattr(t, "tolist") else t
+                         for t in (page_tables, ctx_lens, path, n_edges))
+    act = [True] * len(ctx) if active is None else [bool(a) for a in active]
+    TPP = window_pages(ps, q_width)
+    W = TPP * ps
+    out = []
+    for b, c in enumerate(ctx):
+        n_e = min(max(ne[b], 0), len(path[b]))
+        if all(path[b][i] == i + 1 for i in range(n_e)):
+            out.append([])  # the block exits before it reads the page table
+            continue
+        base = c // ps * ps
+        ids = [pt[b][min(max(c // ps + t, 0), len(pt[b]) - 1)] if act[b] else 0
+               for t in range(TPP)]
+        keep = [all(ids[u] != ids[t] for u in range(t + 1, TPP)) for t in range(TPP)]
+        moves = []
+        for i in range(n_e):
+            wd = c + 1 + i - base
+            src = min(max(c + path[b][i] - base, 0), W - 1)
+            if wd < W and src != wd and keep[wd // ps]:
+                moves.append((ids[src // ps] * ps + src % ps, ids[wd // ps] * ps + wd % ps))
+        out.append(moves)
+    return out
 
 
 def kv_permute_pages_plain(pages: torch.Tensor, page_ids: torch.Tensor,
@@ -59,27 +148,73 @@ def kv_permute_pages_plain(pages: torch.Tensor, page_ids: torch.Tensor,
     return pages
 
 
-def _kv_permute_cuda(pages, page_ids, src_rel):
-    L, n_pages, ps, HD = pages.shape
+class _Static(ctypes.Structure):
+    """What a K4 launch fixes for a shape of its operands
+    (``KvPermuteStatic`` of ``csrc/kv_permute.cu``, field for field): built
+    and checked once a shape, so a call converts its pointers only."""
+    _fields_ = [("row_bytes", _LL * 2), ("idx_stride", _LL), ("src_stride", _LL),
+                ("idx_wide", _I), ("src_wide", _I), ("ctx_wide", _I), ("ne_wide", _I),
+                ("L", _I), ("B", _I), ("n_pages", _I), ("ps", _I), ("TPP", _I), ("P", _I),
+                ("M", _I), ("cb", _I), ("grid_x", _I)]
+
+
+# operands' shapes, types, strides and devices -> (_Static, its address)
+_STATICS = {}
+
+
+def _arena_rows(pages: torch.Tensor, what: str) -> int:
+    """Row bytes of a contiguous arena on the card."""
+    row_bytes = pages.shape[-1] * pages.element_size()
+    if pages.dim() != 4 or not pages.is_contiguous() or row_bytes % 16:
+        raise ValueError(f"{what} needs contiguous [L, n_pages, ps, row] arenas with "
+                         f"16-byte-multiple rows, got {tuple(pages.shape)} {pages.dtype}")
+    return row_bytes
+
+
+def _index(t: torch.Tensor, dev: torch.device, what: str) -> int:
+    """K4's element-width flag of an index tensor on ``dev`` whose last axis
+    is contiguous."""
+    wide = _WIDE.get(t.dtype)
+    if wide is None or t.device != dev or (t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1):
+        raise ValueError(f"{what}: int32 / int64 indices on {dev} with a contiguous last "
+                         f"axis, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return wide
+
+
+def _aligned(*ptrs: int) -> None:
+    if any(p % 16 for p in ptrs):
+        raise ValueError("kv_permute: arenas must start on a 16-byte boundary")
+
+
+def _permute_static(pages, page_ids, src_rel):
+    L, n_pages, ps = pages.shape[:3]
     B, TPP = page_ids.shape
-    row_bytes = HD * pages.element_size()
-    if not pages.is_contiguous() or row_bytes % 16:
-        raise ValueError("kv_permute_pages needs a contiguous arena with "
-                         "16-byte-multiple rows")
+    row_bytes = _arena_rows(pages, "kv_permute_pages")
     if src_rel.shape != (B, TPP * ps):
         raise ValueError(f"src_rel {tuple(src_rel.shape)} != {(B, TPP * ps)}")
-    if TPP * ps * 256 > 227 * 1024:
-        raise ValueError(f"window of {TPP * ps} rows exceeds shared memory")
-    ids = page_ids.to(torch.int32).contiguous()
-    src = src_rel.to(torch.int32).contiguous()
-    if not (ids.device == src.device == pages.device):
-        raise ValueError("kv_permute_pages operands must be on one device")
-    lib = _build.library("kv_permute")
-    fn = lib.kv_permute_pages
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(pages.data_ptr(), ids.data_ptr(), src.data_ptr(), L, B, n_pages,
-             ps, row_bytes, TPP, _build.stream_of(pages))
-    _build.check(lib, err, "kv_permute_pages")
+    dev = pages.device
+    plan = permute_plan((row_bytes,), L, TPP * ps, B)
+    st = _Static((row_bytes, 0), page_ids.stride(0), src_rel.stride(0),
+                 _index(page_ids, dev, "kv_permute_pages page_ids"),
+                 _index(src_rel, dev, "kv_permute_pages src_rel"), 0, 0, L, B, n_pages, ps,
+                 TPP, 0, TPP * ps, plan.cb, plan.grid[0])
+    return st, ctypes.addressof(st)
+
+
+def _kv_permute_cuda(pages, page_ids, src_rel):
+    key = (pages.shape, pages.stride(), pages.dtype, pages.device, page_ids.shape,
+           page_ids.stride(), page_ids.dtype, page_ids.device, src_rel.shape, src_rel.stride(),
+           src_rel.dtype, src_rel.device)
+    st = _STATICS.get(key)
+    if st is None:
+        st = _STATICS[key] = _permute_static(pages, page_ids, src_rel)
+    ptr = pages.data_ptr()
+    _aligned(ptr)
+    lib, fn = _build.function("kv_permute", "kv_permute_pages", (_P,) * 5)
+    err = fn(st[1], ptr, page_ids.data_ptr(), src_rel.data_ptr(),
+             _build.stream_of(pages))
+    if err:
+        _build.check(lib, err, "kv_permute_pages")
     kv_permute_pages.launches += 1
     return pages
 
@@ -89,7 +224,8 @@ def kv_permute_pages(pages: torch.Tensor, page_ids: torch.Tensor,
     """Permute each request's window rows in place over all layers.
 
     pages [L, n_pages, ps, HD]; page_ids [B, TPP] (0 = null page);
-    src_rel [B, TPP*ps] source row of each window slot. Returns ``pages``."""
+    src_rel [B, TPP*ps] source row of each window slot (int32 or int64).
+    Returns ``pages``."""
     if pages.is_cuda:
         return _kv_permute_cuda(pages, page_ids, src_rel)
     if pages.device.type != "cpu":
@@ -98,6 +234,134 @@ def kv_permute_pages(pages: torch.Tensor, page_ids: torch.Tensor,
 
 
 kv_permute_pages.launches = 0
+
+
+def window_pages(ps: int, q_width: int) -> int:
+    """Pages of a verify window of ``q_width`` slots starting anywhere in a
+    page (TPP)."""
+    return (q_width + ps - 1) // ps + 1
+
+
+def tail_window(page_tables: torch.Tensor, ctx_lens: torch.Tensor, path: torch.Tensor,
+                n_edges: torch.Tensor, q_width: int, ps: int,
+                active: Optional[torch.Tensor] = None):
+    """The compaction's window, in eager torch ops (the JAX package's
+    ``compact_kv_tail`` preparation): (page_ids [B, TPP], the pages from
+    ctx // ps on, clipped to the table, inactive rows on the null page;
+    src_of [B, W], each window slot's source slot, node ctx + path[i] at
+    slot ctx + 1 + i for i < n_edges; win_base [B], the window's first
+    slot)."""
+    B, M = path.shape
+    P = page_tables.shape[1]
+    dev = page_tables.device
+    TPP = window_pages(ps, q_width)
+    ctx = ctx_lens.long()
+    p0 = ctx // ps
+    page_pos = (p0[:, None] + torch.arange(TPP, device=dev)[None, :]).clamp(0, P - 1)
+    page_ids = torch.gather(page_tables.long(), 1, page_pos)
+    if active is not None:
+        page_ids = torch.where(active[:, None], page_ids, torch.zeros_like(page_ids))
+    # slot-source table over the window, with a sink column W for the moves
+    # that do not happen (JAX drops them with mode="drop")
+    W = TPP * ps
+    win_base = p0 * ps
+    src_of = win_base[:, None] + torch.arange(W + 1, device=dev)[None, :]
+    i = torch.arange(M, device=dev)[None, :]
+    mv = i < n_edges.long()[:, None]
+    w_idx = torch.where(mv, ctx[:, None] + 1 + i - win_base[:, None],
+                        torch.full_like(i, W).expand(B, M)).clamp(max=W)
+    src_of.scatter_(1, w_idx, torch.where(mv, ctx[:, None] + path.long(), 0))
+    return page_ids, src_of[:, :W], win_base
+
+
+def kv_compact_tail_plain(arenas, page_tables, ctx_lens, path, n_edges, q_width: int,
+                          active=None):
+    """The composed route: ``tail_window``, then ``kv_permute_pages_plain``
+    on each arena."""
+    arenas = _as_tuple(arenas)
+    ps = arenas[0].shape[2]
+    page_ids, src_of, win_base = tail_window(page_tables, ctx_lens, path, n_edges, q_width,
+                                             ps, active)
+    src_rel = (src_of - win_base[:, None]).clamp(0, src_of.shape[1] - 1)
+    for pages in arenas:
+        kv_permute_pages_plain(pages, page_ids, src_rel)
+    return arenas
+
+
+def _compact_static(arenas, page_tables, ctx_lens, path, n_edges, q_width, active):
+    k = arenas[0]
+    L, n_pages, ps = k.shape[:3]
+    B, M = path.shape
+    P = page_tables.shape[1]
+    dev = k.device
+    if not 0 < len(arenas) <= 2 or any(a.shape[:3] != k.shape[:3] or a.device != dev
+                                        for a in arenas):
+        raise ValueError("kv_compact_tail takes one or two arenas of one [L, n_pages, ps] "
+                         "on one device")
+    rbs = tuple(_arena_rows(a, "kv_compact_tail") for a in arenas)
+    if (page_tables.shape[0] != B or ctx_lens.shape != (B,) or n_edges.shape != (B,)
+            or (active is not None and (active.shape != (B,) or active.dtype != torch.bool
+                                        or active.device != dev or active.stride(0) != 1))):
+        raise ValueError(f"kv_compact_tail: page_tables {tuple(page_tables.shape)}, ctx_lens "
+                         f"{tuple(ctx_lens.shape)}, n_edges {tuple(n_edges.shape)} and active "
+                         f"for a path of {B} rows")
+    wides = [_index(t, dev, "kv_compact_tail") for t in (page_tables, path, ctx_lens, n_edges)]
+    plan = permute_plan(rbs, L, M, B, P)
+    st = _Static((rbs[0], rbs[1] if len(rbs) == 2 else 0), page_tables.stride(0),
+                 path.stride(0), *wides, L, B, n_pages, ps, window_pages(ps, q_width), P, M,
+                 plan.cb, plan.grid[0])
+    return st, ctypes.addressof(st)
+
+
+def _kv_compact_cuda(arenas, page_tables, ctx_lens, path, n_edges, q_width, active):
+    k = arenas[0]
+    v = arenas[1] if len(arenas) > 1 else None
+    key = (len(arenas), k.shape, k.stride(), k.dtype, k.device,
+           None if v is None else (v.shape, v.stride(), v.dtype, v.device),
+           page_tables.shape, page_tables.stride(), page_tables.dtype, page_tables.device,
+           ctx_lens.shape, ctx_lens.stride(), ctx_lens.dtype, ctx_lens.device,
+           path.shape, path.stride(), path.dtype, path.device,
+           n_edges.shape, n_edges.stride(), n_edges.dtype, n_edges.device,
+           None if active is None else (active.shape, active.stride(), active.dtype,
+                                        active.device),
+           q_width)
+    st = _STATICS.get(key)
+    if st is None:
+        st = _STATICS[key] = _compact_static(arenas, page_tables, ctx_lens, path, n_edges,
+                                             q_width, active)
+    kp, vp = k.data_ptr(), 0 if v is None else v.data_ptr()
+    _aligned(kp, vp)
+    lib, fn = _build.function("kv_permute", "kv_compact_tail", (_P,) * 9)
+    err = fn(st[1], kp, vp or None, page_tables.data_ptr(), ctx_lens.data_ptr(),
+             path.data_ptr(), n_edges.data_ptr(), None if active is None else active.data_ptr(),
+             _build.stream_of(k))
+    if err:
+        _build.check(lib, err, "kv_compact_tail")
+    kv_compact_tail.launches += 1
+    return arenas
+
+
+def kv_compact_tail(arenas, page_tables: torch.Tensor, ctx_lens: torch.Tensor,
+                    path: torch.Tensor, n_edges: torch.Tensor, q_width: int,
+                    active: Optional[torch.Tensor] = None):
+    """The verify step's tail compaction of one arena or the (K, V) pair, in
+    place over all layers, in one launch: node ctx + path[i] moves to slot
+    ctx + 1 + i for i < n_edges, in each request's window of
+    ``window_pages`` pages from ctx // ps (clipped to its page table; an
+    inactive row's on the null page). arenas: [L, n_pages, ps, row] each
+    (rows may differ in width); page_tables [B, P], ctx_lens [B], path
+    [B, M], n_edges [B] int32 / int64; active bool [B] or None. Returns the
+    arenas as a tuple."""
+    arenas = _as_tuple(arenas)
+    if arenas[0].is_cuda:
+        return _kv_compact_cuda(arenas, page_tables, ctx_lens, path, n_edges, q_width, active)
+    if arenas[0].device.type != "cpu":
+        raise NotImplementedError(f"kv_compact_tail on {arenas[0].device}")
+    return kv_compact_tail_plain(arenas, page_tables, ctx_lens, path, n_edges, q_width,
+                                 active)
+
+
+kv_compact_tail.launches = 0
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -125,6 +389,9 @@ def kv_write_pages_plain(pages: torch.Tensor, windows: torch.Tensor,
     return pages
 
 
+_PAGE_WRITE_ARGS = (_P,) * 3 + (_I,) * 3 + (_LL, _P)
+
+
 def _kv_write_pages_cuda(pages, windows, page_ids):
     L, n_pages = pages.shape[:2]
     W = windows.shape[1]
@@ -139,10 +406,7 @@ def _kv_write_pages_cuda(pages, windows, page_ids):
         raise ValueError("kv_write_pages: page_ids must be [W] on the arena's device")
     windows = windows.contiguous()
     page_bytes = pages[0, 0].numel() * pages.element_size()
-    lib = _build.library("kv_page_write")
-    fn = lib.kv_page_write
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong,
-                                                                ctypes.c_void_p]
+    lib, fn = _build.function("kv_page_write", "kv_page_write", _PAGE_WRITE_ARGS)
     err = fn(pages.data_ptr(), windows.data_ptr(), ids.data_ptr(), L, W, n_pages,
              page_bytes, _build.stream_of(pages))
     _build.check(lib, err, "kv_write_pages")
@@ -179,6 +443,9 @@ def kv_write_rows_plain(pages, rows, page_idx: torch.Tensor, row_idx: torch.Tens
     return pages
 
 
+_WRITE_ROWS_ARGS = (_I,) + (_P,) * 6 + (_I,) * 4 + (_P,)
+
+
 def _kv_write_rows_cuda(pages, rows, page_idx, row_idx, layer):
     arenas, news = _as_tuple(pages), _as_tuple(rows)
     if not 0 < len(arenas) == len(news) <= 4:
@@ -200,10 +467,7 @@ def _kv_write_rows_cuda(pages, rows, page_idx, row_idx, layer):
                              f"(strides {rw.stride()}) do not fit the contiguous arena "
                              f"{tuple(pg.shape)} {pg.dtype} on {pg.device}")
     n = len(arenas)
-    lib = _build.library("kv_rows")
-    fn = lib.kv_write_rows
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    lib, fn = _build.function("kv_rows", "kv_write_rows", _WRITE_ROWS_ARGS)
     ptrs = (ctypes.c_void_p * n)(*(pg.data_ptr() for pg in arenas))
     srcs = (ctypes.c_void_p * n)(*(rw.data_ptr() for rw in news))
     row_bytes = (ctypes.c_longlong * n)(*(rw.shape[1] * rw.element_size() for rw in news))
@@ -259,6 +523,9 @@ def _move_slice(N: int, row_bytes: int, unit: int, limit: int) -> int:
                      f"one block's {limit} bytes of shared memory")
 
 
+_MOVE_ROWS_ARGS = (_P,) * 5 + (_I,) * 4 + (_LL, _I, _I, _P)
+
+
 def _kv_move_rows_cuda(pages, src_page, src_row, dst_page, dst_row):
     L, n_pages, ps = pages.shape[:3]
     N = src_page.shape[0]
@@ -272,12 +539,9 @@ def _kv_move_rows_cuda(pages, src_page, src_row, dst_page, dst_row):
                          f"({MAX_MOVES})")
     row_bytes = pages[0, 0, 0].numel() * pages.element_size()
     unit = next(u for u in (16, 4, 1) if row_bytes % u == 0 and pages.data_ptr() % u == 0)
-    lib = _build.library("kv_rows")
-    lib.kv_move_rows_smem_limit.restype = ctypes.c_int
-    sl = _move_slice(N, row_bytes, unit, lib.kv_move_rows_smem_limit())
-    fn = lib.kv_move_rows
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib, fn = _build.function("kv_rows", "kv_move_rows", _MOVE_ROWS_ARGS)
+    sl = _move_slice(N, row_bytes, unit, _build.function("kv_rows", "kv_move_rows_smem_limit",
+                                                         ())[1]())
     err = fn(pages.data_ptr(), *(t.data_ptr() for t in idx), N, L, n_pages, ps, row_bytes,
              sl, unit, _build.stream_of(pages))
     _build.check(lib, err, "kv_move_rows")

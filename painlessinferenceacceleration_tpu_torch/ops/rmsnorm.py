@@ -12,8 +12,10 @@ CPU tensor; ``rms_norm`` serves the hidden norms, the per-head q/k norms
 Batch invariance. A served request's tokens must not depend on its
 neighbours (lookahead's lossless check compares streams served at other
 batch widths), so a row's norm must have the same bits at every row count.
-K15 gives each (row, group) one warp that sums its squares in an order
-fixed by the group's width alone, so that holds by construction. The plain
+K15 sums each (row, group)'s squares in an order fixed by the group's width
+and element type alone (``norm_plan``: how many lanes share the group and
+which 16-byte chunks each holds; ``rms_norm_replay`` repeats that order in
+fp32 torch ops, bit for bit), so that holds by construction. The plain
 versions sum the fp32 squares in fp64 and round to fp32: torch's reduction
 picks its tree by the shape, but the fp64 sum of fp32 squares rounds to the
 same fp32 value in any order except where the exact sum lies within ~2^-41
@@ -25,6 +27,7 @@ Each of the three wrappers' ``launches`` counts its K15 launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -65,39 +68,149 @@ def rms_group_norm_sigmoid_plain(x: torch.Tensor, gate: torch.Tensor,
     return (y.to(torch.float32) * torch.sigmoid(gate.to(torch.float32))).to(x.dtype)
 
 
-def _launch(x, weight, gate, eps, groups, wrapper):
-    width = x.shape[-1]
-    if x.dtype not in _DTYPES or weight.dtype not in _DTYPES:
+MAX_CHUNKS = 8  # 16-byte chunks a lane holds (csrc/rmsnorm.cu kMaxChunks)
+MAX_LANES = 512  # lanes a group (csrc/rmsnorm.cu kMaxLanes)
+BLOCK_THREADS = 256
+
+
+@functools.lru_cache(maxsize=64)
+def norm_plan(gw: int, elt: int) -> tuple:
+    """K15's split of a group of ``gw`` elements of ``elt`` bytes: (lanes,
+    chunks a lane, groups a block). The group is cut into 16-byte chunks;
+    up to 32 chunks take a lane each (a power of two of lanes: 16 for 128
+    bf16 elements, two groups a warp); up to 256 one warp; wider groups as
+    many warps as keep a lane at ``MAX_CHUNKS`` chunks or fewer. Lane l holds
+    chunks l, l + lanes, ... A function of (gw, elt) alone: it fixes the
+    summation order."""
+    chunks = -(-gw * elt // 16)
+    if chunks <= 32:
+        lanes = 1 << (chunks - 1).bit_length()
+    else:
+        lanes = 32 * -(-chunks // (32 * MAX_CHUNKS))
+        if lanes > MAX_LANES:
+            raise ValueError(f"rms_norm: groups of {gw} elements are wider than the "
+                             f"kernel takes ({MAX_LANES * MAX_CHUNKS * 16 // elt})")
+    return lanes, -(-chunks // lanes), max(1, BLOCK_THREADS // lanes)
+
+
+def rms_norm_replay(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                    num_groups: int = 1) -> torch.Tensor:
+    """K15's plain and grouped kinds in its own order of operations, in fp32
+    torch ops (each rounded to nearest, none fused): each lane of
+    ``norm_plan`` sums the squares of its chunks' elements in ascending
+    order, the lanes of a warp meet in the xor butterfly (lanes / 2, ..., 1),
+    the warps of a wider group add up in warp order; then sum / gw, a
+    correctly rounded 1 / sqrt(mean + eps), (x * r) * w, cast to x's type.
+    Bit-equal to the kernel; the test oracle for its order."""
+    *lead, d = x.shape
+    gw = d // num_groups
+    elt = x.element_size()
+    lanes, n, _ = norm_plan(gw, elt)
+    epc = 16 // elt
+    xf = x.to(torch.float32).reshape(-1, gw)
+    pad = lanes * n * epc - gw
+    xp = torch.nn.functional.pad(xf, (0, pad))  # zeros add nothing
+    per_lane = xp.reshape(-1, n, lanes, epc).transpose(1, 2).reshape(-1, lanes, n * epc)
+    s = torch.zeros(per_lane.shape[:2], dtype=torch.float32)
+    for j in range(n * epc):
+        v = per_lane[:, :, j]
+        s = s + v * v
+    wl = min(lanes, 32)
+    s = s.reshape(-1, lanes // wl, wl)
+    off = wl // 2
+    while off:
+        s = s + s[:, :, torch.arange(wl) ^ off]
+        off //= 2
+    tot = s[:, 0, 0]
+    for k in range(1, lanes // wl):
+        tot = tot + s[:, k, 0]
+    mean = tot / torch.tensor(float(gw), dtype=torch.float32)
+    # the square root and the reciprocal correctly rounded to fp32 (torch's
+    # fp32 sqrt on the CPU need not be): each taken in fp64, whose 53 bits
+    # round to the correctly rounded fp32 result
+    sq = torch.sqrt((mean + torch.tensor(eps, dtype=torch.float32)).double()).float()
+    r = (1.0 / sq.double()).float()
+    y = (xf * r[:, None]).reshape(*lead, d) * weight.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def _vec_bytes(elt: int, *addrs: int) -> int:
+    """16 (K15 loads and stores 16-byte vectors) where every address and
+    stride in ``addrs`` (the weight's pointer among them) divides by 16, else
+    ``elt`` (one element at a time)."""
+    bits = 0
+    for a in addrs:
+        bits |= a
+    return elt if bits & 15 else 16
+
+
+class _Static(ctypes.Structure):
+    """What a K15 launch fixes for a type, width, grouping and weight
+    (``RmsNormStatic`` of ``csrc/rmsnorm.cu``, field for field): built and
+    checked once, so a call converts its pointers and row count only."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("groups", "gw", "dtype", "w_dtype", "lanes",
+                                              "n_chunks", "per_block")]
+                + [("eps", ctypes.c_float)])
+
+
+# (x's type, device and width, the weight's shape, stride, type and device,
+# groups, eps) -> (_Static, its address, a group's bytes, x's element bytes)
+_STATICS = {}
+_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_void_p)
+
+
+def _static(x, weight, groups, eps) -> tuple:
+    dt, wt = _DTYPES.get(x.dtype), _DTYPES.get(weight.dtype)
+    if dt is None or wt is None:
         raise TypeError(f"rms_norm takes fp32 / bf16 rows and weights, not "
                         f"{x.dtype} / {weight.dtype}")
-    if width % groups or weight.shape != (width,):
-        raise ValueError(f"rows of {width} in {groups} groups, weight "
-                         f"{tuple(weight.shape)}")
-    dev = x.device
-    if weight.device != dev or (gate is not None and gate.device != dev):
-        raise ValueError("rms_norm operands must be on one device")
-    x2 = x.reshape(-1, width)
-    if x2.stride(1) != 1:
-        x2 = x2.contiguous()
-    w = weight.contiguous()
-    g2 = None
+    width = x.shape[-1]
+    if (width % groups or weight.shape != (width,) or weight.stride(0) != 1
+            or weight.device != x.device):
+        raise ValueError(f"rows of {width} in {groups} groups on {x.device}, weight "
+                         f"{tuple(weight.shape)} on {weight.device}")
+    gw, elt = width // groups, x.element_size()
+    lanes, n, per_block = norm_plan(gw, elt)
+    st = _Static(groups, gw, dt, wt, lanes, n, per_block, eps)
+    return st, ctypes.addressof(st), gw * elt, elt
+
+
+def _launch(x, weight, gate, eps, groups, wrapper):
+    width = x.shape[-1]
+    key = (x.dtype, x.device, width, weight.shape, weight.stride(), weight.dtype,
+           weight.device, groups, eps)
+    hit = _STATICS.get(key)
+    if hit is None:
+        hit = _STATICS[key] = _static(x, weight, groups, eps)
+    _, st, group_bytes, elt = hit
+    if x.is_contiguous():
+        xc, ldx = x, width
+    else:
+        xc = x.reshape(-1, width)
+        if xc.stride(1) != 1:
+            xc = xc.contiguous()
+        ldx = xc.stride(0)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    gp = 0
     if gate is not None:
-        if gate.shape != x.shape:
-            raise ValueError(f"gate {tuple(gate.shape)} != x {tuple(x.shape)}")
-        g2 = gate.to(x.dtype).reshape(-1, width).contiguous()
-    rows = x2.shape[0]
-    out = torch.empty((rows, width), dtype=x.dtype, device=dev)
+        if gate.shape != x.shape or gate.dtype != x.dtype or gate.device != x.device:
+            raise ValueError(f"gate {tuple(gate.shape)} {gate.dtype} on {gate.device} does "
+                             f"not match x {tuple(x.shape)} {x.dtype}")
+        if not gate.is_contiguous():
+            gate = gate.contiguous()
+        gp = gate.data_ptr()
+    rows = out.numel() // width if width else 0
     if rows:
-        lib = _build.library("rmsnorm")
-        fn = lib.rms_norm
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        err = fn(x2.data_ptr(), w.data_ptr(), _build.ptr(g2), out.data_ptr(), rows,
-                 groups, width // groups, x2.stride(0), float(eps), _DTYPES[x.dtype],
-                 _DTYPES[w.dtype], _build.stream_of(x))
-        _build.check(lib, err, "rms_norm")
+        xp, wp = xc.data_ptr(), weight.data_ptr()
+        vec = _vec_bytes(elt, xp, wp, gp, ldx * elt, group_bytes)
+        lib, fn = _build.function("rmsnorm", "rms_norm", _ARGS)
+        err = fn(st, xp, wp, gp or None, out.data_ptr(), rows, ldx, vec,
+                 _build.stream_of(x))
+        if err:
+            _build.check(lib, err, "rms_norm")
         wrapper.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 def _check_cpu(x: torch.Tensor, what: str) -> None:

@@ -20,8 +20,11 @@ or lookahead serving would not reproduce AR serving. The grouped
 on that expert's weights.
 """
 
+import numpy as np
 import pytest
 import torch
+
+from _kv_cases import CASES, compact_case
 
 from painlessinferenceacceleration_tpu_torch.ops.attention import (
     causal_qmask,
@@ -157,6 +160,72 @@ def test_paged_attention_prefill(cuda, ctx):
     got = paged_attention_prefill(q, k, v, pt, ctx_t, 128 ** -0.5)
     qm = causal_qmask(200, "cuda")[None].expand(2, 200, 200)
     assert _rel(got, paged_attention_ref(q, k, v, pt, ctx_t, qm, 128 ** -0.5)) < 2e-2
+
+
+def _on_card(c, dtype, wide=False):
+    it = torch.int64 if wide else torch.int32
+    k, v = (torch.from_numpy(c[n]).to("cuda").to(dtype) for n in ("k", "v"))
+    args = (*(torch.from_numpy(c[n]).to("cuda").to(it) for n in ("pt", "ctx", "path", "ne")),
+            c["Q"], torch.from_numpy(c["active"]).to("cuda"))
+    return k, v, args
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", CASES)
+def test_kv_compact_tail_equals_its_plain_version(cuda, kind, dtype):
+    """K4's compaction entry, K and V in one launch, bit-equal to the
+    composed route (``tail_window`` + ``kv_permute_pages_plain``) over the
+    whole arenas, page 0 included; int64 indices in one case. MLA's case
+    has 576- and 512-lane rows."""
+    from painlessinferenceacceleration_tpu_torch.ops import kv_update as ku
+
+    c = compact_case(kind, widths=(512, 512) if kind == "mla" else (64, 64))
+    k, v, args = _on_card(c, dtype, wide=kind == "r2l8")
+    want = ku.kv_compact_tail_plain((k.clone(), v.clone()), *args)
+    before = ku.kv_compact_tail.launches
+    got = ku.kv_compact_tail((k.clone(), v.clone()), *args)
+    assert ku.kv_compact_tail.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("Q,n_moves", [(17, 8), (64, 40), (128, 120)])
+def test_kv_compact_tail_at_7b_rows(cuda, Q, n_moves):
+    """8192-byte rows, every move of a path of n_moves edges (a random tree
+    path: rows shift down, some onto other moves' sources), two requests
+    with windows across a page edge, one launch through compact_kv_tail."""
+    from painlessinferenceacceleration_tpu_torch.engine.cache import compact_kv_tail
+    from painlessinferenceacceleration_tpu_torch.ops import kv_update as ku
+
+    rng = np.random.default_rng(Q)
+    L, P, B = 4, 5, 2
+    k = torch.randn(L, B * P + 1, 64, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    v = torch.randn_like(k)
+    pt = (torch.randperm(B * P, generator=cuda, device="cuda") + 1).reshape(B, P).int()
+    ctx = torch.tensor([60, 130], device="cuda")
+    path = torch.zeros(B, Q - 1, dtype=torch.int32, device="cuda")
+    for b in range(B):
+        path[b, :n_moves] = torch.from_numpy(np.sort(rng.choice(np.arange(1, Q), n_moves,
+                                                                replace=False)))
+    ne = torch.full((B,), n_moves, dtype=torch.int32, device="cuda")
+    k0 = k.clone()
+    want = ku.kv_compact_tail_plain((k.clone(), v.clone()), pt, ctx, path, ne, Q)
+    before = ku.kv_compact_tail.launches
+    got = compact_kv_tail((k, v), pt, ctx, path, ne, Q, torch.ones(B, dtype=torch.bool,
+                                                                   device="cuda"))
+    assert ku.kv_compact_tail.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], k0)  # rows moved
+
+
+def test_kv_permute_pages_takes_int64_indices(cuda):
+    from painlessinferenceacceleration_tpu_torch.ops import kv_update as ku
+
+    pages = torch.randn(3, 12, 64, 1024, generator=cuda, device="cuda").to(torch.bfloat16)
+    ids = torch.tensor([[2, 3], [7, 7]], device="cuda")  # int64; row 1 aliases
+    src = torch.stack([torch.randperm(128, generator=cuda, device="cuda") for _ in range(2)])
+    got = ku.kv_permute_pages(pages.clone(), ids, src)
+    assert torch.equal(got, kv_permute_pages_plain(pages.clone(), ids, src))
 
 
 @pytest.mark.parametrize("moving", ["all", "half", "none"])
@@ -1113,6 +1182,39 @@ def test_rms_norm_rows_do_not_depend_on_the_batch(cuda, width, groups):
     full = rms_group_norm(x, w, 1e-6, groups)
     for m in (1, 17, 512):
         assert torch.equal(rms_group_norm(x[:m], w, 1e-6, groups), full[:m])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,groups", [
+    (128, 1), (512, 1), (2048, 1), (4096, 1), (7168, 1), (2048, 16), (100, 1), (98, 1),
+    (45, 1)])
+def test_rms_norm_kernel_equals_the_replay_of_its_order(cuda, width, groups, dtype):
+    """K15's plain and grouped kinds bit-equal to ``rms_norm_replay`` (its
+    order of operations in fp32 torch ops on the CPU). Widths 100, 98 and
+    45 end in a partial chunk, and in bf16 take one-element loads: the same
+    order."""
+    from painlessinferenceacceleration_tpu_torch.ops import rmsnorm as rn
+
+    x = (torch.randn(37, width, generator=cuda, device="cuda") * 3).to(dtype)
+    w = (1 + 0.3 * torch.randn(width, generator=cuda, device="cuda")).to(dtype)
+    got = rn.rms_group_norm(x, w, 1e-6, groups) if groups > 1 else rn.rms_norm(x, w, 1e-6)
+    assert torch.equal(got.cpu(), rn.rms_norm_replay(x.cpu(), w.cpu(), 1e-6, groups))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_rms_norm_kernel_keeps_its_order_on_narrower_loads(cuda, offset):
+    """Rows that start 2, 4 or 8 bytes off a 16-byte boundary take
+    one-element loads: the same bits as the aligned rows, and as the
+    replay; an fp32 weight beside bf16 rows too."""
+    from painlessinferenceacceleration_tpu_torch.ops import rmsnorm as rn
+
+    wide = torch.randn(9, 2048 + 8, generator=cuda, device="cuda").to(torch.bfloat16)
+    x = wide[:, offset:offset + 2048]
+    for w in (torch.randn(2048, generator=cuda, device="cuda").to(torch.bfloat16),
+              torch.randn(2048, generator=cuda, device="cuda")):
+        got = rn.rms_norm(x, w, 1e-5)
+        assert torch.equal(got, rn.rms_norm(x.contiguous(), w, 1e-5))
+        assert torch.equal(got.cpu(), rn.rms_norm_replay(x.cpu(), w.cpu(), 1e-5))
 
 
 def _la_inputs(g, B, H, C, D, scale=0.5):

@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""K4 (the KV compaction) and K15 (RMSNorm) at the main paths' shapes, and
+K4's staging variants, on one card:
+
+    python3 tools/row_kernel_variants.py [--root DIR] [--json PATH] [--variants]
+
+``--root`` imports the port from another tree (for instance a parent commit
+unpacked under ``build/``), which builds its own kernels; run the script
+once per tree, in turns (parent, change, change, parent), to compare two
+trees on one card. Imports nothing of JAX.
+
+Rows, each tree:
+- ``compaction``: the verify step's compaction of a Llama-2-7B arena pair
+  (32 layers, 8192-byte K and V rows, page 64) through
+  ``engine/step.py _commit_and_compact``, as the main paths call it: B = 1
+  at Q = 17 with the one-branch path (nothing moves), R = 2 L = 8 (8 rows
+  move), the generator's Q = 64 (12 rows), Q = 128 (120 rows), serving's
+  B = 8 at Q = 17 (half the rows one-branch); the moved rows are those the
+  first call changes (random rows). Wall ms: the median of 5 windows of
+  40 back-to-back calls under CUDA events, in turns with the yardstick;
+  ``device_ms`` with the L2 cold (``cold_ms``: each call in a CUDA graph
+  behind a read of 256 MB, less the reads alone), ``device_warm_ms`` in a
+  CUDA graph of the calls on the same rows; ``kernel_ms`` and
+  ``kernels_per_call`` from torch.profiler (every CUDA kernel of the call,
+  eager index ops included);
+  the bound of the moved rows (each read once and written once, both
+  arenas, all layers, plus the indices); ``library_ms``: ``index_copy_`` of
+  the moving K rows and of the V rows, gathered beforehand (two calls).
+- ``kv_permute_pages``: K4's general entry at L = 32, a 2-page window of
+  8192-byte rows, 127 rows moving and none (the rows of PERF.md), with
+  ``device_ms`` (L2 cold), ``device_warm_ms`` and ``index_copy_``.
+- ``rms_norm``: K15 at the cases of PERF.md's row 13 (bf16 hidden rows of
+  2048 and 4096, per-head rows of 128, the gated group norm of 16 groups of
+  128, MLA's kv_a rows, 512 of 576), with ``device_ms`` (L2 cold),
+  ``device_warm_ms`` and ``F.rms_norm`` for the plain kind.
+
+``--variants`` (this tree only) times K4's compaction and general entry in
+each staging route (the tree's cp.async.bulk copies, or 16-byte loads in a
+copy of its source under ``build/row_kernel_variants/``), staging budget
+and block count, device ms with the L2 cold, in two turns.
+Prints one JSON line per row and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+SEED = 0
+L, PS, HD = 32, 64, 4096  # Llama-2-7B's arena: 32 layers, 32 kv heads x 128
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _capture(body):
+    """A CUDA graph of ``body()`` (run once before, outside the graph)."""
+    import torch
+
+    body()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body()
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            body()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph) -> float:
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Device time of one call, the L2 warm: ``reps`` calls in a CUDA graph,
+    replayed on the same inputs."""
+    graph = _capture(lambda: [fn() for _ in range(reps)])
+    return sum(_replay_ms(graph) for _ in range(replays)) / (replays * reps)
+
+
+FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+_FLUSH = []
+
+
+def cold_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one call, the L2 cold: a CUDA graph of ``reps``
+    (flush, call) pairs less a graph of ``reps`` flushes, the median of
+    ``rounds`` replays each, in turns. A flush sums a 256 MB buffer, so a
+    call reads its inputs from HBM, and the rows it wrote drain to HBM
+    inside the next flush (the first graph's, not the second's)."""
+    import statistics
+
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.ones(FLUSH_BYTES // 4, device="cuda"))
+    buf = _FLUSH[0]
+
+    def flush():
+        return buf.sum()
+    both = _capture(lambda: [(flush(), fn()) for _ in range(reps)])
+    alone = _capture(lambda: [flush() for _ in range(reps)])
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(_replay_ms(both))
+        b.append(_replay_ms(alone))
+    return (statistics.median(a) - statistics.median(b)) / reps
+
+
+def paired_ms(*fns, windows: int = 5, reps: int = 40) -> list:
+    """Wall ms of a call of each of ``fns``: the median of ``windows``
+    windows of ``reps`` back-to-back calls, taken in turns."""
+    runs = [[] for _ in fns]
+    for _ in range(windows):
+        for fn, r in zip(fns, runs):
+            r.append(time_ms(fn, reps=reps))
+    return [statistics.median(r) for r in runs]
+
+
+def kernel_profile(fn, calls: int = 20) -> tuple:
+    """(kernel ms, CUDA kernels) a call, from torch.profiler: the kernel rows
+    (an operator's device time is its kernels'), the most of two windows (a
+    window's trace may lose events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = (0.0, 0)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                us += t
+                n += e.count
+        best = max(best, (us, n), key=lambda b: b[1])
+    return best[0] / 1e3 / calls, best[1] / calls
+
+
+def bound(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def load(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import importlib
+
+    base = "painlessinferenceacceleration_tpu_torch."
+    names = dict(_build="_build", step="engine.step", kv_update="ops.kv_update",
+                 rmsnorm="ops.rmsnorm")
+    pkg = {k: importlib.import_module(base + v) for k, v in names.items()}
+    if not str(pkg["_build"].PKG_DIR).startswith(str(root.resolve())):
+        raise SystemExit(f"imported the port from {pkg['_build'].PKG_DIR}, not {root}")
+    return pkg
+
+
+# (case, B, Q, rows of the batch on the one-branch path, edges of the others)
+COMPACTIONS = (("main path B=1 Q=17 one branch", 1, 17, 1, 0),
+               ("R=2 L=8 B=1 Q=17", 1, 17, 0, 8),
+               ("generator Q=64", 1, 64, 0, 12),
+               ("Q=128", 1, 128, 0, 120),
+               ("serving B=8 Q=17", 8, 17, 4, 8))
+
+
+def compaction_case(B, Q, n_identity, n_moves, rng):
+    """numpy page tables [B, P], ctx, path [B, Q-1], n_edges for this case:
+    the first n_identity rows accept 14 nodes of one branch (1, 2, ..., 14),
+    the others n_moves nodes of a random increasing path."""
+    import numpy as np
+
+    P = (600 + Q) // PS + 2
+    pt = (rng.permutation(B * P) + 1).reshape(B, P).astype(np.int32)
+    ctx = rng.integers(540, 600, B).astype(np.int32)
+    path = np.zeros((B, Q - 1), np.int32)
+    ne = np.zeros(B, np.int32)
+    for b in range(B):
+        if b < n_identity:
+            ne[b] = min(14, Q - 1)
+            path[b, : ne[b]] = np.arange(1, ne[b] + 1)
+        else:
+            ne[b] = n_moves
+            path[b, :n_moves] = np.sort(rng.choice(np.arange(1, Q), n_moves, replace=False))
+    return pt, ctx, path, ne
+
+
+def compaction_rows(pkg, g) -> list:
+    import numpy as np
+    import torch
+
+    step = pkg["step"]
+    cfg = types.SimpleNamespace(linear_attention=False)
+    rows = []
+    rng = np.random.default_rng(SEED)
+    for case, B, Q, n_ident, n_moves in COMPACTIONS:
+        pt, ctx, path, ne = compaction_case(B, Q, n_ident, n_moves, rng)
+        n_pages = int(pt.max()) + 1
+        kv = {n: torch.randn(L, n_pages, PS, HD, generator=g, device="cuda").to(torch.bfloat16)
+              for n in ("k", "v")}
+        dev = [torch.from_numpy(a).to("cuda") for a in (pt, ctx, path, ne)]
+        active = torch.ones(B, dtype=torch.bool, device="cuda")
+
+        def run():
+            step._commit_and_compact(kv, cfg, dev[0], dev[1], active, None, None, None,
+                                     dev[2], dev[3], Q)
+        # the moved rows: those the first call changes (the rows are random)
+        before = kv["k"].clone()
+        run()
+        dst = (kv["k"] != before).any(-1).any(0).reshape(-1).nonzero().flatten()
+        del before
+        kernel_ms, kernels = kernel_profile(run)
+        n_moved = int(dst.numel())
+        nbytes = 2 * 2 * L * n_moved * HD * 2 + sum(a.nbytes for a in (pt, ctx, path, ne))
+        lib_ms = None
+        if n_moved:
+            flat = {n: kv[n].view(L, -1, HD) for n in kv}
+            src = {n: flat[n][:, dst].clone() for n in kv}
+            ms, lib_ms = paired_ms(run, lambda: [flat[n].index_copy_(1, dst, src[n])
+                                                 for n in kv])
+        else:
+            ms, = paired_ms(run)
+        rows.append(dict(row="compaction", case=case, B=B, Q=Q, moved_rows=n_moved,
+                         ms=ms, device_ms=cold_ms(run), device_warm_ms=graph_ms(run),
+                         kernel_ms=kernel_ms,
+                         kernels_per_call=kernels, bound_ms=bound(nbytes), library_ms=lib_ms))
+        print("row: " + json.dumps(rows[-1]), flush=True)
+        del kv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def permute_rows(pkg, g) -> list:
+    import torch
+
+    ku = pkg["kv_update"]
+    rows = []
+    pages = torch.randn(L, 65, PS, HD, generator=g, device="cuda").to(torch.bfloat16)
+    ids = (torch.randperm(64, generator=g, device="cuda")[:2] + 1).reshape(1, 2).int()
+    W = 2 * PS
+    for moves in (True, False):
+        src = (torch.randperm(W, generator=g, device="cuda") if moves
+               else torch.arange(W, device="cuda"))[None].int().contiguous()
+        w = torch.arange(W, device="cuda")
+        mv = src[0] != w
+        dev = cold_ms(lambda: ku.kv_permute_pages(pages, ids, src))
+        warm = graph_ms(lambda: ku.kv_permute_pages(pages, ids, src))
+        flat = pages.view(L, -1, HD)
+        row_of = ids.long()[0, w // PS] * PS + w % PS
+        dst, srcs = row_of[mv], flat[:, row_of[src[0].long()][mv]].clone()
+        ms, lib = paired_ms(lambda: ku.kv_permute_pages(pages, ids, src),
+                            lambda: flat.index_copy_(1, dst, srcs))
+        n = int(mv.sum())
+        rows.append(dict(row="kv_permute_pages", case=f"L={L} TPP=2 moved_rows={n}", ms=ms,
+                         device_ms=dev, device_warm_ms=warm, bound_ms=bound(2 * L * n * HD * 2 + W * 4 + 8),
+                         library_ms=lib))
+        print("row: " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+# (kind, rows, width, groups, row stride)
+NORMS = ([("plain", r, 2048, 1, None) for r in (1, 17, 4096)]
+         + [("plain", 16 * r, 128, 1, None) for r in (1, 17, 4096)]
+         + [("gated", r, 2048, 16, None) for r in (1, 17, 4096)]
+         + [("plain", r, 4096, 1, None) for r in (1, 512, 2048)]
+         + [("plain", r, 512, 1, 576) for r in (1, 4096)])
+
+
+def norm_rows(pkg, g) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    rn = pkg["rmsnorm"]
+    rows = []
+    for kind, n, width, groups, stride in NORMS:
+        x = (torch.randn(n, stride or width, generator=g, device="cuda") * 2)
+        x = x.to(torch.bfloat16)[:, :width]
+        w = (1 + 0.2 * torch.randn(width, generator=g, device="cuda")).to(torch.bfloat16)
+        gate = torch.randn(n, width, generator=g, device="cuda").to(torch.bfloat16)
+        if kind == "plain":
+            def run():
+                return rn.rms_norm(x, w, 1e-6)
+            ms, lib = paired_ms(run, lambda: F.rms_norm(x, (width,), w, 1e-6))
+        else:
+            def run():
+                return rn.rms_group_norm_sigmoid(x, gate, w, 1e-6, groups)
+            (ms,), lib = paired_ms(run), None
+        nbytes = (2 + (kind == "gated")) * n * width * 2 + width * 2
+        t_ops = 4.0 * n * width / FP32_FLOPS * 1e3
+        rows.append(dict(row=f"rms_norm[{kind}]", case=f"rows={n} width={width} "
+                         f"groups={groups}" + (f" stride={stride}" if stride else ""),
+                         ms=ms, device_ms=cold_ms(run), device_warm_ms=graph_ms(run),
+                         bound_ms=max(bound(nbytes), t_ops), library_ms=lib))
+        print("row: " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+# K4's staging by 16-byte loads of every thread, in place of one
+# cp.async.bulk copy a row completed on the mbarrier
+LOADS16 = ((
+    """    if (warp == 0) {
+      piawg::fence_async_smem();
+      if (lane == 0) piawg::mbar_expect(bar, static_cast<uint32_t>(total * 16));
+      __syncwarp();
+      for (int k = lane; k < n; k += 32)
+        bulk_load(piawg::smem_u32(stage + static_cast<size_t>(k) * st.cb),
+                  layer + static_cast<size_t>(lst_src[k]) * row_bytes, nb, bar);
+    }
+    piawg::mbar_wait(bar, phase);
+    phase ^= 1;
+""",
+    """    for (int e0 = tid; e0 < total; e0 += 4 * kThreads) {
+      uint4 r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = e0 + j * kThreads;
+        if (e < total)
+          r[j] = reinterpret_cast<const uint4*>(
+              layer + static_cast<size_t>(lst_src[e / nv]) * row_bytes)[e % nv];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = e0 + j * kThreads;
+        if (e < total) stv[(e / nv) * cv + e % nv] = r[j];
+      }
+    }
+    __syncthreads();
+"""),)
+
+
+def k4_source(b, name: str, edits) -> tuple:
+    """(csrc, build) directories of a copy of the tree's csrc/ with
+    ``edits`` ((old, new), ...) applied to kv_permute.cu."""
+    import shutil
+
+    root = b.PKG_DIR.parent / "build" / "row_kernel_variants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(b.PKG_DIR / "csrc", root / "csrc")
+    path = root / "csrc" / "kv_permute.cu"
+    src = path.read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to replace is not once in kv_permute.cu")
+        src = src.replace(old, new)
+    path.write_text(src)
+    return root / "csrc", root / "lib"
+
+
+def use_k4(b, csrc: Path, build: Path) -> None:
+    """Point the build at K4's source in ``csrc`` and build it alone."""
+    b.CSRC_DIR, b.BUILD_DIR = csrc, build
+    b._LIBS.pop("kv_permute", None)
+    sources, b.SOURCES = b.SOURCES, ("kv_permute",)
+    try:
+        b.library("kv_permute")
+    finally:
+        b.SOURCES = sources
+
+
+def variant_rows(pkg, g) -> list:
+    """K4's staging route (the tree's cp.async.bulk copies, or a copy of
+    the source with 16-byte loads), budget (``STAGE_BYTES``) and block
+    count (``GRID_BLOCKS``), device ms with the L2 cold, two turns."""
+    import numpy as np
+    import torch
+
+    b, ku = pkg["_build"], pkg["kv_update"]
+    routes = dict(bulk=(b.CSRC_DIR, b.BUILD_DIR),
+                  loads16=k4_source(b, "loads16", LOADS16))
+    rng = np.random.default_rng(SEED + 1)
+    cases = []
+    for case, B, Q, n_ident, n_moves in COMPACTIONS:
+        pt, ctx, path, ne = compaction_case(B, Q, n_ident, n_moves, rng)
+        n_pages = int(pt.max()) + 1
+        arenas = tuple(torch.randn(L, n_pages, PS, HD, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(2))
+        dev = [torch.from_numpy(a).to("cuda") for a in (pt, ctx, path, ne)]
+        cases.append((case, lambda a=arenas, d=dev, q=Q: ku.kv_compact_tail(
+            a, d[0], d[1], d[2], d[3], q)))
+    pages = torch.randn(L, 65, PS, HD, generator=g, device="cuda").to(torch.bfloat16)
+    ids = (torch.randperm(64, generator=g, device="cuda")[:2] + 1).reshape(1, 2).int()
+    for moves in (True, False):
+        src = (torch.randperm(2 * PS, generator=g, device="cuda") if moves
+               else torch.arange(2 * PS, device="cuda"))[None].int().contiguous()
+        cases.append((f"kv_permute_pages moves={moves}",
+                      lambda s=src: ku.kv_permute_pages(pages, ids, s)))
+    plans = [(sb, gb) for sb in (16384, 32768, 65536) for gb in (264, 528, 1056, 2112, 1 << 20)]
+    kept = ku.STAGE_BYTES, ku.GRID_BLOCKS
+    rows = []
+    for turn in range(2):
+        for route, dirs in routes.items():
+            use_k4(b, *dirs)
+            for sb, gb in plans:
+                ku.STAGE_BYTES, ku.GRID_BLOCKS = sb, gb
+                ku.permute_plan.cache_clear()
+                ku._STATICS.clear()
+                out = dict(row="variant", turn=turn, route=route, stage_bytes=sb,
+                           grid_blocks=gb)
+                for case, fn in cases:
+                    out[case] = cold_ms(fn)
+                rows.append(out)
+                print("row: " + json.dumps(out), flush=True)
+    ku.STAGE_BYTES, ku.GRID_BLOCKS = kept
+    ku.permute_plan.cache_clear()
+    ku._STATICS.clear()
+    use_k4(b, *routes["bulk"])
+    return rows
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
+                    help="root of the tree whose port is measured")
+    ap.add_argument("--json", type=Path, default=None, help="also write the numbers here")
+    ap.add_argument("--variants", action="store_true",
+                    help="time K4's staging variants (this tree's port only)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("row_kernel_variants: torch.cuda is not available")
+    pkg = load(args.root)
+    t0 = time.perf_counter()
+    pkg["_build"].build_all()
+    out = dict(root=str(args.root), card=smi_line(), build_s=time.perf_counter() - t0)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.variants:
+        out["rows"] = variant_rows(pkg, g)
+    else:
+        out["rows"] = compaction_rows(pkg, g) + permute_rows(pkg, g) + norm_rows(pkg, g)
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps(out, indent=1))
+    print(out["card"])
+
+
+if __name__ == "__main__":
+    main()
