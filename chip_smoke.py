@@ -11,31 +11,34 @@ Phases, one line each (any failure exits non-zero and prints no result):
 
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
    (the tensor-core sources' own); ptxas's registers and spills of the
-   tensor-core kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10,
-   paged attention K2 / K3 / K5) and their shared memory (a spill or a
-   serialized wgmma fails the run);
+   tensor-core kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, block fp8
+   K9, bf16 K10, paged attention K2 / K3 / K5) and their shared memory (a
+   spill or a serialized wgmma fails the run);
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
    could reach and a PyTorch library call as a yardstick: the int4 GEMM
    (every layer shape and the LM head at M = 1, 17, 64, 512 and 4096, with
-   its device time), the three 8-bit GEMMs (int8 weight-only and
-   128x128-block fp8 at M = 1, 17, 512 and on ragged shapes; W8A8 per
-   channel with int8 and e4m3 operands at M = 1, 17, 64, 512 and 4096 with
-   its device time, on off-grid shapes, and its refusal of K or N off the
-   16 grid), attention (every arena and route at the 7B shapes, and
+   its device time), the three 8-bit GEMMs (int8 weight-only, W8A8 per
+   channel with int8 and e4m3 operands and 128x128-block fp8, each at M =
+   1, 17, 64, 512 and 4096 with its device time, on off-grid shapes, and
+   its refusal of shapes off its grid), attention (every arena and route at the 7B shapes, and
    prefill at Mixtral-8x7B's and Ring-mini-linear-2.0's prefill shapes,
    with its device time), the KV kernels (the tail-window compaction, K4:
    its general entry with 127 rows moving and none, its compaction entry,
    K and V in one launch, at the main paths' compactions, Q = 17 one
    branch and R = 2, the generator's Q = 64 and MLA's latent rows, with
-   the CUDA kernels a compaction launches; the page write-back, the row
-   write K16 at every row kind the arenas hold, up to an 8 x 512 prefill,
-   and the row move K17 over chained compaction paths);
+   the CUDA kernels a compaction launches; the page write-back; the row
+   write K16: its step entry, one CUDA kernel a write_kv_pages call, in
+   the bf16, static e4m3, per-token e4m3 and MLA arenas from decode to an
+   8 x 512 prefill chunk with holes in the valid mask, byte for byte
+   outside the null page, and its general entry at every row kind the
+   arenas hold; and the row move K17 over chained compaction paths);
    then the batch invariance the
    lossless check rests on (every GEMM, the norm and attention rows
-   bit-identical at every width, the GEMMs up to M = 4096, an int4 and a
-   W8A8 row alone equal to itself at every place of a 4096-row call; every
+   bit-identical at every width, the GEMMs up to M = 4096, an int4, a
+   W8A8 and a block-fp8 row alone equal to itself at every place of a
+   4096-row call; every
    row of a causal prefill chunk equal to the decode of its token, in the
    three arenas; attention against its plain version at its tile edges);
 3. the B = 1 main path at full width: Llama-2-7B, int4 group-128 weights
@@ -52,15 +55,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    mode against its plain version again, on the inputs of real serving
    calls kept during those runs (decode and verify at B = 8 with ragged
    contexts, batched prefill with prefix-resumed rows, K1 at M = 8 x 512,
-   K4's compaction at B = 8, K16 on the widest and narrowest writes of
-   each arena kind, as on phase 3's writes);
+   K4's compaction at B = 8, K16's step entry on the widest and narrowest
+   writes of each arena kind, as on phase 3's writes);
    the host-trie generator: LookaheadGenerator on the same weights and
    prompt (native trie), hier lookahead at decoding length 63 (Q = 64) and
    the same call without lookahead over 256 tokens, equal to each other and
    over 128 tokens to phase 3's AR stream; stream_generate equal to
    generate, with K4's compaction entry held bit for bit against K17
    (move_kv_rows) and K4's general entry (kv_permute_pages) on clones of
-   the arenas at every verify step; par and one modes
+   the arenas at every verify step, and K16's step entry against its
+   general entry (kv_write_rows) at every layer-0 write; par and one modes
    equal to AR; batch_generate over 4 prompts, every row equal to its solo
    stream;
    quant modes: the same B = 1 path (512-token prefill, 32 greedy tokens,
@@ -108,8 +112,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    requests equal served alone), and both kernels against their plain
    versions on serving's inputs;
 4. the launch count of every kernel and mode during phase 3, serving, the
-   generator phase (and apart from it, its compaction check: K17 and K4's
-   general entry have no caller on any path), the quant modes and the MoE,
+   generator phase (and apart from it, its checks: K17 and K4's and K16's
+   general entries have no caller on any path), the quant modes and the MoE,
    MLA and linear-attention phases, each counted from 0 (all must be > 0), the script's wall time, and the
    ``kernels`` JSON line.
 
@@ -290,8 +294,8 @@ def phase_environment(pkg) -> dict:
 def _ptxas_label(entry: str) -> str:
     """A tensor-core kernel's template arguments from its mangled name:
     int4 <group[, warpgroups]>, int8 <stage[, warpgroups]>, W8A8 <int8|e4m3,
-    warpgroups>, bf16 <warpgroups[, the weight's major]>; "seq" where a
-    block runs every split."""
+    warpgroups>, block fp8 <warpgroups>, bf16 <warpgroups[, the weight's
+    major]>; "seq" where a block runs every split."""
     import re
 
     t = re.search(r"((?:grouped_)?int[48]_gemm_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?",
@@ -318,6 +322,9 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(rms_norm_kernel|kv_permute_kernel)I(\w+?)EEvN", entry)
     if t:  # the template arguments as mangled
         return f"{t.group(1)}<{t.group(2)}>"
+    t = re.search(r"(block_fp8_gemm_kernel)ILi(\d)ELb([01])E", entry)
+    if t:
+        return f"{t.group(1)}<{t.group(2)}>" + (" seq" if t.group(3) == "1" else "")
     t = re.search(r"(w8a8_gemm_kernel)ILb([01])ELi(\d)ELb([01])E", entry)
     if t:
         return (f"{t.group(1)}<{'e4m3' if t.group(2) == '1' else 'int8'},{t.group(3)}>"
@@ -327,7 +334,7 @@ def _ptxas_label(entry: str) -> str:
 
 def ptxas_summary(pkg) -> dict:
     """Registers, spills and the ptxas notes of the tensor-core kernels
-    (int4 K1 / K11, int8 K7 / K12, W8A8 K8, bf16 K10, paged attention K2 /
+    (int4 K1 / K11, int8 K7 / K12, W8A8 K8, block fp8 K9, bf16 K10, paged attention K2 /
     K3 / K5, MLA attention K13; built with -Xptxas -v), and each configuration's dynamic shared
     memory. Fails the run on a spill, on a wgmma that ptxas serialized, and
     where a source's report is missing or names none of its kernels with
@@ -371,6 +378,9 @@ def ptxas_summary(pkg) -> dict:
                               for c in (128, 64, 32) for w in (1, 2)})
     lib = b.library("w8a8_gemm")
     out["smem_bytes"].update({f"w8a8 warpgroups={w}": lib.w8a8_gemm_smem_bytes(w)
+                              for w in (1, 2)})
+    lib = b.library("block_fp8_gemm")
+    out["smem_bytes"].update({f"block fp8 warpgroups={w}": lib.block_fp8_gemm_smem_bytes(w)
                               for w in (1, 2)})
     lib = b.library("grouped_gemm")
     out["smem_bytes"].update({f"bf16 warpgroups={w}": lib.bf16_gemm_smem_bytes(w)
@@ -499,8 +509,7 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
         fail(f"{name} {case}M={M} K={K} N={N}: rel err {rel}")
     big = M >= 4096
     ms = time_ms(lambda: fn(*args, out_dtype), reps=10 if big else 20)
-    dev_ms = (graph_ms(lambda: fn(*args, out_dtype), reps=5 if big else 10)
-              if name != "block_fp8_gemm" else None)
+    dev_ms = graph_ms(lambda: fn(*args, out_dtype), reps=5 if big else 10)
     plain_ms = time_ms(lambda: plain(*args, out_dtype), reps=2 if big else 5,
                        warmup=1 if big else 3)
     if name == "int8_gemm":
@@ -524,8 +533,7 @@ def gemm8_row(pkg, name, args, out_dtype, case, unstacked=False):
     row = _case(name, source, plain_body if unstacked else stacked_body, err, rel, ms,
                 plain_ms, bound_ms(nbytes, 2.0 * M * K * N, peak), lib_ms,
                 f"{case}M={M} K={K} N={N} out={str(out_dtype).split('.')[-1]}")
-    if dev_ms is not None:
-        row["device_ms"] = dev_ms
+    row["device_ms"] = dev_ms
     return row
 
 
@@ -1111,6 +1119,117 @@ def check_kv_write_rows(pkg, g, L, widths, dtypes, N, n_pages, ps=64, layer=1):
     return kv_rows_write_row(pkg, pages, rows, pi, ri, layer, "")
 
 
+def kv_step_row(pkg, arenas, nk, nv, pt, start, valid, layer, ks, vs, case):
+    """K16's step entry (``kv_write_step``: K, V and the fp8_tok scale rows
+    in one launch, from the step's own tensors) on these arenas against its
+    plain version (``kv_write_step_plain``: the eager route, ``kv_step_rows``
+    then ``kv_write_rows_plain``), byte for byte outside the null page 0
+    (where only the plain version writes the invalid tokens); it must be
+    one CUDA kernel a call (torch.profiler). Timed: wall (``paired_ms``, in
+    turns with the yardstick), device ms with the L2 cold (``cold_ms``),
+    the plain version; the bound: the written tokens' input rows read once,
+    their arena rows (and scale rows) written once, the indices and scales;
+    the yardstick: index_put_ of the rows the eager route prepares, one call
+    an arena."""
+    import torch
+
+    ku = pkg["kv_update"]
+    arenas = tuple(arenas)
+    got = ku.kv_write_step(tuple(a.clone() for a in arenas), nk, nv, pt, start, valid,
+                           layer, ks, vs)
+    ref = ku.kv_write_step_plain(tuple(a.clone() for a in arenas), nk, nv, pt, start, valid,
+                                 layer, ks, vs)
+    err = 0.0
+    for a, b in zip(got, ref):
+        ga, gb = a[:, 1:].view(torch.uint8), b[:, 1:].view(torch.uint8)
+        if not torch.equal(ga, gb):
+            fail(f"kv_write_step differs from its plain version outside page 0 ({case}: "
+                 f"{int((ga != gb).sum())} bytes of a {a.dtype} arena)")
+        err = max(err, _errs(ga, gb)[0])
+    del got, ref
+    work = tuple(a.clone() for a in arenas)
+
+    def run():
+        return ku.kv_write_step(work, nk, nv, pt, start, valid, layer, ks, vs)
+    plain_ms = time_ms(lambda: ku.kv_write_step_plain(work, nk, nv, pt, start, valid, layer,
+                                                      ks, vs), reps=5)
+    kernels = kernels_per_call(run)
+    if kernels > 1:
+        fail(f"kv_write_step launched {kernels} CUDA kernels a call ({case})")
+    rows, fp, fr = ku.kv_step_rows(arenas, nk, nv, pt, start, valid, ks, vs)
+    raws = [(w.view(torch.uint8)[layer], r.view(torch.uint8)) for w, r in zip(work, rows)]
+    ms, lib_ms = paired_ms(run, lambda: [a.index_put_((fp, fr), r) for a, r in raws])
+    B, Q, H, D = nk.shape
+    Dv = nv.shape[-1]
+    ps = arenas[0].shape[2]
+    n_w = len(ku.step_writes(pt.cpu(), start.cpu(), None if valid is None else valid.cpu(),
+                             Q, ps))
+    out_row = sum(a.shape[-1] * a.element_size() for a in arenas)
+    nbytes = (n_w * (H * (D + Dv) * nk.element_size() + out_row + pt.element_size())
+              + start.numel() * start.element_size() + (0 if valid is None else B * Q)
+              + sum(0 if t is None else t.numel() * 4 for t in (ks, vs)))
+    mode = ku.STEP_MODES[ku.step_static(arenas, nk, nv, pt, start, valid, ks, vs)[0].mode]
+    row = _case("kv_write_step", "kv_rows.cu", f"{KVU}:27 _write_kernel", err, err, ms,
+                plain_ms, bound_ms(nbytes, 0.0), lib_ms,
+                f"{case}{mode} B={B} Q={Q} H={H} D={D}+{Dv} "
+                f"{str(nk.dtype).split('.')[-1]} in, written_rows={n_w} of {B * Q}, "
+                f"L={arenas[0].shape[0]}")
+    row.update(device_ms=cold_ms(run), kernels_per_call=kernels)
+    del work
+    return row
+
+
+# K16's step-entry cases: (B, Q, holes in valid)
+STEP_SHAPES = ((1, 1, False), (1, 17, True), (1, 64, True), (8, 17, True), (8, 512, True))
+
+
+def step_operands(g, kind, B, Q, holes, L=4, ps=64):
+    """Arenas of ``kind`` (bf16, fp8: static e4m3, fp8_tok, mla: latent
+    576 + 512 lanes) at Llama-2-7B's / DeepSeek-V2-Lite's row widths (L
+    layers: the rows do not depend on depth), and a step's tensors as the
+    models pass them: K a contiguous [B, Q, H, D], V a view into a fused
+    projection output; contexts of 0-539 tokens, every fifth token invalid
+    where ``holes``."""
+    import torch
+
+    H, D, Dv = (1, 576, 512) if kind == "mla" else (32, 128, 128)
+    P = (540 + Q) // ps + 2
+    n_pages = B * P + 1
+    dt = torch.float8_e4m3fn if kind in ("fp8", "fp8_tok") else torch.bfloat16
+    arenas = tuple(_random_like((L, n_pages, ps, H * w), dt, g) for w in (D, Dv))
+    if kind == "fp8_tok":
+        arenas += tuple(torch.rand(L, n_pages, ps, H, generator=g, device="cuda")
+                        for _ in range(2))
+    nk = (torch.randn(B, Q, H, D, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    fused = (torch.randn(B, Q, H * (D + Dv), generator=g, device="cuda") * 3).to(torch.bfloat16)
+    nv = fused[..., H * D:].reshape(B, Q, H, Dv)
+    pt = (torch.randperm(B * P, generator=g, device="cuda") + 1).reshape(B, P).to(torch.int32)
+    start = torch.randint(0, 540, (B,), generator=g, device="cuda")
+    valid = torch.ones(B, Q, dtype=torch.bool, device="cuda")
+    if holes:
+        valid[:, 2::5] = False
+    ks = vs = None
+    if kind == "fp8":
+        ks, vs = (torch.rand(H, generator=g, device="cuda") * 0.01 + 0.002 for _ in range(2))
+    return arenas, nk, nv, pt, start, valid, ks, vs
+
+
+def step_rows(pkg, g) -> list:
+    """K16's step entry in every arena kind at decode (B = 1 Q = 1), a
+    verify (Q = 17), the generator's Q = 64, a B = 8 verify and an 8 x 512
+    prefill chunk, with holes in ``valid``."""
+    import torch
+
+    rows = []
+    for kind in ("bf16", "fp8", "fp8_tok", "mla"):
+        for B, Q, holes in STEP_SHAPES:
+            ops = step_operands(g, kind, B, Q, holes)
+            rows.append(kv_step_row(pkg, ops[0], *ops[1:6], 1, *ops[6:], ""))
+            del ops
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kv_move_row(pkg, pages, sp, sr, dp, dr, case):
     """K17 on these pages and moves against its plain version (byte for
     byte), timed. The bound: each kept move's row read once and written
@@ -1171,18 +1290,21 @@ def check_kv_move_rows(pkg, g, L, n_pages, ps, row, B, M):
 
 
 def row_kernel_rows(pkg, g, cfg) -> list:
-    """K16 and K17 against their plain versions. K16: bf16 K and V rows at
-    every width the main paths write (decode to an 8 x 512 prefill), e4m3
-    rows, fp8_tok's e4m3 rows with their f32 scale rows of 32 heads, scale
-    rows of 4 heads, MLA's 576 + 512 lanes. K17: the generator's
-    compactions (one request, 12 and 63 moves) and a batch of four."""
+    """K16 and K17 against their plain versions. K16's step entry in every
+    arena kind (``step_rows``); its general entry (the JAX contract): bf16
+    K and V rows at every width the main paths write (decode to an 8 x 512
+    prefill), e4m3 rows, fp8_tok's e4m3 rows with their f32 scale rows of
+    32 heads, scale rows of 4 heads, MLA's 576 + 512 lanes. K17: the
+    generator's compactions (one request, 12 and 63 moves) and a batch of
+    four."""
     import torch
 
     L, HD, Hkv = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim, \
         cfg.num_key_value_heads
     bf, e4, f32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
-    rows = [check_kv_write_rows(pkg, g, L, (HD, HD), (bf, bf), N, 66)
-            for N in (1, 64, 256, 512, 4096)]
+    rows = step_rows(pkg, g)
+    rows += [check_kv_write_rows(pkg, g, L, (HD, HD), (bf, bf), N, 66)
+             for N in (1, 64, 256, 512, 4096)]
     for N in (64, 512):
         rows.append(check_kv_write_rows(pkg, g, L, (HD, HD), (e4, e4), N, 66))
         rows.append(check_kv_write_rows(pkg, g, L, (HD, HD, Hkv, Hkv), (e4, e4, f32, f32),
@@ -1231,14 +1353,7 @@ def phase_kernels(pkg, cfg) -> list:
         for M in (17, 512):
             rows.append(check_int4_gemm(pkg, g, M, E, 2 * I, torch.bfloat16, group))
     torch.cuda.empty_cache()
-    name = "block_fp8_gemm"
-    for M in (1, 17, 512):
-        for K, N in layer_shapes:
-            rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
-        rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
-    # ragged: K and N off the 128 grid (K odd), both output types
-    rows.append(check_gemm8(pkg, g, name, 17, 333, 260, torch.bfloat16, "ragged "))
-    rows.append(check_gemm8(pkg, g, name, 9, 200, 132, torch.float32, "ragged "))
+    rows += k9_rows(pkg, g, cfg)
     rows += int8_rows(pkg, g, cfg)
     rows += w8a8_rows(pkg, g, cfg)
     rows += attention_rows(pkg, g, cfg)
@@ -1349,15 +1464,45 @@ def w8a8_rows(pkg, g, cfg) -> list:
     return rows
 
 
-def check_w8a8_tile_edges(pkg, g, E) -> None:
-    """K8 in both formats and both output types: a row alone equals itself
-    at rows 0, 63, 64, 127, 128, 511 and 4095 of a 4096-row call (the
-    edges of the 64-row warpgroup tiles and 128-row blocks), and the first
-    m rows equal the 4096-row call's at m = 1 .. 512, bit for bit."""
+def k9_rows(pkg, g, cfg) -> list:
+    """K9 (the block-fp8 GEMM, on the 8-bit tensor cores) at decode (1),
+    lookahead (17), the generator's Q = 64, prefill (512) and serving's 8 x
+    512 prefill (4096) over the 7B layer shapes and the fp32 LM head, with
+    its device time; on off-grid shapes it takes (K, N multiples of 16, not
+    of 128: partial K and column blocks); and its refusal of K or N off the
+    16 grid."""
     import torch
 
-    fn = pkg["w8a8"].w8a8_gemm
-    for name in ("w8a8_gemm[int8]", "w8a8_gemm[fp8]"):
+    E, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    HD = cfg.num_key_value_heads * cfg.head_dim
+    name, rows = "block_fp8_gemm", []
+    for M in (1, 17, 64, 512, 4096):
+        for K, N in [(E, E + 2 * HD), (E, E), (E, 2 * I), (I, E)]:
+            rows.append(check_gemm8(pkg, g, name, M, K, N, torch.bfloat16))
+        rows.append(check_gemm8(pkg, g, name, M, E, V, torch.float32, unstacked=True))
+        torch.cuda.empty_cache()
+    rows.append(check_gemm8(pkg, g, name, 17, 336, 272, torch.bfloat16, "off-grid "))
+    rows.append(check_gemm8(pkg, g, name, 9, 208, 144, torch.float32, "off-grid "))
+    for K, N in ((333, 256), (336, 260)):
+        xq, xs, q, s = gemm8_operands(pkg, g, name, 17, K, N)
+        try:
+            pkg["w8a8"].block_fp8_gemm(xq, xs, q, s)
+        except ValueError:
+            pass
+        else:
+            fail(f"{name} took K = {K}, N = {N} (K and N must be multiples of 16)")
+    return rows
+
+
+def check_w8a8_tile_edges(pkg, g, E) -> None:
+    """K8 in both formats and K9, both output types: a row alone equals
+    itself at rows 0, 63, 64, 127, 128, 511 and 4095 of a 4096-row call
+    (the edges of the 64-row warpgroup tiles and 128-row blocks), and the
+    first m rows equal the 4096-row call's at m = 1 .. 512, bit for bit."""
+    import torch
+
+    for name in ("w8a8_gemm[int8]", "w8a8_gemm[fp8]", "block_fp8_gemm"):
+        fn = pkg["w8a8"].block_fp8_gemm if name == "block_fp8_gemm" else pkg["w8a8"].w8a8_gemm
         xq, xs, q, s = gemm8_operands(pkg, g, name, 4096, E, E)
         for out in (torch.bfloat16, torch.float32):
             full = fn(xq, xs, q, s, out)
@@ -1375,7 +1520,8 @@ def check_batch_invariance(pkg, g, cfg) -> list:
     alone equals itself at rows 63, 64, 127, 128, 511 and 4095 of a
     4096-row call, bf16 and fp32 out, groups of 128, 64 and 32), the 8-bit
     GEMMs' rows at M = 1..4096 (K7's and K8's also at every place in a
-    tile, both output types, K7 at groups 128 and 64, K8 in both formats),
+    tile, both output types, K7 at groups 128 and 64, K8 in both formats,
+    K9),
     the activation quantization and the norm at
     every row count, and an attention row at Q = 1 and inside a 17-wide
     verify, bit for bit. Fails the run otherwise; returns no kernel rows."""
@@ -1430,8 +1576,8 @@ def check_batch_invariance(pkg, g, cfg) -> list:
     print("phase 2 batch invariance: int4_gemm (M = 1..4096 and rows 63, 64, 127, 128, "
           "511, 4095 alone, bf16 / fp32 out, groups 128 / 64 / 32), int8_gemm (also rows "
           "0, 63, 64, 127, 128, 511, 4095 alone, bf16 / fp32 out, groups 128 / 64), "
-          "w8a8_gemm (int8, fp8; also rows 0, 63, 64, 127, 128, 511, 4095 alone, bf16 / "
-          "fp32 out), block_fp8_gemm, quant_act, rms_norm and attention rows "
+          "w8a8_gemm (int8, fp8) and block_fp8_gemm (also rows 0, 63, 64, 127, 128, 511, "
+          "4095 alone, bf16 / fp32 out), quant_act, rms_norm and attention rows "
           "bit-identical at every width")
     return []
 
@@ -1484,6 +1630,7 @@ class Launches:
                       "kv_permute_pages": ku.kv_permute_pages,
                       "kv_compact_tail": ku.kv_compact_tail,
                       "kv_write_pages": ku.kv_write_pages,
+                      "kv_write_step": ku.kv_write_step,
                       "kv_write_rows": ku.kv_write_rows,
                       "kv_move_rows": ku.kv_move_rows}
         la, rn = pkg["linear_attention"], pkg["rmsnorm"]
@@ -1871,44 +2018,46 @@ class LaunchHooks:
 
 
 class RowWriteCapture(LaunchHooks):
-    """K16's inputs in real runs, for holding K16 against its plain version
-    on the writes the model makes. For each arena signature (the arenas'
-    types and row widths) it keeps the call with the most rows and the one
-    with the fewest: the rows (cloned at the call, strides kept), indices,
-    layer and arena shapes. The arenas' contents do not steer K16, so
-    ``rows`` replays each kept call on random arenas of its shapes, after the
-    run's counts are read."""
+    """K16's inputs in real runs, for holding its step entry against its
+    plain version on the writes the models make. For each arena signature
+    (the arenas' types and row widths) it keeps the call with the most
+    tokens and the one with the fewest: the step's K and V (copied with
+    their strides), page tables, start lengths, valid mask, layer, static
+    scales and arena shapes. The arenas' contents do not steer K16, so
+    ``rows`` replays each kept call on random arenas of its shapes through
+    ``kv_step_row``, after the run's counts are read."""
 
     def __init__(self, pkg):
         super().__init__(pkg)
         self.kept = {}
 
     def install(self):
-        self._wrap([(self.pkg["kv_update"], "_kv_write_rows_cuda", self._hook)])
+        self._wrap([(self.pkg["kv_update"], "_kv_write_step_cuda", self._hook)])
 
     @staticmethod
-    def _clone_rows(r):
+    def _copy(t):
+        """A copy of ``t`` with its strides (a view's gaps kept)."""
         import torch
 
-        if r.stride(0) == r.shape[1]:
-            return r.clone()
-        buf = torch.empty(r.shape[0], r.stride(0), dtype=r.dtype, device=r.device)
-        buf[:, : r.shape[1]] = r
-        return buf[:, : r.shape[1]]
+        if t is None:
+            return None
+        out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+        return out.copy_(t)
 
     def _hook(self, orig):
-        def hook(pages, rows, page_idx, row_idx, layer):
-            arenas, news = tuple(pages), tuple(rows)
-            sig = tuple((str(p.dtype).split(".")[-1], p.shape[-1]) for p in arenas)
-            N = page_idx.shape[0]
+        def hook(arenas, new_k, new_v, page_tables, start_lens, valid, layer, k_scale,
+                 v_scale):
+            sig = tuple((str(a.dtype).split(".")[-1], a.shape[-1]) for a in arenas)
+            N = new_k.shape[0] * new_k.shape[1]
             for which in ("most", "fewest"):
                 old = self.kept.get((sig, which))
                 if old is None or (N > old["N"] if which == "most" else N < old["N"]):
                     self.kept[(sig, which)] = dict(
-                        N=N, layer=layer, pi=page_idx.clone(), ri=row_idx.clone(),
-                        shapes=[(tuple(p.shape), p.dtype) for p in arenas],
-                        rows=[self._clone_rows(r) for r in news])
-            return orig(pages, rows, page_idx, row_idx, layer)
+                        N=N, layer=layer, shapes=[(tuple(a.shape), a.dtype) for a in arenas],
+                        ops=[self._copy(t) for t in (new_k, new_v, page_tables, start_lens,
+                                                     valid, k_scale, v_scale)])
+            return orig(arenas, new_k, new_v, page_tables, start_lens, valid, layer, k_scale,
+                        v_scale)
         return hook
 
     def rows(self, case: str) -> list:
@@ -1921,10 +2070,11 @@ class RowWriteCapture(LaunchHooks):
         for (sig, which), c in sorted(self.kept.items(), key=lambda kv: str(kv[0])):
             if which == "fewest" and self.kept[(sig, "most")]["N"] == c["N"]:
                 continue  # one call size only
-            pages = [_random_like(shape, dt, g) for shape, dt in c["shapes"]]
-            out.append(kv_rows_write_row(self.pkg, pages, c["rows"], c["pi"], c["ri"],
-                                         c["layer"], f"{case} "))
-            del pages
+            arenas = [_random_like(shape, dt, g) for shape, dt in c["shapes"]]
+            nk, nv, pt, start, valid, ks, vs = c["ops"]
+            out.append(kv_step_row(self.pkg, arenas, nk, nv, pt, start, valid, c["layer"], ks,
+                                   vs, f"{case} "))
+            del arenas
         self.kept = {}
         torch.cuda.empty_cache()
         return out
@@ -2177,9 +2327,50 @@ GEN_MODE_TOKENS = 64  # par and one modes, batch_generate
 GEN_DECODING_LENGTH = 63  # verify width Q = 64
 GEN_BRANCH_LENGTH = 12
 GEN_BATCH = 4
-# kernels with no caller on any path, launched by the generator's compaction
-# check: K17 and K4's general entry
-CHECK_ONLY = ("kv_move_rows", "kv_permute_pages")
+# kernels with no caller on any path, launched by the generator's checks: K17
+# and K4's and K16's general entries
+CHECK_ONLY = ("kv_move_rows", "kv_permute_pages", "kv_write_rows")
+
+
+class RowWriteCheck(LaunchHooks):
+    """K16's step entry held against its general entry (``kv_write_rows``,
+    the JAX contract) on a generator run's real writes: at every layer-0
+    ``kv_write_step`` call, a copy of the layer's arenas taken before the
+    call gets the step's rows by the eager route (``kv_step_rows``) and the
+    general entry; after the call the layer must hold the same bytes
+    outside the null page 0. The general entry has no caller on any path:
+    its launches here are the check's."""
+
+    def __init__(self, pkg):
+        super().__init__(pkg)
+        self.calls = 0
+
+    def install(self):
+        self._wrap([(self.pkg["kv_update"], "_kv_write_step_cuda", self._hook)])
+
+    def _hook(self, orig):
+        import torch
+
+        ku = self.pkg["kv_update"]
+
+        def hook(arenas, new_k, new_v, page_tables, start_lens, valid, layer, k_scale,
+                 v_scale):
+            if layer != 0:
+                return orig(arenas, new_k, new_v, page_tables, start_lens, valid, layer,
+                            k_scale, v_scale)
+            before = tuple(a[:1].clone() for a in arenas)
+            rows, fp, fr = ku.kv_step_rows(before, new_k, new_v, page_tables, start_lens,
+                                           valid, k_scale, v_scale)
+            ku.kv_write_rows(before, rows, fp, fr, 0)
+            out = orig(arenas, new_k, new_v, page_tables, start_lens, valid, layer, k_scale,
+                       v_scale)
+            for a, b in zip(arenas, before):
+                if not torch.equal(a[0, 1:].view(torch.uint8), b[0, 1:].view(torch.uint8)):
+                    fail("kv_write_rows (K16's general entry) differs from kv_write_step "
+                         "on a generator step")
+            self.calls += 1
+            return out
+        return hook
 
 
 class CompactionCheck(LaunchHooks):
@@ -2268,8 +2459,10 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
     yields the same tokens with K4's compaction entry held against K17 and
     K4's general entry on every verify step; par and one modes equal to AR
     over 64 tokens; batch_generate over 4 prompts, every row equal to its
-    solo AR stream. K17's and the general entry's launches are this check's,
-    counted apart from the path's."""
+    solo AR stream; in the stream run K16's step entry is held against its
+    general entry at every layer-0 write (``RowWriteCheck``). K17's and the
+    general entries' launches are these checks', counted apart from the
+    path's."""
     import numpy as np
     import torch
 
@@ -2318,17 +2511,20 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
 
     # stream_generate on a fresh trie, K4's compaction entry held against K17
     # and K4's general entry at every verify step
-    check = CompactionCheck(pkg)
+    check, write_check = CompactionCheck(pkg), RowWriteCheck(pkg)
     check.install()
+    write_check.install()
     launches.reset()
     try:
         pieces = list(generator().stream_generate(prompt, max_new_tokens=GEN_TOKENS,
                                                   use_lookahead=True))
     finally:
+        write_check.remove()
         check.remove()
     check_counts = launches.read()
     res["stream_equals_generate"] = pieces == la.sequences
     res["compaction_check"] = dict(compactions=check.calls, moves=check.moves)
+    res["row_write_check"] = dict(layer0_writes=write_check.calls)
 
     # par and one modes, and the batch
     gen = generator(GEN_BATCH)
@@ -2354,8 +2550,8 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
                         tok_s=sum(len(o.sequences) for o in batch) / batch_s,
                         mean_edls=float(np.mean([e for o in batch for e in o.edls[1:]])),
                         rows_equal_solo=[o.sequences == s_ for o, s_ in zip(batch, solo)])
-    # the stream run's launches are the path's, but for K17's and K4's general
-    # entry's (the check's)
+    # the stream run's launches are the path's, but for K17's and K4's and
+    # K16's general entries' (the checks')
     checked = {k: check_counts.pop(k) for k in CHECK_ONLY}
     res["launches"] = {k: v + check_counts.get(k, 0) for k, v in path_counts.items()}
     res["launches"].update({k: 0 for k in CHECK_ONLY})
@@ -2372,7 +2568,9 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
              f"{res['batch']['rows_equal_solo']}")
     if check.calls <= 0 or check.moves <= 0:
         fail("generator: the compaction check saw no compaction that moved a row")
-    need = ("kv_write_rows", "kv_compact_tail", "int4_gemm", "paged_attention[verify]",
+    if write_check.calls <= 0:
+        fail("generator: the row write check saw no write")
+    need = ("kv_write_step", "kv_compact_tail", "int4_gemm", "paged_attention[verify]",
             "paged_attention[decode]", "paged_attention_prefill")
     if any(res["launches"][k] <= 0 for k in need):
         fail(f"generator: launches {res['launches']} (needed {need})")
@@ -3914,9 +4112,10 @@ def main() -> None:
                          "versions, phase 3 and the host-trie generator phase (a partial "
                          "run: prints no kernels line and no result line)")
     ap.add_argument("--w8a8-only", action="store_true",
-                    help="run only K8 (the W8A8 GEMM) against its plain version, its "
-                         "tile-edge checks and the quant modes that run it (a partial "
-                         "run: prints no kernels line and no result line)")
+                    help="run only K8 and K9 (the W8A8 and block-fp8 GEMMs) against "
+                         "their plain versions, their tile-edge checks and the quant "
+                         "modes that run them (a partial run: prints no kernels line "
+                         "and no result line)")
     ap.add_argument("--int8-only", action="store_true",
                     help="run only K7 and K12 (the int8 weight-only GEMMs) against their "
                          "plain versions, K7's tile-edge checks, K12's bit identities, "
@@ -3974,13 +4173,13 @@ def main() -> None:
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
     if args.w8a8_only:
         g = torch.Generator(device="cuda").manual_seed(SEED)
-        rows = w8a8_rows(pkg, g, cfg)
+        rows = w8a8_rows(pkg, g, cfg) + k9_rows(pkg, g, cfg)
         for r in rows:
             print("phase 2 kernel: " + json.dumps(r))
         check_w8a8_tile_edges(pkg, g, cfg.hidden_size)
         print("phase 2 w8a8 tile edges: rows alone equal to themselves in a 4096-row call")
         quant_res = phase_quant_modes(pkg, cfg, tuple(
-            r for r in QUANT_RUNS if MODE_KERNEL[r[0]].startswith("w8a8_gemm")))
+            r for r in QUANT_RUNS if MODE_KERNEL[r[0]] != "int8_gemm"))
         rows += quant_res["kernels"]
         wall_s = time.perf_counter() - T_START
         print(f"partial run (W8A8 only), wall {wall_s:.1f} s on {env['card']}")
@@ -4079,6 +4278,10 @@ def main() -> None:
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
+    no_write = [k for k, p in by_phase.items()
+                if k != "generator_compaction_check" and p["kv_write_step"] <= 0]
+    if no_write:
+        fail(f"K16's step entry wrote no KV rows in {no_write}")
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]

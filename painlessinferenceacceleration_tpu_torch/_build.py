@@ -7,7 +7,7 @@ and loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is never served by a stale build.
 
-The tensor-core GEMM sources (int4, int8, W8A8, bf16), the paged and MLA
+The tensor-core GEMM sources (int4, int8, W8A8, block fp8, bf16), the paged and MLA
 attention sources, the norm and the KV compaction are compiled with
 ``-Xptxas -v``: the register,
 shared-memory and spill report of each kernel is kept beside its library
@@ -48,8 +48,8 @@ NVCC_FLAGS = (
 # registers, the paged and MLA attention kernels, and the norm and the KV
 # compaction, which hold rows in registers and shared memory
 VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm", "int8_gemm", "grouped_int8_gemm",
-                   "w8a8_gemm", "grouped_gemm", "paged_attention", "mla_attention",
-                   "rmsnorm", "kv_permute")
+                   "w8a8_gemm", "block_fp8_gemm", "grouped_gemm", "paged_attention",
+                   "mla_attention", "rmsnorm", "kv_permute")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, tuple] = {}

@@ -44,15 +44,13 @@ import torch
 from painlessinferenceacceleration_tpu_torch._build import resolve_device
 from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
 from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+    FP8,
     kv_compact_tail,
     kv_move_rows,
     kv_write_pages,
-    kv_write_rows,
+    kv_write_step,
     tail_window,
 )
-
-FP8 = torch.float8_e4m3fn
-FP8_MAX = 448.0  # largest finite e4m3 value
 
 
 def kv_cache_shape(mcfg: ModelConfig, ecfg: EngineConfig) -> Tuple[int, ...]:
@@ -187,38 +185,18 @@ def write_kv_pages(
 ):
     """Scatter the step's K/V rows of layer ``layer`` into the arena, in
     place (quantizing them for an e4m3 arena). Token q of request b lands at
-    slot ``start_lens[b] + q``; invalid tokens go to the null page 0, where
-    the last one written is kept. The K and V rows (and in fp8_tok mode
-    their scales) go in one ``kv_write_rows`` call. Returns the arenas
-    written (with the scale arenas in fp8_tok mode)."""
-    B, Q, H, D = new_k.shape
-    ps = k_pages.shape[2]
-    P = page_tables.shape[1]
-    slots = start_lens.long()[:, None] + torch.arange(Q, device=new_k.device)[None, :]
-    page_of = torch.gather(page_tables.long(), 1, (slots // ps).clamp(max=P - 1))
-    if valid is not None:
-        page_of = torch.where(valid, page_of, torch.zeros_like(page_of))
-    fp, fr = page_of.reshape(-1), (slots % ps).reshape(-1)
-    Dv = new_v.shape[-1]  # may differ from D (MLA)
-    nk = new_k.reshape(B * Q, H, D)
-    nv = new_v.reshape(B * Q, H, Dv)
-    arenas = [k_pages, v_pages]
+    slot ``start_lens[b] + q``, its page index clamped to the table's last.
+    On the card: one ``kv_write_step`` launch for K, V and (fp8_tok) their
+    scale rows, which reads these tensors as they come; an invalid token
+    writes nothing. On the CPU: the eager route (``kv_step_rows``, then the
+    row scatter), where invalid tokens go to the null page 0, the last one
+    written kept. Returns the arenas written (with the scale arenas in
+    fp8_tok mode)."""
+    arenas = (k_pages, v_pages)
     if k_tok_scale is not None:
-        kf, vf = nk.to(torch.float32), nv.to(torch.float32)
-        sk = kf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX  # [BQ, H]
-        sv = vf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX
-        nk, nv = (kf / sk[..., None]).to(FP8), (vf / sv[..., None]).to(FP8)
-        arenas += [k_tok_scale, v_tok_scale]
-    elif k_pages.dtype == FP8:
-        nk = (nk.to(torch.float32) / k_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
-        nv = (nv.to(torch.float32) / v_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
-    else:
-        nk, nv = nk.to(k_pages.dtype), nv.to(v_pages.dtype)
-    rows = [nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * Dv)]
-    if k_tok_scale is not None:
-        rows += [sk, sv]
-    kv_write_rows(tuple(arenas), tuple(rows), fp, fr, layer)
-    return tuple(arenas)
+        arenas += (k_tok_scale, v_tok_scale)
+    return kv_write_step(arenas, new_k, new_v, page_tables, start_lens, valid, layer,
+                         k_scale, v_scale)
 
 
 def gather_kv_pages(pages: torch.Tensor, page_tables: torch.Tensor,

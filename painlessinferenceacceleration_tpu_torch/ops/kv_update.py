@@ -28,11 +28,18 @@ raises.
 type (e4m3 K/V pages and f32 scale pages); an aliased destination keeps the
 later window page. It launches ``csrc/kv_page_write.cu`` on a CUDA tensor.
 
-``kv_write_rows`` replaces the Pallas ``_write_kernel`` / ``kv_write_rows``,
-the row scatter ``pages[layer, page_idx[i], row_idx[i]] = rows[i]`` that
-ends ``write_kv_pages`` (every layer of every forward). One call writes up
-to four arenas that share the indices (K, V and the fp8_tok scale arenas),
-in one launch of ``csrc/kv_rows.cu`` on a CUDA tensor.
+K16 (``csrc/kv_rows.cu``) replaces the Pallas ``_write_kernel`` /
+``kv_write_rows``, the row scatter that ends ``write_kv_pages`` (every layer
+of every forward), with two entries. ``kv_write_step`` is the one every
+path takes: it reads the step's own K/V, page tables, start lengths and
+valid mask as ``write_kv_pages`` is given them, converts the rows to the
+arena's kind (a cast, static e4m3 or per-token e4m3 with its scale rows)
+and writes K and V (and the scales) in one launch; its plain version,
+``kv_write_step_plain``, is the eager route the CPU takes (``kv_step_rows``,
+then ``kv_write_rows_plain``), and ``step_writes`` replays which rows its
+kernel writes. ``kv_write_rows`` is the JAX contract, ``pages[layer,
+page_idx[i], row_idx[i]] = rows[i]`` for up to four arenas sharing the
+indices; no path calls it.
 
 ``kv_move_rows`` replaces the Pallas ``_move_kernel`` /
 ``kv_move_rows_pallas``: ``pages[:, dst] = pages[:, src]`` over all layers,
@@ -40,12 +47,14 @@ every source read before any destination is written (the gather-then-set
 semantics of the JAX package's ``move_kv_rows``, which the Pallas body's
 ordered DMAs only approach), in one launch of ``csrc/kv_rows.cu``.
 
-Both take any element type through byte views, and when two rows or two
-moves name one destination the later one is kept (inactive rows and masked
+``kv_write_rows`` and ``kv_move_rows`` take any element type through byte
+views, and when two rows or two moves name one destination the later one is kept (inactive rows and masked
 moves all go to the null page 0).
 
 Each wrapper's ``launches`` counts its kernel launches. Every wrapper reaches
-its C entry through ``_build.function``, which sets its argument types once.
+its C entry through ``_build.function``, which sets its argument types once;
+K4's and K16's wrappers build a ctypes struct of a launch's fixed fields
+once a shape (``_STATICS``).
 """
 
 from __future__ import annotations
@@ -443,38 +452,64 @@ def kv_write_rows_plain(pages, rows, page_idx: torch.Tensor, row_idx: torch.Tens
     return pages
 
 
-_WRITE_ROWS_ARGS = (_I,) + (_P,) * 6 + (_I,) * 4 + (_P,)
+def _desc(t):
+    """A tensor's part of a ``_STATICS`` key."""
+    return None if t is None else (t.shape, t.stride(), t.dtype, t.device)
 
 
-def _kv_write_rows_cuda(pages, rows, page_idx, row_idx, layer):
-    arenas, news = _as_tuple(pages), _as_tuple(rows)
+class _RowsStatic(ctypes.Structure):
+    """What a ``kv_write_rows`` launch fixes for a shape of its operands
+    (``KvRowsStatic`` of ``csrc/kv_rows.cu``, field for field)."""
+    _fields_ = [("row_bytes", _LL * 4), ("rows_stride", _LL * 4), ("n_arenas", _I),
+                ("pi_wide", _I), ("ri_wide", _I), ("N", _I), ("L", _I), ("n_pages", _I),
+                ("ps", _I)]
+
+
+def _rows_static(arenas, news, page_idx, row_idx):
     if not 0 < len(arenas) == len(news) <= 4:
         raise ValueError(f"kv_write_rows takes 1-4 arenas with their rows, got "
                          f"{len(arenas)} and {len(news)}")
     L, n_pages, ps = arenas[0].shape[:3]
     N = page_idx.shape[0]
-    pi = page_idx.to(torch.int32).contiguous()
-    ri = row_idx.to(torch.int32).contiguous()
-    if ri.shape != (N,) or not 0 <= layer < L:
-        raise ValueError(f"kv_write_rows: row_idx {tuple(ri.shape)} for {N} rows, "
-                         f"layer {layer} of {L}")
+    dev = arenas[0].device
+    if page_idx.shape != (N,) or row_idx.shape != (N,):
+        raise ValueError(f"kv_write_rows: page_idx {tuple(page_idx.shape)} and row_idx "
+                         f"{tuple(row_idx.shape)} must be [N]")
+    wides = [_index(t, dev, "kv_write_rows") for t in (page_idx, row_idx)]
     for pg, rw in zip(arenas, news):
         if (pg.dim() != 4 or pg.shape[:3] != (L, n_pages, ps) or not pg.is_contiguous()
                 or rw.dtype != pg.dtype or rw.dim() != 2 or rw.shape[0] != N
-                or rw.shape[1] * rw.element_size() != pg[0, 0, 0].numel() * pg.element_size()
-                or rw.stride(1) != 1 or not (rw.device == pg.device == pi.device == ri.device)):
+                or rw.shape[1] != pg.shape[3] or (rw.shape[1] > 1 and rw.stride(1) != 1)
+                or not rw.device == pg.device == dev):
             raise ValueError(f"kv_write_rows: rows {tuple(rw.shape)} {rw.dtype} "
                              f"(strides {rw.stride()}) do not fit the contiguous arena "
                              f"{tuple(pg.shape)} {pg.dtype} on {pg.device}")
-    n = len(arenas)
+    pad = [0] * (4 - len(arenas))
+    st = _RowsStatic((_LL * 4)(*[rw.shape[1] * rw.element_size() for rw in news], *pad),
+                     (_LL * 4)(*[rw.stride(0) * rw.element_size() for rw in news], *pad),
+                     len(arenas), *wides, N, L, n_pages, ps)
+    return st, ctypes.addressof(st), L
+
+
+_WRITE_ROWS_ARGS = (_P,) * 11 + (_I, _P)
+
+
+def _kv_write_rows_cuda(pages, rows, page_idx, row_idx, layer):
+    arenas, news = _as_tuple(pages), _as_tuple(rows)
+    key = ("rows", tuple(map(_desc, arenas)), tuple(map(_desc, news)), _desc(page_idx),
+           _desc(row_idx))
+    st = _STATICS.get(key)
+    if st is None:
+        st = _STATICS[key] = _rows_static(arenas, news, page_idx, row_idx)
+    if not 0 <= layer < st[2]:
+        raise ValueError(f"kv_write_rows: layer {layer} of {st[2]}")
+    pad = (None,) * (4 - len(arenas))
     lib, fn = _build.function("kv_rows", "kv_write_rows", _WRITE_ROWS_ARGS)
-    ptrs = (ctypes.c_void_p * n)(*(pg.data_ptr() for pg in arenas))
-    srcs = (ctypes.c_void_p * n)(*(rw.data_ptr() for rw in news))
-    row_bytes = (ctypes.c_longlong * n)(*(rw.shape[1] * rw.element_size() for rw in news))
-    strides = (ctypes.c_longlong * n)(*(rw.stride(0) * rw.element_size() for rw in news))
-    err = fn(n, ptrs, srcs, row_bytes, strides, pi.data_ptr(), ri.data_ptr(), N, layer,
-             n_pages, ps, _build.stream_of(arenas[0]))
-    _build.check(lib, err, "kv_write_rows")
+    err = fn(st[1], *(a.data_ptr() for a in arenas), *pad, *(r.data_ptr() for r in news),
+             *pad, page_idx.data_ptr(), row_idx.data_ptr(), layer,
+             _build.stream_of(arenas[0]))
+    if err:
+        _build.check(lib, err, "kv_write_rows")
     kv_write_rows.launches += 1
     return pages
 
@@ -484,9 +519,10 @@ def kv_write_rows(pages, rows, page_idx: torch.Tensor, row_idx: torch.Tensor,
     """Write rows[i] to pages[layer, page_idx[i], row_idx[i]] in place.
 
     pages [L, n_pages, ps, row] and rows [N, row] of the same type, or
-    tuples of up to four such pairs sharing the int32 [N] indices (0 = null
-    page for dropped rows); a later row wins over an earlier one with the
-    same destination. Returns ``pages``."""
+    tuples of up to four such pairs sharing the [N] indices (int32 or int64;
+    0 = null page for dropped rows); a later row wins over an earlier one
+    with the same destination. The JAX package's contract; ``write_kv_pages``
+    takes ``kv_write_step``. Returns ``pages``."""
     first = _as_tuple(pages)[0]
     if first.is_cuda:
         return _kv_write_rows_cuda(pages, rows, page_idx, row_idx, layer)
@@ -496,6 +532,239 @@ def kv_write_rows(pages, rows, page_idx: torch.Tensor, row_idx: torch.Tensor,
 
 
 kv_write_rows.launches = 0
+
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0  # largest finite e4m3 value
+STEP_MAX_HEADS = 256  # kv_write_step's heads (csrc/kv_rows.cu kMaxHeads)
+# kv_write_step's conversions (KvStepStatic.mode): a cast to a bf16 or fp32
+# arena, static e4m3, per-token e4m3
+STEP_MODES = ("bf16", "fp32", "fp8", "fp8_tok")
+
+
+def kv_step_rows(arenas, new_k: torch.Tensor, new_v: torch.Tensor,
+                 page_tables: torch.Tensor, start_lens: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None, k_scale=None, v_scale=None):
+    """The step's rows and destinations in eager torch ops (the JAX
+    package's ``write_kv_pages`` preparation): (rows, page_idx, row_idx)
+    for ``kv_write_rows`` on ``arenas`` (K, V, and with four arenas the
+    fp8_tok scale arenas). Token q of request b goes to slot
+    ``start_lens[b] + q``, its page clamped to the table's last; an invalid
+    token to the null page 0. An e4m3 arena gets ``clamp(x / scale[h],
+    +-448)`` (static scales) or ``x / s`` with ``s = max(amax |x|, 1e-8) /
+    448`` a (token, head), and the scale rows ``s``."""
+    k_pages = arenas[0]
+    B, Q, H, D = new_k.shape
+    ps = k_pages.shape[2]
+    P = page_tables.shape[1]
+    slots = start_lens.long()[:, None] + torch.arange(Q, device=new_k.device)[None, :]
+    page_of = torch.gather(page_tables.long(), 1, (slots // ps).clamp(max=P - 1))
+    if valid is not None:
+        page_of = torch.where(valid, page_of, torch.zeros_like(page_of))
+    fp, fr = page_of.reshape(-1), (slots % ps).reshape(-1)
+    Dv = new_v.shape[-1]  # may differ from D (MLA)
+    nk = new_k.reshape(B * Q, H, D)
+    nv = new_v.reshape(B * Q, H, Dv)
+    tok = len(arenas) == 4
+    if tok:
+        kf, vf = nk.to(torch.float32), nv.to(torch.float32)
+        sk = kf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX  # [BQ, H]
+        sv = vf.abs().amax(dim=-1).clamp(min=1e-8) / FP8_MAX
+        nk, nv = (kf / sk[..., None]).to(FP8), (vf / sv[..., None]).to(FP8)
+    elif k_pages.dtype == FP8:
+        nk = (nk.to(torch.float32) / k_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
+        nv = (nv.to(torch.float32) / v_scale[None, :, None]).clamp(-FP8_MAX, FP8_MAX).to(FP8)
+    else:
+        nk, nv = nk.to(k_pages.dtype), nv.to(arenas[1].dtype)
+    rows = (nk.reshape(B * Q, H * D), nv.reshape(B * Q, H * Dv))
+    if tok:
+        rows += (sk, sv)
+    return rows, fp, fr
+
+
+def kv_write_step_plain(arenas, new_k, new_v, page_tables, start_lens, valid=None,
+                        layer: int = 0, k_scale=None, v_scale=None):
+    """The composed route: ``kv_step_rows``, then ``kv_write_rows_plain``."""
+    arenas = _as_tuple(arenas)
+    rows, fp, fr = kv_step_rows(arenas, new_k, new_v, page_tables, start_lens, valid,
+                                k_scale, v_scale)
+    kv_write_rows_plain(arenas, rows, fp, fr, layer)
+    return arenas
+
+
+def step_writes(page_tables, start_lens, valid, Q: int, ps: int) -> list:
+    """The rows ``kv_write_step``'s kernel writes, in plain Python (host
+    lists or CPU tensors in): (b, q, page, row) for each valid token whose
+    row no later valid token of its request names. Only past the end of a
+    page table (its page index clamped to the last) can a later token, q +
+    k ps, name the same row. The test oracle of the kernel's rule, and the
+    count of written rows in its bound."""
+    pt, start = (t.tolist() if hasattr(t, "tolist") else t for t in (page_tables, start_lens))
+    ok = (valid.tolist() if hasattr(valid, "tolist") else valid) if valid is not None else None
+    out = []
+    for b, s0 in enumerate(start):
+        P = len(pt[b])
+        for q in range(Q):
+            if ok is not None and not ok[b][q]:
+                continue
+            slot = s0 + q
+            if slot // ps >= P - 1 and any(ok is None or ok[b][q2]
+                                           for q2 in range(q + ps, Q, ps)):
+                continue
+            out.append((b, q, pt[b][min(slot // ps, P - 1)], slot % ps))
+    return out
+
+
+class _StepStatic(ctypes.Structure):
+    """What a ``kv_write_step`` launch fixes for a shape of its operands
+    (``KvStepStatic`` of ``csrc/kv_rows.cu``, field for field): built and
+    checked once a shape, so a call converts its pointers only."""
+    _fields_ = [("k_stride", _LL * 3), ("v_stride", _LL * 3), ("pt_stride", _LL),
+                ("valid_stride", _LL), ("pt_wide", _I), ("start_wide", _I), ("B", _I),
+                ("Q", _I), ("H", _I), ("D", _I), ("Dv", _I), ("P", _I), ("ps", _I),
+                ("n_pages", _I), ("L", _I), ("in_f32", _I), ("mode", _I)]
+
+
+def step_static(arenas, new_k, new_v, page_tables, start_lens, valid=None, k_scale=None,
+                v_scale=None):
+    """``kv_write_step``'s fixed fields for these operands, checked: (the
+    ctypes struct, its address, the arenas' layers). Raises on what the
+    kernel does not take: arenas that are not contiguous [L, n_pages, ps,
+    H * D] (K) and [.., H * Dv] (V) rows on one device, with 16-byte-multiple
+    rows; new_k [B, Q, H, D] and new_v [B, Q, H, Dv] of one type, bf16 or
+    fp32, whose last axis is not contiguous or whose D or Dv is not a
+    multiple of 8; more than 256 heads; an e4m3 arena without its scales
+    (static [H] fp32, or the fp8_tok arenas [L, n_pages, ps, H] fp32);
+    index tensors other than int32 / int64 with a contiguous last axis;
+    ``valid`` other than bool [B, Q] with a contiguous last axis. Builds on
+    any device (the CPU tests build it)."""
+    arenas = _as_tuple(arenas)
+    if len(arenas) not in (2, 4):
+        raise ValueError(f"kv_write_step takes (K, V) or (K, V, K scales, V scales) "
+                         f"arenas, got {len(arenas)}")
+    k, v = arenas[:2]
+    dev = k.device
+    if new_k.dim() != 4 or new_v.dim() != 4:
+        raise ValueError(f"kv_write_step: new_k {tuple(new_k.shape)} and new_v "
+                         f"{tuple(new_v.shape)} must be [B, Q, H, D]")
+    B, Q, H, D = new_k.shape
+    Dv = new_v.shape[-1]
+    L, n_pages, ps = k.shape[:3]
+    if new_v.shape[:3] != (B, Q, H) or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3] or k.shape[3] != H * D or v.shape[3] != H * Dv:
+        raise ValueError(f"kv_write_step: new_k {tuple(new_k.shape)}, new_v "
+                         f"{tuple(new_v.shape)} do not fit arenas {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    for a in (k, v):
+        _arena_rows(a, "kv_write_step")
+    if new_k.dtype not in (torch.bfloat16, torch.float32) or new_v.dtype != new_k.dtype:
+        raise ValueError(f"kv_write_step takes bf16 or fp32 K / V of one type, not "
+                         f"{new_k.dtype} / {new_v.dtype}")
+    if D % 8 or Dv % 8 or new_k.stride(-1) != 1 or new_v.stride(-1) != 1:
+        raise ValueError(f"kv_write_step reads 8-lane groups of contiguous head rows: D "
+                         f"{D} and Dv {Dv} multiples of 8, last axes contiguous (strides "
+                         f"{new_k.stride()} / {new_v.stride()})")
+    if H > STEP_MAX_HEADS:
+        raise ValueError(f"kv_write_step takes {STEP_MAX_HEADS} heads at most, not {H}")
+    if any(t.device != dev for t in (v, new_k, new_v)):
+        raise ValueError("kv_write_step: arenas and rows on one device")
+    if k.dtype == FP8:
+        if v.dtype != FP8:
+            raise ValueError("kv_write_step: K and V arenas of one type")
+        if len(arenas) == 4:
+            mode = 3
+            for t in arenas[2:]:
+                if (t.shape != (L, n_pages, ps, H) or t.dtype != torch.float32
+                        or not t.is_contiguous() or t.device != dev):
+                    raise ValueError(f"kv_write_step: fp8_tok scale arenas must be fp32 "
+                                     f"{(L, n_pages, ps, H)} contiguous, got "
+                                     f"{tuple(t.shape)} {t.dtype}")
+            if k_scale is not None or v_scale is not None:
+                raise ValueError("kv_write_step: fp8_tok arenas take no static scales")
+        else:
+            mode = 2
+            for t in (k_scale, v_scale):
+                if (t is None or t.shape != (H,) or t.dtype != torch.float32
+                        or (H > 1 and t.stride(0) != 1) or t.device != dev):
+                    raise ValueError("kv_write_step: a static e4m3 arena needs fp32 [H] "
+                                     "k_scale and v_scale on its device")
+    else:
+        if len(arenas) != 2 or k_scale is not None or v_scale is not None:
+            raise ValueError(f"kv_write_step: a {k.dtype} arena takes no scales")
+        if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
+            raise ValueError(f"kv_write_step writes bf16, fp32 or e4m3 arenas, not "
+                             f"{k.dtype} / {v.dtype}")
+        mode = 0 if k.dtype == torch.bfloat16 else 1
+    if page_tables.dim() != 2 or page_tables.shape[0] != B or start_lens.shape != (B,):
+        raise ValueError(f"kv_write_step: page_tables {tuple(page_tables.shape)} and "
+                         f"start_lens {tuple(start_lens.shape)} for {B} requests")
+    wides = [_index(t, dev, "kv_write_step") for t in (page_tables, start_lens)]
+    if valid is not None and (valid.shape != (B, Q) or valid.dtype != torch.bool
+                              or valid.device != dev or (Q > 1 and valid.stride(1) != 1)):
+        raise ValueError(f"kv_write_step: valid must be bool [B, Q] = {(B, Q)} with a "
+                         f"contiguous last axis, got {valid.dtype} {tuple(valid.shape)}")
+    st = _StepStatic((_LL * 3)(*new_k.stride()[:3]), (_LL * 3)(*new_v.stride()[:3]),
+                     page_tables.stride(0), 0 if valid is None else valid.stride(0),
+                     *wides, B, Q, H, D, Dv, page_tables.shape[1], ps, n_pages, L,
+                     int(new_k.dtype == torch.float32), mode)
+    return st, ctypes.addressof(st), L
+
+
+_WRITE_STEP_ARGS = (_P,) * 12 + (_I, _P)
+
+
+def _kv_write_step_cuda(arenas, new_k, new_v, page_tables, start_lens, valid, layer,
+                        k_scale, v_scale):
+    key = ("step", tuple(map(_desc, arenas)), _desc(new_k),
+           _desc(new_v), _desc(page_tables), _desc(start_lens), _desc(valid),
+           _desc(k_scale), _desc(v_scale))
+    st = _STATICS.get(key)
+    if st is None:
+        st = _STATICS[key] = step_static(arenas, new_k, new_v, page_tables, start_lens,
+                                         valid, k_scale, v_scale)
+    if not 0 <= layer < st[2]:
+        raise ValueError(f"kv_write_step: layer {layer} of {st[2]}")
+    tok = len(arenas) == 4
+    lib, fn = _build.function("kv_rows", "kv_write_step", _WRITE_STEP_ARGS)
+    err = fn(st[1], arenas[0].data_ptr(), arenas[1].data_ptr(), new_k.data_ptr(),
+             new_v.data_ptr(), page_tables.data_ptr(), start_lens.data_ptr(),
+             None if valid is None else valid.data_ptr(),
+             None if k_scale is None else k_scale.data_ptr(),
+             None if v_scale is None else v_scale.data_ptr(),
+             arenas[2].data_ptr() if tok else None, arenas[3].data_ptr() if tok else None,
+             layer, _build.stream_of(new_k))
+    if err:
+        _build.check(lib, err, "kv_write_step")
+    kv_write_step.launches += 1
+    return arenas
+
+
+def kv_write_step(arenas, new_k: torch.Tensor, new_v: torch.Tensor,
+                  page_tables: torch.Tensor, start_lens: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None, layer: int = 0,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None):
+    """Write a step's K/V rows of layer ``layer`` into the arenas in place,
+    converted to each arena's kind, in one launch (``csrc/kv_rows.cu``
+    ``kv_write_step``) on a CUDA tensor; ``kv_write_step_plain`` on a CPU
+    tensor. arenas: (K, V) [L, n_pages, ps, H * D] / [.., H * Dv] (bf16,
+    fp32 or e4m3), or (K, V, K scales, V scales) for fp8_tok; new_k [B, Q,
+    H, D], new_v [B, Q, H, Dv] as the models pass them (views with a
+    contiguous last axis, bf16 or fp32); page_tables [B, P], start_lens [B]
+    int32 / int64; valid bool [B, Q] or None; k_scale / v_scale fp32 [H] for
+    a static e4m3 arena. On the card an invalid token writes nothing (the
+    plain version writes it to the null page 0). Returns the arenas as a
+    tuple."""
+    arenas = _as_tuple(arenas)
+    if arenas[0].is_cuda:
+        return _kv_write_step_cuda(arenas, new_k, new_v, page_tables, start_lens, valid,
+                                   layer, k_scale, v_scale)
+    if arenas[0].device.type != "cpu":
+        raise NotImplementedError(f"kv_write_step on {arenas[0].device}")
+    return kv_write_step_plain(arenas, new_k, new_v, page_tables, start_lens, valid, layer,
+                               k_scale, v_scale)
+
+
+kv_write_step.launches = 0
 
 MAX_MOVES = 1024  # K17's moves per launch (csrc/kv_rows.cu kMaxMoves)
 

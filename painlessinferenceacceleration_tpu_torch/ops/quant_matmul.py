@@ -12,7 +12,7 @@ kernel serves the plain and the stacked form. The kernels
 note says what bounds it and how its design answers that. ``int4_plan`` and
 ``int8_plan`` are their launch plans (split count, warpgroups, grid), the
 grouped kernels' too (``ops/moe_matmul.py``); ``stage_split`` and
-``tile_grid`` serve the W8A8 kernel as well (``ops/w8a8.py``).
+``tile_grid`` serve the W8A8 and block-fp8 kernels as well (``ops/w8a8.py``).
 ``quant_matmul`` sends activation-quantized and block-fp8 leaves on to
 ``ops/w8a8.py``.
 
@@ -35,23 +35,6 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
 )
 
 SMS = 132  # the H100's SMs; one tensor-core block fills an SM's shared memory
-
-# the block-fp8 kernel (K9, csrc/block_fp8_gemm.cu), the last GEMM on CUDA
-# cores, is the last user of these three
-_COLS_PER_BLOCK = 128  # kBlockN of csrc/block_fp8_gemm.cu
-CHUNK = 128  # K rows a warp takes at a time in csrc/block_fp8_gemm.cu
-_TARGET_BLOCKS = 2 * SMS  # two blocks an SM
-
-
-def chunk_ksplit(n_chunks: int, N: int) -> int:
-    """K splits of the CUDA-core GEMM whose warps walk K in ``n_chunks`` chunks:
-    enough blocks to fill the card, at least 8 chunks (one per warp) in each
-    split. A function of (K, N) only, so a row's sum is taken in the same
-    order at every M."""
-    col_blocks = -(-N // _COLS_PER_BLOCK)
-    want = -(-_TARGET_BLOCKS // col_blocks)
-    return max(1, min(want, n_chunks // 8))
-
 
 # ---------------------------------------------------------------------------
 # the tensor-core GEMMs' launch plan: the weight-only kernels
@@ -162,7 +145,7 @@ def check_int8_params(params) -> None:
 def stage_split(K: int, N: int, stage: int) -> tuple:
     """(K splits, stages per split) of a tensor-core GEMM whose blocks walk
     K in ring stages of ``stage`` rows (an int4 scale group, an int8
-    ``int8_stage``, 128 for W8A8),
+    ``int8_stage``, 128 for W8A8 and block fp8),
     from (K, N, stage) alone, so that a row's sum is taken in the same order
     at every M and in the grouped kernels. The fewest splits (none empty,
     each at least ``_MIN_SPLIT_K`` rows of K) whose column blocks times
@@ -227,12 +210,9 @@ def int8_plan(M: int, K: int, N: int, group: int) -> GemmPlan:
 
 
 def check_gemm_out(what: str, x: torch.Tensor, N: int, out_dtype, *others) -> None:
-    """What the block-fp8 (CUDA-core) and the W8A8 kernels ask of their call:
-    N % 4 == 0 (a thread loads four adjacent weight bytes as one word), bf16
-    or fp32 out, the other operands on x's CUDA device and starting on a
-    4-byte boundary."""
-    if N % 4:
-        raise ValueError(f"{what} needs N % 4 == 0 (N={N})")
+    """What the W8A8 and block-fp8 kernels ask of their call beyond their
+    shape rule: bf16 or fp32 out, the other operands on x's CUDA device and
+    starting on a 4-byte boundary."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what} writes bf16 or fp32, not {out_dtype}")
     if not all(t.is_cuda and t.device == x.device for t in others):

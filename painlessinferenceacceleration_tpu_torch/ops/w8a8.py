@@ -7,11 +7,11 @@ package does it outside its kernels. ``w8a8_gemm`` replaces the Pallas
 ``_w8a8_kernel`` and ``_w8a8_stacked_kernel`` (``csrc/w8a8_gemm.cu``),
 ``block_fp8_gemm`` replaces ``_block_fp8_kernel`` and
 ``_block_fp8_stacked_kernel`` (``csrc/block_fp8_gemm.cu``); a stacked
-weight's layer is a view, so one kernel serves both forms. ``w8a8_gemm``
-runs on the 8-bit tensor cores (``csrc/w8a8_wgmma.cuh``) and takes K % 16
-== 0 and N % 16 == 0 only (``w8a8_check``; ``check_w8a8_params`` refuses a
-model with another shape before its first launch); ``w8a8_plan`` is its
-launch plan. Both take the operands already quantized and apply every
+weight's layer is a view, so one kernel serves both forms. Both run on the
+8-bit tensor cores through one body (``csrc/w8a8_wgmma.cuh``) and take K %
+16 == 0 and N % 16 == 0 only (``w8a8_check``, ``block_fp8_check``;
+``check_w8a8_params`` refuses a model with another shape before its first
+launch); ``w8a8_plan`` and ``block_fp8_plan`` are their launch plans. Both take the operands already quantized and apply every
 scale in the kernel, in fp32 and in the order of the plain version, with
 one rounding at the end. (The Pallas per-channel kernel rounds to bf16
 before its wrapper multiplies by the activation scale; the port follows the
@@ -35,11 +35,9 @@ import torch.nn.functional as F
 from painlessinferenceacceleration_tpu_torch import _build
 from painlessinferenceacceleration_tpu_torch.layers.linear import FP8_MAX, QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
-    CHUNK,
     GemmPlan,
     aligned16,
     check_gemm_out,
-    chunk_ksplit,
     quant_leaves,
     stage_split,
     tile_grid,
@@ -47,7 +45,9 @@ from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
 
 INT8_MAX = 127.0
 FP8 = torch.float8_e4m3fn
-BLOCK = CHUNK  # the block-fp8 format's edge: one kernel chunk, one column block
+# the block-fp8 format's edge: in the kernel one ring stage (a K block) and
+# one block's columns (a column block)
+BLOCK = 128
 
 
 def _qmax(spec: QuantSpec) -> float:
@@ -170,18 +170,40 @@ def w8a8_plan(M: int, K: int, N: int) -> GemmPlan:
     return GemmPlan(ks, sps, *tile_grid(M, N, ks))
 
 
+def block_fp8_check(K: int, N: int) -> None:
+    """Raise on a shape the block-fp8 kernel does not take: the W8A8
+    kernel's rule (its body), K % 16 == 0 and N % 16 == 0."""
+    if K <= 0 or K % 16 or N <= 0 or N % 16:
+        raise ValueError(f"the block-fp8 kernel needs K % 16 == 0 and N % 16 == 0 "
+                         f"(K={K}, N={N})")
+
+
+@functools.lru_cache(maxsize=None)
+def block_fp8_plan(M: int, K: int, N: int) -> GemmPlan:
+    """The block-fp8 kernel's launch: a K split of 128-k stages (one scale
+    block each) from (K, N) alone (``stage_split``), so that a row's sum is
+    taken in the same order at every M, on the grid of ``tile_grid``."""
+    block_fp8_check(K, N)
+    ks, sps = stage_split(K, N, BLOCK)
+    return GemmPlan(ks, sps, *tile_grid(M, N, ks))
+
+
 def check_w8a8_params(params) -> None:
-    """Raise, before the first launch, on a per-channel W8A8 weight of
-    ``params`` (int8 or e4m3 ``q`` [.., K, N] with fp32 scales ``s`` [..,
-    N]; the block format's ``s`` has ``q``'s rank) whose shape the W8A8
-    kernel does not take (``w8a8_check``): such a model does not run on the
-    card."""
+    """Raise, before the first launch, on an activation-quantized weight of
+    ``params`` whose shape its kernel does not take: a per-channel W8A8
+    leaf (int8 or e4m3 ``q`` [.., K, N] with fp32 scales ``s`` [.., N],
+    ``w8a8_check``) or a block-fp8 leaf (e4m3 ``q`` with fp32 block scales
+    ``s`` of ``q``'s rank, ``block_fp8_check``): such a model does not run
+    on the card."""
     for p in quant_leaves(params):
         q, s = p["q"], p["s"]
-        if (q.dtype in (torch.int8, FP8) and isinstance(s, torch.Tensor)
-                and s.dtype == torch.float32 and s.dim() == q.dim() - 1
-                and s.shape[-1] == q.shape[-1]):
+        if (q.dtype not in (torch.int8, FP8) or not isinstance(s, torch.Tensor)
+                or s.dtype != torch.float32):
+            continue
+        if s.dim() == q.dim() - 1 and s.shape[-1] == q.shape[-1]:
             w8a8_check(q.shape[-2], q.shape[-1])
+        elif q.dtype == FP8 and s.dim() == q.dim():
+            block_fp8_check(q.shape[-2], q.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +261,9 @@ w8a8_gemm.launches = 0
 w8a8_gemm.modes = collections.Counter()
 
 
+_BLOCK_FP8_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+
+
 def _block_fp8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
     M, K = xq.shape
     N = q.shape[1]
@@ -250,18 +275,19 @@ def _block_fp8_gemm_cuda(xq, xs, q, s, out_dtype) -> torch.Tensor:
                          f"q {tuple(q.shape)}, s {tuple(s.shape)} (block {BLOCK})")
     if s.dtype != torch.float32 or xs.dtype != torch.float32:
         raise TypeError("block_fp8_gemm takes fp32 scales")
-    xq, xs, q, s = xq.contiguous(), xs.contiguous(), q.contiguous(), s.contiguous()
+    plan = block_fp8_plan(M, K, N)
+    xq, xs, q, s = aligned16(xq), xs.contiguous(), q.contiguous(), s.contiguous()
     check_gemm_out("block_fp8_gemm", xq, N, out_dtype, xs, q, s)
+    if q.data_ptr() % 16:
+        raise ValueError("block_fp8_gemm needs the weight on a 16-byte boundary")
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    ks = chunk_ksplit(nkb, N)
-    work = (torch.empty((ks, M, N), dtype=torch.float32, device=xq.device)
-            if ks > 1 else None)
-    lib = _build.library("block_fp8_gemm")
-    fn = lib.block_fp8_gemm
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    err = fn(xq.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(),
-             out.data_ptr(), _build.ptr(work), M, K, N,
-             int(out_dtype == torch.float32), ks, _build.stream_of(xq))
+    blocks = plan.grid[2]
+    work = (torch.empty((blocks, M, N), dtype=torch.float32, device=xq.device)
+            if blocks > 1 else None)  # the splits' planes
+    lib, fn = _build.function("block_fp8_gemm", "block_fp8_gemm", _BLOCK_FP8_ARGS)
+    err = fn(xq.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+             _build.ptr(work), M, K, N, int(out_dtype == torch.float32), blocks,
+             plan.stages_per_split, plan.warpgroups, _build.stream_of(xq))
     _build.check(lib, err, "block_fp8_gemm")
     block_fp8_gemm.launches += 1
     return out
@@ -271,7 +297,8 @@ def block_fp8_gemm(xq: torch.Tensor, xs: torch.Tensor, q: torch.Tensor,
                    s: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """sum_kb ((xq[:, kb] @ q[kb]) * xs[m, kb]) * s[kb, n/128] -> [M, N] for
     e4m3 operands, xs [M, ceil(K/128)], s [ceil(K/128), ceil(N/128)]; edge
-    blocks may be partial."""
+    blocks may be partial. On the card K % 16 == 0 and N % 16 == 0
+    (``block_fp8_check``)."""
     if xq.is_cuda:
         return _block_fp8_gemm_cuda(xq, xs, q, s, out_dtype)
     if xq.device.type != "cpu":

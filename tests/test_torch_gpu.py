@@ -463,9 +463,15 @@ def test_gemm_and_norm_rows_do_not_depend_on_the_batch(cuda):
 # ---------------------------------------------------------------------------
 
 # 7B layer widths, the serving prefill height, and ragged edges: K and N off
-# the 128 grid, K odd. The block-fp8 kernel (CUDA cores) takes them all.
+# the 128 grid, K odd. The block-fp8 kernel (K8's body) takes K and N in
+# multiples of 16 only (TMA's row strides): the last two are its refusals.
 GEMM_SHAPES = [(1, 4096, 4096), (17, 11008, 512), (70, 256, 384), (4096, 4096, 1024),
                (9, 200, 132), (17, 333, 260)]
+# the block-fp8 kernel's shapes: the first four of GEMM_SHAPES, K and N off
+# the 128 grid on the 16 grid (partial K and column blocks), the generator's
+# Q = 64 on gate/up and the LM head's width
+BLOCK_FP8_SHAPES = GEMM_SHAPES[:4] + [(9, 208, 144), (17, 336, 272), (64, 4096, 22016),
+                                      (512, 4096, 32000)]
 # the int8 weight-only kernel takes groups that are multiples of 32 and N in
 # multiples of 16 (TMA's row strides): (M, K, N, group) over the 7B widths,
 # the generator's Q = 64 on gate/up, a Mixtral expert's down projection at
@@ -590,7 +596,7 @@ def test_w8a8_gemm_raises_off_the_16_grid(cuda, mode):
         assert w8a8_gemm.launches == before
 
 
-@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("M,K,N", BLOCK_FP8_SHAPES)
 @pytest.mark.parametrize("mode", ["fp8_block", "fp8_tb"])
 def test_block_fp8_gemm(cuda, M, K, N, mode):
     xq, xs, q, s = _w8a8_operands(cuda, M, K, N, mode)
@@ -601,14 +607,37 @@ def test_block_fp8_gemm(cuda, M, K, N, mode):
         assert _rel(got, block_fp8_gemm_plain(xq, xs, q, s, out)) < _tol(out)
 
 
+@pytest.mark.parametrize("M,K,N", [c for c in GEMM_SHAPES if c[1] % 16 or c[2] % 16]
+                         + [(17, 336, 260)])
+def test_block_fp8_gemm_raises_off_the_16_grid(cuda, M, K, N):
+    xq, xs, q, s = _w8a8_operands(cuda, M, K, N, "fp8_block")
+    before = block_fp8_gemm.launches
+    with pytest.raises(ValueError, match="16"):
+        block_fp8_gemm(xq, xs, q, s)
+    assert block_fp8_gemm.launches == before
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_block_fp8_rows_do_not_depend_on_their_place_in_the_tile(cuda, out):
+    """As K8's: a row alone equals itself at the tile edges of a 4096-row
+    call (its splits launched as blocks alone, run in one block at 4096)."""
+    xq, xs, q, s = _w8a8_operands(cuda, 4096, 4096, 4096, "fp8_block")
+    full = block_fp8_gemm(xq, xs, q, s, out)
+    for r in (0, 63, 64, 127, 128, 511, 4095):
+        assert torch.equal(block_fp8_gemm(xq[r:r + 1], xs[r:r + 1], q, s, out),
+                           full[r:r + 1]), r
+    for m in (64, 65, 512):
+        assert torch.equal(block_fp8_gemm(xq[:m], xs[:m], q, s, out), full[:m]), m
+
+
 @pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (4096, 512), (333, 260),
                                  (336, 272), (352, 272)])
 def test_8bit_gemm_rows_do_not_depend_on_the_batch(cuda, K, N):
     """A row of every 8-bit GEMM is the same at M = 1, 8, 17, 136 and 4096,
     bit for bit: AR decode batches B rows, lookahead 17 B, prefill 512 B.
     The int8 weight-only kernel joins where the group (128, or all of K) is
-    a multiple of 32 and N of 16, the W8A8 kernel where K and N are
-    multiples of 16 (the shapes each takes)."""
+    a multiple of 32 and N of 16, the W8A8 and block-fp8 kernels where K
+    and N are multiples of 16 (the shapes each takes)."""
     M = 4096
     x = torch.randn(M, K, generator=cuda, device="cuda").to(torch.bfloat16)
     group = 128 if K % 128 == 0 else K
@@ -617,7 +646,7 @@ def test_8bit_gemm_rows_do_not_depend_on_the_batch(cuda, K, N):
         _, q8, s8 = _int8_operands(cuda, 1, K, N, group)
         runs["int8_gemm"] = lambda m: int8_matmul(x[:m], q8, s8)
     for mode in ("w8a8_int8", "w8a8_fp8", "fp8_block"):
-        if mode != "fp8_block" and (K % 16 or N % 16):
+        if K % 16 or N % 16:
             continue
         xq, xs, q, s = _w8a8_operands(cuda, M, K, N, mode)
         fn = block_fp8_gemm if mode == "fp8_block" else w8a8_gemm
@@ -1509,6 +1538,71 @@ def test_kv_write_rows_takes_strided_rows(cuda):
     assert torch.equal(got, kv_write_rows_plain(pages.clone(), rows, pi, ri, 1))
 
 
+def _step_case(g, kind, B, Q, holes, L=3, ps=64):
+    """Arenas of ``kind`` and a step's K / V as the models pass them (V a
+    view of a fused projection), contexts of 0-539 tokens."""
+    H, D, Dv = (1, 576, 512) if kind == "mla" else (8, 128, 128)
+    P = (540 + Q) // ps + 2
+    n_pages = B * P + 1
+    dt = torch.float8_e4m3fn if kind in ("fp8", "fp8_tok") else torch.bfloat16
+    arenas = tuple(torch.randn(L, n_pages, ps, H * w, generator=g, device="cuda").to(dt)
+                   for w in (D, Dv))
+    if kind == "fp8_tok":
+        arenas += tuple(torch.rand(L, n_pages, ps, H, generator=g, device="cuda")
+                        for _ in range(2))
+    nk = (torch.randn(B, Q, H, D, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    fused = (torch.randn(B, Q, H * (D + Dv), generator=g, device="cuda") * 3).to(torch.bfloat16)
+    nv = fused[..., H * D:].reshape(B, Q, H, Dv)
+    pt = (torch.randperm(B * P, generator=g, device="cuda") + 1).reshape(B, P).to(torch.int32)
+    start = torch.randint(0, 540, (B,), generator=g, device="cuda")
+    valid = torch.ones(B, Q, dtype=torch.bool, device="cuda")
+    if holes:
+        valid[:, 2::5] = False
+    ks = vs = None
+    if kind == "fp8":
+        ks, vs = (torch.rand(H, generator=g, device="cuda") * 0.01 + 0.002 for _ in range(2))
+    return arenas, nk, nv, pt, start, valid, ks, vs
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp8", "fp8_tok", "mla"])
+@pytest.mark.parametrize("B,Q,holes", [(1, 1, False), (1, 17, True), (1, 64, True),
+                                       (8, 17, True), (8, 512, True)])
+def test_kv_write_step(cuda, kind, B, Q, holes):
+    """K16's step entry equals its plain version (the eager route) byte for
+    byte outside the null page, where only the plain version writes the
+    invalid tokens, in one launch."""
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_write_step,
+        kv_write_step_plain,
+    )
+
+    arenas, nk, nv, pt, start, valid, ks, vs = _step_case(cuda, kind, B, Q, holes)
+    before = kv_write_step.launches
+    got = kv_write_step(tuple(a.clone() for a in arenas), nk, nv, pt, start, valid, 1, ks, vs)
+    assert kv_write_step.launches == before + 1
+    ref = kv_write_step_plain(tuple(a.clone() for a in arenas), nk, nv, pt, start, valid, 1,
+                              ks, vs)
+    for a, b in zip(got, ref):
+        assert torch.equal(a[:, 1:].view(torch.uint8), b[:, 1:].view(torch.uint8))
+
+
+def test_kv_write_step_past_the_end_of_a_page_table(cuda):
+    """Tokens past the end of their page table (page index clamped to the
+    last) name the rows of earlier ones: the later valid token's row is
+    kept, as in the eager route; int64 indices read as they come."""
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_write_step,
+        kv_write_step_plain,
+    )
+
+    arenas, nk, nv, pt, start, valid, ks, vs = _step_case(cuda, "bf16", 2, 200, True)
+    pt, start = pt[:, :2].long(), torch.tensor([40, 0], device="cuda")
+    got = kv_write_step(tuple(a.clone() for a in arenas), nk, nv, pt, start, valid, 1)
+    ref = kv_write_step_plain(tuple(a.clone() for a in arenas), nk, nv, pt, start, valid, 1)
+    for a, b in zip(got, ref):
+        assert torch.equal(a[:, 1:].view(torch.uint8), b[:, 1:].view(torch.uint8))
+
+
 def _move_case(g, L, n_pages, ps, row, dtype, N, chains=True):
     pages = torch.randn(L, n_pages, ps, row, generator=g, device="cuda").to(dtype)
     slots = torch.randperm(n_pages * ps, generator=g, device="cuda")
@@ -1565,7 +1659,7 @@ def test_write_kv_pages_and_move_kv_rows_launch_the_kernels(cuda):
     )
     from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
         kv_move_rows,
-        kv_write_rows,
+        kv_write_step,
     )
 
     L, n_pages, ps, H, D = 2, 9, 64, 2, 64
@@ -1577,9 +1671,9 @@ def test_write_kv_pages_and_move_kv_rows_launch_the_kernels(cuda):
     nk = torch.randn(B, Q, H, D, generator=cuda, device="cuda").to(torch.bfloat16)
     valid = torch.ones(B, Q, dtype=torch.bool, device="cuda")
     valid[1, 9:] = False
-    before = kv_write_rows.launches
+    before = kv_write_step.launches
     write_kv_pages(k, v, nk, nk, pt, start, valid, 1)
-    assert kv_write_rows.launches == before + 1  # K and V in one launch
+    assert kv_write_step.launches == before + 1  # K and V in one launch
     flat = k[1][pt[0].long()].reshape(-1, H * D)
     assert torch.equal(flat[70: 70 + Q], nk[0].reshape(Q, -1))
     # the accepted path's moves equal compact_kv_tail on the live slots

@@ -1,5 +1,6 @@
 """The W8A8 GEMM kernel's launch plan, its shape rule and its operand
-transposition, on the CPU.
+transposition, and the block-fp8 kernel's, which runs on the same body, on
+the CPU.
 
 The kernel (``csrc/w8a8_wgmma.cuh``) runs only on the card; what it is
 given is decided here, in Python that the wrapper calls: the K split (a
@@ -15,14 +16,22 @@ import pytest
 import torch
 
 from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+from painlessinferenceacceleration_tpu_torch.models.base import init_params
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
+    quant_leaves,
     split_blocks,
     stage_split,
 )
 from painlessinferenceacceleration_tpu_torch.ops.w8a8 import (
+    BLOCK,
     FP8,
     W8A8_STAGE,
+    block_fp8_check,
+    block_fp8_gemm_plain,
+    block_fp8_plan,
     check_w8a8_params,
+    quant_act,
     w8a8_check,
     w8a8_plan,
 )
@@ -182,17 +191,107 @@ def test_w8a8_params_check_refuses_a_weight_off_the_16_grid():
     ok = {"layers": {"wqkv": leaf(64, 192, False), "wo": leaf(64, 64, True),
                      "norm": torch.ones(2, 64)},
           "lm_head": {"q": leaf(64, 512, True, 1)["q"][0], "s": torch.ones(512)},
-          # weight-only int8 (bf16 group scales) and block fp8 leaves are
-          # not K8's
+          # weight-only int8 (bf16 group scales) leaves are not K8's; block
+          # fp8 leaves (K9) take K8's rule
           "int8": {"q": torch.zeros(2, 72, 200, dtype=torch.int8),
                    "s": torch.ones(2, 1, 200, dtype=torch.bfloat16)},
-          "block": {"q": torch.zeros(72, 200, dtype=FP8), "s": torch.ones(1, 2)},
+          "block": {"q": torch.zeros(80, 208, dtype=FP8), "s": torch.ones(1, 2)},
           # the fp8 embedding table (per-row scales)
           "embed": {"q": torch.zeros(100, 64, dtype=FP8), "s": torch.ones(100)}}
     check_w8a8_params(ok)
     for bad in ({"layers": {"wo": leaf(72, 64, False)}},  # K % 16
                 {"lm_head": [leaf(64, 200, True, 1)]},  # N % 16
                 {"moe": {"moe_wgu": {"q": torch.zeros(2, 8, 64, 100, dtype=torch.int8),
-                                     "s": torch.ones(2, 8, 100)}}}):
+                                     "s": torch.ones(2, 8, 100)}}},
+                {"block": {"q": torch.zeros(72, 200, dtype=FP8),  # K9, both off
+                           "s": torch.ones(1, 2)}},
+                {"block": {"q": torch.zeros(2, 128, 200, dtype=FP8),  # K9, N % 16
+                           "s": torch.ones(2, 1, 2)}}):
         with pytest.raises(ValueError, match="16"):
             check_w8a8_params(bad)
+
+
+# ---------------------------------------------------------------------------
+# K9, the 128x128-block fp8 GEMM (csrc/block_fp8_gemm.cu): K8's body and shape
+# rule, one ring stage a scale block
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["fp8_block", "fp8_tb"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_every_model_config_takes_the_block_fp8_kernel(name, mode):
+    """Every linear of every model (the LM head where it is not tied) in
+    both block formats: on the 16 grid, and planned with K8's split."""
+    assert QuantSpec.from_mode(mode).block == BLOCK == W8A8_STAGE
+    for K, N in linear_shapes(CONFIGS[name]):
+        block_fp8_check(K, N)
+        for M in (1, 17, 512):
+            assert block_fp8_plan(M, K, N) == w8a8_plan(M, K, N)
+
+
+@pytest.mark.parametrize("K,N", CARD_SHAPES)
+def test_block_fp8_split_is_a_function_of_k_and_n_alone(K, N):
+    ks, sps = stage_split(K, N, BLOCK)
+    for M in ROWS:
+        plan = block_fp8_plan(M, K, N)
+        assert (plan.ksplit, plan.stages_per_split) == (ks, sps)
+        assert plan.grid[:2] == (-(-N // 128), -(-M // (64 * plan.warpgroups)))
+
+
+def test_block_fp8_check_raises_off_the_16_grid():
+    block_fp8_check(16, 16)
+    for K, N in ((333, 256), (336, 260), (200, 132), (4096, 4100), (0, 16), (16, 0)):
+        with pytest.raises(ValueError, match="K % 16 == 0 and N % 16 == 0"):
+            block_fp8_check(K, N)
+        with pytest.raises(ValueError, match="block-fp8"):
+            block_fp8_plan(17, K, N)
+
+
+@pytest.mark.parametrize("mode", ["fp8_block", "fp8_tb"])
+def test_block_fp8_params_of_a_model_pass_the_check(mode):
+    spec = QuantSpec.from_mode(mode)
+    params = init_params(ModelConfig.tiny(), torch.Generator().manual_seed(0), device="cpu",
+                         quant=spec)
+    leaves = [p for p in quant_leaves(params) if p["s"].dim() == p["q"].dim()]
+    assert leaves and all(p["q"].dtype == FP8 for p in leaves)
+    check_w8a8_params(params)
+    for p in leaves:
+        block_fp8_plan(17, *p["q"].shape[-2:])
+
+
+def _fold_replay(xq, xs, q, s, ks, sps):
+    """The kernel's order of operations on exact k32 sums (the tensor cores'
+    own accumulation aside): each 32-deep sum folded into its split's sum
+    with one fma by the stage's c = xs[m, kb] * s[kb, n / 128], the splits
+    added in order. fp32 torch ops; an fma is taken in fp64 and rounded
+    once."""
+    M, K = xq.shape
+    N = q.shape[1]
+    x, w = xq.to(torch.float64), q.to(torch.float64)
+    total = torch.zeros(M, N, dtype=torch.float32)
+    for sp in range(ks):
+        acc = torch.zeros(M, N, dtype=torch.float32)
+        for kb in range(sp * sps, min((sp + 1) * sps, -(-K // BLOCK))):
+            c = (xs[:, kb:kb + 1] * s[kb].repeat_interleave(BLOCK)[None, :N]).to(torch.float32)
+            for k0 in range(kb * BLOCK, min((kb + 1) * BLOCK, K), 32):
+                pa = (x[:, k0:k0 + 32] @ w[k0:k0 + 32]).to(torch.float32)
+                acc = (pa.to(torch.float64) * c.to(torch.float64)
+                       + acc.to(torch.float64)).to(torch.float32)
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("M,K,N", [(3, 4096, 256), (5, 11008, 128), (2, 336, 272)])
+def test_block_fp8_fold_order_holds_the_tolerance(M, K, N):
+    """The scaled folds and the split order alone stay well inside the 1e-4
+    (fp32) tolerance the card holds the kernel to against
+    ``block_fp8_gemm_plain``; the rest of the budget is the tensor cores'
+    own accumulation inside one instruction."""
+    g = torch.Generator().manual_seed(0)
+    xq, xs = quant_act(torch.randn(M, K, generator=g), QuantSpec.from_mode("fp8_block"))
+    q = torch.randn(K, N, generator=g).to(FP8)
+    s = torch.rand(-(-K // BLOCK), -(-N // BLOCK), generator=g) * 1e-4 + 2e-5
+    plan = block_fp8_plan(M, K, N)
+    got = _fold_replay(xq, xs, q, s, plan.ksplit, plan.stages_per_split)
+    ref = block_fp8_gemm_plain(xq, xs, q, s, torch.float32)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() < 1e-5

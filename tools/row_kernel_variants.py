@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K4 (the KV compaction) and K15 (RMSNorm) at the main paths' shapes, and
-K4's staging variants, on one card:
+"""K16 (the KV row write), K4 (the KV compaction) and K15 (RMSNorm) at the
+main paths' shapes, and K4's staging variants, on one card:
 
     python3 tools/row_kernel_variants.py [--root DIR] [--json PATH] [--variants]
+                                         [--rows all|write]
 
 ``--root`` imports the port from another tree (for instance a parent commit
 unpacked under ``build/``), which builds its own kernels; run the script
@@ -10,6 +11,12 @@ once per tree, in turns (parent, change, change, parent), to compare two
 trees on one card. Imports nothing of JAX.
 
 Rows, each tree:
+- ``write_kv_pages``: the KV row write of every layer of every forward
+  (``engine/cache.py``), in the bf16, static e4m3, per-token e4m3 and MLA
+  latent arenas at B = 1 Q = 1, Q = 17 and an 8 x 512 prefill chunk: wall,
+  ``device_ms`` (L2 cold), ``device_warm_ms``, the CUDA kernels a call
+  (this tree's K16 step entry, or a tree's eager route and row scatter),
+  the bound and ``index_put_`` of prepared rows (see ``write_rows``).
 - ``compaction``: the verify step's compaction of a Llama-2-7B arena pair
   (32 layers, 8192-byte K and V rows, page 64) through
   ``engine/step.py _commit_and_compact``, as the main paths call it: B = 1
@@ -192,7 +199,7 @@ def load(root: Path) -> dict:
 
     base = "painlessinferenceacceleration_tpu_torch."
     names = dict(_build="_build", step="engine.step", kv_update="ops.kv_update",
-                 rmsnorm="ops.rmsnorm")
+                 rmsnorm="ops.rmsnorm", cache="engine.cache")
     pkg = {k: importlib.import_module(base + v) for k, v in names.items()}
     if not str(pkg["_build"].PKG_DIR).startswith(str(root.resolve())):
         raise SystemExit(f"imported the port from {pkg['_build'].PKG_DIR}, not {root}")
@@ -307,6 +314,75 @@ NORMS = ([("plain", r, 2048, 1, None) for r in (1, 17, 4096)]
          + [("gated", r, 2048, 16, None) for r in (1, 17, 4096)]
          + [("plain", r, 4096, 1, None) for r in (1, 512, 2048)]
          + [("plain", r, 512, 1, 576) for r in (1, 4096)])
+
+
+# write_kv_pages' cases: (arena kind, B, Q, holes in valid)
+WRITES = tuple((kind, B, Q, B * Q > 1) for kind in ("bf16", "fp8", "fp8_tok", "mla")
+               for B, Q in ((1, 1), (1, 17), (8, 512)))
+
+
+def write_rows(pkg, g) -> list:
+    """``write_kv_pages`` (engine/cache.py), as every layer of every forward
+    calls it, at Llama-2-7B's rows (32 kv heads of 128 lanes) in the bf16,
+    static e4m3 and per-token e4m3 arenas and at DeepSeek-V2-Lite's latent
+    rows (576 + 512 lanes), at B = 1 Q = 1, B = 1 Q = 17 and an 8 x 512
+    prefill chunk (every fifth token invalid where Q > 1); arenas of 4
+    layers (a call writes one). Each row: wall (in turns with the
+    yardstick), device ms with the L2 cold and warm, the CUDA kernels a
+    call and their device ms (torch.profiler: this tree's step entry, or
+    the eager route and the row scatter of a tree without it), the bound
+    (the written tokens' K / V rows read once, their arena and scale rows
+    written once) and ``index_put_`` of rows prepared beforehand, one call
+    an arena."""
+    import torch
+
+    write_kv_pages = pkg["cache"].write_kv_pages
+    rows = []
+    for kind, B, Q, holes in WRITES:
+        H, D, Dv = (1, 576, 512) if kind == "mla" else (32, 128, 128)
+        P = (540 + Q) // PS + 2
+        n_pages = B * P + 1
+        fp8 = kind in ("fp8", "fp8_tok")
+        dt = torch.float8_e4m3fn if fp8 else torch.bfloat16
+        arenas = [torch.zeros(4, n_pages, PS, H * w, device="cuda").to(dt) for w in (D, Dv)]
+        scales = [None, None]
+        toks = [None, None]
+        if kind == "fp8":
+            scales = [torch.full((H,), 0.01, device="cuda") for _ in range(2)]
+        if kind == "fp8_tok":
+            toks = [torch.zeros(4, n_pages, PS, H, device="cuda") for _ in range(2)]
+        nk = (torch.randn(B, Q, H, D, generator=g, device="cuda") * 3).to(torch.bfloat16)
+        fused = torch.randn(B, Q, H * (D + Dv), generator=g, device="cuda").to(torch.bfloat16)
+        nv = fused[..., H * D:].reshape(B, Q, H, Dv)
+        pt = (torch.randperm(B * P, generator=g, device="cuda") + 1).reshape(B, P).int()
+        start = torch.randint(0, 540, (B,), generator=g, device="cuda")
+        valid = torch.ones(B, Q, dtype=torch.bool, device="cuda")
+        if holes:
+            valid[:, 2::5] = False
+
+        def run():
+            return write_kv_pages(*arenas, nk, nv, pt, start, valid, 1, *scales, *toks)
+        kernel_ms, kernels = kernel_profile(run)
+        # the yardstick: the same rows' bytes, prepared, scattered by index_put_
+        slots = start[:, None] + torch.arange(Q, device="cuda")[None]
+        pi = torch.gather(pt.long(), 1, (slots // PS).clamp(max=P - 1)).reshape(-1)
+        ri = (slots % PS).reshape(-1)
+        outs = [a for a in arenas] + [t for t in toks if t is not None]
+        prep = [torch.randint(0, 256, (B * Q, a.shape[-1] * a.element_size()), generator=g,
+                              device="cuda", dtype=torch.uint8) for a in outs]
+        raws = [(a.view(torch.uint8)[1], r) for a, r in zip(outs, prep)]
+        ms, lib_ms = paired_ms(run, lambda: [a.index_put_((pi, ri), r) for a, r in raws])
+        n_w = int(valid.sum())
+        out_row = sum(a.shape[-1] * a.element_size() for a in outs)
+        nbytes = n_w * (H * (D + Dv) * 2 + out_row + 4) + B * 8 + B * Q
+        rows.append(dict(row="write_kv_pages", case=f"{kind} B={B} Q={Q}", B=B, Q=Q,
+                         written_rows=n_w, ms=ms, device_ms=cold_ms(run),
+                         device_warm_ms=graph_ms(run), kernel_ms=kernel_ms,
+                         kernels_per_call=kernels, bound_ms=bound(nbytes), library_ms=lib_ms))
+        print("row: " + json.dumps(rows[-1]), flush=True)
+        del arenas, toks, prep, raws
+        torch.cuda.empty_cache()
+    return rows
 
 
 def norm_rows(pkg, g) -> list:
@@ -457,6 +533,8 @@ def main() -> None:
     ap.add_argument("--json", type=Path, default=None, help="also write the numbers here")
     ap.add_argument("--variants", action="store_true",
                     help="time K4's staging variants (this tree's port only)")
+    ap.add_argument("--rows", choices=("all", "write"), default="all",
+                    help="write: the write_kv_pages rows only")
     args = ap.parse_args()
     import torch
 
@@ -469,8 +547,11 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     if args.variants:
         out["rows"] = variant_rows(pkg, g)
+    elif args.rows == "write":
+        out["rows"] = write_rows(pkg, g)
     else:
-        out["rows"] = compaction_rows(pkg, g) + permute_rows(pkg, g) + norm_rows(pkg, g)
+        out["rows"] = (write_rows(pkg, g) + compaction_rows(pkg, g) + permute_rows(pkg, g)
+                       + norm_rows(pkg, g))
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(out, indent=1))
