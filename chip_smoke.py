@@ -97,11 +97,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
    prefill, AR and lookahead strictly lossless) and its 4 layers serving,
    K16 on both runs' latent writes;
    linear-attention hybrids: the linear-attention kernel (chunk, decode,
-   tree and commit modes) and the RMSNorm kernel (hidden, per-head and
-   gated group norms) against their plain versions at Ring-mini-linear-2.0
-   shapes, with the bit identities lookahead rests on (a verify row equals
-   the AR row, a commit of n nodes equals n AR steps, norm rows at every
-   batch width); Ring-mini-linear-2.0 in bf16 at all 20 layers (~33 GB of
+   tree and commit modes, with its CUDA kernels a call) and the RMSNorm
+   kernel (hidden, per-head and gated group norms) against their plain
+   versions at Ring-mini-linear-2.0 shapes, with the bit identities
+   lookahead rests on (a verify row equals the AR row, a commit of n nodes
+   equals n AR steps, norm rows at every batch width) and chunk rows' bits
+   alone, in a batch, at a wider padded width and resumed at a tile edge;
+   Ring-mini-linear-2.0 in bf16 at all 20 layers (~33 GB of
    random weights, experts in 2 expert shards): a 4096-token prefill, 32
    AR and 64 lookahead tokens strictly lossless and equal to AR, a
    teacher-forced lookahead / AR pair whose states and KV rows must be
@@ -319,6 +321,9 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(mla_attention_kernel|mla_combine_kernel)", entry)
     if t:
         return t.group(1)
+    t = re.search(r"(la_\w+?_kernel)(?:ILi(\d+)E)?", entry)
+    if t:  # K14's chunk passes carry their head dim
+        return t.group(1) + (f"<D={t.group(2)}>" if t.group(2) else "")
     t = re.search(r"(rms_norm_kernel|kv_permute_kernel)I(\w+?)EEvN", entry)
     if t:  # the template arguments as mangled
         return f"{t.group(1)}<{t.group(2)}>"
@@ -335,7 +340,8 @@ def _ptxas_label(entry: str) -> str:
 def ptxas_summary(pkg) -> dict:
     """Registers, spills and the ptxas notes of the tensor-core kernels
     (int4 K1 / K11, int8 K7 / K12, W8A8 K8, block fp8 K9, bf16 K10, paged attention K2 /
-    K3 / K5, MLA attention K13; built with -Xptxas -v), and each configuration's dynamic shared
+    K3 / K5, MLA attention K13, linear attention K14; built with -Xptxas -v), and each
+    configuration's dynamic shared
     memory. Fails the run on a spill, on a wgmma that ptxas serialized, and
     where a source's report is missing or names none of its kernels with
     their registers."""
@@ -362,7 +368,8 @@ def ptxas_summary(pkg) -> dict:
                          notes=notes)
         entry = {"paged_attention": "attention_wgmma_kernel",
                  "mla_attention": "mla_attention_kernel", "rmsnorm": "rms_norm_kernel",
-                 "kv_permute": "kv_permute_kernel"}.get(name, "gemm_kernel")
+                 "kv_permute": "kv_permute_kernel",
+                 "linear_attention": "la_chunk_out_kernel"}.get(name, "gemm_kernel")
         main = [k for k in kernels if entry in k["kernel"]]
         if not main or any("registers" not in k for k in main):
             fail(f"{name}: no ptxas report of its kernels and their registers: {kernels}")
@@ -878,27 +885,36 @@ def check_kv_permute(pkg, g, L, n_pages, ps, HD, B, TPP, moves: bool):
     return kv_permute_row(pkg, pages, ids, src.to(torch.int32).contiguous(), "")
 
 
-def kernels_per_call(fn, calls: int = 20) -> float:
-    """The CUDA kernels one call launches, eager torch ops' included, from
-    torch.profiler (kernel rows only: an operator's row is not a kernel);
-    the most of two profiled windows (a window's trace may lose events)."""
+def graph_kernels(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches: the kernel nodes of a
+    CUDA graph captured around it, counted through the driver
+    (``cuGraphGetNodes``; a profiler trace deep into a run has been seen to
+    lose events)."""
+    import ctypes
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    best = 0
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and (getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0.0)) > 0)
-        best = max(best, n)
-    return best / calls
+    graph, stream = torch.cuda.CUDAGraph(keep_graph=True), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
 
 
 def kv_compact_row(pkg, arenas, pt, ctx, path, ne, Q, active, case):
@@ -907,7 +923,7 @@ def kv_compact_row(pkg, arenas, pt, ctx, path, ne, Q, active, case):
     route: tail_window and kv_permute_pages_plain), byte for byte over the
     whole arenas, page 0 included; timed: wall (``paired_ms``, in turns with
     the yardstick), device ms with the L2 cold (``cold_ms``), the CUDA kernels
-    a compaction launches (torch.profiler), the bound of the rows it moves
+    a compaction launches (``graph_kernels``), the bound of the rows it moves
     (``compaction_moves``: each read once and written once, in every arena
     and layer, plus the indices) and, as the yardstick, index_copy_ of the
     moving rows gathered beforehand, one call an arena."""
@@ -930,7 +946,7 @@ def kv_compact_row(pkg, arenas, pt, ctx, path, ne, Q, active, case):
         return ku.kv_compact_tail(work, pt, ctx, path, ne, Q, active)
     plain_ms = time_ms(lambda: ku.kv_compact_tail_plain(work, pt, ctx, path, ne, Q, active),
                        reps=5)
-    kernels = kernels_per_call(run)
+    kernels = graph_kernels(run)
     L, _, ps = arenas[0].shape[:3]
     moves = [m for r in ku.compaction_moves(pt.cpu(), ctx.cpu(), path.cpu(), ne.cpu(), Q, ps,
                                             None if active is None else active.cpu())
@@ -1125,7 +1141,7 @@ def kv_step_row(pkg, arenas, nk, nv, pt, start, valid, layer, ks, vs, case):
     plain version (``kv_write_step_plain``: the eager route, ``kv_step_rows``
     then ``kv_write_rows_plain``), byte for byte outside the null page 0
     (where only the plain version writes the invalid tokens); it must be
-    one CUDA kernel a call (torch.profiler). Timed: wall (``paired_ms``, in
+    one CUDA kernel a call (``graph_kernels``). Timed: wall (``paired_ms``, in
     turns with the yardstick), device ms with the L2 cold (``cold_ms``),
     the plain version; the bound: the written tokens' input rows read once,
     their arena rows (and scale rows) written once, the indices and scales;
@@ -1153,7 +1169,7 @@ def kv_step_row(pkg, arenas, nk, nv, pt, start, valid, layer, ks, vs, case):
         return ku.kv_write_step(work, nk, nv, pt, start, valid, layer, ks, vs)
     plain_ms = time_ms(lambda: ku.kv_write_step_plain(work, nk, nv, pt, start, valid, layer,
                                                       ks, vs), reps=5)
-    kernels = kernels_per_call(run)
+    kernels = graph_kernels(run)
     if kernels > 1:
         fail(f"kv_write_step launched {kernels} CUDA kernels a call ({case})")
     rows, fp, fr = ku.kv_step_rows(arenas, nk, nv, pt, start, valid, ks, vs)
@@ -3438,6 +3454,8 @@ LA_SRC = "painlessinferenceacceleration_tpu/ops/linear_attention.py"
 LA_MODEL = "painlessinferenceacceleration_tpu/models/linear_attn.py"
 NORM_SRC = "painlessinferenceacceleration_tpu/ops/rmsnorm.py"
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM data sheet, dense TF32 tensor cores
+LA_KERNELS = dict(chunk=3, decode=1, tree=1, commit=1)  # CUDA kernels a K14 call
 LIN_PROMPT_LEN = 4096
 LIN_AR_TOKENS = 32
 LIN_SPEC_TOKENS = 64
@@ -3471,14 +3489,18 @@ def la_loglam(pkg, H):
 
 def la_row(pkg, mode, args, case):
     """K14 in ``mode`` on these inputs against its plain version, timed.
-    Chunk mode: 1e-5 of the largest value (the same sub-tiles, dot products
-    summed in another order); decode, tree and commit repeat the plain
-    version's operations one for one: equal bits. The bound counts q, k, v
-    of the live tokens, the output, and the states each live row reads
+    Chunk mode: 1e-5 of the largest value (the same sub-tiles, products in
+    3xTF32 and summed in another order); decode, tree and commit repeat the
+    plain version's operations one for one: equal bits. The bound counts q,
+    k, v of the live tokens, the output, and the states each live row reads
     (and writes); the operations of the chunk form (scores, their products
-    with v, q S and the state update per token) or of the per-token step
-    (3 D^2) and readout (2 D^2), against the card's fp32 rate. No single
-    PyTorch call computes any of the four: library_ms is null."""
+    with v, q S and the state update per token) at the rate of the
+    instructions the kernel issues for them, three TF32 products for each
+    fp32 product on the tensor cores, or of the per-token step (3 D^2) and
+    readout (2 D^2) at the card's fp32 rate. Beside the wall ``ms``: the
+    device time with the L2 cold (``cold_ms``) and the CUDA kernels a call
+    (``graph_kernels``). No single PyTorch call computes any of the four:
+    library_ms is null."""
     import torch
 
     la = pkg["linear_attention"]
@@ -3547,15 +3569,19 @@ def la_row(pkg, mode, args, case):
     big = mode == "chunk" and Q >= 512
     st_t = arena.clone()
     ms = time_ms(lambda: run(st_t), reps=5 if big else 20)
+    device = cold_ms(lambda: run(st_t), reps=5 if big else 20)
+    kernels = graph_kernels(lambda: run(st_t))
     plain_ms = time_ms(lambda: plain(st_t), reps=2 if big else 3, warmup=1)
     del st_k, st_p, st_t
     shape = (f"B={B} H={H} D={D} " + (f"C={Q} chunk_lens={lens.tolist()}" if mode == "chunk"
                                         else f"n_lin={arena.shape[0]} Q={Q} "
                                              f"n={ncommit.tolist()}" if mode == "commit"
                                         else f"Q={Q}"))
+    bnd = (bound_ms(nbytes, 3.0 * flops, TF32_FLOPS) if mode == "chunk"
+           else bound_ms(nbytes, flops, FP32_FLOPS))
     return dict(_case(f"linear_attention[{mode}]", "linear_attention.cu", LA_REPLACES[mode],
-                      max(err, serr), max(rel, srel), ms, plain_ms,
-                      bound_ms(nbytes, flops, FP32_FLOPS), None, case + shape))
+                      max(err, serr), max(rel, srel), ms, plain_ms, bnd, None, case + shape),
+                device_ms=device, kernels_per_call=kernels)
 
 
 def check_la(pkg, g, mode, B, Q, R=1, L=16, n=None):
@@ -3714,24 +3740,79 @@ def check_linear_identities(pkg, g) -> None:
           "rows (widths 2048 and 128, the gated group norm)")
 
 
-def phase_linear_kernels(pkg) -> list:
-    """K14's four modes and K15 against their plain versions at
-    Ring-mini-linear-2.0's shapes, K15 also at the earlier models' (every
-    model's norms launch it), and the bit identities. Returns the
-    kernels-line rows; the ungated group norm, which the model never runs,
-    is checked and printed but kept out of the line."""
-    import torch
-
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+def la_rows(pkg, g) -> list:
+    """K14's rows at Ring-mini-linear-2.0's shapes (PERF.md rows 22-23):
+    chunk mode at B = 2 (row 1 half padded) and C = 1 / 17 / 512 / 4096,
+    and at the prefill's own B = 1, C = 4096; decode at B = 1 / 8, tree at
+    Q = 17 (R = 1 L = 16, R = 2 L = 8), the commit of 1 / 5 / 17 nodes over
+    16 layers. ``tools/la_rows.py --root`` takes them for another tree."""
     rows = []
     for C in (1, 17, 512, LIN_PROMPT_LEN):
         rows.append(check_la(pkg, g, "chunk", 2, C))
+    rows.append(check_la(pkg, g, "chunk", 1, LIN_PROMPT_LEN))
     for B in (1, 8):
         rows.append(check_la(pkg, g, "decode", B, 1))
     for R, L in ((1, 16), (2, 8)):
         rows.append(check_la(pkg, g, "tree", 1, 1 + R * L, R=R, L=L))
     for n in (1, 5, 17):
         rows.append(check_la(pkg, g, "commit", 1, 17, n=[n]))
+    return rows
+
+
+def check_linear_invariance(pkg, g) -> None:
+    """On the card, K14's chunk mode: a row's output and state bits depend
+    on its own tokens only. The same 700 tokens alone (C = 700) and as row
+    1 of a batch of 3 with 300 and 1000 tokens at a wider padded C (1000,
+    strided views); a 1024-token chunk and the same tokens as two 512-token
+    chunks (a prefill resumed at a multiple of the 64-token tile). Fails the
+    run otherwise."""
+    import torch
+
+    la = pkg["linear_attention"]
+    H, D, n = LIN_H, LIN_D, 700
+    ll = la_loglam(pkg, H)
+    q, k, v = la_features(g, 3, H, 1000, D)
+    s0 = torch.randn(3, H, D, D, generator=g, device="cuda") * 0.1
+    lens = torch.tensor([300, n, 1000], dtype=torch.int32, device="cuda")
+    st_b = s0.clone()
+    out_b, _ = la.linear_attention_chunk(q, k, v, st_b, lens, ll)
+    st_1 = s0[1:2].clone()
+    out_1, _ = la.linear_attention_chunk(*(t[1:2, :, :n].contiguous() for t in (q, k, v)),
+                                         st_1, lens[1:2], ll)
+    if not (torch.equal(out_b[1, :, :n], out_1[0]) and torch.equal(st_b[1], st_1[0])):
+        fail("linear_attention[chunk]: a row's bits change with the batch and the padded "
+             "width")
+    q, k, v = la_features(g, 1, H, 1024, D)
+    s0 = torch.randn(1, H, D, D, generator=g, device="cuda") * 0.1
+    whole, parts = s0.clone(), s0.clone()
+    full = torch.tensor([1024], dtype=torch.int32, device="cuda")
+    half = torch.tensor([512], dtype=torch.int32, device="cuda")
+    out_w, _ = la.linear_attention_chunk(q, k, v, whole, full, ll)
+    outs = [la.linear_attention_chunk(*(t[:, :, c:c + 512] for t in (q, k, v)), parts, half,
+                                      ll)[0] for c in (0, 512)]
+    if not (torch.equal(out_w, torch.cat(outs, dim=2)) and torch.equal(whole, parts)):
+        fail("linear_attention[chunk]: two 512-token chunks differ from one of 1024")
+    print("phase linear invariance: chunk rows bit-identical alone (C = 700) and in a batch "
+          "of 3 at C = 1000; a 1024-token chunk equals two of 512, output and state")
+
+
+def phase_linear_kernels(pkg) -> list:
+    """K14's four modes and K15 against their plain versions at
+    Ring-mini-linear-2.0's shapes, K15 also at the earlier models' (every
+    model's norms launch it), K14's CUDA kernels a call (LA_KERNELS), and
+    the bit identities. Returns the kernels-line rows; the ungated group
+    norm, which the model never runs, is checked and printed but kept out
+    of the line."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = la_rows(pkg, g)
+    for r in rows:
+        mode = r["name"].split("[")[1].rstrip("]")
+        if r["kernels_per_call"] != LA_KERNELS[mode]:
+            fail(f"{r['name']} {r['case']}: {r['kernels_per_call']} CUDA kernels a call, not "
+                 f"{LA_KERNELS[mode]}")
+    check_linear_invariance(pkg, g)
     for r in (1, 17, 4096):
         rows.append(check_norm(pkg, g, "plain", r, 2048, 1))  # the hidden norms
         rows.append(check_norm(pkg, g, "plain", 16 * r, 128, 1, "per-head q/k "))
@@ -3765,20 +3846,28 @@ class LinearCapture(LaunchHooks):
 
     def install(self):
         la, rn = self.pkg["linear_attention"], self.pkg["rmsnorm"]
-        self._wrap([(la, "_recurrent_cuda", self._recurrent),
+        self._wrap([(la, "_decode_cuda", self._decode),
+                    (la, "_tree_cuda", self._tree),
                     (la, "_chunk_cuda", self._chunk),
                     (la, "_commit_cuda", self._commit),
                     (rn, "_launch", self._norm)])
 
-    def _recurrent(self, orig):
-        def hook(xq, xk, xv, state, parents, valid, loglam, slot_ids, write):
-            mode = "decode" if write else "tree"
-            old = self.kept.get(mode)
-            if self._first_layer(state) and (
-                    old is None or xq.shape[0] > old[0].shape[0]):
-                self.kept[mode] = tuple(self._clone(t) for t in (
-                    xq, xk, xv, state, parents, valid, loglam, slot_ids))
-            return orig(xq, xk, xv, state, parents, valid, loglam, slot_ids, write)
+    def _keep(self, mode, xq, xk, xv, state, parents, valid, loglam, slot_ids):
+        old = self.kept.get(mode)
+        if self._first_layer(state) and (old is None or xq.shape[0] > old[0].shape[0]):
+            self.kept[mode] = tuple(self._clone(t) for t in (
+                xq, xk, xv, state, parents, valid, loglam, slot_ids))
+
+    def _decode(self, orig):
+        def hook(xq, xk, xv, state, valid, loglam, slot_ids):
+            self._keep("decode", xq, xk, xv, state, None, valid, loglam, slot_ids)
+            return orig(xq, xk, xv, state, valid, loglam, slot_ids)
+        return hook
+
+    def _tree(self, orig):
+        def hook(xq, xk, xv, state, parents, valid, loglam, slot_ids):
+            self._keep("tree", xq, xk, xv, state, parents, valid, loglam, slot_ids)
+            return orig(xq, xk, xv, state, parents, valid, loglam, slot_ids)
         return hook
 
     def _chunk(self, orig):

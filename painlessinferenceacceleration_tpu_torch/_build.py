@@ -7,8 +7,8 @@ and loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is never served by a stale build.
 
-The tensor-core GEMM sources (int4, int8, W8A8, block fp8, bf16), the paged and MLA
-attention sources, the norm and the KV compaction are compiled with
+The tensor-core GEMM sources (int4, int8, W8A8, block fp8, bf16), the paged, MLA
+and linear attention sources, the norm and the KV compaction are compiled with
 ``-Xptxas -v``: the register,
 shared-memory and spill report of each kernel is kept beside its library
 (``ptxas_report``). ``BUILD_SECONDS`` holds each
@@ -45,11 +45,11 @@ NVCC_FLAGS = (
 
 # sources whose build keeps ptxas's resource report (registers, shared
 # memory, spills): the tensor-core GEMMs, whose accumulators must stay in
-# registers, the paged and MLA attention kernels, and the norm and the KV
-# compaction, which hold rows in registers and shared memory
+# registers, the paged, MLA and linear attention kernels, and the norm and
+# the KV compaction, which hold rows in registers and shared memory
 VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm", "int8_gemm", "grouped_int8_gemm",
                    "w8a8_gemm", "block_fp8_gemm", "grouped_gemm", "paged_attention",
-                   "mla_attention", "rmsnorm", "kv_permute")
+                   "mla_attention", "rmsnorm", "kv_permute", "linear_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, tuple] = {}

@@ -19,13 +19,17 @@ state ``S`` [D, D] kept per engine slot (all fp32, the JAX package's
   replayed into each slot's state with the same step.
 
 The per-token step is ``S <- lam * S + k (x) v`` (two products and a sum,
-each rounded) and the readout ``out = sum_d q[d] * S[d, :]`` over d in
-ascending order. Decode, verify and commit share it, so a verified row has
-the bits of the AR row at its position and the committed state the bits of
-AR's steps (the JAX package's closed forms agree with it only in exact
-arithmetic). The plain versions repeat that arithmetic operation for
-operation, elementwise, so on the card a recurrent mode equals its plain
-version bit for bit, and on the CPU lookahead equals AR too.
+each rounded) and the readout ``out = sum_d q[d] * S[d, :]`` in one fixed
+order (``la_readout``: ``READOUT_SPLIT`` ranges of d, each summed in
+ascending d, then the partials added in a fixed pairwise tree). Decode,
+verify and commit share them, so a verified row has the bits of the AR row
+at its position and the committed state the bits of AR's steps (the JAX
+package's closed forms agree with it only in exact arithmetic). The plain
+versions repeat that arithmetic operation for operation, so on the card a
+recurrent mode equals its plain version bit for bit, and on the CPU
+lookahead equals AR too. Chunk mode's products run in 3xTF32 on the card,
+within 1e-5 of its plain version; a row's bits there depend on its own
+tokens only.
 
 The state argument is either the JAX-shaped ``[B, H, D, D]`` (row b is
 state b) or, with ``slot_ids`` [B], one layer's slot arena ``[slots, H, D,
@@ -35,26 +39,39 @@ of 0) leave their state alone, so padding rows may alias a real row's slot.
 Outputs of padded, dead or inactive rows are 0.
 
 On a CUDA tensor each wrapper launches K14 or raises; on a CPU tensor it
-takes its plain version. Each wrapper's ``launches`` counts its K14
-launches.
+takes its plain version. A launch reads ``loglam``, ``valid`` (bool) and
+the indices (int32 or int64) as they come and writes every output element,
+through a ctypes struct of its fixed fields built once a shape
+(``la_static``): one CUDA kernel a call, three in chunk mode (the tiles'
+increments, the carry over the tiles, the outputs; a workspace from
+``_build.scratch``). ``la_plan`` gives each launch's grid and shared
+memory and holds the shape rule. Each wrapper's ``launches`` counts its
+K14 calls.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from painlessinferenceacceleration_tpu_torch import _build
 
-TILE = 64  # chunk mode's sub-tile (csrc/linear_attention.cu kTile)
-MAX_HEAD_DIM = 128  # chunk mode's shared memory holds two [TILE, D + 1] tiles
+# csrc/linear_attention.cu's constants (tests/test_torch_la_plan.py holds
+# them against the source)
+TILE = 64  # chunk mode's sub-tile (kTile)
+SLAB = 16  # value columns a block of the recurrent modes (kSlab)
+READOUT_SPLIT = 8  # the readout's d-ranges (kSplit)
+MAX_HEAD_DIM = 128  # a thread holds D / READOUT_SPLIT state elements (kMaxD)
+SCAN_THREADS = 256  # chunk pass 2, 4 state elements a thread (kScanThreads)
+SMEM_LIMIT = 232448  # the H100's dynamic shared memory a block
+MAX_GRID_YZ = 65535
 
 
 def decay_of(loglam: torch.Tensor) -> torch.Tensor:
     """The per-head decay the recurrent modes multiply by: one conversion,
-    shared by decode, verify and commit."""
+    shared by decode, verify and commit (the kernel's ``expf``)."""
     return torch.exp(loglam.to(torch.float32))
 
 
@@ -78,12 +95,25 @@ def la_step(S: torch.Tensor, lam: torch.Tensor, k: torch.Tensor,
 
 
 def la_readout(q: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
-    """``sum_d q[d] * S[d, :]`` over d ascending, a rounded product and sum
-    each (the kernel's order; a matmul's order depends on its shape)."""
-    acc = torch.zeros(S.shape[:-2] + S.shape[-1:], dtype=S.dtype, device=S.device)
-    for d in range(S.shape[-2]):
-        acc = acc + q[..., d, None] * S[..., d, :]
-    return acc
+    """``sum_d q[d] * S[d, :]`` in the kernel's order (a matmul's order
+    depends on its shape): d cut into ``READOUT_SPLIT`` ranges of
+    ceil(D / READOUT_SPLIT) (zeros past D), each summed in ascending d with
+    a rounded product and sum each, then the partials added in a fixed
+    pairwise tree, range r and r + half for half = 4, 2, 1."""
+    D, E = S.shape[-2], S.shape[-1]
+    rl = -(-D // READOUT_SPLIT)
+    pad = READOUT_SPLIT * rl - D
+    qp = torch.nn.functional.pad(q, (0, pad)).reshape(*q.shape[:-1], READOUT_SPLIT, rl)
+    Sp = torch.nn.functional.pad(S, (0, 0, 0, pad)).reshape(*S.shape[:-2], READOUT_SPLIT,
+                                                            rl, E)
+    acc = torch.zeros(S.shape[:-2] + (READOUT_SPLIT, E), dtype=S.dtype, device=S.device)
+    for j in range(rl):
+        acc = acc + qp[..., j, None] * Sp[..., j, :]
+    width = READOUT_SPLIT
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width, :] + acc[..., width:, :]
+    return acc[..., 0, :]
 
 
 def linear_attention_chunk_plain(xq, xk, xv, state, chunk_lens, loglam, slot_ids=None):
@@ -160,69 +190,232 @@ def linear_attention_commit_plain(state, win_k, win_v, chain, n_commit, loglam, 
 
 
 # ---------------------------------------------------------------------------
-# K14 wrappers
+# K14's plan and launch fields
 # ---------------------------------------------------------------------------
 
 
-def _check(xq, state, what):
-    B, H, Q, D = xq.shape
-    if xq.dtype != torch.float32 or state.dtype != torch.float32:
-        raise TypeError(f"{what} takes fp32 features and state, not {xq.dtype} / "
-                        f"{state.dtype}")
-    if not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {D} not in (0, {MAX_HEAD_DIM}]")
-    if state.shape[1:] != (H, D, D) or not state.is_contiguous():
-        raise ValueError(f"{what}: state {tuple(state.shape)} is not a contiguous "
-                         f"[slots, {H}, {D}, {D}]")
+class LaPlan(NamedTuple):
+    """One K14 call's launches: a grid (x, y, z) and dynamic shared bytes
+    each (chunk mode: the tiles' increments, the carry over the tiles, the
+    outputs), and the workspace it needs (chunk mode: two fp32 [D, D]
+    states a row, head and tile of the padded width: the tile's increment
+    and the state it enters with)."""
+    grids: tuple
+    smem: tuple
+    workspace_bytes: int
 
 
-def _ids(t: torch.Tensor, dev) -> torch.Tensor:
-    return t.to(device=dev, dtype=torch.int32).contiguous()
+def la_plan(mode: str, B: int, H: int, Q: int, D: int, n_lin: int = 1) -> LaPlan:
+    """K14's launches for ``mode`` ("chunk", "decode", "tree", "commit") at
+    B rows, H heads, Q tokens a row (C in chunk mode; the chain's width in
+    commit mode), head dim D and (commit) n_lin layers. Raises on what the
+    kernel does not take: D not a multiple of ``SLAB`` in [16,
+    ``MAX_HEAD_DIM``] (a block holds whole 16-column slabs, a thread D /
+    ``READOUT_SPLIT`` elements of one), a decode of Q != 1, more than 65535
+    heads or rows (commit: layers x rows), and a tree window or commit chain
+    whose staged rows pass the block's shared memory."""
+    if mode not in ("chunk", "decode", "tree", "commit"):
+        raise ValueError(f"la_plan: no mode {mode!r}")
+    if D % SLAB or not SLAB <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"linear attention on the card takes a head dim that is a multiple "
+                         f"of {SLAB} in [{SLAB}, {MAX_HEAD_DIM}], not {D}")
+    if min(B, H, Q, n_lin) < 1:
+        raise ValueError(f"la_plan: B={B} H={H} Q={Q} n_lin={n_lin} must be positive")
+    rows = B * n_lin
+    if H > MAX_GRID_YZ or rows > MAX_GRID_YZ:
+        raise ValueError(f"la_plan: {H} heads and {rows} rows take at most {MAX_GRID_YZ} each")
+    slabs = D // SLAB
+    if mode == "chunk":
+        qs, vs = D + 4, D + 8
+        delta = 4 * (2 * TILE * vs + TILE + 4)
+        outs = 4 * (TILE * max(qs, TILE + 4) + max(D, TILE) * vs + TILE + 4)
+        tiles = -(-Q // TILE)
+        scan = -(-D * D // (4 * SCAN_THREADS))
+        return LaPlan(((tiles, H, B), (scan, H, B), (tiles, H, B)), (delta, 0, outs),
+                      8 * B * H * tiles * D * D)
+    if mode == "decode":
+        if Q != 1:
+            raise ValueError(f"decode takes one token a row, not {Q}")
+        return LaPlan(((slabs, H, B),), (0,), 0)
+    if mode == "tree":
+        smem = 4 * (2 * Q * D + Q * SLAB + 2 * READOUT_SPLIT * SLAB) + 4 * (3 * Q + 1)
+        what = f"a tree window of {Q} nodes"
+    else:
+        smem = 4 * (Q * D + Q * SLAB) + 4 * Q
+        what = f"a commit chain of {Q} nodes"
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what} at D={D} stages {smem} bytes, more than a block's "
+                         f"{SMEM_LIMIT}")
+    return LaPlan(((slabs, H, rows),), (smem,), 0)
 
 
-def _lib_fn(name: str, n_ptr: int, n_int: int, extra=()):
-    """The entry ``name`` with n_ptr pointers, n_int ints, ``extra`` ctypes
-    and the stream as its arguments."""
-    lib = _build.library("linear_attention")
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + list(extra)
-                   + [ctypes.c_void_p])
-    return lib, fn
+_LL, _I, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 
 
-def _recurrent_cuda(xq, xk, xv, state, parents, valid, loglam, slot_ids, write):
-    B, H, Q, D = xq.shape
-    _check(xq, state, "linear attention")
-    dev = xq.device
-    xq, xk, xv = (x.contiguous() for x in (xq, xk, xv))
-    sid = _ids(_slots(state, slot_ids, B), dev)
-    par = None if parents is None else _ids(parents, dev)
-    val = valid.to(device=dev, dtype=torch.uint8).contiguous()
-    lam = decay_of(loglam).contiguous()
-    out = torch.zeros_like(xq)
-    lib, fn = _lib_fn("la_recurrent", 9, 5)
-    err = fn(xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), state.data_ptr(), sid.data_ptr(),
-             _build.ptr(par), val.data_ptr(), lam.data_ptr(), out.data_ptr(), B, H, Q, D,
-             int(write), _build.stream_of(xq))
-    _build.check(lib, err, "la_recurrent")
-    (linear_attention_decode if write else linear_attention_tree).launches += 1
-    return out
+class _Static(ctypes.Structure):
+    """What a K14 launch fixes for a shape of its operands (``LaStatic`` of
+    ``csrc/linear_attention.cu``, field for field)."""
+    _fields_ = ([("xs", (_LL * 3) * 3), ("valid_stride", _LL * 2), ("idx_stride", _LL * 2)]
+                + [(n, _LL) for n in ("slot_stride", "lens_stride", "layer_stride",
+                                      "win_layer")]
+                + [(n, _I) for n in ("B", "H", "Q", "D", "n_lin", "M", "slot_wide",
+                                     "lens_wide", "idx_wide", "slabs", "tiles", "smem",
+                                     "smem2")])
+
+
+def _index(t: Optional[torch.Tensor], dev, shape, what: str) -> int:
+    """1 for int64, 0 for int32 (-1 for None); raises on anything else."""
+    if t is None:
+        return -1
+    if t.dtype not in (torch.int32, torch.int64) or t.device != dev or t.shape != shape:
+        raise ValueError(f"{what} must be int32 or int64 {tuple(shape)} on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if len(shape) == 2 and shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{what} needs a contiguous last axis, strides {t.stride()}")
+    return int(t.dtype == torch.int64)
+
+
+def _features(xs, lead: tuple, B, H, Q, D, dev, align: bool, what: str) -> list:
+    """Each feature tensor's strides over (b, h, token), checked: fp32 of
+    shape lead + (B, H, Q, D) on ``dev`` with a contiguous last axis."""
+    strides = []
+    for x in xs:
+        if x.dtype != torch.float32 or x.device != dev or x.shape != lead + (B, H, Q, D):
+            raise ValueError(f"{what} takes fp32 {lead + (B, H, Q, D)} features on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{what}: features need a contiguous last axis, strides "
+                             f"{x.stride()}")
+        s = x.stride()[-4:-1]
+        if align and any(v % 4 for v in s):
+            raise ValueError(f"{what} reads 16-byte rows: strides {x.stride()} must be "
+                             f"multiples of 4")
+        strides.append(s)
+    return strides
+
+
+def la_static(mode: str, xq, xk, xv, state, loglam, slot_ids=None, lens=None, valid=None,
+              parents=None, chain=None) -> tuple:
+    """K14's fixed launch fields for ``mode`` on these operands, checked:
+    (the ctypes struct, its address, its plan). Chunk, decode and tree: xq,
+    xk, xv fp32 [B, H, Q, D] with a contiguous last axis (chunk mode: the
+    other strides multiples of 4), state a contiguous fp32 [slots, H, D, D]
+    (row b's at ``slot_ids[b]``, or [B, H, D, D] without them), loglam fp32
+    [H]; ``lens`` chunk_lens [B]; ``valid`` bool [B, Q]; ``parents`` [B, Q].
+    Commit: xq None, xk / xv the stash [n_lin, B, H, Q, D] with one set of
+    strides, state [n_lin, slots, H, D, D], loglam [n_lin, H], ``lens``
+    n_commit [B], ``chain`` [B, M]. Indices int32 or int64. Builds on any
+    device (the CPU tests build it)."""
+    dev = state.device
+    if mode == "commit":
+        n_lin, B, H, Q, D = xk.shape
+        if xv.shape != xk.shape or xv.stride() != xk.stride():
+            raise ValueError(f"linear_attention_commit: win_v {tuple(xv.shape)} "
+                             f"{xv.stride()} must match win_k {tuple(xk.shape)} "
+                             f"{xk.stride()}")
+        xs = _features((xk, xk, xv), (n_lin,), B, H, Q, D, dev, False,
+                       "linear_attention_commit")
+        if state.dim() != 5 or state.shape[0] != n_lin or state.shape[2:] != (H, D, D):
+            raise ValueError(f"linear_attention_commit: arena {tuple(state.shape)} is not "
+                             f"[{n_lin}, slots, {H}, {D}, {D}]")
+        M = chain.shape[-1]
+        plan = la_plan(mode, B, H, M, D, n_lin)
+        ll_shape = (n_lin, H)
+    else:
+        B, H, Q, D = xq.shape
+        n_lin, M = 1, 0
+        xs = _features((xq, xk, xv), (), B, H, Q, D, dev, mode == "chunk",
+                       f"linear_attention_{mode}")
+        if state.dim() != 4 or state.shape[1:] != (H, D, D):
+            raise ValueError(f"linear_attention_{mode}: state {tuple(state.shape)} is not "
+                             f"[slots, {H}, {D}, {D}]")
+        if slot_ids is None and state.shape[0] != B:
+            raise ValueError(f"state {tuple(state.shape)} is not [B={B}, H, D, D]")
+        plan = la_plan(mode, B, H, Q, D)
+        ll_shape = (H,)
+    if state.dtype != torch.float32 or not state.is_contiguous():
+        raise ValueError(f"linear attention takes a contiguous fp32 state, not {state.dtype} "
+                         f"strides {state.stride()}")
+    if (loglam.dtype != torch.float32 or loglam.shape != ll_shape or loglam.device != dev
+            or not loglam.is_contiguous()):
+        raise ValueError(f"loglam must be contiguous fp32 {ll_shape} on {dev}, got "
+                         f"{loglam.dtype} {tuple(loglam.shape)}")
+    slot_wide = _index(slot_ids, dev, (B,), "slot_ids")
+    lens_wide = _index(lens, dev, (B,), "chunk_lens / n_commit")
+    idx = parents if mode == "tree" else chain
+    idx_wide = _index(idx, dev, (B, Q if mode == "tree" else M), "parents / chain")
+    vstride = (0, 0)
+    if mode in ("decode", "tree"):
+        if (valid is None or valid.dtype != torch.bool or valid.shape != (B, Q)
+                or valid.device != dev):
+            raise ValueError(f"valid must be bool {(B, Q)} on {dev}, got "
+                             f"{None if valid is None else (valid.dtype, tuple(valid.shape))}")
+        vstride = valid.stride()
+    xs_c = ((_LL * 3) * 3)(*((_LL * 3)(*s) for s in xs))
+    st = _Static(xs_c, (_LL * 2)(*vstride),
+                 (_LL * 2)(*(idx.stride() if idx is not None else (0, 0))),
+                 slot_ids.stride(0) if slot_ids is not None else 0,
+                 lens.stride(0) if lens is not None else 0,
+                 state[0].numel() if mode == "commit" else 0,
+                 xk.stride(0) if mode == "commit" else 0,
+                 B, H, Q, D, n_lin, M, max(slot_wide, 0), max(lens_wide, 0), max(idx_wide, 0),
+                 D // SLAB, plan.grids[0][0] if mode == "chunk" else 0,
+                 plan.smem[0], plan.smem[-1])
+    return st, ctypes.addressof(st), plan
+
+
+# ---------------------------------------------------------------------------
+# K14 wrappers
+# ---------------------------------------------------------------------------
+
+# operands' shapes, strides, types and devices -> (struct, its address, workspace floats)
+_STATICS = {}
+_ARGS = {"la_chunk": (_P,) * 11, "la_decode": (_P,) * 10, "la_tree": (_P,) * 11,
+         "la_commit": (_P,) * 9}
+
+
+def _desc(t):
+    """A tensor's part of a ``_STATICS`` key."""
+    return None if t is None else (t.shape, t.stride(), t.dtype, t.get_device())
+
+
+def _static(mode, xq, xk, xv, state, loglam, slot_ids, lens=None, valid=None, parents=None,
+            chain=None) -> tuple:
+    key = (mode, _desc(xq), _desc(xk), _desc(xv), _desc(state), _desc(loglam),
+           _desc(slot_ids), _desc(lens), _desc(valid), _desc(parents), _desc(chain))
+    hit = _STATICS.get(key)
+    if hit is None:
+        st, addr, plan = la_static(mode, xq, xk, xv, state, loglam, slot_ids, lens, valid,
+                                   parents, chain)
+        hit = _STATICS[key] = (st, addr, plan.workspace_bytes // 4)
+    return hit
+
+
+def _launch(entry: str, *args) -> None:
+    lib, fn = _build.function("linear_attention", entry, _ARGS[entry])
+    err = fn(*args)
+    if err:
+        _build.check(lib, err, entry)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _out(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _chunk_cuda(xq, xk, xv, state, chunk_lens, loglam, slot_ids):
-    B, H, C, D = xq.shape
-    _check(xq, state, "linear_attention_chunk")
-    dev = xq.device
-    xq, xk, xv = (x.contiguous() for x in (xq, xk, xv))
-    sid = _ids(_slots(state, slot_ids, B), dev)
-    lens = _ids(chunk_lens, dev)
-    ll = loglam.to(device=dev, dtype=torch.float32).contiguous()
-    out = torch.zeros_like(xq)
-    lib, fn = _lib_fn("la_chunk", 8, 4)
-    err = fn(xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), state.data_ptr(), sid.data_ptr(),
-             lens.data_ptr(), ll.data_ptr(), out.data_ptr(), B, H, C, D,
-             _build.stream_of(xq))
-    _build.check(lib, err, "la_chunk")
+    _, st, work = _static("chunk", xq, xk, xv, state, loglam, slot_ids, lens=chunk_lens)
+    if (xq.data_ptr() | xk.data_ptr() | xv.data_ptr() | state.data_ptr()) & 15:
+        raise ValueError("linear_attention_chunk reads 16-byte rows: features and state "
+                         "must start on 16-byte boundaries")
+    out = _out(xq)
+    ws = _build.scratch(xq.device, work)
+    _launch("la_chunk", st, xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), state.data_ptr(),
+            _ptr(slot_ids), chunk_lens.data_ptr(), loglam.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), _build.stream_of(xq))
     linear_attention_chunk.launches += 1
     return out
 
@@ -235,6 +428,8 @@ def linear_attention_chunk(xq: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
     loglam [H]. Returns (out [B, H, C, D], state), the state updated in
     place."""
     if xq.is_cuda:
+        if xq.numel() == 0:
+            return torch.zeros_like(xq), state
         return _chunk_cuda(xq, xk, xv, state, chunk_lens, loglam, slot_ids), state
     if xq.device.type != "cpu":
         raise NotImplementedError(f"linear_attention_chunk on {xq.device}")
@@ -245,15 +440,28 @@ def linear_attention_decode(xq: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor
                             state: torch.Tensor, valid: torch.Tensor, loglam: torch.Tensor,
                             slot_ids: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """AR decode: xq, xk, xv [B, H, 1, D], valid [B, 1]. Returns (out
-    [B, H, 1, D], state), each valid row's state stepped in place."""
+    """AR decode: xq, xk, xv [B, H, 1, D], valid [B, 1] (bool on the card).
+    Returns (out [B, H, 1, D], state), each valid row's state stepped in
+    place."""
     if xq.shape[2] != 1:
         raise ValueError(f"decode takes one token a row, not {xq.shape[2]}")
     if not xq.is_cuda:
         if xq.device.type != "cpu":
             raise NotImplementedError(f"linear_attention_decode on {xq.device}")
         return linear_attention_decode_plain(xq, xk, xv, state, valid, loglam, slot_ids)
-    return _recurrent_cuda(xq, xk, xv, state, None, valid, loglam, slot_ids, True), state
+    if xq.numel() == 0:
+        return torch.zeros_like(xq), state
+    return _decode_cuda(xq, xk, xv, state, valid, loglam, slot_ids), state
+
+
+def _decode_cuda(xq, xk, xv, state, valid, loglam, slot_ids):
+    st = _static("decode", xq, xk, xv, state, loglam, slot_ids, valid=valid)[1]
+    out = _out(xq)
+    _launch("la_decode", st, xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), state.data_ptr(),
+            _ptr(slot_ids), valid.data_ptr(), loglam.data_ptr(), out.data_ptr(),
+            _build.stream_of(xq))
+    linear_attention_decode.launches += 1
+    return out
 
 
 def linear_attention_tree(xq: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
@@ -262,35 +470,27 @@ def linear_attention_tree(xq: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
                           ) -> torch.Tensor:
     """Tree verify over a window whose node 0 is the root: xq, xk, xv
     [B, H, Q, D], parents [B, Q] (-1 the root, -2 a dead node, else an
-    earlier node), valid [B, Q]. Returns out [B, H, Q, D]; the state is only
-    read."""
+    earlier node), valid [B, Q] (bool on the card). Returns out [B, H, Q,
+    D]; the state is only read."""
     if not xq.is_cuda:
         if xq.device.type != "cpu":
             raise NotImplementedError(f"linear_attention_tree on {xq.device}")
         return linear_attention_tree_plain(xq, xk, xv, state, parents, valid, loglam,
                                            slot_ids)
-    return _recurrent_cuda(xq, xk, xv, state, parents, valid, loglam, slot_ids, False)
+    if xq.numel() == 0:
+        return torch.zeros_like(xq)
+    return _tree_cuda(xq, xk, xv, state, parents, valid, loglam, slot_ids)
 
 
-def _commit_cuda(state, win_k, win_v, chain, n_commit, loglam, slot_ids):
-    n_lin, slots, H, D, _ = state.shape
-    _, B, _, Q, _ = win_k.shape
-    if state.dtype != torch.float32 or win_k.dtype != torch.float32 or not state.is_contiguous():
-        raise TypeError("linear_attention_commit takes a contiguous fp32 arena and stash")
-    if win_k.shape != (n_lin, B, H, Q, D) or win_v.shape != win_k.shape:
-        raise ValueError(f"stash {tuple(win_k.shape)} does not match the arena "
-                         f"{tuple(state.shape)}")
-    dev = state.device
-    wk, wv = win_k.contiguous(), win_v.contiguous()
-    sid, ch, nc = _ids(slot_ids, dev), _ids(chain, dev), _ids(n_commit, dev)
-    lam = decay_of(loglam).contiguous()
-    lib, fn = _lib_fn("la_commit", 7, 6, (ctypes.c_longlong,))
-    err = fn(state.data_ptr(), wk.data_ptr(), wv.data_ptr(), sid.data_ptr(), ch.data_ptr(),
-             nc.data_ptr(), lam.data_ptr(), n_lin, B, H, Q, D, ch.shape[1],
-             slots * H * D * D, _build.stream_of(state))
-    _build.check(lib, err, "la_commit")
-    linear_attention_commit.launches += 1
-    return state
+def _tree_cuda(xq, xk, xv, state, parents, valid, loglam, slot_ids):
+    st = _static("tree", xq, xk, xv, state, loglam, slot_ids, valid=valid,
+                 parents=parents)[1]
+    out = _out(xq)
+    _launch("la_tree", st, xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), state.data_ptr(),
+            _ptr(slot_ids), parents.data_ptr(), valid.data_ptr(), loglam.data_ptr(),
+            out.data_ptr(), _build.stream_of(xq))
+    linear_attention_tree.launches += 1
+    return out
 
 
 def linear_attention_commit(state: torch.Tensor, win_k: torch.Tensor, win_v: torch.Tensor,
@@ -300,12 +500,24 @@ def linear_attention_commit(state: torch.Tensor, win_k: torch.Tensor, win_v: tor
     ``chain[b]``, root first) from the stash ``win_k``, ``win_v``
     [n_lin, B, H, Q, D] into slot ``slot_ids[b]`` of every layer of the
     arena ``state`` [n_lin, slots, H, D, D], in place; loglam [n_lin, H]."""
-    if state.is_cuda:
-        return _commit_cuda(state, win_k, win_v, chain, n_commit, loglam, slot_ids)
-    if state.device.type != "cpu":
-        raise NotImplementedError(f"linear_attention_commit on {state.device}")
-    return linear_attention_commit_plain(state, win_k, win_v, chain, n_commit, loglam,
-                                         slot_ids)
+    if not state.is_cuda:
+        if state.device.type != "cpu":
+            raise NotImplementedError(f"linear_attention_commit on {state.device}")
+        return linear_attention_commit_plain(state, win_k, win_v, chain, n_commit, loglam,
+                                             slot_ids)
+    if win_k.numel() == 0 or chain.shape[-1] == 0:
+        return state
+    return _commit_cuda(state, win_k, win_v, chain, n_commit, loglam, slot_ids)
+
+
+def _commit_cuda(state, win_k, win_v, chain, n_commit, loglam, slot_ids):
+    st = _static("commit", None, win_k, win_v, state, loglam, slot_ids, lens=n_commit,
+                 chain=chain)[1]
+    _launch("la_commit", st, state.data_ptr(), win_k.data_ptr(), win_v.data_ptr(),
+            slot_ids.data_ptr(), chain.data_ptr(), n_commit.data_ptr(), loglam.data_ptr(),
+            _build.stream_of(state))
+    linear_attention_commit.launches += 1
+    return state
 
 
 for _wrapper in (linear_attention_chunk, linear_attention_decode, linear_attention_tree,

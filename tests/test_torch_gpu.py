@@ -1367,6 +1367,153 @@ def test_verify_rows_and_commit_equal_ar_on_the_card(cuda):
         assert torch.equal(arena[0], s_n), n
 
 
+def test_linear_attention_chunk_rows_do_not_depend_on_the_batch(cuda):
+    """A chunk row's output and state bits depend on its own tokens only:
+    the same 700 tokens alone (C = 700), as row 1 of a batch of 3 with 300
+    and 1000 tokens at C = 1000 (strided views of wider tensors, int64
+    lengths), and on a slot of an arena."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    H, D, n = 16, 128, 700
+    q, k, v = _la_inputs(cuda, 3, H, 1024, D)
+    s0 = torch.randn(3, H, D, D, generator=cuda, device="cuda") * 0.1
+    ll = _loglam(H)
+    st_b = s0.clone()
+    out_b, _ = la.linear_attention_chunk(*(t[:, :, :1000] for t in (q, k, v)), st_b,
+                                         torch.tensor([300, n, 1000], device="cuda"), ll)
+    st_1 = s0[1:2].clone()
+    out_1, _ = la.linear_attention_chunk(*(t[1:2, :, :n].contiguous() for t in (q, k, v)), st_1,
+                                         torch.tensor([n], dtype=torch.int32, device="cuda"), ll)
+    assert torch.equal(out_b[1, :, :n], out_1[0]) and torch.equal(st_b[1], st_1[0])
+    assert not out_b[1, :, n:].any() and not out_b[0, :, 300:].any()
+    arena = torch.randn(4, H, D, D, generator=cuda, device="cuda") * 0.1
+    arena[3] = s0[1]
+    out_s, _ = la.linear_attention_chunk(*(t[1:2, :, :n].contiguous() for t in (q, k, v)), arena,
+                                         torch.tensor([n], dtype=torch.int32, device="cuda"), ll,
+                                         torch.tensor([3], dtype=torch.int32, device="cuda"))
+    assert torch.equal(out_s, out_1) and torch.equal(arena[3], st_1[0])
+
+
+def test_linear_attention_chunk_resumes_bit_for_bit(cuda):
+    """A 1024-token chunk equals the same tokens as two 512-token chunks (a
+    prefill resumed at a multiple of the 64-token tile), output and state."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    H, D = 16, 128
+    q, k, v = _la_inputs(cuda, 1, H, 1024, D)
+    s0 = torch.randn(1, H, D, D, generator=cuda, device="cuda") * 0.1
+    ll = _loglam(H)
+    whole, parts = s0.clone(), s0.clone()
+    out_w, _ = la.linear_attention_chunk(q, k, v, whole,
+                                         torch.tensor([1024], dtype=torch.int32, device="cuda"),
+                                         ll)
+    outs = [la.linear_attention_chunk(*(t[:, :, c:c + 512] for t in (q, k, v)), parts,
+                                      torch.tensor([512], dtype=torch.int32, device="cuda"),
+                                      ll)[0] for c in (0, 512)]
+    assert torch.equal(out_w, torch.cat(outs, dim=2)) and torch.equal(whole, parts)
+
+
+def test_linear_attention_ring_layers_verify_and_commit_equal_ar(cuda):
+    """At Ring-mini-linear-2.0's 16 linear layers (each its own decay and
+    stash): every verified node's row equals the AR row at its position, and
+    committing n accepted nodes leaves every layer's slot equal to n AR
+    steps."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    n_lin, H, D, R, L = 16, 16, 128, 2, 8
+    Q = 1 + R * L
+    q, k, v = _la_inputs(cuda, n_lin, H, Q, D)  # one window per layer
+    arena = torch.randn(n_lin, 3, H, D, D, generator=cuda, device="cuda") * 0.1
+    lls = torch.stack([_loglam(H) * (1 + 0.05 * i) for i in range(n_lin)])
+    parents, valid, _ = _tree(1, R, L)
+    slot = torch.tensor([2], dtype=torch.int32, device="cuda")
+    chain = [0] + list(range(1 + L, 1 + 2 * L))  # the root, then branch 1
+    ar = arena.clone()
+    for i in range(n_lin):
+        tree = la.linear_attention_tree(q[i:i + 1], k[i:i + 1], v[i:i + 1], arena[i], parents,
+                                        valid, lls[i], slot)
+        for c in chain:
+            o, _ = la.linear_attention_decode(*(t[i:i + 1, :, c:c + 1] for t in (q, k, v)), ar[i],
+                                              valid[:, :1], lls[i], slot)
+            assert torch.equal(o[0, :, 0], tree[0, :, c]), (i, c)
+    for n in (1, 5, len(chain)):
+        committed = arena.clone()
+        la.linear_attention_commit(committed, k[:, None], v[:, None],
+                                   torch.tensor([chain], device="cuda"),
+                                   torch.tensor([n], device="cuda"), lls, slot)
+        for i in range(n_lin):
+            s_n = arena[i].clone()
+            for c in chain[:n]:
+                la.linear_attention_decode(*(t[i:i + 1, :, c:c + 1] for t in (q, k, v)), s_n,
+                                           valid[:, :1], lls[i], slot)
+            assert torch.equal(committed[i], s_n), (n, i)
+        assert torch.equal(committed[:, :2], arena[:, :2])  # other slots untouched
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_linear_attention_recurrent_modes_at_strided_inputs(cuda, D):
+    """Decode and tree on strided views with int64 indices and a slot arena
+    equal their plain versions bit for bit (the card hybrid's D = 64 and
+    Ring's 128)."""
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    B, H, R, L = 2, 4, 2, 4
+    Q = 1 + R * L
+    q, k, v = (t[..., :D] for t in _la_inputs(cuda, B, H, Q, D + 16))
+    arena = torch.randn(3, H, D, D, generator=cuda, device="cuda") * 0.1
+    ll = _loglam(H)
+    slots = torch.tensor([2, 0], device="cuda")
+    parents, valid, _ = _tree(B, R, L, dead=(0, 2))
+    got = la.linear_attention_tree(q, k, v, arena, parents.long(), valid, ll, slots)
+    assert torch.equal(got, la.linear_attention_tree_plain(q, k, v, arena, parents, valid, ll,
+                                                           slots))
+    a1, a2 = arena.clone(), arena.clone()
+    o1, _ = la.linear_attention_decode(q[:, :, 3:4], k[:, :, 3:4], v[:, :, 3:4], a1,
+                                       valid[:, 3:4], ll, slots)
+    o2, _ = la.linear_attention_decode_plain(q[:, :, 3:4], k[:, :, 3:4], v[:, :, 3:4], a2,
+                                             valid[:, 3:4], ll, slots)
+    assert torch.equal(o1, o2) and torch.equal(a1, a2)
+
+
+def test_linear_attention_one_kernel_a_call(cuda):
+    """Each K14 call is one CUDA kernel (chunk mode three: the tiles'
+    increments, the carry over the tiles, the outputs), no other kernel
+    beside it (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from painlessinferenceacceleration_tpu_torch.ops import linear_attention as la
+
+    B, H, D, Q = 2, 16, 128, 17
+    q, k, v = _la_inputs(cuda, B, H, Q, D)
+    arena = torch.randn(3, H, D, D, generator=cuda, device="cuda") * 0.1
+    arenas = torch.randn(2, 3, H, D, D, generator=cuda, device="cuda") * 0.1
+    ll = _loglam(H)
+    lls = torch.stack([ll, ll * 0.5])
+    slots = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    parents, valid, _ = _tree(B, 2, 8)
+    lens = torch.tensor([Q, 9], dtype=torch.int32, device="cuda")
+    win_k, win_v = torch.stack([k, k]), torch.stack([v, v])
+    chain = torch.arange(Q, device="cuda").repeat(B, 1)
+    n_commit = torch.tensor([5, 3], device="cuda")
+    cases = [
+        ("chunk", 3, lambda: la.linear_attention_chunk(q, k, v, arena, lens, ll, slots)),
+        ("decode", 1, lambda: la.linear_attention_decode(q[:, :, :1], k[:, :, :1], v[:, :, :1],
+                                                         arena, valid[:, :1], ll, slots)),
+        ("tree", 1, lambda: la.linear_attention_tree(q, k, v, arena, parents, valid, ll, slots)),
+        ("commit", 1, lambda: la.linear_attention_commit(arenas, win_k, win_v, chain, n_commit,
+                                                         lls, slots)),
+    ]
+    for mode, want, fn in cases:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert kernels == want, (mode, kernels)
+
+
 def _tiny_hybrid():
     from painlessinferenceacceleration_tpu_torch.config import ModelConfig
 
