@@ -55,8 +55,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
    mode against its plain version again, on the inputs of real serving
    calls kept during those runs (decode and verify at B = 8 with ragged
    contexts, batched prefill with prefix-resumed rows, K1 at M = 8 x 512,
-   K4's compaction at B = 8, K16's step entry on the widest and narrowest
-   writes of each arena kind, as on phase 3's writes);
+   K4's compaction at B = 8 in the bf16, static e4m3 and per-token e4m3
+   arenas on the same tables, one CUDA kernel a compaction, and the e4m3
+   ones held against the JAX package's route, a window gather and K6's
+   whole-page write-back, on copies; K16's step entry on the widest and
+   narrowest writes of each arena kind, as on phase 3's writes);
    the host-trie generator: LookaheadGenerator on the same weights and
    prompt (native trie), hier lookahead at decoding length 63 (Q = 64) and
    the same call without lookahead over 256 tokens, equal to each other and
@@ -980,12 +983,31 @@ COMPACTIONS = (("main path one branch ", 1, 17, 1, 0), ("R=2 L=8 ", 1, 17, 0, 8)
                ("generator Q=64 ", 1, 64, 0, 12), ("generator Q=64 all moving ", 1, 64, 0, 62))
 
 
-def check_kv_compact(pkg, g, L, lanes, B, Q, n_identity, n_moves, case):
-    """K4's compaction entry on bf16 arenas of these row lanes (K, V) and a
-    verify step's tensors: B requests with contexts of 540-599 tokens (their
-    windows across a page edge), the first n_identity accepting 14 nodes of
-    one branch (the identity), the others n_moves nodes of a random
-    increasing path."""
+def kv_arenas(g, kind, shape, heads):
+    """Random arenas of ``kind`` for K4 on [L, n_pages, ps, lanes]: bf16 K
+    and V; e4m3 K and V (random bytes); or those and fp8_tok's f32 scale
+    arenas of ``heads`` heads."""
+    import torch
+
+    if kind == "bf16":
+        return [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2)]
+    arenas = [torch.randint(0, 256, shape, generator=g, device="cuda", dtype=torch.uint8)
+              .view(torch.float8_e4m3fn) for _ in range(2)]
+    if kind == "fp8_tok":
+        arenas += [torch.rand(shape[:3] + (heads,), generator=g, device="cuda")
+                   for _ in range(2)]
+    return arenas
+
+
+def check_kv_compact(pkg, g, L, lanes, B, Q, n_identity, n_moves, case, kind="bf16",
+                     heads=0):
+    """K4's compaction entry on arenas of ``kind`` (``kv_arenas``; K and V
+    rows of these lanes) and a verify step's tensors: B requests with
+    contexts of 540-599 tokens (their windows across a page edge), the first
+    n_identity accepting 14 nodes of one branch (the identity), the others
+    n_moves nodes of a random increasing path. The e4m3 kinds are also held
+    against the JAX package's route (``compaction_vs_jax``)."""
     import numpy as np
     import torch
 
@@ -999,39 +1021,25 @@ def check_kv_compact(pkg, g, L, lanes, B, Q, n_identity, n_moves, case):
         ne[b] = min(14, Q - 1) if b < n_identity else n_moves
         path[b, : ne[b]] = (np.arange(1, ne[b] + 1) if b < n_identity else
                             np.sort(rng.choice(np.arange(1, Q), n_moves, replace=False)))
-    arenas = [torch.randn(L, B * P + 1, 64, w, generator=g, device="cuda").to(torch.bfloat16)
-              for w in lanes]
+    if kind == "bf16":
+        arenas = [torch.randn(L, B * P + 1, 64, w, generator=g, device="cuda")
+                  .to(torch.bfloat16) for w in lanes]
+    else:
+        arenas = kv_arenas(g, kind, (L, B * P + 1, 64, lanes[0]), heads)
     dev = [torch.from_numpy(a).to("cuda") for a in (pt, ctx, path, ne)]
     active = torch.ones(B, dtype=torch.bool, device="cuda")
     row = kv_compact_row(pkg, arenas, *dev, Q, active, case)
+    if kind != "bf16":
+        compaction_vs_jax(pkg, arenas, (*dev, active, Q))
     del arenas
     return row
 
 
-def device_ms_per_call(fn, kernel_substr: str, calls: int = 20) -> float:
-    """The kernel's own device time per call, from torch.profiler (apart
-    from the wrapper's host rate, which the CUDA events of back-to-back
-    calls measure when the kernel is short)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if kernel_substr in e.key:
-            dev = getattr(e, "self_device_time_total", None)
-            total += dev if dev is not None else getattr(e, "self_cuda_time_total", 0.0)
-    return total / 1e3 / calls if total > 0 else None  # None: not measured
-
-
 def kv_write_row(pkg, pages, windows, ids, case):
     """K6 on these pages, windows and page ids against its plain version
-    (bit for bit), timed; the device time from torch.profiler beside it."""
+    (bit for bit), timed: wall (``paired_ms``, in turns with the
+    yardstick, index_copy_ of the windows' bytes), device ms with the L2
+    cold (``cold_ms``)."""
     import torch
 
     ku = pkg["kv_update"]
@@ -1042,20 +1050,23 @@ def kv_write_row(pkg, pages, windows, ids, case):
     if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
         fail(f"kv_write_pages ({pages.dtype}, {case}) differs from its plain version")
     err, rel = _errs(got.view(torch.uint8), ref.view(torch.uint8))
+    del got, ref
     work = pages.clone()
-    ms = time_ms(lambda: ku.kv_write_pages(work, windows, ids))
+
+    def run():
+        return ku.kv_write_pages(work, windows, ids)
     plain_ms = time_ms(lambda: ku.kv_write_pages_plain(work, windows, ids), reps=5)
     raw, wraw = work.view(torch.uint8), windows.view(torch.uint8)
-    lib_ms = time_ms(lambda: raw.index_copy_(1, ids.long(), wraw))
+    ms, lib_ms = paired_ms(run, lambda: raw.index_copy_(1, ids.long(), wraw))
     row_bytes = pages[0, 0, 0].numel() * pages.element_size()
     n_unique = int(torch.unique(ids).numel())
-    nbytes = 2 * L * n_unique * ps * row_bytes + W * 4
+    nbytes = 2 * L * n_unique * ps * row_bytes + W * ids.element_size()
     row = _case("kv_write_pages", "kv_page_write.cu", f"{KVU}:261 _page_write_kernel",
                 err, rel, ms, plain_ms, bound_ms(nbytes, 0.0), lib_ms,
                 f"{case}L={L} W={W} ps={ps} row_bytes={row_bytes} "
                 f"{str(pages.dtype).split('.')[-1]} aliased={W - n_unique}")
-    row["device_ms"] = device_ms_per_call(lambda: ku.kv_write_pages(work, windows, ids),
-                                          "kv_page_write")
+    row["device_ms"] = cold_ms(run)
+    del work
     return row
 
 
@@ -1248,9 +1259,10 @@ def step_rows(pkg, g) -> list:
 
 def kv_move_row(pkg, pages, sp, sr, dp, dr, case):
     """K17 on these pages and moves against its plain version (byte for
-    byte), timed. The bound: each kept move's row read once and written
-    once over all layers, plus the four int32 indices a move; the yardstick
-    is index_put_ of the rows gathered beforehand."""
+    byte), timed: wall (``paired_ms``, in turns with the yardstick), device
+    ms with the L2 cold (``cold_ms``). The bound: each kept move's row read
+    once and written once over all layers, plus the four int32 indices a
+    move; the yardstick is index_put_ of the rows gathered beforehand."""
     import torch
 
     ku = pkg["kv_update"]
@@ -1261,7 +1273,9 @@ def kv_move_row(pkg, pages, sp, sr, dp, dr, case):
     err = _errs(got.view(torch.uint8), ref.view(torch.uint8))[0]
     del got, ref
     work = pages.clone()
-    ms = time_ms(lambda: ku.kv_move_rows(work, sp, sr, dp, dr))
+
+    def run():
+        return ku.kv_move_rows(work, sp, sr, dp, dr)
     plain_ms = time_ms(lambda: ku.kv_move_rows_plain(work, sp, sr, dp, dr), reps=5)
     L, n_pages, ps = pages.shape[:3]
     flat = work.view(torch.uint8).view(L, n_pages * ps, -1)
@@ -1269,14 +1283,16 @@ def kv_move_row(pkg, pages, sp, sr, dp, dr, case):
     N = sp.shape[0]
     lidx = torch.arange(L, device="cuda")[:, None].expand(L, N)
     didx = (dp.long() * ps + dr.long())[None].expand(L, N)
-    lib_ms = time_ms(lambda: flat.index_put_((lidx, didx), moved))
+    ms, lib_ms = paired_ms(run, lambda: flat.index_put_((lidx, didx), moved))
     row_bytes = flat.shape[-1]
     nbytes = 2 * L * _n_kept(dp, dr, ps) * row_bytes + N * 16
+    row = _case("kv_move_rows", "kv_rows.cu", f"{KVU}:86 _move_kernel", err, err, ms,
+                plain_ms, bound_ms(nbytes, 0.0), lib_ms,
+                f"{case}L={L} N={N} row_bytes={row_bytes} "
+                f"{str(pages.dtype).split('.')[-1]}")
+    row["device_ms"] = cold_ms(run)
     del work, moved
-    return _case("kv_move_rows", "kv_rows.cu", f"{KVU}:86 _move_kernel", err, err, ms,
-                 plain_ms, bound_ms(nbytes, 0.0), lib_ms,
-                 f"{case}L={L} N={N} row_bytes={row_bytes} "
-                 f"{str(pages.dtype).split('.')[-1]}")
+    return row
 
 
 def check_kv_move_rows(pkg, g, L, n_pages, ps, row, B, M):
@@ -1338,7 +1354,9 @@ def k4_rows(pkg, g, cfg) -> list:
     """K4 against its plain versions: the general entry with 127 rows
     moving and none; the compaction entry (K and V in one launch) at the
     main paths' compactions (Q = 17 one branch and R = 2 L = 8, the
-    generator's Q = 64) and at DeepSeek-V2-Lite's latent rows."""
+    generator's Q = 64) and at DeepSeek-V2-Lite's latent rows; and in the
+    static and per-token e4m3 arenas (R = 2 L = 8, Q = 64 with 62 rows
+    moving), also against the JAX package's route."""
     import torch
 
     L, HD = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim
@@ -1347,6 +1365,12 @@ def k4_rows(pkg, g, cfg) -> list:
         rows.append(check_kv_compact(pkg, g, L, (HD, HD), B, Q, n_identity, n_moves, case))
     # DeepSeek-V2-Lite's latent rows: 576-lane K, 512-lane V, 27 layers
     rows.append(check_kv_compact(pkg, g, 27, (576, 512), 1, 17, 0, 8, "MLA R=2 L=8 "))
+    # the e4m3 arenas, static and per-token (K, V and the scale rows in one
+    # launch), with rows moving
+    for kind in ("fp8", "fp8_tok"):
+        for case, B, Q, n_identity, n_moves in COMPACTIONS[1::2]:
+            rows.append(check_kv_compact(pkg, g, L, (HD,), B, Q, n_identity, n_moves,
+                                         f"{kind} {case}", kind, cfg.num_key_value_heads))
     torch.cuda.empty_cache()
     return rows
 
@@ -2106,10 +2130,13 @@ class ServingCapture(LaunchHooks):
     and every prefill batch of B >= 2 (``trim`` keeps the one with the most
     rows resumed from the prefix cache, then the widest); K1 and the 8-bit
     GEMMs at layer 0 (and the LM head), the largest M of each weight shape; K4's
-    compaction entry, the verify step's tables of its widest compactions
-    (``rows`` takes the one that moves the most rows); K6, the page ids and
-    windows of the widest compaction of each row width. Choosing reads
-    shapes and pointers only, so the runs are not synchronised. The wrapped
+    compaction entry, the verify step's tables of up to 512 compactions in
+    each arena kind (bf16; static e4m3; per-token e4m3, whose scale arenas
+    move in the same launch); ``rows`` compacts arenas of each kind's shapes
+    on the widest call's tables, and holds the e4m3 kinds against the JAX
+    package's route (``compaction_vs_jax``, the only launches of K6, which
+    no path calls) on the call that moves the most rows. Choosing reads shapes
+    and pointers only, so the runs are not synchronised. The wrapped
     launches are the runs' own; ``rows`` launches afresh on the kept inputs
     after the run's counts are read."""
 
@@ -2117,6 +2144,7 @@ class ServingCapture(LaunchHooks):
         super().__init__(pkg)
         self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
         self.gemm8 = {}
+        self.check_launches = 0  # K6's, in the checks against the JAX route
 
     def install(self, gemm8_only: bool = False):
         """Wrap the launch functions; ``gemm8_only`` leaves attention, K1 and
@@ -2130,8 +2158,7 @@ class ServingCapture(LaunchHooks):
         if not gemm8_only:
             hooks += [(pa, "_launch", self._attn_hook),
                       (qm, "_int4_matmul_cuda", self._gemm_hook),
-                      (ku, "_kv_compact_cuda", self._compact_hook),
-                      (ku, "_kv_write_pages_cuda", self._write_hook)]
+                      (ku, "_kv_compact_cuda", self._compact_hook)]
         self._wrap(hooks)
 
     def _attn_hook(self, orig):
@@ -2198,26 +2225,17 @@ class ServingCapture(LaunchHooks):
         return out
 
     def _compact_hook(self, orig):
-        def hook(arenas, page_tables, ctx_lens, path, n_edges, q_width, active, **kw):
-            B = path.shape[0]
-            c = self.compact.get("compact")
-            if c is None or B > c["B"]:
-                c = self.compact["compact"] = dict(
-                    B=B, shapes=[(tuple(a.shape), a.dtype) for a in arenas], calls=[])
-            if B == c["B"] and len(c["calls"]) < 256:  # a few KB each
+        def hook(arenas, page_tables, ctx_lens, path, n_edges, q_width, active):
+            import torch
+
+            kind = ("bf16" if arenas[0].dtype != torch.float8_e4m3fn
+                    else "fp8_tok" if len(arenas) == 4 else "fp8")
+            c = self.compact.setdefault(kind, dict(
+                shapes=[(tuple(a.shape), a.dtype) for a in arenas], calls=[]))
+            if len(c["calls"]) < 512:  # a few KB each
                 c["calls"].append(tuple(self._clone(t) for t in (
                     page_tables, ctx_lens, path, n_edges, active)) + (q_width,))
-            return orig(arenas, page_tables, ctx_lens, path, n_edges, q_width, active, **kw)
-        return hook
-
-    def _write_hook(self, orig):
-        def hook(pages, windows, page_ids):
-            key = ("write", pages.shape[-1] * pages.element_size())
-            old = self.compact.get(key)
-            if old is None or windows.shape[1] > old["windows"].shape[1]:
-                self.compact[key] = dict(shape=tuple(pages.shape), dtype=pages.dtype,
-                                         windows=windows.clone(), ids=page_ids.clone())
-            return orig(pages, windows, page_ids)
+            return orig(arenas, page_tables, ctx_lens, path, n_edges, q_width, active)
         return hook
 
     def trim(self):
@@ -2230,8 +2248,6 @@ class ServingCapture(LaunchHooks):
                 self.prefill[arena] = [best]
 
     def rows(self, arenas) -> list:
-        import torch
-
         self.trim()
         pkg, out = self.pkg, []
         want = [(kind, a) for a in arenas for kind in ("decode", "verify", "prefill")]
@@ -2250,38 +2266,87 @@ class ServingCapture(LaunchHooks):
             fail("serving made no int4_gemm call")
         for c in self.gemm.values():
             out.append(gemm_row(pkg, c["x"], c["q"], c["s"], c["out_dtype"], "serving "))
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        ku = pkg["kv_update"]
-        for key, c in self.compact.items():
-            # the serving tables over arenas of the serving shape; the
-            # contents do not steer either kernel
-            if key == "compact":  # the call that moves the most rows
-                ps = c["shapes"][0][0][2]
-
-                def moved(call):
-                    pt, ctx, path, ne, act, q = call
-                    return sum(map(len, ku.compaction_moves(
-                        pt.cpu(), ctx.cpu(), path.cpu(), ne.cpu(), q, ps,
-                        None if act is None else act.cpu())))
-                pt, ctx, path, ne, act, q = max(c["calls"], key=moved)
-                arenas = [torch.randn(shape, generator=g, device="cuda").to(dt)
-                          for shape, dt in c["shapes"]]
-                out.append(kv_compact_row(pkg, arenas, pt, ctx, path, ne, q, act, "serving "))
-                del arenas
-                continue
-            if c["dtype"] == torch.uint8:  # K6 sees byte views of the arenas
-                pages = torch.randint(0, 256, c["shape"], generator=g, device="cuda",
-                                      dtype=torch.uint8)
-            else:
-                pages = torch.randn(c["shape"], generator=g, device="cuda").to(c["dtype"])
-            out.append(kv_write_row(pkg, pages, c["windows"], c["ids"], "serving "))
-            del pages
-        names = {r["name"] for r in out}
-        for need in ("kv_compact_tail", "kv_write_pages"):
-            if need not in names:
-                fail(f"serving made no {need} call")
+        out += self.compaction_rows()
         self.attn, self.prefill, self.gemm, self.compact = {}, {}, {}, {}
         return out
+
+    def compaction_rows(self) -> list:
+        """K4's compaction on serving's own tables over fresh random arenas
+        of each kind's shapes (the contents do not steer the kernel): one
+        row a kind at the widest call (of the widest, the one that moves the
+        most rows), each one CUDA kernel a call; the e4m3 kinds held against
+        the JAX package's route (``compaction_vs_jax``) on the call that
+        moves the most rows (of those, the widest)."""
+        import torch
+
+        ku = self.pkg["kv_update"]
+        for kind in ("bf16", "fp8", "fp8_tok"):
+            if kind not in self.compact:
+                fail(f"serving made no kv_compact_tail call in the {kind} arena")
+        ps = self.compact["bf16"]["shapes"][0][0][2]
+
+        def moved(call):
+            pt, ctx, path, ne, act, q = call
+            return sum(map(len, ku.compaction_moves(pt.cpu(), ctx.cpu(), path.cpu(), ne.cpu(),
+                                                    q, ps, None if act is None else act.cpu())))
+        calls = [(c, moved(c)) for k in self.compact.values() for c in k["calls"]]
+        widest = max(calls, key=lambda cm: (cm[0][2].shape[0], cm[1]))[0]
+        moving = max(calls, key=lambda cm: (cm[1], cm[0][2].shape[0]))[0]
+        pt, ctx, path, ne, act, q = widest
+        n_pages = max(k["shapes"][0][0][1] for k in self.compact.values())
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        out = []
+        for kind, c in self.compact.items():
+            L, _, ps, lanes = c["shapes"][0][0]
+            arenas = kv_arenas(g, kind, (L, n_pages, ps, lanes), c["shapes"][-1][0][3])
+            row = kv_compact_row(self.pkg, arenas, pt, ctx, path, ne, q, act,
+                                 f"serving {kind} ")
+            if row["kernels_per_call"] != 1:
+                fail(f"a verify step's compaction in the {kind} arena is "
+                     f"{row['kernels_per_call']} CUDA kernels, not 1")
+            out.append(row)
+            if kind != "bf16":
+                self.check_launches += compaction_vs_jax(self.pkg, arenas, moving)
+            del arenas
+        bf16 = next(r for r in out if "bf16" in r["case"])
+        for r in out:
+            r["device_vs_bf16"] = r["device_ms"] / bf16["device_ms"]
+        return out
+
+
+def compaction_vs_jax(pkg, arenas, call) -> int:
+    """K4's one-launch compaction of e4m3 (and scale) arenas held against
+    the JAX package's route for them on copies (``compact_kv_tail``'s jnp
+    route: ``tail_window``, a gather of each window's rows from their
+    sources, then K6's whole-page write-back, ``kv_write_pages``): the
+    bytes must be equal outside the null page 0, which an inactive row's
+    window names (the JAX route copies the row's own window there, K4
+    permutes page 0 itself). Returns K6's launches (one an arena)."""
+    import torch
+
+    ku = pkg["kv_update"]
+    pt, ctx, path, ne, act, q = call
+    got = ku.kv_compact_tail(tuple(a.clone() for a in arenas), pt, ctx, path, ne, q, act)
+    ps, P = arenas[0].shape[2], pt.shape[1]
+    page_ids, src_of, _ = ku.tail_window(pt, ctx, path, ne, q, ps, act)
+    g_page = torch.gather(pt.long(), 1, (src_of // ps).clamp(0, P - 1)).reshape(-1)
+    g_row = (src_of % ps).reshape(-1)
+    B, W = src_of.shape
+    before = ku.kv_write_pages.launches
+    for a, k in zip(arenas, got):
+        raw = a.clone().view(torch.uint8)
+        rows = raw[:, g_page, g_row]  # [L, B*W, row bytes]
+        windows = rows.reshape(raw.shape[0], B * (W // ps), ps, raw.shape[-1])
+        ku.kv_write_pages(raw, windows, page_ids.reshape(-1))
+        if not torch.equal(raw[:, 1:], k.view(torch.uint8)[:, 1:]):
+            fail(f"kv_compact_tail ({len(arenas)} arenas, {a.dtype}) differs from the JAX "
+                 "route (tail_window, gather, kv_write_pages) outside page 0")
+        del raw, rows, windows
+    n = ku.kv_write_pages.launches - before
+    print(f"phase serving compaction vs JAX route: {len(arenas)} arenas "
+          f"({'+'.join(str(a.dtype).split('.')[-1] for a in arenas)}) equal outside page 0, "
+          f"{n} kv_write_pages launches")
+    return n
 
 
 def phase_serving(pkg, cfg, params) -> dict:
@@ -2318,6 +2383,9 @@ def phase_serving(pkg, cfg, params) -> dict:
     counts = launches.read()
     capture.remove()
     row_writes.remove()
+    if counts["kv_write_pages"]:
+        fail(f"serving launched kv_write_pages {counts['kv_write_pages']} times (K6 has no "
+             "caller on any path)")
     tcfg = pkg["device_tables"].DraftTableConfig(buckets=16384, ways=8, branch_length=16,
                                                  retrieve_count=1)
     res = dict(runs=runs, launches=counts,
@@ -2327,6 +2395,8 @@ def phase_serving(pkg, cfg, params) -> dict:
     # every kernel and arena mode against its plain version on the inputs
     # of real serving calls (B up to 8, ragged ctx, prefix-resumed prefill)
     res["kernels"] = capture.rows(["bf16" if a == "none" else a for a in arenas])
+    res["check_launches"] = dict({k: 0 for k in counts},
+                                 kv_write_pages=capture.check_launches)
     res["kernels"] += row_writes.rows("serving")
     for r in res["kernels"]:
         print("phase serving kernel: " + json.dumps(r))
@@ -2343,9 +2413,10 @@ GEN_MODE_TOKENS = 64  # par and one modes, batch_generate
 GEN_DECODING_LENGTH = 63  # verify width Q = 64
 GEN_BRANCH_LENGTH = 12
 GEN_BATCH = 4
-# kernels with no caller on any path, launched by the generator's checks: K17
-# and K4's and K16's general entries
-CHECK_ONLY = ("kv_move_rows", "kv_permute_pages", "kv_write_rows")
+# kernels with no caller on any path, launched by the checks: K17 and K4's
+# and K16's general entries (the generator's), K6 (serving's, against the
+# JAX route)
+CHECK_ONLY = ("kv_move_rows", "kv_permute_pages", "kv_write_rows", "kv_write_pages")
 
 
 class RowWriteCheck(LaunchHooks):
@@ -2415,15 +2486,12 @@ class CompactionCheck(LaunchHooks):
         move_kv_rows = self.pkg["cache"].move_kv_rows
         ku = self.pkg["kv_update"]
 
-        def hook(pages, page_tables, ctx_lens, path, n_edges, q_width, active=None,
-                 whole_pages=False):
+        def hook(pages, page_tables, ctx_lens, path, n_edges, q_width, active=None):
             arenas = pages if isinstance(pages, tuple) else (pages,)
-            if whole_pages or arenas[0].dtype == torch.float8_e4m3fn:
-                return orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active,
-                            whole_pages)
+            if arenas[0].dtype == torch.float8_e4m3fn:
+                return orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active)
             before = [a.clone() for a in arenas]
-            out = orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active,
-                       whole_pages)
+            out = orig(pages, page_tables, ctx_lens, path, n_edges, q_width, active)
             B, M = path.shape
             i = torch.arange(M, device=path.device)[None]
             ctx = ctx_lens.long()[:, None]
@@ -4362,21 +4430,26 @@ def main() -> None:
     rows += lin_res["kernels"]
     print(f"linear-attention phases' wall: {time.perf_counter() - t_lin:.1f} s")
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
+                    serving_compaction_check=serve_res["check_launches"],
                     generator=gen_res["launches"],
                     generator_compaction_check=gen_res["check_launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
-    no_write = [k for k, p in by_phase.items()
-                if k != "generator_compaction_check" and p["kv_write_step"] <= 0]
+    checks = ("serving_compaction_check", "generator_compaction_check")
+    no_write = [k for k, p in by_phase.items() if k not in checks and p["kv_write_step"] <= 0]
     if no_write:
         fail(f"K16's step entry wrote no KV rows in {no_write}")
+    k6_on_path = {k: p["kv_write_pages"] for k, p in by_phase.items()
+                  if k not in checks and p["kv_write_pages"]}
+    if k6_on_path:
+        fail(f"kv_write_pages (K6) was launched on a path: {k6_on_path}")
     for r in rows:
         key = r["name"] if r["name"] in launches else r["name"].split("[")[0]
         r["launches"] = launches[key]
         if r["launches"] <= 0:
-            fail(f"{r['name']} was not launched on the main path, in serving, in "
-                 "the generator phase or its compaction check, in the quant "
+            fail(f"{r['name']} was not launched on the main path, in serving or its "
+                 "compaction check, in the generator phase or its compaction check, in the quant "
                  "modes, in the MoE phases, in the MLA phases or in the "
                  "linear-attention phases (launches by phase: "
                  f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")

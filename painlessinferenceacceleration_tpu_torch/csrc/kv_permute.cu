@@ -7,10 +7,11 @@
 //
 // where win[b, l] is request b's window as it was before the call;
 //
-// kv_compact_tail, the verify step's compaction of the K and V arenas (each
-// with its own row width) in one launch: each block derives its request's
-// window from the step's own tensors, as compact_kv_tail
-// (engine/cache.py) composes it on the CPU,
+// kv_compact_tail, the verify step's compaction of up to four arenas of one
+// [L, n_pages, ps] geometry (K, V, and in fp8_tok mode their per-token scale
+// arenas; each with its own row width, any element type) in one launch: each
+// block derives its request's window from the step's own tensors, as
+// compact_kv_tail (engine/cache.py) composes it on the CPU,
 //
 //   p0 = ctx // ps,  page_ids[t] = active ? page_tables[clamp(p0 + t, 0, P-1)] : 0,
 //   node ctx + path[i] moves to slot ctx + 1 + i for i < n_edges,
@@ -20,7 +21,10 @@
 // stride), so nothing runs on the card before the launch. Replaces the
 // Pallas body _permute_kernel of painlessinferenceacceleration_tpu/ops/
 // kv_update.py, which compact_kv_tail (JAX engine/cache.py) calls after
-// every verify step.
+// every verify step on a bf16 arena; for e4m3 and scale arenas the JAX
+// package gathers the window and writes its pages back whole
+// (_page_write_kernel, K6 here), which leaves the same bytes: every slot of a
+// window page outside the moves is its own source.
 //
 // What bounds it on the H100: the bytes of the rows that move, each source
 // read once and each destination written once over all layers, plus the
@@ -40,11 +44,14 @@
 // page-table clip near the end of a table: only the later slot writes, the
 // order in which the Pallas kernel's DMAs land), once, in shared memory, and
 // lists its moving rows (source and destination arena rows). For each unit it
-// stages the chunk of every listed source row in shared memory, one
-// cp.async.bulk copy a row completed on an mbarrier (against 16-byte loads
-// by every thread: tools/row_kernel_variants.py --variants), then writes the
-// listed destinations, so a move whose destination is a later move's source
-// reads the row as it was. At most
+// stages the chunk of every listed source row in shared memory, then writes
+// the listed destinations, so a move whose destination is a later move's
+// source reads the row as it was. An arena whose rows are a multiple of 16
+// bytes and whose base is 16-byte aligned stages by one cp.async.bulk copy a
+// row completed on an mbarrier (against 16-byte loads by every thread:
+// tools/row_kernel_variants.py --variants) and writes 16-byte vectors; any
+// other (rows a multiple of 4 bytes: fp8_tok's scale rows of 4 Hkv bytes)
+// stages and writes 4-byte words, four loads in flight a thread. At most
 // max_moves rows are staged (the path's width, Q - 1, for the compaction;
 // the window for the JAX contract); the wrapper's plan (ops/kv_update.py
 // permute_plan) picks cb so that they fit the staging budget.
@@ -56,12 +63,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "wgmma_common.cuh"
+#include "bulk_copy.cuh"
 
 // What a wrapper fixes for a shape of its operands (ops/kv_update.py
 // _Static mirrors it field for field); the pointers come with each call.
 struct KvPermuteStatic {
-  long long row_bytes[2];  // the arenas' rows (the second 0: one arena)
+  long long row_bytes[4];  // the arenas' rows (0 past the last arena)
   long long idx_stride;    // page_ids' / page_tables' row stride, elements
   long long src_stride;    // src_rel's / path's row stride, elements
   int idx_wide, src_wide, ctx_wide, ne_wide;  // int64 (1) or int32 (0) indices
@@ -77,12 +84,15 @@ using Static = KvPermuteStatic;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTPP = 32;  // window pages
+constexpr int kMaxArenas = 4;
 
 struct Args {
   Static s;
-  unsigned char* arena[2];
-  int chunks[2];  // column chunks of cb bytes a row (the last may be narrower)
-  int units0, units;  // arena 0's units (L * chunks), every arena's
+  unsigned char* arena[kMaxArenas];
+  int chunks[kMaxArenas];  // column chunks of cb bytes a row (the last may be narrower)
+  int unit0[kMaxArenas + 1];  // each arena's first unit; unit0[n_arenas] = units
+  int vec16[kMaxArenas];  // 16-byte rows and base: bulk copies; else 4-byte words
+  int n_arenas, units;
   int max_moves;
   const void* ids;  // page_ids / page_tables
   const void* src;  // src_rel / path
@@ -95,15 +105,6 @@ struct Args {
 __device__ __forceinline__ long long ld_index(const void* p, int wide, long long i) {
   return wide ? __ldg(static_cast<const long long*>(p) + i)
               : static_cast<long long>(__ldg(static_cast<const int*>(p) + i));
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 __host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) / 16 * 16; }
@@ -211,33 +212,57 @@ __global__ void __launch_bounds__(kThreads) kv_permute_kernel(const Args a) {
   const uint32_t bar = piawg::smem_u32(&s_bar);
   uint32_t phase = 0;
   const int warp = tid >> 5, lane = tid & 31;
-  const int cv = st.cb / 16;  // 16-byte vectors a staged row
-  uint4* stv = reinterpret_cast<uint4*>(stage);
   for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
-    const int ai = u >= a.units0;
-    const long long row_bytes = ai ? st.row_bytes[1] : st.row_bytes[0];
-    const int chunks = ai ? a.chunks[1] : a.chunks[0];
-    const int uu = ai ? u - a.units0 : u;
-    const int l = uu / chunks;
-    const long long c0 = static_cast<long long>(uu % chunks) * st.cb;
+    int ai = 0;
+    while (ai + 1 < a.n_arenas && u >= a.unit0[ai + 1]) ++ai;
+    const long long row_bytes = st.row_bytes[ai];
+    const int uu = u - a.unit0[ai];
+    const int l = uu / a.chunks[ai];
+    const long long c0 = static_cast<long long>(uu % a.chunks[ai]) * st.cb;
     const int nb = static_cast<int>(row_bytes - c0 < st.cb ? row_bytes - c0 : st.cb);
-    const int nv = nb / 16;
-    unsigned char* layer = (ai ? a.arena[1] : a.arena[0]) +
-                           static_cast<size_t>(l) * st.n_pages * ps * row_bytes + c0;
-    const int total = n * nv;
-    if (warp == 0) {
-      piawg::fence_async_smem();
-      if (lane == 0) piawg::mbar_expect(bar, static_cast<uint32_t>(total * 16));
-      __syncwarp();
-      for (int k = lane; k < n; k += 32)
-        bulk_load(piawg::smem_u32(stage + static_cast<size_t>(k) * st.cb),
-                  layer + static_cast<size_t>(lst_src[k]) * row_bytes, nb, bar);
+    unsigned char* layer =
+        a.arena[ai] + static_cast<size_t>(l) * st.n_pages * ps * row_bytes + c0;
+    if (a.vec16[ai]) {
+      const int nv = nb / 16, cv = st.cb / 16;  // 16-byte vectors a row, a staged row
+      const int total = n * nv;
+      const uint4* stv = reinterpret_cast<const uint4*>(stage);
+      if (warp == 0) {
+        piawg::fence_async_smem();
+        if (lane == 0) piawg::mbar_expect(bar, static_cast<uint32_t>(total * 16));
+        __syncwarp();
+        for (int k = lane; k < n; k += 32)
+          pia_bulk::load(piawg::smem_u32(stage + static_cast<size_t>(k) * st.cb),
+                         layer + static_cast<size_t>(lst_src[k]) * row_bytes, nb, bar);
+      }
+      piawg::mbar_wait(bar, phase);
+      phase ^= 1;
+      for (int e = tid; e < total; e += kThreads)
+        reinterpret_cast<uint4*>(layer + static_cast<size_t>(lst_dst[e / nv]) * row_bytes)
+            [e % nv] = stv[(e / nv) * cv + e % nv];
+    } else {
+      const int nw = nb / 4, cw = st.cb / 4;  // 4-byte words a row, a staged row
+      const int total = n * nw;
+      uint32_t* stw = reinterpret_cast<uint32_t*>(stage);
+      for (int e0 = tid; e0 < total; e0 += 4 * kThreads) {
+        uint32_t r[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + j * kThreads;
+          if (e < total)
+            r[j] = reinterpret_cast<const uint32_t*>(
+                layer + static_cast<size_t>(lst_src[e / nw]) * row_bytes)[e % nw];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + j * kThreads;
+          if (e < total) stw[(e / nw) * cw + e % nw] = r[j];
+        }
+      }
+      __syncthreads();  // every source word staged before any write
+      for (int e = tid; e < total; e += kThreads)
+        reinterpret_cast<uint32_t*>(layer + static_cast<size_t>(lst_dst[e / nw]) * row_bytes)
+            [e % nw] = stw[(e / nw) * cw + e % nw];
     }
-    piawg::mbar_wait(bar, phase);
-    phase ^= 1;
-    for (int e = tid; e < total; e += kThreads)
-      reinterpret_cast<uint4*>(layer + static_cast<size_t>(lst_dst[e / nv]) * row_bytes)[e % nv] =
-          stv[(e / nv) * cv + e % nv];
     __syncthreads();  // the stage is free for the next unit
   }
 }
@@ -263,22 +288,30 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 template <bool kDerive>
-int dispatch(const Static* s, void* arena0, void* arena1, const void* ids, const void* src,
-             const void* ctx_lens, const void* n_edges, const void* active, void* stream) {
+int dispatch(const Static* s, void* const* arenas, int n_arenas, const void* ids,
+             const void* src, const void* ctx_lens, const void* n_edges, const void* active,
+             void* stream) {
   Args a = {};
   a.s = *s;
-  a.arena[0] = static_cast<unsigned char*>(arena0);
-  a.arena[1] = static_cast<unsigned char*>(arena1);
-  for (int i = 0; i < 2; ++i)
+  a.n_arenas = n_arenas;
+  if (n_arenas < 1 || n_arenas > kMaxArenas || s->TPP > kMaxTPP || s->cb <= 0 ||
+      s->cb % 16 || s->grid_x <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_arenas; ++i) {
+    const uintptr_t p = reinterpret_cast<uintptr_t>(arenas[i]);
+    if (s->row_bytes[i] <= 0 || s->row_bytes[i] % 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (p % 4) return static_cast<int>(cudaErrorMisalignedAddress);
+    a.arena[i] = static_cast<unsigned char*>(arenas[i]);
     a.chunks[i] = static_cast<int>((s->row_bytes[i] + s->cb - 1) / s->cb);
-  a.units0 = s->L * a.chunks[0];
-  a.units = a.units0 + (arena1 != nullptr ? s->L * a.chunks[1] : 0);
+    a.unit0[i + 1] = a.unit0[i] + s->L * a.chunks[i];
+    a.vec16[i] = s->row_bytes[i] % 16 == 0 && p % 16 == 0;
+  }
+  a.units = a.unit0[n_arenas];
   a.max_moves = kDerive ? s->M : s->TPP * s->ps;
   a.ids = ids, a.src = src, a.ctx_lens = ctx_lens, a.n_edges = n_edges;
   a.active = static_cast<const unsigned char*>(active);
-  if (s->TPP > kMaxTPP || s->cb <= 0 || s->cb % 16 || a.units <= 0 || s->grid_x <= 0 ||
-      (arena1 != nullptr && s->row_bytes[1] <= 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.units <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<kDerive>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -289,23 +322,25 @@ extern "C" const char* pia_error_string(int err) {
 }
 
 // pages [L, n_pages, ps, row_bytes[0]] (any element type, rows of a
-// multiple of 16 bytes, 16-byte aligned); page_ids [B, TPP] and src_rel
+// multiple of 4 bytes, 4-byte aligned); page_ids [B, TPP] and src_rel
 // [B, TPP*ps] (values in [0, TPP*ps)), int32 or int64 as s says, rows
 // idx_stride / src_stride elements apart.
 extern "C" int kv_permute_pages(const KvPermuteStatic* s, void* pages, const void* page_ids,
                                 const void* src_rel, void* stream) {
-  return dispatch<false>(s, pages, nullptr, page_ids, src_rel, nullptr, nullptr, nullptr,
-                         stream);
+  void* arenas[1] = {pages};
+  return dispatch<false>(s, arenas, 1, page_ids, src_rel, nullptr, nullptr, nullptr, stream);
 }
 
-// k_pages [L, n_pages, ps, row_bytes[0]] and v_pages (may be null) [L,
-// n_pages, ps, row_bytes[1]]; page_tables [B, P], ctx_lens [B], path [B, M],
-// n_edges [B], int32 or int64 as s says, page_tables' and path's rows
-// idx_stride / src_stride elements apart; active bool [B] or null.
-extern "C" int kv_compact_tail(const KvPermuteStatic* s, void* k_pages, void* v_pages,
-                               const void* page_tables, const void* ctx_lens,
-                               const void* path, const void* n_edges, const void* active,
-                               void* stream) {
-  return dispatch<true>(s, k_pages, v_pages, page_tables, path, ctx_lens, n_edges, active,
+// arena k [L, n_pages, ps, row_bytes[k]] for k < n_arenas (1-4; rows of a
+// multiple of 4 bytes, 4-byte aligned), the others null; page_tables [B, P],
+// ctx_lens [B], path [B, M], n_edges [B], int32 or int64 as s says,
+// page_tables' and path's rows idx_stride / src_stride elements apart;
+// active bool [B] or null.
+extern "C" int kv_compact_tail(const KvPermuteStatic* s, void* a0, void* a1, void* a2,
+                               void* a3, int n_arenas, const void* page_tables,
+                               const void* ctx_lens, const void* path, const void* n_edges,
+                               const void* active, void* stream) {
+  void* arenas[kMaxArenas] = {a0, a1, a2, a3};
+  return dispatch<true>(s, arenas, n_arenas, page_tables, path, ctx_lens, n_edges, active,
                         stream);
 }

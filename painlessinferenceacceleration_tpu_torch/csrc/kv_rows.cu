@@ -44,7 +44,7 @@
 // package's engine/cache.py). Replaces the Pallas body _move_kernel
 // (kv_move_rows_pallas) of the same file. When two moves name one
 // destination the later one is kept; in practice only the null page 0 is
-// named twice (masked moves).
+// named twice (masked moves). No path of either package calls it.
 //
 // What bounds all three on the H100: the bytes moved, each source row read
 // once and each destination row written once, plus the indices; at decode
@@ -61,18 +61,35 @@
 // vectors where the row's byte width and pointers allow (else 4-byte
 // words, else bytes) for every arena; a block of 8 warps first stages the
 // indices of the later rows in shared memory, 256 at a time, to find the
-// rows that a later row overwrites (those write nothing). K17 gives each
-// block one (layer, column slice): the block stages the slice of all N
-// source rows in shared memory, synchronises, then writes every
-// destination that no later move names, so within a layer and column every
-// read precedes every write and a chain (one move's destination another's
-// source) needs no second launch. N times the slice must fit the block's
-// shared memory; the wrapper picks the slice and raises past the limit.
+// rows that a later row overwrites (those write nothing). K17 cuts the
+// rows into units of (column slice, layer) by a plan built once a shape on
+// the host (KvMoveStatic, ops/kv_update.py move_plan: a unit's N slices
+// within 32 KB, 264 units or more where the rows allow). Within a unit
+// every source slice is staged in shared memory before any destination is
+// written, so a chain (one move's destination another's source) needs no
+// second launch; units are disjoint bytes. A block first loads the moves'
+// rows and enters each destination row in a shared-memory hash table that
+// keeps the highest move index (atomicMax), so "does a later move name this
+// destination?" is O(N) for the block, not O(N^2), and it is answered once
+// a block. Rows and a base of 16-byte units: a persistent grid whose blocks
+// walk their units through a ring of two stages, every thread issuing bulk
+// asynchronous copies (bulk_copy.cuh) of its moves' slices against the
+// stage's mbarrier, the next unit's copies in flight while this unit is
+// written by 16-byte stores from its stage (the first copies fly while the
+// table is built). Rows of 4- or 1-byte units: a block a unit, a loop with
+// four loads in flight a thread. tools/row_kernel_variants.py --variants
+// k17 times the ring's depth and plan against that loop at 16 bytes; a
+// first design (one warp issuing the copies, bulk stores, a block a unit)
+// was slower at every N measured.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "bulk_copy.cuh"
 
 // What a kv_write_step launch fixes for a shape of its operands
 // (ops/kv_update.py _StepStatic, field for field).
@@ -94,6 +111,20 @@ struct KvRowsStatic {
   int n_arenas, pi_wide, ri_wide, N, L, n_pages, ps;
 };
 
+// What a kv_move_rows launch fixes (ops/kv_update.py _MoveStatic and
+// move_plan).
+struct KvMoveStatic {
+  long long row_bytes;
+  int N, L, n_pages, ps;
+  int slice;   // column slice bytes of a unit, a multiple of unit
+  int unit;    // 16: bulk copies through a ring of stages; 4 or 1: a loop
+  int grid_x;  // slices a row; units (slice, layer) = grid_x * L
+  int table;   // slots of the later-destination table, a power of two >= 2N
+  int stages;  // the ring's stages (16-byte units), else 1
+  int blocks;  // blocks: a persistent grid (16-byte units), else one a unit
+  int smem;    // dynamic shared memory a block: move_smem_bytes
+};
+
 namespace {
 
 constexpr int kMaxArenas = 4;
@@ -101,6 +132,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeyChunk = kThreads;  // later rows' indices staged per round
 constexpr int kMaxMoves = 1024;      // K17's moves per launch
+constexpr int kMoveLoads = 4;        // K17's loads in flight a thread (the loop)
+constexpr int kMaxStages = 4;        // K17's ring
 constexpr int kStepThreads = 256;
 constexpr int kMaxHeads = 256;       // kv_write_step's heads (fp8_tok's amax)
 constexpr float kFp8Max = 448.f;
@@ -111,6 +144,13 @@ constexpr float kInvFp8Max = 1.f / 448.f;
 
 __host__ __device__ constexpr size_t move_index_bytes(int N) {
   return ((size_t)N * 8 + 15) / 16 * 16;
+}
+
+// K17's block: the source and destination rows, the table's keys and
+// highest move indices, then the stages of N slices each
+__host__ __device__ constexpr size_t move_smem_bytes(int N, int table, int slice,
+                                                     int stages) {
+  return move_index_bytes(N) + (size_t)table * 8 + (size_t)stages * N * slice;
 }
 
 // element i of an int32 (wide = 0) or int64 (wide = 1) index tensor
@@ -362,56 +402,186 @@ cudaError_t launch_step(const KvStepStatic& st, const StepArgs& a, int layer,
   return cudaGetLastError();
 }
 
-// One block per (column slice, layer): stage, synchronise, write.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) kv_move_rows_kernel(
-    unsigned char* __restrict__ pages, const int* __restrict__ src_page,
-    const int* __restrict__ src_row, const int* __restrict__ dst_page,
-    const int* __restrict__ dst_row, int N, int n_pages, int ps, long long row_bytes,
-    int slice_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* src = reinterpret_cast<int*>(smem);  // [N] source rows (page * ps + row)
-  int* dst = src + N;                       // [N] destination rows, -1: not written
-  T* stage = reinterpret_cast<T*>(smem + move_index_bytes(N));  // [N][slice]
-  const int l = blockIdx.y;
-  const long long c0 = (long long)blockIdx.x * slice_bytes;
-  const int nv = (int)(min((long long)slice_bytes, row_bytes - c0) / (long long)sizeof(T));
-  const int per_row = slice_bytes / (int)sizeof(T);
-  unsigned char* layer_base = pages + (long long)l * n_pages * ps * row_bytes + c0;
+// the table slot where a destination row's probe starts
+__device__ __forceinline__ int table_slot(int key, int mask) {
+  return static_cast<int>((static_cast<uint32_t>(key) * 2654435761u) >> 11) & mask;
+}
 
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    src[i] = src_page[i] * ps + src_row[i];
-    dst[i] = dst_page[i] * ps + dst_row[i];
+// K17's shared memory: the moves' rows, the table, the stages
+struct MoveSmem {
+  int* src;  // [N] source rows (page * ps + row)
+  int* dst;  // [N] destination rows, -1: not written
+  unsigned char* stage;  // [stages][N][slice]
+};
+
+// The moves' rows into shared memory, each destination row's highest move
+// index into a hash table (atomicMax), and dst[i] = -1 where a later move
+// names dst[i] again (that one keeps the row): O(N) for the block. Ends
+// synchronised. `overlap` runs after the rows are loaded and before the
+// table is built (the 16-byte route issues its first copies there).
+template <typename F>
+__device__ __forceinline__ MoveSmem move_prologue(const KvMoveStatic& st,
+                                                  const int* __restrict__ src_page,
+                                                  const int* __restrict__ src_row,
+                                                  const int* __restrict__ dst_page,
+                                                  const int* __restrict__ dst_row,
+                                                  unsigned char* smem, F overlap) {
+  const int N = st.N, mask = st.table - 1, tid = threadIdx.x;
+  MoveSmem m;
+  m.src = reinterpret_cast<int*>(smem);
+  m.dst = m.src + N;
+  int* keys = reinterpret_cast<int*>(smem + move_index_bytes(N));  // [table] rows, -1: empty
+  int* last = keys + st.table;  // [table] the highest move naming the key
+  m.stage = smem + move_index_bytes(N) + (size_t)st.table * 8;
+  for (int i = tid; i < N; i += kThreads) {
+    m.src[i] = __ldg(src_page + i) * st.ps + __ldg(src_row + i);
+    m.dst[i] = __ldg(dst_page + i) * st.ps + __ldg(dst_row + i);
+  }
+  for (int h = tid; h < st.table; h += kThreads) keys[h] = last[h] = -1;
+  __syncthreads();
+  overlap();
+  for (int i = tid; i < N; i += kThreads) {
+    const int key = m.dst[i];
+    for (int h = table_slot(key, mask);; h = (h + 1) & mask) {
+      const int prev = atomicCAS(&keys[h], -1, key);
+      if (prev == -1 || prev == key) {
+        atomicMax(&last[h], i);
+        break;
+      }
+    }
   }
   __syncthreads();
-  // a destination that a later move names again keeps the later move's row
-  int later[(kMaxMoves + kThreads - 1) / kThreads];
-#pragma unroll
-  for (int u = 0; u < (kMaxMoves + kThreads - 1) / kThreads; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    later[u] = 0;
-    if (i < N)
-      for (int j = i + 1; j < N; ++j)
-        if (dst[j] == dst[i]) {
-          later[u] = 1;
-          break;
-        }
-  }
-  for (int e = threadIdx.x; e < N * per_row; e += kThreads) {
-    const int i = e / per_row, v = e % per_row;
-    if (v < nv) stage[e] = reinterpret_cast<const T*>(layer_base + src[i] * row_bytes)[v];
-  }
-  __syncthreads();  // every read of this (layer, slice) before any write
-#pragma unroll
-  for (int u = 0; u < (kMaxMoves + kThreads - 1) / kThreads; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    if (i < N && later[u]) dst[i] = -1;
+  for (int i = tid; i < N; i += kThreads) {
+    const int key = m.dst[i];
+    int h = table_slot(key, mask);
+    while (keys[h] != key) h = (h + 1) & mask;
+    if (last[h] != i) m.dst[i] = -1;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < N * per_row; e += kThreads) {
-    const int i = e / per_row, v = e % per_row;
-    if (v < nv && dst[i] >= 0)
-      reinterpret_cast<T*>(layer_base + dst[i] * row_bytes)[v] = stage[e];
+  return m;
+}
+
+// The writes of one unit from its stage: 16-byte (or T-sized) stores of the
+// kept moves' slices.
+template <typename T>
+__device__ __forceinline__ void move_store(const KvMoveStatic& st, const MoveSmem& m,
+                                           const unsigned char* stage, unsigned char* base,
+                                           int nb) {
+  const int nv = nb / (int)sizeof(T), per = st.slice / (int)sizeof(T), total = st.N * nv;
+  const T* stv = reinterpret_cast<const T*>(stage);
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int i = e / nv;
+    if (m.dst[i] >= 0)
+      reinterpret_cast<T*>(base + (long long)m.dst[i] * st.row_bytes)[e % nv] =
+          stv[i * per + e % nv];
+  }
+}
+
+// the (slice, layer) unit u's first byte, and its slice's bytes
+__device__ __forceinline__ unsigned char* move_unit(const KvMoveStatic& st,
+                                                    unsigned char* pages, int u, int& nb) {
+  const long long c0 = (long long)(u % st.grid_x) * st.slice;
+  nb = (int)min((long long)st.slice, st.row_bytes - c0);
+  return pages + (long long)(u / st.grid_x) * st.n_pages * st.ps * st.row_bytes + c0;
+}
+
+// Rows of 4- or 1-byte units (and, as a variant, 16): block b walks units
+// b, b + blocks, ... (the plan gives them a block each); stage a unit's
+// sources by a loop of T-sized loads, kMoveLoads in flight a thread,
+// synchronise, write.
+template <int kUnit>
+__global__ void __launch_bounds__(kThreads) kv_move_rows_kernel(
+    const KvMoveStatic st, unsigned char* __restrict__ pages, const int* __restrict__ src_page,
+    const int* __restrict__ src_row, const int* __restrict__ dst_page,
+    const int* __restrict__ dst_row) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using T = typename std::conditional<
+      kUnit == 16, uint4,
+      typename std::conditional<kUnit == 4, uint32_t, unsigned char>::type>::type;
+  const MoveSmem m = move_prologue(st, src_page, src_row, dst_page, dst_row, smem, [] {});
+  T* stv = reinterpret_cast<T*>(m.stage);
+  for (int u = blockIdx.x; u < st.grid_x * st.L; u += gridDim.x) {
+    int nb;
+    unsigned char* base = move_unit(st, pages, u, nb);
+    const int nv = nb / kUnit, per = st.slice / kUnit, total = st.N * nv;
+    for (int e0 = threadIdx.x; e0 < total; e0 += kMoveLoads * kThreads) {
+      T r[kMoveLoads];
+#pragma unroll
+      for (int j = 0; j < kMoveLoads; ++j) {
+        const int e = e0 + j * kThreads;
+        if (e < total)
+          r[j] = reinterpret_cast<const T*>(base + (long long)m.src[e / nv] * st.row_bytes)
+              [e % nv];
+      }
+#pragma unroll
+      for (int j = 0; j < kMoveLoads; ++j) {
+        const int e = e0 + j * kThreads;
+        if (e < total) stv[(e / nv) * per + e % nv] = r[j];
+      }
+    }
+    __syncthreads();  // every read of this (layer, slice) before any write
+    move_store<T>(st, m, m.stage, base, nb);
+    __syncthreads();  // the stage is free for the next unit
+  }
+}
+
+// Rows of 16-byte units: a persistent grid, block b walking units b, b +
+// blocks, ... through a ring of st.stages stages. Every thread issues the
+// bulk copies of its moves' source slices of a unit (complete on the stage's
+// mbarrier), st.stages - 1 units ahead of the one being written; a unit's
+// writes are 16-byte stores from its stage once every copy of it has landed,
+// so within a (layer, slice) every read precedes every write, and one unit's
+// writes overlap the next units' reads. The moves' rows and the table are
+// built once a block.
+__global__ void __launch_bounds__(kThreads) kv_move_rows_ring(
+    const KvMoveStatic st, unsigned char* __restrict__ pages, const int* __restrict__ src_page,
+    const int* __restrict__ src_row, const int* __restrict__ dst_page,
+    const int* __restrict__ dst_row) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bars[kMaxStages];
+  const int N = st.N, S = st.stages, tid = threadIdx.x;
+  const int units = st.grid_x * st.L;
+  const int mine = (units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  unsigned char* stages = smem + move_index_bytes(N) + (size_t)st.table * 8;
+  const int* src = reinterpret_cast<const int*>(smem);
+  // the k-th unit of this block goes through stage k % S: one arrival on its
+  // mbarrier announces the unit's bytes (thread 0, before the barrier that
+  // precedes the copies), then every thread copies its moves' slices
+  auto expect = [&](int k) {
+    int nb;
+    move_unit(st, pages, blockIdx.x + k * gridDim.x, nb);
+    piawg::mbar_expect(piawg::smem_u32(&bars[k % S]), static_cast<uint32_t>(N) * nb);
+  };
+  auto copy = [&](int k) {
+    int nb;
+    const unsigned char* base = move_unit(st, pages, blockIdx.x + k * gridDim.x, nb);
+    const uint32_t bar = piawg::smem_u32(&bars[k % S]);
+    unsigned char* stage = stages + (size_t)(k % S) * N * st.slice;
+    for (int i = tid; i < N; i += kThreads)
+      pia_bulk::load(piawg::smem_u32(stage + (size_t)i * st.slice),
+                     base + (long long)src[i] * st.row_bytes, nb, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) piawg::mbar_init(piawg::smem_u32(&bars[s]));
+    piawg::fence_mbar_init();
+    for (int k = 0; k < S && k < mine; ++k) expect(k);  // units 0 .. S - 1
+  }
+  const MoveSmem m = move_prologue(st, src_page, src_row, dst_page, dst_row, smem, [&] {
+    for (int k = 0; k < S - 1 && k < mine; ++k) copy(k);
+  });
+  for (int k = 0; k < mine; ++k) {
+    if (k + S - 1 < mine) {
+      piawg::fence_async_smem();  // the stage's last reads (generic) before its next copies
+      copy(k + S - 1);
+    }
+    int nb;
+    unsigned char* base = move_unit(st, pages, blockIdx.x + k * gridDim.x, nb);
+    piawg::mbar_wait(piawg::smem_u32(&bars[k % S]), (k / S) & 1);
+    move_store<uint4>(st, m, m.stage + (size_t)(k % S) * N * st.slice, base, nb);
+    // unit k + S takes this stage (its copies at step k + 1): the phase for
+    // unit k has completed
+    if (tid == 0 && k + S < mine) expect(k + S);
+    __syncthreads();  // the stage is free for unit k + S
   }
 }
 
@@ -494,7 +664,8 @@ extern "C" int kv_write_step(const KvStepStatic* st, void* k_pages, void* v_page
   return static_cast<int>(err);
 }
 
-// The shared memory one block of kv_move_rows may take on the current device.
+// The shared memory one block of kv_move_rows may take on the current device
+// (the wrapper asks once a device).
 extern "C" int kv_move_rows_smem_limit(void) {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
@@ -504,45 +675,58 @@ extern "C" int kv_move_rows_smem_limit(void) {
   return bytes;
 }
 
-// pages [L, n_pages, ps, row_bytes] bytes; the four index arrays int32 [N] on
-// the device, N <= 1024. unit (16, 4 or 1) divides row_bytes and slice_bytes;
-// the block's shared memory, the 2N int32 row numbers (padded to 16 bytes)
-// and N * slice_bytes, must not pass kv_move_rows_smem_limit (checked, as N:
-// cudaErrorInvalidValue).
-extern "C" int kv_move_rows(void* pages, const void* src_page, const void* src_row,
-                            const void* dst_page, const void* dst_row, int N, int L,
-                            int n_pages, int ps, long long row_bytes, int slice_bytes,
-                            int unit, void* stream) {
-  if (N == 0 || L == 0) return 0;
-  const size_t smem = move_index_bytes(N) + (size_t)N * slice_bytes;
-  const int limit = kv_move_rows_smem_limit();
-  if (N > kMaxMoves || limit < 0 || smem > (size_t)limit || slice_bytes % unit ||
-      row_bytes % unit ||
-      reinterpret_cast<uintptr_t>(pages) % unit)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((unsigned)((row_bytes + slice_bytes - 1) / slice_bytes), L);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* base = static_cast<unsigned char*>(pages);
-  auto* sp = static_cast<const int*>(src_page);
-  auto* sr = static_cast<const int*>(src_row);
-  auto* dp = static_cast<const int*>(dst_page);
-  auto* dr = static_cast<const int*>(dst_row);
-#define PIA_MOVE(T)                                                                  \
-  do {                                                                               \
-    cudaError_t e = cudaFuncSetAttribute(kv_move_rows_kernel<T>,                      \
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                         (int)smem);                                 \
-    if (e != cudaSuccess) return static_cast<int>(e);                                \
-    kv_move_rows_kernel<T><<<grid, kThreads, smem, st>>>(base, sp, sr, dp, dr, N,     \
-                                                         n_pages, ps, row_bytes,     \
-                                                         slice_bytes);               \
-  } while (0)
-  if (unit == 16)
-    PIA_MOVE(uint4);
-  else if (unit == 4)
-    PIA_MOVE(uint32_t);
-  else
-    PIA_MOVE(unsigned char);
-#undef PIA_MOVE
+namespace {
+
+// the dynamic shared memory a kernel may take, raised once a size
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, int& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+template <typename K>
+int launch_move(K kernel, int& allowed, const KvMoveStatic& st, void* pages, const void* sp,
+                const void* sr, const void* dp, const void* dr, cudaStream_t stream) {
+  const cudaError_t e = allow_smem(kernel, st.smem, allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<st.blocks, kThreads, st.smem, stream>>>(
+      st, static_cast<unsigned char*>(pages), static_cast<const int*>(sp),
+      static_cast<const int*>(sr), static_cast<const int*>(dp), static_cast<const int*>(dr));
   return static_cast<int>(cudaGetLastError());
+}
+
+int ring_smem = 48 * 1024, loop4_smem = 48 * 1024, loop1_smem = 48 * 1024;
+
+}  // namespace
+
+// st: the shape's plan (built and checked by the wrapper); pages [L, n_pages,
+// ps, row_bytes] bytes, its base a multiple of st->unit; the four index
+// arrays int32 [N] on the device, 1 <= N <= 1024 (checked:
+// cudaErrorInvalidValue, and cudaErrorMisalignedAddress for the base).
+extern "C" int kv_move_rows(const KvMoveStatic* st, void* pages, const void* src_page,
+                            const void* src_row, const void* dst_page, const void* dst_row,
+                            void* stream) {
+  if (st->L == 0) return 0;
+  const int u = st->unit;
+  const long long units = (long long)st->grid_x * st->L;
+  if (st->N < 1 || st->N > kMaxMoves || (u != 16 && u != 4 && u != 1) || st->slice % u ||
+      st->row_bytes % u || st->table < 2 * st->N || (st->table & (st->table - 1)) ||
+      st->stages < 1 || st->stages > kMaxStages || (u != 16 && st->stages != 1) ||
+      (size_t)st->smem != move_smem_bytes(st->N, st->table, st->slice, st->stages) ||
+      (long long)st->grid_x * st->slice < st->row_bytes || st->blocks < 1 ||
+      st->blocks > units)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(pages) % u) return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (u == 16)
+    return launch_move(kv_move_rows_ring, ring_smem, *st, pages, src_page, src_row, dst_page,
+                       dst_row, s);
+  if (u == 4)
+    return launch_move(kv_move_rows_kernel<4>, loop4_smem, *st, pages, src_page, src_row,
+                       dst_page, dst_row, s);
+  return launch_move(kv_move_rows_kernel<1>, loop1_smem, *st, pages, src_page, src_row,
+                     dst_page, dst_row, s);
 }

@@ -47,9 +47,7 @@ from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
     FP8,
     kv_compact_tail,
     kv_move_rows,
-    kv_write_pages,
     kv_write_step,
-    tail_window,
 )
 
 
@@ -224,40 +222,29 @@ def gather_kv_pages(pages: torch.Tensor, page_tables: torch.Tensor,
 
 
 def compact_kv_tail(
-    pages,  # [L, n_pages, ps, row], or a tuple of such arenas (K, V)
+    pages,  # [L, n_pages, ps, row], or a tuple of up to four such arenas
     page_tables: torch.Tensor,  # [B, P]
     ctx_lens: torch.Tensor,  # [B]
     path: torch.Tensor,  # [B, M] accepted in-step node offsets
     n_edges: torch.Tensor,  # [B] accepted edges (moves)
     q_width: int,  # verify width Q (tail window = [ctx, ctx+Q))
     active: Optional[torch.Tensor] = None,  # [B]; inactive rows -> null page
-    whole_pages: bool = False,  # scale arenas: always the page write-back
 ):
     """Lookahead KV compaction of each request's tail window, in place over
     all layers: node (ctx + path[i]) moves to slot (ctx + 1 + i) for
-    i < n_edges. ``pages`` is one arena or a tuple of arenas (K and V) that
-    share the tables; returns it.
+    i < n_edges. ``pages`` is one arena or a tuple of arenas that share the
+    tables (K and V, and fp8_tok's K and V scale arenas); returns it.
 
-    bf16/fp32 arenas are permuted in place, all of them in one launch that
-    derives the windows from these tensors itself (``kv_compact_tail``). An
-    e4m3 arena, and with ``whole_pages`` a per-token scale arena, takes the
-    JAX package's route for them: the window rows are gathered from their
-    sources and the window's pages written back whole (``kv_write_pages``)."""
-    arenas = pages if isinstance(pages, tuple) else (pages,)
-    if arenas[0].dtype != FP8 and not whole_pages:
-        kv_compact_tail(arenas, page_tables, ctx_lens, path, n_edges, q_width, active)
-        return pages
-    ps = arenas[0].shape[2]
-    P = page_tables.shape[1]
-    page_ids, src_of, _ = tail_window(page_tables, ctx_lens, path, n_edges, q_width, ps,
-                                      active)
-    g_page = torch.gather(page_tables.long(), 1, (src_of // ps).clamp(0, P - 1))
-    B, W = src_of.shape
-    for arena in arenas:
-        raw = arena.view(torch.uint8)
-        rows = raw[:, g_page.reshape(-1), (src_of % ps).reshape(-1)]  # [L, B*W, row]
-        windows = rows.reshape(raw.shape[0], B * (W // ps), ps, raw.shape[-1])
-        kv_write_pages(raw, windows, page_ids.reshape(-1))
+    Every arena kind (bf16, fp32, e4m3 and the f32 scale rows) is permuted
+    in place, all of the arenas in one launch that derives the windows from
+    these tensors itself (``kv_compact_tail``). The JAX package takes
+    another route for e4m3 and scale arenas: it gathers each window's rows
+    from their sources and writes the window's pages back whole
+    (``kv_write_pages``). The bytes are the same outside the null page 0,
+    since every slot of a window page outside the moves is its own
+    source."""
+    kv_compact_tail(pages if isinstance(pages, tuple) else (pages,), page_tables, ctx_lens,
+                    path, n_edges, q_width, active)
     return pages
 
 

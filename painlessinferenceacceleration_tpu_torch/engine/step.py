@@ -116,11 +116,11 @@ def _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain,
         kv = commit_linear_states(kv, chain, n_eff, slot_ids)
     if path is None:
         return kv
-    # K and V together: one launch in a bf16 / fp32 arena
-    compact_kv_tail((kv["k"], kv["v"]), page_tables, ctx_lens, path, n_edges, Q, active)
-    if "k_tok_scale" in kv:  # per-token scales move too
-        compact_kv_tail((kv["k_tok_scale"], kv["v_tok_scale"]), page_tables, ctx_lens, path,
-                        n_edges, Q, active, whole_pages=True)
+    # K, V and (fp8_tok) their per-token scales together: one launch
+    arenas = (kv["k"], kv["v"])
+    if "k_tok_scale" in kv:
+        arenas += (kv["k_tok_scale"], kv["v_tok_scale"])
+    compact_kv_tail(arenas, page_tables, ctx_lens, path, n_edges, Q, active)
     return kv
 
 

@@ -18,15 +18,23 @@ and each block derives its request's window and moves from them, so the
 compaction is one launch and no other kernel (its plain version,
 ``kv_compact_tail_plain``, builds the window with eager torch ops,
 ``tail_window``, and permutes each arena with ``kv_permute_pages_plain``).
-``permute_plan`` is the launch's column chunk, grid and shared memory.
-A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
-raises.
+It takes up to four arenas of one ``[L, n_pages, ps]`` geometry, rows of
+any element type whose width is a multiple of 4 bytes: K and V in the
+bf16, fp32 and e4m3 arenas, and fp8_tok's two per-token scale arenas
+beside them, so a verify step's compaction is one CUDA kernel in every
+arena kind. ``permute_plan`` is the launch's column chunk, grid and shared
+memory. A CPU tensor takes the plain versions; a CUDA tensor launches the
+kernel or raises.
 
 ``kv_write_pages`` replaces the Pallas ``_page_write_kernel`` /
 ``kv_write_pages_pallas``, the whole-page write-back
 ``pages[:, page_ids[w]] = windows[:, w]`` over all layers, for any element
-type (e4m3 K/V pages and f32 scale pages); an aliased destination keeps the
-later window page. It launches ``csrc/kv_page_write.cu`` on a CUDA tensor.
+type; an aliased destination keeps the later window page. It launches
+``csrc/kv_page_write.cu`` (bulk asynchronous copies through shared memory)
+on a CUDA tensor. It is the JAX contract: no path calls it, since the
+compaction of an e4m3 or scale arena (the JAX package's gather and
+whole-page write-back) is ``kv_compact_tail``'s in-place permute, which
+leaves the same bytes.
 
 K16 (``csrc/kv_rows.cu``) replaces the Pallas ``_write_kernel`` /
 ``kv_write_rows``, the row scatter that ends ``write_kv_pages`` (every layer
@@ -45,7 +53,8 @@ indices; no path calls it.
 ``kv_move_rows_pallas``: ``pages[:, dst] = pages[:, src]`` over all layers,
 every source read before any destination is written (the gather-then-set
 semantics of the JAX package's ``move_kv_rows``, which the Pallas body's
-ordered DMAs only approach), in one launch of ``csrc/kv_rows.cu``.
+ordered DMAs only approach), in one launch of ``csrc/kv_rows.cu``;
+``move_plan`` is its column slice, grid and shared memory.
 
 ``kv_write_rows`` and ``kv_move_rows`` take any element type through byte
 views, and when two rows or two moves name one destination the later one is kept (inactive rows and masked
@@ -53,8 +62,8 @@ moves all go to the null page 0).
 
 Each wrapper's ``launches`` counts its kernel launches. Every wrapper reaches
 its C entry through ``_build.function``, which sets its argument types once;
-K4's and K16's wrappers build a ctypes struct of a launch's fixed fields
-once a shape (``_STATICS``).
+each builds a ctypes struct of a launch's fixed fields once a shape
+(``_STATICS``), so a call converts its pointers only.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ _WIDE = {torch.int32: 0, torch.int64: 1}  # index tensors K4 reads as they come
 # times the alternatives.
 STAGE_BYTES = 32 * 1024
 GRID_BLOCKS = 528
+MAX_ARENAS = 4  # arenas one compaction takes (csrc/kv_permute.cu kMaxArenas)
 
 
 class PermutePlan(NamedTuple):
@@ -87,15 +97,19 @@ class PermutePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def permute_plan(row_bytes: tuple, L: int, max_moves: int, B: int, P: int = 0) -> PermutePlan:
-    """K4's launch for arenas of these row widths (bytes), L layers, at
-    most ``max_moves`` moving rows a request and page tables of P columns
-    (0 for ``kv_permute_pages``, which takes the window's pages): the widest
-    power-of-two chunk (16 bytes at least, no wider than the widest row
-    needs) whose ``max_moves`` staged rows fit ``STAGE_BYTES``; one unit
-    per (arena, layer, chunk); ``GRID_BLOCKS`` blocks in all, shared by the
-    B requests, no more than a request has units; shared memory for the
-    two move lists, the page-table row and the stage. Raises where 16-byte
-    chunks of ``max_moves`` rows do not fit."""
+    """K4's launch for arenas of these row widths (bytes; one to four, each a
+    multiple of 4), L layers, at most ``max_moves`` moving rows a request
+    and page tables of P columns (0 for ``kv_permute_pages``, which takes
+    the window's pages): the widest power-of-two chunk (16 bytes at least,
+    no wider than the widest row needs) whose ``max_moves`` staged rows fit
+    ``STAGE_BYTES``; one unit per (arena, layer, chunk); ``GRID_BLOCKS``
+    blocks in all, shared by the B requests, no more than a request has
+    units; shared memory for the two move lists, the page-table row and the
+    stage. Raises on other rows, or where 16-byte chunks of ``max_moves``
+    rows do not fit."""
+    if not 0 < len(row_bytes) <= MAX_ARENAS or any(rb <= 0 or rb % 4 for rb in row_bytes):
+        raise ValueError(f"kv_permute: 1-{MAX_ARENAS} arenas with rows of a multiple of 4 "
+                         f"bytes, got {row_bytes}")
     n = max(max_moves, 1)
     if 16 * n > STAGE_BYTES:
         raise ValueError(f"kv_permute: {max_moves} moving rows do not fit the "
@@ -146,6 +160,12 @@ def compaction_moves(page_tables, ctx_lens, path, n_edges, q_width: int, ps: int
 
 def kv_permute_pages_plain(pages: torch.Tensor, page_ids: torch.Tensor,
                            src_rel: torch.Tensor) -> torch.Tensor:
+    """The plain version: the window copied, then each slot's row written
+    from its source, a later aliasing slot last. An e4m3 arena is permuted
+    through its ``uint8`` view (index ops need not take an fp8 type)."""
+    if pages.dtype == FP8:
+        kv_permute_pages_plain(_bytes(pages), page_ids, src_rel)
+        return pages
     L, _, ps, HD = pages.shape
     B, TPP = page_ids.shape
     ids = page_ids.long()
@@ -161,7 +181,7 @@ class _Static(ctypes.Structure):
     """What a K4 launch fixes for a shape of its operands
     (``KvPermuteStatic`` of ``csrc/kv_permute.cu``, field for field): built
     and checked once a shape, so a call converts its pointers only."""
-    _fields_ = [("row_bytes", _LL * 2), ("idx_stride", _LL), ("src_stride", _LL),
+    _fields_ = [("row_bytes", _LL * MAX_ARENAS), ("idx_stride", _LL), ("src_stride", _LL),
                 ("idx_wide", _I), ("src_wide", _I), ("ctx_wide", _I), ("ne_wide", _I),
                 ("L", _I), ("B", _I), ("n_pages", _I), ("ps", _I), ("TPP", _I), ("P", _I),
                 ("M", _I), ("cb", _I), ("grid_x", _I)]
@@ -171,12 +191,12 @@ class _Static(ctypes.Structure):
 _STATICS = {}
 
 
-def _arena_rows(pages: torch.Tensor, what: str) -> int:
-    """Row bytes of a contiguous arena on the card."""
+def _arena_rows(pages: torch.Tensor, what: str, unit: int = 16) -> int:
+    """Row bytes of a contiguous arena on the card, a multiple of ``unit``."""
     row_bytes = pages.shape[-1] * pages.element_size()
-    if pages.dim() != 4 or not pages.is_contiguous() or row_bytes % 16:
+    if pages.dim() != 4 or not pages.is_contiguous() or row_bytes % unit:
         raise ValueError(f"{what} needs contiguous [L, n_pages, ps, row] arenas with "
-                         f"16-byte-multiple rows, got {tuple(pages.shape)} {pages.dtype}")
+                         f"{unit}-byte-multiple rows, got {tuple(pages.shape)} {pages.dtype}")
     return row_bytes
 
 
@@ -191,19 +211,19 @@ def _index(t: torch.Tensor, dev: torch.device, what: str) -> int:
 
 
 def _aligned(*ptrs: int) -> None:
-    if any(p % 16 for p in ptrs):
-        raise ValueError("kv_permute: arenas must start on a 16-byte boundary")
+    if any(p % 4 for p in ptrs):
+        raise ValueError("kv_permute: arenas must start on a 4-byte boundary")
 
 
 def _permute_static(pages, page_ids, src_rel):
     L, n_pages, ps = pages.shape[:3]
     B, TPP = page_ids.shape
-    row_bytes = _arena_rows(pages, "kv_permute_pages")
+    row_bytes = _arena_rows(pages, "kv_permute_pages", 4)
     if src_rel.shape != (B, TPP * ps):
         raise ValueError(f"src_rel {tuple(src_rel.shape)} != {(B, TPP * ps)}")
     dev = pages.device
     plan = permute_plan((row_bytes,), L, TPP * ps, B)
-    st = _Static((row_bytes, 0), page_ids.stride(0), src_rel.stride(0),
+    st = _Static((row_bytes, 0, 0, 0), page_ids.stride(0), src_rel.stride(0),
                  _index(page_ids, dev, "kv_permute_pages page_ids"),
                  _index(src_rel, dev, "kv_permute_pages src_rel"), 0, 0, L, B, n_pages, ps,
                  TPP, 0, TPP * ps, plan.cb, plan.grid[0])
@@ -286,7 +306,7 @@ def tail_window(page_tables: torch.Tensor, ctx_lens: torch.Tensor, path: torch.T
 def kv_compact_tail_plain(arenas, page_tables, ctx_lens, path, n_edges, q_width: int,
                           active=None):
     """The composed route: ``tail_window``, then ``kv_permute_pages_plain``
-    on each arena."""
+    on each arena (e4m3 ones through their ``uint8`` views)."""
     arenas = _as_tuple(arenas)
     ps = arenas[0].shape[2]
     page_ids, src_of, win_base = tail_window(page_tables, ctx_lens, path, n_edges, q_width,
@@ -297,17 +317,25 @@ def kv_compact_tail_plain(arenas, page_tables, ctx_lens, path, n_edges, q_width:
     return arenas
 
 
-def _compact_static(arenas, page_tables, ctx_lens, path, n_edges, q_width, active):
+def compact_static(arenas, page_tables, ctx_lens, path, n_edges, q_width, active=None):
+    """``kv_compact_tail``'s fixed fields for these operands, checked: (the
+    ctypes struct, its address). Raises on what the kernel does not take:
+    other than 1-4 contiguous arenas of one [L, n_pages, ps] on one device
+    with rows of a multiple of 4 bytes (any element type); index tensors
+    other than int32 / int64 with a contiguous last axis, or whose shapes do
+    not fit a path of B rows; ``active`` other than bool [B]; more moving
+    rows than the stage holds (``permute_plan``). Builds on any device (the
+    CPU tests build it)."""
     k = arenas[0]
     L, n_pages, ps = k.shape[:3]
     B, M = path.shape
     P = page_tables.shape[1]
     dev = k.device
-    if not 0 < len(arenas) <= 2 or any(a.shape[:3] != k.shape[:3] or a.device != dev
-                                        for a in arenas):
-        raise ValueError("kv_compact_tail takes one or two arenas of one [L, n_pages, ps] "
-                         "on one device")
-    rbs = tuple(_arena_rows(a, "kv_compact_tail") for a in arenas)
+    if not 0 < len(arenas) <= MAX_ARENAS or any(a.shape[:3] != k.shape[:3] or a.device != dev
+                                                 for a in arenas):
+        raise ValueError(f"kv_compact_tail takes 1-{MAX_ARENAS} arenas of one "
+                         "[L, n_pages, ps] on one device")
+    rbs = tuple(_arena_rows(a, "kv_compact_tail", 4) for a in arenas)
     if (page_tables.shape[0] != B or ctx_lens.shape != (B,) or n_edges.shape != (B,)
             or (active is not None and (active.shape != (B,) or active.dtype != torch.bool
                                         or active.device != dev or active.stride(0) != 1))):
@@ -316,34 +344,28 @@ def _compact_static(arenas, page_tables, ctx_lens, path, n_edges, q_width, activ
                          f"for a path of {B} rows")
     wides = [_index(t, dev, "kv_compact_tail") for t in (page_tables, path, ctx_lens, n_edges)]
     plan = permute_plan(rbs, L, M, B, P)
-    st = _Static((rbs[0], rbs[1] if len(rbs) == 2 else 0), page_tables.stride(0),
+    st = _Static(rbs + (0,) * (MAX_ARENAS - len(rbs)), page_tables.stride(0),
                  path.stride(0), *wides, L, B, n_pages, ps, window_pages(ps, q_width), P, M,
                  plan.cb, plan.grid[0])
     return st, ctypes.addressof(st)
 
 
+_COMPACT_ARGS = (_P,) * 5 + (_I,) + (_P,) * 6
+
+
 def _kv_compact_cuda(arenas, page_tables, ctx_lens, path, n_edges, q_width, active):
-    k = arenas[0]
-    v = arenas[1] if len(arenas) > 1 else None
-    key = (len(arenas), k.shape, k.stride(), k.dtype, k.device,
-           None if v is None else (v.shape, v.stride(), v.dtype, v.device),
-           page_tables.shape, page_tables.stride(), page_tables.dtype, page_tables.device,
-           ctx_lens.shape, ctx_lens.stride(), ctx_lens.dtype, ctx_lens.device,
-           path.shape, path.stride(), path.dtype, path.device,
-           n_edges.shape, n_edges.stride(), n_edges.dtype, n_edges.device,
-           None if active is None else (active.shape, active.stride(), active.dtype,
-                                        active.device),
-           q_width)
+    key = ("compact", tuple(map(_desc, arenas)), _desc(page_tables), _desc(ctx_lens),
+           _desc(path), _desc(n_edges), _desc(active), q_width)
     st = _STATICS.get(key)
     if st is None:
-        st = _STATICS[key] = _compact_static(arenas, page_tables, ctx_lens, path, n_edges,
-                                             q_width, active)
-    kp, vp = k.data_ptr(), 0 if v is None else v.data_ptr()
-    _aligned(kp, vp)
-    lib, fn = _build.function("kv_permute", "kv_compact_tail", (_P,) * 9)
-    err = fn(st[1], kp, vp or None, page_tables.data_ptr(), ctx_lens.data_ptr(),
-             path.data_ptr(), n_edges.data_ptr(), None if active is None else active.data_ptr(),
-             _build.stream_of(k))
+        st = _STATICS[key] = compact_static(arenas, page_tables, ctx_lens, path, n_edges,
+                                            q_width, active)
+    ptrs = [a.data_ptr() for a in arenas]
+    _aligned(*ptrs)
+    lib, fn = _build.function("kv_permute", "kv_compact_tail", _COMPACT_ARGS)
+    err = fn(st[1], *ptrs, *(None,) * (MAX_ARENAS - len(ptrs)), len(ptrs),
+             page_tables.data_ptr(), ctx_lens.data_ptr(), path.data_ptr(), n_edges.data_ptr(),
+             None if active is None else active.data_ptr(), _build.stream_of(arenas[0]))
     if err:
         _build.check(lib, err, "kv_compact_tail")
     kv_compact_tail.launches += 1
@@ -353,14 +375,15 @@ def _kv_compact_cuda(arenas, page_tables, ctx_lens, path, n_edges, q_width, acti
 def kv_compact_tail(arenas, page_tables: torch.Tensor, ctx_lens: torch.Tensor,
                     path: torch.Tensor, n_edges: torch.Tensor, q_width: int,
                     active: Optional[torch.Tensor] = None):
-    """The verify step's tail compaction of one arena or the (K, V) pair, in
-    place over all layers, in one launch: node ctx + path[i] moves to slot
-    ctx + 1 + i for i < n_edges, in each request's window of
-    ``window_pages`` pages from ctx // ps (clipped to its page table; an
-    inactive row's on the null page). arenas: [L, n_pages, ps, row] each
-    (rows may differ in width); page_tables [B, P], ctx_lens [B], path
-    [B, M], n_edges [B] int32 / int64; active bool [B] or None. Returns the
-    arenas as a tuple."""
+    """The verify step's tail compaction of one to four arenas (K, V, and
+    fp8_tok's K and V scale arenas), in place over all layers, in one
+    launch: node ctx + path[i] moves to slot ctx + 1 + i for i < n_edges,
+    in each request's window of ``window_pages`` pages from ctx // ps
+    (clipped to its page table; an inactive row's on the null page).
+    arenas: [L, n_pages, ps, row] each, any element type, rows of a
+    multiple of 4 bytes that may differ in width; page_tables [B, P],
+    ctx_lens [B], path [B, M], n_edges [B] int32 / int64; active bool [B]
+    or None. Returns the arenas as a tuple."""
     arenas = _as_tuple(arenas)
     if arenas[0].is_cuda:
         return _kv_compact_cuda(arenas, page_tables, ctx_lens, path, n_edges, q_width, active)
@@ -398,10 +421,39 @@ def kv_write_pages_plain(pages: torch.Tensor, windows: torch.Tensor,
     return pages
 
 
-_PAGE_WRITE_ARGS = (_P,) * 3 + (_I,) * 3 + (_LL, _P)
+# K6's bulk route: pieces of a page one bulk copy moves, and the persistent
+# grid's blocks an SM (csrc/kv_page_write.cu: one warp, a 64 KB ring each)
+PAGE_PIECE = 16384
+PAGE_BLOCKS_PER_SM = 3
 
 
-def _kv_write_pages_cuda(pages, windows, page_ids):
+def page_write_plan(page_bytes: int, W: int, L: int, sms: int) -> tuple:
+    """(pieces a page, blocks) of K6's bulk route: the page cut into
+    ``PAGE_PIECE``-byte pieces (the last may be shorter), and a persistent
+    grid of ``PAGE_BLOCKS_PER_SM`` blocks an SM of the card's ``sms``, no
+    more than there are pieces."""
+    pieces = -(-page_bytes // PAGE_PIECE)
+    return pieces, max(1, min(W * L * pieces, PAGE_BLOCKS_PER_SM * sms))
+
+
+_SMS = {}  # device -> its streaming multiprocessors (asked once)
+
+
+def _sms(dev: torch.device) -> int:
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
+class _PageWriteStatic(ctypes.Structure):
+    """What a K6 launch fixes for a shape of its operands
+    (``KvPageWriteStatic`` of ``csrc/kv_page_write.cu``, field for field)."""
+    _fields_ = [("page_bytes", _LL), ("L", _I), ("W", _I), ("n_pages", _I),
+                ("ids_wide", _I), ("pieces", _I), ("grid", _I)]
+
+
+def _page_write_static(pages, windows, page_ids):
     L, n_pages = pages.shape[:2]
     W = windows.shape[1]
     if windows.dtype != pages.dtype or windows.shape[0] != L \
@@ -410,15 +462,29 @@ def _kv_write_pages_cuda(pages, windows, page_ids):
                          f"match pages {tuple(pages.shape)} {pages.dtype}")
     if not pages.is_contiguous():
         raise ValueError("kv_write_pages needs a contiguous arena")
-    ids = page_ids.to(torch.int32).contiguous()
-    if ids.shape != (W,) or not (ids.device == windows.device == pages.device):
+    if page_ids.shape != (W,) or not (page_ids.device == windows.device == pages.device):
         raise ValueError("kv_write_pages: page_ids must be [W] on the arena's device")
-    windows = windows.contiguous()
     page_bytes = pages[0, 0].numel() * pages.element_size()
-    lib, fn = _build.function("kv_page_write", "kv_page_write", _PAGE_WRITE_ARGS)
-    err = fn(pages.data_ptr(), windows.data_ptr(), ids.data_ptr(), L, W, n_pages,
-             page_bytes, _build.stream_of(pages))
-    _build.check(lib, err, "kv_write_pages")
+    pieces, grid = page_write_plan(page_bytes, W, L, _sms(pages.device))
+    st = _PageWriteStatic(page_bytes, L, W, n_pages, _index(page_ids, pages.device,
+                                                           "kv_write_pages"), pieces, grid)
+    return (st, ctypes.addressof(st)) + _build.function("kv_page_write", "kv_page_write",
+                                                        (_P,) * 5)
+
+
+def _kv_write_pages_cuda(pages, windows, page_ids):
+    if page_ids.dtype not in _WIDE or not page_ids.is_contiguous():
+        page_ids = page_ids.to(torch.int32).contiguous()
+    if not windows.is_contiguous():
+        windows = windows.contiguous()
+    key = ("pages", _desc(pages), _desc(windows), _desc(page_ids))
+    st = _STATICS.get(key)
+    if st is None:
+        st = _STATICS[key] = _page_write_static(pages, windows, page_ids)
+    err = st[3](st[1], pages.data_ptr(), windows.data_ptr(), page_ids.data_ptr(),
+                _build.stream_of(pages))
+    if err:
+        _build.check(st[2], err, "kv_write_pages")
     kv_write_pages.launches += 1
     return pages
 
@@ -426,7 +492,8 @@ def _kv_write_pages_cuda(pages, windows, page_ids):
 def kv_write_pages(pages: torch.Tensor, windows: torch.Tensor,
                    page_ids: torch.Tensor) -> torch.Tensor:
     """Write whole pages in place: pages [L, n_pages, ps, ...] gets
-    windows [L, W, ps, ...] at page_ids [W] (0 = null page). Returns
+    windows [L, W, ps, ...] at page_ids [W] (int32 / int64; 0 = null page),
+    the later window page kept where two name one page. Returns
     ``pages``."""
     if pages.is_cuda:
         return _kv_write_pages_cuda(pages, windows, page_ids)
@@ -780,40 +847,121 @@ def kv_move_rows_plain(pages: torch.Tensor, src_page: torch.Tensor,
     return pages
 
 
-def _move_slice(N: int, row_bytes: int, unit: int, limit: int) -> int:
-    """The widest column slice (bytes) whose N staged rows fit ``limit``."""
-    index_bytes = (N * 8 + 15) // 16 * 16
-    for sl in (256, 128, 64, 32, 16, 8, 4, 2, 1):
-        if sl % unit or (sl > row_bytes and sl // 2 >= max(row_bytes, unit)):
-            continue
-        if index_bytes + N * sl <= limit:
-            return sl
-    raise ValueError(f"kv_move_rows: {N} moves of {row_bytes}-byte rows do not fit "
-                     f"one block's {limit} bytes of shared memory")
+# K17's plan: one stage's N slices stay within MOVE_STAGE_BYTES, and the
+# rows' (slice, layer) units number MOVE_MIN_UNITS or more where they can;
+# 16-byte rows go through a ring of MOVE_STAGES stages on a persistent grid
+# of at most MOVE_BLOCKS_PER_SM blocks an SM (tools/row_kernel_variants.py
+# --variants k17 times the alternatives)
+MOVE_STAGE_BYTES = 32 * 1024
+MOVE_MIN_UNITS = 264
+MOVE_STAGES = 2
+MOVE_BLOCKS_PER_SM = 8  # 256 threads a block
+SM_SMEM = 233472  # shared memory of an H100 SM, of which a block reserves 1 KB
 
 
-_MOVE_ROWS_ARGS = (_P,) * 5 + (_I,) * 4 + (_LL, _I, _I, _P)
+class MovePlan(NamedTuple):
+    slice: int  # column slice of a unit, bytes (a power of two, a multiple of unit)
+    grid_x: int  # slices a row
+    table: int  # slots of the block's later-destination table
+    stages: int  # the ring's stages (16-byte rows), else 1
+    blocks: int  # blocks of the launch
+    smem: int  # dynamic shared memory a block, bytes
 
 
-def _kv_move_rows_cuda(pages, src_page, src_row, dst_page, dst_row):
+def move_smem(N: int, table: int, slice_: int, stages: int = 1) -> int:
+    """A K17 block's shared memory (``move_smem_bytes`` of
+    ``csrc/kv_rows.cu``): the 2N row numbers (to 16 bytes), the table's
+    keys and move indices, the stages of N slices."""
+    return (N * 8 + 15) // 16 * 16 + table * 8 + stages * N * slice_
+
+
+@functools.lru_cache(maxsize=256)
+def move_plan(N: int, row_bytes: int, L: int, unit: int, limit: int, sms: int) -> MovePlan:
+    """K17's launch for N moves of rows of ``row_bytes`` (a multiple of
+    ``unit``, 16, 4 or 1) over L layers, under a shared-memory limit of
+    ``limit`` bytes a block, on a card of ``sms`` SMs: the table has the
+    power of two >= 2N slots; the slice is a power of two, a multiple of
+    ``unit``, no wider than the row needs, whose block fits ``limit``; of
+    those whose N slices fit ``MOVE_STAGE_BYTES`` (or the narrowest, if
+    none), the widest that cuts the rows into ``MOVE_MIN_UNITS`` units, else
+    the narrowest. 16-byte rows: ``MOVE_STAGES`` stages (fewer if the block
+    would not fit), as many blocks as fit an SM (at most
+    ``MOVE_BLOCKS_PER_SM``) on every SM, no more than the units; other rows:
+    one stage, a block a unit. Raises where N is outside 1-1024 or the row
+    is not a multiple of unit, or no block fits."""
+    if not 1 <= N <= MAX_MOVES or unit not in (16, 4, 1) or row_bytes <= 0 or row_bytes % unit:
+        raise ValueError(f"kv_move_rows: {N} moves (1-{MAX_MOVES}) of {row_bytes}-byte rows "
+                         f"in units of {unit}")
+    table = 2
+    while table < 2 * N:
+        table *= 2
+    widest = max(1 << (row_bytes - 1).bit_length(), unit)
+    fits = [s_ for s_ in (1 << k for k in range(widest.bit_length() - 1, -1, -1))
+            if s_ >= unit and move_smem(N, table, s_) <= limit]
+    if not fits:
+        raise ValueError(f"kv_move_rows: {N} moves of {row_bytes}-byte rows do not fit "
+                         f"one block's {limit} bytes of shared memory")
+    budget = [s_ for s_ in fits if N * s_ <= MOVE_STAGE_BYTES] or fits[-1:]
+    full = [s_ for s_ in budget if L * -(-row_bytes // s_) >= MOVE_MIN_UNITS]
+    slice_ = full[0] if full else budget[-1]
+    grid_x = -(-row_bytes // slice_)
+    units = grid_x * L
+    if unit != 16:
+        return MovePlan(slice_, grid_x, table, 1, units, move_smem(N, table, slice_))
+    stages = MOVE_STAGES
+    while stages > 1 and move_smem(N, table, slice_, stages) > limit:
+        stages -= 1
+    smem = move_smem(N, table, slice_, stages)
+    per_sm = max(1, min(MOVE_BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
+    return MovePlan(slice_, grid_x, table, stages, min(units, per_sm * sms), smem)
+
+
+class _MoveStatic(ctypes.Structure):
+    """What a K17 launch fixes for a shape of its operands (``KvMoveStatic``
+    of ``csrc/kv_rows.cu``, field for field)."""
+    _fields_ = [("row_bytes", _LL), ("N", _I), ("L", _I), ("n_pages", _I), ("ps", _I),
+                ("slice", _I), ("unit", _I), ("grid_x", _I), ("table", _I), ("stages", _I),
+                ("blocks", _I), ("smem", _I)]
+
+
+_SMEM_LIMIT = {}  # device -> the shared memory a block may take (asked once)
+
+
+def _move_static(pages, idx):
     L, n_pages, ps = pages.shape[:3]
-    N = src_page.shape[0]
-    idx = [t.to(torch.int32).contiguous() for t in (src_page, src_row, dst_page, dst_row)]
-    if not pages.is_contiguous() or any(t.shape != (N,) or t.device != pages.device
-                                        for t in idx):
+    N = idx[0].shape[0]
+    if pages.dim() != 4 or not pages.is_contiguous() or any(
+            t.shape != (N,) or t.device != pages.device for t in idx):
         raise ValueError("kv_move_rows needs a contiguous arena and four [N] index "
                          "arrays on its device")
     if N > MAX_MOVES:
         raise ValueError(f"kv_move_rows: {N} moves, more than one launch takes "
                          f"({MAX_MOVES})")
-    row_bytes = pages[0, 0, 0].numel() * pages.element_size()
+    row_bytes = pages.shape[-1] * pages.element_size()
     unit = next(u for u in (16, 4, 1) if row_bytes % u == 0 and pages.data_ptr() % u == 0)
-    lib, fn = _build.function("kv_rows", "kv_move_rows", _MOVE_ROWS_ARGS)
-    sl = _move_slice(N, row_bytes, unit, _build.function("kv_rows", "kv_move_rows_smem_limit",
-                                                         ())[1]())
-    err = fn(pages.data_ptr(), *(t.data_ptr() for t in idx), N, L, n_pages, ps, row_bytes,
-             sl, unit, _build.stream_of(pages))
-    _build.check(lib, err, "kv_move_rows")
+    limit = _SMEM_LIMIT.get(pages.device)
+    if limit is None:
+        limit = _SMEM_LIMIT[pages.device] = _build.function(
+            "kv_rows", "kv_move_rows_smem_limit", ())[1]()
+    plan = move_plan(N, row_bytes, L, unit, limit, _sms(pages.device))
+    st = _MoveStatic(row_bytes, N, L, n_pages, ps, plan.slice, unit, plan.grid_x, plan.table,
+                     plan.stages, plan.blocks, plan.smem)
+    return (st, ctypes.addressof(st)) + _build.function("kv_rows", "kv_move_rows", (_P,) * 7)
+
+
+def _kv_move_rows_cuda(pages, src_page, src_row, dst_page, dst_row):
+    idx = (src_page, src_row, dst_page, dst_row)
+    if not all(t.dtype is torch.int32 and t.is_contiguous() for t in idx):
+        idx = tuple(t.to(torch.int32).contiguous() for t in idx)
+    if idx[0].shape[0] == 0:
+        return pages
+    key = ("move", _desc(pages), pages.data_ptr() % 16, *map(_desc, idx))
+    st = _STATICS.get(key)
+    if st is None:
+        st = _STATICS[key] = _move_static(pages, idx)
+    err = st[3](st[1], pages.data_ptr(), *(t.data_ptr() for t in idx), _build.stream_of(pages))
+    if err:
+        _build.check(st[2], err, "kv_move_rows")
     kv_move_rows.launches += 1
     return pages
 
@@ -823,8 +971,9 @@ def kv_move_rows(pages: torch.Tensor, src_page: torch.Tensor, src_row: torch.Ten
     """pages[:, dst_page[i], dst_row[i]] = pages[:, src_page[i], src_row[i]]
     in place over all layers, every source read before any destination is
     written; a later move wins over an earlier one with the same
-    destination. pages [L, n_pages, ps, row]; int32 [N] indices (N <= 1024
-    on the card). Returns ``pages``."""
+    destination. pages [L, n_pages, ps, row]; [N] indices (N <= 1024 on the
+    card, read as they come when int32 and contiguous, converted
+    otherwise). Returns ``pages``."""
     if pages.is_cuda:
         return _kv_move_rows_cuda(pages, src_page, src_row, dst_page, dst_row)
     if pages.device.type != "cpu":

@@ -189,6 +189,56 @@ def test_kv_compact_tail_equals_its_plain_version(cuda, kind, dtype):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("kind", CASES)
+def test_kv_compact_tail_four_arenas_equal_their_plain_version(cuda, kind, heads):
+    """fp8_tok's compaction, e4m3 K and V and f32 scale rows of 4 heads (16
+    bytes: bulk copies) or 2 heads (8 bytes: the 4-byte route), in one
+    launch of K4's compaction entry, bit-equal to the plain version over the
+    whole arenas, page 0 included."""
+    from painlessinferenceacceleration_tpu_torch.ops import kv_update as ku
+
+    c = compact_case(kind, widths=(1024, 1024))
+    k, v, args = _on_card(c, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    arenas = (k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn),
+              *(torch.rand(*k.shape[:3], heads, generator=g, device="cuda") for _ in range(2)))
+    want = ku.kv_compact_tail_plain(tuple(a.clone() for a in arenas), *args)
+    before = ku.kv_compact_tail.launches
+    got = ku.kv_compact_tail(tuple(a.clone() for a in arenas), *args)
+    assert ku.kv_compact_tail.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_compaction_is_one_launch_in_every_arena_kind(cuda):
+    """``_commit_and_compact`` in the bf16, static e4m3 and per-token e4m3
+    arenas: one K4 launch a verify step, no K6."""
+    from types import SimpleNamespace
+
+    from painlessinferenceacceleration_tpu_torch.engine.step import _commit_and_compact
+    from painlessinferenceacceleration_tpu_torch.ops import kv_update as ku
+
+    c = compact_case("r2l8", widths=(256, 256))
+    k, v, args = _on_card(c, torch.bfloat16)
+    pt, ctx, path, ne, Q, active = args
+    cfg = SimpleNamespace(linear_attention=False)
+    for kvq in ("none", "fp8", "fp8_tok"):
+        kv = dict(k=k.clone(), v=v.clone())
+        if kvq != "none":
+            kv = {n: t.to(torch.float8_e4m3fn) for n, t in kv.items()}
+        if kvq == "fp8_tok":
+            kv.update(k_tok_scale=torch.rand(*k.shape[:3], 2, device="cuda"),
+                      v_tok_scale=torch.rand(*k.shape[:3], 2, device="cuda"))
+        want = ku.kv_compact_tail_plain(tuple(t.clone() for t in kv.values()), *args)
+        before = (ku.kv_compact_tail.launches, ku.kv_write_pages.launches)
+        _commit_and_compact(kv, cfg, pt, ctx, active, None, None, None, path, ne, Q)
+        assert (ku.kv_compact_tail.launches, ku.kv_write_pages.launches) == (before[0] + 1,
+                                                                               before[1])
+        for a, b in zip(kv.values(), want):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 @pytest.mark.parametrize("Q,n_moves", [(17, 8), (64, 40), (128, 120)])
 def test_kv_compact_tail_at_7b_rows(cuda, Q, n_moves):
     """8192-byte rows, every move of a path of n_moves edges (a random tree
@@ -323,6 +373,41 @@ def test_attention_at_serving_shapes(cuda, kind, arena):
         got = paged_attention(q, k, v, pt, ctx_t, qm, sc, scales)
     ref = paged_attention_ref(q, k, v, pt, ctx_t, qm, sc, ks, vs)
     assert _rel(got, ref) < 2e-2
+
+
+@pytest.mark.parametrize("W,row,wide", [(2, 4096, False), (16, 4096, True), (16, 128, False),
+                                       (3, 3, False)])
+def test_kv_write_pages_bulk_route(cuda, W, row, wide):
+    """K6's bulk copies: Llama-2-7B e4m3 pages (256 KB, several chunks a
+    page) at W = 2 and 16, fp8_tok's scale pages of 32 heads (8 KB), pages
+    of 192 bytes; the null page named twice and one destination aliased,
+    int32 or int64 ids as they come."""
+    pages = torch.randint(0, 256, (4, 40, 64, row), generator=cuda, device="cuda",
+                          dtype=torch.uint8).view(torch.float8_e4m3fn)
+    windows = torch.randint(0, 256, (4, W, 64, row), generator=cuda, device="cuda",
+                            dtype=torch.uint8).view(torch.float8_e4m3fn)
+    ids = torch.randperm(39, generator=cuda, device="cuda")[:W] + 1
+    if W > 2:
+        ids[0], ids[-1], ids[1] = 0, 0, ids[2]
+    ids = ids if wide else ids.to(torch.int32)
+    before = kv_write_pages.launches
+    got = kv_write_pages(pages.clone(), windows, ids)
+    assert kv_write_pages.launches == before + 1
+    ref = kv_write_pages_plain(pages.clone(), windows, ids)
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("offset,row", [(4, 16), (1, 16), (4, 3)])
+def test_kv_write_pages_vector_route(cuda, offset, row):
+    """Pointers off the 16-byte grid (4-byte words; bytes) and 12-byte pages
+    take the vector loop; aliased ids."""
+    n = 3 * 12 * 4 * row
+    buf = torch.randint(0, 256, (2, n + 16), generator=cuda, device="cuda", dtype=torch.uint8)
+    pages = buf[0, offset: offset + n].view(3, 12, 4, row)
+    windows = buf[1, offset: offset + 3 * 5 * 4 * row].view(3, 5, 4, row)
+    ids = torch.tensor([4, 0, 4, 9, 0], dtype=torch.int32, device="cuda")
+    ref = kv_write_pages_plain(pages.clone(), windows, ids)
+    assert torch.equal(kv_write_pages(pages, windows, ids), ref)  # in place, off the grid
 
 
 @pytest.mark.parametrize("dtype,row", [(torch.float8_e4m3fn, 1024), (torch.float32, 8),
@@ -1765,20 +1850,59 @@ def _move_case(g, L, n_pages, ps, row, dtype, N, chains=True):
 
 @pytest.mark.parametrize("dtype,row", [(torch.bfloat16, 4096), (torch.float8_e4m3fn, 4096),
                                        (torch.float32, 4), (torch.bfloat16, 576),
-                                       (torch.float32, 3)])
-@pytest.mark.parametrize("N", [1, 12, 63, 252])
+                                       (torch.float32, 3), (torch.float32, 9)])
+@pytest.mark.parametrize("N", [1, 12, 63, 252, 1024])
 def test_kv_move_rows(cuda, dtype, row, N):
+    """Rows of 8192, 1152, 36, 16 and 12 bytes (bulk copies, 4-byte
+    words), chains and a destination named twice."""
     from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
         kv_move_rows,
         kv_move_rows_plain,
     )
 
-    pages, sp, sr, dp, dr = _move_case(cuda, 32 if row == 4096 else 4, 20, 64, row, dtype, N)
+    n_pages = max(20, 2 * N // 64 + 1)
+    pages, sp, sr, dp, dr = _move_case(cuda, 32 if row == 4096 else 4, n_pages, 64, row,
+                                       dtype, N)
     before = kv_move_rows.launches
     got = kv_move_rows(pages.clone(), sp, sr, dp, dr)
     assert kv_move_rows.launches == before + 1
     ref = kv_move_rows_plain(pages.clone(), sp, sr, dp, dr)
     assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("B,M,offset", [(4, 63, 0), (8, 16, 0), (4, 63, 4), (2, 5, 1)])
+def test_kv_move_rows_batch_paths_with_masked_moves(cuda, B, M, offset):
+    """B requests' accepted paths (rows shift down: chains), each request's
+    last move masked to the null page 0 (named B times), 8192-byte rows, on
+    a base off the 16-byte grid where ``offset`` says (the 4-byte and byte
+    loops)."""
+    from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+        kv_move_rows,
+        kv_move_rows_plain,
+    )
+
+    L, ps, row, P = 4, 64, 8192, 6
+    n = L * (B * P + 1) * ps * row
+    buf = torch.randint(0, 256, (n + 16,), generator=cuda, device="cuda", dtype=torch.uint8)
+    pages = buf[offset: offset + n].view(L, B * P + 1, ps, row)
+    sp, sr, dp, dr = [], [], [], []
+    for b in range(B):
+        pt = torch.arange(1 + b * P, 1 + (b + 1) * P, device="cuda")
+        ctx = int(torch.randint(0, (P - 2) * ps, (1,), generator=cuda, device="cuda"))
+        path = torch.sort(torch.randperm(2 * M, generator=cuda, device="cuda")[:M] + 1)[0]
+        src, dst = ctx + path, ctx + 1 + torch.arange(M, device="cuda")
+        dpage = pt[dst // ps].clone()
+        dpage[-1] = 0
+        sp.append(pt[src // ps])
+        sr.append(src % ps)
+        dp.append(dpage)
+        dr.append(dst % ps)
+    idx = [torch.cat(x) for x in (sp, sr, dp, dr)]  # int64: the wrapper converts
+    ref = kv_move_rows_plain(pages.clone(), *idx)
+    before = kv_move_rows.launches
+    got = kv_move_rows(pages, *idx)
+    assert kv_move_rows.launches == before + 1
+    assert torch.equal(got, ref)
 
 
 def test_kv_move_rows_refuses_past_shared_memory(cuda):

@@ -17,6 +17,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _kv_cases import CASES, compact_case
+
 from painlessinferenceacceleration_tpu.engine import cache as jcache
 from painlessinferenceacceleration_tpu.layers import linear as jlin
 from painlessinferenceacceleration_tpu.lookahead.device_tables import (
@@ -43,9 +45,11 @@ from painlessinferenceacceleration_tpu_torch.ops import rope as trope
 from painlessinferenceacceleration_tpu_torch.models.convert import kv_from_jax
 from painlessinferenceacceleration_tpu_torch.ops import attention as tatt
 from painlessinferenceacceleration_tpu_torch.ops.kv_update import (
+    kv_compact_tail,
     kv_permute_pages,
     kv_write_pages,
     kv_write_pages_plain,
+    tail_window,
 )
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -472,31 +476,45 @@ def test_fp8_tok_attention_plain_matches_jax(G, kind):
         assert rel_err(got, np.asarray(pallas.astype(jnp.float32))) < 3e-2
 
 
-@pytest.mark.parametrize("arena", ["e4m3", "tok_scale"])
-def test_compact_kv_tail_fp8_matches_jax_byte_for_byte(arena):
-    """The whole-page route of the e4m3 arena and of the per-token scale
-    arenas (window gather, then kv_write_pages) against the JAX jnp path,
-    with real moves."""
-    B, R, Lb = 3, 2, 8
-    Q = 1 + R * Lb
-    ctx = np.array([5, 30, 47], np.int32)
-    k8, _, ks, _, pt = _fp8_arena(B, list(ctx), Q, 2, 8, seed=40, tok=True)
-    best = np.array([1, 1, 0])
-    n_edges = np.array([3, 8, 2], np.int32)
-    path = (1 + best[:, None] * Lb + np.arange(Lb)[None]).astype(np.int32)
-    args = (jnp.asarray(pt), jnp.asarray(ctx), jnp.asarray(path), jnp.asarray(n_edges), Q,
-            jnp.ones(B, bool))
-    targs = (t(pt), t(ctx), t(path), t(n_edges), Q, torch.ones(B, dtype=torch.bool))
-    if arena == "e4m3":
-        ref = _jax_bytes(jcache.compact_kv_tail(jnp.asarray(k8), *args))
-        got = _bytes_of(tcache.compact_kv_tail(_t8(k8), *targs))
-        before = k8.view(np.uint8)
-    else:
-        ref = np.asarray(jcache.compact_kv_tail(jnp.asarray(ks), *args, force_jnp=True))[..., :2]
-        got = tcache.compact_kv_tail(t(ks[..., :2]), *targs, whole_pages=True).numpy()
-        before = ks[..., :2]
-    assert (got == ref).all()
-    assert not (ref == before).all()  # something moved
+@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("kind", CASES)
+def test_compact_kv_tail_fp8_matches_jax_byte_for_byte(kind, heads):
+    """An fp8_tok arena set, e4m3 K / V rows and f32 per-token scale rows of
+    ``heads`` heads (16 bytes, or 8: the kernel's 4-byte route), compacted
+    in one four-arena call, against the JAX package's ``compact_kv_tail``
+    on each arena (its jnp route: gather the window, write its pages back
+    whole; ``force_jnp`` for the scales), byte for byte, with real moves.
+    Where a row is inactive the JAX jnp route copies that row's own window
+    into the null page, where the port (and the JAX Pallas route) permutes
+    page 0 itself: there page 0 is held against ``kv_permute_pages_pallas``
+    in interpret mode on the byte values."""
+    c = compact_case(kind, seed=3, widths=(32, 32))
+    rng = np.random.default_rng(4)
+    k8, v8 = (np.asarray(jnp.asarray(c[n] * 64).astype(jnp.float8_e4m3fn)) for n in "kv")
+    ks, vs = (rng.uniform(0.01, 0.1, c["k"].shape[:3] + (heads,)).astype(np.float32)
+              for _ in range(2))
+    targs = (t(c["pt"]), t(c["ctx"]), t(c["path"]), t(c["ne"]), c["Q"], t(c["active"]))
+    jargs = (jnp.asarray(c["pt"]), jnp.asarray(c["ctx"]), jnp.asarray(c["path"]),
+             jnp.asarray(c["ne"]), c["Q"], jnp.asarray(c["active"]))
+    arenas = (_t8(k8), _t8(v8), t(ks), t(vs))
+    before = kv_compact_tail.launches
+    out = tcache.compact_kv_tail(arenas, *targs)
+    assert out is arenas and kv_compact_tail.launches == before  # CPU: the plain version
+    first = 0 if c["active"].all() else 1
+    page_ids, src_of, base = tail_window(*targs[:5], k8.shape[2], targs[5])
+    src_rel = (src_of - base[:, None]).clamp(0, src_of.shape[1] - 1)
+    moved = False
+    for got, a in zip(arenas, (k8, v8, ks, vs)):
+        ref = jcache.compact_kv_tail(jnp.asarray(a), *jargs, force_jnp=a.dtype == np.float32)
+        want, have = _jax_bytes(ref), _bytes_of(got)
+        assert (have[:, first:] == want[:, first:]).all()
+        moved |= not (want == _jax_bytes(a)).all()
+        if first:
+            as_f32 = jnp.asarray(_jax_bytes(a).astype(np.float32))
+            pallas = kv_permute_pages_pallas(as_f32, jnp.asarray(page_ids.int().numpy()),
+                                             jnp.asarray(src_rel.int().numpy()), interpret=True)
+            assert (have == np.asarray(pallas).astype(np.uint8)).all()
+    assert moved or kind in ("identity", "no_edges")
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "fp8", "fp8_tok"])

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""K16 (the KV row write), K4 (the KV compaction) and K15 (RMSNorm) at the
-main paths' shapes, and K4's staging variants, on one card:
+"""K16 (the KV row write), K4 (the KV compaction), K6 (the page
+write-back), K17 (the row move) and K15 (RMSNorm) at the main paths'
+shapes, and K4's staging variants, on one card:
 
-    python3 tools/row_kernel_variants.py [--root DIR] [--json PATH] [--variants]
-                                         [--rows all|write]
+    python3 tools/row_kernel_variants.py [--root DIR] [--json PATH]
+                                         [--variants [k4|k6|k17]] [--rows all|write|kv]
 
 ``--root`` imports the port from another tree (for instance a parent commit
 unpacked under ``build/``), which builds its own kernels; run the script
@@ -33,6 +34,21 @@ Rows, each tree:
   the bound of the moved rows (each read once and written once, both
   arenas, all layers, plus the indices); ``library_ms``: ``index_copy_`` of
   the moving K rows and of the V rows, gathered beforehand (two calls).
+  With ``--rows kv`` the same cases run in the bf16, static e4m3 and
+  per-token e4m3 arenas (K, V and 32 heads' f32 scale rows), each with
+  ``graph_kernels``, the CUDA kernels a call counted from a CUDA graph's
+  kernel nodes.
+- ``kv_write_pages`` (``--rows kv``): K6 at L = 32 on e4m3 pages of
+  4096-byte rows and f32 scale pages of 32 heads, W = 2 and 16 window
+  pages (B = 1 and 8, two pages a window), the last naming the first's
+  destination: wall (in turns with ``index_copy_`` of the windows' bytes),
+  device ms with the L2 cold and warm, the bound; and one ``copy_`` of W =
+  16's kept bytes, the card's practical rate for a copy of that size.
+- ``kv_move_rows`` (``--rows kv``): K17 at L = 32 on 8192-byte bf16 rows,
+  B requests' chained accepted paths of M moves, each request's last move
+  masked to the null page 0: N = 12 / 63 (B = 1) and 252 (B = 4); wall (in
+  turns with ``index_put_`` of the gathered rows), device ms with the L2
+  cold and warm, the bound.
 - ``kv_permute_pages``: K4's general entry at L = 32, a 2-page window of
   8192-byte rows, 127 rows moving and none (the rows of PERF.md), with
   ``device_ms`` (L2 cold), ``device_warm_ms`` and ``index_copy_``.
@@ -44,7 +60,15 @@ Rows, each tree:
 ``--variants`` (this tree only) times K4's compaction and general entry in
 each staging route (the tree's cp.async.bulk copies, or 16-byte loads in a
 copy of its source under ``build/row_kernel_variants/``), staging budget
-and block count, device ms with the L2 cold, in two turns.
+and block count, device ms with the L2 cold, in two turns. ``--variants
+k17`` times K17 at the ``kv_move_rows`` cases in each route at 16-byte
+rows (the tree's ring of bulk copies, or the loop of 16-byte loads and
+stores from an edited copy) over its plan's stage budget
+(``MOVE_STAGE_BYTES``), unit target (``MOVE_MIN_UNITS``) and ring depth
+(``MOVE_STAGES``), each plan first held against the plain version;
+``--variants k6`` times K6 at the
+``kv_write_pages`` cases over its ring (piece bytes and stages, edited
+copies) and blocks an SM (``PAGE_BLOCKS_PER_SM``); both in two turns.
 Prints one JSON line per row and the card's name and power limit.
 """
 
@@ -189,6 +213,35 @@ def kernel_profile(fn, calls: int = 20) -> tuple:
     return best[0] / 1e3 / calls, best[1] / calls
 
 
+def graph_kernels(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches: the kernel nodes of a
+    CUDA graph captured around it (``cuGraphGetNodes``)."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(keep_graph=True), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
 def bound(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -235,7 +288,25 @@ def compaction_case(B, Q, n_identity, n_moves, rng):
     return pt, ctx, path, ne
 
 
-def compaction_rows(pkg, g) -> list:
+def compaction_arenas(kind: str, n_pages: int, g) -> dict:
+    """The arenas ``_commit_and_compact`` compacts, Llama-2-7B's geometry:
+    bf16 K / V, e4m3 K / V (static scales: nothing else moves) or e4m3 K /
+    V with 32 heads' f32 scale rows (fp8_tok)."""
+    import torch
+
+    shape = (L, n_pages, PS, HD)
+    if kind == "bf16":
+        return {n: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                for n in ("k", "v")}
+    kv = {n: torch.randint(0, 256, shape, generator=g, device="cuda",
+                           dtype=torch.uint8).view(torch.float8_e4m3fn) for n in ("k", "v")}
+    if kind == "fp8_tok":
+        kv.update({n: torch.rand(L, n_pages, PS, HD // 128, generator=g, device="cuda")
+                   for n in ("k_tok_scale", "v_tok_scale")})
+    return kv
+
+
+def compaction_rows(pkg, g, kinds=("bf16",)) -> list:
     import numpy as np
     import torch
 
@@ -243,11 +314,12 @@ def compaction_rows(pkg, g) -> list:
     cfg = types.SimpleNamespace(linear_attention=False)
     rows = []
     rng = np.random.default_rng(SEED)
-    for case, B, Q, n_ident, n_moves in COMPACTIONS:
-        pt, ctx, path, ne = compaction_case(B, Q, n_ident, n_moves, rng)
+    cases = [(kind,) + c for c in COMPACTIONS for kind in kinds]
+    tables = {c[0]: compaction_case(*c[1:], rng) for c in COMPACTIONS}
+    for kind, case, B, Q, n_ident, n_moves in cases:
+        pt, ctx, path, ne = tables[case]
         n_pages = int(pt.max()) + 1
-        kv = {n: torch.randn(L, n_pages, PS, HD, generator=g, device="cuda").to(torch.bfloat16)
-              for n in ("k", "v")}
+        kv = compaction_arenas(kind, n_pages, g)
         dev = [torch.from_numpy(a).to("cuda") for a in (pt, ctx, path, ne)]
         active = torch.ones(B, dtype=torch.bool, device="cuda")
 
@@ -255,25 +327,28 @@ def compaction_rows(pkg, g) -> list:
             step._commit_and_compact(kv, cfg, dev[0], dev[1], active, None, None, None,
                                      dev[2], dev[3], Q)
         # the moved rows: those the first call changes (the rows are random)
-        before = kv["k"].clone()
+        before = kv["k"].view(torch.uint8).clone()
         run()
-        dst = (kv["k"] != before).any(-1).any(0).reshape(-1).nonzero().flatten()
+        dst = (kv["k"].view(torch.uint8) != before).any(-1).any(0).reshape(-1).nonzero()
+        dst = dst.flatten()
         del before
         kernel_ms, kernels = kernel_profile(run)
         n_moved = int(dst.numel())
-        nbytes = 2 * 2 * L * n_moved * HD * 2 + sum(a.nbytes for a in (pt, ctx, path, ne))
+        row_bytes = sum(a.shape[-1] * a.element_size() for a in kv.values())
+        nbytes = 2 * L * n_moved * row_bytes + sum(a.nbytes for a in (pt, ctx, path, ne))
         lib_ms = None
         if n_moved:
-            flat = {n: kv[n].view(L, -1, HD) for n in kv}
+            flat = {n: a.view(torch.uint8).view(L, n_pages * PS, -1) for n, a in kv.items()}
             src = {n: flat[n][:, dst].clone() for n in kv}
             ms, lib_ms = paired_ms(run, lambda: [flat[n].index_copy_(1, dst, src[n])
                                                  for n in kv])
         else:
             ms, = paired_ms(run)
-        rows.append(dict(row="compaction", case=case, B=B, Q=Q, moved_rows=n_moved,
+        rows.append(dict(row="compaction", kind=kind, case=case, B=B, Q=Q, moved_rows=n_moved,
                          ms=ms, device_ms=cold_ms(run), device_warm_ms=graph_ms(run),
-                         kernel_ms=kernel_ms,
-                         kernels_per_call=kernels, bound_ms=bound(nbytes), library_ms=lib_ms))
+                         kernel_ms=kernel_ms, kernels_per_call=kernels,
+                         graph_kernels=graph_kernels(run), bound_ms=bound(nbytes),
+                         library_ms=lib_ms))
         print("row: " + json.dumps(rows[-1]), flush=True)
         del kv
         torch.cuda.empty_cache()
@@ -304,6 +379,109 @@ def permute_rows(pkg, g) -> list:
         rows.append(dict(row="kv_permute_pages", case=f"L={L} TPP=2 moved_rows={n}", ms=ms,
                          device_ms=dev, device_warm_ms=warm, bound_ms=bound(2 * L * n * HD * 2 + W * 4 + 8),
                          library_ms=lib))
+        print("row: " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def page_cases(ku, g) -> list:
+    """K6 (``ku.kv_write_pages``) at PERF.md row 10's cases: (case, call,
+    bound ms, yardstick: ``index_copy_`` of the windows' bytes)."""
+    import torch
+
+    out = []
+    for B in (1, 8):
+        W = 2 * B
+        for dtype, row in ((torch.float8_e4m3fn, HD), (torch.float32, HD // 128)):
+            n_pages = 2 * 8 * B + 1
+            if dtype == torch.float32:
+                pages = torch.randn(L, n_pages, PS, row, generator=g, device="cuda")
+                windows = torch.randn(L, W, PS, row, generator=g, device="cuda")
+            else:
+                pages, windows = (torch.randint(0, 256, (L, n, PS, row), generator=g,
+                                                device="cuda", dtype=torch.uint8).view(dtype)
+                                  for n in (n_pages, W))
+            ids = torch.randperm(n_pages - 1, generator=g, device="cuda")[:W] + 1
+            ids[-1] = ids[0]
+            ids = ids.to(torch.int32)
+            raw, wraw = pages.view(torch.uint8), windows.view(torch.uint8)
+            page_bytes = PS * row * pages.element_size()
+            case = (f"L={L} W={W} row_bytes={row * pages.element_size()} "
+                    f"{str(dtype).split('.')[-1]}")
+            out.append((case, lambda p=pages, w=windows, i=ids: ku.kv_write_pages(p, w, i),
+                        bound(2 * L * (W - 1) * page_bytes + W * 4),
+                        lambda r=raw, i=ids, w=wraw: r.index_copy_(1, i.long(), w)))
+    return out
+
+
+def page_write_rows(pkg, g) -> list:
+    """K6 at PERF.md row 10's cases (see the module's docstring), and one
+    contiguous ``copy_`` of W = 16's kept bytes (15 pages of 32 layers), the
+    card's practical rate for a copy of that size."""
+    import torch
+
+    rows = []
+    for case, run, bnd, lib_fn in page_cases(pkg["kv_update"], g):
+        ms, lib = paired_ms(run, lib_fn)
+        rows.append(dict(row="kv_write_pages", case=case, ms=ms, device_ms=cold_ms(run),
+                         device_warm_ms=graph_ms(run), bound_ms=bnd, library_ms=lib))
+        print("row: " + json.dumps(rows[-1]), flush=True)
+    n = L * 15 * PS * HD
+    src, dst = (torch.empty(n, dtype=torch.uint8, device="cuda") for _ in range(2))
+    rows.append(dict(row="copy_", case=f"{n} bytes", device_ms=cold_ms(lambda: dst.copy_(src)),
+                     bound_ms=bound(2 * n)))
+    print("row: " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def move_cases(ku, g, check: bool = False) -> list:
+    """K17 (``ku.kv_move_rows``) at PERF.md row 12's cases: (case, call,
+    bound ms, yardstick: ``index_put_`` of the gathered rows); with
+    ``check``, (case, a call on a fresh copy, the plain version's result)."""
+    import torch
+
+    out = []
+    for B, M in ((1, 12), (1, 63), (4, 63)):
+        P = 17
+        n_pages = 1 + B * P
+        pages = torch.randn(L, n_pages, PS, HD, generator=g, device="cuda").to(torch.bfloat16)
+        sp, sr, dp, dr = [], [], [], []
+        for b in range(B):
+            pt = torch.arange(1 + b * P, 1 + (b + 1) * P, device="cuda")
+            ctx = int(torch.randint(0, (P - 2) * PS, (1,), generator=g, device="cuda"))
+            path = torch.sort(torch.randperm(2 * M, generator=g, device="cuda")[:M] + 1)[0]
+            src, dst = ctx + path, ctx + 1 + torch.arange(M, device="cuda")
+            dpage = pt[dst // PS].clone()
+            dpage[-1] = 0
+            sp.append(pt[src // PS])
+            sr.append(src % PS)
+            dp.append(dpage)
+            dr.append(dst % PS)
+        idx = tuple(torch.cat(x).to(torch.int32) for x in (sp, sr, dp, dr))
+        flat = pages.view(torch.uint8).view(L, n_pages * PS, -1)
+        moved = flat[:, idx[0].long() * PS + idx[1].long()].clone()
+        N = idx[0].shape[0]
+        lidx = torch.arange(L, device="cuda")[:, None].expand(L, N)
+        didx = (idx[2].long() * PS + idx[3].long())[None].expand(L, N)
+        kept = int(torch.unique(didx[0]).numel())
+        if check:
+            want = ku.kv_move_rows_plain(pages.clone(), *idx)
+            out.append((f"L={L} N={N} B={B}",
+                        lambda p=pages, i=idx: ku.kv_move_rows(p.clone(), *i), want))
+            continue
+        out.append((f"L={L} N={N} row_bytes={HD * 2} B={B}",
+                    lambda p=pages, i=idx: ku.kv_move_rows(p, *i),
+                    bound(2 * L * kept * HD * 2 + N * 16),
+                    lambda f=flat, li=lidx, di=didx, m=moved: f.index_put_((li, di), m)))
+    return out
+
+
+def move_rows(pkg, g) -> list:
+    """K17 at PERF.md row 12's cases (see the module's docstring)."""
+    rows = []
+    for case, run, bnd, lib_fn in move_cases(pkg["kv_update"], g):
+        ms, lib = paired_ms(run, lib_fn)
+        rows.append(dict(row="kv_move_rows", case=case, ms=ms, device_ms=cold_ms(run),
+                         device_warm_ms=graph_ms(run), bound_ms=bnd, library_ms=lib))
         print("row: " + json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -417,63 +595,71 @@ def norm_rows(pkg, g) -> list:
 # K4's staging by 16-byte loads of every thread, in place of one
 # cp.async.bulk copy a row completed on the mbarrier
 LOADS16 = ((
-    """    if (warp == 0) {
-      piawg::fence_async_smem();
-      if (lane == 0) piawg::mbar_expect(bar, static_cast<uint32_t>(total * 16));
-      __syncwarp();
-      for (int k = lane; k < n; k += 32)
-        bulk_load(piawg::smem_u32(stage + static_cast<size_t>(k) * st.cb),
-                  layer + static_cast<size_t>(lst_src[k]) * row_bytes, nb, bar);
-    }
-    piawg::mbar_wait(bar, phase);
-    phase ^= 1;
+    """      if (warp == 0) {
+        piawg::fence_async_smem();
+        if (lane == 0) piawg::mbar_expect(bar, static_cast<uint32_t>(total * 16));
+        __syncwarp();
+        for (int k = lane; k < n; k += 32)
+          pia_bulk::load(piawg::smem_u32(stage + static_cast<size_t>(k) * st.cb),
+                         layer + static_cast<size_t>(lst_src[k]) * row_bytes, nb, bar);
+      }
+      piawg::mbar_wait(bar, phase);
+      phase ^= 1;
 """,
-    """    for (int e0 = tid; e0 < total; e0 += 4 * kThreads) {
-      uint4 r[4];
+    """      for (int e0 = tid; e0 < total; e0 += 4 * kThreads) {
+        uint4 r[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = e0 + j * kThreads;
-        if (e < total)
-          r[j] = reinterpret_cast<const uint4*>(
-              layer + static_cast<size_t>(lst_src[e / nv]) * row_bytes)[e % nv];
-      }
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + j * kThreads;
+          if (e < total)
+            r[j] = reinterpret_cast<const uint4*>(
+                layer + static_cast<size_t>(lst_src[e / nv]) * row_bytes)[e % nv];
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = e0 + j * kThreads;
-        if (e < total) stv[(e / nv) * cv + e % nv] = r[j];
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + j * kThreads;
+          if (e < total) const_cast<uint4*>(stv)[(e / nv) * cv + e % nv] = r[j];
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 """),)
 
 
-def k4_source(b, name: str, edits) -> tuple:
+def variant_source(b, name: str, source: str, edits) -> tuple:
     """(csrc, build) directories of a copy of the tree's csrc/ with
-    ``edits`` ((old, new), ...) applied to kv_permute.cu."""
+    ``edits`` ((old, new), ...) applied to ``source``.cu."""
     import shutil
 
     root = b.PKG_DIR.parent / "build" / "row_kernel_variants" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(b.PKG_DIR / "csrc", root / "csrc")
-    path = root / "csrc" / "kv_permute.cu"
+    path = root / "csrc" / f"{source}.cu"
     src = path.read_text()
     for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace is not once in kv_permute.cu")
+            raise RuntimeError(f"{name}: the text to replace is not once in {source}.cu")
         src = src.replace(old, new)
     path.write_text(src)
     return root / "csrc", root / "lib"
 
 
-def use_k4(b, csrc: Path, build: Path) -> None:
-    """Point the build at K4's source in ``csrc`` and build it alone."""
+def use_source(b, source: str, csrc: Path, build: Path) -> None:
+    """Point the build at ``source``.cu in ``csrc`` and build it alone."""
     b.CSRC_DIR, b.BUILD_DIR = csrc, build
-    b._LIBS.pop("kv_permute", None)
-    sources, b.SOURCES = b.SOURCES, ("kv_permute",)
+    b._LIBS.pop(source, None)
+    sources, b.SOURCES = b.SOURCES, (source,)
     try:
-        b.library("kv_permute")
+        b.library(source)
     finally:
         b.SOURCES = sources
+
+
+def k4_source(b, name: str, edits) -> tuple:
+    return variant_source(b, name, "kv_permute", edits)
+
+
+def use_k4(b, csrc: Path, build: Path) -> None:
+    use_source(b, "kv_permute", csrc, build)
 
 
 def variant_rows(pkg, g) -> list:
@@ -526,15 +712,97 @@ def variant_rows(pkg, g) -> list:
     return rows
 
 
+# K17 at 16-byte rows by the loop of 16-byte loads and stores (the route of
+# 4- and 1-byte rows), an edit of csrc/kv_rows.cu, in place of the ring of
+# bulk copies
+K17_LOOP16 = (("    return launch_move(kv_move_rows_ring, ring_smem,",
+               "    return launch_move(kv_move_rows_kernel<16>, ring_smem,"),)
+
+
+def k17_variant_rows(pkg, g) -> list:
+    """K17's route at 16-byte rows and plan (see ``--variants k17``), device
+    ms with the L2 cold at the ``kv_move_rows`` cases, each plan first held
+    against the plain version, two turns."""
+    import torch
+
+    b, ku = pkg["_build"], pkg["kv_update"]
+    routes = dict(ring=(b.CSRC_DIR, b.BUILD_DIR),
+                  loop16=variant_source(b, "k17_loop16", "kv_rows", K17_LOOP16))
+    cases = [(c, fn) for c, fn, _, _ in move_cases(ku, g)]
+    checks = move_cases(ku, g, check=True)
+    plans = [(sb, mu, st) for sb in (16 * 1024, 32 * 1024, 64 * 1024) for mu in (264, 528, 1056)
+             for st in (2, 3)]
+    kept = ku.MOVE_STAGE_BYTES, ku.MOVE_MIN_UNITS, ku.MOVE_STAGES
+    rows = []
+    for turn in range(2):
+        for route, dirs in routes.items():
+            use_source(b, "kv_rows", *dirs)
+            for sb, mu, st in plans:
+                if route == "loop16" and st != 2:
+                    continue  # the loop stages once
+                ku.MOVE_STAGE_BYTES, ku.MOVE_MIN_UNITS, ku.MOVE_STAGES = sb, mu, st
+                ku.move_plan.cache_clear()
+                ku._STATICS.clear()
+                for case, run, want in checks:
+                    if not torch.equal(run(), want):
+                        raise RuntimeError(f"k17 variant {route} {sb} {mu} {st}: {case} "
+                                           "differs from the plain version")
+                out = dict(row="k17 variant", turn=turn, route=route, stage_bytes=sb,
+                           min_units=mu, stages=st)
+                for case, fn in cases:
+                    out[case] = cold_ms(fn)
+                rows.append(out)
+                print("row: " + json.dumps(out), flush=True)
+    ku.MOVE_STAGE_BYTES, ku.MOVE_MIN_UNITS, ku.MOVE_STAGES = kept
+    ku.move_plan.cache_clear()
+    ku._STATICS.clear()
+    use_source(b, "kv_rows", *routes["ring"])
+    return rows
+
+
+def k6_variant_rows(pkg, g) -> list:
+    """K6's ring and blocks an SM (see ``--variants k6``), device ms with the
+    L2 cold at the ``kv_write_pages`` cases, two turns."""
+    b, ku = pkg["_build"], pkg["kv_update"]
+    rings = {(16384, 4): (b.CSRC_DIR, b.BUILD_DIR)}
+    for piece, stages in ((8192, 8), (16384, 3), (32768, 3)):
+        rings[(piece, stages)] = variant_source(
+            b, f"k6_p{piece}_s{stages}", "kv_page_write",
+            (("constexpr int kPiece = 16384;", f"constexpr int kPiece = {piece};"),
+             ("constexpr int kStages = 4;", f"constexpr int kStages = {stages};")))
+    cases = [(c, fn) for c, fn, _, _ in page_cases(ku, g)]
+    kept = ku.PAGE_PIECE, ku.PAGE_BLOCKS_PER_SM
+    rows = []
+    for turn in range(2):
+        for (piece, stages), dirs in rings.items():
+            use_source(b, "kv_page_write", *dirs)
+            fits = 227 * 1024 // (piece * stages + 1024)
+            for per_sm in sorted({1, 2, fits}):
+                ku.PAGE_PIECE, ku.PAGE_BLOCKS_PER_SM = piece, per_sm
+                ku._STATICS.clear()
+                out = dict(row="k6 variant", turn=turn, piece=piece, stages=stages,
+                           blocks_per_sm=per_sm)
+                for case, fn in cases:
+                    out[case] = cold_ms(fn)
+                rows.append(out)
+                print("row: " + json.dumps(out), flush=True)
+    ku.PAGE_PIECE, ku.PAGE_BLOCKS_PER_SM = kept
+    ku._STATICS.clear()
+    use_source(b, "kv_page_write", *rings[(16384, 4)])
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="root of the tree whose port is measured")
     ap.add_argument("--json", type=Path, default=None, help="also write the numbers here")
-    ap.add_argument("--variants", action="store_true",
-                    help="time K4's staging variants (this tree's port only)")
-    ap.add_argument("--rows", choices=("all", "write"), default="all",
-                    help="write: the write_kv_pages rows only")
+    ap.add_argument("--variants", nargs="?", const="k4", choices=("k4", "k6", "k17"),
+                    help="time K4's staging, K6's ring or K17's route and plan variants "
+                         "(this tree's port only)")
+    ap.add_argument("--rows", choices=("all", "write", "kv"), default="all",
+                    help="write: the write_kv_pages rows only; kv: the compaction in "
+                         "every arena kind, K6 and K17")
     args = ap.parse_args()
     import torch
 
@@ -546,9 +814,13 @@ def main() -> None:
     out = dict(root=str(args.root), card=smi_line(), build_s=time.perf_counter() - t0)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     if args.variants:
-        out["rows"] = variant_rows(pkg, g)
+        out["rows"] = dict(k4=variant_rows, k6=k6_variant_rows,
+                           k17=k17_variant_rows)[args.variants](pkg, g)
     elif args.rows == "write":
         out["rows"] = write_rows(pkg, g)
+    elif args.rows == "kv":
+        out["rows"] = (compaction_rows(pkg, g, ("bf16", "fp8", "fp8_tok"))
+                       + page_write_rows(pkg, g) + move_rows(pkg, g))
     else:
         out["rows"] = (write_rows(pkg, g) + compaction_rows(pkg, g) + permute_rows(pkg, g)
                        + norm_rows(pkg, g))
