@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--json PATH]
 
 (``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
-``--w8a8-only``, ``--int8-only`` and ``--attention-only`` run parts of it:
-partial runs that print no kernels line and no result line.)
+``--w8a8-only``, ``--int8-only``, ``--attention-only`` and ``--sampling-only``
+run parts of it: partial runs that print no kernels line and no result
+line.)
 
 Phases, one line each (any failure exits non-zero and prints no result):
 
@@ -70,6 +71,21 @@ Phases, one line each (any failure exits non-zero and prints no result):
    general entry (kv_write_rows) at every layer-0 write; par and one modes
    equal to AR; batch_generate over 4 prompts, every row equal to its solo
    stream;
+   sampling (ops/sample.py, on the same weights): 136 rows of the card's own
+   LM-head logits (a verify step at B = 8, Q = 17) whose filtered logits and
+   drawn tokens are the same bits alone, inside 17 rows and inside 136 at
+   six (temperature, top_k, top_p, min_p) settings; the verify root's fp32
+   logits row equal to the AR step's at 32 layers; sampled AR over 128
+   tokens (temperature 0.8, top-k 50, top-p 0.95) and sampled lookahead (Q =
+   17) from a fresh prefill with the tables seeded with that stream, equal
+   token for token with drafts accepted; the 16 serving requests at 8
+   layers (half sampled with their own seeds, two under a repetition
+   penalty, two scoring 64 target tokens, arriving while others decode)
+   under the pingpong, mix and timely policies, each with AR and with
+   lookahead, every stream the same in all six runs and every score equal
+   to a direct score_step call bit for bit; and the stdlib HTTP server on an
+   ephemeral local port, four concurrent streaming clients (two greedy, two
+   sampled) equal to llm.generate;
    quant modes: the same B = 1 path (512-token prefill, 32 greedy tokens,
    lookahead over 64 tokens with the strict lossless check) with the
    linears as int8, w8a8_int8, w8a8_fp8 and fp8_block at full depth, and as
@@ -2662,6 +2678,437 @@ def phase_generator(pkg, cfg, spec, params, ar_stream) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sampling: the sampler on the card, sampled lookahead against sampled AR at
+# Llama-2-7B int4, scoring, the schedulers and the HTTP server
+# ---------------------------------------------------------------------------
+
+SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.95, min_p=0.0)
+SAMPLE_SEED = 1234
+SAMPLE_TOKENS = 128
+# (temperature, top_k, top_p, min_p) of the row-invariance check
+SAMPLER_SETTINGS = ((0.8, 50, 0.95, 0.0), (1.0, 0, 1.0, 0.0), (0.7, 0, 0.9, 0.05),
+                    (1.3, 1, 1.0, 0.0), (1.0, 0, 0.5, 0.0), (0.0, 0, 1.0, 0.0))
+SCORE_TARGETS = 64
+
+
+def _samp_args(B) -> dict:
+    """The decode loops' sampling keyword arrays (SAMPLE), on the card."""
+    import torch
+
+    return dict(temperature=torch.full((B,), SAMPLE["temperature"], device="cuda"),
+                top_k=torch.full((B,), SAMPLE["top_k"], dtype=torch.int32, device="cuda"),
+                top_p=torch.full((B,), SAMPLE["top_p"], device="cuda"),
+                min_p=torch.full((B,), SAMPLE["min_p"], device="cuda"),
+                seeds=torch.full((B,), SAMPLE_SEED, dtype=torch.int32, device="cuda"))
+
+
+def verify_logits(pkg, cfg, spec, params, B=8, prompt_len=64, R=2, L=8):
+    """The LM head's fp32 logits of one verify step at Q = 1 + R*L over B
+    requests of ``prompt_len`` random prompt tokens and random drafts, as
+    [B * Q, V] rows."""
+    import numpy as np
+    import torch
+
+    step, base, dt = pkg["step"], pkg["base"], pkg["device_tables"]
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=prompt_len + 128,
+                                      max_concurrency=B)
+    kv = pkg["cache"].init_kv_cache(cfg, ecfg)
+    P = ecfg.pages_per_req
+    pt = torch.arange(1, 1 + B * P, dtype=torch.int32, device="cuda").reshape(B, P)
+    rng = np.random.default_rng(SEED + 2)
+    toks = torch.tensor(rng.integers(10, cfg.vocab_size - 10, (B, prompt_len)),
+                        dtype=torch.int32, device="cuda")
+    ctx = torch.full((B,), prompt_len, dtype=torch.int32, device="cuda")
+    kv, nxt, _ = step.prefill_step(params, kv, cfg, toks, torch.zeros_like(ctx), ctx, pt, spec)
+    branches = torch.tensor(rng.integers(10, cfg.vocab_size - 10, (B, R, L)),
+                            dtype=torch.int32, device="cuda")
+    tokens, parents, qmask, depth = dt.build_tree_inputs(nxt, branches)
+    h, kv = base.transformer_hidden(params, cfg, kv, tokens, ctx[:, None] + depth, pt, ctx,
+                                    qmask, parents > -2, spec)
+    return base.logits_from_hidden(params, cfg, h, spec).reshape(B * (1 + R * L), -1)
+
+
+def sampler_invariance(pkg, logits) -> dict:
+    """Each row's filtered logits and drawn token, bit for bit, alone,
+    inside 17 rows and inside all rows, at every setting of
+    SAMPLER_SETTINGS; draws inside the filter; temperature 0 the argmax."""
+    import torch
+
+    sm = pkg["sample"]
+    n = logits.shape[0]
+    seeds = torch.arange(n, dtype=torch.int32, device="cuda") * 7919 + 11
+    pos = torch.arange(n, dtype=torch.int32, device="cuda") + PROMPT_LEN
+    out = {}
+    for t, k, p, m in SAMPLER_SETTINGS:
+        arrs = (torch.full((n,), t, device="cuda"),
+                torch.full((n,), k, dtype=torch.int32, device="cuda"),
+                torch.full((n,), p, device="cuda"), torch.full((n,), m, device="cuda"))
+        x_all = sm.filtered_logits(logits, *arrs)
+        s_all = sm.sample_tokens_at(logits, seeds, pos, *arrs)
+        bad = []
+        for lo, width in [(r, 1) for r in range(n)] + [(r, 17) for r in range(0, n, 17)]:
+            sl = slice(lo, lo + width)
+            x = sm.filtered_logits(logits[sl], *(a[sl] for a in arrs))
+            s = sm.sample_tokens_at(logits[sl], seeds[sl], pos[sl], *(a[sl] for a in arrs))
+            if not (torch.equal(x, x_all[sl]) and torch.equal(s, s_all[sl])):
+                bad.append((lo, width))
+        if bad:
+            fail(f"sampling: rows {bad[:8]} differ from the {n}-row call at setting "
+                 f"{(t, k, p, m)}")
+        if not bool((torch.gather(x_all, 1, s_all.long()[:, None]) > -1e29).all()):
+            fail(f"sampling: a draw outside the filter at setting {(t, k, p, m)}")
+        if t <= 0 and not torch.equal(s_all, torch.argmax(logits, dim=1).to(torch.int32)):
+            fail("sampling: a temperature-0 row did not take the argmax")
+        kept = (x_all > -1e29).sum(dim=1)
+        out[f"t{t}_k{k}_p{p}_m{m}"] = dict(kept_median=int(kept.median()),
+                                          distinct_tokens=int(torch.unique(s_all).numel()))
+    return out
+
+
+def root_row_check(pkg, cfg, spec, params, prompt, R=1, L=16) -> None:
+    """The verify root's fp32 logits row at Q = 1 + R*L equals the AR
+    step's row on the same arena contents, bit for bit (B = 1)."""
+    import numpy as np
+    import torch
+
+    step, base, dt = pkg["step"], pkg["base"], pkg["device_tables"]
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=1)
+    kv = pkg["cache"].init_kv_cache(cfg, ecfg)
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    ctx = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    kv, nxt, _ = step.prefill_step(params, kv, cfg, toks, torch.zeros_like(ctx), ctx, pt, spec)
+    kv2 = {k: v.clone() for k, v in kv.items()}
+    one = torch.ones((1, 1), dtype=torch.bool, device="cuda")
+    h, _ = base.transformer_hidden(params, cfg, kv, nxt[:, None], ctx[:, None], pt, ctx,
+                                   one[:, :, None], one, spec)
+    ar_row = base.logits_from_hidden(params, cfg, h, spec)[0, 0]
+    rng = np.random.default_rng(SEED + 3)
+    branches = torch.tensor(rng.integers(10, cfg.vocab_size - 10, (1, R, L)),
+                            dtype=torch.int32, device="cuda")
+    tokens, parents, qmask, depth = dt.build_tree_inputs(nxt, branches)
+    h, _ = base.transformer_hidden(params, cfg, kv2, tokens, ctx[:, None] + depth, pt, ctx,
+                                   qmask, parents > -2, spec)
+    root = base.logits_from_hidden(params, cfg, h, spec)[0, 0]
+    if not torch.equal(root, ar_row):
+        d = (root - ar_row).abs()
+        fail(f"sampling: the verify root's logits row differs from the AR step's in "
+             f"{int((d > 0).sum())} of {d.numel()} entries (max {float(d.max()):.3g})")
+
+
+def sampled_main_path(pkg, cfg, spec, params) -> dict:
+    """Sampled AR over SAMPLE_TOKENS tokens at B = 1, then sampled lookahead
+    (Q = 17) from a fresh prefill with the tables seeded with the AR stream:
+    the streams must be equal, with drafts accepted."""
+    import numpy as np
+    import torch
+
+    step, ms_mod, dt, sm = pkg["step"], pkg["multistep"], pkg["device_tables"], pkg["sample"]
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=1)
+    tcfg = dt.DraftTableConfig(buckets=16384, ways=8, branch_length=16, retrieve_count=1)
+    TAIL = tcfg.branch_length + 2
+    prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10, PROMPT_LEN)
+    prompt_t = torch.tensor(prompt[None], dtype=torch.int32, device="cuda")
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    ctx0 = torch.tensor([PROMPT_LEN], dtype=torch.int32, device="cuda")
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    samp = _samp_args(1)
+
+    def prefill():
+        kv = pkg["cache"].init_kv_cache(cfg, ecfg)
+        kv, _, logits = step.prefill_step(params, kv, cfg, prompt_t, torch.zeros_like(ctx0),
+                                          ctx0, pt, spec)
+        first = sm.sample_tokens_at(logits, samp["seeds"], ctx0, samp["temperature"],
+                                    samp["top_k"], samp["top_p"], samp["min_p"])
+        return kv, first, logits
+
+    kv, first, logits1 = prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kv, toks, _, _, _, _ = ms_mod.multistep_decode(params, kv, cfg, first, ctx0, one, pt,
+                                                   n_steps=SAMPLE_TOKENS - 1, spec=spec,
+                                                   **samp)
+    ar = [int(first[0])] + toks[0].tolist()
+    torch.cuda.synchronize()
+    ar_s = time.perf_counter() - t0
+    del kv
+    kv, first2, _ = prefill()
+    if int(first2[0]) != ar[0]:
+        fail("sampling: the first sampled token differs between two prefills")
+    tables = dt.init_draft_tables(tcfg)
+    seq = prompt.tolist() + ar
+    dt.update_tables_seq(tables, tcfg, torch.tensor(seq, dtype=torch.int32, device="cuda"),
+                         len(seq))
+    tail_seed = torch.tensor([seq[PROMPT_LEN + 1 - TAIL: PROMPT_LEN + 1]], dtype=torch.int32,
+                             device="cuda")
+    tail = tail_seed.clone()
+    stream, steps, accs = [ar[0]], 0, []
+    last, ctx, act = first2, ctx0, one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(stream) < SAMPLE_TOKENS and steps < 4 * SAMPLE_TOKENS:
+        budget = torch.tensor([SAMPLE_TOKENS - len(stream)], dtype=torch.int32, device="cuda")
+        kv, tables, out, acc, last, ctx, act, tail, _ = ms_mod.multistep_spec_decode(
+            params, kv, tables, cfg, tcfg, last, ctx, act, tail, pt, n_steps=SPEC_CHUNK,
+            spec=spec, budget=budget, **samp)
+        out, acc = out[0].tolist(), acc[0].tolist()
+        for si in range(SPEC_CHUNK):
+            stream.extend(out[si][: acc[si]])
+            if acc[si]:
+                accs.append(acc[si])
+        steps += SPEC_CHUNK
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    n = min(len(ar), len(stream))
+    div = next((i for i in range(n) if ar[i] != stream[i]), n)
+    res = dict(ar_tok_s=(SAMPLE_TOKENS - 1) / ar_s, spec_tok_s=(len(stream) - 1) / spec_s,
+               accepted_per_step=(len(stream) - 1) / max(len(accs), 1),
+               verify_steps=len(accs), steps_with_a_draft_accepted=sum(a > 1 for a in accs),
+               max_accepted=max(accs, default=0), tokens=len(stream), first_divergence=div,
+               first_token_is_argmax=int(torch.argmax(logits1[0])) == ar[0])
+    if div != SAMPLE_TOKENS or len(stream) != SAMPLE_TOKENS:
+        fail(f"sampling: sampled lookahead differs from sampled AR at token {div} "
+             f"(lookahead {len(stream)} tokens)")
+    if res["steps_with_a_draft_accepted"] == 0:
+        fail("sampling: no verify step accepted a draft token: the check is empty")
+    # a step's wall, greedy against sampled, in turns (g, s, s, g), each
+    # from a fresh prefill: 32 AR steps, and 16 lookahead steps on the same
+    # frozen tables (drafts land only on the sampled stream)
+    def step_ms(kind, sampled):
+        kv, f, _ = prefill()
+        kw = samp if sampled else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "ar":
+            ms_mod.multistep_decode(params, kv, cfg, f, ctx0, one, pt, n_steps=32, spec=spec,
+                                    **kw)
+            n = 32
+        else:
+            ms_mod.multistep_spec_decode(params, kv, tables, cfg, tcfg, f, ctx0, one,
+                                         tail_seed.clone(), pt, n_steps=16, spec=spec,
+                                         update_tables=False, **kw)
+            n = 16
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    for kind in ("ar", "spec"):
+        turns = [step_ms(kind, s) for s in (False, True, True, False)]
+        res[f"{kind}_step_ms_greedy"] = [turns[0], turns[3]]
+        res[f"{kind}_step_ms_sampled"] = [turns[1], turns[2]]
+    # the sampler's wall a call (host clock over calls ending in a sync)
+    rows17 = verify_logits(pkg, cfg, spec, params, B=1, prompt_len=PROMPT_LEN)
+    for n_rows, lg in ((1, logits1), (17, rows17)):
+        a = _samp_args(n_rows)
+        pos = torch.arange(n_rows, dtype=torch.int32, device="cuda") + PROMPT_LEN
+        res[f"sampler_ms_{n_rows}_rows"] = _host_ms(lambda: sm.sample_tokens_at(
+            lg, a["seeds"], pos, a["temperature"], a["top_k"], a["top_p"], a["min_p"]),
+            reps=20)
+    return res
+
+
+def sampling_requests(pkg, vocab: int) -> list:
+    """serving_prompts' 16 requests as (prompt, SamplingParams or None,
+    target_ids or None): the odd ones sampled with their own seeds, 0 and 3
+    under a repetition penalty of 1.2, 4 and 6 scoring 64 target tokens;
+    24-48 new tokens, so requests finish apart and later ones are admitted
+    beside decoding rows (which the mix policy carries in its prefill
+    batches)."""
+    import numpy as np
+
+    SP = pkg["request"].SamplingParams
+    rng = np.random.default_rng(SEED + 4)
+    out = []
+    for i, p in enumerate(serving_prompts(vocab)):
+        if i in (4, 6):
+            out.append((p, None, rng.integers(10, vocab - 10, SCORE_TARGETS).tolist()))
+            continue
+        kw = dict(max_new_tokens=SERVE_NEW_TOKENS - 8 * (i % 4))
+        if i % 2:
+            kw.update(temperature=SAMPLE["temperature"], top_k=SAMPLE["top_k"],
+                      top_p=SAMPLE["top_p"], seed=1000 + i)
+        if i in (0, 3):
+            kw.update(repetition_penalty=1.2)
+        out.append((p, SP(**kw), None))
+    return out
+
+
+def sampling_llm(pkg, cfg, params, policy: str, lookahead: bool):
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=8, prefill_chunk=512,
+              quant="int4", eos_token_id=-2, prefix_cache=True, decode_burst=8,
+              decode_burst_idle=32, schedule_policy=policy)
+    if lookahead:
+        kw.update(use_lookahead=True, decoding_length=16, branch_length=16,
+                  use_spec_min_batch_size=8)
+    return pkg["llm"].LLM(cfg=cfg, params=params, ecfg=pkg["config"].EngineConfig(**kw))
+
+
+def direct_scores(pkg, cfg, params, reqs) -> list:
+    """Each scoring request's target logprobs from one score_step call on a
+    fresh arena (its prompt + targets in one 512-token chunk)."""
+    import numpy as np
+    import torch
+
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=1)
+    spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = []
+    for p, sp, tg in reqs:
+        if sp is not None:
+            continue
+        full = p + tg
+        buf = np.zeros((1, 512), np.int32)
+        buf[0, : len(full)] = full
+        _, lp = pkg["step"].score_step(
+            params, pkg["cache"].init_kv_cache(cfg, ecfg), cfg,
+            torch.tensor(buf, device="cuda"), zero,
+            torch.tensor([len(full)], dtype=torch.int32, device="cuda"), pt, spec, zero)
+        lp = lp[0].cpu().tolist()
+        out.append([lp[len(p) - 1 + i] for i in range(len(tg))])
+    return out
+
+
+def sampled_serving(pkg, cfg, params) -> dict:
+    """The 16 requests under pingpong, mix and timely, each with AR and
+    with lookahead: every generated stream the same in all six runs, every
+    score bit-equal to a direct score_step call."""
+    import torch
+
+    reqs = sampling_requests(pkg, cfg.vocab_size)
+    runs, streams, scores = [], [], []
+    for policy in ("pingpong", "mix", "timely"):
+        for lookahead in (False, True):
+            torch.cuda.synchronize()
+            llm = sampling_llm(pkg, cfg, params, policy, lookahead)
+            t0 = time.perf_counter()
+            # eight at once, then one more after each scheduler step: later
+            # requests arrive while earlier ones decode
+            handles = [llm.add_request(p, sp, target_ids=tg) for p, sp, tg in reqs[:8]]
+            while any(r.state != "finished" for r in handles) or len(handles) < len(reqs):
+                llm.step()
+                if len(handles) < len(reqs):
+                    p, sp, tg = reqs[len(handles)]
+                    handles.append(llm.add_request(p, sp, target_ids=tg))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = llm.metrics
+            pairs = list(zip(handles, reqs))
+            gen = [r.output_ids for r, (_, sp, _) in pairs if sp is not None]
+            sc = [(r.finish_reason, r.target_logprobs) for r, (_, sp, _) in pairs if sp is None]
+            what = f"sampling serving {policy} lookahead={lookahead}"
+            if any(len(r.output_ids) != sp.max_new_tokens for r, (_, sp, _) in pairs
+                   if sp is not None):
+                fail(f"{what}: a request stopped early")
+            if any(f != "score" or len(lp) != SCORE_TARGETS for f, lp in sc):
+                fail(f"{what}: a scoring request finished as {[f for f, _ in sc]}")
+            run = dict(policy=policy, lookahead=lookahead, wall_s=wall,
+                       tok_s=m.generated_tokens / wall, p50_ttft_s=m.p50_ttft,
+                       spec_steps=m.spec_steps, spec_accepted=m.spec_accepted,
+                       decode_steps=m.decode_steps, mixed_rows=m.mixed_rows,
+                       prefix_hit_tokens=m.prefix_hit_tokens)
+            print("phase sampling serving run: " + json.dumps(run))
+            if lookahead and m.spec_steps <= 0:
+                fail(f"{what}: no spec step")
+            if (policy == "mix") != (m.mixed_rows > 0):
+                fail(f"{what}: {m.mixed_rows} decode rows rode in prefill batches")
+            runs.append(run)
+            streams.append(gen)
+            scores.append([lp for _, lp in sc])
+            del llm, handles, pairs
+    for k in range(1, len(streams)):
+        if streams[k] != streams[0]:
+            i = next(j for j, (a, b) in enumerate(zip(streams[0], streams[k])) if a != b)
+            fail(f"sampling serving: {runs[k]['policy']} lookahead={runs[k]['lookahead']} "
+                 f"differs from pingpong AR on generated request {i}")
+    if any(s != scores[0] for s in scores):
+        fail("sampling serving: the scores differ between runs")
+    direct = direct_scores(pkg, cfg, params, reqs)
+    if direct != scores[0]:
+        fail("sampling serving: the engine's scores differ from direct score_step calls")
+    sampled = sum(1 for _, sp, _ in reqs if sp is not None and sp.temperature > 0)
+    return dict(runs=runs, streams=streams[0], requests=len(reqs), sampled=sampled,
+                scored=len(direct), score_sums=[float(sum(s)) for s in direct])
+
+
+def server_check(pkg, cfg, params, streams) -> dict:
+    """StdlibServer on an ephemeral port over an LLM: four concurrent
+    streaming clients, two greedy and two sampled, get the tokens of the
+    same requests in the serving runs and of llm.generate."""
+    import threading
+
+    reqs = sampling_requests(pkg, cfg.vocab_size)
+    gen_idx = [i for i, (_, sp, _) in enumerate(reqs) if sp is not None]
+    pick = [2, 8, 1, 5]  # greedy, greedy, sampled, sampled
+    llm = sampling_llm(pkg, cfg, params, "pingpong", False)
+    srv = pkg["server"].StdlibServer(llm, host="127.0.0.1", port=0)
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    got, errors = {}, {}
+
+    def go(i):
+        p, sp, _ = reqs[i]
+        body = dict(temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p,
+                    min_p=sp.min_p, seed=sp.seed, repetition_penalty=sp.repetition_penalty)
+        try:
+            got[i] = [c["token"] for c in pkg["client"].stream_generate(
+                url, input_ids=p, max_new_tokens=sp.max_new_tokens, timeout=120, **body)]
+        except Exception as e:  # noqa: BLE001 - reported below, fails the run
+            errors[i] = repr(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=go, args=(i,)) for i in pick]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    srv.stop()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"sampling server: client errors {errors}")
+    direct = {i: llm.generate([reqs[i][0]], reqs[i][1])[0].output_ids for i in pick}
+    for i in pick:
+        if got.get(i) != direct[i] or got[i] != streams[gen_idx.index(i)]:
+            fail(f"sampling server: request {i}'s stream differs from llm.generate's or the "
+                 "serving runs'")
+    return dict(clients=len(pick), wall_s=wall, tokens=sum(len(v) for v in got.values()))
+
+
+def phase_sampling(pkg, cfg, spec, params) -> dict:
+    """The sampler's row invariance on the card's own logits, the verify
+    root row against the AR row, sampled lookahead == sampled AR at full
+    width and depth, the 16 serving requests (sampled, penalized, scored)
+    under every policy with and without lookahead, and the HTTP server;
+    the kernels' launches counted from 0."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = Launches(pkg)
+    launches.reset()
+    logits = verify_logits(pkg, cfg, spec, params)
+    inv = sampler_invariance(pkg, logits)
+    print("phase sampling rows: " + json.dumps(dict(rows=int(logits.shape[0]), settings=inv)))
+    del logits
+    prompt = np.random.default_rng(SEED).integers(10, cfg.vocab_size - 10, PROMPT_LEN)
+    root_row_check(pkg, cfg, spec, params, prompt.tolist())
+    print(f"phase sampling root row: the verify root's logits row equals the AR step's "
+          f"({cfg.num_hidden_layers} layers, Q = 17)")
+    main = sampled_main_path(pkg, cfg, spec, params)
+    print("phase sampling main path: " + json.dumps(main))
+    cfg8, params8 = first_layers(cfg, params, SERVE_LAYERS)
+    serve = sampled_serving(pkg, cfg8, params8)
+    srv = server_check(pkg, cfg8, params8, serve.pop("streams"))
+    print("phase sampling server: " + json.dumps(srv))
+    res = dict(rows=inv, main_path=main, serving=serve, server=srv, launches=launches.read(),
+               wall_s=time.perf_counter() - t_phase)
+    print(f"phase sampling: wall {res['wall_s']:.1f} s, " + json.dumps(
+        dict(requests=serve["requests"], sampled=serve["sampled"], scored=serve["scored"],
+             score_sums=serve["score_sums"])))
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the quant modes: every 8-bit linear format on the main path and in serving
 # ---------------------------------------------------------------------------
 
@@ -4251,7 +4698,8 @@ def load_port():
                  rmsnorm="ops.rmsnorm", cache="engine.cache", step="engine.step",
                  multistep="engine.multistep", llm="engine.llm",
                  request="engine.request", device_tables="lookahead.device_tables",
-                 base="models.base")
+                 base="models.base", sample="ops.sample", server="service.server",
+                 client="service.client")
     return {k: importlib.import_module(base + v) for k, v in names.items()}
 
 
@@ -4285,6 +4733,9 @@ def main() -> None:
                          "and no result line)")
     ap.add_argument("--linear-only", action="store_true",
                     help="run only the linear-attention hybrid phases (a partial run: "
+                         "prints no kernels line and no result line)")
+    ap.add_argument("--sampling-only", action="store_true",
+                    help="run only the sampling phase at Llama-2-7B int4 (a partial run: "
                          "prints no kernels line and no result line)")
     args = ap.parse_args()
     import torch
@@ -4387,6 +4838,17 @@ def main() -> None:
                                                  main_path=main_res, wall_s=wall_s),
                                             indent=1))
         return
+    if args.sampling_only:
+        params = pkg["base"].init_params_quantized(
+            cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
+        samp_res = phase_sampling(pkg, cfg, spec, params)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (sampling only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, sampling=samp_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     if args.generator_only:
         g = torch.Generator(device="cuda").manual_seed(SEED)
         rows = k4_rows(pkg, g, cfg) + row_kernel_rows(pkg, g, cfg)
@@ -4415,6 +4877,7 @@ def main() -> None:
     serve_res = phase_serving(pkg, cfg, params)
     rows += serve_res["kernels"]
     gen_res = phase_generator(pkg, cfg, spec, params, main_res["ar_stream"])
+    samp_res = phase_sampling(pkg, cfg, spec, params)
     del params
     quant_res = phase_quant_modes(pkg, cfg)
     rows += quant_res["kernels"]
@@ -4433,7 +4896,7 @@ def main() -> None:
                     serving_compaction_check=serve_res["check_launches"],
                     generator=gen_res["launches"],
                     generator_compaction_check=gen_res["check_launches"],
-                    quant_modes=quant_res["launches"], moe=moe_res["launches"],
+                    sampling=samp_res["launches"], quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     checks = ("serving_compaction_check", "generator_compaction_check")
@@ -4449,8 +4912,8 @@ def main() -> None:
         r["launches"] = launches[key]
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving or its "
-                 "compaction check, in the generator phase or its compaction check, in the quant "
-                 "modes, in the MoE phases, in the MLA phases or in the "
+                 "compaction check, in the generator phase or its compaction check, in the "
+                 "sampling phase, in the quant modes, in the MoE phases, in the MLA phases or in the "
                  "linear-attention phases (launches by phase: "
                  f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
@@ -4461,7 +4924,7 @@ def main() -> None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
-                                             generator=gen_res,
+                                             generator=gen_res, sampling=samp_res,
                                              quant_modes=quant_res, moe=moe_res,
                                              mla=mla_res, linear=lin_res,
                                              launches=by_phase,

@@ -189,14 +189,11 @@ DEFAULT_DECODE_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 # Fields whose features are not ported yet: a non-default value raises,
 # naming the ROADMAP item that ports it.
 _NOT_PORTED = {
-    "schedule_policy": ("pingpong", "the mix/timely schedulers (ROADMAP A.4)"),
     "context_parallel": (False, "context parallelism (ROADMAP A.10)"),
     "mesh_shape": (None, "device meshes (ROADMAP A.10)"),
     "mesh_axes": (("data", "model"), "device meshes (ROADMAP A.10)"),
-    "temperature": (0.0, "sampling (ROADMAP A.3)"),
-    "top_k": (0, "sampling (ROADMAP A.3)"),
-    "top_p": (1.0, "sampling (ROADMAP A.3)"),
 }
+SCHEDULE_POLICIES = ("pingpong", "mix", "timely")
 KV_QUANT_MODES = ("none", "fp8", "fp8_tok")
 # the modes layers.linear.QuantSpec.from_mode takes
 QUANT_MODES = ("none", "int8", "int4", "w8a8_int8", "w8a8_int8_static",
@@ -224,6 +221,8 @@ class EngineConfig:
     # admission can happen during the burst
     decode_burst: int = 8
     decode_burst_idle: int = 32
+    # pingpong: a prefill phase, then a decode phase; timely: decode first;
+    # mix: width-1 decode rows ride in the prefill batches
     schedule_policy: str = "pingpong"
     # admit queued requests only once this many slots are free
     admit_min_free: int = 1
@@ -256,7 +255,8 @@ class EngineConfig:
     mesh_axes: Tuple[str, ...] = ("data", "model")
     context_parallel: bool = False
 
-    # --- sampling defaults ---
+    # --- sampling defaults (inert, as in the JAX package: requests carry
+    # their own SamplingParams) ---
     temperature: float = 0.0  # 0 -> greedy
     top_k: int = 0
     top_p: float = 1.0
@@ -276,6 +276,9 @@ class EngineConfig:
             raise ValueError(f"kv_quant {self.kv_quant!r} not in {KV_QUANT_MODES}")
         if self.quant not in QUANT_MODES:
             raise ValueError(f"quant {self.quant!r} not in {QUANT_MODES}")
+        if self.schedule_policy not in SCHEDULE_POLICIES:
+            raise ValueError(f"schedule_policy {self.schedule_policy!r} not in "
+                             f"{SCHEDULE_POLICIES}")
         if self.num_pages == 0:
             # +1: page 0 is the reserved null page (padding page-table entries)
             self.num_pages = self.max_concurrency * self.pages_per_req + 1

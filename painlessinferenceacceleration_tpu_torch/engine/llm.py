@@ -1,13 +1,23 @@
 """LLM facade: the continuous-batching serving engine.
 
-Port of ``painlessinferenceacceleration_tpu/engine/llm.py`` (``LLM``) for the
-pingpong scheduler and greedy requests:
+Port of ``painlessinferenceacceleration_tpu/engine/llm.py`` (``LLM``):
 
-- one scheduler (inline in ``generate``, or a thread after ``launch``)
-  alternates a prefill phase (admission with the prefix cache, chunked
-  prefill of several requests at once) and a decode phase (AR bursts, or
-  lookahead bursts while the batch is at most ``use_spec_min_batch_size``,
-  with the spec gate and cooldown);
+- one scheduler (inline in ``generate``, or a thread after ``launch``) runs
+  a scoring phase (requests with ``target_ids``: one forward over prompt +
+  targets in ``prefill_chunk`` slices, per-target logprobs, no decode), then
+  a prefill phase (admission with the prefix cache, chunked prefill of
+  several requests at once) and a decode phase (AR bursts, or lookahead
+  bursts while the batch is at most ``use_spec_min_batch_size``, with the
+  spec gate and cooldown) in the order ``schedule_policy`` sets: pingpong
+  (prefill, then decode), timely (decode first) or mix (width-1 decode rows
+  ride in the prefill batches);
+- greedy and sampled requests (temperature, top-k, top-p, min-p, a seed a
+  request): the token at stream position p draws from the noise of (seed,
+  p) on every route (the prefill's first token, mix rows, AR bursts and the
+  lookahead verify), so a sampled stream is the same under every policy,
+  with lookahead or without; the repetition penalty on AR bursts, over a
+  seen mask of the prompt and outputs (such a request keeps the batch off
+  lookahead and out of mix batches);
 - paged admission, page growth, parking and preemption on the host page
   allocator, LRU eviction of prefix-cache entries under pressure;
 - pipelined AR bursts: burst N+1 is dispatched from burst N's device
@@ -28,10 +38,11 @@ pingpong scheduler and greedy requests:
   outputs through prefill would leave other bits in the states than the
   unpreempted stream's.
 
-Not ported yet, each raising when asked: the scoring phase (``target_ids``),
-the mix/timely schedulers, sampling and repetition penalty, multimodal
-embeddings, GLM positions, loading from ``model_path``, text without a
-tokenizer, and ``async_stream_generate``.
+Not ported yet (ROADMAP A.5): multimodal embeddings and GLM positions (no
+parameter takes them), loading from ``model_path`` and text without a
+tokenizer (both raise). On a linear-attention hybrid, mix batches carry
+no decode rows (a row's chunk-form bits differ from its decode step's) and
+a scoring request borrows a free slot's state (zeroed first).
 
 Host arrays are numpy mirrors of the per-slot state, as in the JAX engine;
 they go to the card through pinned buffers (``non_blocking``), so that an
@@ -67,13 +78,14 @@ from painlessinferenceacceleration_tpu_torch.engine.request import (
     Request,
     SamplingParams,
 )
-from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
+from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step, score_step
 from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     check_int4_params,
     check_int8_params,
 )
+from painlessinferenceacceleration_tpu_torch.ops.sample import sample_tokens_at
 from painlessinferenceacceleration_tpu_torch.ops.w8a8 import check_w8a8_params
 from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
     DraftTableConfig,
@@ -95,7 +107,7 @@ def _first_tensor(tree):
 
 
 class LLM:
-    """Serving engine over one model instance (greedy decoding)."""
+    """Serving engine over one model instance."""
 
     def __init__(
         self,
@@ -197,21 +209,14 @@ class LLM:
         stream: bool = False,
         target_ids: Optional[Sequence[int]] = None,
     ) -> Request:
-        sp = sampling or SamplingParams()
-        if sp.temperature > 0 or sp.repetition_penalty != 1.0:
-            raise NotImplementedError(
-                "sampling and repetition penalty come with the sampling slice "
-                "(ROADMAP A.3)")
-        if target_ids:
-            raise NotImplementedError("PPL scoring (target_ids) is not ported yet "
-                                      "(ROADMAP A.4)")
-        req = Request(next(self._rid), list(input_ids), sp, stream)
+        req = Request(next(self._rid), list(input_ids), sampling, stream,
+                      list(target_ids) if target_ids else None)
         req.arrival_t = time.perf_counter()
         # an oversized prompt would overflow the per-request page table
         limit = self.ecfg.max_seq_len - 1
-        if req.prompt_len > limit:
-            req.finish(f"error: prompt length {req.prompt_len} exceeds "
-                       f"max_seq_len-1 ({limit})")
+        total = req.prompt_len + len(req.target_ids or ())
+        if total > limit:
+            req.finish(f"error: prompt length {total} exceeds max_seq_len-1 ({limit})")
             return req
         with self._lock:
             self._queue.append(req)
@@ -252,9 +257,25 @@ class LLM:
                 return
             yield t
 
-    def async_stream_generate(self, prompt, sampling=None):
-        raise NotImplementedError("async_stream_generate comes with the server "
-                                  "(ROADMAP A.4)")
+    async def async_stream_generate(self, prompt, sampling: Optional[SamplingParams] = None):
+        """Async token stream of one request; needs the background loop
+        (``launch``)."""
+        import asyncio
+        import queue
+
+        if not self._running:
+            raise RuntimeError("call launch() before async streaming")
+        ids = self.encode(prompt) if isinstance(prompt, str) else prompt
+        req = self.add_request(ids, sampling, stream=True)
+        while True:
+            try:
+                t = req.stream_queue.get_nowait()
+            except queue.Empty:
+                await asyncio.sleep(0.001)
+                continue
+            if t is None:
+                return
+            yield t
 
     def launch(self) -> None:
         """Start the background scheduler thread."""
@@ -290,11 +311,91 @@ class LLM:
                 time.sleep(0.0005)
 
     def step(self) -> bool:
-        """One pingpong iteration: a prefill phase, then a decode phase.
-        Returns True if any work was done."""
-        worked = self._prefill_phase()
-        worked = self._decode_phase() or worked
+        """One scheduler iteration: the scoring phase, then prefill and
+        decode in the order of ``schedule_policy``. Returns True if any work
+        was done."""
+        pol = self.ecfg.schedule_policy
+        worked = self._score_phase()
+        if pol == "timely":  # decode first: inter-token latency over TTFT
+            worked = self._decode_phase() or worked
+            worked = self._prefill_phase() or worked
+        elif pol == "mix":  # decode rows ride in the prefill batches
+            mixed = self._prefill_phase(mix=True)
+            worked = mixed or worked
+            # no prefill work, or rows that mix does not carry: decode bursts
+            if not mixed or any(r is not None and r.state == "decode" and not self._mixable(r)
+                                for r in self._slots):
+                worked = self._decode_phase() or worked
+        else:
+            worked = self._prefill_phase() or worked
+            worked = self._decode_phase() or worked
         return worked
+
+    def _mixable(self, req: Request) -> bool:
+        """A decode row that a mix prefill batch may carry: not under a
+        repetition penalty (its seen mask lives on the burst path), and not
+        a hybrid's (the chunk form's bits are not its decode step's)."""
+        return req.sampling.repetition_penalty == 1.0 and not self.cfg.linear_attention
+
+    def _score_phase(self) -> bool:
+        """Score the queued requests with ``target_ids``: one forward over
+        prompt + targets in ``prefill_chunk`` slices, the logprob of each
+        target, no decode. A request that can never fit the arena finishes
+        with an error; one that cannot fit now waits in the queue."""
+        with self._lock:
+            cand = [r for r in self._queue if r.target_ids]
+            for r in cand:
+                self._queue.remove(r)
+        if not cand:
+            return False
+        self._drain_pending()  # scoring takes pages from the shared pool
+        C = self.ecfg.prefill_chunk
+        for req in cand:
+            full = req.input_ids + req.target_ids
+            need = self.allocator.pages_for_tokens(len(full))
+            if need > self.ecfg.num_pages - 1:  # page 0 is the null page
+                req.finish(f"error: scoring needs {need} pages, arena has "
+                           f"{self.ecfg.num_pages - 1}")
+                continue
+            # a hybrid's states live in the slots: borrow a free one, zeroed
+            slot = next((i for i, r in enumerate(self._slots) if r is None), None)
+            if self.cfg.linear_attention and slot is None:
+                pages = None
+            else:
+                self._reserve(need)
+                pages = self.allocator.allocate(need)
+            if pages is None:
+                with self._lock:
+                    self._queue.append(req)
+                continue
+            sid = None
+            if self.cfg.linear_attention:
+                reset_linear_states(self.kv, [slot])
+                sid = self._dev(np.array([slot], np.int32))
+            pt = np.zeros((1, self.ecfg.pages_per_req), np.int32)
+            pt[0, : len(pages)] = pages
+            pt_t = self._dev(pt)
+            # chunked scoring: each slice scores its last token against the
+            # next slice's first
+            tlps = []
+            for off in range(0, len(full), C):
+                chunk = full[off: off + C]
+                buf = np.zeros((1, C), np.int32)
+                buf[0, : len(chunk)] = chunk
+                boundary = full[off + len(chunk)] if off + len(chunk) < len(full) else 0
+                self.kv, tlp = score_step(
+                    self.params, self.kv, self.cfg, self._dev(buf),
+                    self._dev(np.array([off], np.int32)),
+                    self._dev(np.array([len(chunk)], np.int32)), pt_t, self.quant,
+                    self._dev(np.array([boundary], np.int32)), slot_ids=sid)
+                tlps.append(tlp[0, : len(chunk)].cpu().numpy())
+            tlp = np.concatenate(tlps)
+            p0 = len(req.input_ids) - 1
+            req.target_logprobs = [float(tlp[p0 + i]) for i in range(len(req.target_ids))]
+            self.allocator.free(pages)
+            self.metrics.finished += 1
+            req.finish("score")
+        return True
 
     # ---- prefill ----
 
@@ -303,6 +404,9 @@ class LLM:
             if not self._queue:
                 return None
             req = self._queue.popleft()
+            if req.target_ids:  # queued after this step's scoring phase: the next one's
+                self._queue.appendleft(req)
+                return None
         slot = next((i for i, r in enumerate(self._slots) if r is None), None)
         source = req.prefill_source
         shared: List[int] = []
@@ -360,9 +464,10 @@ class LLM:
             self._reserve(need)
         return self.allocator.ensure_capacity(pages, n_tokens)
 
-    def _prefill_phase(self) -> bool:
+    def _prefill_phase(self, mix: bool = False) -> bool:
         # only drain the pipelined burst when there is prefill work: a full
         # batch cannot admit, and draining every iteration would stop chaining
+        # (under mix too: with no prefill work the decode phase runs instead)
         with self._lock:
             queued = len(self._queue)
         has_mid = any(r is not None and r.state == "prefill" for r in self._slots)
@@ -380,6 +485,18 @@ class LLM:
             cand = [r for r in self._slots if r is not None and r.state == "prefill"]
             if not cand:
                 return did
+            if mix:  # width-1 decode rows share the forward
+                for r in list(self._slots):
+                    if r is None or r.state != "decode" or not self._mixable(r):
+                        continue
+                    need = int(self._ctx_np[r.slot]) + 2
+                    if need > self.ecfg.max_seq_len:
+                        self._finish(r, "length")
+                        continue
+                    if not self._ensure_capacity(r.pages, need):
+                        continue
+                    self._page_np[r.slot, : len(r.pages)] = r.pages
+                    cand.append(r)
             cand = cand[: self._bucket(len(cand))]
             t0 = time.perf_counter()
             B = self._bucket(len(cand))
@@ -388,19 +505,45 @@ class LLM:
             lens = np.zeros((B,), np.int32)
             idx = np.zeros((B,), np.int32)  # padding rows borrow slot 0's table
             for k, req in enumerate(cand):
+                if req.state == "decode":
+                    buf[k, 0] = self._last_np[req.slot]
+                    starts[k] = self._ctx_np[req.slot]
+                    lens[k] = 1
+                    idx[k] = req.slot
+                    continue
                 chunk = req.prefill_source[req.done: req.done + C]
                 buf[k, : len(chunk)] = chunk
                 starts[k] = req.done
                 lens[k] = len(chunk)
                 idx[k] = req.slot
-            self.kv, nxt, _ = prefill_step(
+            self.kv, nxt, logits = prefill_step(
                 self.params, self.kv, self.cfg, self._dev(buf), self._dev(starts),
                 self._dev(lens), self._dev(self._page_np[idx]), self.quant,
                 slot_ids=self._dev(idx),
             )
+            if any(r.sampling.temperature > 0 for r in cand):
+                # a prefill row's first token sits at stream position
+                # len(prefill_source), a mix row's next at ctx + 1: the
+                # positions the decode loops draw them at
+                tarr, karr, parr, marr, sarr = self._pack_sampling(cand, B)
+                posn = np.zeros((B,), np.int32)
+                for k, r in enumerate(cand):
+                    posn[k] = (starts[k] + 1 if r.state == "decode"
+                               else len(r.prefill_source))
+                nxt = sample_tokens_at(logits, self._dev(sarr), self._dev(posn),
+                                       self._dev(tarr), self._dev(karr), self._dev(parr),
+                                       self._dev(marr))
             nxt_np = nxt.cpu().numpy()
             did = True
             for k, req in enumerate(cand):
+                if req.state == "decode":  # a mix row: one AR token
+                    tok = int(nxt_np[k])
+                    self._commit_tokens(req, [tok], tok, int(starts[k]) + 1)
+                    if self.tables is not None and req.state != "finished":
+                        self._roll_tail(req.slot, [tok])
+                    self.metrics.decode_steps += 1
+                    self.metrics.mixed_rows += 1
+                    continue
                 req.done += int(lens[k])
                 if req.done >= len(req.prefill_source):
                     self._finish_prefill(req, int(nxt_np[k]))
@@ -525,6 +668,30 @@ class LLM:
         self.metrics.decode_time += dt
         self.metrics.drain_time += dt
 
+    def _roll_tail(self, slot: int, toks: List[int]) -> List[int]:
+        """Append ``toks`` to the slot's recent-token window (the draft
+        retrieval key); returns the valid window before them."""
+        TAIL = self._tails.shape[1]
+        prev = [t for t in self._tails[slot] if t >= 0]
+        tail = (prev + toks)[-TAIL:]
+        self._tails[slot] = -1
+        self._tails[slot, -len(tail):] = tail
+        return prev
+
+    def _pack_sampling(self, reqs, B: int):
+        """Per-row sampling arrays (temperature, top_k, top_p, min_p, seed)
+        for the prefill's first tokens, mix rows and decode bursts alike."""
+        tarr = np.zeros((B,), np.float32)
+        karr = np.zeros((B,), np.int32)
+        parr = np.ones((B,), np.float32)
+        marr = np.zeros((B,), np.float32)
+        sarr = np.zeros((B,), np.int32)
+        for k, r in enumerate(reqs):
+            sp = r.sampling
+            tarr[k], karr[k], parr[k] = sp.temperature, sp.top_k, sp.top_p
+            marr[k], sarr[k] = sp.min_p, sp.seed
+        return tarr, karr, parr, marr, sarr
+
     def _feed_tables_batch(self, feeds) -> None:
         """AR bursts feed the draft tables too: one streamed update over
         every row of the drained burst."""
@@ -536,16 +703,13 @@ class LLM:
         lo = np.zeros((B,), np.int32)
         hi = np.zeros((B,), np.int32)
         for k, (i, emitted) in enumerate(feeds):
-            prev = [t for t in self._tails[i] if t >= 0]
+            prev = self._roll_tail(i, emitted)
             seq = prev + emitted
             n = min(len(seq), W)
             bufs[k, :n] = seq[:W]
             n_valid[k] = n
             lo[k] = len(prev)
             hi[k] = n
-            tail = seq[-TAIL:]
-            self._tails[i] = -1
-            self._tails[i, -len(tail):] = tail
         update_tables_batch(self.tables, self.tcfg, self._dev(bufs), n_valid, lo, hi)
 
     def _try_chain(self) -> bool:
@@ -581,6 +745,7 @@ class LLM:
             subset_ok
             and 2 * len(rows) >= len(prev_rows)
             and (self.tables is None or len(rows) > self.ecfg.use_spec_min_batch_size)
+            and p["chain_ok"]
             # conservative: the pending burst advances <= Kp, the new one <= K
             and all(int(self._ctx_np[i]) + Kp + K + 2 <= msl for i in rows)
         )
@@ -608,7 +773,7 @@ class LLM:
         self.kv, toks, last2, ctx2, act2, bleft2 = multistep_decode(
             self.params, self.kv, self.cfg, p["last"], p["ctx"], act_in, pts,
             n_steps=K, eos=p["eos"], spec=self.quant,
-            budget=p["bleft"], slot_ids=p["sid"],
+            budget=p["bleft"], slot_ids=p["sid"], **p["samp"],
         )
         newp = dict(p, K=K, toks=toks, last=last2, ctx=ctx2, act=act2, pts=pts,
                     bleft=bleft2)
@@ -634,6 +799,9 @@ class LLM:
             # chunk-level gate: after a burst whose drafts ran dry, decode
             # stays on AR bursts for spec_cooldown_bursts before retrying
             and self._spec_cooldown == 0
+            # the penalty depends on the accepted history inside a step:
+            # such rows decode by AR bursts
+            and all(self._slots[i].sampling.repetition_penalty == 1.0 for i in rows)
         )
         if self._spec_cooldown and self.tables is not None:
             self._spec_cooldown -= 1
@@ -697,6 +865,13 @@ class LLM:
         eos = self._dev(eos_np)
         budget = self._dev(rem_np)
         sid = self._dev(idx)  # padding rows borrow slot 0 (inactive: no state)
+        # per-row sampling arrays on both routes (counter-mode draws make the
+        # sampled spec stream the AR stream)
+        samp = {}
+        if any(self._slots[i].sampling.temperature > 0 for i in rows):
+            arrs = self._pack_sampling([self._slots[i] for i in rows], B)
+            samp = dict(zip(("temperature", "top_k", "top_p", "min_p", "seeds"),
+                            map(self._dev, arrs)))
 
         if use_spec:
             tails = self._dev(self._tails[idx])
@@ -704,7 +879,7 @@ class LLM:
              wides) = multistep_spec_decode(
                 self.params, self.kv, self.tables, self.cfg, self.tcfg, last, ctx,
                 active, tails, pts, n_steps=K, eos=eos, spec=self.quant,
-                budget=budget, slot_ids=sid,
+                budget=budget, slot_ids=sid, **samp,
             )
             out_np = out_toks.cpu().numpy()
             acc_np = n_acc.cpu().numpy()
@@ -724,16 +899,31 @@ class LLM:
                     and wides_np.mean() < self.ecfg.spec_gate_threshold):
                 self._spec_cooldown = self.ecfg.spec_cooldown_bursts
         else:
+            pen = {}
+            if any(self._slots[i].sampling.repetition_penalty != 1.0 for i in rows):
+                rp = np.ones((B,), np.float32)
+                seen = np.zeros((B, self.cfg.vocab_size), bool)
+                for k, i in enumerate(rows):
+                    req = self._slots[i]
+                    rp[k] = req.sampling.repetition_penalty
+                    seen[k, req.input_ids] = True
+                    # a replaying hybrid regenerates its last outputs: they
+                    # join the mask as the burst emits them again
+                    seen[k, req.output_ids[: len(req.output_ids) - req.replay]] = True
+                pen = dict(rep_penalty=self._dev(rp), seen_mask=self._dev(seen))
             self.kv, toks, last2, ctx2, act2, bleft = multistep_decode(
                 self.params, self.kv, self.cfg, last, ctx, active, pts,
                 n_steps=K, eos=eos, spec=self.quant, budget=budget, slot_ids=sid,
+                **samp, **pen,
             )
             # no readback here: the next decode phase chains off this
             # burst's tensors while the readback of this one waits
             self._pending = dict(
                 rows=tuple(rows), reqs=[self._slots[i] for i in rows], K=K,
                 toks=toks, last=last2, ctx=ctx2, act=act2, pts=pts, eos=eos,
-                idx=tuple(int(x) for x in idx), bleft=bleft, sid=sid,
+                idx=tuple(int(x) for x in idx), bleft=bleft, sid=sid, samp=samp,
+                # the seen mask takes the drained outputs: no chaining
+                chain_ok=not pen,
             )  # decode_steps are counted at drain time
         self.metrics.decode_time += time.perf_counter() - t0
         return True

@@ -3,8 +3,8 @@
 Port (a copy) of ``painlessinferenceacceleration_tpu/engine/request.py``
 without the multimodal fields. One class is both the scheduling record
 (the chunked-prefill cursor ``done``) and the user-facing handle (output
-tokens, finish reason, stream queue). Sampling parameters other than
-greedy are carried but rejected by ``LLM`` until sampling is ported.
+tokens, finish reason, stream queue, and for a scoring request the
+logprobs of its ``target_ids``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,9 @@ class SamplingParams:
     repetition_penalty: float = 1.0
     max_new_tokens: int = 256
     eos_token_id: Optional[int] = None  # None: the engine's eos_token_id
+    # per-request seed: the token at stream position p draws from the noise
+    # of (seed, p) (ops/sample.py), so runs repeat and sampled lookahead
+    # reproduces the sampled AR stream
     seed: int = 0
     # generation finishes when the output ends with any of these
     stop_sequences: Optional[List[List[int]]] = None
@@ -32,14 +35,15 @@ class Request:
     """One generation request moving through the engine.
 
     States: queued -> prefill (chunk cursor ``done`` advances) -> decode ->
-    finished. ``target_ids`` (PPL scoring) is carried for the API's shape;
-    ``LLM`` rejects it until scoring is ported.
+    finished. A request with ``target_ids`` is scored instead (PPL
+    scoring, option ranking): one forward over prompt + targets fills
+    ``target_logprobs`` and finishes it with reason ``"score"``, no decode.
     """
 
     __slots__ = (
         "rid", "input_ids", "sampling", "output_ids", "state", "done",
         "pages", "slot", "last_token", "stream_queue", "target_ids",
-        "finish_reason", "arrival_t", "first_token_t", "finish_t", "replay",
+        "target_logprobs", "finish_reason", "arrival_t", "first_token_t", "finish_t", "replay",
     )
 
     def __init__(
@@ -64,6 +68,7 @@ class Request:
         self.last_token: Optional[int] = None
         self.stream_queue: Optional[queue.Queue] = queue.Queue() if stream else None
         self.target_ids = target_ids
+        self.target_logprobs: List[float] = []
         self.finish_reason: Optional[str] = None
         self.arrival_t: float = 0.0
         self.first_token_t: float = 0.0

@@ -1,11 +1,11 @@
 """Engine steps: chunked prefill, the general tree verify and the
 parallel-branch verify.
 
-Port of ``prefill_step``, ``_accept_walk``, ``verify_core``,
-``verify_step``, ``verify_parallel_core`` and ``decode_inputs`` from
-``painlessinferenceacceleration_tpu/engine/step.py``. Where JAX jits the
-step and donates the KV arena, these run eagerly and update the arena in
-place (the returned ``kv`` is the same dict).
+Port of ``prefill_step``, ``score_step``, ``_accept_walk``,
+``verify_core``, ``verify_step``, ``verify_parallel_core`` and
+``decode_inputs`` from ``painlessinferenceacceleration_tpu/engine/step.py``.
+Where JAX jits the step and donates the KV arena, these run eagerly and
+update the arena in place (the returned ``kv`` is the same dict).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from painlessinferenceacceleration_tpu_torch.models.base import (
     transformer_hidden,
 )
 from painlessinferenceacceleration_tpu_torch.models.linear_attn import commit_linear_states
+from painlessinferenceacceleration_tpu_torch.ops.sample import sample_tokens_at
 
 
 def prefill_step(
@@ -50,6 +51,42 @@ def prefill_step(
     h_last = h[torch.arange(B, device=dev), last][:, None]  # [B, 1, E]
     logits = logits_from_hidden(params, cfg, h_last, spec)[:, 0]
     return kv, torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+
+def score_step(
+    params: dict,
+    kv: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, C] padded chunk (prompt + target tokens)
+    start_lens: torch.Tensor,  # [B]
+    chunk_lens: torch.Tensor,  # [B]
+    page_tables: torch.Tensor,  # [B, P]
+    spec: Optional[QuantSpec] = None,
+    boundary_next: Optional[torch.Tensor] = None,  # [B] first token of the next chunk
+    slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
+) -> Tuple[dict, torch.Tensor]:
+    """A prefill chunk that also returns every position's next-token
+    logprob, ``lp[b, t] = log P(tokens[b, t + 1] | ...)`` (PPL scoring,
+    option ranking). The last valid position scores ``boundary_next`` (the
+    next chunk's first token; 0 when absent), so chunked scoring reads the
+    same logprobs as one chunk would. Returns (kv, lp [B, C] fp32)."""
+    B, C = tokens.shape
+    dev = tokens.device
+    i = torch.arange(C, device=dev)
+    pos = start_lens.long()[:, None] + i[None, :]
+    qmask = (i[:, None] >= i[None, :])[None].expand(B, C, C)
+    valid = i[None, :] < chunk_lens[:, None]
+    h, kv = transformer_hidden(params, cfg, kv, tokens, pos, page_tables,
+                               start_lens, qmask, valid, spec, causal_window=True,
+                               slot_ids=slot_ids)
+    logp = torch.log_softmax(logits_from_hidden(params, cfg, h, spec), dim=-1)  # [B, C, V]
+    if boundary_next is None:
+        boundary_next = torch.zeros(B, dtype=torch.int64, device=dev)
+    nxt = torch.cat([tokens[:, 1:].long(), torch.zeros(B, 1, dtype=torch.int64, device=dev)],
+                    dim=1)
+    last = (chunk_lens.long() - 1).clamp(0, C - 1)
+    nxt[torch.arange(B, device=dev), last] = boundary_next.long()
+    return kv, torch.gather(logp, 2, nxt[..., None])[..., 0]
 
 
 def _accept_walk(greedy: torch.Tensor, tokens: torch.Tensor, parents: torch.Tensor):
@@ -176,12 +213,19 @@ def verify_parallel_core(
     spec: Optional[QuantSpec] = None,
     teacher: Optional[torch.Tensor] = None,  # [B, W] teacher-forced stream
     slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
+    sampling: Optional[tuple] = None,  # (temperature, top_k, top_p, min_p, seeds), [B] each
 ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
-    """Tree-verify forward, greedy (or teacher-forced) acceptance along the
-    best branch, and KV compaction of the accepted rows. Returns (kv,
-    out_tokens [B, Q], n_accepted [B]). A linear-attention hybrid verifies
-    without writing its states and then commits the accepted chain (root
-    first) into the states of ``slot_ids``; inactive rows commit nothing."""
+    """Tree-verify forward, greedy (or teacher-forced, or sampled)
+    acceptance along the best branch, and KV compaction of the accepted
+    rows. Returns (kv, out_tokens [B, Q], n_accepted [B]). A
+    linear-attention hybrid verifies without writing its states and then
+    commits the accepted chain (root first) into the states of
+    ``slot_ids``; inactive rows commit nothing.
+
+    With ``sampling`` each node's target is the token sampled from its
+    filtered row at the node's stream position + 1 (``sample_tokens_at``),
+    which is what the AR loop draws there; rows with temperature 0 take the
+    argmax. The teacher, when given, takes precedence."""
     B, Q = tokens.shape
     assert Q == 1 + R * L, (Q, R, L)
     dev = tokens.device
@@ -193,8 +237,18 @@ def verify_parallel_core(
         W = teacher.shape[1]
         tgt = (positions.long() + 1).clamp(0, W - 1)
         greedy = torch.gather(teacher.long(), 1, tgt).to(torch.int32)
-    else:
+    elif sampling is None:
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        temperature, top_k, top_p, min_p, seeds = sampling
+
+        def rep(a):  # [B] -> [B*Q], one value a node
+            return a.repeat_interleave(Q, dim=0)
+
+        greedy = sample_tokens_at(
+            logits.reshape(B * Q, -1), rep(seeds), (positions.long() + 1).reshape(B * Q),
+            rep(temperature), rep(top_k), rep(top_p),
+            rep(min_p) if min_p is not None else None).reshape(B, Q)
 
     par = parents.long().clamp(0, Q - 1)
     g_par = torch.gather(greedy, 1, par)

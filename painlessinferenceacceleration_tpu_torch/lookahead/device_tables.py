@@ -31,6 +31,16 @@ class DraftTableConfig:
     ways: int = 8  # stored branches per 2-gram bucket
     branch_length: int = 12  # tokens per branch
     retrieve_count: int = 4  # branches offered per draft (<= ways)
+    # Per-step adaptive width (engine/multistep.py): on a step where no
+    # active row retrieves a draft above gate_min_freq, run a plain width-1
+    # AR step instead of the Q = 1 + R*L verify. Off by default, as in the
+    # JAX package, where a per-step lax.cond over the donated KV arena
+    # copies the whole arena in and out (the conditional aliases its
+    # buffers to one branch only); the production gate there and here is
+    # chunk-level: every spec burst reports the per-step probe (wide_mask)
+    # and LLM switches between spec and AR bursts on it (spec cooldown).
+    # The port's per-step gate is a host branch on the probe.
+    adaptive: bool = False
     gate_min_freq: float = 0.0  # a draft is retrievable iff top freq > this
 
     @property

@@ -10,8 +10,11 @@ instead (``models/mla.py``).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 
 
 def rope_inv_freq(cfg, device=None) -> torch.Tensor:
@@ -105,3 +108,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         x1, x2 = xf[..., :half], xf[..., half:]
         out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_qk_rope(q: torch.Tensor, k: torch.Tensor, inv_freq: torch.Tensor,
+                  positions: torch.Tensor, q_norm: Optional[torch.Tensor] = None,
+                  k_norm: Optional[torch.Tensor] = None, eps: float = 1e-6):
+    """Optional QK-RMSNorm, then rope, for q [B, T, Hq, D] and k
+    [B, T, Hk, D] at ``positions`` [B, T] (Qwen3's fused qk-norm + rope;
+    the norms go through ``ops/rmsnorm.py``'s kernel on the card)."""
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, eps)
+    if k_norm is not None:
+        k = rms_norm(k, k_norm, eps)
+    cos, sin = rope_cos_sin(inv_freq, positions)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)

@@ -2,7 +2,9 @@
 
 Port (a copy) of ``painlessinferenceacceleration_tpu/utils/metrics.py``,
 plus ``table_update_time``/``table_updates``: the host-clock cost of the
-eager draft-table updates at each burst drain. The times are host clocks
+eager draft-table updates at each burst drain, and ``mixed_rows``: decode
+rows that rode in mix prefill batches (each also counts in
+``decode_steps``, as in the JAX package). The times are host clocks
 around work that ends in a device sync (a drain reads the burst's tokens
 back), so they include the device time they wait for.
 """
@@ -33,6 +35,7 @@ class EngineMetrics:
     preempted: int = 0
     prefix_hit_tokens: int = 0  # prompt tokens served from the prefix cache
     chained_bursts: int = 0  # bursts dispatched off the previous burst's tensors
+    mixed_rows: int = 0  # decode rows carried by mix prefill batches
     ttft: List[float] = dataclasses.field(default_factory=list)
 
     @property
@@ -68,4 +71,5 @@ class EngineMetrics:
             "preempted": self.preempted,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "chained_bursts": self.chained_bursts,
+            "mixed_rows": self.mixed_rows,
         }

@@ -1986,3 +1986,108 @@ def test_generator_lookahead_equals_ar_on_the_card(cuda):
         assert la.sequences == ar[0], mode
     assert max(la.edls) > 1
     assert [o.sequences for o in gen.batch_generate(prompts, max_new_tokens=64)] == ar
+
+
+SAMPLER_SETTINGS = [(0.8, 50, 0.95, 0.0), (1.0, 0, 1.0, 0.0), (0.7, 0, 0.9, 0.05),
+                    (1.2, 1, 1.0, 0.0), (0.0, 0, 1.0, 0.0)]
+
+
+@pytest.mark.parametrize("t,k,p,m", SAMPLER_SETTINGS)
+def test_sampler_rows_do_not_depend_on_the_batch(cuda, t, k, p, m):
+    """136 rows of 32000 fp32 logits: each row's filtered logits and drawn
+    token are the same bits alone, inside 17 rows and inside 136."""
+    from painlessinferenceacceleration_tpu_torch.ops.sample import (
+        filtered_logits,
+        sample_tokens_at,
+    )
+
+    n, V = 136, 32000
+    lg = torch.randn((n, V), generator=cuda, device="cuda") * 4
+    arrs = (torch.full((n,), t, device="cuda"), torch.full((n,), k, device="cuda"),
+            torch.full((n,), p, device="cuda"), torch.full((n,), m, device="cuda"))
+    seeds = torch.arange(n, device="cuda") * 7 + 3
+    pos = torch.arange(n, device="cuda") + 512
+    x_all = filtered_logits(lg, *arrs)
+    s_all = sample_tokens_at(lg, seeds, pos, *arrs)
+    for lo, hi in ((0, 1), (5, 22), (119, 136), (70, 71)):
+        part = (slice(lo, hi),)
+        x = filtered_logits(lg[part], *(a[part] for a in arrs))
+        s = sample_tokens_at(lg[part], seeds[part], pos[part], *(a[part] for a in arrs))
+        assert torch.equal(x, x_all[lo:hi]) and torch.equal(s, s_all[lo:hi]), (lo, hi)
+    kept = (x_all > -1e29).sum(1)
+    assert (torch.gather(x_all, 1, s_all.long()[:, None]) > -1e29).all()
+    if k:
+        assert (kept <= k).all()
+
+
+def test_sampled_lookahead_equals_sampled_ar_on_the_card(cuda):
+    """A small bf16 llama: a sampled AR stream, then lookahead from a fresh
+    prefill with the tables seeded with that stream (drafts land deep in
+    the tree): the same tokens; and LLM serving of sampled requests gives
+    the same streams under pingpong AR, pingpong lookahead and mix."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+    from painlessinferenceacceleration_tpu_torch.engine.cache import init_kv_cache
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.multistep import (
+        multistep_decode,
+        multistep_spec_decode,
+    )
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
+    from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step
+    from painlessinferenceacceleration_tpu_torch.lookahead import device_tables as dt
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+    from painlessinferenceacceleration_tpu_torch.ops.sample import sample_tokens_at
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=1)
+    prompt = torch.randint(10, 500, (1, 100), generator=cuda, device="cuda", dtype=torch.int32)
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    ctx0 = torch.tensor([100], dtype=torch.int32, device="cuda")
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    samp = dict(temperature=torch.tensor([0.8], device="cuda"),
+                top_k=torch.tensor([50], device="cuda"), top_p=torch.tensor([0.95], device="cuda"),
+                min_p=torch.zeros(1, device="cuda"),
+                seeds=torch.tensor([77], dtype=torch.int32, device="cuda"))
+
+    def prefill():
+        kv = init_kv_cache(cfg, ecfg)
+        kv, _, logits = prefill_step(params, kv, cfg, prompt, torch.zeros_like(ctx0), ctx0, pt)
+        first = sample_tokens_at(logits, samp["seeds"], ctx0, samp["temperature"],
+                                 samp["top_k"], samp["top_p"], samp["min_p"])
+        return kv, first
+
+    kv, first = prefill()
+    _, toks, *_ = multistep_decode(params, kv, cfg, first, ctx0, one, pt, n_steps=63, **samp)
+    ar = [int(first[0])] + toks[0].tolist()
+    kv, first2 = prefill()
+    assert int(first2[0]) == ar[0]
+    tcfg = dt.DraftTableConfig(buckets=1024, ways=4, branch_length=8, retrieve_count=2)
+    tables = dt.init_draft_tables(tcfg)
+    seq = prompt[0].tolist() + ar
+    dt.update_tables_seq(tables, tcfg, torch.tensor(seq, dtype=torch.int32, device="cuda"),
+                         len(seq))
+    tail = torch.tensor([seq[100 - 9: 101]], dtype=torch.int32, device="cuda")
+    out = multistep_spec_decode(params, kv, tables, cfg, tcfg, first2, ctx0, one, tail, pt,
+                                n_steps=32, update_tables=False,
+                                budget=torch.tensor([63], dtype=torch.int32, device="cuda"),
+                                **samp)
+    n_acc = out[3][0].tolist()
+    stream = [ar[0]] + [x for s, n in enumerate(n_acc) for x in out[2][0, s, :n].tolist()]
+    assert stream == ar
+    assert max(n_acc) > 2
+
+    prompts = [prompt[0].tolist()[:60], [5, 6, 7, 8] * 10, list(range(40, 90))]
+    sps = [SamplingParams(max_new_tokens=24, temperature=0.8, top_k=50, seed=s) for s in (1, 2)]
+    sps.append(SamplingParams(max_new_tokens=24))
+    runs = []
+    for kw in (dict(), dict(use_lookahead=True, decoding_length=16, branch_length=8,
+                            use_spec_min_batch_size=4), dict(schedule_policy="mix")):
+        llm = LLM(cfg=cfg, params=params, ecfg=EngineConfig(
+            page_size=64, max_seq_len=512, max_concurrency=4, eos_token_id=-2, **kw))
+        reqs = [llm.add_request(p, sp) for p, sp in zip(prompts, sps)]
+        while any(r.state != "finished" for r in reqs):
+            llm.step()
+        runs.append([r.output_ids for r in reqs])
+    assert runs[0] == runs[1] == runs[2]

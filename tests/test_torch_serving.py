@@ -229,17 +229,19 @@ def test_llm_background_loop_with_many_caller_threads(model):
 
 def test_llm_rejects_what_is_not_ported(model):
     _, t = engines(model)
+    # sampling, the repetition penalty, scoring, the mix / timely policies
+    # and the engine's sampling defaults are ported: accepted and queued
     for sp in (TSP(temperature=0.7), TSP(repetition_penalty=1.2)):
-        with pytest.raises(NotImplementedError):
-            t.add_request([1, 2, 3], sp)
-    with pytest.raises(NotImplementedError):
-        t.add_request([1, 2, 3], target_ids=[4, 5])
+        assert t.add_request([1, 2, 3], sp).state == "queued"
+    assert t.add_request([1, 2, 3], target_ids=[4, 5]).state == "queued"
+    assert TEngineConfig(schedule_policy="mix").schedule_policy == "mix"
+    assert TEngineConfig(temperature=0.5).temperature == 0.5
     with pytest.raises(NotImplementedError):
         t.encode("text")
     with pytest.raises(NotImplementedError):
-        TEngineConfig(schedule_policy="mix")
+        TLLM(model_path="/nonexistent")
     with pytest.raises(NotImplementedError):
-        TEngineConfig(temperature=0.5)
+        TEngineConfig(mesh_shape=(1, 2))
     # read by the ported LookaheadGenerator, so no longer refused
     assert TEngineConfig(max_new_tokens=64).max_new_tokens == 64
     with pytest.raises(ValueError):  # no such mode in either package
