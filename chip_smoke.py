@@ -4,17 +4,19 @@
     python3 chip_smoke.py [--json PATH]
 
 (``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
-``--w8a8-only``, ``--int8-only``, ``--attention-only`` and ``--sampling-only``
-run parts of it: partial runs that print no kernels line and no result
-line.)
+``--w8a8-only``, ``--int8-only``, ``--attention-only``, ``--sampling-only``
+and ``--hf-only`` run parts of it: partial runs that print no kernels line
+and no result line.)
 
 Phases, one line each (any failure exits non-zero and prints no result):
 
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
    (the tensor-core sources' own); ptxas's registers and spills of the
    tensor-core kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, block fp8
-   K9, bf16 K10, paged attention K2 / K3 / K5) and their shared memory (a
-   spill or a serialized wgmma fails the run);
+   K9, bf16 K10, paged attention K2 / K3 / K5 with and without ALiBi) and
+   their shared memory (a spill or a serialized wgmma fails the run), the
+   slope-free attention kernels' registers beside their count before the
+   ALiBi template flag;
 2. every CUDA kernel and arena mode against its plain torch version at the
    7B shapes (bf16 and e4m3 arenas, static and per-token scales, the page
    write-back), with its time, the plain version's time, the bound the card
@@ -25,7 +27,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    1, 17, 64, 512 and 4096 with its device time, on off-grid shapes, and
    its refusal of shapes off its grid), attention (every arena and route at the 7B shapes, and
    prefill at Mixtral-8x7B's and Ring-mini-linear-2.0's prefill shapes,
-   with its device time), the KV kernels (the tail-window compaction, K4:
+   with its device time; with ALiBi slopes at BLOOM-7b1's shape, each beside
+   the same call without slopes), the KV kernels (the tail-window compaction, K4:
    its general entry with 127 rows moving and none, its compaction entry,
    K and V in one launch, at the main paths' compactions, Q = 17 one
    branch and R = 2, the generator's Q = 64 and MLA's latent rows, with
@@ -132,10 +135,21 @@ Phases, one line each (any failure exits non-zero and prints no result):
    serving the 16 requests (lookahead equal to AR, no prefix hits, two
    requests equal served alone), and both kernels against their plain
    versions on serving's inputs;
+   hf: two local checkpoints at published widths and 2 layers, written with
+   the port's own safetensors writer in 2 shards and an index (random bf16
+   weights from the seed, numpy): Llama-2-7B's LlamaForCausalLM keys loaded
+   as int4 and bigscience/bloom-7b1's BloomForCausalLM keys (ALiBi, the
+   embedding LayerNorm, biases, the tied head) in bf16, each through
+   LLM(model_path=...) and served with 16 text prompts cut from
+   benchmarks/corpus.txt (the repository's BPE tokenizer), AR and
+   lookahead, the outputs equal token for token; the reader's tensors and
+   the loaded leaves byte-equal to the arrays written; every ALiBi launch of
+   a BLOOM AR and lookahead pass held against its plain version; load time and
+   GB/s, a 512-token prefill's ms and the (random-weight) rates;
 4. the launch count of every kernel and mode during phase 3, serving, the
    generator phase (and apart from it, its checks: K17 and K4's and K16's
-   general entries have no caller on any path), the quant modes and the MoE,
-   MLA and linear-attention phases, each counted from 0 (all must be > 0), the script's wall time, and the
+   general entries have no caller on any path), the hf phase, the quant
+   modes and the MoE, MLA and linear-attention phases, each counted from 0 (all must be > 0), the script's wall time, and the
    ``kernels`` JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
@@ -334,9 +348,10 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(grouped_gemm_kernel)ILb([01])E", entry)
     if t:
         return f"{t.group(1)}<2>" + (" seq" if t.group(2) == "1" else "")
-    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E", entry)
+    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E(?:Lb([01])E)?", entry)
     if t:
-        return f"{t.group(1)}<D={t.group(2)},{('bf16', 'fp8', 'fp8_tok')[int(t.group(3))]}>"
+        return (f"{t.group(1)}<D={t.group(2)},{('bf16', 'fp8', 'fp8_tok')[int(t.group(3))]}"
+                + (",alibi>" if t.group(4) == "1" else ">"))
     t = re.search(r"(mla_attention_kernel|mla_combine_kernel)", entry)
     if t:
         return t.group(1)
@@ -416,6 +431,17 @@ def ptxas_summary(pkg) -> dict:
                               for d in (64, 128)
                               for m, a in enumerate(("bf16", "fp8", "fp8_tok"))})
     out["smem_bytes"]["mla attention"] = b.library("mla_attention").mla_attention_smem_bytes()
+    # the slope-free attention kernels beside their registers as built
+    # before the ALiBi template flag existed: unchanged means the flag costs
+    # the other models nothing
+    pa = pkg["paged_attention"]
+    now = pa.ptxas_registers()
+    out["attention_slope_free_registers"] = {
+        f"D={d},{a}": dict(now=now.get((d, a, False), {}).get("registers"), before=r)
+        for (d, a), r in pa.SLOPE_FREE_REGISTERS.items()}
+    out["attention_slope_free_unchanged"] = all(
+        now.get((d, a, False), {}).get("registers") == r
+        for (d, a), r in pa.SLOPE_FREE_REGISTERS.items())
     return out
 
 
@@ -652,7 +678,10 @@ def _arena(g, B, ctx_max, Q, Hkv, D, ps, arena="bf16"):
     return k8, v8, pt, ks, vs
 
 
-def _attn_name(kind: str, arena: str) -> str:
+def _attn_name(kind: str, arena: str, alibi: bool = False) -> str:
+    if alibi:  # ALiBi rows: the bf16 arena, as BLOOM serves
+        return ("paged_attention_prefill[alibi]" if kind == "prefill"
+                else f"paged_attention[{kind},alibi]")
     if arena == "fp8_tok":
         return f"paged_attention_tok[{kind}]"
     fp8 = arena == "fp8"
@@ -669,11 +698,13 @@ def _attn_replaces(kind: str, arena: str) -> str:
             "prefill": f"{PAT}:851 _attn_prefill_kernel"}[kind]
 
 
-def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, case):
+def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, case,
+                  alibi=None, alibi_pos=None):
     """One attention call (kind: 'decode' / 'verify' under the mask rule,
     'prefill' causal; arena: 'bf16', 'fp8' static scales, 'fp8_tok'
-    per-token scales) against paged_attention_ref on the same inputs,
-    timed."""
+    per-token scales; ``alibi`` [Hq] slopes or None, ``alibi_pos`` the
+    step's key positions or None for their slots) against
+    paged_attention_ref on the same inputs, timed."""
     import torch
     import torch.nn.functional as F
 
@@ -687,16 +718,19 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
         mask_arg = None if kind == "prefill" else qmask
 
         def run():
-            return pa.paged_attention_tok(q, k, v, ks, vs, pt, ctx_t, scale, mask_arg)
+            return pa.paged_attention_tok(q, k, v, ks, vs, pt, ctx_t, scale, mask_arg, alibi,
+                                          alibi_pos)
     elif kind == "prefill":
         def run():
-            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale, scales)
+            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale, scales, alibi)
     else:
         def run():
-            return pa.paged_attention(q, k, v, pt, ctx_t, qmask, scale, scales)
+            return pa.paged_attention(q, k, v, pt, ctx_t, qmask, scale, scales, alibi,
+                                      alibi_pos)
 
     def plain():
-        return ref_mod.paged_attention_ref(q, k, v, pt, ctx_t, qmask, scale, ks, vs)
+        return ref_mod.paged_attention_ref(q, k, v, pt, ctx_t, qmask, scale, ks, vs,
+                                           alibi=alibi, alibi_pos=alibi_pos)
     got = run()
     err, rel = _errs(got, plain())
     if not rel <= 2e-2:
@@ -713,7 +747,15 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
     gv = cache.gather_kv_pages(v, pt, D, vs, torch.bfloat16).repeat_interleave(G, dim=1)
     mask = ref_mod.attention_mask(ctx_t, qmask, gk.shape[2])[:, None]
     qt = q.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, gk, gv, attn_mask=mask,
+    lib_mask = mask
+    if alibi is not None:  # the same function: the slopes as an additive float mask
+        j = torch.arange(gk.shape[2], device="cuda")[None]
+        if alibi_pos is not None:
+            j = ref_mod.alibi_key_positions(ctx_t, alibi_pos, gk.shape[2])
+        bias = alibi[None, :, None, None] * j.to(torch.float32)[:, None, None, :]
+        lib_mask = torch.where(mask, bias.to(torch.bfloat16),
+                               float("-inf")).to(torch.bfloat16)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, gk, gv, attn_mask=lib_mask,
                                                             scale=scale), reps=5 if big else 20)
     vis = int(mask[:, 0].sum().item()) * Hq  # visible (row, key) pairs
     # keys each request reads: its context and the step's own Q rows
@@ -724,9 +766,13 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
         nbytes += 2 * Hkv * 4
     elif arena == "fp8_tok":
         nbytes += 2 * kv_rows * Hkv * 4
-    row = _case(_attn_name(kind, arena), "paged_attention.cu", _attn_replaces(kind, arena),
-                err, rel, ms, plain_ms, bound_ms(nbytes, 4.0 * vis * D), lib_ms,
-                f"{case}B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} arena={arena}")
+    if alibi is not None:
+        nbytes += Hq * 4 + (0 if alibi_pos is None else alibi_pos.numel() * 4)
+    row = _case(_attn_name(kind, arena, alibi is not None), "paged_attention.cu",
+                _attn_replaces(kind, arena), err, rel, ms, plain_ms,
+                bound_ms(nbytes, 4.0 * vis * D), lib_ms,
+                f"{case}B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} arena={arena}"
+                + (" alibi" if alibi is not None else ""))
     row["device_ms"] = dev_ms  # the kernel alone (a CUDA graph)
     return row
 
@@ -770,6 +816,39 @@ def attention_rows(pkg, g, cfg) -> list:
     rows.append(check_attention(pkg, g, "prefill", 1, 2048, 32, 8, 0, None))  # Mixtral
     rows.append(check_attention(pkg, g, "prefill", 1, 4096, 16, 4, 0, None))  # Ring
     torch.cuda.empty_cache()
+    return rows
+
+
+def alibi_attention_rows(pkg, g) -> list:
+    """Paged attention with ALiBi slopes against its plain version at
+    BLOOM-7b1's attention shape (32 heads of 128, bf16 arena): decode at ctx
+    640, a Q = 17 tree verify at ctx 768 (its nodes at ctx + their depth)
+    and a 512-token prefill at ctx 0, each with the same call's time without
+    slopes beside it (``slope_free_ms``, ``slope_free_device_ms``)."""
+    import torch
+
+    dt = pkg["device_tables"]
+    branches = torch.randint(3, 32000, (2, 8), generator=g, device="cuda")
+    _, _, tree, depth = dt.build_tree_inputs(torch.tensor(1, device="cuda"), branches)
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    H, D = 32, 128
+    al = pkg["attention"].alibi_slopes(H, "cuda")
+    rows = []
+    for kind, Q, ctx, qmask in (("decode", 1, 640, one), ("verify", 17, 768, tree[None]),
+                                ("prefill", 512, 0, None)):
+        pos = None  # prefill: the causal rule puts key s at ctx + s
+        if kind != "prefill":
+            pos = (ctx + (depth if kind == "verify" else torch.zeros(1, device="cuda")))
+            pos = pos.to(torch.int32)[None].contiguous()
+        k, v, pt, ks, vs = _arena(g, 1, ctx, Q, H, D, 64)
+        ctx_t = torch.full((1,), ctx, dtype=torch.int32, device="cuda")
+        q = torch.randn(1, Q, H, D, generator=g, device="cuda").to(torch.bfloat16)
+        free = attention_row(pkg, kind, "bf16", q, k, v, pt, ctx_t, qmask, ks, vs,
+                             D ** -0.5, f"BLOOM-7b1 ctx={ctx} ")
+        row = attention_row(pkg, kind, "bf16", q, k, v, pt, ctx_t, qmask, ks, vs,
+                            D ** -0.5, f"BLOOM-7b1 ctx={ctx} ", alibi=al, alibi_pos=pos)
+        row.update(slope_free_ms=free["ms"], slope_free_device_ms=free["device_ms"])
+        rows.append(row)
     return rows
 
 
@@ -1413,6 +1492,8 @@ def phase_kernels(pkg, cfg) -> list:
     rows += int8_rows(pkg, g, cfg)
     rows += w8a8_rows(pkg, g, cfg)
     rows += attention_rows(pkg, g, cfg)
+    # a generator of their own: the rows after them keep their inputs
+    rows += alibi_attention_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED + 19))
     L = cfg.num_hidden_layers
     rows += k4_rows(pkg, g, cfg)
     Hkv = cfg.num_key_value_heads
@@ -1717,6 +1798,9 @@ class Launches:
             out[f"paged_attention[{kind},fp8]"] = pa.modes[f"{kind},fp8"]
         out["paged_attention_prefill"] = pre.modes["prefill,bf16"]
         out["paged_attention_prefill[fp8]"] = pre.modes["prefill,fp8"]
+        for kind in ("decode", "verify"):
+            out[f"paged_attention[{kind},alibi]"] = pa.modes[f"{kind},bf16,alibi"]
+        out["paged_attention_prefill[alibi]"] = pre.modes["prefill,bf16,alibi"]
         for kind in ("decode", "verify", "prefill"):
             out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
             out[f"mla_attention[{kind}]"] = self.mla.modes[kind]
@@ -2178,7 +2262,8 @@ class ServingCapture(LaunchHooks):
         self._wrap(hooks)
 
     def _attn_hook(self, orig):
-        def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None):
+        def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None,
+                 alibi=None, alibi_pos=None):
             if self._first_layer(k):
                 B, Q = q.shape[:2]
                 kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
@@ -2195,7 +2280,8 @@ class ServingCapture(LaunchHooks):
                         self.prefill[arena].append(c)
                     else:
                         self.attn[(kind, arena)] = c
-            return orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs)
+            return orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs, alibi,
+                        alibi_pos)
         return hook
 
     def _gemm_hook(self, orig):
@@ -3105,6 +3191,418 @@ def phase_sampling(pkg, cfg, spec, params) -> dict:
         dict(requests=serve["requests"], sampled=serve["sampled"], scored=serve["scored"],
              score_sums=serve["score_sums"])))
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase hf: local HF checkpoints through LLM(model_path=...), text prompts
+# ---------------------------------------------------------------------------
+
+HF_LAYERS = 2  # depth cut; every width is the published one
+HF_SHARDS = 2
+HF_NEW_TOKENS = 48
+HF_CHECK_TOKENS = 16  # the ALiBi check pass: 4 requests of this many tokens
+
+
+def _normal(rng, shape, std=0.02, mean=0.0):
+    """bf16 tensor of N(mean, std) drawn with numpy (fp32, in place)."""
+    import numpy as np
+    import torch
+
+    a = rng.standard_normal(shape, dtype=np.float32)
+    a *= std
+    if mean:
+        a += mean
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def hf_llama_checkpoint(rng) -> tuple:
+    """(config.json, tensors) of a LlamaForCausalLM at Llama-2-7B's widths
+    (meta-llama/Llama-2-7b-hf's config.json: hidden 4096, 32 heads,
+    intermediate 11008, vocab 32000) and HF_LAYERS layers, bf16."""
+    E, I, V, H = 4096, 11008, 32000, 32
+    conf = dict(architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=V,
+                hidden_size=E, intermediate_size=I, num_hidden_layers=HF_LAYERS,
+                num_attention_heads=H, num_key_value_heads=H, rms_norm_eps=1e-5,
+                rope_theta=10000.0, max_position_embeddings=4096,
+                tie_word_embeddings=False, torch_dtype="bfloat16")
+    t = {"model.embed_tokens.weight": _normal(rng, (V, E))}
+    for i in range(HF_LAYERS):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = _normal(rng, (E,), 0.05, 1.0)
+        for n in "qkvo":
+            t[p + f"self_attn.{n}_proj.weight"] = _normal(rng, (E, E))
+        t[p + "post_attention_layernorm.weight"] = _normal(rng, (E,), 0.05, 1.0)
+        t[p + "mlp.gate_proj.weight"] = _normal(rng, (I, E))
+        t[p + "mlp.up_proj.weight"] = _normal(rng, (I, E))
+        t[p + "mlp.down_proj.weight"] = _normal(rng, (E, I))
+    t["model.norm.weight"] = _normal(rng, (E,), 0.05, 1.0)
+    t["lm_head.weight"] = _normal(rng, (V, E))
+    return conf, t
+
+
+def hf_bloom_checkpoint(rng) -> tuple:
+    """(config.json, tensors) of a BloomForCausalLM at bigscience/bloom-7b1's
+    widths (its config.json: hidden 4096, n_head 32, vocab 250880, layer
+    norm eps 1e-5; ALiBi, the embedding LayerNorm, biases everywhere, a
+    4 x hidden gelu MLP and the head tied to the embedding) and HF_LAYERS
+    layers, bf16."""
+    E, V, H = 4096, 250880, 32
+    conf = dict(architectures=["BloomForCausalLM"], model_type="bloom", vocab_size=V,
+                hidden_size=E, n_layer=HF_LAYERS, n_head=H, layer_norm_epsilon=1e-5,
+                apply_residual_connection_post_layernorm=False, hidden_dropout=0.0,
+                attention_dropout=0.0, offset_alibi=100, pretraining_tp=1,
+                torch_dtype="bfloat16")
+    t = {"transformer.word_embeddings.weight": _normal(rng, (V, E))}
+
+    def norm(name):
+        t[name + ".weight"] = _normal(rng, (E,), 0.05, 1.0)
+        t[name + ".bias"] = _normal(rng, (E,), 0.02)
+
+    def lin(name, dout, din):
+        t[name + ".weight"] = _normal(rng, (dout, din))
+        t[name + ".bias"] = _normal(rng, (dout,), 0.02)
+
+    norm("transformer.word_embeddings_layernorm")
+    for i in range(HF_LAYERS):
+        p = f"transformer.h.{i}."
+        norm(p + "input_layernorm")
+        lin(p + "self_attention.query_key_value", 3 * E, E)
+        lin(p + "self_attention.dense", E, E)
+        norm(p + "post_attention_layernorm")
+        lin(p + "mlp.dense_h_to_4h", 4 * E, E)
+        lin(p + "mlp.dense_4h_to_h", E, 4 * E)
+    norm("transformer.ln_f")
+    return conf, t
+
+
+def load_bpe():
+    """The repository's BPE tokenizer (benchmarks/bpe.py, trained on
+    benchmarks/corpus.txt); it imports neither JAX nor the JAX package."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bpe", HERE / "benchmarks" / "bpe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load_default()
+
+
+def hf_prompts() -> list:
+    """16 text prompts cut from benchmarks/corpus.txt at word boundaries,
+    300-1500 characters each (seeded)."""
+    import numpy as np
+
+    text = (HERE / "benchmarks" / "corpus.txt").read_text()
+    rng = np.random.default_rng(SEED)
+    out = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(rng.integers(300, 1501))
+        start = int(rng.integers(0, len(text) - n))
+        start = text.find(" ", start) + 1
+        out.append(text[start: start + n].rsplit(" ", 1)[0])
+    return out
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+
+    a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.view(torch.uint8), b.to(a.device).view(torch.uint8))
+
+
+def check_loaded(pkg, name, params, t, quant) -> int:
+    """The loaded leaves against the arrays written, byte for byte: native
+    leaves as written (transposed, q|k|v regrouped), int4 leaves equal to
+    ``quantize`` of the written weight on the card. Returns the leaves
+    checked; fails the run on a difference."""
+    import torch
+
+    lin = pkg["linear"]
+    spec = lin.QuantSpec.from_mode(quant)
+
+    def want_lin(w_out_in):
+        w = w_out_in.cuda().t().contiguous()
+        return w if spec is None else lin.quantize(w, spec)
+
+    def same(got, want, what):
+        pairs = [(got[k], want[k]) for k in want] if isinstance(want, dict) else [(got, want)]
+        if not all(_same_bytes(g, w) for g, w in pairs):
+            fail(f"phase hf {name}: loaded {what} differs from the checkpoint's")
+
+    L = params["layers"]
+    n = 0
+    if name.startswith("llama"):
+        same(params["embed"], t["model.embed_tokens.weight"], "embed")
+        same(params["final_ln"], t["model.norm.weight"], "final_ln")
+        same(params["lm_head"], want_lin(t["lm_head.weight"]), "lm_head")
+        n += 3
+        for i in range(HF_LAYERS):
+            p = f"model.layers.{i}."
+            qkv = torch.cat([t[p + f"self_attn.{c}_proj.weight"] for c in "qkv"])
+            for key, want in (("input_ln", t[p + "input_layernorm.weight"]),
+                              ("post_ln", t[p + "post_attention_layernorm.weight"]),
+                              ("wqkv", want_lin(qkv)),
+                              ("wo", want_lin(t[p + "self_attn.o_proj.weight"])),
+                              ("wgu", want_lin(torch.cat([t[p + "mlp.gate_proj.weight"],
+                                                          t[p + "mlp.up_proj.weight"]]))),
+                              ("wdown", want_lin(t[p + "mlp.down_proj.weight"]))):
+                leaf = L[key]
+                got = {k: v[i] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[i]
+                same(got, want, f"layer {i} {key}")
+                n += 1
+        return n
+    pre = "transformer."
+    for key, src in (("embed", "word_embeddings.weight"),
+                     ("embed_ln", "word_embeddings_layernorm.weight"),
+                     ("embed_ln_b", "word_embeddings_layernorm.bias"),
+                     ("final_ln", "ln_f.weight"), ("final_ln_b", "ln_f.bias")):
+        same(params[key], t[pre + src], key)
+        n += 1
+    E, H = 4096, 32
+    D = E // H
+    for i in range(HF_LAYERS):
+        p = pre + f"h.{i}."
+        w = t[p + "self_attention.query_key_value.weight"].reshape(H, 3, D, E)
+        b = t[p + "self_attention.query_key_value.bias"].reshape(H, 3, D)
+        for key, want in (
+                ("wqkv", want_lin(torch.cat([w[:, c].reshape(H * D, E) for c in range(3)]))),
+                ("bqkv", torch.cat([b[:, c].reshape(-1) for c in range(3)])),
+                ("wo", want_lin(t[p + "self_attention.dense.weight"])),
+                ("bo", t[p + "self_attention.dense.bias"]),
+                ("wgu", want_lin(t[p + "mlp.dense_h_to_4h.weight"])),
+                ("bgu", t[p + "mlp.dense_h_to_4h.bias"]),
+                ("wdown", want_lin(t[p + "mlp.dense_4h_to_h.weight"])),
+                ("bdown", t[p + "mlp.dense_4h_to_h.bias"]),
+                ("input_ln", t[p + "input_layernorm.weight"]),
+                ("input_ln_b", t[p + "input_layernorm.bias"]),
+                ("post_ln", t[p + "post_attention_layernorm.weight"]),
+                ("post_ln_b", t[p + "post_attention_layernorm.bias"])):
+            same(L[key][i], want, f"layer {i} {key}")
+            n += 1
+    return n
+
+
+class AlibiCheck(LaunchHooks):
+    """While installed, every paged-attention launch with ALiBi slopes is
+    held, right after it, against the plain version on the same inputs (the
+    model's own q, arena layer, page tables, masks and slopes); fails the
+    run beyond rel 2e-2. The launches are the run's own, with the
+    positions the model gives the step's keys (a tree's node at ctx + its
+    depth)."""
+
+    def __init__(self, pkg):
+        super().__init__(pkg)
+        self.n, self.max_rel, self.kinds = 0, 0.0, {}
+
+    def install(self):
+        self._wrap([(self.pkg["paged_attention"], "_launch", self._hook)])
+
+    def _hook(self, orig):
+        ref_mod = self.pkg["attention"]
+
+        def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None,
+                 alibi=None, alibi_pos=None):
+            out = orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs, alibi,
+                       alibi_pos)
+            if alibi is not None:
+                B, Q = q.shape[:2]
+                qm = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q) if causal \
+                    else qmask
+                _, rel = _errs(out, ref_mod.paged_attention_ref(
+                    q, k, v, pt, ctx, qm, scale, ks, vs, alibi=alibi, alibi_pos=alibi_pos))
+                kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
+                if not rel <= 2e-2:
+                    fail(f"phase hf: an ALiBi {kind} launch (B={B}, Q={Q}) differs from its "
+                         f"plain version: rel err {rel}")
+                self.n += 1
+                self.max_rel = max(self.max_rel, rel)
+                self.kinds[kind] = self.kinds.get(kind, 0) + 1
+            return out
+        return hook
+
+
+def check_later_branch(pkg, llm, ids, L=8) -> dict:
+    """A tree verify of two branches of L over the prompt ``ids`` at the
+    served model's width, a wrong draft on branch 0 and the AR continuation
+    on branch 1, whose nodes sit at slots ctx + 1 + L + l but at positions
+    ctx + 1 + l. Fails the run unless the root's and each branch-1 node's
+    logits row is within rel 2e-2 of the AR decode row at the same prefix
+    (the keys sit at other slots, so sums run in other orders); counts the
+    rows whose argmax is the AR token. With ALiBi (positions act nowhere
+    else) the same verify with its keys at their slots' positions shows the
+    bias that the positions repair (``slot_rule_max_rel_err``)."""
+    import torch
+
+    step, dt = pkg["step"], pkg["device_tables"]
+    cfg, params, spec = llm.cfg, llm.params, llm.quant
+    pt = torch.arange(1, 1 + llm.ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    toks = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    ctx = torch.full((1,), len(ids), dtype=torch.int32, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    kv, root, _ = step.prefill_step(params, llm.kv, cfg, toks, zero, ctx, pt, spec)
+    rows, fed, last, c = [], [], root, ctx.clone()
+    for _ in range(L + 1):  # AR: the root, then the L tokens it picks
+        t, p, qm, par = step.decode_inputs(last, c)
+        kv, logits, _ = step._verify_forward(params, kv, cfg, t, p, qm, par, pt, c, active,
+                                             spec, None)
+        rows.append(logits[0, 0])
+        last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        fed.append(last)
+        c = c + 1
+    ar = torch.stack(fed[:L], dim=1)
+    tokens, parents, qmask, depth = dt.build_tree_inputs(
+        root, torch.stack([(ar + 1) % cfg.vocab_size, ar], dim=1))
+    kv, _, _ = step.prefill_step(params, kv, cfg, toks, zero, ctx, pt, spec)
+    _, vl, _ = step._verify_forward(params, kv, cfg, tokens, ctx[:, None] + depth, qmask,
+                                    parents, pt, ctx, active, spec, None)
+
+    def rels(v):
+        got = [v[0, 0]] + [v[0, 1 + L + i] for i in range(L)]
+        return [_errs(a, b)[1] for a, b in zip(got, rows)], got
+
+    rel, got = rels(vl)
+    same = sum(int(torch.argmax(a)) == int(f[0]) for a, f in zip(got, fed))
+    if not max(rel) <= 2e-2:
+        fail(f"phase hf: a branch-1 node's verify logits differ from AR: rel err {rel}")
+    out = dict(R=2, L=L, ctx=len(ids), rows=L + 1, max_rel_err=max(rel), rel_err_by_row=rel,
+               argmax_equal=same)
+    if cfg.position_embedding_type == "alibi":
+        slots = ctx[:, None] + torch.arange(tokens.shape[1], device="cuda", dtype=torch.int32)
+        kv, _, _ = step.prefill_step(params, kv, cfg, toks, zero, ctx, pt, spec)
+        _, vs, _ = step._verify_forward(params, kv, cfg, tokens, slots, qmask, parents, pt,
+                                        ctx, active, spec, None)
+        out["slot_rule_max_rel_err"] = max(rels(vs)[0])
+    return out
+
+
+def serve_hf(pkg, path, quant, lookahead, prompts, tok, new_tokens=HF_NEW_TOKENS,
+             **extra) -> tuple:
+    """LLM(model_path=path) (its load timed; ``extra`` EngineConfig fields)
+    and one generate over the text prompts. Returns (llm, numbers,
+    outputs)."""
+    import torch
+
+    config, llm_mod = pkg["config"], pkg["llm"]
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=8, prefill_chunk=512,
+              quant=quant, eos_token_id=-2, decode_burst=8, decode_burst_idle=32, **extra)
+    if lookahead:  # the default tree: 5 branches of 12 (Q = 61)
+        kw.update(use_lookahead=True, decoding_length=GEN_DECODING_LENGTH,
+                  branch_length=GEN_BRANCH_LENGTH, use_spec_min_batch_size=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    llm = llm_mod.LLM(model_path=path, ecfg=config.EngineConfig(**kw), tokenizer=tok)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reqs = llm.generate(prompts, pkg["request"].SamplingParams(max_new_tokens=new_tokens))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = llm.metrics
+    outs = [r.output_ids for r in reqs]
+    if any(len(o) != new_tokens for o in outs):
+        fail(f"phase hf {path}: a request stopped early")
+    return llm, dict(load_s=load_s, wall_s=wall, tok_s=m.generated_tokens / wall,
+                     p50_ttft_s=m.p50_ttft, prefill_s=m.prefill_time,
+                     spec_steps=m.spec_steps, spec_accepted=m.spec_accepted,
+                     prompt_tokens=sum(len(llm.encode(p)) for p in prompts)), outs
+
+
+def phase_hf(pkg) -> dict:
+    """Two checkpoints at published widths and HF_LAYERS layers, written
+    with the port's own write_safetensors in HF_SHARDS shards and an index
+    (random bf16 weights from SEED, numpy), loaded by LLM(model_path=...)
+    and served with 16 text prompts (the repository's BPE tokenizer), AR
+    and lookahead over the default tree (5 branches of 12): Llama-2-7B's
+    LlamaForCausalLM keys in int4 (K1, K2 / K3 / K5, K15, K16, K4) and
+    bigscience/bloom-7b1's BloomForCausalLM keys in bf16 (K10 for the
+    linears and the tied head, K2 / K3 / K5 with ALiBi, K16, K4). Holds the
+    reader's tensors and the loaded leaves byte-equal to the arrays
+    written, the lookahead outputs equal to the AR outputs token for token
+    (lossless_strict), a branch-1 tree node's logits against the AR step's
+    (``check_later_branch``), and for BLOOM every ALiBi launch of an AR and
+    a lookahead pass over 4 requests (fresh engines, no spec cooldown)
+    against its plain version. Prints the load time and GB/s (a warm read:
+    the files were just written), a B = 1 512-token prefill's ms and the AR
+    and lookahead rates (random weights); the kernels' launches counted
+    from 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = Launches(pkg)
+    launches.reset()
+    tok = load_bpe()
+    prompts = hf_prompts()
+    st = pkg["safetensors"]
+    res = {}
+    for name, make, quant in (("llama2_7b_int4", hf_llama_checkpoint, "int4"),
+                              ("bloom_7b1_bf16", hf_bloom_checkpoint, "none")):
+        t0 = time.perf_counter()
+        conf, tensors = make(np.random.default_rng(SEED))
+        draw_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix="pia_hf_") as d:
+            t0 = time.perf_counter()
+            nbytes = st.write_checkpoint(d, tensors, conf, n_shards=HF_SHARDS)
+            write_s = time.perf_counter() - t0
+            got = st.read_safetensors(d)
+            if set(got) != set(tensors) or not all(_same_bytes(got[k], tensors[k])
+                                                   for k in tensors):
+                fail(f"phase hf {name}: the reader's tensors differ from the arrays written")
+            del got
+            llm, ar, outs_ar = serve_hf(pkg, d, quant, False, prompts, tok)
+            n_checked = check_loaded(pkg, name, llm.params, tensors, quant)
+            ids = tok.encode((HERE / "benchmarks" / "corpus.txt").read_text())[:PROMPT_LEN]
+            toks = torch.tensor([ids], dtype=torch.int32, device="cuda")
+            pt = torch.arange(1, 1 + llm.ecfg.pages_per_req, dtype=torch.int32,
+                              device="cuda")[None]
+            zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+            full = torch.full((1,), PROMPT_LEN, dtype=torch.int32, device="cuda")
+            prefill_ms = time_ms(lambda: pkg["step"].prefill_step(
+                llm.params, llm.kv, llm.cfg, toks, zero, full, pt, llm.quant), reps=5,
+                warmup=1)
+            branch = check_later_branch(pkg, llm, ids)
+            del llm
+            llm, la, outs_la = serve_hf(pkg, d, quant, True, prompts, tok)
+            if outs_la != outs_ar:
+                bad = [i for i, (a, b) in enumerate(zip(outs_ar, outs_la)) if a != b]
+                fail(f"phase hf {name}: lookahead outputs differ from AR on requests {bad}")
+            del llm
+            alibi = None
+            if name.startswith("bloom"):
+                # a fresh engine without the spec gate's cooldown, so that
+                # the pass verifies drafts whatever they accept
+                check = AlibiCheck(pkg)
+                check.install()
+                try:
+                    for spec in (False, True):  # AR bursts decode, lookahead verifies
+                        llm, _, _ = serve_hf(pkg, d, quant, spec, prompts[:4], tok,
+                                             HF_CHECK_TOKENS, spec_cooldown_bursts=0)
+                        del llm
+                finally:
+                    check.remove()
+                if set(check.kinds) != {"decode", "verify", "prefill"}:
+                    fail(f"phase hf {name}: the ALiBi check saw launches {check.kinds}")
+                alibi = dict(launches_held=check.n, by_kind=check.kinds,
+                             max_rel_err=check.max_rel)
+        res[name] = dict(
+            checkpoint_gb=nbytes / 1e9, shards=HF_SHARDS, draw_s=draw_s, write_s=write_s,
+            load_s=ar["load_s"], load_gb_s=nbytes / 1e9 / ar["load_s"],
+            load_s_lookahead=la["load_s"], leaves_checked=n_checked,
+            prefill_ms=prefill_ms, prompt_tokens=ar["prompt_tokens"],
+            ar=ar, lookahead=la, lossless_strict=True, alibi_check=alibi,
+            later_branch=branch)
+        print(f"phase hf {name} (random weights, {HF_LAYERS} layers): " + json.dumps(res[name]))
+        del tensors
+        torch.cuda.empty_cache()
+    res["launches"] = launches.read()
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase hf: wall {res['wall_s']:.1f} s on {smi_line()}")
     return res
 
 
@@ -4699,7 +5197,7 @@ def load_port():
                  multistep="engine.multistep", llm="engine.llm",
                  request="engine.request", device_tables="lookahead.device_tables",
                  base="models.base", sample="ops.sample", server="service.server",
-                 client="service.client")
+                 client="service.client", safetensors="utils.safetensors")
     return {k: importlib.import_module(base + v) for k, v in names.items()}
 
 
@@ -4737,6 +5235,10 @@ def main() -> None:
     ap.add_argument("--sampling-only", action="store_true",
                     help="run only the sampling phase at Llama-2-7B int4 (a partial run: "
                          "prints no kernels line and no result line)")
+    ap.add_argument("--hf-only", action="store_true",
+                    help="run only the ALiBi attention rows and the hf phase (local "
+                         "checkpoints through LLM(model_path=...); a partial run: prints "
+                         "no kernels line and no result line)")
     args = ap.parse_args()
     import torch
 
@@ -4779,6 +5281,18 @@ def main() -> None:
         return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    if args.hf_only:
+        rows = alibi_attention_rows(pkg, torch.Generator(device="cuda").manual_seed(SEED + 19))
+        for r in rows:
+            print("phase 2 kernel: " + json.dumps(r))
+        hf_res = phase_hf(pkg)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (hf only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, kernels=rows, hf=hf_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     if args.w8a8_only:
         g = torch.Generator(device="cuda").manual_seed(SEED)
         rows = w8a8_rows(pkg, g, cfg) + k9_rows(pkg, g, cfg)
@@ -4879,6 +5393,7 @@ def main() -> None:
     gen_res = phase_generator(pkg, cfg, spec, params, main_res["ar_stream"])
     samp_res = phase_sampling(pkg, cfg, spec, params)
     del params
+    hf_res = phase_hf(pkg)
     quant_res = phase_quant_modes(pkg, cfg)
     rows += quant_res["kernels"]
     print("phase quant act: " + json.dumps(quant_res["quant_act"]))
@@ -4896,7 +5411,8 @@ def main() -> None:
                     serving_compaction_check=serve_res["check_launches"],
                     generator=gen_res["launches"],
                     generator_compaction_check=gen_res["check_launches"],
-                    sampling=samp_res["launches"], quant_modes=quant_res["launches"], moe=moe_res["launches"],
+                    sampling=samp_res["launches"], hf=hf_res["launches"],
+                    quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     checks = ("serving_compaction_check", "generator_compaction_check")
@@ -4913,8 +5429,8 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving or its "
                  "compaction check, in the generator phase or its compaction check, in the "
-                 "sampling phase, in the quant modes, in the MoE phases, in the MLA phases or in the "
-                 "linear-attention phases (launches by phase: "
+                 "sampling phase, in the hf phase, in the quant modes, in the MoE phases, in "
+                 "the MLA phases or in the linear-attention phases (launches by phase: "
                  f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
     print("phase 4 launches (sum): " + json.dumps(launches))
@@ -4925,7 +5441,7 @@ def main() -> None:
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
                                              generator=gen_res, sampling=samp_res,
-                                             quant_modes=quant_res, moe=moe_res,
+                                             hf=hf_res, quant_modes=quant_res, moe=moe_res,
                                              mla=mla_res, linear=lin_res,
                                              launches=by_phase,
                                              wall_s=wall_s), indent=1))

@@ -1,18 +1,24 @@
 """Model / engine configuration for the PyTorch port.
 
-A copy of the ported part of ``painlessinferenceacceleration_tpu.config``: the
+A copy of ``painlessinferenceacceleration_tpu.config``'s model fields: the
 llama family (with qwen3's per-head QK norm), the Mixture-of-Experts fields
 of the mixtral / qwen3_moe / deepseek class, the Multi-head Latent
-Attention fields of deepseek v2 / v3 and the linear-attention hybrid fields
-of the Ring / Bailing-linear class (the port imports nothing from the JAX
-package). Field names follow HF ``config.json`` keys, as in the JAX
-package, with the same defaults, so one set of keyword arguments builds the
-same model in both packages.
+Attention fields of deepseek v2 / v3, the linear-attention hybrid fields
+of the Ring / Bailing-linear class and the legacy dense families' knobs
+(gpt2, opt, gptj, bloom, glm, chatglm, baichuan, qwen1: layer norm, learned,
+ALiBi and GLM 2D positions, biases, un-gated MLPs, parallel residuals,
+partial and interleaved rope). The port imports nothing from the JAX
+package. Field names follow HF ``config.json`` keys, as in the JAX package,
+with the same defaults, so one set of keyword arguments builds the same
+model in both packages, and ``ModelConfig.from_hf`` maps a checkpoint's
+``config.json`` as the JAX one does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Tuple
 
 
@@ -25,7 +31,8 @@ class ModelConfig:
     ``kv_lora_rank`` > 0 the attention is Multi-head Latent Attention
     (``models/mla.py``); with ``linear_attention`` the model is a hybrid of
     linear-attention layers and, every ``layer_group_size``-th layer, full
-    attention (``models/linear_attn.py``)."""
+    attention (``models/linear_attn.py``). The legacy dense families set the
+    knobs below ``hidden_act`` (``models/base.py``)."""
 
     model_type: str = "llama"
     vocab_size: int = 32000
@@ -37,9 +44,29 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> hidden_size // num_attention_heads
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
+    attention_bias: bool = False  # bias on the fused qkv projection
+    mlp_bias: bool = False  # biases on the MLP's up (gate-up) and down projections
     hidden_act: str = "silu"
     qk_norm: bool = False  # qwen3: per-head RMSNorm on q and k before rope
+    # legacy-family knobs. "glm_2d" is AntGLM's two learned tables (position
+    # and block position); "alibi" adds slope[h] * key position to the scores
+    position_embedding_type: str = "rope"  # rope | learned | alibi | glm_2d
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm
+    # prefix-LM attention (AntGLM): prompt tokens see the whole prompt,
+    # generated tokens are causal
+    prefix_lm: bool = False
+    # [MASK] / [sMASK] / [gMASK] ids: the first one in a prompt anchors the
+    # generated tokens' GLM positions
+    mask_token_ids: Tuple[int, ...] = ()
+    gated_mlp: bool = True  # False: one up projection + activation (gpt2, bloom)
+    attention_out_bias: bool = False  # bias on the output projection
+    embed_layernorm: bool = False  # bloom's word_embeddings_layernorm
+    # gptj: one pre-norm feeds attention and the MLP, h += attn + mlp
+    parallel_residual: bool = False
+    partial_rotary_factor: float = 1.0  # share of the head dim that rope rotates
+    rope_interleaved: bool = False  # GPT-J / chatglm pairs (2i, 2i + 1)
     # HF rope_scaling dict ("rope_type" / "type": default, linear, llama3,
     # yarn), kept as a sorted item tuple
     rope_scaling: Optional[tuple] = None
@@ -76,8 +103,14 @@ class ModelConfig:
     # before the feature map
     linear_qk_norm: bool = False
     linear_rope: bool = False
+    # context parallelism: not ported (a set value raises, as EngineConfig's)
+    context_parallel: bool = False
 
     def __post_init__(self):
+        if self.context_parallel:
+            raise NotImplementedError(
+                "ModelConfig.context_parallel=True: context parallelism (ROADMAP A.10) "
+                "is not ported yet")
         if self.head_dim == 0:
             object.__setattr__(
                 self, "head_dim", self.hidden_size // self.num_attention_heads
@@ -86,6 +119,8 @@ class ModelConfig:
             object.__setattr__(
                 self, "rope_scaling", tuple(sorted(self.rope_scaling.items()))
             )
+        if isinstance(self.mask_token_ids, list):
+            object.__setattr__(self, "mask_token_ids", tuple(self.mask_token_ids))
 
     def rope_scaling_dict(self) -> Optional[dict]:
         return dict(self.rope_scaling) if self.rope_scaling else None
@@ -99,6 +134,207 @@ class ModelConfig:
         return self.kv_lora_rank > 0
 
     @classmethod
+    def from_hf(cls, conf: "dict | str") -> "ModelConfig":
+        """Build from an HF config dict, or a path to a model dir or its
+        ``config.json``: the JAX package's ``ModelConfig.from_hf``, branch
+        for branch (the HF keys of each family mapped onto the fields).
+        ``mla_latent_cache`` stays False, as there: a DeepSeek checkpoint
+        comes up in expanded mode."""
+        if isinstance(conf, str):
+            path = conf
+            if os.path.isdir(path):
+                path = os.path.join(path, "config.json")
+            with open(path) as f:
+                conf = json.load(f)
+        mt = conf.get("model_type", "llama")
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs: dict = {k: v for k, v in conf.items() if k in known}
+        kwargs["model_type"] = mt
+        # model-family aliases
+        if mt in ("qwen3", "qwen3_moe"):
+            kwargs["qk_norm"] = True
+        if mt in ("mixtral",):
+            kwargs["num_experts"] = conf.get("num_local_experts", 0)
+        if "num_experts_per_tok" in conf and "num_experts" not in kwargs:
+            kwargs["num_experts"] = conf.get("num_experts", 0)
+        if mt in ("deepseek_v2", "deepseek_v3"):
+            kwargs["moe_layer_start"] = conf.get("first_k_dense_replace", 1)
+            kwargs["num_shared_experts"] = conf.get("n_shared_experts", 0) or 0
+            kwargs["num_experts"] = conf.get("n_routed_experts", 0) or 0
+            kwargs["q_lora_rank"] = conf.get("q_lora_rank", 0) or 0
+            kwargs["kv_lora_rank"] = conf.get("kv_lora_rank", 0) or 0
+            kwargs["scoring_func"] = conf.get("scoring_func", "sigmoid" if mt == "deepseek_v3" else "softmax")
+            kwargs["routed_scaling_factor"] = conf.get("routed_scaling_factor", 1.0)
+        if mt == "opt":
+            kwargs.update(
+                intermediate_size=conf.get("ffn_dim", 4 * conf.get("hidden_size", 768)),
+                rms_norm_eps=1e-5,
+                position_embedding_type="learned",
+                norm_type="layernorm",
+                gated_mlp=False,
+                hidden_act=conf.get("activation_function", "relu"),
+                attention_bias=True,
+                attention_out_bias=True,
+                mlp_bias=True,
+                tie_word_embeddings=bool(conf.get("tie_word_embeddings", True)),
+            )
+        if mt == "gptj":
+            kwargs.update(
+                hidden_size=conf.get("n_embd", 4096),
+                num_hidden_layers=conf.get("n_layer", 28),
+                num_attention_heads=conf.get("n_head", 16),
+                num_key_value_heads=conf.get("n_head", 16),
+                intermediate_size=conf.get("n_inner") or 4 * conf.get("n_embd", 4096),
+                max_position_embeddings=conf.get("n_positions", 2048),
+                rms_norm_eps=conf.get("layer_norm_epsilon", 1e-5),
+                norm_type="layernorm",
+                gated_mlp=False,
+                hidden_act=conf.get("activation_function", "gelu_new"),
+                parallel_residual=True,
+                rope_interleaved=True,
+                partial_rotary_factor=(
+                    conf.get("rotary_dim", 64)
+                    / (conf.get("n_embd", 4096) // conf.get("n_head", 16))
+                ),
+                mlp_bias=True,
+                tie_word_embeddings=False,
+            )
+        if mt == "internlm":  # llama arch + qkv/o biases (conf["bias"])
+            kwargs["attention_bias"] = bool(conf.get("bias", True))
+            kwargs["attention_out_bias"] = bool(conf.get("bias", True))
+        if mt == "baichuan":
+            # 7B rope; 13B (40 heads, E = 5120) ALiBi: the HF config carries
+            # no flag, the modeling file keys off the model's size
+            if conf.get("num_attention_heads", 32) >= 40:
+                kwargs["position_embedding_type"] = "alibi"
+            kwargs["tie_word_embeddings"] = False
+        if mt == "qwen":  # qwen1: fused c_attn + halved ff width (w1/w2)
+            kwargs.update(
+                intermediate_size=conf.get("intermediate_size", 22016) // 2,
+                rms_norm_eps=conf.get("layer_norm_epsilon", 1e-6),
+                attention_bias=True,
+                attention_out_bias=False,
+                rope_theta=conf.get("rotary_emb_base", 10000.0),
+                tie_word_embeddings=False,
+            )
+        if mt in ("bailing_moe_linear_v2", "bailing_moe_linear"):
+            # the Ring / Bailing linear-attention hybrid
+            kwargs["linear_attention"] = True
+            kwargs["layer_group_size"] = conf.get("layer_group_size", 1)
+            kwargs["linear_qk_norm"] = True
+            kwargs["linear_rope"] = True
+            kwargs["qk_norm"] = bool(conf.get("use_qk_norm", False))
+            kwargs["moe_layer_start"] = conf.get("first_k_dense_replace", 0)
+            kwargs["num_experts"] = conf.get("num_experts", 0) or 0
+            kwargs["num_shared_experts"] = conf.get("num_shared_experts", 0) or 0
+            if conf.get("moe_intermediate_size"):
+                kwargs["moe_intermediate_size"] = conf["moe_intermediate_size"]
+            # the experts are sigmoid-scored, with the gate's expert_bias
+            kwargs["scoring_func"] = "sigmoid"
+            kwargs["n_group"] = conf.get("n_group", 0) or 0
+            kwargs["topk_group"] = conf.get("topk_group", 0) or 0
+            kwargs["routed_scaling_factor"] = conf.get("routed_scaling_factor", 1.0)
+            kwargs["norm_topk_prob"] = bool(conf.get("norm_topk_prob", True))
+            kwargs["linear_rope"] = bool(conf.get("linear_rope", True))
+            kwargs["attention_bias"] = bool(conf.get("use_qkv_bias", False))
+            kwargs["attention_out_bias"] = bool(conf.get("use_bias", False))
+            if conf.get("use_linear_gqa"):
+                raise NotImplementedError(
+                    "bailing use_linear_gqa checkpoints are not supported "
+                    "(linear layers here are MHA; see models/linear_attn.py)"
+                )
+        if mt == "gpt2":
+            kwargs.update(
+                vocab_size=conf.get("vocab_size", 50257),
+                hidden_size=conf.get("n_embd", 768),
+                num_hidden_layers=conf.get("n_layer", 12),
+                num_attention_heads=conf.get("n_head", 12),
+                num_key_value_heads=conf.get("n_head", 12),
+                intermediate_size=conf.get("n_inner") or 4 * conf.get("n_embd", 768),
+                max_position_embeddings=conf.get("n_positions", 1024),
+                rms_norm_eps=conf.get("layer_norm_epsilon", 1e-5),
+                position_embedding_type="learned",
+                norm_type="layernorm",
+                gated_mlp=False,
+                hidden_act=conf.get("activation_function", "gelu_new"),
+                attention_bias=True,
+                attention_out_bias=True,
+                mlp_bias=True,
+                tie_word_embeddings=True,
+            )
+        if mt == "bloom":
+            E = conf.get("hidden_size", conf.get("n_embed", 1024))
+            kwargs.update(
+                hidden_size=E,
+                num_hidden_layers=conf.get("n_layer", 24),
+                num_attention_heads=conf.get("n_head", 16),
+                num_key_value_heads=conf.get("n_head", 16),
+                intermediate_size=4 * E,
+                rms_norm_eps=conf.get("layer_norm_epsilon", 1e-5),
+                position_embedding_type="alibi",
+                norm_type="layernorm",
+                gated_mlp=False,
+                hidden_act="gelu_new",  # BloomGelu == tanh-approx gelu
+                attention_bias=True,
+                attention_out_bias=True,
+                mlp_bias=True,
+                embed_layernorm=True,
+                tie_word_embeddings=True,
+            )
+        if mt == "glm" and (
+            "block_position_encoding" in conf or "max_sequence_length" in conf
+        ):
+            # AntGLM / GLM-10B: LayerNorm blocks, un-gated GELU MLP, biases
+            # everywhere, two learned position tables (position + block
+            # position), prefix-LM attention, tied LM head
+            E = conf.get("hidden_size", 1024)
+            kwargs.update(
+                vocab_size=conf.get("vocab_size", 30592),
+                hidden_size=E,
+                num_hidden_layers=conf.get("num_layers", 24),
+                num_attention_heads=conf.get("num_attention_heads", 16),
+                num_key_value_heads=conf.get("num_attention_heads", 16),
+                intermediate_size=conf.get("bottleneck_size") or 4 * E,
+                max_position_embeddings=conf.get("max_sequence_length", 512) + 1,
+                rms_norm_eps=1e-5,  # nn.LayerNorm default (modeling_glm.py:227)
+                position_embedding_type="glm_2d",
+                norm_type="layernorm",
+                gated_mlp=False,
+                hidden_act="gelu",  # F.gelu exact (modeling_glm.py:26)
+                attention_bias=True,
+                attention_out_bias=True,
+                mlp_bias=True,
+                prefix_lm=True,
+                tie_word_embeddings=True,
+                mask_token_ids=tuple(conf.get("mask_token_ids", ())),
+            )
+        elif mt in ("chatglm", "glm"):
+            # chatglm2/3: MQA + RMSNorm + swiglu + rope on half the head dim,
+            # interleaved pairs
+            kwargs.update(
+                vocab_size=conf.get("padded_vocab_size", conf.get("vocab_size", 65024)),
+                num_hidden_layers=conf.get("num_layers", 28),
+                num_key_value_heads=conf.get(
+                    "multi_query_group_num", conf.get("num_attention_heads", 32)
+                ),
+                intermediate_size=conf.get("ffn_hidden_size", 13696),
+                rms_norm_eps=conf.get("layernorm_epsilon", 1e-5),
+                max_position_embeddings=conf.get("seq_length", 8192),
+                rope_theta=10000.0 * conf.get("rope_ratio", 1.0),
+                attention_bias=bool(conf.get("add_qkv_bias", True)),
+                partial_rotary_factor=0.5,
+                rope_interleaved=True,
+                tie_word_embeddings=False,
+            )
+        if "num_key_value_heads" not in kwargs:
+            kwargs["num_key_value_heads"] = kwargs.get(
+                "num_attention_heads", cls.num_attention_heads
+            )
+        if conf.get("head_dim") is None:
+            kwargs.pop("head_dim", None)
+        return cls(**kwargs)
+
+    @classmethod
     def tiny(cls, **over) -> "ModelConfig":
         """A tiny random-weight llama for CPU tests (same as the JAX preset)."""
         kw = dict(
@@ -108,6 +344,72 @@ class ModelConfig:
             num_hidden_layers=3,
             num_attention_heads=4,
             num_key_value_heads=2,
+            max_position_embeddings=512,
+        )
+        kw.update(over)
+        return cls(**kw)
+
+    @classmethod
+    def tiny_gpt2(cls, **over) -> "ModelConfig":
+        kw = dict(
+            model_type="gpt2",
+            vocab_size=512,
+            hidden_size=64,
+            intermediate_size=256,
+            num_hidden_layers=3,
+            num_attention_heads=4,
+            num_key_value_heads=4,
+            max_position_embeddings=512,
+            position_embedding_type="learned",
+            norm_type="layernorm",
+            gated_mlp=False,
+            hidden_act="gelu_new",
+            attention_bias=True,
+            attention_out_bias=True,
+            mlp_bias=True,
+            tie_word_embeddings=True,
+        )
+        kw.update(over)
+        return cls(**kw)
+
+    @classmethod
+    def tiny_bloom(cls, **over) -> "ModelConfig":
+        kw = dict(
+            model_type="bloom",
+            vocab_size=512,
+            hidden_size=64,
+            intermediate_size=256,
+            num_hidden_layers=3,
+            num_attention_heads=4,
+            num_key_value_heads=4,
+            max_position_embeddings=512,
+            position_embedding_type="alibi",
+            norm_type="layernorm",
+            gated_mlp=False,
+            hidden_act="gelu_new",
+            attention_bias=True,
+            attention_out_bias=True,
+            mlp_bias=True,
+            embed_layernorm=True,
+            tie_word_embeddings=True,
+        )
+        kw.update(over)
+        return cls(**kw)
+
+    @classmethod
+    def tiny_chatglm(cls, **over) -> "ModelConfig":
+        kw = dict(
+            model_type="chatglm",
+            vocab_size=512,
+            hidden_size=64,
+            intermediate_size=128,
+            num_hidden_layers=3,
+            num_attention_heads=4,
+            num_key_value_heads=2,
+            max_position_embeddings=512,
+            attention_bias=True,
+            partial_rotary_factor=0.5,
+            rope_interleaved=True,
         )
         kw.update(over)
         return cls(**kw)
@@ -128,14 +430,14 @@ class ModelConfig:
     @classmethod
     def mla_3b(cls) -> "ModelConfig":
         """The JAX package's DeepSeek-V2-Lite-shaped MLA model with a dense
-        MLP (its ``rope_interleaved`` and ``max_position_embeddings`` are
-        fields the port has no use for: MLA always pairs rope dims
-        interleaved)."""
+        MLP (MLA pairs its rope dims interleaved whatever
+        ``rope_interleaved`` says)."""
         return cls(model_type="deepseek_v2", hidden_size=2048, intermediate_size=8192,
                    num_hidden_layers=24, num_attention_heads=16,
                    num_key_value_heads=16, q_lora_rank=0, kv_lora_rank=512,
                    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
-                   mla_latent_cache=True)
+                   mla_latent_cache=True, rope_interleaved=True,
+                   max_position_embeddings=4096)
 
     @classmethod
     def deepseek_v2_lite(cls) -> "ModelConfig":
@@ -143,6 +445,7 @@ class ModelConfig:
         (``q_lora_rank`` null there), served from the latent cache."""
         return cls(model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
                    intermediate_size=10944, moe_intermediate_size=1408,
+                   max_position_embeddings=163840,
                    num_hidden_layers=27, num_attention_heads=16,
                    num_key_value_heads=16, rms_norm_eps=1e-6, rope_theta=10000.0,
                    rope_scaling={"beta_fast": 32, "beta_slow": 1, "factor": 40,

@@ -18,6 +18,25 @@
 //      normaliser keeps the unscaled probabilities), which equals attending
 //      over the dequantized rows.
 //
+// ALiBi (template ALIBI, the bloom / baichuan-13b families): each score
+// gains slope[qh] * pos before the row max, in fp32, as the plain version
+// (ops/attention.py mha_reference) adds it, where pos is the key's
+// position: its slot j for a committed key (j < ctx), and kpos[b, j - ctx]
+// for the step's own keys when kpos is given under the mask rule (a tree
+// verify's node sits at ctx + its depth, not at its slot; without kpos, and
+// under the causal rule, which puts a chunk's key s at ctx + s, at its
+// slot). A thread takes its 16 columns' positions once a key block, and
+// reads kpos only in the blocks that hold the step's keys. The bias is
+// added in the log2 units the softmax runs in (slope * log2(e) * pos after
+// the score factor), so in every mode the ALiBi scores are scaled in place
+// and the softmax's factor left is 1. The expression depends on the row's
+// head, the key's position and its product only: a prefill row stays
+// bit-equal to its decode. The ALiBi build moves
+// registers from the loader warpgroup to the consumers (setmaxnreg: 56 and
+// 224 a thread; the launch bound leaves 168 to each) so that its softmax
+// does not spill. Without ALIBI the body is the slope-free one,
+// instruction for instruction.
+//
 // Visibility (ops/attention.py): key slot j is visible to query row t iff
 // j < ctx, or s = j - ctx lies in [0, Q) and qmask[b, t, s] (causal: s <= t).
 // A masked score is the sentinel -1e30 and its probability exactly 0, so a
@@ -193,12 +212,13 @@ __device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool ALIBI>
 __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap km, const __grid_constant__ CUtensorMap vm,
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ page_tables,
     const int* __restrict__ ctx_lens, const uint8_t* __restrict__ qmask,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const float* __restrict__ alibi, const int* __restrict__ kpos,
     __nv_bfloat16* __restrict__ out, int Q, int Hq, int Hkv, int P, int QT,
     int n_tiles, float scale, int causal) {
   using L = Smem<D, MODE>;
@@ -262,6 +282,9 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
 
   if (threadIdx.x >= kLoader) {
     // ---- the loader warpgroup ----
+    // (ALiBi's consumers need more than the 168 registers a thread the
+    // launch bound gives: the loader hands them its share)
+    if constexpr (ALIBI) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     const int lt = threadIdx.x - kLoader;
     if (MODE == kBf16) {
       if (lt != 0) return;
@@ -340,6 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   }
 
   // ---- the consumer warpgroups ----
+  if constexpr (ALIBI) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
   if (wg >= n_mma) return;  // all 64 rows are padding
   const int wi = (threadIdx.x >> 5) & 3;
   const int quad = lane & 3;
@@ -353,10 +377,22 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   // score factor with log2(e) folded in. The bf16 and static e4m3 modes
   // keep the scores (and the running max m) as the products give them and
   // take p = 2^(s kfac - m kfac) in one fma; the per-token mode scales each
-  // score column first (by kfac and the key's scale), so its factor left is 1.
+  // score column first (by kfac and the key's scale), and so does ALiBi
+  // (by kfac, then the bias), so their factor left is 1.
+  constexpr bool kScaled = MODE == kFp8Token || ALIBI;
   const float kfac = (MODE == kFp8Head ? scale * k_scale[h] : scale) * kLog2e;
-  const float sfac = MODE == kFp8Token ? 1.f : kfac;
+  const float sfac = kScaled ? 1.f : kfac;
+  // each row's slope in log2 units (its query head's; 0 for padding)
+  float slope2[2] = {0.f, 0.f};
+  if (ALIBI) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = 64 * wg + 16 * wi + (lane >> 2) + 8 * h2;
+      if (tpos[h2] >= 0) slope2[h2] = alibi[h * G + r / nt] * kLog2e;
+    }
+  }
   const uint8_t* qm = qmask + (size_t)b * Q * Q;
+  const int* kp = kpos != nullptr && !causal ? kpos + (size_t)b * Q : nullptr;  // the step's keys
 
   constexpr int kO = D / 2;  // accumulator floats a thread
   float o[kO];
@@ -391,6 +427,20 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   // leaves the probabilities in s and each row's rescale factor
   auto softmax = [&](int kb, float (&alpha)[2]) {
     const float* ks = sc_s + (kb % S) * 2 * kKeys;
+    // ALiBi: the positions of this thread's 16 columns, i -> column
+    // 8 (i / 2) + 2 quad + i % 2
+    float kposf[ALIBI ? 16 : 1];
+    if constexpr (ALIBI) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) kposf[i] = (float)(kb * kKeys + 8 * (i / 2) + 2 * quad + i % 2);
+      if (kp != nullptr && (kb + 1) * kKeys > ctx) {  // a block with some of the step's keys
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int sk = kb * kKeys + 8 * (i / 2) + 2 * quad + i % 2 - ctx;
+          if (sk >= 0 && sk < Q) kposf[i] = (float)kp[sk];
+        }
+      }
+    }
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int t = tpos[h2];
@@ -411,7 +461,11 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
             vis = t >= 0 &&
                   (col < pre || (col - pre < Q && qm[(size_t)t * Q + col - pre] != 0));
           float v = s[4 * j + 2 * h2 + c];
-          if (MODE == kFp8Token) v = v * kfac * ks[col];
+          if (MODE == kFp8Token)
+            v = v * kfac * ks[col];
+          else if (ALIBI)
+            v = v * kfac;
+          if constexpr (ALIBI) v = fmaf(slope2[h2], kposf[2 * j + c], v);
           v = vis ? v : kNegInf;
           s[4 * j + 2 * h2 + c] = v;
           mx = fmaxf(mx, v);
@@ -512,15 +566,17 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   }
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool ALIBI>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* page_tables, const int* ctx_lens, const uint8_t* qmask,
-                   const float* k_scale, const float* v_scale, void* out, int B, int Q,
-                   int Hq, int Hkv, int n_pages, int P, int QT, float scale, int causal,
-                   cudaStream_t st) {
+                   const float* k_scale, const float* v_scale, const float* alibi,
+                   const int* kpos, void* out,
+                   int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT, float scale,
+                   int causal, cudaStream_t st) {
   using L = Smem<D, MODE>;
   static bool done[64] = {};
-  cudaError_t err = allow_smem(paged_attention_wgmma_kernel<D, MODE>, L::kBytes, done);
+  cudaError_t err =
+      allow_smem(paged_attention_wgmma_kernel<D, MODE, ALIBI>, L::kBytes, done);
   if (err != cudaSuccess) return err;
   CUtensorMap km, vm;
   const uint64_t rows = (uint64_t)n_pages * kKeys, cols = (uint64_t)Hkv * D;
@@ -538,28 +594,42 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   if (QT < 1 || (Hq / Hkv) * QT > kRows) return cudaErrorInvalidValue;
   const int n_tiles = (Q + QT - 1) / QT;
   dim3 grid(Hkv, B, n_tiles);
-  paged_attention_wgmma_kernel<D, MODE><<<grid, kThreads, L::kBytes, st>>>(
+  paged_attention_wgmma_kernel<D, MODE, ALIBI><<<grid, kThreads, L::kBytes, st>>>(
       km, vm, static_cast<const __nv_bfloat16*>(q), page_tables, ctx_lens, qmask, k_scale,
-      v_scale, static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, P, QT, n_tiles, scale, causal);
+      v_scale, alibi, kpos, static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, P, QT, n_tiles, scale,
+      causal);
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, bool ALIBI>
 cudaError_t launch_mode(int mode, const void* q, const void* k_pages, const void* v_pages,
                         const int* pt, const int* cl, const uint8_t* qm, const float* ksc,
-                        const float* vsc, void* out, int B, int Q, int Hq, int Hkv,
-                        int n_pages, int P, int QT, float scale, int causal,
-                        cudaStream_t st) {
+                        const float* vsc, const float* alibi, const int* kpos, void* out,
+                        int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT, float scale,
+                        int causal, cudaStream_t st) {
   if (mode == kBf16)
-    return launch<D, kBf16>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, out, B, Q, Hq, Hkv,
-                            n_pages, P, QT, scale, causal, st);
+    return launch<D, kBf16, ALIBI>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out, B,
+                                   Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
   if (mode == kFp8Head)
-    return launch<D, kFp8Head>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, out, B, Q, Hq,
-                               Hkv, n_pages, P, QT, scale, causal, st);
+    return launch<D, kFp8Head, ALIBI>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
+                                      B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
   if (mode == kFp8Token)
-    return launch<D, kFp8Token>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, out, B, Q, Hq,
-                                Hkv, n_pages, P, QT, scale, causal, st);
+    return launch<D, kFp8Token, ALIBI>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos,
+                                       out, B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
   return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_alibi(int mode, const void* q, const void* k_pages, const void* v_pages,
+                         const int* pt, const int* cl, const uint8_t* qm, const float* ksc,
+                         const float* vsc, const float* alibi, const int* kpos, void* out,
+                         int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT,
+                         float scale, int causal, cudaStream_t st) {
+  if (alibi != nullptr)
+    return launch_mode<D, true>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
+                                B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
+  return launch_mode<D, false>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
+                               B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
 }
 
 }  // namespace
@@ -586,14 +656,17 @@ extern "C" int paged_attention_smem_bytes(int D, int mode) {
 // bf16 (mode 0) or e4m3 (modes 1, 2); page_tables int32 [B, P]; ctx_lens
 // int32 [B]; qmask uint8 [B, Q, Q] (ignored when causal); k_scale/v_scale
 // f32 [Hkv] (mode 1) or [n_pages, 64, Hkv] (mode 2), null in mode 0;
-// out bf16 [B, Q, Hq, D]; positions: the query positions of a tile. The
+// alibi f32 [Hq] slopes, or null for none; alibi_pos int32 [B, Q] the
+// positions of the step's own keys, or null for their slots (read only with
+// alibi); out bf16 [B, Q, Hq, D]; positions: the query positions of a tile. The
 // wrapper's plan (ops/paged_attention.py attention_check, attention_plan)
 // gives positions = 128 / (Hq / Hkv) and requires D in {64, 128}, page size
 // 64, B <= 65535 and 16-byte aligned operands.
 extern "C" int paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                const void* page_tables, const void* ctx_lens,
                                const void* qmask, const void* k_scale, const void* v_scale,
-                               void* out, int B, int Q, int Hq, int Hkv, int D, int n_pages,
+                               const void* alibi, const void* alibi_pos, void* out, int B, int Q,
+                               int Hq, int Hkv, int D, int n_pages,
                                int P, int positions, float scale, int causal, int mode,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -602,13 +675,15 @@ extern "C" int paged_attention(const void* q, const void* k_pages, const void* v
   const uint8_t* qm = static_cast<const uint8_t*>(qmask);
   const float* ksc = static_cast<const float*>(k_scale);
   const float* vsc = static_cast<const float*>(v_scale);
+  const float* al = static_cast<const float*>(alibi);
+  const int* ap = static_cast<const int*>(alibi_pos);
   cudaError_t err = cudaErrorInvalidValue;
   if (D == 128)
-    err = launch_mode<128>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, out, B, Q, Hq,
-                           Hkv, n_pages, P, positions, scale, causal, st);
+    err = launch_alibi<128>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, al, ap, out, B, Q,
+                            Hq, Hkv, n_pages, P, positions, scale, causal, st);
   else if (D == 64)
-    err = launch_mode<64>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, out, B, Q, Hq,
-                          Hkv, n_pages, P, positions, scale, causal, st);
+    err = launch_alibi<64>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, al, ap, out, B, Q,
+                           Hq, Hkv, n_pages, P, positions, scale, causal, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

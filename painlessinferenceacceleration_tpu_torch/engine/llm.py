@@ -38,11 +38,20 @@ Port of ``painlessinferenceacceleration_tpu/engine/llm.py`` (``LLM``):
   outputs through prefill would leave other bits in the states than the
   unpreempted stream's.
 
-Not ported yet (ROADMAP A.5): multimodal embeddings and GLM positions (no
-parameter takes them), loading from ``model_path`` and text without a
-tokenizer (both raise). On a linear-attention hybrid, mix batches carry
-no decode rows (a row's chunk-form bits differ from its decode step's) and
-a scoring request borrows a free slot's state (zeroed first).
+- loading: ``LLM(model_path=...)`` reads a local HF checkpoint directory
+  through ``models/hf_loader.py`` (the port's own safetensors reader; no
+  download), quantized to ``EngineConfig.quant`` on the card leaf by leaf;
+  the tokenizer is the caller's (any object with ``encode`` / ``decode``),
+  or HF's ``AutoTokenizer`` for the directory when ``transformers`` is
+  importable;
+- multimodal requests: precomputed embeddings spliced over prompt positions
+  during chunked prefill (such a request takes no part in the prefix
+  cache); AntGLM's 2D positions (each slot's prompt length and first mask
+  token) on every route, with the prefix-LM window in prefill.
+
+On a linear-attention hybrid, mix batches carry no decode rows (a row's
+chunk-form bits differ from its decode step's) and a scoring request
+borrows a free slot's state (zeroed first).
 
 Host arrays are numpy mirrors of the per-slot state, as in the JAX engine;
 they go to the card through pinned buffers (``non_blocking``), so that an
@@ -79,6 +88,7 @@ from painlessinferenceacceleration_tpu_torch.engine.request import (
     SamplingParams,
 )
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step, score_step
+from painlessinferenceacceleration_tpu_torch.models.base import check_model_on_card
 from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
@@ -94,6 +104,19 @@ from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
     update_tables_seq,
 )
 from painlessinferenceacceleration_tpu_torch.utils.metrics import EngineMetrics
+
+
+def _auto_tokenizer(model_path: str):
+    """HF's AutoTokenizer for a checkpoint directory, when ``transformers``
+    is importable and the directory holds one; else None."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        return None
+    try:
+        return AutoTokenizer.from_pretrained(model_path, local_files_only=True)
+    except Exception:  # no tokenizer files in the directory
+        return None
 
 
 def _first_tensor(tree):
@@ -119,12 +142,18 @@ class LLM:
         dtype=torch.bfloat16,
         device=None,
     ):
-        if model_path is not None:
-            raise NotImplementedError(
-                "loading from model_path comes with models/hf_loader.py (ROADMAP A.5)")
-        if cfg is None or params is None:
-            raise ValueError("LLM needs cfg and params")
         self.device = _build.resolve_device(device)
+        self.ecfg = ecfg or EngineConfig()
+        self.quant = QuantSpec.from_mode(self.ecfg.quant, self.ecfg.quant_group)
+        if model_path is not None:
+            from painlessinferenceacceleration_tpu_torch.models.hf_loader import load_model
+
+            cfg, params, self.quant = load_model(model_path, dtype=dtype, quant=self.quant,
+                                                 device=self.device)
+            if tokenizer is None:
+                tokenizer = _auto_tokenizer(model_path)
+        if cfg is None or params is None:
+            raise ValueError("LLM needs model_path, or cfg and params")
         leaf = _first_tensor(params)
         if leaf is None or leaf.device.type != self.device.type:
             raise ValueError(f"params live on {None if leaf is None else leaf.device}, "
@@ -133,13 +162,12 @@ class LLM:
             _build.build_all()  # never on the scheduler thread
             for name in _build.SOURCES:
                 _build.library(name)
-        self.ecfg = ecfg or EngineConfig()
         self.dtype = dtype
-        self.quant = QuantSpec.from_mode(self.ecfg.quant, self.ecfg.quant_group)
         if self.device.type == "cuda":
             check_int4_params(params)
             check_int8_params(params)
             check_w8a8_params(params)
+            check_model_on_card(cfg, params, self.ecfg.page_size, self.ecfg.prefill_chunk)
         if self.ecfg.quant_embed and "embed" in params:
             params = dict(params)
             params["embed"] = make_embedding(params["embed"],
@@ -168,6 +196,10 @@ class LLM:
         self._last_np = np.zeros((B,), np.int32)
         self._ctx_np = np.zeros((B,), np.int32)
         self._slots: List[Optional[Request]] = [None] * B
+        # AntGLM 2D positions: each slot's (prompt_len_eff, mask_pos), from
+        # the prompt's first mask token
+        self._glm = cfg.position_embedding_type == "glm_2d"
+        self._glm_np = np.zeros((B, 2), np.int32) if self._glm else None
 
         # lookahead draft tables on the card, shared across requests
         self.tcfg = DraftTableConfig(
@@ -208,9 +240,18 @@ class LLM:
         sampling: Optional[SamplingParams] = None,
         stream: bool = False,
         target_ids: Optional[Sequence[int]] = None,
+        mm_embeds=None,
+        mm_positions: Optional[Sequence[int]] = None,
     ) -> Request:
+        """Queue a request. ``mm_embeds`` [M, E] replace the embeddings of
+        the prompt tokens at ``mm_positions`` (M of them)."""
+        if mm_embeds is not None and (self.cfg.linear_attention or mm_positions is None
+                                      or len(mm_positions) != len(mm_embeds)):
+            raise ValueError("mm_embeds need one prompt position each (mm_positions), and "
+                             "a model that is not a linear-attention hybrid")
         req = Request(next(self._rid), list(input_ids), sampling, stream,
-                      list(target_ids) if target_ids else None)
+                      list(target_ids) if target_ids else None, mm_embeds,
+                      list(mm_positions) if mm_positions is not None else None)
         req.arrival_t = time.perf_counter()
         # an oversized prompt would overflow the per-request page table
         limit = self.ecfg.max_seq_len - 1
@@ -293,13 +334,15 @@ class LLM:
 
     def encode(self, text: str) -> List[int]:
         if self.tokenizer is None:
-            raise NotImplementedError("text prompts need a tokenizer (ROADMAP A.5)")
-        return self.tokenizer.encode(text)
+            raise ValueError("text prompts need a tokenizer: pass tokenizer= (any object "
+                             "with encode / decode)")
+        return list(self.tokenizer.encode(text))
 
     def decode_text(self, ids: Sequence[int]) -> str:
         if self.tokenizer is None:
-            raise NotImplementedError("decoding text needs a tokenizer (ROADMAP A.5)")
-        return self.tokenizer.decode(ids)
+            raise ValueError("decoding text needs a tokenizer: pass tokenizer= (any object "
+                             "with encode / decode)")
+        return self.tokenizer.decode(list(ids))
 
     # ------------------------------------------------------------------
     # scheduler
@@ -411,7 +454,7 @@ class LLM:
         source = req.prefill_source
         shared: List[int] = []
         matched = 0
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and req.mm_embeds is None:
             shared, matched = self.prefix_cache.match(source)
             # retain before any eviction or allocation: _reserve could evict
             # the matched entries and allocate() hand their pages back out
@@ -432,6 +475,12 @@ class LLM:
         req.done = matched  # prefill resumes after the shared prefix
         req.slot = slot
         req.state = "prefill"
+        if self._glm:
+            src = req.input_ids
+            p_eff = max(len(src) - 1, 1)  # the prompt ends with <sop>
+            mids = self.cfg.mask_token_ids
+            mpos = next((j for j, t in enumerate(src) if t in mids), p_eff - 1)
+            self._glm_np[slot] = (p_eff, max(mpos, 0))
         self._slots[slot] = req
         # the slot's recurrent state (a hybrid's) still holds its last request's
         reset_linear_states(self.kv, [slot])
@@ -519,7 +568,7 @@ class LLM:
             self.kv, nxt, logits = prefill_step(
                 self.params, self.kv, self.cfg, self._dev(buf), self._dev(starts),
                 self._dev(lens), self._dev(self._page_np[idx]), self.quant,
-                slot_ids=self._dev(idx),
+                slot_ids=self._dev(idx), **self._prefill_extras(cand, B, idx),
             )
             if any(r.sampling.temperature > 0 for r in cand):
                 # a prefill row's first token sits at stream position
@@ -549,6 +598,26 @@ class LLM:
                     self._finish_prefill(req, int(nxt_np[k]))
             self.metrics.prefill_time += time.perf_counter() - t0
 
+    def _prefill_extras(self, cand, B: int, idx) -> dict:
+        """The batch's multimodal embeddings and positions (when a row has
+        them) and GLM ids, as prefill_step takes them."""
+        out = {}
+        mm = [r for r in cand if r.state == "prefill" and r.mm_embeds is not None]
+        if mm:
+            M = max(len(r.mm_positions) for r in mm)
+            me = np.zeros((B, M, self.cfg.hidden_size), np.float32)
+            mp = np.full((B, M), -1, np.int32)
+            for k, r in enumerate(cand):
+                if r.state == "prefill" and r.mm_embeds is not None:
+                    e = r.mm_embeds
+                    e = e.float().cpu().numpy() if isinstance(e, torch.Tensor) else e
+                    me[k, : len(r.mm_positions)] = e
+                    mp[k, : len(r.mm_positions)] = r.mm_positions
+            out.update(mm_embeds=self._dev(me), mm_pos=self._dev(mp))
+        if self._glm:
+            out["glm_ids"] = self._dev(self._glm_np[idx])
+        return out
+
     def _finish_prefill(self, req: Request, first: int) -> None:
         resumed = bool(req.output_ids)  # a preempted request replaying its KV
         if resumed:
@@ -562,7 +631,7 @@ class LLM:
         req.state = "decode"
         self._last_np[req.slot] = first
         self._ctx_np[req.slot] = len(req.prefill_source)
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and req.mm_embeds is None:
             # publish this prompt's full pages for later shared-prefix hits
             self.prefix_cache.register(req.prefill_source, req.pages)
         if self.tables is not None:
@@ -872,6 +941,8 @@ class LLM:
             arrs = self._pack_sampling([self._slots[i] for i in rows], B)
             samp = dict(zip(("temperature", "top_k", "top_p", "min_p", "seeds"),
                             map(self._dev, arrs)))
+        if self._glm:  # rides with the burst, as chained bursts reuse samp
+            samp["glm_ids"] = self._dev(self._glm_np[idx])
 
         if use_spec:
             tails = self._dev(self._tails[idx])

@@ -18,8 +18,9 @@ takes frozen tables (``update_tables=False``), reports the ``wide_mask``
 probe (a step whose drafts were retrievable) and, with
 ``DraftTableConfig.adaptive``, runs a width-1 AR step instead of the wide
 verify on a step where no active row retrieved a draft: a host branch on
-the probe, read back once a step with the accepted counts. GLM positions
-are not ported yet (ROADMAP A.5).
+the probe, read back once a step with the accepted counts. Both take
+AntGLM's per-row (prompt_len_eff, mask_pos) pair (``glm_ids``) for the 2D
+positions.
 """
 
 from __future__ import annotations
@@ -66,10 +67,12 @@ def _sampling(B, dev, temperature, top_k, top_p, min_p, seeds):
     return (temperature, top_k, top_p, min_p, seeds)
 
 
-def _ar_logits(params, cfg, kv, last, ctx, act, page_tables, qmask1, spec, slot_ids):
+def _ar_logits(params, cfg, kv, last, ctx, act, page_tables, qmask1, spec, slot_ids,
+               glm_ids=None):
     """One width-1 step's forward: (kv, logits [B, V])."""
     h, kv = transformer_hidden(params, cfg, kv, last[:, None], ctx[:, None], page_tables,
-                               ctx, qmask1, act[:, None], spec, slot_ids=slot_ids)
+                               ctx, qmask1, act[:, None], spec, slot_ids=slot_ids,
+                               glm_ids=glm_ids)
     return kv, logits_from_hidden(params, cfg, h, spec)[:, 0]
 
 
@@ -107,6 +110,7 @@ def multistep_decode(
     seeds: Optional[torch.Tensor] = None,  # [B] per-request seeds
     rep_penalty: Optional[torch.Tensor] = None,  # [B]; None => off
     seen_mask: Optional[torch.Tensor] = None,  # [B, V] bool: prompt + output tokens
+    glm_ids: Optional[torch.Tensor] = None,  # [B, 2] AntGLM 2D positions
 ):
     """``n_steps`` AR steps, greedy, teacher-forced or sampled (the token at
     stream position p drawn from the noise of (seed, p), as the spec loop
@@ -128,7 +132,7 @@ def multistep_decode(
     toks = []
     for _ in range(n_steps):
         kv, logits = _ar_logits(params, cfg, kv, last, ctx, act, page_tables, qmask, spec,
-                                slot_ids)
+                                slot_ids, glm_ids)
         if rep_penalty is not None:
             logits = apply_repetition_penalty(logits, seen, rep_penalty)
         nxt = _ar_tokens(logits, ctx, teacher, sampling)
@@ -166,6 +170,7 @@ def multistep_spec_decode(
     top_p: Optional[torch.Tensor] = None,  # [B]
     min_p: Optional[torch.Tensor] = None,  # [B]
     seeds: Optional[torch.Tensor] = None,  # [B]
+    glm_ids: Optional[torch.Tensor] = None,  # [B, 2] AntGLM 2D positions
 ):
     """``n_steps`` lookahead verify steps with the draft tables on the card.
 
@@ -200,7 +205,7 @@ def multistep_spec_decode(
             # no draft anywhere: a plain width-1 AR step, whose token is the
             # wide verify's root token (the rows are width-invariant)
             kv, logits = _ar_logits(params, cfg, kv, last, ctx, act, page_tables, qmask1,
-                                    spec, slot_ids)
+                                    spec, slot_ids, glm_ids)
             out = torch.zeros((B, Q), dtype=torch.int32, device=dev)
             out[:, 0] = _ar_tokens(logits, ctx, teacher, sampling)
             n_acc = act.to(torch.int32)
@@ -208,7 +213,7 @@ def multistep_spec_decode(
             tokens, parents, qmask, depth = build_tree_inputs(last, branches)
             kv, out, n_acc = verify_parallel_core(
                 params, kv, cfg, tokens, ctx[:, None] + depth, qmask, parents,
-                page_tables, ctx, act, R, L, spec, teacher, slot_ids, sampling)
+                page_tables, ctx, act, R, L, spec, teacher, slot_ids, sampling, glm_ids)
         # eos clamp: truncate the emitted run at its first eos
         is_eos = (out == eos[:, None]) & (k < n_acc[:, None])
         any_eos = is_eos.any(dim=1)

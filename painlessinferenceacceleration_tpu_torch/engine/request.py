@@ -1,10 +1,11 @@
 """Request objects.
 
-Port (a copy) of ``painlessinferenceacceleration_tpu/engine/request.py``
-without the multimodal fields. One class is both the scheduling record
-(the chunked-prefill cursor ``done``) and the user-facing handle (output
-tokens, finish reason, stream queue, and for a scoring request the
-logprobs of its ``target_ids``).
+Port (a copy) of ``painlessinferenceacceleration_tpu/engine/request.py``.
+One class is both the scheduling record (the chunked-prefill cursor
+``done``) and the user-facing handle (output tokens, finish reason, stream
+queue, and for a scoring request the logprobs of its ``target_ids``). A
+multimodal request carries precomputed embeddings (``mm_embeds`` [M, E])
+and the prompt positions they replace (``mm_positions``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ class Request:
         "rid", "input_ids", "sampling", "output_ids", "state", "done",
         "pages", "slot", "last_token", "stream_queue", "target_ids",
         "target_logprobs", "finish_reason", "arrival_t", "first_token_t", "finish_t", "replay",
+        "mm_embeds", "mm_positions",
     )
 
     def __init__(
@@ -53,6 +55,8 @@ class Request:
         sampling: Optional[SamplingParams] = None,
         stream: bool = False,
         target_ids: Optional[List[int]] = None,
+        mm_embeds=None,  # [M, E] precomputed multimodal embeddings (numpy or torch)
+        mm_positions: Optional[List[int]] = None,  # the prompt positions they take
     ):
         self.rid = rid
         self.input_ids = list(input_ids)
@@ -73,6 +77,8 @@ class Request:
         self.arrival_t: float = 0.0
         self.first_token_t: float = 0.0
         self.finish_t: float = 0.0
+        self.mm_embeds = mm_embeds
+        self.mm_positions = mm_positions
 
     @property
     def prompt_len(self) -> int:

@@ -35,18 +35,38 @@ def prefill_step(
     page_tables: torch.Tensor,  # [B, P]
     spec: Optional[QuantSpec] = None,
     slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
+    mm_embeds: Optional[torch.Tensor] = None,  # [B, M, E] multimodal embeddings
+    mm_pos: Optional[torch.Tensor] = None,  # [B, M] their prompt positions (-1 pad)
+    glm_ids: Optional[torch.Tensor] = None,  # [B, 2] (prompt_len_eff, mask_pos)
 ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
     """One prompt chunk per request; returns (kv, next_tokens [B],
-    last_logits [B, V]). next_tokens is meaningful on the final chunk."""
+    last_logits [B, V]). next_tokens is meaningful on the final chunk.
+
+    ``mm_embeds`` / ``mm_pos`` splice precomputed (image) embeddings over
+    the token embeddings at those prompt positions, as each chunk reaches
+    them. ``glm_ids`` gives AntGLM's 2D positions and, with
+    ``cfg.prefix_lm``, the prefix-LM window: a query also sees the chunk's
+    keys inside the prompt, so the chunk is not purely causal (on the card
+    only Q <= 128 has a kernel for that)."""
     B, C = tokens.shape
     dev = tokens.device
     i = torch.arange(C, device=dev)
     pos = start_lens.long()[:, None] + i[None, :]
     qmask = (i[:, None] >= i[None, :])[None].expand(B, C, C)
+    causal_window = True
+    if cfg.prefix_lm and glm_ids is not None:
+        qmask = qmask | (pos[:, None, :] < glm_ids[:, :1, None].long())
+        causal_window = False
     valid = i[None, :] < chunk_lens[:, None]
+    embed_override = None
+    if mm_embeds is not None:
+        local = mm_pos.long() - start_lens.long()[:, None]
+        ok = (local >= 0) & (local < C) & (mm_pos >= 0)
+        embed_override = (torch.where(ok, local, C), mm_embeds)
     h, kv = transformer_hidden(params, cfg, kv, tokens, pos, page_tables,
-                               start_lens, qmask, valid, spec, causal_window=True,
-                               slot_ids=slot_ids)
+                               start_lens, qmask, valid, spec, causal_window=causal_window,
+                               slot_ids=slot_ids, embed_override=embed_override,
+                               glm_ids=glm_ids)
     last = (chunk_lens.long() - 1).clamp(0, C - 1)
     h_last = h[torch.arange(B, device=dev), last][:, None]  # [B, 1, E]
     logits = logits_from_hidden(params, cfg, h_last, spec)[:, 0]
@@ -128,14 +148,14 @@ def _accept_walk(greedy: torch.Tensor, tokens: torch.Tensor, parents: torch.Tens
 
 
 def _verify_forward(params, kv, cfg, tokens, positions, qmask, parents, page_tables,
-                    ctx_lens, active, spec, slot_ids):
+                    ctx_lens, active, spec, slot_ids, glm_ids=None):
     """The verify forward over the draft window; a hybrid stashes the
     window's k, v for the commit. Returns (kv, logits [B, Q, V], node_valid)."""
     node_valid = parents > -2
     valid = node_valid & active[:, None]
     h, kv = transformer_hidden(params, cfg, kv, tokens, positions, page_tables,
                                ctx_lens, qmask, valid, spec, slot_ids=slot_ids,
-                               defer_state=cfg.linear_attention)
+                               defer_state=cfg.linear_attention, glm_ids=glm_ids)
     return kv, logits_from_hidden(params, cfg, h, spec), node_valid
 
 
@@ -174,6 +194,7 @@ def verify_core(
     active: torch.Tensor,  # [B] bool
     spec: Optional[QuantSpec] = None,
     slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
+    glm_ids: Optional[torch.Tensor] = None,  # [B, 2] AntGLM 2D positions
 ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
     """Forward over a general draft tree, greedy acceptance walk, the
     hybrid commit of the accepted chain and KV compaction of the accepted
@@ -181,7 +202,7 @@ def verify_core(
     rows). Plain decode is Q = 1 with a trivial mask."""
     B, Q = tokens.shape
     kv, logits, _ = _verify_forward(params, kv, cfg, tokens, positions, qmask, parents,
-                                    page_tables, ctx_lens, active, spec, slot_ids)
+                                    page_tables, ctx_lens, active, spec, slot_ids, glm_ids)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     out_tokens, n_acc, path = _accept_walk(greedy, tokens.to(torch.int32), parents)
     # the committed chain's window columns: the root, then the accepted path
@@ -214,6 +235,7 @@ def verify_parallel_core(
     teacher: Optional[torch.Tensor] = None,  # [B, W] teacher-forced stream
     slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
     sampling: Optional[tuple] = None,  # (temperature, top_k, top_p, min_p, seeds), [B] each
+    glm_ids: Optional[torch.Tensor] = None,  # [B, 2] AntGLM 2D positions
 ) -> Tuple[dict, torch.Tensor, torch.Tensor]:
     """Tree-verify forward, greedy (or teacher-forced, or sampled)
     acceptance along the best branch, and KV compaction of the accepted
@@ -231,7 +253,7 @@ def verify_parallel_core(
     dev = tokens.device
     kv, logits, node_valid = _verify_forward(params, kv, cfg, tokens, positions, qmask,
                                              parents, page_tables, ctx_lens, active, spec,
-                                             slot_ids)
+                                             slot_ids, glm_ids)
     if teacher is not None:
         # the target of the node at stream position p is the teacher's p+1
         W = teacher.shape[1]

@@ -1,9 +1,15 @@
 """Llama-family decoder, dense or Mixture-of-Experts, with grouped-query or
-Multi-head Latent Attention, functional, over stacked per-layer weights.
+Multi-head Latent Attention, and the legacy dense families, functional, over
+stacked per-layer weights.
 
-Port of the llama / qwen3 / mixtral / qwen3_moe / deepseek_v2 / deepseek_v3
-path of ``painlessinferenceacceleration_tpu/models/base.py`` (the linear-attention
-hybrids dispatch to ``models/linear_attn.py``). Parameters are a dict
+Port of ``painlessinferenceacceleration_tpu/models/base.py``: llama /
+mistral / qwen2 / qwen3 / internlm / mixtral / qwen3_moe / deepseek_v2 /
+deepseek_v3, and the legacy dense families gpt2, opt, gptj, bloom, glm
+(AntGLM: 2D positions and prefix-LM), chatglm, baichuan and qwen1, with
+their layer norms, gelu / relu MLPs (gated or not), qkv / output / MLP
+biases, learned, GLM 2D, ALiBi and partial or interleaved rope positions,
+bloom's embedding LayerNorm and gptj's parallel residual (the
+linear-attention hybrids dispatch to ``models/linear_attn.py``). Parameters are a dict
 shaped like the JAX pytree: ``layers`` holds each weight of the dense stack
 stacked ``[L, ...]`` and a layer is a view ``w[li]``; qkv and gate/up are
 merged GEMMs. An MoE model's layers from ``cfg.moe_layer_start`` on form a
@@ -16,8 +22,13 @@ and the KV arena is written in place. The linears take any
 (``cfg.is_mla``) replaces ``wqkv`` by the low-rank weights of
 ``models/mla.py`` in both stacks, and its attention is ``mla_attn_block``.
 
+``transformer_hidden`` also takes precomputed multimodal embeddings spliced
+over the token embeddings (``embed_override``) and AntGLM's per-row
+(prompt length, mask position) pair (``glm_ids``).
+
 Attention dispatch follows the JAX ``_attn_block_at`` over the three arena
-kinds: Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
+kinds (ALiBi slopes ride along in every one, where JAX sends ALiBi to its
+jnp path): Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
 window to the prefill rule, ``paged_attention_tok`` for a per-token-scale
 e4m3 arena; any other case runs the plain gather path on the CPU and raises
 on CUDA. Where JAX serves the e4m3 prefill and per-token verify widths with
@@ -27,6 +38,7 @@ plain version on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -55,29 +67,54 @@ from painlessinferenceacceleration_tpu_torch.models.moe import (
     init_moe_layer,
     moe_block,
 )
-from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attention_ref
+from painlessinferenceacceleration_tpu_torch.ops.attention import (
+    alibi_slopes,
+    paged_attention_ref,
+)
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_prefill,
     paged_attention_tok,
 )
-from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
+from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import layer_norm, rms_norm
 from painlessinferenceacceleration_tpu_torch.ops.rope import apply_rope, dense_cos_sin
 
 
 # the linear-attention hybrids (models/linear_attn.py); "ring_linear" is the
 # JAX package's tests' name for a hybrid without the bailing extras
 HYBRID_MODEL_TYPES = ("bailing_moe_linear", "bailing_moe_linear_v2", "ring_linear")
+# the dense families ModelConfig.from_hf maps besides llama
+LEGACY_MODEL_TYPES = ("mistral", "qwen2", "internlm", "baichuan", "qwen", "opt", "gptj",
+                      "gpt2", "bloom", "glm", "chatglm")
 PORTED_MODEL_TYPES = ("llama", "mixtral", "qwen3", "qwen3_moe", "deepseek_v2",
-                      "deepseek_v3") + HYBRID_MODEL_TYPES
+                      "deepseek_v3") + LEGACY_MODEL_TYPES + HYBRID_MODEL_TYPES
+ACTIVATIONS = ("gelu_new", "gelu_pytorch_tanh", "gelu_fast", "gelu", "silu", "swish",
+               "relu")
+POSITIONS = ("rope", "learned", "alibi", "glm_2d")
+
+
+def _legacy_knobs(cfg: ModelConfig) -> list:
+    """The legacy-family features a config turns on (the dense stack alone
+    takes them)."""
+    return [name for name, on in (
+        ("layer norm", cfg.norm_type != "rmsnorm"),
+        (f"{cfg.position_embedding_type} positions", cfg.position_embedding_type != "rope"),
+        ("an un-gated MLP", not cfg.gated_mlp),
+        (f"{cfg.hidden_act} activation", cfg.hidden_act not in ("silu", "swish")),
+        ("MLP biases", cfg.mlp_bias), ("parallel residual", cfg.parallel_residual),
+        ("embedding LayerNorm", cfg.embed_layernorm), ("prefix-LM", cfg.prefix_lm)) if on]
 
 
 def _check_model(cfg: ModelConfig) -> None:
-    if cfg.model_type not in PORTED_MODEL_TYPES or cfg.hidden_act not in ("silu", "swish"):
+    if cfg.model_type not in PORTED_MODEL_TYPES or cfg.hidden_act not in ACTIVATIONS:
         raise NotImplementedError(
-            f"ported model types are {PORTED_MODEL_TYPES} with a silu MLP "
+            f"ported model types are {PORTED_MODEL_TYPES} with a {ACTIVATIONS} MLP "
             f"({cfg.model_type}, {cfg.hidden_act})"
         )
+    if cfg.position_embedding_type not in POSITIONS or cfg.norm_type not in (
+            "rmsnorm", "layernorm"):
+        raise ValueError(f"positions {cfg.position_embedding_type!r} (one of {POSITIONS}), "
+                         f"norm {cfg.norm_type!r} (rmsnorm or layernorm)")
     if (cfg.model_type in HYBRID_MODEL_TYPES) != cfg.linear_attention or (
             cfg.linear_attention and cfg.is_mla):
         raise ValueError(f"model type {cfg.model_type} with linear_attention="
@@ -85,6 +122,43 @@ def _check_model(cfg: ModelConfig) -> None:
                          "without MLA)")
     if cfg.is_moe and not 0 < cfg.num_experts_per_tok <= cfg.num_experts:
         raise ValueError(f"top-{cfg.num_experts_per_tok} of {cfg.num_experts} experts")
+    legacy = _legacy_knobs(cfg)
+    if legacy and (cfg.is_moe or cfg.is_mla or cfg.linear_attention):
+        raise NotImplementedError(f"{', '.join(legacy)}: the dense stack alone takes them, "
+                                  "not MoE, MLA or linear-attention models")
+    if (cfg.attention_bias or cfg.attention_out_bias) and (cfg.is_mla or cfg.linear_attention):
+        raise NotImplementedError("attention biases on MLA or linear-attention models")
+
+
+def check_model_on_card(cfg: ModelConfig, params: dict, page_size: int,
+                        prefill_chunk: int) -> None:
+    """Raise, before serving starts, where a kernel on the card refuses the
+    model's shapes: paged attention's head dims, pages and head groups
+    (``attention_check``; GPT-J's head dim 256), the bf16 GEMM's K and N
+    (``bf16_check``) on the native linears and a tied head (GPT-2's
+    published vocabulary of 50257), and AntGLM's prefix-LM prefill, which is
+    not causal and has a kernel only at Q <= 128 (``prefill_chunk``)."""
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import bf16_check
+    from painlessinferenceacceleration_tpu_torch.ops.paged_attention import attention_check
+
+    if not cfg.is_mla:
+        attention_check(cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                        page_size)
+    if cfg.prefix_lm and cfg.position_embedding_type == "glm_2d" and prefill_chunk > 128:
+        raise NotImplementedError(
+            f"prefix-LM prefill at Q = {prefill_chunk} > 128 is not causal and has no "
+            "kernel on the card; serve with prefill_chunk <= 128")
+    for name in ("layers", "moe_layers"):
+        for key in ("wqkv", "wo", "wgu", "wdown"):
+            w = params.get(name, {}).get(key)
+            if isinstance(w, torch.Tensor):
+                bf16_check(w.shape[-2], w.shape[-1])
+    head = params.get("lm_head")
+    if isinstance(head, torch.Tensor):
+        bf16_check(head.shape[-2], head.shape[-1])
+    elif head is None and isinstance(params.get("embed"), torch.Tensor):
+        V, E = params["embed"].shape  # the tied head: K = E, N = V
+        bf16_check(E, V)
 
 
 def _stack_leaves(make, n: int):
@@ -145,11 +219,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return (torch.randn(*shape, generator=generator, device=generator.device)
                 * 0.02).to(device=dev, dtype=dtype)
 
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=dtype, device=dev)
+
     def attn_stack(n):
         stack = {
             "input_ln": torch.ones(n, E, dtype=dtype, device=dev),
             "post_ln": torch.ones(n, E, dtype=dtype, device=dev),
         }
+        if cfg.norm_type == "layernorm":
+            stack["input_ln_b"] = zeros(n, E)
+            stack["post_ln_b"] = zeros(n, E)
+        if cfg.attention_out_bias:
+            stack["bo"] = zeros(n, E)
         if cfg.is_mla:
             stack.update(init_mla_attn(
                 cfg, lambda din, dout: _stack_leaves(
@@ -158,6 +240,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return stack
         stack["wqkv"] = _stack_leaves(lambda: make_linear(w(E, (H + 2 * Hk) * D), quant), n)
         stack["wo"] = _stack_leaves(lambda: make_linear(w(H * D, E), quant), n)
+        if cfg.attention_bias:
+            stack["bqkv"] = zeros(n, (H + 2 * Hk) * D)
         if cfg.qk_norm:
             stack["q_norm"] = torch.ones(n, D, dtype=dtype, device=dev)
             stack["k_norm"] = torch.ones(n, D, dtype=dtype, device=dev)
@@ -167,12 +251,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "embed": w(cfg.vocab_size, E),
         "final_ln": torch.ones(E, dtype=dtype, device=dev),
     }
+    if cfg.norm_type == "layernorm":
+        params["final_ln_b"] = zeros(E)
+    if cfg.position_embedding_type in ("learned", "glm_2d"):
+        params["pos_embed"] = w(cfg.max_position_embeddings, E)
+    if cfg.position_embedding_type == "glm_2d":
+        params["block_pos_embed"] = w(cfg.max_position_embeddings, E)
+    if cfg.embed_layernorm:
+        params["embed_ln"] = torch.ones(E, dtype=dtype, device=dev)
+        params["embed_ln_b"] = zeros(E)
+    up = 2 * I if cfg.gated_mlp else I
     if n_dense:
         params["layers"] = attn_stack(n_dense)
         params["layers"]["wgu"] = _stack_leaves(
-            lambda: make_linear(w(E, 2 * I), quant), n_dense)
+            lambda: make_linear(w(E, up), quant), n_dense)
         params["layers"]["wdown"] = _stack_leaves(
             lambda: make_linear(w(I, E), quant), n_dense)
+        if cfg.mlp_bias:
+            params["layers"]["bgu"] = zeros(n_dense, up)
+            params["layers"]["bdown"] = zeros(n_dense, E)
     if n_moe:
         params["moe_layers"] = attn_stack(n_moe)
         params["moe_layers"].update(_stack_leaves(
@@ -237,8 +334,12 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
     random fp32 7B model would not fit the card just to be quantized and
     thrown away. The generator must live on that device. An MoE config gets
     its two stacks as ``init_params`` lays them out, the experts (and shared
-    experts) quantized, the router in bf16."""
+    experts) quantized, the router in bf16. The legacy families' extra
+    leaves are ``init_params``'s only."""
     _check_model(cfg)
+    if _legacy_knobs(cfg) or cfg.attention_bias or cfg.attention_out_bias:
+        raise NotImplementedError("init_params_quantized draws llama-class models; "
+                                  f"{cfg.model_type} comes from init_params or a checkpoint")
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters asked on {dev}")
@@ -294,11 +395,15 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
     return params
 
 
-def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale):
+def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale,
+               alibi=None):
     """Dispatch on the arena (bf16 / static e4m3 / per-token e4m3) and the
     width: Q <= 128 to the decode/verify rule, Q > 128 with a causal window
-    to the prefill rule. On CUDA every case is a kernel; any other case
-    raises there and runs the plain gather path on the CPU."""
+    to the prefill rule; ``alibi`` = (slopes [Hq], the step's positions
+    [B, Q] int32) rides along (the causal rule puts key s at ctx + s). On
+    CUDA every case is a kernel; any other case raises there and runs the
+    plain gather path on the CPU."""
+    slopes, pos = alibi if alibi is not None else (None, None)
     kk, vv = kv["k"][li], kv["v"][li]
     Q = xq.shape[1]
     tok = "k_tok_scale" in kv
@@ -311,46 +416,130 @@ def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale)
         if xq.is_cuda:
             raise NotImplementedError("non-causal attention with Q > 128 has no kernel")
         return paged_attention_ref(xq, kk, vv, page_tables, start_lens, qmask,
-                                   scale, k_s, v_s)
+                                   scale, k_s, v_s, alibi=slopes, alibi_pos=pos)
     if tok:
         return paged_attention_tok(xq, kk, vv, k_s, v_s, page_tables, start_lens,
-                                   scale, None if Q > 128 else qmask)
+                                   scale, None if Q > 128 else qmask, slopes,
+                                   None if Q > 128 else pos)
     kv_scales = None if k_s is None else (k_s, v_s)
     if Q <= 128:
         return paged_attention(xq, kk, vv, page_tables, start_lens, qmask, scale,
-                               kv_scales)
+                               kv_scales, slopes, pos)
     return paged_attention_prefill(xq, kk, vv, page_tables, start_lens, scale,
-                                   kv_scales)
+                                   kv_scales, slopes)
+
+
+def _norm(cfg: ModelConfig, x, w, b=None):
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, w, b, cfg.rms_norm_eps)
+    return rms_norm(x, w, cfg.rms_norm_eps)
+
+
+def _activate(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLP's activation in fp32, rounded back to ``x.dtype``."""
+    xf = x.to(torch.float32)
+    if act in ("gelu_new", "gelu_pytorch_tanh", "gelu_fast"):
+        y = F.gelu(xf, approximate="tanh")
+    elif act == "gelu":
+        y = F.gelu(xf)
+    elif act in ("silu", "swish"):
+        y = F.silu(xf)
+    elif act == "relu":
+        y = F.relu(xf)
+    else:
+        raise ValueError(f"unsupported hidden_act {act!r}")
+    return y.to(x.dtype)
+
+
+def _apply_positional(cfg: ModelConfig, xq, xk, cos, sin):
+    """Rope (full, partial or interleaved), or nothing (learned, GLM 2D and
+    ALiBi positions act elsewhere). A partial rope rotates the first 2 *
+    cos.shape[-1] lanes and passes the rest."""
+    if cfg.position_embedding_type != "rope":
+        return xq, xk
+    il = cfg.rope_interleaved
+    rot = cos.shape[-1] * 2
+    if rot < xq.shape[-1]:
+        q_r = apply_rope(xq[..., :rot], cos, sin, il)
+        k_r = apply_rope(xk[..., :rot], cos, sin, il)
+        return (torch.cat([q_r, xq[..., rot:].to(q_r.dtype)], dim=-1),
+                torch.cat([k_r, xk[..., rot:].to(k_r.dtype)], dim=-1))
+    return apply_rope(xq, cos, sin, il), apply_rope(xk, cos, sin, il)
+
+
+def _biased(out: torch.Tensor, stack: dict, key: str, li: int) -> torch.Tensor:
+    """``out`` plus layer ``li`` of the stacked bias ``key`` (when the stack
+    has one), in ``out``'s dtype as the JAX package adds it."""
+    b = stack.get(key)
+    return out if b is None else out + b[li].to(out.dtype)
 
 
 def _attn_block_at(layers, li, kv_li, cfg, spec, h, cos, sin, kv, page_tables,
-                   start_lens, qmask, valid, causal_window):
+                   start_lens, qmask, valid, causal_window, alibi=None):
     """Attention of layer ``li`` of the stack ``layers``, over KV layer
     ``kv_li`` of the arena."""
     B, Q, _ = h.shape
     H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    qkv = linear_at(layers["wqkv"], li, h, spec)
+    qkv = _biased(linear_at(layers["wqkv"], li, h, spec), layers, "bqkv", li)
     xq = qkv[..., : H * D].reshape(B, Q, H, D)
     xk = qkv[..., H * D: (H + Hk) * D].reshape(B, Q, Hk, D)
     xv = qkv[..., (H + Hk) * D:].reshape(B, Q, Hk, D)
     if cfg.qk_norm:  # qwen3: per-head RMSNorm before rope
         xq = rms_norm(xq, layers["q_norm"][li], cfg.rms_norm_eps)
         xk = rms_norm(xk, layers["k_norm"][li], cfg.rms_norm_eps)
-    xq, xk = apply_rope(xq, cos, sin), apply_rope(xk, cos, sin)
+    xq, xk = _apply_positional(cfg, xq, xk, cos, sin)
     write_kv_pages(kv["k"], kv["v"], xk, xv, page_tables, start_lens, valid, kv_li,
                    kv["k_scale"][kv_li] if "k_scale" in kv else None,
                    kv["v_scale"][kv_li] if "v_scale" in kv else None,
                    kv.get("k_tok_scale"), kv.get("v_tok_scale"))
     out = _attention(xq, kv, kv_li, page_tables, start_lens, qmask, causal_window,
-                     D ** -0.5)
-    return linear_at(layers["wo"], li, out.reshape(B, Q, H * D), spec)
+                     D ** -0.5, alibi)
+    return _biased(linear_at(layers["wo"], li, out.reshape(B, Q, H * D), spec), layers,
+                   "bo", li)
 
 
 def _mlp_block_at(layers, li, cfg, spec, h):
-    gu = linear_at(layers["wgu"], li, h, spec)
-    I = cfg.intermediate_size
-    act = F.silu(gu[..., :I].to(torch.float32)).to(gu.dtype) * gu[..., I:]
-    return linear_at(layers["wdown"], li, act, spec)
+    gu = _biased(linear_at(layers["wgu"], li, h, spec), layers, "bgu", li)
+    if cfg.gated_mlp:
+        I = cfg.intermediate_size
+        act = _activate(gu[..., :I], cfg.hidden_act) * gu[..., I:]
+    else:  # gpt2 / bloom: up, activation, down
+        act = _activate(gu, cfg.hidden_act)
+    return _biased(linear_at(layers["wdown"], li, act, spec), layers, "bdown", li)
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens, positions, embed_override, glm_ids):
+    """Token embeddings with the multimodal splice, the learned or GLM 2D
+    position tables and bloom's embedding LayerNorm."""
+    h = embed_lookup(params["embed"], tokens, params["final_ln"].dtype)
+    if embed_override is not None:  # rows (b, local[b, m]) take embeds[b, m]
+        local, embeds = embed_override
+        Q = h.shape[1]
+        ok = (local >= 0) & (local < Q)
+        b = torch.arange(h.shape[0], device=h.device)[:, None].expand_as(local)
+        h = h.clone()
+        h[b[ok], local[ok].long()] = embeds[ok].to(h.dtype)
+    pe = cfg.position_embedding_type
+    if pe in ("learned", "glm_2d"):
+        cap = params["pos_embed"].shape[0] - 1
+        pos = positions.long()
+        if pe == "glm_2d":
+            # AntGLM 2D positions: a prompt token is (item p, block 0); the
+            # <sop> and every generated token (item mask_pos, block
+            # p - prompt_len_eff + 1). Both tables add to the embedding
+            if glm_ids is None:
+                raise ValueError("glm_2d positions need glm_ids [B, 2]")
+            p_eff, mpos = glm_ids[:, :1].long(), glm_ids[:, 1:].long()
+            in_prompt = pos < p_eff
+            block = torch.where(in_prompt, 0, pos - p_eff + 1).clamp(0, cap)
+            pos = torch.where(in_prompt, pos, mpos)
+            h = h + params["pos_embed"][pos.clamp(0, cap)].to(h.dtype)
+            h = h + params["block_pos_embed"][block].to(h.dtype)
+        else:  # rows past the table are padding; their index is clamped
+            h = h + params["pos_embed"][pos.clamp(0, cap)].to(h.dtype)
+    if cfg.embed_layernorm:
+        h = layer_norm(h, params["embed_ln"], params["embed_ln_b"], cfg.rms_norm_eps)
+    return h
 
 
 def transformer_hidden(
@@ -367,6 +556,8 @@ def transformer_hidden(
     causal_window: bool = False,  # prefill: qmask is purely lower-triangular
     slot_ids: Optional[torch.Tensor] = None,  # [B] engine slots (linear-attn state)
     defer_state: bool = False,  # linear-attn verify: stash the window's k, v
+    embed_override=None,  # (local_pos [B, M], embeds [B, M, E]) multimodal splice
+    glm_ids: Optional[torch.Tensor] = None,  # [B, 2] (prompt_len_eff, mask_pos)
 ):
     """Run all decoder layers; returns (hidden [B, Q, E], kv updated in place).
 
@@ -374,8 +565,15 @@ def transformer_hidden(
     verify (tree qmask). The dense stack runs first, then the MoE stack,
     whose layer i uses KV layer ``n_dense + i``. A linear-attention hybrid
     (``cfg.linear_attention``) runs ``hybrid_forward`` instead, over the
-    states of the slots ``slot_ids`` (default: row b is slot b)."""
+    states of the slots ``slot_ids`` (default: row b is slot b).
+
+    ``embed_override`` writes embeds[b, m] over row b's embedding at
+    in-chunk position local[b, m] (positions outside the chunk are
+    dropped); ``glm_ids`` carries each row's AntGLM (prompt_len_eff,
+    mask_pos) for the 2D positions."""
     if cfg.linear_attention:
+        if embed_override is not None:
+            raise NotImplementedError("multimodal embeddings on a linear-attention hybrid")
         from painlessinferenceacceleration_tpu_torch.models.linear_attn import (
             hybrid_forward,
         )
@@ -388,11 +586,17 @@ def transformer_hidden(
     if "k_tok_scale" in kv and ("moe_layers" in params or cfg.is_mla):
         raise ValueError("kv_quant='fp8_tok' supports the dense stacked-layer "
                          "family only")
-    h = embed_lookup(params["embed"], tokens, params["final_ln"].dtype)
+    h = _embed(params, cfg, tokens, positions, embed_override, glm_ids)
     # the YaRN factor rides on cos/sin for grouped-query attention; MLA takes
     # it squared in its softmax scale instead
-    cos, sin = (mla_rope_cos_sin if cfg.is_mla else dense_cos_sin)(cfg, positions)
+    cos = sin = None
+    if cfg.position_embedding_type == "rope":
+        cos, sin = (mla_rope_cos_sin if cfg.is_mla else dense_cos_sin)(cfg, positions)
     attn_block = mla_attn_block if cfg.is_mla else _attn_block_at
+    extra = {}
+    if cfg.position_embedding_type == "alibi":  # each key biased by its position
+        extra["alibi"] = (_slopes_on(cfg.num_attention_heads, h.device),
+                          positions.to(device=h.device, dtype=torch.int32).contiguous())
     n_dense = 0
     for name in ("layers", "moe_layers"):
         stack = params.get(name)
@@ -400,16 +604,32 @@ def transformer_hidden(
             continue
         n_layers = stack["input_ln"].shape[0]
         for li in range(n_layers):
-            hn = rms_norm(h, stack["input_ln"][li], cfg.rms_norm_eps)
-            h = h + attn_block(stack, li, n_dense + li, cfg, spec, hn, cos, sin, kv,
-                               page_tables, start_lens, qmask, valid, causal_window)
-            hn = rms_norm(h, stack["post_ln"][li], cfg.rms_norm_eps)
+            hn = _norm(cfg, h, stack["input_ln"][li], _at(stack, "input_ln_b", li))
+            attn = attn_block(stack, li, n_dense + li, cfg, spec, hn, cos, sin, kv,
+                              page_tables, start_lens, qmask, valid, causal_window, **extra)
+            if cfg.parallel_residual:  # gptj: one norm feeds attention and the MLP
+                h = h + attn + _mlp_block_at(stack, li, cfg, spec, hn)
+                continue
+            h = h + attn
+            hn = _norm(cfg, h, stack["post_ln"][li], _at(stack, "post_ln_b", li))
             if name == "moe_layers":
                 h = h + moe_block(_layer_of(stack, li), cfg, spec, hn)
             else:
                 h = h + _mlp_block_at(stack, li, cfg, spec, hn)
         n_dense = n_layers  # the MoE stack's KV layers follow the dense ones
     return h, kv
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes_on(n_heads: int, device: torch.device) -> torch.Tensor:
+    """ALiBi slopes, built once for each (heads, device): built at every
+    forward, their host-to-device copy would wait for the stream."""
+    return alibi_slopes(n_heads, device)
+
+
+def _at(stack: dict, key: str, li: int):
+    v = stack.get(key)
+    return None if v is None else v[li]
 
 
 _MOE_KEYS = ("router", "router_bias", "moe_wgu", "moe_wdown", "shared_wgu",
@@ -429,9 +649,12 @@ def _layer_of(stack: dict, li: int) -> dict:
 def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
                        spec: Optional[QuantSpec] = None) -> torch.Tensor:
     """Final norm + LM head with fp32 logits straight from the accumulator
-    (bf16-rounded logits would make greedy argmax ties width-dependent)."""
-    h = rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
+    (bf16-rounded logits would make greedy argmax ties width-dependent);
+    gptj's head bias is added to the fp32 logits."""
+    h = _norm(cfg, h, params["final_ln"], params.get("final_ln_b"))
     head = params.get("lm_head")
     if head is None:
         return embed_logits(params["embed"], h)
-    return linear(head, h, spec, out_dtype=torch.float32).to(torch.float32)
+    out = linear(head, h, spec, out_dtype=torch.float32).to(torch.float32)
+    b = params.get("lm_head_b")
+    return out if b is None else out + b.to(torch.float32)

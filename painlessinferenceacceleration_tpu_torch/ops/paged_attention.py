@@ -24,6 +24,16 @@ and G = Hq / Hkv dividing 128 (``attention_check``). Each wrapper's
 kind (decode / verify / prefill) and arena. ``attention_plan`` and
 ``key_blocks`` are the launch plan the kernel follows (its tiles, grid,
 heaviest-first order and key walk), kept here so the CPU tests see it.
+
+ALiBi (the bloom / baichuan-13b families) is the optional ``alibi`` [Hq]
+fp32 slopes argument of all three: each score gains slope[h] * key position
+before the softmax, in every width, route and arena. A committed key's
+position is its slot; under the mask rule ``alibi_pos`` [B, Q] gives the
+positions of the step's own Q keys (a tree verify's node at ctx + its
+depth, whatever its slot; default: their slots, as in decode). The causal
+rule takes none: it puts a chunk's key s at ctx + s. The kernel's ALiBi
+build is a template of its own, so the slope-free one is unchanged. Its
+launches count in ``modes`` under the same keys with ",alibi" added.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ TILE_ROWS = 128  # csrc/paged_attention.cu kRows: query rows of a tile
 KEY_BLOCK = 64  # kKeys: keys of a block, one page
 _MODES = {"bf16": 0, "fp8": 1, "fp8_tok": 2}  # csrc/paged_attention.cu MODE
 FP8 = torch.float8_e4m3fn
-_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8 + (
+_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 8 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 AttentionPlan = collections.namedtuple("AttentionPlan", "positions n_tiles grid")
@@ -103,8 +113,26 @@ def _check_scales(arena: str, k_pages, k_scale, v_scale, Hkv: int) -> None:
             raise ValueError("the scales must be contiguous, on the arena's device")
 
 
+def _check_alibi(alibi, alibi_pos, causal: bool, B: int, Q: int, Hq: int, dev) -> None:
+    if alibi is None:
+        if alibi_pos is not None:
+            raise ValueError("alibi_pos without alibi slopes")
+        return
+    if alibi.dtype != torch.float32 or tuple(alibi.shape) != (Hq,) \
+            or not alibi.is_contiguous() or alibi.device != dev:
+        raise ValueError(f"alibi must be contiguous f32 slopes [{Hq}] on {dev}")
+    if alibi_pos is not None and causal:
+        raise ValueError("the causal rule takes no alibi_pos: its key s is at ctx + s")
+    if alibi_pos is not None and (alibi_pos.dtype != torch.int32
+                                  or tuple(alibi_pos.shape) != (B, Q)
+                                  or not alibi_pos.is_contiguous()
+                                  or alibi_pos.device != dev):
+        raise ValueError(f"alibi_pos must be contiguous int32 positions [{B}, {Q}] on {dev}")
+
+
 def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
-            causal: bool, arena: str, k_scale=None, v_scale=None):
+            causal: bool, arena: str, k_scale=None, v_scale=None, alibi=None,
+            alibi_pos=None):
     B, Q, Hq, D = q.shape
     n_pages, ps, HD = k_pages.shape
     Hkv = HD // D
@@ -123,6 +151,7 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
         if t.device != dev:
             raise ValueError("paged_attention operands must be on one device")
     _check_scales(arena, k_pages, k_scale, v_scale, Hkv)
+    _check_alibi(alibi, alibi_pos, causal, B, Q, Hq, dev)
     q = q.contiguous()
     pt = page_tables.to(torch.int32).contiguous()
     cl = ctx_lens.to(torch.int32).contiguous()
@@ -131,12 +160,13 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
     lib, fn = _build.function("paged_attention", "paged_attention", _ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              pt.data_ptr(), cl.data_ptr(), _build.ptr(qm), _build.ptr(k_scale),
-             _build.ptr(v_scale), out.data_ptr(), B, Q, Hq, Hkv, D, n_pages, P,
-             plan.positions, float(scale), int(causal), _MODES[arena], _build.stream_of(q))
+             _build.ptr(v_scale), _build.ptr(alibi), _build.ptr(alibi_pos), out.data_ptr(),
+             B, Q, Hq, Hkv, D, n_pages, P, plan.positions, float(scale), int(causal),
+             _MODES[arena], _build.stream_of(q))
     _build.check(lib, err, "paged_attention")
     wrapper.launches += 1
     kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
-    wrapper.modes[f"{kind},{arena}"] += 1
+    wrapper.modes[f"{kind},{arena}" + (",alibi" if alibi is not None else "")] += 1
     return out
 
 
@@ -156,27 +186,32 @@ def _plain_only(q, what):
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_tables: torch.Tensor,
                     ctx_lens: torch.Tensor, qmask: torch.Tensor,
-                    scale: float, kv_scales=None) -> torch.Tensor:
+                    scale: float, kv_scales=None,
+                    alibi: Optional[torch.Tensor] = None,
+                    alibi_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode / tree-verify attention, q [B, Q, Hq, D] with Q <= 128.
 
     K/V of the Q in-step tokens must already be written at ctx..ctx+Q-1.
-    ``kv_scales`` = (k_scale [Hkv], v_scale [Hkv]) for a static e4m3 arena."""
+    ``kv_scales`` = (k_scale [Hkv], v_scale [Hkv]) for a static e4m3 arena;
+    ``alibi`` the [Hq] ALiBi slopes, ``alibi_pos`` [B, Q] int32 the in-step
+    keys' positions."""
     if q.is_cuda:
         if q.shape[1] > 128:
             raise ValueError("paged_attention serves Q <= 128; use the prefill kernel")
         arena, ks, vs = _arena_of(k_pages, kv_scales)
         return _launch(paged_attention, q, k_pages, v_pages, page_tables,
-                       ctx_lens, qmask, scale, False, arena, ks, vs)
+                       ctx_lens, qmask, scale, False, arena, ks, vs, alibi, alibi_pos)
     _plain_only(q, "paged_attention")
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale, ks, vs)
+                               qmask, scale, ks, vs, alibi=alibi, alibi_pos=alibi_pos)
 
 
 def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, page_tables: torch.Tensor,
                             ctx_lens: torch.Tensor, scale: float,
-                            kv_scales=None) -> torch.Tensor:
+                            kv_scales=None,
+                            alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal chunk attention over K/V already written at ctx..ctx+Q-1.
 
     Rows past a request's valid tokens give finite values that callers
@@ -184,35 +219,74 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     if q.is_cuda:
         arena, ks, vs = _arena_of(k_pages, kv_scales)
         return _launch(paged_attention_prefill, q, k_pages, v_pages,
-                       page_tables, ctx_lens, None, scale, True, arena, ks, vs)
+                       page_tables, ctx_lens, None, scale, True, arena, ks, vs, alibi)
     _plain_only(q, "paged_attention_prefill")
     B, Q = q.shape[:2]
     qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale, ks, vs)
+                               qmask, scale, ks, vs, alibi=alibi)
 
 
 def paged_attention_tok(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, ks_pages: torch.Tensor,
                         vs_pages: torch.Tensor, page_tables: torch.Tensor,
                         ctx_lens: torch.Tensor, scale: float,
-                        qmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        qmask: Optional[torch.Tensor] = None,
+                        alibi: Optional[torch.Tensor] = None,
+                        alibi_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over a per-token-scale e4m3 arena (``kv_quant='fp8_tok'``)
     at any width: ``qmask`` [B, Q, Q] for decode / verify, None for the
-    causal rule (prefill). ks_pages/vs_pages [n_pages, ps, Hkv] f32."""
+    causal rule (prefill, which takes no ``alibi_pos``). ks_pages/vs_pages
+    [n_pages, ps, Hkv] f32."""
+    if qmask is None and alibi_pos is not None:
+        raise ValueError("the causal rule takes no alibi_pos: its key s is at ctx + s")
     if q.is_cuda:
         return _launch(paged_attention_tok, q, k_pages, v_pages, page_tables,
                        ctx_lens, qmask, scale, qmask is None, "fp8_tok", ks_pages,
-                       vs_pages)
+                       vs_pages, alibi, alibi_pos)
     _plain_only(q, "paged_attention_tok")
     if qmask is None:
         B, Q = q.shape[:2]
         qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale, ks_pages, vs_pages)
+                               qmask, scale, ks_pages, vs_pages, alibi=alibi,
+                               alibi_pos=alibi_pos)
 
 
 for _w in (paged_attention, paged_attention_prefill, paged_attention_tok):
     _w.launches = 0
     _w.modes = collections.Counter()
+
+
+# Registers of the slope-free instantiations, (head dim, arena) -> count, as
+# nvcc 12.9 built them for sm_90a before the ALiBi template flag existed:
+# the same counts now mean that the flag costs the other models nothing.
+SLOPE_FREE_REGISTERS = {(64, "fp8_tok"): 146, (64, "fp8"): 130, (64, "bf16"): 135,
+                        (128, "fp8_tok"): 167, (128, "fp8"): 168, (128, "bf16"): 168}
+
+
+def ptxas_registers() -> dict:
+    """(head dim, arena, alibi) -> {"registers": n, "spills": bytes} of each
+    instantiation of the kernel, from ptxas's report of its build (built
+    here if it is not yet)."""
+    import re
+
+    _build.library("paged_attention")
+    seen, cur = {}, None
+    for line in _build.ptxas_report("paged_attention").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"paged_attention_wgmma_kernelILi(\d+)ELi(\d)ELb([01])E", line)
+            cur = None
+            if m:
+                cur = (int(m.group(1)), tuple(_MODES)[int(m.group(2))], m.group(3) == "1")
+                seen[cur] = {"spills": 0}
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            seen[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            seen[cur]["spills"] += int(m.group(1)) + int(m.group(2))
+    return seen

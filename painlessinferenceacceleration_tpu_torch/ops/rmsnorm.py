@@ -49,6 +49,19 @@ def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> 
     return (_normed(x.to(torch.float32), eps) * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, cast back to ``x.dtype``: the JAX
+    package's ``layer_norm`` (the gpt2 / opt / gptj / bloom / glm families).
+    It has no Pallas body there and no kernel here: plain torch on every
+    device."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return (xf * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
 def rms_group_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
                          num_groups: int) -> torch.Tensor:
     """The last axis split into ``num_groups`` equal groups, each normalised

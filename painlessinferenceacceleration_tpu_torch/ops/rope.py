@@ -20,8 +20,11 @@ from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 def rope_inv_freq(cfg, device=None) -> torch.Tensor:
     """Per-pair inverse frequencies [dim/2] (fp32), with the HF rope_scaling
     rule applied; dim is ``qk_rope_head_dim`` when set (MLA), else the head
-    dim."""
+    dim, times ``partial_rotary_factor`` where that is below 1 (chatglm and
+    gptj rotate the first lanes only)."""
     dim = cfg.qk_rope_head_dim or cfg.head_dim
+    if cfg.partial_rotary_factor < 1.0:
+        dim = int(dim * cfg.partial_rotary_factor)
     base = cfg.rope_theta
     exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
     inv = 1.0 / (base ** exponent)

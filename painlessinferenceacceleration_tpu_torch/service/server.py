@@ -137,8 +137,10 @@ class StdlibServer:
                     req = outer.llm.add_request(ids, sampling)
                     while req.state != "finished":
                         time.sleep(0.002)
-                    self._json({"output_ids": req.output_ids,
-                                "finish_reason": req.finish_reason})
+                    out = {"output_ids": req.output_ids, "finish_reason": req.finish_reason}
+                    if outer.llm.tokenizer:  # a text prompt's answer as text too
+                        out["text"] = outer.llm.decode_text(req.output_ids)
+                    self._json(out)
 
             def _json(self, obj):
                 data = json.dumps(obj).encode()

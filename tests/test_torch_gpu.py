@@ -458,19 +458,20 @@ def _any_arena(g, B, ctx, Q, Hkv, arena):
     else:
         k, v, ks, vs, pt, ctx_t = _fp8_arena(g, B, ctx, Q, Hkv, arena == "fp8_tok")
 
-    def attend(q, qm, c=None):
+    def attend(q, qm, c=None, alibi=None, pos=None):
         c = ctx_t if c is None else c
         sc = 128 ** -0.5
         if arena == "fp8_tok":
-            return paged_attention_tok(q, k, v, ks, vs, pt, c, sc, qm)
+            return paged_attention_tok(q, k, v, ks, vs, pt, c, sc, qm, alibi, pos)
         scales = None if ks is None else (ks, vs)
         if qm is None:
-            return paged_attention_prefill(q, k, v, pt, c, sc, scales)
-        return paged_attention(q, k, v, pt, c, qm, sc, scales)
+            return paged_attention_prefill(q, k, v, pt, c, sc, scales, alibi)
+        return paged_attention(q, k, v, pt, c, qm, sc, scales, alibi, pos)
 
-    def plain(q, qm, c=None):
+    def plain(q, qm, c=None, alibi=None, pos=None):
         c = ctx_t if c is None else c
-        return paged_attention_ref(q, k, v, pt, c, qm, 128 ** -0.5, ks, vs)
+        return paged_attention_ref(q, k, v, pt, c, qm, 128 ** -0.5, ks, vs, alibi=alibi,
+                                   alibi_pos=pos)
     return ctx_t, attend, plain
 
 
@@ -2091,3 +2092,285 @@ def test_sampled_lookahead_equals_sampled_ar_on_the_card(cuda):
             llm.step()
         runs.append([r.output_ids for r in reqs])
     assert runs[0] == runs[1] == runs[2]
+
+
+def _slopes(Hq):
+    from painlessinferenceacceleration_tpu_torch.ops.attention import alibi_slopes
+
+    return alibi_slopes(Hq, "cuda")
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_alibi_attention_in_every_arena_and_route(cuda, kind, arena, G):
+    """ALiBi slopes through the kernel (bloom's 32-head slopes at G = 1)
+    against the plain version with the same slopes and the step's key
+    positions (a verify's at ctx + a depth in [0, Q), not their slots), and
+    its launches counted apart from the slope-free ones."""
+    Hkv = 32 if G == 1 else 4
+    Hq = G * Hkv
+    Q = {"decode": 1, "verify": 17, "prefill": 200}[kind]
+    ctx_t, attend, plain = _any_arena(cuda, 2, [640, 77], Q, Hkv, arena)
+    al = _slopes(Hq)
+    q = torch.randn(2, Q, Hq, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = None if kind == "prefill" else _mask(cuda, 2, Q)
+    pos = None  # prefill: the causal rule puts key s at ctx + s
+    if kind != "prefill":
+        step = torch.randint(0, Q, (2, Q), generator=cuda, device="cuda")
+        pos = (ctx_t[:, None] + step).to(torch.int32).contiguous()
+    wrapper = {"fp8_tok": paged_attention_tok, "prefill": paged_attention_prefill}.get(
+        arena if arena == "fp8_tok" else kind, paged_attention)
+    key = f"{kind},{arena},alibi"
+    before = wrapper.modes[key]
+    got = attend(q, qm, alibi=al, pos=pos)
+    assert wrapper.modes[key] == before + 1
+    ref_qm = causal_qmask(Q, "cuda")[None].expand(2, Q, Q) if qm is None else qm
+    want = plain(q, ref_qm, alibi=al, pos=pos)
+    assert _rel(got, want) < 2e-2
+    # the slopes matter: the slope-free kernel gives other rows
+    assert _rel(attend(q, qm), want) > 5e-2
+    if kind == "verify":  # and the positions: biased by their slots, other rows
+        assert _rel(attend(q, qm, alibi=al), want) > 5e-2
+    if kind == "decode":  # its position is its slot: the same bits without it
+        assert torch.equal(attend(q, qm, alibi=al), got)
+
+
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_alibi_tree_node_equals_its_ar_decode(cuda, arena):
+    """A Q = 17 tree verify (two branches of 8) with ALiBi over 300 cached
+    keys, its nodes at ctx + their depth: the row of branch 1's node l
+    equals a Q = 1 decode of it over the AR layout, where the root and
+    branch 1's nodes 0..l sit at slots ctx..ctx+1+l (rel 1e-2: the keys sit
+    at other slots of the walk, so sums run in other orders). Biased by
+    their slots, the rows differ."""
+    from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
+        build_tree_inputs,
+    )
+
+    Hkv, R, L, ctx = 32, 2, 8, 300
+    Q = 1 + R * L
+    tok = arena == "fp8_tok"
+    if arena == "bf16":
+        k, v, pt, ctx_t = _arena(cuda, 1, [ctx], Q, Hkv)
+        ks = vs = None
+    else:
+        k, v, ks, vs, pt, ctx_t = _fp8_arena(cuda, 1, [ctx], Q, Hkv, tok)
+    branches = torch.randint(3, 1000, (1, R, L), generator=cuda, device="cuda")
+    _, _, qm, depth = build_tree_inputs(torch.ones(1, dtype=torch.int32, device="cuda"),
+                                        branches)
+    pos = (ctx + depth).to(torch.int32).contiguous()
+    al = _slopes(Hkv)
+    q = torch.randn(1, Q, Hkv, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    sc = 128 ** -0.5
+
+    def run(q, kk, vv, kss, vss, m, c, p):
+        if tok:
+            return paged_attention_tok(q, kk, vv, kss, vss, pt, c, sc, m, al, p)
+        return paged_attention(q, kk, vv, pt, c, m, sc, None if kss is None else (kss, vss),
+                               al, p)
+
+    tree = run(q, k, v, ks, vs, qm, ctx_t, pos)
+    slot_rule = run(q, k, v, ks, vs, qm, ctx_t, None)
+    # the AR layout: branch 1's rows moved over branch 0's
+    k2, v2 = k.clone(), v.clone()
+    moved = [k2, v2] + ([ks.clone(), vs.clone()] if tok else [])
+    for i in range(L):
+        src, dst = ctx + 1 + L + i, ctx + 1 + i
+        for t in moved:
+            t[int(pt[0, dst // 64]), dst % 64] = t[int(pt[0, src // 64]), src % 64]
+    kss, vss = (moved[2], moved[3]) if tok else (ks, vs)
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    for i in range(L):
+        row = q[:, 1 + L + i: 2 + L + i].contiguous()
+        ar = run(row, k2, v2, kss, vss, one, ctx_t + 1 + i, None)
+        assert _rel(tree[:, 1 + L + i], ar[:, 0]) < 1e-2, i
+        assert _rel(slot_rule[:, 1 + L + i], ar[:, 0]) > 5e-2, i
+
+
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_alibi_prefill_rows_equal_their_decodes(cuda, arena):
+    """With ALiBi, row t of a causal prefill chunk (Q = 129 and 512 over 0
+    and 333 cached keys) equals a Q = 1 decode of that token bit for bit."""
+    Hkv = 32
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    al = _slopes(Hkv)
+    for Q in (129, 512):
+        for ctx in (0, 333):
+            ctx_t, attend, _ = _any_arena(cuda, 1, [ctx], Q, Hkv, arena)
+            q = torch.randn(1, Q, Hkv, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+            pre = attend(q, None, alibi=al)
+            for t in sorted({0, 1, 63, 64, 127, 128, Q // 2 + 5, Q - 1}):
+                row = attend(q[:, t:t + 1].contiguous(), one, ctx_t + t, alibi=al,
+                             pos=(ctx_t + t)[:, None].to(torch.int32))
+                assert torch.equal(row[:, 0], pre[:, t]), (Q, ctx, t)
+
+
+def test_alibi_later_branch_logits_equal_ar_on_the_card(cuda):
+    """A bloom-shaped model in bf16 (4 heads of 128, 2 layers) on the card:
+    a tree verify of two branches of 8, a wrong draft on branch 0 and the
+    AR continuation on branch 1 (its nodes at slots ctx + 9 + l, positions
+    ctx + 1 + l). The root's and each branch-1 node's logits row is within
+    rel 2e-2 of the AR decode row at the same prefix, and closer to it than
+    the same verify with its keys at their slots' positions."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+    from painlessinferenceacceleration_tpu_torch.engine.cache import init_kv_cache
+    from painlessinferenceacceleration_tpu_torch.engine.step import (
+        _verify_forward,
+        decode_inputs,
+        prefill_step,
+    )
+    from painlessinferenceacceleration_tpu_torch.lookahead.device_tables import (
+        build_tree_inputs,
+    )
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    cfg = ModelConfig.tiny_bloom(vocab_size=1024, hidden_size=512, intermediate_size=2048,
+                                 num_hidden_layers=2)
+    ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=1)
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    L, n = 8, 200
+    toks = torch.randint(3, 1024, (1, n), generator=cuda, device="cuda", dtype=torch.int32)
+    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
+    ctx = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+
+    def prefill():
+        kv = init_kv_cache(cfg, ecfg, dtype=torch.bfloat16, device="cuda")
+        return prefill_step(params, kv, cfg, toks, zero, ctx, pt)
+
+    kv, root, _ = prefill()
+    rows, fed, last, c = [], [], root, ctx.clone()
+    for _ in range(L + 1):
+        t, p, qm, par = decode_inputs(last, c)
+        kv, logits, _ = _verify_forward(params, kv, cfg, t, p, qm, par, pt, c, active, None,
+                                        None)
+        rows.append(logits[0, 0])
+        last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        fed.append(last)
+        c = c + 1
+    ar = torch.stack(fed[:L], dim=1)
+    tokens, parents, qmask, depth = build_tree_inputs(root, torch.stack([(ar + 1) % 1024, ar], 1))
+
+    def verify(positions):
+        kv, _, _ = prefill()
+        _, vl, _ = _verify_forward(params, kv, cfg, tokens, positions, qmask, parents, pt, ctx,
+                                   active, None, None)
+        return [_rel(a, b) for a, b in zip([vl[0, 0]] + [vl[0, 1 + L + i] for i in range(L)],
+                                           rows)]
+
+    rel = verify(ctx[:, None] + depth)
+    slots = verify(ctx[:, None] + torch.arange(1 + 2 * L, device="cuda", dtype=torch.int32))
+    assert max(rel) < 2e-2, rel
+    assert max(rel[1:]) < max(slots[1:]), (rel, slots)
+
+
+def test_slope_free_attention_build_keeps_its_registers(cuda):
+    """ptxas's report: the slope-free kernels keep their registers
+    (``SLOPE_FREE_REGISTERS``) and have no spills; the ALiBi ones have no
+    spills either."""
+    from painlessinferenceacceleration_tpu_torch.ops import paged_attention as pa
+
+    seen = pa.ptxas_registers()
+    assert len(seen) == 12, sorted(seen)
+    for (D, arena, alibi), r in seen.items():
+        assert r["spills"] == 0, (D, arena, alibi)
+        if not alibi:
+            assert r["registers"] == pa.SLOPE_FREE_REGISTERS[(D, arena)], (D, arena, r)
+
+
+def test_legacy_refusals_raise_when_the_engine_is_built(cuda):
+    """GPT-J's head dim 256 (attention), a tied head whose vocabulary is
+    off the bf16 GEMM's N % 8 (GPT-2's 50257) and AntGLM's prefix-LM
+    prefill at Q > 128 raise when LLM is built, before any request."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    ecfg = EngineConfig(page_size=64, max_seq_len=256, max_concurrency=2)
+    gptj = ModelConfig(model_type="gptj", vocab_size=512, hidden_size=512,
+                       intermediate_size=512, num_hidden_layers=1, num_attention_heads=2,
+                       num_key_value_heads=2, norm_type="layernorm", gated_mlp=False,
+                       hidden_act="gelu_new", parallel_residual=True, rope_interleaved=True,
+                       partial_rotary_factor=0.25, mlp_bias=True)
+    gpt2 = ModelConfig.tiny_gpt2(vocab_size=257, hidden_size=256, num_hidden_layers=1)
+    glm = ModelConfig(model_type="glm", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=1, num_attention_heads=4,
+                      num_key_value_heads=4, position_embedding_type="glm_2d",
+                      norm_type="layernorm", gated_mlp=False, hidden_act="gelu",
+                      attention_bias=True, attention_out_bias=True, mlp_bias=True,
+                      prefix_lm=True, tie_word_embeddings=True, mask_token_ids=(9,))
+    for cfg, err in ((gptj, ValueError), (gpt2, ValueError), (glm, NotImplementedError)):
+        params = init_params(cfg, cuda, dtype=torch.bfloat16)
+        with pytest.raises(err):
+            LLM(cfg=cfg, params=params, ecfg=ecfg)
+    # AntGLM with chunks of at most 128 serves (its prefix window is a mask)
+    import dataclasses
+
+    LLM(cfg=glm, params=init_params(glm, cuda, dtype=torch.bfloat16),
+        ecfg=dataclasses.replace(ecfg, prefill_chunk=128))
+
+
+@pytest.mark.parametrize("family", ["llama", "bloom"])
+def test_loaded_checkpoint_lookahead_equals_ar_on_the_card(cuda, tmp_path, family):
+    """A checkpoint written with write_checkpoint (2 shards) and served by
+    LLM(model_path=...) on the card (llama in int4, bloom in bf16 with
+    ALiBi and its tied head): lookahead over 4 branches of 8 gives the AR
+    outputs."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
+    from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
+        paged_attention as pa,
+    )
+    from painlessinferenceacceleration_tpu_torch.utils.safetensors import write_checkpoint
+
+    g = torch.Generator().manual_seed(1)
+    E, H, V, I, L = 512, 4, 1024, 1024, 2
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g) * 0.05).to(torch.bfloat16)
+
+    if family == "llama":
+        conf = dict(model_type="llama", vocab_size=V, hidden_size=E, intermediate_size=I,
+                    num_hidden_layers=L, num_attention_heads=H, num_key_value_heads=H)
+        sd = {"model.embed_tokens.weight": w(V, E), "model.norm.weight": 1 + w(E),
+              "lm_head.weight": w(V, E)}
+        for i in range(L):
+            p = f"model.layers.{i}."
+            sd.update({p + "input_layernorm.weight": 1 + w(E),
+                       p + "post_attention_layernorm.weight": 1 + w(E),
+                       p + "mlp.gate_proj.weight": w(I, E), p + "mlp.up_proj.weight": w(I, E),
+                       p + "mlp.down_proj.weight": w(E, I)})
+            for n in "qkvo":
+                sd[p + f"self_attn.{n}_proj.weight"] = w(E, E)
+        quant = "int4"
+    else:
+        conf = dict(model_type="bloom", vocab_size=V, hidden_size=E, n_layer=L, n_head=H)
+        sd = {"transformer.word_embeddings.weight": w(V, E)}
+        for n in ("transformer.word_embeddings_layernorm", "transformer.ln_f"):
+            sd.update({n + ".weight": 1 + w(E), n + ".bias": w(E)})
+        for i in range(L):
+            p = f"transformer.h.{i}."
+            for n, o, k in (("self_attention.query_key_value", 3 * E, E),
+                            ("self_attention.dense", E, E), ("mlp.dense_h_to_4h", 4 * E, E),
+                            ("mlp.dense_4h_to_h", E, 4 * E)):
+                sd.update({p + n + ".weight": w(o, k), p + n + ".bias": w(o)})
+            for n in ("input_layernorm", "post_attention_layernorm"):
+                sd.update({p + n + ".weight": 1 + w(E), p + n + ".bias": w(E)})
+        quant = "none"
+    write_checkpoint(str(tmp_path), sd, conf, n_shards=2)
+    prompts = [[5, 6, 7, 8] * 20, list(range(40, 140)), [9, 10, 11] * 7]
+    outs = []
+    for la in (False, True):
+        ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=4, eos_token_id=-2,
+                            quant=quant, use_lookahead=la, decoding_length=32,
+                            branch_length=8)
+        llm = LLM(model_path=str(tmp_path), ecfg=ecfg)
+        before = sum(v for k, v in pa.modes.items() if k.endswith("alibi"))
+        outs.append([r.output_ids for r in llm.generate(prompts,
+                                                        SamplingParams(max_new_tokens=48))])
+        alibi = sum(v for k, v in pa.modes.items() if k.endswith("alibi")) - before
+        assert (alibi > 0) == (family == "bloom")
+    assert outs[0] == outs[1]

@@ -540,7 +540,7 @@ def test_per_token_fp8_arena_refuses_moe_layers():
 
 def test_unported_model_type_raises():
     with pytest.raises(NotImplementedError):
-        t_init_params(tconfig.ModelConfig.tiny(model_type="gpt2"),
+        t_init_params(tconfig.ModelConfig.tiny(model_type="phi"),
                       torch.Generator().manual_seed(0), device="cpu")
 
 

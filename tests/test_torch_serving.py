@@ -236,10 +236,11 @@ def test_llm_rejects_what_is_not_ported(model):
     assert t.add_request([1, 2, 3], target_ids=[4, 5]).state == "queued"
     assert TEngineConfig(schedule_policy="mix").schedule_policy == "mix"
     assert TEngineConfig(temperature=0.5).temperature == 0.5
-    with pytest.raises(NotImplementedError):
+    # text needs a tokenizer; model_path loads a local checkpoint directory
+    with pytest.raises(ValueError):
         t.encode("text")
-    with pytest.raises(NotImplementedError):
-        TLLM(model_path="/nonexistent")
+    with pytest.raises(FileNotFoundError):
+        TLLM(model_path="/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError):
         TEngineConfig(mesh_shape=(1, 2))
     # read by the ported LookaheadGenerator, so no longer refused
