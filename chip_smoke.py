@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--json PATH]
 
 (``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
-``--w8a8-only``, ``--int8-only``, ``--attention-only``, ``--sampling-only``
-and ``--hf-only`` run parts of it: partial runs that print no kernels line
-and no result line.)
+``--w8a8-only``, ``--int8-only``, ``--attention-only``, ``--sampling-only``,
+``--hf-only`` and ``--ipad-only`` run parts of it: partial runs that print
+no kernels line and no result line.)
 
 Phases, one line each (any failure exits non-zero and prints no result):
 
@@ -146,9 +146,19 @@ Phases, one line each (any failure exits non-zero and prints no result):
    the loaded leaves byte-equal to the arrays written; every ALiBi launch of
    a BLOOM AR and lookahead pass held against its plain version; load time and
    GB/s, a 512-token prefill's ms and the (random-weight) rates;
+   ipad: prune and distill (``ipad.DistillPipe``: mlp 0.5, head 0.25, depth
+   0.25, dim 0.25 and an ``upper`` finetune, 4 steps each) of an fp32
+   student of Llama-2-7B's widths at 4 layers (random bf16 teacher, B x T =
+   4 x 512 numpy tokens, fp32 products); the reparam'd model (3 layers, E
+   3072, 24 heads, I 5504) equal to the masked student within 2e-4, the
+   finetune's frozen leaves bit-unchanged, and the pruned model served by
+   LLM in bf16 (K10) and int4 (K1) beside the unpruned 4 layers (16
+   requests, lookahead equal to AR), its prefill logits against
+   forward_logits on the same bf16 weights; train step, teacher forward,
+   AdamW ms, tokens/s, peak memory, reparam s;
 4. the launch count of every kernel and mode during phase 3, serving, the
    generator phase (and apart from it, its checks: K17 and K4's and K16's
-   general entries have no caller on any path), the hf phase, the quant
+   general entries have no caller on any path), the hf phase, the ipad phase, the quant
    modes and the MoE, MLA and linear-attention phases, each counted from 0 (all must be > 0), the script's wall time, and the
    ``kernels`` JSON line.
 
@@ -5167,6 +5177,292 @@ def phase_linear(pkg) -> dict:
     return dict(main_path=res, serving=[res_ar, res_la], launches=totals, kernels=kernels)
 
 
+# ---------------------------------------------------------------------------
+# IPAD: prune and distill at Llama-2-7B widths, then serve the pruned model
+# ---------------------------------------------------------------------------
+
+IPAD_LAYERS = 4  # of 32: an fp32 student with Adam holds ~16 bytes a parameter
+IPAD_BATCH = (4, 512)  # B x T tokens a step
+IPAD_STEPS = 4  # a stage
+IPAD_PRUNE_STEPS = 2  # a pruning stage reaches its target at its second step
+IPAD_LR = 1e-4
+# every pruned width a multiple of 128: I 11008 -> 5504, 32 -> 24 kv groups,
+# 4 -> 3 layers, E 4096 -> 3072
+IPAD_STAGES = (("mlp", 0.5), ("head", 0.25), ("depth", 0.25), ("dim", 0.25),
+               ("finetune", 0.0))
+IPAD_FINETUNE = ("upper", (1, 2, 3))  # the embedding and layer 0 stay frozen
+IPAD_MASKED_TOL = 2e-4  # the JAX package's own bound (tests/test_ipad.py)
+# the served prefill logits against forward_logits on the same bf16 weights,
+# of the largest |logit|: bf16 activations on both sides; int4 also
+# rounds each dequantized weight q * s to bf16 in forward_logits, which K1
+# keeps exact in fp32
+IPAD_LOGIT_REL = {"none": 2e-2, "int4": 4e-2}
+
+
+class MethodTimer:
+    """Device-synchronised wall ms of every call of the wrapped methods
+    (class attributes, restored by ``remove``)."""
+
+    def __init__(self, targets):
+        self.targets = targets  # (class, attribute, label)
+        self.ms = {label: [] for _, _, label in targets}
+        self._orig = []
+
+    def install(self):
+        import torch
+
+        for owner, attr, label in self.targets:
+            orig = getattr(owner, attr)
+            self._orig.append((owner, attr, orig))
+
+            def timed(*a, _orig=orig, _label=label, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_label].append(1e3 * (time.perf_counter() - t0))
+                return out
+
+            setattr(owner, attr, timed)
+
+    def remove(self):
+        for owner, attr, orig in reversed(self._orig):
+            setattr(owner, attr, orig)
+        self._orig.clear()
+
+
+def _stacked_leaves(params, fn):
+    """``params`` with every linear leaf (the stacked layer weights a layer
+    at a time, and the LM head) replaced by ``fn(leaf)``."""
+    import torch
+
+    def stacked(w):  # a tensor, or a quantized leaf's dict of tensors
+        n = len(next(iter(w.values()))) if isinstance(w, dict) else len(w)
+        per = [fn({k: v[li] for k, v in w.items()} if isinstance(w, dict) else w[li])
+               for li in range(n)]
+        if isinstance(per[0], dict):
+            return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        return torch.stack(per)
+
+    out = dict(params, layers=dict(params["layers"]))
+    for k in ("wqkv", "wo", "wgu", "wdown"):
+        out["layers"][k] = stacked(params["layers"][k])
+    if "lm_head" in params:
+        out["lm_head"] = fn(params["lm_head"])
+    return out
+
+
+def served_logits(pkg, cfg, params, quant, toks):
+    """The serving forward's logits [B, T, V] of a causal prefill of
+    ``toks`` from an empty bf16 arena (every row, through the kernels)."""
+    import torch
+
+    B, T = toks.shape
+    ecfg = pkg["config"].EngineConfig(page_size=64, max_seq_len=1024, max_concurrency=B)
+    kv = pkg["cache"].init_kv_cache(cfg, ecfg, dtype=torch.bfloat16, device="cuda")
+    P = ecfg.pages_per_req
+    pt = torch.arange(1, 1 + B * P, dtype=torch.int32, device="cuda").reshape(B, P)
+    pos = torch.arange(T, device="cuda")[None].expand(B, T)
+    qmask = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()[None].expand(B, T, T)
+    spec = pkg["linear"].QuantSpec.from_mode(quant)
+    with torch.no_grad():
+        h, _ = pkg["base"].transformer_hidden(
+            params, cfg, kv, toks, pos, pt, torch.zeros(B, dtype=torch.int32, device="cuda"),
+            qmask, torch.ones(B, T, dtype=torch.bool, device="cuda"), spec,
+            causal_window=True)
+        return pkg["base"].logits_from_hidden(params, cfg, h, spec)
+
+
+def grads_deterministic(pkg, d, toks) -> dict:
+    """The student's gradients of one loss twice on the same inputs: which
+    leaves' bits differ (torch's CUDA embedding backward among them)."""
+    import torch
+
+    optim = pkg["optim"]
+    tl, th = d._teacher_logits(toks)
+    runs = []
+    for _ in range(2):
+        live = optim.tree_map(lambda p: p.detach().requires_grad_(True), d.student)
+        with torch.enable_grad():
+            loss = d._loss(live, toks, tl, th.float())[0]
+            runs.append(torch.autograd.grad(loss, optim.tree_leaves(live)))
+        del live
+    names = []
+    for k, v in d.student.items():
+        names += [f"layers/{kk}" for kk in v] if isinstance(v, dict) else [k]
+    differ = [n for n, a, b in zip(names, *runs) if not torch.equal(a, b)]
+    return dict(deterministic=not differ, leaves_differing=differ)
+
+
+def phase_ipad(pkg) -> dict:
+    """IPAD on the card: a ``DistillPipe`` of five stages (mlp 0.5, head
+    0.25, depth 0.25, dim 0.25, an ``upper`` finetune of layers 1-3) trains
+    an fp32 student of Llama-2-7B's widths at IPAD_LAYERS layers (random bf16
+    teacher from ``init_params``, seed SEED) on numpy tokens (B x T =
+    IPAD_BATCH, seed SEED), fp32 products (TF32 left off, torch's default).
+    Fails unless the reparam'd model's ``forward_logits`` are within
+    IPAD_MASKED_TOL of the masked student's, the leaves outside the
+    finetune's trainable set are bit-unchanged, and the pruned model, cast to
+    bf16 and served by ``LLM`` at page 64 in bf16 (K10) and in int4 group 128
+    (K1), completes the 16 requests with lookahead equal to AR and its
+    prefill logits within IPAD_LOGIT_REL of ``forward_logits`` on the same
+    bf16 weights (the dequantized ones for int4); also whether two
+    gradients of one loss are bit-equal (the embedding backward among
+    them). Prints the train step's,
+    the teacher forward's and AdamW's median ms, training tokens/s, the peak
+    memory, the reparam's s, and the pruned and unpruned models' AR and
+    lookahead tok/s served the same way; the kernels' launches counted from
+    0 over the serving runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    distill, tf, optim, lin = pkg["ipad"], pkg["train_forward"], pkg["optim"], pkg["linear"]
+    cfg = dataclasses.replace(pkg["config"].ModelConfig.llama2_7b(),
+                              num_hidden_layers=IPAD_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    teacher = pkg["base"].init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                      dtype=torch.bfloat16, device="cuda")
+    B, T = IPAD_BATCH
+
+    def batches(seed):
+        rng = np.random.default_rng(seed)
+        while True:
+            yield rng.integers(1, cfg.vocab_size - 1, size=(B, T)).astype(np.int32)
+
+    stages = [distill.DistillStage(mode=m, sparsity=s, steps=IPAD_STEPS,
+                                   prune_steps=IPAD_PRUNE_STEPS, lr=IPAD_LR)
+              for m, s in IPAD_STAGES[:-1]]
+    stages.append(distill.DistillStage(mode="finetune", steps=IPAD_STEPS, lr=IPAD_LR,
+                                       finetune_mode=IPAD_FINETUNE[0],
+                                       layer_indices=IPAD_FINETUNE[1]))
+    frozen = {}  # the finetune's frozen leaves as it starts: embed, layer 0
+    set_finetune = distill.Distiller.set_finetune
+
+    def snapshot(self, mode="full", layer_indices=None):
+        if mode == IPAD_FINETUNE[0]:
+            frozen["embed"] = self.student["embed"].clone()
+            frozen["layers"] = {k: v[0].clone() for k, v in self.student["layers"].items()}
+        return set_finetune(self, mode, layer_indices)
+
+    timer = MethodTimer([(distill.Distiller, "_train_step", "train_step"),
+                         (distill.Distiller, "_teacher_logits", "teacher"),
+                         (optim.AdamW, "update", "adamw"),
+                         (distill.Distiller, "reparam", "reparam")])
+    distill.Distiller.set_finetune = snapshot
+    timer.install()
+    try:
+        t0 = time.perf_counter()
+        pipe = distill.DistillPipe(cfg, teacher, stages)
+        new_cfg, new_params, hist = pipe.run(batches(SEED))
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+    finally:
+        timer.remove()
+        distill.Distiller.set_finetune = set_finetune
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    d = pipe.distiller
+    frac = dict(IPAD_STAGES)
+    kv = cfg.num_key_value_heads - int(frac["head"] * cfg.num_key_value_heads)
+    want = (IPAD_LAYERS - int(frac["depth"] * IPAD_LAYERS),
+            kv * (cfg.num_attention_heads // cfg.num_key_value_heads), kv,
+            cfg.intermediate_size - int(frac["mlp"] * cfg.intermediate_size),
+            cfg.hidden_size - int(frac["dim"] * cfg.hidden_size))
+    got = (new_cfg.num_hidden_layers, new_cfg.num_attention_heads,
+           new_cfg.num_key_value_heads, new_cfg.intermediate_size, new_cfg.hidden_size)
+    if got != want:
+        fail(f"phase ipad: the pruned model is (layers, heads, kv heads, I, E) = {got}, "
+             f"not {want}")
+    changed = [] if torch.equal(frozen["embed"], d.student["embed"]) else ["embed"]
+    changed += [f"layers/{k}[0]" for k, v in frozen["layers"].items()
+                if not torch.equal(v, d.student["layers"][k][0])]
+    if changed:
+        fail(f"phase ipad: leaves outside the finetune's trainable set changed: {changed}")
+    eval_toks = torch.as_tensor(next(batches(SEED + 1)), device="cuda")
+    with torch.no_grad():
+        masked = tf.forward_logits(d.student, cfg, eval_toks, d.masks)
+        sliced = tf.forward_logits(new_params, new_cfg, eval_toks)
+    masked_err = float((masked - sliced).abs().max())
+    if not torch.allclose(sliced, masked, rtol=IPAD_MASKED_TOL, atol=IPAD_MASKED_TOL):
+        fail(f"phase ipad: the reparam'd model's logits differ from the masked student's "
+             f"by {masked_err} (max |logit| {float(masked.abs().max())})")
+    del masked, sliced
+    determinism = grads_deterministic(pkg, d, eval_toks)
+    med = {k: float(np.median(v)) for k, v in timer.ms.items()}
+    train = dict(
+        layers=IPAD_LAYERS, batch=[B, T], stages=[s for s, _ in IPAD_STAGES],
+        steps=len(hist), train_step_ms=med["train_step"],
+        train_tokens_s=B * T / (med["train_step"] / 1e3),
+        pipe_tokens_s=len(hist) * B * T / pipe_s, pipe_s=pipe_s,
+        teacher_forward_ms=med["teacher"], adamw_ms=med["adamw"],
+        reparam_s=timer.ms["reparam"][0] / 1e3, peak_mem_gb=peak_gb,
+        first_loss=hist[0]["loss"], last_loss=hist[-1]["loss"],
+        masked_vs_sliced_max_abs_err=masked_err,
+        frozen_leaves_unchanged=1 + len(frozen["layers"]),
+        grads=determinism, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        pruned=dict(layers=got[0], heads=got[1], kv_heads=got[2],
+                    intermediate=got[3], hidden=got[4]))
+    print("phase ipad train: " + json.dumps(train))
+    del pipe, d, frozen
+    torch.cuda.empty_cache()
+
+    # serving: the pruned model beside the unpruned 4-layer teacher
+    pruned16 = optim.tree_map(lambda x: x.to(torch.bfloat16), new_params)
+    del new_params
+    spec4 = lin.QuantSpec(bits=4, group=128)
+    prompts = serving_prompts(cfg.vocab_size)
+    launches = Launches(pkg)
+    launches.reset()
+    served, checks = {}, {}
+    for name, mcfg, p16 in (("pruned", new_cfg, pruned16), ("unpruned", cfg, teacher)):
+        for quant in ("none", "int4"):
+            params = p16 if quant == "none" else _stacked_leaves(
+                p16, lambda w: lin.quantize(w, spec4))
+            ar, outs_ar, _ = serve_once(pkg, mcfg, params, prompts, "none", False, quant)
+            la, outs_la, _ = serve_once(pkg, mcfg, params, prompts, "none", True, quant)
+            if outs_la != outs_ar:
+                bad = [i for i, (a, b) in enumerate(zip(outs_ar, outs_la)) if a != b]
+                fail(f"phase ipad {name} {quant}: lookahead differs from AR on requests {bad}")
+            served[f"{name}_{'bf16' if quant == 'none' else quant}"] = dict(
+                layers=mcfg.num_hidden_layers, ar_tok_s=ar["tok_s"],
+                lookahead_tok_s=la["tok_s"], spec_steps=la["spec_steps"],
+                spec_accepted=la["spec_accepted"], requests=len(outs_ar),
+                lossless_strict=True, ar=ar, lookahead=la)
+            if name == "pruned":
+                checks[quant] = params
+    counts = launches.read()
+    logit_check = {}
+    for quant, params in checks.items():
+        ref = pruned16 if quant == "none" else _stacked_leaves(
+            params, lambda p: lin.dequantize(p, spec4, torch.bfloat16))
+        toks = eval_toks[:2]
+        got_l = served_logits(pkg, new_cfg, params, quant, toks)
+        with torch.no_grad():
+            want_l = tf.forward_logits(ref, new_cfg, toks)
+        rel = float((got_l - want_l).abs().max() / want_l.abs().max())
+        agree = float((got_l.argmax(-1) == want_l.argmax(-1)).double().mean())
+        logit_check["bf16" if quant == "none" else quant] = dict(max_rel_err=rel,
+                                                                   argmax_agreement=agree)
+        if rel > IPAD_LOGIT_REL[quant]:
+            fail(f"phase ipad pruned {quant}: the served prefill logits differ from "
+                 f"forward_logits by rel {rel} (> {IPAD_LOGIT_REL[quant]})")
+    print(f"phase ipad serve ({len(prompts)} requests, B <= 8, page 64; the pruned model "
+          f"{got} beside the unpruned {IPAD_LAYERS} layers): "
+          + json.dumps(dict(served={k: {kk: vv for kk, vv in v.items()
+                                        if kk not in ("ar", "lookahead")}
+                                    for k, v in served.items()},
+                            prefill_logits=logit_check)))
+    res = dict(train=train, served=served, prefill_logits=logit_check, launches=counts,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"phase ipad: wall {res['wall_s']:.1f} s on {smi_line()}")
+    del teacher, pruned16, checks
+    torch.cuda.empty_cache()
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5197,7 +5493,8 @@ def load_port():
                  multistep="engine.multistep", llm="engine.llm",
                  request="engine.request", device_tables="lookahead.device_tables",
                  base="models.base", sample="ops.sample", server="service.server",
-                 client="service.client", safetensors="utils.safetensors")
+                 client="service.client", safetensors="utils.safetensors",
+                 ipad="ipad.distill", train_forward="ipad.train_forward", optim="ipad.optim")
     return {k: importlib.import_module(base + v) for k, v in names.items()}
 
 
@@ -5235,6 +5532,10 @@ def main() -> None:
     ap.add_argument("--sampling-only", action="store_true",
                     help="run only the sampling phase at Llama-2-7B int4 (a partial run: "
                          "prints no kernels line and no result line)")
+    ap.add_argument("--ipad-only", action="store_true",
+                    help="run only the ipad phase (prune and distill at Llama-2-7B widths, "
+                         "then serve the pruned model; a partial run: prints no kernels "
+                         "line and no result line)")
     ap.add_argument("--hf-only", action="store_true",
                     help="run only the ALiBi attention rows and the hf phase (local "
                          "checkpoints through LLM(model_path=...); a partial run: prints "
@@ -5278,6 +5579,15 @@ def main() -> None:
             args.json.parent.mkdir(parents=True, exist_ok=True)
             args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                                  linear=lin_res, wall_s=wall_s), indent=1))
+        return
+    if args.ipad_only:
+        ipad_res = phase_ipad(pkg)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (ipad only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, ipad=ipad_res,
+                                                 wall_s=wall_s), indent=1))
         return
     cfg = pkg["config"].ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
@@ -5394,6 +5704,7 @@ def main() -> None:
     samp_res = phase_sampling(pkg, cfg, spec, params)
     del params
     hf_res = phase_hf(pkg)
+    ipad_res = phase_ipad(pkg)
     quant_res = phase_quant_modes(pkg, cfg)
     rows += quant_res["kernels"]
     print("phase quant act: " + json.dumps(quant_res["quant_act"]))
@@ -5412,6 +5723,7 @@ def main() -> None:
                     generator=gen_res["launches"],
                     generator_compaction_check=gen_res["check_launches"],
                     sampling=samp_res["launches"], hf=hf_res["launches"],
+                    ipad=ipad_res["launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
@@ -5429,7 +5741,8 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving or its "
                  "compaction check, in the generator phase or its compaction check, in the "
-                 "sampling phase, in the hf phase, in the quant modes, in the MoE phases, in "
+                 "sampling phase, in the hf phase, in the ipad phase, in the quant modes, in "
+                 "the MoE phases, in "
                  "the MLA phases or in the linear-attention phases (launches by phase: "
                  f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
@@ -5441,7 +5754,8 @@ def main() -> None:
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
                                              generator=gen_res, sampling=samp_res,
-                                             hf=hf_res, quant_modes=quant_res, moe=moe_res,
+                                             hf=hf_res, ipad=ipad_res,
+                                             quant_modes=quant_res, moe=moe_res,
                                              mla=mla_res, linear=lin_res,
                                              launches=by_phase,
                                              wall_s=wall_s), indent=1))

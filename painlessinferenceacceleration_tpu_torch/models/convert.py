@@ -7,7 +7,8 @@ quantized ``{"q", "s"[, "xs"]}`` leaves keep their bytes unchanged (packed
 int4, int8, e4m3, bf16 and f32 scales, the 0-d or ``[L]`` static activation
 scale). bf16 crosses over through a ``uint16`` view and e4m3 through a
 ``uint8`` view, since ``torch.from_numpy`` does not take the ml_dtypes
-types, so weights and arenas compare byte for byte.
+types, so weights and arenas compare byte for byte. ``distill_state_from_jax``
+carries a JAX IPAD ``Distiller``'s training state over the same way.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from painlessinferenceacceleration_tpu_torch._build import resolve_device
 
 def _tensor(a: np.ndarray, device=None) -> torch.Tensor:
     a = np.require(a, requirements=["C", "W"])  # torch wants writable
-    if a.dtype.name == "bfloat16":
+    # bf16: ml_dtypes' type, or the 2-byte void numpy reads it back as from
+    # an npz file
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     elif a.dtype.name == "float8_e4m3fn":
         t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
@@ -58,3 +61,17 @@ def kv_from_jax(tree: dict, n_kv_heads: int, device=None, k_row: int = 0) -> dic
             a = a[..., :k_row]
         out[name] = _tensor(a, device)
     return out
+
+
+def distill_state_from_jax(distiller, state: dict) -> None:
+    """Set a port ``ipad.Distiller`` to a JAX ``Distiller``'s training state,
+    given as numpy: ``student``, ``masks`` and ``saliency`` (trees of arrays),
+    optax's ``mu``, ``nu`` and ``count`` (the ``ScaleByAdamState`` at
+    ``opt_state[0]``) and ``step_idx``. Both packages then train on from one
+    state."""
+    dev = distiller.device
+    distiller.set_state(
+        student=params_from_jax(state["student"], dev), mu=params_from_jax(state["mu"], dev),
+        nu=params_from_jax(state["nu"], dev), count=int(state["count"]),
+        masks=params_from_jax(state["masks"], dev),
+        saliency=params_from_jax(state["saliency"], dev), step_idx=int(state["step_idx"]))

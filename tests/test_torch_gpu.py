@@ -2374,3 +2374,170 @@ def test_loaded_checkpoint_lookahead_equals_ar_on_the_card(cuda, tmp_path, famil
         alibi = sum(v for k, v in pa.modes.items() if k.endswith("alibi")) - before
         assert (alibi > 0) == (family == "bloom")
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# IPAD (prune and distill) on the card
+# ---------------------------------------------------------------------------
+
+def _ipad_model(device, gen_seed=3):
+    """A llama whose pruned shapes the card's kernels take (head dim 64;
+    after mlp 0.5, head 0.5, depth 1/3 and dim 0.25: I 256, one kv group
+    of 2 heads, 2 layers, E 192, a whole number of int4 groups of 64)."""
+    from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=512)
+    params = init_params(cfg, torch.Generator().manual_seed(gen_seed), device="cpu")
+    return cfg, {k: (v.to(device) if torch.is_tensor(v) else
+                     {kk: vv.to(device) for kk, vv in v.items()}) for k, v in params.items()}
+
+
+def _ipad_batches(seed, B=4, T=64):
+    rng = np.random.default_rng(seed)
+    while True:
+        yield rng.integers(1, 511, size=(B, T)).astype(np.int32)
+
+
+IPAD_STEP = dict(lr=1e-3, hidden_weight=0.5, target_mlp_sparsity=0.25, prune_steps=2,
+                 total_steps=4)
+
+
+def test_ipad_train_step_on_the_card_matches_the_cpu(cuda):
+    """One train step on the card from a state the CPU reached in two
+    steps, against the same step on the CPU: loss and CE within rel 1e-5,
+    KL and the hidden MSE within rel 1e-3 (gaps between near-equal
+    quantities), moments and saliency within rel 1e-4 of their leaf's
+    largest value, the student within 1e-2 lr (fp32 on both, TF32 off;
+    sums in other orders, which Adam's m / sqrt(v) amplifies at the few
+    near-zero gradients)."""
+    from painlessinferenceacceleration_tpu_torch.ipad import DistillConfig, Distiller
+    from painlessinferenceacceleration_tpu_torch.ipad.optim import tree_leaves
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, tp = _ipad_model("cpu")
+    host = Distiller(cfg, tp, DistillConfig(**IPAD_STEP))
+    host.fit(_ipad_batches(1), steps=2)
+    card = Distiller(cfg, {k: (v.cuda() if torch.is_tensor(v) else
+                               {kk: vv.cuda() for kk, vv in v.items()})
+                           for k, v in tp.items()}, DistillConfig(**IPAD_STEP))
+    assert card.device.type == "cuda"
+    card.set_state(host.student, host.opt_state.mu, host.opt_state.nu, host.opt_state.count,
+                   host.masks, host._saliency, host.step_idx)
+    toks = torch.as_tensor(next(_ipad_batches(2)))
+    tl, th = host._teacher_logits(toks)
+    want = host._train_step(toks, tl, th.float())
+    got = card._train_step(toks.cuda(), tl.cuda(), th.float().cuda())
+    for a, b, rel in zip(want[:4], got[:4], (1e-5, 1e-3, 1e-5, 1e-3)):
+        assert abs(float(b) - float(a)) <= rel * abs(float(a)), (float(a), float(b))
+    for trees, rel in (((host.opt_state.mu, card.opt_state.mu),
+                        (host.opt_state.nu, card.opt_state.nu), (want[4], got[4])), 1e-4), \
+            (((host.student, card.student),), None):
+        for a_tree, b_tree in trees:
+            for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+                err = float((a - b.cpu()).abs().max())
+                tol = 1e-2 * IPAD_STEP["lr"] if rel is None else rel * float(a.abs().max())
+                assert err <= tol, (err, tol)
+
+
+def test_ipad_frozen_leaves_do_not_move_on_the_card(cuda):
+    """A block finetune of layer 0: the embedding, the final norm, the LM
+    head and layers 1-2 keep their bits over two steps; layer 0 moves."""
+    from painlessinferenceacceleration_tpu_torch.ipad import DistillConfig, Distiller
+
+    cfg, tp = _ipad_model("cuda")
+    d = Distiller(cfg, tp, DistillConfig(lr=3e-3, target_mlp_sparsity=0.0))
+    d.set_finetune("block", layer_indices=(0,))
+    before = {k: (v.clone() if torch.is_tensor(v) else {kk: vv.clone() for kk, vv in v.items()})
+              for k, v in d.student.items()}
+    d.fit(_ipad_batches(3), steps=2)
+    for k in ("embed", "final_ln", "lm_head"):
+        assert torch.equal(before[k], d.student[k]), k
+    for k, v in before["layers"].items():
+        assert torch.equal(v[1:], d.student["layers"][k][1:]), k
+        assert not torch.equal(v[0], d.student["layers"][k][0]), k
+
+
+def test_ipad_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
+    """save / load, then the same two steps as the distiller saved: the
+    student, the moments and the masks keep the same bits (every op of the
+    step, the embedding backward included, is run-to-run deterministic on
+    the card)."""
+    from painlessinferenceacceleration_tpu_torch.ipad import DistillConfig, Distiller
+    from painlessinferenceacceleration_tpu_torch.ipad.optim import tree_leaves
+
+    cfg, tp = _ipad_model("cuda")
+    d = Distiller(cfg, tp, DistillConfig(**IPAD_STEP))
+    d.fit(_ipad_batches(5), steps=2)
+    d.save(str(tmp_path / "d.pt"))
+    d2 = Distiller(cfg, tp, DistillConfig(**IPAD_STEP))
+    d2.load(str(tmp_path / "d.pt"))
+    d.fit(_ipad_batches(7), steps=2)
+    d2.fit(_ipad_batches(7), steps=2)
+    for a_tree, b_tree in ((d.student, d2.student), (d.opt_state.mu, d2.opt_state.mu),
+                           (d.opt_state.nu, d2.opt_state.nu), (d.masks, d2.masks)):
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            assert torch.equal(a, b)
+    assert d.history == d2.history
+
+
+def test_ipad_pruned_model_lossless_on_the_card(cuda):
+    """A DistillPipe over every mask kind on the card; the reparam'd model
+    equals the masked student within 2e-4 (fp32), and cast to bf16 it serves
+    through LLM in bf16 (K10) and in int4 group 64 (K1) with lookahead
+    equal to AR."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
+    from painlessinferenceacceleration_tpu_torch.ipad import DistillPipe, DistillStage
+    from painlessinferenceacceleration_tpu_torch.ipad.train_forward import forward_logits
+    from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec, quantize
+    from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul
+    from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import int4_matmul
+
+    cfg, tp = _ipad_model("cuda")
+    pipe = DistillPipe(cfg, tp, [
+        DistillStage(mode="mlp", sparsity=0.5, steps=2, prune_steps=1, lr=1e-3),
+        DistillStage(mode="head", sparsity=0.5, steps=2, prune_steps=1, lr=1e-3),
+        DistillStage(mode="depth", sparsity=0.34, steps=2, prune_steps=1, lr=1e-3),
+        DistillStage(mode="dim", sparsity=0.25, steps=2, prune_steps=1, lr=1e-3),
+        DistillStage(mode="finetune", steps=2, lr=1e-3, finetune_mode="upper")])
+    new_cfg, new_params, hist = pipe.run(_ipad_batches(9))
+    assert len(hist) == 10
+    assert (new_cfg.num_hidden_layers, new_cfg.num_key_value_heads,
+            new_cfg.num_attention_heads, new_cfg.intermediate_size,
+            new_cfg.hidden_size) == (2, 1, 2, 256, 192)
+    d = pipe.distiller
+    toks = torch.as_tensor(next(_ipad_batches(11)), device="cuda")
+    with torch.no_grad():
+        masked = forward_logits(d.student, cfg, toks, d.masks)
+        sliced = forward_logits(new_params, new_cfg, toks)
+    assert torch.allclose(sliced, masked, rtol=2e-4, atol=2e-4)
+    p16 = {k: (v.to(torch.bfloat16) if torch.is_tensor(v) else
+               {kk: vv.to(torch.bfloat16) for kk, vv in v.items()})
+           for k, v in new_params.items()}
+    spec = QuantSpec(bits=4, group=64)
+
+    def q4(w):
+        per = [quantize(w[li], spec) for li in range(w.shape[0])]
+        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+    p4 = dict(p16, layers=dict(p16["layers"]), lm_head=quantize(p16["lm_head"], spec))
+    for k in ("wqkv", "wo", "wgu", "wdown"):
+        p4["layers"][k] = q4(p16["layers"][k])
+    prompts = [[5, 6, 7, 8] * 20, list(range(40, 140)), [9, 10, 11] * 7, [300, 301]]
+    for quant, params, kernel in (("none", p16, dense_matmul), ("int4", p4, int4_matmul)):
+        outs = []
+        for la in (False, True):
+            ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=4,
+                                eos_token_id=-2, quant=quant, quant_group=64,
+                                use_lookahead=la, decoding_length=16, branch_length=8)
+            before = kernel.launches
+            llm = LLM(cfg=new_cfg, params=params, ecfg=ecfg)
+            outs.append([r.output_ids for r in llm.generate(prompts,
+                                                            SamplingParams(max_new_tokens=32))])
+            assert kernel.launches > before, quant
+        assert outs[0] == outs[1], quant
+        assert all(len(o) == 32 for o in outs[0])
