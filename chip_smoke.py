@@ -5,8 +5,8 @@
 
 (``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
 ``--w8a8-only``, ``--int8-only``, ``--attention-only``, ``--sampling-only``,
-``--hf-only`` and ``--ipad-only`` run parts of it: partial runs that print
-no kernels line and no result line.)
+``--hf-only``, ``--ipad-only`` and ``--dist-only`` run parts of it:
+partial runs that print no kernels line and no result line.)
 
 Phases, one line each (any failure exits non-zero and prints no result):
 
@@ -156,10 +156,26 @@ Phases, one line each (any failure exits non-zero and prints no result):
    requests, lookahead equal to AR), its prefill logits against
    forward_logits on the same bf16 weights; train step, teacher forward,
    AdamW ms, tokens/s, peak memory, reparam s;
+   dist: the parallel modules (``engine/dist_llm.py``, ``parallel/``,
+   ``ops/cp_attention.py``): K2 / K3 with a page range and the rows'
+   log-sum-exp against their plain twin at Llama-2-7B's shape (the full
+   range equal to the call without one, timed beside it); then two ranks,
+   child processes that share the card over gloo, serve Llama-2-7B int4 at
+   full width and 32 layers under tensor parallelism (16 heads, I 5504 and
+   16000 head columns a rank; 512-token prefill, 64 AR and 64 lookahead
+   tokens, lookahead == AR, the first-step logits against the one-process
+   run), under context parallelism (a 4096-token prompt whose pages
+   straddle the ranks; lookahead == AR, the one-process oracle's tokens and
+   arena bit for bit, the merged attention against one K2 / K3 call), and
+   a 2-layer Mixtral-8x7B int4 stack under expert parallelism (the MoE
+   block bit-equal to one process's ``expert_shards(2)``, lookahead ==
+   AR); every rank on the same tokens, each rank's step ms and the
+   collectives' share of it (gloo through the host, not NCCL);
 4. the launch count of every kernel and mode during phase 3, serving, the
    generator phase (and apart from it, its checks: K17 and K4's and K16's
    general entries have no caller on any path), the hf phase, the ipad phase, the quant
-   modes and the MoE, MLA and linear-attention phases, each counted from 0 (all must be > 0), the script's wall time, and the
+   modes, the MoE, MLA and linear-attention phases and phase dist (its
+   ranks' DistLLM runs), each counted from 0 (all must be > 0), the script's wall time, and the
    ``kernels`` JSON line.
 
 The last two lines are the card's name and power limit (as nvidia-smi gives
@@ -170,6 +186,7 @@ every number to PATH. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -358,10 +375,12 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(grouped_gemm_kernel)ILb([01])E", entry)
     if t:
         return f"{t.group(1)}<2>" + (" seq" if t.group(2) == "1" else "")
-    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E(?:Lb([01])E)?", entry)
+    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E(?:Lb([01])E)?(?:Lb([01])E)?",
+                  entry)
     if t:
         return (f"{t.group(1)}<D={t.group(2)},{('bf16', 'fp8', 'fp8_tok')[int(t.group(3))]}"
-                + (",alibi>" if t.group(4) == "1" else ">"))
+                + (",alibi" if t.group(4) == "1" else "")
+                + (",range>" if t.group(5) == "1" else ">"))
     t = re.search(r"(mla_attention_kernel|mla_combine_kernel)", entry)
     if t:
         return t.group(1)
@@ -1811,6 +1830,9 @@ class Launches:
         for kind in ("decode", "verify"):
             out[f"paged_attention[{kind},alibi]"] = pa.modes[f"{kind},bf16,alibi"]
         out["paged_attention_prefill[alibi]"] = pre.modes["prefill,bf16,alibi"]
+        for kind in ("decode", "verify"):
+            out[f"paged_attention[{kind},range]"] = pa.modes[f"{kind},bf16,range"]
+        out["paged_attention_prefill[range]"] = pre.modes["prefill,bf16,range"]
         for kind in ("decode", "verify", "prefill"):
             out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
             out[f"mla_attention[{kind}]"] = self.mla.modes[kind]
@@ -2273,8 +2295,8 @@ class ServingCapture(LaunchHooks):
 
     def _attn_hook(self, orig):
         def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None,
-                 alibi=None, alibi_pos=None):
-            if self._first_layer(k):
+                 alibi=None, alibi_pos=None, page_range=None, return_lse=False):
+            if self._first_layer(k) and page_range is None:
                 B, Q = q.shape[:2]
                 kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
                 old = self.attn.get((kind, arena))
@@ -2291,7 +2313,7 @@ class ServingCapture(LaunchHooks):
                     else:
                         self.attn[(kind, arena)] = c
             return orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs, alibi,
-                        alibi_pos)
+                        alibi_pos, page_range, return_lse)
         return hook
 
     def _gemm_hook(self, orig):
@@ -3413,9 +3435,9 @@ class AlibiCheck(LaunchHooks):
         ref_mod = self.pkg["attention"]
 
         def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None,
-                 alibi=None, alibi_pos=None):
+                 alibi=None, alibi_pos=None, page_range=None, return_lse=False):
             out = orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs, alibi,
-                       alibi_pos)
+                       alibi_pos, page_range, return_lse)
             if alibi is not None:
                 B, Q = q.shape[:2]
                 qm = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q) if causal \
@@ -3438,9 +3460,10 @@ def check_later_branch(pkg, llm, ids, L=8) -> dict:
     served model's width, a wrong draft on branch 0 and the AR continuation
     on branch 1, whose nodes sit at slots ctx + 1 + L + l but at positions
     ctx + 1 + l. Fails the run unless the root's and each branch-1 node's
-    logits row is within rel 2e-2 of the AR decode row at the same prefix
-    (the keys sit at other slots, so sums run in other orders); counts the
-    rows whose argmax is the AR token. With ALiBi (positions act nowhere
+    logits row carries the bits of the AR decode row at the same prefix
+    (the keys sit at other slots; every op of the row is row-count
+    invariant); reports the rel errors and the rows whose argmax is the AR
+    token. With ALiBi (positions act nowhere
     else) the same verify with its keys at their slots' positions shows the
     bias that the positions repair (``slot_rule_max_rel_err``)."""
     import torch
@@ -3475,10 +3498,12 @@ def check_later_branch(pkg, llm, ids, L=8) -> dict:
 
     rel, got = rels(vl)
     same = sum(int(torch.argmax(a)) == int(f[0]) for a, f in zip(got, fed))
-    if not max(rel) <= 2e-2:
-        fail(f"phase hf: a branch-1 node's verify logits differ from AR: rel err {rel}")
+    bits = [bool(torch.equal(a, b)) for a, b in zip(got, rows)]
+    if not all(bits):
+        fail(f"phase hf: a branch-1 node's verify logits are not the AR row's bits: "
+             f"equal {bits}, rel err {rel}")
     out = dict(R=2, L=L, ctx=len(ids), rows=L + 1, max_rel_err=max(rel), rel_err_by_row=rel,
-               argmax_equal=same)
+               argmax_equal=same, bit_equal=sum(bits))
     if cfg.position_embedding_type == "alibi":
         slots = ctx[:, None] + torch.arange(tokens.shape[1], device="cuda", dtype=torch.int32)
         kv, _, _ = step.prefill_step(params, kv, cfg, toks, zero, ctx, pt, spec)
@@ -3962,10 +3987,10 @@ class MoeInputCapture:
         self.orig = self.base.moe_block
 
     def __enter__(self):
-        def hook(lp, cfg, spec, h):
+        def hook(lp, cfg, spec, h, par=None):
             if self.h is None or h.shape[1] > self.h.shape[1]:
                 self.h, self.lp = h.clone(), lp
-            return self.orig(lp, cfg, spec, h)
+            return self.orig(lp, cfg, spec, h, par)
         self.base.moe_block = hook
         return self
 
@@ -5474,6 +5499,469 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase dist: the parallel modules over torch.distributed, two ranks sharing
+# the card over gloo
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 480
+DIST_TOKENS = 64  # AR and lookahead tokens of the TP run (Q = 17)
+DIST_CP_PROMPT = 4096
+DIST_CP_TOKENS = 32
+DIST_CP_PAGES = 96  # 48 a rank: a 4096-token request's 66 pages straddle both
+
+
+def dist_prompt(vocab: int, n: int, seed: int) -> list:
+    """n prompt tokens: a seeded numpy draw of 32-token phrases repeated,
+    so that lookahead's tables hold n-grams of the stream early."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    phrases = rng.integers(3, vocab - 1, (8, 32))
+    return [int(t) for t in phrases[rng.integers(0, 8, -(-n // 32))].reshape(-1)[:n]]
+
+
+def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int) -> dict:
+    """K2 (decode, verify) or K3 (prefill) with a page range and the
+    log-sum-exp, at Llama-2-7B's attention shape, against their plain twin
+    (``paged_attention_ref`` with the same range): the range holds half of
+    the request's pages (a context-parallel rank's share). The same call
+    over the full range must give the bits of the call without one. Timed
+    beside the present call (no range), with the bound of the range's keys
+    and SDPA over the range's keys gathered as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    pa, ref_mod, cache = pkg["paged_attention"], pkg["attention"], pkg["cache"]
+    B, Hq, Hkv, D, ps = 1, 32, 32, 128, 64
+    P = -(-(ctx + Q) // ps)
+    n_pages = 2 * P + 2
+    k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
+    pt = (torch.randperm(n_pages - 1, generator=g, device="cuda")[:P] + 1)[None].to(torch.int32)
+    ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+    qm = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous()
+    rng = (1, n_pages // 2)
+    scale = D ** -0.5
+
+    def call(**kw):
+        if kind == "prefill":
+            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale, **kw)
+        return pa.paged_attention(q, k, v, pt, ctx_t, qm, scale, **kw)
+
+    def run():
+        return call(page_range=rng, return_lse=True)
+
+    def plain():
+        return ref_mod.paged_attention_ref(q, k, v, pt, ctx_t, qm, scale, page_range=rng,
+                                           return_lse=True)
+    (out, lse), (ref, ref_lse) = run(), plain()
+    empty = torch.isinf(ref_lse)
+    if not torch.equal(torch.isinf(lse), empty) or not (out[empty[..., None].expand_as(out)]
+                                                         == 0).all():
+        fail(f"cp attention {kind}: rows with no key in the range are not 0 with lse -inf")
+    err, rel = _errs(out, ref)
+    lse_err = (lse[~empty] - ref_lse[~empty]).abs().max().item() if (~empty).any() else 0.0
+    if not (rel <= 2e-2 and lse_err <= 2e-3):
+        fail(f"cp attention {kind}: rel err {rel}, lse err {lse_err}")
+    full = call(page_range=(0, n_pages), return_lse=True)[0]
+    if not torch.equal(full, call()):
+        fail(f"cp attention {kind}: the full page range differs from the call without one")
+    big = Q >= 256
+    ms = time_ms(run, reps=10 if big else 20)
+    dev_ms = graph_ms(run)
+    whole_ms, whole_dev_ms = time_ms(call, reps=10 if big else 20), graph_ms(call)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    # the range's keys: those of its pages that the request reads
+    ok = ((pt >= rng[0]) & (pt < rng[1])).repeat_interleave(ps, dim=1)[:, :ctx + Q]
+    mask = ref_mod.attention_mask(ctx_t, qm, P * ps)[:, :, :ctx + Q] & ok[:, None, :]
+    vis = int(mask.sum().item()) * Hq
+    keys = int(ok.sum().item())
+    nbytes = 2 * keys * Hkv * D * 2 + 2 * q.numel() * 2 + B * Q * Hq * 4
+    sel = ok[0].nonzero()[:, 0]
+    gk = cache.gather_kv_pages(k, pt, D, None, torch.bfloat16)[:, :, sel]
+    gv = cache.gather_kv_pages(v, pt, D, None, torch.bfloat16)[:, :, sel]
+    lib_mask = mask[:, None][..., sel]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), gk, gv, attn_mask=lib_mask, scale=scale), reps=10)
+    name = "paged_attention_prefill[range]" if kind == "prefill" else \
+        f"paged_attention[{kind},range]"
+    row = _case(name, "paged_attention.cu", _attn_replaces(kind, "bf16"), err, rel, ms,
+                plain_ms, bound_ms(nbytes, 4.0 * vis * D), lib_ms,
+                f"ctx={ctx} B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} pages {rng} of the "
+                f"request's {P} (keys in range {keys} of {ctx + Q}) + lse")
+    row.update(device_ms=dev_ms, lse_max_abs_err=lse_err, no_range_ms=whole_ms,
+               no_range_device_ms=whole_dev_ms)
+    return row
+
+
+def _dist_first_logits(pkg, eng, prompt) -> "torch.Tensor":
+    """The fp32 logits of one prefill of ``prompt`` in the engine's arena
+    (pages from 1), under the engine's rank state when it has one."""
+    import torch
+
+    comm = pkg["comm"]
+    n, ps = len(prompt), eng.ecfg.page_size
+    pt = torch.zeros((1, eng.ecfg.pages_per_req), dtype=torch.int32)
+    pt[0, :-(-n // ps)] = torch.arange(1, 1 + -(-n // ps), dtype=torch.int32)
+    st = getattr(eng, "rank_state", None)
+    with comm.using(st) if st is not None else contextlib.nullcontext():
+        _, _, logits = pkg["step"].prefill_step(
+            eng.params, eng.kv, eng.cfg, torch.tensor([prompt], dtype=torch.int32,
+                                                      device="cuda"),
+            torch.zeros(1, dtype=torch.int32, device="cuda"),
+            torch.tensor([n], dtype=torch.int32, device="cuda"), pt.cuda(), eng.quant)
+    return logits[0].float()
+
+
+class _DistCounts:
+    """The launch counts of the DistLLM serving runs alone (``_dist_serve``:
+    reset just before each ``generate``, read just after, summed). The
+    checks beside them (first-step logits, the merged attention, the MoE
+    block) run outside ``run``, so their launches are dropped at the next
+    reset."""
+
+    def __init__(self, pkg):
+        self.launches, self.total = Launches(pkg), {}
+
+    def run(self, fn):
+        import torch
+
+        self.launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in self.launches.read().items():
+            self.total[k] = self.total.get(k, 0) + v
+        return out
+
+
+def _dist_serve(pkg, counts, dl, prompt, n_new) -> tuple:
+    """One DistLLM.generate of one request: (tokens, numbers)."""
+    import torch
+
+    st = dl.rank_state
+    st.comm_s, st.comm_n = 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    req = counts.run(lambda: dl.generate([prompt], pkg["request"].SamplingParams(
+        max_new_tokens=n_new))[0])
+    wall = time.perf_counter() - t0
+    m = dl.metrics
+    steps = m.spec_steps + m.decode_steps
+    if len(req.output_ids) != n_new:
+        fail(f"phase dist: a request stopped early ({len(req.output_ids)} of {n_new})")
+    # a decode or verify step's ms: the decode phase's time (the draft tables'
+    # updates included) over its steps; the collectives' share of the wall
+    return req.output_ids, dict(wall_s=wall, prefill_s=m.prefill_time,
+                                decode_s=m.decode_time, steps=steps,
+                                step_ms=1e3 * m.decode_time / max(steps, 1),
+                                collective_s=st.comm_s, collective_share=st.comm_s / wall,
+                                collectives=st.comm_n, spec_steps=m.spec_steps,
+                                spec_accepted=m.spec_accepted)
+
+
+def _first_divergence(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def dist_tp_case(pkg, counts, rank, params, cfg) -> dict:
+    """TP = 2: Llama-2-7B int4 at full width, 32 layers; each rank 16 heads,
+    16 KV heads, I 5504 and 16000 vocabulary columns. A 512-token prefill,
+    AR and lookahead (Q = 17) over DIST_TOKENS tokens: lookahead == AR bit for
+    bit; on rank 0 the one-process LLM's first-step logits and tokens."""
+    import torch
+
+    config, dist_llm, llm_mod = pkg["config"], pkg["dist_llm"], pkg["llm"]
+    prompt = dist_prompt(cfg.vocab_size, PROMPT_LEN, SEED + 21)
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=1, prefill_chunk=512,
+              quant="int4", eos_token_id=-2, prefix_cache=False, decode_burst=8,
+              decode_burst_idle=32)
+    look = dict(use_lookahead=True, decoding_length=16, branch_length=16,
+                use_spec_min_batch_size=1)
+    out = {}
+    if rank == 0:  # the one-process run on the same weights
+        one = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
+        ref_logits = _dist_first_logits(pkg, one, prompt)
+        ref_tokens = one.generate([prompt], pkg["request"].SamplingParams(
+            max_new_tokens=DIST_TOKENS))[0].output_ids
+        del one
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
+                          mesh_shape=(1, DIST_WORLD))
+    c = dl.cfg
+    out["rank_shard"] = dict(heads=c.num_attention_heads, kv_heads=c.num_key_value_heads,
+                             intermediate=c.intermediate_size,
+                             head_columns=list(dl.rank_state.head_widths or ()))
+    if (c.num_attention_heads, c.num_key_value_heads, c.intermediate_size) != (16, 16, 5504):
+        fail(f"phase dist tp: rank {rank}'s shard is {out['rank_shard']}")
+    logits = _dist_first_logits(pkg, dl, prompt)
+    ar, out["ar"] = _dist_serve(pkg, counts, dl, prompt, DIST_TOKENS)
+    del dl
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw, **look),
+                          mesh_shape=(1, DIST_WORLD))
+    la, out["lookahead"] = _dist_serve(pkg, counts, dl, prompt, DIST_TOKENS)
+    del dl
+    torch.cuda.empty_cache()
+    if la != ar:
+        fail(f"phase dist tp: lookahead differs from AR at token {_first_divergence(la, ar)}")
+    out["lossless"] = True
+    out["tokens"] = ar
+    if rank == 0:
+        out["vs_one_process"] = dict(
+            first_logits_max_rel_err=_errs(logits, ref_logits)[1],
+            argmax_equal=int(logits.argmax()) == int(ref_logits.argmax()),
+            tokens_equal=ar == ref_tokens, first_divergence=_first_divergence(ar, ref_tokens))
+        if not out["vs_one_process"]["first_logits_max_rel_err"] <= 2e-2:
+            fail(f"phase dist tp: first-step logits against one process: "
+                 f"{out['vs_one_process']}")
+    return out
+
+
+def dist_ep_case(pkg, counts, rank) -> dict:
+    """EP = 2: a Mixtral-8x7B-shaped stack at full width, 2 layers, int4
+    experts, 4 experts a rank. Layer 0's MoE block on one input is
+    bit-equal to the one-process ``expert_shards(2)``; the stack serves
+    lookahead == AR."""
+    import dataclasses
+
+    import torch
+
+    config, dist_llm, base, moe = pkg["config"], pkg["dist_llm"], pkg["base"], pkg["moe"]
+    cfg = dataclasses.replace(config.ModelConfig.mixtral_8x7b(), num_hidden_layers=2,
+                              expert_parallel=True)
+    spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    params = base.init_params_quantized(cfg, spec,
+                                        torch.Generator(device="cuda").manual_seed(SEED + 22))
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=1, prefill_chunk=512,
+              quant="int4", eos_token_id=-2, prefix_cache=False)
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
+                          mesh_shape=(1, DIST_WORLD))
+    if dl.params["moe_layers"]["moe_wgu"]["q"].shape[1] != cfg.num_experts // DIST_WORLD:
+        fail("phase dist ep: a rank does not hold its 4 experts")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    h = (torch.randn(1, 17, cfg.hidden_size, generator=g, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    got = moe.moe_block(base._layer_of(dl.params["moe_layers"], 0), dl.cfg, dl.quant, h,
+                        dl.rank_state)
+    with moe.expert_shards(DIST_WORLD):
+        want = moe.moe_block(base._layer_of(params["moe_layers"], 0), cfg, spec, h)
+    if not torch.equal(got, want):
+        fail(f"phase dist ep: the rank-parallel MoE block differs from expert_shards(2): "
+             f"rel err {_errs(got, want)[1]}")
+    prompt = dist_prompt(cfg.vocab_size, 256, SEED + 24)
+    ar, ar_res = _dist_serve(pkg, counts, dl, prompt, 32)
+    del dl
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(
+        **kw, use_lookahead=True, decoding_length=16, branch_length=16,
+        use_spec_min_batch_size=1), mesh_shape=(1, DIST_WORLD))
+    la, la_res = _dist_serve(pkg, counts, dl, prompt, 32)
+    del dl, params
+    torch.cuda.empty_cache()
+    if la != ar:
+        fail(f"phase dist ep: lookahead differs from AR at token {_first_divergence(la, ar)}")
+    return dict(block_bit_equal=True, layers=2, experts_a_rank=cfg.num_experts // DIST_WORLD,
+                ar=ar_res, lookahead=la_res, lossless=True, tokens=ar)
+
+
+@contextlib.contextmanager
+def cp_oracle_attention(pkg, n: int):
+    """For the body, the one-process forward's attention
+    (``models/base.py _attention``) is the context-parallel oracle: each of
+    the ``n`` ranks' partials over the one arena, with that rank's global
+    page range, merged in rank order (``cp_attention_oracle``)."""
+    base, cpa = pkg["base"], pkg["cp_attention"]
+
+    def attend(xq, kv, li, page_tables, start_lens, qmask, causal, scale, alibi=None):
+        return cpa.cp_attention_oracle(xq, kv["k"][li], kv["v"][li], page_tables,
+                                       start_lens, qmask, causal, scale, n)
+
+    plain, base._attention = base._attention, attend
+    try:
+        yield
+    finally:
+        base._attention = plain
+
+
+def dist_cp_case(pkg, counts, rank, params, cfg) -> dict:
+    """CP = 2: Llama-2-7B int4, parameters replicated, a 4096-token prompt
+    whose 66 pages straddle both ranks (48 pages a rank). CP AR == CP
+    lookahead bit for bit; the one-process oracle (``cp_oracle_attention``,
+    run on each rank) serves the same tokens and its arena equals this rank's pages
+    bit for bit; the merged attention equals the oracle's and is within rel
+    2e-2 of one K2 / K3 call over the whole context."""
+    import torch
+
+    config, dist_llm, llm_mod = pkg["config"], pkg["dist_llm"], pkg["llm"]
+    cpa = pkg["cp_attention"]
+    prompt = dist_prompt(cfg.vocab_size, DIST_CP_PROMPT, SEED + 25)
+    n_tot = DIST_CP_PROMPT + DIST_CP_TOKENS
+    kw = dict(page_size=64, max_seq_len=n_tot + 128, max_concurrency=1, prefill_chunk=4096,
+              quant="int4", eos_token_id=-2, prefix_cache=False, num_pages=DIST_CP_PAGES,
+              context_parallel=True)
+    per = DIST_CP_PAGES // DIST_WORLD
+    lo, hi = rank * per, (rank + 1) * per
+    n_req = -(-n_tot // 64)
+    mine = [p for p in range(1, 1 + n_req) if lo <= p < hi]
+    out = dict(pages_a_rank=per, request_pages=n_req, this_rank_pages=len(mine),
+               visible_key_share=len(mine) * 64 / (n_req * 64))
+    if not mine or len(mine) == n_req:
+        fail("phase dist cp: the request's pages do not straddle the ranks")
+    with cp_oracle_attention(pkg, DIST_WORLD):  # the oracle: one process, the whole arena
+        one = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
+        ref = one.generate([prompt], pkg["request"].SamplingParams(
+            max_new_tokens=DIST_CP_TOKENS))[0].output_ids
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
+                          mesh_shape=(1, DIST_WORLD))
+    ar, out["ar"] = _dist_serve(pkg, counts, dl, prompt, DIST_CP_TOKENS)
+    if ar != ref:
+        fail(f"phase dist cp: the oracle's tokens differ at {_first_divergence(ar, ref)}")
+    idx = torch.tensor(mine, device="cuda")
+    for name in ("k", "v"):
+        a, b = dl.kv[name][:, idx - lo + 1], one.kv[name][:, idx]
+        if not torch.equal(a, b):
+            fail(f"phase dist cp: rank {rank}'s {name} pages differ from the oracle's arena "
+                 f"(rel err {_errs(a, b)[1]})")
+    out["arena_equal_pages"] = len(mine)
+    # the merged attention: the ranks' merge == the oracle's, near one K2 / K3 call
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    pt = torch.arange(1, 1 + n_req, dtype=torch.int32, device="cuda")[None]
+    merged = {}
+    for Q, ctx in ((1, n_tot - 2), (512, n_tot - 513)):  # keys the run wrote
+        q = torch.randn(1, Q, cfg.num_attention_heads, cfg.head_dim, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        qm = pkg["attention"].causal_qmask(Q, "cuda")[None].contiguous()
+        ctx_t = torch.full((1,), ctx, dtype=torch.int32, device="cuda")
+        sc = cfg.head_dim ** -0.5
+        got = cpa.cp_attention(q, dl.kv, 0, pt, ctx_t, qm, Q > 128, sc, dl.rank_state)
+        orc = cpa.cp_attention_oracle(q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, qm,
+                                      Q > 128, sc, DIST_WORLD)
+        if Q > 128:
+            whole = pkg["paged_attention"].paged_attention_prefill(
+                q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, sc)
+        else:
+            whole = pkg["paged_attention"].paged_attention(
+                q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, qm, sc)
+        rel = _errs(got, whole)[1]
+        if not torch.equal(got, orc) or not rel <= 2e-2:
+            fail(f"phase dist cp: merged attention at Q={Q}: oracle equal "
+                 f"{torch.equal(got, orc)}, rel err {rel} against one call")
+        merged[f"Q={Q}"] = dict(oracle_bit_equal=True, max_rel_err_vs_one_call=rel)
+    out["merged_attention"] = merged
+    del dl, one
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(
+        **kw, use_lookahead=True, decoding_length=16, branch_length=16,
+        use_spec_min_batch_size=1), mesh_shape=(1, DIST_WORLD))
+    la, out["lookahead"] = _dist_serve(pkg, counts, dl, prompt, DIST_CP_TOKENS)
+    del dl
+    torch.cuda.empty_cache()
+    if la != ar:
+        fail(f"phase dist cp: lookahead differs from AR at token {_first_divergence(la, ar)}")
+    out.update(lossless=True, tokens=ar)
+    return out
+
+
+def dist_rank(pkg, rank: int, port: int, out_path: Path) -> None:
+    """One rank of phase dist (a child process of the script)."""
+    import torch
+
+    pkg["multihost"].initialize_multihost(f"localhost:{port}", DIST_WORLD, rank,
+                                          device="cuda")
+    counts = _DistCounts(pkg)
+    t0 = time.perf_counter()
+    cfg = pkg["config"].ModelConfig.llama2_7b()
+    spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    params = pkg["base"].init_params_quantized(
+        cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
+    res = dict(tp=dist_tp_case(pkg, counts, rank, params, cfg))
+    res["cp"] = dist_cp_case(pkg, counts, rank, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    res["ep"] = dist_ep_case(pkg, counts, rank)
+    res.update(launches=counts.total, wall_s=time.perf_counter() - t0,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    out_path.write_text(json.dumps(res))
+    print(f"DIST_OK rank={rank}", flush=True)
+
+
+DIST_PATH_KERNELS = ("int4_gemm", "kv_write_step", "paged_attention[decode]",
+                     "paged_attention[verify]", "paged_attention_prefill",
+                     "paged_attention[decode,range]", "paged_attention[verify,range]",
+                     "paged_attention_prefill[range]")
+
+
+def phase_dist(pkg) -> dict:
+    """The parallel modules on the card: K2 / K3 with a page range and the
+    log-sum-exp against their plain twin (this process), then two ranks
+    spawned as child processes that share the card over gloo (NCCL refuses
+    two ranks on one device) and serve tensor, context and expert
+    parallelism (``dist_rank``). A rank that fails, times out or does not
+    print its OK line fails the run. The gloo times go through the host:
+    they are not NCCL times."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = [cp_attention_row(pkg, g, "decode", 4096, 1),
+            cp_attention_row(pkg, g, "verify", 4096, 17),
+            cp_attention_row(pkg, g, "prefill", 3584, 512)]
+    for r in rows:
+        print("phase dist kernel: " + json.dumps(r))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    with __import__("socket").socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    outs = [tmp / f"rank{r}.json" for r in range(DIST_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--dist-rank",
+                               str(r), "--dist-port", str(port), "--dist-out", str(outs[r])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DIST_WORLD)]
+    logs = [""] * DIST_WORLD
+    try:
+        for r, p in enumerate(procs):
+            left = max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0))
+            logs[r], _ = p.communicate(timeout=left)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0 or f"DIST_OK rank={r}" not in logs[r]:
+            print(logs[r][-6000:], file=sys.stderr)
+            fail(f"phase dist: rank {r} failed (exit {p.returncode})")
+    res = [json.loads(o.read_text()) for o in outs]
+    for case in ("tp", "cp", "ep"):
+        if res[1][case]["tokens"] != res[0][case]["tokens"]:
+            fail(f"phase dist {case}: the ranks ended on different tokens")
+    launches = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # the serving runs alone: TP's plain K2 / K3, K1 and K16; CP's ranged K2 / K3
+    idle = [k for k in DIST_PATH_KERNELS if launches.get(k, 0) <= 0]
+    if idle:
+        fail(f"phase dist: the DistLLM runs launched none of {idle} (launches {launches})")
+    out = dict(kernels=rows, launches=launches, wall_s=time.perf_counter() - t0,
+               note="two ranks share one H100 over gloo: every collective goes through "
+                    "the host, so these are not NCCL times")
+    for case in ("tp", "cp", "ep"):
+        out[case] = [{k: v for k, v in r[case].items() if k != "tokens"} for r in res]
+        print(f"phase dist {case} (rank 0, rank 1): " + json.dumps(out[case]))
+    out["ranks"] = [dict(wall_s=r["wall_s"], peak_mem_gb=r["peak_mem_gb"]) for r in res]
+    print(f"phase dist: wall {out['wall_s']:.1f} s (gloo through the host, not NCCL)")
+    return out
+
+
 def load_port():
     if not (HERE / "painlessinferenceacceleration_tpu_torch" / "__init__.py").exists():
         fail("the port package is not beside chip_smoke.py")
@@ -5494,7 +5982,9 @@ def load_port():
                  request="engine.request", device_tables="lookahead.device_tables",
                  base="models.base", sample="ops.sample", server="service.server",
                  client="service.client", safetensors="utils.safetensors",
-                 ipad="ipad.distill", train_forward="ipad.train_forward", optim="ipad.optim")
+                 ipad="ipad.distill", train_forward="ipad.train_forward", optim="ipad.optim",
+                 dist_llm="engine.dist_llm", comm="parallel.comm", mesh="parallel.mesh",
+                 multihost="parallel.multihost", cp_attention="ops.cp_attention")
     return {k: importlib.import_module(base + v) for k, v in names.items()}
 
 
@@ -5540,13 +6030,33 @@ def main() -> None:
                     help="run only the ALiBi attention rows and the hf phase (local "
                          "checkpoints through LLM(model_path=...); a partial run: prints "
                          "no kernels line and no result line)")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="run only phase dist: K2 / K3 with a page range and two ranks "
+                         "sharing the card over gloo under tensor, context and expert "
+                         "parallelism (a partial run: prints no kernels line and no "
+                         "result line)")
+    ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-out", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda is not available")
     pkg = load_port()
+    if args.dist_rank is not None:  # a rank of phase dist, started by it
+        dist_rank(pkg, args.dist_rank, args.dist_port, args.dist_out)
+        return
     env = phase_environment(pkg)
+    if args.dist_only:
+        dist_res = phase_dist(pkg)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (dist only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, dist=dist_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     if args.moe_only:
         rows = phase_moe_kernels(pkg, pkg["config"].ModelConfig.mixtral_8x7b())
         moe_res = phase_moe(pkg)
@@ -5718,6 +6228,8 @@ def main() -> None:
     lin_res = phase_linear(pkg)
     rows += lin_res["kernels"]
     print(f"linear-attention phases' wall: {time.perf_counter() - t_lin:.1f} s")
+    dist_res = phase_dist(pkg)
+    rows += dist_res["kernels"]
     by_phase = dict(main_path=main_res["launches"], serving=serve_res["launches"],
                     serving_compaction_check=serve_res["check_launches"],
                     generator=gen_res["launches"],
@@ -5725,7 +6237,8 @@ def main() -> None:
                     sampling=samp_res["launches"], hf=hf_res["launches"],
                     ipad=ipad_res["launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
-                    mla=mla_res["launches"], linear=lin_res["launches"])
+                    mla=mla_res["launches"], linear=lin_res["launches"],
+                    dist=dist_res["launches"])
     launches = {k: sum(p[k] for p in by_phase.values()) for k in main_res["launches"]}
     checks = ("serving_compaction_check", "generator_compaction_check")
     no_write = [k for k, p in by_phase.items() if k not in checks and p["kv_write_step"] <= 0]
@@ -5743,7 +6256,8 @@ def main() -> None:
                  "compaction check, in the generator phase or its compaction check, in the "
                  "sampling phase, in the hf phase, in the ipad phase, in the quant modes, in "
                  "the MoE phases, in "
-                 "the MLA phases or in the linear-attention phases (launches by phase: "
+                 "the MLA phases, in the linear-attention phases or in phase dist "
+                 "(launches by phase: "
                  f"{ {k: v.get(key, 0) for k, v in by_phase.items()} })")
     print("phase 4 launches (each phase counted from 0): " + json.dumps(by_phase))
     print("phase 4 launches (sum): " + json.dumps(launches))
@@ -5757,7 +6271,7 @@ def main() -> None:
                                              hf=hf_res, ipad=ipad_res,
                                              quant_modes=quant_res, moe=moe_res,
                                              mla=mla_res, linear=lin_res,
-                                             launches=by_phase,
+                                             dist=dist_res, launches=by_phase,
                                              wall_s=wall_s), indent=1))
     print(json.dumps({"kernels": rows}))
     print(env["card"])

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from typing import Optional, Tuple
 
@@ -103,14 +104,11 @@ class ModelConfig:
     # before the feature map
     linear_qk_norm: bool = False
     linear_rope: bool = False
-    # context parallelism: not ported (a set value raises, as EngineConfig's)
+    # context parallelism: the KV pages split over the model axis of a
+    # DistLLM (ops/cp_attention.py); set from EngineConfig.context_parallel
     context_parallel: bool = False
 
     def __post_init__(self):
-        if self.context_parallel:
-            raise NotImplementedError(
-                "ModelConfig.context_parallel=True: context parallelism (ROADMAP A.10) "
-                "is not ported yet")
         if self.head_dim == 0:
             object.__setattr__(
                 self, "head_dim", self.hidden_size // self.num_attention_heads
@@ -489,14 +487,14 @@ class ModelConfig:
 # number of distinct shapes the kernels see).
 DEFAULT_DECODE_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
-# Fields whose features are not ported yet: a non-default value raises,
-# naming the ROADMAP item that ports it.
-_NOT_PORTED = {
-    "context_parallel": (False, "context parallelism (ROADMAP A.10)"),
-    "mesh_shape": (None, "device meshes (ROADMAP A.10)"),
-    "mesh_axes": (("data", "model"), "device meshes (ROADMAP A.10)"),
-}
 SCHEDULE_POLICIES = ("pingpong", "mix", "timely")
+
+
+def cp_page_unit(axis: int) -> int:
+    """The arena's page count under context parallelism is a multiple of
+    this: lcm(16, model axis)."""
+    return 16 * axis // math.gcd(16, axis)
+
 KV_QUANT_MODES = ("none", "fp8", "fp8_tok")
 # the modes layers.linear.QuantSpec.from_mode takes
 QUANT_MODES = ("none", "int8", "int4", "w8a8_int8", "w8a8_int8_static",
@@ -553,9 +551,10 @@ class EngineConfig:
     quant_embed: bool = False  # retype the embedding table to per-row e4m3
     kv_scale_init: float = 1.0  # initial static fp8 scale (before calibration)
 
-    # --- parallelism ---
-    mesh_shape: Optional[Tuple[int, ...]] = None
+    # --- parallelism (engine/dist_llm.py DistLLM) ---
+    mesh_shape: Optional[Tuple[int, ...]] = None  # (data, model); None -> all model
     mesh_axes: Tuple[str, ...] = ("data", "model")
+    # the KV pages split over the model axis (ModelConfig.context_parallel)
     context_parallel: bool = False
 
     # --- sampling defaults (inert, as in the JAX package: requests carry
@@ -570,11 +569,6 @@ class EngineConfig:
     max_new_tokens: int = 256
 
     def __post_init__(self):
-        for name, (default, item) in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r}: {item} is not "
-                    "ported yet")
         if self.kv_quant not in KV_QUANT_MODES:
             raise ValueError(f"kv_quant {self.kv_quant!r} not in {KV_QUANT_MODES}")
         if self.quant not in QUANT_MODES:
@@ -585,6 +579,12 @@ class EngineConfig:
         if self.num_pages == 0:
             # +1: page 0 is the reserved null page (padding page-table entries)
             self.num_pages = self.max_concurrency * self.pages_per_req + 1
+        if self.context_parallel:
+            # the model axis splits the pages: round them up to a multiple of
+            # lcm(16, axis) once (the JAX package rounds to 16 here and to the
+            # axis in DistLLM, and the second rounding can undo the first)
+            unit = cp_page_unit(self.mesh_shape[-1] if self.mesh_shape else 1)
+            self.num_pages = -(-self.num_pages // unit) * unit
 
     @property
     def pages_per_req(self) -> int:

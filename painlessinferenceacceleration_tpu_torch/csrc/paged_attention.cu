@@ -37,6 +37,15 @@
 // does not spill. Without ALIBI the body is the slope-free one,
 // instruction for instruction.
 //
+// Context parallelism (template RANGED, the bf16 arena without ALiBi): a
+// rank walks only the key blocks whose page id lies in its [page_lo,
+// page_hi); a skipped block is neither loaded nor multiplied, and the walked
+// ones keep their absolute order, so the full range gives the bits of the
+// call without one. Every build can also write each row's log-sum-exp of
+// its scaled scores (lse, natural log; -inf for a row that saw no key, whose
+// output is 0), which ops/cp_attention.py merges across the ranks. Without
+// RANGED the walk is the one of before, block for block.
+//
 // Visibility (ops/attention.py): key slot j is visible to query row t iff
 // j < ctx, or s = j - ctx lies in [0, Q) and qmask[b, t, s] (causal: s <= t).
 // A masked score is the sentinel -1e30 and its probability exactly 0, so a
@@ -72,6 +81,8 @@
 //   So a row is the same at every Q, in every route (decode, verify,
 //   prefill), at every place in the tile and in either warpgroup.
 
+#include <climits>
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -89,6 +100,7 @@ constexpr int kLoader = 256;     // the first loader thread (issues the TMA copi
 constexpr int kConverters = 96;  // loader warps 1-3: the e4m3 widening
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kBf16 = 0;       // bf16 arena
 constexpr int kFp8Head = 1;    // e4m3 arena, static per-head scales
@@ -212,7 +224,7 @@ __device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-template <int D, int MODE, bool ALIBI>
+template <int D, int MODE, bool ALIBI, bool RANGED>
 __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap km, const __grid_constant__ CUtensorMap vm,
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ page_tables,
@@ -220,7 +232,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const float* __restrict__ alibi, const int* __restrict__ kpos,
     __nv_bfloat16* __restrict__ out, int Q, int Hq, int Hkv, int P, int QT,
-    int n_tiles, float scale, int causal) {
+    int n_tiles, float scale, int causal, int page_lo, int page_hi,
+    float* __restrict__ lse) {
   using L = Smem<D, MODE>;
   constexpr int S = L::kStages;
   constexpr int R = L::kRawStages > 0 ? L::kRawStages : 1;  // (no raw ring in bf16)
@@ -251,6 +264,15 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   const int last_key = causal ? ctx + t0 + nt - 1 : ctx + Q - 1;
   const int n_blocks = min(last_key / kKeys + 1, P);
   const int* pt = page_tables + (size_t)b * P;
+  // the key blocks walked, in ascending order: every one, or (RANGED) those
+  // whose page lies in [page_lo, page_hi); ring slot i holds the i-th of them
+  auto next_block = [&](int kb) {
+    int k = kb + 1;
+    if constexpr (RANGED) {
+      while (k < n_blocks && (unsigned)(pt[k] - page_lo) >= (unsigned)(page_hi - page_lo)) ++k;
+    }
+    return k;
+  };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
@@ -288,9 +310,9 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     const int lt = threadIdx.x - kLoader;
     if (MODE == kBf16) {
       if (lt != 0) return;
-      for (int kb = 0; kb < n_blocks; ++kb) {
-        const int slot = kb % S;
-        if (kb >= S) mbar_wait(empty + 8 * slot, ((kb / S) + 1) & 1);
+      for (int kb = next_block(-1), i = 0; kb < n_blocks; kb = next_block(kb), ++i) {
+        const int slot = i % S;
+        if (i >= S) mbar_wait(empty + 8 * slot, ((i / S) + 1) & 1);
         const int row = pt[kb] * kKeys;
         uint8_t* dst = ring + slot * L::kStage;
         mbar_expect(full + 8 * slot, L::kStage);
@@ -304,9 +326,9 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
       return;
     }
     if (lt == 0) {  // the raw ring's producer
-      for (int kb = 0; kb < n_blocks; ++kb) {
-        const int slot = kb % R;
-        if (kb >= R) mbar_wait(rempty + 8 * slot, ((kb / R) + 1) & 1);
+      for (int kb = next_block(-1), i = 0; kb < n_blocks; kb = next_block(kb), ++i) {
+        const int slot = i % R;
+        if (i >= R) mbar_wait(rempty + 8 * slot, ((i / R) + 1) & 1);
         const int row = pt[kb] * kKeys;
         uint8_t* dst = raw + slot * L::kRaw;
         mbar_expect(rfull + 8 * slot, L::kRaw);
@@ -319,10 +341,10 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     // the converters: raw e4m3 stage -> swizzled bf16 stage (and the
     // per-token scales beside it)
     const int ct = lt - 32;
-    for (int kb = 0; kb < n_blocks; ++kb) {
-      const int rs = kb % R, slot = kb % S;
-      mbar_wait(rfull + 8 * rs, (kb / R) & 1);
-      if (kb >= S) mbar_wait(empty + 8 * slot, ((kb / S) + 1) & 1);
+    for (int kb = next_block(-1), i = 0; kb < n_blocks; kb = next_block(kb), ++i) {
+      const int rs = i % R, slot = i % S;
+      mbar_wait(rfull + 8 * rs, (i / R) & 1);
+      if (i >= S) mbar_wait(empty + 8 * slot, ((i / S) + 1) & 1);
       const uint8_t* src = raw + rs * L::kRaw;
       uint8_t* dst = ring + slot * L::kStage;
       constexpr int kUnits = D / 16;  // 16-byte units of a raw row
@@ -404,18 +426,18 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   uint32_t pa[16];          // the previous block's P: the A fragments of P V
   const uint32_t qa = smem_u32(q_s) + wg * 64 * 128;
 
-  // S = Q K^T of key block kb, issued (one commit group)
-  auto issue_s = [&](int kb) {
-    const uint32_t ka = smem_u32(ring + (kb % S) * L::kStage);
+  // S = Q K^T of the key block in ring slot i, issued (one commit group)
+  auto issue_s = [&](int i) {
+    const uint32_t ka = smem_u32(ring + (i % S) * L::kStage);
 #pragma unroll
     for (int t = 0; t < D / 16; ++t)
       wgmma_s(s, sw_desc<128>(qa + (t / 4) * (kRows * 128) + 32 * (t % 4)),
               sw_desc<128>(ka + (t / 4) * (kKeys * 128) + 32 * (t % 4)), t > 0);
     wgmma_commit();
   };
-  // O += P V of key block kb, P from pa, issued (one commit group)
-  auto issue_pv = [&](int kb) {
-    const uint32_t va = smem_u32(ring + (kb % S) * L::kStage + L::kHalf);
+  // O += P V of the key block in ring slot i, P from pa, issued (one commit group)
+  auto issue_pv = [&](int i) {
+    const uint32_t va = smem_u32(ring + (i % S) * L::kStage + L::kHalf);
 #pragma unroll
     for (int t = 0; t < kKeys / 16; ++t) {
       const uint32_t a[4] = {pa[4 * t], pa[4 * t + 1], pa[4 * t + 2], pa[4 * t + 3]};
@@ -423,10 +445,10 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     }
     wgmma_commit();
   };
-  // the scores of key block kb in s: masked, and the online softmax;
-  // leaves the probabilities in s and each row's rescale factor
-  auto softmax = [&](int kb, float (&alpha)[2]) {
-    const float* ks = sc_s + (kb % S) * 2 * kKeys;
+  // the scores of key block kb (ring slot i) in s: masked, and the online
+  // softmax; leaves the probabilities in s and each row's rescale factor
+  auto softmax = [&](int kb, int i, float (&alpha)[2]) {
+    const float* ks = sc_s + (i % S) * 2 * kKeys;
     // ALiBi: the positions of this thread's 16 columns, i -> column
     // 8 (i / 2) + 2 quad + i % 2
     float kposf[ALIBI ? 16 : 1];
@@ -509,42 +531,47 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
 
   // Block kb's scores are issued with block kb - 1's P V behind them: the
   // softmax of kb runs while the tensor cores finish P V of kb - 1.
+  // (With a page range no block may be walked: the row keeps O = 0, l = 0.)
   float alpha[2];
-  mbar_wait(full, 0);
-  fence_regs(s);
-  wgmma_fence();
-  issue_s(0);
-  wgmma_wait0();
-  fence_regs(s);
-  softmax(0, alpha);
-  rescale_and_pack(alpha);
-#pragma unroll 1
-  for (int kb = 1; kb < n_blocks; ++kb) {
-    mbar_wait(full + 8 * (kb % S), (kb / S) & 1);
+  int kb = next_block(-1);
+  if (kb < n_blocks) {
+    mbar_wait(full, 0);
     fence_regs(s);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait0();
+    fence_regs(s);
+    softmax(kb, 0, alpha);
+    rescale_and_pack(alpha);
+    int i = 1;
+#pragma unroll 1
+    for (kb = next_block(kb); kb < n_blocks; kb = next_block(kb), ++i) {
+      mbar_wait(full + 8 * (i % S), (i / S) & 1);
+      fence_regs(s);
+      fence_regs(o);
+      wgmma_fence();
+      issue_s(i);
+      issue_pv(i - 1);
+      // block i's scores are done (in the per-token mode, whose scale
+      // columns need the registers, block i - 1's P V too)
+      if (MODE == kFp8Token)
+        wgmma_wait0();
+      else
+        wgmma_wait1();
+      fence_regs(s);
+      softmax(kb, i, alpha);
+      wgmma_wait0();  // block i - 1's P V is done
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % S));  // this warp is done with it
+      rescale_and_pack(alpha);
+    }
     fence_regs(o);
     wgmma_fence();
-    issue_s(kb);
-    issue_pv(kb - 1);
-    // block kb's scores are done (in the per-token mode, whose scale columns
-    // need the registers, block kb - 1's P V too)
-    if (MODE == kFp8Token)
-      wgmma_wait0();
-    else
-      wgmma_wait1();
-    fence_regs(s);
-    softmax(kb, alpha);
-    wgmma_wait0();  // block kb - 1's P V is done
+    issue_pv(i - 1);
+    wgmma_wait0();
     fence_regs(o);
-    if (lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % S));  // this warp is done with it
-    rescale_and_pack(alpha);
+    if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % S));
   }
-  fence_regs(o);
-  wgmma_fence();
-  issue_pv(n_blocks - 1);
-  wgmma_wait0();
-  fence_regs(o);
-  if (lane == 0) mbar_arrive(empty + 8 * ((n_blocks - 1) % S));
 
   // the epilogue: O / l (times the static V scale), bf16
 #pragma unroll
@@ -558,6 +585,12 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     const int qh = h * G + r / nt;
     float inv = 1.f / (lt > 0.f ? lt : 1.f);
     if (MODE == kFp8Head) inv *= v_scale[h];
+    // the row's log-sum-exp of its scaled scores (natural log; -inf for a
+    // row that saw no key): m is in the scores' units, sfac takes them to
+    // log2 units, as the probabilities are 2^(s sfac - m sfac)
+    if (lse != nullptr && quad == 0)
+      lse[((size_t)b * Q + t) * Hq + qh] =
+          lt > 0.f ? (m[h2] * sfac + log2f(lt)) * kLn2 : __int_as_float(0xff800000);
     __nv_bfloat16* dst = out + (((size_t)b * Q + t) * Hq + qh) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -566,17 +599,17 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
   }
 }
 
-template <int D, int MODE, bool ALIBI>
+template <int D, int MODE, bool ALIBI, bool RANGED>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* page_tables, const int* ctx_lens, const uint8_t* qmask,
                    const float* k_scale, const float* v_scale, const float* alibi,
                    const int* kpos, void* out,
                    int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT, float scale,
-                   int causal, cudaStream_t st) {
+                   int causal, int page_lo, int page_hi, float* lse, cudaStream_t st) {
   using L = Smem<D, MODE>;
   static bool done[64] = {};
   cudaError_t err =
-      allow_smem(paged_attention_wgmma_kernel<D, MODE, ALIBI>, L::kBytes, done);
+      allow_smem(paged_attention_wgmma_kernel<D, MODE, ALIBI, RANGED>, L::kBytes, done);
   if (err != cudaSuccess) return err;
   CUtensorMap km, vm;
   const uint64_t rows = (uint64_t)n_pages * kKeys, cols = (uint64_t)Hkv * D;
@@ -594,10 +627,10 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   if (QT < 1 || (Hq / Hkv) * QT > kRows) return cudaErrorInvalidValue;
   const int n_tiles = (Q + QT - 1) / QT;
   dim3 grid(Hkv, B, n_tiles);
-  paged_attention_wgmma_kernel<D, MODE, ALIBI><<<grid, kThreads, L::kBytes, st>>>(
+  paged_attention_wgmma_kernel<D, MODE, ALIBI, RANGED><<<grid, kThreads, L::kBytes, st>>>(
       km, vm, static_cast<const __nv_bfloat16*>(q), page_tables, ctx_lens, qmask, k_scale,
       v_scale, alibi, kpos, static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, P, QT, n_tiles, scale,
-      causal);
+      causal, page_lo, page_hi, lse);
   return cudaSuccess;
 }
 
@@ -606,16 +639,16 @@ cudaError_t launch_mode(int mode, const void* q, const void* k_pages, const void
                         const int* pt, const int* cl, const uint8_t* qm, const float* ksc,
                         const float* vsc, const float* alibi, const int* kpos, void* out,
                         int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT, float scale,
-                        int causal, cudaStream_t st) {
+                        int causal, int lo, int hi, float* lse, cudaStream_t st) {
   if (mode == kBf16)
-    return launch<D, kBf16, ALIBI>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out, B,
-                                   Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
+    return launch<D, kBf16, ALIBI, false>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out, B,
+                                   Q, Hq, Hkv, n_pages, P, QT, scale, causal, lo, hi, lse, st);
   if (mode == kFp8Head)
-    return launch<D, kFp8Head, ALIBI>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
-                                      B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
+    return launch<D, kFp8Head, ALIBI, false>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
+                                      B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, lo, hi, lse, st);
   if (mode == kFp8Token)
-    return launch<D, kFp8Token, ALIBI>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos,
-                                       out, B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
+    return launch<D, kFp8Token, ALIBI, false>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos,
+                                       out, B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, lo, hi, lse, st);
   return cudaErrorInvalidValue;
 }
 
@@ -624,12 +657,18 @@ cudaError_t launch_alibi(int mode, const void* q, const void* k_pages, const voi
                          const int* pt, const int* cl, const uint8_t* qm, const float* ksc,
                          const float* vsc, const float* alibi, const int* kpos, void* out,
                          int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT,
-                         float scale, int causal, cudaStream_t st) {
+                         float scale, int causal, int lo, int hi, float* lse, cudaStream_t st) {
+  if (lo != 0 || hi != INT_MAX) {  // a page range: the bf16 arena, no ALiBi
+    if (mode != kBf16 || alibi != nullptr) return cudaErrorInvalidValue;
+    return launch<D, kBf16, false, true>(q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos,
+                                         out, B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, lo,
+                                         hi, lse, st);
+  }
   if (alibi != nullptr)
     return launch_mode<D, true>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
-                                B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
+                                B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, lo, hi, lse, st);
   return launch_mode<D, false>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, out,
-                               B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, st);
+                               B, Q, Hq, Hkv, n_pages, P, QT, scale, causal, lo, hi, lse, st);
 }
 
 }  // namespace
@@ -658,7 +697,11 @@ extern "C" int paged_attention_smem_bytes(int D, int mode) {
 // f32 [Hkv] (mode 1) or [n_pages, 64, Hkv] (mode 2), null in mode 0;
 // alibi f32 [Hq] slopes, or null for none; alibi_pos int32 [B, Q] the
 // positions of the step's own keys, or null for their slots (read only with
-// alibi); out bf16 [B, Q, Hq, D]; positions: the query positions of a tile. The
+// alibi); out bf16 [B, Q, Hq, D]; positions: the query positions of a tile;
+// page_lo / page_hi: walk only the key blocks whose page id lies in
+// [page_lo, page_hi) (0 / INT_MAX: all of them; a range takes the bf16 arena
+// without ALiBi, in the RANGED instantiation); lse f32 [B, Q, Hq], the rows'
+// log-sum-exp, or null. The
 // wrapper's plan (ops/paged_attention.py attention_check, attention_plan)
 // gives positions = 128 / (Hq / Hkv) and requires D in {64, 128}, page size
 // 64, B <= 65535 and 16-byte aligned operands.
@@ -668,7 +711,7 @@ extern "C" int paged_attention(const void* q, const void* k_pages, const void* v
                                const void* alibi, const void* alibi_pos, void* out, int B, int Q,
                                int Hq, int Hkv, int D, int n_pages,
                                int P, int positions, float scale, int causal, int mode,
-                               void* stream) {
+                               int page_lo, int page_hi, void* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pt = static_cast<const int*>(page_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
@@ -680,10 +723,12 @@ extern "C" int paged_attention(const void* q, const void* k_pages, const void* v
   cudaError_t err = cudaErrorInvalidValue;
   if (D == 128)
     err = launch_alibi<128>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, al, ap, out, B, Q,
-                            Hq, Hkv, n_pages, P, positions, scale, causal, st);
+                            Hq, Hkv, n_pages, P, positions, scale, causal, page_lo, page_hi,
+                            static_cast<float*>(lse), st);
   else if (D == 64)
     err = launch_alibi<64>(mode, q, k_pages, v_pages, pt, cl, qm, ksc, vsc, al, ap, out, B, Q,
-                           Hq, Hkv, n_pages, P, positions, scale, causal, st);
+                           Hq, Hkv, n_pages, P, positions, scale, causal, page_lo, page_hi,
+                            static_cast<float*>(lse), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

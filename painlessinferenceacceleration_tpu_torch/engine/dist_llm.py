@@ -1,0 +1,191 @@
+"""DistLLM: the serving engine over several ranks.
+
+Port of ``painlessinferenceacceleration_tpu/engine/dist_llm.py``. Every
+rank is one process that runs the same scheduler loop as ``LLM``, in
+lockstep: nothing that decides the schedule depends on time, threads or
+arrival order, so every rank builds the same batches. The ranks form a
+(data, model) grid (``parallel/mesh.py``):
+
+- the model axis splits the parameters (tensor parallelism: heads and
+  intermediate widths; expert parallelism with ``cfg.expert_parallel``:
+  the experts) or, with ``EngineConfig.context_parallel``, the KV pages
+  (the parameters replicated, ``ops/cp_attention.py``);
+- the data axis splits each step's rows in contiguous blocks
+  (``models/base.py transformer_hidden``), and the arena stays the same on
+  every data group.
+
+Each rank serves its shard with a rank-local ``ModelConfig``; the forward
+reads the ambient ``parallel.comm.RankState`` that ``generate`` and
+``step`` set. Sums over ranks run in rank order, so a rank's tokens are
+those of every other rank, and lookahead stays bit-equal to AR. After each
+scheduler step the ranks compare their requests' progress, and a
+disagreement raises.
+
+Ranks join through ``parallel/multihost.py`` (``multihost=True``, the
+``PIA_*`` environment) or a process group the caller has joined. On the
+card, ranks run on ``cuda:rank`` (modulo the cards: ranks beyond them share
+a card, over gloo); ``device="cpu"`` runs them on the CPU.
+
+Refused: the background scheduler (``launch``, and so the async and HTTP
+paths): its arrivals depend on time, and rank 0 would have to broadcast
+each step's arrivals (ROADMAP A.14). Under context parallelism, as in the
+JAX package: fp8 arenas, ALiBi and prefix-LM attention; also MLA and
+linear-attention models and a data axis (ROADMAP A.13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from painlessinferenceacceleration_tpu_torch.config import (
+    EngineConfig,
+    ModelConfig,
+    cp_page_unit,
+)
+from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+from painlessinferenceacceleration_tpu_torch.engine.pages import PageAllocator
+from painlessinferenceacceleration_tpu_torch.engine.prefix_cache import PrefixCache
+from painlessinferenceacceleration_tpu_torch.parallel import comm
+from painlessinferenceacceleration_tpu_torch.parallel.mesh import (
+    make_mesh,
+    plan_shards,
+    rank_config,
+    shard_params,
+)
+from painlessinferenceacceleration_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    local_device,
+)
+
+
+def check_context_parallel(cfg: ModelConfig, ecfg: EngineConfig, data_axis: int = 1) -> None:
+    """Raise on what context parallelism does not serve: as the JAX package
+    (``engine/llm.py:98-118``), fp8 arenas, ALiBi and prefix-LM attention;
+    and MLA, linear-attention hybrids and a data axis beside it."""
+    bad = []
+    if ecfg.kv_quant.startswith("fp8"):
+        bad.append(f"kv_quant={ecfg.kv_quant!r}")
+    if cfg.position_embedding_type == "alibi":
+        bad.append("alibi positions")
+    if cfg.prefix_lm:
+        bad.append("prefix-LM attention")
+    if cfg.is_mla or cfg.linear_attention:
+        bad.append("MLA or linear-attention models (ROADMAP A.13)")
+    if data_axis > 1:
+        bad.append("a data axis (ROADMAP A.13)")
+    if bad:
+        raise ValueError("context_parallel does not support " + ", ".join(bad))
+
+
+def _world() -> Tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+class DistLLM(LLM):
+    """``LLM`` over a (data, model) grid of ranks.
+
+    ``mesh_shape`` (data, model) defaults to ``EngineConfig.mesh_shape``,
+    else (1, world): pure tensor parallelism. ``multihost`` first joins the
+    process group (``initialize_multihost``: ``PIA_COORDINATOR``,
+    ``PIA_NUM_PROCESSES``, ``PIA_PROCESS_ID``). ``cfg`` and ``params`` are
+    the whole model, the same on every rank (or ``model_path``); each rank
+    keeps its shard."""
+
+    def __init__(self, model_path: Optional[str] = None, cfg: Optional[ModelConfig] = None,
+                 params: Optional[dict] = None, ecfg: Optional[EngineConfig] = None,
+                 tokenizer=None, dtype=torch.bfloat16, device=None,
+                 mesh_shape: Optional[Sequence[int]] = None, multihost: bool = False):
+        asked = torch.device(device if device is not None else "cuda")
+        if multihost:
+            initialize_multihost(device=asked.type)
+        world, rank = _world()
+        dev = asked if asked.index is not None else local_device(asked.type, rank, world)
+        ecfg = ecfg or EngineConfig()
+        quant = None
+        if model_path is not None:
+            from painlessinferenceacceleration_tpu_torch.engine.llm import _auto_tokenizer
+            from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
+            from painlessinferenceacceleration_tpu_torch.models.hf_loader import load_model
+
+            cfg, params, quant = load_model(
+                model_path, dtype=dtype,
+                quant=QuantSpec.from_mode(ecfg.quant, ecfg.quant_group), device=dev)
+            tokenizer = tokenizer if tokenizer is not None else _auto_tokenizer(model_path)
+        if cfg is None or params is None:
+            raise ValueError("DistLLM needs model_path, or cfg and params")
+        shape = tuple(mesh_shape or ecfg.mesh_shape or (1, world))
+        self.mesh = make_mesh(shape, ecfg.mesh_axes)
+        tp, dp = self.mesh.tp, self.mesh.dp
+        cp = ecfg.context_parallel or cfg.context_parallel
+        if cp:
+            check_context_parallel(cfg, ecfg, dp)
+            cfg = dataclasses.replace(cfg, context_parallel=True)
+            unit = cp_page_unit(tp)
+            if ecfg.num_pages % unit:
+                ecfg = dataclasses.replace(ecfg, num_pages=-(-ecfg.num_pages // unit) * unit)
+            if ecfg.cache_memory_fraction > 0:
+                raise ValueError("context_parallel sizes its arena from num_pages")
+        plan = plan_shards(cfg, tp, params)
+        r = self.mesh.model_index
+        rank_params = shard_params(params, cfg, self.mesh)
+        del params
+        rank_cfg = rank_config(cfg, plan, r)
+        self.rank_state = comm.RankState(
+            model_group=self.mesh.model_group, model_rank=r, model_size=tp,
+            data_group=self.mesh.data_group, data_rank=self.mesh.data_index, data_size=dp,
+            mode=plan.mode, attn_split=plan.attn != "replicated",
+            mlp_split=plan.mlp is not None,
+            moe_split=plan.moe is not None, shared_split=plan.shared is not None,
+            head_widths=(tuple(b - a for a, b in plan.head) if plan.head else None))
+        # under context parallelism the engine's arena is this rank's pages
+        # behind a local null page; the allocator hands out the global pages
+        local = (dataclasses.replace(ecfg, num_pages=ecfg.num_pages // tp + 1,
+                                     context_parallel=False) if cp else ecfg)
+        super().__init__(cfg=rank_cfg, params=rank_params, ecfg=local, tokenizer=tokenizer,
+                         dtype=dtype, device=dev)
+        if quant is not None:
+            self.quant = quant
+        if cp:
+            self.ecfg = ecfg
+            self.allocator = PageAllocator(ecfg.num_pages, ecfg.page_size)
+            if self.prefix_cache is not None:
+                self.prefix_cache = PrefixCache(self.allocator, ecfg.page_size)
+
+    # every entry point that runs the model runs under the rank state
+
+    def step(self) -> bool:
+        with comm.using(self.rank_state):
+            worked = super().step()
+        self._check_lockstep()
+        return worked
+
+    def calibrate_kv_scales(self, prompts) -> None:
+        with comm.using(self.rank_state):
+            super().calibrate_kv_scales(prompts)
+
+    def launch(self) -> None:
+        raise NotImplementedError(
+            "DistLLM.launch: the background scheduler admits requests as they arrive, "
+            "which differs from rank to rank; rank 0 would have to broadcast each step's "
+            "arrivals (ROADMAP A.14). Drive DistLLM with generate or step")
+
+    def _check_lockstep(self) -> None:
+        """Raise unless every rank holds the same requests with the same
+        tokens after this step (one fixed-size fingerprint a slot)."""
+        world, rank = _world()
+        if world == 1:
+            return
+        fp = [len(self._queue)]
+        for req in self._slots:
+            out = req.output_ids if req is not None else []
+            fp += ([-1] * 4 if req is None else
+                   [req.rid, len(out), out[-1] if out else -1, sum(out) % (1 << 31)])
+        comm.check_same(torch.tensor(fp, dtype=torch.int64, device=self.device), None, rank,
+                        world, "the requests' tokens")

@@ -22,7 +22,9 @@ from painlessinferenceacceleration_tpu_torch.models.base import (
     transformer_hidden,
 )
 from painlessinferenceacceleration_tpu_torch.models.linear_attn import commit_linear_states
+from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_compact_tail
 from painlessinferenceacceleration_tpu_torch.ops.sample import sample_tokens_at
+from painlessinferenceacceleration_tpu_torch.parallel import comm
 
 
 def prefill_step(
@@ -148,30 +150,45 @@ def _accept_walk(greedy: torch.Tensor, tokens: torch.Tensor, parents: torch.Tens
 
 
 def _verify_forward(params, kv, cfg, tokens, positions, qmask, parents, page_tables,
-                    ctx_lens, active, spec, slot_ids, glm_ids=None):
+                    ctx_lens, active, spec, slot_ids, glm_ids=None, record=None):
     """The verify forward over the draft window; a hybrid stashes the
-    window's k, v for the commit. Returns (kv, logits [B, Q, V], node_valid)."""
+    window's k, v for the commit; ``record``, when a list, gets each layer's
+    (KV layer, K rows, V rows). Returns (kv, logits [B, Q, V], node_valid)."""
     node_valid = parents > -2
     valid = node_valid & active[:, None]
     h, kv = transformer_hidden(params, cfg, kv, tokens, positions, page_tables,
                                ctx_lens, qmask, valid, spec, slot_ids=slot_ids,
-                               defer_state=cfg.linear_attention, glm_ids=glm_ids)
+                               defer_state=cfg.linear_attention, glm_ids=glm_ids,
+                               record=record)
     return kv, logits_from_hidden(params, cfg, h, spec), node_valid
 
 
+def _cp_rank(Q: int) -> Optional[int]:
+    """This rank's index on the model axis when a verify of width ``Q`` runs
+    under context parallelism (the rank state ``DistLLM`` sets), else None:
+    that step compacts from its own K / V rows (``cp_compact_tail``)."""
+    st = comm.current()
+    return st.model_rank if st is not None and st.cp > 1 and Q > 1 else None
+
+
 def _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain, n_acc,
-                        path, n_edges, Q):
+                        path, n_edges, Q, cp_rows=None, cp_rank=None):
     """After acceptance: a hybrid commits the accepted chain (window columns
     ``chain[:, :n_acc]``, root first; inactive rows nothing) into its slots'
     states; then, unless ``path`` is None (Q = 1), the accepted rows move,
     node ``path[:, i]`` to slot ctx + 1 + i for i < n_edges, in K, V and the
-    fp8_tok scale arenas."""
+    fp8_tok scale arenas. Under context parallelism (``cp_rank`` set) they
+    are written again from the step's recorded rows ``cp_rows``, on this
+    rank's pages."""
     if cfg.linear_attention:
         n_eff = torch.where(active, n_acc, torch.zeros_like(n_acc))
         if slot_ids is None:
             slot_ids = torch.arange(chain.shape[0], dtype=torch.int32, device=chain.device)
         kv = commit_linear_states(kv, chain, n_eff, slot_ids)
     if path is None:
+        return kv
+    if cp_rank is not None:
+        cp_compact_tail(kv, cp_rows, page_tables, ctx_lens, path, n_edges, active, cp_rank)
         return kv
     # K, V and (fp8_tok) their per-token scales together: one launch
     arenas = (kv["k"], kv["v"])
@@ -201,15 +218,19 @@ def verify_core(
     rows. Returns (kv, out_tokens [B, Q], n_accepted [B], 0 for inactive
     rows). Plain decode is Q = 1 with a trivial mask."""
     B, Q = tokens.shape
+    cp_rank = _cp_rank(Q)
+    cp_rows = [] if cp_rank is not None else None
     kv, logits, _ = _verify_forward(params, kv, cfg, tokens, positions, qmask, parents,
-                                    page_tables, ctx_lens, active, spec, slot_ids, glm_ids)
+                                    page_tables, ctx_lens, active, spec, slot_ids, glm_ids,
+                                    cp_rows)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     out_tokens, n_acc, path = _accept_walk(greedy, tokens.to(torch.int32), parents)
     # the committed chain's window columns: the root, then the accepted path
     chain = torch.cat([torch.zeros_like(path[:, :1]), path[:, : Q - 1]], dim=1)
     n_edges = torch.where(active, n_acc - 1, torch.zeros_like(n_acc))
     kv = _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain, n_acc,
-                             path[:, : Q - 1] if Q > 1 else None, n_edges, Q)
+                             path[:, : Q - 1] if Q > 1 else None, n_edges, Q, cp_rows,
+                             cp_rank)
     n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
     return kv, out_tokens, n_acc
 
@@ -251,9 +272,11 @@ def verify_parallel_core(
     B, Q = tokens.shape
     assert Q == 1 + R * L, (Q, R, L)
     dev = tokens.device
+    cp_rank = _cp_rank(Q)
+    cp_rows = [] if cp_rank is not None else None
     kv, logits, node_valid = _verify_forward(params, kv, cfg, tokens, positions, qmask,
                                              parents, page_tables, ctx_lens, active, spec,
-                                             slot_ids, glm_ids)
+                                             slot_ids, glm_ids, cp_rows)
     if teacher is not None:
         # the target of the node at stream position p is the teacher's p+1
         W = teacher.shape[1]
@@ -291,7 +314,7 @@ def verify_parallel_core(
     chain = torch.cat([torch.zeros_like(node_ids[:, :1]), node_ids], dim=1)
     eff_edges = torch.where(active & (best > 0), n_edges, torch.zeros_like(n_edges))
     kv = _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain, n_acc,
-                             node_ids, eff_edges, Q)
+                             node_ids, eff_edges, Q, cp_rows, cp_rank)
     n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
     return kv, out_tokens, n_acc
 

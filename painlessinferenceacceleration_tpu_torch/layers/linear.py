@@ -235,10 +235,11 @@ def linear_at(
     li: int,
     x: torch.Tensor,
     spec: Optional[QuantSpec] = None,
+    out_dtype=None,
 ) -> torch.Tensor:
     """``x @ W[li]`` over stacked leaves [L, ...] (a per-layer view)."""
     if isinstance(p_stacked, dict):
         p = {k: v[li] for k, v in p_stacked.items()}
     else:
         p = p_stacked[li]
-    return linear(p, x, spec)
+    return linear(p, x, spec, out_dtype)

@@ -71,6 +71,7 @@ from painlessinferenceacceleration_tpu_torch.ops.attention import (
     alibi_slopes,
     paged_attention_ref,
 )
+from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_attention, cp_write_kv
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_prefill,
@@ -78,6 +79,7 @@ from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
 )
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import layer_norm, rms_norm
 from painlessinferenceacceleration_tpu_torch.ops.rope import apply_rope, dense_cos_sin
+from painlessinferenceacceleration_tpu_torch.parallel import comm
 
 
 # the linear-attention hybrids (models/linear_attn.py); "ring_linear" is the
@@ -475,9 +477,12 @@ def _biased(out: torch.Tensor, stack: dict, key: str, li: int) -> torch.Tensor:
 
 
 def _attn_block_at(layers, li, kv_li, cfg, spec, h, cos, sin, kv, page_tables,
-                   start_lens, qmask, valid, causal_window, alibi=None):
+                   start_lens, qmask, valid, causal_window, alibi=None, par=None,
+                   record=None):
     """Attention of layer ``li`` of the stack ``layers``, over KV layer
-    ``kv_li`` of the arena."""
+    ``kv_li`` of the arena. ``par`` is the rank's ``parallel.comm.RankState``
+    (None: one process); ``record``, when a list, gets (kv_li, K rows, V
+    rows) of the step."""
     B, Q, _ = h.shape
     H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     qkv = _biased(linear_at(layers["wqkv"], li, h, spec), layers, "bqkv", li)
@@ -488,24 +493,33 @@ def _attn_block_at(layers, li, kv_li, cfg, spec, h, cos, sin, kv, page_tables,
         xq = rms_norm(xq, layers["q_norm"][li], cfg.rms_norm_eps)
         xk = rms_norm(xk, layers["k_norm"][li], cfg.rms_norm_eps)
     xq, xk = _apply_positional(cfg, xq, xk, cos, sin)
-    write_kv_pages(kv["k"], kv["v"], xk, xv, page_tables, start_lens, valid, kv_li,
-                   kv["k_scale"][kv_li] if "k_scale" in kv else None,
-                   kv["v_scale"][kv_li] if "v_scale" in kv else None,
-                   kv.get("k_tok_scale"), kv.get("v_tok_scale"))
-    out = _attention(xq, kv, kv_li, page_tables, start_lens, qmask, causal_window,
-                     D ** -0.5, alibi)
-    return _biased(linear_at(layers["wo"], li, out.reshape(B, Q, H * D), spec), layers,
-                   "bo", li)
+    if record is not None:
+        record.append((kv_li, xk, xv))
+    if par is not None and par.cp > 1:  # this rank's pages; the ranks' parts merged
+        cp_write_kv(kv, kv_li, xk, xv, page_tables, start_lens, valid, par.model_rank)
+        out = cp_attention(xq, kv, kv_li, page_tables, start_lens, qmask, causal_window,
+                           D ** -0.5, par)
+    else:
+        write_kv_pages(kv["k"], kv["v"], xk, xv, page_tables, start_lens, valid, kv_li,
+                       kv["k_scale"][kv_li] if "k_scale" in kv else None,
+                       kv["v_scale"][kv_li] if "v_scale" in kv else None,
+                       kv.get("k_tok_scale"), kv.get("v_tok_scale"))
+        out = _attention(xq, kv, kv_li, page_tables, start_lens, qmask, causal_window,
+                         D ** -0.5, alibi)
+    # row-parallel under tensor parallelism: the bias is added once, after the sum
+    return _biased(comm.linear_rows_at(layers["wo"], li, out.reshape(B, Q, H * D), spec,
+                                       par, par is None or par.attn_split), layers, "bo", li)
 
 
-def _mlp_block_at(layers, li, cfg, spec, h):
+def _mlp_block_at(layers, li, cfg, spec, h, par=None):
     gu = _biased(linear_at(layers["wgu"], li, h, spec), layers, "bgu", li)
     if cfg.gated_mlp:
         I = cfg.intermediate_size
         act = _activate(gu[..., :I], cfg.hidden_act) * gu[..., I:]
     else:  # gpt2 / bloom: up, activation, down
         act = _activate(gu, cfg.hidden_act)
-    return _biased(linear_at(layers["wdown"], li, act, spec), layers, "bdown", li)
+    return _biased(comm.linear_rows_at(layers["wdown"], li, act, spec, par,
+                                       par is None or par.mlp_split), layers, "bdown", li)
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens, positions, embed_override, glm_ids):
@@ -542,7 +556,7 @@ def _embed(params: dict, cfg: ModelConfig, tokens, positions, embed_override, gl
     return h
 
 
-def transformer_hidden(
+def _hidden_local(
     params: dict,
     cfg: ModelConfig,
     kv: dict,
@@ -558,6 +572,8 @@ def transformer_hidden(
     defer_state: bool = False,  # linear-attn verify: stash the window's k, v
     embed_override=None,  # (local_pos [B, M], embeds [B, M, E]) multimodal splice
     glm_ids: Optional[torch.Tensor] = None,  # [B, 2] (prompt_len_eff, mask_pos)
+    par=None,  # the rank's parallel.comm.RankState (None: one process)
+    record: Optional[list] = None,  # gets (KV layer, K rows, V rows) of each write
 ):
     """Run all decoder layers; returns (hidden [B, Q, E], kv updated in place).
 
@@ -579,7 +595,7 @@ def transformer_hidden(
         )
 
         return hybrid_forward(params, cfg, kv, tokens, positions, page_tables, start_lens,
-                              qmask, valid, spec, slot_ids, defer_state, causal_window)
+                              qmask, valid, spec, slot_ids, defer_state, causal_window, par)
     # misconfiguration guard: hybrid params with cfg.linear_attention unset
     if "hybrid_layers" in params:
         raise ValueError("params contain hybrid_layers but cfg.linear_attention is False")
@@ -593,7 +609,7 @@ def transformer_hidden(
     if cfg.position_embedding_type == "rope":
         cos, sin = (mla_rope_cos_sin if cfg.is_mla else dense_cos_sin)(cfg, positions)
     attn_block = mla_attn_block if cfg.is_mla else _attn_block_at
-    extra = {}
+    extra = dict(par=par, record=record)
     if cfg.position_embedding_type == "alibi":  # each key biased by its position
         extra["alibi"] = (_slopes_on(cfg.num_attention_heads, h.device),
                           positions.to(device=h.device, dtype=torch.int32).contiguous())
@@ -608,15 +624,103 @@ def transformer_hidden(
             attn = attn_block(stack, li, n_dense + li, cfg, spec, hn, cos, sin, kv,
                               page_tables, start_lens, qmask, valid, causal_window, **extra)
             if cfg.parallel_residual:  # gptj: one norm feeds attention and the MLP
-                h = h + attn + _mlp_block_at(stack, li, cfg, spec, hn)
+                h = h + attn + _mlp_block_at(stack, li, cfg, spec, hn, par)
                 continue
             h = h + attn
             hn = _norm(cfg, h, stack["post_ln"][li], _at(stack, "post_ln_b", li))
             if name == "moe_layers":
-                h = h + moe_block(_layer_of(stack, li), cfg, spec, hn)
+                h = h + moe_block(_layer_of(stack, li), cfg, spec, hn, par)
             else:
-                h = h + _mlp_block_at(stack, li, cfg, spec, hn)
+                h = h + _mlp_block_at(stack, li, cfg, spec, hn, par)
         n_dense = n_layers  # the MoE stack's KV layers follow the dense ones
+    return h, kv
+
+
+def transformer_hidden(params: dict, cfg: ModelConfig, kv: dict, tokens: torch.Tensor,
+                       positions: torch.Tensor, page_tables: torch.Tensor,
+                       start_lens: torch.Tensor, qmask: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None, spec: Optional[QuantSpec] = None,
+                       causal_window: bool = False, slot_ids: Optional[torch.Tensor] = None,
+                       defer_state: bool = False, embed_override=None,
+                       glm_ids: Optional[torch.Tensor] = None,
+                       record: Optional[list] = None):
+    """Run all decoder layers; returns (hidden [B, Q, E], kv updated in
+    place). The arguments are ``_hidden_local``'s; ``record``, when a list,
+    gets (KV layer, K rows [B, Q, Hkv, D], V rows) of every layer's write.
+
+    The rank state that ``DistLLM`` sets (``parallel.comm.current()``) is
+    read here, once a forward, and handed to the blocks. Under data
+    parallelism (a rank state with ``dp`` > 1) the batch's
+    rows are split in contiguous blocks over the data groups (each block
+    padded to the largest with rows that write nothing). Each group runs the
+    layers over its own rows; then the groups' hidden rows and the K / V rows
+    their layers wrote are gathered in group order, and every rank writes the
+    other groups' rows into its arena, so the arena stays the same on every
+    data group (the JAX package's replicated arena). Every rank then holds
+    the whole batch's hidden state."""
+    args = (positions, page_tables, start_lens, qmask, valid)
+    st = comm.current()
+    if st is None or st.dp == 1:
+        return _hidden_local(params, cfg, kv, tokens, *args, spec, causal_window, slot_ids,
+                             defer_state, embed_override, glm_ids, st, record)
+    if cfg.linear_attention or embed_override is not None:
+        raise NotImplementedError(
+            "data parallelism over a linear-attention hybrid or with multimodal embeddings "
+            "(ROADMAP A.13): the recurrent states live outside the replayed KV rows")
+    B, Q = tokens.shape
+    dev = tokens.device
+    if valid is None:
+        valid = torch.ones((B, Q), dtype=torch.bool, device=dev)
+    sizes = comm.split_sizes(B, st.dp)
+    bmax = max(sizes)
+    starts = [sum(sizes[:g]) for g in range(st.dp)]
+    a, n = starts[st.data_rank], sizes[st.data_rank]
+
+    def rows(t, fill_invalid=False):
+        if t is None:
+            return None
+        part = t[a:a + n]
+        if n < bmax:  # padding rows: copies of row 0 that write nothing
+            pad = t[:1].expand(bmax - n, *t.shape[1:])
+            if fill_invalid:
+                pad = torch.zeros_like(pad)
+            part = torch.cat([part, pad], dim=0)
+        return part
+
+    rec = []
+    h_l, kv = _hidden_local(params, cfg, kv, rows(tokens), rows(positions),
+                            rows(page_tables), rows(start_lens), rows(qmask),
+                            rows(valid, fill_invalid=True), spec, causal_window,
+                            rows(slot_ids), defer_state, None, rows(glm_ids), st, rec)
+    hs = comm.data_gather(h_l.contiguous(), st)
+    h = torch.cat([hs[g, :sizes[g]] for g in range(st.dp)], dim=0)
+    # the other groups' K / V rows, written here: one write per layer over all
+    # rows, this group's own rows and the padding invalid
+    mine = torch.zeros(B, dtype=torch.bool, device=dev)
+    mine[a:a + n] = True
+    if not rec:
+        return h, kv
+    # every layer's rows in one gather (the same sizes on every group)
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for _, nk, nv in rec for t in (nk, nv)])
+    flats = comm.data_gather(flat, st)
+    off = 0
+    for layer, nk, nv in rec:
+        kv_rows = []
+        for t in (nk, nv):
+            n_b = t.numel() * t.element_size()
+            part = flats[:, off:off + n_b].contiguous().view(t.dtype).reshape(
+                (st.dp,) + tuple(t.shape))
+            kv_rows.append(torch.cat([part[g, :sizes[g]] for g in range(st.dp)], dim=0))
+            off += n_b
+        k_all, v_all = kv_rows
+        if record is not None:
+            record.append((layer, k_all, v_all))
+        write_kv_pages(kv["k"], kv["v"], k_all, v_all, page_tables, start_lens,
+                       valid & ~mine[:, None], layer,
+                       kv["k_scale"][layer] if "k_scale" in kv else None,
+                       kv["v_scale"][layer] if "v_scale" in kv else None,
+                       kv.get("k_tok_scale"), kv.get("v_tok_scale"))
     return h, kv
 
 
@@ -656,5 +760,10 @@ def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
     if head is None:
         return embed_logits(params["embed"], h)
     out = linear(head, h, spec, out_dtype=torch.float32).to(torch.float32)
+    st = comm.current()
+    if st is not None and st.tp > 1 and st.head_widths is not None:
+        # column-parallel over the vocabulary: every rank takes the whole row,
+        # so every rank makes the same argmax and the same acceptance
+        out = comm.gather_columns(out, st)
     b = params.get("lm_head_b")
     return out if b is None else out + b.to(torch.float32)

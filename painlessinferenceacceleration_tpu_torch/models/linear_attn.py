@@ -60,6 +60,7 @@ from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import (
     rms_norm,
 )
 from painlessinferenceacceleration_tpu_torch.ops.rope import apply_rope, dense_cos_sin
+from painlessinferenceacceleration_tpu_torch.parallel.comm import linear_rows
 
 DECAY_CLIP = (1e-4, 1.0 - 1e-6)
 
@@ -193,6 +194,7 @@ def linear_attn_block(
     cos: Optional[torch.Tensor] = None,  # rope tables (cfg.linear_rope)
     sin: Optional[torch.Tensor] = None,
     slot_ids: Optional[torch.Tensor] = None,
+    par=None,  # the rank's parallel.comm.RankState (None: one process)
 ):
     """One linear-attention block; returns (out [B, C, E], feats).
 
@@ -228,7 +230,7 @@ def linear_attn_block(
     out = out.transpose(1, 2).reshape(B, C, H * D).to(h.dtype)
     gate = linear(lp["w_gate"], h, spec)
     out = rms_group_norm_sigmoid(out, gate, lp["out_norm"], cfg.rms_norm_eps, H)
-    return linear(lp["wo"], out, spec), feats
+    return linear_rows(lp["wo"], out, spec, par, par is None or par.attn_split), feats
 
 
 def _as_stack(lp: dict) -> dict:
@@ -251,6 +253,7 @@ def hybrid_forward(
     slot_ids: Optional[torch.Tensor],
     defer_state: bool = False,
     causal_window: bool = False,
+    par=None,  # the rank's parallel.comm.RankState (None: one process)
 ):
     """Forward over the interleaved linear / full layers; returns (hidden
     [B, C, E], kv updated in place).
@@ -282,13 +285,13 @@ def hybrid_forward(
         if is_full_layer(cfg, li):
             attn_out = _attn_block_at(_as_stack(lp), 0, full_idx, cfg, spec, hn, cos, sin,
                                       kv, page_tables, start_lens, qmask, valid,
-                                      causal_window)
+                                      causal_window, par=par)
             full_idx += 1
         else:
             attn_out, feats = linear_attn_block(
                 lp, cfg, spec, hn, s[lin_idx], chunk_lens, parents, valid,
                 cos if cfg.linear_rope else None, sin if cfg.linear_rope else None,
-                slot_ids)
+                slot_ids, par)
             if defer_state:
                 win["k"][lin_idx], win["v"][lin_idx] = feats
                 win["loglam"][lin_idx] = loglam_of(lp["decay"])
@@ -296,9 +299,9 @@ def hybrid_forward(
         h = h + attn_out
         hn = rms_norm(h, lp["post_ln"], cfg.rms_norm_eps)
         if "moe_wgu" in lp:
-            h = h + moe_block(lp, cfg, spec, hn)
+            h = h + moe_block(lp, cfg, spec, hn, par)
         else:
-            h = h + _mlp_block_at(_as_stack(lp), 0, cfg, spec, hn)
+            h = h + _mlp_block_at(_as_stack(lp), 0, cfg, spec, hn, par)
     if defer_state:
         kv["_win"] = win
     return h, kv

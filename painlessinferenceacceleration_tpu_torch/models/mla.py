@@ -40,6 +40,7 @@ from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attentio
 from painlessinferenceacceleration_tpu_torch.ops.mla_attention import mla_paged_attention
 from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul_batched
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
+from painlessinferenceacceleration_tpu_torch.parallel.comm import linear_rows_at
 from painlessinferenceacceleration_tpu_torch.ops.rope import (
     apply_rope,
     rope_cos_sin,
@@ -127,10 +128,13 @@ def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
                    spec: Optional[QuantSpec], h: torch.Tensor, cos: torch.Tensor,
                    sin: torch.Tensor, kv: dict, page_tables: torch.Tensor,
                    start_lens: torch.Tensor, qmask: torch.Tensor,
-                   valid: Optional[torch.Tensor], causal_window: bool) -> torch.Tensor:
+                   valid: Optional[torch.Tensor], causal_window: bool, par=None,
+                   record: Optional[list] = None) -> torch.Tensor:
     """MLA of layer ``li`` of the stack ``layers`` over KV layer ``kv_li``;
     h [B, Q, E], cos/sin [B, Q, rope/2] (no YaRN factor: it enters the
-    softmax scale squared). Returns [B, Q, E]."""
+    softmax scale squared). Returns [B, Q, E]. ``par`` is the rank's
+    ``parallel.comm.RankState`` (None: one process); ``record``, when a
+    list, gets (kv_li, K rows, V rows) of the arena write."""
     if h.is_cuda and not cfg.mla_latent_cache:
         raise NotImplementedError(
             "MLA expanded mode (mla_latent_cache=False) needs attention over K "
@@ -164,8 +168,8 @@ def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
         q_abs = _from_heads(dense_matmul_batched(_per_head(q_nope), w_uk_t, h.dtype), B, Q)
         q_full = torch.cat([q_abs, q_pe], dim=-1)  # [B, Q, H, r + rope_d]
         k_lat = torch.cat([c_kv[:, :, None, :], k_pe], dim=-1)  # [B, Q, 1, r + rope_d]
-        write_kv_pages(kv["k"], kv["v"], k_lat, c_kv[:, :, None, :], page_tables,
-                       start_lens, valid, kv_li)
+        new_k, new_v = k_lat, c_kv[:, :, None, :]
+        write_kv_pages(kv["k"], kv["v"], new_k, new_v, page_tables, start_lens, valid, kv_li)
         out = mla_paged_attention(q_full, kv["k"][kv_li], page_tables, start_lens, qmask,
                                   scale, v_dim=r, causal=causal_window)  # [B, Q, H, r]
         out = _from_heads(dense_matmul_batched(_per_head(out), w_uv, h.dtype), B, Q)
@@ -173,11 +177,14 @@ def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
         kvb = linear_at(layers["kv_b"], li, c_kv, spec).reshape(B, Q, H, nope + v_d)
         k = torch.cat([kvb[..., :nope], k_pe.expand(B, Q, H, rope_d)], dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
-        write_kv_pages(kv["k"], kv["v"], k, kvb[..., nope:], page_tables, start_lens,
-                       valid, kv_li)
+        new_k, new_v = k, kvb[..., nope:]
+        write_kv_pages(kv["k"], kv["v"], new_k, new_v, page_tables, start_lens, valid, kv_li)
         out = paged_attention_ref(q_full, kv["k"][kv_li], kv["v"][kv_li], page_tables,
                                   start_lens, qmask, scale, v_dim=v_d)
-    return linear_at(layers["wo"], li, out.reshape(B, Q, H * v_d), spec)
+    if record is not None:
+        record.append((kv_li, new_k, new_v))
+    return linear_rows_at(layers["wo"], li, out.reshape(B, Q, H * v_d), spec, par,
+                          par is None or par.attn_split)
 
 
 def mla_rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):

@@ -15,7 +15,9 @@ Prefill-size batches of native experts on the card take the grouped route
 GEMMs, exact (no capacity dropping), top_k / n_exp of the scan's
 multiply-adds. With ``cfg.expert_parallel`` and more than one expert shard
 (``expert_shards``) each shard runs the grouped route over its own experts
-and the shards' contributions are added.
+and the shards' contributions are added; under a ``DistLLM`` each rank holds
+its own experts (expert parallelism) or its columns of every expert (tensor
+parallelism), and the ranks' parts are added in rank order.
 
 On the card a token's expert output has the same bits by every route and at
 every batch width (one GEMM arithmetic, a fixed order of the k terms), so
@@ -43,6 +45,7 @@ from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
     stable_topk,
     use_grouped_moe,
 )
+from painlessinferenceacceleration_tpu_torch.parallel import comm
 
 _EXPERT_SHARDS = 1
 
@@ -136,12 +139,14 @@ def route_topk(cfg: ModelConfig, router_logits: torch.Tensor,
     return w.scatter_(1, topi, topv)
 
 
-def _expert_mlp(wgu, wdown, x: torch.Tensor, spec) -> torch.Tensor:
-    """One gated MLP over every row of x: gate and up halves of one GEMM."""
+def _expert_mlp(wgu, wdown, x: torch.Tensor, spec, par=None) -> torch.Tensor:
+    """One gated MLP over every row of x: gate and up halves of one GEMM;
+    with a rank state ``par`` the down product is row-parallel
+    (``parallel.comm.linear_rows``)."""
     gu = linear(wgu, x, spec)
     I = gu.shape[-1] // 2
     act = F.silu(gu[..., :I].to(torch.float32)).to(x.dtype) * gu[..., I:]
-    return linear(wdown, act, spec)
+    return comm.linear_rows(wdown, act, spec, par)
 
 
 def _experts(w, idx):
@@ -167,20 +172,19 @@ def expert_shard_mlp(x: torch.Tensor, route_w: torch.Tensor, wgu_l, wdown_l,
 
 def _moe_expert_parallel(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
                          x: torch.Tensor, route_w: torch.Tensor):
-    """Expert parallelism: the expert axis of the stacked weights is split
-    into ``expert_shards`` shards.
+    """Expert parallelism in one process: the expert axis of the stacked
+    weights is split into ``expert_shards`` shards.
 
     Routed path: each shard computes only the (token, choice) pairs its own
     experts own (``expert_shard_mlp``) and the shards' fp32 contributions are
     added; every pair is computed by exactly one shard, so the sum is exact.
     Native and weight-only int8 / int4 experts take it. This is the JAX
     package's arithmetic under a mesh whose ``model`` axis has that many
-    devices, not a new feature: there each device holds one shard and a
-    ``psum`` adds them. Until the parallel slice (ROADMAP A.10) gives each
-    rank its shard and turns the sum into an ``all_reduce``, one process
-    that holds all experts runs the shards in rank order on its one device,
+    devices: there each device holds one shard and a ``psum`` adds them.
+    Here one process that holds all experts runs the shards in rank order,
     over views of the stacked weights, and adds their contributions in rank
-    order.
+    order: the CPU parity path and the oracle of ``_moe_ep``, where each
+    rank of a ``DistLLM`` holds its own shard.
 
     With one shard, a shard count that does not divide the experts, or
     activation-quantized experts: native experts fall back to the dense
@@ -190,12 +194,7 @@ def _moe_expert_parallel(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
     I = cfg.moe_intermediate_size or cfg.intermediate_size
     quant = isinstance(lp["moe_wgu"], dict)
     tp = _EXPERT_SHARDS
-    routed_ok = (
-        tp > 1
-        and X % tp == 0
-        and (not quant or (spec is not None and spec.act is None and not spec.block))
-    )
-    if routed_ok:
+    if _ep_routed_ok(cfg, spec, lp, tp):
         Xl = X // tp
         out = None
         for rank in range(tp):
@@ -218,32 +217,84 @@ def _moe_expert_parallel(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
     return acc
 
 
+def _ep_routed_ok(cfg: ModelConfig, spec: Optional[QuantSpec], lp: dict, n: int) -> bool:
+    """Whether ``n`` expert shards take the routed path."""
+    quant = isinstance(lp["moe_wgu"], dict)
+    return (n > 1 and cfg.num_experts % n == 0
+            and (not quant or (spec is not None and spec.act is None and not spec.block)))
+
+
+def _moe_ep(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Tensor,
+            route_w: torch.Tensor, st) -> torch.Tensor:
+    """Expert parallelism over the model ranks of a ``DistLLM`` (the rank
+    state ``st``): rank r holds experts [r Xl, (r + 1) Xl) and computes
+    the pairs they own (``expert_shard_mlp``); the ranks' fp32 parts are
+    gathered and added in rank order, the order of ``_moe_expert_parallel``'s
+    loop, so the sum [T, E] has the bits of the one-process
+    ``expert_shards(n)``."""
+    X, k = cfg.num_experts, cfg.num_experts_per_tok
+    if not _ep_routed_ok(cfg, spec, lp, st.model_size):
+        raise NotImplementedError(
+            f"expert parallelism over {st.model_size} ranks takes native or weight-only "
+            f"int8 / int4 experts whose count divides ({X} experts)")
+    Xl = X // st.model_size
+    part = expert_shard_mlp(x, route_w, lp["moe_wgu"], lp["moe_wdown"], st.model_rank * Xl,
+                            Xl, k, cfg.moe_intermediate_size or cfg.intermediate_size, spec)
+    return comm.reduce_partial(part, st)
+
+
+def _moe_local(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Tensor,
+               route_w: torch.Tensor) -> torch.Tensor:
+    """The routed experts over this process's weights by the grouped or the
+    scan route, [T, E] (fp32 from the scan)."""
+    T, E = x.shape
+    if use_grouped_moe(cfg, spec, lp, T):
+        return moe_block_grouped(lp, cfg, x[None], route_w).reshape(T, E)
+    acc = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        out = _expert_mlp(_experts(lp["moe_wgu"], e), _experts(lp["moe_wdown"], e), x, spec)
+        acc = acc + out.to(torch.float32) * route_w[:, e][:, None]
+    return acc
+
+
 def router_logits(lp: dict, x: torch.Tensor) -> torch.Tensor:
     """fp32 logits [T, X] from x [T, E] and the native router weight."""
     return linear(lp["router"].to(x.dtype), x, None, out_dtype=torch.float32)
 
 
 def moe_block(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
-              h: torch.Tensor) -> torch.Tensor:
-    """MoE MLP over h [B, Q, E]."""
+              h: torch.Tensor, par=None) -> torch.Tensor:
+    """MoE MLP over h [B, Q, E]. Under a ``DistLLM``'s expert parallelism
+    (the rank state ``par``) the routed part comes from ``_moe_ep``; under
+    its tensor parallelism the routed part and split shared experts are this
+    rank's partials, added in rank order."""
     B, Q, E = h.shape
     x = h.reshape(B * Q, E)
     route_w = route_topk(cfg, router_logits(lp, x), lp.get("router_bias"))  # [T, X]
-
-    ep_out = (_moe_expert_parallel(lp, cfg, spec, x, route_w)
-              if cfg.expert_parallel else None)
-    if ep_out is not None:
-        out = ep_out.to(h.dtype)
-    elif use_grouped_moe(cfg, spec, lp, B * Q):
-        out = moe_block_grouped(lp, cfg, h, route_w).reshape(B * Q, E).to(h.dtype)
+    st = par
+    ranks = st is not None and st.tp > 1
+    shared = "shared_wgu" in lp  # deepseek / bailing shared experts (always on)
+    split_shared = ranks and st.shared_split
+    if ranks and st.mode == "tp" and st.moe_split:
+        # tensor parallelism: each expert's widths split; the routed output as
+        # one process rounds it, plus a split shared MLP, summed in rank order
+        part = _moe_local(lp, cfg, spec, x, route_w).to(h.dtype).to(torch.float32)
+        if shared and split_shared:
+            part = part + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x,
+                                      spec).to(torch.float32)
+        out = comm.reduce_partial(part, st).to(h.dtype)
+        if shared and not split_shared:
+            out = out + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x, spec)
+        return out.reshape(B, Q, E)
+    if ranks and st.mode == "ep":
+        out = _moe_ep(lp, cfg, spec, x, route_w, st).to(h.dtype)
     else:
-        acc = torch.zeros((B * Q, E), dtype=torch.float32, device=h.device)
-        for e in range(cfg.num_experts):
-            out = _expert_mlp(_experts(lp["moe_wgu"], e),
-                              _experts(lp["moe_wdown"], e), x, spec)
-            acc = acc + out.to(torch.float32) * route_w[:, e][:, None]
-        out = acc.to(h.dtype)
-
-    if "shared_wgu" in lp:  # deepseek / bailing shared experts (always on)
-        out = out + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x, spec)
+        ep_out = (_moe_expert_parallel(lp, cfg, spec, x, route_w)
+                  if cfg.expert_parallel else None)
+        out = (ep_out if ep_out is not None
+               else _moe_local(lp, cfg, spec, x, route_w)).to(h.dtype)
+    if shared:
+        out = out + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x, spec,
+                                st if split_shared else None)
     return out.reshape(B, Q, E)
+

@@ -49,14 +49,17 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor, scale: float,
                   alibi: Optional[torch.Tensor] = None,
-                  key_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  key_pos: Optional[torch.Tensor] = None,
+                  return_lse: bool = False):
     """Masked GQA attention with fp32 softmax and accumulation.
 
     q [B, Q, Hq, D]; k [B, Hkv, L, D]; v [B, Hkv, L, Dv]; mask [B, Q, L];
     ``alibi`` [Hq] slopes: each score gains slope[h] * (the key's position),
     ``key_pos`` [B, L] (default: key slot j is at position j). HF's relative
     form differs by a per-row constant, which the softmax cancels. Returns
-    [B, Q, Hq, Dv]."""
+    [B, Q, Hq, Dv]; with ``return_lse`` also each row's fp32 log-sum-exp
+    [B, Q, Hq] of its scores (bias included), where a row that sees no key
+    gives -inf and an output of 0."""
     B, Qn, Hq, D = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
@@ -73,7 +76,13 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).to(torch.float32),
                        v.to(torch.float32))
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Qn, Hq, v.shape[-1])
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    seen = mask.any(dim=-1)[:, :, None]  # [B, Q, 1]
+    lse = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2).reshape(B, Qn, Hq)
+    lse = torch.where(seen, lse, torch.full_like(lse, float("-inf")))
+    out = torch.where(seen[..., None], out, torch.zeros_like(out))
+    return out.to(q.dtype), lse
 
 
 def alibi_key_positions(start_lens: torch.Tensor, alibi_pos: torch.Tensor,
@@ -92,7 +101,8 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
                         scale: float, k_scale=None, v_scale=None,
                         v_dim: Optional[int] = None,
                         alibi: Optional[torch.Tensor] = None,
-                        alibi_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        alibi_pos: Optional[torch.Tensor] = None,
+                        page_range=None, return_lse: bool = False):
     """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D]
     (V pages [n_pages, ps, H*v_dim] where the V head dim differs, as in
     MLA).
@@ -101,17 +111,25 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
     are the layer's static per-head scales [H] or its per-token scale
     arenas [n_pages, ps, H]; ``alibi`` the [Hq] ALiBi slopes and
     ``alibi_pos`` [B, Q] the positions of the step's own keys (default:
-    their slots, as in prefill and decode)."""
+    their slots, as in prefill and decode). ``page_range`` (lo, hi) keeps
+    only the keys whose page id lies in [lo, hi); ``return_lse`` also gives
+    each row's log-sum-exp (``mha_reference``): the plain twin of the
+    kernels' context-parallel mode."""
     from painlessinferenceacceleration_tpu_torch.engine.cache import gather_kv_pages
 
     D = q.shape[-1]
     kc = gather_kv_pages(k_pages, page_tables, D, k_scale, q.dtype)
     vc = gather_kv_pages(v_pages, page_tables, v_dim or D, v_scale, q.dtype)
     mask = attention_mask(start_lens, qmask, kc.shape[2])
+    if page_range is not None:
+        lo, hi = page_range
+        pt = page_tables.to(torch.int64)
+        ok = (pt >= lo) & (pt < hi)  # [B, P]
+        mask = mask & ok.repeat_interleave(k_pages.shape[1], dim=1)[:, None, :]
     key_pos = None
     if alibi is not None and alibi_pos is not None:
         key_pos = alibi_key_positions(start_lens, alibi_pos, kc.shape[2])
-    return mha_reference(q, kc, vc, mask, scale, alibi, key_pos)
+    return mha_reference(q, kc, vc, mask, scale, alibi, key_pos, return_lse)
 
 
 def causal_qmask(q_len: int, device=None) -> torch.Tensor:

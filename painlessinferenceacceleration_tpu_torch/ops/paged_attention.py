@@ -34,6 +34,13 @@ depth, whatever its slot; default: their slots, as in decode). The causal
 rule takes none: it puts a chunk's key s at ctx + s. The kernel's ALiBi
 build is a template of its own, so the slope-free one is unchanged. Its
 launches count in ``modes`` under the same keys with ",alibi" added.
+
+Context parallelism (``ops/cp_attention.py``) passes ``paged_attention``
+and ``paged_attention_prefill`` a ``page_range`` (lo, hi): only the keys
+whose page id lies in [lo, hi) count, and the kernel's RANGED build skips
+the other key blocks whole (the bf16 arena without ALiBi); and
+``return_lse``: also each row's fp32 log-sum-exp [B, Q, Hq], -inf with an
+output of 0 for a row that sees no key. Their launches count under ",range".
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ KEY_BLOCK = 64  # kKeys: keys of a block, one page
 _MODES = {"bf16": 0, "fp8": 1, "fp8_tok": 2}  # csrc/paged_attention.cu MODE
 FP8 = torch.float8_e4m3fn
 _ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 8 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p, ctypes.c_void_p)
+ALL_PAGES = (0, 2 ** 31 - 1)  # the page range of a call without one
 
 AttentionPlan = collections.namedtuple("AttentionPlan", "positions n_tiles grid")
 
@@ -132,7 +140,7 @@ def _check_alibi(alibi, alibi_pos, causal: bool, B: int, Q: int, Hq: int, dev) -
 
 def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
             causal: bool, arena: str, k_scale=None, v_scale=None, alibi=None,
-            alibi_pos=None):
+            alibi_pos=None, page_range=None, return_lse=False):
     B, Q, Hq, D = q.shape
     n_pages, ps, HD = k_pages.shape
     Hkv = HD // D
@@ -157,17 +165,26 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
     cl = ctx_lens.to(torch.int32).contiguous()
     qm = None if causal else qmask.to(torch.uint8).contiguous()
     out = torch.empty_like(q)
+    lo, hi = ALL_PAGES if page_range is None else page_range
+    if page_range is not None:
+        if not 0 <= lo <= hi < ALL_PAGES[1]:
+            raise ValueError(f"page range [{lo}, {hi})")
+        if arena != "bf16" or alibi is not None:
+            raise ValueError("a page range takes the bf16 arena without ALiBi (context "
+                             "parallelism refuses the others)")
+    lse = torch.empty((B, Q, Hq), dtype=torch.float32, device=dev) if return_lse else None
     lib, fn = _build.function("paged_attention", "paged_attention", _ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              pt.data_ptr(), cl.data_ptr(), _build.ptr(qm), _build.ptr(k_scale),
              _build.ptr(v_scale), _build.ptr(alibi), _build.ptr(alibi_pos), out.data_ptr(),
              B, Q, Hq, Hkv, D, n_pages, P, plan.positions, float(scale), int(causal),
-             _MODES[arena], _build.stream_of(q))
+             _MODES[arena], int(lo), int(hi), _build.ptr(lse), _build.stream_of(q))
     _build.check(lib, err, "paged_attention")
     wrapper.launches += 1
     kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
-    wrapper.modes[f"{kind},{arena}" + (",alibi" if alibi is not None else "")] += 1
-    return out
+    wrapper.modes[f"{kind},{arena}" + (",alibi" if alibi is not None else "")
+                  + (",range" if page_range is not None else "")] += 1
+    return (out, lse) if return_lse else out
 
 
 def _arena_of(k_pages, kv_scales) -> Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -188,44 +205,57 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     ctx_lens: torch.Tensor, qmask: torch.Tensor,
                     scale: float, kv_scales=None,
                     alibi: Optional[torch.Tensor] = None,
-                    alibi_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    alibi_pos: Optional[torch.Tensor] = None,
+                    page_range: Optional[Tuple[int, int]] = None,
+                    return_lse: bool = False):
     """Decode / tree-verify attention, q [B, Q, Hq, D] with Q <= 128.
 
     K/V of the Q in-step tokens must already be written at ctx..ctx+Q-1.
     ``kv_scales`` = (k_scale [Hkv], v_scale [Hkv]) for a static e4m3 arena;
     ``alibi`` the [Hq] ALiBi slopes, ``alibi_pos`` [B, Q] int32 the in-step
-    keys' positions."""
+    keys' positions. ``page_range`` (lo, hi): only the keys whose page id
+    lies in [lo, hi) count (a context-parallel rank's pages); the kernel
+    skips the other key blocks whole. ``return_lse``: also each row's fp32
+    log-sum-exp [B, Q, Hq] of its scaled scores, -inf (and output 0) for a
+    row that sees no key."""
     if q.is_cuda:
         if q.shape[1] > 128:
             raise ValueError("paged_attention serves Q <= 128; use the prefill kernel")
         arena, ks, vs = _arena_of(k_pages, kv_scales)
         return _launch(paged_attention, q, k_pages, v_pages, page_tables,
-                       ctx_lens, qmask, scale, False, arena, ks, vs, alibi, alibi_pos)
+                       ctx_lens, qmask, scale, False, arena, ks, vs, alibi, alibi_pos,
+                       page_range, return_lse)
     _plain_only(q, "paged_attention")
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale, ks, vs, alibi=alibi, alibi_pos=alibi_pos)
+                               qmask, scale, ks, vs, alibi=alibi, alibi_pos=alibi_pos,
+                               page_range=page_range, return_lse=return_lse)
 
 
 def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, page_tables: torch.Tensor,
                             ctx_lens: torch.Tensor, scale: float,
                             kv_scales=None,
-                            alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            alibi: Optional[torch.Tensor] = None,
+                            page_range: Optional[Tuple[int, int]] = None,
+                            return_lse: bool = False):
     """Causal chunk attention over K/V already written at ctx..ctx+Q-1.
 
     Rows past a request's valid tokens give finite values that callers
-    discard, as in the JAX package."""
+    discard, as in the JAX package. ``page_range`` and ``return_lse`` as
+    in ``paged_attention``."""
     if q.is_cuda:
         arena, ks, vs = _arena_of(k_pages, kv_scales)
         return _launch(paged_attention_prefill, q, k_pages, v_pages,
-                       page_tables, ctx_lens, None, scale, True, arena, ks, vs, alibi)
+                       page_tables, ctx_lens, None, scale, True, arena, ks, vs, alibi,
+                       None, page_range, return_lse)
     _plain_only(q, "paged_attention_prefill")
     B, Q = q.shape[:2]
     qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
-                               qmask, scale, ks, vs, alibi=alibi)
+                               qmask, scale, ks, vs, alibi=alibi, page_range=page_range,
+                               return_lse=return_lse)
 
 
 def paged_attention_tok(q: torch.Tensor, k_pages: torch.Tensor,
@@ -259,26 +289,31 @@ for _w in (paged_attention, paged_attention_prefill, paged_attention_tok):
     _w.modes = collections.Counter()
 
 
-# Registers of the slope-free instantiations, (head dim, arena) -> count, as
-# nvcc 12.9 built them for sm_90a before the ALiBi template flag existed:
-# the same counts now mean that the flag costs the other models nothing.
-SLOPE_FREE_REGISTERS = {(64, "fp8_tok"): 146, (64, "fp8"): 130, (64, "bf16"): 135,
-                        (128, "fp8_tok"): 167, (128, "fp8"): 168, (128, "bf16"): 168}
+# Registers of the slope-free instantiations without the page range, (head
+# dim, arena) -> count, as nvcc 12.9 builds them for sm_90a. The log-sum-exp
+# epilogue changed them (the build before it: 146 / 130 / 135 at D = 64, 167 /
+# 168 / 168 at D = 128), with no spills before or after; the page-range flag
+# is a template flag of its own and the ALiBi flag a separate instantiation,
+# so neither changes these counts.
+SLOPE_FREE_REGISTERS = {(64, "fp8_tok"): 138, (64, "fp8"): 127, (64, "bf16"): 127,
+                        (128, "fp8_tok"): 167, (128, "fp8"): 167, (128, "bf16"): 167}
 
 
-def ptxas_registers() -> dict:
+def ptxas_registers(ranged: bool = False) -> dict:
     """(head dim, arena, alibi) -> {"registers": n, "spills": bytes} of each
-    instantiation of the kernel, from ptxas's report of its build (built
-    here if it is not yet)."""
+    instantiation of the kernel without the page range (``ranged``: with
+    it, the bf16 arena without ALiBi only), from ptxas's report of its build
+    (built here if it is not yet)."""
     import re
 
     _build.library("paged_attention")
     seen, cur = {}, None
     for line in _build.ptxas_report("paged_attention").splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"paged_attention_wgmma_kernelILi(\d+)ELi(\d)ELb([01])E", line)
+            m = re.search(r"paged_attention_wgmma_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E",
+                          line)
             cur = None
-            if m:
+            if m and (m.group(4) == "1") == ranged:
                 cur = (int(m.group(1)), tuple(_MODES)[int(m.group(2))], m.group(3) == "1")
                 seen[cur] = {"spills": 0}
         if cur is None:

@@ -49,16 +49,36 @@ def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> 
     return (_normed(x.to(torch.float32), eps) * weight.to(torch.float32)).to(x.dtype)
 
 
+def _halving_sum(xf: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis [..., w] -> [..., 1] in a fixed order: zeros
+    pad the axis to a power of two, then the upper half is added to the
+    lower half until one lane is left. Every step is an elementwise fp32
+    add, so a row's sum has the same bits at every row count and on every
+    device (torch's CUDA reductions pick their order by the shape)."""
+    w = xf.shape[-1]
+    p = 1 << max(w - 1, 0).bit_length()
+    if p != w:
+        xf = torch.nn.functional.pad(xf, (0, p - w))
+    while xf.shape[-1] > 1:
+        h = xf.shape[-1] // 2
+        xf = xf[..., :h] + xf[..., h:]
+    return xf
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics, cast back to ``x.dtype``: the JAX
     package's ``layer_norm`` (the gpt2 / opt / gptj / bloom / glm families).
     It has no Pallas body there and no kernel here: plain torch on every
-    device."""
+    device, its mean and centred variance summed by ``_halving_sum``, so a
+    row's bits do not depend on the row count (a tree verify's row equals
+    the AR row)."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-    xf = (xf - mean) * torch.rsqrt(var + eps)
+    w = xf.shape[-1]
+    mean = _halving_sum(xf) / w
+    xc = xf - mean
+    var = _halving_sum(xc * xc) / w
+    xf = xc * torch.rsqrt(var + eps)
     return (xf * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 

@@ -2207,12 +2207,14 @@ def test_alibi_prefill_rows_equal_their_decodes(cuda, arena):
 
 
 def test_alibi_later_branch_logits_equal_ar_on_the_card(cuda):
-    """A bloom-shaped model in bf16 (4 heads of 128, 2 layers) on the card:
-    a tree verify of two branches of 8, a wrong draft on branch 0 and the
-    AR continuation on branch 1 (its nodes at slots ctx + 9 + l, positions
-    ctx + 1 + l). The root's and each branch-1 node's logits row is within
-    rel 2e-2 of the AR decode row at the same prefix, and closer to it than
-    the same verify with its keys at their slots' positions."""
+    """A bloom-shaped model in bf16 (4 heads of 128, 2 layers) on the card,
+    in the bf16, fp8 and fp8_tok arenas: a tree verify of two branches of 8,
+    a wrong draft on branch 0 and the AR continuation on branch 1 (its nodes
+    at slots ctx + 9 + l, positions ctx + 1 + l). The root's and each
+    branch-1 node's logits row carries the bits of the AR decode row at the
+    same prefix (every op of a row is row-count invariant, the layer norm's
+    sums included), and the same verify with its keys at their slots'
+    positions does not."""
     from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
     from painlessinferenceacceleration_tpu_torch.engine.cache import init_kv_cache
     from painlessinferenceacceleration_tpu_torch.engine.step import (
@@ -2227,43 +2229,62 @@ def test_alibi_later_branch_logits_equal_ar_on_the_card(cuda):
 
     cfg = ModelConfig.tiny_bloom(vocab_size=1024, hidden_size=512, intermediate_size=2048,
                                  num_hidden_layers=2)
-    ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=1)
     params = init_params(cfg, cuda, dtype=torch.bfloat16)
     L, n = 8, 200
     toks = torch.randint(3, 1024, (1, n), generator=cuda, device="cuda", dtype=torch.int32)
-    pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
     ctx = torch.full((1,), n, dtype=torch.int32, device="cuda")
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     active = torch.ones(1, dtype=torch.bool, device="cuda")
+    for kv_quant in ("none", "fp8", "fp8_tok"):
+        ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=1,
+                            kv_quant=kv_quant)
+        pt = torch.arange(1, 1 + ecfg.pages_per_req, dtype=torch.int32, device="cuda")[None]
 
-    def prefill():
-        kv = init_kv_cache(cfg, ecfg, dtype=torch.bfloat16, device="cuda")
-        return prefill_step(params, kv, cfg, toks, zero, ctx, pt)
+        def prefill():
+            kv = init_kv_cache(cfg, ecfg, dtype=torch.bfloat16, device="cuda")
+            return prefill_step(params, kv, cfg, toks, zero, ctx, pt)
 
-    kv, root, _ = prefill()
-    rows, fed, last, c = [], [], root, ctx.clone()
-    for _ in range(L + 1):
-        t, p, qm, par = decode_inputs(last, c)
-        kv, logits, _ = _verify_forward(params, kv, cfg, t, p, qm, par, pt, c, active, None,
-                                        None)
-        rows.append(logits[0, 0])
-        last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
-        fed.append(last)
-        c = c + 1
-    ar = torch.stack(fed[:L], dim=1)
-    tokens, parents, qmask, depth = build_tree_inputs(root, torch.stack([(ar + 1) % 1024, ar], 1))
+        kv, root, _ = prefill()
+        rows, fed, last, c = [], [], root, ctx.clone()
+        for _ in range(L + 1):
+            t, p, qm, par = decode_inputs(last, c)
+            kv, logits, _ = _verify_forward(params, kv, cfg, t, p, qm, par, pt, c, active,
+                                            None, None)
+            rows.append(logits[0, 0])
+            last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            fed.append(last)
+            c = c + 1
+        ar = torch.stack(fed[:L], dim=1)
+        tokens, parents, qmask, depth = build_tree_inputs(
+            root, torch.stack([(ar + 1) % 1024, ar], 1))
 
-    def verify(positions):
-        kv, _, _ = prefill()
-        _, vl, _ = _verify_forward(params, kv, cfg, tokens, positions, qmask, parents, pt, ctx,
-                                   active, None, None)
-        return [_rel(a, b) for a, b in zip([vl[0, 0]] + [vl[0, 1 + L + i] for i in range(L)],
-                                           rows)]
+        def verify(positions):
+            kv, _, _ = prefill()
+            _, vl, _ = _verify_forward(params, kv, cfg, tokens, positions, qmask, parents, pt,
+                                       ctx, active, None, None)
+            return [vl[0, 0]] + [vl[0, 1 + L + i] for i in range(L)]
 
-    rel = verify(ctx[:, None] + depth)
-    slots = verify(ctx[:, None] + torch.arange(1 + 2 * L, device="cuda", dtype=torch.int32))
-    assert max(rel) < 2e-2, rel
-    assert max(rel[1:]) < max(slots[1:]), (rel, slots)
+        got = verify(ctx[:, None] + depth)
+        slots = verify(ctx[:, None] + torch.arange(1 + 2 * L, device="cuda",
+                                                   dtype=torch.int32))
+        bits = [bool(torch.equal(a, b)) for a, b in zip(got, rows)]
+        assert all(bits), (kv_quant, bits, [_rel(a, b) for a, b in zip(got, rows)])
+        assert not all(torch.equal(a, b) for a, b in zip(slots[1:], rows[1:])), kv_quant
+
+
+def test_layer_norm_rows_are_row_count_invariant(cuda):
+    """The layer norm of a row has the same bits at every row count (its
+    sums are fixed-order halvings, where torch's CUDA mean picks its order
+    by the shape)."""
+    from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import layer_norm
+
+    for E in (4096, 4544, 512):
+        x = (torch.randn(64, E, generator=cuda, device="cuda") * 3 + 0.5).to(torch.bfloat16)
+        w = torch.randn(E, generator=cuda, device="cuda").to(torch.bfloat16)
+        b = torch.randn(E, generator=cuda, device="cuda").to(torch.bfloat16)
+        one = layer_norm(x[:1], w, b)
+        for n in (2, 9, 17, 61, 64):
+            assert torch.equal(layer_norm(x[:n], w, b)[:1], one), (E, n)
 
 
 def test_slope_free_attention_build_keeps_its_registers(cuda):
@@ -2541,3 +2562,122 @@ def test_ipad_pruned_model_lossless_on_the_card(cuda):
             assert kernel.launches > before, quant
         assert outs[0] == outs[1], quant
         assert all(len(o) == 32 for o in outs[0])
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: K2 / K3 over a page range, with the rows' log-sum-exp
+# ---------------------------------------------------------------------------
+
+
+def _cp_case(g, Q, ctx, Hq=8, Hkv=2, n_pages=48):
+    """Two requests over shuffled pages 1 .. n_pages - 1 of one bf16 arena,
+    q and an ancestor-like mask (the causal rule where Q > 128)."""
+    B, ps, D = 2, 64, 128
+    P = -(-(max(ctx) + Q) // ps)
+    k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
+    pt = (torch.randperm(n_pages - 1, generator=g, device="cuda")[: B * P] + 1).reshape(B, P)
+    q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+    qm = causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous()
+    return q, k, v, pt.to(torch.int32), torch.tensor(ctx, dtype=torch.int32, device="cuda"), qm
+
+
+def _cp_call(q, k, v, pt, ctx, qm, **kw):
+    if q.shape[1] > 128:
+        return paged_attention_prefill(q, k, v, pt, ctx, 128 ** -0.5, **kw)
+    return paged_attention(q, k, v, pt, ctx, qm, 128 ** -0.5, **kw)
+
+
+@pytest.mark.parametrize("Q,ctx", [(1, [700, 65]), (17, [1000, 3]), (300, [0, 129])])
+def test_attention_page_range_and_lse_match_plain(cuda, Q, ctx):
+    """K2 (Q <= 128) and K3 (Q > 128) with a page range and the log-sum-exp
+    output against their plain twin: the output within rel 2e-2, the
+    log-sum-exp within 2e-3 (natural log), rows that see no key in the
+    range 0 and -inf in both."""
+    q, k, v, pt, ctx_t, qm = _cp_case(cuda, Q, ctx)
+    for rng in ((1, 24), (24, 48), (5, 6)):
+        out, lse = _cp_call(q, k, v, pt, ctx_t, qm, page_range=rng, return_lse=True)
+        ref, ref_lse = paged_attention_ref(q, k, v, pt, ctx_t, qm, 128 ** -0.5,
+                                           page_range=rng, return_lse=True)
+        empty = torch.isinf(ref_lse)
+        assert torch.equal(torch.isinf(lse), empty), rng
+        assert (out[empty[..., None].expand_as(out)] == 0).all(), rng
+        fin = ~empty
+        if fin.any():
+            assert (lse[fin] - ref_lse[fin]).abs().max().item() < 2e-3, rng
+            assert _rel(out, ref) < 2e-2, rng
+
+
+@pytest.mark.parametrize("Q,ctx", [(1, [700, 65]), (17, [1000, 3]), (300, [0, 129])])
+def test_attention_full_page_range_is_the_call_without_one(cuda, Q, ctx):
+    """The range [0, n_pages) and the call without a range give the same
+    bits, with the log-sum-exp asked for or not."""
+    q, k, v, pt, ctx_t, qm = _cp_case(cuda, Q, ctx)
+    plain = _cp_call(q, k, v, pt, ctx_t, qm)
+    full, lse = _cp_call(q, k, v, pt, ctx_t, qm, page_range=(0, k.shape[0]),
+                         return_lse=True)
+    assert torch.equal(full, plain)
+    assert torch.equal(_cp_call(q, k, v, pt, ctx_t, qm, return_lse=True)[0], plain)
+    assert torch.isfinite(lse).all()
+
+
+def test_ranged_attention_build_has_no_spills(cuda):
+    """ptxas's report of the page-range instantiations (the bf16 arena
+    without ALiBi, head dims 64 and 128): no spills."""
+    from painlessinferenceacceleration_tpu_torch.ops import paged_attention as pa
+
+    seen = pa.ptxas_registers(ranged=True)
+    assert sorted(seen) == [(64, "bf16", False), (128, "bf16", False)], sorted(seen)
+    assert all(r["spills"] == 0 for r in seen.values()), seen
+
+
+def test_attention_empty_local_rows_are_zero_with_minus_inf(cuda):
+    """A range that holds none of a request's pages: its rows come out 0
+    with log-sum-exp -inf, never NaN."""
+    q, k, v, pt, ctx_t, qm = _cp_case(cuda, 17, [500, 40])
+    out, lse = paged_attention(q, k, v, pt, ctx_t, qm, 128 ** -0.5, page_range=(48, 60),
+                               return_lse=True)
+    assert (out == 0).all() and torch.isneginf(lse).all()
+
+
+def test_cp_merge_of_page_ranges_matches_the_whole_call(cuda):
+    """The plain merge of two ranks' partials (K2 / K3 over [lo, hi) of the
+    pages each, rank order) within rel 2e-2 of the one-process call."""
+    from painlessinferenceacceleration_tpu_torch.ops.cp_attention import merge_partials
+
+    for Q, ctx in ((1, [700, 65]), (17, [1000, 3]), (300, [0, 129])):
+        q, k, v, pt, ctx_t, qm = _cp_case(cuda, Q, ctx)
+        parts = [_cp_call(q, k, v, pt, ctx_t, qm, page_range=r, return_lse=True)
+                 for r in ((0, 24), (24, 48))]
+        got = merge_partials(torch.stack([p[0] for p in parts]),
+                             torch.stack([p[1] for p in parts]))
+        assert _rel(got, _cp_call(q, k, v, pt, ctx_t, qm)) < 2e-2, (Q, ctx)
+
+
+def test_two_rank_gloo_tp_step_on_one_card(cuda, tmp_path):
+    """Two ranks share cuda:0 over gloo and serve a bf16 llama (head dim
+    128) under tensor parallelism, lookahead on: every rank ends on the
+    same tokens (DistLLM checks each step), and they are the tokens of
+    the same ranks' AR run."""
+    import dataclasses
+
+    from _torch_dist import Ranks
+
+    from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    cfg = ModelConfig.tiny(hidden_size=512, num_attention_heads=4, num_key_value_heads=2,
+                           head_dim=128, intermediate_size=1024, vocab_size=1024)
+    params = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                         device="cpu")
+    base = dict(page_size=64, max_seq_len=512, max_concurrency=4, eos_token_id=-2)
+    prompts = [[11, 22, 33, 44, 55] * 6, [7, 8, 9] * 10]
+    case = dict(world=2, cfg=dataclasses.asdict(cfg), params=params, mesh=(1, 2),
+                prompts=prompts, max_new=24, device="cuda", dtype="bfloat16")
+    cases = [dict(case, name="ar", ecfg=base),
+             dict(case, name="la", ecfg=dict(base, use_lookahead=True, decoding_length=16,
+                                             branch_length=8))]
+    res = Ranks(2, cases, str(tmp_path), timeout=400).results()
+    for r in res:
+        assert r["ar"]["tokens"] == res[0]["ar"]["tokens"]
+        assert r["la"]["tokens"] == r["ar"]["tokens"]

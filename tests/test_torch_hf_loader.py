@@ -194,8 +194,19 @@ def test_from_hf_reads_a_model_directory(tmp_path):
 
 
 def test_context_parallel_raises():
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tcfg_mod.ModelConfig(context_parallel=True)
+    """Context parallelism is ported (a config with it builds), and it
+    refuses up front what it does not serve, as the JAX package does: ALiBi
+    (a loaded BLOOM), fp8 arenas and prefix-LM attention."""
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig
+    from painlessinferenceacceleration_tpu_torch.engine.dist_llm import check_context_parallel
+
+    assert tcfg_mod.ModelConfig(context_parallel=True).context_parallel
+    bloom = tcfg_mod.ModelConfig.from_hf(HF_CONFIGS["bloom"])
+    with pytest.raises(ValueError, match="alibi"):
+        check_context_parallel(bloom, EngineConfig(context_parallel=True))
+    with pytest.raises(ValueError, match="fp8"):
+        check_context_parallel(tcfg_mod.ModelConfig.tiny(),
+                               EngineConfig(context_parallel=True, kv_quant="fp8"))
 
 
 # ---------------------------------------------------------------------------

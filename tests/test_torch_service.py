@@ -215,5 +215,6 @@ def test_engine_settings():
         TEngineConfig(schedule_policy="fifo")
     e = TEngineConfig(temperature=0.7, top_k=5, top_p=0.9)  # inert defaults
     assert (e.temperature, e.top_k, e.top_p) == (0.7, 5, 0.9)
-    with pytest.raises(NotImplementedError):
-        TEngineConfig(context_parallel=True)
+    # context parallelism is ported: the page count rounds to a multiple of
+    # lcm(16, model axis)
+    assert TEngineConfig(context_parallel=True, num_pages=17).num_pages == 32

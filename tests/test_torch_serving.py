@@ -241,8 +241,8 @@ def test_llm_rejects_what_is_not_ported(model):
         t.encode("text")
     with pytest.raises(FileNotFoundError):
         TLLM(model_path="/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TEngineConfig(mesh_shape=(1, 2))
+    # device meshes are ported (DistLLM reads them; LLM serves one rank)
+    assert TEngineConfig(mesh_shape=(1, 2)).mesh_shape == (1, 2)
     # read by the ported LookaheadGenerator, so no longer refused
     assert TEngineConfig(max_new_tokens=64).max_new_tokens == 64
     with pytest.raises(ValueError):  # no such mode in either package
