@@ -5,7 +5,8 @@
 
 (``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
 ``--w8a8-only``, ``--int8-only``, ``--attention-only``, ``--sampling-only``,
-``--hf-only``, ``--ipad-only`` and ``--dist-only`` run parts of it:
+``--hf-only``, ``--families-only``, ``--ipad-only`` and ``--dist-only`` run
+parts of it:
 partial runs that print no kernels line and no result line.)
 
 Phases, one line each (any failure exits non-zero and prints no result):
@@ -13,7 +14,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
 1. environment: the card, CUDA, nvcc, triton, and the kernels' build time
    (the tensor-core sources' own); ptxas's registers and spills of the
    tensor-core kernels (int4 K1 / K11, int8 K7 / K12, W8A8 K8, block fp8
-   K9, bf16 K10, paged attention K2 / K3 / K5 with and without ALiBi) and
+   K9, bf16 K10, paged attention K2 / K3 / K5 at each (K, V) head-dim pair
+   with and without ALiBi, the e4m3 tied head K18) and
    their shared memory (a spill or a serialized wgmma fails the run), the
    slope-free attention kernels' registers beside their count before the
    ALiBi template flag;
@@ -137,7 +139,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    versions on serving's inputs;
    hf: two local checkpoints at published widths and 2 layers, written with
    the port's own safetensors writer in 2 shards and an index (random bf16
-   weights from the seed, numpy): Llama-2-7B's LlamaForCausalLM keys loaded
+   weights from the seed, drawn on the card): Llama-2-7B's LlamaForCausalLM keys loaded
    as int4 and bigscience/bloom-7b1's BloomForCausalLM keys (ALiBi, the
    embedding LayerNorm, biases, the tied head) in bf16, each through
    LLM(model_path=...) and served with 16 text prompts cut from
@@ -146,6 +148,18 @@ Phases, one line each (any failure exits non-zero and prints no result):
    the loaded leaves byte-equal to the arrays written; every ALiBi launch of
    a BLOOM AR and lookahead pass held against its plain version; load time and
    GB/s, a 512-token prefill's ms and the (random-weight) rates;
+   families: every family the loader maps, at published widths and 2
+   layers, served by LLM(model_path=...) on 4 corpus prompts of 160+
+   tokens, AR and lookahead equal token for token: EleutherAI/gpt-j-6b
+   (head dim 256: K2 / K3 / K5 at (256, 256) over the bf16, static e4m3
+   and per-token e4m3 arenas), deepseek-ai/DeepSeek-V2-Lite in expanded
+   MLA mode ((192, 128)), THUDM/glm-10b at prefill_chunk 512 (K3's
+   prefix-LM window), openai-community/gpt2-xl (the 50257-column tied head
+   padded to 50264 rows) and bigscience/bloom-7b1 under quant_embed (the
+   e4m3 tied head kernel); then those builds against their plain versions
+   at the families' shapes (GPT-J 16 heads, V2-Lite 16 heads, GLM-10B's 64
+   heads with a 300-key window, BLOOM's 250880 x 4096 head at M = 1 / 17 /
+   512), timed beside SDPA and torch.matmul;
    ipad: prune and distill (``ipad.DistillPipe``: mlp 0.5, head 0.25, depth
    0.25, dim 0.25 and an ``upper`` finetune, 4 steps each) of an fp32
    student of Llama-2-7B's widths at 4 layers (random bf16 teacher, B x T =
@@ -169,11 +183,14 @@ Phases, one line each (any failure exits non-zero and prints no result):
    arena bit for bit, the merged attention against one K2 / K3 call), and
    a 2-layer Mixtral-8x7B int4 stack under expert parallelism (the MoE
    block bit-equal to one process's ``expert_shards(2)``, lookahead ==
-   AR); every rank on the same tokens, each rank's step ms and the
+   AR), and TP served over ``DistLLM.launch`` (rank 0 binds the stdlib
+   HTTP server on a local port and serves an async stream and one HTTP
+   request while rank 1 follows; their tokens equal ``DistLLM.generate``'s);
+   every rank on the same tokens, each rank's step ms and the
    collectives' share of it (gloo through the host, not NCCL);
 4. the launch count of every kernel and mode during phase 3, serving, the
    generator phase (and apart from it, its checks: K17 and K4's and K16's
-   general entries have no caller on any path), the hf phase, the ipad phase, the quant
+   general entries have no caller on any path), the hf and families phases, the ipad phase, the quant
    modes, the MoE, MLA and linear-attention phases and phase dist (its
    ranks' DistLLM runs), each counted from 0 (all must be > 0), the script's wall time, and the
    ``kernels`` JSON line.
@@ -375,12 +392,16 @@ def _ptxas_label(entry: str) -> str:
     t = re.search(r"(grouped_gemm_kernel)ILb([01])E", entry)
     if t:
         return f"{t.group(1)}<2>" + (" seq" if t.group(2) == "1" else "")
-    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d)E(?:Lb([01])E)?(?:Lb([01])E)?",
-                  entry)
+    t = re.search(r"(paged_attention_wgmma_kernel)ILi(\d+)ELi(\d+)ELi(\d)E(?:Lb([01])E)?"
+                  r"(?:Lb([01])E)?", entry)
     if t:
-        return (f"{t.group(1)}<D={t.group(2)},{('bf16', 'fp8', 'fp8_tok')[int(t.group(3))]}"
-                + (",alibi" if t.group(4) == "1" else "")
-                + (",range>" if t.group(5) == "1" else ">"))
+        return (f"{t.group(1)}<D={t.group(2)}x{t.group(3)},"
+                f"{('bf16', 'fp8', 'fp8_tok')[int(t.group(4))]}"
+                + (",alibi" if t.group(5) == "1" else "")
+                + (",range>" if t.group(6) == "1" else ">"))
+    t = re.search(r"(fp8_head_kernel)ILi(\d)E", entry)
+    if t:
+        return f"{t.group(1)}<{t.group(2)}>"
     t = re.search(r"(mla_attention_kernel|mla_combine_kernel)", entry)
     if t:
         return t.group(1)
@@ -432,7 +453,9 @@ def ptxas_summary(pkg) -> dict:
         entry = {"paged_attention": "attention_wgmma_kernel",
                  "mla_attention": "mla_attention_kernel", "rmsnorm": "rms_norm_kernel",
                  "kv_permute": "kv_permute_kernel",
-                 "linear_attention": "la_chunk_out_kernel"}.get(name, "gemm_kernel")
+                 "linear_attention": "la_chunk_out_kernel",
+                 "paged_attention_wide": "attention_wgmma_kernel",
+                 "fp8_head_gemm": "fp8_head_kernel"}.get(name, "gemm_kernel")
         main = [k for k in kernels if entry in k["kernel"]]
         if not main or any("registers" not in k for k in main):
             fail(f"{name}: no ptxas report of its kernels and their registers: {kernels}")
@@ -455,10 +478,13 @@ def ptxas_summary(pkg) -> dict:
     lib = b.library("grouped_gemm")
     out["smem_bytes"].update({f"bf16 warpgroups={w}": lib.bf16_gemm_smem_bytes(w)
                               for w in (1, 2)})
-    lib = b.library("paged_attention")
-    out["smem_bytes"].update({f"attention D={d} {a}": lib.paged_attention_smem_bytes(d, m)
-                              for d in (64, 128)
+    out["smem_bytes"].update({f"attention D={dk}x{dv} {a}":
+                              b.library(lib).paged_attention_smem_bytes(dk, dv, m)
+                              for (dk, dv), lib in pkg["paged_attention"].LIBRARY.items()
                               for m, a in enumerate(("bf16", "fp8", "fp8_tok"))})
+    lib = b.library("fp8_head_gemm")
+    out["smem_bytes"].update({f"e4m3 head warpgroups={w}": lib.fp8_head_gemm_smem_bytes(w)
+                              for w in (1, 2)})
     out["smem_bytes"]["mla attention"] = b.library("mla_attention").mla_attention_smem_bytes()
     # the slope-free attention kernels beside their registers as built
     # before the ALiBi template flag existed: unchanged means the flag costs
@@ -466,11 +492,12 @@ def ptxas_summary(pkg) -> dict:
     pa = pkg["paged_attention"]
     now = pa.ptxas_registers()
     out["attention_slope_free_registers"] = {
-        f"D={d},{a}": dict(now=now.get((d, a, False), {}).get("registers"), before=r)
-        for (d, a), r in pa.SLOPE_FREE_REGISTERS.items()}
+        f"D={dk}x{dv},{a}": dict(now=now.get((dk, dv, a, False), {}).get("registers"),
+                                 before=r)
+        for (dk, dv, a), r in pa.SLOPE_FREE_REGISTERS.items()}
     out["attention_slope_free_unchanged"] = all(
-        now.get((d, a, False), {}).get("registers") == r
-        for (d, a), r in pa.SLOPE_FREE_REGISTERS.items())
+        now.get((dk, dv, a, False), {}).get("registers") == r
+        for (dk, dv, a), r in pa.SLOPE_FREE_REGISTERS.items())
     return out
 
 
@@ -689,16 +716,16 @@ def quantize_e4m3(x, Hkv: int, per_token: bool):
     return q.to(torch.float8_e4m3fn).reshape(x.shape), s
 
 
-def _arena(g, B, ctx_max, Q, Hkv, D, ps, arena="bf16"):
+def _arena(g, B, ctx_max, Q, Hkv, D, ps, arena="bf16", Dv=None):
     """Unit-normal K/V pages for B requests (permuted page tables) of the
     arena kind: bf16, or e4m3 with static [Hkv] or per-token
-    [n_pages, ps, Hkv] scales."""
+    [n_pages, ps, Hkv] scales; V rows of ``Dv`` lanes a head (default D)."""
     import torch
 
     P = -(-(ctx_max + Q) // ps) + 1
     n_pages = B * P + 1
     k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda")
-    v = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda")
+    v = torch.randn(n_pages, ps, Hkv * (Dv or D), generator=g, device="cuda")
     perm = torch.randperm(n_pages - 1, generator=g, device="cuda")[: B * P] + 1
     pt = perm.reshape(B, P).to(torch.int32)
     if arena == "bf16":
@@ -719,6 +746,16 @@ def _attn_name(kind: str, arena: str, alibi: bool = False) -> str:
     return f"paged_attention[{kind}" + (",fp8]" if fp8 else "]")
 
 
+PAIR_DIMS = ("256x256", "192x128")  # the (K, V) head dims past 128 lanes
+
+
+def _pair_name(kind: str, arena: str, dims: str) -> str:
+    """The kernels-line name of a head-dim pair's row: the 128-lane row's
+    name with the pair inside its brackets."""
+    base = _attn_name(kind, arena)
+    return base[:-1] + f",{dims}]" if base.endswith("]") else base + f"[{dims}]"
+
+
 def _attn_replaces(kind: str, arena: str) -> str:
     if arena == "fp8_tok":
         return f"{PAT}:380 _attn_decode_tok_kernel"
@@ -728,30 +765,34 @@ def _attn_replaces(kind: str, arena: str) -> str:
 
 
 def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, case,
-                  alibi=None, alibi_pos=None):
+                  alibi=None, alibi_pos=None, window=None, name=None):
     """One attention call (kind: 'decode' / 'verify' under the mask rule,
     'prefill' causal; arena: 'bf16', 'fp8' static scales, 'fp8_tok'
     per-token scales; ``alibi`` [Hq] slopes or None, ``alibi_pos`` the
-    step's key positions or None for their slots) against
-    paged_attention_ref on the same inputs, timed."""
+    step's key positions or None for their slots; ``window`` [B] int32 a
+    prefill's prefix-LM window or None) against paged_attention_ref on the
+    same inputs, timed; V's head dim is the V arena's (K's where they
+    agree). ``name``: the kernels-line name (default ``_attn_name``)."""
     import torch
     import torch.nn.functional as F
 
     pa, ref_mod = pkg["paged_attention"], pkg["attention"]
     B, Q, Hq, D = q.shape
     ps, Hkv = k.shape[1], k.shape[2] // D
+    Dv = v.shape[2] // Hkv
     scales = None if arena == "bf16" else (ks, vs)
     if kind == "prefill":
-        qmask = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q)
+        qmask = pa.window_qmask(B, Q, ctx_t, window, "cuda")
     if arena == "fp8_tok":
         mask_arg = None if kind == "prefill" else qmask
 
         def run():
             return pa.paged_attention_tok(q, k, v, ks, vs, pt, ctx_t, scale, mask_arg, alibi,
-                                          alibi_pos)
+                                          alibi_pos, window)
     elif kind == "prefill":
         def run():
-            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale, scales, alibi)
+            return pa.paged_attention_prefill(q, k, v, pt, ctx_t, scale, scales, alibi,
+                                              window=window)
     else:
         def run():
             return pa.paged_attention(q, k, v, pt, ctx_t, qmask, scale, scales, alibi,
@@ -773,7 +814,7 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
     G = Hq // Hkv
     cache = pkg["cache"]
     gk = cache.gather_kv_pages(k, pt, D, ks, torch.bfloat16).repeat_interleave(G, dim=1)
-    gv = cache.gather_kv_pages(v, pt, D, vs, torch.bfloat16).repeat_interleave(G, dim=1)
+    gv = cache.gather_kv_pages(v, pt, Dv, vs, torch.bfloat16).repeat_interleave(G, dim=1)
     mask = ref_mod.attention_mask(ctx_t, qmask, gk.shape[2])[:, None]
     qt = q.transpose(1, 2)
     lib_mask = mask
@@ -790,31 +831,36 @@ def attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs, scale, ca
     # keys each request reads: its context and the step's own Q rows
     kv_rows = int((ctx_t.long() + Q).clamp(max=pt.shape[1] * ps).sum().item())
     kv_elem = 2 if arena == "bf16" else 1
-    nbytes = 2 * kv_rows * Hkv * D * kv_elem + 2 * q.numel() * 2
+    nbytes = kv_rows * Hkv * (D + Dv) * kv_elem + q.numel() * 2 + B * Q * Hq * Dv * 2
     if arena == "fp8":
         nbytes += 2 * Hkv * 4
     elif arena == "fp8_tok":
         nbytes += 2 * kv_rows * Hkv * 4
     if alibi is not None:
         nbytes += Hq * 4 + (0 if alibi_pos is None else alibi_pos.numel() * 4)
-    row = _case(_attn_name(kind, arena, alibi is not None), "paged_attention.cu",
+    row = _case(name or _attn_name(kind, arena, alibi is not None), "paged_attention.cu",
                 _attn_replaces(kind, arena), err, rel, ms, plain_ms,
-                bound_ms(nbytes, 4.0 * vis * D), lib_ms,
+                bound_ms(nbytes, 2.0 * vis * (D + Dv)), lib_ms,
                 f"{case}B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} arena={arena}"
-                + (" alibi" if alibi is not None else ""))
+                + (f" D={D}x{Dv}" if (D, Dv) != (128, 128) else "")
+                + (" alibi" if alibi is not None else "")
+                + (f" window={window.tolist()}" if window is not None else ""))
     row["device_ms"] = dev_ms  # the kernel alone (a CUDA graph)
     return row
 
 
-def check_attention(pkg, g, kind, B, Q, Hq, Hkv, ctx, qmask, arena="bf16"):
+def check_attention(pkg, g, kind, B, Q, Hq, Hkv, ctx, qmask, arena="bf16", D=128,
+                    Dv=None, window=None, name=None, case=""):
     import torch
 
-    D, ps = 128, 64
-    k, v, pt, ks, vs = _arena(g, B, ctx, Q, Hkv, D, ps, arena)
+    ps = 64
+    k, v, pt, ks, vs = _arena(g, B, ctx, Q, Hkv, D, ps, arena, Dv)
     ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+    win = None if window is None else torch.full((B,), window, dtype=torch.int32,
+                                                 device="cuda")
     return attention_row(pkg, kind, arena, q, k, v, pt, ctx_t, qmask, ks, vs,
-                         D ** -0.5, f"ctx={ctx} ")
+                         D ** -0.5, f"{case}ctx={ctx} ", window=win, name=name)
 
 
 def attention_rows(pkg, g, cfg) -> list:
@@ -1798,7 +1844,8 @@ class Launches:
                       "kv_write_pages": ku.kv_write_pages,
                       "kv_write_step": ku.kv_write_step,
                       "kv_write_rows": ku.kv_write_rows,
-                      "kv_move_rows": ku.kv_move_rows}
+                      "kv_move_rows": ku.kv_move_rows,
+                      "fp8_head_gemm": pkg["quant_matmul"].fp8_head_matmul}
         la, rn = pkg["linear_attention"], pkg["rmsnorm"]
         for mode in ("chunk", "decode", "tree", "commit"):
             self.plain[f"linear_attention[{mode}]"] = getattr(la, f"linear_attention_{mode}")
@@ -1811,6 +1858,8 @@ class Launches:
             f.launches = 0
         for f in (*self.attn, self.w8a8, self.mla):
             f.modes.clear()
+        for f in self.attn:
+            f.dims.clear()
         for fmt in self.gquant.modes:
             self.gquant.modes[fmt] = 0
 
@@ -1836,6 +1885,13 @@ class Launches:
         for kind in ("decode", "verify", "prefill"):
             out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
             out[f"mla_attention[{kind}]"] = self.mla.modes[kind]
+        # the head-dim pairs past 128 (GPT-J's 256, DeepSeek's expanded MLA)
+        for dims in PAIR_DIMS:
+            for kind in ("decode", "verify", "prefill"):
+                for arena in ("bf16", "fp8", "fp8_tok"):
+                    out[_pair_name(kind, arena, dims)] = sum(
+                        f.dims[f"{dims},{kind},{arena}"] for f in self.attn)
+        out["paged_attention_prefill[window]"] = pre.modes["prefill,bf16,window"]
         return out
 
 
@@ -2295,8 +2351,8 @@ class ServingCapture(LaunchHooks):
 
     def _attn_hook(self, orig):
         def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None,
-                 alibi=None, alibi_pos=None, page_range=None, return_lse=False):
-            if self._first_layer(k) and page_range is None:
+                 alibi=None, alibi_pos=None, page_range=None, return_lse=False, window=None):
+            if self._first_layer(k) and page_range is None and window is None:
                 B, Q = q.shape[:2]
                 kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
                 old = self.attn.get((kind, arena))
@@ -2313,7 +2369,7 @@ class ServingCapture(LaunchHooks):
                     else:
                         self.attn[(kind, arena)] = c
             return orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs, alibi,
-                        alibi_pos, page_range, return_lse)
+                        alibi_pos, page_range, return_lse, window)
         return hook
 
     def _gemm_hook(self, orig):
@@ -3237,10 +3293,17 @@ HF_CHECK_TOKENS = 16  # the ALiBi check pass: 4 requests of this many tokens
 
 
 def _normal(rng, shape, std=0.02, mean=0.0):
-    """bf16 tensor of N(mean, std) drawn with numpy (fp32, in place)."""
+    """bf16 tensor of N(mean, std) on the host: drawn with numpy (fp32, in
+    place) from a numpy Generator, or on the card from a torch.Generator
+    there."""
     import numpy as np
     import torch
 
+    if isinstance(rng, torch.Generator):
+        a = torch.randn(shape, generator=rng, device=rng.device) * std
+        if mean:
+            a += mean
+        return a.to(torch.bfloat16).cpu()
     a = rng.standard_normal(shape, dtype=np.float32)
     a *= std
     if mean:
@@ -3435,13 +3498,13 @@ class AlibiCheck(LaunchHooks):
         ref_mod = self.pkg["attention"]
 
         def hook(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks=None, vs=None,
-                 alibi=None, alibi_pos=None, page_range=None, return_lse=False):
+                 alibi=None, alibi_pos=None, page_range=None, return_lse=False, window=None):
             out = orig(wrapper, q, k, v, pt, ctx, qmask, scale, causal, arena, ks, vs, alibi,
-                       alibi_pos, page_range, return_lse)
+                       alibi_pos, page_range, return_lse, window)
             if alibi is not None:
                 B, Q = q.shape[:2]
-                qm = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q) if causal \
-                    else qmask
+                qm = (self.pkg["paged_attention"].window_qmask(B, Q, ctx, window, "cuda")
+                      if causal else qmask)
                 _, rel = _errs(out, ref_mod.paged_attention_ref(
                     q, k, v, pt, ctx, qm, scale, ks, vs, alibi=alibi, alibi_pos=alibi_pos))
                 kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
@@ -3515,9 +3578,9 @@ def check_later_branch(pkg, llm, ids, L=8) -> dict:
 
 def serve_hf(pkg, path, quant, lookahead, prompts, tok, new_tokens=HF_NEW_TOKENS,
              **extra) -> tuple:
-    """LLM(model_path=path) (its load timed; ``extra`` EngineConfig fields)
-    and one generate over the text prompts. Returns (llm, numbers,
-    outputs)."""
+    """LLM(model_path=path) (its load timed; ``extra`` EngineConfig fields;
+    with kv_quant "fp8" the static scales calibrated on the prompts) and one
+    generate over the text prompts. Returns (llm, numbers, outputs)."""
     import torch
 
     config, llm_mod = pkg["config"], pkg["llm"]
@@ -3532,6 +3595,8 @@ def serve_hf(pkg, path, quant, lookahead, prompts, tok, new_tokens=HF_NEW_TOKENS
     llm = llm_mod.LLM(model_path=path, ecfg=config.EngineConfig(**kw), tokenizer=tok)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    if kw.get("kv_quant") == "fp8":
+        llm.calibrate_kv_scales([llm.encode(p) for p in prompts])
     t0 = time.perf_counter()
     reqs = llm.generate(prompts, pkg["request"].SamplingParams(max_new_tokens=new_tokens))
     torch.cuda.synchronize()
@@ -3549,7 +3614,7 @@ def serve_hf(pkg, path, quant, lookahead, prompts, tok, new_tokens=HF_NEW_TOKENS
 def phase_hf(pkg) -> dict:
     """Two checkpoints at published widths and HF_LAYERS layers, written
     with the port's own write_safetensors in HF_SHARDS shards and an index
-    (random bf16 weights from SEED, numpy), loaded by LLM(model_path=...)
+    (random bf16 weights from SEED, drawn on the card), loaded by LLM(model_path=...)
     and served with 16 text prompts (the repository's BPE tokenizer), AR
     and lookahead over the default tree (5 branches of 12): Llama-2-7B's
     LlamaForCausalLM keys in int4 (K1, K2 / K3 / K5, K15, K16, K4) and
@@ -3566,7 +3631,6 @@ def phase_hf(pkg) -> dict:
     from 0."""
     import tempfile
 
-    import numpy as np
     import torch
 
     t_phase = time.perf_counter()
@@ -3579,7 +3643,7 @@ def phase_hf(pkg) -> dict:
     for name, make, quant in (("llama2_7b_int4", hf_llama_checkpoint, "int4"),
                               ("bloom_7b1_bf16", hf_bloom_checkpoint, "none")):
         t0 = time.perf_counter()
-        conf, tensors = make(np.random.default_rng(SEED))
+        conf, tensors = make(torch.Generator(device="cuda").manual_seed(SEED))
         draw_s = time.perf_counter() - t0
         with tempfile.TemporaryDirectory(prefix="pia_hf_") as d:
             t0 = time.perf_counter()
@@ -3638,6 +3702,324 @@ def phase_hf(pkg) -> dict:
     res["launches"] = launches.read()
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"phase hf: wall {res['wall_s']:.1f} s on {smi_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase families: every family the port loads, served on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_PROMPTS = 4  # text prompts a family serves
+FAMILY_NEW_TOKENS = 16
+FAMILY_MIN_PROMPT = 160  # BPE tokens a prompt has at least (GLM's window past 128 rows)
+
+
+def hf_gptj_checkpoint(g) -> tuple:
+    """(config.json, tensors) of a GPTJForCausalLM at EleutherAI/gpt-j-6b's
+    widths (its config.json: n_embd 4096, n_head 16 of 256 lanes, rotary_dim
+    64, n_inner null (4 x 4096), vocab 50400, the head with a bias) and
+    HF_LAYERS layers, bf16."""
+    E, V = 4096, 50400
+    conf = dict(architectures=["GPTJForCausalLM"], model_type="gptj", vocab_size=V,
+                n_embd=E, n_head=16, n_layer=HF_LAYERS, rotary_dim=64, n_inner=None,
+                n_positions=2048, layer_norm_epsilon=1e-5, activation_function="gelu_new",
+                tie_word_embeddings=False, torch_dtype="bfloat16")
+    t = {"transformer.wte.weight": _normal(g, (V, E))}
+    for i in range(HF_LAYERS):
+        p = f"transformer.h.{i}."
+        t[p + "ln_1.weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[p + "ln_1.bias"] = _normal(g, (E,))
+        for n in "qkv":
+            t[p + f"attn.{n}_proj.weight"] = _normal(g, (E, E))
+        t[p + "attn.out_proj.weight"] = _normal(g, (E, E))
+        t[p + "mlp.fc_in.weight"] = _normal(g, (4 * E, E))
+        t[p + "mlp.fc_in.bias"] = _normal(g, (4 * E,))
+        t[p + "mlp.fc_out.weight"] = _normal(g, (E, 4 * E))
+        t[p + "mlp.fc_out.bias"] = _normal(g, (E,))
+    t["transformer.ln_f.weight"] = _normal(g, (E,), 0.05, 1.0)
+    t["transformer.ln_f.bias"] = _normal(g, (E,))
+    t["lm_head.weight"] = _normal(g, (V, E))
+    t["lm_head.bias"] = _normal(g, (V,))
+    return conf, t
+
+
+def hf_deepseek_checkpoint(g) -> tuple:
+    """(config.json, tensors) of deepseek-ai/DeepSeek-V2-Lite at its widths
+    (hidden 2048, 16 heads, kv_lora_rank 512, qk_nope 128 + qk_rope 64, v
+    128, layer 0 dense (intermediate 10944), then 64 routed experts of 1408
+    (top 6, softmax scores) and 2 shared, YaRN rope, vocab 102400) and
+    HF_LAYERS layers, bf16; ``from_hf`` leaves it in expanded MLA mode."""
+    E, V, H, I, MI, X, r = 2048, 102400, 16, 10944, 1408, 64, 512
+    nope, rope_d, v_d = 128, 64, 128
+    conf = dict(architectures=["DeepseekV2ForCausalLM"], model_type="deepseek_v2",
+                vocab_size=V, hidden_size=E, intermediate_size=I, moe_intermediate_size=MI,
+                num_hidden_layers=HF_LAYERS, num_attention_heads=H, num_key_value_heads=H,
+                n_shared_experts=2, n_routed_experts=X, num_experts_per_tok=6,
+                first_k_dense_replace=1, kv_lora_rank=r, q_lora_rank=None,
+                qk_nope_head_dim=nope, qk_rope_head_dim=rope_d, v_head_dim=v_d,
+                rope_theta=10000.0, max_position_embeddings=163840,
+                rope_scaling={"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+                              "mscale_all_dim": 0.707,
+                              "original_max_position_embeddings": 4096, "type": "yarn"},
+                rms_norm_eps=1e-6, norm_topk_prob=False, routed_scaling_factor=1.0,
+                scoring_func="softmax", topk_method="greedy", n_group=1, topk_group=1,
+                tie_word_embeddings=False, torch_dtype="bfloat16")
+    t = {"model.embed_tokens.weight": _normal(g, (V, E))}
+    for i in range(HF_LAYERS):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        t[p + "input_layernorm.weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[p + "post_attention_layernorm.weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[a + "q_proj.weight"] = _normal(g, (H * (nope + rope_d), E))
+        t[a + "kv_a_proj_with_mqa.weight"] = _normal(g, (r + rope_d, E))
+        t[a + "kv_a_layernorm.weight"] = _normal(g, (r,), 0.05, 1.0)
+        t[a + "kv_b_proj.weight"] = _normal(g, (H * (nope + v_d), r))
+        t[a + "o_proj.weight"] = _normal(g, (E, H * v_d))
+        if i == 0:
+            t[p + "mlp.gate_proj.weight"] = _normal(g, (I, E))
+            t[p + "mlp.up_proj.weight"] = _normal(g, (I, E))
+            t[p + "mlp.down_proj.weight"] = _normal(g, (E, I))
+            continue
+        t[p + "mlp.gate.weight"] = _normal(g, (X, E))
+        for x in range(X):
+            e = p + f"mlp.experts.{x}."
+            t[e + "gate_proj.weight"] = _normal(g, (MI, E))
+            t[e + "up_proj.weight"] = _normal(g, (MI, E))
+            t[e + "down_proj.weight"] = _normal(g, (E, MI))
+        sh = p + "mlp.shared_experts."
+        t[sh + "gate_proj.weight"] = _normal(g, (2 * MI, E))
+        t[sh + "up_proj.weight"] = _normal(g, (2 * MI, E))
+        t[sh + "down_proj.weight"] = _normal(g, (E, 2 * MI))
+    t["model.norm.weight"] = _normal(g, (E,), 0.05, 1.0)
+    t["lm_head.weight"] = _normal(g, (V, E))
+    return conf, t
+
+
+def hf_glm_checkpoint(g) -> tuple:
+    """(config.json, tensors) of THUDM/glm-10b at its widths (hidden 4096,
+    64 heads of 64 lanes, max_sequence_length 1024, block position tables,
+    vocab 50048, the head tied) and HF_LAYERS layers, bf16, under the
+    checkpoint's own key names (``glm.`` / ``glm.transformer.``)."""
+    E, V, L = 4096, 50048, 1024
+    conf = dict(architectures=["GLMModel"], model_type="glm", vocab_size=V, hidden_size=E,
+                num_layers=HF_LAYERS, num_attention_heads=64, max_sequence_length=L,
+                block_position_encoding=True, torch_dtype="bfloat16")
+    t = {"glm.word_embeddings.weight": _normal(g, (V, E)),
+         "glm.transformer.position_embeddings.weight": _normal(g, (L + 1, E)),
+         "glm.transformer.block_position_embeddings.weight": _normal(g, (L + 1, E))}
+
+    def lin(name, dout, din):
+        t[name + ".weight"] = _normal(g, (dout, din))
+        t[name + ".bias"] = _normal(g, (dout,))
+
+    def norm(name):
+        t[name + ".weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[name + ".bias"] = _normal(g, (E,))
+
+    for i in range(HF_LAYERS):
+        p = f"glm.transformer.layers.{i}."
+        norm(p + "input_layernorm")
+        lin(p + "attention.query_key_value", 3 * E, E)
+        lin(p + "attention.dense", E, E)
+        norm(p + "post_attention_layernorm")
+        lin(p + "mlp.dense_h_to_4h", 4 * E, E)
+        lin(p + "mlp.dense_4h_to_h", E, 4 * E)
+    norm("glm.transformer.final_layernorm")
+    return conf, t
+
+
+def hf_gpt2_checkpoint(g) -> tuple:
+    """(config.json, tensors) of openai-community/gpt2-xl at its widths
+    (n_embd 1600, 25 heads of 64 lanes, n_positions 1024, vocab 50257, the
+    head tied; Conv1D weights [in, out]) and HF_LAYERS layers, bf16."""
+    E, V, P = 1600, 50257, 1024
+    conf = dict(architectures=["GPT2LMHeadModel"], model_type="gpt2", vocab_size=V,
+                n_embd=E, n_head=25, n_layer=HF_LAYERS, n_positions=P, n_inner=None,
+                activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                torch_dtype="bfloat16")
+    t = {"transformer.wte.weight": _normal(g, (V, E)),
+         "transformer.wpe.weight": _normal(g, (P, E))}
+
+    def norm(name):
+        t[name + ".weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[name + ".bias"] = _normal(g, (E,))
+
+    def conv(name, din, dout):
+        t[name + ".weight"] = _normal(g, (din, dout))
+        t[name + ".bias"] = _normal(g, (dout,))
+
+    for i in range(HF_LAYERS):
+        p = f"transformer.h.{i}."
+        norm(p + "ln_1")
+        conv(p + "attn.c_attn", E, 3 * E)
+        conv(p + "attn.c_proj", E, E)
+        norm(p + "ln_2")
+        conv(p + "mlp.c_fc", E, 4 * E)
+        conv(p + "mlp.c_proj", 4 * E, E)
+    norm("transformer.ln_f")
+    return conf, t
+
+
+def fp8_head_row(pkg, g, M, V, E, case):
+    """The e4m3 tied head (``fp8_head_matmul``) against its plain version at
+    [M, E] x [V, E] e4m3 with per-row scales, timed; the yardstick is
+    torch.matmul on the table widened to bf16 (outside the timing) times s."""
+    import torch
+
+    qm = pkg["quant_matmul"]
+    table = torch.randn(V, E, generator=g, device="cuda") * 0.02
+    emb = pkg["embedding"].make_embedding(table, pkg["linear"].QuantSpec.from_mode("w8a8_fp8"))
+    del table
+    q8, s = emb["q"], emb["s"]
+    h = torch.randn(M, E, generator=g, device="cuda").to(torch.bfloat16)
+
+    def run():
+        return qm.fp8_head_matmul(h, q8, s)
+
+    def plain():
+        return qm.fp8_head_matmul_plain(h, q8, s)
+    got = run()
+    err, rel = _errs(got, plain())
+    if not rel <= 1e-4:
+        fail(f"fp8_head_gemm {case}: rel err {rel}")
+    one = qm.fp8_head_matmul(h[:1].contiguous(), q8, s)
+    if not torch.equal(one, got[:1]):
+        fail(f"fp8_head_gemm {case}: row 0 alone differs from row 0 of M = {M}")
+    ms = time_ms(run, reps=10)
+    dev_ms = graph_ms(run, reps=5)
+    plain_ms = time_ms(plain, reps=2, warmup=1)
+    wide = q8.to(torch.bfloat16).T
+    lib_ms = time_ms(lambda: torch.matmul(h, wide) * s, reps=10)
+    del wide
+    nbytes = V * E + V * 4 + M * E * 2 + M * V * 4
+    row = _case("fp8_head_gemm", "fp8_head_gemm.cu",
+                "painlessinferenceacceleration_tpu/layers/embedding.py:50 embed_logits "
+                "(XLA, no Pallas body)", err, rel, ms, plain_ms,
+                bound_ms(nbytes, 2.0 * M * E * V), lib_ms, f"{case}M={M} V={V} E={E}")
+    row["device_ms"] = dev_ms
+    return row
+
+
+def family_rows(pkg) -> list:
+    """The new builds against their plain versions at the shapes the
+    families serve: GPT-J's (256, 256) with Hq = Hkv = 16 in every arena
+    and route (decode ctx 640, verify Q = 17 ctx 768, prefill Q = 512),
+    DeepSeek-V2-Lite's expanded (192, 128) with 16 heads (bf16, its arena),
+    K3's window at GLM-10B's 64 heads of 64 lanes (Q = 512, a window of 300
+    keys) and the e4m3 head at BLOOM-7b1's 250880 x 4096, M = 1 / 17 / 512."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    branches = torch.randint(3, 1000, (2, 8), generator=g, device="cuda")
+    tree = pkg["device_tables"].build_tree_inputs(torch.tensor(1, device="cuda"),
+                                                  branches)[2][None]  # R=2 L=8
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    walks = (("decode", 640, 1, one), ("verify", 768, 17, tree), ("prefill", 0, 512, None))
+    rows = []
+    for arena in ("bf16", "fp8", "fp8_tok"):
+        for kind, ctx, Q, qm in walks:
+            rows.append(check_attention(pkg, g, kind, 1, Q, 16, 16, ctx, qm, arena, D=256,
+                                        name=_pair_name(kind, arena, "256x256"),
+                                        case="GPT-J "))
+    for kind, ctx, Q, qm in walks:
+        rows.append(check_attention(pkg, g, kind, 1, Q, 16, 16, ctx, qm, D=192, Dv=128,
+                                    name=_pair_name(kind, "bf16", "192x128"),
+                                    case="DeepSeek-V2-Lite expanded "))
+    rows.append(check_attention(pkg, g, "prefill", 1, 512, 64, 64, 0, None, D=64, window=300,
+                                name="paged_attention_prefill[window]", case="GLM-10B "))
+    for M in (1, 17, 512):
+        rows.append(fp8_head_row(pkg, g, M, 250880, 4096, "BLOOM-7b1 "))
+        torch.cuda.empty_cache()
+    for r in rows:
+        print("phase families kernel: " + json.dumps(r))
+    return rows
+
+
+def family_prompts(tok) -> list:
+    """FAMILY_PROMPTS corpus prompts of at least FAMILY_MIN_PROMPT BPE
+    tokens each (GLM's prefix window then reaches past 128 rows)."""
+    long = [p for p in hf_prompts() if len(tok.encode(p)) >= FAMILY_MIN_PROMPT]
+    if len(long) < FAMILY_PROMPTS:
+        fail(f"phase families: {len(long)} corpus prompts of {FAMILY_MIN_PROMPT} tokens")
+    return long[:FAMILY_PROMPTS]
+
+
+def serve_family(pkg, path, prompts, tok, **extra) -> dict:
+    """AR and lookahead (``serve_hf``: the default tree, drafts verified at
+    up to 8 rows) through LLM(model_path=path): lookahead must equal AR
+    token for token. ``extra``: EngineConfig fields of both runs."""
+    outs, res = [], {}
+    for la in (False, True):
+        llm, res["lookahead" if la else "ar"], out = serve_hf(
+            pkg, path, "none", la, prompts, tok, FAMILY_NEW_TOKENS, spec_cooldown_bursts=0,
+            **extra)
+        outs.append(out)
+        del llm
+    if outs[0] != outs[1]:
+        bad = [i for i, (a, b) in enumerate(zip(*outs)) if a != b]
+        fail(f"phase families {path}: lookahead differs from AR on requests {bad}")
+    res["lossless_strict"] = True
+    return res
+
+
+def phase_families(pkg) -> dict:
+    """Every family the port loads, at published widths and HF_LAYERS
+    layers, written as local safetensors checkpoints (random bf16 weights
+    from a seeded torch.Generator on the card) and served by
+    LLM(model_path=...) on FAMILY_PROMPTS text prompts, AR and lookahead
+    equal token for token: EleutherAI/gpt-j-6b (K2 / K3 / K5 at (256, 256)
+    over the bf16, static e4m3 and per-token e4m3 arenas), DeepSeek-V2-Lite
+    in expanded MLA mode (K2 / K3 at (192, 128)), THUDM/glm-10b at
+    prefill_chunk 512 over prompts past 128 tokens (K3's prefix-LM window),
+    openai-community/gpt2-xl (the 50257-column tied head padded to 50264
+    rows for K10), and bigscience/bloom-7b1 under ``quant_embed`` (the e4m3
+    tied head kernel). Then the new builds' rows (``family_rows``). The
+    kernels' launches counted from 0 over the serving runs."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = Launches(pkg)
+    launches.reset()
+    tok = load_bpe()
+    prompts = family_prompts(tok)
+    st = pkg["safetensors"]
+    runs = (("gptj_6b", hf_gptj_checkpoint, ({}, {"kv_quant": "fp8"},
+                                             {"kv_quant": "fp8_tok"})),
+            ("deepseek_v2_lite_expanded", hf_deepseek_checkpoint, ({},)),
+            ("glm_10b_chunk512", hf_glm_checkpoint, ({},)),
+            ("gpt2_xl", hf_gpt2_checkpoint, ({},)),
+            ("bloom_7b1_fp8_head", hf_bloom_checkpoint, ({"quant_embed": True},)))
+    res = {}
+    for name, make, settings in runs:
+        t0 = time.perf_counter()
+        conf, tensors = make(torch.Generator(device="cuda").manual_seed(SEED + 22))
+        draw_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix="pia_family_") as d:
+            t0 = time.perf_counter()
+            nbytes = st.write_checkpoint(d, tensors, conf, n_shards=HF_SHARDS)
+            write_s = time.perf_counter() - t0
+            del tensors
+            out = dict(checkpoint_gb=nbytes / 1e9, draw_s=draw_s, write_s=write_s)
+            for extra in settings:
+                key = extra.get("kv_quant", "bf16_arena")
+                out[key] = serve_family(pkg, d, prompts, tok, **extra)
+        res[name] = out
+        print(f"phase families {name} (random weights, {HF_LAYERS} layers): "
+              + json.dumps(out))
+        torch.cuda.empty_cache()
+    res["launches"] = launches.read()
+    need = [_pair_name(k, a, "256x256") for k in ("decode", "verify", "prefill")
+            for a in ("bf16", "fp8", "fp8_tok")]
+    need += [_pair_name(k, "bf16", "192x128") for k in ("decode", "verify", "prefill")]
+    need += ["paged_attention_prefill[window]", "fp8_head_gemm"]
+    idle = [k for k in need if res["launches"].get(k, 0) <= 0]
+    if idle:
+        fail(f"phase families: the families' serving launched none of {idle}")
+    res["kernels"] = family_rows(pkg)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase families: wall {res['wall_s']:.1f} s on {smi_line()}")
     return res
 
 
@@ -5864,6 +6246,72 @@ def dist_cp_case(pkg, counts, rank, params, cfg) -> dict:
     return out
 
 
+DIST_LAUNCH_TOKENS = 16
+
+
+def dist_launch_case(pkg, counts, rank, params, cfg) -> dict:
+    """``DistLLM.launch`` under TP = 2 (Llama-2-7B int4, 32 layers): rank 0
+    binds the stdlib HTTP server on an ephemeral local port (rank 0 only)
+    and serves one request over ``async_stream_generate`` and one over
+    HTTP, sent while the first streams; rank 1 runs its follower loop
+    (``launch_server``) until rank 0 stops. After the shutdown both ranks
+    run ``DistLLM.generate`` over the same prompts: rank 0's streamed and
+    HTTP tokens must equal it."""
+    import asyncio
+    import threading
+    import urllib.request
+
+    import torch
+
+    config, dist_llm, server = pkg["config"], pkg["dist_llm"], pkg["server"]
+    prompts = [dist_prompt(cfg.vocab_size, 200, SEED + 23),
+               dist_prompt(cfg.vocab_size, 300, SEED + 24)]
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=2, prefill_chunk=512,
+              quant="int4", eos_token_id=-2, decode_burst=8, decode_burst_idle=32)
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
+                          mesh_shape=(1, DIST_WORLD))
+    sp = pkg["request"].SamplingParams(max_new_tokens=DIST_LAUNCH_TOKENS)
+
+    def launched():
+        if rank != 0:
+            server.launch_server(dl, prefer_fastapi=False)  # the follower loop
+            return None
+        srv = server.StdlibServer(dl, "127.0.0.1", 0)
+        srv.start()
+        got = [None, None]
+
+        async def drain():
+            return [t async for t in dl.async_stream_generate(prompts[0], sp)]
+
+        th = threading.Thread(target=lambda: got.__setitem__(0, asyncio.run(drain())))
+        th.start()
+        time.sleep(0.05)
+        body = json.dumps({"input_ids": prompts[1], "max_new_tokens": DIST_LAUNCH_TOKENS,
+                           "stream": False}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=DIST_TIMEOUT_S) as r:
+            got[1] = json.loads(r.read())["output_ids"]
+        th.join()
+        srv.stop()
+        return got
+
+    t0 = time.perf_counter()
+    streams = counts.run(launched)
+    wall = time.perf_counter() - t0
+    gen = [r.output_ids for r in counts.run(lambda: dl.generate(prompts, sp))]
+    del dl
+    torch.cuda.empty_cache()
+    out = dict(tokens=gen, launched_wall_s=wall, requests=len(prompts),
+               new_tokens=DIST_LAUNCH_TOKENS)
+    if rank == 0:
+        if streams != gen:
+            fail(f"phase dist launch: streamed / HTTP tokens {streams} differ from "
+                 f"DistLLM.generate's {gen}")
+        out["streams_equal_generate"] = True
+    return out
+
+
 def dist_rank(pkg, rank: int, port: int, out_path: Path) -> None:
     """One rank of phase dist (a child process of the script)."""
     import torch
@@ -5877,6 +6325,7 @@ def dist_rank(pkg, rank: int, port: int, out_path: Path) -> None:
     params = pkg["base"].init_params_quantized(
         cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
     res = dict(tp=dist_tp_case(pkg, counts, rank, params, cfg))
+    res["launch"] = dist_launch_case(pkg, counts, rank, params, cfg)
     res["cp"] = dist_cp_case(pkg, counts, rank, params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -5940,7 +6389,7 @@ def phase_dist(pkg) -> dict:
             print(logs[r][-6000:], file=sys.stderr)
             fail(f"phase dist: rank {r} failed (exit {p.returncode})")
     res = [json.loads(o.read_text()) for o in outs]
-    for case in ("tp", "cp", "ep"):
+    for case in ("tp", "launch", "cp", "ep"):
         if res[1][case]["tokens"] != res[0][case]["tokens"]:
             fail(f"phase dist {case}: the ranks ended on different tokens")
     launches = {}
@@ -5954,7 +6403,7 @@ def phase_dist(pkg) -> dict:
     out = dict(kernels=rows, launches=launches, wall_s=time.perf_counter() - t0,
                note="two ranks share one H100 over gloo: every collective goes through "
                     "the host, so these are not NCCL times")
-    for case in ("tp", "cp", "ep"):
+    for case in ("tp", "launch", "cp", "ep"):
         out[case] = [{k: v for k, v in r[case].items() if k != "tokens"} for r in res]
         print(f"phase dist {case} (rank 0, rank 1): " + json.dumps(out[case]))
     out["ranks"] = [dict(wall_s=r["wall_s"], peak_mem_gb=r["peak_mem_gb"]) for r in res]
@@ -6030,6 +6479,11 @@ def main() -> None:
                     help="run only the ALiBi attention rows and the hf phase (local "
                          "checkpoints through LLM(model_path=...); a partial run: prints "
                          "no kernels line and no result line)")
+    ap.add_argument("--families-only", action="store_true",
+                    help="run only phase families (GPT-J, DeepSeek-V2-Lite expanded, GLM-10B, "
+                         "GPT-2 XL and BLOOM-7b1 with the e4m3 head through "
+                         "LLM(model_path=...), and the new builds' rows; a partial run: "
+                         "prints no kernels line and no result line)")
     ap.add_argument("--dist-only", action="store_true",
                     help="run only phase dist: K2 / K3 with a page range and two ranks "
                          "sharing the card over gloo under tensor, context and expert "
@@ -6048,6 +6502,15 @@ def main() -> None:
         dist_rank(pkg, args.dist_rank, args.dist_port, args.dist_out)
         return
     env = phase_environment(pkg)
+    if args.families_only:
+        fam_res = phase_families(pkg)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (families only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, families=fam_res,
+                                                 wall_s=wall_s), indent=1))
+        return
     if args.dist_only:
         dist_res = phase_dist(pkg)
         wall_s = time.perf_counter() - T_START
@@ -6214,6 +6677,8 @@ def main() -> None:
     samp_res = phase_sampling(pkg, cfg, spec, params)
     del params
     hf_res = phase_hf(pkg)
+    fam_res = phase_families(pkg)
+    rows += fam_res["kernels"]
     ipad_res = phase_ipad(pkg)
     quant_res = phase_quant_modes(pkg, cfg)
     rows += quant_res["kernels"]
@@ -6235,7 +6700,7 @@ def main() -> None:
                     generator=gen_res["launches"],
                     generator_compaction_check=gen_res["check_launches"],
                     sampling=samp_res["launches"], hf=hf_res["launches"],
-                    ipad=ipad_res["launches"],
+                    families=fam_res["launches"], ipad=ipad_res["launches"],
                     quant_modes=quant_res["launches"], moe=moe_res["launches"],
                     mla=mla_res["launches"], linear=lin_res["launches"],
                     dist=dist_res["launches"])
@@ -6254,7 +6719,8 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched on the main path, in serving or its "
                  "compaction check, in the generator phase or its compaction check, in the "
-                 "sampling phase, in the hf phase, in the ipad phase, in the quant modes, in "
+                 "sampling phase, in the hf and families phases, in the ipad phase, in the "
+                 "quant modes, in "
                  "the MoE phases, in "
                  "the MLA phases, in the linear-attention phases or in phase dist "
                  "(launches by phase: "
@@ -6268,7 +6734,7 @@ def main() -> None:
         args.json.write_text(json.dumps(dict(environment=env, kernels=rows,
                                              main_path=main_res, serving=serve_res,
                                              generator=gen_res, sampling=samp_res,
-                                             hf=hf_res, ipad=ipad_res,
+                                             hf=hf_res, families=fam_res, ipad=ipad_res,
                                              quant_modes=quant_res, moe=moe_res,
                                              mla=mla_res, linear=lin_res,
                                              dist=dist_res, launches=by_phase,

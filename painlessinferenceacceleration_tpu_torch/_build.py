@@ -7,7 +7,7 @@ and loaded with ``ctypes``. A library's file name carries a hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is never served by a stale build.
 
-The tensor-core GEMM sources (int4, int8, W8A8, block fp8, bf16), the paged, MLA
+The tensor-core GEMM sources (int4, int8, W8A8, block fp8, bf16, the e4m3 tied head), the paged, MLA
 and linear attention sources, the norm and the KV compaction are compiled with
 ``-Xptxas -v``: the register,
 shared-memory and spill report of each kernel is kept beside its library
@@ -36,8 +36,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("int4_gemm", "int8_gemm", "w8a8_gemm", "block_fp8_gemm",
            "grouped_gemm", "grouped_int4_gemm", "grouped_int8_gemm",
-           "paged_attention", "kv_permute", "kv_page_write", "mla_attention",
-           "linear_attention", "rmsnorm", "kv_rows")
+           "paged_attention", "paged_attention_wide", "kv_permute", "kv_page_write",
+           "mla_attention",
+           "linear_attention", "rmsnorm", "kv_rows", "fp8_head_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -49,7 +50,8 @@ NVCC_FLAGS = (
 # the KV compaction, which hold rows in registers and shared memory
 VERBOSE_SOURCES = ("int4_gemm", "grouped_int4_gemm", "int8_gemm", "grouped_int8_gemm",
                    "w8a8_gemm", "block_fp8_gemm", "grouped_gemm", "paged_attention",
-                   "mla_attention", "rmsnorm", "kv_permute", "linear_attention")
+                   "paged_attention_wide", "mla_attention", "rmsnorm", "kv_permute", "linear_attention",
+                   "fp8_head_gemm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, tuple] = {}

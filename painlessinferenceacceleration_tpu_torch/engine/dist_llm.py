@@ -26,16 +26,35 @@ Ranks join through ``parallel/multihost.py`` (``multihost=True``, the
 card, ranks run on ``cuda:rank`` (modulo the cards: ranks beyond them share
 a card, over gloo); ``device="cpu"`` runs them on the CPU.
 
-Refused: the background scheduler (``launch``, and so the async and HTTP
-paths): its arrivals depend on time, and rank 0 would have to broadcast
-each step's arrivals (ROADMAP A.14). Under context parallelism, as in the
-JAX package: fp8 arenas, ALiBi and prefix-LM attention; also MLA and
-linear-attention models and a data axis (ROADMAP A.13).
+The background scheduler (``launch``; and with it ``stream_generate``,
+``async_stream_generate`` and the HTTP server, ``service/server.py``):
+rank 0 owns the arrivals. ``add_request`` there holds a new request until
+the next scheduler step; at one fixed point of each step (before it) rank 0
+broadcasts that step's arrivals in arrival order (request id, prompt ids,
+sampling parameters, scoring targets and multimodal embeddings) and a stop
+flag, and every rank, rank 0 included, queues exactly those, so the queues
+stay the same and the schedule does not depend on any rank's clock
+(``_check_lockstep`` still compares every step). ``launch`` on rank 0
+starts that loop in a thread and returns; on the other ranks it runs their
+follower loop in the calling thread and returns when rank 0's ``shutdown``
+has been broadcast. A rank 0 with no work waits for an arrival at most
+``HEARTBEAT_S`` seconds before it broadcasts anyway (an empty step): no
+collective then waits longer than that and a step, far inside gloo's 30
+and NCCL's 10 minute timeouts over any idle spell. The HTTP server binds
+on rank 0 only (``launch_server``). No request is cancelled once queued
+(``LLM`` has no cancellation).
+
+Refused, under context parallelism, as in the JAX package: fp8 arenas,
+ALiBi and prefix-LM attention; also MLA and linear-attention models and a
+data axis (ROADMAP A.13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,6 +67,7 @@ from painlessinferenceacceleration_tpu_torch.config import (
 from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
 from painlessinferenceacceleration_tpu_torch.engine.pages import PageAllocator
 from painlessinferenceacceleration_tpu_torch.engine.prefix_cache import PrefixCache
+from painlessinferenceacceleration_tpu_torch.engine.request import Request, SamplingParams
 from painlessinferenceacceleration_tpu_torch.parallel import comm
 from painlessinferenceacceleration_tpu_torch.parallel.mesh import (
     make_mesh,
@@ -106,6 +126,7 @@ class DistLLM(LLM):
         if multihost:
             initialize_multihost(device=asked.type)
         world, rank = _world()
+        self.rank = rank
         dev = asked if asked.index is not None else local_device(asked.type, rank, world)
         ecfg = ecfg or EngineConfig()
         quant = None
@@ -170,11 +191,100 @@ class DistLLM(LLM):
         with comm.using(self.rank_state):
             super().calibrate_kv_scales(prompts)
 
+    # ---- the background scheduler over the ranks ----
+
+    HEARTBEAT_S = 5.0  # the longest rank 0 waits for an arrival before a step
+
     def launch(self) -> None:
-        raise NotImplementedError(
-            "DistLLM.launch: the background scheduler admits requests as they arrive, "
-            "which differs from rank to rank; rank 0 would have to broadcast each step's "
-            "arrivals (ROADMAP A.14). Drive DistLLM with generate or step")
+        """Rank 0: start the scheduler thread (requests then arrive through
+        ``add_request``, the streams and the server) and return. Any other
+        rank: run the follower loop here, until rank 0 shuts down."""
+        if self._running:
+            return
+        world, rank = _world()
+        if world == 1:
+            super().launch()
+            return
+        self._arrivals, self._stop = [], False
+        self._arrival_cv = threading.Condition()
+        self._running = True
+        if rank == 0:
+            self._thread = threading.Thread(target=self._serve, daemon=True)
+            self._thread.start()
+        else:
+            self._serve()
+
+    def shutdown(self) -> None:
+        """Rank 0: broadcast the stop at the next step and wait for the loop
+        (every rank's loop then ends). Any other rank: nothing to stop."""
+        if self._running and self.rank == 0 and self._thread is not None:
+            with self._arrival_cv:
+                self._stop = True
+                self._arrival_cv.notify()
+            self._thread.join()
+            self._thread = None
+            return
+        super().shutdown()
+
+    def _enqueue(self, req: Request) -> None:
+        if not self._running or _world()[0] == 1:
+            super()._enqueue(req)
+            return
+        if self.rank != 0:
+            raise RuntimeError("requests to a launched DistLLM arrive at rank 0")
+        with self._arrival_cv:
+            self._arrivals.append(req)
+            self._arrival_cv.notify()
+
+    def _busy(self) -> bool:
+        return bool(self._queue) or self._pending is not None or any(
+            r is not None for r in self._slots)
+
+    def _step_arrivals(self) -> dict:
+        """The broadcast before a step: rank 0 takes the requests that
+        arrived since the last one (waiting up to ``HEARTBEAT_S`` when it has
+        no work) and sends them, in arrival order, with the stop flag; every
+        rank returns the message, and rank 0 queues its own handles."""
+        import torch.distributed as dist
+
+        msg = None
+        if self.rank == 0:
+            with self._arrival_cv:
+                if not (self._arrivals or self._stop or self._busy()):
+                    self._arrival_cv.wait(timeout=self.HEARTBEAT_S)
+                reqs, self._arrivals = self._arrivals, []
+                stop = self._stop
+            with self._lock:
+                self._queue.extend(reqs)
+            msg = {"stop": stop, "arrivals": [
+                (r.rid, r.input_ids, dataclasses.asdict(r.sampling), r.target_ids,
+                 r.mm_embeds, r.mm_positions) for r in reqs]}
+        box = [msg]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _serve(self) -> None:
+        """Every rank's scheduler loop while launched: the step's arrivals,
+        then the step, until rank 0's stop arrives."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        try:
+            while True:
+                msg = self._step_arrivals()
+                if self.rank != 0:
+                    for rid, ids, sp, targets, mm, mm_pos in msg["arrivals"]:
+                        req = Request(rid, ids, SamplingParams(**sp), False, targets, mm,
+                                      mm_pos)
+                        req.arrival_t = time.perf_counter()
+                        with self._lock:
+                            self._queue.append(req)
+                        # later requests (generate after the loop) take rank 0's ids
+                        self._rid = itertools.count(rid + 1)
+                if msg["stop"]:
+                    return
+                self.step()
+        finally:
+            self._running = False
 
     def _check_lockstep(self) -> None:
         """Raise unless every rank holds the same requests with the same

@@ -89,7 +89,10 @@ from painlessinferenceacceleration_tpu_torch.engine.request import (
 )
 from painlessinferenceacceleration_tpu_torch.engine.step import prefill_step, score_step
 from painlessinferenceacceleration_tpu_torch.models.base import check_model_on_card
-from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
+from painlessinferenceacceleration_tpu_torch.layers.embedding import (
+    make_embedding,
+    pad_vocab_rows,
+)
 from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
 from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     check_int4_params,
@@ -132,6 +135,8 @@ def _first_tensor(tree):
 class LLM:
     """Serving engine over one model instance."""
 
+    rank = 0  # the process that takes requests (a DistLLM's rank 0)
+
     def __init__(
         self,
         model_path: Optional[str] = None,
@@ -163,15 +168,18 @@ class LLM:
             for name in _build.SOURCES:
                 _build.library(name)
         self.dtype = dtype
-        if self.device.type == "cuda":
-            check_int4_params(params)
-            check_int8_params(params)
-            check_w8a8_params(params)
-            check_model_on_card(cfg, params, self.ecfg.page_size, self.ecfg.prefill_chunk)
         if self.ecfg.quant_embed and "embed" in params:
             params = dict(params)
             params["embed"] = make_embedding(params["embed"],
                                              QuantSpec.from_mode("w8a8_fp8"))
+        # a tied table's rows padded to a multiple of 8 (the head's logits are
+        # cut back to the vocabulary in logits_from_hidden)
+        params = pad_vocab_rows(params)
+        if self.device.type == "cuda":
+            check_int4_params(params)
+            check_int8_params(params)
+            check_w8a8_params(params)
+            check_model_on_card(cfg, params, self.ecfg.page_size)
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -259,9 +267,14 @@ class LLM:
         if total > limit:
             req.finish(f"error: prompt length {total} exceeds max_seq_len-1 ({limit})")
             return req
+        self._enqueue(req)
+        return req
+
+    def _enqueue(self, req: Request) -> None:
+        """A new request joins the queue (``DistLLM`` holds it for the next
+        step's broadcast while its scheduler runs)."""
         with self._lock:
             self._queue.append(req)
-        return req
 
     def generate(self, prompts, sampling: Optional[SamplingParams] = None
                  ) -> List[Request]:

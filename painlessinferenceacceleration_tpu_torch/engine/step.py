@@ -23,6 +23,7 @@ from painlessinferenceacceleration_tpu_torch.models.base import (
 )
 from painlessinferenceacceleration_tpu_torch.models.linear_attn import commit_linear_states
 from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_compact_tail
+from painlessinferenceacceleration_tpu_torch.ops.paged_attention import window_qmask
 from painlessinferenceacceleration_tpu_torch.ops.sample import sample_tokens_at
 from painlessinferenceacceleration_tpu_torch.parallel import comm
 
@@ -48,17 +49,17 @@ def prefill_step(
     the token embeddings at those prompt positions, as each chunk reaches
     them. ``glm_ids`` gives AntGLM's 2D positions and, with
     ``cfg.prefix_lm``, the prefix-LM window: a query also sees the chunk's
-    keys inside the prompt, so the chunk is not purely causal (on the card
-    only Q <= 128 has a kernel for that)."""
+    keys inside the prompt, so the chunk is not purely causal (a chunk past
+    128 rows runs the prefill rule with the window, ``glm_ids[:, 0]``)."""
     B, C = tokens.shape
     dev = tokens.device
     i = torch.arange(C, device=dev)
     pos = start_lens.long()[:, None] + i[None, :]
-    qmask = (i[:, None] >= i[None, :])[None].expand(B, C, C)
-    causal_window = True
+    window = None  # AntGLM's prefix-LM window: every row sees the prompt's keys
     if cfg.prefix_lm and glm_ids is not None:
-        qmask = qmask | (pos[:, None, :] < glm_ids[:, :1, None].long())
-        causal_window = False
+        window = glm_ids[:, 0].to(torch.int32).contiguous()
+    qmask = window_qmask(B, C, start_lens, window, dev)
+    causal_window = window is None
     valid = i[None, :] < chunk_lens[:, None]
     embed_override = None
     if mm_embeds is not None:
@@ -68,7 +69,7 @@ def prefill_step(
     h, kv = transformer_hidden(params, cfg, kv, tokens, pos, page_tables,
                                start_lens, qmask, valid, spec, causal_window=causal_window,
                                slot_ids=slot_ids, embed_override=embed_override,
-                               glm_ids=glm_ids)
+                               glm_ids=glm_ids, prefix_window=window)
     last = (chunk_lens.long() - 1).clamp(0, C - 1)
     h_last = h[torch.arange(B, device=dev), last][:, None]  # [B, 1, E]
     logits = logits_from_hidden(params, cfg, h_last, spec)[:, 0]

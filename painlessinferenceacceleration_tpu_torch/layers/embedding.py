@@ -8,7 +8,15 @@ gathered rows (a gather and a multiply: plain torch here, as it is plain
 jnp there). In the tied LM head the row scales become per-vocab-column
 factors applied after the matmul. On the card the tied head of a bf16 table
 is the bf16 GEMM kernel over the transposed weight (``ops/moe_matmul.py``
-``dense_matmul``); an fp8 table's tied head has no kernel and raises there.
+``dense_matmul``), and an fp8 table's is the e4m3 head GEMM
+(``ops/quant_matmul.py`` ``fp8_head_matmul``: the table widened to bf16 in
+shared memory, each vocab column's fp32 sum times its scale once).
+
+``pad_vocab_rows`` pads a tied table to a multiple of 8 rows with zeros
+(GPT-2's 50257 -> 50264: the bf16 GEMM takes N % 8 == 0), so the head
+gives as many logits more; ``models/base.py`` ``logits_from_hidden`` cuts
+them back to ``vocab_size`` before anything reads them. A lookup never
+reads a padding row.
 """
 
 from __future__ import annotations
@@ -32,6 +40,34 @@ def make_embedding(w: Embedding, quant: Optional[QuantSpec] = None) -> Embedding
     return {"q": (wf / s[:, None]).to(torch.float8_e4m3fn), "s": s}
 
 
+VOCAB_ROWS = 8  # a tied table's rows are padded to a multiple of this
+
+
+def pad_vocab_rows(params: dict) -> dict:
+    """``params`` with a tied table (no ``lm_head``) padded with zero rows
+    (and, for an e4m3 table, scales of 1) to a multiple of ``VOCAB_ROWS``;
+    the same dict where there is nothing to pad."""
+    emb = params.get("embed")
+    if emb is None or "lm_head" in params:
+        return params
+    V = (emb["q"] if isinstance(emb, dict) else emb).shape[0]
+    pad = -V % VOCAB_ROWS
+    if pad == 0:
+        return params
+
+    def rows(t, fill):
+        extra = torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+        return torch.cat([t, extra])
+
+    params = dict(params)
+    if isinstance(emb, dict):  # e4m3 through its bytes (cat does not take it everywhere)
+        q = rows(emb["q"].view(torch.uint8), 0).view(torch.float8_e4m3fn)
+        params["embed"] = {"q": q, "s": rows(emb["s"], 1.0)}
+    else:
+        params["embed"] = rows(emb, 0)
+    return params
+
+
 def embed_lookup(emb: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Gather token rows [..., E]; an fp8 table dequantizes only those."""
     idx = tokens.long()
@@ -45,10 +81,9 @@ def embed_lookup(emb: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def embed_logits(emb: Embedding, h: torch.Tensor) -> torch.Tensor:
     """Tied LM head: ``h @ table^T`` with fp32 logits."""
     if isinstance(emb, dict):
-        if h.is_cuda:
-            raise NotImplementedError("a tied LM head over an fp8 table has no kernel")
-        out = torch.matmul(h.to(torch.float32), emb["q"].to(torch.float32).T)
-        return out * emb["s"]
+        from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import fp8_head_matmul
+
+        return fp8_head_matmul(h, emb["q"], emb["s"])
     from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul
 
     return dense_matmul(h, emb.to(h.dtype) if h.is_cuda else emb, torch.float32,

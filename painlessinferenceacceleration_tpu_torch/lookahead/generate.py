@@ -33,6 +33,7 @@ from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
     check_int4_params,
     check_int8_params,
 )
+from painlessinferenceacceleration_tpu_torch.layers.embedding import pad_vocab_rows
 from painlessinferenceacceleration_tpu_torch.models.base import check_model_on_card
 from painlessinferenceacceleration_tpu_torch.ops.w8a8 import check_w8a8_params
 from painlessinferenceacceleration_tpu_torch.lookahead.trie import DraftCache
@@ -100,7 +101,7 @@ class LookaheadGenerator:
             # as in the JAX package, whose generator passes no GLM positions
             raise NotImplementedError("AntGLM's 2D positions are served by LLM, not "
                                       "LookaheadGenerator")
-        self.params = params
+        self.params = pad_vocab_rows(params)
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.quant = quant
@@ -110,7 +111,7 @@ class LookaheadGenerator:
             check_int4_params(params)
             check_int8_params(params)
             check_w8a8_params(params)
-            check_model_on_card(cfg, params, self.ecfg.page_size, self.ecfg.prefill_chunk)
+            check_model_on_card(cfg, self.params, self.ecfg.page_size)
         self.trie = make_draft_cache(eos_ids=(self.ecfg.eos_token_id,))
 
     def _fresh_kv(self):

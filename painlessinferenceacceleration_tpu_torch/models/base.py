@@ -29,9 +29,10 @@ over the token embeddings (``embed_override``) and AntGLM's per-row
 Attention dispatch follows the JAX ``_attn_block_at`` over the three arena
 kinds (ALiBi slopes ride along in every one, where JAX sends ALiBi to its
 jnp path): Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
-window to the prefill rule, ``paged_attention_tok`` for a per-token-scale
-e4m3 arena; any other case runs the plain gather path on the CPU and raises
-on CUDA. Where JAX serves the e4m3 prefill and per-token verify widths with
+window to the prefill rule (AntGLM's prefix-LM prefill too, with its window
+``glm_ids[:, 0]``, where JAX has no prefill kernel), ``paged_attention_tok``
+for a per-token-scale e4m3 arena; any other case runs the plain gather path
+on the CPU and raises on CUDA. Where JAX serves the e4m3 prefill and per-token verify widths with
 jnp, the port uses the kernel's e4m3 modes, so no arena/width pair reaches a
 plain version on the card.
 """
@@ -132,35 +133,45 @@ def _check_model(cfg: ModelConfig) -> None:
         raise NotImplementedError("attention biases on MLA or linear-attention models")
 
 
-def check_model_on_card(cfg: ModelConfig, params: dict, page_size: int,
-                        prefill_chunk: int) -> None:
+def check_model_on_card(cfg: ModelConfig, params: dict, page_size: int) -> None:
     """Raise, before serving starts, where a kernel on the card refuses the
-    model's shapes: paged attention's head dims, pages and head groups
-    (``attention_check``; GPT-J's head dim 256), the bf16 GEMM's K and N
-    (``bf16_check``) on the native linears and a tied head (GPT-2's
-    published vocabulary of 50257), and AntGLM's prefix-LM prefill, which is
-    not causal and has a kernel only at Q <= 128 (``prefill_chunk``)."""
+    model's shapes. What is still refused: paged attention's geometry
+    (``attention_check``: the (K, V) head dims of ``HEAD_DIMS``, which hold
+    every family's, GPT-J's 256 and DeepSeek's expanded (192, 128) among
+    them; pages of 64 keys; query heads a kv head dividing 128), the bf16
+    GEMM's K and N (``bf16_check``: K % 8, N % 8) on the native linears and
+    the tied head over a bf16 table (the engine pads a table's rows to a
+    multiple of 8 first, ``pad_vocab_rows``), and the e4m3 tied head's K
+    (``fp8_head_check``: the hidden size a multiple of 64). MLA's latent
+    mode is K13's (its own check at the first call)."""
+    from painlessinferenceacceleration_tpu_torch.models.mla import (
+        mla_cache_heads,
+        mla_head_dims,
+    )
     from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import bf16_check
     from painlessinferenceacceleration_tpu_torch.ops.paged_attention import attention_check
+    from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import fp8_head_check
 
     if not cfg.is_mla:
         attention_check(cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
                         page_size)
-    if cfg.prefix_lm and cfg.position_embedding_type == "glm_2d" and prefill_chunk > 128:
-        raise NotImplementedError(
-            f"prefix-LM prefill at Q = {prefill_chunk} > 128 is not causal and has no "
-            "kernel on the card; serve with prefill_chunk <= 128")
+    elif not cfg.mla_latent_cache:  # expanded: per-head K and V rows of their own widths
+        dk, dv = mla_head_dims(cfg)
+        attention_check(cfg.num_attention_heads, mla_cache_heads(cfg), dk, page_size, dv)
     for name in ("layers", "moe_layers"):
         for key in ("wqkv", "wo", "wgu", "wdown"):
             w = params.get(name, {}).get(key)
             if isinstance(w, torch.Tensor):
                 bf16_check(w.shape[-2], w.shape[-1])
     head = params.get("lm_head")
+    emb = params.get("embed")
     if isinstance(head, torch.Tensor):
         bf16_check(head.shape[-2], head.shape[-1])
-    elif head is None and isinstance(params.get("embed"), torch.Tensor):
-        V, E = params["embed"].shape  # the tied head: K = E, N = V
+    elif head is None and isinstance(emb, torch.Tensor):
+        V, E = emb.shape  # the tied head: K = E, N = V
         bf16_check(E, V)
+    elif head is None and isinstance(emb, dict):  # the e4m3 table's tied head
+        fp8_head_check(*emb["q"].shape)
 
 
 def _stack_leaves(make, n: int):
@@ -398,13 +409,15 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
 
 
 def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale,
-               alibi=None):
+               alibi=None, window=None):
     """Dispatch on the arena (bf16 / static e4m3 / per-token e4m3) and the
     width: Q <= 128 to the decode/verify rule, Q > 128 with a causal window
-    to the prefill rule; ``alibi`` = (slopes [Hq], the step's positions
-    [B, Q] int32) rides along (the causal rule puts key s at ctx + s). On
-    CUDA every case is a kernel; any other case raises there and runs the
-    plain gather path on the CPU."""
+    to the prefill rule, and so a prefix-LM prefill chunk past 128 rows
+    with its ``window`` [B] int32 (AntGLM's prompt lengths: the causal rule
+    plus the keys before the window); ``alibi`` = (slopes [Hq], the step's
+    positions [B, Q] int32) rides along (the causal rule puts key s at ctx
+    + s). On CUDA every case is a kernel; any other case raises there and
+    runs the plain gather path on the CPU."""
     slopes, pos = alibi if alibi is not None else (None, None)
     kk, vv = kv["k"][li], kv["v"][li]
     Q = xq.shape[1]
@@ -414,21 +427,22 @@ def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale,
         k_s, v_s = kv["k_tok_scale"][li], kv["v_tok_scale"][li]
     elif "k_scale" in kv:
         k_s, v_s = kv["k_scale"][li], kv["v_scale"][li]
-    if Q > 128 and not causal_window:
+    if Q > 128 and not causal_window and window is None:
         if xq.is_cuda:
             raise NotImplementedError("non-causal attention with Q > 128 has no kernel")
         return paged_attention_ref(xq, kk, vv, page_tables, start_lens, qmask,
                                    scale, k_s, v_s, alibi=slopes, alibi_pos=pos)
+    wide = Q > 128
     if tok:
         return paged_attention_tok(xq, kk, vv, k_s, v_s, page_tables, start_lens,
-                                   scale, None if Q > 128 else qmask, slopes,
-                                   None if Q > 128 else pos)
+                                   scale, None if wide else qmask, slopes,
+                                   None if wide else pos, window if wide else None)
     kv_scales = None if k_s is None else (k_s, v_s)
-    if Q <= 128:
+    if not wide:
         return paged_attention(xq, kk, vv, page_tables, start_lens, qmask, scale,
                                kv_scales, slopes, pos)
     return paged_attention_prefill(xq, kk, vv, page_tables, start_lens, scale,
-                                   kv_scales, slopes)
+                                   kv_scales, slopes, window=window)
 
 
 def _norm(cfg: ModelConfig, x, w, b=None):
@@ -478,11 +492,11 @@ def _biased(out: torch.Tensor, stack: dict, key: str, li: int) -> torch.Tensor:
 
 def _attn_block_at(layers, li, kv_li, cfg, spec, h, cos, sin, kv, page_tables,
                    start_lens, qmask, valid, causal_window, alibi=None, par=None,
-                   record=None):
+                   record=None, window=None):
     """Attention of layer ``li`` of the stack ``layers``, over KV layer
     ``kv_li`` of the arena. ``par`` is the rank's ``parallel.comm.RankState``
     (None: one process); ``record``, when a list, gets (kv_li, K rows, V
-    rows) of the step."""
+    rows) of the step; ``window`` the prefix-LM window of a prefill."""
     B, Q, _ = h.shape
     H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     qkv = _biased(linear_at(layers["wqkv"], li, h, spec), layers, "bqkv", li)
@@ -504,8 +518,9 @@ def _attn_block_at(layers, li, kv_li, cfg, spec, h, cos, sin, kv, page_tables,
                        kv["k_scale"][kv_li] if "k_scale" in kv else None,
                        kv["v_scale"][kv_li] if "v_scale" in kv else None,
                        kv.get("k_tok_scale"), kv.get("v_tok_scale"))
-        out = _attention(xq, kv, kv_li, page_tables, start_lens, qmask, causal_window,
-                         D ** -0.5, alibi)
+        args = (xq, kv, kv_li, page_tables, start_lens, qmask, causal_window, D ** -0.5,
+                alibi)
+        out = _attention(*args) if window is None else _attention(*args, window=window)
     # row-parallel under tensor parallelism: the bias is added once, after the sum
     return _biased(comm.linear_rows_at(layers["wo"], li, out.reshape(B, Q, H * D), spec,
                                        par, par is None or par.attn_split), layers, "bo", li)
@@ -574,6 +589,7 @@ def _hidden_local(
     glm_ids: Optional[torch.Tensor] = None,  # [B, 2] (prompt_len_eff, mask_pos)
     par=None,  # the rank's parallel.comm.RankState (None: one process)
     record: Optional[list] = None,  # gets (KV layer, K rows, V rows) of each write
+    prefix_window: Optional[torch.Tensor] = None,  # [B] a prefix-LM prefill's window
 ):
     """Run all decoder layers; returns (hidden [B, Q, E], kv updated in place).
 
@@ -586,7 +602,8 @@ def _hidden_local(
     ``embed_override`` writes embeds[b, m] over row b's embedding at
     in-chunk position local[b, m] (positions outside the chunk are
     dropped); ``glm_ids`` carries each row's AntGLM (prompt_len_eff,
-    mask_pos) for the 2D positions."""
+    mask_pos) for the 2D positions, ``prefix_window`` a prefix-LM prefill's
+    window (``glm_ids[:, 0]``) for the attention of a chunk past 128 rows."""
     if cfg.linear_attention:
         if embed_override is not None:
             raise NotImplementedError("multimodal embeddings on a linear-attention hybrid")
@@ -610,6 +627,8 @@ def _hidden_local(
         cos, sin = (mla_rope_cos_sin if cfg.is_mla else dense_cos_sin)(cfg, positions)
     attn_block = mla_attn_block if cfg.is_mla else _attn_block_at
     extra = dict(par=par, record=record)
+    if prefix_window is not None:
+        extra["window"] = prefix_window.to(device=h.device, dtype=torch.int32).contiguous()
     if cfg.position_embedding_type == "alibi":  # each key biased by its position
         extra["alibi"] = (_slopes_on(cfg.num_attention_heads, h.device),
                           positions.to(device=h.device, dtype=torch.int32).contiguous())
@@ -643,7 +662,8 @@ def transformer_hidden(params: dict, cfg: ModelConfig, kv: dict, tokens: torch.T
                        causal_window: bool = False, slot_ids: Optional[torch.Tensor] = None,
                        defer_state: bool = False, embed_override=None,
                        glm_ids: Optional[torch.Tensor] = None,
-                       record: Optional[list] = None):
+                       record: Optional[list] = None,
+                       prefix_window: Optional[torch.Tensor] = None):
     """Run all decoder layers; returns (hidden [B, Q, E], kv updated in
     place). The arguments are ``_hidden_local``'s; ``record``, when a list,
     gets (KV layer, K rows [B, Q, Hkv, D], V rows) of every layer's write.
@@ -662,7 +682,7 @@ def transformer_hidden(params: dict, cfg: ModelConfig, kv: dict, tokens: torch.T
     st = comm.current()
     if st is None or st.dp == 1:
         return _hidden_local(params, cfg, kv, tokens, *args, spec, causal_window, slot_ids,
-                             defer_state, embed_override, glm_ids, st, record)
+                             defer_state, embed_override, glm_ids, st, record, prefix_window)
     if cfg.linear_attention or embed_override is not None:
         raise NotImplementedError(
             "data parallelism over a linear-attention hybrid or with multimodal embeddings "
@@ -691,7 +711,8 @@ def transformer_hidden(params: dict, cfg: ModelConfig, kv: dict, tokens: torch.T
     h_l, kv = _hidden_local(params, cfg, kv, rows(tokens), rows(positions),
                             rows(page_tables), rows(start_lens), rows(qmask),
                             rows(valid, fill_invalid=True), spec, causal_window,
-                            rows(slot_ids), defer_state, None, rows(glm_ids), st, rec)
+                            rows(slot_ids), defer_state, None, rows(glm_ids), st, rec,
+                            rows(prefix_window))
     hs = comm.data_gather(h_l.contiguous(), st)
     h = torch.cat([hs[g, :sizes[g]] for g in range(st.dp)], dim=0)
     # the other groups' K / V rows, written here: one write per layer over all
@@ -757,8 +778,9 @@ def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
     gptj's head bias is added to the fp32 logits."""
     h = _norm(cfg, h, params["final_ln"], params.get("final_ln_b"))
     head = params.get("lm_head")
-    if head is None:
-        return embed_logits(params["embed"], h)
+    if head is None:  # a padded table's padding columns cut off before any reader
+        out = embed_logits(params["embed"], h)
+        return out if out.shape[-1] == cfg.vocab_size else out[..., :cfg.vocab_size]
     out = linear(head, h, spec, out_dtype=torch.float32).to(torch.float32)
     st = comm.current()
     if st is not None and st.tp > 1 and st.head_widths is not None:

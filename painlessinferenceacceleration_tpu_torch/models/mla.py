@@ -7,9 +7,11 @@ expands the latent to each head's ``k_nope`` and ``v``. Two cache modes
 (``ModelConfig.mla_latent_cache``):
 
 - expanded: ``kv_b`` is applied at write time and per-head K rows (nope +
-  rope lanes) and V rows (``v_head_dim`` lanes) are cached. The port runs it
-  on the CPU; on CUDA it raises, because the port's attention kernels take
-  K and V rows of one width (ROADMAP A.7);
+  rope lanes) and V rows (``v_head_dim`` lanes) are cached, and attention
+  runs over them as grouped-query attention with one kv head a head: the
+  paged attention kernel (K2 / K3) at its (K, V) head dims (192, 128) on
+  the card, the plain version on the CPU (JAX: ``paged_attention_ref(...,
+  v_dim=v_d)``, ``models/mla.py:191-204``);
 - latent: one row per token, K = ``[latent | roped k_pe]`` and V = the latent
   (the JAX package's data contract; only K is read), and weight-absorbed
   MQA in latent space: ``q_abs = q_nope . W_uk^T``, attention over the
@@ -36,9 +38,12 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     dequantize,
     linear_at,
 )
-from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attention_ref
 from painlessinferenceacceleration_tpu_torch.ops.mla_attention import mla_paged_attention
 from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul_batched
+from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_prefill,
+)
 from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import rms_norm
 from painlessinferenceacceleration_tpu_torch.parallel.comm import linear_rows_at
 from painlessinferenceacceleration_tpu_torch.ops.rope import (
@@ -135,11 +140,6 @@ def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
     softmax scale squared). Returns [B, Q, E]. ``par`` is the rank's
     ``parallel.comm.RankState`` (None: one process); ``record``, when a
     list, gets (kv_li, K rows, V rows) of the arena write."""
-    if h.is_cuda and not cfg.mla_latent_cache:
-        raise NotImplementedError(
-            "MLA expanded mode (mla_latent_cache=False) needs attention over K "
-            "and V rows of different widths, which the port's kernels do not "
-            "take yet (ROADMAP A.7: K2/K3 with Dk != Dv)")
     B, Q, _ = h.shape
     H = cfg.num_attention_heads
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -179,8 +179,11 @@ def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         new_k, new_v = k, kvb[..., nope:]
         write_kv_pages(kv["k"], kv["v"], new_k, new_v, page_tables, start_lens, valid, kv_li)
-        out = paged_attention_ref(q_full, kv["k"][kv_li], kv["v"][kv_li], page_tables,
-                                  start_lens, qmask, scale, v_dim=v_d)
+        kk, vv = kv["k"][kv_li], kv["v"][kv_li]  # [n_pages, ps, H * 192] / [.., H * 128]
+        if Q > 128 and causal_window:
+            out = paged_attention_prefill(q_full, kk, vv, page_tables, start_lens, scale)
+        else:  # (the card takes Q <= 128 under the mask rule)
+            out = paged_attention(q_full, kk, vv, page_tables, start_lens, qmask, scale)
     if record is not None:
         record.append((kv_li, new_k, new_v))
     return linear_rows_at(layers["wo"], li, out.reshape(B, Q, H * v_d), spec, par,

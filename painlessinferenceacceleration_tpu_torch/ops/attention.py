@@ -105,7 +105,8 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
                         page_range=None, return_lse: bool = False):
     """Gather-then-attend reference over one layer's pages [n_pages, ps, H*D]
     (V pages [n_pages, ps, H*v_dim] where the V head dim differs, as in
-    MLA).
+    MLA; ``v_dim`` defaults to the V arena's width over the K arena's
+    heads).
 
     An e4m3 arena is dequantized as it is gathered: ``k_scale``/``v_scale``
     are the layer's static per-head scales [H] or its per-token scale
@@ -118,8 +119,10 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, start_lens, qmask,
     from painlessinferenceacceleration_tpu_torch.engine.cache import gather_kv_pages
 
     D = q.shape[-1]
+    if v_dim is None:  # the V arena holds as many heads as the K arena
+        v_dim = v_pages.shape[-1] // (k_pages.shape[-1] // D)
     kc = gather_kv_pages(k_pages, page_tables, D, k_scale, q.dtype)
-    vc = gather_kv_pages(v_pages, page_tables, v_dim or D, v_scale, q.dtype)
+    vc = gather_kv_pages(v_pages, page_tables, v_dim, v_scale, q.dtype)
     mask = attention_mask(start_lens, qmask, kc.shape[2])
     if page_range is not None:
         lo, hi = page_range

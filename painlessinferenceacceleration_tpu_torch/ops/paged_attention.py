@@ -18,10 +18,12 @@ The arena arguments are one layer's views ``[n_pages, ps, Hkv*D]`` (and
 ``[n_pages, ps, Hkv]`` for per-token scales) of the stacked arenas, no
 copy. A CPU tensor takes the plain version (``ops/attention.py``, which
 dequantizes as it gathers); a CUDA tensor launches the kernel or raises:
-the kernel takes head dims 64 and 128, pages of 64 keys (its key block)
-and G = Hq / Hkv dividing 128 (``attention_check``). Each wrapper's
-``launches`` counts its kernel launches and ``modes`` counts them by width
-kind (decode / verify / prefill) and arena. ``attention_plan`` and
+the kernel takes the (K, V) head dims of ``HEAD_DIMS`` (64 and 128; GPT-J's
+256; DeepSeek's expanded MLA, K rows of 192 lanes beside V rows of 128:
+the V arena's width says which), pages of 64 keys (its key block) and G =
+Hq / Hkv dividing 128 (``attention_check``). Each wrapper's ``launches``
+counts its kernel launches, ``modes`` counts them by width kind (decode /
+verify / prefill) and arena, and ``dims`` by head dims ("DKxDV,kind,arena"). ``attention_plan`` and
 ``key_blocks`` are the launch plan the kernel follows (its tiles, grid,
 heaviest-first order and key walk), kept here so the CPU tests see it.
 
@@ -41,6 +43,12 @@ whose page id lies in [lo, hi) count, and the kernel's RANGED build skips
 the other key blocks whole (the bf16 arena without ALiBi); and
 ``return_lse``: also each row's fp32 log-sum-exp [B, Q, Hq], -inf with an
 output of 0 for a row that sees no key. Their launches count under ",range".
+
+AntGLM's prefix-LM prefill passes ``paged_attention_prefill`` (and
+``paged_attention_tok`` under the causal rule) a ``window`` [B] int32: key
+s of the chunk is also visible to every row where ctx + s < window[b] (JAX
+``engine/step.py:75-78``, ``window = glm_ids[:, 0]``), so a chunk of any
+width serves it. Its launches count under ",window".
 """
 
 from __future__ import annotations
@@ -61,20 +69,34 @@ TILE_ROWS = 128  # csrc/paged_attention.cu kRows: query rows of a tile
 KEY_BLOCK = 64  # kKeys: keys of a block, one page
 _MODES = {"bf16": 0, "fp8": 1, "fp8_tok": 2}  # csrc/paged_attention.cu MODE
 FP8 = torch.float8_e4m3fn
-_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 8 + (
+_ARGS = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 9 + (
     ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p, ctypes.c_void_p)
 ALL_PAGES = (0, 2 ** 31 - 1)  # the page range of a call without one
 
 AttentionPlan = collections.namedtuple("AttentionPlan", "positions n_tiles grid")
+# the (K, V) head dims the kernel is built for, and the library of each
+# (csrc/paged_attention.cu and csrc/paged_attention_wide.cu, one body in
+# csrc/paged_attention.cuh, compiled side by side): whole 64-lane boxes, and
+# V's accumulator at most 256 lanes (at 256 its 128 fp32 a thread take the
+# loader's registers)
+LIBRARY = {(64, 64): "paged_attention", (128, 128): "paged_attention",
+           (256, 256): "paged_attention_wide", (192, 128): "paged_attention_wide"}
+HEAD_DIMS = tuple(LIBRARY)
 
 
-def attention_check(Hq: int, Hkv: int, D: int, ps: int) -> None:
-    """Raise ValueError unless the kernel takes this geometry: head dim 64
-    or 128 (the wgmma operand rows), pages of KEY_BLOCK keys (a key block is
-    one page, so its TMA boxes are whole pages) and a whole number of query
-    heads per kv head dividing TILE_ROWS (a tile holds whole heads)."""
-    if D not in (64, 128):
-        raise ValueError(f"paged attention takes head dims 64 and 128, not {D}")
+def attention_check(Hq: int, Hkv: int, D: int, ps: int, Dv: Optional[int] = None) -> None:
+    """Raise ValueError unless the kernel takes this geometry: K head dim
+    ``D`` and V head dim ``Dv`` (default D) one of ``HEAD_DIMS`` (whole
+    64-lane TMA boxes and wgmma k steps; the pairs instantiated), pages of
+    KEY_BLOCK keys (a key block is one page, so its TMA boxes are whole
+    pages) and a whole number of query heads per kv head dividing
+    TILE_ROWS (a tile holds whole heads)."""
+    Dv = D if Dv is None else Dv
+    if (D, Dv) not in HEAD_DIMS:
+        why = ("rows of whole 64-lane boxes" if D % 64 or Dv % 64 else
+               "an instantiation for it" if Dv <= 256 else "an accumulator of at most 256 lanes")
+        raise ValueError(f"paged attention takes the head dims {HEAD_DIMS} (K, V), not "
+                         f"({D}, {Dv}): it needs {why}")
     if ps != KEY_BLOCK:
         raise ValueError(f"paged attention on the card takes pages of {KEY_BLOCK} keys, "
                          f"not {ps}")
@@ -102,10 +124,16 @@ def tile_of(z: int, n_tiles: int, causal: bool) -> int:
     return n_tiles - 1 - z if causal else z
 
 
-def key_blocks(ctx: int, Q: int, t0: int, nt: int, causal: bool, P: int) -> int:
+def key_blocks(ctx: int, Q: int, t0: int, nt: int, causal: bool, P: int,
+               window: int = 0) -> int:
     """Key blocks a tile of positions [t0, t0 + nt) walks, from key 0 up
-    to its last visible key (bounded by the P pages of its page table)."""
-    last = ctx + t0 + nt - 1 if causal else ctx + Q - 1
+    to its last visible key (bounded by the P pages of its page table):
+    under the causal rule the later of its last row's key and the prefix-LM
+    ``window``'s last key inside the chunk."""
+    if causal:
+        last = max(ctx + t0 + nt - 1, min(window, ctx + Q) - 1)
+    else:
+        last = ctx + Q - 1
     return min(last // KEY_BLOCK + 1, P)
 
 
@@ -138,19 +166,46 @@ def _check_alibi(alibi, alibi_pos, causal: bool, B: int, Q: int, Hq: int, dev) -
         raise ValueError(f"alibi_pos must be contiguous int32 positions [{B}, {Q}] on {dev}")
 
 
+def window_qmask(B: int, Q: int, ctx_lens: torch.Tensor, window: Optional[torch.Tensor],
+                 device) -> torch.Tensor:
+    """The in-step mask [B, Q, Q] of the causal rule, with the prefix-LM
+    ``window`` [B] (or None): key s is visible to row t iff s <= t or ctx +
+    s < window[b] (JAX ``engine/step.py:75-78``)."""
+    qmask = causal_qmask(Q, device)[None].expand(B, Q, Q)
+    if window is None:
+        return qmask
+    s = torch.arange(Q, device=device)
+    pos = ctx_lens.to(device=device, dtype=torch.int64)[:, None] + s[None]
+    return qmask | (pos < window.to(device=device, dtype=torch.int64)[:, None])[:, None, :]
+
+
+def _check_window(window, causal: bool, B: int, dev) -> None:
+    if window is None:
+        return
+    if not causal:
+        raise ValueError("a prefix-LM window goes with the causal rule")
+    if window.dtype != torch.int32 or tuple(window.shape) != (B,) \
+            or not window.is_contiguous() or window.device != dev:
+        raise ValueError(f"window must be contiguous int32 [{B}] on {dev}")
+
+
 def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
             causal: bool, arena: str, k_scale=None, v_scale=None, alibi=None,
-            alibi_pos=None, page_range=None, return_lse=False):
+            alibi_pos=None, page_range=None, return_lse=False, window=None):
     B, Q, Hq, D = q.shape
     n_pages, ps, HD = k_pages.shape
     Hkv = HD // D
+    Dv = v_pages.shape[-1] // Hkv
+    if HD % D or v_pages.shape[-1] % Hkv or tuple(v_pages.shape[:2]) != (n_pages, ps):
+        raise ValueError(f"arenas {tuple(k_pages.shape)} / {tuple(v_pages.shape)} do not "
+                         f"hold whole heads of q's {D} lanes")
     P = page_tables.shape[1]
     kv_dtype = torch.bfloat16 if arena == "bf16" else FP8
     if q.dtype != torch.bfloat16 or k_pages.dtype != kv_dtype \
             or v_pages.dtype != kv_dtype:
         raise TypeError(f"paged_attention ({arena}) takes bf16 q and a "
                         f"{kv_dtype} arena, not {q.dtype}/{k_pages.dtype}")
-    attention_check(Hq, Hkv, D, ps)
+    attention_check(Hq, Hkv, D, ps, Dv)
     plan = attention_plan(B, Q, Hq, Hkv)
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("the arena views must be contiguous")
@@ -160,11 +215,12 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
             raise ValueError("paged_attention operands must be on one device")
     _check_scales(arena, k_pages, k_scale, v_scale, Hkv)
     _check_alibi(alibi, alibi_pos, causal, B, Q, Hq, dev)
+    _check_window(window, causal, B, dev)
     q = q.contiguous()
     pt = page_tables.to(torch.int32).contiguous()
     cl = ctx_lens.to(torch.int32).contiguous()
     qm = None if causal else qmask.to(torch.uint8).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((B, Q, Hq, Dv), dtype=q.dtype, device=dev)
     lo, hi = ALL_PAGES if page_range is None else page_range
     if page_range is not None:
         if not 0 <= lo <= hi < ALL_PAGES[1]:
@@ -173,17 +229,20 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
             raise ValueError("a page range takes the bf16 arena without ALiBi (context "
                              "parallelism refuses the others)")
     lse = torch.empty((B, Q, Hq), dtype=torch.float32, device=dev) if return_lse else None
-    lib, fn = _build.function("paged_attention", "paged_attention", _ARGS)
+    lib, fn = _build.function(LIBRARY[(D, Dv)], "paged_attention", _ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              pt.data_ptr(), cl.data_ptr(), _build.ptr(qm), _build.ptr(k_scale),
-             _build.ptr(v_scale), _build.ptr(alibi), _build.ptr(alibi_pos), out.data_ptr(),
-             B, Q, Hq, Hkv, D, n_pages, P, plan.positions, float(scale), int(causal),
-             _MODES[arena], int(lo), int(hi), _build.ptr(lse), _build.stream_of(q))
+             _build.ptr(v_scale), _build.ptr(alibi), _build.ptr(alibi_pos),
+             _build.ptr(window), out.data_ptr(), B, Q, Hq, Hkv, D, Dv, n_pages, P,
+             plan.positions, float(scale), int(causal), _MODES[arena], int(lo), int(hi),
+             _build.ptr(lse), _build.stream_of(q))
     _build.check(lib, err, "paged_attention")
     wrapper.launches += 1
     kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
     wrapper.modes[f"{kind},{arena}" + (",alibi" if alibi is not None else "")
-                  + (",range" if page_range is not None else "")] += 1
+                  + (",range" if page_range is not None else "")
+                  + (",window" if window is not None else "")] += 1
+    wrapper.dims[f"{D}x{Dv},{kind},{arena}"] += 1
     return (out, lse) if return_lse else out
 
 
@@ -238,20 +297,22 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                             kv_scales=None,
                             alibi: Optional[torch.Tensor] = None,
                             page_range: Optional[Tuple[int, int]] = None,
-                            return_lse: bool = False):
+                            return_lse: bool = False,
+                            window: Optional[torch.Tensor] = None):
     """Causal chunk attention over K/V already written at ctx..ctx+Q-1.
 
     Rows past a request's valid tokens give finite values that callers
     discard, as in the JAX package. ``page_range`` and ``return_lse`` as
-    in ``paged_attention``."""
+    in ``paged_attention``; ``window`` [B] int32, AntGLM's prefix-LM window:
+    key s of the chunk is also visible to every row where ctx + s <
+    window[b]."""
     if q.is_cuda:
         arena, ks, vs = _arena_of(k_pages, kv_scales)
         return _launch(paged_attention_prefill, q, k_pages, v_pages,
                        page_tables, ctx_lens, None, scale, True, arena, ks, vs, alibi,
-                       None, page_range, return_lse)
+                       None, page_range, return_lse, window)
     _plain_only(q, "paged_attention_prefill")
-    B, Q = q.shape[:2]
-    qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
+    qmask = window_qmask(q.shape[0], q.shape[1], ctx_lens, window, q.device)
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
                                qmask, scale, ks, vs, alibi=alibi, page_range=page_range,
@@ -264,21 +325,23 @@ def paged_attention_tok(q: torch.Tensor, k_pages: torch.Tensor,
                         ctx_lens: torch.Tensor, scale: float,
                         qmask: Optional[torch.Tensor] = None,
                         alibi: Optional[torch.Tensor] = None,
-                        alibi_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        alibi_pos: Optional[torch.Tensor] = None,
+                        window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over a per-token-scale e4m3 arena (``kv_quant='fp8_tok'``)
     at any width: ``qmask`` [B, Q, Q] for decode / verify, None for the
-    causal rule (prefill, which takes no ``alibi_pos``). ks_pages/vs_pages
-    [n_pages, ps, Hkv] f32."""
+    causal rule (prefill, which takes no ``alibi_pos`` and may take the
+    prefix-LM ``window``). ks_pages/vs_pages [n_pages, ps, Hkv] f32."""
     if qmask is None and alibi_pos is not None:
         raise ValueError("the causal rule takes no alibi_pos: its key s is at ctx + s")
     if q.is_cuda:
         return _launch(paged_attention_tok, q, k_pages, v_pages, page_tables,
                        ctx_lens, qmask, scale, qmask is None, "fp8_tok", ks_pages,
-                       vs_pages, alibi, alibi_pos)
+                       vs_pages, alibi, alibi_pos, window=window)
     _plain_only(q, "paged_attention_tok")
     if qmask is None:
-        B, Q = q.shape[:2]
-        qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
+        qmask = window_qmask(q.shape[0], q.shape[1], ctx_lens, window, q.device)
+    elif window is not None:
+        raise ValueError("a prefix-LM window goes with the causal rule")
     return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens,
                                qmask, scale, ks_pages, vs_pages, alibi=alibi,
                                alibi_pos=alibi_pos)
@@ -287,34 +350,43 @@ def paged_attention_tok(q: torch.Tensor, k_pages: torch.Tensor,
 for _w in (paged_attention, paged_attention_prefill, paged_attention_tok):
     _w.launches = 0
     _w.modes = collections.Counter()
+    _w.dims = collections.Counter()
 
 
-# Registers of the slope-free instantiations without the page range, (head
-# dim, arena) -> count, as nvcc 12.9 builds them for sm_90a. The log-sum-exp
-# epilogue changed them (the build before it: 146 / 130 / 135 at D = 64, 167 /
-# 168 / 168 at D = 128), with no spills before or after; the page-range flag
-# is a template flag of its own and the ALiBi flag a separate instantiation,
-# so neither changes these counts.
-SLOPE_FREE_REGISTERS = {(64, "fp8_tok"): 138, (64, "fp8"): 127, (64, "bf16"): 127,
-                        (128, "fp8_tok"): 167, (128, "fp8"): 167, (128, "bf16"): 167}
+# Registers of the slope-free instantiations without the page range at the
+# head dims of before, (K head dim, V head dim, arena) -> count, as nvcc 12.9
+# builds them for sm_90a. The log-sum-exp epilogue changed them (the build
+# before it: 146 / 130 / 135 at D = 64, 167 / 168 / 168 at D = 128), and the
+# (K, V) template with the prefix-LM window's compare again at D = 64 (138 /
+# 127 / 127 before it), with no spills before or after; one block an SM
+# whatever the count (the launch bound), so none of these moves the
+# occupancy. The page-range flag is a template flag of its own and the ALiBi
+# flag a separate instantiation, so neither changes these counts. (The pairs
+# of HEAD_DIMS added with the window are held to no spills only.)
+SLOPE_FREE_REGISTERS = {(64, 64, "fp8_tok"): 148, (64, 64, "fp8"): 128,
+                        (64, 64, "bf16"): 127, (128, 128, "fp8_tok"): 167,
+                        (128, 128, "fp8"): 167, (128, 128, "bf16"): 167}
 
 
 def ptxas_registers(ranged: bool = False) -> dict:
-    """(head dim, arena, alibi) -> {"registers": n, "spills": bytes} of each
-    instantiation of the kernel without the page range (``ranged``: with
-    it, the bf16 arena without ALiBi only), from ptxas's report of its build
-    (built here if it is not yet)."""
+    """(K head dim, V head dim, arena, alibi) -> {"registers": n,
+    "spills": bytes} of each instantiation of the kernel without the page
+    range (``ranged``: with it, the bf16 arena without ALiBi only), from
+    ptxas's report of its build (built here if it is not yet)."""
     import re
 
-    _build.library("paged_attention")
     seen, cur = {}, None
-    for line in _build.ptxas_report("paged_attention").splitlines():
+    for name in sorted(set(LIBRARY.values())):
+        _build.library(name)
+    report = "\n".join(_build.ptxas_report(name) for name in sorted(set(LIBRARY.values())))
+    for line in report.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"paged_attention_wgmma_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E",
-                          line)
+            m = re.search(r"paged_attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d)ELb([01])"
+                          r"ELb([01])E", line)
             cur = None
-            if m and (m.group(4) == "1") == ranged:
-                cur = (int(m.group(1)), tuple(_MODES)[int(m.group(2))], m.group(3) == "1")
+            if m and (m.group(5) == "1") == ranged:
+                cur = (int(m.group(1)), int(m.group(2)), tuple(_MODES)[int(m.group(3))],
+                       m.group(4) == "1")
                 seen[cur] = {"spills": 0}
         if cur is None:
             continue

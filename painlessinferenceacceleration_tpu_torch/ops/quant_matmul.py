@@ -14,7 +14,10 @@ note says what bounds it and how its design answers that. ``int4_plan`` and
 grouped kernels' too (``ops/moe_matmul.py``); ``stage_split`` and
 ``tile_grid`` serve the W8A8 and block-fp8 kernels as well (``ops/w8a8.py``).
 ``quant_matmul`` sends activation-quantized and block-fp8 leaves on to
-``ops/w8a8.py``.
+``ops/w8a8.py``. ``fp8_head_matmul`` is the tied LM head over an e4m3
+embedding table (``csrc/fp8_head_gemm.cu``, on the weight-only body's
+wgmma; it replaces no Pallas body: XLA's product in the JAX package's
+``layers/embedding.py`` ``embed_logits``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper's ``launches`` counts its kernel launches.
@@ -345,6 +348,71 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+FP8_HEAD_STAGE = 64  # csrc/fp8_head_gemm.cu kC: E of a ring stage
+_FP8_HEAD_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+
+
+def fp8_head_check(V: int, E: int) -> None:
+    """Raise on a table the e4m3 head kernel does not take: E a whole
+    number of its 64-wide stages (one 128-byte row of the bf16 operand), at
+    least one row. Any vocabulary size: rows past V read as zeros and are
+    not stored."""
+    if V < 1 or E < FP8_HEAD_STAGE or E % FP8_HEAD_STAGE:
+        raise ValueError(f"the e4m3 tied head takes a hidden size that is a multiple of "
+                         f"{FP8_HEAD_STAGE} (its ring stage), not {E} (vocab {V})")
+
+
+def fp8_head_matmul_plain(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """h [M, E] @ (e4m3 q [V, E]).T in fp32, then each column times s [V]."""
+    out = torch.matmul(h.to(torch.float32), q.to(torch.float32).T)
+    return out * s
+
+
+def _fp8_head_cuda(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    M, E = h.shape
+    V = q.shape[0]
+    if h.dtype != torch.bfloat16 or q.dtype != torch.float8_e4m3fn \
+            or s.dtype != torch.float32:
+        raise TypeError(f"the e4m3 tied head takes bf16 rows, an e4m3 table and f32 scales, "
+                        f"not {h.dtype} / {q.dtype} / {s.dtype}")
+    if q.dim() != 2 or q.shape[1] != E or tuple(s.shape) != (V,):
+        raise ValueError(f"the e4m3 tied head: rows {tuple(h.shape)}, table "
+                         f"{tuple(q.shape)}, scales {tuple(s.shape)}")
+    fp8_head_check(V, E)
+    if not (q.is_cuda and s.is_cuda and q.device == h.device == s.device):
+        raise ValueError("the e4m3 tied head's operands must be on one CUDA device")
+    q, s = q.contiguous(), s.contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("the e4m3 table must start on a 16-byte boundary")
+    h = aligned16(h)
+    out = torch.empty((M, V), dtype=torch.float32, device=h.device)
+    lib, fn = _build.function("fp8_head_gemm", "fp8_head_gemm", _FP8_HEAD_ARGS)
+    err = fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, E, V,
+             1 if M <= TC_WG_ROWS else 2, _build.stream_of(h))
+    _build.check(lib, err, "fp8_head_gemm")
+    fp8_head_matmul.launches += 1
+    return out
+
+
+def fp8_head_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The tied LM head over an e4m3 table: h [..., E] @ (q [V, E]).T with
+    fp32 sums, each vocab column times its scale s [V] once -> fp32 [...,
+    V]. On the card ``csrc/fp8_head_gemm.cu`` (the table widened to bf16 in
+    shared memory, exactly; bf16 rows); on the CPU the plain version."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])
+    if h.is_cuda:
+        out = _fp8_head_cuda(h2, q, s)
+    elif h.device.type == "cpu":
+        out = fp8_head_matmul_plain(h2, q, s)
+    else:
+        raise NotImplementedError(f"fp8_head_matmul on {h.device}")
+    return out.reshape(*lead, q.shape[0])
+
+
+fp8_head_matmul.launches = 0
 
 
 def quant_matmul(x: torch.Tensor, p: dict, spec: QuantSpec,

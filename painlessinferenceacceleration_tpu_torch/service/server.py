@@ -174,7 +174,12 @@ class StdlibServer:
 def launch_server(llm: LLM, host: str = "0.0.0.0", port: int = 8000,
                   prefer_fastapi: bool = True):
     """Serve ``llm``: under uvicorn + FastAPI when both are installed (runs
-    until stopped, returns None), else on ``StdlibServer`` (started; returned)."""
+    until stopped, returns None), else on ``StdlibServer`` (started; returned).
+    A ``DistLLM`` binds on rank 0 only: every other rank runs its follower
+    loop (``DistLLM.launch``) until rank 0 stops, and returns None."""
+    if llm.rank != 0:
+        llm.launch()
+        return None
     if prefer_fastapi:
         try:
             import uvicorn

@@ -146,9 +146,15 @@ def test_every_model_config_takes_the_kernel(name):
 
 
 def test_geometries_the_kernel_does_not_take_raise():
-    for D in (16, 32, 96, 256):
+    for D in (16, 32, 80, 96, 512):
         with pytest.raises(ValueError, match="head dims"):
             attention_check(8, 8, D, 64)
+    for D, Dv in ((192, 192), (128, 192), (256, 128), (64, 128)):
+        with pytest.raises(ValueError, match="head dims"):
+            attention_check(16, 16, D, 64, Dv)
+    # GPT-J's 256 and DeepSeek's expanded MLA (K 192 lanes, V 128) are built
+    attention_check(16, 16, 256, 64)
+    attention_check(16, 16, 192, 64, 128)
     t = ModelConfig.tiny()
     with pytest.raises(ValueError, match="head dims"):  # the CPU preset
         attention_check(t.num_attention_heads, t.num_key_value_heads, t.head_dim, 64)

@@ -2294,22 +2294,30 @@ def test_slope_free_attention_build_keeps_its_registers(cuda):
     from painlessinferenceacceleration_tpu_torch.ops import paged_attention as pa
 
     seen = pa.ptxas_registers()
-    assert len(seen) == 12, sorted(seen)
-    for (D, arena, alibi), r in seen.items():
-        assert r["spills"] == 0, (D, arena, alibi)
-        if not alibi:
-            assert r["registers"] == pa.SLOPE_FREE_REGISTERS[(D, arena)], (D, arena, r)
+    assert len(seen) == 24, sorted(seen)  # 4 head-dim pairs x 3 arenas x ALiBi or not
+    for (dk, dv, arena, alibi), r in seen.items():
+        assert r["spills"] == 0, (dk, dv, arena, alibi)
+        if not alibi and (dk, dv, arena) in pa.SLOPE_FREE_REGISTERS:
+            assert r["registers"] == pa.SLOPE_FREE_REGISTERS[(dk, dv, arena)], (dk, arena, r)
 
 
 def test_legacy_refusals_raise_when_the_engine_is_built(cuda):
-    """GPT-J's head dim 256 (attention), a tied head whose vocabulary is
-    off the bf16 GEMM's N % 8 (GPT-2's 50257) and AntGLM's prefix-LM
-    prefill at Q > 128 raise when LLM is built, before any request."""
+    """What used to be refused when LLM was built now serves on the card:
+    GPT-J's head dim 256 (K2 / K3 at (256, 256)), a tied head whose
+    vocabulary is off the bf16 GEMM's N % 8 (GPT-2's 50257: the table is
+    padded to a multiple of 8 rows and the logits cut back), AntGLM's
+    prefix-LM prefill at Q > 128 (K3's window) and DeepSeek's expanded MLA
+    (K2 / K3 at (192, 128)); each with lookahead equal to AR. A head dim
+    off the kernel's pairs (80) still raises when LLM is built."""
+    import dataclasses
+
     from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
     from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
     from painlessinferenceacceleration_tpu_torch.models.base import init_params
 
-    ecfg = EngineConfig(page_size=64, max_seq_len=256, max_concurrency=2)
+    ecfg = EngineConfig(page_size=64, max_seq_len=512, max_concurrency=2, eos_token_id=-2,
+                        decoding_length=16, branch_length=4)
     gptj = ModelConfig(model_type="gptj", vocab_size=512, hidden_size=512,
                        intermediate_size=512, num_hidden_layers=1, num_attention_heads=2,
                        num_key_value_heads=2, norm_type="layernorm", gated_mlp=False,
@@ -2322,15 +2330,29 @@ def test_legacy_refusals_raise_when_the_engine_is_built(cuda):
                       norm_type="layernorm", gated_mlp=False, hidden_act="gelu",
                       attention_bias=True, attention_out_bias=True, mlp_bias=True,
                       prefix_lm=True, tie_word_embeddings=True, mask_token_ids=(9,))
-    for cfg, err in ((gptj, ValueError), (gpt2, ValueError), (glm, NotImplementedError)):
+    mla = ModelConfig(model_type="deepseek_v2", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=1, num_attention_heads=2,
+                      num_key_value_heads=2, kv_lora_rank=64, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128, mla_latent_cache=False)
+    prompts = [[(7 * i) % 500 + 10 for i in range(200)], [9] + [11, 12, 13] * 50]
+    for cfg in (gptj, gpt2, glm, mla):
         params = init_params(cfg, cuda, dtype=torch.bfloat16)
-        with pytest.raises(err):
-            LLM(cfg=cfg, params=params, ecfg=ecfg)
-    # AntGLM with chunks of at most 128 serves (its prefix window is a mask)
-    import dataclasses
-
-    LLM(cfg=glm, params=init_params(glm, cuda, dtype=torch.bfloat16),
-        ecfg=dataclasses.replace(ecfg, prefill_chunk=128))
+        outs = []
+        for la in (False, True):
+            llm = LLM(cfg=cfg, params=params,
+                      ecfg=dataclasses.replace(ecfg, use_lookahead=la, prefill_chunk=512))
+            outs.append([r.output_ids for r in llm.generate(
+                [[t % cfg.vocab_size for t in p] for p in prompts],
+                SamplingParams(max_new_tokens=24))])
+        assert outs[0] == outs[1], cfg.model_type
+        assert all(0 <= t < cfg.vocab_size for o in outs[0] for t in o)
+    bad = ModelConfig(model_type="gptj", vocab_size=512, hidden_size=160,
+                      intermediate_size=160, num_hidden_layers=1, num_attention_heads=2,
+                      num_key_value_heads=2, norm_type="layernorm", gated_mlp=False,
+                      hidden_act="gelu_new", parallel_residual=True, rope_interleaved=True,
+                      partial_rotary_factor=0.25, mlp_bias=True)  # head dim 80
+    with pytest.raises(ValueError, match="head dims"):
+        LLM(cfg=bad, params=init_params(bad, cuda, dtype=torch.bfloat16), ecfg=ecfg)
 
 
 @pytest.mark.parametrize("family", ["llama", "bloom"])
@@ -2627,7 +2649,8 @@ def test_ranged_attention_build_has_no_spills(cuda):
     from painlessinferenceacceleration_tpu_torch.ops import paged_attention as pa
 
     seen = pa.ptxas_registers(ranged=True)
-    assert sorted(seen) == [(64, "bf16", False), (128, "bf16", False)], sorted(seen)
+    assert sorted(seen) == sorted((dk, dv, "bf16", False) for dk, dv in pa.HEAD_DIMS), \
+        sorted(seen)
     assert all(r["spills"] == 0 for r in seen.values()), seen
 
 
@@ -2681,3 +2704,215 @@ def test_two_rank_gloo_tp_step_on_one_card(cuda, tmp_path):
     for r in res:
         assert r["ar"]["tokens"] == res[0]["ar"]["tokens"]
         assert r["la"]["tokens"] == r["ar"]["tokens"]
+
+
+# ---------------------------------------------------------------------------
+# paged attention at the head-dim pairs (GPT-J's 256, DeepSeek's expanded
+# MLA 192 / 128), K3's prefix-LM window, and the e4m3 tied head
+# ---------------------------------------------------------------------------
+
+PAIRS = [(256, 256), (192, 128)]
+
+
+def _pair_arena(g, B, ctx, Q, Hkv, dk, dv, arena):
+    """(q maker, attend, plain, ctx_t, pt) over an arena of K rows of dk
+    lanes and V rows of dv lanes a kv head, of the kind ``arena``."""
+    ps = 64
+    P = -(-(max(ctx) + Q) // ps) + 1
+    n = B * P + 1
+    pt = (torch.randperm(n - 1, generator=g, device="cuda")[: B * P] + 1).reshape(B, P)
+    pt = pt.to(torch.int32)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    if arena == "bf16":
+        k = torch.randn(n, ps, Hkv * dk, generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn(n, ps, Hkv * dv, generator=g, device="cuda").to(torch.bfloat16)
+        ks = vs = None
+    else:
+        k, ks = _fp8(g, (n, ps, Hkv * dk), Hkv, arena == "fp8_tok")
+        v, vs = _fp8(g, (n, ps, Hkv * dv), Hkv, arena == "fp8_tok")
+    sc = dk ** -0.5
+
+    def attend(q, qm, c=None, alibi=None, pos=None, window=None, page_range=None):
+        c = ctx_t if c is None else c
+        if arena == "fp8_tok":
+            return paged_attention_tok(q, k, v, ks, vs, pt, c, sc, qm, alibi, pos, window)
+        scales = None if ks is None else (ks, vs)
+        if qm is None:
+            return paged_attention_prefill(q, k, v, pt, c, sc, scales, alibi, page_range,
+                                           window=window)
+        return paged_attention(q, k, v, pt, c, qm, sc, scales, alibi, pos, page_range)
+
+    def plain(q, qm, c=None, alibi=None, pos=None, page_range=None):
+        c = ctx_t if c is None else c
+        return paged_attention_ref(q, k, v, pt, c, qm, sc, ks, vs, alibi=alibi,
+                                   alibi_pos=pos, page_range=page_range)
+    attend.kv = (k, v)
+    return attend, plain, ctx_t, pt
+
+
+@pytest.mark.parametrize("dims", PAIRS, ids=["256x256", "192x128"])
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+@pytest.mark.parametrize("alibi", [False, True], ids=["slope_free", "alibi"])
+def test_head_dim_pairs_in_every_arena_and_route(cuda, dims, kind, arena, alibi):
+    """K2 / K3 / K5 at GPT-J's (256, 256) and DeepSeek's expanded (192, 128)
+    head dims against the plain version, in every arena and route, with and
+    without ALiBi; the output has V's lanes, and the launch counts under the
+    pair."""
+    dk, dv = dims
+    Hq = Hkv = 4
+    Q = {"decode": 1, "verify": 17, "prefill": 200}[kind]
+    attend, plain, ctx_t, _ = _pair_arena(cuda, 2, [640, 77], Q, Hkv, dk, dv, arena)
+    q = torch.randn(2, Q, Hq, dk, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = None if kind == "prefill" else _mask(cuda, 2, Q)
+    al = _slopes(Hq) if alibi else None
+    pos = None
+    if alibi and kind == "verify":
+        step = torch.randint(0, Q, (2, Q), generator=cuda, device="cuda")
+        pos = (ctx_t[:, None] + step).to(torch.int32).contiguous()
+    wrapper = {"fp8_tok": paged_attention_tok, "prefill": paged_attention_prefill}.get(
+        arena if arena == "fp8_tok" else kind, paged_attention)
+    before = wrapper.dims[f"{dk}x{dv},{kind},{arena}"]
+    got = attend(q, qm, alibi=al, pos=pos)
+    assert wrapper.dims[f"{dk}x{dv},{kind},{arena}"] == before + 1
+    assert got.shape == (2, Q, Hq, dv)
+    ref_qm = causal_qmask(Q, "cuda")[None].expand(2, Q, Q) if qm is None else qm
+    assert _rel(got, plain(q, ref_qm, alibi=al, pos=pos)) < 2e-2
+
+
+@pytest.mark.parametrize("dims", PAIRS, ids=["256x256", "192x128"])
+@pytest.mark.parametrize("kind", ["verify", "prefill"])
+def test_head_dim_pairs_over_a_page_range(cuda, dims, kind):
+    """The RANGED build at the new pairs: a page range's rows and
+    log-sum-exp against the plain twin, and the full range equal to the call
+    without one, bit for bit."""
+    dk, dv = dims
+    Q = 17 if kind == "verify" else 200
+    attend, plain, ctx_t, pt = _pair_arena(cuda, 2, [640, 77], Q, 2, dk, dv, "bf16")
+    q = torch.randn(2, Q, 4, dk, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = None if kind == "prefill" else _mask(cuda, 2, Q)
+    ref_qm = causal_qmask(Q, "cuda")[None].expand(2, Q, Q) if qm is None else qm
+    lo = int(pt.min()) + 3
+    rng = (lo, lo + pt.numel() // 2)
+    k, v = attend.kv
+    if qm is None:
+        got, lse = paged_attention_prefill(q, k, v, pt, ctx_t, dk ** -0.5,
+                                           page_range=rng, return_lse=True)
+    else:
+        got, lse = paged_attention(q, k, v, pt, ctx_t, qm, dk ** -0.5,
+                                   page_range=rng, return_lse=True)
+    want, want_lse = paged_attention_ref(q, k, v, pt, ctx_t, ref_qm, dk ** -0.5,
+                                         page_range=rng, return_lse=True)
+    assert _rel(got, want) < 2e-2
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    assert (lse[seen] - want_lse[seen]).abs().max().item() < 1e-2
+    full = attend(q, qm, page_range=(0, 2 ** 31 - 2))
+    assert torch.equal(full, attend(q, qm))
+
+
+@pytest.mark.parametrize("dims", PAIRS, ids=["256x256", "192x128"])
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_head_dim_prefill_rows_equal_their_decodes(cuda, dims, arena):
+    """A causal prefill row at (256, 256) and (192, 128) is bit-equal to the
+    decode of its token over the same keys (the rule lookahead == AR rests
+    on), in every arena; so is row 0 of a verify window."""
+    dk, dv = dims
+    Q = 150
+    attend, _, ctx_t, _ = _pair_arena(cuda, 2, [300, 66], Q, 4, dk, dv, arena)
+    q = torch.randn(2, Q, 4, dk, generator=cuda, device="cuda").to(torch.bfloat16)
+    pre = attend(q, None)
+    one = torch.ones(2, 1, 1, dtype=torch.bool, device="cuda")
+    for t in (0, 63, 64, 149):
+        row = attend(q[:, t:t + 1].contiguous(), one, ctx_t + t)
+        assert torch.equal(pre[:, t:t + 1], row), (dims, arena, t)
+
+
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+@pytest.mark.parametrize("ctx", [[0, 0], [70, 130]])
+def test_prefix_window_prefill(cuda, arena, ctx):
+    """K3's prefix-LM window against the plain version with JAX's mask (key
+    s visible to row t iff s <= t or ctx + s < window[b]) at a 512-row
+    chunk; a window inside the committed keys gives the causal call's bits;
+    the launch counts under ",window"."""
+    from painlessinferenceacceleration_tpu_torch.ops.paged_attention import window_qmask
+
+    Q, H = 512, 4
+    attend, plain, ctx_t, _ = _pair_arena(cuda, 2, ctx, Q, H, 64, 64, arena)
+    q = torch.randn(2, Q, H, 64, generator=cuda, device="cuda").to(torch.bfloat16)
+    wrapper = paged_attention_tok if arena == "fp8_tok" else paged_attention_prefill
+    for win in ([300 + ctx[0], 40 + ctx[1]], [ctx[0] + 600, ctx[1] + 129]):
+        w = torch.tensor(win, dtype=torch.int32, device="cuda")
+        before = wrapper.modes[f"prefill,{arena},window"]
+        got = attend(q, None, window=w)
+        assert wrapper.modes[f"prefill,{arena},window"] == before + 1
+        want = plain(q, window_qmask(2, Q, ctx_t, w, "cuda"))
+        assert _rel(got, want) < 2e-2, win
+    inside = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    assert torch.equal(attend(q, None, window=inside), attend(q, None))
+
+
+@pytest.mark.parametrize("M", [1, 17, 70, 512])
+@pytest.mark.parametrize("V,E", [(50264, 1600), (4099, 4096), (250880, 4096)])
+def test_fp8_tied_head(cuda, M, V, E):
+    """The e4m3 tied head's kernel against its plain version (fp32 sums of
+    exact products in another order: 1e-4 relative), any vocabulary (4099
+    is off every multiple), and a row alone bit-equal to itself inside M
+    rows."""
+    from painlessinferenceacceleration_tpu_torch.layers.embedding import make_embedding
+    from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import (
+        fp8_head_matmul,
+        fp8_head_matmul_plain,
+    )
+
+    if V == 250880 and M > 17:
+        pytest.skip("BLOOM's table at decode and verify widths only (1 GB of e4m3)")
+    table = torch.randn(V, E, generator=cuda, device="cuda") * 0.02
+    emb = make_embedding(table, QuantSpec.from_mode("w8a8_fp8"))
+    h = torch.randn(M, E, generator=cuda, device="cuda").to(torch.bfloat16)
+    before = fp8_head_matmul.launches
+    got = fp8_head_matmul(h, emb["q"], emb["s"])
+    assert fp8_head_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, V)
+    assert _rel(got, fp8_head_matmul_plain(h, emb["q"], emb["s"])) < 1e-4
+    assert torch.equal(fp8_head_matmul(h[:1].contiguous(), emb["q"], emb["s"]), got[:1])
+
+
+def test_fp8_head_build_has_no_spills(cuda):
+    """ptxas's report of the e4m3 head kernel: no spills."""
+    import re
+
+    from painlessinferenceacceleration_tpu_torch import _build
+
+    _build.library("fp8_head_gemm")
+    report = _build.ptxas_report("fp8_head_gemm")
+    assert "fp8_head_kernel" in report
+    for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report):
+        assert m.group(1) == "0" and m.group(2) == "0", report
+
+
+def test_fp8_tied_head_serves_with_lookahead_equal_to_ar(cuda):
+    """BLOOM-like tied head under ``quant_embed`` (e4m3 table) and GPT-2's
+    off-grid vocabulary (257, padded to 264) on the card: the e4m3 head
+    kernel serves, lookahead equals AR."""
+    import dataclasses
+
+    from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
+    from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
+    from painlessinferenceacceleration_tpu_torch.engine.request import SamplingParams
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+    from painlessinferenceacceleration_tpu_torch.ops.quant_matmul import fp8_head_matmul
+
+    cfg = ModelConfig.tiny_gpt2(vocab_size=257, hidden_size=256, num_hidden_layers=2)
+    params = init_params(cfg, cuda, dtype=torch.bfloat16)
+    ecfg = EngineConfig(page_size=64, max_seq_len=256, max_concurrency=2, eos_token_id=-2,
+                        quant_embed=True, decoding_length=16, branch_length=4)
+    outs = []
+    before = fp8_head_matmul.launches
+    for la in (False, True):
+        llm = LLM(cfg=cfg, params=params, ecfg=dataclasses.replace(ecfg, use_lookahead=la))
+        outs.append([r.output_ids for r in llm.generate(
+            [[5, 6, 7] * 10, [200, 3, 256] * 5], SamplingParams(max_new_tokens=24))])
+    assert fp8_head_matmul.launches > before
+    assert outs[0] == outs[1]
+    assert all(0 <= t < 257 for o in outs[0] for t in o)

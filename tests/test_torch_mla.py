@@ -352,17 +352,43 @@ def test_mla_attn_block_matches_jax(latent, q_lora):
     close(tkv["v"], vv, 1e-5)
 
 
-def test_expanded_mode_raises_on_a_card():
-    class CudaLike(torch.Tensor):  # a CPU tensor that reports itself as on a card
-        @property
-        def is_cuda(self):
-            return True
+def test_expanded_mode_raises_on_a_card(monkeypatch):
+    """Expanded MLA no longer raises on a card: its attention is the paged
+    attention kernel (K2 / K3) at head dims (192, 128). DeepSeek-V2-Lite's
+    expanded geometry passes the card's model check (K3's causal rule above
+    128 rows), and the block hands the wrappers q rows of nope + rope lanes
+    over K arena rows of H of them beside V rows of H * v_head_dim (recorded
+    here through the plain versions, which equal JAX's block above)."""
+    from painlessinferenceacceleration_tpu_torch.models.base import check_model_on_card
 
-    _, tc = both(False, **MODELS["v2"])
-    h = torch.zeros(1, 1, tc.hidden_size).as_subclass(CudaLike)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tmla.mla_attn_block({}, 0, 0, tc, None, h, None, None, {}, None, None, None,
-                            None, False)
+    lite = dataclasses.replace(tconfig.ModelConfig.deepseek_v2_lite(), mla_latent_cache=False)
+    check_model_on_card(lite, {}, 64)
+    seen = []
+
+    def spy(real):
+        def call(q, k, v, *a, **kw):
+            seen.append((real.__name__, q.shape[1], q.shape[-1], k.shape[-1], v.shape[-1]))
+            return real(q, k, v, *a, **kw)
+        return call
+
+    monkeypatch.setattr(tmla, "paged_attention", spy(tmla.paged_attention))
+    monkeypatch.setattr(tmla, "paged_attention_prefill", spy(tmla.paged_attention_prefill))
+    _, tc = both(False, **dict(MODELS["v2"], num_hidden_layers=1))
+    _, stacked = _block_params(both(False, **dict(MODELS["v2"], num_hidden_layers=1))[0], 1)
+    te = tconfig.EngineConfig(page_size=16, max_seq_len=512, max_concurrency=1)
+    tkv = t_init_kv(tc, te, dtype=torch.float32, device="cpu")
+    pt = torch.arange(1, 1 + te.pages_per_req, dtype=torch.int32)[None]
+    H, dk, dv = tc.num_attention_heads, *tmla.mla_head_dims(tc)
+    for Q, causal in ((130, True), (3, False)):
+        h = torch.randn(1, Q, tc.hidden_size, generator=torch.Generator().manual_seed(Q))
+        pos = torch.arange(Q)[None]
+        i = torch.arange(Q)
+        out = tmla.mla_attn_block(stacked, 0, 0, tc, None, h, *tmla.mla_rope_cos_sin(tc, pos),
+                                  tkv, pt, torch.zeros(1, dtype=torch.int32),
+                                  (i[:, None] >= i[None, :])[None], None, causal)
+        assert out.shape == (1, Q, tc.hidden_size) and torch.isfinite(out).all()
+    assert seen == [("paged_attention_prefill", 130, dk, H * dk, H * dv),
+                    ("paged_attention", 3, dk, H * dk, H * dv)], seen
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,11 @@ skipped), ``cfg`` (ModelConfig fields), ``params`` (the whole model's
 tensors, the same on every rank), ``ecfg`` (EngineConfig fields),
 ``mesh`` (data, model), ``prompts``, ``max_new``, ``device``, ``dtype``
 and optionally ``logits_prompt`` (prefill a batch and report its last
-logits) and ``ep_block`` (the MoE block of layer 0 against one process's
-``expert_shards``). Imports torch and the port only.
+logits), ``ep_block`` (the MoE block of layer 0 against one process's
+``expert_shards``) and ``stagger`` (serve the prompts through
+``DistLLM.launch`` first: rank 0 streams each from a thread of its own,
+``stagger`` seconds apart, the last through ``async_stream_generate``).
+Imports torch and the port only.
 """
 
 import contextlib
@@ -129,6 +132,41 @@ def _cp_oracle(dl, case, params, dtype, tokens):
                                   for k in ("k", "v"))}
 
 
+def _launched(dl, case):
+    """The case's prompts through the launched scheduler: rank 0 streams
+    each from its own thread, started ``case["stagger"]`` seconds apart (the
+    last through ``async_stream_generate``), then shuts down; every other
+    rank runs its follower loop until that shutdown. Rank 0's streams (None
+    on the others)."""
+    import asyncio
+    import threading
+
+    if dl.rank != 0:
+        dl.launch()  # the follower loop, until rank 0 stops
+        return None
+    prompts, sp = case["prompts"], SamplingParams(max_new_tokens=case["max_new"])
+    outs = [None] * len(prompts)
+
+    async def drain(p):
+        return [t async for t in dl.async_stream_generate(p, sp)]
+
+    def serve(i):
+        time.sleep(case["stagger"] * i)
+        if i == len(prompts) - 1:
+            outs[i] = asyncio.run(drain(prompts[i]))
+        else:
+            outs[i] = list(dl.stream_generate(prompts[i], sp))
+
+    dl.launch()
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dl.shutdown()
+    return outs
+
+
 def main() -> None:
     rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     cases = torch.load(sys.argv[4], weights_only=False)
@@ -156,6 +194,8 @@ def main() -> None:
             res["ep_block_equal"] = _ep_block(dl, case)
         if case.get("cp_oracle"):
             res["pages_on_ranks"] = _pages_on_ranks(dl, case)
+        if case.get("stagger") is not None:
+            res["streams"] = _launched(dl, case)
         reqs = dl.generate(case["prompts"], SamplingParams(max_new_tokens=case["max_new"]))
         res["tokens"] = [r.output_ids for r in reqs]
         if case.get("cp_oracle"):

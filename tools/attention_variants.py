@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build variants of the paged attention kernel (csrc/paged_attention.cu)
+"""Build variants of the paged attention kernel (csrc/paged_attention.cuh,
+the body that csrc/paged_attention.cu builds at head dims 64 and 128)
 from this checkout's source and time each beside the kernel as it is, on
 one card:
 
@@ -53,7 +54,7 @@ sys.path.insert(0, str(HERE / "tools"))
 
 from k7_variants import graph_ms  # noqa: E402
 
-SRC = "paged_attention.cu"
+SRC = "paged_attention.cuh"  # the body; the variants build paged_attention.cu
 
 
 def _ss_pv(n: int) -> str:
@@ -121,14 +122,14 @@ VARIANTS = {
          "  (void)y;\n  return exp2f(x);")],
     "rescale where needed": [
         ("  auto rescale_and_pack = [&](const float (&alpha)[2]) {\n#pragma unroll\n"
-         "    for (int j = 0; j < D / 8; ++j)\n#pragma unroll\n"
+         "    for (int j = 0; j < DV / 8; ++j)\n#pragma unroll\n"
          "      for (int h2 = 0; h2 < 2; ++h2) {\n"
          "        o[4 * j + 2 * h2] *= alpha[h2];\n"
          "        o[4 * j + 2 * h2 + 1] *= alpha[h2];\n      }\n",
          "  auto rescale_and_pack = [&](const float (&alpha)[2]) {\n"
          "    if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {\n"
          "#pragma unroll\n"
-         "    for (int j = 0; j < D / 8; ++j)\n#pragma unroll\n"
+         "    for (int j = 0; j < DV / 8; ++j)\n#pragma unroll\n"
          "      for (int h2 = 0; h2 < 2; ++h2) {\n"
          "        o[4 * j + 2 * h2] *= alpha[h2];\n"
          "        o[4 * j + 2 * h2 + 1] *= alpha[h2];\n      }\n    }\n")],
@@ -177,7 +178,7 @@ VARIANTS = {
         ("  const int tile = causal ? n_tiles - 1 - (int)blockIdx.z : (int)blockIdx.z;",
          "  const int tile = (int)blockIdx.z;")],
     "no widening": [
-        ("      for (int e = ct; e < 2 * kKeys * kUnits; e += kConverters) {",
+        ("      for (int e = ct; e < kKeys * (kKU + kVU); e += kConverters) {",
          "      for (int e = ct; e < 0; e += kConverters) {")],
 }
 WRONG_BY_DESIGN = ("no widening",)
