@@ -106,7 +106,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    kernel's grid bounded by the pair count), rows past ``n_used`` exactly
    zero, every routed row bit-equal to the dense kernel on its expert's
    weights and to itself at every batch width; Mixtral-8x7B at full width
-   in bf16 (16 of 32 layers: 46.5 GB of weights) through a 2048-token
+   in bf16 (8 of 32 layers: 23.5 GB of weights) through a 2048-token
    prefill (grouped route), 32 AR and 64 lookahead tokens (scan route),
    strictly lossless, one layer's grouped output bit-equal to its scan
    output; the same model with int4 experts in 2 expert shards and with
@@ -171,23 +171,35 @@ Phases, one line each (any failure exits non-zero and prints no result):
    forward_logits on the same bf16 weights; train step, teacher forward,
    AdamW ms, tokens/s, peak memory, reparam s;
    dist: the parallel modules (``engine/dist_llm.py``, ``parallel/``,
-   ``ops/cp_attention.py``): K2 / K3 with a page range and the rows'
-   log-sum-exp against their plain twin at Llama-2-7B's shape (the full
-   range equal to the call without one, timed beside it); then two ranks,
-   child processes that share the card over gloo, serve Llama-2-7B int4 at
-   full width and 32 layers under tensor parallelism (16 heads, I 5504 and
+   ``ops/cp_attention.py``): K2 / K3 and K13 with a page range and the
+   rows' log-sum-exp against their plain twin at Llama-2-7B's and
+   DeepSeek-V2-Lite's latent shapes (the full range equal to the call
+   without one, timed beside it), K2 / K3 ranged at the expanded MLA's
+   (192, 128); then two groups of child processes that share the card
+   over gloo, started together. Two ranks serve Llama-2-7B int4 at full
+   width and 32 layers under tensor parallelism (16 heads, I 5504 and
    16000 head columns a rank; 512-token prefill, 64 AR and 64 lookahead
    tokens, lookahead == AR, the first-step logits against the one-process
    run), under context parallelism (a 4096-token prompt whose pages
    straddle the ranks; lookahead == AR, the one-process oracle's tokens and
-   arena bit for bit, the merged attention against one K2 / K3 call), and
-   a 2-layer Mixtral-8x7B int4 stack under expert parallelism (the MoE
-   block bit-equal to one process's ``expert_shards(2)``, lookahead ==
-   AR), and TP served over ``DistLLM.launch`` (rank 0 binds the stdlib
-   HTTP server on a local port and serves an async stream and one HTTP
-   request while rank 1 follows; their tokens equal ``DistLLM.generate``'s);
-   every rank on the same tokens, each rank's step ms and the
-   collectives' share of it (gloo through the host, not NCCL);
+   arena bit for bit, the merged attention against one K2 / K3 call) and
+   under data parallelism with a multimodal request (mesh (2, 1), the
+   one-process LLM's tokens); a 2-layer Mixtral-8x7B stack under expert
+   parallelism with int4 and with W8A8 e4m3 experts (the MoE block
+   bit-equal to one process's ``expert_shards(2)``, lookahead == AR);
+   DeepSeek-V2-Lite (2 of 27 layers, latent MLA: K13 over each rank's
+   pages) and Ring-mini-linear-2.0 (5 of 20 layers) under context
+   parallelism with the same checks (a hybrid's states equal to the
+   oracle's), the hybrid also under data parallelism (its states bit-equal
+   on both ranks after every step, the one-process LLM's tokens); and TP
+   served over ``DistLLM.launch`` (rank 0 binds the stdlib HTTP server on
+   a local port and serves an async stream and one HTTP request while rank
+   1 follows; their tokens equal ``DistLLM.generate``'s). Four ranks serve
+   Llama-2-7B int4 (8 of 32 layers) at mesh (2, 2), context parallelism
+   over the model axis beside the data axis (the oracle's tokens and pages
+   bit for bit, lookahead == AR). Every rank on the same tokens, each
+   rank's step ms and the collectives' share of it (gloo through the host,
+   not NCCL); the depth cuts on a line of their own;
 4. the launch count of every kernel and mode during phase 3, serving, the
    generator phase (and apart from it, its checks: K17 and K4's and K16's
    general entries have no caller on any path), the hf and families phases, the ipad phase, the quant
@@ -1885,6 +1897,7 @@ class Launches:
         for kind in ("decode", "verify", "prefill"):
             out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
             out[f"mla_attention[{kind}]"] = self.mla.modes[kind]
+            out[f"mla_attention[{kind},range]"] = self.mla.modes[f"{kind},range"]
         # the head-dim pairs past 128 (GPT-J's 256, DeepSeek's expanded MLA)
         for dims in PAIR_DIMS:
             for kind in ("decode", "verify", "prefill"):
@@ -4122,7 +4135,7 @@ MOE = "painlessinferenceacceleration_tpu/ops/moe_matmul.py"
 MOE_PROMPT_LEN = 2048  # 2048 * 2 >= 2 * 128 * 8: prefill takes the grouped route
 MOE_AR_TOKENS = 32
 MOE_SPEC_TOKENS = 64
-MOE_BF16_LAYERS = 16  # 46.5 GB of the 93 GB a bf16 Mixtral-8x7B weighs
+MOE_BF16_LAYERS = 8  # 23.5 GB of the 93 GB a bf16 Mixtral-8x7B weighs
 MOE_INT8_LAYERS = 8
 # the int4 experts' run in shards was at all 32 layers until the hybrid phases
 # came; 8 layers keep the shards' route and its kernel at a quarter of the time
@@ -4634,8 +4647,8 @@ class MlaCapture(LaunchHooks):
         self._wrap([(self.pkg["mla_attention"], "_launch", self._hook)])
 
     def _hook(self, orig):
-        def hook(q, k_pages, pt, ctx, qmask, scale, v_dim, causal):
-            if self._first_layer(k_pages):
+        def hook(q, k_pages, pt, ctx, qmask, scale, v_dim, causal, **kw):
+            if self._first_layer(k_pages) and kw.get("page_range") is None:
                 B, Q = q.shape[:2]
                 kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
                 old = self.kept.get(kind)
@@ -4650,7 +4663,7 @@ class MlaCapture(LaunchHooks):
                         self.prefill.append(c)
                     else:
                         self.kept[kind] = c
-            return orig(q, k_pages, pt, ctx, qmask, scale, v_dim, causal)
+            return orig(q, k_pages, pt, ctx, qmask, scale, v_dim, causal, **kw)
         return hook
 
     def rows(self, case: str) -> list:
@@ -5887,7 +5900,7 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 DIST_WORLD = 2
-DIST_TIMEOUT_S = 480
+DIST_TIMEOUT_S = 600
 DIST_TOKENS = 64  # AR and lookahead tokens of the TP run (Q = 17)
 DIST_CP_PROMPT = 4096
 DIST_CP_TOKENS = 32
@@ -5904,23 +5917,26 @@ def dist_prompt(vocab: int, n: int, seed: int) -> list:
     return [int(t) for t in phrases[rng.integers(0, 8, -(-n // 32))].reshape(-1)[:n]]
 
 
-def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int) -> dict:
+def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int, H: int = 32, D: int = 128,
+                     Dv: int = 128, timed: bool = True) -> dict:
     """K2 (decode, verify) or K3 (prefill) with a page range and the
-    log-sum-exp, at Llama-2-7B's attention shape, against their plain twin
+    log-sum-exp, at Llama-2-7B's attention shape (or H heads of (D, Dv)
+    lanes: DeepSeek's expanded MLA at (192, 128)), against their plain twin
     (``paged_attention_ref`` with the same range): the range holds half of
     the request's pages (a context-parallel rank's share). The same call
     over the full range must give the bits of the call without one. Timed
     beside the present call (no range), with the bound of the range's keys
-    and SDPA over the range's keys gathered as the yardstick."""
+    and SDPA over the range's keys gathered as the yardstick; with ``timed``
+    False only the checks, and their errors returned."""
     import torch
     import torch.nn.functional as F
 
     pa, ref_mod, cache = pkg["paged_attention"], pkg["attention"], pkg["cache"]
-    B, Hq, Hkv, D, ps = 1, 32, 32, 128, 64
+    B, Hq, Hkv, ps = 1, H, H, 64
     P = -(-(ctx + Q) // ps)
     n_pages = 2 * P + 2
     k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(n_pages, ps, Hkv * Dv, generator=g, device="cuda").to(torch.bfloat16)
     pt = (torch.randperm(n_pages - 1, generator=g, device="cuda")[:P] + 1)[None].to(torch.int32)
     ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
@@ -5951,6 +5967,9 @@ def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int) -> dict:
     full = call(page_range=(0, n_pages), return_lse=True)[0]
     if not torch.equal(full, call()):
         fail(f"cp attention {kind}: the full page range differs from the call without one")
+    if not timed:
+        return dict(kind=kind, heads=H, dims=[D, Dv], ctx=ctx, Q=Q, max_rel_err=rel,
+                    lse_max_abs_err=lse_err, full_range_bit_equal=True)
     big = Q >= 256
     ms = time_ms(run, reps=10 if big else 20)
     dev_ms = graph_ms(run)
@@ -5974,6 +5993,82 @@ def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int) -> dict:
                 plain_ms, bound_ms(nbytes, 4.0 * vis * D), lib_ms,
                 f"ctx={ctx} B={B} Q={Q} Hq={Hq} Hkv={Hkv} ps={ps} pages {rng} of the "
                 f"request's {P} (keys in range {keys} of {ctx + Q}) + lse")
+    row.update(device_ms=dev_ms, lse_max_abs_err=lse_err, no_range_ms=whole_ms,
+               no_range_device_ms=whole_dev_ms)
+    return row
+
+
+def mla_cp_row(pkg, g, kind: str, ctx: int, Q: int) -> dict:
+    """K13 with a page range and the rows' log-sum-exp at DeepSeek-V2-Lite's
+    latent shape (16 heads over one shared 576-lane row a token, the value
+    its first 512 lanes), against its plain twin (``mla_paged_attention_plain``
+    with the same range): the range holds half of the request's pages (a
+    context-parallel rank's share), in the route of the width (decode and
+    verify: a block a 512-key chunk and the combine; prefill: the walk).
+    The full range must give the bits of the call without one. Timed beside
+    the call without a range; the bound counts the range's keys (their K
+    rows read once, q, the output and lse written once; 2 (576 + 512) FLOP
+    a visible (row, key) pair), SDPA over the range's keys gathered (the
+    latent expanded to the heads, V its first 512 lanes) the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    ma, ref_mod, cache = pkg["mla_attention"], pkg["attention"], pkg["cache"]
+    B, H, ps = 1, 16, 64
+    P = -(-(ctx + Q) // ps)
+    n_pages = 2 * P + 2
+    k = torch.randn(n_pages, ps, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+    pt = (torch.randperm(n_pages - 1, generator=g, device="cuda")[:P] + 1)[None].to(torch.int32)
+    ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, Q, H, MLA_DK, generator=g, device="cuda").to(torch.bfloat16)
+    qm = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous()
+    causal = kind == "prefill"
+    rng = (1, n_pages // 2)
+    scale = (128 + 64) ** -0.5
+
+    def call(**kw):
+        return ma.mla_paged_attention(q, k, pt, ctx_t, None if causal else qm, scale, MLA_DV,
+                                      causal=causal, **kw)
+
+    def run():
+        return call(page_range=rng, return_lse=True)
+
+    def plain():
+        return ma.mla_paged_attention_plain(q, k, pt, ctx_t, qm, scale, MLA_DV,
+                                            page_range=rng, return_lse=True)
+    (out, lse), (ref, ref_lse) = run(), plain()
+    empty = torch.isinf(ref_lse)
+    if not torch.equal(torch.isinf(lse), empty) or not (out[empty] == 0).all():
+        fail(f"mla cp attention {kind}: rows with no key in the range are not 0 with lse -inf")
+    err, rel = _errs(out, ref)
+    lse_err = (lse[~empty] - ref_lse[~empty]).abs().max().item() if (~empty).any() else 0.0
+    if not (rel <= 2e-2 and lse_err <= 2e-3):
+        fail(f"mla cp attention {kind}: rel err {rel}, lse err {lse_err}")
+    full, full_lse = call(page_range=(0, n_pages), return_lse=True)
+    if not torch.equal(full, call()) or not torch.isfinite(full_lse).all():
+        fail(f"mla cp attention {kind}: the full page range differs from the call without one")
+    big = Q >= 256
+    ms = time_ms(run, reps=10 if big else 20)
+    dev_ms = graph_ms(run)
+    whole_ms, whole_dev_ms = time_ms(call, reps=10 if big else 20), graph_ms(call)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    ok = ((pt >= rng[0]) & (pt < rng[1])).repeat_interleave(ps, dim=1)[:, :ctx + Q]
+    mask = ref_mod.attention_mask(ctx_t, qm, P * ps)[:, :, :ctx + Q] & ok[:, None, :]
+    vis = int(mask.sum().item()) * H
+    keys = int(ok.sum().item())
+    nbytes = keys * MLA_DK * 2 + q.numel() * 2 + out.numel() * 2 + lse.numel() * 4
+    sel = ok[0].nonzero()[:, 0]
+    gk = cache.gather_kv_pages(k, pt, MLA_DK, None, torch.bfloat16)[:, :, sel]
+    gk = gk.expand(B, H, -1, MLA_DK)
+    gv = gk[..., :MLA_DV]
+    lib_mask = mask[:, None][..., sel]
+    lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), gk, gv, attn_mask=lib_mask, scale=scale))
+    row = _case(f"mla_attention[{kind},range]", "mla_attention.cu",
+                f"{MLA_SRC}:33 _mla_kernel", err, rel, ms, plain_ms,
+                bound_ms(nbytes, 2.0 * vis * (MLA_DK + MLA_DV)), lib_ms,
+                f"ctx={ctx} B={B} Q={Q} H={H} ps={ps} pages {rng} of the request's {P} "
+                f"(keys in range {keys} of {ctx + Q}) + lse")
     row.update(device_ms=dev_ms, lse_max_abs_err=lse_err, no_range_ms=whole_ms,
                no_range_device_ms=whole_dev_ms)
     return row
@@ -6101,11 +6196,12 @@ def dist_tp_case(pkg, counts, rank, params, cfg) -> dict:
     return out
 
 
-def dist_ep_case(pkg, counts, rank) -> dict:
+def dist_ep_case(pkg, counts, rank, mode: str = "int4") -> dict:
     """EP = 2: a Mixtral-8x7B-shaped stack at full width, 2 layers, int4
-    experts, 4 experts a rank. Layer 0's MoE block on one input is
-    bit-equal to the one-process ``expert_shards(2)``; the stack serves
-    lookahead == AR."""
+    experts (or ``mode`` "w8a8_fp8": activation-quantized e4m3 experts,
+    which take the scan over a rank's experts, K8), 4 experts a rank.
+    Layer 0's MoE block on one input is bit-equal to the one-process
+    ``expert_shards(2)``; the stack serves lookahead == AR."""
     import dataclasses
 
     import torch
@@ -6113,15 +6209,16 @@ def dist_ep_case(pkg, counts, rank) -> dict:
     config, dist_llm, base, moe = pkg["config"], pkg["dist_llm"], pkg["base"], pkg["moe"]
     cfg = dataclasses.replace(config.ModelConfig.mixtral_8x7b(), num_hidden_layers=2,
                               expert_parallel=True)
-    spec = pkg["linear"].QuantSpec(bits=4, group=128)
+    spec = (pkg["linear"].QuantSpec(bits=4, group=128) if mode == "int4"
+            else pkg["linear"].QuantSpec.from_mode(mode))
     params = base.init_params_quantized(cfg, spec,
                                         torch.Generator(device="cuda").manual_seed(SEED + 22))
     kw = dict(page_size=64, max_seq_len=1024, max_concurrency=1, prefill_chunk=512,
-              quant="int4", eos_token_id=-2, prefix_cache=False)
+              quant=mode, eos_token_id=-2, prefix_cache=False)
     dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
                           mesh_shape=(1, DIST_WORLD))
     if dl.params["moe_layers"]["moe_wgu"]["q"].shape[1] != cfg.num_experts // DIST_WORLD:
-        fail("phase dist ep: a rank does not hold its 4 experts")
+        fail(f"phase dist ep ({mode}): a rank does not hold its 4 experts")
     g = torch.Generator(device="cuda").manual_seed(SEED + 23)
     h = (torch.randn(1, 17, cfg.hidden_size, generator=g, device="cuda") * 0.5).to(
         torch.bfloat16)
@@ -6130,8 +6227,8 @@ def dist_ep_case(pkg, counts, rank) -> dict:
     with moe.expert_shards(DIST_WORLD):
         want = moe.moe_block(base._layer_of(params["moe_layers"], 0), cfg, spec, h)
     if not torch.equal(got, want):
-        fail(f"phase dist ep: the rank-parallel MoE block differs from expert_shards(2): "
-             f"rel err {_errs(got, want)[1]}")
+        fail(f"phase dist ep ({mode}): the rank-parallel MoE block differs from "
+             f"expert_shards(2): rel err {_errs(got, want)[1]}")
     prompt = dist_prompt(cfg.vocab_size, 256, SEED + 24)
     ar, ar_res = _dist_serve(pkg, counts, dl, prompt, 32)
     del dl
@@ -6143,106 +6240,240 @@ def dist_ep_case(pkg, counts, rank) -> dict:
     del dl, params
     torch.cuda.empty_cache()
     if la != ar:
-        fail(f"phase dist ep: lookahead differs from AR at token {_first_divergence(la, ar)}")
-    return dict(block_bit_equal=True, layers=2, experts_a_rank=cfg.num_experts // DIST_WORLD,
-                ar=ar_res, lookahead=la_res, lossless=True, tokens=ar)
+        fail(f"phase dist ep ({mode}): lookahead differs from AR at token "
+             f"{_first_divergence(la, ar)}")
+    return dict(experts=mode, block_bit_equal=True, layers=2,
+                experts_a_rank=cfg.num_experts // DIST_WORLD, ar=ar_res, lookahead=la_res,
+                lossless=True, tokens=ar)
 
 
 @contextlib.contextmanager
 def cp_oracle_attention(pkg, n: int):
-    """For the body, the one-process forward's attention
-    (``models/base.py _attention``) is the context-parallel oracle: each of
-    the ``n`` ranks' partials over the one arena, with that rank's global
-    page range, merged in rank order (``cp_attention_oracle``)."""
-    base, cpa = pkg["base"], pkg["cp_attention"]
+    """For the body, the one-process forward's attention (``models/base.py
+    _attention``, and MLA's ``models/mla.py _mla_attention``) is the
+    context-parallel oracle: each of the ``n`` ranks' partials over the one
+    arena, with that rank's global page range, merged in rank order
+    (``cp_attention_oracle``)."""
+    base, mla, cpa = pkg["base"], pkg["mla"], pkg["cp_attention"]
 
     def attend(xq, kv, li, page_tables, start_lens, qmask, causal, scale, alibi=None):
         return cpa.cp_attention_oracle(xq, kv["k"][li], kv["v"][li], page_tables,
                                        start_lens, qmask, causal, scale, n)
 
+    def attend_mla(q, kv, li, page_tables, start_lens, qmask, causal, scale, latent_v_dim):
+        return cpa.cp_attention_oracle(q, kv["k"][li], kv["v"][li], page_tables, start_lens,
+                                       qmask, causal, scale, n, latent_v_dim)
+
     plain, base._attention = base._attention, attend
+    plain_mla, mla._mla_attention = mla._mla_attention, attend_mla
     try:
         yield
     finally:
-        base._attention = plain
+        base._attention, mla._mla_attention = plain, plain_mla
 
 
-def dist_cp_case(pkg, counts, rank, params, cfg) -> dict:
-    """CP = 2: Llama-2-7B int4, parameters replicated, a 4096-token prompt
-    whose 66 pages straddle both ranks (48 pages a rank). CP AR == CP
-    lookahead bit for bit; the one-process oracle (``cp_oracle_attention``,
-    run on each rank) serves the same tokens and its arena equals this rank's pages
-    bit for bit; the merged attention equals the oracle's and is within rel
-    2e-2 of one K2 / K3 call over the whole context."""
+def _cp_merged_check(pkg, dl, one, cfg, n_tot: int, n_req: int, n: int, label: str) -> dict:
+    """The merged attention of KV layer 0 at decode (Q = 1) and prefill (Q =
+    512) widths over the keys the run wrote: the ranks' merge equals the
+    oracle's bit for bit and lies within rel 2e-2 of one K2 / K3 call over
+    the whole context (MLA's latent arena: K13 over the range, one K13 call
+    unranged)."""
+    import torch
+
+    cpa, pa, ma = pkg["cp_attention"], pkg["paged_attention"], pkg["mla_attention"]
+    latent = cfg.is_mla and cfg.mla_latent_cache
+    H = cfg.num_attention_heads
+    D = MLA_DK if latent else cfg.head_dim
+    lv = MLA_DV if latent else None
+    sc = (128 + 64) ** -0.5 if latent else cfg.head_dim ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    pt = torch.arange(1, 1 + n_req, dtype=torch.int32, device="cuda")[None]
+    merged = {}
+    for Q, ctx in ((1, n_tot - 2), (512, n_tot - 513)):
+        q = torch.randn(1, Q, H, D, generator=g, device="cuda").to(torch.bfloat16)
+        qm = pkg["attention"].causal_qmask(Q, "cuda")[None].contiguous()
+        ctx_t = torch.full((1,), ctx, dtype=torch.int32, device="cuda")
+        causal = Q > 128
+        got = cpa.cp_attention(q, dl.kv, 0, pt, ctx_t, qm, causal, sc, dl.rank_state, lv)
+        orc = cpa.cp_attention_oracle(q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, qm,
+                                      causal, sc, n, lv)
+        if latent:
+            whole = ma.mla_paged_attention(q, one.kv["k"][0], pt, ctx_t, qm, sc, MLA_DV,
+                                           causal=causal)
+        elif causal:
+            whole = pa.paged_attention_prefill(q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t,
+                                               sc)
+        else:
+            whole = pa.paged_attention(q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, qm, sc)
+        rel = _errs(got, whole)[1]
+        if not torch.equal(got, orc) or not rel <= 2e-2:
+            fail(f"phase dist {label}: merged attention at Q={Q}: oracle equal "
+                 f"{torch.equal(got, orc)}, rel err {rel} against one call")
+        merged[f"Q={Q}"] = dict(oracle_bit_equal=True, max_rel_err_vs_one_call=rel)
+    return merged
+
+
+def dist_cp_case(pkg, counts, rank, params, cfg, label: str = "cp", quant: str = "int4",
+                 n_new: int = DIST_CP_TOKENS) -> dict:
+    """CP = 2, parameters replicated, a 4096-token prompt whose pages
+    straddle both ranks (48 pages a rank): Llama-2-7B int4 (``cp``),
+    DeepSeek-V2-Lite's latent MLA (``mla_cp``: K13 over each rank's pages)
+    or Ring-mini-linear-2.0 (``hybrid_cp``: its full layers' pages split,
+    its linear layers whole on every rank over the replicated states). CP
+    AR == CP lookahead bit for bit; the one-process oracle
+    (``cp_oracle_attention``, run on each rank) serves the same tokens and
+    its arena equals this rank's pages bit for bit (a hybrid's states too);
+    the merged attention equals the oracle's and is within rel 2e-2 of one
+    unranged call (``_cp_merged_check``)."""
     import torch
 
     config, dist_llm, llm_mod = pkg["config"], pkg["dist_llm"], pkg["llm"]
-    cpa = pkg["cp_attention"]
     prompt = dist_prompt(cfg.vocab_size, DIST_CP_PROMPT, SEED + 25)
-    n_tot = DIST_CP_PROMPT + DIST_CP_TOKENS
+    n_tot = DIST_CP_PROMPT + n_new
     kw = dict(page_size=64, max_seq_len=n_tot + 128, max_concurrency=1, prefill_chunk=4096,
-              quant="int4", eos_token_id=-2, prefix_cache=False, num_pages=DIST_CP_PAGES,
+              quant=quant, eos_token_id=-2, prefix_cache=False, num_pages=DIST_CP_PAGES,
               context_parallel=True)
     per = DIST_CP_PAGES // DIST_WORLD
     lo, hi = rank * per, (rank + 1) * per
     n_req = -(-n_tot // 64)
     mine = [p for p in range(1, 1 + n_req) if lo <= p < hi]
-    out = dict(pages_a_rank=per, request_pages=n_req, this_rank_pages=len(mine),
+    out = dict(model=cfg.model_type, layers=cfg.num_hidden_layers, pages_a_rank=per,
+               request_pages=n_req, this_rank_pages=len(mine),
                visible_key_share=len(mine) * 64 / (n_req * 64))
     if not mine or len(mine) == n_req:
-        fail("phase dist cp: the request's pages do not straddle the ranks")
+        fail(f"phase dist {label}: the request's pages do not straddle the ranks")
     with cp_oracle_attention(pkg, DIST_WORLD):  # the oracle: one process, the whole arena
         one = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
         ref = one.generate([prompt], pkg["request"].SamplingParams(
-            max_new_tokens=DIST_CP_TOKENS))[0].output_ids
+            max_new_tokens=n_new))[0].output_ids
     dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
                           mesh_shape=(1, DIST_WORLD))
-    ar, out["ar"] = _dist_serve(pkg, counts, dl, prompt, DIST_CP_TOKENS)
+    ar, out["ar"] = _dist_serve(pkg, counts, dl, prompt, n_new)
     if ar != ref:
-        fail(f"phase dist cp: the oracle's tokens differ at {_first_divergence(ar, ref)}")
+        fail(f"phase dist {label}: the oracle's tokens differ at {_first_divergence(ar, ref)}")
     idx = torch.tensor(mine, device="cuda")
     for name in ("k", "v"):
         a, b = dl.kv[name][:, idx - lo + 1], one.kv[name][:, idx]
         if not torch.equal(a, b):
-            fail(f"phase dist cp: rank {rank}'s {name} pages differ from the oracle's arena "
-                 f"(rel err {_errs(a, b)[1]})")
+            fail(f"phase dist {label}: rank {rank}'s {name} pages differ from the oracle's "
+                 f"arena (rel err {_errs(a, b)[1]})")
+    if "s" in one.kv:
+        if not torch.equal(dl.kv["s"], one.kv["s"]):
+            fail(f"phase dist {label}: rank {rank}'s recurrent states differ from the "
+                 "oracle's")
+        out["states_bit_equal"] = True
     out["arena_equal_pages"] = len(mine)
-    # the merged attention: the ranks' merge == the oracle's, near one K2 / K3 call
-    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
-    pt = torch.arange(1, 1 + n_req, dtype=torch.int32, device="cuda")[None]
-    merged = {}
-    for Q, ctx in ((1, n_tot - 2), (512, n_tot - 513)):  # keys the run wrote
-        q = torch.randn(1, Q, cfg.num_attention_heads, cfg.head_dim, generator=g,
-                        device="cuda").to(torch.bfloat16)
-        qm = pkg["attention"].causal_qmask(Q, "cuda")[None].contiguous()
-        ctx_t = torch.full((1,), ctx, dtype=torch.int32, device="cuda")
-        sc = cfg.head_dim ** -0.5
-        got = cpa.cp_attention(q, dl.kv, 0, pt, ctx_t, qm, Q > 128, sc, dl.rank_state)
-        orc = cpa.cp_attention_oracle(q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, qm,
-                                      Q > 128, sc, DIST_WORLD)
-        if Q > 128:
-            whole = pkg["paged_attention"].paged_attention_prefill(
-                q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, sc)
-        else:
-            whole = pkg["paged_attention"].paged_attention(
-                q, one.kv["k"][0], one.kv["v"][0], pt, ctx_t, qm, sc)
-        rel = _errs(got, whole)[1]
-        if not torch.equal(got, orc) or not rel <= 2e-2:
-            fail(f"phase dist cp: merged attention at Q={Q}: oracle equal "
-                 f"{torch.equal(got, orc)}, rel err {rel} against one call")
-        merged[f"Q={Q}"] = dict(oracle_bit_equal=True, max_rel_err_vs_one_call=rel)
-    out["merged_attention"] = merged
+    out["merged_attention"] = _cp_merged_check(pkg, dl, one, cfg, n_tot, n_req, DIST_WORLD,
+                                               label)
     del dl, one
     torch.cuda.empty_cache()
     dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(
         **kw, use_lookahead=True, decoding_length=16, branch_length=16,
         use_spec_min_batch_size=1), mesh_shape=(1, DIST_WORLD))
-    la, out["lookahead"] = _dist_serve(pkg, counts, dl, prompt, DIST_CP_TOKENS)
+    la, out["lookahead"] = _dist_serve(pkg, counts, dl, prompt, n_new)
     del dl
     torch.cuda.empty_cache()
     if la != ar:
-        fail(f"phase dist cp: lookahead differs from AR at token {_first_divergence(la, ar)}")
+        fail(f"phase dist {label}: lookahead differs from AR at token "
+             f"{_first_divergence(la, ar)}")
     out.update(lossless=True, tokens=ar)
+    return out
+
+
+def _dist_requests(pkg, counts, eng, prompts, mm, n_new):
+    """Serve ``prompts`` (with ``mm``'s multimodal embeddings and their
+    positions where given) through ``add_request`` and ``step``, under the
+    launch counts when ``counts`` is given: (tokens, wall s, steps)."""
+    import torch
+
+    sp = pkg["request"].SamplingParams(max_new_tokens=n_new)
+
+    def serve():
+        reqs = [eng.add_request(p, sp, mm_embeds=None if m is None else m[0],
+                                mm_positions=None if m is None else m[1])
+                for p, m in zip(prompts, mm)]
+        steps = 0
+        while any(r.state != "finished" for r in reqs):
+            eng.step()
+            steps += 1
+        return reqs, steps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, steps = serve() if counts is None else counts.run(serve)
+    wall = time.perf_counter() - t0
+    toks = [r.output_ids for r in reqs]
+    if any(len(t) != n_new for t in toks):
+        fail(f"phase dist: a request stopped early ({[len(t) for t in toks]} of {n_new})")
+    return toks, wall, steps
+
+
+DIST_DP_TOKENS = 16
+
+
+def dist_dp_case(pkg, counts, rank, params, cfg, label: str, quant: str, mm: bool) -> dict:
+    """DP = 2 (mesh (2, 1)): each rank serves its block of the batch's rows
+    with the whole model, and the ranks' K / V rows are replayed into every
+    arena. Two requests (one a data group), lookahead on: Llama-2-7B int4
+    with one request's prompt carrying multimodal embeddings over 8 of its
+    positions (``mm_dp``), or Ring-mini-linear-2.0 (``hybrid_dp``: each
+    group's linear layers over its slots' states, the changed slots shared
+    after each step; the states ``s`` bit-equal on both ranks after every
+    step). Both end on the tokens of the one-process ``LLM`` (AR) over the
+    same requests."""
+    import numpy as np
+    import torch
+
+    config, dist_llm, llm_mod, comm = pkg["config"], pkg["dist_llm"], pkg["llm"], pkg["comm"]
+    prompts = [dist_prompt(cfg.vocab_size, 256, SEED + 31),
+               dist_prompt(cfg.vocab_size, 192, SEED + 32)]
+    extra = [None, None]
+    if mm:
+        emb = (np.random.default_rng(SEED + 33).normal(size=(8, cfg.hidden_size))
+               * 0.02).astype(np.float32)
+        extra[0] = (emb, list(range(40, 48)))
+    # bursts of 4 steps, each a verify (no AR cooldown): a scheduler step is
+    # 4 verify steps and their commits, and the states are checked after it
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=2, prefill_chunk=512,
+              quant=quant, eos_token_id=-2, prefix_cache=False, decode_burst=4,
+              decode_burst_idle=4)
+    one = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
+    ref, _, _ = _dist_requests(pkg, None, one, prompts, extra, DIST_DP_TOKENS)
+    del one
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(
+        **kw, use_lookahead=True, decoding_length=16, branch_length=16,
+        use_spec_min_batch_size=2, spec_cooldown_bursts=0), mesh_shape=(DIST_WORLD, 1))
+    out = dict(model=cfg.model_type, layers=cfg.num_hidden_layers, mesh=[DIST_WORLD, 1],
+               multimodal_positions=8 if mm else 0)
+    checked = [0]
+    if "s" in dl.kv:  # the hybrid's states: the same bits on both ranks after every step
+        step = dl.step
+
+        def step_and_check():
+            worked = step()
+            comm.check_same(dl.kv["s"], None, rank, DIST_WORLD, "the recurrent states")
+            checked[0] += 1
+            return worked
+
+        dl.step = step_and_check
+    st = dl.rank_state
+    st.comm_s, st.comm_n = 0.0, 0
+    toks, wall, steps = _dist_requests(pkg, counts, dl, prompts, extra, DIST_DP_TOKENS)
+    m = dl.metrics
+    out.update(wall_s=wall, scheduler_steps=steps, spec_steps=m.spec_steps,
+               spec_accepted=m.spec_accepted, collective_s=st.comm_s,
+               collective_share=st.comm_s / wall, collectives=st.comm_n)
+    if "s" in dl.kv:
+        out["states_checked_steps"] = checked[0]
+    del dl
+    torch.cuda.empty_cache()
+    if m.spec_steps <= 0:
+        fail(f"phase dist {label}: no verify step ran under data parallelism")
+    if toks != ref:
+        fail(f"phase dist {label}: DP tokens differ from the one-process LLM's "
+             f"({[_first_divergence(a, b) for a, b in zip(toks, ref)]})")
+    out.update(equal_to_one_process=True, tokens=toks)
     return out
 
 
@@ -6312,25 +6543,147 @@ def dist_launch_case(pkg, counts, rank, params, cfg) -> dict:
     return out
 
 
+DIST_MLA_LAYERS = 2  # DeepSeek-V2-Lite: its dense layer 0 and one of its 26 MoE layers
+DIST_HYBRID_LAYERS = 5  # Ring-mini-linear-2.0: one layer group (linear 0-3, full 4)
+DIST_NEW_TOKENS = 16  # the new and lookahead tokens of the MLA and hybrid CP runs
+
+
 def dist_rank(pkg, rank: int, port: int, out_path: Path) -> None:
-    """One rank of phase dist (a child process of the script)."""
+    """One rank of phase dist's two-rank group (a child process of the
+    script)."""
+    import dataclasses
+
     import torch
 
     pkg["multihost"].initialize_multihost(f"localhost:{port}", DIST_WORLD, rank,
                                           device="cuda")
     counts = _DistCounts(pkg)
     t0 = time.perf_counter()
-    cfg = pkg["config"].ModelConfig.llama2_7b()
+    config, base, la = pkg["config"], pkg["base"], pkg["linear_attn"]
+    cfg = config.ModelConfig.llama2_7b()
     spec = pkg["linear"].QuantSpec(bits=4, group=128)
-    params = pkg["base"].init_params_quantized(
+    params = base.init_params_quantized(
         cfg, spec, torch.Generator(device="cuda").manual_seed(SEED))
     res = dict(tp=dist_tp_case(pkg, counts, rank, params, cfg))
     res["launch"] = dist_launch_case(pkg, counts, rank, params, cfg)
     res["cp"] = dist_cp_case(pkg, counts, rank, params, cfg)
+    res["mm_dp"] = dist_dp_case(pkg, counts, rank, params, cfg, "mm_dp", "int4", mm=True)
     del params
     torch.cuda.empty_cache()
     res["ep"] = dist_ep_case(pkg, counts, rank)
+    res["ep_w8a8"] = dist_ep_case(pkg, counts, rank, "w8a8_fp8")
+    mla_cfg = dataclasses.replace(config.ModelConfig.deepseek_v2_lite(),
+                                  num_hidden_layers=DIST_MLA_LAYERS)
+    params = base.init_params(mla_cfg, torch.Generator(device="cuda").manual_seed(SEED + 30),
+                              dtype=torch.bfloat16)
+    res["mla_cp"] = dist_cp_case(pkg, counts, rank, params, mla_cfg, "mla_cp", "none",
+                                 DIST_NEW_TOKENS)
+    del params
+    torch.cuda.empty_cache()
+    # the hybrid's 256 experts in 2 expert shards within each rank (the routed
+    # grouped route, as phase linear runs it; the scan sweeps every expert)
+    hyb_cfg = dataclasses.replace(config.ModelConfig.ring_mini_linear_2(),
+                                  num_hidden_layers=DIST_HYBRID_LAYERS, expert_parallel=True)
+    params = la.init_hybrid_params(hyb_cfg,
+                                   torch.Generator(device="cuda").manual_seed(SEED + 34),
+                                   torch.bfloat16)
+    with pkg["moe"].expert_shards(LIN_SHARDS):
+        res["hybrid_cp"] = dist_cp_case(pkg, counts, rank, params, hyb_cfg, "hybrid_cp",
+                                        "none", DIST_NEW_TOKENS)
+        res["hybrid_dp"] = dist_dp_case(pkg, counts, rank, params, hyb_cfg, "hybrid_dp",
+                                        "none", mm=False)
+    del params
+    torch.cuda.empty_cache()
     res.update(launches=counts.total, wall_s=time.perf_counter() - t0,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    out_path.write_text(json.dumps(res))
+    print(f"DIST_OK rank={rank}", flush=True)
+
+
+DIST4_WORLD = 4
+DIST4_LAYERS = 8  # Llama-2-7B int4 at 8 of its 32 layers
+DIST4_PAGES = 48  # 24 pages a model rank
+DIST4_PROMPTS = (1100, 600)  # request 0's 18 pages lie on model rank 0, 1's 10 straddle
+DIST4_TOKENS = 16
+
+
+def dist4_rank(pkg, rank: int, port: int, out_path: Path) -> None:
+    """One rank of phase dist's four-rank group: mesh (2, 2), context
+    parallelism over the model axis beside a data axis (``cp_dp``). Each
+    data group holds the whole arena split over its two model ranks' pages;
+    two requests, one a data group, the other group's K / V rows replayed
+    onto a rank's own pages. CP + DP AR == lookahead bit for bit; the
+    one-process oracle (``cp_oracle_attention(2)``, on each rank) serves the
+    same tokens, and this rank's pages of the requests equal its arena's
+    bit for bit."""
+    import dataclasses
+
+    import torch
+
+    pkg["multihost"].initialize_multihost(f"localhost:{port}", DIST4_WORLD, rank,
+                                          device="cuda")
+    counts = _DistCounts(pkg)
+    t0 = time.perf_counter()
+    config, dist_llm, llm_mod = pkg["config"], pkg["dist_llm"], pkg["llm"]
+    cfg = dataclasses.replace(config.ModelConfig.llama2_7b(), num_hidden_layers=DIST4_LAYERS)
+    params = pkg["base"].init_params_quantized(
+        cfg, pkg["linear"].QuantSpec(bits=4, group=128),
+        torch.Generator(device="cuda").manual_seed(SEED + 40))
+    prompts = [dist_prompt(cfg.vocab_size, n, SEED + 41 + i)
+               for i, n in enumerate(DIST4_PROMPTS)]
+    kw = dict(page_size=64, max_seq_len=2048, max_concurrency=2, prefill_chunk=512,
+              quant="int4", eos_token_id=-2, prefix_cache=False, num_pages=DIST4_PAGES,
+              context_parallel=True)
+    mesh = (2, 2)
+    m_rank = rank % mesh[1]
+    per = DIST4_PAGES // mesh[1]
+    lo = m_rank * per
+    with cp_oracle_attention(pkg, mesh[1]):
+        one = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
+        ref, _, _ = _dist_requests(pkg, None, one, prompts, [None, None], DIST4_TOKENS)
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
+                          mesh_shape=mesh)
+    st = dl.rank_state
+    if (st.dp, st.cp, dl.kv["k"].shape[1]) != (2, 2, per + 1):
+        fail(f"phase dist cp_dp: rank {rank} is dp {st.dp}, cp {st.cp}, "
+             f"{dl.kv['k'].shape[1]} local pages")
+    st.comm_s, st.comm_n = 0.0, 0
+    ar, wall, steps = _dist_requests(pkg, counts, dl, prompts, [None, None], DIST4_TOKENS)
+    out = dict(model=cfg.model_type, layers=DIST4_LAYERS, mesh=list(mesh),
+               pages_a_rank=per, ar=dict(wall_s=wall, scheduler_steps=steps,
+                                         collective_s=st.comm_s, collectives=st.comm_n))
+    if ar != ref:
+        fail(f"phase dist cp_dp: the oracle's tokens differ "
+             f"({[_first_divergence(a, b) for a, b in zip(ar, ref)]})")
+    used = sum(-(-(n + DIST4_TOKENS) // 64) for n in DIST4_PROMPTS)
+    mine = [p for p in range(1, 1 + used) if lo <= p < lo + per]
+    if not mine:
+        fail(f"phase dist cp_dp: rank {rank} holds none of the requests' pages")
+    idx = torch.tensor(mine, device="cuda")
+    for name in ("k", "v"):
+        a, b = dl.kv[name][:, idx - lo + 1], one.kv[name][:, idx]
+        if not torch.equal(a, b):
+            fail(f"phase dist cp_dp: rank {rank}'s {name} pages differ from the oracle's "
+                 f"arena (rel err {_errs(a, b)[1]})")
+    out.update(arena_equal_pages=len(mine), request_pages=used)
+    del dl, one
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(
+        **kw, use_lookahead=True, decoding_length=16, branch_length=16,
+        use_spec_min_batch_size=2, spec_cooldown_bursts=0), mesh_shape=mesh)
+    la, wall, steps = _dist_requests(pkg, counts, dl, prompts, [None, None], DIST4_TOKENS)
+    if dl.metrics.spec_steps <= 0:
+        fail("phase dist cp_dp: no verify step ran")
+    out["lookahead"] = dict(wall_s=wall, scheduler_steps=steps,
+                            spec_steps=dl.metrics.spec_steps,
+                            spec_accepted=dl.metrics.spec_accepted)
+    del dl, params
+    torch.cuda.empty_cache()
+    if la != ar:
+        fail(f"phase dist cp_dp: lookahead differs from AR "
+             f"({[_first_divergence(a, b) for a, b in zip(la, ar)]})")
+    out.update(lossless=True, tokens=ar)
+    res = dict(cp_dp=out, launches=counts.total, wall_s=time.perf_counter() - t0,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     out_path.write_text(json.dumps(res))
     print(f"DIST_OK rank={rank}", flush=True)
@@ -6339,17 +6692,41 @@ def dist_rank(pkg, rank: int, port: int, out_path: Path) -> None:
 DIST_PATH_KERNELS = ("int4_gemm", "kv_write_step", "paged_attention[decode]",
                      "paged_attention[verify]", "paged_attention_prefill",
                      "paged_attention[decode,range]", "paged_attention[verify,range]",
-                     "paged_attention_prefill[range]")
+                     "paged_attention_prefill[range]", "mla_attention[decode,range]",
+                     "mla_attention[verify,range]", "mla_attention[prefill,range]",
+                     "linear_attention[chunk]", "linear_attention[decode]",
+                     "linear_attention[tree]", "linear_attention[commit]",
+                     "rms_norm[plain]", "w8a8_gemm[fp8]", "dense_bf16_gemm")
+DIST_CASES = ("tp", "launch", "cp", "mm_dp", "ep", "ep_w8a8", "mla_cp", "hybrid_cp",
+              "hybrid_dp")
+
+
+def _spawn_ranks(world: int, flag: str, port: int, tmp: Path, tag: str) -> tuple:
+    """``world`` child processes of this script, each one rank (``flag``)."""
+    outs = [tmp / f"{tag}_rank{r}.json" for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), flag, str(r),
+                               "--dist-port", str(port), "--dist-out", str(outs[r])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    return procs, outs
+
+
+def _free_port() -> int:
+    with __import__("socket").socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 def phase_dist(pkg) -> dict:
-    """The parallel modules on the card: K2 / K3 with a page range and the
-    log-sum-exp against their plain twin (this process), then two ranks
-    spawned as child processes that share the card over gloo (NCCL refuses
-    two ranks on one device) and serve tensor, context and expert
-    parallelism (``dist_rank``). A rank that fails, times out or does not
+    """The parallel modules on the card: K2 / K3 and K13 with a page range and
+    the log-sum-exp against their plain twin (this process; K2 / K3 also at
+    DeepSeek's expanded (192, 128)), then two groups of ranks spawned as
+    child processes at once, sharing the card over gloo (NCCL refuses two
+    ranks on one device): two ranks serve tensor, context, data and expert
+    parallelism (``dist_rank``), four ranks context parallelism beside a
+    data axis (``dist4_rank``). A rank that fails, times out or does not
     print its OK line fails the run. The gloo times go through the host:
-    they are not NCCL times."""
+    they are not NCCL times, and the two groups share the host's cores."""
     import tempfile
 
     import torch
@@ -6358,25 +6735,28 @@ def phase_dist(pkg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     rows = [cp_attention_row(pkg, g, "decode", 4096, 1),
             cp_attention_row(pkg, g, "verify", 4096, 17),
-            cp_attention_row(pkg, g, "prefill", 3584, 512)]
+            cp_attention_row(pkg, g, "prefill", 3584, 512),
+            mla_cp_row(pkg, g, "decode", 4096, 1),
+            mla_cp_row(pkg, g, "verify", 4096, 17),
+            mla_cp_row(pkg, g, "prefill", 3584, 512)]
     for r in rows:
         print("phase dist kernel: " + json.dumps(r))
+    expanded = [cp_attention_row(pkg, g, kind, ctx, Q, H=16, D=192, Dv=128, timed=False)
+                for kind, ctx, Q in (("decode", 4096, 1), ("verify", 4096, 17),
+                                     ("prefill", 3584, 512))]
+    print("phase dist expanded MLA (K2 / K3 ranged at (192, 128) against their plain "
+          "twin): " + json.dumps(expanded))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
-    with __import__("socket").socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    outs = [tmp / f"rank{r}.json" for r in range(DIST_WORLD)]
-    procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--dist-rank",
-                               str(r), "--dist-port", str(port), "--dist-out", str(outs[r])],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(DIST_WORLD)]
-    logs = [""] * DIST_WORLD
+    groups = [_spawn_ranks(DIST_WORLD, "--dist-rank", _free_port(), tmp, "two"),
+              _spawn_ranks(DIST4_WORLD, "--dist4-rank", _free_port(), tmp, "four")]
+    procs = [p for ps, _ in groups for p in ps]
+    logs = [""] * len(procs)
     try:
-        for r, p in enumerate(procs):
+        for i, p in enumerate(procs):
             left = max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0))
-            logs[r], _ = p.communicate(timeout=left)
+            logs[i], _ = p.communicate(timeout=left)
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -6384,29 +6764,45 @@ def phase_dist(pkg) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, p in enumerate(procs):
-        if p.returncode != 0 or f"DIST_OK rank={r}" not in logs[r]:
-            print(logs[r][-6000:], file=sys.stderr)
-            fail(f"phase dist: rank {r} failed (exit {p.returncode})")
-    res = [json.loads(o.read_text()) for o in outs]
-    for case in ("tp", "launch", "cp", "ep"):
+    i = 0
+    for ps, _ in groups:
+        for r, p in enumerate(ps):
+            if p.returncode != 0 or f"DIST_OK rank={r}" not in logs[i]:
+                print(logs[i][-6000:], file=sys.stderr)
+                fail(f"phase dist: rank {r} of {len(ps)} failed (exit {p.returncode})")
+            i += 1
+    res = [json.loads(o.read_text()) for o in groups[0][1]]
+    res4 = [json.loads(o.read_text()) for o in groups[1][1]]
+    for case in DIST_CASES:
         if res[1][case]["tokens"] != res[0][case]["tokens"]:
             fail(f"phase dist {case}: the ranks ended on different tokens")
+    if any(r["cp_dp"]["tokens"] != res4[0]["cp_dp"]["tokens"] for r in res4):
+        fail("phase dist cp_dp: the ranks ended on different tokens")
     launches = {}
-    for r in res:
+    for r in res + res4:
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     # the serving runs alone: TP's plain K2 / K3, K1 and K16; CP's ranged K2 / K3
+    # and K13; the hybrid's K14 modes and K15; the W8A8 experts' K8; MLA's K10
     idle = [k for k in DIST_PATH_KERNELS if launches.get(k, 0) <= 0]
     if idle:
         fail(f"phase dist: the DistLLM runs launched none of {idle} (launches {launches})")
-    out = dict(kernels=rows, launches=launches, wall_s=time.perf_counter() - t0,
-               note="two ranks share one H100 over gloo: every collective goes through "
+    out = dict(kernels=rows, expanded_mla_range=expanded, launches=launches,
+               wall_s=time.perf_counter() - t0,
+               cuts=dict(mla_cp=f"DeepSeek-V2-Lite {DIST_MLA_LAYERS} of 27 layers",
+                         hybrid=f"Ring-mini-linear-2.0 {DIST_HYBRID_LAYERS} of 20 layers",
+                         ep="Mixtral-8x7B 2 of 32 layers",
+                         cp_dp=f"Llama-2-7B {DIST4_LAYERS} of 32 layers"),
+               note="ranks share one H100 over gloo: every collective goes through "
                     "the host, so these are not NCCL times")
-    for case in ("tp", "launch", "cp", "ep"):
+    print("phase dist depth cuts (widths as published): " + json.dumps(out["cuts"]))
+    for case in DIST_CASES:
         out[case] = [{k: v for k, v in r[case].items() if k != "tokens"} for r in res]
         print(f"phase dist {case} (rank 0, rank 1): " + json.dumps(out[case]))
-    out["ranks"] = [dict(wall_s=r["wall_s"], peak_mem_gb=r["peak_mem_gb"]) for r in res]
+    out["cp_dp"] = [{k: v for k, v in r["cp_dp"].items() if k != "tokens"} for r in res4]
+    print("phase dist cp_dp (ranks 0-3): " + json.dumps(out["cp_dp"]))
+    out["ranks"] = [dict(wall_s=r["wall_s"], peak_mem_gb=r["peak_mem_gb"])
+                    for r in res + res4]
     print(f"phase dist: wall {out['wall_s']:.1f} s (gloo through the host, not NCCL)")
     return out
 
@@ -6433,7 +6829,8 @@ def load_port():
                  client="service.client", safetensors="utils.safetensors",
                  ipad="ipad.distill", train_forward="ipad.train_forward", optim="ipad.optim",
                  dist_llm="engine.dist_llm", comm="parallel.comm", mesh="parallel.mesh",
-                 multihost="parallel.multihost", cp_attention="ops.cp_attention")
+                 multihost="parallel.multihost", cp_attention="ops.cp_attention",
+                 mla="models.mla")
     return {k: importlib.import_module(base + v) for k, v in names.items()}
 
 
@@ -6485,11 +6882,12 @@ def main() -> None:
                          "LLM(model_path=...), and the new builds' rows; a partial run: "
                          "prints no kernels line and no result line)")
     ap.add_argument("--dist-only", action="store_true",
-                    help="run only phase dist: K2 / K3 with a page range and two ranks "
-                         "sharing the card over gloo under tensor, context and expert "
-                         "parallelism (a partial run: prints no kernels line and no "
-                         "result line)")
+                    help="run only phase dist: K2 / K3 and K13 with a page range, then "
+                         "two and four ranks sharing the card over gloo under tensor, "
+                         "context, data and expert parallelism (a partial run: prints no "
+                         "kernels line and no result line)")
     ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist4-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-out", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6500,6 +6898,9 @@ def main() -> None:
     pkg = load_port()
     if args.dist_rank is not None:  # a rank of phase dist, started by it
         dist_rank(pkg, args.dist_rank, args.dist_port, args.dist_out)
+        return
+    if args.dist4_rank is not None:  # a rank of phase dist's four-rank group
+        dist4_rank(pkg, args.dist4_rank, args.dist_port, args.dist_out)
         return
     env = phase_environment(pkg)
     if args.families_only:

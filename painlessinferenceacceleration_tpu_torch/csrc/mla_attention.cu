@@ -60,6 +60,19 @@
 //   division use explicit round-to-nearest intrinsics (no contraction that
 //   could differ between the two kernels). So a row is the same at every Q,
 //   B and H, in every route, and at every place in the tile.
+//
+// Context parallelism (template RANGED): a rank walks only the key blocks
+// whose page id lies in its [page_lo, page_hi); a skipped block is neither
+// loaded nor multiplied. The chunks stay the absolute ones and the walked
+// blocks keep their order inside them, so the full range gives the bits of
+// the call without one. A chunk with no block in the range is the partial
+// (-1e30, 0, 0), which every fold leaves out exactly (its O is not written:
+// the ranged combine reads no O of a chunk whose sum is 0). Every route can
+// also write each row's log-sum-exp of its scaled scores (lse, natural log,
+// from the same (M, L) the division uses; -inf for a row that saw no key,
+// whose output is 0), which ops/cp_attention.py merges across the ranks.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 
@@ -115,6 +128,12 @@ __device__ __forceinline__ float final_inv(float L) {
   return __fdiv_rn(1.f, L > 0.f ? L : 1.f);
 }
 __device__ __forceinline__ float final_val(float A, float inv) { return __fmul_rn(A, inv); }
+
+// A row's log-sum-exp of its scaled scores from its max M (score units) and
+// sum L (of 2^((s - M) sfac)): natural log, -inf where no key was seen.
+__device__ __forceinline__ float row_lse(float M, float L, float sfac) {
+  return L > 0.f ? (M * sfac + log2f(L)) * 0.69314718055994531f : __int_as_float(0xff800000);
+}
 
 // The last key a tile's rows can see, within the page table's window.
 __device__ __forceinline__ int tile_last_key(int ctx, int Q, int H, int r0, int nr, int P,
@@ -240,14 +259,16 @@ __device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
 }
 
 // One block: the chunks [c_begin, c_end) of one (request, tile); every chunk
-// of the tile when `walk`, else chunk blockIdx.x.
+// of the tile when `walk`, else chunk blockIdx.x. RANGED: only the key
+// blocks whose page lies in [page_lo, page_hi).
+template <bool RANGED>
 __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
     const __grid_constant__ CUtensorMap km, const __nv_bfloat16* __restrict__ q,
     const int* __restrict__ page_tables, const int* __restrict__ ctx_lens,
     const uint8_t* __restrict__ qmask, __nv_bfloat16* __restrict__ out,
     float* __restrict__ ws_o, float2* __restrict__ ws_ml, float* __restrict__ scratch,
-    int Q, int H, int P, int n_tiles, int n_chunks, int chunk_blocks, float sfac,
-    int causal, int walk) {
+    float* __restrict__ lse, int Q, int H, int P, int n_tiles, int n_chunks,
+    int chunk_blocks, float sfac, int causal, int walk, int page_lo, int page_hi) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024u - (raw_addr & 1023u)) & 1023u);
@@ -273,6 +294,24 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
   const int c_end = walk ? nct : c_begin + 1;
   if (c_begin >= nct) return;  // a chunk past the tile's last key
   const int* pt = page_tables + (size_t)b * P;
+  // whether key block kb is walked (every block without a range)
+  auto walked = [&](int kb) {
+    if constexpr (RANGED)
+      return (unsigned)(pt[kb] - page_lo) < (unsigned)(page_hi - page_lo);
+    else
+      return true;
+  };
+  // the blocks of chunk c walked
+  auto chunk_count = [&](int c) {
+    const int kb_end = min((c + 1) * chunk_blocks, n_blocks);
+    if constexpr (RANGED) {
+      int n = 0;
+      for (int kb = c * chunk_blocks; kb < kb_end; ++kb) n += walked(kb);
+      return n;
+    } else {
+      return kb_end - c * chunk_blocks;
+    }
+  };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -290,7 +329,8 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
     int g = 0;
     for (int c = c_begin; c < c_end; ++c) {
       const int kb_end = min((c + 1) * chunk_blocks, n_blocks);
-      for (int kb = c * chunk_blocks; kb < kb_end; ++kb, ++g) {
+      for (int kb = c * chunk_blocks; kb < kb_end; ++kb) {
+        if (!walked(kb)) continue;
         const int slot = g % kStages;
         if (g >= kStages) mbar_wait(empty + 8 * slot, ((g / kStages) + 1) & 1);
         const int row = pt[kb] * kKeys;
@@ -299,6 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
 #pragma unroll
         for (int x = 0; x < kBoxes; ++x)
           tma_load(smem_u32(dst + x * kBox), &km, 64 * x, row, full + 8 * slot);
+        ++g;
       }
     }
     return;
@@ -341,7 +382,8 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
   // rescale factors to warpgroup 1 in shared memory: named barrier 2 says
   // they are there, 3 that warpgroup 1's P V has read them. Warpgroup 1
   // frees the buffer after each block but the last one this block walks.
-  const int total = min(c_end * chunk_blocks, n_blocks) - c_begin * chunk_blocks;
+  int total = 0;  // the key blocks this block walks
+  for (int c = c_begin; c < c_end; ++c) total += chunk_count(c);
 
   // S = Q K^T of ring entry g, issued (one commit group)
   auto issue_s = [&](float (&s)[32], int g) {
@@ -383,10 +425,12 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
   int g = 0;  // ring entries consumed
   for (int c = c_begin; c < c_end; ++c) {
     const int kb0 = c * chunk_blocks;
-    const int nb = min(kb0 + chunk_blocks, n_blocks) - kb0;
+    const int nb = chunk_count(c);  // 0 only under a range
 #pragma unroll
     for (int i = 0; i < 128; ++i) o[i] = 0.f;
-    float mc[2], lc[2];  // the chunk's partial: each row's max and whole sum
+    // the chunk's partial: each row's max and whole sum ((-1e30, 0) for a
+    // chunk with no block walked)
+    float mc[2] = {kNegInf, kNegInf}, lc[2] = {0.f, 0.f};
     if (wg == 0) {
       float s[32];      // the block's scores, then its probabilities
       uint32_t pa[16];  // the previous block's P: the A fragments of P V
@@ -445,8 +489,12 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
       };
       // Block i's scores are issued behind block i - 1's P V, whose stage
       // is released as soon as that product is done.
+      int kb = kb0;  // the key block of step i
 #pragma unroll 1
-      for (int i = 0; i < nb; ++i) {
+      for (int i = 0; i < nb; ++i, ++kb) {
+        if constexpr (RANGED) {
+          while (!walked(kb)) ++kb;
+        }
         const int gi = g + i;
         mbar_wait(full + 8 * (gi % kStages), (gi / kStages) & 1);
         fence_regs(s);
@@ -462,7 +510,7 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
         fence_regs(s);
         fence_regs(o);
         float alpha[2];
-        softmax(kb0 + i, alpha);
+        softmax(kb, alpha);
         rescale(alpha);
 #pragma unroll
         for (int k = 0; k < 16; ++k) pa[k] = pack_bf16x2(s[2 * k], s[2 * k + 1]);
@@ -496,12 +544,14 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
         __threadfence_block();
         asm volatile("bar.arrive 2, %0;\n" ::"n"(kConsumers) : "memory");
       }
-      fence_regs(o);
-      wgmma_fence();
-      issue_pv(pa, g + nb - 1);
-      wgmma_wait0();
-      fence_regs(o);
-      if (lane == 0) mbar_arrive(empty + 8 * ((g + nb - 1) % kStages));
+      if (nb > 0) {
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv(pa, g + nb - 1);
+        wgmma_wait0();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(empty + 8 * ((g + nb - 1) % kStages));
+      }
     } else {
 #pragma unroll 1
       for (int i = 0; i < nb; ++i) {
@@ -533,6 +583,8 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
       for (int h2 = 0; h2 < 2; ++h2) {
         if (rr[h2] >= nr) continue;
         const float inv = final_inv(lc[h2]);
+        if (lse != nullptr && wg == 0 && quad == 0)
+          lse[(size_t)b * R + r0 + rr[h2]] = row_lse(mc[h2], lc[h2], sfac);
         __nv_bfloat16* dst = out + ((size_t)b * R + r0 + rr[h2]) * kDv + 256 * wg + 2 * quad;
 #pragma unroll
         for (int j = 0; j < 32; ++j)
@@ -544,6 +596,10 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         if (rr[h2] >= nr) continue;
+        if (RANGED && nb == 0) {  // the combine reads no O where the sum is 0
+          if (wg == 0 && quad == 0) ws_ml[e * kRows + rr[h2]] = make_float2(kNegInf, 0.f);
+          continue;
+        }
         float* dst = ws_o + (e * kRows + rr[h2]) * kDv + 256 * wg + 2 * quad;
 #pragma unroll
         for (int j = 0; j < 32; ++j)
@@ -563,6 +619,8 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
         L[h2] = fold_val(L[h2], fa[h2], lc[h2], fb[h2]);
         M[h2] = Mn;
         inv[h2] = final_inv(L[h2]);
+        if (fin && lse != nullptr && wg == 0 && quad == 0 && rr[h2] < nr)
+          lse[(size_t)b * R + r0 + rr[h2]] = row_lse(M[h2], L[h2], sfac);
       }
 #pragma unroll
       for (int j = 0; j < 32; ++j)
@@ -588,10 +646,14 @@ __global__ void __launch_bounds__(kThreads, 1) mla_attention_kernel(
 // The fold of a row's chunk partials in ascending chunk order, then the
 // division: one block of 128 threads a (row, request), four lanes a thread.
 // A row whose tile sees one chunk was written by that chunk's block.
+// RANGED: a chunk whose sum is 0 (no block walked) adds nothing and its O,
+// never written, is not read.
+template <bool RANGED>
 __global__ void __launch_bounds__(128) mla_combine_kernel(
     const float* __restrict__ ws_o, const float2* __restrict__ ws_ml,
-    const int* __restrict__ ctx_lens, __nv_bfloat16* __restrict__ out, int Q, int H, int P,
-    int n_tiles, int n_chunks, int chunk_blocks, float sfac, int causal) {
+    const int* __restrict__ ctx_lens, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Q, int H, int P, int n_tiles, int n_chunks,
+    int chunk_blocks, float sfac, int causal) {
   const int r = blockIdx.x, b = blockIdx.y;
   const int R = Q * H;
   const int tile = r / kRows, rr = r % kRows, r0 = tile * kRows;
@@ -609,6 +671,7 @@ __global__ void __launch_bounds__(128) mla_combine_kernel(
     fold_coeffs(M, ml.x, sfac, Mn, fa, fb);
     L = fold_val(L, fa, ml.y, fb);
     M = Mn;
+    if (RANGED && ml.y == 0.f) continue;
     const float4 oc = reinterpret_cast<const float4*>(ws_o + e * kDv)[threadIdx.x];
     A.x = fold_val(A.x, fa, oc.x, fb);
     A.y = fold_val(A.y, fa, oc.y, fb);
@@ -616,6 +679,7 @@ __global__ void __launch_bounds__(128) mla_combine_kernel(
     A.w = fold_val(A.w, fa, oc.w, fb);
   }
   const float inv = final_inv(L);
+  if (lse != nullptr && threadIdx.x == 0) lse[(size_t)b * R + r] = row_lse(M, L, sfac);
   reinterpret_cast<uint2*>(out + ((size_t)b * R + r) * kDv)[threadIdx.x] =
       make_uint2(pack_bf16x2(final_val(A.x, inv), final_val(A.y, inv)),
                  pack_bf16x2(final_val(A.z, inv), final_val(A.w, inv)));
@@ -630,6 +694,32 @@ extern "C" const char* pia_error_string(int err) {
 // Dynamic shared memory of one block, for the build report.
 extern "C" int mla_attention_smem_bytes() { return kSmemBytes; }
 
+template <bool RANGED>
+cudaError_t launch(const CUtensorMap& km, const void* q, const void* page_tables,
+                   const void* ctx_lens, const void* qmask, void* out, void* ws_o, void* ws_ml,
+                   void* scratch, void* lse, int B, int Q, int H, int P, int n_tiles,
+                   int n_chunks, int chunk_blocks, float sfac, int causal, int walk,
+                   int page_lo, int page_hi, cudaStream_t st) {
+  static bool done[64] = {};
+  cudaError_t err = allow_smem(mla_attention_kernel<RANGED>, kSmemBytes, done);
+  if (err != cudaSuccess) return err;
+  const int R = Q * H;
+  dim3 grid(walk ? 1 : n_chunks, B, n_tiles);
+  mla_attention_kernel<RANGED><<<grid, kThreads, kSmemBytes, st>>>(
+      km, static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(page_tables),
+      static_cast<const int*>(ctx_lens), static_cast<const uint8_t*>(qmask),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_o),
+      static_cast<float2*>(ws_ml), static_cast<float*>(scratch), static_cast<float*>(lse), Q,
+      H, P, n_tiles, n_chunks, chunk_blocks, sfac, causal, walk, page_lo, page_hi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || walk || n_chunks == 1) return err;
+  mla_combine_kernel<RANGED><<<dim3(R, B), 128, 0, st>>>(
+      static_cast<const float*>(ws_o), static_cast<const float2*>(ws_ml),
+      static_cast<const int*>(ctx_lens), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Q, H, P, n_tiles, n_chunks, chunk_blocks, sfac, causal);
+  return cudaGetLastError();
+}
+
 // q bf16 [B, Q, H, 576] (rows r = t * H + h contiguous); k_pages bf16
 // [n_pages, 64, 576] (one layer, one shared head); page_tables int32 [B, P];
 // ctx_lens int32 [B]; qmask uint8 [B, Q, Q], null when causal or Q = 1;
@@ -637,44 +727,37 @@ extern "C" int mla_attention_smem_bytes() { return kSmemBytes; }
 // ceil(P 64 / chunk_keys), when n_chunks > 1: the split route (walk = 0)
 // takes the workspace ws_o f32 [B, n_tiles, n_chunks, 64, 512] and ws_ml
 // f32 pairs [B, n_tiles, n_chunks, 64], the walk route scratch f32
-// [B, n_tiles, 64 * 512]. sfac = scale * log2(e). The wrapper's plan
-// (ops/mla_attention.py mla_check, mla_plan) gives these and requires
-// 16-byte aligned operands and chunk_keys a multiple of 64.
+// [B, n_tiles, 64 * 512]. sfac = scale * log2(e). page_lo / page_hi: walk
+// only the key blocks whose page id lies in [page_lo, page_hi) (0 /
+// INT_MAX: all of them); lse f32 [B, Q, H] (null: not written), the rows'
+// log-sum-exp. The wrapper's plan (ops/mla_attention.py mla_check,
+// mla_plan) gives these and requires 16-byte aligned operands and
+// chunk_keys a multiple of 64.
 extern "C" int mla_attention(const void* q, const void* k_pages, const void* page_tables,
                              const void* ctx_lens, const void* qmask, void* out, void* ws_o,
-                             void* ws_ml, void* scratch, int B, int Q, int H, int n_pages,
-                             int P, int chunk_keys, float sfac, int causal, int walk,
-                             void* stream) {
+                             void* ws_ml, void* scratch, void* lse, int B, int Q, int H,
+                             int n_pages, int P, int chunk_keys, float sfac, int causal,
+                             int walk, int page_lo, int page_hi, void* stream) {
   if (B < 1 || B > 65535 || Q < 1 || H < 1 || P < 1 || chunk_keys < kKeys ||
       chunk_keys % kKeys)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int R = Q * H;
-  const int n_tiles = (R + kRows - 1) / kRows;
+  const int n_tiles = (Q * H + kRows - 1) / kRows;
   const int chunk_blocks = chunk_keys / kKeys;
   const int n_chunks = (P + chunk_blocks - 1) / chunk_blocks;
   if (n_tiles > 65535 ||
       (n_chunks > 1 && (walk ? scratch == nullptr : ws_o == nullptr || ws_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool done[64] = {};
-  cudaError_t err = allow_smem(mla_attention_kernel, kSmemBytes, done);
-  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap km;
   if (!make_map(&km, k_pages, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (uint64_t)n_pages * kKeys,
                 kDk, 64, kKeys, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(walk ? 1 : n_chunks, B, n_tiles);
-  mla_attention_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      km, static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(page_tables),
-      static_cast<const int*>(ctx_lens), static_cast<const uint8_t*>(qmask),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_o),
-      static_cast<float2*>(ws_ml), static_cast<float*>(scratch), Q, H, P, n_tiles, n_chunks,
-      chunk_blocks, sfac, causal, walk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || walk || n_chunks == 1) return static_cast<int>(err);
-  mla_combine_kernel<<<dim3(R, B), 128, 0, st>>>(
-      static_cast<const float*>(ws_o), static_cast<const float2*>(ws_ml),
-      static_cast<const int*>(ctx_lens), static_cast<__nv_bfloat16*>(out), Q, H, P, n_tiles,
-      n_chunks, chunk_blocks, sfac, causal);
-  return static_cast<int>(cudaGetLastError());
+  if (page_lo != 0 || page_hi != INT_MAX)
+    return static_cast<int>(launch<true>(km, q, page_tables, ctx_lens, qmask, out, ws_o,
+                                         ws_ml, scratch, lse, B, Q, H, P, n_tiles, n_chunks,
+                                         chunk_blocks, sfac, causal, walk, page_lo, page_hi,
+                                         st));
+  return static_cast<int>(launch<false>(km, q, page_tables, ctx_lens, qmask, out, ws_o, ws_ml,
+                                        scratch, lse, B, Q, H, P, n_tiles, n_chunks,
+                                        chunk_blocks, sfac, causal, walk, 0, INT_MAX, st));
 }

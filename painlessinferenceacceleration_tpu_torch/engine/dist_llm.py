@@ -11,8 +11,16 @@ arrival order, so every rank builds the same batches. The ranks form a
   the experts) or, with ``EngineConfig.context_parallel``, the KV pages
   (the parameters replicated, ``ops/cp_attention.py``);
 - the data axis splits each step's rows in contiguous blocks
-  (``models/base.py transformer_hidden``), and the arena stays the same on
-  every data group.
+  (``models/base.py transformer_hidden``; multimodal embeddings with their
+  rows, a hybrid's rows over their slots' recurrent states), and the arena
+  and the states stay the same on every data group; beside context
+  parallelism each data group holds the whole arena split over its model
+  ranks' pages.
+
+Every family takes every layout the JAX package serves: TP, EP (native,
+weight-only and activation-quantized experts), DP (hybrids and multimodal
+rows included) and CP (dense, MoE, MLA in latent and expanded mode, the
+linear-attention hybrids, beside a data axis too).
 
 Each rank serves its shard with a rank-local ``ModelConfig``; the forward
 reads the ambient ``parallel.comm.RankState`` that ``generate`` and
@@ -45,8 +53,7 @@ on rank 0 only (``launch_server``). No request is cancelled once queued
 (``LLM`` has no cancellation).
 
 Refused, under context parallelism, as in the JAX package: fp8 arenas,
-ALiBi and prefix-LM attention; also MLA and linear-attention models and a
-data axis (ROADMAP A.13).
+ALiBi and prefix-LM attention.
 """
 
 from __future__ import annotations
@@ -81,10 +88,11 @@ from painlessinferenceacceleration_tpu_torch.parallel.multihost import (
 )
 
 
-def check_context_parallel(cfg: ModelConfig, ecfg: EngineConfig, data_axis: int = 1) -> None:
-    """Raise on what context parallelism does not serve: as the JAX package
-    (``engine/llm.py:98-118``), fp8 arenas, ALiBi and prefix-LM attention;
-    and MLA, linear-attention hybrids and a data axis beside it."""
+def check_context_parallel(cfg: ModelConfig, ecfg: EngineConfig) -> None:
+    """Raise on what context parallelism does not serve, as the JAX package
+    (``engine/llm.py:98-118``): fp8 arenas, ALiBi and prefix-LM attention.
+    Every other family (MLA and the linear-attention hybrids too) and a data
+    axis beside it are served."""
     bad = []
     if ecfg.kv_quant.startswith("fp8"):
         bad.append(f"kv_quant={ecfg.kv_quant!r}")
@@ -92,10 +100,6 @@ def check_context_parallel(cfg: ModelConfig, ecfg: EngineConfig, data_axis: int 
         bad.append("alibi positions")
     if cfg.prefix_lm:
         bad.append("prefix-LM attention")
-    if cfg.is_mla or cfg.linear_attention:
-        bad.append("MLA or linear-attention models (ROADMAP A.13)")
-    if data_axis > 1:
-        bad.append("a data axis (ROADMAP A.13)")
     if bad:
         raise ValueError("context_parallel does not support " + ", ".join(bad))
 
@@ -146,7 +150,7 @@ class DistLLM(LLM):
         tp, dp = self.mesh.tp, self.mesh.dp
         cp = ecfg.context_parallel or cfg.context_parallel
         if cp:
-            check_context_parallel(cfg, ecfg, dp)
+            check_context_parallel(cfg, ecfg)
             cfg = dataclasses.replace(cfg, context_parallel=True)
             unit = cp_page_unit(tp)
             if ecfg.num_pages % unit:

@@ -176,7 +176,9 @@ def _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain,
                         path, n_edges, Q, cp_rows=None, cp_rank=None):
     """After acceptance: a hybrid commits the accepted chain (window columns
     ``chain[:, :n_acc]``, root first; inactive rows nothing) into its slots'
-    states; then, unless ``path`` is None (Q = 1), the accepted rows move,
+    states (under data parallelism its data group's rows, then the groups'
+    committed states are shared: ``commit_linear_states``); then, unless
+    ``path`` is None (Q = 1), the accepted rows move,
     node ``path[:, i]`` to slot ctx + 1 + i for i < n_edges, in K, V and the
     fp8_tok scale arenas. Under context parallelism (``cp_rank`` set) they
     are written again from the step's recorded rows ``cp_rows``, on this
@@ -185,7 +187,7 @@ def _commit_and_compact(kv, cfg, page_tables, ctx_lens, active, slot_ids, chain,
         n_eff = torch.where(active, n_acc, torch.zeros_like(n_acc))
         if slot_ids is None:
             slot_ids = torch.arange(chain.shape[0], dtype=torch.int32, device=chain.device)
-        kv = commit_linear_states(kv, chain, n_eff, slot_ids)
+        kv = commit_linear_states(kv, chain, n_eff, slot_ids, comm.current())
     if path is None:
         return kv
     if cp_rank is not None:

@@ -149,6 +149,15 @@ def update_tables_batch(tables: dict, tcfg: DraftTableConfig, bufs: torch.Tensor
     return tables
 
 
+def decay_tables(tables: dict, factor: float = 0.5) -> dict:
+    """The frequency decay (the reference's squeeze law): a new tables dict
+    whose ``freq`` is the old one times ``factor`` (halved by default); the
+    other leaves are the same tensors."""
+    out = dict(tables)
+    out["freq"] = tables["freq"] * factor
+    return out
+
+
 def retrieve_drafts(tables: dict, tcfg: DraftTableConfig, p0: torch.Tensor,
                     p1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top retrieve_count branches for 2-grams (p0, p1) [...].

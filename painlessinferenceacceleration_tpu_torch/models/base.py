@@ -612,7 +612,8 @@ def _hidden_local(
         )
 
         return hybrid_forward(params, cfg, kv, tokens, positions, page_tables, start_lens,
-                              qmask, valid, spec, slot_ids, defer_state, causal_window, par)
+                              qmask, valid, spec, slot_ids, defer_state, causal_window, par,
+                              record)
     # misconfiguration guard: hybrid params with cfg.linear_attention unset
     if "hybrid_layers" in params:
         raise ValueError("params contain hybrid_layers but cfg.linear_attention is False")
@@ -670,51 +671,52 @@ def transformer_hidden(params: dict, cfg: ModelConfig, kv: dict, tokens: torch.T
 
     The rank state that ``DistLLM`` sets (``parallel.comm.current()``) is
     read here, once a forward, and handed to the blocks. Under data
-    parallelism (a rank state with ``dp`` > 1) the batch's
-    rows are split in contiguous blocks over the data groups (each block
-    padded to the largest with rows that write nothing). Each group runs the
+    parallelism (a rank state with ``dp`` > 1) the batch's rows are split in
+    contiguous blocks over the data groups (``parallel.comm.data_block``;
+    each block padded to the largest with rows that write nothing), and
+    with them the multimodal rows of ``embed_override``. Each group runs the
     layers over its own rows; then the groups' hidden rows and the K / V rows
     their layers wrote are gathered in group order, and every rank writes the
-    other groups' rows into its arena, so the arena stays the same on every
-    data group (the JAX package's replicated arena). Every rank then holds
-    the whole batch's hidden state."""
+    other groups' rows into its arena (under context parallelism beside the
+    data axis, onto its own pages: ``cp_write_kv``), so the arena stays the
+    same on every data group (the JAX package's replicated arena). A
+    linear-attention hybrid's rows run over their own slots' states, and the
+    changed slots are shared after the forward (``share_slot_states``; a
+    verify's, after its commit, ``commit_linear_states``). Every rank then
+    holds the whole batch's hidden state."""
     args = (positions, page_tables, start_lens, qmask, valid)
     st = comm.current()
     if st is None or st.dp == 1:
         return _hidden_local(params, cfg, kv, tokens, *args, spec, causal_window, slot_ids,
                              defer_state, embed_override, glm_ids, st, record, prefix_window)
-    if cfg.linear_attention or embed_override is not None:
-        raise NotImplementedError(
-            "data parallelism over a linear-attention hybrid or with multimodal embeddings "
-            "(ROADMAP A.13): the recurrent states live outside the replayed KV rows")
     B, Q = tokens.shape
     dev = tokens.device
     if valid is None:
         valid = torch.ones((B, Q), dtype=torch.bool, device=dev)
-    sizes = comm.split_sizes(B, st.dp)
-    bmax = max(sizes)
-    starts = [sum(sizes[:g]) for g in range(st.dp)]
-    a, n = starts[st.data_rank], sizes[st.data_rank]
+    if cfg.linear_attention and slot_ids is None:  # row b is slot b, as in one process
+        slot_ids = torch.arange(B, dtype=torch.int32, device=dev)
+    a, n, bmax, sizes = comm.data_block(B, st)
 
-    def rows(t, fill_invalid=False):
-        if t is None:
-            return None
-        part = t[a:a + n]
-        if n < bmax:  # padding rows: copies of row 0 that write nothing
-            pad = t[:1].expand(bmax - n, *t.shape[1:])
-            if fill_invalid:
-                pad = torch.zeros_like(pad)
-            part = torch.cat([part, pad], dim=0)
-        return part
+    def rows(t, pad="first"):
+        return comm.block_rows(t, a, n, bmax, pad)
 
+    override = None
+    if embed_override is not None:  # the multimodal rows follow their batch rows
+        override = tuple(rows(t) for t in embed_override)
     rec = []
     h_l, kv = _hidden_local(params, cfg, kv, rows(tokens), rows(positions),
                             rows(page_tables), rows(start_lens), rows(qmask),
-                            rows(valid, fill_invalid=True), spec, causal_window,
-                            rows(slot_ids), defer_state, None, rows(glm_ids), st, rec,
+                            rows(valid, "zeros"), spec, causal_window, rows(slot_ids),
+                            defer_state, override, rows(glm_ids), st, rec,
                             rows(prefix_window))
     hs = comm.data_gather(h_l.contiguous(), st)
     h = torch.cat([hs[g, :sizes[g]] for g in range(st.dp)], dim=0)
+    if cfg.linear_attention and not defer_state:
+        from painlessinferenceacceleration_tpu_torch.models.linear_attn import (
+            share_slot_states,
+        )
+
+        share_slot_states(kv, slot_ids, valid.any(dim=1), st)
     # the other groups' K / V rows, written here: one write per layer over all
     # rows, this group's own rows and the padding invalid
     mine = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -737,8 +739,12 @@ def transformer_hidden(params: dict, cfg: ModelConfig, kv: dict, tokens: torch.T
         k_all, v_all = kv_rows
         if record is not None:
             record.append((layer, k_all, v_all))
-        write_kv_pages(kv["k"], kv["v"], k_all, v_all, page_tables, start_lens,
-                       valid & ~mine[:, None], layer,
+        others = valid & ~mine[:, None]
+        if st.cp > 1:
+            cp_write_kv(kv, layer, k_all, v_all, page_tables, start_lens, others,
+                        st.model_rank)
+            continue
+        write_kv_pages(kv["k"], kv["v"], k_all, v_all, page_tables, start_lens, others, layer,
                        kv["k_scale"][layer] if "k_scale" in kv else None,
                        kv["v_scale"][layer] if "v_scale" in kv else None,
                        kv.get("k_tok_scale"), kv.get("v_tok_scale"))

@@ -26,6 +26,15 @@ Decode, verify and commit thus share one per-token arithmetic, so lookahead
 reproduces AR's rows and states bit for bit. The JAX package verifies and
 commits with closed forms that agree with its decode only in exact
 arithmetic; the port's results differ from it by that association.
+
+Under a ``DistLLM`` the states ``s`` are whole on every rank. Context
+parallelism splits only the full layers' KV pages (``models/base.py
+_attn_block_at``); every rank runs the linear layers whole over the
+replicated states and commits them alike. Data parallelism splits the
+rows: each data group runs its rows' linear layers over its slots'
+states, and after the step (after a verify's commit) ``share_slot_states``
+writes every group's changed slots on every rank, so ``s`` stays the same
+on every group as the replayed K / V rows keep the arena the same.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from painlessinferenceacceleration_tpu_torch.ops.rmsnorm import (
     rms_norm,
 )
 from painlessinferenceacceleration_tpu_torch.ops.rope import apply_rope, dense_cos_sin
+from painlessinferenceacceleration_tpu_torch.parallel import comm
 from painlessinferenceacceleration_tpu_torch.parallel.comm import linear_rows
 
 DECAY_CLIP = (1e-4, 1.0 - 1e-6)
@@ -254,6 +264,7 @@ def hybrid_forward(
     defer_state: bool = False,
     causal_window: bool = False,
     par=None,  # the rank's parallel.comm.RankState (None: one process)
+    record: Optional[list] = None,  # gets (KV layer, K rows, V rows) of each full layer
 ):
     """Forward over the interleaved linear / full layers; returns (hidden
     [B, C, E], kv updated in place).
@@ -285,7 +296,7 @@ def hybrid_forward(
         if is_full_layer(cfg, li):
             attn_out = _attn_block_at(_as_stack(lp), 0, full_idx, cfg, spec, hn, cos, sin,
                                       kv, page_tables, start_lens, qmask, valid,
-                                      causal_window, par=par)
+                                      causal_window, par=par, record=record)
             full_idx += 1
         else:
             attn_out, feats = linear_attn_block(
@@ -308,14 +319,44 @@ def hybrid_forward(
 
 
 def commit_linear_states(kv: dict, chain: torch.Tensor, n_commit: torch.Tensor,
-                         slot_ids: torch.Tensor) -> dict:
+                         slot_ids: torch.Tensor, par=None) -> dict:
     """Fold the accepted chain into the recurrent states after a verify:
     pops the ``"_win"`` stash of ``hybrid_forward(defer_state=True)`` and
     replays, for each row, the window columns ``chain[b, :n_commit[b]]``
     (the root first) into slot ``slot_ids[b]`` of every linear layer, with
     the per-token step (K14 commit mode). Rows with ``n_commit`` 0 (inactive,
-    padding) write nothing."""
+    padding) write nothing. Under data parallelism (a rank state ``par``
+    whose ``dp`` > 1) the stash holds this group's block of rows
+    (``parallel.comm.data_block``): those are committed, then every group's
+    committed slots are shared (``share_slot_states``)."""
     win = kv.pop("_win")
-    linear_attention_commit(kv["s"], win["k"], win["v"], chain, n_commit, win["loglam"],
-                            slot_ids)
+    if par is None or par.dp == 1:
+        linear_attention_commit(kv["s"], win["k"], win["v"], chain, n_commit, win["loglam"],
+                                slot_ids)
+        return kv
+    a, n, bmax, _ = comm.data_block(chain.shape[0], par)
+    linear_attention_commit(kv["s"], win["k"], win["v"], comm.block_rows(chain, a, n, bmax),
+                            comm.block_rows(n_commit, a, n, bmax, "zeros"), win["loglam"],
+                            comm.block_rows(slot_ids, a, n, bmax))
+    share_slot_states(kv, slot_ids, n_commit > 0, par)
     return kv
+
+
+def share_slot_states(kv: dict, slot_ids: torch.Tensor, changed: torch.Tensor, par) -> None:
+    """Data parallelism: after a step each data group has changed the
+    states of its own rows' slots. Every group's states of its block's slots
+    are gathered in group order (one exact gather of [n_lin, rows, H, D, D]
+    fp32) and each rank writes the other groups' changed slots (``changed``
+    [B] bool: a padding or inactive row, whose slot may be another row's,
+    writes nothing), so ``kv["s"]`` holds the same bits on every group."""
+    s = kv["s"]
+    a, n, bmax, sizes = comm.data_block(slot_ids.shape[0], par)
+    mine = s[:, comm.block_rows(slot_ids, a, n, bmax).long()]
+    parts = comm.data_gather(mine.contiguous(), par)
+    start = 0
+    for g, size in enumerate(sizes):
+        if g != par.data_rank:
+            ok = changed[start:start + size]
+            slots = slot_ids[start:start + size][ok].long()
+            s[:, slots] = parts[g][:, :size][:, ok]
+        start += size

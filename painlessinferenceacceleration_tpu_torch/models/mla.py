@@ -22,6 +22,13 @@ expands the latent to each head's ``k_nope`` and ``v``. Two cache modes
 
 Layer weights are stacked ``[L, ...]`` as in ``models/base.py``; a block
 takes its stack and the layer index. The KV arena is written in place.
+
+Under context parallelism (a rank state whose ``cp`` > 1) a block writes
+the step's rows onto this rank's pages only and attends through
+``ops/cp_attention.py``: in latent mode K13 over the rank's page range, in
+expanded mode K2 / K3 over it, each with the rows' log-sum-exp, and the
+ranks' partials merged in rank order (JAX gathers the page-sharded arena
+instead, GSPMD).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from painlessinferenceacceleration_tpu_torch.layers.linear import (
     dequantize,
     linear_at,
 )
+from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_attention, cp_write_kv
 from painlessinferenceacceleration_tpu_torch.ops.mla_attention import mla_paged_attention
 from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import dense_matmul_batched
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
@@ -129,6 +137,22 @@ def _absorption_weights(kv_b, li: int, cfg: ModelConfig, spec: Optional[QuantSpe
     return hit[0][li], hit[1][li]
 
 
+def _mla_attention(q: torch.Tensor, kv: dict, li: int, page_tables: torch.Tensor,
+                   start_lens: torch.Tensor, qmask: torch.Tensor, causal: bool,
+                   scale: float, latent_v_dim: Optional[int]) -> torch.Tensor:
+    """One process's attention of KV layer ``li`` over the whole arena:
+    K13 over the latent arena (``latent_v_dim`` set), else K2 / K3 over the
+    expanded one (the card takes Q > 128 under the causal rule only)."""
+    kk = kv["k"][li]
+    if latent_v_dim is not None:
+        return mla_paged_attention(q, kk, page_tables, start_lens, qmask, scale,
+                                   v_dim=latent_v_dim, causal=causal)
+    vv = kv["v"][li]  # [n_pages, ps, H * 192] / [.., H * 128]
+    if q.shape[1] > 128 and causal:
+        return paged_attention_prefill(q, kk, vv, page_tables, start_lens, scale)
+    return paged_attention(q, kk, vv, page_tables, start_lens, qmask, scale)
+
+
 def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
                    spec: Optional[QuantSpec], h: torch.Tensor, cos: torch.Tensor,
                    sin: torch.Tensor, kv: dict, page_tables: torch.Tensor,
@@ -163,27 +187,28 @@ def mla_attn_block(layers: dict, li: int, kv_li: int, cfg: ModelConfig,
     k_pe = apply_rope(k_pe, cos, sin, interleaved=True)
     scale = (nope + rope_d) ** -0.5 * yarn_mscale(cfg) ** 2
 
+    latent_v = r if cfg.mla_latent_cache else None
     if cfg.mla_latent_cache:
         w_uk_t, w_uv = _absorption_weights(layers["kv_b"], li, cfg, spec, h.dtype)
         q_abs = _from_heads(dense_matmul_batched(_per_head(q_nope), w_uk_t, h.dtype), B, Q)
         q_full = torch.cat([q_abs, q_pe], dim=-1)  # [B, Q, H, r + rope_d]
         k_lat = torch.cat([c_kv[:, :, None, :], k_pe], dim=-1)  # [B, Q, 1, r + rope_d]
         new_k, new_v = k_lat, c_kv[:, :, None, :]
-        write_kv_pages(kv["k"], kv["v"], new_k, new_v, page_tables, start_lens, valid, kv_li)
-        out = mla_paged_attention(q_full, kv["k"][kv_li], page_tables, start_lens, qmask,
-                                  scale, v_dim=r, causal=causal_window)  # [B, Q, H, r]
-        out = _from_heads(dense_matmul_batched(_per_head(out), w_uv, h.dtype), B, Q)
     else:
         kvb = linear_at(layers["kv_b"], li, c_kv, spec).reshape(B, Q, H, nope + v_d)
         k = torch.cat([kvb[..., :nope], k_pe.expand(B, Q, H, rope_d)], dim=-1)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         new_k, new_v = k, kvb[..., nope:]
+    if par is not None and par.cp > 1:  # this rank's pages; the ranks' parts merged
+        cp_write_kv(kv, kv_li, new_k, new_v, page_tables, start_lens, valid, par.model_rank)
+        out = cp_attention(q_full, kv, kv_li, page_tables, start_lens, qmask, causal_window,
+                           scale, par, latent_v)
+    else:
         write_kv_pages(kv["k"], kv["v"], new_k, new_v, page_tables, start_lens, valid, kv_li)
-        kk, vv = kv["k"][kv_li], kv["v"][kv_li]  # [n_pages, ps, H * 192] / [.., H * 128]
-        if Q > 128 and causal_window:
-            out = paged_attention_prefill(q_full, kk, vv, page_tables, start_lens, scale)
-        else:  # (the card takes Q <= 128 under the mask rule)
-            out = paged_attention(q_full, kk, vv, page_tables, start_lens, qmask, scale)
+        out = _mla_attention(q_full, kv, kv_li, page_tables, start_lens, qmask,
+                             causal_window, scale, latent_v)
+    if cfg.mla_latent_cache:  # [B, Q, H, r] back through W_uv
+        out = _from_heads(dense_matmul_batched(_per_head(out), w_uv, h.dtype), B, Q)
     if record is not None:
         record.append((kv_li, new_k, new_v))
     return linear_rows_at(layers["wo"], li, out.reshape(B, Q, H * v_d), spec, par,

@@ -15,8 +15,9 @@ Prefill-size batches of native experts on the card take the grouped route
 GEMMs, exact (no capacity dropping), top_k / n_exp of the scan's
 multiply-adds. With ``cfg.expert_parallel`` and more than one expert shard
 (``expert_shards``) each shard runs the grouped route over its own experts
-and the shards' contributions are added; under a ``DistLLM`` each rank holds
-its own experts (expert parallelism) or its columns of every expert (tensor
+(activation-quantized experts: the scan over them) and the shards'
+contributions are added; under a ``DistLLM`` each rank holds its own
+experts (expert parallelism) or its columns of every expert (tensor
 parallelism), and the ranks' parts are added in rank order.
 
 On the card a token's expert output has the same bits by every route and at
@@ -170,41 +171,68 @@ def expert_shard_mlp(x: torch.Tensor, route_w: torch.Tensor, wgu_l, wdown_l,
     return routed_expert_mlp(x, ex, tw, wgu_l, wdown_l, n_local, inter_size, spec)
 
 
+def _ep_part(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Tensor,
+             route_w: torch.Tensor, wgu, wdown, base: int, n_local: int) -> torch.Tensor:
+    """One expert shard's routed contribution [T, E] in fp32, over its
+    experts ``[base, base + n_local)`` (``wgu`` / ``wdown``: their stacked
+    weights). Native and weight-only int8 / int4 experts take the grouped
+    route over the pairs they own (``expert_shard_mlp``); activation-quantized
+    ones (W8A8 int8 / e4m3, block fp8) the scan over those experts, as
+    ``_moe_local`` scans all of them (K8 / K9): a token's weight is 0 for
+    an expert it did not pick."""
+    k = cfg.num_experts_per_tok
+    I = cfg.moe_intermediate_size or cfg.intermediate_size
+    if _ep_routed(spec, lp):
+        return expert_shard_mlp(x, route_w, wgu, wdown, base, n_local, k, I, spec)
+    return _scan_experts(wgu, wdown, x, spec, route_w, base, n_local)
+
+
+def _scan_experts(wgu, wdown, x: torch.Tensor, spec: Optional[QuantSpec],
+                  route_w: torch.Tensor, base: int, n: int) -> torch.Tensor:
+    """The scan route over the experts ``[base, base + n)`` (``wgu`` /
+    ``wdown``: their stacked weights): every token through every expert, the
+    fp32 sum of the outputs weighted by ``route_w``'s columns, in expert
+    order. [T, E] fp32."""
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(n):
+        out = _expert_mlp(_experts(wgu, e), _experts(wdown, e), x, spec)
+        acc = acc + out.to(torch.float32) * route_w[:, base + e][:, None]
+    return acc
+
+
 def _moe_expert_parallel(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
                          x: torch.Tensor, route_w: torch.Tensor):
     """Expert parallelism in one process: the expert axis of the stacked
     weights is split into ``expert_shards`` shards.
 
-    Routed path: each shard computes only the (token, choice) pairs its own
-    experts own (``expert_shard_mlp``) and the shards' fp32 contributions are
-    added; every pair is computed by exactly one shard, so the sum is exact.
-    Native and weight-only int8 / int4 experts take it. This is the JAX
-    package's arithmetic under a mesh whose ``model`` axis has that many
-    devices: there each device holds one shard and a ``psum`` adds them.
-    Here one process that holds all experts runs the shards in rank order,
-    over views of the stacked weights, and adds their contributions in rank
-    order: the CPU parity path and the oracle of ``_moe_ep``, where each
+    Each shard computes only its own experts' part (``_ep_part``: the
+    (token, choice) pairs they own by the grouped route, or the scan over
+    them for activation-quantized experts) and the shards' fp32
+    contributions are added in rank order; every pair is computed by
+    exactly one shard. This is the JAX package's arithmetic under a mesh
+    whose ``model`` axis has that many devices: there each device holds one
+    shard and a ``psum`` adds them (its activation-quantized experts take
+    the scan over the sharded weights). Here one process that holds all
+    experts runs the shards in rank order, over views of the stacked
+    weights: the CPU parity path and the oracle of ``_moe_ep``, where each
     rank of a ``DistLLM`` holds its own shard.
 
-    With one shard, a shard count that does not divide the experts, or
-    activation-quantized experts: native experts fall back to the dense
-    all-experts product and quantized experts return None (the caller's scan
-    path), as in the JAX package."""
-    X, k = cfg.num_experts, cfg.num_experts_per_tok
+    With one shard or a shard count that does not divide the experts:
+    native experts fall back to the dense all-experts product and quantized
+    experts return None (the caller's scan path), as in the JAX package."""
+    X = cfg.num_experts
     I = cfg.moe_intermediate_size or cfg.intermediate_size
-    quant = isinstance(lp["moe_wgu"], dict)
     tp = _EXPERT_SHARDS
-    if _ep_routed_ok(cfg, spec, lp, tp):
+    if _ep_divides(cfg, tp):
         Xl = X // tp
         out = None
         for rank in range(tp):
             local = slice(rank * Xl, (rank + 1) * Xl)
-            part = expert_shard_mlp(
-                x, route_w, _experts(lp["moe_wgu"], local),
-                _experts(lp["moe_wdown"], local), rank * Xl, Xl, k, I, spec)
+            part = _ep_part(lp, cfg, spec, x, route_w, _experts(lp["moe_wgu"], local),
+                            _experts(lp["moe_wdown"], local), rank * Xl, Xl)
             out = part if out is None else out + part
         return out
-    if quant:
+    if isinstance(lp["moe_wgu"], dict):
         return None
     # dense all-experts fallback: exact, X / k times the routed multiply-adds;
     # the gate stays in fp32 up to the activation, as in the JAX einsum
@@ -217,29 +245,34 @@ def _moe_expert_parallel(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
     return acc
 
 
-def _ep_routed_ok(cfg: ModelConfig, spec: Optional[QuantSpec], lp: dict, n: int) -> bool:
-    """Whether ``n`` expert shards take the routed path."""
-    quant = isinstance(lp["moe_wgu"], dict)
-    return (n > 1 and cfg.num_experts % n == 0
-            and (not quant or (spec is not None and spec.act is None and not spec.block)))
+def _ep_divides(cfg: ModelConfig, n: int) -> bool:
+    """Whether the experts split over ``n`` > 1 shards."""
+    return n > 1 and cfg.num_experts % n == 0
+
+
+def _ep_routed(spec: Optional[QuantSpec], lp: dict) -> bool:
+    """Whether a shard's experts take the grouped route over its pairs
+    (native or weight-only int8 / int4), not the scan over its experts
+    (activation-quantized: W8A8 and block fp8)."""
+    return not isinstance(lp["moe_wgu"], dict) or (
+        spec is not None and spec.act is None and not spec.block)
 
 
 def _moe_ep(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Tensor,
             route_w: torch.Tensor, st) -> torch.Tensor:
     """Expert parallelism over the model ranks of a ``DistLLM`` (the rank
     state ``st``): rank r holds experts [r Xl, (r + 1) Xl) and computes
-    the pairs they own (``expert_shard_mlp``); the ranks' fp32 parts are
-    gathered and added in rank order, the order of ``_moe_expert_parallel``'s
-    loop, so the sum [T, E] has the bits of the one-process
-    ``expert_shards(n)``."""
-    X, k = cfg.num_experts, cfg.num_experts_per_tok
-    if not _ep_routed_ok(cfg, spec, lp, st.model_size):
+    their part (``_ep_part``); the ranks' fp32 parts are gathered and added
+    in rank order, the order of ``_moe_expert_parallel``'s loop, so the sum
+    [T, E] has the bits of the one-process ``expert_shards(n)``."""
+    X = cfg.num_experts
+    if not _ep_divides(cfg, st.model_size):
         raise NotImplementedError(
-            f"expert parallelism over {st.model_size} ranks takes native or weight-only "
-            f"int8 / int4 experts whose count divides ({X} experts)")
+            f"expert parallelism over {st.model_size} ranks needs the experts ({X}) to "
+            "divide")
     Xl = X // st.model_size
-    part = expert_shard_mlp(x, route_w, lp["moe_wgu"], lp["moe_wdown"], st.model_rank * Xl,
-                            Xl, k, cfg.moe_intermediate_size or cfg.intermediate_size, spec)
+    part = _ep_part(lp, cfg, spec, x, route_w, lp["moe_wgu"], lp["moe_wdown"],
+                    st.model_rank * Xl, Xl)
     return comm.reduce_partial(part, st)
 
 
@@ -250,11 +283,7 @@ def _moe_local(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.T
     T, E = x.shape
     if use_grouped_moe(cfg, spec, lp, T):
         return moe_block_grouped(lp, cfg, x[None], route_w).reshape(T, E)
-    acc = torch.zeros((T, E), dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):
-        out = _expert_mlp(_experts(lp["moe_wgu"], e), _experts(lp["moe_wdown"], e), x, spec)
-        acc = acc + out.to(torch.float32) * route_w[:, e][:, None]
-    return acc
+    return _scan_experts(lp["moe_wgu"], lp["moe_wdown"], x, spec, route_w, 0, cfg.num_experts)
 
 
 def router_logits(lp: dict, x: torch.Tensor) -> torch.Tensor:

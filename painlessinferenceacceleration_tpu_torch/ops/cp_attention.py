@@ -13,11 +13,14 @@ rank computes every row of a step.
 - ``cp_partial`` is the rank's attention over its own keys: K2 (Q <= 128)
   or K3 (Q > 128, causal) with the page range ``[1, per + 1)`` of its
   local pages and the rows' log-sum-exp; on the CPU their plain twin
-  (``paged_attention_ref`` with the same range). A row that sees no local
-  key comes out 0 with log-sum-exp -inf, and weighs exactly 0 in the
-  merge. JAX's ``_local_attention_stats`` returns (acc, m, l) and merges
-  with a pmax and two psums; here a rank returns its normalised output and
-  log-sum-exp, which carry the same information.
+  (``paged_attention_ref`` with the same range). MLA's expanded arena
+  takes the same kernels at its (192, 128) head dims; its latent arena
+  (``latent_v_dim`` set: one shared 576-lane K row a token, the value its
+  first 512 lanes) takes K13 with the range (``mla_paged_attention``). A
+  row that sees no local key comes out 0 with log-sum-exp -inf, and
+  weighs exactly 0 in the merge. JAX's ``_local_attention_stats`` returns
+  (acc, m, l) and merges with a pmax and two psums; here a rank returns
+  its normalised output and log-sum-exp, which carry the same information.
 - ``merge_partials`` is the plain merge out = sum_d exp(lse_d - LSE) out_d,
   LSE = log sum_d exp(lse_d), the parts taken in rank order after the
   ordered gather of ``parallel/comm.py``: O(B Q H D), elementwise per row,
@@ -30,11 +33,12 @@ rank computes every row of a step.
   is this oracle: its arena, written and compacted as always, is what the
   ranks' arenas, gathered, must equal.
 - ``cp_write_kv`` writes the step's K / V rows whose page is local (K16
-  writes no invalid token); ``cp_compact_tail`` replaces the verify step's
-  window compaction: every rank computed every row of the step, so the
-  accepted rows are written again to their final slots from the step's
-  own K / V rows (``engine/step.py`` asks the forward to record them),
-  local pages only, and no collective is needed.
+  writes no invalid token; any row widths: a dense model's heads, MLA's
+  576 / 512-lane latent rows or its expanded heads); ``cp_compact_tail``
+  replaces the verify step's window compaction: every rank computed every
+  row of the step, so the accepted rows are written again to their final
+  slots from the step's own K / V rows (``engine/step.py`` asks the
+  forward to record them), local pages only, and no collective is needed.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 from painlessinferenceacceleration_tpu_torch.engine.cache import write_kv_pages
 from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attention_ref
+from painlessinferenceacceleration_tpu_torch.ops.mla_attention import mla_paged_attention
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_prefill,
@@ -55,13 +60,14 @@ from painlessinferenceacceleration_tpu_torch.parallel.comm import model_gather
 def cp_attention_oracle(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                         page_tables: torch.Tensor, ctx_lens: torch.Tensor,
                         qmask: torch.Tensor, causal: bool, scale: float,
-                        n: int) -> torch.Tensor:
+                        n: int, latent_v_dim: Optional[int] = None) -> torch.Tensor:
     """One process's context-parallel attention over the whole arena
-    [n_pages, ps, Hk * D]: rank d's partial over its global pages
-    [d * per, (d + 1) * per), merged in rank order."""
+    [n_pages, ps, Hk * D] (MLA's latent arena with ``latent_v_dim``): rank
+    d's partial over its global pages [d * per, (d + 1) * per), merged in
+    rank order."""
     per = k_pages.shape[0] // n
     parts = [cp_partial(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale, causal,
-                        (d * per, (d + 1) * per)) for d in range(n)]
+                        (d * per, (d + 1) * per), latent_v_dim) for d in range(n)]
     return merge_partials(torch.stack([p[0] for p in parts]),
                           torch.stack([p[1] for p in parts]), q.dtype)
 
@@ -76,12 +82,18 @@ def local_page_table(page_tables: torch.Tensor, lo: int, hi: int) -> torch.Tenso
 
 def cp_partial(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                page_tables: torch.Tensor, ctx_lens: torch.Tensor, qmask: torch.Tensor,
-               scale: float, causal: bool,
-               page_range: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, Q, H, D], lse [B, Q, H] fp32) over the keys whose page id
+               scale: float, causal: bool, page_range: Tuple[int, int],
+               latent_v_dim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Q, H, Dv], lse [B, Q, H] fp32) over the keys whose page id
     lies in ``page_range``: K2 (Q <= 128) or K3 (Q > 128, causal) on the
-    card, their plain twin on the CPU. A rank passes its local arena and
-    rebased table with the range [1, per + 1)."""
+    card, their plain twin on the CPU; with ``latent_v_dim``, MLA's latent
+    MQA over the K pages alone (K13, the causal flag as the prefill's, its
+    plain twin on the CPU). A rank passes its local arena and rebased table
+    with the range [1, per + 1)."""
+    if latent_v_dim is not None:
+        return mla_paged_attention(q, k_pages, page_tables, ctx_lens, qmask, scale,
+                                   latent_v_dim, causal=causal, page_range=page_range,
+                                   return_lse=True)
     if q.shape[1] <= 128:
         return paged_attention(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
                                page_range=page_range, return_lse=True)
@@ -118,15 +130,16 @@ def merge_partials(outs: torch.Tensor, lses: torch.Tensor,
 
 def cp_attention(q: torch.Tensor, kv: dict, li: int, page_tables: torch.Tensor,
                  ctx_lens: torch.Tensor, qmask: torch.Tensor, causal: bool, scale: float,
-                 st) -> torch.Tensor:
+                 st, latent_v_dim: Optional[int] = None) -> torch.Tensor:
     """Attention of KV layer ``li`` under context parallelism (the rank
     state ``st``): this rank's partial over its pages, gathered with the
-    other ranks' in rank order, merged."""
+    other ranks of its model group in rank order, merged. ``latent_v_dim``:
+    MLA's latent arena (``cp_partial``)."""
     per = kv["k"].shape[1] - 1
     lo = st.model_rank * per
     out, lse = cp_partial(q, kv["k"][li], kv["v"][li],
                           local_page_table(page_tables, lo, lo + per), ctx_lens, qmask,
-                          scale, causal, (1, per + 1))
+                          scale, causal, (1, per + 1), latent_v_dim)
     return merge_partials(model_gather(out, st), model_gather(lse, st), q.dtype)
 
 

@@ -22,15 +22,25 @@ kernel makes (grid, chunks, workspace), from shapes the host knows: the
 window ``page_tables.shape[1] * 64`` bounds the chunks, and ``ctx`` is read
 only on the card. ``mla_check`` is the geometry the card takes.
 
+Context parallelism: ``page_range`` (lo, hi) keeps only the keys whose page
+id lies in [lo, hi) (on the card the RANGED build, whose skipped key blocks
+are neither loaded nor multiplied, in the same absolute chunks, so the full
+range gives the bits of the call without one), and ``return_lse`` also
+gives each row's log-sum-exp of its scaled scores (fp32, natural log; a row
+that sees no key comes out 0 with -inf), in every route: the one-chunk
+case, the combine of decode and verify, and the walk's fold.
+
 ``launches`` counts the kernel's launches and ``modes`` counts them by width
-kind (decode Q = 1, verify with a mask, prefill with the causal rule).
+kind (decode Q = 1, verify with a mask, prefill with the causal rule; a
+ranged launch also under "decode,range", "verify,range" or
+"prefill,range").
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,8 +55,9 @@ KEY_BLOCK = 64  # kKeys: keys of a block, one page
 K_DIM, V_DIM = 576, 512  # kDk, kDv: a latent row (512 + 64 rope lanes), its value lanes
 CHUNK_KEYS = 512  # keys of a context chunk: the fixed partition of every route
 LOG2E = 1.4426950408889634
-_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6 + (
+    ctypes.c_float,) + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_ALL_PAGES = (0, 2 ** 31 - 1)  # the C entry's "no range": every key block
 
 MlaPlan = collections.namedtuple(
     "MlaPlan", "n_tiles n_chunks walk grid combine_grid workspace_floats scratch_floats")
@@ -122,16 +133,21 @@ def tile_chunks(ctx: int, Q: int, H: int, tile: int, P: int, causal: bool,
 
 def mla_paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                               page_tables: torch.Tensor, ctx_lens: torch.Tensor,
-                              qmask: torch.Tensor, scale: float,
-                              v_dim: int) -> torch.Tensor:
+                              qmask: torch.Tensor, scale: float, v_dim: int,
+                              page_range: Optional[Tuple[int, int]] = None,
+                              return_lse: bool = False):
     """Gather-then-attend over one layer's latent pages [n_pages, ps, Dk],
-    V = each K row's first ``v_dim`` lanes. Returns [B, Q, H, v_dim]."""
+    V = each K row's first ``v_dim`` lanes. Returns [B, Q, H, v_dim]; with
+    ``return_lse`` also the rows' log-sum-exp [B, Q, H] fp32 (``page_range``
+    as in ``paged_attention_ref``)."""
     return paged_attention_ref(q, k_pages, k_pages[..., :v_dim], page_tables, ctx_lens,
-                               qmask, scale, v_dim=v_dim)
+                               qmask, scale, v_dim=v_dim, page_range=page_range,
+                               return_lse=return_lse)
 
 
 def _launch(q, k_pages, page_tables, ctx_lens, qmask, scale, v_dim, causal,
-            chunk: int = CHUNK_KEYS, walk: Optional[bool] = None):
+            chunk: int = CHUNK_KEYS, walk: Optional[bool] = None,
+            page_range: Optional[Tuple[int, int]] = None, return_lse: bool = False):
     B, Q, H, Dk = q.shape
     if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16:
         raise TypeError(f"mla_paged_attention takes bf16 q and pages, not "
@@ -159,6 +175,10 @@ def _launch(q, k_pages, page_tables, ctx_lens, qmask, scale, v_dim, causal,
     cl = ctx_lens.to(torch.int32).contiguous()
     qm = None if causal or Q == 1 else qmask.to(torch.uint8).contiguous()
     out = torch.empty((B, Q, H, v_dim), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Q, H), dtype=torch.float32, device=dev) if return_lse else None
+    lo, hi = _ALL_PAGES if page_range is None else (int(page_range[0]), int(page_range[1]))
+    if page_range is not None and not 0 <= lo <= hi:
+        raise ValueError(f"page_range {page_range} is not 0 <= lo <= hi")
     ws_o = ws_ml = scratch = None
     if plan.workspace_floats:
         n_ml = B * plan.n_tiles * plan.n_chunks * TILE_ROWS * 2
@@ -168,34 +188,41 @@ def _launch(q, k_pages, page_tables, ctx_lens, qmask, scale, v_dim, causal,
         scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev)
     lib, fn = _build.function("mla_attention", "mla_attention", _ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), pt.data_ptr(), cl.data_ptr(), _build.ptr(qm),
-             out.data_ptr(), _build.ptr(ws_o), _build.ptr(ws_ml), _build.ptr(scratch), B, Q,
-             H, n_pages, P, chunk, float(scale) * LOG2E, int(causal), int(plan.walk),
-             _build.stream_of(q))
+             out.data_ptr(), _build.ptr(ws_o), _build.ptr(ws_ml), _build.ptr(scratch),
+             _build.ptr(lse), B, Q, H, n_pages, P, chunk, float(scale) * LOG2E, int(causal),
+             int(plan.walk), lo, hi, _build.stream_of(q))
     _build.check(lib, err, "mla_attention")
     mla_paged_attention.launches += 1
     kind = "decode" if Q == 1 else ("prefill" if causal else "verify")
     mla_paged_attention.modes[kind] += 1
-    return out
+    if page_range is not None:
+        mla_paged_attention.modes[kind + ",range"] += 1
+    return (out, lse) if return_lse else out
 
 
 def mla_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                         page_tables: torch.Tensor, ctx_lens: torch.Tensor,
                         qmask: Optional[torch.Tensor], scale: float, v_dim: int,
-                        causal: bool = False) -> torch.Tensor:
+                        causal: bool = False, page_range: Optional[Tuple[int, int]] = None,
+                        return_lse: bool = False):
     """Latent MQA: q [B, Q, H, Dk] (absorbed q_nope | roped q_pe) over one
     layer's pages [n_pages, ps, Dk], whose in-step rows must already be
     written at ctx..ctx+Q-1. ``qmask`` [B, Q, Q] is the in-step visibility;
     ``causal`` takes the causal rule instead (prefill; qmask may be None).
-    Returns [B, Q, H, v_dim]."""
+    ``page_range`` (lo, hi) keeps only the keys whose page id lies in [lo,
+    hi). Returns [B, Q, H, v_dim]; with ``return_lse`` also the rows'
+    log-sum-exp [B, Q, H] fp32 (-inf, with an output of 0, for a row that
+    sees no key)."""
     if q.is_cuda:
-        return _launch(q, k_pages, page_tables, ctx_lens, qmask, scale, v_dim, causal)
+        return _launch(q, k_pages, page_tables, ctx_lens, qmask, scale, v_dim, causal,
+                       page_range=page_range, return_lse=return_lse)
     if q.device.type != "cpu":
         raise NotImplementedError(f"mla_paged_attention on {q.device}")
     if causal:
         B, Q = q.shape[:2]
         qmask = causal_qmask(Q, q.device)[None].expand(B, Q, Q)
     return mla_paged_attention_plain(q, k_pages, page_tables, ctx_lens, qmask, scale,
-                                     v_dim)
+                                     v_dim, page_range, return_lse)
 
 
 mla_paged_attention.launches = 0

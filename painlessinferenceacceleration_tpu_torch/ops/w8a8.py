@@ -63,13 +63,17 @@ def pow2_snap(s: torch.Tensor) -> torch.Tensor:
 
 
 def quant_act(x2: torch.Tensor, spec: QuantSpec,
-              xs_static: Optional[torch.Tensor] = None):
+              xs_static: Optional[torch.Tensor] = None,
+              amax: Optional[torch.Tensor] = None):
     """Quantize activations x2 [M, K] per spec: (xq, xs) with xs [M] per
     token, or [M, ceil(K/block)] for the block format (the last K block is
     zero-padded for its amax). Static specs use the calibrated scalar
-    ``xs_static``. e4m3 values are clipped to +-448 before the cast: torch's
-    cast does not saturate, and a static or pow2-snapped scale can put values
-    past it. int8 rounds half to even and clips to +-127."""
+    ``xs_static``. ``amax`` [M] fp32 replaces the per-token amax of a
+    dynamic spec: x2 is a K-shard of rows whose whole amax it is (a
+    row-parallel rank's slice), so the shard is quantized as the whole rows
+    are. e4m3 values are clipped to +-448 before the cast: torch's cast does
+    not saturate, and a static or pow2-snapped scale can put values past
+    it. int8 rounds half to even and clips to +-127."""
     qmax = _qmax(spec)
     xf = x2.to(torch.float32)
     M, K = x2.shape
@@ -87,7 +91,7 @@ def quant_act(x2: torch.Tensor, spec: QuantSpec,
         xs = xs_static.to(torch.float32).reshape(()).expand(M).contiguous()
         xq = xf / xs[:, None]
     else:
-        xs = torch.clamp(xf.abs().amax(dim=-1) / qmax, min=1e-8)
+        xs = torch.clamp((xf.abs().amax(dim=-1) if amax is None else amax) / qmax, min=1e-8)
         xq = xf / xs[:, None]
     if spec.wfmt == "fp8":
         xq = torch.clamp(xq, -FP8_MAX, FP8_MAX).to(FP8)
@@ -310,15 +314,17 @@ block_fp8_gemm.launches = 0
 
 
 def w8a8_matmul(x: torch.Tensor, p: dict, spec: QuantSpec,
-                out_dtype=None) -> torch.Tensor:
+                out_dtype=None, amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., K] @ W8A8 leaf -> [..., N] in ``out_dtype`` (default x.dtype):
     activation quantization, then the GEMM of the leaf's format. A stacked
-    leaf is served through its layer's views (``layers.linear.linear_at``)."""
+    leaf is served through its layer's views (``layers.linear.linear_at``).
+    ``amax`` [M] (rows flattened): the whole rows' amax of a dynamic spec
+    where x is their K-shard (``quant_act``)."""
     if spec.block not in (0, BLOCK):
         raise ValueError(f"block fp8 weights come in {BLOCK}x{BLOCK} blocks, not {spec.block}")
     od = out_dtype or x.dtype
     lead = x.shape[:-1]
-    xq, xs = quant_act(x.reshape(-1, x.shape[-1]), spec, p.get("xs"))
+    xq, xs = quant_act(x.reshape(-1, x.shape[-1]), spec, p.get("xs"), amax)
     if spec.block:
         out = block_fp8_gemm(xq, xs, p["q"], p["s"], od)
     else:

@@ -156,16 +156,33 @@ def reduce_partial(part: torch.Tensor, st: RankState) -> torch.Tensor:
     return sum_ordered(model_gather(part.to(torch.float32), st))
 
 
+def _row_part(p: LinearParams, x: torch.Tensor, spec: Optional[QuantSpec],
+              par: RankState) -> torch.Tensor:
+    """This rank's fp32 partial of a row-parallel ``x @ W`` (x is its
+    K-slice). A dynamic W8A8 leaf quantizes the slice with the whole rows'
+    per-token scale: the ranks' amaxes are gathered and their max taken
+    (exact), so each rank's int8 / e4m3 activations are those one process
+    makes of its columns (the JAX package's global amax under GSPMD)."""
+    if isinstance(p, dict) and spec is not None and spec.act == "dyn" and not spec.block:
+        from painlessinferenceacceleration_tpu_torch.ops.w8a8 import w8a8_matmul
+
+        amax = x.reshape(-1, x.shape[-1]).to(torch.float32).abs().amax(dim=-1)
+        amax = model_gather(amax, par).amax(dim=0)
+        return w8a8_matmul(x, p, spec, torch.float32, amax)
+    return linear(p, x, spec, out_dtype=torch.float32)
+
+
 def linear_rows(p: LinearParams, x: torch.Tensor, spec: Optional[QuantSpec],
                 par: Optional[RankState], split: bool = True) -> torch.Tensor:
     """``x @ W`` for a row-parallel ``W`` (``wo``, ``wdown``): under the
     tensor parallelism of ``par`` this rank's rows of W give an fp32
-    partial, the model ranks' partials are added in rank order on every
-    rank, and the sum is rounded once to x's type. With no ``par``, one
-    model rank, or ``split`` False (the block is replicated): ``linear``."""
+    partial (``_row_part``), the model ranks' partials are added in rank
+    order on every rank, and the sum is rounded once to x's type. With no
+    ``par``, one model rank, or ``split`` False (the block is replicated):
+    ``linear``."""
     if par is None or par.tp == 1 or not split:
         return linear(p, x, spec)
-    return reduce_partial(linear(p, x, spec, out_dtype=torch.float32), par).to(x.dtype)
+    return reduce_partial(_row_part(p, x, spec, par), par).to(x.dtype)
 
 
 def linear_rows_at(p_stacked: LinearParams, li: int, x: torch.Tensor,
@@ -174,8 +191,9 @@ def linear_rows_at(p_stacked: LinearParams, li: int, x: torch.Tensor,
     """``linear_rows`` over layer ``li`` of stacked leaves."""
     if par is None or par.tp == 1 or not split:
         return linear_at(p_stacked, li, x, spec)
-    part = linear_at(p_stacked, li, x, spec, out_dtype=torch.float32)
-    return reduce_partial(part, par).to(x.dtype)
+    p = ({k: v[li] for k, v in p_stacked.items()} if isinstance(p_stacked, dict)
+         else p_stacked[li])
+    return reduce_partial(_row_part(p, x, spec, par), par).to(x.dtype)
 
 
 def gather_columns(part: torch.Tensor, st: RankState) -> torch.Tensor:
@@ -200,6 +218,30 @@ def check_same(x: torch.Tensor, group, rank: int, size: int, what: str) -> None:
     for r in range(1, size):
         if not torch.equal(_int_view(parts[r]), _int_view(parts[0])):
             raise RuntimeError(f"ranks disagree on {what}: rank {r} differs from rank 0")
+
+
+def data_block(B: int, st: RankState) -> Tuple[int, int, int, List[int]]:
+    """This data group's contiguous block of a batch of ``B`` rows: (first
+    row, rows, the largest group's rows, every group's rows in group
+    order). The groups split the rows as ``split_sizes`` does."""
+    sizes = split_sizes(B, st.dp)
+    return sum(sizes[:st.data_rank]), sizes[st.data_rank], max(sizes), sizes
+
+
+def block_rows(t: Optional[torch.Tensor], a: int, n: int, bmax: int,
+               pad: str = "first") -> Optional[torch.Tensor]:
+    """Rows [a, a + n) of ``t``, padded to ``bmax`` rows with copies of row 0
+    (``pad`` "first") or with zeros ("zeros": padding that writes nothing
+    where the rows are validity masks or counts)."""
+    if t is None:
+        return None
+    part = t[a:a + n]
+    if n < bmax:
+        fill = t[:1].expand(bmax - n, *t.shape[1:])
+        if pad == "zeros":
+            fill = torch.zeros_like(fill)
+        part = torch.cat([part, fill], dim=0)
+    return part
 
 
 def split_sizes(n_units: int, parts: int) -> List[int]:

@@ -410,10 +410,14 @@ def take_rows(leaf, a: int, b: int, name: str = "leaf"):
 
 
 def _experts(leaf, a: int, b: int):
-    """Experts [a, b) of a stacked expert leaf [(L,) X, ...] (the expert
-    axis is the third from the end)."""
+    """Experts [a, b) of a stacked expert leaf [(L,) X, K, N]: the expert
+    axis is the weight's third from the end. A quantized leaf's entries
+    were stacked expert by expert as its ``q`` was, so each has the expert
+    axis at the same place from the front, whatever its own rank (group
+    scales [(L,) X, K/g, N], W8A8's per-channel [(L,) X, N])."""
     if isinstance(leaf, dict):
-        return {k: (v[..., a:b, :, :].contiguous() if v.dim() >= 3 else v)
+        ax = leaf["q"].dim() - 3
+        return {k: (v.narrow(ax, a, b - a).contiguous() if v.dim() > ax else v)
                 for k, v in leaf.items()}
     return leaf[..., a:b, :, :].contiguous()
 

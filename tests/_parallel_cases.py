@@ -1,7 +1,9 @@
 """Shared pieces of the port's parallel serving tests
 (``tests/test_torch_parallel.py``, ``tests/test_torch_parallel4.py``): the
-tiny model families, the case dicts that ``tests/torch_dist_worker.py``
-runs, and the JAX single-device references they are held against."""
+tiny model families (MLA in latent and, ``mla_x``, expanded mode), the case
+dicts that ``tests/torch_dist_worker.py`` runs (quantized parameters and
+multimodal requests too), and the JAX single-device references they are
+held against."""
 
 import dataclasses
 
@@ -35,6 +37,8 @@ HYBRID = dict(model_type="bailing_moe_linear", vocab_size=128, hidden_size=64,
               num_key_value_heads=8, layer_group_size=4, linear_attention=True)
 DENSE = dict(num_key_value_heads=4, num_attention_heads=8)
 
+MLA_X = dict(MLA, mla_latent_cache=False)
+
 PROMPTS = [[11, 22, 33, 44, 55] * 3, [7, 8, 9] * 4, [5, 6] * 5, [3, 1, 4, 1, 5, 9, 2, 6]]
 NEW = 12
 BASE = dict(page_size=16, max_seq_len=128, max_concurrency=4, eos_token_id=-2,
@@ -44,10 +48,12 @@ LOOK = dict(use_lookahead=True, decoding_length=8, branch_length=4,
 
 
 def cfgs(kind):
-    """(JAX, port) ModelConfig of a family: dense, moe, mla, hybrid, ep."""
+    """(JAX, port) ModelConfig of a family: dense, moe, mla, mla_x, hybrid,
+    ep."""
     if kind == "dense":
         return JModelConfig.tiny(**DENSE), TModelConfig.tiny(**DENSE)
-    over = {"moe": MOE, "mla": MLA, "hybrid": HYBRID, "ep": dict(MOE, expert_parallel=True)}
+    over = {"moe": MOE, "mla": MLA, "mla_x": MLA_X, "hybrid": HYBRID,
+            "ep": dict(MOE, expert_parallel=True)}
     return JModelConfig(**over[kind]), TModelConfig(**over[kind])
 
 
@@ -63,9 +69,10 @@ def tparams(jp):
     return params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
 
 
-def port_params(kind, seed=1):
+def port_params(kind, seed=1, quant=None):
     """A family's fp32 parameters drawn by the port (fast: the worker
-    processes can start at once) and the same tensors as a JAX tree."""
+    processes can start at once), quantized by the port to the mode
+    ``quant`` where given, and the same tensors as a JAX tree."""
     import torch
 
     tc = cfgs(kind)[1]
@@ -77,9 +84,11 @@ def port_params(kind, seed=1):
 
         tp = init_hybrid_params(tc, g, torch.float32, "cpu")
     else:
+        from painlessinferenceacceleration_tpu_torch.layers.linear import QuantSpec
         from painlessinferenceacceleration_tpu_torch.models.base import init_params
 
-        tp = init_params(tc, g, device="cpu")
+        tp = init_params(tc, g, device="cpu",
+                         quant=QuantSpec.from_mode(quant) if quant else None)
 
     def to_jax(t):
         if isinstance(t, dict):
@@ -102,13 +111,33 @@ def case(name, kind, params, mesh, world, ecfg, logits=False, **extra):
     return c
 
 
-def jax_reference(kind, jp):
+def mm_requests(E, seed=7):
+    """Multimodal embeddings for ``PROMPTS``: prompts 0 and 2 carry a few
+    [M, E] rows (numpy, fp32) at prompt positions, the others none."""
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=(3, E)).astype(np.float32), [1, 2, 9]), None,
+            (rng.normal(size=(2, E)).astype(np.float32), [0, 4]), None]
+
+
+def jax_reference(kind, jp, quant=None, mm=None):
     """The JAX single-device LLM's greedy tokens over ``PROMPTS`` and its
-    prefill logits of the first two prompts."""
+    prefill logits of the first two prompts; ``quant`` the engine's quant
+    mode, ``mm`` each prompt's multimodal embeddings (``mm_requests``)."""
+    from painlessinferenceacceleration_tpu.layers.linear import QuantSpec as JQuantSpec
+
     jc = dataclasses.replace(cfgs(kind)[0], expert_parallel=False)  # one device
-    ecfg = JEngineConfig(**BASE)
-    toks = [r.output_ids for r in JLLM(cfg=jc, params=jp, ecfg=ecfg, dtype=jnp.float32)
-            .generate(PROMPTS, JSP(max_new_tokens=NEW))]
+    ecfg = JEngineConfig(**BASE, **({"quant": quant} if quant else {}))
+    llm = JLLM(cfg=jc, params=jp, ecfg=ecfg, dtype=jnp.float32)
+    sp = JSP(max_new_tokens=NEW)
+    if mm is None:
+        reqs = llm.generate(PROMPTS, sp)
+    else:
+        reqs = [llm.add_request(p, sp, mm_embeds=None if m is None else m[0],
+                                mm_positions=None if m is None else m[1])
+                for p, m in zip(PROMPTS, mm)]
+        while any(r.state != "finished" for r in reqs):
+            llm.step()
+    toks = [r.output_ids for r in reqs]
     B, n = 2, max(len(p) for p in PROMPTS[:2])
     ids = np.zeros((B, n), np.int32)
     for b, p in enumerate(PROMPTS[:2]):
@@ -117,7 +146,8 @@ def jax_reference(kind, jp):
     pt = jnp.arange(1, 1 + B * P, dtype=jnp.int32).reshape(B, P)
     kv = j_init_kv(jc, ecfg, dtype=jnp.float32)
     _, _, lg = j_prefill(jp, kv, jc, jnp.asarray(ids), jnp.zeros(B, jnp.int32),
-                         jnp.asarray([len(p) for p in PROMPTS[:2]], jnp.int32), pt)
+                         jnp.asarray([len(p) for p in PROMPTS[:2]], jnp.int32), pt,
+                         JQuantSpec.from_mode(quant) if quant else None)
     return toks, np.asarray(lg)
 
 

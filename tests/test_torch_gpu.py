@@ -1180,6 +1180,84 @@ def test_mla_attention_rows_do_not_depend_on_the_width(cuda, H):
         assert torch.equal(part, full[:, c0:c0 + 200])
 
 
+_MLA_RANGE_CASES = [("decode", 1, [4096, 300]), ("decode", 1, [C - 1, 40]),
+                    ("verify", 17, [4096, 70]), ("prefill", 512, [3584, 0]),
+                    ("prefill", 300, [C - 100, 2 * C - 1])]
+
+
+def _mla_range_call(q, k, pt, ctx_t, qm, kind, **kw):
+    from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
+        mla_paged_attention,
+    )
+
+    return mla_paged_attention(q, k, pt, ctx_t, qm, 0.0417, MLA_DV, causal=kind == "prefill",
+                               **kw)
+
+
+@pytest.mark.parametrize("kind,Q,ctx", _MLA_RANGE_CASES)
+def test_mla_attention_page_range_and_lse_match_plain(cuda, kind, Q, ctx):
+    """K13 with a page range and the rows' log-sum-exp, in each route (one
+    chunk, the combine of decode and verify, the prefill walk), against
+    ``mla_paged_attention_plain(page_range=, return_lse=)``: the output
+    within rel 2e-2, the log-sum-exp within 2e-3 (natural log); rows that
+    see no key in the range are 0 with -inf in both, and a range that
+    holds none of a request's pages leaves its rows so."""
+    from painlessinferenceacceleration_tpu_torch.ops.mla_attention import (
+        mla_paged_attention,
+        mla_paged_attention_plain,
+    )
+
+    B = len(ctx)
+    k, pt, ctx_t = _mla_arena(cuda, B, ctx, Q)
+    q = _mla_q(cuda, B, Q, 16)
+    qm = (_mask(cuda, B, Q) if kind == "verify"
+          else causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous())
+    n = k.shape[0]
+    for rng in ((1, n // 2), (n // 2, n), (n + 5, n + 9)):
+        before = mla_paged_attention.modes[kind + ",range"]
+        out, lse = _mla_range_call(q, k, pt, ctx_t, qm, kind, page_range=rng,
+                                   return_lse=True)
+        assert mla_paged_attention.modes[kind + ",range"] == before + 1
+        ref, ref_lse = mla_paged_attention_plain(q, k, pt, ctx_t, qm, 0.0417, MLA_DV,
+                                                 page_range=rng, return_lse=True)
+        empty = torch.isinf(ref_lse)
+        assert torch.equal(torch.isinf(lse), empty), rng
+        assert torch.isneginf(lse[empty]).all() and (out[empty] == 0).all(), rng
+        fin = ~empty
+        if rng[0] >= n:
+            assert empty.all()
+        if fin.any():
+            assert (lse[fin] - ref_lse[fin]).abs().max().item() < 2e-3, rng
+            assert _rel(out, ref) < 2e-2, rng
+
+
+@pytest.mark.parametrize("kind,Q,ctx", _MLA_RANGE_CASES)
+def test_mla_attention_full_page_range_is_the_call_without_one(cuda, kind, Q, ctx):
+    """The range [0, n_pages) (the RANGED build) gives the bits of the call
+    without one, in every route, with the log-sum-exp asked for or not;
+    the two ranks' partials over [0, n/2) and [n/2, n) merged lie within
+    rel 2e-2 of the whole call."""
+    from painlessinferenceacceleration_tpu_torch.ops.cp_attention import merge_partials
+
+    B = len(ctx)
+    k, pt, ctx_t = _mla_arena(cuda, B, ctx, Q)
+    q = _mla_q(cuda, B, Q, 16)
+    qm = (_mask(cuda, B, Q) if kind == "verify"
+          else causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous())
+    plain = _mla_range_call(q, k, pt, ctx_t, qm, kind)
+    full, lse = _mla_range_call(q, k, pt, ctx_t, qm, kind, page_range=(0, k.shape[0]),
+                                return_lse=True)
+    assert torch.equal(full, plain)
+    assert torch.equal(_mla_range_call(q, k, pt, ctx_t, qm, kind, return_lse=True)[0], plain)
+    assert torch.isfinite(lse).all()
+    n = k.shape[0]
+    parts = [_mla_range_call(q, k, pt, ctx_t, qm, kind, page_range=r, return_lse=True)
+             for r in ((0, n // 2), (n // 2, n))]
+    got = merge_partials(torch.stack([p[0] for p in parts]),
+                         torch.stack([p[1] for p in parts]))
+    assert _rel(got, plain) < 2e-2
+
+
 def test_mla_absorption_rows_do_not_depend_on_m(cuda):
     from painlessinferenceacceleration_tpu_torch.ops.moe_matmul import (
         dense_matmul_batched,

@@ -325,13 +325,22 @@ def test_expert_parallel_fallbacks_follow_jax():
     close(tmoe.moe_block(tlp, tc, None, torch.from_numpy(h)), ref, 1e-5)
     with tmoe.expert_shards(3):  # 8 experts do not split three ways
         close(tmoe.moe_block(tlp, tc, None, torch.from_numpy(h)), ref, 1e-5)
-    # quantized experts with one shard, or activation-quantized ones: the scan
+    # quantized experts with one shard: the scan
     x, rw = torch.from_numpy(h[0]), torch.zeros(96, 8)
     qlp = dict(tlp, moe_wgu=tmoe._make_expert(tlp["moe_wgu"], TQuantSpec(bits=8, group=32)))
     assert tmoe._moe_expert_parallel(qlp, tc, TQuantSpec(bits=8, group=32), x, rw) is None
-    with tmoe.expert_shards(2):
-        assert tmoe._moe_expert_parallel(
-            qlp, tc, TQuantSpec.from_mode("w8a8_int8"), x, rw) is None
+    # activation-quantized experts (W8A8, block fp8) over shards: each shard
+    # scans its own experts (JAX: the scan over expert-sharded weights), the
+    # shards' fp32 parts added in order: within 1e-5 of the scan over all
+    rw = tmoe.route_topk(tc, tmoe.router_logits(tlp, x))
+    for mode in ("w8a8_int8", "fp8_block"):
+        w8 = TQuantSpec.from_mode(mode)
+        wlp = dict(tlp, moe_wgu=tmoe._make_expert(tlp["moe_wgu"], w8),
+                   moe_wdown=tmoe._make_expert(tlp["moe_wdown"], w8))
+        with tmoe.expert_shards(2):
+            got = tmoe._moe_expert_parallel(wlp, tc, w8, x, rw)
+        assert got is not None, mode
+        close(got, t2n(tmoe._moe_local(wlp, tc, w8, x, rw)), 1e-5)
     with pytest.raises(ValueError):
         with tmoe.expert_shards(0):
             pass

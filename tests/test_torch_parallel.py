@@ -16,10 +16,15 @@
   policies (lockstep: every rank checks the others' tokens after each
   step): greedy and lookahead tokens equal the JAX single-device ``LLM``'s,
   first-step logits within 1e-4 of the JAX prefill's, and EP's MoE block
-  bit-equal to the one-process ``expert_shards(2)``.
+  bit-equal to the one-process ``expert_shards(2)``. Also the layouts the
+  JAX package serves beyond those: CP for MLA (latent and expanded) and
+  for a hybrid, DP for a hybrid (its recurrent states bit-equal on both
+  ranks after every step) and for multimodal requests, EP for W8A8
+  experts.
 - Context-parallel attention: the ranks' partials merged against JAX's
   ``cp_paged_attention`` within 1e-5 in fp32, with GQA and with a row that
-  has no local key.
+  has no local key; MLA's latent partials (K13's plain twin over each
+  rank's pages) merged against the JAX package's MLA attention.
 - ``lcm(16, axis)`` page rounding at an axis of 3.
 """
 
@@ -334,6 +339,59 @@ def test_cp_attention_matches_jax(n, Hq, Hk, Q):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,Q", [(2, 1), (4, 5), (2, 3)])
+def test_cp_mla_latent_attention_matches_jax(n, Q):
+    """MLA's latent partials: each rank's K13 plain twin over its pages of
+    the latent arena (one shared [latent | rope] row a token, the value its
+    first lanes), with the log-sum-exp, merged in rank order, against the
+    JAX package's single-device MLA attention (its Pallas body in interpret
+    mode) on the same pages: within 1e-5 in fp32. Row 1's context lies on
+    rank 0's pages only, so the other ranks see no local key for it; the
+    one-process oracle (``cp_attention_oracle``) gives the merge's bits."""
+    from painlessinferenceacceleration_tpu.ops.mla_attention import (
+        mla_paged_attention as j_mla_attn,
+    )
+
+    from painlessinferenceacceleration_tpu_torch.ops.cp_attention import (
+        cp_attention_oracle,
+        cp_partial,
+        local_page_table,
+        merge_partials,
+    )
+
+    rng = np.random.default_rng(10 * n + Q)
+    r, rope_d, H, ps, B, n_pages = 32, 16, 4, 16, 2, 24
+    Dk, per = r + rope_d, n_pages // n
+    k = rng.normal(size=(n_pages, ps, Dk)).astype(np.float32)
+    pt = np.zeros((B, 8), np.int32)
+    pt[0] = [1, per + 1, n_pages - 1, per - 1, 2 if n == 2 else 2 * per, 3, 0, 0]
+    pt[1, :2] = [4, 5]
+    ctx = np.array([70, 20], np.int32)
+    q = rng.normal(size=(B, Q, H, Dk)).astype(np.float32)
+    i = np.arange(Q)
+    qm = np.broadcast_to(i[:, None] >= i[None, :], (B, Q, Q)).copy()
+    scale = Dk ** -0.5
+    want = np.asarray(j_mla_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pt),
+                                 jnp.asarray(ctx), jnp.asarray(qm), scale, v_dim=r,
+                                 interpret=True))
+    tq, tk, tpt = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(pt)
+    tctx, tqm = torch.from_numpy(ctx), torch.from_numpy(qm)
+    outs, lses = [], []
+    for d in range(n):
+        lo = d * per
+        kl = torch.cat([torch.zeros_like(tk[:1]), tk[lo:lo + per]])
+        o, lse = cp_partial(tq, kl, kl[..., :r], local_page_table(tpt, lo, lo + per), tctx,
+                            tqm, scale, False, (1, per + 1), r)
+        if d > 0:
+            assert torch.isneginf(lse[1]).all() and (o[1] == 0).all()
+        outs.append(o)
+        lses.append(lse)
+    got = merge_partials(torch.stack(outs), torch.stack(lses))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    orc = cp_attention_oracle(tq, tk, tk[..., :r], tpt, tctx, tqm, False, scale, n, r)
+    assert torch.equal(orc, got)
+
+
 # ---------------------------------------------------------------------------
 # serving over real processes (2 ranks; 4 ranks in test_torch_parallel4.py)
 # ---------------------------------------------------------------------------
@@ -344,10 +402,13 @@ def served(tmp_path_factory):
     """Start the 2-rank group, then compute the JAX references while it
     runs. Returns (each rank's results, JAX tokens and logits by family)."""
     tmp = str(tmp_path_factory.mktemp("dist"))
-    both = {f: pc.port_params(f) for f in ("dense", "moe", "mla", "hybrid")}
+    both = {f: pc.port_params(f) for f in ("dense", "moe", "mla", "mla_x", "hybrid")}
+    both["ep_w8a8"] = pc.port_params("ep", quant="w8a8_int8")
     tps = {f: p[0] for f, p in both.items()}
     tps["ep"] = tps["moe"]  # the same draw: expert_parallel changes no weight
     look, case = pc.LOOK, pc.case
+    cp = dict(look, context_parallel=True, num_pages=16, page_size=8)
+    mm = pc.mm_requests(pc.cfgs("dense")[1].hidden_size)
     ranks = Ranks(2, [
         case("tp_la", "dense", tps["dense"], (1, 2), 2, look, logits=True),
         case("cp", "dense", tps["dense"], (1, 2), 2,
@@ -359,15 +420,29 @@ def served(tmp_path_factory):
         case("hybrid_tp", "hybrid", tps["hybrid"], (1, 2), 2, look, logits=True),
         case("mix", "dense", tps["dense"], (2, 1), 2, dict(look, schedule_policy="mix")),
         case("timely", "dense", tps["dense"], (2, 1), 2, dict(look, schedule_policy="timely")),
+        case("mla_cp", "mla", tps["mla"], (1, 2), 2, cp, logits=True, cp_oracle=True),
+        case("mla_x_cp", "mla_x", tps["mla_x"], (1, 2), 2, cp, logits=True, cp_oracle=True),
+        case("hybrid_cp", "hybrid", tps["hybrid"], (1, 2), 2, cp, logits=True,
+             cp_oracle=True, state_hashes=True),
+        case("hybrid_dp", "hybrid", tps["hybrid"], (2, 1), 2, look, logits=True,
+             state_hashes=True),
+        case("mm_dp", "dense", tps["dense"], (2, 1), 2, look, mm=mm),
+        case("ep_w8a8", "ep", tps["ep_w8a8"], (1, 2), 2, dict(look, quant="w8a8_int8"),
+             logits=True, ep_block=True),
     ], tmp)
-    refs = {f: pc.jax_reference(f, p[1]) for f, p in both.items()}
+    refs = {f: pc.jax_reference(f, both[f][1])
+            for f in ("dense", "moe", "mla", "mla_x", "hybrid")}
     refs["ep"] = refs["moe"]
+    refs["ep_w8a8"] = pc.jax_reference("ep", both["ep_w8a8"][1], quant="w8a8_int8")
+    refs["mm"] = pc.jax_reference("dense", both["dense"][1], mm=mm)
     return ranks.results(), refs
 
 
 CASES = [("tp_la", "dense"), ("cp", "dense"), ("moe_tp", "moe"), ("ep", "ep"),
          ("mla_tp", "mla"), ("hybrid_tp", "hybrid"), ("mix", "dense"),
-         ("timely", "dense")]
+         ("timely", "dense"), ("mla_cp", "mla"), ("mla_x_cp", "mla_x"),
+         ("hybrid_cp", "hybrid"), ("hybrid_dp", "hybrid"), ("mm_dp", "mm"),
+         ("ep_w8a8", "ep_w8a8")]
 
 
 @pytest.mark.parametrize("name,fam", CASES, ids=[c[0] for c in CASES])
@@ -379,12 +454,18 @@ def test_dist_llm_tokens_match_jax(served, name, fam):
     context parallelism each rank holds its 8 pages behind its null page,
     the requests' pages straddle both ranks, and the ranks' arenas put
     together equal, bit for bit, the arena of the one-process oracle
-    ``cp_oracle_attention(2)``, which serves the same tokens."""
+    ``cp_oracle_attention(2)``, which serves the same tokens (MLA's latent
+    and expanded arenas, a hybrid's full layers and its recurrent states
+    too). A hybrid's states have the same bits on both ranks after every
+    step, under CP and under DP (each data group its own rows' slots)."""
     res, refs = served
     pc.check_case(res, name, *refs[fam])
-    if name == "cp":
+    if "cp" in name.split("_"):
         assert res[0][name]["kv_pages"] == 16 // 2 + 1
         assert min(res[0][name]["pages_on_ranks"]) > 0  # both ranks hold live pages
         for r in res:  # the one-process oracle (cp_oracle_attention(2)): tokens, arena
             assert r[name]["cp_oracle_tokens_equal"] and r[name]["cp_arena_equal"]
+    if "state_hashes" in res[0][name]:
+        assert len(res[0][name]["state_hashes"]) > 0
+        assert res[0][name]["state_hashes"] == res[1][name]["state_hashes"], name
     assert res[0][name]["spec_steps"] > 0, name

@@ -92,3 +92,21 @@ def test_batched_tree_inputs_match_per_row_jax():
         ref = jdt.build_tree_inputs(jnp.int32(roots[b]), jnp.asarray(branches[b]))
         for j, t in zip(ref, got):
             assert (t[b].numpy() == np.asarray(j)).all()
+
+
+@pytest.mark.parametrize("factor", [None, 0.25, 0.8])
+def test_decay_tables_match_jax(factor):
+    """``decay_tables`` (the squeeze law: freq halved, or times ``factor``)
+    on tables filled by a stream gives the JAX package's tables bit for bit,
+    and leaves the tables it was given as they were."""
+    jc, tc = _cfgs(buckets=16, ways=4, branch_length=4, retrieve_count=2)
+    stream = np.random.default_rng(1).integers(0, 6, size=60).astype(np.int32)
+    jt, tt = jdt.init_draft_tables(jc), tdt.init_draft_tables(tc, "cpu")
+    jt = jdt.update_tables_seq(jt, jc, jnp.asarray(stream), jnp.int32(len(stream)))
+    tdt.update_tables_seq(tt, tc, torch.from_numpy(stream), len(stream))
+    _same(jt, tt)
+    before = tt["freq"].clone()
+    kw = {} if factor is None else {"factor": factor}
+    jd, td = jdt.decay_tables(jt, **kw), tdt.decay_tables(tt, **kw)
+    _same(jd, td)
+    assert torch.equal(tt["freq"], before) and (td["freq"] < before).any()

@@ -10,13 +10,17 @@ tensors, the same on every rank), ``ecfg`` (EngineConfig fields),
 ``mesh`` (data, model), ``prompts``, ``max_new``, ``device``, ``dtype``
 and optionally ``logits_prompt`` (prefill a batch and report its last
 logits), ``ep_block`` (the MoE block of layer 0 against one process's
-``expert_shards``) and ``stagger`` (serve the prompts through
+``expert_shards``), ``stagger`` (serve the prompts through
 ``DistLLM.launch`` first: rank 0 streams each from a thread of its own,
-``stagger`` seconds apart, the last through ``async_stream_generate``).
-Imports torch and the port only.
+``stagger`` seconds apart, the last through ``async_stream_generate``),
+``mm`` (a prompt's multimodal embeddings and their positions, or None:
+the prompts are queued with ``add_request`` and served by ``step``) and
+``state_hashes`` (a digest of a hybrid's recurrent states after every
+step). Imports torch and the port only.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import sys
@@ -90,22 +94,28 @@ def _pages_on_ranks(dl, case):
 
 @contextlib.contextmanager
 def cp_oracle_attention(n: int):
-    """For the body, the one-process forward's attention
-    (``models/base.py _attention``) is the context-parallel oracle: each of
-    the ``n`` ranks' partials over the one arena, with that rank's global
-    page range, merged in rank order (``cp_attention_oracle``)."""
-    from painlessinferenceacceleration_tpu_torch.models import base
+    """For the body, the one-process forward's attention (``models/base.py
+    _attention``, and MLA's ``models/mla.py _mla_attention``) is the
+    context-parallel oracle: each of the ``n`` ranks' partials over the one
+    arena, with that rank's global page range, merged in rank order
+    (``cp_attention_oracle``)."""
+    from painlessinferenceacceleration_tpu_torch.models import base, mla
     from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_attention_oracle
 
     def attend(xq, kv, li, page_tables, start_lens, qmask, causal, scale, alibi=None):
         return cp_attention_oracle(xq, kv["k"][li], kv["v"][li], page_tables, start_lens,
                                    qmask, causal, scale, n)
 
+    def attend_mla(q, kv, li, page_tables, start_lens, qmask, causal, scale, latent_v_dim):
+        return cp_attention_oracle(q, kv["k"][li], kv["v"][li], page_tables, start_lens,
+                                   qmask, causal, scale, n, latent_v_dim)
+
     plain, base._attention = base._attention, attend
+    plain_mla, mla._mla_attention = mla._mla_attention, attend_mla
     try:
         yield
     finally:
-        base._attention = plain
+        base._attention, mla._mla_attention = plain, plain_mla
 
 
 def _cp_oracle(dl, case, params, dtype, tokens):
@@ -113,7 +123,7 @@ def _cp_oracle(dl, case, params, dtype, tokens):
     (``cp_oracle_attention``: the whole arena, each rank's page range, the
     same merge) serves the same prompts; its tokens, and its arena against
     the ranks' arenas put together (every page but the null page), bit for
-    bit."""
+    bit; a hybrid's recurrent states (whole on every rank) too."""
     from painlessinferenceacceleration_tpu_torch.engine.llm import LLM
 
     st, n = dl.rank_state, dl.mesh.tp
@@ -127,9 +137,42 @@ def _cp_oracle(dl, case, params, dtype, tokens):
                   ecfg=EngineConfig(**case["ecfg"]), dtype=dtype, device=dl.device)
         got = [r.output_ids for r in one.generate(
             case["prompts"], SamplingParams(max_new_tokens=case["max_new"]))]
-    return {"cp_oracle_tokens_equal": got == tokens,
-            "cp_arena_equal": all(torch.equal(whole[k][:, 1:], one.kv[k][:, 1:])
-                                  for k in ("k", "v"))}
+    same = all(torch.equal(whole[k][:, 1:], one.kv[k][:, 1:]) for k in ("k", "v"))
+    if "s" in one.kv:
+        same = same and torch.equal(dl.kv["s"], one.kv["s"])
+    err = max((whole[k][:, 1:] - one.kv[k][:, 1:]).abs().max().item() for k in ("k", "v"))
+    digest = hashlib.sha256(b"".join(whole[k].numpy().tobytes() for k in ("k", "v")))
+    return {"cp_oracle_tokens_equal": got == tokens, "cp_arena_equal": same,
+            "cp_arena_max_err": err, "cp_arena_digest": digest.hexdigest()}
+
+
+def _serve(dl, case):
+    """The case's prompts through ``generate``, or, with ``mm``, queued one
+    by one with their multimodal embeddings and served by ``step``."""
+    sp = SamplingParams(max_new_tokens=case["max_new"])
+    if not case.get("mm"):
+        return dl.generate(case["prompts"], sp)
+    reqs = []
+    for p, mm in zip(case["prompts"], case["mm"]):
+        emb, pos = mm if mm is not None else (None, None)
+        reqs.append(dl.add_request(p, sp, mm_embeds=emb, mm_positions=pos))
+    while any(r.state != "finished" for r in reqs):
+        dl.step()
+    return reqs
+
+
+def _hash_states_each_step(dl) -> list:
+    """Wrap ``dl.step``: a digest of the recurrent states ``kv["s"]`` after
+    every scheduler step, in the returned list."""
+    digests, step = [], dl.step
+
+    def step_and_hash():
+        worked = step()
+        digests.append(hashlib.sha256(dl.kv["s"].cpu().numpy().tobytes()).hexdigest())
+        return worked
+
+    dl.step = step_and_hash
+    return digests
 
 
 def _launched(dl, case):
@@ -196,8 +239,9 @@ def main() -> None:
             res["pages_on_ranks"] = _pages_on_ranks(dl, case)
         if case.get("stagger") is not None:
             res["streams"] = _launched(dl, case)
-        reqs = dl.generate(case["prompts"], SamplingParams(max_new_tokens=case["max_new"]))
-        res["tokens"] = [r.output_ids for r in reqs]
+        if case.get("state_hashes"):
+            res["state_hashes"] = _hash_states_each_step(dl)
+        res["tokens"] = [r.output_ids for r in _serve(dl, case)]
         if case.get("cp_oracle"):
             res.update(_cp_oracle(dl, case, params, dtype, res["tokens"]))
         res["spec_steps"] = dl.metrics.spec_steps
