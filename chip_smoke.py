@@ -5,8 +5,8 @@
 
 (``--moe-only``, ``--mla-only``, ``--linear-only``, ``--generator-only``,
 ``--w8a8-only``, ``--int8-only``, ``--attention-only``, ``--sampling-only``,
-``--hf-only``, ``--families-only``, ``--ipad-only`` and ``--dist-only`` run
-parts of it:
+``--hf-only``, ``--families-only``, ``--ipad-only``, ``--dist-only`` and
+``--moe-tp-only`` run parts of it:
 partial runs that print no kernels line and no result line.)
 
 Phases, one line each (any failure exits non-zero and prints no result):
@@ -175,8 +175,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    rows' log-sum-exp against their plain twin at Llama-2-7B's and
    DeepSeek-V2-Lite's latent shapes (the full range equal to the call
    without one, timed beside it), K2 / K3 ranged at the expanded MLA's
-   (192, 128); then two groups of child processes that share the card
-   over gloo, started together. Two ranks serve Llama-2-7B int4 at full
+   (192, 128) and, as ``cp_partial`` calls them, at G = 7 and heads of 80
+   lanes (tree verifies of 17 and 129 rows, a causal 300); then two
+   groups of child processes that share the card over gloo, started
+   together. Two ranks serve Llama-2-7B int4 at full
    width and 32 layers under tensor parallelism (16 heads, I 5504 and
    16000 head columns a rank; 512-token prefill, 64 AR and 64 lookahead
    tokens, lookahead == AR, the first-step logits against the one-process
@@ -186,7 +188,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    under data parallelism with a multimodal request (mesh (2, 1), the
    one-process LLM's tokens); a 2-layer Mixtral-8x7B stack under expert
    parallelism with int4 and with W8A8 e4m3 experts (the MoE block
-   bit-equal to one process's ``expert_shards(2)``, lookahead == AR);
+   bit-equal to one process's ``expert_shards(2)``, lookahead == AR) and
+   under tensor parallelism with W8A8 int8 experts (each rank's int8
+   activations, taken from the serving path, one process's columns bit
+   for bit; the first-step logits' gap to one process recorded);
    DeepSeek-V2-Lite (2 of 27 layers, latent MLA: K13 over each rank's
    pages) and Ring-mini-linear-2.0 (5 of 20 layers) under context
    parallelism with the same checks (a hybrid's states equal to the
@@ -759,6 +764,8 @@ def _attn_name(kind: str, arena: str, alibi: bool = False) -> str:
 
 
 PAIR_DIMS = ("256x256", "192x128")  # the (K, V) head dims past 128 lanes
+NARROW_DIMS = ("80x80", "96x96")  # heads of 80 / 96 lanes, in the 128-lane build
+NEW_GROUPS = (5, 6, 7)  # query heads a kv head that do not divide 128
 
 
 def _pair_name(kind: str, arena: str, dims: str) -> str:
@@ -962,16 +969,18 @@ def check_attention_routes(pkg, g) -> None:
     """A token's attention is the same in every route: every row t of a
     causal prefill chunk (Q = 129 and 512, over 0 and 333 cached keys)
     equals, bit for bit, a Q = 1 decode of that token over ctx + t keys, in
-    the three arenas at G = 1 and 4 (8 kv heads). Fails the run otherwise."""
+    the three arenas at G = 1 and 4 (8 kv heads), and over 333 keys at G = 7
+    (126 rows a tile) and at heads of 80 lanes. Fails the run otherwise."""
     import torch
 
-    Hkv, D = 8, 128
+    Hkv = 8
     one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
     n = 0
     for arena in ("bf16", "fp8", "fp8_tok"):
-        for G in (1, 4):
+        for G, D, ctxs in ((1, 128, (0, 333)), (4, 128, (0, 333)), (7, 128, (333,)),
+                           (1, 80, (333,))):
             for Q in (129, 512):
-                for ctx in (0, 333):
+                for ctx in ctxs:
                     k, v, pt, ks, vs = _arena(g, 1, ctx, Q, Hkv, D, 64, arena)
                     attend, _ = _attend(pkg, arena, k, v, pt, ks, vs)
                     q = torch.randn(1, Q, G * Hkv, D, generator=g,
@@ -981,11 +990,12 @@ def check_attention_routes(pkg, g) -> None:
                     for t in range(Q):
                         row = attend(q[:, t:t + 1].contiguous(), one, ctx_t + t)
                         if not torch.equal(row[:, 0], pre[:, t]):
-                            fail(f"paged attention ({arena}, G={G}): row {t} of a causal "
-                                 f"prefill (Q={Q}, ctx={ctx}) differs from its decode")
+                            fail(f"paged attention ({arena}, G={G}, D={D}): row {t} of a "
+                                 f"causal prefill (Q={Q}, ctx={ctx}) differs from its decode")
                         n += 1
-    print(f"phase 2 attention routes: {n} prefill rows (three arenas, G = 1 and 4, Q = "
-          "129 / 512, ctx 0 / 333) bit-identical to their Q = 1 decodes")
+    print(f"phase 2 attention routes: {n} prefill rows (three arenas, G = 1 and 4 at D = "
+          "128, Q = 129 / 512, ctx 0 / 333; G = 7 at D = 128 and G = 1 at D = 80, ctx 333) "
+          "bit-identical to their Q = 1 decodes")
 
 
 def check_attention_tile_edges(pkg, g) -> None:
@@ -993,28 +1003,32 @@ def check_attention_tile_edges(pkg, g) -> None:
     a tile edge (63, 64, 65: one warpgroup's rows and a second all padding;
     127, 128, 129: one tile full or a second tile), at contexts off the page
     grid (70 and 333 in one batch), by the mask rule and the causal rule, in
-    the three arenas. Fails the run otherwise."""
+    the three arenas; at G = 7 the edges of its 126-row tile (Q = 9 / 10: 63 /
+    70 rows; 18 / 19: 126 / 133; 36 / 37), and at heads of 80 lanes; the
+    mask rule past 128 rows too (Q = 129 and 200 at G = 1, 19 and 37 at
+    G = 7). Fails the run otherwise."""
     import torch
 
-    Hkv, D = 4, 128
+    Hkv = 4
     n = 0
     for arena in ("bf16", "fp8", "fp8_tok"):
-        for Q, G in ((63, 1), (64, 1), (65, 1), (127, 1), (128, 1), (129, 1), (16, 4),
-                     (17, 4), (32, 4), (33, 4), (16, 8), (17, 8)):
+        for Q, G, D in ((63, 1, 128), (64, 1, 128), (65, 1, 128), (127, 1, 128),
+                        (128, 1, 128), (129, 1, 128), (200, 1, 128), (16, 4, 128),
+                        (17, 4, 128), (32, 4, 128), (33, 4, 128), (16, 8, 128), (17, 8, 128),
+                        (9, 7, 128), (10, 7, 128), (18, 7, 128), (19, 7, 128), (36, 7, 128),
+                        (37, 7, 128), (64, 1, 80), (129, 1, 80), (17, 4, 80)):
             k, v, pt, ks, vs = _arena(g, 2, 333, Q, Hkv, D, 64, arena)
             attend, plain = _attend(pkg, arena, k, v, pt, ks, vs)
             ctx = torch.tensor([70, 333], dtype=torch.int32, device="cuda")
             q = torch.randn(2, Q, G * Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
-            masks = [None]
-            if Q <= 128:
-                qm = torch.rand(2, Q, Q, generator=g, device="cuda") < 0.5
-                masks.append(qm | torch.eye(Q, dtype=torch.bool, device="cuda"))
+            qm = torch.rand(2, Q, Q, generator=g, device="cuda") < 0.5
+            masks = [None, qm | torch.eye(Q, dtype=torch.bool, device="cuda")]
             for qm in masks:
                 ref_qm = qm if qm is not None else \
                     pkg["attention"].causal_qmask(Q, "cuda")[None].expand(2, Q, Q)
                 _, rel = _errs(attend(q, qm, ctx), plain(q, ref_qm, ctx))
                 if not rel <= 2e-2:
-                    fail(f"paged attention ({arena}) at Q={Q} G={G} "
+                    fail(f"paged attention ({arena}) at Q={Q} G={G} D={D} "
                          f"({'causal' if qm is None else 'mask'}): rel err {rel}")
                 n += 1
     print(f"phase 2 attention tile edges: {n} cases within rel 2e-2 of the plain version")
@@ -1872,6 +1886,7 @@ class Launches:
             f.modes.clear()
         for f in self.attn:
             f.dims.clear()
+            f.groups.clear()
         for fmt in self.gquant.modes:
             self.gquant.modes[fmt] = 0
 
@@ -1898,12 +1913,17 @@ class Launches:
             out[f"paged_attention_tok[{kind}]"] = tok.modes[f"{kind},fp8_tok"]
             out[f"mla_attention[{kind}]"] = self.mla.modes[kind]
             out[f"mla_attention[{kind},range]"] = self.mla.modes[f"{kind},range"]
-        # the head-dim pairs past 128 (GPT-J's 256, DeepSeek's expanded MLA)
-        for dims in PAIR_DIMS:
-            for kind in ("decode", "verify", "prefill"):
-                for arena in ("bf16", "fp8", "fp8_tok"):
+        # the head-dim pairs past 128 (GPT-J's 256, DeepSeek's expanded MLA),
+        # the heads of 80 and 96 lanes (OPT, BLOOM), and the query heads a kv
+        # head that do not divide 128 (Qwen2 / Qwen2.5 / Qwen3)
+        for kind in ("decode", "verify", "prefill"):
+            for arena in ("bf16", "fp8", "fp8_tok"):
+                for dims in PAIR_DIMS + NARROW_DIMS:
                     out[_pair_name(kind, arena, dims)] = sum(
                         f.dims[f"{dims},{kind},{arena}"] for f in self.attn)
+                for G in NEW_GROUPS:
+                    out[_pair_name(kind, arena, f"G{G}")] = sum(
+                        f.groups[f"{G},{kind},{arena}"] for f in self.attn)
         out["paged_attention_prefill[window]"] = pre.modes["prefill,bf16,window"]
         return out
 
@@ -3349,13 +3369,14 @@ def hf_llama_checkpoint(rng) -> tuple:
     return conf, t
 
 
-def hf_bloom_checkpoint(rng) -> tuple:
+def hf_bloom_checkpoint(rng, E=4096, H=32) -> tuple:
     """(config.json, tensors) of a BloomForCausalLM at bigscience/bloom-7b1's
     widths (its config.json: hidden 4096, n_head 32, vocab 250880, layer
     norm eps 1e-5; ALiBi, the embedding LayerNorm, biases everywhere, a
-    4 x hidden gelu MLP and the head tied to the embedding) and HF_LAYERS
-    layers, bf16."""
-    E, V, H = 4096, 250880, 32
+    4 x hidden gelu MLP and the head tied to the embedding), or at hidden
+    ``E`` over ``H`` heads (bigscience/bloom-1b1: 1536 over 16 heads of 96
+    lanes), and HF_LAYERS layers, bf16."""
+    V = 250880
     conf = dict(architectures=["BloomForCausalLM"], model_type="bloom", vocab_size=V,
                 hidden_size=E, n_layer=HF_LAYERS, n_head=H, layer_norm_epsilon=1e-5,
                 apply_residual_connection_post_layernorm=False, hidden_dropout=0.0,
@@ -3599,9 +3620,10 @@ def serve_hf(pkg, path, quant, lookahead, prompts, tok, new_tokens=HF_NEW_TOKENS
     config, llm_mod = pkg["config"], pkg["llm"]
     kw = dict(page_size=64, max_seq_len=1024, max_concurrency=8, prefill_chunk=512,
               quant=quant, eos_token_id=-2, decode_burst=8, decode_burst_idle=32, **extra)
-    if lookahead:  # the default tree: 5 branches of 12 (Q = 61)
-        kw.update(use_lookahead=True, decoding_length=GEN_DECODING_LENGTH,
-                  branch_length=GEN_BRANCH_LENGTH, use_spec_min_batch_size=8)
+    if lookahead:  # the default tree: 5 branches of 12 (Q = 61), unless extra says
+        look = dict(use_lookahead=True, decoding_length=GEN_DECODING_LENGTH,
+                    branch_length=GEN_BRANCH_LENGTH, use_spec_min_batch_size=8)
+        kw.update({k: v for k, v in look.items() if k not in extra})
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3873,6 +3895,94 @@ def hf_gpt2_checkpoint(g) -> tuple:
     return conf, t
 
 
+def hf_qwen_checkpoint(g, qwen3: bool) -> tuple:
+    """(config.json, tensors) of Qwen/Qwen2.5-7B (its published config.json
+    unchanged but for the depth: hidden 3584, 28 query heads over 4 kv heads
+    of 128 lanes, G = 7, intermediate 18944, vocab 152064, rope theta 1e6,
+    the head untied, and no ``attention_bias`` key: the q / k / v biases
+    that Qwen2 always has are written and must be read) or, with ``qwen3``,
+    Qwen/Qwen3-14B (hidden 5120, 40 over 8 heads of 128, G = 5, intermediate
+    17408, vocab 151936, per-head q / k RMSNorm, no biases, untied), at
+    HF_LAYERS layers, bf16."""
+    if qwen3:
+        E, I, V, H, Hk, D = 5120, 17408, 151936, 40, 8, 128
+        conf = dict(architectures=["Qwen3ForCausalLM"], attention_bias=False,
+                    attention_dropout=0.0, bos_token_id=151643, eos_token_id=151645,
+                    head_dim=D, hidden_act="silu", hidden_size=E, initializer_range=0.02,
+                    intermediate_size=I, max_position_embeddings=40960, max_window_layers=40,
+                    model_type="qwen3", num_attention_heads=H, num_hidden_layers=40,
+                    num_key_value_heads=Hk, rms_norm_eps=1e-6, rope_scaling=None,
+                    rope_theta=1e6, sliding_window=None, tie_word_embeddings=False,
+                    torch_dtype="bfloat16", use_cache=True, use_sliding_window=False,
+                    vocab_size=V)
+    else:
+        E, I, V, H, Hk, D = 3584, 18944, 152064, 28, 4, 128
+        conf = dict(architectures=["Qwen2ForCausalLM"], attention_dropout=0.0,
+                    bos_token_id=151643, eos_token_id=151643, hidden_act="silu",
+                    hidden_size=E, initializer_range=0.02, intermediate_size=I,
+                    max_position_embeddings=131072, max_window_layers=28, model_type="qwen2",
+                    num_attention_heads=H, num_hidden_layers=28, num_key_value_heads=Hk,
+                    rms_norm_eps=1e-6, rope_theta=1e6, sliding_window=131072,
+                    tie_word_embeddings=False, torch_dtype="bfloat16", use_cache=True,
+                    use_mrope=False, use_sliding_window=False, vocab_size=V)
+    conf["num_hidden_layers"] = HF_LAYERS
+    t = {"model.embed_tokens.weight": _normal(g, (V, E))}
+    for i in range(HF_LAYERS):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        t[p + "input_layernorm.weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[p + "post_attention_layernorm.weight"] = _normal(g, (E,), 0.05, 1.0)
+        for n, rows in (("q", H * D), ("k", Hk * D), ("v", Hk * D)):
+            t[a + f"{n}_proj.weight"] = _normal(g, (rows, E))
+            if not qwen3:
+                t[a + f"{n}_proj.bias"] = _normal(g, (rows,))
+        t[a + "o_proj.weight"] = _normal(g, (E, H * D))
+        if qwen3:
+            t[a + "q_norm.weight"] = _normal(g, (D,), 0.05, 1.0)
+            t[a + "k_norm.weight"] = _normal(g, (D,), 0.05, 1.0)
+        t[p + "mlp.gate_proj.weight"] = _normal(g, (I, E))
+        t[p + "mlp.up_proj.weight"] = _normal(g, (I, E))
+        t[p + "mlp.down_proj.weight"] = _normal(g, (E, I))
+    t["model.norm.weight"] = _normal(g, (E,), 0.05, 1.0)
+    t["lm_head.weight"] = _normal(g, (V, E))
+    return conf, t
+
+
+def hf_opt_checkpoint(g) -> tuple:
+    """(config.json, tensors) of facebook/opt-2.7b (its config.json: hidden
+    2560, 32 heads of 80 lanes, ffn_dim 10240, vocab 50272, 2048 learned
+    positions behind HF's offset of 2, relu, layer norm before each block,
+    biases everywhere, the head tied) at HF_LAYERS layers, bf16."""
+    E, I, V, H, P = 2560, 10240, 50272, 32, 2048
+    conf = dict(architectures=["OPTForCausalLM"], model_type="opt", vocab_size=V,
+                hidden_size=E, ffn_dim=I, num_hidden_layers=HF_LAYERS, num_attention_heads=H,
+                max_position_embeddings=P, activation_function="relu",
+                do_layer_norm_before=True, word_embed_proj_dim=E, tie_word_embeddings=True,
+                torch_dtype="bfloat16")
+    d = "model.decoder."
+    t = {d + "embed_tokens.weight": _normal(g, (V, E)),
+         d + "embed_positions.weight": _normal(g, (P + 2, E))}
+
+    def lin(name, dout, din):
+        t[name + ".weight"] = _normal(g, (dout, din))
+        t[name + ".bias"] = _normal(g, (dout,))
+
+    def norm(name):
+        t[name + ".weight"] = _normal(g, (E,), 0.05, 1.0)
+        t[name + ".bias"] = _normal(g, (E,))
+
+    for i in range(HF_LAYERS):
+        p = d + f"layers.{i}."
+        norm(p + "self_attn_layer_norm")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(p + "self_attn." + n, E, E)
+        norm(p + "final_layer_norm")
+        lin(p + "fc1", I, E)
+        lin(p + "fc2", E, I)
+    norm(d + "final_layer_norm")
+    return conf, t
+
+
 def fp8_head_row(pkg, g, M, V, E, case):
     """The e4m3 tied head (``fp8_head_matmul``) against its plain version at
     [M, E] x [V, E] e4m3 with per-row scales, timed; the yardstick is
@@ -3913,13 +4023,118 @@ def fp8_head_row(pkg, g, M, V, E, case):
     return row
 
 
+# the geometries the families phase serves (G, head dim, ALiBi, Hkv, the
+# checkpoint, its arena) and the ones it holds against the plain version
+# only: G = 5, 6, 7 at head dim 128, heads of 80 and 96 lanes with and
+# without ALiBi, in the three arenas
+SERVED_GEOMETRIES = {"G7": (7, 128, False, 4, "Qwen2.5-7B ", "bf16"),
+                     "G5": (5, 128, False, 8, "Qwen3-14B ", "fp8_tok"),
+                     "80x80": (1, 80, False, 32, "OPT-2.7B ", "bf16"),
+                     "96x96": (1, 96, True, 16, "BLOOM-1b1 ", "bf16")}
+CHECKED_GEOMETRIES = ((5, 128, False), (6, 128, False), (7, 128, False), (1, 80, False),
+                      (1, 80, True), (1, 96, False), (1, 96, True))
+
+
+def _trees(pkg, g):
+    """The tree masks and depths of a 17-row (2 branches of 8) and a
+    129-row (8 branches of 16) verify, [1, Q, Q] and [1, Q]."""
+    import torch
+
+    out = {}
+    for R, L in ((2, 8), (8, 16)):
+        branches = torch.randint(3, 1000, (R, L), generator=g, device="cuda")
+        _, _, tree, depth = pkg["device_tables"].build_tree_inputs(
+            torch.tensor(1, device="cuda"), branches)
+        out[1 + R * L] = (tree[None], depth[None])
+    return out
+
+
+def geometry_walks(pkg, g) -> tuple:
+    """(kind, ctx, Q, qmask, the step's key positions) of decode at ctx 640,
+    verify at Q = 17 and 129 (tree masks) at ctx 768 and prefill at Q = 512
+    from ctx 0."""
+    import torch
+
+    trees = _trees(pkg, g)
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    zero = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    return (("decode", 640, 1, one, zero + 640),
+            ("verify", 768, 17, trees[17][0], (trees[17][1] + 768).to(torch.int32)),
+            ("verify", 768, 129, trees[129][0], (trees[129][1] + 768).to(torch.int32)),
+            ("prefill", 0, 512, None, None))
+
+
+def geometry_check(pkg, g, kind, ctx, Q, qmask, pos, Hq, Hkv, D, arena, alibi) -> float:
+    """One call of the wrapper that serves the arena against the plain
+    version on the same inputs (rel <= 2e-2, fails otherwise), untimed."""
+    import torch
+
+    pa, ref = pkg["paged_attention"], pkg["attention"]
+    k, v, pt, ks, vs = _arena(g, 1, ctx, Q, Hkv, D, 64, arena)
+    ctx_t = torch.full((1,), ctx, dtype=torch.int32, device="cuda")
+    q = torch.randn(1, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+    al = ref.alibi_slopes(Hq, "cuda") if alibi else None
+    pos = pos.contiguous() if alibi and kind != "prefill" else None
+    qm = pa.window_qmask(1, Q, ctx_t, None, "cuda") if kind == "prefill" else qmask
+    sc, scales = D ** -0.5, None if arena == "bf16" else (ks, vs)
+    if arena == "fp8_tok":
+        got = pa.paged_attention_tok(q, k, v, ks, vs, pt, ctx_t, sc,
+                                     None if kind == "prefill" else qm, al, pos)
+    elif kind == "prefill":
+        got = pa.paged_attention_prefill(q, k, v, pt, ctx_t, sc, scales, al)
+    else:
+        got = pa.paged_attention(q, k, v, pt, ctx_t, qm, sc, scales, al, pos)
+    _, rel = _errs(got, ref.paged_attention_ref(q, k, v, pt, ctx_t, qm, sc, ks, vs,
+                                                alibi=al, alibi_pos=pos))
+    if not rel <= 2e-2:
+        fail(f"paged attention {kind} Q={Q} {arena} G={Hq // Hkv} D={D} alibi={alibi}: "
+             f"rel err {rel}")
+    return rel
+
+
+def geometry_rows(pkg, g) -> tuple:
+    """The new geometries: the served ones' rows against their plain
+    versions, timed, with bound and SDPA (``SERVED_GEOMETRIES``: decode ctx
+    640, verify Q = 17 and 129 at ctx 768, prefill Q = 512), and every
+    checked geometry in every arena and walk against its plain version
+    (``CHECKED_GEOMETRIES``). Returns (rows, checks)."""
+    import torch
+
+    walks = geometry_walks(pkg, g)
+    rows = []
+    for dims, (G, D, alibi, Hkv, model, arena) in SERVED_GEOMETRIES.items():
+        Hq = G * Hkv
+        al = pkg["attention"].alibi_slopes(Hq, "cuda") if alibi else None
+        for kind, ctx, Q, qm, pos in walks:
+            k, v, pt, ks, vs = _arena(g, 1, ctx, Q, Hkv, D, 64, arena)
+            ctx_t = torch.full((1,), ctx, dtype=torch.int32, device="cuda")
+            q = torch.randn(1, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+            rows.append(attention_row(
+                pkg, kind, arena, q, k, v, pt, ctx_t, qm, ks, vs, D ** -0.5,
+                f"{model}G={G} ctx={ctx} ", alibi=al,
+                alibi_pos=pos.contiguous() if alibi and kind != "prefill" else None,
+                name=_pair_name(kind, arena, dims)))
+    checks = {}
+    for G, D, alibi in CHECKED_GEOMETRIES:
+        for arena in ("bf16", "fp8", "fp8_tok"):
+            for kind, ctx, Q, qm, pos in walks:
+                key = f"G={G} D={D}{' alibi' if alibi else ''} {arena} {kind} Q={Q}"
+                checks[key] = geometry_check(pkg, g, kind, ctx, Q, qm, pos, G * 2, 2, D,
+                                             arena, alibi)
+    torch.cuda.empty_cache()
+    return rows, checks
+
+
 def family_rows(pkg) -> list:
     """The new builds against their plain versions at the shapes the
     families serve: GPT-J's (256, 256) with Hq = Hkv = 16 in every arena
     and route (decode ctx 640, verify Q = 17 ctx 768, prefill Q = 512),
     DeepSeek-V2-Lite's expanded (192, 128) with 16 heads (bf16, its arena),
     K3's window at GLM-10B's 64 heads of 64 lanes (Q = 512, a window of 300
-    keys) and the e4m3 head at BLOOM-7b1's 250880 x 4096, M = 1 / 17 / 512."""
+    keys), the e4m3 head at BLOOM-7b1's 250880 x 4096, M = 1 / 17 / 512,
+    then the new geometries (``geometry_rows``: Qwen2.5-7B's G = 7, Qwen3-14B's
+    G = 5, OPT-2.7B's heads of 80, BLOOM-1b1's of 96 with ALiBi; G = 5, 6, 7
+    and heads of 80 / 96 in every arena checked). Returns (rows, checks)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 22)
@@ -3943,9 +4158,15 @@ def family_rows(pkg) -> list:
     for M in (1, 17, 512):
         rows.append(fp8_head_row(pkg, g, M, 250880, 4096, "BLOOM-7b1 "))
         torch.cuda.empty_cache()
+    new_rows, checks = geometry_rows(pkg, g)
+    rows += new_rows
     for r in rows:
         print("phase families kernel: " + json.dumps(r))
-    return rows
+    print(f"phase families geometries: {len(checks)} calls (G = 5, 6, 7 at D = 128; D = 80 "
+          "and 96 with and without ALiBi; three arenas; decode, verify Q = 17 / 129, prefill "
+          "Q = 512) within rel 2e-2 of the plain version, the largest "
+          f"{max(checks.values()):.3e}")
+    return rows, checks
 
 
 def family_prompts(tok) -> list:
@@ -3959,13 +4180,19 @@ def family_prompts(tok) -> list:
 
 def serve_family(pkg, path, prompts, tok, **extra) -> dict:
     """AR and lookahead (``serve_hf``: the default tree, drafts verified at
-    up to 8 rows) through LLM(model_path=path): lookahead must equal AR
-    token for token. ``extra``: EngineConfig fields of both runs."""
+    up to 61 rows, or ``extra``'s decoding and branch lengths) through
+    LLM(model_path=path): lookahead must equal AR token for token, and
+    verify steps must have run (at the tree's width, ``verify_width``).
+    ``extra``: EngineConfig fields of both runs."""
     outs, res = [], {}
     for la in (False, True):
-        llm, res["lookahead" if la else "ar"], out = serve_hf(
-            pkg, path, "none", la, prompts, tok, FAMILY_NEW_TOKENS, spec_cooldown_bursts=0,
-            **extra)
+        llm, run, out = serve_hf(pkg, path, "none", la, prompts, tok, FAMILY_NEW_TOKENS,
+                                 spec_cooldown_bursts=0, **extra)
+        if la:
+            run["verify_width"] = llm.tcfg.verify_width
+            if run["spec_steps"] <= 0:
+                fail(f"phase families {path}: no verify step ran")
+        res["lookahead" if la else "ar"] = run
         outs.append(out)
         del llm
     if outs[0] != outs[1]:
@@ -3986,8 +4213,12 @@ def phase_families(pkg) -> dict:
     prefill_chunk 512 over prompts past 128 tokens (K3's prefix-LM window),
     openai-community/gpt2-xl (the 50257-column tied head padded to 50264
     rows for K10), and bigscience/bloom-7b1 under ``quant_embed`` (the e4m3
-    tied head kernel). Then the new builds' rows (``family_rows``). The
-    kernels' launches counted from 0 over the serving runs."""
+    tied head kernel), Qwen/Qwen2.5-7B (G = 7, K2 / K3 at the default width
+    and with a 129-row tree verify), Qwen/Qwen3-14B over the per-token e4m3
+    arena (G = 5), facebook/opt-2.7b (heads of 80 lanes) and
+    bigscience/bloom-1b1 (heads of 96, ALiBi). Then the new builds' rows
+    (``family_rows``). The kernels' launches counted from 0 over the
+    serving runs."""
     import tempfile
 
     import torch
@@ -4003,7 +4234,12 @@ def phase_families(pkg) -> dict:
             ("deepseek_v2_lite_expanded", hf_deepseek_checkpoint, ({},)),
             ("glm_10b_chunk512", hf_glm_checkpoint, ({},)),
             ("gpt2_xl", hf_gpt2_checkpoint, ({},)),
-            ("bloom_7b1_fp8_head", hf_bloom_checkpoint, ({"quant_embed": True},)))
+            ("bloom_7b1_fp8_head", hf_bloom_checkpoint, ({"quant_embed": True},)),
+            ("qwen2_5_7b", lambda g: hf_qwen_checkpoint(g, False),
+             ({}, {"decoding_length": 128, "branch_length": 16})),
+            ("qwen3_14b", lambda g: hf_qwen_checkpoint(g, True), ({"kv_quant": "fp8_tok"},)),
+            ("opt_2_7b", hf_opt_checkpoint, ({},)),
+            ("bloom_1b1", lambda g: hf_bloom_checkpoint(g, 1536, 16), ({},)))
     res = {}
     for name, make, settings in runs:
         t0 = time.perf_counter()
@@ -4017,6 +4253,8 @@ def phase_families(pkg) -> dict:
             out = dict(checkpoint_gb=nbytes / 1e9, draw_s=draw_s, write_s=write_s)
             for extra in settings:
                 key = extra.get("kv_quant", "bf16_arena")
+                if "decoding_length" in extra:  # the wider tree verify
+                    key += f"_q{1 + extra['decoding_length']}"
                 out[key] = serve_family(pkg, d, prompts, tok, **extra)
         res[name] = out
         print(f"phase families {name} (random weights, {HF_LAYERS} layers): "
@@ -4027,10 +4265,12 @@ def phase_families(pkg) -> dict:
             for a in ("bf16", "fp8", "fp8_tok")]
     need += [_pair_name(k, "bf16", "192x128") for k in ("decode", "verify", "prefill")]
     need += ["paged_attention_prefill[window]", "fp8_head_gemm"]
+    need += [_pair_name(k, a, dims) for dims, (*_, a) in SERVED_GEOMETRIES.items()
+             for k in ("decode", "verify", "prefill")]
     idle = [k for k in need if res["launches"].get(k, 0) <= 0]
     if idle:
         fail(f"phase families: the families' serving launched none of {idle}")
-    res["kernels"] = family_rows(pkg)
+    res["kernels"], res["geometry_checks"] = family_rows(pkg)
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"phase families: wall {res['wall_s']:.1f} s on {smi_line()}")
     return res
@@ -4787,6 +5027,9 @@ def phase_mla_kernels(pkg) -> list:
         for ctx in ((640, 4096) if H == 16 else (4096,)):
             rows.append(check_mla(pkg, g, "decode", H, [ctx], 1))
         rows.append(check_mla(pkg, g, "verify", H, [4096], 17, tree))
+    # a tree verify of 129 rows (8 branches of 16) by the mask rule
+    wide = _trees(pkg, g)[129][0]
+    rows.append(check_mla(pkg, g, "verify", 16, [4096], 129, wide))
     rows.append(check_mla(pkg, g, "decode", 16, [63, 64, 65, 4095], 1))  # ragged B = 4
     for ctx in (0, 512):
         rows.append(check_mla(pkg, g, "prefill", 16, [ctx], 512))
@@ -5918,21 +6161,25 @@ def dist_prompt(vocab: int, n: int, seed: int) -> list:
 
 
 def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int, H: int = 32, D: int = 128,
-                     Dv: int = 128, timed: bool = True) -> dict:
+                     Dv: int = 128, timed: bool = True, G: int = 1, tree=None) -> dict:
     """K2 (decode, verify) or K3 (prefill) with a page range and the
     log-sum-exp, at Llama-2-7B's attention shape (or H heads of (D, Dv)
-    lanes: DeepSeek's expanded MLA at (192, 128)), against their plain twin
+    lanes, G of them a kv head: DeepSeek's expanded MLA at (192, 128),
+    Qwen2.5-7B's G = 7, OPT-2.7B's 80 lanes), against their plain twin
     (``paged_attention_ref`` with the same range): the range holds half of
-    the request's pages (a context-parallel rank's share). The same call
-    over the full range must give the bits of the call without one. Timed
-    beside the present call (no range), with the bound of the range's keys
-    and SDPA over the range's keys gathered as the yardstick; with ``timed``
-    False only the checks, and their errors returned."""
+    the request's pages (a context-parallel rank's share). ``tree``: a
+    [1, Q, Q] verify mask, the call then made as a context-parallel rank
+    makes it (``ops/cp_attention.py cp_partial``: K2 under the mask at any
+    width, past 128 rows too). The same call over the full range must give
+    the bits of the call without one. Timed beside the present call (no
+    range), with the bound of the range's keys and SDPA over the range's
+    keys gathered as the yardstick; with ``timed`` False only the checks,
+    and their errors returned."""
     import torch
     import torch.nn.functional as F
 
     pa, ref_mod, cache = pkg["paged_attention"], pkg["attention"], pkg["cache"]
-    B, Hq, Hkv, ps = 1, H, H, 64
+    B, Hq, Hkv, ps = 1, H, H // G, 64
     P = -(-(ctx + Q) // ps)
     n_pages = 2 * P + 2
     k = torch.randn(n_pages, ps, Hkv * D, generator=g, device="cuda").to(torch.bfloat16)
@@ -5940,7 +6187,8 @@ def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int, H: int = 32, D: int = 
     pt = (torch.randperm(n_pages - 1, generator=g, device="cuda")[:P] + 1)[None].to(torch.int32)
     ctx_t = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     q = torch.randn(B, Q, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
-    qm = ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q).contiguous()
+    qm = (ref_mod.causal_qmask(Q, "cuda")[None].expand(B, Q, Q) if tree is None
+          else tree).contiguous()
     rng = (1, n_pages // 2)
     scale = D ** -0.5
 
@@ -5950,6 +6198,8 @@ def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int, H: int = 32, D: int = 
         return pa.paged_attention(q, k, v, pt, ctx_t, qm, scale, **kw)
 
     def run():
+        if tree is not None:
+            return pkg["cp_attention"].cp_partial(q, k, v, pt, ctx_t, qm, scale, False, rng)
         return call(page_range=rng, return_lse=True)
 
     def plain():
@@ -5968,7 +6218,8 @@ def cp_attention_row(pkg, g, kind: str, ctx: int, Q: int, H: int = 32, D: int = 
     if not torch.equal(full, call()):
         fail(f"cp attention {kind}: the full page range differs from the call without one")
     if not timed:
-        return dict(kind=kind, heads=H, dims=[D, Dv], ctx=ctx, Q=Q, max_rel_err=rel,
+        return dict(kind=kind, heads=H, G=G, dims=[D, Dv], ctx=ctx, Q=Q,
+                    mask="tree" if tree is not None else "causal", max_rel_err=rel,
                     lse_max_abs_err=lse_err, full_range_bit_equal=True)
     big = Q >= 256
     ms = time_ms(run, reps=10 if big else 20)
@@ -6245,6 +6496,151 @@ def dist_ep_case(pkg, counts, rank, mode: str = "int4") -> dict:
     return dict(experts=mode, block_bit_equal=True, layers=2,
                 experts_a_rank=cfg.num_experts // DIST_WORLD, ar=ar_res, lookahead=la_res,
                 lossless=True, tokens=ar)
+
+
+@contextlib.contextmanager
+def _quantized(pkg, K: int):
+    """Every (rows, int8 / e4m3 values, per-token scales) that the W8A8
+    activation quantization (``ops/w8a8.py quant_act``, which every W8A8
+    GEMM call goes through) makes of rows of K lanes while open, in call
+    order: what the serving path hands its W8A8 kernel."""
+    w8a8 = pkg["w8a8"]
+    got, plain = [], w8a8.quant_act
+
+    def record(x2, *args, **kw):
+        xq, xs = plain(x2, *args, **kw)
+        if x2.shape[-1] == K:
+            got.append((x2, xq, xs))
+        return xq, xs
+
+    w8a8.quant_act = record
+    try:
+        yield got
+    finally:
+        w8a8.quant_act = plain
+
+
+def tp_quant_check(pkg, dl, params, cfg, spec, h) -> dict:
+    """Layer 0's MoE block on ``h`` under tensor parallelism (the rank state
+    of ``dl``) and in one process over the whole weights, the activations
+    of its expert down products taken from the serving path (``_quantized``:
+    rows of the rank's and of the whole intermediate width, neither the
+    hidden width): how many experts' int8 values and per-token scales on
+    this rank equal its columns of one process's bit for bit, the largest
+    relative gap of the scales and of the rows before quantization, and the
+    blocks' rel err."""
+    import torch
+
+    base, moe = pkg["base"], pkg["moe"]
+    st = dl.rank_state
+    lo, hi = pkg["mesh"].plan_shards(cfg, st.model_size, params).moe[st.model_rank]
+    with _quantized(pkg, hi - lo) as mine:
+        got = moe.moe_block(base._layer_of(dl.params["moe_layers"], 0), dl.cfg, dl.quant, h,
+                            st)
+    with _quantized(pkg, cfg.moe_intermediate_size or cfg.intermediate_size) as one:
+        want = moe.moe_block(base._layer_of(params["moe_layers"], 0), cfg, spec, h)
+    n = cfg.num_experts
+    if not len(mine) == len(one) == n:
+        fail(f"phase dist moe_tp_w8a8: {len(mine)} / {len(one)} down-product quantizations "
+             f"seen on rank {st.model_rank} / in one process, not one an expert ({n})")
+    same = sum(bool(torch.equal(q_r, q_1[:, lo:hi]) and torch.equal(s_r, s_1))
+               for (_, q_r, s_r), (_, q_1, s_1) in zip(mine, one))
+    scale_gap = max(((s_r - s_1).abs() / s_1).max().item()
+                    for (_, _, s_r), (_, _, s_1) in zip(mine, one))
+    rows_gap = max(_errs(x_r, x_1[:, lo:hi])[1] for (x_r, _, _), (x_1, _, _) in zip(mine, one))
+    return dict(columns=[lo, hi], experts=n, tokens=h.shape[1],
+                bit_equal=same == n, experts_bit_equal=same,
+                scales_max_rel_gap=scale_gap, rows_max_rel_err=rows_gap,
+                block_max_rel_err=_errs(got, want)[1])
+
+
+def dist_moe_tp_case(pkg, counts, rank) -> dict:
+    """TP = 2 over a Mixtral-8x7B-shaped stack at full width, 2 layers, with
+    dynamic W8A8 int8 experts (K8 on a rank's 7168 of every expert's 14336
+    intermediate columns; the down products' activations quantized with the
+    whole rows' amax, one gather a layer). Checked: each rank's quantized
+    activations, taken from the serving path, are one process's columns
+    bit for bit (``tp_quant_check``), layer 0's MoE block lies within rel
+    2e-2 of one process's, the first-step logits pick one process's token,
+    and lookahead == AR bit for bit. Recorded, not bounded: the first-step
+    logits' error and the tokens against one process (bf16: each rank
+    rounds its partials to bf16 before the fp32 sum over ranks, where one
+    process rounds whole products). All checks run before a failure is
+    reported, with every number."""
+    import dataclasses
+
+    import torch
+
+    config, dist_llm, llm_mod, base = (pkg["config"], pkg["dist_llm"], pkg["llm"],
+                                       pkg["base"])
+    cfg = dataclasses.replace(config.ModelConfig.mixtral_8x7b(), num_hidden_layers=2)
+    spec = pkg["linear"].QuantSpec.from_mode("w8a8_int8")
+    params = base.init_params_quantized(cfg, spec,
+                                        torch.Generator(device="cuda").manual_seed(SEED + 25))
+    kw = dict(page_size=64, max_seq_len=1024, max_concurrency=1, prefill_chunk=512,
+              quant="w8a8_int8", eos_token_id=-2, prefix_cache=False)
+    prompt = dist_prompt(cfg.vocab_size, 256, SEED + 26)
+    one = llm_mod.LLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw))
+    ref_logits = _dist_first_logits(pkg, one, prompt)
+    ref_tokens = one.generate([prompt], pkg["request"].SamplingParams(
+        max_new_tokens=32))[0].output_ids
+    del one
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(**kw),
+                          mesh_shape=(1, DIST_WORLD))
+    if dl.rank_state.mode != "tp" or dl.cfg.moe_intermediate_size != 14336 // DIST_WORLD:
+        fail(f"phase dist moe_tp_w8a8: rank {rank} is {dl.rank_state.mode} with "
+             f"{dl.cfg.moe_intermediate_size} intermediate columns an expert")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    h = (torch.randn(1, 17, cfg.hidden_size, generator=g, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    quant = tp_quant_check(pkg, dl, params, cfg, spec, h)
+    logits = _dist_first_logits(pkg, dl, prompt)
+    ar, ar_res = _dist_serve(pkg, counts, dl, prompt, 32)
+    del dl
+    torch.cuda.empty_cache()
+    dl = dist_llm.DistLLM(cfg=cfg, params=params, ecfg=config.EngineConfig(
+        **kw, use_lookahead=True, decoding_length=16, branch_length=16,
+        use_spec_min_batch_size=1), mesh_shape=(1, DIST_WORLD))
+    la, la_res = _dist_serve(pkg, counts, dl, prompt, 32)
+    del dl, params
+    torch.cuda.empty_cache()
+    err, rel = _errs(logits, ref_logits)
+    vs_one = dict(first_logits_max_abs_err=err, first_logits_max_rel_err=rel,
+                  argmax_equal=int(logits.argmax()) == int(ref_logits.argmax()),
+                  tokens_equal=ar == ref_tokens,
+                  first_divergence=_first_divergence(ar, ref_tokens))
+    out = dict(experts="w8a8_int8", layers=2, quant=quant, vs_one_process=vs_one,
+               ar=ar_res, lookahead=la_res, lossless=la == ar, tokens=ar)
+    faults = []
+    if not quant["bit_equal"]:
+        faults.append(f"{quant['experts_bit_equal']} of {quant['experts']} experts' int8 "
+                      f"activations equal one process's columns")
+    if not quant["block_max_rel_err"] <= 2e-2:
+        faults.append(f"layer 0's MoE block at rel err {quant['block_max_rel_err']}")
+    if la != ar:
+        faults.append(f"lookahead differs from AR at token {_first_divergence(la, ar)}")
+    if not vs_one["argmax_equal"]:
+        faults.append("the first-step logits pick another token than one process's")
+    if faults:
+        fail(f"phase dist moe_tp_w8a8 rank {rank}: " + "; ".join(faults) + ": "
+             + json.dumps({k: v for k, v in out.items() if k != "tokens"}))
+    return out
+
+
+def moe_tp_rank(pkg, rank: int, port: int, out_path: Path) -> None:
+    """One rank of ``--moe-tp-only``: phase dist's moe_tp_w8a8 case alone."""
+    import torch
+
+    pkg["multihost"].initialize_multihost(f"localhost:{port}", DIST_WORLD, rank,
+                                          device="cuda")
+    counts = _DistCounts(pkg)
+    t0 = time.perf_counter()
+    res = dict(moe_tp_w8a8=dist_moe_tp_case(pkg, counts, rank))
+    res.update(launches=counts.total, wall_s=time.perf_counter() - t0,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    out_path.write_text(json.dumps(res))
+    print(f"DIST_OK rank={rank}", flush=True)
 
 
 @contextlib.contextmanager
@@ -6572,6 +6968,7 @@ def dist_rank(pkg, rank: int, port: int, out_path: Path) -> None:
     torch.cuda.empty_cache()
     res["ep"] = dist_ep_case(pkg, counts, rank)
     res["ep_w8a8"] = dist_ep_case(pkg, counts, rank, "w8a8_fp8")
+    res["moe_tp_w8a8"] = dist_moe_tp_case(pkg, counts, rank)
     mla_cfg = dataclasses.replace(config.ModelConfig.deepseek_v2_lite(),
                                   num_hidden_layers=DIST_MLA_LAYERS)
     params = base.init_params(mla_cfg, torch.Generator(device="cuda").manual_seed(SEED + 30),
@@ -6696,9 +7093,10 @@ DIST_PATH_KERNELS = ("int4_gemm", "kv_write_step", "paged_attention[decode]",
                      "mla_attention[verify,range]", "mla_attention[prefill,range]",
                      "linear_attention[chunk]", "linear_attention[decode]",
                      "linear_attention[tree]", "linear_attention[commit]",
-                     "rms_norm[plain]", "w8a8_gemm[fp8]", "dense_bf16_gemm")
-DIST_CASES = ("tp", "launch", "cp", "mm_dp", "ep", "ep_w8a8", "mla_cp", "hybrid_cp",
-              "hybrid_dp")
+                     "rms_norm[plain]", "w8a8_gemm[fp8]", "w8a8_gemm[int8]",
+                     "dense_bf16_gemm")
+DIST_CASES = ("tp", "launch", "cp", "mm_dp", "ep", "ep_w8a8", "moe_tp_w8a8", "mla_cp",
+              "hybrid_cp", "hybrid_dp")
 
 
 def _spawn_ranks(world: int, flag: str, port: int, tmp: Path, tag: str) -> tuple:
@@ -6746,6 +7144,15 @@ def phase_dist(pkg) -> dict:
                                      ("prefill", 3584, 512))]
     print("phase dist expanded MLA (K2 / K3 ranged at (192, 128) against their plain "
           "twin): " + json.dumps(expanded))
+    trees = _trees(pkg, g)
+    geometries = [cp_attention_row(pkg, g, kind, ctx, Q, H=H, D=D, Dv=D, timed=False, G=G,
+                                   tree=trees[Q][0] if kind == "verify" else None)
+                  for H, G, D in ((28, 7, 128), (32, 1, 80))
+                  for kind, ctx, Q in (("verify", 1000, 17), ("verify", 1000, 129),
+                                       ("prefill", 700, 300))]
+    print("phase dist new geometries (cp_partial's ranged K2 under a tree mask at Q = 17 "
+          "and 129, K3 ranged at Q = 300, at G = 7 and at 80 lanes, against their plain "
+          "twin): " + json.dumps(geometries))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
@@ -6787,11 +7194,13 @@ def phase_dist(pkg) -> dict:
     idle = [k for k in DIST_PATH_KERNELS if launches.get(k, 0) <= 0]
     if idle:
         fail(f"phase dist: the DistLLM runs launched none of {idle} (launches {launches})")
-    out = dict(kernels=rows, expanded_mla_range=expanded, launches=launches,
+    out = dict(kernels=rows, expanded_mla_range=expanded, geometries_range=geometries,
+               launches=launches,
                wall_s=time.perf_counter() - t0,
                cuts=dict(mla_cp=f"DeepSeek-V2-Lite {DIST_MLA_LAYERS} of 27 layers",
                          hybrid=f"Ring-mini-linear-2.0 {DIST_HYBRID_LAYERS} of 20 layers",
                          ep="Mixtral-8x7B 2 of 32 layers",
+                         moe_tp_w8a8="Mixtral-8x7B 2 of 32 layers",
                          cp_dp=f"Llama-2-7B {DIST4_LAYERS} of 32 layers"),
                note="ranks share one H100 over gloo: every collective goes through "
                     "the host, so these are not NCCL times")
@@ -6805,6 +7214,37 @@ def phase_dist(pkg) -> dict:
                     for r in res + res4]
     print(f"phase dist: wall {out['wall_s']:.1f} s (gloo through the host, not NCCL)")
     return out
+
+
+def phase_moe_tp(pkg) -> dict:
+    """Phase dist's moe_tp_w8a8 case alone: two ranks (``moe_tp_rank``)
+    sharing the card over gloo. Each rank's output is printed whole, so
+    the numbers of a failing case show."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_tp_"))
+    procs, outs = _spawn_ranks(DIST_WORLD, "--moe-tp-rank", _free_port(), tmp, "moe_tp")
+    logs = [""] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            logs[i], _ = p.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        print(f"phase moe_tp_w8a8 rank {r} (exit {p.returncode}):\n{logs[r][-6000:]}")
+    if any(p.returncode != 0 or f"DIST_OK rank={r}" not in logs[r] for r, p in enumerate(procs)):
+        fail("phase moe_tp_w8a8: a rank failed")
+    res = [json.loads(o.read_text()) for o in outs]
+    if res[1]["moe_tp_w8a8"]["tokens"] != res[0]["moe_tp_w8a8"]["tokens"]:
+        fail("phase moe_tp_w8a8: the ranks ended on different tokens")
+    out = [{k: v for k, v in r["moe_tp_w8a8"].items() if k != "tokens"} for r in res]
+    print("phase moe_tp_w8a8 (rank 0, rank 1): " + json.dumps(out))
+    return dict(moe_tp_w8a8=out, launches=[r["launches"] for r in res])
 
 
 def load_port():
@@ -6886,7 +7326,12 @@ def main() -> None:
                          "two and four ranks sharing the card over gloo under tensor, "
                          "context, data and expert parallelism (a partial run: prints no "
                          "kernels line and no result line)")
+    ap.add_argument("--moe-tp-only", action="store_true",
+                    help="run only phase dist's moe_tp_w8a8 case: two ranks serve a "
+                         "Mixtral-shaped stack with W8A8 experts under tensor parallelism "
+                         "(a partial run: prints no kernels line and no result line)")
     ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--moe-tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist4-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-out", type=Path, default=None, help=argparse.SUPPRESS)
@@ -6901,6 +7346,9 @@ def main() -> None:
         return
     if args.dist4_rank is not None:  # a rank of phase dist's four-rank group
         dist4_rank(pkg, args.dist4_rank, args.dist_port, args.dist_out)
+        return
+    if args.moe_tp_rank is not None:  # a rank of --moe-tp-only
+        moe_tp_rank(pkg, args.moe_tp_rank, args.dist_port, args.dist_out)
         return
     env = phase_environment(pkg)
     if args.families_only:
@@ -6919,6 +7367,15 @@ def main() -> None:
         if args.json:
             args.json.parent.mkdir(parents=True, exist_ok=True)
             args.json.write_text(json.dumps(dict(environment=env, dist=dist_res,
+                                                 wall_s=wall_s), indent=1))
+        return
+    if args.moe_tp_only:
+        tp_res = phase_moe_tp(pkg)
+        wall_s = time.perf_counter() - T_START
+        print(f"partial run (moe_tp_w8a8 only), wall {wall_s:.1f} s on {env['card']}")
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(dict(environment=env, moe_tp=tp_res,
                                                  wall_s=wall_s), indent=1))
         return
     if args.moe_only:

@@ -135,7 +135,8 @@ class ModelConfig:
     def from_hf(cls, conf: "dict | str") -> "ModelConfig":
         """Build from an HF config dict, or a path to a model dir or its
         ``config.json``: the JAX package's ``ModelConfig.from_hf``, branch
-        for branch (the HF keys of each family mapped onto the fields).
+        for branch (the HF keys of each family mapped onto the fields), but
+        for qwen2's q / k / v biases, which are always there.
         ``mla_latent_cache`` stays False, as there: a DeepSeek checkpoint
         comes up in expanded mode."""
         if isinstance(conf, str):
@@ -151,6 +152,11 @@ class ModelConfig:
         # model-family aliases
         if mt in ("qwen3", "qwen3_moe"):
             kwargs["qk_norm"] = True
+        if mt == "qwen2":
+            # HF's Qwen2Attention always puts biases on q, k and v, and the
+            # published Qwen2 / Qwen2.5 config.json has no attention_bias key
+            # (the JAX package reads the key alone, and so drops them)
+            kwargs["attention_bias"] = True
         if mt in ("mixtral",):
             kwargs["num_experts"] = conf.get("num_local_experts", 0)
         if "num_experts_per_tok" in conf and "num_experts" not in kwargs:

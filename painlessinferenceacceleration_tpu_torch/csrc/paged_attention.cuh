@@ -7,7 +7,10 @@
 // causal) of painlessinferenceacceleration_tpu/ops/paged_attention.py, and
 // _attn_decode_tok_kernel (the per-token-scale e4m3 arena). Decode is the
 // verify rule with a one-entry mask; prefill is the same walk with the
-// causal rule in place of the mask. Three arena modes (template MODE):
+// causal rule in place of the mask. The mask rule takes any Q: a tree
+// verify past 128 rows (which the JAX package leaves to XLA) runs as many
+// tiles as prefill would, each walking the keys up to the step's last.
+// Three arena modes (template MODE):
 //   0  bf16 arena;
 //   1  e4m3 arena with static per-(layer, kv head) scales: the K scale folds
 //      into the score factor and the V scale into the output, as the Pallas
@@ -58,9 +61,20 @@
 // Head dims (template DK, DV: the K and Q rows' lanes, the V and output
 // rows'): (64, 64), (128, 128), (256, 256) (GPT-J) and (192, 128) (DeepSeek's
 // MLA in expanded mode: nope + rope lanes of K beside 128 of V). The K and V
-// arenas are [n_pages * 64, Hkv * DK] and [.., Hkv * DV], each with its own
-// tensor map. At DV = 256 a consumer thread holds 128 fp32 of O: the build
-// moves registers from the loader as ALiBi's does (setmaxnreg 56 / 224) and
+// arenas are [n_pages * 64, Hkv * dk] and [.., Hkv * dv], each with its own
+// tensor map, where dk <= DK and dv <= DV are the heads' own widths (run
+// time): OPT's 80 and BLOOM's 96 lanes run the (128, 128) build. The tile's
+// Q is zero past dk lanes; head h's K and V are read as the build's 64-lane
+// boxes from column h * dk (h * dv), so the lanes past the head's width are
+// the next head's (finite: the arena starts as zeros and its e4m3 writes
+// clip to +-448) or, past the last head, TMA's out-of-bounds zeros. Q's zero
+// lanes add exact zeros to the fp32 scores, and O's lanes past dv are
+// dropped at the store. Each head starts on a 16-byte boundary (160 h or
+// 192 h bytes in bf16, 80 h or 96 h in e4m3), as TMA's row strides need.
+// This reads 128 / dk times the heads' K / V bytes (1.6x at 80, 1.33x at
+// 96) and adds no instantiation.
+// At DV = 256 a consumer thread holds 128 fp32 of O: the build moves
+// registers from the loader as ALiBi's does (setmaxnreg 56 / 224) and
 // runs each key block's S and P V one after the other (the same operations
 // in the same order as the pipelined walk, so the same bits), so that the
 // scores and the P fragments are not live beside O. The e4m3 modes keep as
@@ -70,11 +84,13 @@
 // B per (request, kv head) and layer; at prefill the two products, 4 D FLOP
 // per visible (row, key) pair at 989 TFLOP/s. The design:
 // - A block takes (kv head, request, query tile). A tile is 128 rows: the G
-//   query heads of the kv head times 128 / G positions (fewer where Q is
-//   shorter), row r -> head h * G + r / nt, position t0 + r % nt. Two
-//   consumer warpgroups take 64 rows each; a warpgroup whose rows are all
-//   padding takes no part. Decode and verify (Q * G <= 128) are one tile a
-//   kv head. Causal tiles are launched heaviest (last) first.
+//   query heads of the kv head (any G from 1 to 128) times 128 / G
+//   positions, rounded down (fewer where Q is shorter), row r -> head
+//   h * G + r / nt, position t0 + r % nt; the rows past G * nt are zero
+//   padding (2 rows at G = 7: 18 positions). Two consumer warpgroups take
+//   64 rows each; a warpgroup whose rows are all padding takes no part.
+//   Decode and verify with Q * G <= 128 are one tile a kv head. Causal
+//   tiles are launched heaviest (last) first.
 // - Keys are walked in blocks of 64 at absolute key positions, one page
 //   (page size 64), from key 0 to the tile's last visible key. A producer
 //   thread reads each page id from page_tables and issues TMA loads of the
@@ -265,8 +281,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const float* __restrict__ alibi, const int* __restrict__ kpos,
     const int* __restrict__ window, __nv_bfloat16* __restrict__ out, int Q, int Hq,
-    int Hkv, int P, int QT, int n_tiles, float scale, int causal, int page_lo,
-    int page_hi, float* __restrict__ lse) {
+    int Hkv, int dk, int dv, int P, int QT, int n_tiles, float scale, int causal,
+    int page_lo, int page_hi, float* __restrict__ lse) {
   using L = Smem<DK, DV, MODE>;
   constexpr int S = L::kStages;
   constexpr int R = L::kRawStages > 0 ? L::kRawStages : 1;  // (no raw ring in bf16)
@@ -322,15 +338,16 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     }
     fence_mbar_init();
   }
-  // the tile's q rows, zeros past n_rows, in the swizzle wgmma reads
+  // the tile's q rows, zeros past n_rows and past the head's dk lanes, in
+  // the swizzle wgmma reads
   if (threadIdx.x < kLoader) {
     constexpr int kUnits = DK / 8;  // 16-byte units of a row
     for (int e = threadIdx.x; e < kRows * kUnits; e += kLoader) {
       const int r = e / kUnits, u = e % kUnits;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < n_rows) {
+      if (r < n_rows && 8 * u < dk) {
         const int t = t0 + r % nt, qh = h * G + r / nt;
-        v = *reinterpret_cast<const uint4*>(q + (((size_t)b * Q + t) * Hq + qh) * DK + 8 * u);
+        v = *reinterpret_cast<const uint4*>(q + (((size_t)b * Q + t) * Hq + qh) * dk + 8 * u);
       }
       *reinterpret_cast<uint4*>(q_s + (u / 8) * (kRows * 128) + r * 128 +
                                 (((u % 8) ^ (r & 7)) << 4)) = v;
@@ -355,10 +372,10 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
         mbar_expect(full + 8 * slot, L::kStage);
 #pragma unroll
         for (int c = 0; c < DK / 64; ++c)
-          tma_load(smem_u32(dst + c * kKeys * 128), &km, h * DK + 64 * c, row, full + 8 * slot);
+          tma_load(smem_u32(dst + c * kKeys * 128), &km, h * dk + 64 * c, row, full + 8 * slot);
 #pragma unroll
         for (int c = 0; c < DV / 64; ++c)
-          tma_load(smem_u32(dst + L::kKHalf + c * kKeys * 128), &vm, h * DV + 64 * c, row,
+          tma_load(smem_u32(dst + L::kKHalf + c * kKeys * 128), &vm, h * dv + 64 * c, row,
                    full + 8 * slot);
       }
       return;
@@ -370,8 +387,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
         const int row = pt[kb] * kKeys;
         uint8_t* dst = raw + slot * L::kRaw;
         mbar_expect(rfull + 8 * slot, L::kRaw);
-        tma_load(smem_u32(dst), &km, h * DK, row, rfull + 8 * slot);
-        tma_load(smem_u32(dst + L::kRawK), &vm, h * DV, row, rfull + 8 * slot);
+        tma_load(smem_u32(dst), &km, h * dk, row, rfull + 8 * slot);
+        tma_load(smem_u32(dst + L::kRawK), &vm, h * dv, row, rfull + 8 * slot);
       }
       return;
     }
@@ -723,11 +740,12 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_wgmma_kernel(
     if (lse != nullptr && quad == 0)
       lse[((size_t)b * Q + t) * Hq + qh] =
           lt > 0.f ? (m[h2] * sfac + log2f(lt)) * kLn2 : __int_as_float(0xff800000);
-    __nv_bfloat16* dst = out + (((size_t)b * Q + t) * Hq + qh) * DV;
+    __nv_bfloat16* dst = out + (((size_t)b * Q + t) * Hq + qh) * dv;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * quad) =
-          pack_bf16x2(o[4 * j + 2 * h2] * inv, o[4 * j + 2 * h2 + 1] * inv);
+      if (8 * j < dv)  // the head's own lanes
+        *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * quad) =
+            pack_bf16x2(o[4 * j + 2 * h2] * inv, o[4 * j + 2 * h2 + 1] * inv);
   }
 }
 
@@ -736,16 +754,19 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* page_tables, const int* ctx_lens, const uint8_t* qmask,
                    const float* k_scale, const float* v_scale, const float* alibi,
                    const int* kpos, const int* window, void* out,
-                   int B, int Q, int Hq, int Hkv, int n_pages, int P, int QT, float scale,
-                   int causal, int page_lo, int page_hi, float* lse, cudaStream_t st) {
+                   int B, int Q, int Hq, int Hkv, int dk, int dv, int n_pages, int P, int QT,
+                   float scale, int causal, int page_lo, int page_hi, float* lse,
+                   cudaStream_t st) {
   using L = Smem<DK, DV, MODE>;
   static bool done[64] = {};
   cudaError_t err =
       allow_smem(paged_attention_wgmma_kernel<DK, DV, MODE, ALIBI, RANGED>, L::kBytes, done);
   if (err != cudaSuccess) return err;
+  // the heads' own widths: at most the build's, whole 16-byte q units
+  if (dk < 1 || dk > DK || dv < 1 || dv > DV || dk % 8 || dv % 8) return cudaErrorInvalidValue;
   CUtensorMap km, vm;
   const uint64_t rows = (uint64_t)n_pages * kKeys;
-  const uint64_t kcols = (uint64_t)Hkv * DK, vcols = (uint64_t)Hkv * DV;
+  const uint64_t kcols = (uint64_t)Hkv * dk, vcols = (uint64_t)Hkv * dv;
   const bool ok =
       MODE == kBf16
           ? make_map(&km, k_pages, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows, kcols, 64, kKeys,
@@ -762,21 +783,21 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   dim3 grid(Hkv, B, n_tiles);
   paged_attention_wgmma_kernel<DK, DV, MODE, ALIBI, RANGED><<<grid, kThreads, L::kBytes, st>>>(
       km, vm, static_cast<const __nv_bfloat16*>(q), page_tables, ctx_lens, qmask, k_scale,
-      v_scale, alibi, kpos, window, static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, P, QT,
-      n_tiles, scale, causal, page_lo, page_hi, lse);
+      v_scale, alibi, kpos, window, static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, dk, dv, P,
+      QT, n_tiles, scale, causal, page_lo, page_hi, lse);
   return cudaSuccess;
 }
 
 // The arguments every instantiation takes, after its template flags.
 #define PA_ARGS                                                                            \
-  q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, window, out, B, Q, Hq, Hkv,     \
-      n_pages, P, QT, scale, causal, lo, hi, lse, st
+  q, k_pages, v_pages, pt, cl, qm, ksc, vsc, alibi, kpos, window, out, B, Q, Hq, Hkv, dk, \
+      dv, n_pages, P, QT, scale, causal, lo, hi, lse, st
 #define PA_PARAMS                                                                          \
   const void *q, const void *k_pages, const void *v_pages, const int *pt, const int *cl,   \
       const uint8_t *qm, const float *ksc, const float *vsc, const float *alibi,           \
       const int *kpos, const int *window, void *out, int B, int Q, int Hq, int Hkv,        \
-      int n_pages, int P, int QT, float scale, int causal, int lo, int hi, float *lse,     \
-      cudaStream_t st
+      int dk, int dv, int n_pages, int P, int QT, float scale, int causal, int lo, int hi, \
+      float *lse, cudaStream_t st
 
 template <int DK, int DV, bool ALIBI>
 cudaError_t launch_mode(int mode, PA_PARAMS) {
@@ -803,8 +824,9 @@ int smem_bytes(int mode) {
          : mode == kFp8Token ? Smem<DK, DV, kFp8Token>::kBytes : -1;
 }
 
-// Each source defines these over its pairs.
-cudaError_t pa_dispatch(int DK, int DV, int mode, PA_PARAMS);
+// Each source defines these over its pairs (dk, dv in PA_PARAMS: the heads'
+// own widths, which pick the build).
+cudaError_t pa_dispatch(int mode, PA_PARAMS);
 int pa_smem_bytes(int DK, int DV, int mode);
 
 }  // namespace
@@ -826,15 +848,17 @@ extern "C" int paged_attention_smem_bytes(int DK, int DV, int mode) {
 // mode 0; alibi f32 [Hq] slopes, or null for none; alibi_pos int32 [B, Q] the
 // positions of the step's own keys, or null for their slots (read only with
 // alibi); window int32 [B] the prefix-LM window of the causal rule, or null;
-// out bf16 [B, Q, Hq, DV]; positions: the query positions of a tile;
+// out bf16 [B, Q, Hq, DV]; positions: the query positions of a tile
+// (128 / G rounded down);
 // page_lo / page_hi: walk only the key blocks whose page id lies in
 // [page_lo, page_hi) (0 / INT_MAX: all of them; a range takes the bf16 arena
 // without ALiBi, in the RANGED instantiation); lse f32 [B, Q, Hq], the rows'
 // log-sum-exp, or null. The wrapper's plan (ops/paged_attention.py
-// attention_check, attention_plan) gives positions = 128 / (Hq / Hkv) and
-// requires (DK, DV) in {(64, 64), (128, 128), (256, 256), (192, 128)} (the
-// pairs of the source it calls), page size 64, B <= 65535 and 16-byte
-// aligned operands.
+// attention_check, attention_plan) gives positions = 128 // (Hq / Hkv),
+// 1 <= Hq / Hkv <= 128, and requires (DK, DV) in {(64, 64), (80, 80),
+// (96, 96), (128, 128)} (paged_attention.cu) or {(256, 256), (192, 128)}
+// (paged_attention_wide.cu), page size 64, B <= 65535 and 16-byte aligned
+// operands.
 extern "C" int paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                const void* page_tables, const void* ctx_lens,
                                const void* qmask, const void* k_scale, const void* v_scale,
@@ -854,7 +878,8 @@ extern "C" int paged_attention(const void* q, const void* k_pages, const void* v
   const int* window = static_cast<const int*>(prefix_window);
   float* lse = static_cast<float*>(lse_out);
   const int QT = positions;
-  const cudaError_t err = pa_dispatch(DK, DV, mode, PA_ARGS);
+  const int dk = DK, dv = DV;
+  const cudaError_t err = pa_dispatch(mode, PA_ARGS);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

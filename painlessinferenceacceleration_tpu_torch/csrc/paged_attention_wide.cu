@@ -7,9 +7,9 @@
 
 namespace {
 
-cudaError_t pa_dispatch(int DK, int DV, int mode, PA_PARAMS) {
-  if (DK == 256 && DV == 256) return launch_alibi<256, 256>(mode, PA_ARGS);
-  if (DK == 192 && DV == 128) return launch_alibi<192, 128>(mode, PA_ARGS);
+cudaError_t pa_dispatch(int mode, PA_PARAMS) {
+  if (dk == 256 && dv == 256) return launch_alibi<256, 256>(mode, PA_ARGS);
+  if (dk == 192 && dv == 128) return launch_alibi<192, 128>(mode, PA_ARGS);
   return cudaErrorInvalidValue;
 }
 

@@ -28,13 +28,14 @@ over the token embeddings (``embed_override``) and AntGLM's per-row
 
 Attention dispatch follows the JAX ``_attn_block_at`` over the three arena
 kinds (ALiBi slopes ride along in every one, where JAX sends ALiBi to its
-jnp path): Q <= 128 goes to the decode/verify rule, Q > 128 with a causal
-window to the prefill rule (AntGLM's prefix-LM prefill too, with its window
-``glm_ids[:, 0]``, where JAX has no prefill kernel), ``paged_attention_tok``
-for a per-token-scale e4m3 arena; any other case runs the plain gather path
-on the CPU and raises on CUDA. Where JAX serves the e4m3 prefill and per-token verify widths with
-jnp, the port uses the kernel's e4m3 modes, so no arena/width pair reaches a
-plain version on the card.
+jnp path): Q > 128 with a causal window goes to the prefill rule
+(AntGLM's prefix-LM prefill too, with its window ``glm_ids[:, 0]``, where
+JAX has no prefill kernel), every other width to the decode/verify rule
+with its mask (a tree verify past 128 rows too, which JAX leaves to XLA),
+``paged_attention_tok`` for a per-token-scale e4m3 arena. Where JAX
+serves the e4m3 prefill and per-token verify widths with jnp, the port
+uses the kernel's e4m3 modes, so no arena/width pair reaches a plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -68,10 +69,7 @@ from painlessinferenceacceleration_tpu_torch.models.moe import (
     init_moe_layer,
     moe_block,
 )
-from painlessinferenceacceleration_tpu_torch.ops.attention import (
-    alibi_slopes,
-    paged_attention_ref,
-)
+from painlessinferenceacceleration_tpu_torch.ops.attention import alibi_slopes
 from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_attention, cp_write_kv
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -137,8 +135,9 @@ def check_model_on_card(cfg: ModelConfig, params: dict, page_size: int) -> None:
     """Raise, before serving starts, where a kernel on the card refuses the
     model's shapes. What is still refused: paged attention's geometry
     (``attention_check``: the (K, V) head dims of ``HEAD_DIMS``, which hold
-    every family's, GPT-J's 256 and DeepSeek's expanded (192, 128) among
-    them; pages of 64 keys; query heads a kv head dividing 128), the bf16
+    every family's, OPT's 80, BLOOM's 96, GPT-J's 256 and DeepSeek's
+    expanded (192, 128) among them; pages of 64 keys; 1 to 128 query heads
+    a kv head, any whole number: Qwen2's 7, Qwen2.5's 6 and 5), the bf16
     GEMM's K and N (``bf16_check``: K % 8, N % 8) on the native linears and
     the tied head over a bf16 table (the engine pads a table's rows to a
     multiple of 8 first, ``pad_vocab_rows``), and the e4m3 tied head's K
@@ -411,13 +410,14 @@ def init_params_quantized(cfg: ModelConfig, spec: QuantSpec,
 def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale,
                alibi=None, window=None):
     """Dispatch on the arena (bf16 / static e4m3 / per-token e4m3) and the
-    width: Q <= 128 to the decode/verify rule, Q > 128 with a causal window
-    to the prefill rule, and so a prefix-LM prefill chunk past 128 rows
-    with its ``window`` [B] int32 (AntGLM's prompt lengths: the causal rule
-    plus the keys before the window); ``alibi`` = (slopes [Hq], the step's
-    positions [B, Q] int32) rides along (the causal rule puts key s at ctx
-    + s). On CUDA every case is a kernel; any other case raises there and
-    runs the plain gather path on the CPU."""
+    rule: Q > 128 with a causal window to the prefill rule, and so a
+    prefix-LM prefill chunk past 128 rows with its ``window`` [B] int32
+    (AntGLM's prompt lengths: the causal rule plus the keys before the
+    window); every other width, a tree verify past 128 rows among them, to
+    the decode/verify rule with its mask. ``alibi`` = (slopes [Hq], the
+    step's positions [B, Q] int32) rides along (the causal rule puts key s
+    at ctx + s). On CUDA every case is a kernel; the CPU runs the plain
+    gather path."""
     slopes, pos = alibi if alibi is not None else (None, None)
     kk, vv = kv["k"][li], kv["v"][li]
     Q = xq.shape[1]
@@ -427,12 +427,7 @@ def _attention(xq, kv, li, page_tables, start_lens, qmask, causal_window, scale,
         k_s, v_s = kv["k_tok_scale"][li], kv["v_tok_scale"][li]
     elif "k_scale" in kv:
         k_s, v_s = kv["k_scale"][li], kv["v_scale"][li]
-    if Q > 128 and not causal_window and window is None:
-        if xq.is_cuda:
-            raise NotImplementedError("non-causal attention with Q > 128 has no kernel")
-        return paged_attention_ref(xq, kk, vv, page_tables, start_lens, qmask,
-                                   scale, k_s, v_s, alibi=slopes, alibi_pos=pos)
-    wide = Q > 128
+    wide = Q > 128 and (causal_window or window is not None)
     if tok:
         return paged_attention_tok(xq, kk, vv, k_s, v_s, page_tables, start_lens,
                                    scale, None if wide else qmask, slopes,

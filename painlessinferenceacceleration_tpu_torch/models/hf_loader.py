@@ -215,6 +215,9 @@ def _params_llama(sd, cfg, dtype, quant, dev):
             lp["wo"] = lin(a + "o_proj")
             if cfg.attention_bias:
                 lp["bqkv"] = r.j(torch.cat([r.get(a + f"{n}_proj.bias") for n in "qkv"]))
+            elif a + "q_proj.bias" in sd:
+                raise ValueError(f"{a}q_proj.bias: the checkpoint has q / k / v biases "
+                                 f"that its config does not declare (attention_bias)")
             if cfg.attention_out_bias and a + "o_proj.bias" in sd:
                 lp["bo"] = r.j(r.get(a + "o_proj.bias"))  # internlm
             if cfg.qk_norm:

@@ -141,8 +141,9 @@ def _mla_attention(q: torch.Tensor, kv: dict, li: int, page_tables: torch.Tensor
                    start_lens: torch.Tensor, qmask: torch.Tensor, causal: bool,
                    scale: float, latent_v_dim: Optional[int]) -> torch.Tensor:
     """One process's attention of KV layer ``li`` over the whole arena:
-    K13 over the latent arena (``latent_v_dim`` set), else K2 / K3 over the
-    expanded one (the card takes Q > 128 under the causal rule only)."""
+    K13 over the latent arena (``latent_v_dim`` set, any Q), else K2 / K3
+    over the expanded one: K3 for a causal chunk past 128 rows, K2 with the
+    mask for every other width (a tree verify past 128 rows too)."""
     kk = kv["k"][li]
     if latent_v_dim is not None:
         return mla_paged_attention(q, kk, page_tables, start_lens, qmask, scale,

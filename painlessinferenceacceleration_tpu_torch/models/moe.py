@@ -18,7 +18,11 @@ multiply-adds. With ``cfg.expert_parallel`` and more than one expert shard
 (activation-quantized experts: the scan over them) and the shards'
 contributions are added; under a ``DistLLM`` each rank holds its own
 experts (expert parallelism) or its columns of every expert (tensor
-parallelism), and the ranks' parts are added in rank order.
+parallelism), and the ranks' parts are added in rank order. Under tensor
+parallelism a dynamic W8A8 ``wdown`` quantizes a rank's slice of each
+expert's intermediate row with the whole row's amax (``_scan_experts``:
+every expert's slice amaxes gathered in one collective a layer), so a
+rank's int8 / e4m3 activations are the columns one process makes.
 
 On the card a token's expert output has the same bits by every route and at
 every batch width (one GEMM arithmetic, a fixed order of the k terms), so
@@ -140,14 +144,28 @@ def route_topk(cfg: ModelConfig, router_logits: torch.Tensor,
     return w.scatter_(1, topi, topv)
 
 
-def _expert_mlp(wgu, wdown, x: torch.Tensor, spec, par=None) -> torch.Tensor:
-    """One gated MLP over every row of x: gate and up halves of one GEMM;
-    with a rank state ``par`` the down product is row-parallel
-    (``parallel.comm.linear_rows``)."""
+def _expert_act(wgu, x: torch.Tensor, spec) -> torch.Tensor:
+    """A gated MLP's intermediate rows: gate and up halves of one GEMM."""
     gu = linear(wgu, x, spec)
     I = gu.shape[-1] // 2
-    act = F.silu(gu[..., :I].to(torch.float32)).to(x.dtype) * gu[..., I:]
-    return comm.linear_rows(wdown, act, spec, par)
+    return F.silu(gu[..., :I].to(torch.float32)).to(x.dtype) * gu[..., I:]
+
+
+def _expert_mlp(wgu, wdown, x: torch.Tensor, spec, par=None) -> torch.Tensor:
+    """One gated MLP over every row of x; with a rank state ``par`` the down
+    product is row-parallel (``parallel.comm.linear_rows``)."""
+    return comm.linear_rows(wdown, _expert_act(wgu, x, spec), spec, par)
+
+
+def _down(wdown, act: torch.Tensor, spec, amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act @ wdown`` in act's type; ``amax`` [T]: the whole rows' amax
+    with which a rank quantizes its slice of dynamic W8A8 rows under tensor
+    parallelism (``comm.quantizes_slices``), None otherwise."""
+    if amax is None:
+        return linear(wdown, act, spec)
+    from painlessinferenceacceleration_tpu_torch.ops.w8a8 import w8a8_matmul
+
+    return w8a8_matmul(act, wdown, spec, None, amax)
 
 
 def _experts(w, idx):
@@ -188,14 +206,23 @@ def _ep_part(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Ten
 
 
 def _scan_experts(wgu, wdown, x: torch.Tensor, spec: Optional[QuantSpec],
-                  route_w: torch.Tensor, base: int, n: int) -> torch.Tensor:
+                  route_w: torch.Tensor, base: int, n: int, par=None) -> torch.Tensor:
     """The scan route over the experts ``[base, base + n)`` (``wgu`` /
     ``wdown``: their stacked weights): every token through every expert, the
     fp32 sum of the outputs weighted by ``route_w``'s columns, in expert
-    order. [T, E] fp32."""
+    order. [T, E] fp32. Under tensor parallelism (``par``) each output is
+    this rank's partial of its expert's down product; dynamic W8A8 experts
+    quantize a rank's slices with the whole rows' amax, every expert's
+    activations made first and their slice amaxes gathered in one
+    collective (``comm.row_amax``)."""
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    acts = amax = None
+    if comm.quantizes_slices(wdown, spec, par):
+        acts = torch.stack([_expert_act(_experts(wgu, e), x, spec) for e in range(n)])
+        amax = comm.row_amax(acts, par)
     for e in range(n):
-        out = _expert_mlp(_experts(wgu, e), _experts(wdown, e), x, spec)
+        act = _expert_act(_experts(wgu, e), x, spec) if acts is None else acts[e]
+        out = _down(_experts(wdown, e), act, spec, None if amax is None else amax[e])
         acc = acc + out.to(torch.float32) * route_w[:, base + e][:, None]
     return acc
 
@@ -277,13 +304,15 @@ def _moe_ep(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Tens
 
 
 def _moe_local(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec], x: torch.Tensor,
-               route_w: torch.Tensor) -> torch.Tensor:
+               route_w: torch.Tensor, par=None) -> torch.Tensor:
     """The routed experts over this process's weights by the grouped or the
-    scan route, [T, E] (fp32 from the scan)."""
+    scan route, [T, E] (fp32 from the scan); ``par``: the rank state when
+    these are a rank's columns of every expert (tensor parallelism)."""
     T, E = x.shape
     if use_grouped_moe(cfg, spec, lp, T):
         return moe_block_grouped(lp, cfg, x[None], route_w).reshape(T, E)
-    return _scan_experts(lp["moe_wgu"], lp["moe_wdown"], x, spec, route_w, 0, cfg.num_experts)
+    return _scan_experts(lp["moe_wgu"], lp["moe_wdown"], x, spec, route_w, 0,
+                         cfg.num_experts, par)
 
 
 def router_logits(lp: dict, x: torch.Tensor) -> torch.Tensor:
@@ -307,10 +336,12 @@ def moe_block(lp: dict, cfg: ModelConfig, spec: Optional[QuantSpec],
     if ranks and st.mode == "tp" and st.moe_split:
         # tensor parallelism: each expert's widths split; the routed output as
         # one process rounds it, plus a split shared MLP, summed in rank order
-        part = _moe_local(lp, cfg, spec, x, route_w).to(h.dtype).to(torch.float32)
+        part = _moe_local(lp, cfg, spec, x, route_w, st).to(h.dtype).to(torch.float32)
         if shared and split_shared:
-            part = part + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x,
-                                      spec).to(torch.float32)
+            act = _expert_act(lp["shared_wgu"], x, spec)
+            amax = (comm.row_amax(act, st) if comm.quantizes_slices(lp["shared_wdown"], spec, st)
+                    else None)
+            part = part + _down(lp["shared_wdown"], act, spec, amax).to(torch.float32)
         out = comm.reduce_partial(part, st).to(h.dtype)
         if shared and not split_shared:
             out = out + _expert_mlp(lp["shared_wgu"], lp["shared_wdown"], x, spec)

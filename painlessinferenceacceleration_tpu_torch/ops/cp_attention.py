@@ -10,8 +10,9 @@ rank computes every row of a step.
 - ``local_page_table`` rebases a page table onto the rank's arena: a
   local page's id becomes its local index, any other page (and the null
   page 0) the local null page.
-- ``cp_partial`` is the rank's attention over its own keys: K2 (Q <= 128)
-  or K3 (Q > 128, causal) with the page range ``[1, per + 1)`` of its
+- ``cp_partial`` is the rank's attention over its own keys: K3 (Q > 128,
+  causal) or K2 (every other width, a tree verify past 128 rows too, under
+  its mask) with the page range ``[1, per + 1)`` of its
   local pages and the rows' log-sum-exp; on the CPU their plain twin
   (``paged_attention_ref`` with the same range). MLA's expanded arena
   takes the same kernels at its (192, 128) head dims; its latent arena
@@ -48,7 +49,6 @@ from typing import Optional, Tuple
 import torch
 
 from painlessinferenceacceleration_tpu_torch.engine.cache import write_kv_pages
-from painlessinferenceacceleration_tpu_torch.ops.attention import paged_attention_ref
 from painlessinferenceacceleration_tpu_torch.ops.mla_attention import mla_paged_attention
 from painlessinferenceacceleration_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -85,8 +85,8 @@ def cp_partial(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                scale: float, causal: bool, page_range: Tuple[int, int],
                latent_v_dim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Q, H, Dv], lse [B, Q, H] fp32) over the keys whose page id
-    lies in ``page_range``: K2 (Q <= 128) or K3 (Q > 128, causal) on the
-    card, their plain twin on the CPU; with ``latent_v_dim``, MLA's latent
+    lies in ``page_range``: K3 (Q > 128, causal) or K2 (any other width, its
+    mask) on the card, their plain twin on the CPU; with ``latent_v_dim``, MLA's latent
     MQA over the K pages alone (K13, the causal flag as the prefill's, its
     plain twin on the CPU). A rank passes its local arena and rebased table
     with the range [1, per + 1)."""
@@ -94,16 +94,11 @@ def cp_partial(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         return mla_paged_attention(q, k_pages, page_tables, ctx_lens, qmask, scale,
                                    latent_v_dim, causal=causal, page_range=page_range,
                                    return_lse=True)
-    if q.shape[1] <= 128:
-        return paged_attention(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
-                               page_range=page_range, return_lse=True)
-    if causal:
+    if q.shape[1] > 128 and causal:
         return paged_attention_prefill(q, k_pages, v_pages, page_tables, ctx_lens, scale,
                                        page_range=page_range, return_lse=True)
-    if q.is_cuda:
-        raise NotImplementedError("non-causal attention with Q > 128 has no kernel")
-    return paged_attention_ref(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
-                               page_range=page_range, return_lse=True)
+    return paged_attention(q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
+                           page_range=page_range, return_lse=True)
 
 
 def merge_partials(outs: torch.Tensor, lses: torch.Tensor,

@@ -1,7 +1,8 @@
 """Paged attention over the KV arena: kernel wrappers and plain versions.
 
-``paged_attention`` (decode and tree verify, 1 <= Q <= 128) replaces the
-Pallas ``_attn_decode_kernel`` and ``_attn_verify_kernel``;
+``paged_attention`` (decode and tree verify under the mask rule, any Q:
+a tree verify past 128 rows walks a tile of positions at a time) replaces
+the Pallas ``_attn_decode_kernel`` and ``_attn_verify_kernel``;
 ``paged_attention_prefill`` (causal, Q > 128) replaces
 ``_attn_prefill_kernel``; ``paged_attention_tok`` (the per-token-scale e4m3
 arena, every width) replaces ``_attn_decode_tok_kernel``
@@ -18,12 +19,16 @@ The arena arguments are one layer's views ``[n_pages, ps, Hkv*D]`` (and
 ``[n_pages, ps, Hkv]`` for per-token scales) of the stacked arenas, no
 copy. A CPU tensor takes the plain version (``ops/attention.py``, which
 dequantizes as it gathers); a CUDA tensor launches the kernel or raises:
-the kernel takes the (K, V) head dims of ``HEAD_DIMS`` (64 and 128; GPT-J's
-256; DeepSeek's expanded MLA, K rows of 192 lanes beside V rows of 128:
-the V arena's width says which), pages of 64 keys (its key block) and G =
-Hq / Hkv dividing 128 (``attention_check``). Each wrapper's ``launches``
-counts its kernel launches, ``modes`` counts them by width kind (decode /
-verify / prefill) and arena, and ``dims`` by head dims ("DKxDV,kind,arena"). ``attention_plan`` and
+the kernel takes the (K, V) head dims of ``HEAD_DIMS`` (64 and 128; OPT's
+and BLOOM's 80 and 96, served by the 128-lane build; GPT-J's 256;
+DeepSeek's expanded MLA, K rows of 192 lanes beside V rows of 128: the V
+arena's width says which), pages of 64 keys (its key block) and any whole
+G = Hq / Hkv from 1 to 128 (``attention_check``; a tile holds the G heads
+of 128 // G positions, its last 128 - G * (128 // G) rows padding). Each
+wrapper's ``launches`` counts its kernel launches, ``modes`` counts them
+by width kind (decode / verify / prefill) and arena, ``dims`` by head dims
+("DKxDV,kind,arena") and ``groups`` by query heads a kv head
+("G,kind,arena"). ``attention_plan`` and
 ``key_blocks`` are the launch plan the kernel follows (its tiles, grid,
 heaviest-first order and key walk), kept here so the CPU tests see it.
 
@@ -74,12 +79,16 @@ _ARGS = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 9 + (
 ALL_PAGES = (0, 2 ** 31 - 1)  # the page range of a call without one
 
 AttentionPlan = collections.namedtuple("AttentionPlan", "positions n_tiles grid")
-# the (K, V) head dims the kernel is built for, and the library of each
+# the (K, V) head dims the kernel takes, and the library of each
 # (csrc/paged_attention.cu and csrc/paged_attention_wide.cu, one body in
 # csrc/paged_attention.cuh, compiled side by side): whole 64-lane boxes, and
 # V's accumulator at most 256 lanes (at 256 its 128 fp32 a thread take the
-# loader's registers)
-LIBRARY = {(64, 64): "paged_attention", (128, 128): "paged_attention",
+# loader's registers). Rows of 80 and 96 lanes run the (128, 128) build
+# with the head's own width (``pa_dispatch`` in csrc/paged_attention.cu):
+# Q zero past it, each head's K and V read as two 64-lane boxes from its
+# first lane, the lanes past it dropped at the store.
+LIBRARY = {(64, 64): "paged_attention", (80, 80): "paged_attention",
+           (96, 96): "paged_attention", (128, 128): "paged_attention",
            (256, 256): "paged_attention_wide", (192, 128): "paged_attention_wide"}
 HEAD_DIMS = tuple(LIBRARY)
 
@@ -87,28 +96,35 @@ HEAD_DIMS = tuple(LIBRARY)
 def attention_check(Hq: int, Hkv: int, D: int, ps: int, Dv: Optional[int] = None) -> None:
     """Raise ValueError unless the kernel takes this geometry: K head dim
     ``D`` and V head dim ``Dv`` (default D) one of ``HEAD_DIMS`` (whole
-    64-lane TMA boxes and wgmma k steps; the pairs instantiated), pages of
-    KEY_BLOCK keys (a key block is one page, so its TMA boxes are whole
-    pages) and a whole number of query heads per kv head dividing
-    TILE_ROWS (a tile holds whole heads)."""
+    64-lane TMA boxes and wgmma k steps, or 80 / 96 lanes inside the
+    128-lane build; the pairs instantiated), pages of KEY_BLOCK keys (a key
+    block is one page, so its TMA boxes are whole pages) and a whole number
+    G of query heads per kv head, 1 <= G <= TILE_ROWS (a tile holds the G
+    heads of at least one position)."""
     Dv = D if Dv is None else Dv
     if (D, Dv) not in HEAD_DIMS:
-        why = ("rows of whole 64-lane boxes" if D % 64 or Dv % 64 else
+        why = ("rows of whole 64-lane boxes, or 80 / 96 lanes in the 128-lane build"
+               if D % 64 or Dv % 64 else
                "an instantiation for it" if Dv <= 256 else "an accumulator of at most 256 lanes")
         raise ValueError(f"paged attention takes the head dims {HEAD_DIMS} (K, V), not "
                          f"({D}, {Dv}): it needs {why}")
     if ps != KEY_BLOCK:
         raise ValueError(f"paged attention on the card takes pages of {KEY_BLOCK} keys, "
                          f"not {ps}")
-    if Hkv <= 0 or Hq % Hkv or TILE_ROWS % (Hq // Hkv):
-        raise ValueError(f"paged attention needs Hq / Hkv dividing {TILE_ROWS} "
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"paged attention needs a whole number of query heads a kv head "
+                         f"(Hq={Hq}, Hkv={Hkv})")
+    if not 1 <= Hq // Hkv <= TILE_ROWS:
+        raise ValueError(f"paged attention takes 1 to {TILE_ROWS} query heads a kv head "
+                         f"(a tile holds the heads of one position), not {Hq // Hkv} "
                          f"(Hq={Hq}, Hkv={Hkv})")
 
 
 def attention_plan(B: int, Q: int, Hq: int, Hkv: int) -> AttentionPlan:
-    """The launch: tiles of TILE_ROWS rows, ``positions`` = TILE_ROWS / G
+    """The launch: tiles of TILE_ROWS rows, ``positions`` = TILE_ROWS // G
     query positions a tile (row r -> head h * G + r / nt, position t0 +
-    r % nt, nt = min(positions, Q - t0)), grid (Hkv, B, n_tiles)."""
+    r % nt, nt = min(positions, Q - t0); rows past G * nt are padding),
+    grid (Hkv, B, n_tiles)."""
     if B < 1 or Q < 1:
         raise ValueError(f"paged attention needs B, Q >= 1 (B={B}, Q={Q})")
     if B > 65535:
@@ -243,6 +259,7 @@ def _launch(wrapper, q, k_pages, v_pages, page_tables, ctx_lens, qmask, scale,
                   + (",range" if page_range is not None else "")
                   + (",window" if window is not None else "")] += 1
     wrapper.dims[f"{D}x{Dv},{kind},{arena}"] += 1
+    wrapper.groups[f"{Hq // Hkv},{kind},{arena}"] += 1
     return (out, lse) if return_lse else out
 
 
@@ -267,7 +284,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     alibi_pos: Optional[torch.Tensor] = None,
                     page_range: Optional[Tuple[int, int]] = None,
                     return_lse: bool = False):
-    """Decode / tree-verify attention, q [B, Q, Hq, D] with Q <= 128.
+    """Decode / tree-verify attention under the mask rule, q [B, Q, Hq, D]
+    at any Q (past 128 rows a tree verify takes several tiles, each walking
+    the keys up to the step's last).
 
     K/V of the Q in-step tokens must already be written at ctx..ctx+Q-1.
     ``kv_scales`` = (k_scale [Hkv], v_scale [Hkv]) for a static e4m3 arena;
@@ -278,8 +297,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     log-sum-exp [B, Q, Hq] of its scaled scores, -inf (and output 0) for a
     row that sees no key."""
     if q.is_cuda:
-        if q.shape[1] > 128:
-            raise ValueError("paged_attention serves Q <= 128; use the prefill kernel")
         arena, ks, vs = _arena_of(k_pages, kv_scales)
         return _launch(paged_attention, q, k_pages, v_pages, page_tables,
                        ctx_lens, qmask, scale, False, arena, ks, vs, alibi, alibi_pos,
@@ -351,6 +368,7 @@ for _w in (paged_attention, paged_attention_prefill, paged_attention_tok):
     _w.launches = 0
     _w.modes = collections.Counter()
     _w.dims = collections.Counter()
+    _w.groups = collections.Counter()
 
 
 # Registers of the slope-free instantiations without the page range at the

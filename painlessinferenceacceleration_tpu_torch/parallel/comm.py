@@ -156,19 +156,36 @@ def reduce_partial(part: torch.Tensor, st: RankState) -> torch.Tensor:
     return sum_ordered(model_gather(part.to(torch.float32), st))
 
 
+def quantizes_slices(p: LinearParams, spec: Optional[QuantSpec],
+                     par: Optional[RankState]) -> bool:
+    """Whether a rank's K-slice of x in ``x @ p`` is quantized with the
+    whole rows' amax (``row_amax``): p is a dynamic W8A8 leaf, which
+    quantizes x with each row's own amax, and ``par`` splits the rows over
+    more than one model rank. Block-fp8 scales are per 128-block (a slice
+    holds whole blocks) and weight-only leaves do not quantize x."""
+    return (par is not None and par.tp > 1 and isinstance(p, dict) and spec is not None
+            and spec.act == "dyn" and not spec.block)
+
+
+def row_amax(x: torch.Tensor, par: RankState) -> torch.Tensor:
+    """The fp32 amax of each whole row of which ``x`` [..., K] holds this
+    rank's K-slice, [...]: every model rank's slice amaxes gathered in one
+    collective, their max taken (exact)."""
+    return model_gather(x.abs().amax(dim=-1).to(torch.float32), par).amax(dim=0)
+
+
 def _row_part(p: LinearParams, x: torch.Tensor, spec: Optional[QuantSpec],
               par: RankState) -> torch.Tensor:
     """This rank's fp32 partial of a row-parallel ``x @ W`` (x is its
     K-slice). A dynamic W8A8 leaf quantizes the slice with the whole rows'
-    per-token scale: the ranks' amaxes are gathered and their max taken
-    (exact), so each rank's int8 / e4m3 activations are those one process
-    makes of its columns (the JAX package's global amax under GSPMD)."""
-    if isinstance(p, dict) and spec is not None and spec.act == "dyn" and not spec.block:
+    per-token scale (``row_amax``), so each rank's int8 / e4m3 activations
+    are those one process makes of its columns (the JAX package's global
+    amax under GSPMD)."""
+    if quantizes_slices(p, spec, par):
         from painlessinferenceacceleration_tpu_torch.ops.w8a8 import w8a8_matmul
 
-        amax = x.reshape(-1, x.shape[-1]).to(torch.float32).abs().amax(dim=-1)
-        amax = model_gather(amax, par).amax(dim=0)
-        return w8a8_matmul(x, p, spec, torch.float32, amax)
+        return w8a8_matmul(x, p, spec, torch.float32,
+                           row_amax(x.reshape(-1, x.shape[-1]), par))
     return linear(p, x, spec, out_dtype=torch.float32)
 
 

@@ -49,11 +49,14 @@ LOOK = dict(use_lookahead=True, decoding_length=8, branch_length=4,
 
 def cfgs(kind):
     """(JAX, port) ModelConfig of a family: dense, moe, mla, mla_x, hybrid,
-    ep."""
+    ep, moe_q (moe with an intermediate width other than the hidden one,
+    so that the down products' activations are told apart by their
+    width)."""
     if kind == "dense":
         return JModelConfig.tiny(**DENSE), TModelConfig.tiny(**DENSE)
     over = {"moe": MOE, "mla": MLA, "mla_x": MLA_X, "hybrid": HYBRID,
-            "ep": dict(MOE, expert_parallel=True)}
+            "ep": dict(MOE, expert_parallel=True),
+            "moe_q": dict(MOE, moe_intermediate_size=96)}
     return JModelConfig(**over[kind]), TModelConfig(**over[kind])
 
 
@@ -154,7 +157,8 @@ def jax_reference(kind, jp, quant=None, mm=None):
 def check_case(results, name, want, logits):
     """Every rank's tokens equal the JAX tokens, its logits are within 1e-4
     of JAX's, EP's block is bit-equal to the one-process expert_shards(n),
-    and it ran collectives."""
+    TP's quantized expert activations to one process's columns, and it ran
+    collectives."""
     for r, out in enumerate(results):
         got = out[name]
         assert got["tokens"] == want, (name, r)
@@ -163,4 +167,6 @@ def check_case(results, name, want, logits):
                                        err_msg=f"{name} rank {r}")
         if "ep_block_equal" in got:
             assert got["ep_block_equal"], (name, r)
+        if "tp_quant_equal" in got:
+            assert got["tp_quant_equal"] is True, (name, r)
         assert got["comm_n"] > 0, name

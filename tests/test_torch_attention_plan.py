@@ -12,12 +12,15 @@ MN-major through descriptors, and P goes from the score accumulator to the
 A fragments in registers; all of it is replayed in numpy. ``emulate``
 repeats the body's order of operations in torch (key blocks of 64 at
 absolute positions, the online softmax a block at a time, P rounded to
-bf16, the per-token scales where the kernel applies them); it is held
-against the JAX package's ``paged_attention_ref`` and its Pallas kernels
-in interpret mode (rel 2e-2: P and the output rounded to bf16; 3e-2
-against the e4m3 Pallas kernels, which compute in bf16 throughout), and a
-row's bits are shown not to depend on the width, the route or its place in
-the tile.
+bf16, the per-token scales where the kernel applies them; heads of 80 or
+96 lanes read as the 128-lane build reads them, Q zero past the head); it
+is held against the JAX package's ``paged_attention_ref`` and its Pallas
+kernels in interpret mode (rel 2e-2: P and the output rounded to bf16;
+3e-2 against the e4m3 Pallas kernels, which compute in bf16 throughout;
+a tree verify past 128 rows, which the JAX package leaves to XLA, against
+``paged_attention_ref`` alone), at G = 1 to 7 query heads a kv head (5, 6
+and 7 do not divide 128: a tile's last rows are padding), and a row's bits
+are shown not to depend on the width, the route or its place in the tile.
 """
 
 import numpy as np
@@ -49,7 +52,7 @@ from test_torch_w8a8_plan import CONFIGS
 LOG2E = np.float32(1.4426950408889634)
 # the JAX reference under one jit a shape (op by op it compiles every op)
 jax_ref = jax.jit(jatt.paged_attention_ref, static_argnums=(6,))
-GS = (1, 2, 4, 8, 16, 32, 64, 128)
+GS = (1, 2, 4, 5, 6, 7, 8, 16, 32, 64, 128)
 
 
 def _tiles(Q, G, positions):
@@ -77,7 +80,7 @@ def test_tiles_hold_whole_heads_and_every_row_once(G):
         assert plan.grid == (Hkv, 3, plan.n_tiles)
         seen = []
         for t0, nt, rows in _tiles(Q, G, plan.positions):
-            assert 1 <= len(rows) <= TILE_ROWS
+            assert 1 <= len(rows) <= G * plan.positions <= TILE_ROWS
             seen += rows
         assert sorted(seen) == [(g, t) for g in range(G) for t in range(Q)]
         if Q * G <= TILE_ROWS:  # decode and verify: one tile a kv head
@@ -145,10 +148,31 @@ def test_every_model_config_takes_the_kernel(name):
     attention_check(4, 2, 64, ps)
 
 
+# geometries of published sizes whose G does not divide 128 or whose head is
+# not whole 64-lane boxes: G = 3 (a 12 / 4 test shape), Qwen2.5-14B /
+# Qwen3-14B's 40 / 8 (G = 5), Qwen2.5-1.5B's 12 / 2 (G = 6), Qwen2.5-7B's 28 / 4
+# and Qwen2-0.5B's 14 / 2 (G = 7), OPT-2.7B's and BLOOM-3b's 32 heads of 80
+# lanes, BLOOM-1b1's 16 of 96; and G = 128, the largest
+ACCEPTED = ((12, 4, 128), (40, 8, 128), (12, 2, 128), (28, 4, 128), (14, 2, 64),
+            (32, 32, 80), (16, 16, 96), (128, 1, 128))
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", ACCEPTED)
+def test_geometries_the_kernel_takes(Hq, Hkv, D):
+    attention_check(Hq, Hkv, D, 64)
+    G = Hq // Hkv
+    plan = attention_plan(2, 129, Hq, Hkv)
+    assert plan.positions == TILE_ROWS // G
+    assert 0 <= TILE_ROWS - G * plan.positions < G  # the tile's padding rows
+
+
 def test_geometries_the_kernel_does_not_take_raise():
-    for D in (16, 32, 80, 96, 512):
+    for D in (16, 32, 48, 112, 512):
         with pytest.raises(ValueError, match="head dims"):
             attention_check(8, 8, D, 64)
+    for D, Dv in ((80, 128), (96, 80), (128, 96)):  # 80 / 96 only as (D, D) pairs
+        with pytest.raises(ValueError, match="head dims"):
+            attention_check(16, 16, D, 64, Dv)
     for D, Dv in ((192, 192), (128, 192), (256, 128), (64, 128)):
         with pytest.raises(ValueError, match="head dims"):
             attention_check(16, 16, D, 64, Dv)
@@ -161,8 +185,8 @@ def test_geometries_the_kernel_does_not_take_raise():
     for ps in (16, 32, 128):
         with pytest.raises(ValueError, match="pages of 64"):
             attention_check(8, 8, 128, ps)
-    for Hq, Hkv in ((12, 4), (40, 8), (256, 1), (9, 2)):  # G = 3, 5, 256; Hq % Hkv
-        with pytest.raises(ValueError, match="dividing 128"):
+    for Hq, Hkv in ((256, 1), (129, 1), (9, 2), (8, 0)):  # G past 128; Hq % Hkv; no kv head
+        with pytest.raises(ValueError, match="query heads a kv head"):
             attention_check(Hq, Hkv, 128, 64)
     with pytest.raises(ValueError):
         attention_plan(65536, 1, 8, 8)
@@ -271,10 +295,13 @@ def test_p_fragments_are_the_score_accumulator():
 # ---------------------------------------------------------------------------
 
 
-def _dequant_rows(pages, page, h, D):
-    """A page's rows of kv head h as fp32: bf16 as it is, e4m3 widened
-    (exact; the scales are applied where the kernel applies them)."""
-    return pages[page, :, h * D:(h + 1) * D].to(torch.float32)
+def _dequant_rows(pages, page, h, D, lanes):
+    """A page's rows of kv head h as fp32, ``lanes`` of them from the
+    head's first (the build's width: past the head's D lanes the next
+    head's, and zeros past the row, as TMA fills them): bf16 as it is, e4m3
+    widened (exact; the scales are applied where the kernel applies them)."""
+    rows = pages[page, :, h * D:h * D + lanes].to(torch.float32)
+    return torch.nn.functional.pad(rows, (0, lanes - rows.shape[1]))
 
 
 def emulate(q, k_pages, v_pages, pt, ctx, qmask, scale, mode="bf16", ks=None, vs=None):
@@ -284,8 +311,12 @@ def emulate(q, k_pages, v_pages, pt, ctx, qmask, scale, mode="bf16", ks=None, vs
     exact products summed in fp64, so a row's result depends only on the
     blocks it walks and the keys it sees there. qmask None: the causal
     rule. mode: bf16, fp8 (static [Hkv] scales) or fp8_tok ([n_pages, ps,
-    Hkv])."""
+    Hkv]). Heads of 80 or 96 lanes run in the 128-lane build's width (D
+    rounded up to whole 64-lane boxes, as ``pa_dispatch`` picks the build):
+    Q zero past D, the rows read from the head's first lane, O's lanes past
+    D dropped."""
     B, Q, Hq, D = q.shape
+    lanes = -(-D // 64) * 64
     Hkv = k_pages.shape[2] // D
     G = Hq // Hkv
     causal = qmask is None
@@ -301,6 +332,7 @@ def emulate(q, k_pages, v_pages, pt, ctx, qmask, scale, mode="bf16", ks=None, vs
                 rows = [(h * G + r // nt, t0 + r % nt) for r in range(G * nt)]
                 nb = key_blocks(c, Q, t0, nt, causal, pt.shape[1])
                 qr = torch.stack([q[b, t, qh] for qh, t in rows]).to(torch.float64)
+                qr = torch.nn.functional.pad(qr, (0, lanes - D))
                 tpos = torch.tensor([t for _, t in rows])
                 kfac = torch.tensor(scale, dtype=torch.float32)
                 if mode == "fp8":
@@ -312,11 +344,11 @@ def emulate(q, k_pages, v_pages, pt, ctx, qmask, scale, mode="bf16", ks=None, vs
                 R = len(rows)
                 m = torch.full((R,), NEG_INF, dtype=torch.float32)
                 lq = torch.zeros(R, 4)  # each quad thread's share of l
-                o = torch.zeros(R, D)
+                o = torch.zeros(R, lanes)
                 for kb in range(nb):
                     page = int(pt[b, kb])
-                    kk = _dequant_rows(k_pages, page, h, D)
-                    vv = _dequant_rows(v_pages, page, h, D)
+                    kk = _dequant_rows(k_pages, page, h, D, lanes)
+                    vv = _dequant_rows(v_pages, page, h, D, lanes)
                     s = (qr @ kk.to(torch.float64).T).to(torch.float32)
                     if mode == "fp8_tok":
                         s = s * kfac * ks[page, :, h]
@@ -351,7 +383,7 @@ def emulate(q, k_pages, v_pages, pt, ctx, qmask, scale, mode="bf16", ks=None, vs
                 inv = 1.0 / torch.where(lt > 0, lt, torch.ones_like(lt))
                 if mode == "fp8":
                     inv = inv * vs[h]
-                res = (o * inv[:, None]).to(torch.bfloat16)
+                res = (o[:, :D] * inv[:, None]).to(torch.bfloat16)
                 for i, (qh, t) in enumerate(rows):
                     out[b, t, qh] = res[i]
     return out
@@ -361,16 +393,17 @@ PS = KEY_BLOCK
 D_EMU = 64
 
 
-def _case(B, ctx, Q, Hkv, G, mode, seed):
+def _case(B, ctx, Q, Hkv, G, mode, seed, D=D_EMU):
     """bf16-exact inputs (q, an arena of ctx + Q written rows a request,
-    permuted page tables) as numpy for JAX and torch for the emulation."""
+    permuted page tables; heads of ``D`` lanes) as numpy for JAX and
+    torch for the emulation."""
     rng = np.random.default_rng(seed)
     P = -(-(max(ctx) + Q) // PS) + 1
     n_pages = B * P + 1
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
-    q = bf(rng.normal(size=(B, Q, G * Hkv, D_EMU)))
-    k = rng.normal(size=(n_pages, PS, Hkv * D_EMU))
-    v = rng.normal(size=(n_pages, PS, Hkv * D_EMU))
+    q = bf(rng.normal(size=(B, Q, G * Hkv, D)))
+    k = rng.normal(size=(n_pages, PS, Hkv * D))
+    v = rng.normal(size=(n_pages, PS, Hkv * D))
     pt = (rng.permutation(n_pages - 1)[:B * P] + 1).reshape(B, P).astype(np.int32)
     ks = vs = None
     if mode == "bf16":
@@ -400,14 +433,29 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 
 
-@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 5, 7])
 @pytest.mark.parametrize("mode", ["bf16", "fp8_tok"])
 @pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
 def test_emulated_body_matches_the_jax_package(G, mode, kind):
     """Against the fp32 reference, and the Pallas kernel of the case in
     interpret mode (the per-token e4m3 kernel serves decode only)."""
+    _body_against_jax(G, mode, kind)
+
+
+@pytest.mark.parametrize("G", [1, 5, 7])
+@pytest.mark.parametrize("mode", ["bf16", "fp8_tok"])
+@pytest.mark.parametrize("Q", [129, 200])
+def test_emulated_wide_tree_verify_matches_the_jax_reference(G, mode, Q):
+    """A tree verify of 129 or 200 rows (several tiles of the mask rule,
+    each walking the keys up to the step's last) against the fp32
+    reference: the JAX package has no Pallas kernel past 128 rows and
+    serves it through XLA, as ``paged_attention_ref`` computes it."""
+    _body_against_jax(G, mode, "verify", Q)
+
+
+def _body_against_jax(G, mode, kind, Q=None):
     B, Hkv, ctx = 2, 2, [70, 133]
-    Q = {"decode": 1, "verify": 17, "prefill": 200}[kind]
+    Q = Q or {"decode": 1, "verify": 17, "prefill": 200}[kind]
     q, kt, vt, kn, vn, pt, ks, vs = _case(B, ctx, Q, Hkv, G, mode, seed=G)
     scale = D_EMU ** -0.5
     ctx_np = np.array(ctx, np.int32)
@@ -431,7 +479,7 @@ def test_emulated_body_matches_the_jax_package(G, mode, kind):
                   None if jks is None else jnp.asarray(jks[0]),
                   None if jvs is None else jnp.asarray(jvs[0]))
     assert _rel(got, ref) < 2e-2
-    if mode == "fp8_tok" and kind != "decode":
+    if (mode == "fp8_tok" and kind != "decode") or Q > 128 and kind == "verify":
         return
     if mode == "fp8_tok":
         pallas = j_paged_attention_tok(jnp.asarray(qn), jnp.asarray(kn)[None],
@@ -453,22 +501,34 @@ def test_emulated_body_matches_the_jax_package(G, mode, kind):
 
 
 @pytest.mark.parametrize("mode", ["bf16", "fp8", "fp8_tok"])
-@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 7])
 def test_emulated_rows_are_the_same_at_every_width_route_and_place(mode, G):
     """A row of a causal 300-token prefill equals, bit for bit, the decode
     of its token over ctx + t keys (Q = 1), at every place of a tile (the
-    first tile's positions with all G heads fill its 128 places; the last
-    tile's rows too), and the same rows inside a 17-wide verify whose mask
-    is causal."""
-    Hkv, ctx, Q = 1, [45], 300
-    q, kt, vt, _, _, pt, ks, vs = _case(1, ctx, Q, Hkv, G, mode, seed=10 + G)
+    first tile's positions with all G heads fill its G * (128 // G) places,
+    126 at G = 7; the last tile's rows too), and the same rows inside a
+    17-wide verify whose mask is causal."""
+    _rows_same(mode, G, 1, D_EMU)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "fp8", "fp8_tok"])
+def test_emulated_rows_of_80_lane_heads_are_the_same_at_every_width_route_and_place(mode):
+    """As above for heads of 80 lanes in the 128-lane build (two kv heads:
+    head 0 reads head 1's first 48 lanes beside its own, head 1 zeros past
+    the row), at G = 2."""
+    _rows_same(mode, 2, 2, 80)
+
+
+def _rows_same(mode, G, Hkv, D):
+    ctx, Q = [45], 300
+    q, kt, vt, _, _, pt, ks, vs = _case(1, ctx, Q, Hkv, G, mode, seed=10 + G, D=D)
     ks_t = None if ks is None else torch.from_numpy(ks)
     vs_t = None if vs is None else torch.from_numpy(vs)
     ptt = torch.from_numpy(pt)
     pre = emulate(q, kt, vt, ptt, ctx, None, 0.125, mode, ks_t, vs_t)
     places = {r for t0, nt, rows in _tiles(Q, G, TILE_ROWS // G)
               for r, _ in enumerate(rows)}
-    assert places == set(range(TILE_ROWS))
+    assert places == set(range(G * (TILE_ROWS // G)))
     one = torch.ones(1, 1, 1, dtype=torch.bool)
     for t in list(range(TILE_ROWS // G)) + list(range(Q - 12, Q)):
         dec = emulate(q[:, t:t + 1], kt, vt, ptt, [ctx[0] + t], one, 0.125, mode, ks_t, vs_t)

@@ -1,9 +1,11 @@
 """The families the port now serves on the card, held against the JAX
 package on the CPU: GPT-J's head dim 256, DeepSeek in expanded MLA (K rows
 of 192 lanes beside V rows of 128), AntGLM's prefix-LM prefill past 128
-rows (K3's window), GPT-2's 50257-column tied head (the table padded to a
-multiple of 8 rows, the logits cut back), the e4m3 tied head, and
-``DistLLM.launch`` over two gloo ranks.
+rows (K3's window), Qwen2's 7 and Qwen3's 5 query heads a kv head, OPT's
+heads of 80 lanes and BLOOM's of 96, a tree verify of 129 rows, GPT-2's
+50257-column tied head (the table padded to a multiple of 8 rows, the
+logits cut back), the e4m3 tied head, and ``DistLLM.launch`` over two
+gloo ranks.
 
 Tolerances: the window's plain attention against JAX's masked reference
 within 1e-5 (fp32, sums in another order); greedy and lookahead tokens
@@ -135,19 +137,50 @@ FAMILIES = {
 }
 
 
+# the attention geometries of published sizes, at two layers and narrow
+# MLPs, as HF config.json keys that both packages' ``from_hf`` read:
+# Qwen2-0.5B's 14 query heads over 2 kv heads of 64 lanes (G = 7, qkv
+# biases), a Qwen3 of 10 over 2 heads of 64 (G = 5, qk-norm), OPT-2.7B's
+# heads of 80 lanes, BLOOM-1b1's heads of 96 (ALiBi)
+HF_FAMILIES = {
+    "qwen2_g7": dict(model_type="qwen2", vocab_size=256, hidden_size=896,
+                     intermediate_size=128, num_hidden_layers=2, num_attention_heads=14,
+                     num_key_value_heads=2, rope_theta=1e6, attention_bias=True,
+                     tie_word_embeddings=False),
+    "qwen3_g5": dict(model_type="qwen3", vocab_size=256, hidden_size=256,
+                     intermediate_size=128, num_hidden_layers=2, num_attention_heads=10,
+                     num_key_value_heads=2, head_dim=64, rope_theta=1e6,
+                     tie_word_embeddings=False),
+    "opt_d80": dict(model_type="opt", vocab_size=256, hidden_size=320, ffn_dim=256,
+                    num_hidden_layers=2, num_attention_heads=4, max_position_embeddings=512,
+                    activation_function="relu"),
+    "bloom_d96": dict(model_type="bloom", vocab_size=256, hidden_size=384, n_layer=2,
+                      n_head=4),
+}
+WIDE_VERIFY = dict(decoding_length=128, branch_length=16, max_seq_len=512)  # Q = 1 + 8 * 16
+
+
 def _pair(kw, seed=3):
-    jc, tc = jcfg.ModelConfig(**kw), tcfg.ModelConfig(**kw)
+    if kw in HF_FAMILIES.values():
+        jc, tc = jcfg.ModelConfig.from_hf(kw), tcfg.ModelConfig.from_hf(kw)
+    else:
+        jc, tc = jcfg.ModelConfig(**kw), tcfg.ModelConfig(**kw)
     jp = jbase.init_params(jc, jax.random.PRNGKey(seed), dtype=jnp.float32)
     return jc, tc, jp, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", sorted(FAMILIES) + sorted(HF_FAMILIES))
 def test_family_serving_matches_jax(family):
     """The engine serves the family with the JAX engine's greedy tokens,
     with lookahead and without, at ``prefill_chunk`` 512 over prompts of 150
     and 140 tokens (AntGLM's window: the second prompt's mask token at 100,
-    so the window ends inside the one chunk)."""
-    jc, tc, jp, tp = _pair(FAMILIES[family])
+    so the window ends inside the one chunk). The published geometries
+    (``HF_FAMILIES``) pass ``check_model_on_card``; Qwen2's also serves a
+    lookahead run whose tree verify is 129 rows wide (``decoding_length``
+    128 in branches of 16), with the JAX engine's tokens."""
+    jc, tc, jp, tp = _pair({**FAMILIES, **HF_FAMILIES}[family])
+    if family in HF_FAMILIES:
+        tbase.check_model_on_card(tc, tp, 64)
     rng = np.random.default_rng(7)
     prompts = [list(map(int, rng.integers(10, 250, 150))),
                list(map(int, rng.integers(10, 250, 140)))]
@@ -157,11 +190,57 @@ def test_family_serving_matches_jax(family):
     want = [r.output_ids for r in JLLM(cfg=jc, params=jp, ecfg=jcfg.EngineConfig(**kw),
                                        dtype=jnp.float32).generate(prompts,
                                                                    JSP(max_new_tokens=10))]
-    for la in (False, True):
+    runs = [dict(use_lookahead=False), dict(use_lookahead=True)]
+    if family == "qwen2_g7":
+        runs.append(dict(use_lookahead=True, **WIDE_VERIFY))
+    for run in runs:
         tl = TLLM(cfg=tc, params=tp, dtype=torch.float32, device="cpu",
-                  ecfg=tcfg.EngineConfig(use_lookahead=la, **kw))
+                  ecfg=tcfg.EngineConfig(**{**kw, **run}))
         got = [r.output_ids for r in tl.generate(prompts, TSP(max_new_tokens=10))]
-        assert got == want, (family, la)
+        assert got == want, (family, run)
+        if run.get("decoding_length") == 128:
+            assert tl.tcfg.verify_width == 129 and tl.metrics.spec_steps > 0
+
+
+# the published config.json sizes whose attention geometry the card took
+# last: G = 7 / 6 / 5, heads of 80 and 96 lanes
+PUBLISHED = {
+    "Qwen2.5-7B": dict(model_type="qwen2", hidden_size=3584, num_attention_heads=28,
+                       num_key_value_heads=4, intermediate_size=18944, vocab_size=152064),
+    "Qwen2.5-1.5B": dict(model_type="qwen2", hidden_size=1536, num_attention_heads=12,
+                         num_key_value_heads=2, intermediate_size=8960, vocab_size=151936),
+    "Qwen2.5-14B": dict(model_type="qwen2", hidden_size=5120, num_attention_heads=40,
+                        num_key_value_heads=8, intermediate_size=13824, vocab_size=152064),
+    "Qwen3-14B": dict(model_type="qwen3", hidden_size=5120, num_attention_heads=40,
+                      num_key_value_heads=8, head_dim=128, intermediate_size=17408,
+                      vocab_size=151936),
+    "OPT-2.7B": dict(model_type="opt", hidden_size=2560, num_attention_heads=32,
+                     ffn_dim=10240, vocab_size=50272, max_position_embeddings=2048),
+    "BLOOM-3b": dict(model_type="bloom", hidden_size=2560, n_head=32, vocab_size=250880),
+    "BLOOM-1b1": dict(model_type="bloom", hidden_size=1536, n_head=16, vocab_size=250880),
+}
+
+
+@pytest.mark.parametrize("name", list(PUBLISHED))
+def test_check_model_on_card_takes_the_published_geometries(name):
+    """``check_model_on_card`` (the attention geometry; no weights given)
+    accepts each published size, as both packages' ``from_hf`` read it, and
+    still raises, with the reason, for pages other than 64 keys, more than
+    128 query heads a kv head and a head dim off the kernel's pairs."""
+    import dataclasses
+
+    tc = tcfg.ModelConfig.from_hf(PUBLISHED[name])
+    jc = jcfg.ModelConfig.from_hf(PUBLISHED[name])
+    assert (tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim) == (
+        jc.num_attention_heads, jc.num_key_value_heads, jc.head_dim)
+    tbase.check_model_on_card(tc, {}, 64)
+    with pytest.raises(ValueError, match="pages of 64"):
+        tbase.check_model_on_card(tc, {}, 32)
+    wide = dataclasses.replace(tc, num_attention_heads=256 * tc.num_key_value_heads)
+    with pytest.raises(ValueError, match="query heads a kv head"):
+        tbase.check_model_on_card(wide, {}, 64)
+    with pytest.raises(ValueError, match="head dims"):
+        tbase.check_model_on_card(dataclasses.replace(tc, head_dim=112), {}, 64)
 
 
 # ---------------------------------------------------------------------------

@@ -522,13 +522,13 @@ def test_attention_refuses_what_the_kernel_does_not_take(cuda):
     one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
     with pytest.raises(ValueError, match="pages of 64"):
         paged_attention(q, k, v, pt, ctx, one, 0.1)
-    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 4, D=96)
-    q = torch.randn(1, 1, 4, 96, generator=cuda, device="cuda").to(torch.bfloat16)
+    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 4, D=112)
+    q = torch.randn(1, 1, 4, 112, generator=cuda, device="cuda").to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         paged_attention(q, k, v, pt, ctx, one, 0.1)
-    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 4)
-    q = torch.randn(1, 1, 12, 128, generator=cuda, device="cuda").to(torch.bfloat16)
-    with pytest.raises(ValueError, match="dividing 128"):  # G = 3
+    k, v, pt, ctx = _arena(cuda, 1, [40], 1, 1)
+    q = torch.randn(1, 1, 256, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="query heads a kv head"):  # G = 256
         paged_attention(q, k, v, pt, ctx, one, 0.1)
 
 
@@ -1119,6 +1119,7 @@ def _mla_q(g, B, Q, H):
                                         ("decode", 1, [C - 40, 2 * C - 1, 2 * C, 3 * C + 1]),
                                         ("verify", 17, [4096, 70]),
                                         ("verify", 17, [C - 17, C - 16, C - 15]),
+                                        ("verify", 129, [4096, 300]),
                                         ("prefill", 300, [0, 512]),
                                         ("prefill", 300, [C - 100, 2 * C - 1])])
 def test_mla_attention(cuda, H, kind, Q, ctx):
@@ -2386,7 +2387,7 @@ def test_legacy_refusals_raise_when_the_engine_is_built(cuda):
     padded to a multiple of 8 rows and the logits cut back), AntGLM's
     prefix-LM prefill at Q > 128 (K3's window) and DeepSeek's expanded MLA
     (K2 / K3 at (192, 128)); each with lookahead equal to AR. A head dim
-    off the kernel's pairs (80) still raises when LLM is built."""
+    off the kernel's pairs (112) still raises when LLM is built."""
     import dataclasses
 
     from painlessinferenceacceleration_tpu_torch.config import EngineConfig, ModelConfig
@@ -2424,11 +2425,11 @@ def test_legacy_refusals_raise_when_the_engine_is_built(cuda):
                 SamplingParams(max_new_tokens=24))])
         assert outs[0] == outs[1], cfg.model_type
         assert all(0 <= t < cfg.vocab_size for o in outs[0] for t in o)
-    bad = ModelConfig(model_type="gptj", vocab_size=512, hidden_size=160,
-                      intermediate_size=160, num_hidden_layers=1, num_attention_heads=2,
+    bad = ModelConfig(model_type="gptj", vocab_size=512, hidden_size=224,
+                      intermediate_size=224, num_hidden_layers=1, num_attention_heads=2,
                       num_key_value_heads=2, norm_type="layernorm", gated_mlp=False,
                       hidden_act="gelu_new", parallel_residual=True, rope_interleaved=True,
-                      partial_rotary_factor=0.25, mlp_bias=True)  # head dim 80
+                      partial_rotary_factor=0.25, mlp_bias=True)  # head dim 112
     with pytest.raises(ValueError, match="head dims"):
         LLM(cfg=bad, params=init_params(bad, cuda, dtype=torch.bfloat16), ecfg=ecfg)
 
@@ -2994,3 +2995,161 @@ def test_fp8_tied_head_serves_with_lookahead_equal_to_ar(cuda):
     assert fp8_head_matmul.launches > before
     assert outs[0] == outs[1]
     assert all(0 <= t < 257 for o in outs[0] for t in o)
+
+
+# ---------------------------------------------------------------------------
+# the geometries of Qwen2 / Qwen2.5 / Qwen3 (5, 6 and 7 query heads a kv
+# head), OPT's and BLOOM's heads of 80 and 96 lanes (the 128-lane build at
+# the heads' own widths), tree verify past 128 rows, and the TP-mode W8A8
+# experts' whole-row amax
+# ---------------------------------------------------------------------------
+
+# (G, head dim, ALiBi): the name of each geometry
+GEOMETRIES = {"G5": (5, 128, False), "G6": (6, 128, False), "G7": (7, 128, False),
+              "D80": (1, 80, False), "D80_alibi": (4, 80, True), "D96": (2, 96, False),
+              "D96_alibi": (1, 96, True)}
+GEOMETRY_KINDS = {"decode": 1, "verify": 17, "verify129": 129, "prefill": 512}
+
+
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+@pytest.mark.parametrize("kind", list(GEOMETRY_KINDS))
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_new_geometries_in_every_arena_and_route(cuda, geom, kind, arena):
+    """K2 / K3 / K5 against the plain version at G = 5, 6, 7 (a tile's last
+    128 - G * (128 // G) rows padding) and at heads of 80 and 96 lanes
+    (the next head's lanes read beside a head's own, TMA's zeros past the
+    last), with and without ALiBi, two kv heads, ragged contexts: decode,
+    a 17-row and a 129-row tree verify (the mask rule over two tiles and
+    more), a 512-row prefill. The launch counts under the head dims and
+    the group."""
+    G, D, alibi = GEOMETRIES[geom]
+    Q = GEOMETRY_KINDS[kind]
+    rule = "prefill" if kind == "prefill" else "decode" if Q == 1 else "verify"
+    Hkv = 2
+    Hq = G * Hkv
+    attend, plain, ctx_t, _ = _pair_arena(cuda, 2, [640, 77], Q, Hkv, D, D, arena)
+    q = torch.randn(2, Q, Hq, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = None if rule == "prefill" else _mask(cuda, 2, Q)
+    al = _slopes(Hq) if alibi else None
+    pos = None
+    if alibi and rule == "verify":
+        step = torch.randint(0, Q, (2, Q), generator=cuda, device="cuda")
+        pos = (ctx_t[:, None] + step).to(torch.int32).contiguous()
+    wrapper = paged_attention_tok if arena == "fp8_tok" else (
+        paged_attention_prefill if rule == "prefill" else paged_attention)
+    dims = f"{D}x{D},{rule},{arena}"
+    before = (wrapper.dims[dims], wrapper.groups[f"{G},{rule},{arena}"])
+    got = attend(q, qm, alibi=al, pos=pos)
+    assert (wrapper.dims[dims], wrapper.groups[f"{G},{rule},{arena}"]) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (2, Q, Hq, D)
+    ref_qm = causal_qmask(Q, "cuda")[None].expand(2, Q, Q) if qm is None else qm
+    assert _rel(got, plain(q, ref_qm, alibi=al, pos=pos)) < 2e-2
+
+
+@pytest.mark.parametrize("G,D", [(7, 128), (1, 80), (2, 96)])
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "fp8_tok"])
+def test_new_geometries_prefill_rows_equal_their_decodes(cuda, G, D, arena):
+    """A causal prefill row (Q = 300, at every place of the first tile and
+    at the last rows) is bit-equal to the Q = 1 decode of its token, and
+    the rows of a 129-row verify whose mask is causal to the prefill's: at
+    G = 7 (126 rows of a tile) and at heads of 80 and 96 lanes."""
+    Q, Hkv = 300, 2
+    attend, _, ctx_t, _ = _pair_arena(cuda, 1, [45], Q, Hkv, D, D, arena)
+    q = torch.randn(1, Q, G * Hkv, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    pre = attend(q, None)
+    one = torch.ones(1, 1, 1, dtype=torch.bool, device="cuda")
+    for t in list(range(128 // G)) + list(range(Q - 5, Q)):
+        row = attend(q[:, t:t + 1].contiguous(), one, ctx_t + t)
+        assert torch.equal(pre[:, t:t + 1], row), (G, D, arena, t)
+    t0 = 150
+    ver = attend(q[:, t0:t0 + 129].contiguous(), causal_qmask(129, "cuda")[None],
+                 ctx_t + t0)
+    assert torch.equal(ver, pre[:, t0:t0 + 129])
+
+
+@pytest.mark.parametrize("G,D", [(7, 128), (1, 80), (2, 96), (4, 128)])
+@pytest.mark.parametrize("Q,causal", [(17, False), (129, False), (300, True)])
+def test_cp_partial_over_a_page_range_at_the_new_geometries(cuda, G, D, Q, causal):
+    """A context-parallel rank's call (``cp_partial``: K2 under a tree mask
+    at any width, a 129-row verify over several tiles, K3 for a causal
+    chunk past 128 rows) with a page range and the log-sum-exp at G = 7,
+    at heads of 80 and 96 lanes and at G = 4: rows within rel 2e-2 and
+    log-sum-exp within 2e-3 of the plain twin, rows that see no key in the
+    range 0 with -inf (a range past every page: all of them); and the
+    range of every page gives the bits of the call without one."""
+    from painlessinferenceacceleration_tpu_torch.ops.cp_attention import cp_partial
+
+    Hkv = 2
+    attend, _, ctx_t, pt = _pair_arena(cuda, 2, [640, 77], Q, Hkv, D, D, "bf16")
+    k, v = attend.kv
+    q = torch.randn(2, Q, G * Hkv, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = (causal_qmask(Q, "cuda")[None].expand(2, Q, Q).contiguous() if causal
+          else _mask(cuda, 2, Q))
+    sc = D ** -0.5
+    lo, end = int(pt.min()) + 3, k.shape[0]
+    for rng in ((lo, lo + pt.numel() // 2), (end, end + 4)):
+        out, lse = cp_partial(q, k, v, pt, ctx_t, qm, sc, causal, rng)
+        ref, ref_lse = paged_attention_ref(q, k, v, pt, ctx_t, qm, sc, page_range=rng,
+                                           return_lse=True)
+        empty = torch.isinf(ref_lse)
+        assert torch.equal(torch.isinf(lse), empty), rng
+        assert (out[empty[..., None].expand_as(out)] == 0).all(), rng
+        fin = ~empty
+        if fin.any():
+            assert (lse[fin] - ref_lse[fin]).abs().max().item() < 2e-3, rng
+            assert _rel(out, ref) < 2e-2, rng
+    full, _ = cp_partial(q, k, v, pt, ctx_t, qm, sc, causal, (0, end))
+    assert torch.equal(full, attend(q, None if causal else qm))
+
+
+@pytest.mark.parametrize("Q", [9, 10, 18, 19, 36, 37])
+@pytest.mark.parametrize("arena", ["bf16", "fp8_tok"])
+def test_attention_at_tile_edges_of_seven_heads(cuda, Q, arena):
+    """G = 7: Q * G at the edges of the 126-row tile (63 / 70 rows: one
+    warpgroup's rows or two; 126 / 133: one tile full, or a second tile of
+    one position; 252 / 259), by the mask rule and the causal rule, against
+    the plain version."""
+    Hkv = 4
+    attend, plain, ctx_t, _ = _pair_arena(cuda, 2, [70, 333], Q, Hkv, 128, 128, arena)
+    q = torch.randn(2, Q, 7 * Hkv, 128, generator=cuda, device="cuda").to(torch.bfloat16)
+    qm = _mask(cuda, 2, Q)
+    assert _rel(attend(q, qm), plain(q, qm)) < 2e-2
+    cq = causal_qmask(Q, "cuda")[None].expand(2, Q, Q)
+    assert _rel(attend(q, None), plain(q, cq)) < 2e-2
+
+
+def test_tp_moe_w8a8_experts_quantize_with_the_whole_row_amax(cuda, tmp_path):
+    """Two ranks share cuda:0 over gloo and serve a Mixtral-shaped MoE (bf16,
+    dynamic W8A8 int8 experts) under tensor parallelism: each rank's int8
+    activations and per-token scales of layer 0's expert down products,
+    taken from the serving path, equal, bit for bit, the rank's columns of
+    one process's (an intermediate width of 384, 192 a rank, so that the
+    down products' rows are told apart from the hidden width's 256), and
+    both ranks end on the same tokens, lookahead equal to AR."""
+    import dataclasses
+
+    from _torch_dist import Ranks
+
+    from painlessinferenceacceleration_tpu_torch.config import ModelConfig
+    from painlessinferenceacceleration_tpu_torch.models.base import init_params
+
+    cfg = ModelConfig(model_type="mixtral", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=64, num_experts=8,
+                      num_experts_per_tok=2, moe_intermediate_size=384, moe_layer_start=0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                         device="cpu", quant=QuantSpec.from_mode("w8a8_int8"))
+    base = dict(page_size=64, max_seq_len=512, max_concurrency=2, eos_token_id=-2,
+                quant="w8a8_int8")
+    case = dict(world=2, cfg=dataclasses.asdict(cfg), params=params, mesh=(1, 2),
+                prompts=[[11, 22, 33, 44, 55] * 6, [7, 8, 9] * 10], max_new=16,
+                device="cuda", dtype="bfloat16")
+    cases = [dict(case, name="ar", ecfg=base, tp_quant=True),
+             dict(case, name="la", ecfg=dict(base, use_lookahead=True, decoding_length=16,
+                                             branch_length=8))]
+    res = Ranks(2, cases, str(tmp_path), timeout=400).results()
+    for r in res:
+        assert r["ar"]["tp_quant_equal"] is True
+        assert r["ar"]["tokens"] == res[0]["ar"]["tokens"]
+        assert r["la"]["tokens"] == r["ar"]["tokens"]

@@ -539,6 +539,26 @@ def test_params_from_state_dict_matches_jax(family, quant):
     _assert_same_tree(ttree, params_from_jax(jax.tree.map(np.asarray, jtree), "cpu"))
 
 
+def test_qwen2_biases_without_the_config_key(tmp_path):
+    """A qwen2 config.json as Qwen publishes it, with no attention_bias key:
+    ``from_hf`` still maps the q / k / v biases (HF's Qwen2 always has
+    them) and ``load_model`` reads them; a llama checkpoint with q / k / v
+    biases that its config does not declare is refused, not served
+    without them."""
+    conf = {k: v for k, v in SCHEMES["qwen2"].items() if k != "attention_bias"}
+    tc = tcfg_mod.ModelConfig.from_hf(dict(conf))
+    assert tc.attention_bias and tc == tcfg_mod.ModelConfig.from_hf(SCHEMES["qwen2"])
+    sd = _state_dict("qwen2", tc, seed=3)
+    st.write_checkpoint(str(tmp_path / "qwen2"), sd, conf, n_shards=1)
+    cfg, params, _ = thf.load_model(str(tmp_path / "qwen2"), device="cpu")
+    bq = sd["model.layers.0.self_attn.q_proj.bias"]
+    assert cfg == tc and torch.equal(params["layers"]["bqkv"][0, :bq.numel()], bq)
+    llama = SCHEMES["llama"]
+    st.write_checkpoint(str(tmp_path / "llama"), sd, llama, n_shards=1)
+    with pytest.raises(ValueError, match="q / k / v biases"):
+        thf.load_model(str(tmp_path / "llama"), device="cpu")
+
+
 def test_load_model_from_a_sharded_directory(tmp_path):
     """load_model reads config.json and the shards through the index; the
     pre-quantized DeepSeek-V3 checkpoint adopts the fp8_block spec."""

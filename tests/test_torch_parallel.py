@@ -20,7 +20,8 @@
   JAX package serves beyond those: CP for MLA (latent and expanded) and
   for a hybrid, DP for a hybrid (its recurrent states bit-equal on both
   ranks after every step) and for multimodal requests, EP for W8A8
-  experts.
+  experts, TP-mode MoE with W8A8 experts (each rank's quantized expert
+  activations bit-equal to one process's columns: the whole row's amax).
 - Context-parallel attention: the ranks' partials merged against JAX's
   ``cp_paged_attention`` within 1e-5 in fp32, with GQA and with a row that
   has no local key; MLA's latent partials (K13's plain twin over each
@@ -404,6 +405,7 @@ def served(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("dist"))
     both = {f: pc.port_params(f) for f in ("dense", "moe", "mla", "mla_x", "hybrid")}
     both["ep_w8a8"] = pc.port_params("ep", quant="w8a8_int8")
+    both["moe_w8a8"] = pc.port_params("moe_q", quant="w8a8_int8")
     tps = {f: p[0] for f, p in both.items()}
     tps["ep"] = tps["moe"]  # the same draw: expert_parallel changes no weight
     look, case = pc.LOOK, pc.case
@@ -429,11 +431,14 @@ def served(tmp_path_factory):
         case("mm_dp", "dense", tps["dense"], (2, 1), 2, look, mm=mm),
         case("ep_w8a8", "ep", tps["ep_w8a8"], (1, 2), 2, dict(look, quant="w8a8_int8"),
              logits=True, ep_block=True),
+        case("moe_tp_w8a8", "moe_q", tps["moe_w8a8"], (1, 2), 2,
+             dict(look, quant="w8a8_int8"), logits=True, tp_quant=True),
     ], tmp)
     refs = {f: pc.jax_reference(f, both[f][1])
             for f in ("dense", "moe", "mla", "mla_x", "hybrid")}
     refs["ep"] = refs["moe"]
     refs["ep_w8a8"] = pc.jax_reference("ep", both["ep_w8a8"][1], quant="w8a8_int8")
+    refs["moe_w8a8"] = pc.jax_reference("moe_q", both["moe_w8a8"][1], quant="w8a8_int8")
     refs["mm"] = pc.jax_reference("dense", both["dense"][1], mm=mm)
     return ranks.results(), refs
 
@@ -442,7 +447,7 @@ CASES = [("tp_la", "dense"), ("cp", "dense"), ("moe_tp", "moe"), ("ep", "ep"),
          ("mla_tp", "mla"), ("hybrid_tp", "hybrid"), ("mix", "dense"),
          ("timely", "dense"), ("mla_cp", "mla"), ("mla_x_cp", "mla_x"),
          ("hybrid_cp", "hybrid"), ("hybrid_dp", "hybrid"), ("mm_dp", "mm"),
-         ("ep_w8a8", "ep_w8a8")]
+         ("ep_w8a8", "ep_w8a8"), ("moe_tp_w8a8", "moe_w8a8")]
 
 
 @pytest.mark.parametrize("name,fam", CASES, ids=[c[0] for c in CASES])

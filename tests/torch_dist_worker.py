@@ -14,9 +14,11 @@ logits), ``ep_block`` (the MoE block of layer 0 against one process's
 ``DistLLM.launch`` first: rank 0 streams each from a thread of its own,
 ``stagger`` seconds apart, the last through ``async_stream_generate``),
 ``mm`` (a prompt's multimodal embeddings and their positions, or None:
-the prompts are queued with ``add_request`` and served by ``step``) and
+the prompts are queued with ``add_request`` and served by ``step``),
 ``state_hashes`` (a digest of a hybrid's recurrent states after every
-step). Imports torch and the port only.
+step) and ``tp_quant`` (under TP-mode MoE with dynamic W8A8 experts, this
+rank's quantized down-product activations of layer 0 against the columns
+of one process's). Imports torch and the port only.
 """
 
 import contextlib
@@ -81,6 +83,56 @@ def _ep_block(dl, case):
     with expert_shards(dl.mesh.tp):
         want = moe_block(full, cfg_full, dl.quant, h)
     return bool(torch.equal(got, want))
+
+
+@contextlib.contextmanager
+def _quantized(K):
+    """Every (rows, int8 / e4m3 values, per-token scales) that the W8A8
+    activation quantization (``ops.w8a8.quant_act``, which each W8A8 GEMM
+    call goes through) makes of rows of K lanes while open, in call order."""
+    from painlessinferenceacceleration_tpu_torch.ops import w8a8
+
+    got, plain = [], w8a8.quant_act
+
+    def record(x2, *args, **kw):
+        xq, xs = plain(x2, *args, **kw)
+        if x2.shape[-1] == K:
+            got.append((x2, xq, xs))
+        return xq, xs
+
+    w8a8.quant_act = record
+    try:
+        yield got
+    finally:
+        w8a8.quant_act = plain
+
+
+def _tp_quant(dl, case):
+    """Layer 0's MoE block on one input under tensor parallelism and in one
+    process, the activations of its expert down products taken from the
+    serving path (``_quantized``: rows of the rank's and of the whole
+    intermediate width, which differ from the hidden width): this rank's
+    int8 values and per-token scales equal, bit for bit, its columns of one
+    process's (``tp_quant_equal``)."""
+    from painlessinferenceacceleration_tpu_torch.models.base import _layer_of
+    from painlessinferenceacceleration_tpu_torch.models.moe import moe_block
+    from painlessinferenceacceleration_tpu_torch.parallel.mesh import plan_shards
+
+    g = torch.Generator().manual_seed(6)
+    h = (torch.randn(1, 7, dl.cfg.hidden_size, generator=g) * 0.5).to(dl.dtype).to(dl.device)
+    full = _layer_of(_to(case["params"]["moe_layers"], dl.device), 0)
+    cfg = ModelConfig(**case["cfg"])
+    st = dl.rank_state
+    lo, hi = plan_shards(cfg, dl.mesh.tp, case["params"]).moe[st.model_rank]
+    with _quantized(hi - lo) as mine:
+        moe_block(_layer_of(dl.params["moe_layers"], 0), dl.cfg, dl.quant, h, st)
+    I = cfg.moe_intermediate_size or cfg.intermediate_size
+    with _quantized(I) as one:
+        moe_block(full, cfg, dl.quant, h)
+    same = len(mine) == len(one) == cfg.num_experts and hi - lo < I
+    for (_, q_r, s_r), (_, q_1, s_1) in zip(mine, one):
+        same &= bool(torch.equal(q_r, q_1[:, lo:hi]) and torch.equal(s_r, s_1))
+    return same
 
 
 def _pages_on_ranks(dl, case):
@@ -235,6 +287,8 @@ def main() -> None:
             res["logits"] = _prefill_logits(dl, case["logits_prompt"])
         if case.get("ep_block"):
             res["ep_block_equal"] = _ep_block(dl, case)
+        if case.get("tp_quant"):
+            res["tp_quant_equal"] = _tp_quant(dl, case)
         if case.get("cp_oracle"):
             res["pages_on_ranks"] = _pages_on_ranks(dl, case)
         if case.get("stagger") is not None:
